@@ -1,0 +1,293 @@
+"""Plan/Session: the declarative frontend over the futurized runtime.
+
+Counterpart: ``repro/frontend/plan.py`` (``Plan``, and ``Session``'s
+``__init__``, ``close``, ``stats``, ``_serve_steps_for`` and ``serve``).
+A ``Plan`` is the *what* of a run, a frozen value that touches no device
+state; ``plan.compile()`` builds a ``Session`` that owns ONE futurized
+runtime (``core/futures.py``) for every host-side task of the session.
+
+``Plan`` has the JAX package's fields plus ``device``, which is ``"cuda"``
+unless the caller asks for ``"cpu"``: a CUDA plan on a machine without a
+GPU raises, it never carries on on the CPU.  The port serves on one
+device; plans that need more (localities, DDP, SPMD, elastic membership,
+replicas, mesh axes) raise ``NotImplementedError`` naming the ROADMAP item
+that brings them.  Training comes with the next slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from ..configs import get_config
+from ..core import steps as steps_lib
+from ..core.futures import FuturizedGraph, Lane
+from ..core.sharding import init_params
+from .futurize import Trace
+
+__all__ = ["Plan", "Session"]
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """Declarative run description: arch + mesh axes + strategy + shapes.
+
+    The fields are those of ``repro.frontend.Plan`` (see its docstring);
+    the port runs the single-device, single-process subset of them.
+
+    Fields added by the port:
+        device: ``"cuda"`` (the default) or ``"cpu"``.
+    """
+    arch: str = "qwen3-4b"
+    tiny: bool = True
+    data: int = 1
+    model: int = 1
+    pod: int = 1
+    mesh: str = "local"                  # local | single | multipod
+    strategy: Any = "phylanx"
+    batch: int = 8
+    seq: int = 64
+    seed: int = 0
+    shape: Optional[str] = None          # named SHAPES cell (dryrun)
+    remat: bool = False
+    localities: int = 1                  # processes incl. the driver
+    spmd: bool = False
+    ddp: bool = False
+    grad_codec: str = "fp32"
+    ddp_shards: int = 0
+    ckpt_dir: str = ""
+    elastic: bool = False
+    elastic_port: int = 0
+    replicas: int = 1
+    overrides: dict = dataclasses.field(default_factory=dict)
+    device: str = "cuda"
+
+    def config(self):
+        cfg = get_config(self.arch, tiny=self.tiny)
+        over = dict(self.overrides)
+        if self.tiny:
+            over.setdefault("remat", self.remat)
+        return dataclasses.replace(cfg, **over) if over else cfg
+
+    def compile(self) -> "Session":
+        """Build the runnable ``Session`` for this plan.  Use it as a
+        context manager so the shutdown barrier always runs."""
+        return Session(self)
+
+
+def _unsupported(plan: Plan) -> Optional[str]:
+    if plan.localities > 1:
+        return "localities > 1 (the multi-locality runtime, ROADMAP item 12)"
+    if plan.ddp:
+        return "ddp=True (fabric DDP, ROADMAP item 12)"
+    if plan.spmd:
+        return "spmd=True (SPMD mode, ROADMAP item 13)"
+    if plan.elastic:
+        return "elastic=True (elastic membership, ROADMAP item 13)"
+    if plan.replicas > 1:
+        return "replicas > 1 (the serving gateway, ROADMAP item 7)"
+    if plan.mesh != "local" or plan.data * plan.model * plan.pod != 1:
+        return "mesh axes (mesh-parallel strategies, ROADMAP item 14)"
+    if plan.shape is not None:
+        return "named shapes (dryrun, ROADMAP item 15)"
+    return None
+
+
+class Session:
+    """Compiled form of a ``Plan``: the device, lazily built serve steps,
+    and one futurized runtime for every host-side task.  Use as a context
+    manager (or call ``close()``) to run the shutdown barrier."""
+
+    def __init__(self, plan: Plan, *, max_workers: int = 4):
+        self.device = torch.device(plan.device)
+        if self.device.type not in ("cuda", "cpu"):
+            raise ValueError(f"Plan(device={plan.device!r}): the port runs "
+                             f"on 'cuda' or 'cpu'")
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                f"Plan(device={plan.device!r}) but torch.cuda.is_available() "
+                f"is False: the port runs on a CUDA device; pass "
+                f"device='cpu' to run its plain versions on the CPU")
+        missing = _unsupported(plan)
+        if missing is not None:
+            raise NotImplementedError(f"the port does not run {missing} yet")
+        self.plan = plan
+        self.cfg = plan.config()
+        self.runtime = FuturizedGraph(max_workers=max_workers,
+                                      name=f"session:{plan.arch}")
+        self._serve_steps: dict[tuple, tuple] = {}
+        self._closed = False
+
+    # -- lifecycle ----------------------------------------------------------
+    def close(self):
+        """Run the shutdown barrier: drain and stop the runtime.
+        Idempotent."""
+        if not self._closed:
+            self._closed = True
+            self.runtime.shutdown(wait=True)
+
+    def __enter__(self) -> "Session":
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    def stats(self):
+        """The session runtime's ``RuntimeStats``."""
+        return self.runtime.stats()
+
+    # -- steps --------------------------------------------------------------
+    def _serve_steps_for(self, prompt_len: int, gen_len: int, slots: int):
+        key = (prompt_len, gen_len, slots)
+        if key not in self._serve_steps:
+            cache_len = prompt_len + gen_len
+            pre = steps_lib.make_prefill_step(
+                self.cfg, {"seq_len": cache_len, "global_batch": slots,
+                           "kind": "prefill"})
+            dec = steps_lib.make_decode_step(
+                self.cfg, {"seq_len": cache_len, "global_batch": slots,
+                           "kind": "decode"})
+            self._serve_steps[key] = (pre, dec)
+        return self._serve_steps[key]
+
+    # -- serve --------------------------------------------------------------
+    def serve(self, requests: int = 8, *, prompt_len: int = 32,
+              gen_len: int = 16, slots: int = 4, prompts=None,
+              verbose: bool = True) -> dict:
+        """Batched prefill + greedy decode with slot refill, as a futurized
+        tree: each wave is a ``prefill`` node plus ``gen_len`` chained
+        ``decode`` nodes (dependency edges carry the (token, cache) pair),
+        while the next wave's host prep runs as a PREFETCH node.
+
+        Args:
+            requests: request count when ``prompts`` is None (otherwise
+                ``len(prompts)`` wins).
+            prompt_len: tokens per prompt (synthetic prompts only).
+            gen_len: decode steps per request.
+            slots: decode slots per wave (idle slots are padded).
+            prompts: optional list of int32 token arrays.
+            verbose: print the throughput summary line.
+        Returns:
+            dict with the JAX package's keys - ``tokens_per_s``,
+            ``requests``, ``tokens``, ``padded_tokens``, the traced node
+            ``nodes``/``trace`` and ``runtime_stats`` - plus ``waves``,
+            ``generated`` (per wave, the ``[slots, gen_len + 1]`` greedy
+            tokens on the CPU, padded slots included) and
+            ``first_prefill_logits`` (wave 0's ``[slots, vocab]`` prefill
+            logits on the CPU).
+        """
+        plan, runtime, cfg, dev = self.plan, self.runtime, self.cfg, self.device
+        pre, dec = self._serve_steps_for(prompt_len, gen_len, slots)
+        params = init_params(
+            pre.specs, torch.Generator(device=dev).manual_seed(plan.seed), dev)
+
+        if prompts is None:
+            rng = np.random.default_rng(plan.seed)
+            prompts = [rng.integers(0, cfg.vocab,
+                                    prompt_len).astype(np.int32)
+                       for _ in range(requests)]
+        waiting = list(prompts)
+        requests = len(waiting)
+        if not waiting:        # nothing to serve: no dummy wave, no tokens
+            return {"tokens_per_s": 0.0, "requests": 0, "tokens": 0,
+                    "padded_tokens": 0, "nodes": [], "trace": [],
+                    "runtime_stats": self.runtime.stats().to_json(),
+                    "waves": 0, "generated": [], "first_prefill_logits": None}
+
+        def prepare_wave(wave) -> dict:
+            toks = torch.from_numpy(np.stack(wave)).to(dev, torch.int64)
+            return {"tokens": toks}
+
+        def defer_wave(wave, w: int):
+            return runtime.defer(prepare_wave, wave, lane=Lane.PREFETCH,
+                                 name=f"wave:{w}")
+
+        def take_wave() -> tuple[list, int]:
+            wave = [waiting.pop() for _ in range(min(slots, len(waiting)))]
+            n_real = len(wave)
+            while len(wave) < slots:            # pad idle slots
+                wave.append(np.zeros(prompt_len, np.int32))
+            return wave, n_real
+
+        padded_out = 0
+        generated: list[torch.Tensor] = []     # per wave, in wave order
+        first_logits: list[torch.Tensor] = []
+
+        def _prefill(batch, *_prev_tail):
+            # *_prev_tail: dispatch-order edge from the previous wave's last
+            # decode node; its value is unused
+            logits, cache = pre.fn(params, batch)
+            if not first_logits:
+                first_logits.append(logits)
+            tok = logits.argmax(-1)[:, None]
+            out = torch.empty((slots, gen_len + 1), dtype=torch.int64,
+                              device=dev)
+            out[:, 0] = tok[:, 0]
+            generated.append(out)
+            return tok, cache, out
+
+        def _decode(carry, pos):
+            tok, cache, out = carry
+            logits, cache = dec.fn(params, cache, {"tokens": tok}, pos)
+            tok = logits.argmax(-1)[:, None]
+            out[:, pos - prompt_len + 1] = tok[:, 0]
+            return tok, cache, out
+
+        tracer = Trace(runtime)
+        remove = runtime.add_trace_hook(tracer.record)
+        done, tokens_out, w = 0, 0, 0
+        t0 = time.perf_counter()
+        try:
+            wave, n_real = take_wave()
+            batch_fut = defer_wave(wave, 0)
+            tail = None
+            while True:
+                nxt = None
+                if waiting and done + n_real < requests:
+                    next_wave, next_real = take_wave()
+                    nxt = (defer_wave(next_wave, w + 1), next_real)
+                # The wave's futurized tree, built up-front: nothing below
+                # waits for the device, so prefill and every decode step
+                # stay queued back-to-back on the stream.
+                deps = (batch_fut,) if tail is None else (batch_fut, tail)
+                carry = runtime.defer(_prefill, *deps, name=f"prefill:w{w}")
+                for t in range(gen_len):
+                    carry = runtime.defer(_decode, carry, prompt_len + t,
+                                          name=f"decode:w{w}:t{t}")
+                tail = carry
+                # padded idle slots decode too, but their tokens are not
+                # throughput: account them separately
+                tokens_out += n_real * gen_len
+                padded_out += (slots - n_real) * gen_len
+                runtime.record_serve(
+                    real_tokens=n_real * gen_len,
+                    padded_slot_tokens=(slots - n_real) * gen_len)
+                done += n_real
+                if nxt is None:
+                    break
+                batch_fut, n_real = nxt
+                w += 1
+            tail.result()
+            if dev.type == "cuda":            # honest timing: retire it all
+                torch.cuda.synchronize(dev)
+        finally:
+            remove()
+        dt = time.perf_counter() - t0
+        tps = tokens_out / dt
+        st = runtime.stats()
+        nodes = tracer.names()
+        n_decode = sum(n.startswith("decode:") for n in nodes)
+        if verbose:
+            print(f"[serve] {requests} requests, {tokens_out} tokens in "
+                  f"{dt:.2f}s -> {tps:.1f} tok/s (slots={slots}, "
+                  f"padded {padded_out}, decode nodes {n_decode}, "
+                  f"host tasks {st.completed}, device {dev})")
+        return {"tokens_per_s": tps, "requests": requests,
+                "tokens": tokens_out, "padded_tokens": padded_out,
+                "nodes": nodes, "trace": tracer.signature(),
+                "runtime_stats": st.to_json(), "waves": w + 1,
+                "generated": [g.cpu() for g in generated],
+                "first_prefill_logits": first_logits[0].float().cpu()}

@@ -1,0 +1,6 @@
+"""Hand-written CUDA kernels of the port, each beside its plain PyTorch
+version (counterpart: ``repro/kernels/``).  ``build`` compiles
+``csrc/*.cu`` at first use; nothing is built when a module is imported."""
+from .flash_attention import flash_attention, flash_attention_ref  # noqa: F401
+
+__all__ = ["flash_attention", "flash_attention_ref"]

@@ -1,0 +1,154 @@
+"""The serving slice end to end against the JAX package: prefill and
+greedy decode on bridged bf16 serve parameters, and Session.serve's
+futurized tree."""
+import dataclasses
+import json
+
+import jax
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jax_get_config
+from repro.core import steps as jax_steps
+from repro.core.sharding import init_params as jax_init_params
+from repro.frontend import Plan as JaxPlan
+from repro.launch.mesh import make_local_mesh
+from repro_torch.bridge import cache_from_numpy, params_from_numpy
+from repro_torch.configs import get_config
+from repro_torch.core import steps
+from repro_torch.frontend import Plan
+from repro_torch.launch import serve as serve_cli
+
+ATOL = 1e-4
+PROMPT, GEN, SLOTS = 20, 8, 2
+
+
+def _jax_serve_params(cfg, seed=0):
+    """JAX serve parameters (bf16) with the zero/one-initialized leaves
+    (biases, norm weights) drawn at random, so that they are exercised;
+    returns the JAX tree and its float32 numpy copy."""
+    shape = {"seq_len": PROMPT + GEN, "global_batch": SLOTS, "kind": "prefill"}
+    pre = jax_steps.make_prefill_step(cfg, make_local_mesh(),
+                                      jax_steps.Strategy(), shape)
+    params = jax_init_params(pre.specs, jax.random.PRNGKey(seed))
+    rng = np.random.default_rng(seed)
+
+    def to_np(a):
+        a = np.asarray(a, np.float32)
+        if np.all(a == a.flat[0]):              # a zeros or ones init
+            a = (a + 0.1 * rng.standard_normal(a.shape)).astype(
+                ml_dtypes.bfloat16).astype(np.float32)
+        return a
+    tree = jax.tree.map(to_np, params)
+    return pre, jax.tree.map(lambda a: jnp.asarray(a, jnp.bfloat16), tree), tree
+
+
+def _stack_cache(cache):
+    return {k: np.stack([c[k].float().numpy() for c in cache])
+            for k in ("k", "v")}
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "qwen2.5-3b"])
+def test_prefill_and_greedy_decode_match_jax(arch):
+    jcfg = jax_get_config(arch, tiny=True)
+    cfg = get_config(arch, tiny=True)
+    assert cfg.qk_norm or cfg.qkv_bias
+    jpre, jparams, tree = _jax_serve_params(jcfg)
+    jdec = jax_steps.make_decode_step(
+        jcfg, make_local_mesh(), jax_steps.Strategy(),
+        {"seq_len": PROMPT + GEN, "global_batch": SLOTS, "kind": "decode"})
+    shape = {"seq_len": PROMPT + GEN, "global_batch": SLOTS}
+    pre, dec = steps.make_prefill_step(cfg, shape), \
+        steps.make_decode_step(cfg, shape)
+    params = params_from_numpy(tree, steps._serve_cfg(cfg), "cpu")
+    assert params["stack"][0]["attn"]["wq"].dtype == torch.bfloat16
+
+    toks = np.random.default_rng(1).integers(0, cfg.vocab, (SLOTS, PROMPT))
+    jlg, jcache = jpre.fn(jparams, {"tokens": jnp.asarray(toks, jnp.int32)})
+    lg, cache = pre.fn(params, {"tokens": torch.from_numpy(toks)})
+    np.testing.assert_allclose(lg.numpy(), np.asarray(jlg), atol=ATOL,
+                               rtol=ATOL)
+    mine = _stack_cache(cache)
+    assert mine["k"].shape == (cfg.n_layers, SLOTS, PROMPT + GEN,
+                               cfg.n_kv_heads, cfg.head_dim)
+    for k in ("k", "v"):
+        np.testing.assert_allclose(mine[k], np.asarray(jcache[k]),
+                                   atol=ATOL, rtol=ATOL)
+    # the bridged JAX cache is the same cache
+    bridged = _stack_cache(cache_from_numpy(
+        jax.tree.map(np.asarray, jcache), steps._serve_cfg(cfg), "cpu"))
+    np.testing.assert_array_equal(bridged["k"], np.asarray(jcache["k"]))
+
+    jtok = jnp.argmax(jlg, -1)[:, None].astype(jnp.int32)
+    tok = lg.argmax(-1)[:, None]
+    for t in range(GEN):
+        np.testing.assert_array_equal(tok.numpy(), np.asarray(jtok))
+        jlg, jcache = jdec.fn(jparams, jcache, {"tokens": jtok},
+                              jnp.int32(PROMPT + t))
+        lg, cache = dec.fn(params, cache, {"tokens": tok}, PROMPT + t)
+        np.testing.assert_allclose(lg.numpy(), np.asarray(jlg), atol=ATOL,
+                                   rtol=ATOL)
+        jtok = jnp.argmax(jlg, -1)[:, None].astype(jnp.int32)
+        tok = lg.argmax(-1)[:, None]
+    np.testing.assert_array_equal(tok.numpy(), np.asarray(jtok))
+
+
+def test_bridge_rejects_missing_and_leftover_leaves():
+    cfg = get_config("qwen3-4b", tiny=True)
+    _, _, tree = _jax_serve_params(jax_get_config("qwen3-4b", tiny=True))
+    extra = dict(tree, extra={"w": np.zeros(3, np.float32)})
+    with pytest.raises(ValueError, match="extra"):
+        params_from_numpy(extra, cfg, "cpu")
+    missing = dict(tree, ln_f={})
+    with pytest.raises(KeyError, match="ln_f"):
+        params_from_numpy(missing, cfg, "cpu")
+    other = steps._serve_cfg(dataclasses.replace(cfg, d_ff=cfg.d_ff * 2))
+    with pytest.raises(ValueError, match="shape"):
+        params_from_numpy(tree, other, "cpu")
+
+
+def test_session_serve_traces_the_same_tree_as_jax():
+    kw = dict(requests=5, slots=2, prompt_len=16, gen_len=4, verbose=False)
+    with JaxPlan().compile() as session:
+        want = session.serve(**kw)
+    with Plan(device="cpu").compile() as session:
+        got = session.serve(**kw)
+    assert got["trace"] == want["trace"]
+    assert got["nodes"] == want["nodes"]
+    for key in ("tokens", "padded_tokens", "requests"):
+        assert got[key] == want[key]
+    assert got["waves"] == 3
+    assert [g.shape for g in got["generated"]] == [(2, 5)] * 3
+    assert torch.isfinite(got["first_prefill_logits"]).all()
+
+
+def test_serve_cli_on_cpu_writes_its_stats(tmp_path):
+    out = tmp_path / "serve.json"
+    args = serve_cli.parser().parse_args(
+        ["--device", "cpu", "--requests", "3", "--slots", "2",
+         "--prompt-len", "8", "--gen-len", "2", "--stats-out", str(out)])
+    assert args.tiny and args.arch == "qwen3-4b"
+    res = serve_cli.run(args)
+    stats = json.loads(out.read_text())
+    assert stats["tokens"] == res["tokens"] == 6
+    assert stats["padded_tokens"] == 2 and stats["waves"] == 2
+    assert serve_cli.parser().parse_args([]).device == "cuda"
+
+
+def test_plan_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert Plan().device == "cuda"
+    with pytest.raises(RuntimeError, match="is_available"):
+        Plan().compile()
+
+
+@pytest.mark.parametrize("field, item", [
+    (dict(localities=2), "item 12"), (dict(ddp=True), "item 12"),
+    (dict(spmd=True), "item 13"), (dict(elastic=True), "item 13"),
+    (dict(replicas=2), "item 7"), (dict(data=2), "item 14")])
+def test_plans_beyond_one_device_name_their_roadmap_item(field, item):
+    with pytest.raises(NotImplementedError, match=item):
+        Plan(device="cpu", **field).compile()
