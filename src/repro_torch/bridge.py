@@ -1,11 +1,13 @@
-"""Carry parameters and KV caches from the JAX package into the port.
+"""Carry parameters and caches from the JAX package into the port.
 
 No counterpart in ``repro/``.  The JAX model keeps every layer's
-parameters stacked under ``"stack"`` with a leading ``layers`` dim
-(``repro/models/model.py:28-33,57-58``); the port keeps a list of
-per-layer dicts.  The inputs are nested dicts of numpy arrays (float32;
-a caller holding ``ml_dtypes`` bfloat16 arrays converts them to float32
-first), so this module needs nothing of JAX.
+parameters and cache stacked with leading layer dims
+(``repro/models/model.py``: ``[layers, ...]`` for the dense family,
+``[groups, shared_every, ...]`` for zamba's mamba layers and ``[groups,
+...]`` for its shared block's KV cache); the port keeps nested lists of
+per-layer dicts in their place.  The inputs are nested dicts of numpy
+arrays (float32; a caller holding ``ml_dtypes`` bfloat16 arrays converts
+them to float32 first), so this module needs nothing of JAX.
 """
 from __future__ import annotations
 
@@ -27,12 +29,37 @@ def _flatten(tree, prefix=()) -> dict:
     return {prefix: tree}
 
 
-def _tensor(arr, spec, path, device) -> torch.Tensor:
-    arr = np.asarray(arr)
-    if tuple(arr.shape) != tuple(spec.shape):
-        raise ValueError(f"{'/'.join(map(str, path))}: shape "
-                         f"{tuple(arr.shape)} != port spec {spec.shape}")
-    return torch.tensor(arr, dtype=spec.dtype, device=device)
+def _from_stacked(tree: dict, specs, device, what: str):
+    """Fill the port's spec tree ``specs`` from the JAX tree ``tree``: a
+    list level of the port's tree is a leading dim of the JAX leaf at the
+    same key path.  Raises ``KeyError`` if a port leaf has no JAX leaf and
+    ``ValueError`` on a shape mismatch or a JAX leaf left over."""
+    flat = _flatten(tree)
+    used: set = set()
+
+    def fill(sp, path, index, stacked):
+        if isinstance(sp, list):
+            return [fill(s, path, index + (i,), stacked + (len(sp),))
+                    for i, s in enumerate(sp)]
+        if isinstance(sp, dict):
+            return {k: fill(v, path + (k,), index, stacked)
+                    for k, v in sp.items()}
+        assert is_spec(sp)
+        name = "/".join(map(str, path))
+        if path not in flat:
+            raise KeyError(f"no JAX leaf for port {what} {name}")
+        used.add(path)
+        arr = np.asarray(flat[path])
+        if arr.shape != stacked + tuple(sp.shape):
+            raise ValueError(f"{name}: shape {tuple(arr.shape)} != port "
+                             f"spec {stacked} + {sp.shape}")
+        return torch.tensor(arr[index], dtype=sp.dtype, device=device)
+
+    out = fill(specs, (), (), ())
+    left = sorted("/".join(map(str, p)) for p in set(flat) - used)
+    if left:
+        raise ValueError(f"JAX leaves with no port {what}: {left}")
+    return out
 
 
 def params_from_numpy(tree: dict, cfg, device) -> dict:
@@ -41,47 +68,19 @@ def params_from_numpy(tree: dict, cfg, device) -> dict:
 
     Raises ``KeyError`` if a port parameter has no JAX leaf, and
     ``ValueError`` on a shape mismatch or a JAX leaf left over."""
-    flat = _flatten(tree)
-    used: set = set()
-
-    def take(path):
-        if path not in flat:
-            raise KeyError(f"no JAX leaf for port parameter "
-                           f"{'/'.join(map(str, path))}")
-        used.add(path)
-        return flat[path]
-
-    def fill(specs, path, layer=None):
-        if is_spec(specs):
-            arr = take(path)
-            if layer is not None:
-                arr = np.asarray(arr)[layer]
-            return _tensor(arr, specs, path, device)
-        return {k: fill(v, path + (k,), layer) for k, v in specs.items()}
-
-    specs = build_model(cfg).specs()
-    out = {k: fill(v, (k,)) for k, v in specs.items() if k != "stack"}
-    out["stack"] = [fill(layer_specs, ("stack",), layer=i)
-                    for i, layer_specs in enumerate(specs["stack"])]
-    left = sorted("/".join(map(str, p)) for p in set(flat) - used)
-    if left:
-        raise ValueError(f"JAX leaves with no port parameter: {left}")
-    return out
+    return _from_stacked(tree, build_model(cfg).specs(), device, "parameter")
 
 
-def cache_from_numpy(tree: dict, cfg, device) -> list:
-    """The JAX KV cache ``{"k", "v"}`` of shape ``[layers, B, S, Hkv, hd]``
-    as the port's per-layer cache list, in ``cfg.cache_dtype``."""
-    if set(tree) != {"k", "v"}:
-        raise ValueError(f"a dense KV cache has keys k, v; got {sorted(tree)}")
-    k, v = np.asarray(tree["k"]), np.asarray(tree["v"])
-    want = (cfg.n_layers, cfg.n_kv_heads, cfg.head_dim)
-    for name, arr in (("k", k), ("v", v)):
-        if arr.ndim != 5 or (arr.shape[0], arr.shape[3], arr.shape[4]) != want:
-            raise ValueError(f"cache {name} has shape {arr.shape}; want "
-                             f"[{want[0]}, B, S, {want[1]}, {want[2]}]")
-
-    def t(a):
-        # a copy: the decode step writes the cache in place
-        return torch.tensor(a, dtype=cfg.cache_dtype, device=device)
-    return [{"k": t(k[i]), "v": t(v[i])} for i in range(cfg.n_layers)]
+def cache_from_numpy(tree: dict, cfg, device):
+    """The JAX decode cache of ``cfg``'s model as the port's cache, in the
+    dtypes of the port's cache specs (copies: the decode step writes the
+    cache in place).  Dense: ``{"k", "v"}`` of shape ``[layers, B, S, Hkv,
+    hd]``.  Zamba: ``{"mamba": {"ssm", "conv"}`` with ``[groups,
+    shared_every]`` leading dims, ``"shared": {"k", "v"}`` with
+    ``[groups]``}.  Raises as ``params_from_numpy`` does."""
+    k = np.asarray((tree["shared"] if cfg.family == "zamba" else tree)["k"])
+    if k.ndim != 5:
+        raise ValueError(f"cache k has shape {k.shape}; want [layers, B, S, "
+                         f"Hkv, hd]")
+    specs = build_model(cfg).cache_specs(k.shape[1], k.shape[2])
+    return _from_stacked(tree, specs, device, "cache leaf")

@@ -1,23 +1,23 @@
 """Architecture registry: --arch <id> resolves here.
 
 Counterpart: ``repro/configs/__init__.py``.  The five dense architectures
-are ported (the dense code runs them all); the other five ids wait for
-their families and raise ``NotImplementedError`` naming the ROADMAP item.
+and the zamba hybrid are ported; the other four ids wait for their
+families and raise ``NotImplementedError`` naming the ROADMAP item.
 """
 from .base import ArchConfig  # noqa: F401
 
 from . import (chameleon_34b, mistral_nemo_12b, phi3_mini, qwen25_3b,
-               qwen3_4b)
+               qwen3_4b, zamba2_27b)
 
 REGISTRY = {m.CONFIG.name: m.CONFIG for m in (
-    chameleon_34b, mistral_nemo_12b, qwen3_4b, qwen25_3b, phi3_mini)}
+    chameleon_34b, mistral_nemo_12b, qwen3_4b, qwen25_3b, phi3_mini,
+    zamba2_27b)}
 
 # arch id -> the ROADMAP item that ports its family
 PENDING = {
     "granite-moe-1b-a400m": "ROADMAP item 10 (MoE)",
     "phi3.5-moe-42b-a6.6b": "ROADMAP item 10 (MoE)",
     "xlstm-350m": "ROADMAP item 11 (recurrent families)",
-    "zamba2-2.7b": "ROADMAP item 11 (recurrent families, kernel K2)",
     "whisper-medium": "ROADMAP item 11 (encoder-decoder)",
 }
 

@@ -34,7 +34,9 @@
 // half-warp, so row max and row sum are warp shuffles.  Rows of shared
 // memory are padded by 4 floats so that the float4 reads of 16
 // neighbouring rows fall on different banks.  The kernel masks the causal
-// triangle, the window and the ragged last tile (any S) itself.
+// triangle, the window and the ragged last tile (any S) itself.  Head dims
+// 32, 64, 80, 96 and 128 are built (d/16 output columns a thread; at d = 80
+// the row pitch of 84 floats keeps every float4 read 16-byte aligned).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -247,6 +249,9 @@ cudaError_t dispatch(int D, const void* q, const void* k, const void* v,
                            has_window, window, stream);
     case 64:
       return launch<T, 64>(q, k, v, o, B, H, Hkv, S, scale, causal,
+                           has_window, window, stream);
+    case 80:
+      return launch<T, 80>(q, k, v, o, B, H, Hkv, S, scale, causal,
                            has_window, window, stream);
     case 96:
       return launch<T, 96>(q, k, v, o, B, H, Hkv, S, scale, causal,

@@ -11,7 +11,7 @@ unless the caller asks for ``"cpu"``: a CUDA plan on a machine without a
 GPU raises, it never carries on on the CPU.  The port serves on one
 device; plans that need more (localities, DDP, SPMD, elastic membership,
 replicas, mesh axes) raise ``NotImplementedError`` naming the ROADMAP item
-that brings them.  Training comes with the next slice.
+that brings them.  Training comes with a later slice.
 """
 from __future__ import annotations
 

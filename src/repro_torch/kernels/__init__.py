@@ -2,5 +2,7 @@
 version (counterpart: ``repro/kernels/``).  ``build`` compiles
 ``csrc/*.cu`` at first use; nothing is built when a module is imported."""
 from .flash_attention import flash_attention, flash_attention_ref  # noqa: F401
+from .mamba2_scan import mamba2_chunk_scan, mamba2_chunk_scan_ref  # noqa: F401
 
-__all__ = ["flash_attention", "flash_attention_ref"]
+__all__ = ["flash_attention", "flash_attention_ref", "mamba2_chunk_scan",
+           "mamba2_chunk_scan_ref"]

@@ -19,7 +19,7 @@ import torch
 from . import build
 
 NEG_INF = -1e30
-HEAD_DIMS = (32, 64, 96, 128)
+HEAD_DIMS = (32, 64, 80, 96, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
              + [ctypes.c_float, ctypes.c_void_p])

@@ -9,8 +9,10 @@ with ROADMAP item 7.  Runs on the GPU unless ``--device cpu`` is given.
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --full --requests 8 \
       --slots 4 --prompt-len 512 --gen-len 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \
+      --full --requests 8 --slots 4 --prompt-len 512 --gen-len 32
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
-      --requests 5 --slots 2 --prompt-len 16 --gen-len 8
+      --arch zamba2-2.7b --requests 5 --slots 2 --prompt-len 16 --gen-len 8
 """
 from __future__ import annotations
 

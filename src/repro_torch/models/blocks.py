@@ -1,10 +1,12 @@
-"""Pre-norm residual transformer block of the dense family: specs, prefill
-(returns the populated KV cache) and single-token decode.
+"""Blocks of the dense and zamba families: specs, prefill (returns the
+populated cache) and single-token decode.
 
-Counterpart: ``repro/models/blocks.py`` (``tblock_specs``,
-``kv_cache_specs``, ``tblock_prefill``, ``tblock_decode``) without the
-cross-attention and MoE variants, and without the recurrent blocks, which
-come with ROADMAP items 10 and 11.
+Counterpart: ``repro/models/blocks.py``: the pre-norm residual transformer
+block (``tblock_specs``, ``kv_cache_specs``, ``tblock_prefill``,
+``tblock_decode``) without the cross-attention and MoE variants (ROADMAP
+items 10 and 11), and the Mamba-2 block (``mamba_block_specs``,
+``mamba_block_prefill``, ``mamba_block_decode``, ``mamba_state_specs``);
+the xLSTM blocks wait for ROADMAP item 11.
 """
 from __future__ import annotations
 
@@ -12,7 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.sharding import ParamSpec
-from . import attention, layers
+from . import attention, layers, ssm
 
 
 def tblock_specs(cfg) -> dict:
@@ -70,3 +72,48 @@ def tblock_decode(x, p, cfg, cache, pos):
     x = x + _out_proj(o, p["attn"]["wo"], x.dtype)
     h = layers.apply_norm(x, p["ln_mlp"], cfg.norm)
     return x + layers.apply_mlp(h, p["mlp"], cfg.mlp_kind), {"k": kc, "v": vc}
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 block (pre-norm + mixer; no separate MLP, as in Mamba/Zamba)
+# ---------------------------------------------------------------------------
+def mamba_block_specs(cfg) -> dict:
+    return {
+        "ln": layers.norm_specs(cfg.d_model, cfg.norm),
+        "mixer": ssm.mamba2_specs(
+            cfg.d_model, expand=cfg.expand, head_dim=cfg.ssm_head_dim,
+            state=cfg.ssm_state, n_groups=cfg.ssm_groups,
+            d_conv=cfg.ssm_d_conv),
+    }
+
+
+def mamba_block_prefill(x, p, cfg, *, chunk: int = 256):
+    """Returns (x, state ``{"ssm", "conv"}``)."""
+    h = layers.apply_norm(x, p["ln"], cfg.norm)
+    y, st = ssm.mamba2_chunked(h, p["mixer"], cfg, chunk=chunk,
+                               return_state=True)
+    return x + y, st
+
+
+def mamba_block_decode(x, p, cfg, state, pos):
+    """x: [B,1,D]; the recurrent state needs no position (``pos`` is
+    taken for the uniform block contract)."""
+    h = layers.apply_norm(x, p["ln"], cfg.norm)
+    y, state = ssm.mamba2_step(h, state, p["mixer"], cfg)
+    return x + y, state
+
+
+def mamba_state_specs(cfg, batch: int) -> dict:
+    """One layer's state: ``"ssm"`` [batch, H, P, N] float32 and
+    ``"conv"`` [batch, K-1, conv channels] in the cache dtype."""
+    d_in = cfg.expand * cfg.d_model
+    H = d_in // cfg.ssm_head_dim
+    conv_ch = d_in + 2 * cfg.ssm_groups * cfg.ssm_state
+    return {
+        "ssm": ParamSpec((batch, H, cfg.ssm_head_dim, cfg.ssm_state),
+                         ("batch", "heads", "head_dim", "state"),
+                         dtype=torch.float32, init="zeros"),
+        "conv": ParamSpec((batch, cfg.ssm_d_conv - 1, conv_ch),
+                          ("batch", "conv", "inner"),
+                          dtype=cfg.cache_dtype, init="zeros"),
+    }

@@ -1,11 +1,18 @@
-"""Architecture assembly: the dense decoder LM.
+"""Architecture assembly: the decoder LM of the dense and zamba families.
 
-Counterpart: ``repro/models/model.py`` (``LM`` for ``family == "dense"``:
-``specs``, ``cache_specs``, ``prefill``, ``decode_step``).  The JAX model
-stacks every layer's parameters under ``"stack"`` with a leading
-``layers`` dim and runs ``lax.scan`` over them; here ``"stack"`` is a list
-of per-layer dicts and the scan is a Python loop.  The KV cache is a list
-of per-layer ``{"k", "v"}`` dicts in the same way.
+Counterpart: ``repro/models/model.py`` (``LM`` for ``family`` ``"dense"``
+and ``"zamba"``: ``specs``, ``cache_specs``, ``prefill``,
+``decode_step``).  The JAX model stacks every layer's parameters under
+``"stack"`` with leading layer dims and runs ``lax.scan`` over them; here
+the stacked dims become nested lists and the scans Python loops:
+
+- dense: ``"stack"`` is a list of per-layer dicts, the cache a list of
+  per-layer ``{"k", "v"}`` dicts;
+- zamba: ``"stack"`` is ``{"mamba": [[per-layer dict] x shared_every] x
+  groups, "shared": one transformer-block dict}``; each group runs its
+  mamba layers, then the shared block, which writes that group's own KV
+  cache.  The cache is ``{"mamba": [[{"ssm", "conv"}] x shared_every] x
+  groups, "shared": [{"k", "v"}] x groups}``.
 
 Contract:
   m = build_model(cfg)
@@ -23,20 +30,24 @@ import torch.utils._pytree as pytree
 from ..core.sharding import is_spec
 from . import blocks, layers
 
+FAMILIES = ("dense", "zamba")
 # family -> the ROADMAP item that ports it
 _PENDING_FAMILIES = {"moe": "ROADMAP item 10", "xlstm": "ROADMAP item 11",
-                     "zamba": "ROADMAP item 11", "encdec": "ROADMAP item 11"}
+                     "encdec": "ROADMAP item 11"}
 
 
 class LM:
-    """Decoder-only LM of the dense family."""
+    """Decoder-only LM of the dense and zamba families."""
 
     def __init__(self, cfg):
-        if cfg.family != "dense":
+        if cfg.family not in FAMILIES:
             raise NotImplementedError(
                 f"family {cfg.family!r} comes with "
                 f"{_PENDING_FAMILIES.get(cfg.family, 'a later ROADMAP item')}")
         self.cfg = cfg
+
+    def _groups(self) -> int:
+        return self.cfg.n_layers // self.cfg.shared_every
 
     def specs(self) -> dict:
         cfg = self.cfg
@@ -44,35 +55,80 @@ class LM:
             "embed": layers.embed_specs(cfg.vocab, cfg.d_model),
             "ln_f": layers.norm_specs(cfg.d_model, cfg.norm),
             "unembed": layers.unembed_specs(cfg.d_model, cfg.vocab),
-            "stack": [blocks.tblock_specs(cfg) for _ in range(cfg.n_layers)],
         }
+        if cfg.family == "dense":
+            sp["stack"] = [blocks.tblock_specs(cfg)
+                           for _ in range(cfg.n_layers)]
+        else:
+            sp["stack"] = {
+                "mamba": [[blocks.mamba_block_specs(cfg)
+                           for _ in range(cfg.shared_every)]
+                          for _ in range(self._groups())],
+                "shared": blocks.tblock_specs(cfg),
+            }
         return pytree.tree_map(
             lambda s: dataclasses.replace(s, dtype=cfg.p_dtype)
             if s.dtype.is_floating_point else s, sp, is_leaf=is_spec)
 
-    def cache_specs(self, batch: int, cache_len: int) -> list:
-        return [blocks.kv_cache_specs(self.cfg, batch, cache_len)
-                for _ in range(self.cfg.n_layers)]
+    def cache_specs(self, batch: int, cache_len: int):
+        cfg = self.cfg
+        if cfg.family == "dense":
+            return [blocks.kv_cache_specs(cfg, batch, cache_len)
+                    for _ in range(cfg.n_layers)]
+        return {
+            "mamba": [[blocks.mamba_state_specs(cfg, batch)
+                       for _ in range(cfg.shared_every)]
+                      for _ in range(self._groups())],
+            "shared": [blocks.kv_cache_specs(cfg, batch, cache_len)
+                       for _ in range(self._groups())],
+        }
 
     def prefill(self, params, batch, cache_len: int):
         cfg = self.cfg
         x = layers.embed(batch["tokens"], params["embed"]).to(cfg.c_dtype)
-        cache = []
-        for p in params["stack"]:
-            x, c = blocks.tblock_prefill(x, p, cfg, cache_len)
-            cache.append(c)
+        if cfg.family == "dense":
+            cache = []
+            for p in params["stack"]:
+                x, c = blocks.tblock_prefill(x, p, cfg, cache_len)
+                cache.append(c)
+        else:
+            shared = params["stack"]["shared"]
+            cache = {"mamba": [], "shared": []}
+            for group in params["stack"]["mamba"]:
+                states = []
+                for p in group:
+                    x, st = blocks.mamba_block_prefill(x, p, cfg,
+                                                       chunk=cfg.ssm_chunk)
+                    states.append(st)
+                x, c = blocks.tblock_prefill(x, shared, cfg, cache_len)
+                cache["mamba"].append(states)
+                cache["shared"].append(c)
         x = layers.apply_norm(x[:, -1:], params["ln_f"], cfg.norm)
         return layers.logits(x, params["unembed"])[:, 0], cache
 
     def decode_step(self, params, cache, batch, pos):
         """batch["tokens"]: [B, 1]; pos: scalar int, or a ``[B]`` tensor of
-        per-row positions.  Updates ``cache`` in place."""
+        per-row positions (the mamba blocks ignore it).  Updates the KV
+        caches in place."""
         cfg = self.cfg
         x = layers.embed(batch["tokens"], params["embed"]).to(cfg.c_dtype)
-        new_cache = []
-        for p, c in zip(params["stack"], cache):
-            x, c = blocks.tblock_decode(x, p, cfg, c, pos)
-            new_cache.append(c)
+        if cfg.family == "dense":
+            new_cache = []
+            for p, c in zip(params["stack"], cache):
+                x, c = blocks.tblock_decode(x, p, cfg, c, pos)
+                new_cache.append(c)
+        else:
+            shared = params["stack"]["shared"]
+            new_cache = {"mamba": [], "shared": []}
+            for group, states, kv in zip(params["stack"]["mamba"],
+                                         cache["mamba"], cache["shared"]):
+                new_states = []
+                for p, st in zip(group, states):
+                    x, st = blocks.mamba_block_decode(x, p, cfg, st, pos)
+                    new_states.append(st)
+                x, kv = blocks.tblock_decode(x, shared, cfg, kv, pos)
+                new_cache["mamba"].append(new_states)
+                new_cache["shared"].append(kv)
         x = layers.apply_norm(x, params["ln_f"], cfg.norm)
         return layers.logits(x, params["unembed"])[:, 0], new_cache
 

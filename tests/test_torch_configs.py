@@ -12,7 +12,7 @@ from repro_torch.configs import PENDING, REGISTRY, get_config
 from repro_torch.core.sharding import is_spec
 from repro_torch.models.model import LM, build_model
 
-DENSE = sorted(REGISTRY)
+PORTED = sorted(REGISTRY)
 
 
 def _dtype_name(dt) -> str:
@@ -21,7 +21,7 @@ def _dtype_name(dt) -> str:
 
 
 @pytest.mark.parametrize("tiny", [False, True])
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", PORTED)
 def test_config_equals_jax_field_for_field(arch, tiny):
     ours, ref = get_config(arch, tiny=tiny), jax_get_config(arch, tiny=tiny)
     assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
@@ -37,42 +37,53 @@ def test_unported_arch_ids_name_their_roadmap_item(arch):
         get_config(arch)
 
 
-@pytest.mark.parametrize("family", ["moe", "xlstm", "zamba", "encdec"])
+@pytest.mark.parametrize("family", ["moe", "xlstm", "encdec"])
 def test_unported_families_raise(family):
     cfg = dataclasses.replace(get_config("qwen3-4b", tiny=True), family=family)
     with pytest.raises(NotImplementedError, match="ROADMAP item"):
         build_model(cfg)
 
 
+def _unstack(node, stacked=()):
+    """Descend through the list levels that stand for JAX's stacked layer
+    dims (every element alike); returns (their lengths, the node)."""
+    while isinstance(node, list):
+        assert all(n == node[0] for n in node)
+        stacked += (len(node),)
+        node = node[0]
+    return stacked, node
+
+
+def _n_leaves(node) -> int:
+    node = _unstack(node)[1]
+    if isinstance(node, dict):
+        return sum(_n_leaves(v) for v in node.values())
+    return 1
+
+
 @pytest.mark.parametrize("tiny", [False, True])
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", PORTED)
 def test_specs_match_jax_leaf_for_leaf(arch, tiny):
     cfg = get_config(arch, tiny=tiny)
     ours = LM(cfg).specs()
     ref = jax_build_model(jax_get_config(arch, tiny=tiny)).specs()
     ref_leaves = jax.tree_util.tree_flatten_with_path(
         ref, is_leaf=lambda x: isinstance(x, JaxParamSpec))[0]
-    assert len(ours["stack"]) == cfg.n_layers
-    seen = 0
+    if cfg.family == "dense":
+        assert len(ours["stack"]) == cfg.n_layers
+    else:
+        groups = cfg.n_layers // cfg.shared_every
+        assert _unstack(ours["stack"]["mamba"])[0] == (groups,
+                                                        cfg.shared_every)
     for path, js in ref_leaves:
         keys = [p.key for p in path]
-        if keys[0] == "stack":
-            specs = [layer for layer in ours["stack"]]
-            for k in keys[1:]:
-                specs = [s[k] for s in specs]
-            assert js.shape == (cfg.n_layers,) + specs[0].shape, keys
-            assert js.dims == ("layers",) + specs[0].dims, keys
-            mine = specs[0]
-        else:
-            mine = ours
-            for k in keys:
-                mine = mine[k]
-            assert mine.shape == js.shape and mine.dims == js.dims, keys
-        assert is_spec(mine)
+        mine, stacked = ours, ()
+        for k in keys:
+            stacked, mine = _unstack(mine, stacked)
+            mine = mine[k]
+        assert is_spec(mine), keys
+        assert js.shape == stacked + mine.shape, keys
+        assert js.dims == ("layers",) * len(stacked) + mine.dims, keys
         assert (mine.init, mine.scale) == (js.init, js.scale), keys
         assert _dtype_name(mine.dtype) == _dtype_name(js.dtype), keys
-        seen += 1
-    n_ours = sum(1 for k, v in ours.items() if k != "stack"
-                 for _ in v.values())
-    n_ours += sum(len(v) for v in ours["stack"][0].values())
-    assert seen == n_ours
+    assert len(ref_leaves) == _n_leaves(ours)

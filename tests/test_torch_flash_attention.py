@@ -48,6 +48,17 @@ def test_matches_pallas_kernel_and_oracle(B, H, Hkv, S, d, dt, causal):
 
 
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_head_dim_80_matches_oracle(dt):
+    """zamba2-2.7b's shared block: MHA at head dim 80, ragged S."""
+    q, k, v = _qkv(2, 4, 4, 100, 80, seed=4)
+    jq, jk, jv = (jnp.asarray(a, JDT[dt]) for a in (q, k, v))
+    got = flash_attention(*(torch.from_numpy(a).to(TDT[dt])
+                            for a in (q, k, v)), causal=True)
+    assert got.shape == (2, 4, 100, 80)
+    _close(got, jax_ref.flash_attention_ref(jq, jk, jv, causal=True), dt)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
 def test_window_128(dt):
     q, k, v = _qkv(1, 2, 2, 512, 64, seed=1)
     jq, jk, jv = (jnp.asarray(a, JDT[dt]) for a in (q, k, v))

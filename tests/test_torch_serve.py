@@ -16,6 +16,7 @@ from repro.core import steps as jax_steps
 from repro.core.sharding import init_params as jax_init_params
 from repro.frontend import Plan as JaxPlan
 from repro.launch.mesh import make_local_mesh
+from repro.models.model import build_model as build_jax_model
 from repro_torch.bridge import cache_from_numpy, params_from_numpy
 from repro_torch.configs import get_config
 from repro_torch.core import steps
@@ -47,15 +48,40 @@ def _jax_serve_params(cfg, seed=0):
 
 
 def _stack_cache(cache):
-    return {k: np.stack([c[k].float().numpy() for c in cache])
-            for k in ("k", "v")}
+    """The port's cache in the JAX layout: each list level becomes a
+    leading dim of the leaves below it; float32 numpy."""
+    if isinstance(cache, list):
+        return jax.tree.map(lambda *xs: np.stack(xs),
+                            *[_stack_cache(c) for c in cache])
+    if isinstance(cache, dict):
+        return {k: _stack_cache(v) for k, v in cache.items()}
+    return cache.float().numpy()
 
 
-@pytest.mark.parametrize("arch", ["qwen3-4b", "qwen2.5-3b"])
+def _assert_cache_close(mine, jcache, *, scaled=False):
+    """Every leaf within ATOL; with ``scaled``, within ATOL times the
+    leaf's largest magnitude: the JAX zamba model computes the SSD scan in
+    chunked form and the port's plain version as the sequential
+    recurrence, and float32 sums taken in another order differ by about
+    1e-5 of a leaf's scale after its layers."""
+    jflat = jax.tree_util.tree_flatten_with_path(jcache)[0]
+    assert len(jflat) == len(jax.tree.leaves(mine))
+    for path, want in jflat:
+        got = mine
+        for p in path:
+            got = got[p.key]
+        want = np.asarray(want, np.float32)
+        assert got.shape == want.shape, path
+        atol = ATOL * max(1.0, float(np.abs(want).max())) if scaled else ATOL
+        np.testing.assert_allclose(got, want, atol=atol, rtol=ATOL,
+                                   err_msg=str(path))
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "qwen2.5-3b", "zamba2-2.7b"])
 def test_prefill_and_greedy_decode_match_jax(arch):
     jcfg = jax_get_config(arch, tiny=True)
     cfg = get_config(arch, tiny=True)
-    assert cfg.qk_norm or cfg.qkv_bias
+    assert cfg.qk_norm or cfg.qkv_bias or cfg.family == "zamba"
     jpre, jparams, tree = _jax_serve_params(jcfg)
     jdec = jax_steps.make_decode_step(
         jcfg, make_local_mesh(), jax_steps.Strategy(),
@@ -64,23 +90,23 @@ def test_prefill_and_greedy_decode_match_jax(arch):
     pre, dec = steps.make_prefill_step(cfg, shape), \
         steps.make_decode_step(cfg, shape)
     params = params_from_numpy(tree, steps._serve_cfg(cfg), "cpu")
-    assert params["stack"][0]["attn"]["wq"].dtype == torch.bfloat16
+    assert {t.dtype for t in jax.tree.leaves(params)} == {torch.bfloat16}
 
     toks = np.random.default_rng(1).integers(0, cfg.vocab, (SLOTS, PROMPT))
     jlg, jcache = jpre.fn(jparams, {"tokens": jnp.asarray(toks, jnp.int32)})
     lg, cache = pre.fn(params, {"tokens": torch.from_numpy(toks)})
     np.testing.assert_allclose(lg.numpy(), np.asarray(jlg), atol=ATOL,
                                rtol=ATOL)
-    mine = _stack_cache(cache)
-    assert mine["k"].shape == (cfg.n_layers, SLOTS, PROMPT + GEN,
-                               cfg.n_kv_heads, cfg.head_dim)
-    for k in ("k", "v"):
-        np.testing.assert_allclose(mine[k], np.asarray(jcache[k]),
-                                   atol=ATOL, rtol=ATOL)
+    kv = jcache["shared"] if cfg.family == "zamba" else jcache
+    assert kv["k"].shape[1:] == (SLOTS, PROMPT + GEN, cfg.n_kv_heads,
+                                 cfg.head_dim)
+    _assert_cache_close(_stack_cache(cache), jcache,
+                        scaled=cfg.family == "zamba")
     # the bridged JAX cache is the same cache
     bridged = _stack_cache(cache_from_numpy(
         jax.tree.map(np.asarray, jcache), steps._serve_cfg(cfg), "cpu"))
-    np.testing.assert_array_equal(bridged["k"], np.asarray(jcache["k"]))
+    jax.tree.map(np.testing.assert_array_equal, bridged,
+                 jax.tree.map(np.asarray, jcache))
 
     jtok = jnp.argmax(jlg, -1)[:, None].astype(jnp.int32)
     tok = lg.argmax(-1)[:, None]
@@ -110,11 +136,45 @@ def test_bridge_rejects_missing_and_leftover_leaves():
         params_from_numpy(tree, other, "cpu")
 
 
-def test_session_serve_traces_the_same_tree_as_jax():
+def test_bridge_carries_the_zamba_tree_and_rejects_leftovers():
+    cfg = steps._serve_cfg(get_config("zamba2-2.7b", tiny=True))
+    _, _, tree = _jax_serve_params(jax_get_config("zamba2-2.7b", tiny=True))
+    params = params_from_numpy(tree, cfg, "cpu")
+    groups = cfg.n_layers // cfg.shared_every
+    mamba = params["stack"]["mamba"]
+    assert [len(g) for g in mamba] == [cfg.shared_every] * groups
+    w = tree["stack"]["mamba"]["mixer"]["in_proj"]
+    np.testing.assert_array_equal(mamba[1][0]["mixer"]["in_proj"].float(),
+                                  w[1, 0])
+    np.testing.assert_array_equal(
+        params["stack"]["shared"]["attn"]["wq"].float(),
+        tree["stack"]["shared"]["attn"]["wq"])
+    extra = jax.tree.map(lambda a: a, tree)
+    extra["stack"]["mamba"]["mixer"]["extra"] = np.zeros(3, np.float32)
+    with pytest.raises(ValueError, match="extra"):
+        params_from_numpy(extra, cfg, "cpu")
+    short = jax.tree.map(lambda a: a, tree)
+    short["stack"]["mamba"]["ln"]["w"] = short["stack"]["mamba"]["ln"]["w"][:1]
+    with pytest.raises(ValueError, match="shape"):
+        params_from_numpy(short, cfg, "cpu")
+    cache = jax.tree.map(
+        lambda s: np.zeros(s.shape, np.float32),
+        build_jax_model(jax_get_config("zamba2-2.7b", tiny=True)).cache_specs(
+            SLOTS, PROMPT + GEN),
+        is_leaf=lambda x: hasattr(x, "init"))
+    mine = cache_from_numpy(cache, cfg, "cpu")
+    assert mine["mamba"][1][0]["ssm"].dtype == torch.float32
+    assert len(mine["shared"]) == groups
+    cache["shared"]["extra"] = cache["shared"]["k"]
+    with pytest.raises(ValueError, match="extra"):
+        cache_from_numpy(cache, cfg, "cpu")
+
+
+def _serve_trace_matches_jax(arch):
     kw = dict(requests=5, slots=2, prompt_len=16, gen_len=4, verbose=False)
-    with JaxPlan().compile() as session:
+    with JaxPlan(arch=arch).compile() as session:
         want = session.serve(**kw)
-    with Plan(device="cpu").compile() as session:
+    with Plan(arch=arch, device="cpu").compile() as session:
         got = session.serve(**kw)
     assert got["trace"] == want["trace"]
     assert got["nodes"] == want["nodes"]
@@ -123,6 +183,14 @@ def test_session_serve_traces_the_same_tree_as_jax():
     assert got["waves"] == 3
     assert [g.shape for g in got["generated"]] == [(2, 5)] * 3
     assert torch.isfinite(got["first_prefill_logits"]).all()
+
+
+def test_session_serve_traces_the_same_tree_as_jax():
+    _serve_trace_matches_jax("qwen3-4b")
+
+
+def test_session_serve_traces_the_same_tree_as_jax_for_zamba():
+    _serve_trace_matches_jax("zamba2-2.7b")
 
 
 def test_serve_cli_on_cpu_writes_its_stats(tmp_path):
