@@ -1,4 +1,4 @@
-"""Carry parameters and caches from the JAX package into the port.
+"""Carry parameters and caches between the JAX package and the port.
 
 No counterpart in ``repro/``.  The JAX model keeps every layer's
 parameters and cache stacked with leading layer dims
@@ -8,6 +8,8 @@ parameters and cache stacked with leading layer dims
 per-layer dicts in their place.  The inputs are nested dicts of numpy
 arrays (float32; a caller holding ``ml_dtypes`` bfloat16 arrays converts
 them to float32 first), so this module needs nothing of JAX.
+``tree_to_numpy`` maps back: a port tree (parameters, gradients, optimizer
+state) to the JAX layout in float32 numpy.
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ import torch
 from .core.sharding import is_spec
 from .models.model import build_model
 
-__all__ = ["cache_from_numpy", "params_from_numpy"]
+__all__ = ["cache_from_numpy", "params_from_numpy", "tree_to_numpy"]
 
 
 def _flatten(tree, prefix=()) -> dict:
@@ -84,3 +86,20 @@ def cache_from_numpy(tree: dict, cfg, device):
                          f"Hkv, hd]")
     specs = build_model(cfg).cache_specs(k.shape[1], k.shape[2])
     return _from_stacked(tree, specs, device, "cache leaf")
+
+
+def _stack(parts: list):
+    if isinstance(parts[0], dict):
+        return {k: _stack([p[k] for p in parts]) for k in parts[0]}
+    return np.stack(parts)
+
+
+def tree_to_numpy(tree):
+    """A port tree in the JAX layout: each list level becomes a leading
+    dim of the leaves below it (row-major over nested lists); tensors
+    become float32 numpy arrays (detached, on the host)."""
+    if isinstance(tree, list):
+        return _stack([tree_to_numpy(t) for t in tree])
+    if isinstance(tree, dict):
+        return {k: tree_to_numpy(v) for k, v in tree.items()}
+    return tree.detach().float().cpu().numpy()

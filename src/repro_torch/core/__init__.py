@@ -3,5 +3,6 @@
 Modules:
   sharding - parameter specs and their initialization
   futures  - host-side futurized execution runtime
-  steps    - prefill / decode step builders
+  fusion   - gradient buckets in the reference's layout
+  steps    - train / DDP / prefill / decode step builders
 """

@@ -1,9 +1,12 @@
 """Shared launcher flags, mapped 1:1 onto ``Plan`` fields.
 
 Counterpart: ``repro/frontend/cli.py`` (``cli_args``, ``plan_from_args``,
-``serve_flags``), cut to the flags that ``Session.serve`` uses, plus
-``--device``.  The mesh, locality, DDP and elastic flags come with the
-ROADMAP items that port those modes; the gateway flags with item 7.
+``serve_flags``), cut to the flags that ``Session.serve`` and
+``Session.train`` use, plus ``--device``.  ``--localities``, ``--ddp``,
+``--grad-codec``, ``--ddp-shards`` and ``--elastic`` map onto the plan,
+which raises for more than one locality (ROADMAP item 12) and for elastic
+membership (item 13); the mesh flags come with item 14, the gateway
+flags with item 7.
 """
 from __future__ import annotations
 
@@ -13,7 +16,7 @@ from typing import Optional
 from ..configs import ARCH_IDS
 from .plan import Plan
 
-__all__ = ["cli_args", "plan_from_args", "serve_flags"]
+__all__ = ["cli_args", "plan_from_args", "serve_flags", "train_flags"]
 
 
 def cli_args(ap: Optional[argparse.ArgumentParser] = None
@@ -32,6 +35,32 @@ def cli_args(ap: Optional[argparse.ArgumentParser] = None
     return ap
 
 
+def train_flags(ap: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    """The shape, locality and fabric-DDP flags of ``launch/train.py``."""
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--n-layers", dest="n_layers", type=int, default=None,
+                    help="override the config's layer count (full qwen3-4b "
+                         "trains 12 of its 36 layers on one 80 GB card)")
+    ap.add_argument("--localities", type=int, default=1,
+                    help="total process count (more than 1 needs the "
+                         "multi-locality runtime, ROADMAP item 12)")
+    ap.add_argument("--ddp", action="store_true",
+                    help="fabric data parallelism: the batch is split into "
+                         "--ddp-shards row shards and the summed gradient "
+                         "buckets go through --grad-codec every step")
+    ap.add_argument("--grad-codec", dest="grad_codec", default="fp32",
+                    choices=("fp32", "onebit"),
+                    help="DDP gradient codec: fp32 (exact) or onebit (1-bit "
+                         "+ error feedback, ~1/31 of the bytes)")
+    ap.add_argument("--ddp-shards", dest="ddp_shards", type=int, default=0,
+                    help="batch shard count for --ddp (0 = one per "
+                         "locality); must divide --batch")
+    ap.add_argument("--elastic", action="store_true",
+                    help="elastic membership (ROADMAP item 13)")
+    return ap
+
+
 def serve_flags(ap: argparse.ArgumentParser) -> argparse.ArgumentParser:
     """The serve flags ``Session.serve`` uses (``launch/serve.py``)."""
     ap.add_argument("--stats-out", dest="stats_out", default=None,
@@ -45,6 +74,13 @@ def plan_from_args(args, **overrides) -> Plan:
     """Build a ``Plan`` from a ``cli_args()`` namespace; keyword overrides
     win over parsed flags."""
     fields = {name: getattr(args, name)
-              for name in ("arch", "tiny", "seed", "device")}
+              for name in ("arch", "tiny", "seed", "device", "batch", "seq",
+                           "localities", "ddp", "grad_codec", "ddp_shards",
+                           "elastic")
+              if hasattr(args, name)}
+    if getattr(args, "ckpt", ""):
+        fields["ckpt_dir"] = args.ckpt
+    if getattr(args, "n_layers", None) is not None:
+        fields["overrides"] = {"n_layers": args.n_layers}
     fields.update(overrides)
     return Plan(**fields)

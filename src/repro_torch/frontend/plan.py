@@ -1,17 +1,21 @@
 """Plan/Session: the declarative frontend over the futurized runtime.
 
 Counterpart: ``repro/frontend/plan.py`` (``Plan``, and ``Session``'s
-``__init__``, ``close``, ``stats``, ``_serve_steps_for`` and ``serve``).
-A ``Plan`` is the *what* of a run, a frozen value that touches no device
-state; ``plan.compile()`` builds a ``Session`` that owns ONE futurized
-runtime (``core/futures.py``) for every host-side task of the session.
+``__init__``, ``close``, ``stats``, ``train_step``, ``train`` with
+``_train_ddp`` folded into it, ``_serve_steps_for`` and ``serve``).  A
+``Plan`` is the *what* of a run, a frozen value that touches no device state;
+``plan.compile()`` builds a ``Session`` that owns ONE futurized runtime
+(``core/futures.py``) for every host-side task of the session.
 
 ``Plan`` has the JAX package's fields plus ``device``, which is ``"cuda"``
 unless the caller asks for ``"cpu"``: a CUDA plan on a machine without a
-GPU raises, it never carries on on the CPU.  The port serves on one
-device; plans that need more (localities, DDP, SPMD, elastic membership,
-replicas, mesh axes) raise ``NotImplementedError`` naming the ROADMAP item
-that brings them.  Training comes with a later slice.
+GPU raises, it never carries on on the CPU.  The port trains and serves
+on one device, in one process: ``Session.train`` runs the single-device
+loop and, with ``ddp=True`` at ``localities=1``, world-1 fabric DDP with
+the ``fp32`` or ``onebit`` gradient codec.  Plans that need more
+(localities, SPMD, elastic membership, replicas, mesh axes) raise
+``NotImplementedError`` naming the ROADMAP item that brings them; so do
+checkpoints (item 8) and step resilience (item 14) in ``train``.
 """
 from __future__ import annotations
 
@@ -24,8 +28,11 @@ import torch
 
 from ..configs import get_config
 from ..core import steps as steps_lib
-from ..core.futures import FuturizedGraph, Lane
+from ..core.futures import FuturizedGraph, Lane, Pipeline
 from ..core.sharding import init_params
+from ..data.pipeline import Prefetcher, stream_for
+from ..distrib.collectives import CODECS, RingAllReduce
+from .ddp import DDPEngine
 from .futurize import Trace
 
 __all__ = ["Plan", "Session"]
@@ -72,6 +79,11 @@ class Plan:
             over.setdefault("remat", self.remat)
         return dataclasses.replace(cfg, **over) if over else cfg
 
+    def build_strategy(self) -> steps_lib.Strategy:
+        if isinstance(self.strategy, steps_lib.Strategy):
+            return self.strategy
+        return steps_lib.Strategy(name=self.strategy)
+
     def compile(self) -> "Session":
         """Build the runnable ``Session`` for this plan.  Use it as a
         context manager so the shutdown barrier always runs."""
@@ -81,8 +93,6 @@ class Plan:
 def _unsupported(plan: Plan) -> Optional[str]:
     if plan.localities > 1:
         return "localities > 1 (the multi-locality runtime, ROADMAP item 12)"
-    if plan.ddp:
-        return "ddp=True (fabric DDP, ROADMAP item 12)"
     if plan.spmd:
         return "spmd=True (SPMD mode, ROADMAP item 13)"
     if plan.elastic:
@@ -114,10 +124,15 @@ class Session:
         missing = _unsupported(plan)
         if missing is not None:
             raise NotImplementedError(f"the port does not run {missing} yet")
+        if plan.ddp and plan.grad_codec not in CODECS:
+            raise ValueError(f"unknown grad_codec {plan.grad_codec!r} "
+                             f"(have: {sorted(CODECS)})")
         self.plan = plan
         self.cfg = plan.config()
+        self.strategy = plan.build_strategy()
         self.runtime = FuturizedGraph(max_workers=max_workers,
                                       name=f"session:{plan.arch}")
+        self._train_step = None
         self._serve_steps: dict[tuple, tuple] = {}
         self._closed = False
 
@@ -140,6 +155,13 @@ class Session:
         return self.runtime.stats()
 
     # -- steps --------------------------------------------------------------
+    @property
+    def train_step(self) -> steps_lib.TrainStep:
+        if self._train_step is None:
+            self._train_step = steps_lib.make_train_step(
+                self.cfg, self.strategy, plan=self.plan)
+        return self._train_step
+
     def _serve_steps_for(self, prompt_len: int, gen_len: int, slots: int):
         key = (prompt_len, gen_len, slots)
         if key not in self._serve_steps:
@@ -152,6 +174,148 @@ class Session:
                            "kind": "decode"})
             self._serve_steps[key] = (pre, dec)
         return self._serve_steps[key]
+
+    # -- train --------------------------------------------------------------
+    def _check_train(self, ckpt_dir, resume, resilience) -> None:
+        if ckpt_dir is None:
+            ckpt_dir = self.plan.ckpt_dir
+        if ckpt_dir or resume:
+            raise NotImplementedError(
+                "the port does not checkpoint yet (ckpt_dir / resume: "
+                "locality-sharded checkpoints, ROADMAP item 8)")
+        if resilience != "none":
+            if self.plan.ddp:
+                raise ValueError("resilience modes do not compose with "
+                                 "Plan(ddp=True): the ring's abort-on-loss "
+                                 "failure model replaces step replay")
+            raise NotImplementedError(
+                f"resilience={resilience!r} (step replay and replication, "
+                f"ROADMAP item 14)")
+
+    def _stream(self, stream):
+        if stream is not None:
+            return stream
+        return stream_for(self.cfg, batch=self.plan.batch,
+                          seq=self.plan.seq, seed=self.plan.seed)
+
+    def train(self, stream=None, *, steps: int = 50, hooks: Any = None,
+              ckpt_dir: Optional[str] = None, ckpt_every: int = 20,
+              log_every: int = 5, resume: bool = False,
+              fail_at_step: Optional[int] = None,
+              kill_locality_at_step: Optional[int] = None,
+              resilience: str = "none", verbose: bool = True) -> dict:
+        """The training loop: stream -> prefetch nodes -> step -> in-flight
+        pipeline, on the session runtime.  With ``plan.ddp=True`` each step
+        is a world-1 fabric-DDP step instead (this process is rank 0 of a
+        world-1 ring and trains every shard): gradients go through the
+        plan's codec every step, and the result gains ``grad_wire_bytes``
+        (0 at world 1: nothing is posted) and ``codec_bytes``.
+
+        Args:
+            stream: object with ``batch_at(step) -> dict`` of numpy
+                arrays; defaults to the architecture's synthetic stream
+                (``stream_for``).
+            steps: total step count.
+            hooks: any object with optional ``on_step(it, metrics)``,
+                ``on_log(it, loss)`` and ``on_checkpoint(step, future)``
+                methods (the last is never called: no checkpoints yet).
+            ckpt_dir, ckpt_every, resume: checkpoints; a non-empty
+                ``ckpt_dir`` (or ``plan.ckpt_dir``) or ``resume`` raises
+                ``NotImplementedError`` (ROADMAP item 8).
+            log_every: cadence in steps of the logged losses.
+            fail_at_step: drill seam - raise an injected node failure at
+                this step.
+            kill_locality_at_step: drill seam of the multi-locality
+                runtime; a no-op with one locality, as in the reference.
+            resilience: ``"none"``; other modes raise
+                ``NotImplementedError`` (ROADMAP item 14).
+            verbose: print progress and the final runtime report.
+        Returns:
+            dict with ``final_loss``, per-log ``losses``, ``params``,
+            ``step`` and ``runtime_stats``.
+        Raises:
+            RuntimeError: the injected failure of ``fail_at_step``.
+        """
+        self._check_train(ckpt_dir, resume, resilience)
+        plan, runtime, dev = self.plan, self.runtime, self.device
+        stream = self._stream(stream)
+        engine = None
+        if plan.ddp:
+            engine = DDPEngine(plan, RingAllReduce(None, 1))
+            params, opt = engine.init()
+            step_fn = engine.train_step
+            # no device: the engine slices its shards from the host batch
+            prefetch = Prefetcher(stream, None, graph=runtime)
+        else:
+            step = self.train_step
+            params, opt = step.init(
+                torch.Generator(device=dev).manual_seed(plan.seed), dev)
+
+            def step_fn(it, batch, params, opt):
+                return step.fn(params, opt, batch)
+            prefetch = Prefetcher(stream, dev, graph=runtime)
+        inflight = Pipeline(depth=2)
+        log_futs: list = []
+        t_log = time.time()
+        on_step = getattr(hooks, "on_step", None)
+        on_log = getattr(hooks, "on_log", None)
+
+        def _force_and_log(it, m, t_start):
+            # Runs on a runtime worker: forcing metrics never stalls dispatch.
+            loss = float(m["loss"])
+            dt = (time.time() - t_start) / log_every
+            if verbose:
+                print(f"[train] step {it + 1:5d} loss {loss:8.4f} "
+                      f"gnorm {float(m['grad_norm']):8.3f} "
+                      f"{dt * 1e3:8.1f} ms/step", flush=True)
+            if on_log is not None:
+                on_log(it, loss)
+            return loss
+
+        metrics = None
+        try:
+            for it in range(steps):
+                batch = prefetch.get(it)
+                if fail_at_step is not None and it == fail_at_step:
+                    raise RuntimeError(f"injected node failure at step {it}")
+                metrics, params, opt = step_fn(it, batch, params, opt)
+                inflight.push(it, metrics)
+                if on_step is not None:
+                    on_step(it, metrics)
+                if (it + 1) % log_every == 0:
+                    # CHECKPOINT lane: forcing metrics for logs must never
+                    # outrank the PREFETCH nodes the loop blocks on next
+                    log_futs.append(runtime.defer(
+                        _force_and_log, it, metrics, t_log,
+                        lane=Lane.CHECKPOINT, name=f"log:{it}"))
+                    t_log = time.time()
+            inflight.drain()
+        finally:
+            # shutdown barrier, also on the injected-failure path: retire
+            # in-flight steps; the runtime itself belongs to the session
+            inflight.drain()
+            prefetch.close()
+            runtime.barrier()
+
+        losses = [f.result() for f in log_futs]
+        st = runtime.stats()
+        final = float(metrics["loss"]) if metrics is not None \
+            else float("nan")
+        out = {"final_loss": final, "losses": losses, "params": params,
+               "step": steps, "runtime_stats": st.to_json()}
+        if verbose:
+            print(f"[train] done: final loss {final:.4f} "
+                  f"(host tasks {st.completed}, "
+                  f"max in-flight {st.max_in_flight}, device {dev})")
+        if engine is not None:
+            out["grad_wire_bytes"] = int(engine.ring.wire_bytes)
+            out["codec_bytes"] = engine.codec_bytes
+            if verbose:
+                print(f"[train] ddp world {engine.world}, shards "
+                      f"{engine.shards}: grad-wire {out['grad_wire_bytes']}B "
+                      f"({plan.grad_codec} codec, {engine.codec_bytes}B/"
+                      f"locality/exchange)")
+        return out
 
     # -- serve --------------------------------------------------------------
     def serve(self, requests: int = 8, *, prompt_len: int = 32,

@@ -1,12 +1,19 @@
-"""Causal / sliding-window GQA flash attention, forward: the wrapper of the
-hand-written CUDA kernel ``csrc/flash_attention.cu`` and its plain PyTorch
-version.
+"""Causal / sliding-window GQA flash attention, forward and backward: the
+wrapper of the hand-written CUDA kernels ``csrc/flash_attention.cu`` and
+their plain PyTorch version.
 
 Counterparts: ``repro/kernels/flash_attention.py`` (the Pallas TPU
-kernel), ``repro/kernels/ref.py`` (``flash_attention_ref``, its oracle) and
-``repro/kernels/ops.py`` (the dispatch).  The wrapper picks by the device
-of its inputs: a CUDA tensor launches the kernel or raises; a CPU tensor
-runs the plain version.  There is no other switch and no fallback.
+kernel, forward only), ``repro/kernels/ref.py`` (``flash_attention_ref``,
+its oracle) and ``repro/kernels/ops.py`` (the dispatch).  The wrapper picks
+by the device of its inputs: a CUDA tensor launches the kernels or raises;
+a CPU tensor runs the plain version under ordinary autograd.  There is no
+other switch and no fallback.
+
+On CUDA tensors ``flash_attention`` is a ``torch.autograd.Function``: its
+forward kernel also writes each row's float32 log-sum-exp, and its
+backward launches the backward kernel (dq, dk, dv), which the JAX package
+does not have (its training differentiates ``attend_chunked``).  The
+backward is built for head dims ``BWD_HEAD_DIMS`` and raises for others.
 """
 from __future__ import annotations
 
@@ -20,9 +27,12 @@ from . import build
 
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 80, 96, 128)
+BWD_HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
-             + [ctypes.c_float, ctypes.c_void_p])
+_FWD_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
+                 + [ctypes.c_float, ctypes.c_void_p])
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
+                 + [ctypes.c_float, ctypes.c_void_p])
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True,
@@ -74,12 +84,104 @@ def _check(q, k, v):
         raise ValueError("flash_attention takes contiguous q, k, v")
 
 
-def _kernel_fn():
-    fn = build.load("flash_attention").flash_attention_fwd
+def _kernel_fn(name: str, argtypes):
+    fn = getattr(build.load("flash_attention"), name)
     if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
+
+
+def _launch_fwd(q, k, v, causal, window, scale, with_lse: bool):
+    B, H, S, d = q.shape
+    out = torch.empty_like(q)
+    lse = (torch.empty(B, H, S, dtype=torch.float32, device=q.device)
+           if with_lse else None)
+    with torch.cuda.device(q.device):   # the launch goes to q's card
+        rc = _kernel_fn("flash_attention_fwd", _FWD_ARGTYPES)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if with_lse else None,
+            B, H, k.shape[1], S, d, _DTYPE_CODES[q.dtype],
+            int(bool(causal)), int(window is not None), int(window or 0),
+            float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
+                           f"error {rc}")
+    flash_attention.launches += 1
+    return out, lse
+
+
+def flash_attention_bwd(q, k, v, o, lse, dout, *, causal: bool = True,
+                        window: Optional[int] = None, scale=None):
+    """The backward kernel on CUDA tensors: (dq, dk, dv) in q's dtype from
+    q, k, v, the forward's output ``o`` and row log-sum-exp ``lse`` ([B, H,
+    S] float32) and the output's gradient ``dout``.  Head dims
+    ``BWD_HEAD_DIMS``; anything else raises.  Adds one to
+    ``flash_attention_bwd.launches``."""
+    _check(q, k, v)
+    B, H, S, d = q.shape
+    if q.device.type != "cuda":
+        raise ValueError("flash_attention_bwd launches the CUDA kernel; on "
+                         "the CPU, autograd differentiates the plain version")
+    if d not in BWD_HEAD_DIMS:
+        raise ValueError(f"the flash-attention backward kernel is built for "
+                         f"head dims {BWD_HEAD_DIMS}, not {d}")
+    if o.shape != q.shape or dout.shape != q.shape or o.dtype != q.dtype \
+            or dout.dtype != q.dtype or tuple(lse.shape) != (B, H, S) \
+            or lse.dtype != torch.float32:
+        raise ValueError(f"o, dout must be [B,H,S,d] in q's dtype and lse "
+                         f"[B,H,S] float32; got {tuple(o.shape)} {o.dtype}, "
+                         f"{tuple(dout.shape)} {dout.dtype}, "
+                         f"{tuple(lse.shape)} {lse.dtype}")
+    if not all(t.is_contiguous() and t.device == q.device
+               for t in (o, lse, dout)):
+        raise ValueError("o, lse, dout must be contiguous on q's device")
+    scale = scale or 1.0 / math.sqrt(d)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty(B, H, S, dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        rc = _kernel_fn("flash_attention_bwd", _BWD_ARGTYPES)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), delta.data_ptr(), B, H, k.shape[1], S, d,
+            _DTYPE_CODES[q.dtype], int(bool(causal)),
+            int(window is not None), int(window or 0), float(scale),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention backward kernel launch failed: "
+                           f"CUDA error {rc}")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The forward kernel, saving its output and row log-sum-exp; the
+    backward kernel for the gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale, train):
+        # ``train``: autograd records this call (grad mode is off in here)
+        if train and q.shape[-1] not in BWD_HEAD_DIMS:
+            raise ValueError(f"the flash-attention backward kernel is built "
+                             f"for head dims {BWD_HEAD_DIMS}, not "
+                             f"{q.shape[-1]}: this head dim serves only")
+        out, lse = _launch_fwd(q, k, v, causal, window, scale, train)
+        if train:
+            ctx.save_for_backward(q, k, v, out, lse)
+            ctx.args = (causal, window, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, window, scale = ctx.args
+        dq, dk, dv = flash_attention_bwd(
+            q, k, v, out, lse, dout.contiguous(), causal=causal,
+            window=window, scale=scale)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
@@ -89,9 +191,10 @@ def flash_attention(q, k, v, *, causal: bool = True,
     float32 or bfloat16, d in ``HEAD_DIMS``, any S, contiguous inputs on
     one device, ``window`` None or at least 1; anything else raises.
     ``scale`` defaults to ``1/sqrt(d)`` (a falsy scale too, as in the TPU
-    kernel).  On CUDA
-    tensors this launches the kernel on the current stream and adds one to
-    ``flash_attention.launches``; on CPU tensors it runs
+    kernel).  On CUDA tensors this launches the forward kernel on the
+    current stream and adds one to ``flash_attention.launches``; when
+    autograd records it, the gradient launches ``flash_attention_bwd``
+    (head dims ``BWD_HEAD_DIMS`` only).  On CPU tensors it runs
     ``flash_attention_ref``."""
     _check(q, k, v)
     if window is not None and window < 1:
@@ -101,19 +204,9 @@ def flash_attention(q, k, v, *, causal: bool = True,
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    scale=scale)
-    B, H, S, d = q.shape
-    out = torch.empty_like(q)
-    with torch.cuda.device(q.device):   # the launch goes to q's card
-        rc = _kernel_fn()(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, H, k.shape[1], S, d, _DTYPE_CODES[q.dtype],
-            int(bool(causal)), int(window is not None), int(window or 0),
-            float(scale), torch.cuda.current_stream(q.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
-                           f"error {rc}")
-    flash_attention.launches += 1
-    return out
+    train = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
+    return _FlashAttention.apply(q, k, v, causal, window, scale, train)
 
 
 flash_attention.launches = 0

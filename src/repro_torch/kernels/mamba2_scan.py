@@ -97,10 +97,18 @@ def mamba2_chunk_scan(xdt, a, Bm, Cm, *, chunk: int = 128):
     contiguous inputs on one device, ``L`` a multiple of ``min(chunk,
     L)``; anything else raises.  On CUDA tensors this launches the kernel
     on the current stream and adds one to ``mamba2_chunk_scan.launches``;
-    on CPU tensors it runs ``mamba2_chunk_scan_ref``."""
+    it raises ``NotImplementedError`` when autograd would record it (grad
+    mode on and an input that requires grad), since the kernel has no
+    backward yet.  On CPU tensors it runs ``mamba2_chunk_scan_ref``."""
     _check(xdt, a, Bm, Cm, chunk)
     if xdt.device.type == "cpu":
         return mamba2_chunk_scan_ref(xdt, a, Bm, Cm)
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (xdt, a, Bm, Cm)):
+        raise NotImplementedError(
+            "mamba2_chunk_scan has no backward kernel yet (zamba training, "
+            "ROADMAP item 16): call it under torch.no_grad() or on inputs "
+            "that do not require grad")
     B, H, L, P = xdt.shape
     y = torch.empty_like(xdt)
     state = torch.empty(B, H, P, Bm.shape[-1], dtype=torch.float32,

@@ -2,13 +2,15 @@
 against a KV cache.
 
 Counterpart: ``repro/models/attention.py``.  The model works in
-``[B, S, H, hd]``.  ``attend`` sends every prefill to the flash-attention
-kernel (``kernels/flash_attention.py``, ``[B, H, S, d]``): on CUDA tensors
-it launches the kernel or raises, on CPU tensors it runs the kernel's
-plain version.  This differs from the JAX package on purpose: its
-``attend`` dispatches only to ``full``/``chunked`` and never calls its own
-Pallas kernel.  The kernel masks a ragged S itself, so there is no switch
-to ``attend_full``, which stays as the oracle.
+``[B, S, H, hd]``.  ``attend`` sends every prefill and every training
+forward to the flash-attention kernel (``kernels/flash_attention.py``,
+``[B, H, S, d]``): on CUDA tensors it launches the kernel or raises, and
+its gradient launches the backward kernel; on CPU tensors it runs the
+kernel's plain version under ordinary autograd.  This differs from the
+JAX package on purpose: its ``attend`` dispatches only to
+``full``/``chunked`` and never calls its own Pallas kernel.  The kernel
+masks a ragged S itself, so there is no switch to ``attend_full``, which
+stays as the oracle.
 
 Decode attends one new token against the cache with plain tensor code.
 ``cache_update`` writes the cache in place: that stands in for JAX's
@@ -112,7 +114,8 @@ def attend_full(q, k, v, *, causal: bool = True, window: Optional[int] = None,
 def attend(q, k, v, *, causal: bool = True, window: Optional[int] = None,
            scale: Optional[float] = None):
     """q: [B,S,H,hd], k/v: [B,S,Hkv,hd] -> [B,S,H,hd] through the
-    flash-attention kernel (its plain version for CPU tensors)."""
+    flash-attention kernel (its plain version for CPU tensors);
+    differentiable."""
     o = flash_attention(q.transpose(1, 2).contiguous(),
                         k.transpose(1, 2).contiguous(),
                         v.transpose(1, 2).contiguous(),

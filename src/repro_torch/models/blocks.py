@@ -1,12 +1,12 @@
-"""Blocks of the dense and zamba families: specs, prefill (returns the
-populated cache) and single-token decode.
+"""Blocks of the dense and zamba families: specs, the training forward,
+prefill (returns the populated cache) and single-token decode.
 
 Counterpart: ``repro/models/blocks.py``: the pre-norm residual transformer
-block (``tblock_specs``, ``kv_cache_specs``, ``tblock_prefill``,
-``tblock_decode``) without the cross-attention and MoE variants (ROADMAP
-items 10 and 11), and the Mamba-2 block (``mamba_block_specs``,
-``mamba_block_prefill``, ``mamba_block_decode``, ``mamba_state_specs``);
-the xLSTM blocks wait for ROADMAP item 11.
+block (``tblock_specs``, ``tblock_apply``, ``kv_cache_specs``,
+``tblock_prefill``, ``tblock_decode``) without the cross-attention and
+MoE variants (ROADMAP items 10 and 11), and the Mamba-2 block
+(``mamba_block_specs``, ``mamba_block_prefill``, ``mamba_block_decode``,
+``mamba_state_specs``); the xLSTM blocks wait for ROADMAP item 11.
 """
 from __future__ import annotations
 
@@ -38,6 +38,19 @@ def kv_cache_specs(cfg, batch: int, seq: int) -> dict:
 
 def _out_proj(o, wo, dt):
     return torch.einsum("bqhk,hkd->bqd", o, wo.to(dt))
+
+
+def tblock_apply(x, p, cfg):
+    """The training forward of the dense block: x [B,S,D] -> x [B,S,D];
+    causal attention through the flash-attention kernel, whose backward is
+    a kernel too."""
+    h = layers.apply_norm(x, p["ln_attn"], cfg.norm)
+    q, k, v = attention.project_qkv(
+        h, p["attn"], rope_theta=cfg.rope_theta, use_rope=cfg.use_rope)
+    o = attention.attend(q, k, v, causal=True, window=cfg.sliding_window)
+    x = x + _out_proj(o, p["attn"]["wo"], x.dtype)
+    h = layers.apply_norm(x, p["ln_mlp"], cfg.norm)
+    return x + layers.apply_mlp(h, p["mlp"], cfg.mlp_kind)
 
 
 def tblock_prefill(x, p, cfg, cache_len: int):

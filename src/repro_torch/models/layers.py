@@ -4,8 +4,8 @@ Counterpart: ``repro/models/layers.py``.  Every parameter is declared
 through ``ParamSpec`` with logical dims, as in the JAX package.  The dtype
 order is kept exactly: ``rms_norm`` takes its statistics in float32 and
 scales in the input dtype; RoPE rotates the split halves in float32 and
-casts back.  LayerNorm and the gelu MLP wait for the families that use
-them (ROADMAP item 11).
+casts back; the cross entropy reduces in float32.  LayerNorm and the
+gelu MLP wait for the families that use them (ROADMAP item 11).
 """
 from __future__ import annotations
 
@@ -98,3 +98,19 @@ def unembed_specs(d: int, vocab: int) -> dict:
 
 def logits(x, p):
     return x @ p["w"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+def softmax_xent(lg, labels, mask=None):
+    """Token-mean cross entropy; fp32 for the reduction.  With ``mask``,
+    the mean over the tokens it keeps (at least 1)."""
+    lg = lg.float()
+    lse = torch.logsumexp(lg, dim=-1)
+    ll = torch.gather(lg, -1, labels[..., None].long())[..., 0]
+    nll = lse - ll
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)

@@ -2,9 +2,10 @@
 
 Counterpart: ``repro/models/model.py`` (``LM`` for ``family`` ``"dense"``
 and ``"zamba"``: ``specs``, ``cache_specs``, ``prefill``,
-``decode_step``).  The JAX model stacks every layer's parameters under
-``"stack"`` with leading layer dims and runs ``lax.scan`` over them; here
-the stacked dims become nested lists and the scans Python loops:
+``decode_step``; ``apply`` and ``loss`` for the dense family).  The JAX
+model stacks every layer's parameters under ``"stack"`` with leading
+layer dims and runs ``lax.scan`` over them; here the stacked dims become
+nested lists and the scans Python loops:
 
 - dense: ``"stack"`` is a list of per-layer dicts, the cache a list of
   per-layer ``{"k", "v"}`` dicts;
@@ -14,9 +15,18 @@ the stacked dims become nested lists and the scans Python loops:
   cache.  The cache is ``{"mamba": [[{"ssm", "conv"}] x shared_every] x
   groups, "shared": [{"k", "v"}] x groups}``.
 
+Training runs the dense family only: ``apply`` raises
+``NotImplementedError`` for zamba, whose K2 scan has no backward kernel
+yet (ROADMAP item 16).  With ``cfg.remat`` each layer runs under
+``torch.utils.checkpoint`` (non-reentrant): its activations are recomputed
+in the backward pass, the counterpart of ``_maybe_remat``'s
+``jax.checkpoint``.
+
 Contract:
   m = build_model(cfg)
   m.specs()                                  ParamSpec tree
+  m.apply(params, batch)                  -> (logits, aux)     train fwd
+  m.loss(params, batch)                   -> scalar
   m.cache_specs(batch, cache_len)            ParamSpec tree (zeros init)
   m.prefill(params, batch, cache_len)     -> (last logits, cache)
   m.decode_step(params, cache, batch, pos)-> (logits, cache)
@@ -25,7 +35,9 @@ from __future__ import annotations
 
 import dataclasses
 
+import torch
 import torch.utils._pytree as pytree
+from torch.utils.checkpoint import checkpoint
 
 from ..core.sharding import is_spec
 from . import blocks, layers
@@ -69,6 +81,30 @@ class LM:
         return pytree.tree_map(
             lambda s: dataclasses.replace(s, dtype=cfg.p_dtype)
             if s.dtype.is_floating_point else s, sp, is_leaf=is_spec)
+
+    def apply(self, params, batch):
+        """The training forward: (logits [B, S, vocab] in the compute
+        dtype, aux loss 0).  Dense family only."""
+        cfg = self.cfg
+        if cfg.family != "dense":
+            raise NotImplementedError(
+                f"training the {cfg.family} family needs a backward of the "
+                f"Mamba-2 scan kernel K2 (ROADMAP item 16)")
+        x = layers.embed(batch["tokens"], params["embed"]).to(cfg.c_dtype)
+        for p in params["stack"]:
+            if cfg.remat:
+                x = checkpoint(blocks.tblock_apply, x, p, cfg,
+                               use_reentrant=False)
+            else:
+                x = blocks.tblock_apply(x, p, cfg)
+        x = layers.apply_norm(x, params["ln_f"], cfg.norm)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return layers.logits(x, params["unembed"]), aux
+
+    def loss(self, params, batch):
+        lg, aux = self.apply(params, batch)
+        return layers.softmax_xent(lg, batch["labels"], batch.get("mask")) \
+            + self.cfg.aux_weight * aux
 
     def cache_specs(self, batch: int, cache_len: int):
         cfg = self.cfg

@@ -2,6 +2,7 @@
 the JAX package's Pallas kernel in interpret mode and its oracle, on the
 same numpy inputs.  The CUDA kernel itself is held against the plain
 version on the card by chip_smoke.py."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -111,3 +112,37 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(change, err):
         q = torch.zeros(1, 64, 4, d).transpose(1, 2)
     with pytest.raises(err):
         flash_attention(q, k, k.clone(), window=change.get("window"))
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,d,causal,window", [
+    (1, 4, 2, 64, 32, True, None),         # GQA 4:2, causal
+    (2, 4, 1, 48, 32, False, None),        # GQA 4:1, non-causal
+    (1, 2, 2, 96, 64, True, 16),           # MHA, window
+    (1, 8, 2, 40, 128, True, None),        # qwen3-4b's head dim, ragged S
+])
+def test_backward_of_plain_version_matches_jax_grad(B, H, Hkv, S, d, causal,
+                                                    window):
+    """On CPU tensors the wrapper is the plain version under autograd; its
+    gradients match jax.vjp of the JAX oracle (the CUDA backward kernel is
+    held against this plain gradient on the card by chip_smoke.py)."""
+    q, k, v = _qkv(B, H, Hkv, S, d, seed=5)
+    dout = np.random.default_rng(6).standard_normal(q.shape).astype(
+        np.float32)
+    want = jax.jit(lambda a, b, c, g: jax.vjp(
+        lambda a, b, c: jax_ref.flash_attention_ref(
+            a, b, c, causal=causal, window=window), a, b, c)[1](g))(
+        *(jnp.asarray(a) for a in (q, k, v, dout)))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_(True) for a in (q, k, v))
+    out = flash_attention(tq, tk, tv, causal=causal, window=window)
+    got = torch.autograd.grad(out, (tq, tk, tv), torch.from_numpy(dout))
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-5,
+                                   atol=1e-5 * max(1.0, np.abs(w).max()))
+
+
+def test_backward_kernel_is_for_cuda_tensors_only():
+    from repro_torch.kernels import flash_attention_bwd
+    q, k, v = (torch.from_numpy(a) for a in _qkv(1, 2, 2, 16, 32))
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_bwd(q, k, v, q, torch.zeros(1, 2, 16), q)

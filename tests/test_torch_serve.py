@@ -214,7 +214,9 @@ def test_plan_defaults_to_cuda_and_raises_without_it(monkeypatch):
 
 
 @pytest.mark.parametrize("field, item", [
-    (dict(localities=2), "item 12"), (dict(ddp=True), "item 12"),
+    # fabric DDP runs at one locality; across localities it needs the wire
+    (dict(localities=2), "item 12"),
+    (dict(ddp=True, localities=2), "item 12"),
     (dict(spmd=True), "item 13"), (dict(elastic=True), "item 13"),
     (dict(replicas=2), "item 7"), (dict(data=2), "item 14")])
 def test_plans_beyond_one_device_name_their_roadmap_item(field, item):
