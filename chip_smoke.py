@@ -12,10 +12,14 @@ without the final ``{"ok": true, ...}`` line:
    card, at the paths' shapes and at the edge cases, and time the kernel,
    the plain version and (where one exists) one PyTorch library call at
    those shapes: K1 flash attention at qwen3-4b's and zamba2-2.7b's
-   prefill shapes, K1's backward at qwen3-4b's training shape (against
-   autograd through the plain version), K2 the Mamba-2 chunk scan at
+   prefill shapes and at Session.train's, K1's backward at qwen3-4b's
+   training shapes (against autograd through the plain version), each K1
+   case also run twice to the same bits, bf16 on the tensor-core kernels
+   and f32 on the CUDA-core ones; K2 the Mamba-2 chunk scan at
    zamba2-2.7b's, K3a/K3b the 1-bit codec at a 32 MB bucket and at the
-   largest bucket of the training plan;
+   largest bucket of the training plan.  Every time is taken twice
+   (``timings``): on the device, and host-paced, as earlier versions of
+   this script took it.  K1 refuses a bf16 view off a 16-byte boundary;
 4. reference: the tiny dense and zamba configs served on the card agree
    with the same parameters served on the CPU, and tiny qwen3-4b trains
    8 steps (plain, and world-1 DDP with the onebit codec) on the card
@@ -28,7 +32,9 @@ without the final ``{"ok": true, ...}`` line:
    12}).compile().train(...)`` at full width, plain and as world-1 DDP
    with the onebit codec;
 7. where the time goes: one prefill and one decode step of each served
-   configuration, one plain and one DDP train step;
+   configuration, one plain and one DDP train step; the prefills and the
+   train steps must show K1's tensor-core kernels by name and none of its
+   f32 kernels;
 8. the ``kernels`` JSON line, then the ``ok`` line last.
 
 Every kernel launch count is set to 0 just before each run of phases 5
@@ -89,7 +95,8 @@ TRAIN_ATTN = (TRAIN["batch"], _TRAIN_CFG.n_heads, _TRAIN_CFG.n_kv_heads,
 TRAIN_SHARD_ATTN = (TRAIN["batch"] // TRAIN_DDP_SHARDS, *TRAIN_ATTN[1:])
 # (B, H, Hkv, S, d, dtype, causal, window): the serving slices' shapes
 # first (qwen3-4b, then zamba2-2.7b's shared block), then Session.train's,
-# then the edge cases
+# then the edge cases.  bf16 runs the tensor-core kernels, f32 the CUDA-core
+# kernels, so each edge is held in both dtypes.
 FA_CASES = [
     (4, 32, 8, 512, 128, torch.bfloat16, True, None),
     (4, 32, 32, 512, 80, torch.bfloat16, True, None),     # d=80 (zamba)
@@ -99,8 +106,13 @@ FA_CASES = [
     (2, 4, 2, 256, 32, torch.float32, True, None),        # d=32 f32 (tiny)
     (2, 16, 4, 512, 128, torch.bfloat16, True, 128),      # window
     (1, 4, 4, 300, 64, torch.float32, False, None),       # non-causal d=64
+    (2, 4, 2, 256, 32, torch.bfloat16, True, None),       # d=32 bf16
+    (2, 4, 2, 256, 64, torch.bfloat16, True, None),       # d=64 bf16, GQA
+    (1, 4, 4, 300, 64, torch.bfloat16, False, None),      # non-causal bf16
+    (2, 4, 4, 100, 80, torch.bfloat16, True, None),       # d=80, ragged S
+    (1, 8, 8, 512, 80, torch.bfloat16, True, 128),        # d=80, window
 ]
-FA_TIMED = 2            # the first FA_TIMED cases are timed
+FA_TIMED = 3            # the first FA_TIMED cases are timed
 # K2 tolerances of tests/test_kernels.py's sweep, as atol and rtol
 SCAN_TOL = {torch.float32: 2e-4, torch.bfloat16: 6e-2}
 # (B, H, L, P, N, chunk, dtype): zamba2-2.7b's prefill shape (timed) in
@@ -115,10 +127,10 @@ SCAN_CASES = [
 SCAN_TILE = 64          # rows per tile of csrc/mamba2_scan.cu
 SERVE = dict(requests=8, slots=4, prompt_len=512, gen_len=32)
 SERVE_ARCHS = ("qwen3-4b", "zamba2-2.7b")
-# K1 backward: qwen3-4b's training shapes (a DDP shard, timed, then the
-# whole batch of Session.train), then small float32 shapes: GQA and MHA,
-# causal on and off, a window, ragged S, each head dim the backward is
-# built for
+# K1 backward: qwen3-4b's training shapes (a DDP shard, then the whole
+# batch of Session.train, both timed), then small shapes in float32 and
+# their bf16 twins: GQA and MHA, causal on and off, a window, ragged S,
+# each head dim the backward is built for
 FA_BWD_CASES = [
     TRAIN_SHARD_ATTN,
     TRAIN_ATTN,
@@ -127,7 +139,13 @@ FA_BWD_CASES = [
     (2, 4, 2, 256, 32, torch.float32, True, 64),          # window, d=32
     (1, 8, 2, 130, 128, torch.float32, True, None),       # d=128 f32
     (2, 4, 4, 96, 32, torch.float32, False, None),        # tiny's head dim
+    (2, 8, 2, 200, 64, torch.bfloat16, True, None),
+    (1, 4, 4, 256, 64, torch.bfloat16, False, None),
+    (2, 4, 2, 256, 32, torch.bfloat16, True, 64),
+    (1, 8, 2, 130, 128, torch.bfloat16, True, None),
+    (2, 4, 4, 96, 32, torch.bfloat16, False, None),
 ]
+FA_BWD_TIMED = 2        # the first FA_BWD_TIMED cases are timed
 # f32: within 1e-4 of the largest gradient magnitude (at least 1); bf16:
 # the plain version rounds its products and probabilities to bf16, the
 # kernel sums in f32, so bf16 is held to 3e-2 of the largest magnitude
@@ -142,24 +160,58 @@ ONEBIT_ROWS = 8192
 # on that element, hence the looser bound.
 TRAIN_REF_STEPS = 8
 TRAIN_REF_RTOL = {"plain": 1e-4, "onebit": 1e-3}
+# K1's kernels by the names the profiler gives them: bf16 must run the
+# tensor-core kernels and never the f32 CUDA-core ones
+K1_TC = {"forward": "attn_fwd_wgmma", "dkdv": "attn_bwd_dkdv_wgmma",
+         "dq": "attn_bwd_dq_wgmma"}
+K1_F32 = ("fa_fwd<", "fa_bwd_dkdv<", "fa_bwd_dq<")
 
 
 def phase(name: str):
     print(f"\n== {name}", flush=True)
 
 
-def cuda_ms(fn, iters: int = 20, warm: int = 3) -> float:
+def cuda_ms(fn, iters: int = 20, warm: int = 3, spin: bool = True) -> float:
+    """Time of one call of ``fn``: CUDA events around ``iters`` calls.
+    With ``spin`` the calls are queued behind a device-side spin that
+    outlasts their enqueueing, so that the card runs them back to back and
+    the events time the card (a call of a few tens of microseconds on the
+    card can take longer than that to launch from Python).  Without it
+    the calls are launched with nothing queued ahead (the method of this
+    script's earlier readings), and a call shorter than its launch is timed
+    at the host's launch rate."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if spin:
+        # twice the host's enqueue time of the timed calls, in cycles at up
+        # to 2 GHz, capped at about a second
+        torch.cuda._sleep(int(min(2 * iters * host_s, 1.0) * 2e9))
     start.record()
     for _ in range(iters):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def timings(iters: int = 20, warm: int = 3, **fns) -> dict:
+    """For each ``key=fn`` (``fn`` None where there is no such call): under
+    ``key`` its device time (``cuda_ms``) and under ``key + "_host_paced"``
+    its time launched with nothing queued ahead, the two readings of every
+    time in the kernels line."""
+    out = {}
+    for key, fn in fns.items():
+        for suffix, spin in (("", True), ("_host_paced", False)):
+            out[key + suffix] = (None if fn is None
+                                 else cuda_ms(fn, iters, warm, spin))
+    return out
 
 
 def attention_bound(q, k, v, causal, window):
@@ -241,7 +293,8 @@ def step_bound(cfg, params, cache, slots: int, new_tokens: int,
 
 
 def check_kernels(gen) -> list:
-    """K1 against its plain version at ``FA_CASES``; times the first
+    """K1 against its plain version at ``FA_CASES``, and against itself:
+    a second run on the same inputs gives the same bits.  Times the first
     ``FA_TIMED`` cases and returns their readings."""
     out = []
     for B, H, Hkv, S, d, dt, causal, window in FA_CASES:
@@ -249,30 +302,52 @@ def check_kernels(gen) -> list:
         k = torch.randn(B, Hkv, S, d, generator=gen, device="cuda").to(dt)
         v = torch.randn(B, Hkv, S, d, generator=gen, device="cuda").to(dt)
         got = flash_attention(q, k, v, causal=causal, window=window)
+        again = flash_attention(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
         want = flash_attention_ref(q, k, v, causal=causal, window=window)
         err = (got.float() - want.float()).abs().max().item()
-        ok = err <= TOL[dt] and bool(torch.isfinite(got).all())
+        same = torch.equal(got, again)
+        ok = err <= TOL[dt] and bool(torch.isfinite(got).all()) and same
         print(f"flash_attention B={B} H={H} Hkv={Hkv} S={S} d={d} "
               f"{str(dt)[6:]} causal={causal} window={window}: max abs err "
-              f"{err:.3g} (tolerance {TOL[dt]:g}) {'ok' if ok else 'FAIL'}")
+              f"{err:.3g} (tolerance {TOL[dt]:g}), rerun "
+              f"{'bit-identical' if same else 'DIFFERS'} "
+              f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"flash_attention disagrees with its plain "
-                                 f"version: {err} > {TOL[dt]}")
+                                 f"version ({err} > {TOL[dt]}) or itself")
         if len(out) < FA_TIMED:          # a serving slice's shape: time it
-            ms = cuda_ms(lambda: flash_attention(q, k, v, causal=causal))
-            plain_ms = cuda_ms(lambda: flash_attention_ref(q, k, v,
-                                                           causal=causal))
-            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=True))
+            t = timings(
+                ms=lambda: flash_attention(q, k, v, causal=causal),
+                plain_ms=lambda: flash_attention_ref(q, k, v, causal=causal),
+                library_ms=lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=True))
             bound_ms, bound_by = attention_bound(q, k, v, causal, window)
-            out.append({"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                        "library_ms": lib_ms, "bound_ms": bound_ms,
+            out.append({"max_abs_err": err, **t, "bound_ms": bound_ms,
                         "bound_by": bound_by})
-            print(f"  at the slice's shape: kernel {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms, scaled_dot_product_attention "
-                  f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+            print(f"  timed: kernel {t['ms']:.4f} ms, plain "
+                  f"{t['plain_ms']:.4f} ms, scaled_dot_product_attention "
+                  f"{t['library_ms']:.4f} ms, bound {bound_ms:.4f} ms "
+                  f"({bound_by}); host-paced: kernel "
+                  f"{t['ms_host_paced']:.4f} ms, plain "
+                  f"{t['plain_ms_host_paced']:.4f} ms, library "
+                  f"{t['library_ms_host_paced']:.4f} ms")
     return out
+
+
+def check_misaligned() -> None:
+    """A contiguous bf16 view 2 bytes into its storage: K1's bf16 kernels
+    read in 16-byte words and would fault on it, so the wrapper refuses
+    it."""
+    q = torch.zeros(1 + 4 * 64 * 64, dtype=torch.bfloat16,
+                    device="cuda")[1:].view(1, 4, 64, 64)
+    try:
+        flash_attention(q, q, q)
+    except ValueError as e:
+        print(f"flash_attention of a bf16 view off a 16-byte boundary: "
+              f"refused ({e}) ok")
+    else:
+        raise AssertionError("flash_attention took a misaligned bf16 view")
 
 
 def check_scan(gen) -> dict:
@@ -307,18 +382,19 @@ def check_scan(gen) -> dict:
             raise AssertionError("mamba2_chunk_scan disagrees with its plain "
                                  "version")
         if not out:          # the serving slice's shape: time it
-            ms = cuda_ms(lambda: mamba2_chunk_scan(xdt, a, Bm, Cm,
-                                                   chunk=chunk))
-            plain_ms = cuda_ms(lambda: mamba2_chunk_scan_ref(xdt, a, Bm, Cm),
-                               iters=3, warm=1)
+            t = {**timings(ms=lambda: mamba2_chunk_scan(xdt, a, Bm, Cm,
+                                                        chunk=chunk),
+                           library_ms=None),
+                 **timings(iters=3, warm=1, plain_ms=lambda:
+                           mamba2_chunk_scan_ref(xdt, a, Bm, Cm))}
             bound_ms, bound_by = scan_bound(
                 xdt, a, Bm, Cm, st.numel() * st.element_size())
-            out = {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
-                   "library_ms": None, "bound_ms": bound_ms,
+            out = {"max_abs_err": max(errs), **t, "bound_ms": bound_ms,
                    "bound_by": bound_by}
-            print(f"  at the slice's shape: kernel {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms, no library call, bound "
-                  f"{bound_ms:.4f} ms ({bound_by})")
+            print(f"  at the slice's shape: kernel {t['ms']:.4f} ms, plain "
+                  f"{t['plain_ms']:.4f} ms, no library call, bound "
+                  f"{bound_ms:.4f} ms ({bound_by}); host-paced: kernel "
+                  f"{t['ms_host_paced']:.4f} ms")
     return out
 
 
@@ -334,22 +410,27 @@ def causal_pairs(S: int, causal: bool, window) -> int:
     return int(keep.sum())
 
 
-def check_fa_bwd(gen) -> dict:
+def check_fa_bwd(gen) -> list:
     """K1's backward kernel against autograd through the plain version on
-    the card at ``FA_BWD_CASES``; times the first case: the kernel (from
-    the forward's o and lse), the plain version's backward and
-    ``scaled_dot_product_attention``'s backward."""
-    out = {}
+    the card at ``FA_BWD_CASES``, and against itself: a second backward of
+    the same graph gives the same bits (no atomics).  Times the first
+    ``FA_BWD_TIMED`` cases: the kernel (from the forward's o and lse), the
+    plain version's backward and ``scaled_dot_product_attention``'s
+    backward; returns their readings."""
+    out = []
     for B, H, Hkv, S, d, dt, causal, window in FA_BWD_CASES:
         q = torch.randn(B, H, S, d, generator=gen, device="cuda").to(dt)
         k = torch.randn(B, Hkv, S, d, generator=gen, device="cuda").to(dt)
         v = torch.randn(B, Hkv, S, d, generator=gen, device="cuda").to(dt)
         dout = torch.randn(B, H, S, d, generator=gen, device="cuda").to(dt)
         q, k, v = (t.requires_grad_(True) for t in (q, k, v))
-        got = torch.autograd.grad(
-            flash_attention(q, k, v, causal=causal, window=window),
-            (q, k, v), dout)
+        kern_out = flash_attention(q, k, v, causal=causal, window=window)
+        got = torch.autograd.grad(kern_out, (q, k, v), dout,
+                                  retain_graph=True)
+        again = torch.autograd.grad(kern_out, (q, k, v), dout,
+                                    retain_graph=True)
         torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
         want_out = flash_attention_ref(q, k, v, causal=causal, window=window)
         want = torch.autograd.grad(want_out, (q, k, v), dout,
                                    retain_graph=True)
@@ -359,38 +440,42 @@ def check_fa_bwd(gen) -> dict:
             e = (g.float() - w.float()).abs().max().item()
             errs.append(e)
             ok &= e <= limit and bool(torch.isfinite(g).all())
+        ok &= same
         print(f"flash_attention_bwd B={B} H={H} Hkv={Hkv} S={S} d={d} "
               f"{str(dt)[6:]} causal={causal} window={window}: max abs err "
               f"dq {errs[0]:.3g} dk {errs[1]:.3g} dv {errs[2]:.3g} "
-              f"(tolerance {FA_BWD_TOL[dt]:g} x max(1, max |grad|)) "
+              f"(tolerance {FA_BWD_TOL[dt]:g} x max(1, max |grad|)), rerun "
+              f"{'bit-identical' if same else 'DIFFERS'} "
               f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError("flash_attention_bwd disagrees with "
-                                 "autograd through the plain version")
-        if out:
+                                 "autograd through the plain version or "
+                                 "with itself")
+        if len(out) >= FA_BWD_TIMED:
             continue
-        # the training slice's shape: time the backward alone, each call
-        # re-running the recorded graph's backward
-        kern_out = flash_attention(q, k, v, causal=causal, window=window)
-        ms = cuda_ms(lambda: torch.autograd.grad(
-            kern_out, (q, k, v), dout, retain_graph=True))
-        plain_ms = cuda_ms(lambda: torch.autograd.grad(
-            want_out, (q, k, v), dout, retain_graph=True), iters=5)
+        # a training shape: time the backward alone, each call re-running
+        # the recorded graph's backward
         lib_out = F.scaled_dot_product_attention(q, k, v, is_causal=causal,
                                                  enable_gqa=True)
-        lib_ms = cuda_ms(lambda: torch.autograd.grad(
-            lib_out, (q, k, v), dout, retain_graph=True))
+        t = {**timings(ms=lambda: torch.autograd.grad(
+                 kern_out, (q, k, v), dout, retain_graph=True),
+                       library_ms=lambda: torch.autograd.grad(
+                 lib_out, (q, k, v), dout, retain_graph=True)),
+             **timings(iters=5, plain_ms=lambda: torch.autograd.grad(
+                 want_out, (q, k, v), dout, retain_graph=True))}
         esz = q.element_size()
         nbytes = (4 * q.numel() + 4 * k.numel()) * esz + 4 * B * H * S
         ops = 10 * d * B * H * causal_pairs(S, causal, window)
         bound_ms, bound_by = roofline(nbytes, ops)
-        out = {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
-               "library_ms": lib_ms, "bound_ms": bound_ms,
-               "bound_by": bound_by}
-        print(f"  at the training shape: kernel {ms:.4f} ms, plain backward "
-              f"{plain_ms:.4f} ms, scaled_dot_product_attention backward "
-              f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
-              f"{nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP)")
+        out.append({"max_abs_err": max(errs), **t, "bound_ms": bound_ms,
+                    "bound_by": bound_by})
+        print(f"  timed: kernel {t['ms']:.4f} ms, plain backward "
+              f"{t['plain_ms']:.4f} ms, scaled_dot_product_attention "
+              f"backward {t['library_ms']:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}: {nbytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP); "
+              f"host-paced: kernel {t['ms_host_paced']:.4f} ms, plain "
+              f"{t['plain_ms_host_paced']:.4f} ms, library "
+              f"{t['library_ms_host_paced']:.4f} ms")
     return out
 
 
@@ -437,27 +522,28 @@ def check_onebit(gen, rows_list) -> dict:
             continue
         el = R * 1024
         iters = 20 if n == 0 else 5
-        q_ms = cuda_ms(lambda: onebit_quantize(g, err), iters=iters)
-        q_plain = cuda_ms(lambda: onebit_quantize_ref(g, err), iters=iters)
-        d_ms = cuda_ms(lambda: onebit_dequantize(packed, scale), iters=iters)
-        d_plain = cuda_ms(lambda: onebit_dequantize_ref(packed, scale),
-                          iters=iters)
+        tq = timings(iters, ms=lambda: onebit_quantize(g, err),
+                     plain_ms=lambda: onebit_quantize_ref(g, err),
+                     library_ms=None)
+        td = timings(iters, ms=lambda: onebit_dequantize(packed, scale),
+                     plain_ms=lambda: onebit_dequantize_ref(packed, scale),
+                     library_ms=None)
         # K3a: g, err read; new_err, words, scales written; add, |.|, sum,
         # compare and subtract an element.  K3b: words and scales read, the
         # output written; a shift, a mask and a select an element.
         qb, qby = roofline(12 * el + el // 8 + 4 * R, 5 * el, F32_FLOPS)
         db, dby = roofline(4 * el + el // 8 + 4 * R, 3 * el, F32_FLOPS)
         key = "" if n == 0 else "largest_bucket_"
-        out[key + "quantize"] = {
-            "max_abs_err": e_err, "ms": q_ms, "plain_ms": q_plain,
-            "library_ms": None, "bound_ms": qb, "bound_by": qby}
-        out[key + "dequantize"] = {
-            "max_abs_err": 0.0, "ms": d_ms, "plain_ms": d_plain,
-            "library_ms": None, "bound_ms": db, "bound_by": dby}
-        print(f"  quantize: kernel {q_ms:.4f} ms, plain {q_plain:.4f} ms, "
-              f"bound {qb:.4f} ms ({qby}); dequantize: kernel {d_ms:.4f} "
-              f"ms, plain {d_plain:.4f} ms, bound {db:.4f} ms ({dby}); no "
-              f"library call")
+        out[key + "quantize"] = {"max_abs_err": e_err, **tq,
+                                 "bound_ms": qb, "bound_by": qby}
+        out[key + "dequantize"] = {"max_abs_err": 0.0, **td,
+                                   "bound_ms": db, "bound_by": dby}
+        print(f"  quantize: kernel {tq['ms']:.4f} ms, plain "
+              f"{tq['plain_ms']:.4f} ms, bound {qb:.4f} ms ({qby}); "
+              f"dequantize: kernel {td['ms']:.4f} ms, plain "
+              f"{td['plain_ms']:.4f} ms, bound {db:.4f} ms ({dby}); no "
+              f"library call; host-paced: kernels {tq['ms_host_paced']:.4f}"
+              f", {td['ms_host_paced']:.4f} ms")
         del g, err, packed, scale, new_err, p_ref, s_ref, e_ref, deq
         torch.cuda.empty_cache()
     return out
@@ -602,10 +688,11 @@ def train_full(ddp: bool, n_buckets: int) -> dict:
     return counts
 
 
-def profile_one(name: str, fn, bound, repeats: int = 3) -> None:
+def profile_one(name: str, fn, bound, repeats: int = 3) -> list:
     """Host wall (median of ``repeats`` calls, each ending in a device
     synchronize), the device time of the kernels one call launches, the
-    kernels that take most of it (torch.profiler) and the bound."""
+    kernels that take most of it (torch.profiler) and the bound.  Returns
+    the names of every kernel the profiled call ran."""
     bound_ms, bound_by = bound
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -642,9 +729,24 @@ def profile_one(name: str, fn, bound, repeats: int = 3) -> None:
     print("  host operators by own host time: " + ", ".join(
         f"{e.key} {e.self_cpu_time_total / 1e3:.1f} ms x{e.count}"
         for e in host))
+    return [e.key for e in ev]
 
 
-def profile_train(ddp: bool) -> None:
+def check_k1_route(name: str, kernels: list, want: tuple) -> None:
+    """The profiled step ran each of K1's tensor-core kernels ``want``
+    (keys of ``K1_TC``) by name, and none of the f32 CUDA-core kernels."""
+    ran = {w: sum(K1_TC[w] in k for k in kernels) for w in want}
+    f32 = [k for k in kernels if any(f in k for f in K1_F32)]
+    print(f"{name}: K1 kernels by name "
+          + ", ".join(f"{K1_TC[w]} {'ran' if n else 'MISSING'}"
+                      for w, n in ran.items())
+          + f"; f32 K1 kernels {len(f32)}")
+    if not all(ran.values()) or f32:
+        raise AssertionError(f"{name}: bf16 attention did not run on the "
+                             f"tensor-core kernels: {ran}, f32 {f32}")
+
+
+def profile_train(ddp: bool) -> list:
     """Where one full-width train step (``TRAIN``) spends its time: the
     plain step, or the world-1 DDP step with the onebit codec.  Bound:
     parameters, gradients and adamw's m and v each read and written once
@@ -689,10 +791,11 @@ def profile_train(ddp: bool) -> None:
     def one():
         _, state["params"], state["opt"] = run(state["params"], state["opt"])
     name = "world-1 DDP onebit step" if ddp else "train step"
-    profile_one(f"{name}, {plan.batch} x {plan.seq} tokens", one,
-                roofline((48 if ddp else 32) * n, ops))
+    kernels = profile_one(f"{name}, {plan.batch} x {plan.seq} tokens", one,
+                          roofline((48 if ddp else 32) * n, ops))
     del state, params, opt, leaves
     torch.cuda.empty_cache()
+    return kernels
 
 
 def check_reference(arch: str, prompt_len: int = 20, gen_len: int = 8,
@@ -736,7 +839,7 @@ def profile_steps(cfg, slots: int, prompt_len: int, repeats: int = 3):
     shape: host wall time (median of ``repeats``, each ending in a device
     synchronize), the device time of the kernels it launched, the
     kernels that take the most of it (torch.profiler), and the step's
-    bound (``step_bound``)."""
+    bound (``step_bound``).  Returns the prefill's kernel names."""
     shape = {"seq_len": prompt_len + 1, "global_batch": slots}
     pre = steps.make_prefill_step(cfg, shape)
     dec = steps.make_decode_step(cfg, shape)
@@ -751,8 +854,8 @@ def profile_steps(cfg, slots: int, prompt_len: int, repeats: int = 3):
             ("decode step", lambda: dec.fn(params, cache, {"tokens": tok},
                                            prompt_len),
              step_bound(cfg, params, cache, slots, 1, prompt_len + 1)))
-    for name, fn, bound in runs:
-        profile_one(name, fn, bound)
+    kernels = {name: profile_one(name, fn, bound) for name, fn, bound in runs}
+    return kernels["prefill"]
 
 
 KERNELS = (flash_attention, flash_attention_bwd, mamba2_chunk_scan,
@@ -834,6 +937,7 @@ def main() -> int:
     phase("kernels against their plain versions")
     fa = check_kernels(torch.Generator(device="cuda").manual_seed(0))
     fa_bwd = check_fa_bwd(torch.Generator(device="cuda").manual_seed(0))
+    check_misaligned()
     scan = check_scan(torch.Generator(device="cuda").manual_seed(0))
     buckets = train_plan_buckets()
     print(f"training plan: {len(buckets)} gradient buckets, the largest "
@@ -858,12 +962,14 @@ def main() -> int:
     for arch in SERVE_ARCHS:
         phase(f"where the time goes: {arch}, one prefill, one decode step "
               f"(not counted)")
-        profile_steps(steps._serve_cfg(get_config(arch)), SERVE["slots"],
-                      SERVE["prompt_len"])
+        kernels = profile_steps(steps._serve_cfg(get_config(arch)),
+                                SERVE["slots"], SERVE["prompt_len"])
+        check_k1_route(f"{arch} prefill", kernels, ("forward",))
     phase("where the time goes: one full-width train step, plain and world-1 "
           "DDP onebit (not counted)")
-    profile_train(ddp=False)
-    profile_train(ddp=True)
+    for ddp in (False, True):
+        check_k1_route("DDP train step" if ddp else "train step",
+                       profile_train(ddp), ("forward", "dkdv", "dq"))
 
     phase("result")
     by_path = {fn.__name__: {path: c[fn.__name__]
@@ -876,13 +982,17 @@ def main() -> int:
                 "launches": sum(by_path[name].values()), **readings,
                 "launches_by_path": by_path[name], **extra}
     fa_zamba = {f"zamba_{k}": v for k, v in fa[1].items()}
+    fa_b8 = {f"train_b8_{k}": v for k, v in fa[2].items()}
+    bwd_b8 = {f"train_b8_{k}": v for k, v in fa_bwd[1].items()}
     largest = {k[len("largest_bucket_"):]: v for k, v in onebit.items()
                if k.startswith("largest_bucket_")}
     print(json.dumps({"kernels": [
         entry("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
-              "src/repro/kernels/flash_attention.py:86", fa[0], **fa_zamba),
+              "src/repro/kernels/flash_attention.py:86", fa[0], **fa_zamba,
+              **fa_b8),
         entry("flash_attention_bwd",
-              "src/repro_torch/csrc/flash_attention.cu", None, fa_bwd,
+              "src/repro_torch/csrc/flash_attention.cu", None, fa_bwd[0],
+              **bwd_b8,
               note="no Pallas counterpart: the JAX package differentiates "
                    "attend_chunked (src/repro/models/attention.py:130)"),
         entry("mamba2_chunk_scan", "src/repro_torch/csrc/mamba2_scan.cu",

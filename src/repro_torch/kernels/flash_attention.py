@@ -14,6 +14,13 @@ forward kernel also writes each row's float32 log-sum-exp, and its
 backward launches the backward kernel (dq, dk, dv), which the JAX package
 does not have (its training differentiates ``attend_chunked``).  The
 backward is built for head dims ``BWD_HEAD_DIMS`` and raises for others.
+
+The C entries pick the route by dtype, with no fallback between them:
+bfloat16, which every main path runs, goes to the tensor-core kernels
+(Hopper ``wgmma``); float32 to kernels that compute in f32 on the CUDA
+cores, because f32 inputs must match this module's plain version to 1e-5,
+which bf16 or tf32 products cannot.  Both routes count in the same
+``launches``.
 """
 from __future__ import annotations
 
@@ -82,6 +89,17 @@ def _check(q, k, v):
                          f"{sorted(map(str, devs))}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention takes contiguous q, k, v")
+    _check_aligned(q, k, v)
+
+
+def _check_aligned(*ts):
+    """The bf16 kernels read their tensors in 16-byte words: a CUDA bf16
+    tensor must start on a 16-byte boundary (a view at another offset
+    would fault on the card)."""
+    if any(t.device.type == "cuda" and t.dtype == torch.bfloat16
+           and t.data_ptr() % 16 for t in ts):
+        raise ValueError("flash_attention's bf16 kernels take tensors that "
+                         "start on a 16-byte boundary")
 
 
 def _kernel_fn(name: str, argtypes):
@@ -136,6 +154,7 @@ def flash_attention_bwd(q, k, v, o, lse, dout, *, causal: bool = True,
     if not all(t.is_contiguous() and t.device == q.device
                for t in (o, lse, dout)):
         raise ValueError("o, lse, dout must be contiguous on q's device")
+    _check_aligned(o, dout)
     scale = scale or 1.0 / math.sqrt(d)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty(B, H, S, dtype=torch.float32, device=q.device)
@@ -178,8 +197,11 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         causal, window, scale = ctx.args
+        dout = dout.contiguous()
+        if dout.data_ptr() % 16:    # a view into another tensor's storage
+            dout = dout.clone()
         dq, dk, dv = flash_attention_bwd(
-            q, k, v, out, lse, dout.contiguous(), causal=causal,
+            q, k, v, out, lse, dout, causal=causal,
             window=window, scale=scale)
         return dq, dk, dv, None, None, None, None
 

@@ -146,3 +146,52 @@ def test_backward_kernel_is_for_cuda_tensors_only():
     q, k, v = (torch.from_numpy(a) for a in _qkv(1, 2, 2, 16, 32))
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention_bwd(q, k, v, q, torch.zeros(1, 2, 16), q)
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,d,causal,window", [
+    (2, 4, 4, 100, 80, True, None),        # zamba's head dim, ragged S
+    (1, 2, 2, 160, 80, True, 64),          # d=80, window
+    (1, 4, 4, 100, 64, False, None),       # non-causal, ragged S
+    (2, 4, 2, 64, 32, True, None),         # d=32, GQA
+    (1, 4, 2, 96, 64, True, None),         # d=64, GQA
+])
+def test_plain_version_bf16_matches_oracle_at_chip_cases(B, H, Hkv, S, d,
+                                                         causal, window):
+    """chip_smoke.py holds the bf16 tensor-core kernel against the plain
+    version at these edges (there at larger sizes); here the plain version
+    itself is held in bf16 against the JAX oracle, within TOL["bf16"]."""
+    q, k, v = _qkv(B, H, Hkv, S, d, seed=7)
+    jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+    got = flash_attention_ref(*(torch.from_numpy(a).to(torch.bfloat16)
+                                for a in (q, k, v)), causal=causal,
+                              window=window)
+    assert got.dtype == torch.bfloat16 and got.shape == (B, H, S, d)
+    _close(got, jax_ref.flash_attention_ref(jq, jk, jv, causal=causal,
+                                            window=window), "bf16")
+
+
+def test_bf16_backward_of_plain_version_matches_jax_grad():
+    """GQA with ragged S in bf16: autograd through the plain version (what
+    the card's backward kernel is held against) against jax.vjp of the JAX
+    oracle on the same bf16 inputs.  The two frameworks round the products'
+    outputs and the cotangents to bf16 at different places, so each
+    gradient is held to 3e-2 of its largest magnitude (at least 1), the
+    card's bf16 backward tolerance in chip_smoke.py."""
+    B, H, Hkv, S, d = 2, 4, 2, 40, 64
+    q, k, v = _qkv(B, H, Hkv, S, d, seed=8)
+    dout = np.random.default_rng(9).standard_normal(q.shape).astype(
+        np.float32)
+    want = jax.vjp(lambda a, b, c: jax_ref.flash_attention_ref(
+        a, b, c, causal=True), *(jnp.asarray(a, jnp.bfloat16)
+                                 for a in (q, k, v)))[1](
+        jnp.asarray(dout, jnp.bfloat16))
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16).requires_grad_(True)
+                  for a in (q, k, v))
+    out = flash_attention(tq, tk, tv, causal=True)
+    got = torch.autograd.grad(out, (tq, tk, tv),
+                              torch.from_numpy(dout).to(torch.bfloat16))
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        w = np.asarray(w, np.float32)
+        np.testing.assert_allclose(g.float().numpy(), w, rtol=0,
+                                   atol=3e-2 * max(1.0, np.abs(w).max()))
