@@ -16,8 +16,11 @@ without the final ``{"ok": true, ...}`` line:
    training shapes (against autograd through the plain version), each K1
    case also run twice to the same bits, bf16 on the tensor-core kernels
    and f32 on the CUDA-core ones; K2 the Mamba-2 chunk scan at
-   zamba2-2.7b's, K3a/K3b the 1-bit codec at a 32 MB bucket and at the
-   largest bucket of the training plan.  Every time is taken twice
+   zamba2-2.7b's, with B and C once per group (G=1, the model's) and per
+   head (G=H), grouped and ragged, each case run twice to the same bits,
+   bf16 on the tensor-core kernel and f32 on the CUDA-core one; K3a/K3b
+   the 1-bit codec at a 32 MB bucket and at the largest bucket of the
+   training plan, and K3b also at small and wide rows.  Every time is taken twice
    (``timings``): on the device, and host-paced, as earlier versions of
    this script took it.  K1 refuses a bf16 view off a 16-byte boundary;
 4. reference: the tiny dense and zamba configs served on the card agree
@@ -34,7 +37,8 @@ without the final ``{"ok": true, ...}`` line:
 7. where the time goes: one prefill and one decode step of each served
    configuration, one plain and one DDP train step; the prefills and the
    train steps must show K1's tensor-core kernels by name and none of its
-   f32 kernels;
+   f32 kernels, zamba2-2.7b's prefill K2's tensor-core kernel and not its
+   f32 one, the DDP step K3b's row-stream kernel;
 8. the ``kernels`` JSON line, then the ``ok`` line last.
 
 Every kernel launch count is set to 0 just before each run of phases 5
@@ -115,15 +119,26 @@ FA_CASES = [
 FA_TIMED = 3            # the first FA_TIMED cases are timed
 # K2 tolerances of tests/test_kernels.py's sweep, as atol and rtol
 SCAN_TOL = {torch.float32: 2e-4, torch.bfloat16: 6e-2}
-# (B, H, L, P, N, chunk, dtype): zamba2-2.7b's prefill shape (timed) in
-# bf16 and f32, then the three shapes of tests/test_kernels.py's sweep
+# (B, H, G, L, P, N, chunk, dtype), G the groups of Bm, Cm: zamba2-2.7b's
+# prefill shape in bf16 with its one group (timed, the serve path's case)
+# and with B, C per head (timed), then f32 at that shape and the three
+# shapes of tests/test_kernels.py's sweep (B, C per head), grouped cases
+# (H=4, G=2) in both dtypes, a ragged bf16 case, and bf16 at the other
+# (P, N) the kernel is built for
 SCAN_CASES = [
-    (4, 80, 512, 64, 64, 256, torch.bfloat16),
-    (4, 80, 512, 64, 64, 256, torch.float32),
-    (1, 2, 256, 32, 16, 64, torch.float32),
-    (2, 4, 128, 64, 64, 32, torch.float32),
-    (1, 1, 512, 16, 8, 128, torch.float32),
+    (4, 80, 1, 512, 64, 64, 256, torch.bfloat16),
+    (4, 80, 80, 512, 64, 64, 256, torch.bfloat16),
+    (4, 80, 80, 512, 64, 64, 256, torch.float32),
+    (1, 2, 2, 256, 32, 16, 64, torch.float32),
+    (2, 4, 4, 128, 64, 64, 32, torch.float32),
+    (1, 1, 1, 512, 16, 8, 128, torch.float32),
+    (2, 4, 2, 128, 64, 64, 32, torch.bfloat16),
+    (2, 4, 2, 128, 64, 64, 32, torch.float32),
+    (2, 4, 1, 200, 64, 64, 200, torch.bfloat16),          # ragged L
+    (1, 2, 2, 256, 32, 16, 64, torch.bfloat16),
+    (1, 1, 1, 512, 16, 8, 128, torch.bfloat16),
 ]
+SCAN_TIMED = 2          # the first SCAN_TIMED cases are timed
 SCAN_TILE = 64          # rows per tile of csrc/mamba2_scan.cu
 SERVE = dict(requests=8, slots=4, prompt_len=512, gen_len=32)
 SERVE_ARCHS = ("qwen3-4b", "zamba2-2.7b")
@@ -165,6 +180,12 @@ TRAIN_REF_RTOL = {"plain": 1e-4, "onebit": 1e-3}
 K1_TC = {"forward": "attn_fwd_wgmma", "dkdv": "attn_bwd_dkdv_wgmma",
          "dq": "attn_bwd_dq_wgmma"}
 K1_F32 = ("fa_fwd<", "fa_bwd_dkdv<", "fa_bwd_dq<")
+# K2's kernels and K3b's by the names the profiler gives them: zamba's bf16
+# prefill must run the tensor-core scan and never the f32 one
+K2_TC, K2_F32 = "ssd_scan_mma", "ssd_scan<"
+K3B = "onebit_dequant_rows"
+# K3b's other row widths (R, C): several rows a block, a loop over a row
+DEQUANT_SHAPES = ((7, 128), (3, 4096))
 
 
 def phase(name: str):
@@ -353,49 +374,72 @@ def check_misaligned() -> None:
 def check_scan(gen) -> dict:
     """K2 against its plain version at ``SCAN_CASES``, inputs built as
     tests/test_kernels.py builds them (xdt, Bm, Cm scaled by 0.5, a =
-    -|n| * 0.1); times the first case.  No single PyTorch call computes
-    the SSD scan, so there is no library time."""
-    out = {}
-    for B, H, L, P, N, chunk, dt in SCAN_CASES:
+    -|n| * 0.1), and against itself: a second run on the same inputs gives
+    the same bits.  Times the first ``SCAN_TIMED`` cases; returns the
+    first's readings with the second's under ``per_head_bc``.  No single
+    PyTorch call computes the SSD scan, so there is no library time."""
+    out = []
+    for B, H, G, L, P, N, chunk, dt in SCAN_CASES:
         xdt = (0.5 * torch.randn(B, H, L, P, generator=gen,
                                  device="cuda")).to(dt)
         a = -0.1 * torch.randn(B, H, L, generator=gen, device="cuda").abs()
-        Bm = (0.5 * torch.randn(B, H, L, N, generator=gen,
+        Bm = (0.5 * torch.randn(B, G, L, N, generator=gen,
                                 device="cuda")).to(dt)
-        Cm = (0.5 * torch.randn(B, H, L, N, generator=gen,
+        Cm = (0.5 * torch.randn(B, G, L, N, generator=gen,
                                 device="cuda")).to(dt)
         y, st = mamba2_chunk_scan(xdt, a, Bm, Cm, chunk=chunk)
+        y2, st2 = mamba2_chunk_scan(xdt, a, Bm, Cm, chunk=chunk)
         torch.cuda.synchronize()
+        same = torch.equal(y, y2) and torch.equal(st, st2)
         y_ref, st_ref = mamba2_chunk_scan_ref(xdt, a, Bm, Cm)
         tol = SCAN_TOL[dt]
-        errs, ok = [], True
+        errs, ok = [], same
         for got, want in ((y.float(), y_ref.float()), (st, st_ref)):
             diff = (got - want).abs()
             errs.append(diff.max().item())
             ok &= bool((diff <= tol + tol * want.abs()).all()) \
                 and bool(torch.isfinite(got).all())
-        print(f"mamba2_chunk_scan B={B} H={H} L={L} P={P} N={N} "
+        print(f"mamba2_chunk_scan B={B} H={H} G={G} L={L} P={P} N={N} "
               f"chunk={chunk} {str(dt)[6:]}: max abs err y {errs[0]:.3g}, "
-              f"state {errs[1]:.3g} (atol = rtol = {tol:g}) "
+              f"state {errs[1]:.3g} (atol = rtol = {tol:g}), rerun "
+              f"{'bit-identical' if same else 'DIFFERS'} "
               f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError("mamba2_chunk_scan disagrees with its plain "
+                                 "version or itself")
+        if len(out) >= SCAN_TIMED:
+            continue
+        t = {**timings(ms=lambda: mamba2_chunk_scan(xdt, a, Bm, Cm,
+                                                    chunk=chunk),
+                       library_ms=None),
+             **timings(iters=3, warm=1, plain_ms=lambda:
+                       mamba2_chunk_scan_ref(xdt, a, Bm, Cm))}
+        bound_ms, bound_by = scan_bound(
+            xdt, a, Bm, Cm, st.numel() * st.element_size())
+        out.append({"max_abs_err": max(errs), **t, "bound_ms": bound_ms,
+                    "bound_by": bound_by})
+        print(f"  timed: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} "
+              f"ms, no library call, bound {bound_ms:.4f} ms ({bound_by}); "
+              f"host-paced: kernel {t['ms_host_paced']:.4f} ms")
+    return {**out[0], "per_head_bc": out[1]}
+
+
+def check_dequant_shapes(gen) -> None:
+    """K3b bit-identical to its plain version at ``DEQUANT_SHAPES``, on
+    random words and scales."""
+    for R, C in DEQUANT_SHAPES:
+        packed = torch.randint(-2**31, 2**31 - 1, (R, C // 32),
+                               generator=gen, device="cuda",
+                               dtype=torch.int32)
+        scale = torch.rand(R, 1, generator=gen, device="cuda")
+        got = onebit_dequantize(packed, scale)
+        torch.cuda.synchronize()
+        same = torch.equal(got, onebit_dequantize_ref(packed, scale))
+        print(f"onebit_dequantize [{R}, {C}]: "
+              f"{'identical' if same else 'DIFFERS'} {'ok' if same else 'FAIL'}")
+        if not same:
+            raise AssertionError("onebit_dequantize disagrees with its plain "
                                  "version")
-        if not out:          # the serving slice's shape: time it
-            t = {**timings(ms=lambda: mamba2_chunk_scan(xdt, a, Bm, Cm,
-                                                        chunk=chunk),
-                           library_ms=None),
-                 **timings(iters=3, warm=1, plain_ms=lambda:
-                           mamba2_chunk_scan_ref(xdt, a, Bm, Cm))}
-            bound_ms, bound_by = scan_bound(
-                xdt, a, Bm, Cm, st.numel() * st.element_size())
-            out = {"max_abs_err": max(errs), **t, "bound_ms": bound_ms,
-                   "bound_by": bound_by}
-            print(f"  at the slice's shape: kernel {t['ms']:.4f} ms, plain "
-                  f"{t['plain_ms']:.4f} ms, no library call, bound "
-                  f"{bound_ms:.4f} ms ({bound_by}); host-paced: kernel "
-                  f"{t['ms_host_paced']:.4f} ms")
-    return out
 
 
 def causal_pairs(S: int, causal: bool, window) -> int:
@@ -732,6 +776,17 @@ def profile_one(name: str, fn, bound, repeats: int = 3) -> list:
     return [e.key for e in ev]
 
 
+def check_ran(name: str, kernels: list, want: str, never: str = None):
+    """The profiled call ran a kernel whose name holds ``want``, and none
+    whose name holds ``never``."""
+    ran = sum(want in k for k in kernels)
+    bad = [k for k in kernels if never and never in k]
+    print(f"{name}: {want} {'ran' if ran else 'MISSING'}"
+          + (f"; {never} kernels {len(bad)}" if never else ""))
+    if not ran or bad:
+        raise AssertionError(f"{name}: want {want} and no {never}: {bad}")
+
+
 def check_k1_route(name: str, kernels: list, want: tuple) -> None:
     """The profiled step ran each of K1's tensor-core kernels ``want``
     (keys of ``K1_TC``) by name, and none of the f32 CUDA-core kernels."""
@@ -944,6 +999,7 @@ def main() -> int:
           f"{max(buckets)} elements ({4 * max(buckets) / 2**20:.0f} MB)")
     onebit = check_onebit(torch.Generator(device="cuda").manual_seed(0),
                           [ONEBIT_ROWS, 300, max(buckets) // 1024])
+    check_dequant_shapes(torch.Generator(device="cuda").manual_seed(0))
 
     phase("reference: card against CPU on tiny configs")
     check_reference("qwen3-4b")
@@ -965,11 +1021,16 @@ def main() -> int:
         kernels = profile_steps(steps._serve_cfg(get_config(arch)),
                                 SERVE["slots"], SERVE["prompt_len"])
         check_k1_route(f"{arch} prefill", kernels, ("forward",))
+        if arch == "zamba2-2.7b":
+            check_ran(f"{arch} prefill", kernels, K2_TC, K2_F32)
     phase("where the time goes: one full-width train step, plain and world-1 "
           "DDP onebit (not counted)")
     for ddp in (False, True):
-        check_k1_route("DDP train step" if ddp else "train step",
-                       profile_train(ddp), ("forward", "dkdv", "dq"))
+        name = "DDP train step" if ddp else "train step"
+        kernels = profile_train(ddp)
+        check_k1_route(name, kernels, ("forward", "dkdv", "dq"))
+        if ddp:
+            check_ran(name, kernels, K3B)
 
     phase("result")
     by_path = {fn.__name__: {path: c[fn.__name__]

@@ -27,7 +27,18 @@
 // memory), pass 2 reads the row again (from L1/L2: a 1024-element row of g
 // and err is 8 KB) and writes new_err and the words.  Thread t of the block
 // takes elements t, t + 128, ..., so a warp's 32 lanes hold the 32 elements
-// of one word.  K3b: one thread per element, a warp per word.
+// of one word.
+//
+// K3b: a row stream at write bandwidth.  A block of 256 threads takes a
+// row from blockIdx (several rows where C < 1024: C / 4 threads a row, 8
+// rows at C = 128) and reads the row's scale once.  Each thread writes 4
+// consecutive elements with one 16-byte float4 store (st.global.cs, the
+// streaming hint: the output is not read again by this kernel, and plain
+// stores were slower in a throwaway build on the H100), from 4 bits of a
+// word that 8 neighbouring threads share (one load a warp serves all 8),
+// and loops over the row where C > 1024.  Index math is 32-bit within a
+// row; only the row's base is 64-bit.  The grid is one block per row (or
+// group of rows), 379,840 at the training plan's largest bucket.
 
 #include <cuda_runtime.h>
 
@@ -75,16 +86,22 @@ __global__ void __launch_bounds__(QT)
   }
 }
 
+// tpr = min(C / 4, DT) threads a row, DT / tpr rows a block
 __global__ void __launch_bounds__(DT)
-    onebit_dequant(const unsigned* __restrict__ packed,
-                   const float* __restrict__ scale, float* __restrict__ out,
-                   long long n, int C) {
-  const long long e = (long long)blockIdx.x * DT + threadIdx.x;
-  if (e >= n) return;
-  const long long r = e / C;
-  const unsigned word = packed[e / 32];
+    onebit_dequant_rows(const unsigned* __restrict__ packed,
+                        const float* __restrict__ scale,
+                        float* __restrict__ out, int R, int C, int tpr) {
+  const int sub = threadIdx.x / tpr, t = threadIdx.x - sub * tpr;
+  const long long r = (long long)blockIdx.x * (DT / tpr) + sub;
+  if (sub >= DT / tpr || r >= R) return;
   const float a = scale[r];
-  out[e] = (word >> (e & 31)) & 1u ? a : -a;
+  const unsigned* pr = packed + r * (C / 32);
+  float4* orow = reinterpret_cast<float4*>(out + r * C);
+  for (int q = t; q < C / 4; q += tpr) {    // elements 4q .. 4q+3
+    const unsigned bits = pr[q >> 3] >> ((q & 7) * 4);
+    __stcs(orow + q, make_float4(bits & 1u ? a : -a, bits & 2u ? a : -a,
+                                 bits & 4u ? a : -a, bits & 8u ? a : -a));
+  }
 }
 
 }  // namespace
@@ -111,12 +128,11 @@ extern "C" int onebit_quantize_fwd(const void* g, const void* err,
 extern "C" int onebit_dequantize_fwd(const void* packed, const void* scale,
                                      void* out, int R, int C, void* stream) {
   if (R <= 0 || C <= 0 || C % 128 != 0) return (int)cudaErrorInvalidValue;
-  const long long n = (long long)R * C;
-  const long long blocks = (n + DT - 1) / DT;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  onebit_dequant<<<(unsigned)blocks, DT, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
+  const int tpr = C / 4 < DT ? C / 4 : DT;
+  const int rpb = DT / tpr;
+  onebit_dequant_rows<<<(R + rpb - 1) / rpb, DT, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const unsigned*>(packed), static_cast<const float*>(scale),
-      static_cast<float*>(out), n, C);
+      static_cast<float*>(out), R, C, tpr);
   return (int)cudaGetLastError();
 }

@@ -9,8 +9,16 @@ runs the plain version.  There is no other switch and no fallback.
 
 ``chunk`` keeps the TPU kernel's contract (``chunk = min(chunk, L)`` and
 ``L % chunk == 0``, else ``ValueError``), but the function does not depend
-on it: the CUDA kernel walks the sequence in tiles of its own (64 rows)
-and masks a ragged last tile itself.
+on it: the CUDA kernels walk the sequence in tiles of their own (64 rows)
+and mask a ragged last tile themselves.
+
+``Bm`` and ``Cm`` are ``[B, G, L, N]`` with ``H % G == 0``: head ``h``
+reads group ``h // (H / G)``, as K1's query head reads its kv head, so a
+model with few groups hands the kernel its B and C once per group instead
+of repeated over heads.  ``G == H`` is the TPU kernel's own contract.
+
+The kernel is picked by dtype: float32 runs ``ssd_scan`` on the CUDA cores
+(2e-4 parity), bfloat16 runs ``ssd_scan_mma`` on the tensor cores.
 """
 from __future__ import annotations
 
@@ -24,18 +32,21 @@ from . import build
 # the smallest shape of the kernel sweep
 SHAPES = ((64, 64), (32, 16), (16, 8))
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
 def mamba2_chunk_scan_ref(xdt, a, Bm, Cm):
     """Plain version: the sequential recurrence of ``ref.mamba2_scan_ref``
     in float32, ``h_t = exp(a_t) h_{t-1} + x_t (x) B_t``, ``y_t = h_t C_t``.
-    xdt: [B, H, L, P]; a: [B, H, L]; Bm, Cm: [B, H, L, N] -> (y [B, H, L,
-    P] in xdt's dtype, final state [B, H, P, N] float32)."""
+    xdt: [B, H, L, P]; a: [B, H, L]; Bm, Cm: [B, G, L, N], repeated here
+    over the H / G heads of each group -> (y [B, H, L, P] in xdt's dtype,
+    final state [B, H, P, N] float32)."""
     Bsz, H, L, P = xdt.shape
     N = Bm.shape[-1]
+    rep = H // Bm.shape[1]
     x, a32 = xdt.float(), a.float()
-    b32, c32 = Bm.float(), Cm.float()
+    b32 = Bm.float().repeat_interleave(rep, dim=1)
+    c32 = Cm.float().repeat_interleave(rep, dim=1)
     h = torch.zeros(Bsz, H, P, N, dtype=torch.float32, device=xdt.device)
     ys = []
     for t in range(L):
@@ -49,14 +60,17 @@ def _check(xdt, a, Bm, Cm, chunk: int):
     if xdt.dim() != 4 or a.dim() != 3 or Bm.dim() != 4 \
             or Bm.shape != Cm.shape:
         raise ValueError(f"mamba2_chunk_scan wants xdt [B,H,L,P], a [B,H,L] "
-                         f"and Bm, Cm [B,H,L,N]; got {tuple(xdt.shape)}, "
+                         f"and Bm, Cm [B,G,L,N]; got {tuple(xdt.shape)}, "
                          f"{tuple(a.shape)}, {tuple(Bm.shape)}, "
                          f"{tuple(Cm.shape)}")
     B, H, L, P = xdt.shape
-    N = Bm.shape[-1]
-    if tuple(a.shape) != (B, H, L) or tuple(Bm.shape[:3]) != (B, H, L):
+    G, N = Bm.shape[1], Bm.shape[-1]
+    if tuple(a.shape) != (B, H, L) or Bm.shape[0] != B or Bm.shape[2] != L:
         raise ValueError(f"a {tuple(a.shape)} and Bm {tuple(Bm.shape)} do "
                          f"not match xdt {tuple(xdt.shape)}")
+    if G == 0 or H % G:
+        raise ValueError(f"{H} heads do not split into {G} groups of Bm, "
+                         f"Cm")
     if B == 0 or H == 0 or L == 0:
         raise ValueError("mamba2_chunk_scan of an empty batch or sequence")
     if (P, N) not in SHAPES:
@@ -74,6 +88,11 @@ def _check(xdt, a, Bm, Cm, chunk: int):
                          f"device; got {sorted(map(str, devs))}")
     if not all(t.is_contiguous() for t in (xdt, a, Bm, Cm)):
         raise ValueError("mamba2_chunk_scan takes contiguous inputs")
+    if any(t.device.type == "cuda" and t.dtype == torch.bfloat16
+           and t.data_ptr() % 16 for t in (xdt, Bm, Cm)):
+        # the bf16 kernel copies its tiles in 16-byte words
+        raise ValueError("mamba2_chunk_scan's bf16 kernel takes tensors "
+                         "that start on a 16-byte boundary")
     chunk = min(chunk, L)
     if chunk < 1 or L % chunk:
         raise ValueError(f"sequence length {L} is not a multiple of chunk "
@@ -89,13 +108,14 @@ def _kernel_fn():
 
 
 def mamba2_chunk_scan(xdt, a, Bm, Cm, *, chunk: int = 128):
-    """xdt: [B, H, L, P]; a: [B, H, L] float32 log-decays; Bm, Cm: [B, H,
-    L, N] -> (y [B, H, L, P] in xdt's dtype, final state [B, H, P, N]
-    float32).
+    """xdt: [B, H, L, P]; a: [B, H, L] float32 log-decays; Bm, Cm: [B, G,
+    L, N] with ``H % G == 0`` (head h reads group h // (H / G)) -> (y [B,
+    H, L, P] in xdt's dtype, final state [B, H, P, N] float32).
 
     xdt, Bm, Cm float32 or bfloat16 of one dtype, (P, N) in ``SHAPES``,
-    contiguous inputs on one device, ``L`` a multiple of ``min(chunk,
-    L)``; anything else raises.  On CUDA tensors this launches the kernel
+    contiguous inputs on one device (bf16 ones on CUDA starting on a
+    16-byte boundary), ``L`` a multiple of ``min(chunk, L)``; anything
+    else raises.  On CUDA tensors this launches the kernel
     on the current stream and adds one to ``mamba2_chunk_scan.launches``;
     it raises ``NotImplementedError`` when autograd would record it (grad
     mode on and an input that requires grad), since the kernel has no
@@ -116,7 +136,8 @@ def mamba2_chunk_scan(xdt, a, Bm, Cm, *, chunk: int = 128):
     with torch.cuda.device(xdt.device):   # the launch goes to xdt's card
         rc = _kernel_fn()(
             xdt.data_ptr(), a.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
-            y.data_ptr(), state.data_ptr(), B, H, L, P, Bm.shape[-1],
+            y.data_ptr(), state.data_ptr(), B, H, Bm.shape[1], L, P,
+            Bm.shape[-1],
             _DTYPE_CODES[xdt.dtype],
             torch.cuda.current_stream(xdt.device).cuda_stream)
     if rc != 0:

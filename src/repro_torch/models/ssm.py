@@ -102,16 +102,14 @@ def mamba2_chunked(x, p, cfg, *, chunk: int = 256, return_state: bool = False):
     xs = xbc[..., :d_in].reshape(B, L, H, P)
     Bm = xbc[..., d_in:d_in + G * N].reshape(B, L, G, N)
     Cm = xbc[..., d_in + G * N:].reshape(B, L, G, N)
-    rep = H // G
-    Bm = Bm.repeat_interleave(rep, dim=2)            # [B,L,H,N]
-    Cm = Cm.repeat_interleave(rep, dim=2)
 
     dt = F.softplus(dt.float() + p["dt_bias"].float())             # [B,L,H]
     A = -torch.exp(p["A_log"].float())                             # [H]
     a = dt * A[None, None]                                         # log decay
     xdt = xs * dt.to(dt_f)[..., None]                              # dt-weighted
 
-    # the kernel's layout: [B, H, L, .]
+    # the kernel's layout: [B, H, L, .], B and C once per group [B, G, L, N]
+    # (the kernel reads head h's from group h // (H / G))
     y, S_final = mamba2_chunk_scan(
         xdt.transpose(1, 2).contiguous(), a.transpose(1, 2).contiguous(),
         Bm.transpose(1, 2).contiguous(), Cm.transpose(1, 2).contiguous(),

@@ -58,6 +58,51 @@ def test_matches_pallas_kernel_and_oracle(B, H, L, P, N, chunk, dt):
         _close(st, jst, dt)
 
 
+# the sweep's shapes (B, L, P, N, chunk) at H = 4 heads over G groups
+@pytest.mark.parametrize("B,L,P,N,chunk", [
+    (1, 256, 32, 16, 64),
+    (2, 128, 64, 64, 32),
+    (1, 512, 16, 8, 128),
+])
+@pytest.mark.parametrize("G", [1, 2])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_grouped_b_c_match_pallas_kernel_and_oracle(B, L, P, N, chunk, G,
+                                                    dt):
+    """Bm, Cm [B, G, L, N]: head h reads group h // (H / G).  The JAX
+    kernel and oracle take B and C per head, so they get them repeated
+    over each group's heads with np.repeat."""
+    H = 4
+    xdt, a, _, _ = _inputs(B, H, L, P, N, seed=1)
+    rng = np.random.default_rng(2)
+    Bm = 0.5 * rng.standard_normal((B, G, L, N)).astype(np.float32)
+    Cm = 0.5 * rng.standard_normal((B, G, L, N)).astype(np.float32)
+    jx = jnp.asarray(xdt, JDT[dt])
+    jB, jC = (jnp.asarray(np.repeat(v, H // G, axis=1), JDT[dt])
+              for v in (Bm, Cm))
+    tx, tB, tC = (torch.from_numpy(v).to(TDT[dt]) for v in (xdt, Bm, Cm))
+    launches = mamba2_chunk_scan.launches
+    y, st = mamba2_chunk_scan(tx, torch.from_numpy(a), tB, tC, chunk=chunk)
+    assert mamba2_chunk_scan.launches == launches      # a CPU call
+    assert y.shape == (B, H, L, P) and st.shape == (B, H, P, N)
+    for jy, jst in (jax_kernel(jx, jnp.asarray(a), jB, jC, chunk=chunk,
+                               interpret=True),
+                    jax_ref.mamba2_scan_ref(jx, jnp.asarray(a), jB, jC)):
+        _close(y, jy, dt)
+        _close(st, jst, dt)
+
+
+def test_plain_version_repeats_groups_over_heads():
+    """The plain version on [B, G, L, N] equals it on B and C repeated
+    over each group's heads, bit for bit."""
+    xdt, a, Bm, Cm = (torch.from_numpy(v) for v in _inputs(2, 6, 40, 16, 8))
+    Bg, Cg = Bm[:, :3], Cm[:, :3]
+    got = mamba2_chunk_scan_ref(xdt, a, Bg, Cg)
+    want = mamba2_chunk_scan_ref(xdt, a, Bg.repeat_interleave(2, dim=1),
+                                 Cg.repeat_interleave(2, dim=1))
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
 def test_plain_version_is_the_sequential_recurrence():
     """One step by hand: h_1 = x_0 (x) B_0 decayed by exp(a_1), plus
     x_1 (x) B_1; y_1 = h_1 . C_1."""
@@ -80,6 +125,8 @@ def test_plain_version_is_the_sequential_recurrence():
     (dict(N=32), ValueError),
     (dict(transpose=True), ValueError),            # not contiguous
     (dict(device="meta"), ValueError),
+    (dict(G=3, C_G=3), ValueError),                # 2 heads, 3 groups
+    (dict(C_G=1), ValueError),                     # Bm, Cm groups differ
 ])
 def test_wrapper_rejects_what_the_kernel_does_not_take(change, err):
     L, P, N = change.get("L", 64), change.get("P", 32), change.get("N", 16)
@@ -88,9 +135,11 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(change, err):
     xdt = torch.zeros(1, 2, L, P, dtype=dt, device=dev)
     a = torch.zeros(1, 2, change.get("a_len", L),
                     dtype=change.get("a_dtype", torch.float32))
-    Bm = torch.zeros(1, 2, L, N, dtype=torch.bfloat16 if change.get("mixed")
+    G = change.get("G", 2)
+    Bm = torch.zeros(1, G, L, N, dtype=torch.bfloat16 if change.get("mixed")
                      else dt)
-    Cm = torch.zeros(1, 2, L, change.get("C_N", N), dtype=Bm.dtype)
+    Cm = torch.zeros(1, change.get("C_G", G), L, change.get("C_N", N),
+                     dtype=Bm.dtype)
     if change.get("transpose"):
         xdt = torch.zeros(1, L, 2, P).transpose(1, 2)
     launches = mamba2_chunk_scan.launches

@@ -55,6 +55,23 @@ def test_plain_quantize_matches_pallas_kernel(R, C, bm):
     np.testing.assert_array_equal(deq.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("R, C", [(7, 128), (3, 4096), (8, 1024)])
+def test_plain_dequantize_matches_pallas_kernel_on_random_words(R, C):
+    """K3b's row widths on chip_smoke.py's card check (several rows a
+    block, a loop over a wide row, the codec's 1024): the plain version
+    equals the Pallas kernel bit for bit on any words, sign bit included."""
+    rng = np.random.default_rng(R * C)
+    words = rng.integers(0, 2**32, (R, C // 32), dtype=np.uint32)
+    scale = rng.random((R, 1), dtype=np.float32)
+    got = onebit_dequantize(torch.from_numpy(words.view(np.int32)),
+                            torch.from_numpy(scale))
+    want = jax_dequantize(jnp.asarray(words),
+                          jnp.broadcast_to(jnp.asarray(scale), (R, 128)),
+                          block_rows=R, interpret=True)
+    assert got.shape == (R, C)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
 def test_the_wrappers_are_the_plain_versions_on_the_cpu():
     g, e = (torch.from_numpy(a) for a in _inputs(4, 128, seed=7))
     for got, want in zip(onebit_quantize(g, e), onebit_quantize_ref(g, e)):

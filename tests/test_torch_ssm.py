@@ -123,3 +123,37 @@ def test_mamba2_chunk_size_invariance():
                                    y1, atol=2e-5, rtol=2e-4)
     with pytest.raises(ValueError, match="multiple of chunk"):
         ssm.mamba2_chunked(x, p, cfg, chunk=40)
+
+
+class _GroupedCfg(_Cfg):
+    ssm_groups = 2
+
+
+@pytest.mark.parametrize("cfg", [_Cfg(), _GroupedCfg()],
+                         ids=["groups1", "groups2"])
+def test_chunked_hands_the_scan_b_and_c_once_per_group(cfg, monkeypatch):
+    """mamba2_chunked passes Bm, Cm as [B, G, L, N] with G =
+    cfg.ssm_groups (the scan reads head h's from group h // (H / G)), and
+    still matches the JAX prefill, whose scan repeats them over heads."""
+    seen = []
+    scan = ssm.mamba2_chunk_scan
+
+    def spy(xdt, a, Bm, Cm, **kw):
+        seen.append((tuple(xdt.shape), tuple(Bm.shape), tuple(Cm.shape)))
+        return scan(xdt, a, Bm, Cm, **kw)
+    monkeypatch.setattr(ssm, "mamba2_chunk_scan", spy)
+    p = _params(cfg, seed=5)
+    x = 0.5 * np.random.default_rng(6).standard_normal(
+        (2, 32, cfg.d_model)).astype(np.float32)
+    y, st = ssm.mamba2_chunked(torch.from_numpy(x), _t(p), cfg, chunk=16,
+                               return_state=True)
+    H = cfg.expand * cfg.d_model // cfg.ssm_head_dim
+    G, N = cfg.ssm_groups, cfg.ssm_state
+    assert seen == [((2, H, 32, cfg.ssm_head_dim), (2, G, 32, N),
+                     (2, G, 32, N))]
+    jy, jst = jax_ssm.mamba2_chunked(jnp.asarray(x), _j(p), cfg, chunk=16,
+                                     return_state=True)
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), atol=ATOL,
+                               rtol=ATOL)
+    np.testing.assert_allclose(st["ssm"].numpy(), np.asarray(jst["ssm"]),
+                               atol=ATOL, rtol=ATOL)
