@@ -13,32 +13,39 @@ without the final ``{"ok": true, ...}`` line:
    the plain version and (where one exists) one PyTorch library call at
    those shapes: K1 flash attention at qwen3-4b's and zamba2-2.7b's
    prefill shapes and at Session.train's, K1's backward at qwen3-4b's
-   training shapes (against autograd through the plain version), each K1
+   training shapes, zamba2-2.7b's shared block (d=80) and phi3-mini's
+   heads (d=96) (against autograd through the plain version), each K1
    case also run twice to the same bits, bf16 on the tensor-core kernels
    and f32 on the CUDA-core ones; K2 the Mamba-2 chunk scan at
    zamba2-2.7b's, with B and C once per group (G=1, the model's) and per
    head (G=H), grouped and ragged, each case run twice to the same bits,
-   bf16 on the tensor-core kernel and f32 on the CUDA-core one; K3a/K3b
-   the 1-bit codec at a 32 MB bucket and at the largest bucket of the
-   training plan, and K3b also at small and wide rows.  Every time is taken twice
+   bf16 on the tensor-core kernel and f32 on the CUDA-core one; K2's
+   backward at zamba2-2.7b's training shape and at G=H, ragged, grouped,
+   each (P, N) and with a final-state gradient, in both dtypes, through
+   autograd and by its wrapper to the same bits; K3a/K3b the 1-bit codec
+   at a 32 MB bucket and at the largest bucket of the training plan, and
+   K3b also at small and wide rows.  Every time is taken twice
    (``timings``): on the device, and host-paced, as earlier versions of
    this script took it.  K1 refuses a bf16 view off a 16-byte boundary;
 4. reference: the tiny dense and zamba configs served on the card agree
-   with the same parameters served on the CPU, and tiny qwen3-4b trains
-   8 steps (plain, and world-1 DDP with the onebit codec) on the card
-   with the CPU's losses (the port's CPU path is tied to the JAX package
-   by the tests);
+   with the same parameters served on the CPU, and tiny qwen3-4b (plain,
+   and world-1 DDP with the onebit codec) and tiny zamba2-2.7b train 8
+   steps on the card with the CPU's losses (the port's CPU path is tied
+   to the JAX package by the tests);
 5. serve: ``Plan(arch=..., tiny=False).compile().serve(...)`` for
    qwen3-4b and for zamba2-2.7b, each at full width and full depth with
    random weights from a seed;
 6. train: ``Plan(arch="qwen3-4b", tiny=False, overrides={"n_layers":
    12}).compile().train(...)`` at full width, plain and as world-1 DDP
-   with the onebit codec;
+   with the onebit codec, and ``Plan(arch="zamba2-2.7b",
+   tiny=False).compile().train(...)`` at full width and depth;
 7. where the time goes: one prefill and one decode step of each served
-   configuration, one plain and one DDP train step; the prefills and the
-   train steps must show K1's tensor-core kernels by name and none of its
-   f32 kernels, zamba2-2.7b's prefill K2's tensor-core kernel and not its
-   f32 one, the DDP step K3b's row-stream kernel;
+   configuration, one plain and one DDP qwen3-4b train step and one
+   zamba2-2.7b train step; the prefills and the train steps must show
+   K1's tensor-core kernels by name and none of its f32 kernels,
+   zamba2-2.7b's prefill and train step K2's tensor-core kernel and not
+   its f32 one, the zamba2-2.7b train step K2's backward kernel, the DDP
+   step K3b's row-stream kernel;
 8. the ``kernels`` JSON line, then the ``ok`` line last.
 
 Every kernel launch count is set to 0 just before each run of phases 5
@@ -71,7 +78,10 @@ from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_bwd, flash_attention_ref)
 from repro_torch.kernels.mamba2_scan import (  # noqa: E402
-    mamba2_chunk_scan, mamba2_chunk_scan_ref)
+    TILE as SCAN_TILE, mamba2_chunk_scan, mamba2_chunk_scan_bwd,
+    mamba2_chunk_scan_bwd_ref, mamba2_chunk_scan_ref)
+from repro_torch.models import attention, ssm  # noqa: E402
+from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.optim import optimizers  # noqa: E402
 from repro_torch.kernels.onebit import (  # noqa: E402
     onebit_dequantize, onebit_dequantize_ref, onebit_quantize,
@@ -91,20 +101,36 @@ TRAIN = dict(arch="qwen3-4b", tiny=False, batch=8, seq=512,
              overrides={"n_layers": TRAIN_LAYERS})
 TRAIN_STEPS = 6
 TRAIN_DDP_SHARDS = 2
+# zamba2-2.7b's training slice: full width and full depth (54 layers; its
+# float32 parameters, gradients and adamw state are 2.42 B x 16 B, 39 GB)
+ZAMBA_TRAIN = dict(arch="zamba2-2.7b", tiny=False, batch=8, seq=512)
+_ZAMBA_CFG = get_config(ZAMBA_TRAIN["arch"])
+ZAMBA_HEADS = _ZAMBA_CFG.expand * _ZAMBA_CFG.d_model // _ZAMBA_CFG.ssm_head_dim
 # the training slice's attention: (B, H, Hkv, S, d, dtype, causal,
 # window) with B the whole batch (Session.train) or one DDP shard
 _TRAIN_CFG = get_config(TRAIN["arch"])
 TRAIN_ATTN = (TRAIN["batch"], _TRAIN_CFG.n_heads, _TRAIN_CFG.n_kv_heads,
               TRAIN["seq"], _TRAIN_CFG.head_dim, torch.bfloat16, True, None)
 TRAIN_SHARD_ATTN = (TRAIN["batch"] // TRAIN_DDP_SHARDS, *TRAIN_ATTN[1:])
+# zamba2-2.7b's training shapes: the shared block's attention (d=80), as
+# FA_CASES give them, and the scan, as SCAN_CASES give them
+ZAMBA_TRAIN_ATTN = (ZAMBA_TRAIN["batch"], _ZAMBA_CFG.n_heads,
+                    _ZAMBA_CFG.n_kv_heads, ZAMBA_TRAIN["seq"],
+                    _ZAMBA_CFG.head_dim, torch.bfloat16, True, None)
+ZAMBA_TRAIN_SCAN = (ZAMBA_TRAIN["batch"], ZAMBA_HEADS, _ZAMBA_CFG.ssm_groups,
+                    ZAMBA_TRAIN["seq"], _ZAMBA_CFG.ssm_head_dim,
+                    _ZAMBA_CFG.ssm_state, _ZAMBA_CFG.ssm_chunk,
+                    torch.bfloat16)
 # (B, H, Hkv, S, d, dtype, causal, window): the serving slices' shapes
-# first (qwen3-4b, then zamba2-2.7b's shared block), then Session.train's,
-# then the edge cases.  bf16 runs the tensor-core kernels, f32 the CUDA-core
-# kernels, so each edge is held in both dtypes.
+# first (qwen3-4b, then zamba2-2.7b's shared block), then Session.train's
+# (qwen3-4b, then zamba2-2.7b), then the edge cases.  bf16 runs the
+# tensor-core kernels, f32 the CUDA-core kernels, so each edge is held in
+# both dtypes.
 FA_CASES = [
     (4, 32, 8, 512, 128, torch.bfloat16, True, None),
     (4, 32, 32, 512, 80, torch.bfloat16, True, None),     # d=80 (zamba)
     TRAIN_ATTN,
+    ZAMBA_TRAIN_ATTN,
     (2, 8, 2, 200, 128, torch.bfloat16, True, None),      # ragged S
     (1, 32, 32, 256, 96, torch.bfloat16, True, None),     # d=96 (phi3)
     (2, 4, 2, 256, 32, torch.float32, True, None),        # d=32 f32 (tiny)
@@ -116,18 +142,19 @@ FA_CASES = [
     (2, 4, 4, 100, 80, torch.bfloat16, True, None),       # d=80, ragged S
     (1, 8, 8, 512, 80, torch.bfloat16, True, 128),        # d=80, window
 ]
-FA_TIMED = 3            # the first FA_TIMED cases are timed
+FA_TIMED = 4            # the first FA_TIMED cases are timed
 # K2 tolerances of tests/test_kernels.py's sweep, as atol and rtol
 SCAN_TOL = {torch.float32: 2e-4, torch.bfloat16: 6e-2}
 # (B, H, G, L, P, N, chunk, dtype), G the groups of Bm, Cm: zamba2-2.7b's
 # prefill shape in bf16 with its one group (timed, the serve path's case)
-# and with B, C per head (timed), then f32 at that shape and the three
-# shapes of tests/test_kernels.py's sweep (B, C per head), grouped cases
-# (H=4, G=2) in both dtypes, a ragged bf16 case, and bf16 at the other
-# (P, N) the kernel is built for
+# and with B, C per head (timed), its training shape (B=8, timed), then
+# f32 at the prefill shape and the three shapes of tests/test_kernels.py's
+# sweep (B, C per head), grouped cases (H=4, G=2) in both dtypes, a ragged
+# bf16 case, and bf16 at the other (P, N) the kernel is built for
 SCAN_CASES = [
     (4, 80, 1, 512, 64, 64, 256, torch.bfloat16),
     (4, 80, 80, 512, 64, 64, 256, torch.bfloat16),
+    ZAMBA_TRAIN_SCAN,
     (4, 80, 80, 512, 64, 64, 256, torch.float32),
     (1, 2, 2, 256, 32, 16, 64, torch.float32),
     (2, 4, 4, 128, 64, 64, 32, torch.float32),
@@ -138,17 +165,19 @@ SCAN_CASES = [
     (1, 2, 2, 256, 32, 16, 64, torch.bfloat16),
     (1, 1, 1, 512, 16, 8, 128, torch.bfloat16),
 ]
-SCAN_TIMED = 2          # the first SCAN_TIMED cases are timed
-SCAN_TILE = 64          # rows per tile of csrc/mamba2_scan.cu
+SCAN_TIMED = 3          # the first SCAN_TIMED cases are timed
 SERVE = dict(requests=8, slots=4, prompt_len=512, gen_len=32)
 SERVE_ARCHS = ("qwen3-4b", "zamba2-2.7b")
 # K1 backward: qwen3-4b's training shapes (a DDP shard, then the whole
-# batch of Session.train, both timed), then small shapes in float32 and
-# their bf16 twins: GQA and MHA, causal on and off, a window, ragged S,
-# each head dim the backward is built for
+# batch of Session.train), zamba2-2.7b's shared block in training (d=80)
+# and phi3-mini's heads (d=96), all four timed, then small shapes in
+# float32 and their bf16 twins: GQA and MHA, causal on and off, a window,
+# ragged S, each head dim the backward is built for
 FA_BWD_CASES = [
     TRAIN_SHARD_ATTN,
     TRAIN_ATTN,
+    ZAMBA_TRAIN_ATTN,
+    (1, 32, 32, 512, 96, torch.bfloat16, True, None),     # phi3-mini heads
     (2, 8, 2, 200, 64, torch.float32, True, None),        # GQA, ragged S
     (1, 4, 4, 256, 64, torch.float32, False, None),       # MHA, non-causal
     (2, 4, 2, 256, 32, torch.float32, True, 64),          # window, d=32
@@ -159,12 +188,38 @@ FA_BWD_CASES = [
     (2, 4, 2, 256, 32, torch.bfloat16, True, 64),
     (1, 8, 2, 130, 128, torch.bfloat16, True, None),
     (2, 4, 4, 96, 32, torch.bfloat16, False, None),
+    (2, 4, 4, 100, 80, torch.float32, True, None),        # d=80, ragged S
+    (2, 4, 4, 100, 80, torch.bfloat16, True, None),
+    (2, 4, 2, 130, 96, torch.float32, True, None),        # d=96, GQA
+    (2, 4, 2, 130, 96, torch.bfloat16, True, None),
 ]
-FA_BWD_TIMED = 2        # the first FA_BWD_TIMED cases are timed
+FA_BWD_TIMED = 4        # the first FA_BWD_TIMED cases are timed
 # f32: within 1e-4 of the largest gradient magnitude (at least 1); bf16:
 # the plain version rounds its products and probabilities to bf16, the
 # kernel sums in f32, so bf16 is held to 3e-2 of the largest magnitude
 FA_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+# K2 backward, (B, H, G, L, P, N, dtype, dstate): zamba2-2.7b's training
+# shape in bf16 with its one group (timed), then B and C per head (G=H), a
+# ragged L with grouped heads, the two other (P, N) the kernel is built
+# for, each in f32 and bf16, and a nonzero final-state gradient
+SCAN_BWD_CASES = [
+    (ZAMBA_TRAIN["batch"], ZAMBA_HEADS, 1, ZAMBA_TRAIN["seq"], 64, 64,
+     torch.bfloat16, False),
+    (2, 16, 16, 256, 64, 64, torch.float32, False),
+    (2, 16, 16, 256, 64, 64, torch.bfloat16, False),
+    (2, 4, 2, 200, 64, 64, torch.float32, False),         # ragged L
+    (2, 4, 2, 200, 64, 64, torch.bfloat16, False),
+    (1, 2, 2, 256, 32, 16, torch.float32, False),
+    (1, 2, 2, 256, 32, 16, torch.bfloat16, False),
+    (1, 1, 1, 512, 16, 8, torch.float32, False),
+    (1, 1, 1, 512, 16, 8, torch.bfloat16, False),
+    (2, 4, 1, 130, 64, 64, torch.float32, True),          # dstate
+]
+# f32: within 1e-4 of the largest gradient magnitude (at least 1): both
+# sum in f32, in other orders.  bf16: the inputs are the same bf16 values
+# on both sides and both sum in f32; the outputs are rounded to bf16
+# (2**-9 of a value), so 1e-2 of the largest magnitude
+SCAN_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 # K3a/K3b: a 32 MB bucket ([8192, 1024] float32); the training plan's
 # largest bucket is added at run time
 ONEBIT_ROWS = 8192
@@ -175,6 +230,34 @@ ONEBIT_ROWS = 8192
 # on that element, hence the looser bound.
 TRAIN_REF_STEPS = 8
 TRAIN_REF_RTOL = {"plain": 1e-4, "onebit": 1e-3}
+# every step's gradient norm (before clipping) within this relative
+# tolerance: tiny zamba's float32 and float64 plain paths on the CPU part
+# by up to 5.9e-5 in it in 8 momentum steps (tools/zamba_precision_check.py)
+TRAIN_REF_GNORM_RTOL = 1e-3
+# (arch, codec, optimizer) of the tiny card-against-CPU training runs.
+# Tiny zamba (f32) runs K2's f32 forward and backward at (P, N) = (32, 16)
+# and K1's at d=32, with momentum: its float32 gradients are
+# ill-conditioned (tests/test_torch_train.py), and adamw's normalized step
+# turns each near-zero one whose sign differs between two summation orders
+# into a whole +-lr step, so two float32 adamw runs part within a few
+# steps (0.54 % in loss by step 8 between an H100 and the CPU, 0.72 %
+# between float32 and float64 on the CPU: tools/zamba_precision_check.py);
+# momentum's step is proportional to the gradient
+TRAIN_REF_RUNS = (("qwen3-4b", "plain", "adamw"),
+                  ("qwen3-4b", "onebit", "adamw"),
+                  ("zamba2-2.7b", "plain", "momentum"))
+# zamba2-2.7b's gradients through the kernels against the plain versions
+# on the card: one group (6 mamba layers and the shared block) at full
+# width, float32, GRAD_CHECK_BATCH x seq 512.  The loss within
+# GRAD_CHECK_LOSS_RTOL, each leaf's gradient within GRAD_CHECK_TOL of that
+# leaf's largest |gradient| (tests/test_torch_train.py holds tiny zamba's
+# leaves to the same share).  Deeper, the random-init stack parts any two
+# float32 computations, the plain version's float32 from its float64 as
+# well (PERF.md, tools/zamba_precision_check.py).
+GRAD_CHECK_LAYERS = 6
+GRAD_CHECK_BATCH = 2
+GRAD_CHECK_LOSS_RTOL = 1e-5
+GRAD_CHECK_TOL = 1e-3
 # K1's kernels by the names the profiler gives them: bf16 must run the
 # tensor-core kernels and never the f32 CUDA-core ones
 K1_TC = {"forward": "attn_fwd_wgmma", "dkdv": "attn_bwd_dkdv_wgmma",
@@ -183,6 +266,7 @@ K1_F32 = ("fa_fwd<", "fa_bwd_dkdv<", "fa_bwd_dq<")
 # K2's kernels and K3b's by the names the profiler gives them: zamba's bf16
 # prefill must run the tensor-core scan and never the f32 one
 K2_TC, K2_F32 = "ssd_scan_mma", "ssd_scan<"
+K2_BWD = "ssd_scan_bwd"
 K3B = "onebit_dequant_rows"
 # K3b's other row widths (R, C): several rows a block, a loop over a row
 DEQUANT_SHAPES = ((7, 128), (3, 4096))
@@ -376,8 +460,9 @@ def check_scan(gen) -> dict:
     tests/test_kernels.py builds them (xdt, Bm, Cm scaled by 0.5, a =
     -|n| * 0.1), and against itself: a second run on the same inputs gives
     the same bits.  Times the first ``SCAN_TIMED`` cases; returns the
-    first's readings with the second's under ``per_head_bc``.  No single
-    PyTorch call computes the SSD scan, so there is no library time."""
+    first's readings with the second's under ``per_head_bc`` and the
+    third's under ``train_b8``.  No single PyTorch call computes the SSD
+    scan, so there is no library time."""
     out = []
     for B, H, G, L, P, N, chunk, dt in SCAN_CASES:
         xdt = (0.5 * torch.randn(B, H, L, P, generator=gen,
@@ -421,7 +506,87 @@ def check_scan(gen) -> dict:
         print(f"  timed: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} "
               f"ms, no library call, bound {bound_ms:.4f} ms ({bound_by}); "
               f"host-paced: kernel {t['ms_host_paced']:.4f} ms")
-    return {**out[0], "per_head_bc": out[1]}
+    return {**out[0], "per_head_bc": out[1], "train_b8": out[2]}
+
+
+def scan_bwd_ops(B: int, H: int, L: int, P: int, N: int) -> int:
+    """Operations of the SSD scan's backward in the kernel's tiles of
+    ``SCAN_TILE`` rows: per tile C B^T, dY X^T, G^T dY, D^T C and D B over
+    the tile's rows, and B R^T, X R, dY S0, the reverse state's and the
+    forward state's updates over [P, N]."""
+    t = min(SCAN_TILE, L)
+    return 2 * B * H * L * (t * (3 * N + 2 * P) + 5 * P * N)
+
+
+def check_scan_bwd(gen) -> dict:
+    """K2's backward kernel against autograd through the plain version on
+    the card at ``SCAN_BWD_CASES``, inputs built as ``check_scan`` builds
+    them, y's gradient normal, the final state's normal where the case
+    has one.  The kernel runs twice: through autograd (the path's route,
+    ``mamba2_chunk_scan`` recorded by autograd) and by its wrapper; the
+    two give the same bits.  Times the first case: the wrapper, and the
+    plain version's backward of a recorded graph; no single PyTorch call
+    computes the scan's backward, so there is no library time."""
+    out = None
+    for B, H, G, L, P, N, dt, with_ds in SCAN_BWD_CASES:
+        xdt = (0.5 * torch.randn(B, H, L, P, generator=gen,
+                                 device="cuda")).to(dt)
+        a = -0.1 * torch.randn(B, H, L, generator=gen, device="cuda").abs()
+        Bm = (0.5 * torch.randn(B, G, L, N, generator=gen,
+                                device="cuda")).to(dt)
+        Cm = (0.5 * torch.randn(B, G, L, N, generator=gen,
+                                device="cuda")).to(dt)
+        dy = torch.randn(B, H, L, P, generator=gen, device="cuda").to(dt)
+        ds = (torch.randn(B, H, P, N, generator=gen, device="cuda")
+              if with_ds else None)
+        ins = [t.clone().requires_grad_(True) for t in (xdt, a, Bm, Cm)]
+        y, st = mamba2_chunk_scan(*ins, chunk=min(256, L))
+        got = torch.autograd.grad([y, st] if with_ds else [y], ins,
+                                  [dy, ds] if with_ds else [dy])
+        again = mamba2_chunk_scan_bwd(xdt, a, Bm, Cm, dy, ds)
+        torch.cuda.synchronize()
+        same = all(torch.equal(g, w) for g, w in zip(got, again))
+        want = mamba2_chunk_scan_bwd_ref(xdt, a, Bm, Cm, dy, ds)
+        errs, ok = [], same
+        for g, w in zip(got, want):
+            limit = SCAN_BWD_TOL[dt] * max(1.0, w.float().abs().max().item())
+            e = (g.float() - w.float()).abs().max().item()
+            errs.append(e)
+            ok &= g.dtype == w.dtype and e <= limit \
+                and bool(torch.isfinite(g).all())
+        print(f"mamba2_chunk_scan_bwd B={B} H={H} G={G} L={L} P={P} N={N} "
+              f"{str(dt)[6:]} dstate={'yes' if with_ds else 'no'}: max abs "
+              f"err dxdt {errs[0]:.3g} da {errs[1]:.3g} dBm {errs[2]:.3g} "
+              f"dCm {errs[3]:.3g} (tolerance {SCAN_BWD_TOL[dt]:g} x max(1, "
+              f"max |grad|)), rerun {'bit-identical' if same else 'DIFFERS'}"
+              f" {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("mamba2_chunk_scan_bwd disagrees with "
+                                 "autograd through the plain version or "
+                                 "with itself")
+        if out is not None:
+            continue
+        ref_ins = [t.detach().requires_grad_(True) for t in (xdt, a, Bm, Cm)]
+        ref_y, _ = mamba2_chunk_scan_ref(*ref_ins)
+        t = {**timings(ms=lambda: mamba2_chunk_scan_bwd(xdt, a, Bm, Cm, dy),
+                       library_ms=None),
+             **timings(iters=3, warm=1, plain_ms=lambda: torch.autograd.grad(
+                 ref_y, ref_ins, dy, retain_graph=True))}
+        del ref_y, ref_ins
+        nbytes = 2 * sum(u.numel() * u.element_size()
+                         for u in (xdt, a, Bm, Cm)) \
+            + dy.numel() * dy.element_size()
+        ops = scan_bwd_ops(B, H, L, P, N)
+        bound_ms, bound_by = roofline(nbytes, ops)
+        out = {"max_abs_err": max(errs), **t, "bound_ms": bound_ms,
+               "bound_by": bound_by}
+        print(f"  timed: kernel {t['ms']:.4f} ms, plain backward "
+              f"{t['plain_ms']:.4f} ms, no library call, bound "
+              f"{bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, "
+              f"{ops / 1e9:.2f} GFLOP); host-paced: kernel "
+              f"{t['ms_host_paced']:.4f} ms")
+        torch.cuda.empty_cache()
+    return out
 
 
 def check_dequant_shapes(gen) -> None:
@@ -594,21 +759,24 @@ def check_onebit(gen, rows_list) -> dict:
 
 
 def check_train_reference() -> None:
-    """Tiny qwen3-4b trains ``TRAIN_REF_STEPS`` steps on the card and on
-    the CPU from the same parameters and batches, through the loops'
-    own steps: the plain train step of ``Session.train``, and its world-1
-    DDP engine with the onebit codec and two shards.
-    (The two devices' generators draw different parameters from one seed,
-    so the card's are copied from the CPU's.)  The losses of every step
-    agree within ``TRAIN_REF_RTOL``."""
+    """Tiny configs train ``TRAIN_REF_STEPS`` steps on the card and on the
+    CPU from the same parameters and batches, through the loops' own
+    steps (``TRAIN_REF_RUNS``): the plain train step of ``Session.train``
+    (qwen3-4b, and zamba2-2.7b through K2's backward), and qwen3-4b's
+    world-1 DDP engine with the onebit codec and two shards.  (The two
+    devices' generators draw different parameters from one seed, so the
+    card's are copied from the CPU's.)  The losses of every step agree
+    within ``TRAIN_REF_RTOL``, their gradient norms within
+    ``TRAIN_REF_GNORM_RTOL``."""
     from repro_torch.distrib.collectives import RingAllReduce
     from repro_torch.frontend.ddp import DDPEngine
-    for name in ("plain", "onebit"):
+    for arch, name, kind in TRAIN_REF_RUNS:
+        oc = optimizers.OptConfig(kind=kind)
         runs = {}
         for dev in ("cpu", "cuda"):
             extra = (dict(ddp=True, grad_codec="onebit", ddp_shards=2)
                      if name == "onebit" else {})
-            plan = Plan(arch="qwen3-4b", tiny=True, batch=8, seq=64,
+            plan = Plan(arch=arch, tiny=True, batch=8, seq=64,
                         device=dev, **extra)
             cfg = plan.config()
             stream = stream_for(cfg, batch=plan.batch, seq=plan.seq)
@@ -616,7 +784,7 @@ def check_train_reference() -> None:
                 engine = DDPEngine(plan, RingAllReduce(None, 1))
                 init, fn = engine.step.init, engine.train_step
             else:
-                step = steps.make_train_step(cfg, steps.Strategy())
+                step = steps.make_train_step(cfg, steps.Strategy(opt=oc))
                 init = step.init
 
                 def fn(it, batch, params, opt, step=step, dev=dev):
@@ -624,22 +792,106 @@ def check_train_reference() -> None:
             params, _ = init(torch.Generator().manual_seed(0), "cpu")
             params = pytree.tree_map(
                 lambda t: t.detach().to(dev).requires_grad_(True), params)
-            opt = optimizers.init(params, optimizers.OptConfig())
-            losses = []
+            opt = optimizers.init(params, oc)
+            losses, gnorms = [], []
             for it in range(TRAIN_REF_STEPS):
                 m, params, opt = fn(it, stream.batch_at(it), params, opt)
                 losses.append(float(m["loss"]))
-            runs[dev] = losses
-        worst = max(abs(a - b) / abs(a) for a, b in zip(runs["cpu"],
-                                                        runs["cuda"]))
+                gnorms.append(float(m["grad_norm"]))
+            runs[dev] = losses, gnorms
+
+        def worst(i):
+            return max(abs(a - b) / abs(a) for a, b in zip(runs["cpu"][i],
+                                                            runs["cuda"][i]))
         tol = TRAIN_REF_RTOL[name]
-        print(f"qwen3-4b tiny, {name} training, {TRAIN_REF_STEPS} steps: "
-              f"losses cpu {runs['cpu'][0]:.5f} .. {runs['cpu'][-1]:.5f}, "
-              f"card {runs['cuda'][0]:.5f} .. {runs['cuda'][-1]:.5f}, max "
-              f"relative difference {worst:.3g} (tolerance {tol:g})")
-        if not worst <= tol:
-            raise AssertionError(f"{name} training: the card disagrees with "
-                                 f"the CPU")
+        cpu = runs["cpu"][0]
+        print(f"{arch} tiny, {name} training, {kind}, {TRAIN_REF_STEPS} "
+              f"steps: losses cpu " + " ".join(f"{x:.5f}" for x in cpu)
+              + f" (range {max(cpu) - min(cpu):.4g}), card "
+              + " ".join(f"{x:.5f}" for x in runs["cuda"][0])
+              + f", max relative difference {worst(0):.3g} (tolerance "
+              f"{tol:g}); gradient norms {runs['cpu'][1][0]:.5g} .. "
+              f"{runs['cpu'][1][-1]:.5g}, max relative difference "
+              f"{worst(1):.3g} (tolerance {TRAIN_REF_GNORM_RTOL:g})")
+        if not (worst(0) <= tol and worst(1) <= TRAIN_REF_GNORM_RTOL):
+            raise AssertionError(f"{arch} {name} training: the card "
+                                 f"disagrees with the CPU")
+
+
+def zamba_grads(model, params, batch, plain: bool) -> tuple:
+    """(loss, gradients in leaf order) of ``model`` with the scan and
+    attention through the kernels or, ``plain``, autograd through their
+    plain versions (the model's module globals swapped for the call)."""
+    kernels = ssm.mamba2_chunk_scan, attention.flash_attention
+    if plain:
+        ssm.mamba2_chunk_scan = (lambda xdt, a, Bm, Cm, chunk=0:
+                                 mamba2_chunk_scan_ref(xdt, a, Bm, Cm))
+        attention.flash_attention = flash_attention_ref
+    try:
+        leaves = pytree.tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+            p.grad = None
+        loss = model.loss(params, batch)
+        loss.backward()
+        grads = [p.grad for p in leaves]
+        for p in leaves:
+            p.grad = None
+        return loss.item(), grads
+    finally:
+        ssm.mamba2_chunk_scan, attention.flash_attention = kernels
+
+
+def check_zamba_grads() -> None:
+    """zamba2-2.7b's loss and every parameter gradient through K1 and K2
+    (forward and backward kernels, f32) against autograd through their
+    plain versions, on the card, at full width with ``GRAD_CHECK_LAYERS``
+    layers and random weights from seed 0; the kernel route's launches
+    are those nested remat gives (per mamba layer K2's forward 3 times,
+    its backward once; per group K1's forward twice, its backward once)."""
+    plan = Plan(arch=ZAMBA_TRAIN["arch"], tiny=False, batch=GRAD_CHECK_BATCH,
+                seq=ZAMBA_TRAIN["seq"], device="cuda",
+                overrides={"n_layers": GRAD_CHECK_LAYERS,
+                           "compute_dtype": "f32"})
+    cfg = plan.config()
+    model = build_model(cfg)
+    params = init_params(model.specs(),
+                         torch.Generator(device="cuda").manual_seed(0), "cuda")
+    batch = to_device(stream_for(cfg, batch=plan.batch,
+                                 seq=plan.seq).batch_at(0), "cuda")
+    for fn in KERNELS:
+        fn.launches = 0
+    loss, got = zamba_grads(model, params, batch, plain=False)
+    counts = {fn.__name__: fn.launches for fn in KERNELS}
+    groups = cfg.n_layers // cfg.shared_every
+    want_counts = {"mamba2_chunk_scan": 3 * cfg.n_layers,
+                   "mamba2_chunk_scan_bwd": cfg.n_layers,
+                   "flash_attention": 2 * groups,
+                   "flash_attention_bwd": groups}
+    ref_loss, want = zamba_grads(model, params, batch, plain=True)
+    loss_err = abs(loss - ref_loss) / abs(ref_loss)
+    shares = [(g - w).abs().max().item() / w.abs().max().item()
+              for g, w in zip(got, want)]
+    whole = (sum(float((g - w).double().square().sum())
+                 for g, w in zip(got, want))
+             / sum(float(w.double().square().sum()) for w in want)) ** 0.5
+    print(f"{cfg.name} at full width, {cfg.n_layers} layers, float32, "
+          f"{plan.batch} x {plan.seq}: loss kernels {loss:.7f}, plain "
+          f"{ref_loss:.7f} (relative difference {loss_err:.3g}, tolerance "
+          f"{GRAD_CHECK_LOSS_RTOL:g}); {len(want)} gradients, the largest "
+          f"error of a leaf / its largest |gradient| {max(shares):.3g} "
+          f"(tolerance {GRAD_CHECK_TOL:g}), whole gradient's relative error "
+          f"{whole:.3g}; launches " + ", ".join(
+              f"{k} {counts[k]}" for k in want_counts))
+    if not (loss_err <= GRAD_CHECK_LOSS_RTOL and max(shares) <= GRAD_CHECK_TOL
+            and all(torch.isfinite(g).all() for g in got)):
+        raise AssertionError(f"{cfg.name}'s gradients through the kernels "
+                             f"disagree with the plain versions'")
+    if any(counts[k] != v for k, v in want_counts.items()):
+        raise AssertionError(f"{cfg.name}'s gradient check launched "
+                             f"{counts}, expected {want_counts}")
+    del params, got, want
+    torch.cuda.empty_cache()
 
 
 class RepeatStream:
@@ -671,22 +923,27 @@ class StepClock:
         return [1e3 * (b - a) for a, b in zip(self.t, self.t[1:])]
 
 
-def train_full(ddp: bool, n_buckets: int) -> dict:
-    """``Session.train`` at full width (``TRAIN``), plain or as world-1
-    DDP with the onebit codec, ``TRAIN_STEPS`` steps from random weights
-    (seed 0), with every kernel launch count set to 0 just before and read
-    just after, on one repeated batch (``RepeatStream``).  Checks finite
-    losses with the last below the first and the launch counts the layers
-    give: K1 forward twice a layer and step
-    (remat recomputes it), K1 backward once, each per shard; K3a and K3b
-    once a bucket and step under DDP.  Returns the counts."""
+def train_full(train: dict, ddp: bool, n_buckets: int) -> dict:
+    """``Session.train`` of ``train`` (``TRAIN`` or ``ZAMBA_TRAIN``) at
+    full width, plain or as world-1 DDP with the onebit codec,
+    ``TRAIN_STEPS`` steps from random weights (seed 0), with every kernel
+    launch count set to 0 just before and read just after, on one
+    repeated batch (``RepeatStream``).  Checks finite losses with the last
+    below the first and the launch counts the layers give under remat: a
+    dense layer's K1 forward twice a step (remat recomputes it) and its
+    backward once, each per shard; K3a and K3b once a bucket and step
+    under DDP; zamba's K2 forward three times a mamba layer and step (the
+    forward, its group's recompute and its own, nested), K2's backward
+    once, and the shared block's K1 forward twice a group and step, its
+    backward once.  Returns the counts."""
     name = "world-1 DDP, onebit codec" if ddp else "Session.train"
-    phase(f"train qwen3-4b, full width, {TRAIN_LAYERS} of 36 layers, {name}, "
-          f"random weights (seed 0)")
     extra = dict(ddp=True, grad_codec="onebit",
                  ddp_shards=TRAIN_DDP_SHARDS) if ddp else {}
-    plan = Plan(**TRAIN, device="cuda", **extra)
+    plan = Plan(**train, device="cuda", **extra)
     cfg = plan.config()
+    phase(f"train {cfg.name}, full width, {cfg.n_layers} of "
+          f"{get_config(cfg.name).n_layers} layers, {name}, random weights "
+          f"(seed 0)")
     clock = StepClock()
     with plan.compile() as session:
         torch.cuda.synchronize()
@@ -714,11 +971,18 @@ def train_full(ddp: bool, n_buckets: int) -> dict:
               f"{out['codec_bytes']}")
     shards = TRAIN_DDP_SHARDS if ddp else 1
     L = cfg.n_layers
-    want = {"flash_attention": TRAIN_STEPS * L * 2 * shards,
-            "flash_attention_bwd": TRAIN_STEPS * L * shards,
-            "mamba2_chunk_scan": 0,
-            "onebit_quantize": TRAIN_STEPS * n_buckets if ddp else 0,
-            "onebit_dequantize": TRAIN_STEPS * n_buckets if ddp else 0}
+    if cfg.family == "zamba":
+        groups = L // cfg.shared_every
+        want = {"flash_attention": TRAIN_STEPS * groups * 2,
+                "flash_attention_bwd": TRAIN_STEPS * groups,
+                "mamba2_chunk_scan": TRAIN_STEPS * L * 3,
+                "mamba2_chunk_scan_bwd": TRAIN_STEPS * L}
+    else:
+        want = {"flash_attention": TRAIN_STEPS * L * 2 * shards,
+                "flash_attention_bwd": TRAIN_STEPS * L * shards,
+                "mamba2_chunk_scan": 0, "mamba2_chunk_scan_bwd": 0}
+    want.update(onebit_quantize=TRAIN_STEPS * n_buckets if ddp else 0,
+                onebit_dequantize=TRAIN_STEPS * n_buckets if ddp else 0)
     if counts != want:
         raise AssertionError(f"launch counts {counts}, want {want}")
     if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)) \
@@ -801,21 +1065,45 @@ def check_k1_route(name: str, kernels: list, want: tuple) -> None:
                              f"tensor-core kernels: {ran}, f32 {f32}")
 
 
-def profile_train(ddp: bool) -> list:
-    """Where one full-width train step (``TRAIN``) spends its time: the
+def train_ops(cfg, params, batch: int, seq: int) -> int:
+    """The operations of one train step under remat: 2 per weight use and
+    token in a forward, 4 in the backward.  Dense: each layer forward
+    twice (remat's recompute), the unembedding counted as a layer (the
+    formula of this script's earlier readings); attention 4*hd per causal
+    pair a forward, 10*hd backward.  Zamba: each mamba layer forward three
+    times (nested remat), the shared block twice a group, the unembedding
+    once; the SSD scan ``scan_ops`` a forward, ``scan_bwd_ops`` backward."""
+    def mm(tree):
+        return sum(t.numel() for t in pytree.tree_leaves(tree)
+                   if t.dim() >= 2)
+    tokens = batch * seq
+    attn = batch * cfg.n_heads * causal_pairs(seq, True, None) \
+        * cfg.head_dim * (4 + 4 + 10)
+    unembed = params["unembed"]["w"].numel()
+    if cfg.family != "zamba":
+        return 8 * tokens * (mm(params["stack"]) + unembed) \
+            + cfg.n_layers * attn
+    groups = cfg.n_layers // cfg.shared_every
+    H = cfg.expand * cfg.d_model // cfg.ssm_head_dim
+    scan = (3 * scan_ops(batch, H, seq, cfg.ssm_head_dim, cfg.ssm_state)
+            + scan_bwd_ops(batch, H, seq, cfg.ssm_head_dim, cfg.ssm_state))
+    return (tokens * (10 * mm(params["stack"]["mamba"])
+                      + 8 * groups * mm(params["stack"]["shared"])
+                      + 6 * unembed)
+            + groups * attn + cfg.n_layers * scan)
+
+
+def profile_train(train: dict, ddp: bool) -> list:
+    """Where one full-width train step of ``train`` spends its time: the
     plain step, or the world-1 DDP step with the onebit codec.  Bound:
     parameters, gradients and adamw's m and v each read and written once
     in float32 (32 bytes a parameter; under DDP also K3a's 12.1 and K3b's
-    4.1 bytes an element), against the products of the step at bf16 (2
-    operations per weight use and token in the forward, the same again in
-    remat's recompute, 4 in the backward, the unembedding included;
-    attention's 4*hd per causal pair forward and recompute, 10*hd
-    backward)."""
+    4.1 bytes an element), against ``train_ops`` at bf16."""
     from repro_torch.distrib.collectives import RingAllReduce
     from repro_torch.frontend.ddp import DDPEngine
     extra = dict(ddp=True, grad_codec="onebit",
                  ddp_shards=TRAIN_DDP_SHARDS) if ddp else {}
-    plan = Plan(**TRAIN, device="cuda", **extra)
+    plan = Plan(**train, device="cuda", **extra)
     cfg = plan.config()
     batch = stream_for(cfg, batch=plan.batch, seq=plan.seq,
                        seed=1).batch_at(0)
@@ -835,18 +1123,14 @@ def profile_train(ddp: bool) -> list:
             return step.fn(params, opt, batch)
     leaves = pytree.tree_leaves(params)
     n = sum(t.numel() for t in leaves)
-    weight_uses = sum(t.numel() for t in pytree.tree_leaves(params["stack"])
-                      if t.dim() >= 2) + params["unembed"]["w"].numel()
-    tokens = plan.batch * plan.seq
-    pairs = plan.batch * cfg.n_heads * causal_pairs(plan.seq, True, None)
-    ops = (8 * tokens * weight_uses
-           + cfg.n_layers * pairs * cfg.head_dim * (4 + 4 + 10))
+    ops = train_ops(cfg, params, plan.batch, plan.seq)
     state = {"params": params, "opt": opt}
 
     def one():
         _, state["params"], state["opt"] = run(state["params"], state["opt"])
     name = "world-1 DDP onebit step" if ddp else "train step"
-    kernels = profile_one(f"{name}, {plan.batch} x {plan.seq} tokens", one,
+    kernels = profile_one(f"{cfg.name} {name}, {cfg.n_layers} layers, "
+                          f"{plan.batch} x {plan.seq} tokens", one,
                           roofline((48 if ddp else 32) * n, ops))
     del state, params, opt, leaves
     torch.cuda.empty_cache()
@@ -914,7 +1198,7 @@ def profile_steps(cfg, slots: int, prompt_len: int, repeats: int = 3):
 
 
 KERNELS = (flash_attention, flash_attention_bwd, mamba2_chunk_scan,
-           onebit_quantize, onebit_dequantize)
+           mamba2_chunk_scan_bwd, onebit_quantize, onebit_dequantize)
 
 
 def serve_full(arch: str) -> dict:
@@ -944,8 +1228,8 @@ def serve_full(arch: str) -> dict:
                 "mamba2_chunk_scan": cfg.n_layers}
     else:
         want = {"flash_attention": cfg.n_layers, "mamba2_chunk_scan": 0}
-    want.update(flash_attention_bwd=0, onebit_quantize=0,
-                onebit_dequantize=0)
+    want.update(flash_attention_bwd=0, mamba2_chunk_scan_bwd=0,
+                onebit_quantize=0, onebit_dequantize=0)
     for name, per_wave in want.items():
         if counts[name] != waves * per_wave:
             raise AssertionError(f"{name} launched {counts[name]} times, "
@@ -994,6 +1278,7 @@ def main() -> int:
     fa_bwd = check_fa_bwd(torch.Generator(device="cuda").manual_seed(0))
     check_misaligned()
     scan = check_scan(torch.Generator(device="cuda").manual_seed(0))
+    scan_bwd = check_scan_bwd(torch.Generator(device="cuda").manual_seed(0))
     buckets = train_plan_buckets()
     print(f"training plan: {len(buckets)} gradient buckets, the largest "
           f"{max(buckets)} elements ({4 * max(buckets) / 2**20:.0f} MB)")
@@ -1010,10 +1295,14 @@ def main() -> int:
     # held to 1e-4 of the logits' scale
     check_reference("zamba2-2.7b", scaled=True)
     check_train_reference()
+    phase("reference: zamba2-2.7b's gradients, kernels against their plain "
+          "versions on the card")
+    check_zamba_grads()
 
     launches = {arch: serve_full(arch) for arch in SERVE_ARCHS}
-    launches["train"] = train_full(False, len(buckets))
-    launches["ddp_onebit"] = train_full(True, len(buckets))
+    launches["train"] = train_full(TRAIN, False, len(buckets))
+    launches["ddp_onebit"] = train_full(TRAIN, True, len(buckets))
+    launches["train_zamba"] = train_full(ZAMBA_TRAIN, False, 0)
 
     for arch in SERVE_ARCHS:
         phase(f"where the time goes: {arch}, one prefill, one decode step "
@@ -1023,14 +1312,18 @@ def main() -> int:
         check_k1_route(f"{arch} prefill", kernels, ("forward",))
         if arch == "zamba2-2.7b":
             check_ran(f"{arch} prefill", kernels, K2_TC, K2_F32)
-    phase("where the time goes: one full-width train step, plain and world-1 "
-          "DDP onebit (not counted)")
-    for ddp in (False, True):
-        name = "DDP train step" if ddp else "train step"
-        kernels = profile_train(ddp)
+    phase("where the time goes: one full-width train step, qwen3-4b plain "
+          "and world-1 DDP onebit, zamba2-2.7b plain (not counted)")
+    for train, ddp in ((TRAIN, False), (TRAIN, True), (ZAMBA_TRAIN, False)):
+        name = (f"{train['arch']} "
+                f"{'DDP train step' if ddp else 'train step'}")
+        kernels = profile_train(train, ddp)
         check_k1_route(name, kernels, ("forward", "dkdv", "dq"))
         if ddp:
             check_ran(name, kernels, K3B)
+        if train is ZAMBA_TRAIN:
+            check_ran(name, kernels, K2_TC, K2_F32)
+            check_ran(name, kernels, K2_BWD)
 
     phase("result")
     by_path = {fn.__name__: {path: c[fn.__name__]
@@ -1044,20 +1337,27 @@ def main() -> int:
                 "launches_by_path": by_path[name], **extra}
     fa_zamba = {f"zamba_{k}": v for k, v in fa[1].items()}
     fa_b8 = {f"train_b8_{k}": v for k, v in fa[2].items()}
+    fa_zamba_b8 = {f"zamba_train_{k}": v for k, v in fa[3].items()}
     bwd_b8 = {f"train_b8_{k}": v for k, v in fa_bwd[1].items()}
+    bwd_d80 = {f"zamba_train_{k}": v for k, v in fa_bwd[2].items()}
+    bwd_d96 = {f"phi3_d96_{k}": v for k, v in fa_bwd[3].items()}
     largest = {k[len("largest_bucket_"):]: v for k, v in onebit.items()
                if k.startswith("largest_bucket_")}
     print(json.dumps({"kernels": [
         entry("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
               "src/repro/kernels/flash_attention.py:86", fa[0], **fa_zamba,
-              **fa_b8),
+              **fa_b8, **fa_zamba_b8),
         entry("flash_attention_bwd",
               "src/repro_torch/csrc/flash_attention.cu", None, fa_bwd[0],
-              **bwd_b8,
+              **bwd_b8, **bwd_d80, **bwd_d96,
               note="no Pallas counterpart: the JAX package differentiates "
                    "attend_chunked (src/repro/models/attention.py:130)"),
         entry("mamba2_chunk_scan", "src/repro_torch/csrc/mamba2_scan.cu",
               "src/repro/kernels/mamba2_scan.py:75", scan),
+        entry("mamba2_chunk_scan_bwd", "src/repro_torch/csrc/mamba2_scan.cu",
+              None, scan_bwd,
+              note="no Pallas counterpart: the JAX package differentiates "
+                   "the jnp mamba2_chunked (src/repro/models/ssm.py:90)"),
         entry("onebit_quantize", "src/repro_torch/csrc/onebit.cu",
               "src/repro/kernels/onebit.py:50", onebit["quantize"],
               largest_bucket=largest["quantize"]),

@@ -282,6 +282,12 @@ cudaError_t dispatch(int D, const void* q, const void* k, const void* v,
 //   dV = P^T dO,   dP = dO V^T,   dS = P o (dP - Delta),
 //   Delta = rowsum(dO o O),   dQ = scale dS K,   dK = scale dS^T Q.
 //
+// Head dims 32, 64, 80, 96 and 128, as the forward.  At 80 and 96 the f32
+// kernels give a thread 5 and 6 of the d/16-strided columns, as the
+// forward does; the bf16 kernels' Q K^T and dO V^T read the partial second
+// 64-column panel (d/16 k-steps) and their P V-shaped products run
+// wgmma_rs<80> and <96> over it, as the forward's P V.
+//
 // Three launches: fa_bwd_delta computes Delta; fa_bwd_dkdv writes dk and
 // dv, one block per (kv tile of 64 rows, kv head, batch row) looping over
 // the H/Hkv query heads of its group and the q tiles the mask lets see the
@@ -630,6 +636,14 @@ cudaError_t dispatch_bwd(int D, const void* q, const void* k, const void* v,
       return launch_bwd<T, 64>(q, k, v, o, dout, lse, dq, dk, dv, delta, B, H,
                                Hkv, S, scale, causal, has_window, window,
                                stream);
+    case 80:
+      return launch_bwd<T, 80>(q, k, v, o, dout, lse, dq, dk, dv, delta, B, H,
+                               Hkv, S, scale, causal, has_window, window,
+                               stream);
+    case 96:
+      return launch_bwd<T, 96>(q, k, v, o, dout, lse, dq, dk, dv, delta, B, H,
+                               Hkv, S, scale, causal, has_window, window,
+                               stream);
     case 128:
       return launch_bwd<T, 128>(q, k, v, o, dout, lse, dq, dk, dv, delta, B,
                                 H, Hkv, S, scale, causal, has_window, window,
@@ -690,7 +704,8 @@ cudaError_t dispatch_bwd(int D, const void* q, const void* k, const void* v,
 //   forward's warpgroup runs its block's one tile it cannot see fully
 //   masked, so that no wgmma sits in a branch).
 // - The backward keeps the f32 kernels' three launches and their
-//   determinism: Delta = rowsum(dO o O) (16-byte loads, D/8 lanes a row);
+//   determinism: Delta = rowsum(dO o O) (16-byte loads, D/8 lanes a row
+//   padded to a power of two);
 //   one block per (64-row kv tile, kv
 //   head, batch row) loops over its GQA group's heads and the q tiles that
 //   see it, with dK and dV in registers (no atomics, the same sums in the
@@ -1440,17 +1455,21 @@ __global__ void __launch_bounds__(128, 2)
   }
 }
 
-// Delta[row] = sum_c dO[row][c] O[row][c] in f32: D/8 lanes a row, 16
-// bytes of O and of dO each a lane.
+// Delta[row] = sum_c dO[row][c] O[row][c] in f32: 16 bytes of O and of dO
+// a lane, D/8 lanes a row padded to LPR, the next power of two (4, 8 or
+// 16), so that a row's lanes are aligned within one warp and the xor tree
+// sums exactly them (D = 80 and 96 have 10 and 12 lanes of data; the pad
+// lanes add 0).
 template <int D>
 __global__ void __launch_bounds__(256)
     bwd_delta(const bf16* __restrict__ o, const bf16* __restrict__ dout,
               float* __restrict__ delta, long long rows) {
-  constexpr int LPR = D / 8;
+  constexpr int LPR = D / 8 <= 4 ? 4 : D / 8 <= 8 ? 8 : 16;
+  static_assert(D / 8 <= LPR && LPR <= 16, "a row within a half-warp");
   const long long row = ((long long)blockIdx.x * 256 + threadIdx.x) / LPR;
   const int c = threadIdx.x % LPR;
   float s = 0.f;
-  if (row < rows) {
+  if (row < rows && c < D / 8) {
     const uint4 a = *reinterpret_cast<const uint4*>(o + row * D + c * 8);
     const uint4 g = *reinterpret_cast<const uint4*>(dout + row * D + c * 8);
     const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
@@ -1498,7 +1517,8 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v,
   const bf16* v_ = static_cast<const bf16*>(v);
   const bf16* do_ = static_cast<const bf16*>(dout);
   const long long rows = (long long)B * H * S;
-  bwd_delta<D><<<(int)((rows * (D / 8) + 255) / 256), 256, 0, stream>>>(
+  constexpr int LPR = D / 8 <= 4 ? 4 : D / 8 <= 8 ? 8 : 16;
+  bwd_delta<D><<<(int)((rows * LPR + 255) / 256), 256, 0, stream>>>(
       static_cast<const bf16*>(o), do_, delta, rows);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -1562,6 +1582,12 @@ cudaError_t dispatch_bwd(int D, const void* q, const void* k, const void* v,
     case 64:
       return launch_bwd<64>(q, k, v, o, dout, lse, dq, dk, dv, delta, B, H,
                             Hkv, S, scale, causal, has_window, window, stream);
+    case 80:
+      return launch_bwd<80>(q, k, v, o, dout, lse, dq, dk, dv, delta, B, H,
+                            Hkv, S, scale, causal, has_window, window, stream);
+    case 96:
+      return launch_bwd<96>(q, k, v, o, dout, lse, dq, dk, dv, delta, B, H,
+                            Hkv, S, scale, causal, has_window, window, stream);
     case 128:
       return launch_bwd<128>(q, k, v, o, dout, lse, dq, dk, dv, delta, B, H,
                              Hkv, S, scale, causal, has_window, window,
@@ -1600,7 +1626,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
 
 // The backward: dq [B, H, S, D], dk and dv [B, Hkv, S, D] in the inputs'
 // dtype from q, k, v, the forward's o and lse, and dout; `delta` is [B, H,
-// S] f32 scratch.  Head dims 32, 64 and 128.
+// S] f32 scratch.  Head dims 32, 64, 80, 96 and 128, as the forward.
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
                                    const void* o, const void* dout,
                                    const float* lse, void* dq, void* dk,

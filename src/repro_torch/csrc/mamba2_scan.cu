@@ -677,6 +677,624 @@ __global__ void __launch_bounds__(NTC, 3)
 
 }  // namespace tc
 
+// ===========================================================================
+// Backward: ssd_scan_bwd and group_sum, the C entry mamba2_chunk_scan_bwd.
+//
+// No Pallas counterpart: the JAX package has no K2 backward, and trains
+// zamba by differentiating the jnp mamba2_chunked
+// (src/repro/models/ssm.py:90).  The port's forward goes through the kernel
+// above, so its gradient is a kernel too.  With h_t [P, N],
+//
+//   forward    h_t = exp(a_t) h_{t-1} + x_t B_t^T,   y_t = h_t C_t
+//   reverse    g_t = dy_t C_t^T + exp(a_{t+1}) g_{t+1}   (from dstate, or 0)
+//   gradients  dx_t = g_t B_t,  dB_t = g_t^T x_t,  dC_t = h_t^T dy_t,
+//              da_t = exp(a_t) <g_t, h_{t-1}>,
+//
+// dB and dC summed over the H/G heads of each group.  Tiled as the forward,
+// T = 64 rows, with cs the inclusive cumsum of a over the tile, S0 the state
+// before the tile, R the reverse state after it (the gradient reaching the
+// tile's last state from later tiles, or dstate), w_t = exp(cs[T-1] -
+// cs[t]), the forward's decayed products G[t,s] = (C_t . B_s) exp(cs[t] -
+// cs[s]) and D[t,s] = (dy_t . x_s) exp(cs[t] - cs[s]), both for s <= t, and
+// M = G o (dY X^T):
+//
+//   dx  = G^T dY + w (.) (B R^T)
+//   dB  = D^T C  + w (.) (X R)
+//   dC  = D B    + exp(cs) (.) (dY S0)
+//   dcs = rowsum(M) - colsum(M) + C (.)_rows [exp(cs) (.) dY S0]
+//         - X (.)_rows [w (.) B R^T], plus at the tile's last row
+//         <R, S_end> = exp(cs[T-1]) <R, S0> + sum_t x_t . (w (.) B R^T)_t
+//   da  = the reverse cumsum of dcs over the tile (a_t reaches every cs[k]
+//         with k >= t)
+//   R  <- exp(cs[T-1]) R + (exp(cs) (.) dY)^T C   (the reverse state before
+//         the tile)
+//
+// The decay is a select on s <= t, as in the forward, never a product with
+// 0.  A ragged last tile is masked as in the forward: rows past L load as
+// x = B = C = dy = 0 and a = 0.
+//
+// Design, simple first: every product in f32 on the CUDA cores, for both
+// dtypes (bf16 inputs are widened as they are loaded, every sum is f32).
+// One block of 256 threads per (b, h), with the forward's thread layout;
+// two passes over the sequence in the block.  Pass 1 runs the forward's
+// state recurrence alone and stores the state before each tile into f32
+// scratch ([B, H, tiles, P, N]); pass 2 walks the tiles in reverse with R
+// in shared memory, computing every term above.  Each head's dB and dC go
+// to f32 scratch ([B, H, L, N]), and group_sum adds them over each group's
+// heads in head order.  No atomics anywhere: the same sums in the same order
+// on every run.  Shared memory at P = N = 64: x, dy, B, C, G, D, S0 and R
+// tiles of 64 x 68 f32, 141 KB: one block an SM.
+//
+// What bounds it on an H100 at zamba2-2.7b's train shape (bf16, B=8,
+// H=80, G=1, L=512, P=N=64): xdt, dy and dx in bf16 are 42 MB each, a and
+// da 1.3 MB each, B, C, dB and dC once per group 0.5 MB each: about 130 MB,
+// 39 us at 3.35 TB/s.  The scratch adds 84 MB of states and 2 x 84 MB of
+// per-head dB, dC, each written once and read once (mostly from L2 for
+// the states: a block rereads its own 128 KB).  The products are 10 of 64 x
+// 64 x 64 a tile (the forward's states again, then nine), 27 GFLOP: 0.4 ms
+// at the CUDA cores' 67 TFLOP/s, 27 us on the bf16 tensor cores.  So this
+// kernel is bound by its f32 products; moving them to mma.sync, as the
+// forward's ssd_scan_mma did, is the redesign it awaits.
+
+namespace bwd {
+
+constexpr unsigned FULL = 0xffffffffu;
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16(v);
+}
+
+// Rows row0 .. row0+T-1 of a row-major [L, D] matrix into dst[T][D+4] as
+// f32; rows at or past L are zero.
+template <typename TIn, int D>
+__device__ __forceinline__ void load_rows(float* dst, const TIn* src,
+                                          int row0, int L) {
+  constexpr int LD = D + 4;
+  for (int idx = threadIdx.x; idx < T * D; idx += NT) {
+    const int r = idx / D;
+    const int c = idx - r * D;
+    const int g = row0 + r;
+    dst[r * LD + c] = g < L ? to_f32(src[(long long)g * D + c]) : 0.f;
+  }
+}
+
+// cs = the inclusive cumsum of a over the tile (rows past L add 0): warp 0,
+// 2 rows a lane
+__device__ __forceinline__ void tile_cumsum(float* cs, const float* ab,
+                                            int t0, int L) {
+  if (threadIdx.x < 32) {
+    const int r = 2 * threadIdx.x;
+    const float a0 = t0 + r < L ? ab[t0 + r] : 0.f;
+    const float a1 = t0 + r + 1 < L ? ab[t0 + r + 1] : 0.f;
+    float s = a0 + a1;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float u = __shfl_up_sync(FULL, s, off);
+      if ((int)threadIdx.x >= off) s += u;
+    }
+    cs[r] = s - a1;
+    cs[r + 1] = s;
+  }
+}
+
+// the sum over the 16 threads of a row (a half-warp); every lane calls it
+__device__ __forceinline__ float row_sum(float v) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) v += __shfl_xor_sync(FULL, v, off);
+  return v;
+}
+
+template <typename TIn, int P, int N>
+__global__ void __launch_bounds__(NT, 1)
+    ssd_scan_bwd(const TIn* __restrict__ xdt, const float* __restrict__ a,
+                 const TIn* __restrict__ Bm, const TIn* __restrict__ Cm,
+                 const TIn* __restrict__ dy, const float* __restrict__ dstate,
+                 TIn* __restrict__ dx, float* __restrict__ da,
+                 float* __restrict__ dBh, float* __restrict__ dCh,
+                 float* states, int H, int G, int L) {
+  static_assert(P % 16 == 0 && N % 4 == 0, "tile layout");
+  constexpr int LDP = P + 4, LDN = N + 4;
+  constexpr int CPT = P / 16;            // dx columns, R rows a thread
+  constexpr int NPT = (N + 15) / 16;     // dB, dC, R columns a thread
+  extern __shared__ float4 smem4[];
+  float* Xs = reinterpret_cast<float*>(smem4);   // [T][LDP]
+  float* Ys = Xs + T * LDP;                      // [T][LDP]  dy
+  float* Bs = Ys + T * LDP;                      // [T][LDN]
+  float* Cs = Bs + T * LDN;                      // [T][LDN]
+  float* Gs = Cs + T * LDN;                      // [T][LDG]  G[t][s]
+  float* Ds = Gs + T * LDG;                      // [T][LDG]  D[t][s]
+  float* S0 = Ds + T * LDG;                      // [P][LDN]
+  float* Rs = S0 + P * LDN;                      // [P][LDN]  R
+  float* cs = Rs + P * LDN;                      // [T]
+  float* rv = cs + T;                            // [T] rowsum - colsum of M
+  float* xo = rv + T;                            // [T] x . (w (.) B R^T)
+  float* co = xo + T;                            // [T] C . (exp(cs) (.) dY S0)
+  float* colp = co + T;                          // [16][T] colsum partials
+  float* red = colp + 16 * T;                    // [NT / 32]
+
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh - b * H;
+  const long long grp = (long long)b * G + h / (H / G);
+  const int tid = threadIdx.x;
+  const int tx = tid & 15, ty = tid >> 4;
+  const int lane = tid & 31, warp = tid >> 5;
+  const float* ab = a + (long long)bh * L;
+  const TIn* xb = xdt + (long long)bh * L * P;
+  const TIn* yb = dy + (long long)bh * L * P;
+  const TIn* bb = Bm + grp * L * N;
+  const TIn* cb = Cm + grp * L * N;
+  const int ntiles = (L + T - 1) / T;
+  float* stb = states + (long long)bh * ntiles * P * N;
+
+  // Pass 1: the state before each tile, thread (tx, ty) owning entries
+  // (ty + 16 i, tx + 16 j) in registers
+  {
+    float sn[CPT][NPT];
+#pragma unroll
+    for (int i = 0; i < CPT; ++i)
+#pragma unroll
+      for (int j = 0; j < NPT; ++j) sn[i][j] = 0.f;
+    for (int it = 0; it < ntiles; ++it) {
+      const int t0 = it * T;
+      float* sp = stb + (long long)it * P * N;
+#pragma unroll
+      for (int i = 0; i < CPT; ++i)
+#pragma unroll
+        for (int j = 0; j < NPT; ++j)
+          if (tx + 16 * j < N) sp[(ty + 16 * i) * N + tx + 16 * j] = sn[i][j];
+      __syncthreads();  // the previous tile's reads are done
+      load_rows<TIn, P>(Xs, xb, t0, L);
+      load_rows<TIn, N>(Bs, bb, t0, L);
+      tile_cumsum(cs, ab, t0, L);
+      __syncthreads();
+      const float last = cs[T - 1], dec = expf(last);
+#pragma unroll
+      for (int i = 0; i < CPT; ++i)
+#pragma unroll
+        for (int j = 0; j < NPT; ++j) sn[i][j] *= dec;
+#pragma unroll 4
+      for (int s = 0; s < T; ++s) {
+        const float w = expf(last - cs[s]);
+        float xv[CPT], bv[NPT];
+#pragma unroll
+        for (int i = 0; i < CPT; ++i) xv[i] = w * Xs[s * LDP + ty + 16 * i];
+#pragma unroll
+        for (int j = 0; j < NPT; ++j)
+          bv[j] = tx + 16 * j < N ? Bs[s * LDN + tx + 16 * j] : 0.f;
+#pragma unroll
+        for (int i = 0; i < CPT; ++i)
+#pragma unroll
+          for (int j = 0; j < NPT; ++j) sn[i][j] = fmaf(xv[i], bv[j], sn[i][j]);
+      }
+    }
+  }
+
+  // Pass 2, the tiles in reverse.  R starts as dstate, or 0.
+  for (int idx = tid; idx < P * N; idx += NT) {
+    const int p = idx / N;
+    Rs[p * LDN + idx - p * N] =
+        dstate ? dstate[(long long)bh * P * N + idx] : 0.f;
+  }
+  for (int it = ntiles - 1; it >= 0; --it) {
+    const int t0 = it * T;
+    __syncthreads();  // the previous tile's reads are done, R is written
+    load_rows<TIn, P>(Xs, xb, t0, L);
+    load_rows<TIn, P>(Ys, yb, t0, L);
+    load_rows<TIn, N>(Bs, bb, t0, L);
+    load_rows<TIn, N>(Cs, cb, t0, L);
+    {
+      const float* sp = stb + (long long)it * P * N;
+      for (int idx = tid; idx < P * N; idx += NT) {
+        const int p = idx / N;
+        S0[p * LDN + idx - p * N] = sp[idx];
+      }
+    }
+    tile_cumsum(cs, ab, t0, L);
+    __syncthreads();
+    const float last = cs[T - 1];
+
+    // (A) G and D, rows ty+16i, columns tx+16j; the row and column sums
+    // of M = G o (dY X^T)
+    {
+      float cbv[4][4], dxv[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) cbv[i][j] = dxv[i][j] = 0.f;
+#pragma unroll 4
+      for (int n = 0; n < N; n += 4) {
+        float4 ca[4], ba[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          ca[i] = *reinterpret_cast<const float4*>(&Cs[(ty + 16 * i) * LDN + n]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          ba[j] = *reinterpret_cast<const float4*>(&Bs[(tx + 16 * j) * LDN + n]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            float v = cbv[i][j];
+            v = fmaf(ca[i].x, ba[j].x, v);
+            v = fmaf(ca[i].y, ba[j].y, v);
+            v = fmaf(ca[i].z, ba[j].z, v);
+            v = fmaf(ca[i].w, ba[j].w, v);
+            cbv[i][j] = v;
+          }
+      }
+#pragma unroll 4
+      for (int p = 0; p < P; p += 4) {
+        float4 ya[4], xa[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          ya[i] = *reinterpret_cast<const float4*>(&Ys[(ty + 16 * i) * LDP + p]);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          xa[j] = *reinterpret_cast<const float4*>(&Xs[(tx + 16 * j) * LDP + p]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            float v = dxv[i][j];
+            v = fmaf(ya[i].x, xa[j].x, v);
+            v = fmaf(ya[i].y, xa[j].y, v);
+            v = fmaf(ya[i].z, xa[j].z, v);
+            v = fmaf(ya[i].w, xa[j].w, v);
+            dxv[i][j] = v;
+          }
+      }
+      float rs[4] = {0.f, 0.f, 0.f, 0.f}, cl[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int t = ty + 16 * i;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int s = tx + 16 * j;
+          // a select, never a product with 0: above the diagonal the
+          // exponent is positive and may overflow
+          const float decay = s <= t ? expf(cs[t] - cs[s]) : 0.f;
+          const float g = cbv[i][j] * decay;
+          Gs[t * LDG + s] = g;
+          Ds[t * LDG + s] = dxv[i][j] * decay;
+          const float m = g * dxv[i][j];
+          rs[i] += m;
+          cl[j] += m;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float r = row_sum(rs[i]);
+        if (tx == 0) rv[ty + 16 * i] = r;
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) colp[ty * T + tx + 16 * j] = cl[j];
+    }
+    __syncthreads();
+    if (tid < T) {
+      float c = 0.f;
+#pragma unroll
+      for (int k = 0; k < 16; ++k) c += colp[k * T + tid];
+      rv[tid] -= c;
+    }
+
+    // (B) dx = G^T dY + w (.) (B R^T), rows ty+16i, columns tx+16c
+    {
+      float acc[4][CPT], off[4][CPT];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < CPT; ++c) acc[i][c] = off[i][c] = 0.f;
+#pragma unroll 4
+      for (int s = 0; s < T; ++s) {
+        float gv[4], yv[CPT];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) gv[i] = Gs[s * LDG + ty + 16 * i];
+#pragma unroll
+        for (int c = 0; c < CPT; ++c) yv[c] = Ys[s * LDP + tx + 16 * c];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int c = 0; c < CPT; ++c) acc[i][c] = fmaf(gv[i], yv[c], acc[i][c]);
+      }
+#pragma unroll 2
+      for (int n = 0; n < N; n += 4) {
+        float4 ba[4], ra[CPT];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          ba[i] = *reinterpret_cast<const float4*>(&Bs[(ty + 16 * i) * LDN + n]);
+#pragma unroll
+        for (int c = 0; c < CPT; ++c)
+          ra[c] = *reinterpret_cast<const float4*>(&Rs[(tx + 16 * c) * LDN + n]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int c = 0; c < CPT; ++c) {
+            float v = off[i][c];
+            v = fmaf(ba[i].x, ra[c].x, v);
+            v = fmaf(ba[i].y, ra[c].y, v);
+            v = fmaf(ba[i].z, ra[c].z, v);
+            v = fmaf(ba[i].w, ra[c].w, v);
+            off[i][c] = v;
+          }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int t = ty + 16 * i;
+        const float w = expf(last - cs[t]);
+        float xd = 0.f;
+#pragma unroll
+        for (int c = 0; c < CPT; ++c) {
+          const float o = w * off[i][c];
+          xd = fmaf(Xs[t * LDP + tx + 16 * c], o, xd);
+          if (t0 + t < L)
+            store(&dx[((long long)bh * L + t0 + t) * P + tx + 16 * c],
+                  acc[i][c] + o);
+        }
+        xd = row_sum(xd);
+        if (tx == 0) xo[t] = xd;
+      }
+    }
+
+    // (C) this head's dB = D^T C + w (.) (X R), rows ty+16i, columns tx+16j
+    {
+      float acc[4][NPT], off[4][NPT];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < NPT; ++j) acc[i][j] = off[i][j] = 0.f;
+#pragma unroll 4
+      for (int s = 0; s < T; ++s) {
+        float dv[4], cv[NPT];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) dv[i] = Ds[s * LDG + ty + 16 * i];
+#pragma unroll
+        for (int j = 0; j < NPT; ++j)
+          cv[j] = tx + 16 * j < N ? Cs[s * LDN + tx + 16 * j] : 0.f;
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < NPT; ++j) acc[i][j] = fmaf(dv[i], cv[j], acc[i][j]);
+      }
+#pragma unroll 4
+      for (int p = 0; p < P; ++p) {
+        float xv[4], rv2[NPT];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) xv[i] = Xs[(ty + 16 * i) * LDP + p];
+#pragma unroll
+        for (int j = 0; j < NPT; ++j)
+          rv2[j] = tx + 16 * j < N ? Rs[p * LDN + tx + 16 * j] : 0.f;
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < NPT; ++j) off[i][j] = fmaf(xv[i], rv2[j], off[i][j]);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int t = ty + 16 * i;
+        const float w = expf(last - cs[t]);
+#pragma unroll
+        for (int j = 0; j < NPT; ++j) {
+          const int n = tx + 16 * j;
+          if (n < N && t0 + t < L)
+            dBh[((long long)bh * L + t0 + t) * N + n] =
+                fmaf(w, off[i][j], acc[i][j]);
+        }
+      }
+    }
+
+    // (D) this head's dC = D B + exp(cs) (.) (dY S0), rows ty+16i,
+    // columns tx+16j
+    {
+      float acc[4][NPT], off[4][NPT];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < NPT; ++j) acc[i][j] = off[i][j] = 0.f;
+#pragma unroll 2
+      for (int s = 0; s < T; s += 4) {
+        float4 da4[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          da4[i] = *reinterpret_cast<const float4*>(&Ds[(ty + 16 * i) * LDG + s]);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          float bv[NPT];
+#pragma unroll
+          for (int j = 0; j < NPT; ++j)
+            bv[j] = tx + 16 * j < N ? Bs[(s + u) * LDN + tx + 16 * j] : 0.f;
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float dv = u == 0 ? da4[i].x : u == 1 ? da4[i].y
+                           : u == 2 ? da4[i].z : da4[i].w;
+#pragma unroll
+            for (int j = 0; j < NPT; ++j) acc[i][j] = fmaf(dv, bv[j], acc[i][j]);
+          }
+        }
+      }
+#pragma unroll 2
+      for (int p = 0; p < P; p += 4) {
+        float4 ya[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          ya[i] = *reinterpret_cast<const float4*>(&Ys[(ty + 16 * i) * LDP + p]);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          float sv[NPT];
+#pragma unroll
+          for (int j = 0; j < NPT; ++j)
+            sv[j] = tx + 16 * j < N ? S0[(p + u) * LDN + tx + 16 * j] : 0.f;
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float yv = u == 0 ? ya[i].x : u == 1 ? ya[i].y
+                           : u == 2 ? ya[i].z : ya[i].w;
+#pragma unroll
+            for (int j = 0; j < NPT; ++j) off[i][j] = fmaf(yv, sv[j], off[i][j]);
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int t = ty + 16 * i;
+        const float e = expf(cs[t]);
+        float cd = 0.f;
+#pragma unroll
+        for (int j = 0; j < NPT; ++j) {
+          const int n = tx + 16 * j;
+          const float o = e * off[i][j];
+          if (n < N) {
+            cd = fmaf(Cs[t * LDN + n], o, cd);
+            if (t0 + t < L)
+              dCh[((long long)bh * L + t0 + t) * N + n] = acc[i][j] + o;
+          }
+        }
+        cd = row_sum(cd);
+        if (tx == 0) co[t] = cd;
+      }
+    }
+
+    // (E) R before this tile, R' = exp(cs[T-1]) R + (exp(cs) (.) dY)^T C,
+    // entries (ty+16i, tx+16j), and <R, S0>
+    float rn[CPT][NPT];
+    {
+      const float dec = expf(last);
+      float gs = 0.f;
+#pragma unroll
+      for (int i = 0; i < CPT; ++i)
+#pragma unroll
+        for (int j = 0; j < NPT; ++j) {
+          const int p = ty + 16 * i, n = tx + 16 * j;
+          const float r = n < N ? Rs[p * LDN + n] : 0.f;
+          if (n < N) gs = fmaf(r, S0[p * LDN + n], gs);
+          rn[i][j] = dec * r;
+        }
+#pragma unroll 4
+      for (int s = 0; s < T; ++s) {
+        const float e = expf(cs[s]);
+        float yv[CPT], cv[NPT];
+#pragma unroll
+        for (int i = 0; i < CPT; ++i) yv[i] = e * Ys[s * LDP + ty + 16 * i];
+#pragma unroll
+        for (int j = 0; j < NPT; ++j)
+          cv[j] = tx + 16 * j < N ? Cs[s * LDN + tx + 16 * j] : 0.f;
+#pragma unroll
+        for (int i = 0; i < CPT; ++i)
+#pragma unroll
+          for (int j = 0; j < NPT; ++j) rn[i][j] = fmaf(yv[i], cv[j], rn[i][j]);
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        gs += __shfl_xor_sync(FULL, gs, off);
+      if (lane == 0) red[warp] = gs;
+    }
+    __syncthreads();  // every read of R is done; rv, xo, co, red are written
+#pragma unroll
+    for (int i = 0; i < CPT; ++i)
+#pragma unroll
+      for (int j = 0; j < NPT; ++j) {
+        const int n = tx + 16 * j;
+        if (n < N) Rs[(ty + 16 * i) * LDN + n] = rn[i][j];
+      }
+
+    // da = the reverse cumsum of dcs over the tile: warp 0, rows 2 lane and
+    // 2 lane + 1
+    if (warp == 0) {
+      float rs0 = 0.f;
+#pragma unroll
+      for (int k = 0; k < NT / 32; ++k) rs0 += red[k];   // <R, S0>
+      const int r = 2 * lane;
+      const float d0 = co[r] + rv[r] - xo[r];
+      float d1 = co[r + 1] + rv[r + 1] - xo[r + 1];
+      float xs = xo[r] + xo[r + 1];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) xs += __shfl_xor_sync(FULL, xs, off);
+      if (lane == 31) d1 += fmaf(expf(last), rs0, xs);   // <R, S_end>
+      // suffix sums over the lanes: s = sum of d0 + d1 over lanes >= lane
+      float sfx = d0 + d1;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const float u = __shfl_down_sync(FULL, sfx, off);
+        if (lane + off < 32) sfx += u;
+      }
+      float nxt = __shfl_down_sync(FULL, sfx, 1);
+      if (lane == 31) nxt = 0.f;
+      const float da1 = d1 + nxt, da0 = d0 + da1;
+      float* dab = da + (long long)bh * L + t0;
+      if (t0 + r < L) dab[r] = da0;
+      if (t0 + r + 1 < L) dab[r + 1] = da1;
+    }
+  }
+}
+
+// dB, dC [B, G, L, N] in the inputs' dtype: the per-head f32 partials
+// [B, H, L, N] summed over each group's H/G heads in head order (grid y: 0
+// for dB, 1 for dC).
+template <typename TOut>
+__global__ void __launch_bounds__(256)
+    group_sum(const float* __restrict__ dBh, const float* __restrict__ dCh,
+              TOut* __restrict__ dB, TOut* __restrict__ dC, int H, int G,
+              long long per, long long total) {
+  const long long i = (long long)blockIdx.x * 256 + threadIdx.x;
+  if (i >= total) return;
+  const float* src = blockIdx.y ? dCh : dBh;
+  TOut* dst = blockIdx.y ? dC : dB;
+  const long long bg = i / per, e = i - bg * per;
+  const long long b = bg / G, g = bg - b * G;
+  const int rep = H / G;
+  const float* s = src + (b * H + g * rep) * per + e;
+  float acc = 0.f;
+  for (int r = 0; r < rep; ++r) acc += s[r * per];
+  store(dst + i, acc);
+}
+
+template <typename TIn, int P, int N>
+cudaError_t launch(const void* xdt, const float* a, const void* Bm,
+                   const void* Cm, const void* dy, const float* dstate,
+                   void* dx, float* da, void* dB, void* dC, float* states,
+                   float* dBh, float* dCh, int B, int H, int G, int L,
+                   cudaStream_t stream) {
+  constexpr int LDP = P + 4, LDN = N + 4;
+  const int smem = (2 * T * LDP + 2 * T * LDN + 2 * T * LDG + 2 * P * LDN +
+                    4 * T + 16 * T + NT / 32) * (int)sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      ssd_scan_bwd<TIn, P, N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  ssd_scan_bwd<TIn, P, N><<<B * H, NT, smem, stream>>>(
+      static_cast<const TIn*>(xdt), a, static_cast<const TIn*>(Bm),
+      static_cast<const TIn*>(Cm), static_cast<const TIn*>(dy), dstate,
+      static_cast<TIn*>(dx), da, dBh, dCh, states, H, G, L);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const long long per = (long long)L * N, total = (long long)B * G * per;
+  group_sum<TIn><<<dim3((unsigned)((total + 255) / 256), 2), 256, 0,
+                   stream>>>(dBh, dCh, static_cast<TIn*>(dB),
+                             static_cast<TIn*>(dC), H, G, per, total);
+  return cudaGetLastError();
+}
+
+template <int P, int N>
+cudaError_t by_dtype(int dtype, const void* xdt, const float* a,
+                     const void* Bm, const void* Cm, const void* dy,
+                     const float* dstate, void* dx, float* da, void* dB,
+                     void* dC, float* states, float* dBh, float* dCh, int B,
+                     int H, int G, int L, cudaStream_t stream) {
+  if (dtype == 0)
+    return launch<float, P, N>(xdt, a, Bm, Cm, dy, dstate, dx, da, dB, dC,
+                               states, dBh, dCh, B, H, G, L, stream);
+  if (dtype == 1)
+    return launch<__nv_bfloat16, P, N>(xdt, a, Bm, Cm, dy, dstate, dx, da,
+                                       dB, dC, states, dBh, dCh, B, H, G, L,
+                                       stream);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace bwd
+
 template <int P, int N>
 cudaError_t launch(const void* xdt, const float* a, const void* Bm,
                    const void* Cm, void* y, float* state, int B, int H,
@@ -749,5 +1367,39 @@ extern "C" int mamba2_chunk_scan_fwd(const void* xdt, const void* a,
   if (P == 16 && N == 8)
     return (int)by_dtype<16, 8>(dtype, xdt, af, Bm, Cm, y, sf, B, H, G, L,
                                 st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The backward.  dy [B,H,L,P] in xdt's dtype and dstate [B,H,P,N] f32 (null:
+// the final state has no gradient) -> dx [B,H,L,P] in xdt's dtype, da
+// [B,H,L] f32, dB, dC [B,G,L,N] in Bm's dtype.  Scratch, f32: states
+// [B, H, ceil(L/64), P, N], dBh and dCh [B, H, L, N].  Two launches
+// (ssd_scan_bwd, group_sum) on `stream`; returns cudaGetLastError() after
+// them.
+extern "C" int mamba2_chunk_scan_bwd(const void* xdt, const void* a,
+                                     const void* Bm, const void* Cm,
+                                     const void* dy, const void* dstate,
+                                     void* dx, void* da, void* dB, void* dC,
+                                     void* states, void* dBh, void* dCh,
+                                     int B, int H, int G, int L, int P, int N,
+                                     int dtype, void* stream) {
+  if (B <= 0 || H <= 0 || G <= 0 || H % G != 0 || L <= 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* af = static_cast<const float*>(a);
+  const float* dsf = static_cast<const float*>(dstate);
+  float* daf = static_cast<float*>(da);
+  float* sf = static_cast<float*>(states);
+  float* bh = static_cast<float*>(dBh);
+  float* ch = static_cast<float*>(dCh);
+  if (P == 64 && N == 64)
+    return (int)bwd::by_dtype<64, 64>(dtype, xdt, af, Bm, Cm, dy, dsf, dx,
+                                      daf, dB, dC, sf, bh, ch, B, H, G, L, st);
+  if (P == 32 && N == 16)
+    return (int)bwd::by_dtype<32, 16>(dtype, xdt, af, Bm, Cm, dy, dsf, dx,
+                                      daf, dB, dC, sf, bh, ch, B, H, G, L, st);
+  if (P == 16 && N == 8)
+    return (int)bwd::by_dtype<16, 8>(dtype, xdt, af, Bm, Cm, dy, dsf, dx,
+                                     daf, dB, dC, sf, bh, ch, B, H, G, L, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -13,7 +13,8 @@ On CUDA tensors ``flash_attention`` is a ``torch.autograd.Function``: its
 forward kernel also writes each row's float32 log-sum-exp, and its
 backward launches the backward kernel (dq, dk, dv), which the JAX package
 does not have (its training differentiates ``attend_chunked``).  The
-backward is built for head dims ``BWD_HEAD_DIMS`` and raises for others.
+backward is built for every head dim of the forward (``BWD_HEAD_DIMS ==
+HEAD_DIMS``).
 
 The C entries pick the route by dtype, with no fallback between them:
 bfloat16, which every main path runs, goes to the tensor-core kernels
@@ -34,7 +35,7 @@ from . import build
 
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 80, 96, 128)
-BWD_HEAD_DIMS = (32, 64, 128)
+BWD_HEAD_DIMS = HEAD_DIMS
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _FWD_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
                  + [ctypes.c_float, ctypes.c_void_p])
@@ -133,17 +134,14 @@ def flash_attention_bwd(q, k, v, o, lse, dout, *, causal: bool = True,
                         window: Optional[int] = None, scale=None):
     """The backward kernel on CUDA tensors: (dq, dk, dv) in q's dtype from
     q, k, v, the forward's output ``o`` and row log-sum-exp ``lse`` ([B, H,
-    S] float32) and the output's gradient ``dout``.  Head dims
-    ``BWD_HEAD_DIMS``; anything else raises.  Adds one to
+    S] float32) and the output's gradient ``dout``.  The inputs' contract
+    is ``flash_attention``'s; anything else raises.  Adds one to
     ``flash_attention_bwd.launches``."""
     _check(q, k, v)
     B, H, S, d = q.shape
     if q.device.type != "cuda":
         raise ValueError("flash_attention_bwd launches the CUDA kernel; on "
                          "the CPU, autograd differentiates the plain version")
-    if d not in BWD_HEAD_DIMS:
-        raise ValueError(f"the flash-attention backward kernel is built for "
-                         f"head dims {BWD_HEAD_DIMS}, not {d}")
     if o.shape != q.shape or dout.shape != q.shape or o.dtype != q.dtype \
             or dout.dtype != q.dtype or tuple(lse.shape) != (B, H, S) \
             or lse.dtype != torch.float32:
@@ -183,10 +181,6 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale, train):
         # ``train``: autograd records this call (grad mode is off in here)
-        if train and q.shape[-1] not in BWD_HEAD_DIMS:
-            raise ValueError(f"the flash-attention backward kernel is built "
-                             f"for head dims {BWD_HEAD_DIMS}, not "
-                             f"{q.shape[-1]}: this head dim serves only")
         out, lse = _launch_fwd(q, k, v, causal, window, scale, train)
         if train:
             ctx.save_for_backward(q, k, v, out, lse)
@@ -215,9 +209,8 @@ def flash_attention(q, k, v, *, causal: bool = True,
     ``scale`` defaults to ``1/sqrt(d)`` (a falsy scale too, as in the TPU
     kernel).  On CUDA tensors this launches the forward kernel on the
     current stream and adds one to ``flash_attention.launches``; when
-    autograd records it, the gradient launches ``flash_attention_bwd``
-    (head dims ``BWD_HEAD_DIMS`` only).  On CPU tensors it runs
-    ``flash_attention_ref``."""
+    autograd records it, the gradient launches ``flash_attention_bwd``.
+    On CPU tensors it runs ``flash_attention_ref``."""
     _check(q, k, v)
     if window is not None and window < 1:
         raise ValueError(f"window {window} masks every key of a row; "

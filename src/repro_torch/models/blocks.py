@@ -5,8 +5,9 @@ Counterpart: ``repro/models/blocks.py``: the pre-norm residual transformer
 block (``tblock_specs``, ``tblock_apply``, ``kv_cache_specs``,
 ``tblock_prefill``, ``tblock_decode``) without the cross-attention and
 MoE variants (ROADMAP items 10 and 11), and the Mamba-2 block
-(``mamba_block_specs``, ``mamba_block_prefill``, ``mamba_block_decode``,
-``mamba_state_specs``); the xLSTM blocks wait for ROADMAP item 11.
+(``mamba_block_specs``, ``mamba_block_apply``, ``mamba_block_prefill``,
+``mamba_block_decode``, ``mamba_state_specs``); the xLSTM blocks wait for
+ROADMAP item 11.
 """
 from __future__ import annotations
 
@@ -98,6 +99,13 @@ def mamba_block_specs(cfg) -> dict:
             state=cfg.ssm_state, n_groups=cfg.ssm_groups,
             d_conv=cfg.ssm_d_conv),
     }
+
+
+def mamba_block_apply(x, p, cfg, *, chunk: int = 256):
+    """The training forward: x [B,S,D] -> x [B,S,D]; the scan through the
+    chunk-scan kernel, whose backward is a kernel too."""
+    h = layers.apply_norm(x, p["ln"], cfg.norm)
+    return x + ssm.mamba2_chunked(h, p["mixer"], cfg, chunk=chunk)
 
 
 def mamba_block_prefill(x, p, cfg, *, chunk: int = 256):

@@ -2,7 +2,7 @@
 
 Counterpart: ``repro/models/model.py`` (``LM`` for ``family`` ``"dense"``
 and ``"zamba"``: ``specs``, ``cache_specs``, ``prefill``,
-``decode_step``; ``apply`` and ``loss`` for the dense family).  The JAX
+``decode_step``, ``apply``, ``loss``; ``_backbone``).  The JAX
 model stacks every layer's parameters under ``"stack"`` with leading
 layer dims and runs ``lax.scan`` over them; here the stacked dims become
 nested lists and the scans Python loops:
@@ -15,12 +15,13 @@ nested lists and the scans Python loops:
   cache.  The cache is ``{"mamba": [[{"ssm", "conv"}] x shared_every] x
   groups, "shared": [{"k", "v"}] x groups}``.
 
-Training runs the dense family only: ``apply`` raises
-``NotImplementedError`` for zamba, whose K2 scan has no backward kernel
-yet (ROADMAP item 16).  With ``cfg.remat`` each layer runs under
-``torch.utils.checkpoint`` (non-reentrant): its activations are recomputed
-in the backward pass, the counterpart of ``_maybe_remat``'s
-``jax.checkpoint``.
+``apply`` (training) runs both families, as ``_backbone`` does: the dense
+layers in order; zamba's groups in order, each its mamba layers
+(``mamba_block_apply``) and then the shared block.  With ``cfg.remat``
+the counterpart of ``_maybe_remat``'s ``jax.checkpoint`` is
+``torch.utils.checkpoint`` (non-reentrant), at the reference's levels:
+each dense layer; each mamba layer, and each zamba group around them (the
+activations are recomputed in the backward pass).
 
 Contract:
   m = build_model(cfg)
@@ -82,21 +83,31 @@ class LM:
             lambda s: dataclasses.replace(s, dtype=cfg.p_dtype)
             if s.dtype.is_floating_point else s, sp, is_leaf=is_spec)
 
+    def _remat(self, fn, *args, **kwargs):
+        if self.cfg.remat:
+            return checkpoint(fn, *args, use_reentrant=False, **kwargs)
+        return fn(*args, **kwargs)
+
+    def _mamba_group(self, x, group, shared):
+        """One zamba group: its mamba layers, then the shared block."""
+        cfg = self.cfg
+        for p in group:
+            x = self._remat(blocks.mamba_block_apply, x, p, cfg,
+                            chunk=cfg.ssm_chunk)
+        return blocks.tblock_apply(x, shared, cfg)
+
     def apply(self, params, batch):
         """The training forward: (logits [B, S, vocab] in the compute
-        dtype, aux loss 0).  Dense family only."""
+        dtype, aux loss 0)."""
         cfg = self.cfg
-        if cfg.family != "dense":
-            raise NotImplementedError(
-                f"training the {cfg.family} family needs a backward of the "
-                f"Mamba-2 scan kernel K2 (ROADMAP item 16)")
         x = layers.embed(batch["tokens"], params["embed"]).to(cfg.c_dtype)
-        for p in params["stack"]:
-            if cfg.remat:
-                x = checkpoint(blocks.tblock_apply, x, p, cfg,
-                               use_reentrant=False)
-            else:
-                x = blocks.tblock_apply(x, p, cfg)
+        if cfg.family == "dense":
+            for p in params["stack"]:
+                x = self._remat(blocks.tblock_apply, x, p, cfg)
+        else:
+            shared = params["stack"]["shared"]
+            for group in params["stack"]["mamba"]:
+                x = self._remat(self._mamba_group, x, group, shared)
         x = layers.apply_norm(x, params["ln_f"], cfg.norm)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return layers.logits(x, params["unembed"]), aux

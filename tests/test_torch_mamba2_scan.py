@@ -1,7 +1,9 @@
 """The port's Mamba-2 chunk scan (on CPU tensors: its plain version)
 against the JAX package's Pallas kernel in interpret mode and its oracle,
-on the same numpy inputs.  The CUDA kernel itself is held against the
-plain version on the card by chip_smoke.py."""
+on the same numpy inputs, and its gradient against ``jax.vjp`` of the
+oracle.  The CUDA kernels themselves, forward and backward, are held
+against the plain versions on the card by chip_smoke.py."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -9,7 +11,9 @@ import torch
 
 from repro.kernels import ref as jax_ref
 from repro.kernels.mamba2_scan import mamba2_chunk_scan as jax_kernel
-from repro_torch.kernels import mamba2_chunk_scan, mamba2_chunk_scan_ref
+from repro_torch.kernels import (mamba2_chunk_scan, mamba2_chunk_scan_bwd,
+                                 mamba2_chunk_scan_bwd_ref,
+                                 mamba2_chunk_scan_ref)
 
 # the tolerances of tests/test_kernels.py's kernel sweep
 TOL = {"f32": 2e-4, "bf16": 6e-2}
@@ -146,3 +150,86 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(change, err):
     with pytest.raises(err):
         mamba2_chunk_scan(xdt, a, Bm, Cm, chunk=change.get("chunk", 128))
     assert mamba2_chunk_scan.launches == launches
+
+
+# (B, H, G, L, P, N, dstate): one group (zamba's), B and C per head, a
+# grouped case with a state cotangent, and the two smaller (P, N) the
+# kernel is built for
+@pytest.mark.parametrize("B,H,G,L,P,N,with_dstate", [
+    (1, 4, 1, 40, 64, 64, False),
+    (2, 2, 2, 48, 32, 16, False),
+    (1, 4, 2, 33, 32, 16, True),
+    (2, 3, 3, 40, 16, 8, True),
+    (1, 2, 1, 64, 16, 8, False),
+])
+def test_backward_matches_jax_vjp_of_the_oracle(B, H, G, L, P, N,
+                                                with_dstate):
+    """dxdt, da, dBm, dCm of the plain backward (autograd through the plain
+    version) against ``jax.vjp`` of ``mamba2_scan_ref`` on B and C repeated
+    over each group's heads, its dB and dC summed over each group; float32
+    within 1e-5 of each gradient's largest magnitude (at least 1): both
+    sum in float32, in other orders, and da sums P x N products a row.
+    Autograd through ``mamba2_chunk_scan`` on CPU tensors gives the plain
+    backward's bits."""
+    xdt, a, _, _ = _inputs(B, H, L, P, N, seed=3)
+    rng = np.random.default_rng(4)
+    Bm = 0.5 * rng.standard_normal((B, G, L, N)).astype(np.float32)
+    Cm = 0.5 * rng.standard_normal((B, G, L, N)).astype(np.float32)
+    dy = rng.standard_normal((B, H, L, P)).astype(np.float32)
+    ds = rng.standard_normal((B, H, P, N)).astype(np.float32)
+    rep = H // G
+    _, vjp = jax.vjp(jax_ref.mamba2_scan_ref, *(jnp.asarray(v) for v in (
+        xdt, a, np.repeat(Bm, rep, axis=1), np.repeat(Cm, rep, axis=1))))
+    jdx, jda, jdB, jdC = (np.asarray(g) for g in vjp(
+        (jnp.asarray(dy), jnp.asarray(ds if with_dstate
+                                      else np.zeros_like(ds)))))
+    jdB = jdB.reshape(B, G, rep, L, N).sum(2)
+    jdC = jdC.reshape(B, G, rep, L, N).sum(2)
+    t = [torch.from_numpy(v) for v in (xdt, a, Bm, Cm)]
+    tdy, tds = torch.from_numpy(dy), torch.from_numpy(ds)
+    got = mamba2_chunk_scan_bwd_ref(*t, tdy, tds if with_dstate else None)
+    for g, w in zip(got, (jdx, jda, jdB, jdC)):
+        assert g.dtype == torch.float32
+        np.testing.assert_allclose(
+            g.numpy(), w, rtol=0,
+            atol=1e-5 * max(1.0, float(np.abs(w).max())))
+    ins = [v.clone().requires_grad_(True) for v in t]
+    launches = (mamba2_chunk_scan.launches, mamba2_chunk_scan_bwd.launches)
+    y, st = mamba2_chunk_scan(*ins, chunk=L)
+    again = torch.autograd.grad([y, st] if with_dstate else [y], ins,
+                                [tdy, tds] if with_dstate else [tdy])
+    assert (mamba2_chunk_scan.launches,
+            mamba2_chunk_scan_bwd.launches) == launches   # CPU calls
+    for g, w in zip(got, again):
+        assert torch.equal(g, w)
+
+
+def test_plain_backward_keeps_the_input_dtypes():
+    """bf16 xdt, Bm, Cm give bf16 dxdt, dBm, dCm and float32 da, as the
+    kernel writes them; within bf16 rounding of the float32 gradient."""
+    xdt, a, Bm, Cm = (torch.from_numpy(v) for v in _inputs(1, 2, 24, 16, 8))
+    dy = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (1, 2, 24, 16)).astype(np.float32))
+    want = mamba2_chunk_scan_bwd_ref(xdt, a, Bm, Cm, dy)
+    bf = [v.to(torch.bfloat16) for v in (xdt, Bm, Cm, dy)]
+    got = mamba2_chunk_scan_bwd_ref(bf[0], a, bf[1], bf[2], bf[3])
+    assert [g.dtype for g in got] == [torch.bfloat16, torch.float32,
+                                      torch.bfloat16, torch.bfloat16]
+    for g, w in zip(got, want):
+        scale = float(w.abs().max())
+        np.testing.assert_allclose(g.float().numpy(), w.numpy(),
+                                   atol=TOL["bf16"] * scale)
+
+
+def test_backward_wrapper_launches_only_on_the_card():
+    """The backward's wrapper raises on CPU tensors (autograd
+    differentiates the plain version there) and on inputs the kernel does
+    not take, without a launch."""
+    xdt, a, Bm, Cm = (torch.from_numpy(v) for v in _inputs(1, 2, 64, 32, 16))
+    launches = mamba2_chunk_scan_bwd.launches
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        mamba2_chunk_scan_bwd(xdt, a, Bm, Cm, torch.zeros_like(xdt))
+    with pytest.raises(ValueError):
+        mamba2_chunk_scan_bwd(xdt, a, Bm, Cm[:, :1].contiguous(),
+                              torch.zeros_like(xdt))
+    assert mamba2_chunk_scan_bwd.launches == launches

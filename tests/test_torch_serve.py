@@ -79,9 +79,26 @@ def _assert_cache_close(mine, jcache, *, scaled=False):
 
 @pytest.mark.parametrize("arch", ["qwen3-4b", "qwen2.5-3b", "zamba2-2.7b"])
 def test_prefill_and_greedy_decode_match_jax(arch):
-    jcfg = jax_get_config(arch, tiny=True)
     cfg = get_config(arch, tiny=True)
     assert cfg.qk_norm or cfg.qkv_bias or cfg.family == "zamba"
+    _prefill_and_greedy_decode_match_jax(arch)
+
+
+# the other ported dense ids (phi3-mini: MHA; mistral-nemo: GQA; neither
+# has qk-norm nor a qkv bias; chameleon: GQA with qk-norm), held at the
+# same ATOL
+@pytest.mark.parametrize("arch", ["phi3-mini-3.8b", "mistral-nemo-12b",
+                                  "chameleon-34b"])
+def test_prefill_and_greedy_decode_of_other_dense_ids_match_jax(arch):
+    _prefill_and_greedy_decode_match_jax(arch)
+
+
+def _prefill_and_greedy_decode_match_jax(arch):
+    """Prefill and GEN greedy decode steps of the tiny config on bridged
+    bf16 serve parameters: logits within ATOL of the reference's, the
+    same tokens, the cache within ATOL (zamba: of its scale)."""
+    jcfg = jax_get_config(arch, tiny=True)
+    cfg = get_config(arch, tiny=True)
     jpre, jparams, tree = _jax_serve_params(jcfg)
     jdec = jax_steps.make_decode_step(
         jcfg, make_local_mesh(), jax_steps.Strategy(),
