@@ -200,8 +200,9 @@ FA_BWD_TIMED = 4        # the first FA_BWD_TIMED cases are timed
 FA_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 # K2 backward, (B, H, G, L, P, N, dtype, dstate): zamba2-2.7b's training
 # shape in bf16 with its one group (timed), then B and C per head (G=H), a
-# ragged L with grouped heads, the two other (P, N) the kernel is built
-# for, each in f32 and bf16, and a nonzero final-state gradient
+# ragged L with grouped heads, the two other (P, N) the kernels are built
+# for, and a nonzero final-state gradient (the bf16 kernel's seed of R),
+# each in f32 (ssd_scan_bwd) and bf16 (ssd_scan_bwd_mma)
 SCAN_BWD_CASES = [
     (ZAMBA_TRAIN["batch"], ZAMBA_HEADS, 1, ZAMBA_TRAIN["seq"], 64, 64,
      torch.bfloat16, False),
@@ -214,11 +215,15 @@ SCAN_BWD_CASES = [
     (1, 1, 1, 512, 16, 8, torch.float32, False),
     (1, 1, 1, 512, 16, 8, torch.bfloat16, False),
     (2, 4, 1, 130, 64, 64, torch.float32, True),          # dstate
+    (2, 4, 1, 130, 64, 64, torch.bfloat16, True),
 ]
 # f32: within 1e-4 of the largest gradient magnitude (at least 1): both
 # sum in f32, in other orders.  bf16: the inputs are the same bf16 values
-# on both sides and both sum in f32; the outputs are rounded to bf16
-# (2**-9 of a value), so 1e-2 of the largest magnitude
+# on both sides and both sum in f32, but the kernel's products take bf16
+# operands it computes (G, D, the states, x (.) w, exp(cs) (.) dY) and the
+# outputs are rounded to bf16 (2**-9 of a value): 1e-2 of the largest
+# magnitude (tests/test_torch_mamba2_scan.py holds this rounding plan
+# within it against the JAX oracle)
 SCAN_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 # K3a/K3b: a 32 MB bucket ([8192, 1024] float32); the training plan's
 # largest bucket is added at run time
@@ -264,9 +269,10 @@ K1_TC = {"forward": "attn_fwd_wgmma", "dkdv": "attn_bwd_dkdv_wgmma",
          "dq": "attn_bwd_dq_wgmma"}
 K1_F32 = ("fa_fwd<", "fa_bwd_dkdv<", "fa_bwd_dq<")
 # K2's kernels and K3b's by the names the profiler gives them: zamba's bf16
-# prefill must run the tensor-core scan and never the f32 one
+# prefill and training must run the tensor-core scans, forward and
+# backward, and never the f32 ones
 K2_TC, K2_F32 = "ssd_scan_mma", "ssd_scan<"
-K2_BWD = "ssd_scan_bwd"
+K2_BWD_TC, K2_BWD_F32 = "ssd_scan_bwd_mma", "ssd_scan_bwd<"
 K3B = "onebit_dequant_rows"
 # K3b's other row widths (R, C): several rows a block, a loop over a row
 DEQUANT_SHAPES = ((7, 128), (3, 4096))
@@ -1323,7 +1329,7 @@ def main() -> int:
             check_ran(name, kernels, K3B)
         if train is ZAMBA_TRAIN:
             check_ran(name, kernels, K2_TC, K2_F32)
-            check_ran(name, kernels, K2_BWD)
+            check_ran(name, kernels, K2_BWD_TC, K2_BWD_F32)
 
     phase("result")
     by_path = {fn.__name__: {path: c[fn.__name__]

@@ -713,54 +713,45 @@ __global__ void __launch_bounds__(NTC, 3)
 // 0.  A ragged last tile is masked as in the forward: rows past L load as
 // x = B = C = dy = 0 and a = 0.
 //
-// Design, simple first: every product in f32 on the CUDA cores, for both
-// dtypes (bf16 inputs are widened as they are loaded, every sum is f32).
-// One block of 256 threads per (b, h), with the forward's thread layout;
-// two passes over the sequence in the block.  Pass 1 runs the forward's
-// state recurrence alone and stores the state before each tile into f32
-// scratch ([B, H, tiles, P, N]); pass 2 walks the tiles in reverse with R
-// in shared memory, computing every term above.  Each head's dB and dC go
-// to f32 scratch ([B, H, L, N]), and group_sum adds them over each group's
-// heads in head order.  No atomics anywhere: the same sums in the same order
-// on every run.  Shared memory at P = N = 64: x, dy, B, C, G, D, S0 and R
-// tiles of 64 x 68 f32, 141 KB: one block an SM.
+// Design, two kernels picked by dtype, both one block per (b, h) with two
+// passes over the sequence in the block: pass 1 runs the forward's state
+// recurrence alone and stores the state before each tile into scratch
+// ([B, H, tiles, P, N]); pass 2 walks the tiles in reverse with R,
+// computing every term above.  Each head's dB and dC go to f32 scratch
+// ([B, H, L, N]), and group_sum adds them over each group's heads in head
+// order.  No atomics anywhere: the same sums in the same order on every
+// run.
 //
-// What bounds it on an H100 at zamba2-2.7b's train shape (bf16, B=8,
-// H=80, G=1, L=512, P=N=64): xdt, dy and dx in bf16 are 42 MB each, a and
-// da 1.3 MB each, B, C, dB and dC once per group 0.5 MB each: about 130 MB,
-// 39 us at 3.35 TB/s.  The scratch adds 84 MB of states and 2 x 84 MB of
-// per-head dB, dC, each written once and read once (mostly from L2 for
-// the states: a block rereads its own 128 KB).  The products are 10 of 64 x
-// 64 x 64 a tile (the forward's states again, then nine), 27 GFLOP: 0.4 ms
-// at the CUDA cores' 67 TFLOP/s, 27 us on the bf16 tensor cores.  So this
-// kernel is bound by its f32 products; moving them to mma.sync, as the
-// forward's ssd_scan_mma did, is the redesign it awaits.
+// f32: ssd_scan_bwd, every product in f32 on the CUDA cores (f32 inputs
+// match their plain version to 1e-4), with the forward's thread layout
+// (256 threads), f32 states in scratch, and x, dy, B, C, G, D, S0 and R
+// tiles of 64 x 68 f32 in shared memory, 141 KB: one block an SM.
+//
+// bf16: ssd_scan_bwd_mma, on the tensor cores (below).
+//
+// What bounds the bf16 kernel on an H100 at zamba2-2.7b's train shape
+// (B=8, H=80, G=1, L=512, P=N=64).  The function's own bytes are about
+// 130 MB (xdt, dy and dx in bf16 42 MB each, a and da 1.3 MB each, B, C,
+// dB and dC once per group 0.5 MB each), 39 us at 3.35 TB/s; its products
+// are 10 of 64 x 64 x 64 a tile (the forward's states again, then nine),
+// 27 GFLOP, 27 us on the bf16 tensor cores.  The design adds 42 MB of
+// bf16 states (written in pass 1, read back in pass 2, mostly from L2: a
+// block rereads its own 64 KB) and 168 MB of per-head f32 dB and dC
+// (written here, read by group_sum), about 0.55 GB in all, 0.16 ms.  On an
+// H100 80GB HBM3 at 700 W the two launches take 0.30 ms: writing the
+// partials about 0.06 ms of it (a build without those stores), reading
+// them in group_sum at least 0.05 ms (168 MB at 3.35 TB/s), pass 1 about
+// 0.05 ms (a build without it); PERF.md has the readings.  Summing the
+// partials over clusters of eight heads in distributed shared memory, two
+// cluster barriers a tile, was slower (0.31 ms).
 
 namespace bwd {
 
 constexpr unsigned FULL = 0xffffffffu;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
-}
-
-// Rows row0 .. row0+T-1 of a row-major [L, D] matrix into dst[T][D+4] as
-// f32; rows at or past L are zero.
-template <typename TIn, int D>
-__device__ __forceinline__ void load_rows(float* dst, const TIn* src,
-                                          int row0, int L) {
-  constexpr int LD = D + 4;
-  for (int idx = threadIdx.x; idx < T * D; idx += NT) {
-    const int r = idx / D;
-    const int c = idx - r * D;
-    const int g = row0 + r;
-    dst[r * LD + c] = g < L ? to_f32(src[(long long)g * D + c]) : 0.f;
-  }
 }
 
 // cs = the inclusive cumsum of a over the tile (rows past L add 0): warp 0,
@@ -789,12 +780,39 @@ __device__ __forceinline__ float row_sum(float v) {
   return v;
 }
 
-template <typename TIn, int P, int N>
+// the reverse cumsum of dcs over the tile into da (rows past L are not
+// written): warp 0, rows 2 lane (d0) and 2 lane + 1 (d1).  The tile's last
+// row also takes <R, S_end> = el <R, S0> + the sum of x . (w (.) B R^T),
+// with el = exp(cs[T-1]), rs0 = <R, S0> and xo this lane's two rows of the
+// latter
+__device__ __forceinline__ void tile_da(float* dab, float d0, float d1,
+                                        float xo, float el, float rs0,
+                                        int lane, int t0, int L) {
+  float xs = xo;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) xs += __shfl_xor_sync(FULL, xs, off);
+  if (lane == 31) d1 += fmaf(el, rs0, xs);   // <R, S_end>
+  // suffix sums over the lanes: s = sum of d0 + d1 over lanes >= lane
+  float sfx = d0 + d1;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float u = __shfl_down_sync(FULL, sfx, off);
+    if (lane + off < 32) sfx += u;
+  }
+  float nxt = __shfl_down_sync(FULL, sfx, 1);
+  if (lane == 31) nxt = 0.f;
+  const float da1 = d1 + nxt, da0 = d0 + da1;
+  const int r = 2 * lane;
+  if (t0 + r < L) dab[r] = da0;
+  if (t0 + r + 1 < L) dab[r + 1] = da1;
+}
+
+template <int P, int N>
 __global__ void __launch_bounds__(NT, 1)
-    ssd_scan_bwd(const TIn* __restrict__ xdt, const float* __restrict__ a,
-                 const TIn* __restrict__ Bm, const TIn* __restrict__ Cm,
-                 const TIn* __restrict__ dy, const float* __restrict__ dstate,
-                 TIn* __restrict__ dx, float* __restrict__ da,
+    ssd_scan_bwd(const float* __restrict__ xdt, const float* __restrict__ a,
+                 const float* __restrict__ Bm, const float* __restrict__ Cm,
+                 const float* __restrict__ dy, const float* __restrict__ dstate,
+                 float* __restrict__ dx, float* __restrict__ da,
                  float* __restrict__ dBh, float* __restrict__ dCh,
                  float* states, int H, int G, int L) {
   static_assert(P % 16 == 0 && N % 4 == 0, "tile layout");
@@ -824,10 +842,10 @@ __global__ void __launch_bounds__(NT, 1)
   const int tx = tid & 15, ty = tid >> 4;
   const int lane = tid & 31, warp = tid >> 5;
   const float* ab = a + (long long)bh * L;
-  const TIn* xb = xdt + (long long)bh * L * P;
-  const TIn* yb = dy + (long long)bh * L * P;
-  const TIn* bb = Bm + grp * L * N;
-  const TIn* cb = Cm + grp * L * N;
+  const float* xb = xdt + (long long)bh * L * P;
+  const float* yb = dy + (long long)bh * L * P;
+  const float* bb = Bm + grp * L * N;
+  const float* cb = Cm + grp * L * N;
   const int ntiles = (L + T - 1) / T;
   float* stb = states + (long long)bh * ntiles * P * N;
 
@@ -848,8 +866,8 @@ __global__ void __launch_bounds__(NT, 1)
         for (int j = 0; j < NPT; ++j)
           if (tx + 16 * j < N) sp[(ty + 16 * i) * N + tx + 16 * j] = sn[i][j];
       __syncthreads();  // the previous tile's reads are done
-      load_rows<TIn, P>(Xs, xb, t0, L);
-      load_rows<TIn, N>(Bs, bb, t0, L);
+      load_tile<P>(Xs, xb, t0, L);
+      load_tile<N>(Bs, bb, t0, L);
       tile_cumsum(cs, ab, t0, L);
       __syncthreads();
       const float last = cs[T - 1], dec = expf(last);
@@ -883,10 +901,10 @@ __global__ void __launch_bounds__(NT, 1)
   for (int it = ntiles - 1; it >= 0; --it) {
     const int t0 = it * T;
     __syncthreads();  // the previous tile's reads are done, R is written
-    load_rows<TIn, P>(Xs, xb, t0, L);
-    load_rows<TIn, P>(Ys, yb, t0, L);
-    load_rows<TIn, N>(Bs, bb, t0, L);
-    load_rows<TIn, N>(Cs, cb, t0, L);
+    load_tile<P>(Xs, xb, t0, L);
+    load_tile<P>(Ys, yb, t0, L);
+    load_tile<N>(Bs, bb, t0, L);
+    load_tile<N>(Cs, cb, t0, L);
     {
       const float* sp = stb + (long long)it * P * N;
       for (int idx = tid; idx < P * N; idx += NT) {
@@ -1032,8 +1050,8 @@ __global__ void __launch_bounds__(NT, 1)
           const float o = w * off[i][c];
           xd = fmaf(Xs[t * LDP + tx + 16 * c], o, xd);
           if (t0 + t < L)
-            store(&dx[((long long)bh * L + t0 + t) * P + tx + 16 * c],
-                  acc[i][c] + o);
+            dx[((long long)bh * L + t0 + t) * P + tx + 16 * c] =
+                acc[i][c] + o;
         }
         xd = row_sum(xd);
         if (tx == 0) xo[t] = xd;
@@ -1207,25 +1225,564 @@ __global__ void __launch_bounds__(NT, 1)
 #pragma unroll
       for (int k = 0; k < NT / 32; ++k) rs0 += red[k];   // <R, S0>
       const int r = 2 * lane;
-      const float d0 = co[r] + rv[r] - xo[r];
-      float d1 = co[r + 1] + rv[r + 1] - xo[r + 1];
-      float xs = xo[r] + xo[r + 1];
+      tile_da(da + (long long)bh * L + t0, co[r] + rv[r] - xo[r],
+              co[r + 1] + rv[r + 1] - xo[r + 1], xo[r] + xo[r + 1],
+              expf(last), rs0, lane, t0, L);
+    }
+  }
+}
+
+// ===========================================================================
+// bf16 on the tensor cores: ssd_scan_bwd_mma.
+//
+// Grid: one block of 128 threads per (b, h), as ssd_scan_mma; warp w owns
+// rows 16w..16w+15 of a tile, and the [P, N] states' 16 x 8 tiles are
+// split among the warps as there.  Every product is mma.sync m16n8k16 with
+// bf16 operands and f32 accumulators, fragments from ldmatrix (.trans
+// where the operand is stored k-major); R and every sum stay f32.
+//
+// Pass 1 reruns the forward's state update S <- exp(cs[T-1]) S + (x (.)
+// w)^T B with (x (.) w) rounded to bf16, and stores the state before each
+// tile into scratch in bf16 (the state in registers stays f32).  Its
+// x, B and a take two slots of pass 2's stage, so that cp.async loads
+// tile i + 1 while tile i computes.
+//
+// Pass 2, a tile: cp.async brings x, dy, B, C, a and the tile's S0 (from
+// the scratch) into shared memory, rows past L zero-filled.  Then
+//   phase 1, the warp's rows s:  G^T and D^T a 16 x 16 block at a time
+//     over the column blocks t >= s (the blocks below the diagonal are 0
+//     and skipped): (B C^T) and (X dY^T) in f32 fragments, decayed by a
+//     select on t >= s in log2 units (ex2.approx).  M^T = G^T o (X dY^T)
+//     is taken from these f32 fragments, its row sums (colsum of M) and
+//     column sums (rowsum of M, through shared memory across the warps)
+//     feed dcs, and G^T, D^T are rounded to bf16 in registers as the A
+//     operands of
+//       dx = w (.) (B R^T) + G^T dY,   dB = w (.) (X R) + D^T C
+//     (this head's dB to scratch); D^T also goes to shared memory.
+//   phase 2, the warp's rows t:
+//       dC = exp(cs) (.) (dY S0) + D B   (D read back with ldmatrix.trans,
+//                                         the blocks s <= t)
+//     and R <- exp(cs[T-1]) R + (exp(cs) (.) dY)^T C on the warps' state
+//     tiles, (exp(cs) (.) dY) rounded to bf16; R's bf16 copy in shared
+//     memory feeds the next tile's B R^T and X R.
+//   Then warp 0 adds dcs up into da, as ssd_scan_bwd does.
+// The states S0 and R enter their products in bf16, and <R, S0> reads S0
+// in bf16 (tests/test_torch_mamba2_scan.py holds this rounding plan
+// against jax.vjp of the oracle).
+//
+// Shared memory at P = N = 64: the load stage (x, dy, B, C, S0 in bf16
+// with rows padded to an odd number of 16-byte words, and a) 45 KB, D^T
+// and R's bf16 copy 9 KB each, the dcs partials 2 KB: 65 KB, three blocks
+// to an SM, which hide each other's loads.  A second stage for pass 2
+// (113 KB, two blocks to an SM) was slower in a throwaway build on the
+// H100 (0.302 against 0.296 ms at the train shape); moving D^T C into
+// phase 2 to even out the warps' triangular work changed nothing.
+
+template <int P, int N>
+struct BwdCfg {
+  static constexpr int NK = N < 16 ? 16 : N;  // the state dim padded to k16
+  static constexpr int LDX = P + 8;           // pitch of the x, dy tiles
+  static constexpr int LDB = NK + 8;          // of B, C, and the S0, R states
+  static constexpr int LDT = T + 8;           // of D^T
+  static constexpr int XB = T * LDX * 2;      // bytes of an x or dy tile
+  static constexpr int BB = T * LDB * 2;      // of a B or C tile
+  static constexpr int SB = P * LDB * 2;      // of a bf16 state
+  // a stage: x, dy, B, C, S0, a
+  static constexpr int STAGE = 2 * XB + 2 * BB + SB + T * 4;
+  static constexpr int DB = T * LDT * 2;      // D^T
+  // dcs partials: M's row sums by warp [NW][T], M's column sums, xo, co
+  // [T] each, <R, S0> by warp [NW]
+  static constexpr int SCAL = (tc::NW * T + 3 * T + tc::NW) * 4;
+  static constexpr int SMEM = STAGE + DB + SB + SCAL;
+  // pass 1's slot: x, B, a; two of them fit in the stage
+  static constexpr int SLOT = XB + BB + T * 4;
+  static_assert(2 * SLOT <= STAGE, "pass 1's two slots fit the stage");
+  static constexpr int PN = P / 8;            // 8-column tiles of dx
+  static constexpr int NN = NK / 8;           // of dB, dC (with the pad)
+  static constexpr int MT = P / 16;           // 16-row tiles of a state
+  static constexpr int NTN = N / 8;           // 8-column tiles of a state
+  static constexpr int SPW = (MT * NTN + tc::NW - 1) / tc::NW;
+  static_assert(P % 16 == 0 && N % 8 == 0 && NTN % SPW == 0, "layout");
+};
+
+// ROWS rows r0.. of a row-major [L][W] bf16 matrix into a [ROWS][LD]
+// tile WP >= W wide; the columns past W and the rows at or past L are
+// zero-filled
+template <int ROWS, int W, int WP, int LD>
+__device__ __forceinline__ void load_rows(uint32_t dst, const tc::bf16* src,
+                                          int r0, int L) {
+  constexpr int WC = WP / 8;                  // 16-byte words a row
+  for (int i = threadIdx.x; i < ROWS * WC; i += tc::NTC) {
+    const int r = i / WC, c = i - r * WC, g = r0 + r;
+    const bool ok = g < L && c < W / 8;
+    tc::cp_async16(dst + (r * LD + c * 8) * 2,
+                   src + (ok ? (long long)g * W + c * 8 : 0), ok);
+  }
+}
+
+__device__ __forceinline__ float2 bf16x2(const tc::bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+template <int P, int N>
+__global__ void __launch_bounds__(tc::NTC, 3)
+    ssd_scan_bwd_mma(const tc::bf16* __restrict__ xdt,
+                     const float* __restrict__ a,
+                     const tc::bf16* __restrict__ Bm,
+                     const tc::bf16* __restrict__ Cm,
+                     const tc::bf16* __restrict__ dy,
+                     const float* __restrict__ dstate,
+                     tc::bf16* __restrict__ dx, float* __restrict__ da,
+                     float* __restrict__ dBh, float* __restrict__ dCh,
+                     tc::bf16* states, int H, int G, int L) {
+  using namespace tc;
+  using C = BwdCfg<P, N>;
+  extern __shared__ uint4 smem_words[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(smem_words);
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh - b * H;
+  const long long grp = (long long)b * G + h / (H / G);
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int g = lane >> 2, c = lane & 3;
+  const bf16* xb = xdt + (long long)bh * L * P;
+  const bf16* yb = dy + (long long)bh * L * P;
+  const float* ab = a + (long long)bh * L;
+  const bf16* bb = Bm + grp * L * N;
+  const bf16* cb = Cm + grp * L * N;
+  const int ntiles = (L + T - 1) / T;
+  bf16* stb = states + (long long)bh * ntiles * P * N;
+
+  // the stage, then D^T, R's bf16 copy and the dcs partials
+  const uint32_t xs = smem_u32(smem), ys = xs + C::XB, bs = ys + C::XB;
+  const uint32_t ctl = bs + C::BB, s0s = ctl + C::BB;
+  const float* as = reinterpret_cast<const float*>(smem + 2 * C::XB +
+                                                   2 * C::BB + C::SB);
+  const uint32_t dts = xs + C::STAGE, rs = dts + C::DB;
+  bf16* dtp = reinterpret_cast<bf16*>(smem + C::STAGE);
+  bf16* rsp = reinterpret_cast<bf16*>(smem + C::STAGE + C::DB);
+  float* msum = reinterpret_cast<float*>(smem + C::STAGE + C::DB + C::SB);
+  float* mcol = msum + NW * T;                // M's column sums
+  float* xop = mcol + T;                      // x . (w (.) B R^T)
+  float* cop = xop + T;                       // C . (exp(cs) (.) dY S0)
+  float* red = cop + T;                       // <R, S0> by warp
+  const bf16* xsp = reinterpret_cast<const bf16*>(smem);
+  const bf16* csp = reinterpret_cast<const bf16*>(smem + 2 * C::XB + C::BB);
+  const bf16* s0p = reinterpret_cast<const bf16*>(smem + 2 * C::XB +
+                                                  2 * C::BB);
+
+  // zero all of it: R's pad columns (N < 16) are never written
+  for (int i = threadIdx.x; i < C::SMEM / 16; i += NTC)
+    smem_words[i] = make_uint4(0u, 0u, 0u, 0u);
+
+  const int r0 = 16 * w;                      // the warp's rows of a tile
+  const int q0 = w * C::SPW;                  // its first state tile
+  const bool owns = q0 < C::MT * C::NTN;      // (warp-uniform)
+  const int mt = q0 / C::NTN;                 // its state tiles' 16 rows
+  float st[C::SPW][4] = {};                   // its state tiles, f32
+
+  // the tile's cumsum of a in log2 units: lane l holds rows 2l (lo) and
+  // 2l + 1 (hi); every warp scans it itself
+  float cs_lo, cs_hi;
+  auto scan_a = [&](const float* ap) {
+    const float2 a2 = reinterpret_cast<const float2*>(ap)[lane];
+    float sum = a2.x + a2.y;
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) xs += __shfl_xor_sync(FULL, xs, off);
-      if (lane == 31) d1 += fmaf(expf(last), rs0, xs);   // <R, S_end>
-      // suffix sums over the lanes: s = sum of d0 + d1 over lanes >= lane
-      float sfx = d0 + d1;
+    for (int off = 1; off < 32; off <<= 1) {
+      const float u = __shfl_up_sync(FULL, sum, off);
+      if (lane >= off) sum += u;
+    }
+    cs_hi = sum * LOG2E;
+    cs_lo = (sum - a2.y) * LOG2E;
+  };
+  // cs at row r of the tile (every lane calls it)
+  auto cs_at = [&](int r) {
+    const float lo = __shfl_sync(FULL, cs_lo, r >> 1);
+    const float hi = __shfl_sync(FULL, cs_hi, r >> 1);
+    return (r & 1) ? hi : lo;
+  };
+
+  // Pass 1: the state before each tile, into the scratch in bf16.  The
+  // stage holds two slots of x, B and a, so that tile it + 1 loads while
+  // tile it computes.
+  auto load_slot = [&](int it) {
+    const uint32_t sl = xs + (it & 1) * C::SLOT;
+    load_rows<T, P, P, C::LDX>(sl, xb, it * T, L);
+    load_rows<T, N, C::NK, C::LDB>(sl + C::XB, bb, it * T, L);
+    if (threadIdx.x < T) {
+      const int r = it * T + threadIdx.x;
+      cp_async4(sl + C::XB + C::BB + threadIdx.x * 4, ab + (r < L ? r : 0),
+                r < L);
+    }
+    cp_async_commit();
+  };
+  __syncthreads();     // the zeros have landed
+  load_slot(0);
+  for (int it = 0; it < ntiles; ++it) {
+    if (owns) {
+      bf16* sp = stb + (long long)it * P * N;
 #pragma unroll
-      for (int off = 1; off < 32; off <<= 1) {
-        const float u = __shfl_down_sync(FULL, sfx, off);
-        if (lane + off < 32) sfx += u;
+      for (int q = 0; q < C::SPW; ++q) {
+        const int n = 8 * ((q0 + q) % C::NTN) + 2 * c, p = 16 * mt + g;
+        *reinterpret_cast<uint32_t*>(sp + p * N + n) =
+            pack_bf16(st[q][0], st[q][1]);
+        *reinterpret_cast<uint32_t*>(sp + (p + 8) * N + n) =
+            pack_bf16(st[q][2], st[q][3]);
       }
-      float nxt = __shfl_down_sync(FULL, sfx, 1);
-      if (lane == 31) nxt = 0.f;
-      const float da1 = d1 + nxt, da0 = d0 + da1;
-      float* dab = da + (long long)bh * L + t0;
-      if (t0 + r < L) dab[r] = da0;
-      if (t0 + r + 1 < L) dab[r + 1] = da1;
+    }
+    cp_async_wait_all();
+    __syncthreads();   // tile it has landed; every read of tile it - 1 is
+                       // done
+    if (it + 1 < ntiles) load_slot(it + 1);
+    const uint32_t sx = xs + (it & 1) * C::SLOT, sb = sx + C::XB;
+    scan_a(reinterpret_cast<const float*>(smem + (it & 1) * C::SLOT + C::XB +
+                                          C::BB));
+    const float last = __shfl_sync(FULL, cs_hi, 31);
+    if (owns) {
+      const float dec = ex2(last);
+#pragma unroll
+      for (int q = 0; q < C::SPW; ++q)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[q][e] *= dec;
+#pragma unroll
+      for (int ks = 0; ks < T / 16; ++ks) {
+        uint32_t xa[4];   // A = x^T: rows p (16 mt..), k = s
+        ldsm_x4_t(xa, sx + 2 * at_off<C::LDX>(lane, 16 * ks, 16 * mt));
+        const int s = 8 * ks + c;   // the lane holding rows 16 ks + 2c, +1
+        const float wl = ex2(last - __shfl_sync(FULL, cs_lo, s));
+        const float wh = ex2(last - __shfl_sync(FULL, cs_hi, s));
+        const float wl8 = ex2(last - __shfl_sync(FULL, cs_lo, s + 4));
+        const float wh8 = ex2(last - __shfl_sync(FULL, cs_hi, s + 4));
+        xa[0] = scale_bf16(xa[0], wl, wh);
+        xa[1] = scale_bf16(xa[1], wl, wh);
+        xa[2] = scale_bf16(xa[2], wl8, wh8);
+        xa[3] = scale_bf16(xa[3], wl8, wh8);
+#pragma unroll
+        for (int q = 0; q < C::SPW; ++q) {
+          uint32_t bf[2];
+          ldsm_x2_t(bf, sb + 2 * bt_off<C::LDB>(lane, 16 * ks,
+                                                8 * ((q0 + q) % C::NTN)));
+          mma(st[q], xa, bf[0], bf[1]);
+        }
+      }
+    }
+  }
+
+  // Pass 2, the tiles in reverse.  R starts as dstate, or 0.
+  if (owns) {
+#pragma unroll
+    for (int q = 0; q < C::SPW; ++q) {
+      const int n = 8 * ((q0 + q) % C::NTN) + 2 * c, p = 16 * mt + g;
+      float2 v0 = make_float2(0.f, 0.f), v1 = v0;
+      if (dstate) {
+        const float* dp = dstate + (long long)bh * P * N;
+        v0 = *reinterpret_cast<const float2*>(dp + p * N + n);
+        v1 = *reinterpret_cast<const float2*>(dp + (p + 8) * N + n);
+      }
+      st[q][0] = v0.x, st[q][1] = v0.y, st[q][2] = v1.x, st[q][3] = v1.y;
+      *reinterpret_cast<uint32_t*>(rsp + p * C::LDB + n) =
+          pack_bf16(v0.x, v0.y);
+      *reinterpret_cast<uint32_t*>(rsp + (p + 8) * C::LDB + n) =
+          pack_bf16(v1.x, v1.y);
+    }
+  }
+  const int s0 = r0 + g, s1 = s0 + 8;         // this thread's two rows
+  for (int it = ntiles - 1; it >= 0; --it) {
+    const int t0 = it * T;
+    __syncthreads();   // every read of the previous tile (pass 1's too) is
+                       // done, and the scratch is written
+    load_rows<T, P, P, C::LDX>(xs, xb, t0, L);
+    load_rows<T, P, P, C::LDX>(ys, yb, t0, L);
+    load_rows<T, N, C::NK, C::LDB>(bs, bb, t0, L);
+    load_rows<T, N, C::NK, C::LDB>(ctl, cb, t0, L);
+    load_rows<P, N, C::NK, C::LDB>(s0s, stb + (long long)it * P * N, 0, P);
+    if (threadIdx.x < T) {
+      const int r = t0 + threadIdx.x;
+      cp_async4(xs + C::STAGE - T * 4 + threadIdx.x * 4, ab + (r < L ? r : 0),
+                r < L);
+    }
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();   // the tile has landed; R's bf16 copy is written
+    scan_a(as);
+    const float last = __shfl_sync(FULL, cs_hi, 31);
+    const float c0 = cs_at(s0), c1 = cs_at(s1);
+
+    // phase 1, rows s.  dx = w (.) (B R^T) + G^T dY
+    float dxa[C::PN][4] = {};
+#pragma unroll
+    for (int kn = 0; kn < C::NK / 16; ++kn) {
+      uint32_t bfr[4];
+      ldsm_x4(bfr, bs + 2 * a_off<C::LDB>(lane, r0, 16 * kn));
+#pragma unroll
+      for (int pp = 0; pp < C::PN / 2; ++pp) {
+        uint32_t rf[4];
+        ldsm_x4(rf, rs + 2 * b_off<C::LDB>(lane, 16 * pp, 16 * kn));
+        mma(dxa[2 * pp], bfr, rf[0], rf[1]);
+        mma(dxa[2 * pp + 1], bfr, rf[2], rf[3]);
+      }
+    }
+    const float w0 = ex2(last - c0), w1 = ex2(last - c1);
+    float xo0 = 0.f, xo1 = 0.f;
+#pragma unroll
+    for (int pn = 0; pn < C::PN; ++pn) {
+      const int col = 8 * pn + 2 * c;
+      dxa[pn][0] *= w0, dxa[pn][1] *= w0, dxa[pn][2] *= w1, dxa[pn][3] *= w1;
+      const float2 xa = bf16x2(xsp + s0 * C::LDX + col);
+      const float2 xc = bf16x2(xsp + s1 * C::LDX + col);
+      xo0 = fmaf(xa.x, dxa[pn][0], fmaf(xa.y, dxa[pn][1], xo0));
+      xo1 = fmaf(xc.x, dxa[pn][2], fmaf(xc.y, dxa[pn][3], xo1));
+    }
+    // dB = w (.) (X R) + D^T C
+    float dba[C::NN][4] = {};
+#pragma unroll
+    for (int kp = 0; kp < P / 16; ++kp) {
+      uint32_t xf[4];
+      ldsm_x4(xf, xs + 2 * a_off<C::LDX>(lane, r0, 16 * kp));
+#pragma unroll
+      for (int nn = 0; nn < C::NN / 2; ++nn) {
+        uint32_t rf[4];
+        ldsm_x4_t(rf, rs + 2 * bt_off<C::LDB>(lane, 16 * kp, 16 * nn));
+        mma(dba[2 * nn], xf, rf[0], rf[1]);
+        mma(dba[2 * nn + 1], xf, rf[2], rf[3]);
+      }
+    }
+#pragma unroll
+    for (int nn = 0; nn < C::NN; ++nn)
+      dba[nn][0] *= w0, dba[nn][1] *= w0, dba[nn][2] *= w1, dba[nn][3] *= w1;
+    // G^T, D^T over the 16-column blocks of t from the diagonal on
+    float cl0 = 0.f, cl1 = 0.f;                 // M's column sums, s0, s1
+    for (int kk = w; kk < T / 16; ++kk) {
+      float gt[2][4] = {}, dt[2][4] = {};
+#pragma unroll
+      for (int kn = 0; kn < C::NK / 16; ++kn) {
+        uint32_t bfr[4], cf[4];
+        ldsm_x4(bfr, bs + 2 * a_off<C::LDB>(lane, r0, 16 * kn));
+        ldsm_x4(cf, ctl + 2 * b_off<C::LDB>(lane, 16 * kk, 16 * kn));
+        mma(gt[0], bfr, cf[0], cf[1]);
+        mma(gt[1], bfr, cf[2], cf[3]);
+      }
+#pragma unroll
+      for (int kp = 0; kp < P / 16; ++kp) {
+        uint32_t xf[4], yf[4];
+        ldsm_x4(xf, xs + 2 * a_off<C::LDX>(lane, r0, 16 * kp));
+        ldsm_x4(yf, ys + 2 * b_off<C::LDX>(lane, 16 * kk, 16 * kp));
+        mma(dt[0], xf, yf[0], yf[1]);
+        mma(dt[1], xf, yf[2], yf[3]);
+      }
+      uint32_t ga[4], da_[4];   // G^T's and D^T's A fragments, bf16
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int t = 16 * kk + 8 * j + 2 * c;  // columns t, t + 1
+        const float tl = __shfl_sync(FULL, cs_lo, t >> 1);
+        const float th = __shfl_sync(FULL, cs_hi, t >> 1);
+        // a select, never a product with 0: below the diagonal of G^T
+        // the exponent is positive and may overflow
+        const float d00 = t >= s0 ? ex2(tl - c0) : 0.f;
+        const float d01 = t + 1 >= s0 ? ex2(th - c0) : 0.f;
+        const float d10 = t >= s1 ? ex2(tl - c1) : 0.f;
+        const float d11 = t + 1 >= s1 ? ex2(th - c1) : 0.f;
+        const float g00 = gt[j][0] * d00, g01 = gt[j][1] * d01;
+        const float g10 = gt[j][2] * d10, g11 = gt[j][3] * d11;
+        const float m00 = g00 * dt[j][0], m01 = g01 * dt[j][1];
+        const float m10 = g10 * dt[j][2], m11 = g11 * dt[j][3];
+        cl0 += m00 + m01;
+        cl1 += m10 + m11;
+        float ma = m00 + m10, mb = m01 + m11;     // M's row sums, t, t + 1
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1) {
+          ma += __shfl_xor_sync(FULL, ma, off);
+          mb += __shfl_xor_sync(FULL, mb, off);
+        }
+        if (g == 0) {
+          msum[w * T + t] = ma;
+          msum[w * T + t + 1] = mb;
+        }
+        ga[2 * j] = pack_bf16(g00, g01);
+        ga[2 * j + 1] = pack_bf16(g10, g11);
+        da_[2 * j] = pack_bf16(dt[j][0] * d00, dt[j][1] * d01);
+        da_[2 * j + 1] = pack_bf16(dt[j][2] * d10, dt[j][3] * d11);
+        *reinterpret_cast<uint32_t*>(dtp + s0 * C::LDT + t) = da_[2 * j];
+        *reinterpret_cast<uint32_t*>(dtp + s1 * C::LDT + t) = da_[2 * j + 1];
+      }
+#pragma unroll
+      for (int pp = 0; pp < C::PN / 2; ++pp) {
+        uint32_t yf[4];
+        ldsm_x4_t(yf, ys + 2 * bt_off<C::LDX>(lane, 16 * kk, 16 * pp));
+        mma(dxa[2 * pp], ga, yf[0], yf[1]);
+        mma(dxa[2 * pp + 1], ga, yf[2], yf[3]);
+      }
+#pragma unroll
+      for (int nn = 0; nn < C::NN / 2; ++nn) {
+        uint32_t cf[4];
+        ldsm_x4_t(cf, ctl + 2 * bt_off<C::LDB>(lane, 16 * kk, 16 * nn));
+        mma(dba[2 * nn], da_, cf[0], cf[1]);
+        mma(dba[2 * nn + 1], da_, cf[2], cf[3]);
+      }
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      cl0 += __shfl_xor_sync(FULL, cl0, off);
+      cl1 += __shfl_xor_sync(FULL, cl1, off);
+      xo0 += __shfl_xor_sync(FULL, xo0, off);
+      xo1 += __shfl_xor_sync(FULL, xo1, off);
+    }
+    if (c == 0) {
+      mcol[s0] = cl0, mcol[s1] = cl1;
+      xop[s0] = xo0, xop[s1] = xo1;
+    }
+    if (t0 + s0 < L) {
+      bf16* dxr = dx + ((long long)bh * L + t0 + s0) * P;
+      float* dbr = dBh + ((long long)bh * L + t0 + s0) * N;
+#pragma unroll
+      for (int pn = 0; pn < C::PN; ++pn)
+        *reinterpret_cast<uint32_t*>(dxr + 8 * pn + 2 * c) =
+            pack_bf16(dxa[pn][0], dxa[pn][1]);
+#pragma unroll
+      for (int nn = 0; nn < C::NTN; ++nn)
+        *reinterpret_cast<float2*>(dbr + 8 * nn + 2 * c) =
+            make_float2(dba[nn][0], dba[nn][1]);
+    }
+    if (t0 + s1 < L) {
+      bf16* dxr = dx + ((long long)bh * L + t0 + s1) * P;
+      float* dbr = dBh + ((long long)bh * L + t0 + s1) * N;
+#pragma unroll
+      for (int pn = 0; pn < C::PN; ++pn)
+        *reinterpret_cast<uint32_t*>(dxr + 8 * pn + 2 * c) =
+            pack_bf16(dxa[pn][2], dxa[pn][3]);
+#pragma unroll
+      for (int nn = 0; nn < C::NTN; ++nn)
+        *reinterpret_cast<float2*>(dbr + 8 * nn + 2 * c) =
+            make_float2(dba[nn][2], dba[nn][3]);
+    }
+    __syncthreads();   // D^T is written; every read of R's copy is done
+
+    // phase 2, rows t (the same rows s0, s1).  dC = exp(cs) (.) (dY S0)
+    // + D B
+    float dca[C::NN][4] = {};
+#pragma unroll
+    for (int kp = 0; kp < P / 16; ++kp) {
+      uint32_t yf[4];
+      ldsm_x4(yf, ys + 2 * a_off<C::LDX>(lane, r0, 16 * kp));
+#pragma unroll
+      for (int nn = 0; nn < C::NN / 2; ++nn) {
+        uint32_t sf[4];
+        ldsm_x4_t(sf, s0s + 2 * bt_off<C::LDB>(lane, 16 * kp, 16 * nn));
+        mma(dca[2 * nn], yf, sf[0], sf[1]);
+        mma(dca[2 * nn + 1], yf, sf[2], sf[3]);
+      }
+    }
+    {
+      const float e0 = ex2(c0), e1 = ex2(c1);
+      float co0 = 0.f, co1 = 0.f;
+#pragma unroll
+      for (int nn = 0; nn < C::NN; ++nn) {
+        const int col = 8 * nn + 2 * c;
+        dca[nn][0] *= e0, dca[nn][1] *= e0, dca[nn][2] *= e1, dca[nn][3] *= e1;
+        const float2 ca = bf16x2(csp + s0 * C::LDB + col);
+        const float2 cc = bf16x2(csp + s1 * C::LDB + col);
+        co0 = fmaf(ca.x, dca[nn][0], fmaf(ca.y, dca[nn][1], co0));
+        co1 = fmaf(cc.x, dca[nn][2], fmaf(cc.y, dca[nn][3], co1));
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        co0 += __shfl_xor_sync(FULL, co0, off);
+        co1 += __shfl_xor_sync(FULL, co1, off);
+      }
+      if (c == 0) cop[s0] = co0, cop[s1] = co1;
+    }
+    for (int kk = 0; kk <= w; ++kk) {
+      uint32_t df[4];   // A = D, rows t, k = s, from D^T stored [s][t]
+      ldsm_x4_t(df, dts + 2 * at_off<C::LDT>(lane, 16 * kk, r0));
+#pragma unroll
+      for (int nn = 0; nn < C::NN / 2; ++nn) {
+        uint32_t bf[4];
+        ldsm_x4_t(bf, bs + 2 * bt_off<C::LDB>(lane, 16 * kk, 16 * nn));
+        mma(dca[2 * nn], df, bf[0], bf[1]);
+        mma(dca[2 * nn + 1], df, bf[2], bf[3]);
+      }
+    }
+    if (t0 + s0 < L) {
+      float* dcr = dCh + ((long long)bh * L + t0 + s0) * N;
+#pragma unroll
+      for (int nn = 0; nn < C::NTN; ++nn)
+        *reinterpret_cast<float2*>(dcr + 8 * nn + 2 * c) =
+            make_float2(dca[nn][0], dca[nn][1]);
+    }
+    if (t0 + s1 < L) {
+      float* dcr = dCh + ((long long)bh * L + t0 + s1) * N;
+#pragma unroll
+      for (int nn = 0; nn < C::NTN; ++nn)
+        *reinterpret_cast<float2*>(dcr + 8 * nn + 2 * c) =
+            make_float2(dca[nn][2], dca[nn][3]);
+    }
+
+    // <R, S0>, then R <- exp(cs[T-1]) R + (exp(cs) (.) dY)^T C
+    float rs0 = 0.f;
+    if (owns) {
+#pragma unroll
+      for (int q = 0; q < C::SPW; ++q) {
+        const int n = 8 * ((q0 + q) % C::NTN) + 2 * c, p = 16 * mt + g;
+        const float2 u = bf16x2(s0p + p * C::LDB + n);
+        const float2 v = bf16x2(s0p + (p + 8) * C::LDB + n);
+        rs0 = fmaf(st[q][0], u.x, fmaf(st[q][1], u.y, rs0));
+        rs0 = fmaf(st[q][2], v.x, fmaf(st[q][3], v.y, rs0));
+      }
+      const float dec = ex2(last);
+#pragma unroll
+      for (int q = 0; q < C::SPW; ++q)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[q][e] *= dec;
+#pragma unroll
+      for (int ks = 0; ks < T / 16; ++ks) {
+        uint32_t ya[4];   // A = dY^T: rows p (16 mt..), k = t
+        ldsm_x4_t(ya, ys + 2 * at_off<C::LDX>(lane, 16 * ks, 16 * mt));
+        const int s = 8 * ks + c;   // the lane holding rows 16 ks + 2c, +1
+        const float el = ex2(__shfl_sync(FULL, cs_lo, s));
+        const float eh = ex2(__shfl_sync(FULL, cs_hi, s));
+        const float el8 = ex2(__shfl_sync(FULL, cs_lo, s + 4));
+        const float eh8 = ex2(__shfl_sync(FULL, cs_hi, s + 4));
+        ya[0] = scale_bf16(ya[0], el, eh);
+        ya[1] = scale_bf16(ya[1], el, eh);
+        ya[2] = scale_bf16(ya[2], el8, eh8);
+        ya[3] = scale_bf16(ya[3], el8, eh8);
+#pragma unroll
+        for (int q = 0; q < C::SPW; ++q) {
+          uint32_t cf[2];
+          ldsm_x2_t(cf, ctl + 2 * bt_off<C::LDB>(lane, 16 * ks,
+                                                 8 * ((q0 + q) % C::NTN)));
+          mma(st[q], ya, cf[0], cf[1]);
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < C::SPW; ++q) {
+        const int n = 8 * ((q0 + q) % C::NTN) + 2 * c, p = 16 * mt + g;
+        *reinterpret_cast<uint32_t*>(rsp + p * C::LDB + n) =
+            pack_bf16(st[q][0], st[q][1]);
+        *reinterpret_cast<uint32_t*>(rsp + (p + 8) * C::LDB + n) =
+            pack_bf16(st[q][2], st[q][3]);
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        rs0 += __shfl_xor_sync(FULL, rs0, off);
+    }
+    if (lane == 0) red[w] = rs0;
+    __syncthreads();   // the dcs partials are written
+
+    // da: dcs = M's row sums - its column sums + co - xo, warp 0
+    if (w == 0) {
+      const int r = 2 * lane;
+      float m0 = 0.f, m1 = 0.f;
+      for (int k = 0; k <= r >> 4; ++k) {
+        m0 += msum[k * T + r];
+        m1 += msum[k * T + r + 1];
+      }
+      float rsum = 0.f;
+#pragma unroll
+      for (int k = 0; k < NW; ++k) rsum += red[k];
+      tile_da(da + (long long)bh * L + t0,
+              m0 - mcol[r] + cop[r] - xop[r],
+              m1 - mcol[r + 1] + cop[r + 1] - xop[r + 1],
+              xop[r] + xop[r + 1], ex2(last), rsum, lane, t0, L);
     }
   }
 }
@@ -1251,45 +1808,74 @@ __global__ void __launch_bounds__(256)
   store(dst + i, acc);
 }
 
-template <typename TIn, int P, int N>
+template <typename TOut>
+cudaError_t launch_group_sum(const float* dBh, const float* dCh, void* dB,
+                             void* dC, int B, int H, int G, int L, int N,
+                             cudaStream_t stream) {
+  const long long per = (long long)L * N, total = (long long)B * G * per;
+  group_sum<TOut><<<dim3((unsigned)((total + 255) / 256), 2), 256, 0,
+                    stream>>>(dBh, dCh, static_cast<TOut*>(dB),
+                              static_cast<TOut*>(dC), H, G, per, total);
+  return cudaGetLastError();
+}
+
+template <int P, int N>
 cudaError_t launch(const void* xdt, const float* a, const void* Bm,
                    const void* Cm, const void* dy, const float* dstate,
-                   void* dx, float* da, void* dB, void* dC, float* states,
+                   void* dx, float* da, void* dB, void* dC, void* states,
                    float* dBh, float* dCh, int B, int H, int G, int L,
                    cudaStream_t stream) {
   constexpr int LDP = P + 4, LDN = N + 4;
   const int smem = (2 * T * LDP + 2 * T * LDN + 2 * T * LDG + 2 * P * LDN +
                     4 * T + 16 * T + NT / 32) * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      ssd_scan_bwd<TIn, P, N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      ssd_scan_bwd<P, N>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  ssd_scan_bwd<TIn, P, N><<<B * H, NT, smem, stream>>>(
-      static_cast<const TIn*>(xdt), a, static_cast<const TIn*>(Bm),
-      static_cast<const TIn*>(Cm), static_cast<const TIn*>(dy), dstate,
-      static_cast<TIn*>(dx), da, dBh, dCh, states, H, G, L);
+  ssd_scan_bwd<P, N><<<B * H, NT, smem, stream>>>(
+      static_cast<const float*>(xdt), a, static_cast<const float*>(Bm),
+      static_cast<const float*>(Cm), static_cast<const float*>(dy), dstate,
+      static_cast<float*>(dx), da, dBh, dCh, static_cast<float*>(states), H,
+      G, L);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const long long per = (long long)L * N, total = (long long)B * G * per;
-  group_sum<TIn><<<dim3((unsigned)((total + 255) / 256), 2), 256, 0,
-                   stream>>>(dBh, dCh, static_cast<TIn*>(dB),
-                             static_cast<TIn*>(dC), H, G, per, total);
-  return cudaGetLastError();
+  return launch_group_sum<float>(dBh, dCh, dB, dC, B, H, G, L, N, stream);
 }
 
+template <int P, int N>
+cudaError_t launch_mma(const void* xdt, const float* a, const void* Bm,
+                       const void* Cm, const void* dy, const float* dstate,
+                       void* dx, float* da, void* dB, void* dC, void* states,
+                       float* dBh, float* dCh, int B, int H, int G, int L,
+                       cudaStream_t stream) {
+  using C = BwdCfg<P, N>;
+  using tc::bf16;
+  cudaError_t err = cudaFuncSetAttribute(
+      ssd_scan_bwd_mma<P, N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      C::SMEM);
+  if (err != cudaSuccess) return err;
+  ssd_scan_bwd_mma<P, N><<<B * H, tc::NTC, C::SMEM, stream>>>(
+      static_cast<const bf16*>(xdt), a, static_cast<const bf16*>(Bm),
+      static_cast<const bf16*>(Cm), static_cast<const bf16*>(dy), dstate,
+      static_cast<bf16*>(dx), da, dBh, dCh, static_cast<bf16*>(states), H, G,
+      L);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_group_sum<bf16>(dBh, dCh, dB, dC, B, H, G, L, N, stream);
+}
+
+// f32 to ssd_scan_bwd, bf16 to ssd_scan_bwd_mma
 template <int P, int N>
 cudaError_t by_dtype(int dtype, const void* xdt, const float* a,
                      const void* Bm, const void* Cm, const void* dy,
                      const float* dstate, void* dx, float* da, void* dB,
-                     void* dC, float* states, float* dBh, float* dCh, int B,
+                     void* dC, void* states, float* dBh, float* dCh, int B,
                      int H, int G, int L, cudaStream_t stream) {
   if (dtype == 0)
-    return launch<float, P, N>(xdt, a, Bm, Cm, dy, dstate, dx, da, dB, dC,
-                               states, dBh, dCh, B, H, G, L, stream);
+    return launch<P, N>(xdt, a, Bm, Cm, dy, dstate, dx, da, dB, dC, states,
+                        dBh, dCh, B, H, G, L, stream);
   if (dtype == 1)
-    return launch<__nv_bfloat16, P, N>(xdt, a, Bm, Cm, dy, dstate, dx, da,
-                                       dB, dC, states, dBh, dCh, B, H, G, L,
-                                       stream);
+    return launch_mma<P, N>(xdt, a, Bm, Cm, dy, dstate, dx, da, dB, dC,
+                            states, dBh, dCh, B, H, G, L, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -1372,10 +1958,10 @@ extern "C" int mamba2_chunk_scan_fwd(const void* xdt, const void* a,
 
 // The backward.  dy [B,H,L,P] in xdt's dtype and dstate [B,H,P,N] f32 (null:
 // the final state has no gradient) -> dx [B,H,L,P] in xdt's dtype, da
-// [B,H,L] f32, dB, dC [B,G,L,N] in Bm's dtype.  Scratch, f32: states
-// [B, H, ceil(L/64), P, N], dBh and dCh [B, H, L, N].  Two launches
-// (ssd_scan_bwd, group_sum) on `stream`; returns cudaGetLastError() after
-// them.
+// [B,H,L] f32, dB, dC [B,G,L,N] in Bm's dtype.  Scratch: states [B, H,
+// ceil(L/64), P, N] in xdt's dtype, dBh and dCh [B, H, L, N] f32.  Two
+// launches (ssd_scan_bwd for float32 or ssd_scan_bwd_mma for bfloat16,
+// then group_sum) on `stream`; returns cudaGetLastError() after them.
 extern "C" int mamba2_chunk_scan_bwd(const void* xdt, const void* a,
                                      const void* Bm, const void* Cm,
                                      const void* dy, const void* dstate,
@@ -1389,17 +1975,19 @@ extern "C" int mamba2_chunk_scan_bwd(const void* xdt, const void* a,
   const float* af = static_cast<const float*>(a);
   const float* dsf = static_cast<const float*>(dstate);
   float* daf = static_cast<float*>(da);
-  float* sf = static_cast<float*>(states);
   float* bh = static_cast<float*>(dBh);
   float* ch = static_cast<float*>(dCh);
   if (P == 64 && N == 64)
     return (int)bwd::by_dtype<64, 64>(dtype, xdt, af, Bm, Cm, dy, dsf, dx,
-                                      daf, dB, dC, sf, bh, ch, B, H, G, L, st);
+                                      daf, dB, dC, states, bh, ch, B, H, G, L,
+                                      st);
   if (P == 32 && N == 16)
     return (int)bwd::by_dtype<32, 16>(dtype, xdt, af, Bm, Cm, dy, dsf, dx,
-                                      daf, dB, dC, sf, bh, ch, B, H, G, L, st);
+                                      daf, dB, dC, states, bh, ch, B, H, G, L,
+                                      st);
   if (P == 16 && N == 8)
     return (int)bwd::by_dtype<16, 8>(dtype, xdt, af, Bm, Cm, dy, dsf, dx,
-                                     daf, dB, dC, sf, bh, ch, B, H, G, L, st);
+                                     daf, dB, dC, states, bh, ch, B, H, G, L,
+                                      st);
   return (int)cudaErrorInvalidValue;
 }

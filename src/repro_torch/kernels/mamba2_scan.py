@@ -22,11 +22,12 @@ The kernel is picked by dtype: float32 runs ``ssd_scan`` on the CUDA cores
 
 On CUDA tensors that autograd records, ``mamba2_chunk_scan`` is a
 ``torch.autograd.Function``: the forward kernel, and for the gradient the
-backward kernel ``mamba2_chunk_scan_bwd`` (``ssd_scan_bwd``, f32 sums on
-the CUDA cores for both dtypes), which the JAX package does not have (it
-trains zamba by differentiating the jnp ``mamba2_chunked``).  Its plain
-version, ``mamba2_chunk_scan_bwd_ref``, is autograd through
-``mamba2_chunk_scan_ref``.
+backward kernel ``mamba2_chunk_scan_bwd``, which the JAX package does not
+have (it trains zamba by differentiating the jnp ``mamba2_chunked``).  It
+is picked by dtype too: float32 runs ``ssd_scan_bwd`` on the CUDA cores,
+bfloat16 ``ssd_scan_bwd_mma`` on the tensor cores (bf16 operands, f32
+sums).  Its plain version, ``mamba2_chunk_scan_bwd_ref``, is autograd
+through ``mamba2_chunk_scan_ref``.
 """
 from __future__ import annotations
 
@@ -183,7 +184,9 @@ def mamba2_chunk_scan_bwd(xdt, a, Bm, Cm, dy, dstate=None):
     dxdt, da = torch.empty_like(xdt), torch.empty_like(a)
     dBm, dCm = torch.empty_like(Bm), torch.empty_like(Cm)
     tiles = -(-L // TILE)
-    states = torch.empty(B, H, tiles, P, N, dtype=torch.float32, device=dev)
+    # the state before each tile, in xdt's dtype (the bf16 kernel rounds
+    # it there, as its products take it)
+    states = torch.empty(B, H, tiles, P, N, dtype=xdt.dtype, device=dev)
     dBh = torch.empty(B, H, L, N, dtype=torch.float32, device=dev)
     dCh = torch.empty_like(dBh)
     with torch.cuda.device(dev):

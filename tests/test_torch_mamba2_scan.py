@@ -1,8 +1,10 @@
 """The port's Mamba-2 chunk scan (on CPU tensors: its plain version)
 against the JAX package's Pallas kernel in interpret mode and its oracle,
 on the same numpy inputs, and its gradient against ``jax.vjp`` of the
-oracle.  The CUDA kernels themselves, forward and backward, are held
-against the plain versions on the card by chip_smoke.py."""
+oracle; and the bf16 backward kernel's tile algebra and rounding plan,
+written out in plain tensor code, against ``jax.vjp`` too.  The CUDA
+kernels themselves, forward and backward, are held against the plain
+versions on the card by chip_smoke.py."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -19,6 +21,10 @@ from repro_torch.kernels import (mamba2_chunk_scan, mamba2_chunk_scan_bwd,
 TOL = {"f32": 2e-4, "bf16": 6e-2}
 JDT = {"f32": jnp.float32, "bf16": jnp.bfloat16}
 TDT = {"f32": torch.float32, "bf16": torch.bfloat16}
+# chip_smoke.py's SCAN_BWD_TOL[torch.bfloat16]: the bf16 backward kernel
+# against autograd through the plain version, as a share of each
+# gradient's largest magnitude (at least 1)
+SCAN_BWD_BF16_TOL = 1e-2
 
 
 def _inputs(B, H, L, P, N, seed=0):
@@ -233,3 +239,118 @@ def test_backward_wrapper_launches_only_on_the_card():
         mamba2_chunk_scan_bwd(xdt, a, Bm, Cm[:, :1].contiguous(),
                               torch.zeros_like(xdt))
     assert mamba2_chunk_scan_bwd.launches == launches
+
+
+
+def _tiled_bwd(xdt, a, Bm, Cm, dy, dstate, rounded: bool, T: int = 64):
+    """K2's backward as the bf16 kernel ``ssd_scan_bwd_mma`` computes it,
+    in plain float32 tensor code: its 64-row tiles, its tile algebra
+    (csrc/mamba2_scan.cu, the backward's header) and, with ``rounded``,
+    its bf16 rounding points.  Those are the operands the kernel computes
+    rather than loads: the state before each tile (its scratch, also read
+    for <R, S0>), x (.) w in the state recurrence, G and D, the bf16 copy
+    of the reverse state R, exp(cs) (.) dY in R's update, and the outputs
+    dx, dB, dC.  Every product sums in float32, M = G o (dY X^T) is taken
+    from the unrounded G, and dB, dC are summed over each group's heads in
+    float32 before they are rounded.  Bm, Cm [B, G, L, N] -> (dx, da, dB,
+    dC) in float32."""
+    rnd = (lambda v: v.bfloat16().float()) if rounded else (lambda v: v)
+    Bsz, H, L, P = xdt.shape
+    G, N = Bm.shape[1], Bm.shape[-1]
+    nt = -(-L // T)
+    pad = nt * T - L
+
+    def tiles(v):      # [B, H, L, ...] -> [B, H, nt, T, ...], rows past L 0
+        v = torch.nn.functional.pad(v, (0, 0) * (v.dim() - 3) + (0, pad))
+        return v.reshape(Bsz, H, nt, T, *v.shape[3:])
+    x, y, av = (tiles(v.float()) for v in (xdt, dy, a))
+    b, c = (tiles(v.float().repeat_interleave(H // G, dim=1))
+            for v in (Bm, Cm))
+    cs = torch.cumsum(av, -1)
+    last = cs[..., -1]
+    w = torch.exp(last[..., None] - cs)
+    S = torch.zeros(Bsz, H, P, N)
+    S0 = []
+    for i in range(nt):                       # pass 1: the forward's states
+        S0.append(rnd(S))
+        xw = rnd(x[:, :, i] * w[:, :, i, :, None])
+        S = torch.exp(last[:, :, i])[..., None, None] * S \
+            + xw.transpose(-1, -2) @ b[:, :, i]
+    R = torch.zeros_like(S) if dstate is None else dstate.float()
+    tri = torch.tril(torch.ones(T, T, dtype=torch.bool))
+    dx, da, dB, dC = ([None] * nt for _ in range(4))
+    for i in reversed(range(nt)):             # pass 2, the tiles in reverse
+        xi, yi, bi, ci, csi = (v[:, :, i] for v in (x, y, b, c, cs))
+        e, wi, el = torch.exp(csi), w[:, :, i], torch.exp(last[:, :, i])
+        decay = torch.where(tri, torch.exp(csi[..., :, None]
+                                           - csi[..., None, :]), 0.0)
+        yx = yi @ xi.transpose(-1, -2)
+        Gm = (ci @ bi.transpose(-1, -2)) * decay
+        D = yx * decay
+        M = Gm * yx
+        Gr, Dr, Rr = rnd(Gm), rnd(D), rnd(R)
+        br = (bi @ Rr.transpose(-1, -2)) * wi[..., None]
+        ys = (yi @ S0[i]) * e[..., None]
+        dx[i] = Gr.transpose(-1, -2) @ yi + br
+        dB[i] = Dr.transpose(-1, -2) @ ci + (xi @ Rr) * wi[..., None]
+        dC[i] = Dr @ bi + ys
+        xo, co = (xi * br).sum(-1), (ci * ys).sum(-1)
+        dcs = M.sum(-1) - M.sum(-2) + co - xo
+        dcs[..., -1] += el * (R * S0[i]).sum((-2, -1)) + xo.sum(-1)
+        da[i] = torch.flip(torch.cumsum(torch.flip(dcs, [-1]), -1), [-1])
+        R = el[..., None, None] * R \
+            + rnd(yi * e[..., None]).transpose(-1, -2) @ ci
+    dx, da, dB, dC = (torch.cat(v, dim=2)[:, :, :L] for v in (dx, da, dB, dC))
+    dB, dC = (v.reshape(Bsz, G, H // G, L, N).sum(2) for v in (dB, dC))
+    return rnd(dx), da, rnd(dB), rnd(dC)
+
+
+# (B, H, G, L, P, N, dstate): zamba2-2.7b's (P, N) and one group over
+# several heads at a whole number of tiles, a ragged L, a grouped case
+# with a state cotangent, and the two smaller (P, N) the kernel is built
+# for (N = 8 is padded to the mma's k = 16 in the kernel, not here)
+@pytest.mark.parametrize("B,H,G,L,P,N,with_dstate", [
+    (1, 3, 1, 512, 64, 64, False),
+    (1, 2, 2, 200, 64, 64, False),
+    (2, 4, 2, 130, 64, 64, True),
+    (1, 2, 2, 256, 32, 16, False),
+    (1, 2, 1, 130, 16, 8, True),
+])
+@pytest.mark.parametrize("rounded", [False, True])
+def test_bf16_kernel_rounding_plan_matches_jax_vjp_of_the_oracle(
+        B, H, G, L, P, N, with_dstate, rounded):
+    """The bf16 backward kernel's tile algebra and rounding plan
+    (``_tiled_bwd``) against ``jax.vjp`` of ``mamba2_scan_ref`` on B and C
+    repeated over each group's heads, dB and dC summed over each group, on
+    bf16-exact inputs (the kernel loads them exactly).  Unrounded, every
+    gradient within 1e-5 of its largest magnitude (at least 1): the
+    algebra is exact and only the order of float32 sums differs.  Rounded
+    as the kernel rounds, within chip_smoke.py's bf16 tolerance for the
+    kernel, 1e-2 of it."""
+    rng = np.random.default_rng(6)
+
+    def bf(v):
+        return torch.from_numpy(v.astype(np.float32)).bfloat16().float()
+    xdt = bf(0.5 * rng.standard_normal((B, H, L, P)))
+    a = torch.from_numpy(
+        -0.1 * np.abs(rng.standard_normal((B, H, L))).astype(np.float32))
+    Bm, Cm = (bf(0.5 * rng.standard_normal((B, G, L, N))) for _ in range(2))
+    dy = bf(rng.standard_normal((B, H, L, P)))
+    ds = torch.from_numpy(
+        rng.standard_normal((B, H, P, N)).astype(np.float32))
+    rep = H // G
+    ins = (xdt, a, Bm.repeat_interleave(rep, 1), Cm.repeat_interleave(rep, 1))
+    _, vjp = jax.vjp(jax_ref.mamba2_scan_ref,
+                     *(jnp.asarray(v.numpy()) for v in ins))
+    want = [np.asarray(g) for g in vjp(
+        (jnp.asarray(dy.numpy()),
+         jnp.asarray(ds.numpy() if with_dstate else np.zeros_like(ds))))]
+    want[2] = want[2].reshape(B, G, rep, L, N).sum(2)
+    want[3] = want[3].reshape(B, G, rep, L, N).sum(2)
+    got = _tiled_bwd(xdt, a, Bm, Cm, dy, ds if with_dstate else None,
+                     rounded)
+    tol = SCAN_BWD_BF16_TOL if rounded else 1e-5
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and bool(torch.isfinite(g).all())
+        np.testing.assert_allclose(
+            g.numpy(), w, rtol=0, atol=tol * max(1.0, float(np.abs(w).max())))

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the port's K2 (Mamba-2 chunk scan) and K3b (1-bit dequantize)
-kernels of several checkouts on one NVIDIA GPU, like for like.
+"""Time the port's K2 (Mamba-2 chunk scan, forward and backward) and K3b
+(1-bit dequantize) kernels of several checkouts on one NVIDIA GPU, like
+for like.
 
     python3 tools/compare_port_kernels.py DIR [DIR ...]
 
@@ -15,6 +16,8 @@ time behind a device-side spin, and host-paced):
   Bm, Cm per head (G = H, the only layout before per-group reads) and,
   where the checkout's wrapper takes it, once per group (G = 1, the
   model's);
+- K2's backward (``mamba2_chunk_scan_bwd``) at zamba2-2.7b's train shape
+  (bf16, B=8, H=80, G=1, L=512, P=N=64), y's gradient normal;
 - K3b at a 32 MB bucket [8192, 1024] and at the training plan's largest
   bucket [379840, 1024].
 
@@ -31,6 +34,7 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCAN_SHAPE = (4, 80, 512, 64, 64)       # B, H, L, P, N
+SCAN_BWD_SHAPE = (8, 80, 512, 64, 64)   # B, H, L, P, N; G = 1
 DEQUANT_ROWS = (8192, 379840)
 
 
@@ -65,6 +69,20 @@ def run_tree(tree: str) -> dict:
         out[f"k2_G{G}"] = t
         print(f"K2 G={G}: {t['ms']:.4f} ms, host-paced "
               f"{t['ms_host_paced']:.4f} ms")
+    B, H, L, P, N = SCAN_BWD_SHAPE
+    xdt = (0.5 * torch.randn(B, H, L, P, generator=gen,
+                             device="cuda")).bfloat16()
+    a = -0.1 * torch.randn(B, H, L, generator=gen, device="cuda").abs()
+    Bm, Cm = ((0.5 * torch.randn(B, 1, L, N, generator=gen,
+                                 device="cuda")).bfloat16() for _ in "BC")
+    dy = torch.randn(B, H, L, P, generator=gen, device="cuda").bfloat16()
+    t = cs.timings(ms=lambda: mamba2_scan.mamba2_chunk_scan_bwd(
+        xdt, a, Bm, Cm, dy))
+    out["k2_bwd_train"] = t
+    print(f"K2 backward B={B} G=1: {t['ms']:.4f} ms, host-paced "
+          f"{t['ms_host_paced']:.4f} ms")
+    del xdt, a, Bm, Cm, dy
+    torch.cuda.empty_cache()
     for R in DEQUANT_ROWS:
         packed = torch.randint(-2**31, 2**31 - 1, (R, 32), generator=gen,
                                device="cuda", dtype=torch.int32)
