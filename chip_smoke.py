@@ -12,14 +12,16 @@ without the final ``{"ok": true, ...}`` line:
    card, at the paths' shapes and at the edge cases, and time the kernel,
    the plain version and (where one exists) one PyTorch library call at
    those shapes: K1 flash attention at qwen3-4b's and zamba2-2.7b's
-   prefill shapes and at Session.train's, K1's backward at qwen3-4b's
-   training shapes, zamba2-2.7b's shared block (d=80) and phi3-mini's
-   heads (d=96) (against autograd through the plain version), each K1
+   prefill shapes, at Session.train's and at the serving gateway's
+   batch-1 prefills, K1's backward at qwen3-4b's training shapes,
+   zamba2-2.7b's shared block (d=80) and phi3-mini's heads (d=96)
+   (against autograd through the plain version), each K1
    case also run twice to the same bits, bf16 on the tensor-core kernels
    and f32 on the CUDA-core ones; K2 the Mamba-2 chunk scan at
-   zamba2-2.7b's, with B and C once per group (G=1, the model's) and per
-   head (G=H), grouped and ragged, each case run twice to the same bits,
-   bf16 on the tensor-core kernel and f32 on the CUDA-core one; K2's
+   zamba2-2.7b's (and at the gateway's batch 1), with B and C once per
+   group (G=1, the model's) and per head (G=H), grouped and ragged, each
+   case run twice to the same bits, bf16 on the tensor-core kernel and
+   f32 on the CUDA-core one; K2's
    backward at zamba2-2.7b's training shape and at G=H, ragged, grouped,
    each (P, N) and with a final-state gradient, in both dtypes, through
    autograd and by its wrapper to the same bits; K3a/K3b the 1-bit codec
@@ -35,21 +37,32 @@ without the final ``{"ok": true, ...}`` line:
 5. serve: ``Plan(arch=..., tiny=False).compile().serve(...)`` for
    qwen3-4b and for zamba2-2.7b, each at full width and full depth with
    random weights from a seed;
-6. train: ``Plan(arch="qwen3-4b", tiny=False, overrides={"n_layers":
+6. serve_stream: the serving gateway,
+   ``Plan(arch=..., tiny=False).compile().serve_stream(...)``, for
+   qwen3-4b and zamba2-2.7b at full width and depth: 8 requests arriving
+   mid-flight, each prefilled once at batch 1 and parked in host pages
+   until a slot frees; an independent greedy loop over the same steps
+   reproduces two of the streams bit for bit, two replicas and the
+   replica-death drill stream as one replica does, and (qwen3-4b) a live
+   queue fed from another thread streams as the trace did;
+7. train: ``Plan(arch="qwen3-4b", tiny=False, overrides={"n_layers":
    12}).compile().train(...)`` at full width, plain and as world-1 DDP
    with the onebit codec, and ``Plan(arch="zamba2-2.7b",
    tiny=False).compile().train(...)`` at full width and depth;
-7. where the time goes: one prefill and one decode step of each served
-   configuration, one plain and one DDP qwen3-4b train step and one
-   zamba2-2.7b train step; the prefills and the train steps must show
-   K1's tensor-core kernels by name and none of its f32 kernels,
+8. where the time goes: one prefill (at the wave's batch and at batch 1)
+   and one decode step of each served configuration, one plain and one
+   DDP qwen3-4b train step and one zamba2-2.7b train step; the prefills
+   and the train steps must show K1's tensor-core kernels by name and
+   none of its f32 kernels,
    zamba2-2.7b's prefill and train step K2's tensor-core kernel and not
    its f32 one, the zamba2-2.7b train step K2's backward kernel, the DDP
    step K3b's row-stream kernel;
-8. the ``kernels`` JSON line, then the ``ok`` line last.
+9. the gateway's readings as a JSON line, the ``kernels`` JSON line,
+   then the ``ok`` line last.
 
-Every kernel launch count is set to 0 just before each run of phases 5
-and 6 and read just after; each run asserts the counts its layers give.
+Every kernel launch count is set to 0 just before each run of phases 5,
+6 and 7 and read just after; each run asserts the counts its layers
+give.
 
 It imports ``torch`` and ``repro_torch`` only.
 """
@@ -59,6 +72,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -71,9 +85,12 @@ import torch.utils._pytree as pytree  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import steps  # noqa: E402
-from repro_torch.core.sharding import init_params  # noqa: E402
+from repro_torch.core.sharding import init_params, is_spec  # noqa: E402
 from repro_torch.data.pipeline import stream_for, to_device  # noqa: E402
+from repro_torch.core.paging import InferenceCache  # noqa: E402
 from repro_torch.frontend import Plan  # noqa: E402
+from repro_torch.frontend import gateway  # noqa: E402
+from repro_torch.frontend.gateway import RequestQueue  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_bwd, flash_attention_ref)
@@ -121,9 +138,32 @@ ZAMBA_TRAIN_SCAN = (ZAMBA_TRAIN["batch"], ZAMBA_HEADS, _ZAMBA_CFG.ssm_groups,
                     ZAMBA_TRAIN["seq"], _ZAMBA_CFG.ssm_head_dim,
                     _ZAMBA_CFG.ssm_state, _ZAMBA_CFG.ssm_chunk,
                     torch.bfloat16)
+SERVE = dict(requests=8, slots=4, prompt_len=512, gen_len=32)
+SERVE_ARCHS = ("qwen3-4b", "zamba2-2.7b")
+# the serving gateway prefills every request alone: K1 at batch 1 for
+# qwen3-4b and zamba2-2.7b's shared block, K2 at batch 1
+SERVE_B1_ATTN = (1, _TRAIN_CFG.n_heads, _TRAIN_CFG.n_kv_heads,
+                 SERVE["prompt_len"], _TRAIN_CFG.head_dim, torch.bfloat16,
+                 True, None)
+ZAMBA_SERVE_B1_ATTN = (1, _ZAMBA_CFG.n_heads, _ZAMBA_CFG.n_kv_heads,
+                       SERVE["prompt_len"], _ZAMBA_CFG.head_dim,
+                       torch.bfloat16, True, None)
+SERVE_B1_SCAN = (1, ZAMBA_HEADS, _ZAMBA_CFG.ssm_groups, SERVE["prompt_len"],
+                 _ZAMBA_CFG.ssm_head_dim, _ZAMBA_CFG.ssm_state,
+                 _ZAMBA_CFG.ssm_chunk, torch.bfloat16)
+# the gateway's runs (serve_stream): 8 requests arriving at these decode
+# rounds into SERVE's 4 slots; the independent greedy loop replays two of
+# them; the drill kills replica 0 at round 3; qwen3-4b's live queue takes
+# the first four prompts
+GATEWAY_ARRIVALS = (0, 0, 0, 1, 1, 4, 9, 20)
+GATEWAY_ORACLE = ("r0", "r5")
+GATEWAY_KILL = (0, 3)
+GATEWAY_LIVE = 4
+PAGE_BYTES = 1 << 16        # serve_stream's default page size
 # (B, H, Hkv, S, d, dtype, causal, window): the serving slices' shapes
 # first (qwen3-4b, then zamba2-2.7b's shared block), then Session.train's
-# (qwen3-4b, then zamba2-2.7b), then the edge cases.  bf16 runs the
+# (qwen3-4b, then zamba2-2.7b), then the gateway's batch-1 prefills (the
+# same two), then the edge cases.  bf16 runs the
 # tensor-core kernels, f32 the CUDA-core kernels, so each edge is held in
 # both dtypes.
 FA_CASES = [
@@ -131,6 +171,8 @@ FA_CASES = [
     (4, 32, 32, 512, 80, torch.bfloat16, True, None),     # d=80 (zamba)
     TRAIN_ATTN,
     ZAMBA_TRAIN_ATTN,
+    SERVE_B1_ATTN,
+    ZAMBA_SERVE_B1_ATTN,
     (2, 8, 2, 200, 128, torch.bfloat16, True, None),      # ragged S
     (1, 32, 32, 256, 96, torch.bfloat16, True, None),     # d=96 (phi3)
     (2, 4, 2, 256, 32, torch.float32, True, None),        # d=32 f32 (tiny)
@@ -142,12 +184,13 @@ FA_CASES = [
     (2, 4, 4, 100, 80, torch.bfloat16, True, None),       # d=80, ragged S
     (1, 8, 8, 512, 80, torch.bfloat16, True, 128),        # d=80, window
 ]
-FA_TIMED = 4            # the first FA_TIMED cases are timed
+FA_TIMED = 6            # the first FA_TIMED cases are timed
 # K2 tolerances of tests/test_kernels.py's sweep, as atol and rtol
 SCAN_TOL = {torch.float32: 2e-4, torch.bfloat16: 6e-2}
 # (B, H, G, L, P, N, chunk, dtype), G the groups of Bm, Cm: zamba2-2.7b's
 # prefill shape in bf16 with its one group (timed, the serve path's case)
-# and with B, C per head (timed), its training shape (B=8, timed), then
+# and with B, C per head (timed), its training shape (B=8, timed), the
+# gateway's batch-1 prefill (timed), then
 # f32 at the prefill shape and the three shapes of tests/test_kernels.py's
 # sweep (B, C per head), grouped cases (H=4, G=2) in both dtypes, a ragged
 # bf16 case, and bf16 at the other (P, N) the kernel is built for
@@ -155,6 +198,7 @@ SCAN_CASES = [
     (4, 80, 1, 512, 64, 64, 256, torch.bfloat16),
     (4, 80, 80, 512, 64, 64, 256, torch.bfloat16),
     ZAMBA_TRAIN_SCAN,
+    SERVE_B1_SCAN,
     (4, 80, 80, 512, 64, 64, 256, torch.float32),
     (1, 2, 2, 256, 32, 16, 64, torch.float32),
     (2, 4, 4, 128, 64, 64, 32, torch.float32),
@@ -165,9 +209,7 @@ SCAN_CASES = [
     (1, 2, 2, 256, 32, 16, 64, torch.bfloat16),
     (1, 1, 1, 512, 16, 8, 128, torch.bfloat16),
 ]
-SCAN_TIMED = 3          # the first SCAN_TIMED cases are timed
-SERVE = dict(requests=8, slots=4, prompt_len=512, gen_len=32)
-SERVE_ARCHS = ("qwen3-4b", "zamba2-2.7b")
+SCAN_TIMED = 4          # the first SCAN_TIMED cases are timed
 # K1 backward: qwen3-4b's training shapes (a DDP shard, then the whole
 # batch of Session.train), zamba2-2.7b's shared block in training (d=80)
 # and phi3-mini's heads (d=96), all four timed, then small shapes in
@@ -466,9 +508,9 @@ def check_scan(gen) -> dict:
     tests/test_kernels.py builds them (xdt, Bm, Cm scaled by 0.5, a =
     -|n| * 0.1), and against itself: a second run on the same inputs gives
     the same bits.  Times the first ``SCAN_TIMED`` cases; returns the
-    first's readings with the second's under ``per_head_bc`` and the
-    third's under ``train_b8``.  No single PyTorch call computes the SSD
-    scan, so there is no library time."""
+    first's readings with the second's under ``per_head_bc``, the third's
+    under ``train_b8`` and the fourth's under ``serve_b1``.  No single
+    PyTorch call computes the SSD scan, so there is no library time."""
     out = []
     for B, H, G, L, P, N, chunk, dt in SCAN_CASES:
         xdt = (0.5 * torch.randn(B, H, L, P, generator=gen,
@@ -512,7 +554,8 @@ def check_scan(gen) -> dict:
         print(f"  timed: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} "
               f"ms, no library call, bound {bound_ms:.4f} ms ({bound_by}); "
               f"host-paced: kernel {t['ms_host_paced']:.4f} ms")
-    return {**out[0], "per_head_bc": out[1], "train_b8": out[2]}
+    return {**out[0], "per_head_bc": out[1], "train_b8": out[2],
+            "serve_b1": out[3]}
 
 
 def scan_bwd_ops(B: int, H: int, L: int, P: int, N: int) -> int:
@@ -865,10 +908,9 @@ def check_zamba_grads() -> None:
                          torch.Generator(device="cuda").manual_seed(0), "cuda")
     batch = to_device(stream_for(cfg, batch=plan.batch,
                                  seq=plan.seq).batch_at(0), "cuda")
-    for fn in KERNELS:
-        fn.launches = 0
+    _zero_counts()
     loss, got = zamba_grads(model, params, batch, plain=False)
-    counts = {fn.__name__: fn.launches for fn in KERNELS}
+    counts = _counts()
     groups = cfg.n_layers // cfg.shared_every
     want_counts = {"mamba2_chunk_scan": 3 * cfg.n_layers,
                    "mamba2_chunk_scan_bwd": cfg.n_layers,
@@ -954,13 +996,12 @@ def train_full(train: dict, ddp: bool, n_buckets: int) -> dict:
     with plan.compile() as session:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        for fn in KERNELS:
-            fn.launches = 0
+        _zero_counts()
         stream = RepeatStream(stream_for(cfg, batch=plan.batch,
                                          seq=plan.seq, seed=plan.seed))
         out = session.train(stream, steps=TRAIN_STEPS, log_every=1,
                             hooks=clock)
-        counts = {fn.__name__: fn.launches for fn in KERNELS}
+        counts = _counts()
     peak = torch.cuda.max_memory_allocated()
     losses = out["losses"]
     ms = clock.step_ms()
@@ -1179,12 +1220,14 @@ def check_reference(arch: str, prompt_len: int = 20, gen_len: int = 8,
         raise AssertionError(f"{arch}: the card disagrees with the CPU")
 
 
-def profile_steps(cfg, slots: int, prompt_len: int, repeats: int = 3):
-    """Where one prefill and one decode step spend their time at the serve
-    shape: host wall time (median of ``repeats``, each ending in a device
-    synchronize), the device time of the kernels it launched, the
-    kernels that take the most of it (torch.profiler), and the step's
-    bound (``step_bound``).  Returns the prefill's kernel names."""
+def profile_steps(cfg, slots: int, prompt_len: int, repeats: int = 3,
+                  decode: bool = True):
+    """Where one prefill and (with ``decode``) one decode step spend their
+    time at ``slots`` rows: host wall time (median of ``repeats``, each
+    ending in a device synchronize), the device time of the kernels it
+    launched, the kernels that take the most of it (torch.profiler), and
+    the step's bound (``step_bound``).  Returns the prefill's kernel
+    names."""
     shape = {"seq_len": prompt_len + 1, "global_batch": slots}
     pre = steps.make_prefill_step(cfg, shape)
     dec = steps.make_decode_step(cfg, shape)
@@ -1193,18 +1236,29 @@ def profile_steps(cfg, slots: int, prompt_len: int, repeats: int = 3):
     toks = torch.randint(0, cfg.vocab, (slots, prompt_len), device="cuda")
     lg, cache = pre.fn(params, {"tokens": toks})
     tok = lg.argmax(-1)[:, None]
-    runs = (("prefill", lambda: pre.fn(params, {"tokens": toks}),
+    runs = ((f"prefill, batch {slots}", lambda: pre.fn(params,
+                                                      {"tokens": toks}),
              step_bound(cfg, params, cache, slots, prompt_len,
                         prompt_len * (prompt_len + 1) // 2)),
             ("decode step", lambda: dec.fn(params, cache, {"tokens": tok},
                                            prompt_len),
              step_bound(cfg, params, cache, slots, 1, prompt_len + 1)))
-    kernels = {name: profile_one(name, fn, bound) for name, fn, bound in runs}
-    return kernels["prefill"]
+    kernels = [profile_one(name, fn, bound)
+               for name, fn, bound in runs[:2 if decode else 1]]
+    return kernels[0]
 
 
 KERNELS = (flash_attention, flash_attention_bwd, mamba2_chunk_scan,
            mamba2_chunk_scan_bwd, onebit_quantize, onebit_dequantize)
+
+
+def _zero_counts() -> None:
+    for fn in KERNELS:
+        fn.launches = 0
+
+
+def _counts() -> dict:
+    return {fn.__name__: fn.launches for fn in KERNELS}
 
 
 def serve_full(arch: str) -> dict:
@@ -1219,10 +1273,9 @@ def serve_full(arch: str) -> dict:
     cfg = plan.config()
     with plan.compile() as session:
         torch.cuda.reset_peak_memory_stats()
-        for fn in KERNELS:
-            fn.launches = 0
+        _zero_counts()
         res = session.serve(**SERVE)
-        counts = {fn.__name__: fn.launches for fn in KERNELS}
+        counts = _counts()
     peak = torch.cuda.max_memory_allocated()
     waves = res["waves"]
     n_decode = sum(n.startswith("decode:") for n in res["nodes"])
@@ -1252,6 +1305,217 @@ def serve_full(arch: str) -> dict:
         raise AssertionError("prefill logits are not finite")
     print(f"tokens in [0, {cfg.vocab}), prefill logits finite")
     return counts
+
+
+def gateway_oracle(gw, prompt, slot: int) -> list:
+    """A plain greedy loop over the gateway's own steps: the batch-1
+    prefill, its state written into row ``slot`` of a zero decode cache,
+    then the ``slots``-wide decode step with the other rows' tokens zero
+    and per-row positions.  Returns the token stream (the prefill token
+    first)."""
+    dev = gw.device
+    toks = torch.as_tensor(np.asarray(prompt, np.int64), device=dev)[None]
+    lg, state = gw.pre.fn(gw.params, {"tokens": toks})
+    specs = gw.dec.cache_specs
+    carry = init_params(specs, None, dev)
+    for c, st, sp in zip(pytree.tree_leaves(carry), pytree.tree_leaves(state),
+                         pytree.tree_leaves(specs, is_leaf=is_spec)):
+        ax = sp.dims.index("batch")
+        c.select(ax, slot).copy_(st.select(ax, 0))
+    stream = [int(lg.argmax(-1)[0])]
+    tok = torch.zeros((gw.slots, 1), dtype=torch.int64, device=dev)
+    for t in range(gw.gen_len):
+        tok[slot, 0] = stream[-1]
+        pos = torch.full((gw.slots,), gw.prompt_len, dtype=torch.int64,
+                         device=dev)
+        pos[slot] = gw.prompt_len + t
+        lg, carry = gw.dec.fn(gw.params, carry, {"tokens": tok}, pos)
+        stream.append(int(lg[slot].argmax()))
+    return stream
+
+
+def time_park_refill(gw, prompts) -> dict:
+    """Host wall, each ending in a synchronize, of what the gateway does
+    per request: the batch-1 prefill alone; a park (the prefill, its state
+    to the host, into pages); a refill (out of pages, to the device, into
+    one row of the decode cache).  Median and range over ``prompts``."""
+    icache = InferenceCache(page_bytes=PAGE_BYTES)
+    carry = init_params(gw.dec.cache_specs, None, gw.device)
+    ms = {"prefill": [], "park": [], "refill": []}
+    for i, p in enumerate(prompts):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gw._prefill_once(p)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        _, state = gw._prefill_once(p)
+        icache.put(f"t{i}", pytree.tree_map(lambda t: t.cpu(), state))
+        t2 = time.perf_counter()
+        gateway._write_rows(carry, icache.get(f"t{i}"), gw.dec.cache_specs,
+                            i % gw.slots)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        icache.drop(f"t{i}")
+        ms["prefill"].append(1e3 * (t1 - t0))
+        ms["park"].append(1e3 * (t2 - t1))
+        ms["refill"].append(1e3 * (t3 - t2))
+    return {k: {"median": sorted(v)[len(v) // 2], "min": min(v),
+                "max": max(v)} for k, v in ms.items()}
+
+
+def serve_stream_full(arch: str) -> tuple:
+    """``Session.serve_stream`` of ``arch`` at full width and depth (random
+    weights, seed 0): 8 requests arriving at ``GATEWAY_ARRIVALS``, with
+    every kernel launch count set to 0 just before and read just after.
+    Checks completion, the paged-cache counters (every refill a page hit,
+    no prefill recompute, every page reclaimed, the parked bytes those of
+    the batch-1 cache), the token range, the launch counts (K1 once per
+    attention layer and request, K2 once per mamba layer and request,
+    nothing else), the streams of ``GATEWAY_ORACLE`` against
+    ``gateway_oracle``, two replicas and the replica-death drill against
+    one replica (same streams, same launches: prefill never reruns), and
+    for qwen3-4b a live ``RequestQueue`` fed from another thread.  Returns
+    (the single-replica run's counts, its readings)."""
+    phase(f"serve_stream {arch}, full width and depth, random weights "
+          f"(seed 0)")
+    plan = Plan(arch=arch, tiny=False, device="cuda")
+    cfg = plan.config()
+    n = len(GATEWAY_ARRIVALS)
+    trace = [{"at_round": r} for r in GATEWAY_ARRIVALS]
+    kw = dict(prompt_len=SERVE["prompt_len"], gen_len=SERVE["gen_len"],
+              slots=SERVE["slots"])
+    if cfg.family == "zamba":
+        per_request = {"flash_attention": cfg.n_layers // cfg.shared_every,
+                       "mamba2_chunk_scan": cfg.n_layers}
+    else:
+        per_request = {"flash_attention": cfg.n_layers,
+                       "mamba2_chunk_scan": 0}
+    per_request.update(flash_attention_bwd=0, mamba2_chunk_scan_bwd=0,
+                       onebit_quantize=0, onebit_dequantize=0)
+
+    def check_counts(what, counts, requests):
+        want = {k: v * requests for k, v in per_request.items()}
+        if counts != want:
+            raise AssertionError(f"{arch} {what}: launch counts {counts}, "
+                                 f"want {want}")
+
+    with plan.compile() as session:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        res = session.serve_stream(trace=trace, **kw)
+        counts = _counts()
+        peak = torch.cuda.max_memory_allocated()
+        gw = session._gateway
+        serve, cache = res["runtime_stats"]["serve"], res["cache"]
+        pre1 = session._serve_steps_for(SERVE["prompt_len"],
+                                        SERVE["gen_len"], 1)[0]
+        leaves = pytree.tree_leaves(pre1.cache_specs, is_leaf=is_spec)
+        nbytes = sum(sp.size * sp.dtype.itemsize for sp in leaves)
+        pages = -(-nbytes // PAGE_BYTES)
+        print(f"{res['tokens_per_s']:.1f} tok/s, {res['rounds']} rounds, "
+              f"{res['epochs']} epochs, {res['tokens']} tokens; per request "
+              f"{len(leaves)} leaves, {nbytes} B, {pages} pages of "
+              f"{PAGE_BYTES} B; pages_peak {cache['pages_peak']} = "
+              f"{cache['pages_peak'] * PAGE_BYTES / 2**20:.1f} MiB parked on "
+              f"the host at peak; peak device memory {peak / 2**30:.2f} GiB")
+        print(", ".join(f"{k} launches {v}" for k, v in counts.items()))
+        print("serve counters: " + ", ".join(
+            f"{k} {serve[k]}" for k in ("admitted", "refills", "page_hits",
+                                        "real_tokens", "padded_slot_tokens",
+                                        "completed")))
+        check_counts("serve_stream", counts, n)
+        tokens = [t for s in res["streams"].values() for t in s]
+        if not (res["completed"] == n
+                and serve["refills"] == serve["page_hits"] == n
+                and serve.get("prefill_recompute", 0) == 0
+                and cache["pages_live"] == 0
+                and cache["page_allocs"] == cache["page_frees"] == n * pages
+                and res["epochs"] >= 2
+                and all(len(s) == SERVE["gen_len"] + 1
+                        for s in res["streams"].values())
+                and 0 <= min(tokens) and max(tokens) < cfg.vocab):
+            raise AssertionError(f"{arch} serve_stream: {res['completed']} "
+                                 f"completed, serve {serve}, cache {cache}, "
+                                 f"epochs {res['epochs']}")
+        print(f"{n} completed, refills = page hits = {n}, no prefill "
+              f"recompute, every page reclaimed, tokens in [0, {cfg.vocab})")
+
+        handles = {h.rid: h for h in res["handles"]}
+        for rid in GATEWAY_ORACLE:
+            h = handles[rid]
+            want = gateway_oracle(gw, h.prompt, h._slot)
+            same = want == res["streams"][rid]
+            print(f"oracle {rid} (slot {h._slot}): greedy loop over the "
+                  f"same steps {'bit-identical' if same else 'DIFFERS'}")
+            if not same:
+                raise AssertionError(f"{arch} {rid}: gateway "
+                                     f"{res['streams'][rid]}, plain greedy "
+                                     f"loop {want}")
+        readings = time_park_refill(gw, [h.prompt for h in res["handles"]])
+        print("per request (host wall, median [min, max] of "
+              f"{n}): " + "; ".join(
+                  f"{k} {v['median']:.2f} ms [{v['min']:.2f}, "
+                  f"{v['max']:.2f}]" for k, v in readings.items()))
+        readings.update(tokens_per_s=res["tokens_per_s"],
+                        rounds=res["rounds"], epochs=res["epochs"],
+                        bytes_per_request=nbytes, pages_per_request=pages,
+                        pages_peak=cache["pages_peak"],
+                        peak_device_bytes=peak)
+        del gw
+        session._gateway = None
+
+        for over in (dict(replicas=2),
+                     dict(replicas=2, kill_replica_at_round=GATEWAY_KILL)):
+            _zero_counts()
+            out = session.serve_stream(trace=trace, **kw, **over)
+            rc = _counts()
+            session._gateway = None
+            rserve = out["runtime_stats"]["serve"]
+            drill = "kill_replica_at_round" in over
+            name = (f"replicas=2, replica {GATEWAY_KILL[0]} killed at round "
+                    f"{GATEWAY_KILL[1]}" if drill else "replicas=2")
+            # the session's serve counters add up over its runs
+            fetches = rserve.get("cross_replica_page_fetches", 0)
+            recompute = rserve.get("prefill_recompute", 0)
+            same = out["streams"] == res["streams"]
+            print(f"{name}: {out['tokens_per_s']:.1f} tok/s, streams "
+                  f"{'bit-identical to' if same else 'DIFFER from'} one "
+                  f"replica's, cross-replica page fetches {fetches}, prefill "
+                  f"recompute {recompute}; " + ", ".join(
+                      f"{k} {v}" for k, v in rc.items() if v))
+            check_counts(name, rc, n)
+            if not same or out["completed"] != n or recompute \
+                    or out["cache"]["pages_live"] or (drill and not fetches):
+                raise AssertionError(f"{arch} {name}: streams or counters")
+
+        if arch == "qwen3-4b":
+            prompts = [h.prompt for h in res["handles"][:GATEWAY_LIVE]]
+            q = RequestQueue()
+
+            def feeder():
+                for p in prompts:
+                    q.submit(p)
+                    time.sleep(0.05)
+                q.close()
+            _zero_counts()
+            t = threading.Thread(target=feeder)
+            t.start()
+            live = session.serve_stream(queue=q, **kw)
+            t.join(timeout=600)
+            rc = _counts()
+            session._gateway = None
+            same = all(live["streams"][f"r{i}"] == res["streams"][f"r{i}"]
+                       for i in range(GATEWAY_LIVE))
+            print(f"live queue, {GATEWAY_LIVE} prompts from another thread: "
+                  f"{live['completed']} completed, streams "
+                  f"{'equal' if same else 'DIFFER from'} the trace run's")
+            check_counts("live queue", rc, GATEWAY_LIVE)
+            if t.is_alive() or not same \
+                    or live["completed"] != GATEWAY_LIVE:
+                raise AssertionError(f"{arch} live queue")
+    torch.cuda.empty_cache()
+    return counts, readings
 
 
 def main() -> int:
@@ -1306,18 +1570,26 @@ def main() -> int:
     check_zamba_grads()
 
     launches = {arch: serve_full(arch) for arch in SERVE_ARCHS}
+    stream_readings = {}
+    for arch in SERVE_ARCHS:
+        launches[f"serve_stream_{arch}"], stream_readings[arch] = \
+            serve_stream_full(arch)
     launches["train"] = train_full(TRAIN, False, len(buckets))
     launches["ddp_onebit"] = train_full(TRAIN, True, len(buckets))
     launches["train_zamba"] = train_full(ZAMBA_TRAIN, False, 0)
 
     for arch in SERVE_ARCHS:
-        phase(f"where the time goes: {arch}, one prefill, one decode step "
-              f"(not counted)")
-        kernels = profile_steps(steps._serve_cfg(get_config(arch)),
-                                SERVE["slots"], SERVE["prompt_len"])
-        check_k1_route(f"{arch} prefill", kernels, ("forward",))
-        if arch == "zamba2-2.7b":
-            check_ran(f"{arch} prefill", kernels, K2_TC, K2_F32)
+        phase(f"where the time goes: {arch}, one prefill at batch "
+              f"{SERVE['slots']} and at batch 1, one decode step (not "
+              f"counted)")
+        scfg = steps._serve_cfg(get_config(arch))
+        for slots in (SERVE["slots"], 1):
+            kernels = profile_steps(scfg, slots, SERVE["prompt_len"],
+                                    decode=slots > 1)
+            name = f"{arch} prefill, batch {slots}"
+            check_k1_route(name, kernels, ("forward",))
+            if arch == "zamba2-2.7b":
+                check_ran(name, kernels, K2_TC, K2_F32)
     phase("where the time goes: one full-width train step, qwen3-4b plain "
           "and world-1 DDP onebit, zamba2-2.7b plain (not counted)")
     for train, ddp in ((TRAIN, False), (TRAIN, True), (ZAMBA_TRAIN, False)):
@@ -1332,6 +1604,7 @@ def main() -> int:
             check_ran(name, kernels, K2_BWD_TC, K2_BWD_F32)
 
     phase("result")
+    print(json.dumps({"serve_stream": stream_readings}))
     by_path = {fn.__name__: {path: c[fn.__name__]
                              for path, c in launches.items()}
                for fn in KERNELS}
@@ -1344,6 +1617,8 @@ def main() -> int:
     fa_zamba = {f"zamba_{k}": v for k, v in fa[1].items()}
     fa_b8 = {f"train_b8_{k}": v for k, v in fa[2].items()}
     fa_zamba_b8 = {f"zamba_train_{k}": v for k, v in fa[3].items()}
+    fa_b1 = {f"serve_b1_{k}": v for k, v in fa[4].items()}
+    fa_zamba_b1 = {f"zamba_serve_b1_{k}": v for k, v in fa[5].items()}
     bwd_b8 = {f"train_b8_{k}": v for k, v in fa_bwd[1].items()}
     bwd_d80 = {f"zamba_train_{k}": v for k, v in fa_bwd[2].items()}
     bwd_d96 = {f"phi3_d96_{k}": v for k, v in fa_bwd[3].items()}
@@ -1352,7 +1627,7 @@ def main() -> int:
     print(json.dumps({"kernels": [
         entry("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
               "src/repro/kernels/flash_attention.py:86", fa[0], **fa_zamba,
-              **fa_b8, **fa_zamba_b8),
+              **fa_b8, **fa_zamba_b8, **fa_b1, **fa_zamba_b1),
         entry("flash_attention_bwd",
               "src/repro_torch/csrc/flash_attention.cu", None, fa_bwd[0],
               **bwd_b8, **bwd_d80, **bwd_d96,

@@ -1,12 +1,12 @@
 """Shared launcher flags, mapped 1:1 onto ``Plan`` fields.
 
 Counterpart: ``repro/frontend/cli.py`` (``cli_args``, ``plan_from_args``,
-``serve_flags``), cut to the flags that ``Session.serve`` and
-``Session.train`` use, plus ``--device``.  ``--localities``, ``--ddp``,
-``--grad-codec``, ``--ddp-shards`` and ``--elastic`` map onto the plan,
-which raises for more than one locality (ROADMAP item 12) and for elastic
-membership (item 13); the mesh flags come with item 14, the gateway
-flags with item 7.
+``serve_flags``), cut to the flags that ``Session.serve``,
+``Session.serve_stream`` and ``Session.train`` use, plus ``--device``.
+``--localities``, ``--ddp``, ``--grad-codec``, ``--ddp-shards``,
+``--elastic`` and ``--replicas`` map onto the plan, which raises for more
+than one locality (ROADMAP item 12) and for elastic membership (item 13);
+the mesh flags come with item 14.
 """
 from __future__ import annotations
 
@@ -62,11 +62,43 @@ def train_flags(ap: argparse.ArgumentParser) -> argparse.ArgumentParser:
 
 
 def serve_flags(ap: argparse.ArgumentParser) -> argparse.ArgumentParser:
-    """The serve flags ``Session.serve`` uses (``launch/serve.py``)."""
+    """The serving-gateway flag block (``launch/serve.py``): opt into the
+    streamed gateway and its admission-control knobs."""
+    ap.add_argument("--serve-stream", dest="serve_stream",
+                    action="store_true",
+                    help="serve through the continuous-batching gateway "
+                         "(Session.serve_stream): requests arrive "
+                         "mid-flight, prefill state parks in the paged "
+                         "inference cache, slot refill loads pages "
+                         "instead of recomputing")
+    ap.add_argument("--max-inflight", dest="max_inflight", type=int,
+                    default=None,
+                    help="admission cap on requests holding resources "
+                         "(queued-for-a-slot + decoding); default "
+                         "2 * slots * replicas")
+    ap.add_argument("--deadline-ms", dest="deadline_ms", type=float,
+                    default=None,
+                    help="per-request deadline: a request still short of "
+                         "a decode slot when it lapses expires cleanly "
+                         "(its node chain is cancelled and its pages "
+                         "reclaimed)")
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="model replica count for --serve-stream: each "
+                         "replica has its own decode chain and the router "
+                         "assigns every request to exactly one (page "
+                         "affinity first); streams are bit-identical to "
+                         "--replicas 1")
+    ap.add_argument("--kill-replica-at", dest="kill_replica_at",
+                    default=None, metavar="IDX:ROUND",
+                    help="replica-death drill for --serve-stream: mark "
+                         "replica IDX dead at decode round ROUND; "
+                         "survivors absorb its queued and in-flight "
+                         "requests (e.g. 0:2)")
     ap.add_argument("--stats-out", dest="stats_out", default=None,
                     metavar="FILE",
                     help="write the serve summary (counts, throughput, "
-                         "runtime stats) as JSON to FILE")
+                         "gateway counters with the per-replica split, "
+                         "latency histograms) as JSON to FILE")
     return ap
 
 
@@ -76,7 +108,7 @@ def plan_from_args(args, **overrides) -> Plan:
     fields = {name: getattr(args, name)
               for name in ("arch", "tiny", "seed", "device", "batch", "seq",
                            "localities", "ddp", "grad_codec", "ddp_shards",
-                           "elastic")
+                           "elastic", "replicas")
               if hasattr(args, name)}
     if getattr(args, "ckpt", ""):
         fields["ckpt_dir"] = args.ckpt

@@ -2,7 +2,8 @@
 
 Counterpart: ``repro/frontend/plan.py`` (``Plan``, and ``Session``'s
 ``__init__``, ``close``, ``stats``, ``train_step``, ``train`` with
-``_train_ddp`` folded into it, ``_serve_steps_for`` and ``serve``).  A
+``_train_ddp`` folded into it, ``_serve_steps_for``, ``serve`` and
+``serve_stream``).  A
 ``Plan`` is the *what* of a run, a frozen value that touches no device state;
 ``plan.compile()`` builds a ``Session`` that owns ONE futurized runtime
 (``core/futures.py``) for every host-side task of the session.
@@ -12,8 +13,9 @@ unless the caller asks for ``"cpu"``: a CUDA plan on a machine without a
 GPU raises, it never carries on on the CPU.  The port trains and serves
 on one device, in one process: ``Session.train`` runs the single-device
 loop and, with ``ddp=True`` at ``localities=1``, world-1 fabric DDP with
-the ``fp32`` or ``onebit`` gradient codec.  Plans that need more
-(localities, SPMD, elastic membership, replicas, mesh axes) raise
+the ``fp32`` or ``onebit`` gradient codec; ``serve_stream`` runs the
+serving gateway with every model replica in this process.  Plans that
+need more (localities, SPMD, elastic membership, mesh axes) raise
 ``NotImplementedError`` naming the ROADMAP item that brings them; so do
 checkpoints (item 8) and step resilience (item 14) in ``train``.
 """
@@ -34,6 +36,7 @@ from ..data.pipeline import Prefetcher, stream_for
 from ..distrib.collectives import CODECS, RingAllReduce
 from .ddp import DDPEngine
 from .futurize import Trace
+from .gateway import Gateway, RequestQueue
 
 __all__ = ["Plan", "Session"]
 
@@ -97,8 +100,6 @@ def _unsupported(plan: Plan) -> Optional[str]:
         return "spmd=True (SPMD mode, ROADMAP item 13)"
     if plan.elastic:
         return "elastic=True (elastic membership, ROADMAP item 13)"
-    if plan.replicas > 1:
-        return "replicas > 1 (the serving gateway, ROADMAP item 7)"
     if plan.mesh != "local" or plan.data * plan.model * plan.pod != 1:
         return "mesh axes (mesh-parallel strategies, ROADMAP item 14)"
     if plan.shape is not None:
@@ -455,3 +456,124 @@ class Session:
                 "runtime_stats": st.to_json(), "waves": w + 1,
                 "generated": [g.cpu() for g in generated],
                 "first_prefill_logits": first_logits[0].float().cpu()}
+
+    # -- serve (gateway) -----------------------------------------------------
+    def serve_stream(self, requests: int = 8, *, prompt_len: int = 32,
+                     gen_len: int = 16, slots: int = 4,
+                     max_inflight: Optional[int] = None,
+                     deadline_ms: Optional[float] = None,
+                     trace=None, queue=None, page_bytes: int = 1 << 16,
+                     replicas: Optional[int] = None,
+                     kill_replica_at_round: Optional[tuple] = None,
+                     verbose: bool = True) -> dict:
+        """The serving gateway (``frontend/gateway.py``): async continuous
+        batching with mid-flight arrivals, admission control and the paged
+        inference cache, instead of ``serve``'s synchronized waves.
+
+        Each request is a node chain (``stack`` -> ``prefill`` ->
+        ``refill``/``decode``/``emit`` -> ``finish`` resolving its
+        ``request:{rid}`` promise); prefill runs once at admission and its
+        decode state parks in ``core.paging.InferenceCache`` pages on the
+        host until a slot frees, so slot refill never recomputes prefill.
+
+        Args:
+            requests: synthetic request count when neither ``trace`` nor
+                ``queue`` is given (all arriving at round 0).
+            prompt_len, gen_len, slots: as for ``serve``.
+            max_inflight: admission cap on requests holding resources
+                (queued + decoding); defaults to ``2 * slots * replicas``.
+            deadline_ms: default per-request deadline; a request still
+                short of a slot when it lapses expires cleanly.
+            trace: deterministic arrival script - a list of dicts with
+                optional ``prompt``, ``at_round`` (decode round of
+                arrival), ``deadline_ms``, ``cancel_after`` (cancel after
+                that many decoded tokens), ``inject``
+                (``"poison-prefill"``).
+            queue: a live ``gateway.RequestQueue`` fed from other
+                threads; the gateway drains it until ``close()``.
+            page_bytes: page size of the inference cache pool (shared
+                across replicas; each replica owns a named cache on it).
+            replicas: model replica count (defaults to ``plan.replicas``);
+                each replica gets its own ``slots``-wide decode chain and
+                per-request streams are bit-identical to ``replicas=1``.
+            kill_replica_at_round: the replica-death drill,
+                ``(replica_idx, round)``: that replica dies at that decode
+                round and the survivors absorb its requests.
+            verbose: print the summary line.
+        Returns:
+            dict with per-request ``streams``/``handles``, admission
+            counts, ``tokens``/``padded_tokens``/``tokens_per_s``, the
+            traced ``nodes``/``trace``, ``cache``, ``rounds``, ``epochs``,
+            ``replicas``/``replica_assignments`` and ``runtime_stats``
+            (including the ``serve``/``serve_replicas`` counters and
+            ``request_latency_hist``).
+        Raises:
+            ValueError: an encoder-decoder architecture.
+        """
+        plan, runtime, cfg, dev = self.plan, self.runtime, self.cfg, self.device
+        n_replicas = plan.replicas if replicas is None else int(replicas)
+        if cfg.family == "encdec":
+            raise ValueError("serve_stream does not support encdec "
+                             "architectures (scalar-only decoder position "
+                             "embedding); use serve()")
+        pre1 = self._serve_steps_for(prompt_len, gen_len, 1)[0]
+        dec = self._serve_steps_for(prompt_len, gen_len, slots)[1]
+        params = init_params(
+            pre1.specs, torch.Generator(device=dev).manual_seed(plan.seed), dev)
+
+        if queue is None:
+            q = RequestQueue()
+            entries = trace if trace is not None \
+                else [{"at_round": 0} for _ in range(requests)]
+            rng = np.random.default_rng(plan.seed)
+            for e in entries:
+                prompt = e.get("prompt")
+                if prompt is None:
+                    prompt = rng.integers(0, cfg.vocab,
+                                          prompt_len).astype(np.int32)
+                q.submit(prompt, at_round=e.get("at_round", 0),
+                         deadline_ms=e.get("deadline_ms", deadline_ms),
+                         cancel_after=e.get("cancel_after"),
+                         inject=e.get("inject"))
+            q.close()
+        else:
+            q = queue
+
+        gw = Gateway(runtime, prefill_step=pre1, decode_step=dec,
+                     params=params, prompt_len=prompt_len, gen_len=gen_len,
+                     slots=slots, device=dev, max_inflight=max_inflight,
+                     deadline_ms=deadline_ms, page_bytes=page_bytes,
+                     replicas=n_replicas,
+                     kill_replica_at_round=kill_replica_at_round)
+        self._gateway = gw          # drill seam: tests call kill_replica()
+        tracer = Trace(runtime)
+        remove = runtime.add_trace_hook(tracer.record)
+        t0 = time.perf_counter()
+        try:
+            out = gw.run(q)
+            if dev.type == "cuda":            # honest timing: retire it all
+                torch.cuda.synchronize(dev)
+        finally:
+            remove()
+        dt = time.perf_counter() - t0
+        tokens = sum(max(0, len(h.tokens) - 1) for h in out["handles"])
+        st = runtime.stats()
+        out.update({
+            "requests": q.submitted, "tokens": tokens,
+            "padded_tokens": st.serve.get("padded_slot_tokens", 0),
+            "tokens_per_s": tokens / dt if dt > 0 else 0.0,
+            "nodes": tracer.names(), "trace": tracer.signature(),
+            "runtime_stats": st.to_json(),
+        })
+        if verbose:
+            rep_note = (f" across {n_replicas} replicas"
+                        if n_replicas > 1 else "")
+            print(f"[gateway] {q.submitted} requests{rep_note} "
+                  f"({out['completed']} done, {out['cancelled']} "
+                  f"cancelled, {out['expired']} expired, "
+                  f"{out['failed']} failed, {out['rejected']} rejected), "
+                  f"{tokens} tokens in {dt:.2f}s -> "
+                  f"{out['tokens_per_s']:.1f} tok/s over {out['epochs']} "
+                  f"epochs (page hits {st.serve.get('page_hits', 0)}/"
+                  f"{st.serve.get('refills', 0)} refills, device {dev})")
+        return out

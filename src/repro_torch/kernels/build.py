@@ -26,6 +26,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 # ptxas report (registers, shared memory, spills) of each fresh build
 build_logs: dict[str, str] = {}
@@ -97,3 +98,12 @@ def load(name: str) -> ctypes.CDLL:
         if name not in _libs:
             _libs[name] = ctypes.CDLL(str(path))
         return _libs[name]
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``, the count of its kernel's launches.
+    Wrappers run on several runtime worker threads at once (the serving
+    gateway's prefill nodes), and a bare ``+=`` from two threads can lose
+    an update, so every count is taken under one lock."""
+    with _count_lock:
+        wrapper.launches += 1

@@ -126,7 +126,7 @@ def _launch_fwd(q, k, v, causal, window, scale, with_lse: bool):
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {rc}")
-    flash_attention.launches += 1
+    build.count_launch(flash_attention)
     return out, lse
 
 
@@ -167,7 +167,7 @@ def flash_attention_bwd(q, k, v, o, lse, dout, *, causal: bool = True,
     if rc != 0:
         raise RuntimeError(f"flash_attention backward kernel launch failed: "
                            f"CUDA error {rc}")
-    flash_attention_bwd.launches += 1
+    build.count_launch(flash_attention_bwd)
     return dq, dk, dv
 
 

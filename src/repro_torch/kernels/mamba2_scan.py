@@ -134,7 +134,7 @@ def _launch_fwd(xdt, a, Bm, Cm):
     if rc != 0:
         raise RuntimeError(f"mamba2_chunk_scan kernel launch failed: CUDA "
                            f"error {rc}")
-    mamba2_chunk_scan.launches += 1
+    build.count_launch(mamba2_chunk_scan)
     return y, state
 
 
@@ -200,7 +200,7 @@ def mamba2_chunk_scan_bwd(xdt, a, Bm, Cm, dy, dstate=None):
     if rc != 0:
         raise RuntimeError(f"mamba2_chunk_scan backward kernel launch "
                            f"failed: CUDA error {rc}")
-    mamba2_chunk_scan_bwd.launches += 1
+    build.count_launch(mamba2_chunk_scan_bwd)
     return dxdt, da, dBm, dCm
 
 

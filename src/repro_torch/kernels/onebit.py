@@ -106,7 +106,7 @@ def onebit_quantize(g, err):
     if rc != 0:
         raise RuntimeError(f"onebit_quantize kernel launch failed: CUDA "
                            f"error {rc}")
-    onebit_quantize.launches += 1
+    build.count_launch(onebit_quantize)
     return packed, scale, new_err
 
 
@@ -140,7 +140,7 @@ def onebit_dequantize(packed, scale):
     if rc != 0:
         raise RuntimeError(f"onebit_dequantize kernel launch failed: CUDA "
                            f"error {rc}")
-    onebit_dequantize.launches += 1
+    build.count_launch(onebit_dequantize)
     return out
 
 

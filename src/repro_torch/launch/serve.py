@@ -1,18 +1,32 @@
 """Serving launcher: a thin argparse shim over ``frontend.Plan/Session``.
 
-Counterpart: ``repro/launch/serve.py``, the wave loop (``Session.serve``):
-a fixed pool of decode slots; finished sequences (hit --gen-len) are
-retired and refilled from the waiting queue with a fresh prefill, each
-wave a futurized tree.  The streaming gateway (``--serve-stream``) comes
-with ROADMAP item 7.  Runs on the GPU unless ``--device cpu`` is given.
+Counterpart: ``repro/launch/serve.py``.  Two serving loops share this
+entry point:
+
+* the default wave loop (``Session.serve``): a fixed pool of decode slots;
+  finished sequences (hit --gen-len) are retired and refilled from the
+  waiting queue with a fresh prefill, each wave a futurized tree;
+* ``--serve-stream`` (``Session.serve_stream``): the continuous-batching
+  gateway - requests arrive mid-flight through a ``RequestQueue``,
+  admission control caps in-flight work (``--max-inflight``) and expires
+  laggards (``--deadline-ms``), and prefill state parks in the paged
+  inference cache so retire-and-refill loads pages instead of
+  recomputing.  ``--replicas N`` fans the gateway out over N model
+  replicas in this process, and ``--kill-replica-at IDX:ROUND`` runs the
+  replica-death drill.
+
+``--stats-out FILE`` writes the run summary as JSON.  Runs on the GPU
+unless ``--device cpu`` is given.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --full --requests 8 \
       --slots 4 --prompt-len 512 --gen-len 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \
-      --full --requests 8 --slots 4 --prompt-len 512 --gen-len 32
+      --full --serve-stream --requests 8 --slots 4 --prompt-len 512 \
+      --gen-len 32
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
-      --arch zamba2-2.7b --requests 5 --slots 2 --prompt-len 16 --gen-len 8
+      --serve-stream --replicas 2 --kill-replica-at 0:2 --requests 5 \
+      --slots 2 --prompt-len 16 --gen-len 4 --stats-out serve_stats.json
 """
 from __future__ import annotations
 
@@ -21,17 +35,40 @@ import json
 
 from repro_torch.frontend import cli_args, plan_from_args, serve_flags
 
-# result keys that serialize cleanly
-_JSON_KEYS = ("requests", "tokens", "padded_tokens", "tokens_per_s",
-              "waves", "runtime_stats")
+# result keys that serialize cleanly (handles hold threads and futures)
+_JSON_KEYS = ("requests", "completed", "cancelled", "expired", "failed",
+              "rejected", "tokens", "padded_tokens", "tokens_per_s",
+              "rounds", "epochs", "waves", "replicas",
+              "replica_assignments", "streams", "cache", "runtime_stats")
+
+
+def _parse_kill_at(spec):
+    """``IDX:ROUND`` -> ``(idx, round)`` for the replica-death drill."""
+    if spec is None:
+        return None
+    try:
+        idx, round_ = spec.split(":")
+        return (int(idx), int(round_))
+    except ValueError:
+        raise SystemExit(f"--kill-replica-at wants IDX:ROUND, got {spec!r}")
 
 
 def run(args) -> dict:
     plan = plan_from_args(args)
     with plan.compile() as session:
-        out = session.serve(
-            requests=args.requests, prompt_len=args.prompt_len,
-            gen_len=args.gen_len, slots=args.slots)
+        if getattr(args, "serve_stream", False):
+            out = session.serve_stream(
+                requests=args.requests, prompt_len=args.prompt_len,
+                gen_len=args.gen_len, slots=args.slots,
+                max_inflight=args.max_inflight,
+                deadline_ms=args.deadline_ms,
+                replicas=getattr(args, "replicas", None),
+                kill_replica_at_round=_parse_kill_at(
+                    getattr(args, "kill_replica_at", None)))
+        else:
+            out = session.serve(
+                requests=args.requests, prompt_len=args.prompt_len,
+                gen_len=args.gen_len, slots=args.slots)
     if getattr(args, "stats_out", None):
         payload = {k: out[k] for k in _JSON_KEYS if k in out}
         with open(args.stats_out, "w") as f:

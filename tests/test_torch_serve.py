@@ -223,6 +223,74 @@ def test_serve_cli_on_cpu_writes_its_stats(tmp_path):
     assert serve_cli.parser().parse_args([]).device == "cuda"
 
 
+def test_serve_cli_runs_the_gateway_drill_and_writes_its_stats(tmp_path):
+    """``--serve-stream --replicas 2 --kill-replica-at 0:2``: every request
+    completes on the survivor, and the stats file carries the gateway's
+    summary keys."""
+    out = tmp_path / "stream.json"
+    args = serve_cli.parser().parse_args(
+        ["--device", "cpu", "--serve-stream", "--replicas", "2",
+         "--kill-replica-at", "0:2", "--requests", "5", "--slots", "2",
+         "--prompt-len", "16", "--gen-len", "4", "--stats-out", str(out)])
+    assert args.replicas == 2 and args.kill_replica_at == "0:2"
+    res = serve_cli.run(args)
+    stats = json.loads(out.read_text())
+    assert set(stats) == {"requests", "completed", "cancelled", "expired",
+                          "failed", "rejected", "tokens", "padded_tokens",
+                          "tokens_per_s", "rounds", "epochs", "replicas",
+                          "replica_assignments", "streams", "cache",
+                          "runtime_stats"}
+    assert stats["completed"] == res["completed"] == 5
+    assert stats["replicas"] == 2 and stats["tokens"] == 5 * 4
+    assert set(stats["replica_assignments"].values()) == {1}
+    serve = stats["runtime_stats"]["serve"]
+    assert serve["replica_deaths"] == 1
+    assert serve["cross_replica_page_fetches"] >= 1
+    assert serve.get("prefill_recompute", 0) == 0
+    assert stats["cache"]["pages_live"] == 0
+    with pytest.raises(SystemExit):
+        serve_cli._parse_kill_at("0-2")
+
+
+def test_launch_counts_lose_no_increment_under_threads():
+    """Eight threads count launches of every kernel wrapper at once, with
+    the interpreter switching threads as often as it can: each count is
+    exact."""
+    import sys
+    import threading
+
+    from repro_torch import kernels
+    from repro_torch.kernels import build
+
+    wrappers = (kernels.flash_attention, kernels.flash_attention_bwd,
+                kernels.mamba2_chunk_scan, kernels.mamba2_chunk_scan_bwd,
+                kernels.onebit_quantize, kernels.onebit_dequantize)
+    saved = [w.launches for w in wrappers]
+    interval = sys.getswitchinterval()
+    n_threads, per_thread = 8, 2000
+
+    def work():
+        for _ in range(per_thread):
+            for w in wrappers:
+                build.count_launch(w)
+    try:
+        sys.setswitchinterval(1e-6)
+        for w in wrappers:
+            w.launches = 0
+        threads = [threading.Thread(target=work) for _ in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+            assert not t.is_alive()
+        assert [w.launches for w in wrappers] == \
+            [n_threads * per_thread] * len(wrappers)
+    finally:
+        sys.setswitchinterval(interval)
+        for w, n in zip(wrappers, saved):
+            w.launches = n
+
+
 def test_plan_defaults_to_cuda_and_raises_without_it(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert Plan().device == "cuda"
@@ -235,7 +303,7 @@ def test_plan_defaults_to_cuda_and_raises_without_it(monkeypatch):
     (dict(localities=2), "item 12"),
     (dict(ddp=True, localities=2), "item 12"),
     (dict(spmd=True), "item 13"), (dict(elastic=True), "item 13"),
-    (dict(replicas=2), "item 7"), (dict(data=2), "item 14")])
+    (dict(replicas=2, localities=2), "item 12"), (dict(data=2), "item 14")])
 def test_plans_beyond_one_device_name_their_roadmap_item(field, item):
     with pytest.raises(NotImplementedError, match=item):
         Plan(device="cpu", **field).compile()
