@@ -26,20 +26,26 @@ without the final ``{"ok": true, ...}`` line:
    each (P, N) and with a final-state gradient, in both dtypes, through
    autograd and by its wrapper to the same bits; K3a/K3b the 1-bit codec
    at a 32 MB bucket and at the largest bucket of the training plan, and
-   K3b also at small and wide rows.  Every time is taken twice
+   K3b also at small and wide rows; K1 also at granite-moe-1b-a400m's
+   shapes (d=64: its prefill at batch 4 and the gateway's batch 1, its
+   training batch 8, forward and backward).  Every time is taken twice
    (``timings``): on the device, and host-paced, as earlier versions of
-   this script took it.  K1 refuses a bf16 view off a 16-byte boundary;
+   this script took it.  K1 refuses a bf16 view off a 16-byte boundary.
+   One granite-moe-1b-a400m MoE layer at full width (2,048 tokens, bf16):
+   each dispatch engine reruns to the same bits, and with no token dropped
+   the two agree;
 4. reference: the tiny dense and zamba configs served on the card agree
-   with the same parameters served on the CPU, and tiny qwen3-4b (plain,
+   with the same parameters served on the CPU (granite-moe-1b-a400m's
+   too), and tiny qwen3-4b (plain,
    and world-1 DDP with the onebit codec) and tiny zamba2-2.7b train 8
    steps on the card with the CPU's losses (the port's CPU path is tied
    to the JAX package by the tests);
 5. serve: ``Plan(arch=..., tiny=False).compile().serve(...)`` for
-   qwen3-4b and for zamba2-2.7b, each at full width and full depth with
-   random weights from a seed;
+   qwen3-4b, zamba2-2.7b and granite-moe-1b-a400m, each at full width and
+   full depth with random weights from a seed;
 6. serve_stream: the serving gateway,
-   ``Plan(arch=..., tiny=False).compile().serve_stream(...)``, for
-   qwen3-4b and zamba2-2.7b at full width and depth: 8 requests arriving
+   ``Plan(arch=..., tiny=False).compile().serve_stream(...)``, for the
+   same three at full width and depth: 8 requests arriving
    mid-flight, each prefilled once at batch 1 and parked in host pages
    until a slot frees; an independent greedy loop over the same steps
    reproduces two of the streams bit for bit, two replicas and the
@@ -48,21 +54,33 @@ without the final ``{"ok": true, ...}`` line:
 7. train: ``Plan(arch="qwen3-4b", tiny=False, overrides={"n_layers":
    12}).compile().train(...)`` at full width, plain and as world-1 DDP
    with the onebit codec, and ``Plan(arch="zamba2-2.7b",
-   tiny=False).compile().train(...)`` at full width and depth;
-8. where the time goes: one prefill (at the wave's batch and at batch 1)
+   tiny=False).compile().train(...)`` and ``Plan(arch=
+   "granite-moe-1b-a400m", tiny=False).compile().train(...)`` at full
+   width and depth;
+8. checkpoint drill, granite-moe-1b-a400m at full size: 6 steps straight
+   (saved at step 6), then 6 steps saving every 3 with an injected
+   failure at step 4, then ``resume=True`` to step 6 from the step-3
+   checkpoint; the resumed losses, parameters and optimizer state (every
+   leaf's checksum) are bit-identical to the straight run's.  Prints the
+   checkpoint's bytes, each save's host copy and write and the restore
+   (wall time, GB/s) and the disk's size;
+9. HAR CNN: the paper's Fig. 1 model, loss and gradients at minibatch
+   8,000 on the card against the CPU, and its forward's device time;
+10. where the time goes: one prefill (at the wave's batch and at batch 1)
    and one decode step of each served configuration, one plain and one
-   DDP qwen3-4b train step and one zamba2-2.7b train step; the prefills
+   DDP qwen3-4b train step, one zamba2-2.7b and one granite-moe-1b-a400m
+   train step; the prefills
    and the train steps must show K1's tensor-core kernels by name and
    none of its f32 kernels,
    zamba2-2.7b's prefill and train step K2's tensor-core kernel and not
    its f32 one, the zamba2-2.7b train step K2's backward kernel, the DDP
    step K3b's row-stream kernel;
-9. the gateway's readings as a JSON line, the ``kernels`` JSON line,
-   then the ``ok`` line last.
+11. the gateway's and the checkpoint's readings as JSON lines, the
+   ``kernels`` JSON line, then the ``ok`` line last.
 
 Every kernel launch count is set to 0 just before each run of phases 5,
-6 and 7 and read just after; each run asserts the counts its layers
-give.
+6 and 7 and of the drill's resumed run, and read just after; each run
+asserts the counts its layers give.
 
 It imports ``torch`` and ``repro_torch`` only.
 """
@@ -70,8 +88,10 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -83,10 +103,13 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 import torch.utils._pytree as pytree  # noqa: E402
 
+from repro_torch.checkpoint import checkpoint as ckpt_io  # noqa: E402
+from repro_torch.checkpoint import format as ckfmt  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import steps  # noqa: E402
 from repro_torch.core.sharding import init_params, is_spec  # noqa: E402
-from repro_torch.data.pipeline import stream_for, to_device  # noqa: E402
+from repro_torch.data.pipeline import (  # noqa: E402
+    HARStream, stream_for, to_device)
 from repro_torch.core.paging import InferenceCache  # noqa: E402
 from repro_torch.frontend import Plan  # noqa: E402
 from repro_torch.frontend import gateway  # noqa: E402
@@ -97,7 +120,7 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 from repro_torch.kernels.mamba2_scan import (  # noqa: E402
     TILE as SCAN_TILE, mamba2_chunk_scan, mamba2_chunk_scan_bwd,
     mamba2_chunk_scan_bwd_ref, mamba2_chunk_scan_ref)
-from repro_torch.models import attention, ssm  # noqa: E402
+from repro_torch.models import attention, cnn, moe, ssm  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.optim import optimizers  # noqa: E402
 from repro_torch.kernels.onebit import (  # noqa: E402
@@ -138,8 +161,30 @@ ZAMBA_TRAIN_SCAN = (ZAMBA_TRAIN["batch"], ZAMBA_HEADS, _ZAMBA_CFG.ssm_groups,
                     ZAMBA_TRAIN["seq"], _ZAMBA_CFG.ssm_head_dim,
                     _ZAMBA_CFG.ssm_state, _ZAMBA_CFG.ssm_chunk,
                     torch.bfloat16)
+# granite-moe-1b-a400m trains at full width and full depth (24 layers,
+# 1.385 B parameters: 22 GB of float32 state with adamw), serves in bf16,
+# and runs the checkpoint drill: (params, opt) is 1.385 B x 12 B, 16.6 GB
+MOE_TRAIN = dict(arch="granite-moe-1b-a400m", tiny=False, batch=8, seq=512)
+_MOE_CFG = get_config(MOE_TRAIN["arch"])
+MOE_TRAIN_ATTN = (MOE_TRAIN["batch"], _MOE_CFG.n_heads, _MOE_CFG.n_kv_heads,
+                  MOE_TRAIN["seq"], _MOE_CFG.head_dim, torch.bfloat16, True,
+                  None)
+# the drill: saves every CKPT_EVERY steps, fails at step CKPT_FAIL_AT, and
+# needs room for two committed checkpoints beside a temp one on the disk;
+# where there is none, the drill's depth is cut (printed)
+CKPT_EVERY, CKPT_FAIL_AT = 3, 4
+CKPT_DISK_SHARE = 0.8
+# one MoE layer at granite's full width: 2,048 tokens (4 x 512, the serve
+# prefill's), bf16; with cap_factor E / k no assignment can drop
+MOE_LAYER_TOKENS = 2048
+# the HAR CNN of the paper's Fig. 1, at its minibatch; the card's float32
+# against the CPU's: the loss within HAR_LOSS_RTOL, each gradient leaf
+# within HAR_GRAD_TOL of its largest |gradient| (sums in other orders)
+HAR_BATCH = 8000
+HAR_LOSS_RTOL = 1e-5
+HAR_GRAD_TOL = 1e-4
 SERVE = dict(requests=8, slots=4, prompt_len=512, gen_len=32)
-SERVE_ARCHS = ("qwen3-4b", "zamba2-2.7b")
+SERVE_ARCHS = ("qwen3-4b", "zamba2-2.7b", "granite-moe-1b-a400m")
 # the serving gateway prefills every request alone: K1 at batch 1 for
 # qwen3-4b and zamba2-2.7b's shared block, K2 at batch 1
 SERVE_B1_ATTN = (1, _TRAIN_CFG.n_heads, _TRAIN_CFG.n_kv_heads,
@@ -148,6 +193,8 @@ SERVE_B1_ATTN = (1, _TRAIN_CFG.n_heads, _TRAIN_CFG.n_kv_heads,
 ZAMBA_SERVE_B1_ATTN = (1, _ZAMBA_CFG.n_heads, _ZAMBA_CFG.n_kv_heads,
                        SERVE["prompt_len"], _ZAMBA_CFG.head_dim,
                        torch.bfloat16, True, None)
+MOE_SERVE_ATTN = (SERVE["slots"], *MOE_TRAIN_ATTN[1:])
+MOE_SERVE_B1_ATTN = (1, *MOE_TRAIN_ATTN[1:])
 SERVE_B1_SCAN = (1, ZAMBA_HEADS, _ZAMBA_CFG.ssm_groups, SERVE["prompt_len"],
                  _ZAMBA_CFG.ssm_head_dim, _ZAMBA_CFG.ssm_state,
                  _ZAMBA_CFG.ssm_chunk, torch.bfloat16)
@@ -163,7 +210,8 @@ PAGE_BYTES = 1 << 16        # serve_stream's default page size
 # (B, H, Hkv, S, d, dtype, causal, window): the serving slices' shapes
 # first (qwen3-4b, then zamba2-2.7b's shared block), then Session.train's
 # (qwen3-4b, then zamba2-2.7b), then the gateway's batch-1 prefills (the
-# same two), then the edge cases.  bf16 runs the
+# same two), then granite-moe-1b-a400m's (d=64: serve prefill, gateway
+# batch 1, training), then the edge cases.  bf16 runs the
 # tensor-core kernels, f32 the CUDA-core kernels, so each edge is held in
 # both dtypes.
 FA_CASES = [
@@ -173,6 +221,9 @@ FA_CASES = [
     ZAMBA_TRAIN_ATTN,
     SERVE_B1_ATTN,
     ZAMBA_SERVE_B1_ATTN,
+    MOE_SERVE_ATTN,
+    MOE_SERVE_B1_ATTN,
+    MOE_TRAIN_ATTN,
     (2, 8, 2, 200, 128, torch.bfloat16, True, None),      # ragged S
     (1, 32, 32, 256, 96, torch.bfloat16, True, None),     # d=96 (phi3)
     (2, 4, 2, 256, 32, torch.float32, True, None),        # d=32 f32 (tiny)
@@ -184,7 +235,7 @@ FA_CASES = [
     (2, 4, 4, 100, 80, torch.bfloat16, True, None),       # d=80, ragged S
     (1, 8, 8, 512, 80, torch.bfloat16, True, 128),        # d=80, window
 ]
-FA_TIMED = 6            # the first FA_TIMED cases are timed
+FA_TIMED = 9            # the first FA_TIMED cases are timed
 # K2 tolerances of tests/test_kernels.py's sweep, as atol and rtol
 SCAN_TOL = {torch.float32: 2e-4, torch.bfloat16: 6e-2}
 # (B, H, G, L, P, N, chunk, dtype), G the groups of Bm, Cm: zamba2-2.7b's
@@ -211,8 +262,9 @@ SCAN_CASES = [
 ]
 SCAN_TIMED = 4          # the first SCAN_TIMED cases are timed
 # K1 backward: qwen3-4b's training shapes (a DDP shard, then the whole
-# batch of Session.train), zamba2-2.7b's shared block in training (d=80)
-# and phi3-mini's heads (d=96), all four timed, then small shapes in
+# batch of Session.train), zamba2-2.7b's shared block in training (d=80),
+# phi3-mini's heads (d=96) and granite-moe-1b-a400m's training shape
+# (d=64), all five timed, then small shapes in
 # float32 and their bf16 twins: GQA and MHA, causal on and off, a window,
 # ragged S, each head dim the backward is built for
 FA_BWD_CASES = [
@@ -220,6 +272,7 @@ FA_BWD_CASES = [
     TRAIN_ATTN,
     ZAMBA_TRAIN_ATTN,
     (1, 32, 32, 512, 96, torch.bfloat16, True, None),     # phi3-mini heads
+    MOE_TRAIN_ATTN,
     (2, 8, 2, 200, 64, torch.float32, True, None),        # GQA, ragged S
     (1, 4, 4, 256, 64, torch.float32, False, None),       # MHA, non-causal
     (2, 4, 2, 256, 32, torch.float32, True, 64),          # window, d=32
@@ -235,7 +288,7 @@ FA_BWD_CASES = [
     (2, 4, 2, 130, 96, torch.float32, True, None),        # d=96, GQA
     (2, 4, 2, 130, 96, torch.bfloat16, True, None),
 ]
-FA_BWD_TIMED = 4        # the first FA_BWD_TIMED cases are timed
+FA_BWD_TIMED = 5        # the first FA_BWD_TIMED cases are timed
 # f32: within 1e-4 of the largest gradient magnitude (at least 1); bf16:
 # the plain version rounds its products and probabilities to bf16, the
 # kernel sums in f32, so bf16 is held to 3e-2 of the largest magnitude
@@ -413,13 +466,26 @@ def scan_bound(xdt, a, Bm, Cm, state_bytes: int) -> tuple[float, str]:
     return roofline(nbytes, scan_ops(*xdt.shape, Bm.shape[-1]))
 
 
+def weight_uses(cfg, tree) -> float:
+    """Elements of the matrices in ``tree`` that one token multiplies:
+    every matrix, but a mixture of experts' expert weights only top_k /
+    n_experts of them (the router's for every token)."""
+    total = sum(t.numel() for t in pytree.tree_leaves(tree) if t.dim() >= 2)
+    if cfg.family == "moe":
+        experts = sum(t.numel() for layer in tree
+                      for k, t in layer["moe"].items() if k != "router")
+        total -= experts * (cfg.n_experts - cfg.top_k) // cfg.n_experts
+    return total
+
+
 def step_bound(cfg, params, cache, slots: int, new_tokens: int,
                keys_seen: int) -> tuple[float, str]:
     """Least time for one prefill (``new_tokens`` per row) or decode step
     (1): every weight but the embedding table (a gather of a few rows)
     and the whole cache moved once; 2 operations per weight use and new
     token in the layers' products (zamba's shared block is used once per
-    group), the unembedding of one token a row, attention's 4*hd per
+    group, a moe token uses top_k of the experts: ``weight_uses``), the
+    unembedding of one token a row, attention's 4*hd per
     (query, key) pair of ``keys_seen`` pairs a row and head in each
     attention layer (counted from the cache), and the SSD scan of each
     mamba layer (``scan_ops``)."""
@@ -429,13 +495,10 @@ def step_bound(cfg, params, cache, slots: int, new_tokens: int,
     nbytes -= emb.numel() * emb.element_size()
     n_attn = len(_kv_caches(cache))
 
-    def mm(tree):
-        return sum(t.numel() for t in pytree.tree_leaves(tree)
-                   if t.dim() >= 2)
-    weight_uses = mm(params["stack"])
+    uses = weight_uses(cfg, params["stack"])
     if cfg.family == "zamba":
-        weight_uses += (n_attn - 1) * mm(params["stack"]["shared"])
-    ops = (2 * slots * new_tokens * weight_uses
+        uses += (n_attn - 1) * weight_uses(cfg, params["stack"]["shared"])
+    ops = (2 * slots * new_tokens * uses
            + 2 * slots * params["unembed"]["w"].numel()
            + 4 * cfg.head_dim * slots * cfg.n_heads * keys_seen * n_attn)
     if cfg.family == "zamba":
@@ -1117,12 +1180,13 @@ def train_ops(cfg, params, batch: int, seq: int) -> int:
     token in a forward, 4 in the backward.  Dense: each layer forward
     twice (remat's recompute), the unembedding counted as a layer (the
     formula of this script's earlier readings); attention 4*hd per causal
-    pair a forward, 10*hd backward.  Zamba: each mamba layer forward three
-    times (nested remat), the shared block twice a group, the unembedding
-    once; the SSD scan ``scan_ops`` a forward, ``scan_bwd_ops`` backward."""
+    pair a forward, 10*hd backward; a moe token's expert weights top_k /
+    n_experts of them (``weight_uses``).  Zamba: each mamba layer forward
+    three times (nested remat), the shared block twice a group, the
+    unembedding once; the SSD scan ``scan_ops`` a forward,
+    ``scan_bwd_ops`` backward."""
     def mm(tree):
-        return sum(t.numel() for t in pytree.tree_leaves(tree)
-                   if t.dim() >= 2)
+        return weight_uses(cfg, tree)
     tokens = batch * seq
     attn = batch * cfg.n_heads * causal_pairs(seq, True, None) \
         * cfg.head_dim * (4 + 4 + 10)
@@ -1518,6 +1582,255 @@ def serve_stream_full(arch: str) -> tuple:
     return counts, readings
 
 
+def check_moe_layer() -> dict:
+    """One granite-moe-1b-a400m MoE layer at full width on the card:
+    ``MOE_LAYER_TOKENS`` tokens of unit scale, bf16 parameters from seed 0.
+    At the default capacity factor each dispatch engine reruns to the same
+    bits (no atomics: the sort engine writes each kept assignment into its
+    own slot and sums a token's contributions in a fixed order); at a
+    capacity factor of E / k no assignment drops, and the two engines
+    agree within the bf16 kernel-test tolerance ``TOL`` times max(1, the
+    output's largest magnitude).  Returns each engine's time (not a
+    kernel: both are PyTorch calls, as the reference's are jnp)."""
+    cfg = steps._serve_cfg(_MOE_CFG)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    p = init_params(moe.moe_specs(cfg.d_model, cfg.d_ff, cfg.n_experts), gen,
+                    "cuda")
+    p = {k: v.to(torch.bfloat16) for k, v in p.items()}
+    x = torch.randn(1, MOE_LAYER_TOKENS, cfg.d_model, generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    kw = dict(top_k=cfg.top_k, group_size=cfg.moe_group)
+    out, ms = {}, {}
+    for dispatch in ("einsum", "sort"):
+        y, aux = moe.apply_moe(x, p, dispatch=dispatch, **kw)
+        again, aux2 = moe.apply_moe(x, p, dispatch=dispatch, **kw)
+        torch.cuda.synchronize()
+        same = torch.equal(y, again) and torch.equal(aux, aux2)
+        print(f"MoE layer, {dispatch} dispatch, d={cfg.d_model} "
+              f"E={cfg.n_experts} k={cfg.top_k}, {MOE_LAYER_TOKENS} tokens, "
+              f"bf16, cap_factor 1.25: rerun "
+              f"{'bit-identical' if same else 'DIFFERS'}")
+        if not same or not bool(torch.isfinite(y).all()):
+            raise AssertionError(f"MoE {dispatch} dispatch is not "
+                                 f"reproducible on the card")
+        out[dispatch], _ = moe.apply_moe(
+            x, p, dispatch=dispatch,
+            cap_factor=cfg.n_experts / cfg.top_k, **kw)
+        ms[dispatch] = cuda_ms(lambda: moe.apply_moe(x, p, dispatch=dispatch,
+                                                     **kw), iters=10)
+    err = (out["einsum"].float() - out["sort"].float()).abs().max().item()
+    limit = TOL[torch.bfloat16] * max(
+        1.0, out["einsum"].float().abs().max().item())
+    print(f"no drops (cap_factor {cfg.n_experts / cfg.top_k:g}): einsum "
+          f"against sort max abs err {err:.3g} (tolerance {limit:.3g}); "
+          f"device time einsum {ms['einsum']:.4f} ms, sort "
+          f"{ms['sort']:.4f} ms a layer at cap_factor 1.25")
+    if err > limit:
+        raise AssertionError("the MoE dispatch engines disagree")
+    return {"einsum_ms": ms["einsum"], "sort_ms": ms["sort"],
+            "max_abs_err": err}
+
+
+class CkptClock:
+    """Times the checkpoint layer inside ``Session.train``: wraps
+    ``CheckpointManager.save`` (its return ends the host copy; the
+    returned future's completion ends the write) and ``restore``."""
+
+    def __init__(self):
+        self.saves, self.restores = [], []
+
+    def __enter__(self):
+        cls = ckpt_io.CheckpointManager
+        self._orig = cls.save, cls.restore
+        save, restore = self._orig
+        clock = self
+
+        def timed_save(mgr, step, tree, **kw):
+            t0 = time.perf_counter()
+            fut = save(mgr, step, tree, **kw)
+            rec = {"step": step, "host_s": time.perf_counter() - t0}
+            clock.saves.append(rec)
+            fut.add_done_callback(lambda f, t1=time.perf_counter(): rec.update(
+                write_s=time.perf_counter() - t1))
+            return fut
+
+        def timed_restore(mgr, like, **kw):
+            t0 = time.perf_counter()
+            out = restore(mgr, like, **kw)
+            torch.cuda.synchronize()
+            clock.restores.append(time.perf_counter() - t0)
+            return out
+        cls.save, cls.restore = timed_save, timed_restore
+        return self
+
+    def __exit__(self, *exc):
+        ckpt_io.CheckpointManager.save, ckpt_io.CheckpointManager.restore = \
+            self._orig
+
+
+def _leaf_checksums(step_dir) -> tuple[list, int]:
+    """Every leaf checksum of a committed checkpoint in leaf order, and
+    its shard bytes."""
+    m = ckfmt.load_manifest(step_dir)
+    return ([leaf["checksum"] for sh in m["shards"] for leaf in sh["leaves"]],
+            sum(sh["nbytes"] for sh in m["shards"]))
+
+
+def checkpoint_drill(train: dict) -> tuple:
+    """The crash-and-resume drill at full size, through ``Session.train``
+    on one repeated batch, in a ``tempfile.mkdtemp()`` removed at the end:
+    ``TRAIN_STEPS`` steps straight (saved once, at the last step); then
+    saving every ``CKPT_EVERY`` steps with an injected failure at step
+    ``CKPT_FAIL_AT`` (after the first save); then ``resume=True`` to
+    ``TRAIN_STEPS``, with every kernel launch count set to 0 just before
+    and read just after.  The resumed run's losses, final parameters and
+    final checkpoint (every leaf's checksum: parameters and optimizer
+    state) must equal the straight run's bit for bit.  If the disk cannot
+    hold two checkpoints the depth is cut (printed).  Returns (the resumed
+    run's counts, the readings)."""
+    root = tempfile.mkdtemp()
+    try:
+        free = shutil.disk_usage(root).free
+        cfg = Plan(**train, device="cpu").config()
+        n_params = sum(sp.size for sp in pytree.tree_leaves(
+            build_model(cfg).specs(), is_leaf=is_spec))
+        est = 12 * n_params                  # f32 params, adamw's m and v
+        layers = cfg.n_layers
+        while 2 * est * layers / cfg.n_layers > CKPT_DISK_SHARE * free \
+                and layers > 1:
+            layers -= 1
+        over = {} if layers == cfg.n_layers else {"n_layers": layers}
+        plan = Plan(**train, device="cuda", overrides=over)
+        phase(f"checkpoint drill: {cfg.name}, full width, {layers} of "
+              f"{cfg.n_layers} layers, {TRAIN_STEPS} steps")
+        usage = shutil.disk_usage(root)
+        print(f"checkpoint directory {root}: disk {usage.total / 1e9:.1f} GB,"
+              f" free {usage.free / 1e9:.1f} GB; a checkpoint of the full "
+              f"model is about {est / 1e9:.1f} GB"
+              + (f"; CUT to {layers} layers to fit two" if over else ""))
+        stream = RepeatStream(stream_for(plan.config(), batch=plan.batch,
+                                         seq=plan.seq, seed=plan.seed))
+        kw = dict(steps=TRAIN_STEPS, log_every=1, verbose=False)
+        with CkptClock() as clock:
+            with plan.compile() as session:
+                straight = session.train(stream, ckpt_dir=f"{root}/straight",
+                                         ckpt_every=TRAIN_STEPS, **kw)
+            want_sums, nbytes = _leaf_checksums(
+                f"{root}/straight/step_{TRAIN_STEPS:08d}")
+            want_params = straight.pop("params")
+            shutil.rmtree(f"{root}/straight")
+            drill = f"{root}/drill"
+            with plan.compile() as session:
+                try:
+                    session.train(stream, ckpt_dir=drill,
+                                  ckpt_every=CKPT_EVERY,
+                                  fail_at_step=CKPT_FAIL_AT, **kw)
+                except RuntimeError as e:
+                    print(f"the drill's run raised: {e}")
+                    if "injected node failure" not in str(e):
+                        raise
+                else:
+                    raise AssertionError("fail_at_step did not raise")
+            landed = ckpt_io.CheckpointManager(drill).all_steps()
+            print(f"committed before the failure: steps {landed}")
+            if landed != [CKPT_EVERY]:
+                raise AssertionError(f"checkpoints {landed}")
+            torch.cuda.synchronize()
+            _zero_counts()
+            with plan.compile() as session:
+                resumed = session.train(stream, ckpt_dir=drill,
+                                        ckpt_every=CKPT_EVERY, resume=True,
+                                        **kw)
+            counts = _counts()
+        got_sums, _ = _leaf_checksums(f"{drill}/step_{TRAIN_STEPS:08d}")
+        same_params = all(torch.equal(a, b) for a, b in zip(
+            pytree.tree_leaves(resumed["params"]),
+            pytree.tree_leaves(want_params)))
+        tail = straight["losses"][CKPT_EVERY:]
+        print(f"losses straight {' '.join(f'{x:.6f}' for x in straight['losses'])}"
+              f"; resumed from step {CKPT_EVERY}: "
+              f"{' '.join(f'{x:.6f}' for x in resumed['losses'])} "
+              f"({'bit-identical' if resumed['losses'] == tail else 'DIFFER'})"
+              f"; final parameters {'bit-identical' if same_params else 'DIFFER'}"
+              f"; the step-{TRAIN_STEPS} checkpoints' {len(want_sums)} leaf "
+              f"checksums {'equal' if got_sums == want_sums else 'DIFFER'}")
+        print(", ".join(f"{k} launches {v}" for k, v in counts.items()))
+        L = plan.config().n_layers
+        want = {k: 0 for k in counts}
+        want.update(flash_attention=(TRAIN_STEPS - CKPT_EVERY) * L * 2,
+                    flash_attention_bwd=(TRAIN_STEPS - CKPT_EVERY) * L)
+        if counts != want:
+            raise AssertionError(f"launch counts {counts}, want {want}")
+        if resumed["losses"] != tail or not same_params \
+                or got_sums != want_sums:
+            raise AssertionError("the resumed run is not bit-identical to "
+                                 "the straight run")
+        saves = [{"step": r["step"], "host_s": r["host_s"],
+                  "write_s": r["write_s"],
+                  "gb_per_s": nbytes / (r["host_s"] + r["write_s"]) / 1e9}
+                 for r in clock.saves]
+        for r in saves:
+            print(f"save of step {r['step']}: {nbytes} B, host copy "
+                  f"{r['host_s']:.2f} s, write (serialize, checksum, file) "
+                  f"{r['write_s']:.2f} s, {r['gb_per_s']:.2f} GB/s")
+        print(f"restore: {clock.restores[0]:.2f} s "
+              f"(read, verify, to the card), "
+              f"{nbytes / clock.restores[0] / 1e9:.2f} GB/s")
+        readings = {"layers": L, "checkpoint_bytes": nbytes,
+                    "leaves": len(want_sums), "saves": saves,
+                    "restore_s": clock.restores[0],
+                    "disk_total_bytes": usage.total,
+                    "disk_free_bytes": usage.free}
+        del want_params, resumed, straight
+        torch.cuda.empty_cache()
+        return counts, readings
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def check_har_cnn() -> dict:
+    """The HAR CNN (``models/cnn.py``) at the paper's minibatch of
+    ``HAR_BATCH`` windows (``HARStream``), float32: loss and gradients on
+    the card against the same parameters on the CPU, and the forward's
+    device time (Fig. 1's quantity) and that of loss and gradients."""
+    params = init_params(cnn.har_cnn_specs(), torch.Generator().manual_seed(0),
+                         "cpu")
+    batch = HARStream(batch=HAR_BATCH).batch_at(0)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        p = pytree.tree_map(
+            lambda t: t.detach().to(dev).requires_grad_(True), params)
+        loss = cnn.har_cnn_loss(p, to_device(batch, dev))
+        loss.backward()
+        runs[dev] = (loss.item(), [t.grad.cpu() for t in
+                                   pytree.tree_leaves(p)])
+    (lc, gc), (lg, gg) = runs["cpu"], runs["cuda"]
+    loss_err = abs(lg - lc) / abs(lc)
+    share = max((g - c).abs().max().item() / c.abs().max().item()
+                for c, g in zip(gc, gg))
+    p = pytree.tree_map(lambda t: t.to("cuda"), params)
+    b = to_device(batch, "cuda")
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: cnn.har_cnn_forward(p, b["x"]), iters=20)
+    pg = pytree.tree_map(lambda t: t.clone().requires_grad_(True), p)
+    leaves = pytree.tree_leaves(pg)
+    grad_ms = cuda_ms(lambda: torch.autograd.grad(
+        cnn.har_cnn_loss(pg, b), leaves), iters=10)
+    print(f"HAR CNN, minibatch {HAR_BATCH} x 128 x 9, float32: loss card "
+          f"{lg:.7f}, CPU {lc:.7f} (relative difference {loss_err:.3g}, "
+          f"tolerance {HAR_LOSS_RTOL:g}); gradients, the largest error of a "
+          f"leaf / its largest |gradient| {share:.3g} (tolerance "
+          f"{HAR_GRAD_TOL:g}); device time: forward {fwd_ms:.4f} ms, loss "
+          f"and gradients {grad_ms:.4f} ms")
+    if not (loss_err <= HAR_LOSS_RTOL and share <= HAR_GRAD_TOL
+            and all(torch.isfinite(g).all() for g in gg)):
+        raise AssertionError("the HAR CNN on the card disagrees with the "
+                             "CPU")
+    return {"batch": HAR_BATCH, "forward_ms": fwd_ms,
+            "loss_and_grad_ms": grad_ms, "loss_rel_err": loss_err,
+            "grad_err_share": share}
+
+
 def main() -> int:
     phase("device")
     if not torch.cuda.is_available():
@@ -1555,10 +1868,13 @@ def main() -> int:
     onebit = check_onebit(torch.Generator(device="cuda").manual_seed(0),
                           [ONEBIT_ROWS, 300, max(buckets) // 1024])
     check_dequant_shapes(torch.Generator(device="cuda").manual_seed(0))
+    phase("one MoE layer of granite-moe-1b-a400m at full width")
+    moe_layer = check_moe_layer()
 
     phase("reference: card against CPU on tiny configs")
     check_reference("qwen3-4b")
     check_reference("qwen2.5-3b")
+    check_reference("granite-moe-1b-a400m")
     # the card's K2 sums the scan in 64-row tiles, the CPU's plain version
     # step by step: float32 sums in two orders, which the gated norms of
     # the mamba layers carry into the logits at about 1e-4, so zamba is
@@ -1577,6 +1893,10 @@ def main() -> int:
     launches["train"] = train_full(TRAIN, False, len(buckets))
     launches["ddp_onebit"] = train_full(TRAIN, True, len(buckets))
     launches["train_zamba"] = train_full(ZAMBA_TRAIN, False, 0)
+    launches["train_moe"] = train_full(MOE_TRAIN, False, 0)
+    launches["ckpt_resume"], ckpt_readings = checkpoint_drill(MOE_TRAIN)
+    phase("HAR CNN (the paper's Fig. 1 model) at minibatch 8000")
+    har = check_har_cnn()
 
     for arch in SERVE_ARCHS:
         phase(f"where the time goes: {arch}, one prefill at batch "
@@ -1591,8 +1911,10 @@ def main() -> int:
             if arch == "zamba2-2.7b":
                 check_ran(name, kernels, K2_TC, K2_F32)
     phase("where the time goes: one full-width train step, qwen3-4b plain "
-          "and world-1 DDP onebit, zamba2-2.7b plain (not counted)")
-    for train, ddp in ((TRAIN, False), (TRAIN, True), (ZAMBA_TRAIN, False)):
+          "and world-1 DDP onebit, zamba2-2.7b and granite-moe-1b-a400m "
+          "plain (not counted)")
+    for train, ddp in ((TRAIN, False), (TRAIN, True), (ZAMBA_TRAIN, False),
+                       (MOE_TRAIN, False)):
         name = (f"{train['arch']} "
                 f"{'DDP train step' if ddp else 'train step'}")
         kernels = profile_train(train, ddp)
@@ -1605,6 +1927,8 @@ def main() -> int:
 
     phase("result")
     print(json.dumps({"serve_stream": stream_readings}))
+    print(json.dumps({"checkpoint": ckpt_readings, "har_cnn": har,
+                      "moe_layer": moe_layer}))
     by_path = {fn.__name__: {path: c[fn.__name__]
                              for path, c in launches.items()}
                for fn in KERNELS}
@@ -1619,18 +1943,23 @@ def main() -> int:
     fa_zamba_b8 = {f"zamba_train_{k}": v for k, v in fa[3].items()}
     fa_b1 = {f"serve_b1_{k}": v for k, v in fa[4].items()}
     fa_zamba_b1 = {f"zamba_serve_b1_{k}": v for k, v in fa[5].items()}
+    fa_moe = {f"moe_serve_{k}": v for k, v in fa[6].items()}
+    fa_moe_b1 = {f"moe_serve_b1_{k}": v for k, v in fa[7].items()}
+    fa_moe_b8 = {f"moe_train_b8_{k}": v for k, v in fa[8].items()}
     bwd_b8 = {f"train_b8_{k}": v for k, v in fa_bwd[1].items()}
     bwd_d80 = {f"zamba_train_{k}": v for k, v in fa_bwd[2].items()}
     bwd_d96 = {f"phi3_d96_{k}": v for k, v in fa_bwd[3].items()}
+    bwd_moe = {f"moe_train_{k}": v for k, v in fa_bwd[4].items()}
     largest = {k[len("largest_bucket_"):]: v for k, v in onebit.items()
                if k.startswith("largest_bucket_")}
     print(json.dumps({"kernels": [
         entry("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
               "src/repro/kernels/flash_attention.py:86", fa[0], **fa_zamba,
-              **fa_b8, **fa_zamba_b8, **fa_b1, **fa_zamba_b1),
+              **fa_b8, **fa_zamba_b8, **fa_b1, **fa_zamba_b1, **fa_moe,
+              **fa_moe_b1, **fa_moe_b8),
         entry("flash_attention_bwd",
               "src/repro_torch/csrc/flash_attention.cu", None, fa_bwd[0],
-              **bwd_b8, **bwd_d80, **bwd_d96,
+              **bwd_b8, **bwd_d80, **bwd_d96, **bwd_moe,
               note="no Pallas counterpart: the JAX package differentiates "
                    "attend_chunked (src/repro/models/attention.py:130)"),
         entry("mamba2_chunk_scan", "src/repro_torch/csrc/mamba2_scan.cu",

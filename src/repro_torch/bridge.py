@@ -9,7 +9,11 @@ per-layer dicts in their place.  The inputs are nested dicts of numpy
 arrays (float32; a caller holding ``ml_dtypes`` bfloat16 arrays converts
 them to float32 first), so this module needs nothing of JAX.
 ``tree_to_numpy`` maps back: a port tree (parameters, gradients, optimizer
-state) to the JAX layout in float32 numpy.
+state) to the JAX layout in float32 numpy.  ``host_leaves`` and
+``place_leaves`` are the checkpoint's pair: the leaves of a port tree in
+the JAX layout *and* in ``jax.tree.flatten``'s order (dict keys sorted,
+tuples in order), each in its own dtype, and back into a port tree.
+``cnn_params_from_numpy`` carries the HAR CNN's plain parameter dict.
 """
 from __future__ import annotations
 
@@ -19,7 +23,9 @@ import torch
 from .core.sharding import is_spec
 from .models.model import build_model
 
-__all__ = ["cache_from_numpy", "params_from_numpy", "tree_to_numpy"]
+__all__ = ["cache_from_numpy", "cnn_params_from_numpy", "host_leaves",
+           "leaf_names", "params_from_numpy", "place_leaves",
+           "tree_to_numpy"]
 
 
 def _flatten(tree, prefix=()) -> dict:
@@ -103,3 +109,135 @@ def tree_to_numpy(tree):
     if isinstance(tree, dict):
         return {k: tree_to_numpy(v) for k, v in tree.items()}
     return tree.detach().float().cpu().numpy()
+
+
+def cnn_params_from_numpy(tree: dict, device) -> dict:
+    """The JAX HAR CNN's parameters (``repro/models/cnn.py``: a plain dict
+    of ``{"w", "b"}`` per layer, no stacked dims) as float32 tensors on
+    ``device``, in the JAX layout (``models/cnn.py`` maps the conv weights
+    to torch's at each call)."""
+    return {name: {k: torch.tensor(np.asarray(v), dtype=torch.float32,
+                                   device=device) for k, v in layer.items()}
+            for name, layer in tree.items()}
+
+
+def _slots(tree, path=()) -> list:
+    """The leaves of ``tree`` grouped as the JAX layout's leaves, in
+    ``jax.tree.flatten``'s order: ``[(path, lead, [(index, leaf)])]``.  A
+    dict is visited in sorted key order and a tuple in order; a list level
+    is a leading dim (``lead``) of the leaves below it, row-major over
+    nested lists, and ``index`` is a leaf's place in those dims.  ``None``
+    holds no leaf.  Raises ``ValueError`` if a list's items differ in
+    structure, or it is empty."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [s for k in sorted(tree) for s in _slots(tree[k], path + (k,))]
+    if isinstance(tree, tuple):
+        return [s for i, t in enumerate(tree) for s in _slots(t, path + (i,))]
+    if isinstance(tree, list):
+        if not tree:
+            raise ValueError(f"{_name(path)}: an empty list has no JAX "
+                             f"layout")
+        parts = [_slots(t, path) for t in tree]
+        differ = ValueError(f"{_name(path)}: the list's items differ in "
+                            f"structure")
+        if any(len(part) != len(parts[0]) for part in parts):
+            raise differ
+        out = []
+        for rows in zip(*parts):
+            p, lead, _ = rows[0]
+            if any(r[0] != p or r[1] != lead for r in rows):
+                raise differ
+            out.append((p, (len(tree),) + lead,
+                        [((i,) + idx, leaf) for i, r in enumerate(rows)
+                         for idx, leaf in r[2]]))
+        return out
+    return [(path, (), [((), tree)])]
+
+
+def _name(path) -> str:
+    return "/".join(map(str, path)) or "<root>"
+
+
+def leaf_names(tree) -> list[str]:
+    """The paths of ``host_leaves``' leaves, in its order, copying
+    nothing."""
+    return [_name(path) for path, _, _ in _slots(tree)]
+
+
+def host_leaves(tree) -> tuple[list, list]:
+    """The leaves of a port tree (tensors, or numpy arrays and scalars) in
+    the JAX layout and in ``jax.tree.flatten``'s order (``_slots``):
+    ``(names, arrays)``.  Each array is an owned host copy in its leaf's
+    own dtype (int32 stays int32), taken now and synchronously, so that
+    a later in-place update of the tree cannot reach it.
+
+    Raises:
+        ValueError: a leaf's dtype has no numpy counterpart (bfloat16),
+            naming the leaf; the leaves of one stacked list differ in
+            shape or dtype; a list is empty or its items differ in
+            structure.
+    """
+    names, arrays = [], []
+    for path, lead, items in _slots(tree):
+        name = _name(path)
+        parts = [(idx, torch.as_tensor(leaf)) for idx, leaf in items]
+        first = parts[0][1]
+        try:
+            torch.empty(0, dtype=first.dtype).numpy()
+        except TypeError as e:
+            raise ValueError(f"leaf {name}: dtype {first.dtype} has no "
+                             f"numpy counterpart ({e})") from e
+        if any(t.shape != first.shape or t.dtype != first.dtype
+               for _, t in parts):
+            raise ValueError(f"leaf {name}: the stacked leaves differ in "
+                             f"shape or dtype")
+        out = torch.empty(lead + tuple(first.shape), dtype=first.dtype)
+        for idx, t in parts:
+            out[idx].copy_(t.detach())
+        names.append(name)
+        arrays.append(out.numpy())
+    return names, arrays
+
+
+def place_leaves(like, arrays: list):
+    """The inverse of ``host_leaves``: a tree with the structure of the
+    port tree ``like`` whose leaves are cut from ``arrays`` (in
+    ``host_leaves``' order and layout), each a tensor in its array's dtype
+    on the device of the ``like`` leaf it replaces.
+
+    Raises:
+        ValueError: the leaf count differs, or an array's shape is not the
+            ``like`` leaf's under its stacked dims.
+    """
+    slots = _slots(like)
+    if len(slots) != len(arrays):
+        raise ValueError(f"{len(arrays)} arrays for {len(slots)} leaves")
+    placed = {}
+    for (path, lead, items), arr in zip(slots, arrays):
+        want = lead + tuple(torch.as_tensor(items[0][1]).shape)
+        if tuple(arr.shape) != want:
+            raise ValueError(f"leaf {_name(path)}: shape {tuple(arr.shape)}"
+                             f" != {want}")
+        for idx, leaf in items:
+            dev = leaf.device if isinstance(leaf, torch.Tensor) else "cpu"
+            part = arr[idx + (...,)]          # a view, 0-d ones included
+            if not part.flags.c_contiguous:
+                part = part.copy()
+            placed[path, idx] = torch.from_numpy(part).to(dev)
+
+    def rebuild(t, path, idx):
+        # the walk of _slots: a dict key or tuple place extends the path,
+        # a list place the index
+        if t is None:
+            return None
+        if isinstance(t, dict):
+            return {k: rebuild(v, path + (k,), idx) for k, v in t.items()}
+        if isinstance(t, tuple):
+            return tuple(rebuild(v, path + (i,), idx)
+                         for i, v in enumerate(t))
+        if isinstance(t, list):
+            return [rebuild(v, path, idx + (i,)) for i, v in enumerate(t)]
+        return placed[path, idx]
+    return rebuild(like, (), ())

@@ -1,22 +1,21 @@
 """Architecture registry: --arch <id> resolves here.
 
-Counterpart: ``repro/configs/__init__.py``.  The five dense architectures
-and the zamba hybrid are ported; the other four ids wait for their
-families and raise ``NotImplementedError`` naming the ROADMAP item.
+Counterpart: ``repro/configs/__init__.py``.  The five dense architectures,
+the two MoE ones and the zamba hybrid are ported; the other two ids wait
+for their families and raise ``NotImplementedError`` naming the ROADMAP
+item.
 """
 from .base import ArchConfig  # noqa: F401
 
-from . import (chameleon_34b, mistral_nemo_12b, phi3_mini, qwen25_3b,
-               qwen3_4b, zamba2_27b)
+from . import (chameleon_34b, granite_moe_1b, mistral_nemo_12b, phi35_moe,
+               phi3_mini, qwen25_3b, qwen3_4b, zamba2_27b)
 
 REGISTRY = {m.CONFIG.name: m.CONFIG for m in (
-    chameleon_34b, mistral_nemo_12b, qwen3_4b, qwen25_3b, phi3_mini,
-    zamba2_27b)}
+    chameleon_34b, granite_moe_1b, mistral_nemo_12b, phi35_moe, qwen3_4b,
+    qwen25_3b, phi3_mini, zamba2_27b)}
 
 # arch id -> the ROADMAP item that ports its family
 PENDING = {
-    "granite-moe-1b-a400m": "ROADMAP item 10 (MoE)",
-    "phi3.5-moe-42b-a6.6b": "ROADMAP item 10 (MoE)",
     "xlstm-350m": "ROADMAP item 11 (recurrent families)",
     "whisper-medium": "ROADMAP item 11 (encoder-decoder)",
 }

@@ -694,6 +694,10 @@ class FuturizedGraph:
                     self._stats.record_task(node.lane, dt)
                     self._in_flight -= 1
                     self._complete_locked(node, value=value)
+            # drop the task's arguments and value here: an idle worker's
+            # frame would hold them (a checkpoint's host copies) until its
+            # next task
+            args = kwargs = fn = a = kw = value = None
 
     def _complete_locked(self, node: PhyFuture, *, value: Any):
         node._state = TaskState.DONE

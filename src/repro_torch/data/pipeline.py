@@ -1,13 +1,13 @@
 """Data pipeline: deterministic synthetic streams and host prefetch.
 
-Counterpart: ``repro/data/pipeline.py:26-62,86-163`` (``LMStream``,
-``stream_for``, ``Prefetcher``).  The streams are numpy, drawn exactly as
+Counterpart: ``repro/data/pipeline.py:26-163`` (``LMStream``,
+``stream_for``, ``HARStream``, ``Prefetcher``).  The streams are numpy, drawn exactly as
 the reference draws them, so a step's batch is the reference's batch.
 ``Prefetcher`` builds batch ``step + k`` as a ``Lane.PREFETCH`` node of the
 futurized runtime while step ``step`` runs, and places it on the
 session's device (tokens and labels as int64), where the reference places
-it by shardings; with no device the batch stays numpy on the host.  The
-HAR stream waits for the CNN (ROADMAP item 9).
+it by shardings; with no device the batch stays numpy on the host.
+``HARStream`` feeds the HAR CNN (``models/cnn.py``).
 
 Synthetic LM stream: a noisy affine bigram process
     x_{t+1} = (a * x_t + b) mod V   with prob (1 - noise), else uniform
@@ -23,7 +23,7 @@ import torch
 
 from ..core.futures import FuturizedGraph, Lane
 
-__all__ = ["LMStream", "Prefetcher", "stream_for"]
+__all__ = ["HARStream", "LMStream", "Prefetcher", "stream_for"]
 
 
 @dataclasses.dataclass
@@ -63,6 +63,27 @@ def stream_for(cfg, *, batch: int, seq: int, seed: int = 0) -> LMStream:
     return LMStream(vocab=cfg.vocab, batch=batch, seq=seq, seed=seed,
                     frames_dim=cfg.d_model if encdec else 0,
                     frames_len=cfg.enc_frames if encdec else 0)
+
+
+@dataclasses.dataclass
+class HARStream:
+    """Windows of 9-channel signals; class = dominant frequency band."""
+    batch: int
+    length: int = 128
+    channels: int = 9
+    classes: int = 6
+    seed: int = 0
+
+    def batch_at(self, step: int) -> dict:
+        rng = np.random.default_rng((self.seed << 20) ^ step)
+        y = rng.integers(0, self.classes, self.batch)
+        t = np.arange(self.length)[None, :, None] / self.length
+        freq = (y[:, None, None] + 1) * 2.0
+        phase = rng.random((self.batch, 1, self.channels)) * 6.28
+        x = np.sin(6.28 * freq * t + phase) + \
+            0.3 * rng.standard_normal((self.batch, self.length,
+                                       self.channels))
+        return {"x": x.astype(np.float32), "y": y.astype(np.int32)}
 
 
 def to_device(batch: dict, device) -> dict:

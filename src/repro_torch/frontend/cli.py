@@ -6,7 +6,8 @@ Counterpart: ``repro/frontend/cli.py`` (``cli_args``, ``plan_from_args``,
 ``--localities``, ``--ddp``, ``--grad-codec``, ``--ddp-shards``,
 ``--elastic`` and ``--replicas`` map onto the plan, which raises for more
 than one locality (ROADMAP item 12) and for elastic membership (item 13);
-the mesh flags come with item 14.
+the mesh flags come with item 14.  ``launch/train.py``'s ``--ckpt`` maps
+onto ``Plan.ckpt_dir``.
 """
 from __future__ import annotations
 

@@ -13,11 +13,12 @@ unless the caller asks for ``"cpu"``: a CUDA plan on a machine without a
 GPU raises, it never carries on on the CPU.  The port trains and serves
 on one device, in one process: ``Session.train`` runs the single-device
 loop and, with ``ddp=True`` at ``localities=1``, world-1 fabric DDP with
-the ``fp32`` or ``onebit`` gradient codec; ``serve_stream`` runs the
-serving gateway with every model replica in this process.  Plans that
-need more (localities, SPMD, elastic membership, mesh axes) raise
-``NotImplementedError`` naming the ROADMAP item that brings them; so do
-checkpoints (item 8) and step resilience (item 14) in ``train``.
+the ``fp32`` or ``onebit`` gradient codec, each with checkpoints and
+resume (``checkpoint/``); ``serve_stream`` runs the serving gateway with
+every model replica in this process.  Plans that need more (localities,
+SPMD, elastic membership, mesh axes) raise ``NotImplementedError`` naming
+the ROADMAP item that brings them; so does step resilience (item 14) in
+``train``.
 """
 from __future__ import annotations
 
@@ -28,9 +29,10 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from ..checkpoint.checkpoint import CheckpointManager
 from ..configs import get_config
 from ..core import steps as steps_lib
-from ..core.futures import FuturizedGraph, Lane, Pipeline
+from ..core.futures import FuturizedGraph, Lane, Pipeline, block_until_ready
 from ..core.sharding import init_params
 from ..data.pipeline import Prefetcher, stream_for
 from ..distrib.collectives import CODECS, RingAllReduce
@@ -177,13 +179,7 @@ class Session:
         return self._serve_steps[key]
 
     # -- train --------------------------------------------------------------
-    def _check_train(self, ckpt_dir, resume, resilience) -> None:
-        if ckpt_dir is None:
-            ckpt_dir = self.plan.ckpt_dir
-        if ckpt_dir or resume:
-            raise NotImplementedError(
-                "the port does not checkpoint yet (ckpt_dir / resume: "
-                "locality-sharded checkpoints, ROADMAP item 8)")
+    def _check_train(self, resilience) -> None:
         if resilience != "none":
             if self.plan.ddp:
                 raise ValueError("resilience modes do not compose with "
@@ -216,16 +212,25 @@ class Session:
             stream: object with ``batch_at(step) -> dict`` of numpy
                 arrays; defaults to the architecture's synthetic stream
                 (``stream_for``).
-            steps: total step count.
+            steps: total step count (absolute, not incremental).
             hooks: any object with optional ``on_step(it, metrics)``,
                 ``on_log(it, loss)`` and ``on_checkpoint(step, future)``
-                methods (the last is never called: no checkpoints yet).
-            ckpt_dir, ckpt_every, resume: checkpoints; a non-empty
-                ``ckpt_dir`` (or ``plan.ckpt_dir``) or ``resume`` raises
-                ``NotImplementedError`` (ROADMAP item 8).
+                methods.
+            ckpt_dir: checkpoint directory (defaults to ``plan.ckpt_dir``;
+                empty disables snapshots).  ``(params, opt)`` is saved
+                every ``ckpt_every`` steps, each save's write gated on the
+                step's retirement, and once more after the last step
+                unless the cadence saved it; saves already requested land
+                even when the loop fails.  The onebit codec's
+                error-feedback residual is not part of the state, as in
+                the reference: a resumed onebit run restarts it at zero.
+            ckpt_every: cadence in steps of the saves.
+            resume: restore the latest checkpoint in ``ckpt_dir`` first
+                and continue from its step (nothing runs if that is at or
+                past ``steps``).
             log_every: cadence in steps of the logged losses.
             fail_at_step: drill seam - raise an injected node failure at
-                this step.
+                this step (ignored under ``resume``).
             kill_locality_at_step: drill seam of the multi-locality
                 runtime; a no-op with one locality, as in the reference.
             resilience: ``"none"``; other modes raise
@@ -233,12 +238,15 @@ class Session:
             verbose: print progress and the final runtime report.
         Returns:
             dict with ``final_loss``, per-log ``losses``, ``params``,
-            ``step`` and ``runtime_stats``.
+            ``step`` (the last step run, or the resumed step when nothing
+            ran) and ``runtime_stats``.
         Raises:
             RuntimeError: the injected failure of ``fail_at_step``.
         """
-        self._check_train(ckpt_dir, resume, resilience)
+        self._check_train(resilience)
         plan, runtime, dev = self.plan, self.runtime, self.device
+        if ckpt_dir is None:
+            ckpt_dir = plan.ckpt_dir
         stream = self._stream(stream)
         engine = None
         if plan.ddp:
@@ -255,11 +263,19 @@ class Session:
             def step_fn(it, batch, params, opt):
                 return step.fn(params, opt, batch)
             prefetch = Prefetcher(stream, dev, graph=runtime)
+        start = 0
+        ckpt = (CheckpointManager(ckpt_dir, keep=3, graph=runtime)
+                if ckpt_dir else None)
+        if ckpt is not None and resume and ckpt.latest_step() is not None:
+            start, (params, opt) = ckpt.restore((params, opt))
+            if verbose:
+                print(f"[train] resumed from step {start}")
         inflight = Pipeline(depth=2)
         log_futs: list = []
         t_log = time.time()
         on_step = getattr(hooks, "on_step", None)
         on_log = getattr(hooks, "on_log", None)
+        on_ckpt = getattr(hooks, "on_checkpoint", None)
 
         def _force_and_log(it, m, t_start):
             # Runs on a runtime worker: forcing metrics never stalls dispatch.
@@ -275,9 +291,10 @@ class Session:
 
         metrics = None
         try:
-            for it in range(steps):
+            for it in range(start, steps):
                 batch = prefetch.get(it)
-                if fail_at_step is not None and it == fail_at_step:
+                if fail_at_step is not None and it == fail_at_step \
+                        and not resume:
                     raise RuntimeError(f"injected node failure at step {it}")
                 metrics, params, opt = step_fn(it, batch, params, opt)
                 inflight.push(it, metrics)
@@ -290,12 +307,31 @@ class Session:
                         _force_and_log, it, metrics, t_log,
                         lane=Lane.CHECKPOINT, name=f"log:{it}"))
                     t_log = time.time()
+                if ckpt is not None and (it + 1) % ckpt_every == 0:
+                    # the write node depends on step retirement: file I/O
+                    # starts only after the step's outputs resolve
+                    retired = runtime.defer(block_until_ready, metrics,
+                                            lane=Lane.CHECKPOINT,
+                                            name=f"retire:{it}")
+                    fut = ckpt.save(it + 1, (params, opt), deps=(retired,),
+                                    meta={"arch": plan.arch})
+                    if on_ckpt is not None:
+                        on_ckpt(it + 1, fut)
             inflight.drain()
+            # the final snapshot, unless the cadence saved this step or
+            # nothing ran
+            if ckpt is not None and steps % ckpt_every != 0 \
+                    and metrics is not None:
+                ckpt.save(steps, (params, opt), meta={"arch": plan.arch})
         finally:
-            # shutdown barrier, also on the injected-failure path: retire
-            # in-flight steps; the runtime itself belongs to the session
+            # shutdown barrier, also on the injected-failure path, so a
+            # crash never loses a save that was already requested: retire
+            # in-flight steps, land every pending checkpoint node; the
+            # runtime itself belongs to the session
             inflight.drain()
             prefetch.close()
+            if ckpt is not None:
+                ckpt.close()
             runtime.barrier()
 
         losses = [f.result() for f in log_futs]
@@ -303,11 +339,16 @@ class Session:
         final = float(metrics["loss"]) if metrics is not None \
             else float("nan")
         out = {"final_loss": final, "losses": losses, "params": params,
-               "step": steps, "runtime_stats": st.to_json()}
+               "step": steps if metrics is not None else start,
+               "runtime_stats": st.to_json()}
         if verbose:
-            print(f"[train] done: final loss {final:.4f} "
-                  f"(host tasks {st.completed}, "
-                  f"max in-flight {st.max_in_flight}, device {dev})")
+            if metrics is None:    # resumed at/after steps: nothing left
+                print(f"[train] nothing to do: resumed at step {start} "
+                      f">= steps {steps}")
+            else:
+                print(f"[train] done: final loss {final:.4f} "
+                      f"(host tasks {st.completed}, "
+                      f"max in-flight {st.max_in_flight}, device {dev})")
         if engine is not None:
             out["grad_wire_bytes"] = int(engine.ring.wire_bytes)
             out["codec_bytes"] = engine.codec_bytes

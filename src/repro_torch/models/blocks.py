@@ -1,10 +1,11 @@
-"""Blocks of the dense and zamba families: specs, the training forward,
-prefill (returns the populated cache) and single-token decode.
+"""Blocks of the dense, moe and zamba families: specs, the training
+forward, prefill (returns the populated cache) and single-token decode.
 
 Counterpart: ``repro/models/blocks.py``: the pre-norm residual transformer
-block (``tblock_specs``, ``tblock_apply``, ``kv_cache_specs``,
-``tblock_prefill``, ``tblock_decode``) without the cross-attention and
-MoE variants (ROADMAP items 10 and 11), and the Mamba-2 block
+block with an MLP or a mixture of experts (``tblock_specs``,
+``tblock_apply``, ``kv_cache_specs``, ``tblock_prefill``,
+``tblock_decode``) without the cross-attention variant (ROADMAP item 11),
+and the Mamba-2 block
 (``mamba_block_specs``, ``mamba_block_apply``, ``mamba_block_prefill``,
 ``mamba_block_decode``, ``mamba_state_specs``); the xLSTM blocks wait for
 ROADMAP item 11.
@@ -15,18 +16,33 @@ import torch
 import torch.nn.functional as F
 
 from ..core.sharding import ParamSpec
-from . import attention, layers, ssm
+from . import attention, layers, moe, ssm
 
 
-def tblock_specs(cfg) -> dict:
-    return {
+def tblock_specs(cfg, *, use_moe: bool = False) -> dict:
+    sp = {
         "ln_attn": layers.norm_specs(cfg.d_model, cfg.norm),
         "attn": attention.attn_specs(
             cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
             qkv_bias=cfg.qkv_bias, qk_norm=cfg.qk_norm),
         "ln_mlp": layers.norm_specs(cfg.d_model, cfg.norm),
-        "mlp": layers.mlp_specs(cfg.d_model, cfg.d_ff, cfg.mlp_kind),
     }
+    if use_moe:
+        sp["moe"] = moe.moe_specs(cfg.d_model, cfg.d_ff, cfg.n_experts)
+    else:
+        sp["mlp"] = layers.mlp_specs(cfg.d_model, cfg.d_ff, cfg.mlp_kind)
+    return sp
+
+
+def _ffn(h, p, cfg):
+    """The block's feed-forward half on the normed ``h``: (y, aux loss),
+    the aux a float32 zero for an MLP."""
+    if "moe" in p:
+        return moe.apply_moe(h, p["moe"], top_k=cfg.top_k,
+                             group_size=cfg.moe_group,
+                             dispatch=cfg.moe_dispatch)
+    return (layers.apply_mlp(h, p["mlp"], cfg.mlp_kind),
+            torch.zeros((), dtype=torch.float32, device=h.device))
 
 
 def kv_cache_specs(cfg, batch: int, seq: int) -> dict:
@@ -42,16 +58,17 @@ def _out_proj(o, wo, dt):
 
 
 def tblock_apply(x, p, cfg):
-    """The training forward of the dense block: x [B,S,D] -> x [B,S,D];
-    causal attention through the flash-attention kernel, whose backward is
-    a kernel too."""
+    """The training forward of the block: x [B,S,D] -> (x [B,S,D], aux
+    loss); causal attention through the flash-attention kernel, whose
+    backward is a kernel too."""
     h = layers.apply_norm(x, p["ln_attn"], cfg.norm)
     q, k, v = attention.project_qkv(
         h, p["attn"], rope_theta=cfg.rope_theta, use_rope=cfg.use_rope)
     o = attention.attend(q, k, v, causal=True, window=cfg.sliding_window)
     x = x + _out_proj(o, p["attn"]["wo"], x.dtype)
     h = layers.apply_norm(x, p["ln_mlp"], cfg.norm)
-    return x + layers.apply_mlp(h, p["mlp"], cfg.mlp_kind)
+    y, aux = _ffn(h, p, cfg)
+    return x + y, aux
 
 
 def tblock_prefill(x, p, cfg, cache_len: int):
@@ -66,7 +83,7 @@ def tblock_prefill(x, p, cfg, cache_len: int):
     cache = {"k": F.pad(k.to(cfg.cache_dtype), (0, 0, 0, 0, 0, pad)),
              "v": F.pad(v.to(cfg.cache_dtype), (0, 0, 0, 0, 0, pad))}
     h = layers.apply_norm(x, p["ln_mlp"], cfg.norm)
-    return x + layers.apply_mlp(h, p["mlp"], cfg.mlp_kind), cache
+    return x + _ffn(h, p, cfg)[0], cache
 
 
 def tblock_decode(x, p, cfg, cache, pos):
@@ -85,7 +102,7 @@ def tblock_decode(x, p, cfg, cache, pos):
     o = attention.decode_attend(q, kc, vc, pos, window=cfg.sliding_window)
     x = x + _out_proj(o, p["attn"]["wo"], x.dtype)
     h = layers.apply_norm(x, p["ln_mlp"], cfg.norm)
-    return x + layers.apply_mlp(h, p["mlp"], cfg.mlp_kind), {"k": kc, "v": vc}
+    return x + _ffn(h, p, cfg)[0], {"k": kc, "v": vc}
 
 
 # ---------------------------------------------------------------------------

@@ -3,9 +3,11 @@
 Counterpart: ``repro/models/layers.py``.  Every parameter is declared
 through ``ParamSpec`` with logical dims, as in the JAX package.  The dtype
 order is kept exactly: ``rms_norm`` takes its statistics in float32 and
-scales in the input dtype; RoPE rotates the split halves in float32 and
-casts back; the cross entropy reduces in float32.  LayerNorm and the
-gelu MLP wait for the families that use them (ROADMAP item 11).
+scales in the input dtype; ``layer_norm`` takes its statistics in
+float32 and normalizes in the input dtype; RoPE rotates the split halves
+in float32 and casts back; the cross entropy reduces in float32.  The
+gelu MLP and the sinusoidal embedding wait for the families that use
+them (ROADMAP item 11).
 """
 from __future__ import annotations
 
@@ -27,16 +29,28 @@ def rms_norm(x, w, eps: float = 1e-6):
     return x * scale * w.to(x.dtype)
 
 
+def layer_norm(x, w, b, eps: float = 1e-5):
+    """Mean and variance in fp32, normalization and affine in the input
+    dtype."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    inv = torch.rsqrt(var + eps)
+    y = (x - mu.to(x.dtype)) * inv.to(x.dtype)
+    return y * w.to(x.dtype) + b.to(x.dtype)
+
+
 def norm_specs(d: int, kind: str) -> dict:
-    if kind != "rms":
-        raise NotImplementedError(f"norm {kind!r} comes with {_LATER}")
-    return {"w": ParamSpec((d,), ("embed",), init="ones")}
+    if kind == "rms":
+        return {"w": ParamSpec((d,), ("embed",), init="ones")}
+    return {"w": ParamSpec((d,), ("embed",), init="ones"),
+            "b": ParamSpec((d,), ("embed",), init="zeros")}
 
 
 def apply_norm(x, p, kind: str, eps: float = 1e-6):
-    if kind != "rms":
-        raise NotImplementedError(f"norm {kind!r} comes with {_LATER}")
-    return rms_norm(x, p["w"], eps)
+    if kind == "rms":
+        return rms_norm(x, p["w"], eps)
+    return layer_norm(x, p["w"], p["b"], eps)
 
 
 # ---------------------------------------------------------------------------

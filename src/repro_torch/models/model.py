@@ -1,27 +1,31 @@
-"""Architecture assembly: the decoder LM of the dense and zamba families.
+"""Architecture assembly: the decoder LM of the dense, moe and zamba
+families.
 
-Counterpart: ``repro/models/model.py`` (``LM`` for ``family`` ``"dense"``
-and ``"zamba"``: ``specs``, ``cache_specs``, ``prefill``,
+Counterpart: ``repro/models/model.py`` (``LM`` for ``family`` ``"dense"``,
+``"moe"`` and ``"zamba"``: ``specs``, ``cache_specs``, ``prefill``,
 ``decode_step``, ``apply``, ``loss``; ``_backbone``).  The JAX
 model stacks every layer's parameters under ``"stack"`` with leading
 layer dims and runs ``lax.scan`` over them; here the stacked dims become
 nested lists and the scans Python loops:
 
-- dense: ``"stack"`` is a list of per-layer dicts, the cache a list of
-  per-layer ``{"k", "v"}`` dicts;
+- dense and moe: ``"stack"`` is a list of per-layer dicts (a moe layer
+  holds ``"moe"`` in place of ``"mlp"``), the cache a list of per-layer
+  ``{"k", "v"}`` dicts;
 - zamba: ``"stack"`` is ``{"mamba": [[per-layer dict] x shared_every] x
   groups, "shared": one transformer-block dict}``; each group runs its
   mamba layers, then the shared block, which writes that group's own KV
   cache.  The cache is ``{"mamba": [[{"ssm", "conv"}] x shared_every] x
   groups, "shared": [{"k", "v"}] x groups}``.
 
-``apply`` (training) runs both families, as ``_backbone`` does: the dense
-layers in order; zamba's groups in order, each its mamba layers
+``apply`` (training) runs every family, as ``_backbone`` does: the dense
+and moe layers in order, summing the moe layers' aux (load-balance)
+losses; zamba's groups in order, each its mamba layers
 (``mamba_block_apply``) and then the shared block.  With ``cfg.remat``
 the counterpart of ``_maybe_remat``'s ``jax.checkpoint`` is
 ``torch.utils.checkpoint`` (non-reentrant), at the reference's levels:
-each dense layer; each mamba layer, and each zamba group around them (the
-activations are recomputed in the backward pass).
+each dense or moe layer, its aux included; each mamba layer, and each
+zamba group around them (the activations are recomputed in the backward
+pass).
 
 Contract:
   m = build_model(cfg)
@@ -43,14 +47,13 @@ from torch.utils.checkpoint import checkpoint
 from ..core.sharding import is_spec
 from . import blocks, layers
 
-FAMILIES = ("dense", "zamba")
+FAMILIES = ("dense", "moe", "zamba")
 # family -> the ROADMAP item that ports it
-_PENDING_FAMILIES = {"moe": "ROADMAP item 10", "xlstm": "ROADMAP item 11",
-                     "encdec": "ROADMAP item 11"}
+_PENDING_FAMILIES = {"xlstm": "ROADMAP item 11", "encdec": "ROADMAP item 11"}
 
 
 class LM:
-    """Decoder-only LM of the dense and zamba families."""
+    """Decoder-only LM of the dense, moe and zamba families."""
 
     def __init__(self, cfg):
         if cfg.family not in FAMILIES:
@@ -69,8 +72,9 @@ class LM:
             "ln_f": layers.norm_specs(cfg.d_model, cfg.norm),
             "unembed": layers.unembed_specs(cfg.d_model, cfg.vocab),
         }
-        if cfg.family == "dense":
-            sp["stack"] = [blocks.tblock_specs(cfg)
+        if cfg.family in ("dense", "moe"):
+            sp["stack"] = [blocks.tblock_specs(cfg,
+                                               use_moe=cfg.family == "moe")
                            for _ in range(cfg.n_layers)]
         else:
             sp["stack"] = {
@@ -94,22 +98,23 @@ class LM:
         for p in group:
             x = self._remat(blocks.mamba_block_apply, x, p, cfg,
                             chunk=cfg.ssm_chunk)
-        return blocks.tblock_apply(x, shared, cfg)
+        return blocks.tblock_apply(x, shared, cfg)[0]
 
     def apply(self, params, batch):
         """The training forward: (logits [B, S, vocab] in the compute
-        dtype, aux loss 0)."""
+        dtype, aux loss: the moe layers' sum, 0 for the other families)."""
         cfg = self.cfg
         x = layers.embed(batch["tokens"], params["embed"]).to(cfg.c_dtype)
-        if cfg.family == "dense":
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if cfg.family in ("dense", "moe"):
             for p in params["stack"]:
-                x = self._remat(blocks.tblock_apply, x, p, cfg)
+                x, a = self._remat(blocks.tblock_apply, x, p, cfg)
+                aux = aux + a
         else:
             shared = params["stack"]["shared"]
             for group in params["stack"]["mamba"]:
                 x = self._remat(self._mamba_group, x, group, shared)
         x = layers.apply_norm(x, params["ln_f"], cfg.norm)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         return layers.logits(x, params["unembed"]), aux
 
     def loss(self, params, batch):
@@ -119,7 +124,7 @@ class LM:
 
     def cache_specs(self, batch: int, cache_len: int):
         cfg = self.cfg
-        if cfg.family == "dense":
+        if cfg.family in ("dense", "moe"):
             return [blocks.kv_cache_specs(cfg, batch, cache_len)
                     for _ in range(cfg.n_layers)]
         return {
@@ -133,7 +138,7 @@ class LM:
     def prefill(self, params, batch, cache_len: int):
         cfg = self.cfg
         x = layers.embed(batch["tokens"], params["embed"]).to(cfg.c_dtype)
-        if cfg.family == "dense":
+        if cfg.family in ("dense", "moe"):
             cache = []
             for p in params["stack"]:
                 x, c = blocks.tblock_prefill(x, p, cfg, cache_len)
@@ -159,7 +164,7 @@ class LM:
         caches in place."""
         cfg = self.cfg
         x = layers.embed(batch["tokens"], params["embed"]).to(cfg.c_dtype)
-        if cfg.family == "dense":
+        if cfg.family in ("dense", "moe"):
             new_cache = []
             for p, c in zip(params["stack"], cache):
                 x, c = blocks.tblock_decode(x, p, cfg, c, pos)

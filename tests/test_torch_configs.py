@@ -37,7 +37,7 @@ def test_unported_arch_ids_name_their_roadmap_item(arch):
         get_config(arch)
 
 
-@pytest.mark.parametrize("family", ["moe", "xlstm", "encdec"])
+@pytest.mark.parametrize("family", ["xlstm", "encdec"])
 def test_unported_families_raise(family):
     cfg = dataclasses.replace(get_config("qwen3-4b", tiny=True), family=family)
     with pytest.raises(NotImplementedError, match="ROADMAP item"):
@@ -69,7 +69,7 @@ def test_specs_match_jax_leaf_for_leaf(arch, tiny):
     ref = jax_build_model(jax_get_config(arch, tiny=tiny)).specs()
     ref_leaves = jax.tree_util.tree_flatten_with_path(
         ref, is_leaf=lambda x: isinstance(x, JaxParamSpec))[0]
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         assert len(ours["stack"]) == cfg.n_layers
     else:
         groups = cfg.n_layers // cfg.shared_every

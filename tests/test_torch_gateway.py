@@ -457,7 +457,8 @@ def _margin(session, params, prompt, slot_stream, step):
     return float(top[0] - top[1])
 
 
-@pytest.mark.parametrize("arch", ["qwen3-4b", "zamba2-2.7b"])
+@pytest.mark.parametrize("arch", ["qwen3-4b", "zamba2-2.7b",
+                                  "granite-moe-1b-a400m"])
 def test_gateway_streams_equal_jax_gateway_on_bridged_params(arch):
     """A JAX ``Gateway`` and the port's, built on the same bridged bf16
     serve parameters, stream the same tokens for the same script."""

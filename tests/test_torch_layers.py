@@ -85,7 +85,41 @@ def test_embed_and_logits():
 
 
 @pytest.mark.parametrize("fn, args", [
-    (tl.norm_specs, (8, "ln")), (tl.mlp_specs, (8, 16, "gelu"))])
+    (tl.apply_mlp, (None, None, "gelu")), (tl.mlp_specs, (8, 16, "gelu"))])
 def test_unported_layer_kinds_raise(fn, args):
     with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
         fn(*args)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_layer_norm_and_its_norm_kind(dtype):
+    """layer_norm, and the ``"ln"`` kind of norm_specs/apply_norm that
+    phi3.5-moe uses, against the JAX package's: f32 within ATOL; bf16
+    (statistics in f32, normalization in bf16, as there) within one bf16
+    rounding step of the output's scale."""
+    rng = _rng(5)
+    x = (rng.standard_normal((3, 7, 64)) * 2 + 0.5).astype(np.float32)
+    w = rng.standard_normal(64).astype(np.float32)
+    b = rng.standard_normal(64).astype(np.float32)
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    tdt = getattr(torch, dtype)
+    want = jl.apply_norm(jnp.asarray(x, jdt),
+                         {"w": jnp.asarray(w), "b": jnp.asarray(b)}, "ln")
+    got = tl.apply_norm(torch.from_numpy(x).to(tdt),
+                        {"w": torch.from_numpy(w), "b": torch.from_numpy(b)},
+                        "ln")
+    assert got.dtype == tdt
+    tol = ATOL if dtype == "float32" else 2 ** -7 * float(
+        np.abs(np.asarray(want, np.float32)).max())
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), atol=tol,
+                               rtol=ATOL)
+    np.testing.assert_allclose(
+        tl.layer_norm(torch.from_numpy(x), torch.from_numpy(w),
+                      torch.from_numpy(b)).numpy(),
+        np.asarray(jl.layer_norm(jnp.asarray(x), jnp.asarray(w),
+                                 jnp.asarray(b))), atol=ATOL, rtol=ATOL)
+    specs = tl.norm_specs(64, "ln")
+    ref = jl.norm_specs(64, "ln")
+    assert {k: (s.shape, s.init) for k, s in specs.items()} == \
+        {k: (s.shape, s.init) for k, s in ref.items()}

@@ -93,12 +93,22 @@ def test_prefill_and_greedy_decode_of_other_dense_ids_match_jax(arch):
     _prefill_and_greedy_decode_match_jax(arch)
 
 
-def _prefill_and_greedy_decode_match_jax(arch):
-    """Prefill and GEN greedy decode steps of the tiny config on bridged
-    bf16 serve parameters: logits within ATOL of the reference's, the
-    same tokens, the cache within ATOL (zamba: of its scale)."""
-    jcfg = jax_get_config(arch, tiny=True)
-    cfg = get_config(arch, tiny=True)
+# the moe ids under both dispatch engines (phi3.5-moe: LayerNorm), at the
+# same ATOL
+@pytest.mark.parametrize("dispatch", ["einsum", "sort"])
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m",
+                                  "phi3.5-moe-42b-a6.6b"])
+def test_prefill_and_greedy_decode_of_moe_ids_match_jax(arch, dispatch):
+    _prefill_and_greedy_decode_match_jax(arch, moe_dispatch=dispatch)
+
+
+def _prefill_and_greedy_decode_match_jax(arch, **overrides):
+    """Prefill and GEN greedy decode steps of the tiny config (with
+    ``overrides``) on bridged bf16 serve parameters: logits within ATOL
+    of the reference's, the same tokens, the cache within ATOL (zamba: of
+    its scale)."""
+    jcfg = dataclasses.replace(jax_get_config(arch, tiny=True), **overrides)
+    cfg = dataclasses.replace(get_config(arch, tiny=True), **overrides)
     jpre, jparams, tree = _jax_serve_params(jcfg)
     jdec = jax_steps.make_decode_step(
         jcfg, make_local_mesh(), jax_steps.Strategy(),
