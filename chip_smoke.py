@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --plant-k1-fault   # only the check's own test
 
 Phases, in order; any failure ends the script with a non-zero exit and
 without the final ``{"ok": true, ...}`` line:
@@ -28,24 +29,39 @@ without the final ``{"ok": true, ...}`` line:
    at a 32 MB bucket and at the largest bucket of the training plan, and
    K3b also at small and wide rows; K1 also at granite-moe-1b-a400m's
    shapes (d=64: its prefill at batch 4 and the gateway's batch 1, its
-   training batch 8, forward and backward).  Every time is taken twice
+   training batch 8, forward and backward); K1 at whisper-medium's
+   shapes (d=64, H=Hkv=16, batch 4: the encoder's non-causal
+   self-attention at S=1500, forward and backward, and the decoder's
+   causal prefill at S=512).  K1 is held by its largest error and by its
+   mean relative error, against its plain version and against
+   ``scaled_dot_product_attention``; at a non-causal ragged S the plain
+   version with the last tile's padding keys unmasked must fail that
+   check (``--plant-k1-fault`` plants that fault in a copy of the
+   kernel's source and shows the check fails it).  Every time is taken
+   twice
    (``timings``): on the device, and host-paced, as earlier versions of
    this script took it.  K1 refuses a bf16 view off a 16-byte boundary.
    One granite-moe-1b-a400m MoE layer at full width (2,048 tokens, bf16):
    each dispatch engine reruns to the same bits, and with no token dropped
    the two agree;
 4. reference: the tiny dense and zamba configs served on the card agree
-   with the same parameters served on the CPU (granite-moe-1b-a400m's
-   too), and tiny qwen3-4b (plain,
+   with the same parameters served on the CPU (granite-moe-1b-a400m's,
+   xlstm-350m's and whisper-medium's too, the last with seeded frames);
+   xlstm-350m at full width in float32: the chunked prefill's last-token
+   logits equal a decode-step rollout's from a zero state; tiny qwen3-4b
+   (plain,
    and world-1 DDP with the onebit codec) and tiny zamba2-2.7b train 8
    steps on the card with the CPU's losses (the port's CPU path is tied
    to the JAX package by the tests);
 5. serve: ``Plan(arch=..., tiny=False).compile().serve(...)`` for
-   qwen3-4b, zamba2-2.7b and granite-moe-1b-a400m, each at full width and
-   full depth with random weights from a seed;
+   qwen3-4b, zamba2-2.7b, granite-moe-1b-a400m, xlstm-350m and
+   whisper-medium, each at full width and full depth with random weights
+   from a seed (whisper-medium on zero frames, as the reference serves
+   it);
 6. serve_stream: the serving gateway,
    ``Plan(arch=..., tiny=False).compile().serve_stream(...)``, for the
-   same three at full width and depth: 8 requests arriving
+   same but whisper-medium (which it refuses with the reference's
+   ``ValueError``, asserted) at full width and depth: 8 requests arriving
    mid-flight, each prefilled once at batch 1 and parked in host pages
    until a slot frees; an independent greedy loop over the same steps
    reproduces two of the streams bit for bit, two replicas and the
@@ -66,12 +82,14 @@ without the final ``{"ok": true, ...}`` line:
    (wall time, GB/s) and the disk's size;
 9. HAR CNN: the paper's Fig. 1 model, loss and gradients at minibatch
    8,000 on the card against the CPU, and its forward's device time;
-10. where the time goes: one prefill (at the wave's batch and at batch 1)
-   and one decode step of each served configuration, one plain and one
+10. where the time goes: one prefill (at the wave's batch, and at batch 1
+   but for whisper-medium) and one decode step of each served
+   configuration, one plain and one
    DDP qwen3-4b train step, one zamba2-2.7b and one granite-moe-1b-a400m
    train step; the prefills
    and the train steps must show K1's tensor-core kernels by name and
-   none of its f32 kernels,
+   none of its f32 kernels (whisper-medium's prefill 48 forward launches,
+   its encoder's and its decoder's; xlstm-350m's no K1 or K2 kernel),
    zamba2-2.7b's prefill and train step K2's tensor-core kernel and not
    its f32 one, the zamba2-2.7b train step K2's backward kernel, the DDP
    step K3b's row-stream kernel;
@@ -86,6 +104,7 @@ It imports ``torch`` and ``repro_torch`` only.
 """
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import shutil
@@ -133,6 +152,18 @@ BF16_FLOPS = 989e12
 F32_FLOPS = 67e12       # float32 outside the tensor cores
 # kernel-test tolerances of tests/test_kernels.py
 TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
+# K1 is also held free of the output's scale: the mean |error| over the
+# mean |reference| (``mean_rel_err``), within FA_MEAN_REL_TOL of its plain
+# version and, where no window applies, within FA_LIB_MEAN_REL_TOL of
+# scaled_dot_product_attention.  An absolute bound alone means little
+# where outputs are small: a softmax over whisper's 1,500 keys gives a
+# mean |o| near 0.034, TOL's size.  bf16: the plain version rounds the
+# scores and probabilities to bf16, the kernel and the library their
+# probabilities, all three their outputs; the bf16 kernel read at most
+# 4.19e-3 against the plain version and 5.73e-4 against the library on
+# an H100 (FA_CASES), the fault ``K1_FAULT`` plants 1.49e-2 and 1.43e-2
+FA_MEAN_REL_TOL = {torch.float32: 1e-5, torch.bfloat16: 8e-3}
+FA_LIB_MEAN_REL_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-3}
 # the training slice: full width, 12 of qwen3-4b's 36 layers (the f32
 # parameters, adamw's m and v, the onebit residual and the fused buckets
 # of all 36 would take about 106 GB)
@@ -184,7 +215,27 @@ HAR_BATCH = 8000
 HAR_LOSS_RTOL = 1e-5
 HAR_GRAD_TOL = 1e-4
 SERVE = dict(requests=8, slots=4, prompt_len=512, gen_len=32)
-SERVE_ARCHS = ("qwen3-4b", "zamba2-2.7b", "granite-moe-1b-a400m")
+SERVE_ARCHS = ("qwen3-4b", "zamba2-2.7b", "granite-moe-1b-a400m",
+               "xlstm-350m", "whisper-medium")
+# serve_stream refuses the enc-dec family, as the reference does
+STREAM_ARCHS = tuple(a for a in SERVE_ARCHS if a != "whisper-medium")
+# whisper-medium's K1 shapes at the serve batch: the encoder's
+# self-attention, non-causal over the stub frontend's 1,500 frames (11
+# tiles of 128 and a ragged 92), and the decoder's causal prefill
+_WHISPER_CFG = get_config("whisper-medium")
+WHISPER_ENC_ATTN = (SERVE["slots"], _WHISPER_CFG.n_heads,
+                    _WHISPER_CFG.n_kv_heads, _WHISPER_CFG.enc_frames,
+                    _WHISPER_CFG.head_dim, torch.bfloat16, False, None)
+WHISPER_DEC_ATTN = (SERVE["slots"], _WHISPER_CFG.n_heads,
+                    _WHISPER_CFG.n_kv_heads, SERVE["prompt_len"],
+                    _WHISPER_CFG.head_dim, torch.bfloat16, True, None)
+# xlstm-350m at full width in float32 on the card: the chunked prefill of
+# XLSTM_ROLLOUT tokens in chunks of XLSTM_CHUNK (so that the state carries
+# across chunks) against a decode-step rollout of the same prompt from a
+# zero state, last-token logits within the reference's chunked-against-
+# stepwise tolerance (tests/test_ssm.py: rtol 3e-3, atol 3e-4)
+XLSTM_ROLLOUT, XLSTM_CHUNK = 64, 16
+XLSTM_RTOL, XLSTM_ATOL = 3e-3, 3e-4
 # the serving gateway prefills every request alone: K1 at batch 1 for
 # qwen3-4b and zamba2-2.7b's shared block, K2 at batch 1
 SERVE_B1_ATTN = (1, _TRAIN_CFG.n_heads, _TRAIN_CFG.n_kv_heads,
@@ -211,7 +262,8 @@ PAGE_BYTES = 1 << 16        # serve_stream's default page size
 # first (qwen3-4b, then zamba2-2.7b's shared block), then Session.train's
 # (qwen3-4b, then zamba2-2.7b), then the gateway's batch-1 prefills (the
 # same two), then granite-moe-1b-a400m's (d=64: serve prefill, gateway
-# batch 1, training), then the edge cases.  bf16 runs the
+# batch 1, training), whisper-medium's (the encoder's non-causal S=1500,
+# the decoder's prefill), then the edge cases.  bf16 runs the
 # tensor-core kernels, f32 the CUDA-core kernels, so each edge is held in
 # both dtypes.
 FA_CASES = [
@@ -224,6 +276,8 @@ FA_CASES = [
     MOE_SERVE_ATTN,
     MOE_SERVE_B1_ATTN,
     MOE_TRAIN_ATTN,
+    WHISPER_ENC_ATTN,
+    WHISPER_DEC_ATTN,
     (2, 8, 2, 200, 128, torch.bfloat16, True, None),      # ragged S
     (1, 32, 32, 256, 96, torch.bfloat16, True, None),     # d=96 (phi3)
     (2, 4, 2, 256, 32, torch.float32, True, None),        # d=32 f32 (tiny)
@@ -235,7 +289,7 @@ FA_CASES = [
     (2, 4, 4, 100, 80, torch.bfloat16, True, None),       # d=80, ragged S
     (1, 8, 8, 512, 80, torch.bfloat16, True, 128),        # d=80, window
 ]
-FA_TIMED = 9            # the first FA_TIMED cases are timed
+FA_TIMED = 11           # the first FA_TIMED cases are timed
 # K2 tolerances of tests/test_kernels.py's sweep, as atol and rtol
 SCAN_TOL = {torch.float32: 2e-4, torch.bfloat16: 6e-2}
 # (B, H, G, L, P, N, chunk, dtype), G the groups of Bm, Cm: zamba2-2.7b's
@@ -263,8 +317,9 @@ SCAN_CASES = [
 SCAN_TIMED = 4          # the first SCAN_TIMED cases are timed
 # K1 backward: qwen3-4b's training shapes (a DDP shard, then the whole
 # batch of Session.train), zamba2-2.7b's shared block in training (d=80),
-# phi3-mini's heads (d=96) and granite-moe-1b-a400m's training shape
-# (d=64), all five timed, then small shapes in
+# phi3-mini's heads (d=96), granite-moe-1b-a400m's training shape (d=64)
+# and whisper-medium's encoder (non-causal, S=1500), all six timed, then
+# small shapes in
 # float32 and their bf16 twins: GQA and MHA, causal on and off, a window,
 # ragged S, each head dim the backward is built for
 FA_BWD_CASES = [
@@ -273,6 +328,7 @@ FA_BWD_CASES = [
     ZAMBA_TRAIN_ATTN,
     (1, 32, 32, 512, 96, torch.bfloat16, True, None),     # phi3-mini heads
     MOE_TRAIN_ATTN,
+    WHISPER_ENC_ATTN,
     (2, 8, 2, 200, 64, torch.float32, True, None),        # GQA, ragged S
     (1, 4, 4, 256, 64, torch.float32, False, None),       # MHA, non-causal
     (2, 4, 2, 256, 32, torch.float32, True, 64),          # window, d=32
@@ -288,11 +344,14 @@ FA_BWD_CASES = [
     (2, 4, 2, 130, 96, torch.float32, True, None),        # d=96, GQA
     (2, 4, 2, 130, 96, torch.bfloat16, True, None),
 ]
-FA_BWD_TIMED = 5        # the first FA_BWD_TIMED cases are timed
+FA_BWD_TIMED = 6        # the first FA_BWD_TIMED cases are timed
 # f32: within 1e-4 of the largest gradient magnitude (at least 1); bf16:
 # the plain version rounds its products and probabilities to bf16, the
 # kernel sums in f32, so bf16 is held to 3e-2 of the largest magnitude
 FA_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+# and each gradient's mean |error| within FA_BWD_MEAN_REL_TOL of its mean
+# |reference| (``mean_rel_err``; bf16 read at most 4.52e-3 on an H100)
+FA_BWD_MEAN_REL_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 # K2 backward, (B, H, G, L, P, N, dtype, dstate): zamba2-2.7b's training
 # shape in bf16 with its one group (timed), then B and C per head (G=H), a
 # ragged L with grouped heads, the two other (P, N) the kernels are built
@@ -478,69 +537,155 @@ def weight_uses(cfg, tree) -> float:
     return total
 
 
+def mlstm_ops(cfg, slots: int, new_tokens: int) -> int:
+    """Operations of the mLSTM recurrence beyond its projections, per
+    layer: a token's (q, k) products and weighted v sums over the causal
+    half of its chunk (4*P a pair and head), and the state's update and
+    read (4*P*P a token and head)."""
+    H = cfg.n_heads
+    P = cfg.expand * cfg.d_model // H
+    pairs = (min(cfg.ssm_chunk, new_tokens) + 1) // 2
+    return slots * new_tokens * H * (4 * P * pairs + 4 * P * P)
+
+
 def step_bound(cfg, params, cache, slots: int, new_tokens: int,
-               keys_seen: int) -> tuple[float, str]:
+               keys_seen: int, encode: bool = False) -> tuple[float, str]:
     """Least time for one prefill (``new_tokens`` per row) or decode step
-    (1): every weight but the embedding table (a gather of a few rows)
-    and the whole cache moved once; 2 operations per weight use and new
-    token in the layers' products (zamba's shared block is used once per
-    group, a moe token uses top_k of the experts: ``weight_uses``), the
-    unembedding of one token a row, attention's 4*hd per
-    (query, key) pair of ``keys_seen`` pairs a row and head in each
-    attention layer (counted from the cache), and the SSD scan of each
-    mamba layer (``scan_ops``)."""
+    (1): every weight but the embedding tables (a gather of a few rows:
+    the token embedding, whisper-medium's decoder positions) and the whole
+    cache moved once; 2 operations per weight use and new token in the
+    layers' products (zamba's shared block is used once per group, a moe
+    token uses top_k of the experts: ``weight_uses``), the unembedding of
+    one token a row, attention's 4*hd per (query, key) pair of
+    ``keys_seen`` pairs a row and head in each self-attention layer
+    (counted from the cache), the SSD scan of each mamba layer
+    (``scan_ops``) and the mLSTM recurrence of each mLSTM layer
+    (``mlstm_ops``; the sLSTM's recurrent matrix is a weight use).  The
+    enc-dec decoder attends ``enc_frames`` keys a token in each layer;
+    with ``encode`` (its prefill) the encoder runs too: its layers and
+    each decoder layer's cross K/V projections over ``enc_frames`` tokens
+    a row, and its non-causal attention over enc_frames**2 pairs."""
     nbytes = sum(t.numel() * t.element_size()
                  for t in pytree.tree_leaves((params, cache)))
-    emb = params["embed"]["tok"]
-    nbytes -= emb.numel() * emb.element_size()
+    tables = [params["embed"]["tok"]] + (
+        [params["pos_dec"]] if "pos_dec" in params else [])
+    nbytes -= sum(t.numel() * t.element_size() for t in tables)
     n_attn = len(_kv_caches(cache))
+    att = 4 * cfg.head_dim * slots * cfg.n_heads
 
-    uses = weight_uses(cfg, params["stack"])
+    if cfg.family == "encdec":
+        cross_kv = sum(p["cross"]["wk"].numel() + p["cross"]["wv"].numel()
+                       for p in params["dec_stack"])
+        uses = weight_uses(cfg, params["dec_stack"]) - cross_kv
+        F_ = cfg.enc_frames
+        ops = att * new_tokens * F_ * cfg.n_layers
+        if encode:
+            ops += (2 * slots * F_ * (weight_uses(cfg, params["enc_stack"])
+                                      + cross_kv)
+                    + att * F_ * F_ * cfg.n_enc_layers)
+    else:
+        uses = weight_uses(cfg, params["stack"])
+        ops = 0
     if cfg.family == "zamba":
         uses += (n_attn - 1) * weight_uses(cfg, params["stack"]["shared"])
-    ops = (2 * slots * new_tokens * uses
-           + 2 * slots * params["unembed"]["w"].numel()
-           + 4 * cfg.head_dim * slots * cfg.n_heads * keys_seen * n_attn)
+    ops += (2 * slots * new_tokens * uses
+            + 2 * slots * params["unembed"]["w"].numel()
+            + att * keys_seen * n_attn)
     if cfg.family == "zamba":
         H = cfg.expand * cfg.d_model // cfg.ssm_head_dim
         ops += cfg.n_layers * scan_ops(slots, H, new_tokens,
                                        cfg.ssm_head_dim, cfg.ssm_state)
+    if cfg.family == "xlstm":
+        n_mlstm = cfg.n_layers // cfg.slstm_every * (cfg.slstm_every - 1)
+        ops += n_mlstm * mlstm_ops(cfg, slots, new_tokens)
     return roofline(nbytes, ops)
 
 
+def mean_rel_err(got, want) -> float:
+    """The mean |got - want| over the mean |want|."""
+    g, w = got.float(), want.float()
+    return ((g - w).abs().mean() / w.abs().mean()).item()
+
+
+def padding_unmasked(q, k, v):
+    """The plain version with the fault K1's ragged last kv tile would
+    have if its padding went unmasked: k and v padded with zero rows to a
+    whole number of the kernel's 64-row tiles, and every query sees them
+    (non-causal)."""
+    B, H, S, d = q.shape
+    pad = -S % 64
+    grow = lambda t: F.pad(t, (0, 0, 0, pad))  # noqa: E731
+    return flash_attention_ref(grow(q), grow(k), grow(v),
+                               causal=False)[:, :, :S]
+
+
+def fa_agreement(got, q, k, v, causal, window) -> dict:
+    """K1's output ``got`` against its plain version on the same inputs
+    (and against scaled_dot_product_attention where no window applies):
+    the max |error|, the mean relative error of each, and whether they
+    are within ``TOL``, ``FA_MEAN_REL_TOL`` and ``FA_LIB_MEAN_REL_TOL``."""
+    want = flash_attention_ref(q, k, v, causal=causal, window=window)
+    lib = None if window is not None else F.scaled_dot_product_attention(
+        q, k, v, is_causal=causal, enable_gqa=True)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    rel = mean_rel_err(got, want)
+    lib_rel = None if lib is None else mean_rel_err(got, lib)
+    ok = (err <= TOL[got.dtype] and rel <= FA_MEAN_REL_TOL[got.dtype]
+          and (lib_rel is None or lib_rel <= FA_LIB_MEAN_REL_TOL[got.dtype])
+          and bool(torch.isfinite(got).all()))
+    return {"err": err, "rel": rel, "lib_rel": lib_rel, "ok": ok,
+            "want": want}
+
+
 def check_kernels(gen) -> list:
-    """K1 against its plain version at ``FA_CASES``, and against itself:
-    a second run on the same inputs gives the same bits.  Times the first
-    ``FA_TIMED`` cases and returns their readings."""
-    out = []
-    for B, H, Hkv, S, d, dt, causal, window in FA_CASES:
+    """K1 against its plain version and ``scaled_dot_product_attention``
+    at ``FA_CASES`` (``fa_agreement``), and against itself: a second run
+    on the same inputs gives the same bits.  At a non-causal ragged S, the
+    plain version with the last tile's padding unmasked must fail the
+    same check (the check sees that fault).  Every case is printed before
+    any failure raises.  Times the first ``FA_TIMED`` cases and returns
+    their readings."""
+    out, failed = [], []
+    for case in FA_CASES:
+        B, H, Hkv, S, d, dt, causal, window = case
         q = torch.randn(B, H, S, d, generator=gen, device="cuda").to(dt)
         k = torch.randn(B, Hkv, S, d, generator=gen, device="cuda").to(dt)
         v = torch.randn(B, Hkv, S, d, generator=gen, device="cuda").to(dt)
         got = flash_attention(q, k, v, causal=causal, window=window)
         again = flash_attention(q, k, v, causal=causal, window=window)
-        torch.cuda.synchronize()
-        want = flash_attention_ref(q, k, v, causal=causal, window=window)
-        err = (got.float() - want.float()).abs().max().item()
+        a = fa_agreement(got, q, k, v, causal, window)
         same = torch.equal(got, again)
-        ok = err <= TOL[dt] and bool(torch.isfinite(got).all()) and same
+        ok = a["ok"] and same
+        lib_txt = ("none: no window in the library" if a["lib_rel"] is None
+                   else f"{a['lib_rel']:.3g} (tolerance "
+                        f"{FA_LIB_MEAN_REL_TOL[dt]:g})")
         print(f"flash_attention B={B} H={H} Hkv={Hkv} S={S} d={d} "
               f"{str(dt)[6:]} causal={causal} window={window}: max abs err "
-              f"{err:.3g} (tolerance {TOL[dt]:g}), rerun "
+              f"{a['err']:.3g} (tolerance {TOL[dt]:g}), mean rel err "
+              f"{a['rel']:.3g} (tolerance {FA_MEAN_REL_TOL[dt]:g}), against "
+              f"scaled_dot_product_attention {lib_txt}, rerun "
               f"{'bit-identical' if same else 'DIFFERS'} "
               f"{'ok' if ok else 'FAIL'}")
+        if not causal and S % 64:
+            fault = mean_rel_err(padding_unmasked(q, k, v), a["want"])
+            seen = fault > FA_MEAN_REL_TOL[dt]
+            print(f"  the last tile's {-S % 64} padding keys unmasked (plain "
+                  f"version): mean rel err {fault:.3g}, "
+                  f"{'fails the check ok' if seen else 'PASSES: FAIL'}")
+            ok &= seen
         if not ok:
-            raise AssertionError(f"flash_attention disagrees with its plain "
-                                 f"version ({err} > {TOL[dt]}) or itself")
+            failed.append(case)
         if len(out) < FA_TIMED:          # a serving slice's shape: time it
             t = timings(
                 ms=lambda: flash_attention(q, k, v, causal=causal),
                 plain_ms=lambda: flash_attention_ref(q, k, v, causal=causal),
                 library_ms=lambda: F.scaled_dot_product_attention(
-                    q, k, v, is_causal=True, enable_gqa=True))
+                    q, k, v, is_causal=causal, enable_gqa=True))
             bound_ms, bound_by = attention_bound(q, k, v, causal, window)
-            out.append({"max_abs_err": err, **t, "bound_ms": bound_ms,
-                        "bound_by": bound_by})
+            out.append({"max_abs_err": a["err"], "mean_rel_err": a["rel"],
+                        "library_mean_rel_err": a["lib_rel"], **t,
+                        "bound_ms": bound_ms, "bound_by": bound_by})
             print(f"  timed: kernel {t['ms']:.4f} ms, plain "
                   f"{t['plain_ms']:.4f} ms, scaled_dot_product_attention "
                   f"{t['library_ms']:.4f} ms, bound {bound_ms:.4f} ms "
@@ -548,7 +693,65 @@ def check_kernels(gen) -> list:
                   f"{t['ms_host_paced']:.4f} ms, plain "
                   f"{t['plain_ms_host_paced']:.4f} ms, library "
                   f"{t['library_ms_host_paced']:.4f} ms")
+    if failed:
+        raise AssertionError(f"flash_attention disagrees with its plain "
+                             f"version or the library, or with itself, or "
+                             f"the check misses a planted fault: {failed}")
     return out
+
+
+# The fault ``check_plant_k1_fault`` plants in a copy of K1's source: the
+# bf16 kernels treat the ragged last kv tile as whole, so its zero-filled
+# padding keys go unmasked (``tile_partial`` loses its ``k0 + 64 > S``)
+K1_FAULT = ("(has_window && qw0 + 63 - k0 >= window) || k0 + 64 > S;",
+            "(has_window && qw0 + 63 - k0 >= window);")
+
+
+def check_plant_k1_fault(gen) -> dict:
+    """``python3 chip_smoke.py --plant-k1-fault``: K1 built from a copy of
+    its source with ``K1_FAULT`` planted (in a temporary directory), run
+    at whisper-medium's encoder shape beside the kernel as built from the
+    repository on the same inputs; the check of ``check_kernels`` must
+    pass the one and fail the other.  Returns both readings."""
+    src = build.CSRC / "flash_attention.cu"
+    text = src.read_text()
+    if text.count(K1_FAULT[0]) != 1:
+        raise AssertionError("the planted fault's line is not in "
+                             "flash_attention.cu")
+    B, H, Hkv, S, d, dt, causal, window = WHISPER_ENC_ATTN
+    q = torch.randn(B, H, S, d, generator=gen, device="cuda").to(dt)
+    k = torch.randn(B, Hkv, S, d, generator=gen, device="cuda").to(dt)
+    v = torch.randn(B, Hkv, S, d, generator=gen, device="cuda").to(dt)
+    readings = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        mutant = os.path.join(tmp, "flash_attention.cu")
+        with open(mutant, "w") as f:
+            f.write(text.replace(*K1_FAULT))
+        lib_path = os.path.join(tmp, "libflash_attention_fault.so")
+        subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", lib_path,
+                        mutant], check=True, capture_output=True)
+        built = build.load("flash_attention")
+        for name, lib in (("repository", built),
+                          ("planted fault", ctypes.CDLL(lib_path))):
+            build._libs["flash_attention"] = lib
+            try:
+                got = flash_attention(q, k, v, causal=causal, window=window)
+            finally:
+                build._libs["flash_attention"] = built
+            a = fa_agreement(got, q, k, v, causal, window)
+            print(f"K1 from the {name}'s source at B={B} H={H} S={S} d={d} "
+                  f"{str(dt)[6:]} causal={causal}: max abs err "
+                  f"{a['err']:.3g} (tolerance {TOL[dt]:g}), mean rel err "
+                  f"{a['rel']:.3g} (tolerance {FA_MEAN_REL_TOL[dt]:g}), "
+                  f"against scaled_dot_product_attention {a['lib_rel']:.3g} "
+                  f"(tolerance {FA_LIB_MEAN_REL_TOL[dt]:g}): "
+                  f"{'passes' if a['ok'] else 'fails'}")
+            readings[name] = {k_: a[k_] for k_ in ("err", "rel", "lib_rel",
+                                                     "ok")}
+    if not readings["repository"]["ok"] or readings["planted fault"]["ok"]:
+        raise AssertionError("the check does not tell K1 from the planted "
+                             "fault")
+    return readings
 
 
 def check_misaligned() -> None:
@@ -737,8 +940,9 @@ def check_fa_bwd(gen) -> list:
     the same graph gives the same bits (no atomics).  Times the first
     ``FA_BWD_TIMED`` cases: the kernel (from the forward's o and lse), the
     plain version's backward and ``scaled_dot_product_attention``'s
-    backward; returns their readings."""
-    out = []
+    backward; returns their readings.  Every case is printed before any
+    failure raises."""
+    out, failed = [], []
     for B, H, Hkv, S, d, dt, causal, window in FA_BWD_CASES:
         q = torch.randn(B, H, S, d, generator=gen, device="cuda").to(dt)
         k = torch.randn(B, Hkv, S, d, generator=gen, device="cuda").to(dt)
@@ -755,23 +959,25 @@ def check_fa_bwd(gen) -> list:
         want_out = flash_attention_ref(q, k, v, causal=causal, window=window)
         want = torch.autograd.grad(want_out, (q, k, v), dout,
                                    retain_graph=True)
-        errs, ok = [], True
+        errs, rels, ok = [], [], True
         for g, w in zip(got, want):
             limit = FA_BWD_TOL[dt] * max(1.0, w.float().abs().max().item())
             e = (g.float() - w.float()).abs().max().item()
             errs.append(e)
-            ok &= e <= limit and bool(torch.isfinite(g).all())
+            rels.append(mean_rel_err(g, w))
+            ok &= (e <= limit and rels[-1] <= FA_BWD_MEAN_REL_TOL[dt]
+                   and bool(torch.isfinite(g).all()))
         ok &= same
         print(f"flash_attention_bwd B={B} H={H} Hkv={Hkv} S={S} d={d} "
               f"{str(dt)[6:]} causal={causal} window={window}: max abs err "
               f"dq {errs[0]:.3g} dk {errs[1]:.3g} dv {errs[2]:.3g} "
-              f"(tolerance {FA_BWD_TOL[dt]:g} x max(1, max |grad|)), rerun "
+              f"(tolerance {FA_BWD_TOL[dt]:g} x max(1, max |grad|)), mean "
+              f"rel err dq {rels[0]:.3g} dk {rels[1]:.3g} dv {rels[2]:.3g} "
+              f"(tolerance {FA_BWD_MEAN_REL_TOL[dt]:g}), rerun "
               f"{'bit-identical' if same else 'DIFFERS'} "
               f"{'ok' if ok else 'FAIL'}")
         if not ok:
-            raise AssertionError("flash_attention_bwd disagrees with "
-                                 "autograd through the plain version or "
-                                 "with itself")
+            failed.append((B, H, Hkv, S, d, dt, causal, window))
         if len(out) >= FA_BWD_TIMED:
             continue
         # a training shape: time the backward alone, each call re-running
@@ -788,8 +994,8 @@ def check_fa_bwd(gen) -> list:
         nbytes = (4 * q.numel() + 4 * k.numel()) * esz + 4 * B * H * S
         ops = 10 * d * B * H * causal_pairs(S, causal, window)
         bound_ms, bound_by = roofline(nbytes, ops)
-        out.append({"max_abs_err": max(errs), **t, "bound_ms": bound_ms,
-                    "bound_by": bound_by})
+        out.append({"max_abs_err": max(errs), "mean_rel_err": max(rels),
+                    **t, "bound_ms": bound_ms, "bound_by": bound_by})
         print(f"  timed: kernel {t['ms']:.4f} ms, plain backward "
               f"{t['plain_ms']:.4f} ms, scaled_dot_product_attention "
               f"backward {t['library_ms']:.4f} ms, bound {bound_ms:.4f} ms "
@@ -797,6 +1003,10 @@ def check_fa_bwd(gen) -> list:
               f"host-paced: kernel {t['ms_host_paced']:.4f} ms, plain "
               f"{t['plain_ms_host_paced']:.4f} ms, library "
               f"{t['library_ms_host_paced']:.4f} ms")
+    if failed:
+        raise AssertionError(f"flash_attention_bwd disagrees with autograd "
+                             f"through the plain version or with itself: "
+                             f"{failed}")
     return out
 
 
@@ -1106,11 +1316,11 @@ def train_full(train: dict, ddp: bool, n_buckets: int) -> dict:
     return counts
 
 
-def profile_one(name: str, fn, bound, repeats: int = 3) -> list:
+def profile_one(name: str, fn, bound, repeats: int = 3) -> dict:
     """Host wall (median of ``repeats`` calls, each ending in a device
     synchronize), the device time of the kernels one call launches, the
     kernels that take most of it (torch.profiler) and the bound.  Returns
-    the names of every kernel the profiled call ran."""
+    every kernel the profiled call ran, by name, with its launch count."""
     bound_ms, bound_by = bound
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -1147,7 +1357,7 @@ def profile_one(name: str, fn, bound, repeats: int = 3) -> list:
     print("  host operators by own host time: " + ", ".join(
         f"{e.key} {e.self_cpu_time_total / 1e3:.1f} ms x{e.count}"
         for e in host))
-    return [e.key for e in ev]
+    return {e.key: e.count for e in ev}
 
 
 def check_ran(name: str, kernels: list, want: str, never: str = None):
@@ -1173,6 +1383,27 @@ def check_k1_route(name: str, kernels: list, want: tuple) -> None:
     if not all(ran.values()) or f32:
         raise AssertionError(f"{name}: bf16 attention did not run on the "
                              f"tensor-core kernels: {ran}, f32 {f32}")
+
+
+def check_k1_launches(name: str, kernels: dict, want: int) -> None:
+    """The profiled call launched K1's tensor-core forward ``want`` times
+    (whisper-medium's prefill: its encoder's non-causal layers and its
+    decoder's causal ones, one kernel by name)."""
+    n = sum(c for k, c in kernels.items() if K1_TC["forward"] in k)
+    print(f"{name}: {K1_TC['forward']} launched {n} times, want {want}")
+    if n != want:
+        raise AssertionError(f"{name}: {n} K1 forward launches, want {want}")
+
+
+def check_no_kernel(name: str, kernels: dict) -> None:
+    """The profiled call ran none of K1's or K2's kernels (xlstm-350m:
+    its path is plain PyTorch by design)."""
+    names = (*K1_TC.values(), *K1_F32, K2_TC, K2_F32, K2_BWD_TC, K2_BWD_F32)
+    ran = [k for k in kernels if any(n in k for n in names)]
+    print(f"{name}: K1 and K2 kernels by name {len(ran)} "
+          f"({len(kernels)} kernel names in all)")
+    if ran:
+        raise AssertionError(f"{name} ran {ran}")
 
 
 def train_ops(cfg, params, batch: int, seq: int) -> int:
@@ -1252,18 +1483,23 @@ def check_reference(arch: str, prompt_len: int = 20, gen_len: int = 8,
                     slots: int = 2, tol: float = 1e-4, scaled: bool = False):
     """Greedy serve of a tiny config on the card against the same
     parameters on the CPU: identical tokens, logits within ``tol`` (with
-    ``scaled``, within ``tol`` times the logits' largest magnitude)."""
+    ``scaled``, within ``tol`` times the logits' largest magnitude).  The
+    enc-dec family gets seeded numpy frames."""
     cfg = get_config(arch, tiny=True)
     shape = {"seq_len": prompt_len + gen_len, "global_batch": slots}
     pre = steps.make_prefill_step(cfg, shape)
     dec = steps.make_decode_step(cfg, shape)
     p_cpu = init_params(pre.specs, torch.Generator().manual_seed(0), "cpu")
     p_gpu = pytree.tree_map(lambda t: t.to("cuda"), p_cpu)
-    toks = np.random.default_rng(0).integers(0, cfg.vocab,
-                                             (slots, prompt_len))
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab, (slots, prompt_len))
+    batch = {"tokens": torch.from_numpy(toks)}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.from_numpy((0.5 * rng.standard_normal(
+            (slots, cfg.enc_frames, cfg.d_model))).astype(np.float32))
     runs = {}
     for dev, params in (("cpu", p_cpu), ("cuda", p_gpu)):
-        lg, cache = pre.fn(params, {"tokens": torch.from_numpy(toks).to(dev)})
+        lg, cache = pre.fn(params, {k: v.to(dev) for k, v in batch.items()})
         lgs, tok = [lg], lg.argmax(-1)[:, None]
         toks_out = [tok]
         for t in range(gen_len):
@@ -1290,26 +1526,31 @@ def profile_steps(cfg, slots: int, prompt_len: int, repeats: int = 3,
     time at ``slots`` rows: host wall time (median of ``repeats``, each
     ending in a device synchronize), the device time of the kernels it
     launched, the kernels that take the most of it (torch.profiler), and
-    the step's bound (``step_bound``).  Returns the prefill's kernel
-    names."""
+    the step's bound (``step_bound``).  The enc-dec prefill encodes zero
+    frames, as ``Session.serve`` does.  Returns the prefill's and the
+    decode step's kernels (``profile_one``; the latter None without
+    ``decode``)."""
     shape = {"seq_len": prompt_len + 1, "global_batch": slots}
     pre = steps.make_prefill_step(cfg, shape)
     dec = steps.make_decode_step(cfg, shape)
     params = init_params(pre.specs,
                          torch.Generator(device="cuda").manual_seed(1), "cuda")
-    toks = torch.randint(0, cfg.vocab, (slots, prompt_len), device="cuda")
-    lg, cache = pre.fn(params, {"tokens": toks})
+    batch = {"tokens": torch.randint(0, cfg.vocab, (slots, prompt_len),
+                                     device="cuda")}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.zeros((slots, cfg.enc_frames, cfg.d_model),
+                                      dtype=cfg.c_dtype, device="cuda")
+    lg, cache = pre.fn(params, batch)
     tok = lg.argmax(-1)[:, None]
-    runs = ((f"prefill, batch {slots}", lambda: pre.fn(params,
-                                                      {"tokens": toks}),
+    runs = ((f"prefill, batch {slots}", lambda: pre.fn(params, batch),
              step_bound(cfg, params, cache, slots, prompt_len,
-                        prompt_len * (prompt_len + 1) // 2)),
+                        prompt_len * (prompt_len + 1) // 2, encode=True)),
             ("decode step", lambda: dec.fn(params, cache, {"tokens": tok},
                                            prompt_len),
              step_bound(cfg, params, cache, slots, 1, prompt_len + 1)))
     kernels = [profile_one(name, fn, bound)
                for name, fn, bound in runs[:2 if decode else 1]]
-    return kernels[0]
+    return kernels[0], (kernels[1] if decode else None)
 
 
 KERNELS = (flash_attention, flash_attention_bwd, mamba2_chunk_scan,
@@ -1325,13 +1566,42 @@ def _counts() -> dict:
     return {fn.__name__: fn.launches for fn in KERNELS}
 
 
+def prefill_launches(cfg) -> dict:
+    """Each kernel's launches in one prefill of ``cfg`` (any batch): K1
+    once per attention layer (zamba's shared block once per group; the
+    enc-dec encoder's and decoder's layers), K2 once per mamba layer,
+    nothing else; xlstm-350m runs no kernel (the JAX package has none for
+    its mixers)."""
+    k1 = {"dense": cfg.n_layers, "moe": cfg.n_layers, "xlstm": 0,
+          "zamba": cfg.n_layers // cfg.shared_every,
+          "encdec": cfg.n_enc_layers + cfg.n_layers}[cfg.family]
+    return {"flash_attention": k1,
+            "mamba2_chunk_scan": cfg.n_layers if cfg.family == "zamba" else 0,
+            "flash_attention_bwd": 0, "mamba2_chunk_scan_bwd": 0,
+            "onebit_quantize": 0, "onebit_dequantize": 0}
+
+
+def xlstm_request_bytes(cfg) -> int:
+    """The bytes of one request's decode state, from the config: per mLSTM
+    layer C [H, P, P], n [H, P], m [H] in float32 and the conv state [K-1,
+    d_in] in the cache dtype; per sLSTM layer h, c, n [H_s, D/H_s] and m
+    [H_s] in float32."""
+    H = cfg.n_heads
+    d_in = cfg.expand * cfg.d_model
+    P = d_in // H
+    groups = cfg.n_layers // cfg.slstm_every
+    mlstm = 4 * (H * P * P + H * P + H) \
+        + (cfg.ssm_d_conv - 1) * d_in * cfg.cache_dtype.itemsize
+    slstm = 4 * (3 * cfg.d_model + cfg.slstm_heads)
+    return groups * ((cfg.slstm_every - 1) * mlstm + slstm)
+
+
 def serve_full(arch: str) -> dict:
     """``Session.serve`` of ``arch`` at full width and depth (random
     weights, seed 0), with every kernel launch count set to 0 just before
     and read just after; checks the counts against the layers the path
-    runs (K1 once per attention layer and K2 once per mamba layer, each
-    once per wave), the decode nodes, the token range and finite prefill
-    logits.  Returns the counts."""
+    runs (``prefill_launches`` once per wave), the decode nodes, the token
+    range and finite prefill logits.  Returns the counts."""
     phase(f"serve {arch}, full width and depth, random weights (seed 0)")
     plan = Plan(arch=arch, tiny=False, device="cuda")
     cfg = plan.config()
@@ -1346,14 +1616,7 @@ def serve_full(arch: str) -> dict:
     print(f"{res['tokens_per_s']:.1f} tok/s, {waves} waves, "
           f"{n_decode} decode nodes, peak memory {peak / 2**30:.2f} GiB, "
           + ", ".join(f"{k} launches {v}" for k, v in counts.items()))
-    if cfg.family == "zamba":
-        want = {"flash_attention": cfg.n_layers // cfg.shared_every,
-                "mamba2_chunk_scan": cfg.n_layers}
-    else:
-        want = {"flash_attention": cfg.n_layers, "mamba2_chunk_scan": 0}
-    want.update(flash_attention_bwd=0, mamba2_chunk_scan_bwd=0,
-                onebit_quantize=0, onebit_dequantize=0)
-    for name, per_wave in want.items():
+    for name, per_wave in prefill_launches(cfg).items():
         if counts[name] != waves * per_wave:
             raise AssertionError(f"{name} launched {counts[name]} times, "
                                  f"want waves x layers = {waves * per_wave}")
@@ -1369,6 +1632,80 @@ def serve_full(arch: str) -> dict:
         raise AssertionError("prefill logits are not finite")
     print(f"tokens in [0, {cfg.vocab}), prefill logits finite")
     return counts
+
+
+def check_stream_refused(arch: str) -> None:
+    """``serve_stream`` of ``arch`` raises the reference's ``ValueError``
+    (its decoder's position embedding takes one scalar position for the
+    batch; ``src/repro/frontend/plan.py``) before it builds anything."""
+    phase(f"serve_stream {arch}: refused, as in the reference")
+    with Plan(arch=arch, tiny=False, device="cuda").compile() as session:
+        try:
+            session.serve_stream(trace=[{"at_round": 0}], **{
+                k: SERVE[k] for k in ("prompt_len", "gen_len", "slots")})
+        except ValueError as e:
+            if "serve_stream does not support encdec" not in str(e):
+                raise
+            print(f"ValueError: {e}")
+        else:
+            raise AssertionError(f"{arch}: serve_stream did not refuse")
+
+
+def check_xlstm_rollout() -> None:
+    """xlstm-350m at full width and depth on the card in float32 (random
+    weights, seed 0): the chunked prefill of an ``XLSTM_ROLLOUT``-token
+    prompt in chunks of ``XLSTM_CHUNK`` against ``decode_step`` run over
+    the same tokens from a zero state, the last token's logits within
+    ``XLSTM_RTOL``/``XLSTM_ATOL`` (the reference's chunked-against-stepwise
+    tolerance), and the final recurrent states likewise.  The family has
+    no kernel to hold against its plain version: this holds the chunked
+    form against the recurrence it must equal."""
+    phase(f"xlstm-350m at full width, float32: chunked prefill of "
+          f"{XLSTM_ROLLOUT} tokens against a decode-step rollout")
+    cfg = Plan(arch="xlstm-350m", tiny=False, device="cuda", overrides=dict(
+        compute_dtype="f32", cache_dtype_str="f32",
+        ssm_chunk=XLSTM_CHUNK)).config()
+    model = build_model(cfg)
+    params = init_params(model.specs(),
+                         torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (1, XLSTM_ROLLOUT))).to("cuda")
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        lg, cache = model.prefill(params, {"tokens": toks}, XLSTM_ROLLOUT)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state = init_params(model.cache_specs(1, XLSTM_ROLLOUT), None, "cuda")
+        for t in range(XLSTM_ROLLOUT):
+            step_lg, state = model.decode_step(
+                params, state, {"tokens": toks[:, t:t + 1]}, t)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    def excess(a, b) -> float:
+        """How far ``a`` lies beyond ``XLSTM_RTOL`` of ``b``, in units of
+        b's scale (at least 1): within tolerance when at most
+        ``XLSTM_ATOL``."""
+        return (((a - b).abs() - XLSTM_RTOL * b.abs()).max()
+                / max(1.0, b.abs().max().item())).item()
+    worst = {"logits": excess(lg, step_lg)}
+    for i, (a, b) in enumerate(zip(pytree.tree_leaves(cache),
+                                   pytree.tree_leaves(state))):
+        worst[f"state {i}"] = excess(a, b)
+    name = max(worst, key=worst.get)
+    print(f"{cfg.n_layers} layers, d_model {cfg.d_model}: prefill "
+          f"{1e3 * (t1 - t0):.1f} ms, rollout {1e3 * (t2 - t1):.1f} ms; "
+          f"last-token logits max abs err "
+          f"{(lg - step_lg).abs().max().item():.3g} (largest "
+          f"{step_lg.abs().max().item():.3g}); beyond rtol {XLSTM_RTOL:g}: "
+          f"logits {worst['logits']:.3g}, worst of {len(worst)} leaves "
+          f"{worst[name]:.3g} ({name}) of their scale (tolerance "
+          f"{XLSTM_ATOL:g})")
+    if worst[name] > XLSTM_ATOL or not bool(torch.isfinite(lg).all()):
+        raise AssertionError(f"xlstm-350m: the chunked prefill and the "
+                             f"rollout part: {name} {worst[name]}")
+    del params, cache, state
+    torch.cuda.empty_cache()
 
 
 def gateway_oracle(gw, prompt, slot: int) -> list:
@@ -1439,7 +1776,8 @@ def serve_stream_full(arch: str) -> tuple:
     ``gateway_oracle``, two replicas and the replica-death drill against
     one replica (same streams, same launches: prefill never reruns), and
     for qwen3-4b a live ``RequestQueue`` fed from another thread.  Returns
-    (the single-replica run's counts, its readings)."""
+    (the single-replica run's counts, its readings).  For xlstm-350m the
+    parked bytes are also held to ``xlstm_request_bytes``."""
     phase(f"serve_stream {arch}, full width and depth, random weights "
           f"(seed 0)")
     plan = Plan(arch=arch, tiny=False, device="cuda")
@@ -1448,14 +1786,7 @@ def serve_stream_full(arch: str) -> tuple:
     trace = [{"at_round": r} for r in GATEWAY_ARRIVALS]
     kw = dict(prompt_len=SERVE["prompt_len"], gen_len=SERVE["gen_len"],
               slots=SERVE["slots"])
-    if cfg.family == "zamba":
-        per_request = {"flash_attention": cfg.n_layers // cfg.shared_every,
-                       "mamba2_chunk_scan": cfg.n_layers}
-    else:
-        per_request = {"flash_attention": cfg.n_layers,
-                       "mamba2_chunk_scan": 0}
-    per_request.update(flash_attention_bwd=0, mamba2_chunk_scan_bwd=0,
-                       onebit_quantize=0, onebit_dequantize=0)
+    per_request = prefill_launches(cfg)
 
     def check_counts(what, counts, requests):
         want = {k: v * requests for k, v in per_request.items()}
@@ -1477,6 +1808,10 @@ def serve_stream_full(arch: str) -> tuple:
         leaves = pytree.tree_leaves(pre1.cache_specs, is_leaf=is_spec)
         nbytes = sum(sp.size * sp.dtype.itemsize for sp in leaves)
         pages = -(-nbytes // PAGE_BYTES)
+        if cfg.family == "xlstm" and nbytes != xlstm_request_bytes(
+                pre1.model.cfg):
+            raise AssertionError(f"{arch}: a request parks {nbytes} B, the "
+                                 f"config gives {xlstm_request_bytes(cfg)}")
         print(f"{res['tokens_per_s']:.1f} tok/s, {res['rounds']} rounds, "
               f"{res['epochs']} epochs, {res['tokens']} tokens; per request "
               f"{len(leaves)} leaves, {nbytes} B, {pages} pages of "
@@ -1856,6 +2191,15 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
+    if sys.argv[1:] == ["--plant-k1-fault"]:
+        phase("K1 with a planted fault against the check")
+        print(json.dumps({"plant_k1_fault": check_plant_k1_fault(
+            torch.Generator(device="cuda").manual_seed(0))}))
+        return 0
+    if sys.argv[1:]:
+        print(f"unknown arguments {sys.argv[1:]}", file=sys.stderr)
+        return 2
+
     phase("kernels against their plain versions")
     fa = check_kernels(torch.Generator(device="cuda").manual_seed(0))
     fa_bwd = check_fa_bwd(torch.Generator(device="cuda").manual_seed(0))
@@ -1880,6 +2224,12 @@ def main() -> int:
     # the mamba layers carry into the logits at about 1e-4, so zamba is
     # held to 1e-4 of the logits' scale
     check_reference("zamba2-2.7b", scaled=True)
+    # xlstm-350m runs no kernel, whisper-medium K1 (f32: the CUDA-core
+    # kernel) in its encoder and decoder: float32 sums in other orders,
+    # held as zamba is
+    check_reference("xlstm-350m", scaled=True)
+    check_reference("whisper-medium", scaled=True)
+    check_xlstm_rollout()
     check_train_reference()
     phase("reference: zamba2-2.7b's gradients, kernels against their plain "
           "versions on the card")
@@ -1887,9 +2237,11 @@ def main() -> int:
 
     launches = {arch: serve_full(arch) for arch in SERVE_ARCHS}
     stream_readings = {}
-    for arch in SERVE_ARCHS:
+    for arch in STREAM_ARCHS:
         launches[f"serve_stream_{arch}"], stream_readings[arch] = \
             serve_stream_full(arch)
+    for arch in sorted(set(SERVE_ARCHS) - set(STREAM_ARCHS)):
+        check_stream_refused(arch)
     launches["train"] = train_full(TRAIN, False, len(buckets))
     launches["ddp_onebit"] = train_full(TRAIN, True, len(buckets))
     launches["train_zamba"] = train_full(ZAMBA_TRAIN, False, 0)
@@ -1899,15 +2251,25 @@ def main() -> int:
     har = check_har_cnn()
 
     for arch in SERVE_ARCHS:
-        phase(f"where the time goes: {arch}, one prefill at batch "
-              f"{SERVE['slots']} and at batch 1, one decode step (not "
-              f"counted)")
         scfg = steps._serve_cfg(get_config(arch))
-        for slots in (SERVE["slots"], 1):
-            kernels = profile_steps(scfg, slots, SERVE["prompt_len"],
-                                    decode=slots > 1)
+        batches = (SERVE["slots"],) if arch not in STREAM_ARCHS \
+            else (SERVE["slots"], 1)
+        phase(f"where the time goes: {arch}, one prefill at batch "
+              f"{' and at batch '.join(map(str, batches))}, one decode "
+              f"step (not counted)")
+        for slots in batches:
+            kernels, dec_kernels = profile_steps(
+                scfg, slots, SERVE["prompt_len"], decode=slots > 1)
             name = f"{arch} prefill, batch {slots}"
+            if scfg.family == "xlstm":
+                check_no_kernel(name, kernels)
+                if dec_kernels is not None:
+                    check_no_kernel(f"{arch} decode step", dec_kernels)
+                continue
             check_k1_route(name, kernels, ("forward",))
+            if scfg.family == "encdec":
+                check_k1_launches(name, kernels,
+                                  prefill_launches(scfg)["flash_attention"])
             if arch == "zamba2-2.7b":
                 check_ran(name, kernels, K2_TC, K2_F32)
     phase("where the time goes: one full-width train step, qwen3-4b plain "
@@ -1946,20 +2308,23 @@ def main() -> int:
     fa_moe = {f"moe_serve_{k}": v for k, v in fa[6].items()}
     fa_moe_b1 = {f"moe_serve_b1_{k}": v for k, v in fa[7].items()}
     fa_moe_b8 = {f"moe_train_b8_{k}": v for k, v in fa[8].items()}
+    fa_whisper_enc = {f"whisper_enc_{k}": v for k, v in fa[9].items()}
+    fa_whisper_dec = {f"whisper_dec_{k}": v for k, v in fa[10].items()}
     bwd_b8 = {f"train_b8_{k}": v for k, v in fa_bwd[1].items()}
     bwd_d80 = {f"zamba_train_{k}": v for k, v in fa_bwd[2].items()}
     bwd_d96 = {f"phi3_d96_{k}": v for k, v in fa_bwd[3].items()}
     bwd_moe = {f"moe_train_{k}": v for k, v in fa_bwd[4].items()}
+    bwd_whisper = {f"whisper_enc_{k}": v for k, v in fa_bwd[5].items()}
     largest = {k[len("largest_bucket_"):]: v for k, v in onebit.items()
                if k.startswith("largest_bucket_")}
     print(json.dumps({"kernels": [
         entry("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
               "src/repro/kernels/flash_attention.py:86", fa[0], **fa_zamba,
               **fa_b8, **fa_zamba_b8, **fa_b1, **fa_zamba_b1, **fa_moe,
-              **fa_moe_b1, **fa_moe_b8),
+              **fa_moe_b1, **fa_moe_b8, **fa_whisper_enc, **fa_whisper_dec),
         entry("flash_attention_bwd",
               "src/repro_torch/csrc/flash_attention.cu", None, fa_bwd[0],
-              **bwd_b8, **bwd_d80, **bwd_d96, **bwd_moe,
+              **bwd_b8, **bwd_d80, **bwd_d96, **bwd_moe, **bwd_whisper,
               note="no Pallas counterpart: the JAX package differentiates "
                    "attend_chunked (src/repro/models/attention.py:130)"),
         entry("mamba2_chunk_scan", "src/repro_torch/csrc/mamba2_scan.cu",

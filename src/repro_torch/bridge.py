@@ -2,10 +2,12 @@
 
 No counterpart in ``repro/``.  The JAX model keeps every layer's
 parameters and cache stacked with leading layer dims
-(``repro/models/model.py``: ``[layers, ...]`` for the dense family,
-``[groups, shared_every, ...]`` for zamba's mamba layers and ``[groups,
-...]`` for its shared block's KV cache); the port keeps nested lists of
-per-layer dicts in their place.  The inputs are nested dicts of numpy
+(``repro/models/model.py``: ``[layers, ...]`` for the dense, moe and
+encdec families, ``[groups, shared_every, ...]`` for zamba's mamba layers
+and ``[groups, ...]`` for its shared block's KV cache, ``[groups,
+slstm_every - 1, ...]`` for xlstm's mLSTM layers and ``[groups, ...]``
+for its sLSTM layers); the port keeps nested lists of per-layer dicts in
+their place.  The inputs are nested dicts of numpy
 arrays (float32; a caller holding ``ml_dtypes`` bfloat16 arrays converts
 them to float32 first), so this module needs nothing of JAX.
 ``tree_to_numpy`` maps back: a port tree (parameters, gradients, optimizer
@@ -82,15 +84,28 @@ def params_from_numpy(tree: dict, cfg, device) -> dict:
 def cache_from_numpy(tree: dict, cfg, device):
     """The JAX decode cache of ``cfg``'s model as the port's cache, in the
     dtypes of the port's cache specs (copies: the decode step writes the
-    cache in place).  Dense: ``{"k", "v"}`` of shape ``[layers, B, S, Hkv,
-    hd]``.  Zamba: ``{"mamba": {"ssm", "conv"}`` with ``[groups,
-    shared_every]`` leading dims, ``"shared": {"k", "v"}`` with
-    ``[groups]``}.  Raises as ``params_from_numpy`` does."""
-    k = np.asarray((tree["shared"] if cfg.family == "zamba" else tree)["k"])
-    if k.ndim != 5:
-        raise ValueError(f"cache k has shape {k.shape}; want [layers, B, S, "
-                         f"Hkv, hd]")
-    specs = build_model(cfg).cache_specs(k.shape[1], k.shape[2])
+    cache in place).  Dense and moe: ``{"k", "v"}`` of shape ``[layers, B,
+    S, Hkv, hd]``; encdec: the same plus ``"ck"``, ``"cv"`` of shape
+    ``[layers, B, enc_frames, Hkv, hd]``.  Zamba: ``{"mamba": {"ssm",
+    "conv"}`` with ``[groups, shared_every]`` leading dims, ``"shared":
+    {"k", "v"}`` with ``[groups]``}.  xlstm: ``{"m": {"C", "n", "m",
+    "conv"}`` with ``[groups, slstm_every - 1]`` leading dims, ``"s": {"h",
+    "c", "n", "m"}`` with ``[groups]``}.  Raises as ``params_from_numpy``
+    does."""
+    if cfg.family == "xlstm":
+        h = np.asarray(tree["s"]["h"])
+        if h.ndim != 4:
+            raise ValueError(f"cache s/h has shape {h.shape}; want [groups, "
+                             f"B, H, P]")
+        batch, cache_len = h.shape[1], 0      # a recurrent state: no length
+    else:
+        k = np.asarray((tree["shared"] if cfg.family == "zamba"
+                        else tree)["k"])
+        if k.ndim != 5:
+            raise ValueError(f"cache k has shape {k.shape}; want [layers, "
+                             f"B, S, Hkv, hd]")
+        batch, cache_len = k.shape[1], k.shape[2]
+    specs = build_model(cfg).cache_specs(batch, cache_len)
     return _from_stacked(tree, specs, device, "cache leaf")
 
 

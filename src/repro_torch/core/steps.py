@@ -71,6 +71,21 @@ def _grad_leaves(params) -> list:
     return leaves
 
 
+def _grads(leaves, unread) -> list:
+    """The leaves' gradients after a backward pass.  A parameter the model
+    declares ``unread`` (``model.unread``: whisper's cross ``bk``/``bv``)
+    gets zeros, as ``jax.grad`` gives; any other leaf without a gradient
+    was cut from the graph, and raises."""
+    skip = {id(t) for t in unread}
+    lost = [i for i, p in enumerate(leaves)
+            if p.grad is None and id(p) not in skip]
+    if lost:
+        raise RuntimeError(f"parameter leaves {lost} got no gradient: the "
+                           f"loss does not reach them")
+    return [torch.zeros_like(p) if p.grad is None else p.grad
+            for p in leaves]
+
+
 # ---------------------------------------------------------------------------
 # Train step
 # ---------------------------------------------------------------------------
@@ -118,7 +133,7 @@ def make_train_step(cfg=None, strategy: Optional[Strategy] = None, *,
         if k == 1:
             loss = model.loss(params, batch)
             loss.backward()
-            grads = [p.grad for p in leaves]
+            grads = _grads(leaves, model.unread(params))
             loss = loss.detach()
         else:
             loss = torch.zeros((), dtype=torch.float32,
@@ -131,8 +146,9 @@ def make_train_step(cfg=None, strategy: Optional[Strategy] = None, *,
                 micro = model.loss(params, mb)
                 micro.backward()
                 loss = loss + micro.detach() / k
-                for g, p in zip(grads, leaves):
-                    g.add_(p.grad / k)
+                for g, p, mg in zip(grads, leaves,
+                                    _grads(leaves, model.unread(params))):
+                    g.add_(mg / k)
                     p.grad = None
         for p in leaves:
             p.grad = None
@@ -199,7 +215,7 @@ def make_ddp_step(cfg=None, strategy: Optional[Strategy] = None, *,
         leaves = _grad_leaves(params)
         loss = model.loss(params, batch)
         loss.backward()
-        grads = [p.grad for p in leaves]
+        grads = _grads(leaves, model.unread(params))
         for p in leaves:
             p.grad = None
         bufs = []
@@ -233,7 +249,8 @@ class ServeStep:
 
 def make_prefill_step(cfg, shape: dict) -> ServeStep:
     """``fn(params, batch) -> (last-token logits, cache)``; the cache is
-    padded to ``shape["seq_len"]``."""
+    padded to ``shape["seq_len"]``.  ``batch`` holds ``"tokens"``, and for
+    the encdec family also the encoder's ``"frames"``."""
     scfg = _serve_cfg(cfg)
     model = build_model(scfg)
     S = shape["seq_len"]

@@ -405,7 +405,13 @@ class Session:
 
         def prepare_wave(wave) -> dict:
             toks = torch.from_numpy(np.stack(wave)).to(dev, torch.int64)
-            return {"tokens": toks}
+            batch = {"tokens": toks}
+            if cfg.family == "encdec":
+                # the stub audio frontend's frames, as in the reference
+                batch["frames"] = torch.zeros(
+                    (slots, cfg.enc_frames, cfg.d_model), dtype=cfg.c_dtype,
+                    device=dev)
+            return batch
 
         def defer_wave(wave, w: int):
             return runtime.defer(prepare_wave, wave, lane=Lane.PREFETCH,

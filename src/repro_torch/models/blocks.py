@@ -1,16 +1,25 @@
-"""Blocks of the dense, moe and zamba families: specs, the training
-forward, prefill (returns the populated cache) and single-token decode.
+"""Blocks of every family: specs, the training forward, prefill (returns
+the populated cache or state) and single-token decode.
 
 Counterpart: ``repro/models/blocks.py``: the pre-norm residual transformer
-block with an MLP or a mixture of experts (``tblock_specs``,
-``tblock_apply``, ``kv_cache_specs``, ``tblock_prefill``,
-``tblock_decode``) without the cross-attention variant (ROADMAP item 11),
-and the Mamba-2 block
+block with an MLP or a mixture of experts and optional cross-attention
+(``tblock_specs``, ``tblock_apply``, ``kv_cache_specs``,
+``tblock_prefill``, ``tblock_decode``), the Mamba-2 block
 (``mamba_block_specs``, ``mamba_block_apply``, ``mamba_block_prefill``,
-``mamba_block_decode``, ``mamba_state_specs``); the xLSTM blocks wait for
-ROADMAP item 11.
+``mamba_block_decode``, ``mamba_state_specs``) and the xLSTM blocks
+(``mlstm_block_*``, ``mlstm_state_specs``, ``slstm_block_*``,
+``slstm_state_specs``).  The state specs take no stacked ``prefix``: the
+port's model keeps one spec per layer in nested lists.
+
+Cross-attention (the enc-dec decoder) takes the encoder's K/V from the
+caller, projected without biases as the reference's ``EncDec`` does; only
+its query gets ``bq``.  It always runs through ``attention.attend_full``
+(the query and key lengths differ, which K1 does not take), as the
+reference computes it with jnp.
 """
 from __future__ import annotations
+
+import types
 
 import torch
 import torch.nn.functional as F
@@ -19,7 +28,7 @@ from ..core.sharding import ParamSpec
 from . import attention, layers, moe, ssm
 
 
-def tblock_specs(cfg, *, use_moe: bool = False) -> dict:
+def tblock_specs(cfg, *, cross: bool = False, use_moe: bool = False) -> dict:
     sp = {
         "ln_attn": layers.norm_specs(cfg.d_model, cfg.norm),
         "attn": attention.attn_specs(
@@ -31,6 +40,11 @@ def tblock_specs(cfg, *, use_moe: bool = False) -> dict:
         sp["moe"] = moe.moe_specs(cfg.d_model, cfg.d_ff, cfg.n_experts)
     else:
         sp["mlp"] = layers.mlp_specs(cfg.d_model, cfg.d_ff, cfg.mlp_kind)
+    if cross:
+        sp["ln_cross"] = layers.norm_specs(cfg.d_model, cfg.norm)
+        sp["cross"] = attention.attn_specs(
+            cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+            qkv_bias=cfg.qkv_bias, qk_norm=False)
     return sp
 
 
@@ -57,23 +71,38 @@ def _out_proj(o, wo, dt):
     return torch.einsum("bqhk,hkd->bqd", o, wo.to(dt))
 
 
-def tblock_apply(x, p, cfg):
+def _cross(x, p, cfg, enc_kv):
+    """The cross-attention half: x [B,S,D] attends the encoder's ``enc_kv``
+    = (ck, cv) [B, S_enc, Hkv, hd], non-causal, with plain tensor code."""
+    h = layers.apply_norm(x, p["ln_cross"], cfg.norm)
+    q = torch.einsum("bsd,dhk->bshk", h, p["cross"]["wq"].to(x.dtype))
+    if "bq" in p["cross"]:
+        q = q + p["cross"]["bq"].to(x.dtype)
+    o = attention.attend_full(q, enc_kv[0], enc_kv[1], causal=False)
+    return x + _out_proj(o, p["cross"]["wo"], x.dtype)
+
+
+def tblock_apply(x, p, cfg, *, causal: bool = True, enc_kv=None):
     """The training forward of the block: x [B,S,D] -> (x [B,S,D], aux
-    loss); causal attention through the flash-attention kernel, whose
-    backward is a kernel too."""
+    loss); self-attention (causal, or not: the encoder) through the
+    flash-attention kernel, whose backward is a kernel too, then
+    cross-attention to ``enc_kv`` where the block has it."""
     h = layers.apply_norm(x, p["ln_attn"], cfg.norm)
     q, k, v = attention.project_qkv(
         h, p["attn"], rope_theta=cfg.rope_theta, use_rope=cfg.use_rope)
-    o = attention.attend(q, k, v, causal=True, window=cfg.sliding_window)
+    o = attention.attend(q, k, v, causal=causal, window=cfg.sliding_window)
     x = x + _out_proj(o, p["attn"]["wo"], x.dtype)
+    if "cross" in p:
+        x = _cross(x, p, cfg, enc_kv)
     h = layers.apply_norm(x, p["ln_mlp"], cfg.norm)
     y, aux = _ffn(h, p, cfg)
     return x + y, aux
 
 
-def tblock_prefill(x, p, cfg, cache_len: int):
+def tblock_prefill(x, p, cfg, cache_len: int, *, enc_kv=None):
     """Run the block over a full prompt, returning (x, kv-cache cast to
-    the cache dtype and padded to cache_len)."""
+    the cache dtype and padded to cache_len).  A block with
+    cross-attention also caches the encoder's K/V as ``"ck"``, ``"cv"``."""
     h = layers.apply_norm(x, p["ln_attn"], cfg.norm)
     q, k, v = attention.project_qkv(
         h, p["attn"], rope_theta=cfg.rope_theta, use_rope=cfg.use_rope)
@@ -82,13 +111,18 @@ def tblock_prefill(x, p, cfg, cache_len: int):
     pad = cache_len - k.shape[1]
     cache = {"k": F.pad(k.to(cfg.cache_dtype), (0, 0, 0, 0, 0, pad)),
              "v": F.pad(v.to(cfg.cache_dtype), (0, 0, 0, 0, 0, pad))}
+    if "cross" in p:
+        x = _cross(x, p, cfg, enc_kv)
+        cache["ck"], cache["cv"] = enc_kv
     h = layers.apply_norm(x, p["ln_mlp"], cfg.norm)
     return x + _ffn(h, p, cfg)[0], cache
 
 
-def tblock_decode(x, p, cfg, cache, pos):
+def tblock_decode(x, p, cfg, cache, pos, *, enc_kv=None):
     """x: [B,1,D]; cache: {"k","v"} [B,S,Hkv,hd], updated in place; pos:
-    scalar int, or a ``[B]`` tensor of per-row positions."""
+    scalar int, or a ``[B]`` tensor of per-row positions.  A block with
+    cross-attention attends ``enc_kv`` (the encoder's K/V the cache holds
+    as ``"ck"``, ``"cv"``) and returns them in the new cache."""
     h = layers.apply_norm(x, p["ln_attn"], cfg.norm)
     if isinstance(pos, torch.Tensor) and pos.dim():
         positions = pos.to(x.device)[:, None]
@@ -101,8 +135,12 @@ def tblock_decode(x, p, cfg, cache, pos):
                                     mode=cfg.cache_update)
     o = attention.decode_attend(q, kc, vc, pos, window=cfg.sliding_window)
     x = x + _out_proj(o, p["attn"]["wo"], x.dtype)
+    new_cache = {"k": kc, "v": vc}
+    if "cross" in p:
+        x = _cross(x, p, cfg, enc_kv)
+        new_cache["ck"], new_cache["cv"] = enc_kv
     h = layers.apply_norm(x, p["ln_mlp"], cfg.norm)
-    return x + _ffn(h, p, cfg)[0], {"k": kc, "v": vc}
+    return x + _ffn(h, p, cfg)[0], new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -154,4 +192,103 @@ def mamba_state_specs(cfg, batch: int) -> dict:
         "conv": ParamSpec((batch, cfg.ssm_d_conv - 1, conv_ch),
                           ("batch", "conv", "inner"),
                           dtype=cfg.cache_dtype, init="zeros"),
+    }
+
+
+# ---------------------------------------------------------------------------
+# xLSTM blocks (pre-norm + mixer; the mixers carry their own projections)
+# ---------------------------------------------------------------------------
+def mlstm_block_specs(cfg) -> dict:
+    return {
+        "ln": layers.norm_specs(cfg.d_model, cfg.norm),
+        "mixer": ssm.mlstm_specs(cfg.d_model, n_heads=cfg.n_heads,
+                                 expand=cfg.expand, d_conv=cfg.ssm_d_conv),
+    }
+
+
+def mlstm_block_apply(x, p, cfg, *, chunk: int = 256):
+    h = layers.apply_norm(x, p["ln"], cfg.norm)
+    return x + ssm.mlstm_chunked(h, p["mixer"], cfg, chunk=chunk)
+
+
+def mlstm_block_prefill(x, p, cfg, *, chunk: int = 256):
+    """Returns (x, state ``{"C", "n", "m", "conv"}``)."""
+    h = layers.apply_norm(x, p["ln"], cfg.norm)
+    y, st = ssm.mlstm_chunked(h, p["mixer"], cfg, chunk=chunk,
+                              return_state=True)
+    return x + y, st
+
+
+def mlstm_block_decode(x, p, cfg, state, pos):
+    """x: [B,1,D]; the recurrent state needs no position."""
+    h = layers.apply_norm(x, p["ln"], cfg.norm)
+    y, state = ssm.mlstm_step(h, state, p["mixer"], cfg)
+    return x + y, state
+
+
+def mlstm_state_specs(cfg, batch: int) -> dict:
+    """One layer's state: ``"C"`` [batch, H, P, P], ``"n"`` [batch, H, P]
+    and ``"m"`` [batch, H] in float32, ``"conv"`` [batch, K-1, d_in] in the
+    cache dtype."""
+    d_in = cfg.expand * cfg.d_model
+    H = cfg.n_heads
+    P = d_in // H
+    f32 = torch.float32
+    return {
+        "C": ParamSpec((batch, H, P, P), ("batch", "heads", "head_dim",
+                                          "state"), dtype=f32, init="zeros"),
+        "n": ParamSpec((batch, H, P), ("batch", "heads", "head_dim"),
+                       dtype=f32, init="zeros"),
+        "m": ParamSpec((batch, H), ("batch", "heads"), dtype=f32,
+                       init="zeros"),
+        "conv": ParamSpec((batch, cfg.ssm_d_conv - 1, d_in),
+                          ("batch", "conv", "inner"),
+                          dtype=cfg.cache_dtype, init="zeros"),
+    }
+
+
+def _slstm_cfg(cfg):
+    """The sLSTM mixer's view of ``cfg``: its own head count."""
+    return types.SimpleNamespace(n_heads=cfg.slstm_heads,
+                                 d_model=cfg.d_model)
+
+
+def slstm_block_specs(cfg) -> dict:
+    return {
+        "ln": layers.norm_specs(cfg.d_model, cfg.norm),
+        "mixer": ssm.slstm_specs(cfg.d_model, n_heads=cfg.slstm_heads),
+    }
+
+
+def slstm_block_apply(x, p, cfg):
+    h = layers.apply_norm(x, p["ln"], cfg.norm)
+    return x + ssm.slstm_apply(h, p["mixer"], _slstm_cfg(cfg))
+
+
+def slstm_block_prefill(x, p, cfg):
+    """Returns (x, state ``{"h", "c", "n", "m"}``)."""
+    h = layers.apply_norm(x, p["ln"], cfg.norm)
+    y, st = ssm.slstm_apply(h, p["mixer"], _slstm_cfg(cfg),
+                            return_state=True)
+    return x + y, st
+
+
+def slstm_block_decode(x, p, cfg, state, pos):
+    h = layers.apply_norm(x, p["ln"], cfg.norm)
+    y, state = ssm.slstm_step(h, state, p["mixer"], _slstm_cfg(cfg))
+    return x + y, state
+
+
+def slstm_state_specs(cfg, batch: int) -> dict:
+    """One layer's state, all float32: ``"h"``, ``"c"``, ``"n"`` [batch,
+    H, P] and ``"m"`` [batch, H], H the sLSTM's heads."""
+    H = cfg.slstm_heads
+    P = cfg.d_model // H
+    mk = lambda *s, dims: ParamSpec(s, dims, dtype=torch.float32,  # noqa: E731
+                                    init="zeros")
+    return {
+        "h": mk(batch, H, P, dims=("batch", "heads", "head_dim")),
+        "c": mk(batch, H, P, dims=("batch", "heads", "head_dim")),
+        "n": mk(batch, H, P, dims=("batch", "heads", "head_dim")),
+        "m": mk(batch, H, dims=("batch", "heads")),
     }

@@ -6,8 +6,8 @@ order is kept exactly: ``rms_norm`` takes its statistics in float32 and
 scales in the input dtype; ``layer_norm`` takes its statistics in
 float32 and normalizes in the input dtype; RoPE rotates the split halves
 in float32 and casts back; the cross entropy reduces in float32.  The
-gelu MLP and the sinusoidal embedding wait for the families that use
-them (ROADMAP item 11).
+gelu MLP uses the tanh approximation, which is ``jax.nn.gelu``'s
+default.
 """
 from __future__ import annotations
 
@@ -15,8 +15,6 @@ import torch
 import torch.nn.functional as F
 
 from ..core.sharding import ParamSpec
-
-_LATER = "ROADMAP item 11"
 
 
 # ---------------------------------------------------------------------------
@@ -73,25 +71,45 @@ def apply_rope(x, positions, theta: float = 10000.0):
     return out.to(x.dtype)
 
 
+def sinusoidal_embedding(seq: int, d: int, device=None):
+    """[seq, d] float32: the sines of the positions' angles, then their
+    cosines."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
+    angle = pos / 10000.0 ** (2 * dim / d)
+    return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # MLPs
 # ---------------------------------------------------------------------------
+def gelu(x):
+    """``jax.nn.gelu``'s default form: the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
 def mlp_specs(d: int, ff: int, kind: str = "swiglu") -> dict:
-    if kind != "swiglu":
-        raise NotImplementedError(f"mlp {kind!r} comes with {_LATER}")
-    return {
-        "w_gate": ParamSpec((d, ff), ("embed", "d_ff")),
+    if kind == "swiglu":
+        return {
+            "w_gate": ParamSpec((d, ff), ("embed", "d_ff")),
+            "w_up": ParamSpec((d, ff), ("embed", "d_ff")),
+            "w_down": ParamSpec((ff, d), ("d_ff", "embed")),
+        }
+    return {  # gelu
         "w_up": ParamSpec((d, ff), ("embed", "d_ff")),
+        "b_up": ParamSpec((ff,), ("d_ff",), init="zeros"),
         "w_down": ParamSpec((ff, d), ("d_ff", "embed")),
+        "b_down": ParamSpec((d,), ("embed",), init="zeros"),
     }
 
 
 def apply_mlp(x, p, kind: str = "swiglu"):
-    if kind != "swiglu":
-        raise NotImplementedError(f"mlp {kind!r} comes with {_LATER}")
     dt = x.dtype
-    h = F.silu(x @ p["w_gate"].to(dt)) * (x @ p["w_up"].to(dt))
-    return h @ p["w_down"].to(dt)
+    if kind == "swiglu":
+        h = F.silu(x @ p["w_gate"].to(dt)) * (x @ p["w_up"].to(dt))
+        return h @ p["w_down"].to(dt)
+    h = gelu(x @ p["w_up"].to(dt) + p["b_up"].to(dt))
+    return h @ p["w_down"].to(dt) + p["b_down"].to(dt)
 
 
 # ---------------------------------------------------------------------------

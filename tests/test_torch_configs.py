@@ -8,9 +8,10 @@ import pytest
 from repro.configs import get_config as jax_get_config
 from repro.core.sharding import ParamSpec as JaxParamSpec
 from repro.models.model import build_model as jax_build_model
-from repro_torch.configs import PENDING, REGISTRY, get_config
+from repro.configs import REGISTRY as JAX_REGISTRY
+from repro_torch.configs import ARCH_IDS, REGISTRY, get_config
 from repro_torch.core.sharding import is_spec
-from repro_torch.models.model import LM, build_model
+from repro_torch.models.model import EncDec, LM, build_model
 
 PORTED = sorted(REGISTRY)
 
@@ -30,18 +31,17 @@ def test_config_equals_jax_field_for_field(arch, tiny):
             _dtype_name(getattr(ref, prop))
 
 
-@pytest.mark.parametrize("arch", sorted(PENDING))
-def test_unported_arch_ids_name_their_roadmap_item(arch):
-    jax_get_config(arch)                       # the reference has it
-    with pytest.raises(NotImplementedError, match="ROADMAP item"):
-        get_config(arch)
+def test_every_reference_arch_is_ported():
+    assert sorted(REGISTRY) == ARCH_IDS == sorted(JAX_REGISTRY)
 
 
-@pytest.mark.parametrize("family", ["xlstm", "encdec"])
-def test_unported_families_raise(family):
-    cfg = dataclasses.replace(get_config("qwen3-4b", tiny=True), family=family)
-    with pytest.raises(NotImplementedError, match="ROADMAP item"):
-        build_model(cfg)
+@pytest.mark.parametrize("arch", PORTED)
+def test_build_model_picks_the_reference_class(arch):
+    cfg = get_config(arch, tiny=True)
+    want = type(jax_build_model(jax_get_config(arch, tiny=True))).__name__
+    model = build_model(cfg)
+    assert type(model).__name__ == want
+    assert isinstance(model, EncDec if cfg.family == "encdec" else LM)
 
 
 def _unstack(node, stacked=()):
@@ -65,12 +65,20 @@ def _n_leaves(node) -> int:
 @pytest.mark.parametrize("arch", PORTED)
 def test_specs_match_jax_leaf_for_leaf(arch, tiny):
     cfg = get_config(arch, tiny=tiny)
-    ours = LM(cfg).specs()
+    ours = build_model(cfg).specs()
     ref = jax_build_model(jax_get_config(arch, tiny=tiny)).specs()
     ref_leaves = jax.tree_util.tree_flatten_with_path(
         ref, is_leaf=lambda x: isinstance(x, JaxParamSpec))[0]
     if cfg.family in ("dense", "moe"):
         assert len(ours["stack"]) == cfg.n_layers
+    elif cfg.family == "xlstm":
+        groups = cfg.n_layers // cfg.slstm_every
+        assert _unstack(ours["stack"]["m"])[0] == (groups,
+                                                    cfg.slstm_every - 1)
+        assert _unstack(ours["stack"]["s"])[0] == (groups,)
+    elif cfg.family == "encdec":
+        assert _unstack(ours["enc_stack"])[0] == (cfg.n_enc_layers,)
+        assert _unstack(ours["dec_stack"])[0] == (cfg.n_layers,)
     else:
         groups = cfg.n_layers // cfg.shared_every
         assert _unstack(ours["stack"]["mamba"])[0] == (groups,
@@ -85,5 +93,31 @@ def test_specs_match_jax_leaf_for_leaf(arch, tiny):
         assert js.shape == stacked + mine.shape, keys
         assert js.dims == ("layers",) * len(stacked) + mine.dims, keys
         assert (mine.init, mine.scale) == (js.init, js.scale), keys
+        assert _dtype_name(mine.dtype) == _dtype_name(js.dtype), keys
+    assert len(ref_leaves) == _n_leaves(ours)
+
+
+@pytest.mark.parametrize("arch", PORTED)
+def test_cache_specs_match_jax_leaf_for_leaf(arch):
+    """The decode cache's specs (KV caches, recurrent states, the enc-dec
+    cross K/V): shapes, dims (the batch dim named, which the gateway's
+    row writes find) and dtypes, the port's list levels standing for the
+    reference's stacked dims."""
+    cfg = get_config(arch, tiny=True)
+    ours = build_model(cfg).cache_specs(3, 24)
+    ref = jax_build_model(jax_get_config(arch, tiny=True)).cache_specs(3, 24)
+    ref_leaves = jax.tree_util.tree_flatten_with_path(
+        ref, is_leaf=lambda x: isinstance(x, JaxParamSpec))[0]
+    for path, js in ref_leaves:
+        keys = [p.key for p in path]
+        mine, stacked = ours, ()
+        for k in keys:
+            stacked, mine = _unstack(mine, stacked)
+            mine = mine[k]
+        stacked, mine = _unstack(mine, stacked)
+        assert is_spec(mine), keys
+        assert js.shape == stacked + mine.shape, keys
+        assert js.dims == ("layers",) * len(stacked) + mine.dims, keys
+        assert "batch" in mine.dims and mine.init == js.init == "zeros", keys
         assert _dtype_name(mine.dtype) == _dtype_name(js.dtype), keys
     assert len(ref_leaves) == _n_leaves(ours)

@@ -421,7 +421,7 @@ def _untimed(counters: dict) -> dict:
 
 
 @pytest.mark.parametrize("script", list(SCRIPTS))
-@pytest.mark.parametrize("arch", ["qwen3-4b", "zamba2-2.7b"])
+@pytest.mark.parametrize("arch", ["qwen3-4b", "zamba2-2.7b", "xlstm-350m"])
 def test_serve_stream_matches_jax_tree_and_counters(arch, script):
     got, want = _parity_runs(arch)[script]
     assert got["trace"] == want["trace"]
@@ -458,7 +458,7 @@ def _margin(session, params, prompt, slot_stream, step):
 
 
 @pytest.mark.parametrize("arch", ["qwen3-4b", "zamba2-2.7b",
-                                  "granite-moe-1b-a400m"])
+                                  "granite-moe-1b-a400m", "xlstm-350m"])
 def test_gateway_streams_equal_jax_gateway_on_bridged_params(arch):
     """A JAX ``Gateway`` and the port's, built on the same bridged bf16
     serve parameters, stream the same tokens for the same script."""

@@ -84,13 +84,6 @@ def test_embed_and_logits():
                                rtol=ATOL)
 
 
-@pytest.mark.parametrize("fn, args", [
-    (tl.apply_mlp, (None, None, "gelu")), (tl.mlp_specs, (8, 16, "gelu"))])
-def test_unported_layer_kinds_raise(fn, args):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-        fn(*args)
-
-
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_layer_norm_and_its_norm_kind(dtype):
     """layer_norm, and the ``"ln"`` kind of norm_specs/apply_norm that

@@ -1,0 +1,372 @@
+"""The xlstm family against the JAX package: the mLSTM and sLSTM mixers
+(chunked or sequential prefill with its final state, and decode steps
+rolled from it), the port's own chunked-against-stepwise checks (the
+counterparts of tests/test_ssm.py's), and tiny xlstm-350m end to end:
+prefill and greedy decode on bridged serve parameters, the loss and every
+gradient, a bf16 run, train steps, its decode cache through the bridge
+and the serve CLI."""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.utils._pytree as pytree
+
+from repro.configs import get_config as jax_get_config
+from repro.core.sharding import init_params as jax_init_params
+from repro.models import ssm as jax_ssm
+from repro.models.model import build_model as build_jax_model
+from repro_torch.bridge import (cache_from_numpy, params_from_numpy,
+                                tree_to_numpy)
+from repro_torch.configs import get_config
+from repro_torch.core import steps
+from repro_torch.data.pipeline import LMStream, to_device
+from repro_torch.models import ssm
+from repro_torch.models.model import build_model
+from torch_parity import (GEN, PROMPT, SLOTS, bf16_parity, close,
+                          jax_train_params, loss_and_grads_match,
+                          serve_cli_runs, serve_parity, train_steps_match)
+
+ARCH = "xlstm-350m"
+
+
+class _Cfg:
+    d_model = 64
+    expand = 2
+    ssm_d_conv = 4
+    n_heads = 4
+
+
+def _mixer_params(specs, seed, perturb=()):
+    """JAX-initialized mixer parameters, numpy float32, the leaves named
+    in ``perturb`` (zero/one inits) moved off their constant."""
+    p = jax.tree.map(lambda a: np.array(a, np.float32),
+                     jax_init_params(specs, jax.random.PRNGKey(seed)))
+    rng = np.random.default_rng(seed)
+    for k in perturb:
+        p[k] = p[k] + 0.3 * rng.standard_normal(p[k].shape).astype(np.float32)
+    return p
+
+
+def _mlstm_params(seed=0):
+    cfg = _Cfg()
+    return _mixer_params(
+        jax_ssm.mlstm_specs(cfg.d_model, n_heads=cfg.n_heads,
+                            expand=cfg.expand, d_conv=cfg.ssm_d_conv),
+        seed, ("conv_b", "b_i", "b_f", "skip", "norm_w"))
+
+
+def _slstm_params(seed=0):
+    cfg = _Cfg()
+    return _mixer_params(jax_ssm.slstm_specs(cfg.d_model, n_heads=cfg.n_heads),
+                         seed, ("b", "norm_w"))
+
+
+def _t(tree):
+    return jax.tree.map(torch.from_numpy, tree)
+
+
+def _j(tree):
+    return jax.tree.map(jnp.asarray, tree)
+
+
+def _x(shape, seed):
+    return (0.5 * np.random.default_rng(seed).standard_normal(shape)
+            ).astype(np.float32)
+
+
+def _close_state(got, want):
+    assert set(got) == set(want)
+    for k in want:
+        close(got[k], want[k], what=k)
+
+
+# -- the mixers against the JAX package ---------------------------------------
+
+@pytest.mark.parametrize("L, chunk", [(48, 12), (48, 48), (32, 256)])
+def test_mlstm_chunked_and_its_state_match_jax(L, chunk):
+    """The chunked prefill and its final state (C, n, m, conv); ``chunk``
+    over L is clipped to L, as in the reference."""
+    cfg, p = _Cfg(), _mlstm_params(1)
+    x = _x((2, L, cfg.d_model), 2)
+    jy, jst = jax_ssm.mlstm_chunked(jnp.asarray(x), _j(p), cfg, chunk=chunk,
+                                    return_state=True)
+    y, st = ssm.mlstm_chunked(torch.from_numpy(x), _t(p), cfg, chunk=chunk,
+                              return_state=True)
+    close(y, jy)
+    _close_state(st, jst)
+    close(ssm.mlstm_chunked(torch.from_numpy(x), _t(p), cfg, chunk=chunk),
+           jy)
+
+
+def test_mlstm_steps_from_the_chunked_state_match_jax():
+    cfg, p = _Cfg(), _mlstm_params(3)
+    x = _x((2, 20, cfg.d_model), 4)
+    _, jst = jax_ssm.mlstm_chunked(jnp.asarray(x[:, :16]), _j(p), cfg,
+                                   chunk=8, return_state=True)
+    _, st = ssm.mlstm_chunked(torch.from_numpy(x[:, :16]), _t(p), cfg,
+                              chunk=8, return_state=True)
+    for t in range(16, 20):
+        jy, jst = jax_ssm.mlstm_step(jnp.asarray(x[:, t:t + 1]), jst, _j(p),
+                                     cfg)
+        y, st = ssm.mlstm_step(torch.from_numpy(x[:, t:t + 1]), st, _t(p),
+                               cfg)
+        close(y, jy, what=f"step {t}")
+        _close_state(st, jst)
+
+
+def test_mlstm_init_state_matches_jax():
+    cfg = _Cfg()
+    want = jax_ssm.mlstm_init_state(3, cfg, jnp.bfloat16)
+    got = ssm.mlstm_init_state(3, cfg, torch.bfloat16)
+    for k in want:
+        assert tuple(got[k].shape) == want[k].shape, k
+        assert str(got[k].dtype)[6:] == str(want[k].dtype), k
+        assert not got[k].any()
+
+
+def test_mlstm_chunked_raises_on_a_ragged_length():
+    cfg, p = _Cfg(), _mlstm_params()
+    with pytest.raises(AssertionError):
+        jax_ssm.mlstm_chunked(jnp.zeros((1, 20, cfg.d_model)), _j(p), cfg,
+                              chunk=8)
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        ssm.mlstm_chunked(torch.zeros(1, 20, cfg.d_model), _t(p), cfg,
+                          chunk=8)
+
+
+def test_slstm_apply_and_its_state_match_jax():
+    cfg, p = _Cfg(), _slstm_params(5)
+    x = _x((2, 20, cfg.d_model), 6)
+    jy, jst = jax_ssm.slstm_apply(jnp.asarray(x), _j(p), cfg,
+                                  return_state=True)
+    y, st = ssm.slstm_apply(torch.from_numpy(x), _t(p), cfg,
+                            return_state=True)
+    close(y, jy)
+    _close_state(st, jst)
+    close(ssm.slstm_apply(torch.from_numpy(x), _t(p), cfg), jy)
+
+
+def test_slstm_steps_from_the_prefill_state_match_jax():
+    cfg, p = _Cfg(), _slstm_params(7)
+    x = _x((2, 14, cfg.d_model), 8)
+    _, jst = jax_ssm.slstm_apply(jnp.asarray(x[:, :10]), _j(p), cfg,
+                                 return_state=True)
+    _, st = ssm.slstm_apply(torch.from_numpy(x[:, :10]), _t(p), cfg,
+                            return_state=True)
+    for t in range(10, 14):
+        jy, jst = jax_ssm.slstm_step(jnp.asarray(x[:, t:t + 1]), jst, _j(p),
+                                     cfg)
+        y, st = ssm.slstm_step(torch.from_numpy(x[:, t:t + 1]), st, _t(p),
+                               cfg)
+        close(y, jy, what=f"step {t}")
+        _close_state(st, jst)
+
+
+def test_slstm_init_state_matches_jax():
+    cfg = _Cfg()
+    want = jax_ssm.slstm_init_state(3, cfg)
+    got = ssm.slstm_init_state(3, cfg)
+    assert {k: tuple(v.shape) for k, v in got.items()} == \
+        {k: v.shape for k, v in want.items()}
+    assert all(v.dtype == torch.float32 and not v.any()
+               for v in got.values())
+
+
+# the bf16 mixers' mean |error| as a share of the reference's mean |y|.
+# Read on the CPU: the sLSTM 2.46e-3; the mLSTM's prefill 4.52e-3, its
+# decode step 4.70e-3.  Faults planted in the dtype order that these
+# limits catch (their readings): the sLSTM's input pre-activations in
+# float32 (5.90e-3), its recurrent product in bf16 (4.59e-3), its summed
+# pre-activations rounded to bf16 (4.54e-3), its output rms_norm or its
+# stacked outputs in float32 (7.42e-3, 7.74e-3); the mLSTM's skip and
+# gate in float32 (5.89e-3).  Below the noise: rms_norm's statistics in
+# bf16 (4.84e-3), the gates' bias added in bf16, C rounded to bf16
+# between chunks or steps, the output rounded to bf16 before its
+# division (at most 4.83e-3), the sLSTM's carry rounded to bf16
+# (3.27e-3).
+SLSTM_BF16_MEAN, MLSTM_BF16_MEAN = 4e-3, 5.5e-3
+
+
+def _mean_rel(got, want) -> float:
+    w = np.asarray(want, np.float32)
+    return float(np.abs(got.float().numpy() - w).mean() / np.abs(w).mean())
+
+
+def test_slstm_recurrence_runs_in_float32_and_emits_the_compute_dtype():
+    """bf16 inputs: the carried state stays float32 (the recurrent product
+    too), the output is bf16, within bf16 rounding of the reference."""
+    cfg, p = _Cfg(), _slstm_params(9)
+    x = _x((2, 12, cfg.d_model), 10)
+    xb = torch.from_numpy(x).bfloat16()
+    y, st = ssm.slstm_apply(xb, _t(p), cfg, return_state=True)
+    assert y.dtype == torch.bfloat16
+    assert all(v.dtype == torch.float32 for v in st.values())
+    jy, jst = jax_ssm.slstm_apply(jnp.asarray(x, jnp.bfloat16), _j(p), cfg,
+                                  return_state=True)
+    assert jy.dtype == jnp.bfloat16
+    scale = float(np.abs(np.asarray(jy, np.float32)).max())
+    close(y.float(), np.asarray(jy, np.float32), atol=2e-2 * scale, rtol=0)
+    assert _mean_rel(y, jy) <= SLSTM_BF16_MEAN
+    for k in jst:
+        close(st[k], jst[k], atol=2e-2, rtol=2e-2, what=k)
+
+
+def test_mlstm_keeps_its_state_in_float32_and_emits_the_compute_dtype():
+    """bf16 inputs: the chunked prefill's C, n, m stay float32 and its
+    conv state and output are bf16, as are a decode step's from that
+    state; the values within bf16 rounding of the reference's."""
+    cfg, p = _Cfg(), _mlstm_params(11)
+    x = _x((2, 17, cfg.d_model), 12)
+    xb = torch.from_numpy(x).bfloat16()
+    jx = jnp.asarray(x, jnp.bfloat16)
+    y, st = ssm.mlstm_chunked(xb[:, :16], _t(p), cfg, chunk=8,
+                              return_state=True)
+    y1, st1 = ssm.mlstm_step(xb[:, 16:], st, _t(p), cfg)
+    jy, jst = jax_ssm.mlstm_chunked(jx[:, :16], _j(p), cfg, chunk=8,
+                                    return_state=True)
+    jy1, jst1 = jax_ssm.mlstm_step(jx[:, 16:], jst, _j(p), cfg)
+    for got, want in ((y, jy), (y1, jy1)):
+        assert got.dtype == torch.bfloat16 and want.dtype == jnp.bfloat16
+        w = np.asarray(want, np.float32)
+        close(got.float(), w, atol=2e-2 * np.abs(w).max(), rtol=0)
+        assert _mean_rel(got, want) <= MLSTM_BF16_MEAN
+    for got, want in ((st, jst), (st1, jst1)):
+        for k in want:
+            assert str(got[k].dtype)[6:] == str(want[k].dtype), k
+            w = np.asarray(want[k], np.float32)
+            close(got[k].float(), w, atol=2e-2 * max(1, np.abs(w).max()),
+                   rtol=0, what=k)
+
+
+# -- within the port: chunked against stepwise (tests/test_ssm.py) ------------
+
+def _roll_decode(step_fn, state, x, p, cfg):
+    outs = []
+    for t in range(x.shape[1]):
+        y, state = step_fn(x[:, t:t + 1], state, p, cfg)
+        outs.append(y)
+    return torch.cat(outs, dim=1), state
+
+
+def test_mlstm_chunked_equals_stepwise():
+    cfg, p = _Cfg(), _t(_mlstm_params(4))
+    x = torch.from_numpy(_x((2, 48, cfg.d_model), 5))
+    y_par = ssm.mlstm_chunked(x, p, cfg, chunk=12)
+    y_seq, _ = _roll_decode(ssm.mlstm_step, ssm.mlstm_init_state(2, cfg), x,
+                            p, cfg)
+    close(y_par, y_seq.numpy(), rtol=3e-3, atol=3e-4)
+
+
+def test_mlstm_state_carries_across_prefill_decode():
+    cfg, p = _Cfg(), _t(_mlstm_params(6))
+    x = torch.from_numpy(_x((1, 33, cfg.d_model), 7))
+    y_all, _ = _roll_decode(ssm.mlstm_step, ssm.mlstm_init_state(1, cfg), x,
+                            p, cfg)
+    _, st = ssm.mlstm_chunked(x[:, :32], p, cfg, chunk=16, return_state=True)
+    y_last, _ = ssm.mlstm_step(x[:, 32:33], st, p, cfg)
+    close(y_last[:, 0], y_all[:, -1].numpy(), rtol=3e-3, atol=3e-4)
+
+
+def test_slstm_apply_equals_stepwise():
+    cfg, p = _Cfg(), _t(_slstm_params(8))
+    x = torch.from_numpy(_x((2, 20, cfg.d_model), 9))
+    y_par = ssm.slstm_apply(x, p, cfg)
+    y_seq, _ = _roll_decode(ssm.slstm_step, ssm.slstm_init_state(2, cfg), x,
+                            p, cfg)
+    close(y_par, y_seq.numpy(), rtol=2e-4, atol=2e-5)
+
+
+def test_mlstm_chunk_size_invariance():
+    cfg, p = _Cfg(), _t(_mlstm_params(10))
+    x = torch.from_numpy(_x((1, 96, cfg.d_model), 11))
+    y1 = ssm.mlstm_chunked(x, p, cfg, chunk=8)
+    for chunk in (32, 96):
+        close(ssm.mlstm_chunked(x, p, cfg, chunk=chunk), y1.numpy(),
+               rtol=2e-4, atol=2e-5)
+
+
+# -- tiny xlstm-350m end to end ------------------------------------------------
+
+def test_prefill_and_greedy_decode_match_jax():
+    """Tiny xlstm-350m (three mLSTM layers and one sLSTM layer) on
+    bridged bf16 serve parameters: the logits within ATOL of the
+    reference's, the same tokens, and the prefill's cache (every mLSTM and
+    sLSTM state) within ATOL."""
+    cache, _, scfg = serve_parity(ARCH)
+    assert (scfg.n_layers, scfg.slstm_every) == (4, 4)
+    assert len(cache["m"][0]) == 3 and len(cache["s"]) == 1
+
+
+def test_loss_and_gradients_match_jax():
+    cfg = get_config(ARCH, tiny=True)
+    batch = LMStream(vocab=cfg.vocab, batch=4, seq=64, seed=3).batch_at(0)
+    loss_and_grads_match(ARCH, batch, 1e-4)
+
+
+def test_remat_gives_identical_loss_and_gradients():
+    """Remat (each mLSTM layer) on and off give the same bits."""
+    cfg = get_config(ARCH, tiny=True)
+    _, tree = jax_train_params(jax_get_config(ARCH, tiny=True))
+    batch = to_device(LMStream(vocab=cfg.vocab, batch=2, seq=32,
+                               seed=4).batch_at(0), "cpu")
+    out = []
+    for remat in (False, True):
+        params = params_from_numpy(tree, cfg, "cpu")
+        for p in pytree.tree_leaves(params):
+            p.requires_grad_(True)
+        loss = build_model(dataclasses.replace(cfg, remat=remat)).loss(
+            params, batch)
+        loss.backward()
+        out.append((loss.detach(), [p.grad for p in
+                                    pytree.tree_leaves(params)]))
+    assert torch.equal(out[0][0], out[1][0])
+    assert all(torch.equal(a, b) for a, b in zip(out[0][1], out[1][1]))
+
+
+def test_bf16_prefill_and_decode_match_jax():
+    """``bf16_parity``: the logits' mean |error| within 5e-3 and the
+    largest within 2e-2 of the largest |logit|.  Read on the CPU: 2.81e-3
+    and 1.54e-2; with the blocks' LayerNorm statistics taken in bf16,
+    2.84e-3 and 2.21e-2 (fails).  Rounding-order faults inside the mixers
+    (the skip and gate in float32, rms_norm's statistics in bf16, the
+    sLSTM's recurrent product in bf16) leave both readings within 5 % of
+    the clean ones at this size: the mixer tests above hold those."""
+    bf16_parity(ARCH, 5e-3, 2e-2)
+
+
+def test_cache_from_numpy_carries_the_xlstm_cache():
+    """The JAX decode cache through ``bridge.cache_from_numpy``: the
+    port's nested layout, every leaf bit for bit, the dtypes of the port's
+    cache specs; a leftover leaf raises."""
+    cfg = steps._serve_cfg(get_config(ARCH, tiny=True))
+    jmodel = build_jax_model(jax_get_config(ARCH, tiny=True))
+    rng = np.random.default_rng(0)
+    cache = jax.tree.map(
+        lambda s: rng.standard_normal(s.shape).astype(np.float32),
+        jmodel.cache_specs(SLOTS, PROMPT + GEN),
+        is_leaf=lambda x: hasattr(x, "init"))
+    mine = cache_from_numpy(cache, cfg, "cpu")
+    groups = cfg.n_layers // cfg.slstm_every
+    assert [len(g) for g in mine["m"]] == [cfg.slstm_every - 1] * groups
+    assert len(mine["s"]) == groups
+    assert mine["m"][0][1]["C"].dtype == torch.float32
+    assert mine["m"][0][1]["conv"].dtype == cfg.cache_dtype
+    assert mine["s"][0]["m"].shape == (SLOTS, cfg.slstm_heads)
+    np.testing.assert_array_equal(mine["m"][0][2]["n"].numpy(),
+                                  cache["m"]["n"][0, 2])
+    np.testing.assert_array_equal(tree_to_numpy(mine)["s"]["h"],
+                                  cache["s"]["h"])
+    cache["s"]["extra"] = cache["s"]["h"]
+    with pytest.raises(ValueError, match="extra"):
+        cache_from_numpy(cache, cfg, "cpu")
+
+
+def test_train_steps_match_jax():
+    train_steps_match(ARCH, "adamw", 1e-4)
+
+
+def test_serve_cli_runs_on_cpu():
+    serve_cli_runs(ARCH)
