@@ -4,9 +4,10 @@ Counterpart: ``repro/data/pipeline.py:26-163`` (``LMStream``,
 ``stream_for``, ``HARStream``, ``Prefetcher``).  The streams are numpy, drawn exactly as
 the reference draws them, so a step's batch is the reference's batch.
 ``Prefetcher`` builds batch ``step + k`` as a ``Lane.PREFETCH`` node of the
-futurized runtime while step ``step`` runs, and places it on the
-session's device (tokens and labels as int64), where the reference places
-it by shardings; with no device the batch stays numpy on the host.
+futurized runtime while step ``step`` runs (on a worker locality when it
+is given a ``DistributedGraph``), and places it on the session's device
+(tokens and labels as int64), where the reference places it by
+shardings; with no device the batch stays numpy on the host.
 ``HARStream`` feeds the HAR CNN (``models/cnn.py``).
 
 Synthetic LM stream: a noisy affine bigram process
@@ -16,7 +17,7 @@ Synthetic LM stream: a noisy affine bigram process
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Optional
 
 import numpy as np
 import torch
@@ -104,26 +105,46 @@ class Prefetcher:
     ``device``.  Each outstanding batch is a ``Lane.PREFETCH`` node, so on
     a shared runtime prefetch yields to step-critical compute but beats
     checkpoint I/O.  ``device=None`` leaves batches as numpy (the DDP loop
-    slices its shards from the host batch)."""
+    slices its shards from the host batch).
+
+    With ``dgraph`` (a ``distrib.DistributedGraph``) the host build moves
+    to a *worker locality*: ``stream.batch_at`` - which must then be
+    picklable, as every registry stream is - runs in another process and
+    streams the numpy batch back, while the placement on the device stays
+    here.  The local node keeps the ``prefetch:{s}`` name, so consumers
+    are unchanged by distribution."""
 
     def __init__(self, stream, device=None, depth: int = 2,
-                 graph: Optional[FuturizedGraph] = None):
+                 graph: Optional[FuturizedGraph] = None,
+                 dgraph: Optional[Any] = None):
         self.stream = stream
         self.device = device
         self._own_graph = graph is None
         self.graph = graph if graph is not None else FuturizedGraph(
             max_workers=2, name="prefetch")
+        self.dgraph = dgraph
         self._futs: dict = {}
         self.depth = depth
 
-    def _make(self, step: int):
-        b = self.stream.batch_at(step)
+    def _place(self, b: dict):
         return b if self.device is None else to_device(b, self.device)
+
+    def _make(self, step: int):
+        return self._place(self.stream.batch_at(step))
 
     def schedule(self, step: int):
         """Ensure batches [step, step+depth) are in flight as graph nodes."""
         for s in range(step, step + self.depth):
-            if s not in self._futs:
+            if s in self._futs:
+                continue
+            if self.dgraph is not None:
+                built = self.dgraph.defer(self.stream.batch_at, s,
+                                          lane=Lane.PREFETCH,
+                                          name=f"build:{s}")
+                self._futs[s] = self.graph.defer(
+                    self._place, built, lane=Lane.PREFETCH,
+                    name=f"prefetch:{s}")
+            else:
                 self._futs[s] = self.graph.defer(
                     self._make, s, lane=Lane.PREFETCH, name=f"prefetch:{s}")
 

@@ -1,3 +1,21 @@
-"""Distribution layer of the port (counterpart: ``repro/distrib/``): the
-gradient codecs and the ring all-reduce at world 1.  The multi-locality
-runtime (messaging, AGAS, the runtime itself) waits for ROADMAP item 12."""
+"""Multi-locality runtime of the port (counterpart: ``repro/distrib/``,
+DESIGN.md §9): ``messaging`` is the TCP active-message (parcel) layer,
+``agas`` the global object directory, ``collectives`` the gradient codecs
+and the ring all-reduce of fabric DDP, and ``runtime`` the
+``Locality``/``DistributedGraph`` scheduler that places tasks by lane and
+data affinity and streams results back as futures resolve.  Elastic
+membership (``join_locality``; the reference's ``rebalance_plan``) is
+ROADMAP item 13."""
+from .agas import ObjectDirectory, RemoteRef  # noqa: F401
+from .collectives import (CODECS, Fp32Codec, GradCodec,  # noqa: F401
+                          OneBitCodec, RingAllReduce, get_codec)
+from .messaging import Endpoint, PeerLostError, raw_request  # noqa: F401
+from .runtime import (DistributedGraph, Locality,  # noqa: F401
+                      LocalityGroup, LocalityLostError, RemoteTaskError,
+                      join_locality, worker_main)
+
+__all__ = ["CODECS", "DistributedGraph", "Endpoint", "Fp32Codec",
+           "GradCodec", "Locality", "LocalityGroup", "LocalityLostError",
+           "ObjectDirectory", "OneBitCodec", "PeerLostError", "RemoteRef",
+           "RemoteTaskError", "RingAllReduce", "get_codec", "join_locality",
+           "raw_request", "worker_main"]

@@ -1,14 +1,19 @@
 """Gradient collectives of fabric DDP: the wire codecs and the ring
-all-reduce, at world 1.
+all-reduce over the active-message fabric.
 
-Counterpart: ``repro/distrib/collectives.py:65-188,193-383``
-(``GradCodec``, ``Fp32Codec``, ``OneBitCodec``, ``CODECS``, ``get_codec``,
-``RingAllReduce``).  The multi-locality wire (``distrib/messaging.py``,
-AGAS, the runtime) is ROADMAP item 12, so ``RingAllReduce`` runs at world
-1 only, where it posts nothing: every contribution still passes through
-the codec (``decode(encode(...))``), as in the reference, so a world-1 run
-with ``onebit`` quantizes and dequantizes every gradient bucket every
-step.
+Counterpart: ``repro/distrib/collectives.py`` (``GradCodec``,
+``Fp32Codec``, ``OneBitCodec``, ``CODECS``, ``get_codec``,
+``RingAllReduce``).  The ring is the reference's **ring all-gather with a
+deterministic local combine**: every locality encodes its per-bucket
+gradient partials and posts one ``grad_ring`` active message per bucket
+to its successor; a received segment is stored and relayed until it has
+made ``world - 1`` hops; then every locality decodes every origin's
+payload (its own included) and sums them in origin-rank order 0..W-1.
+Float addition does not associate, so that fixed order is what makes
+every locality, and a 1-locality run over the same shards, compute the
+same bits.  Segments are keyed by run generation, step, origin and
+bucket; a lost peer or an ``abort`` poisons the ring and a blocked
+``allreduce`` raises ``LocalityLostError``, never hangs.
 
 The gradient buckets stay on the device.  A codec's payload is the
 reference's wire bytes: ``fp32`` ships the bucket's little-endian float32
@@ -16,22 +21,32 @@ bytes; ``onebit`` runs the 1-bit kernels (``kernels/onebit.py``: K3a on
 ``encode``, K3b on ``decode``) with a per-locality error-feedback
 residual on the device, and ships the sign words (the bytes of
 little-endian uint32 words) followed by the R float32 row scales.  Only
-the payload crosses to the host; ``decode`` returns the contribution on
-the codec's device.
+the payload bytes cross to the host and the wire, through a pageable
+``.cpu().numpy().tobytes()`` copy; ``decode`` returns the contribution on
+the codec's device.  At world 1 nothing is posted, but every bucket still
+passes through the codec, as in the reference.
 """
 from __future__ import annotations
 
-from typing import Any, Optional
+import threading
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
 
 from ..optim import compression
+from .messaging import Endpoint, PeerLostError
 
 __all__ = ["CODECS", "Fp32Codec", "GradCodec", "OneBitCodec",
            "RingAllReduce", "get_codec"]
 
-_WIRE = "the multi-locality wire (messaging, AGAS, runtime): ROADMAP item 12"
+#: action name of ring segments on the active-message wire
+GRAD_RING_ACTION = "grad_ring"
+
+
+def _lost_error():
+    from .runtime import LocalityLostError   # circular at import time only
+    return LocalityLostError
 
 
 def _from_bytes(data: bytes, dtype, device) -> torch.Tensor:
@@ -149,60 +164,220 @@ def get_codec(name: str) -> GradCodec:
                          f"(have: {sorted(CODECS)})") from None
 
 
+
+
 # ---------------------------------------------------------------------------
-# Ring all-reduce, world 1
+# Ring all-reduce
 # ---------------------------------------------------------------------------
 class RingAllReduce:
-    """The gradient ring at world 1: ``allreduce`` runs every bucket
-    through the codec and returns the decoded sums; nothing is posted,
-    so ``wire_bytes`` stays 0.
+    """Chunked ring all-reduce of gradient buckets as active messages.
+
+    One instance lives on each locality's endpoint for the process
+    lifetime (``Locality``/``DistributedGraph`` construct it, so the
+    ``grad_ring`` handler exists before any peer can send: posts to an
+    unregistered action are dropped, never delivered late).
+    ``configure`` arms it for one DDP run: it picks the codec, resets the
+    codec's state on the run's device, sets the generation (segments of
+    an earlier run are dropped by generation) and zeroes ``wire_bytes``.
 
     Args:
-        endpoint: the locality's active-message endpoint; must be None
-            (there is no wire yet).
-        world: ring size; must be 1.
+        endpoint: this locality's active-message endpoint (None only at
+            ``world == 1``: nothing crosses the wire).
+        world: ring size = total locality count, driver included.
+        account: optional callback receiving payload byte counts as they
+            are sent (the driver wires it to
+            ``DistributedGraph.account_grad_wire_bytes``).
     Raises:
-        NotImplementedError: ``world > 1`` or an endpoint (ROADMAP item
-            12).
+        ValueError: ``world > 1`` without an endpoint.
     """
 
-    def __init__(self, endpoint: Any = None, world: int = 1):
-        if int(world) > 1 or endpoint is not None:
-            raise NotImplementedError(f"RingAllReduce at world {world}: "
-                                      f"{_WIRE}")
-        self.endpoint = None
-        self.world = 1
-        self.rank = 0
+    def __init__(self, endpoint: Optional[Endpoint] = None, world: int = 1,
+                 *, account: Optional[Callable[[int], None]] = None):
+        self.endpoint = endpoint
+        self.world = max(int(world), 1)
+        if self.world > 1 and endpoint is None:
+            raise ValueError(f"RingAllReduce at world {self.world} needs an "
+                             f"endpoint to post its segments on")
+        self.rank = endpoint.rank if endpoint is not None else 0
+        self.account = account
         self.wire_bytes = 0          # payload bytes sent this run
         self._codec: Optional[GradCodec] = None
         self._plan = None
+        self._gen = 0
+        self._active = False
+        self._dead: Optional[str] = None
+        self._cond = threading.Condition()
+        # (gen, step, origin, bucket) -> (payload bytes, meta | None)
+        self._inbox: dict[tuple, tuple] = {}
+        if endpoint is not None:
+            endpoint.register(GRAD_RING_ACTION, self._on_seg)
 
-    def configure(self, codec_name: str, plan, *,
-                  device="cpu") -> GradCodec:
-        """Arm the ring for one DDP run: a fresh codec, reset for
-        ``plan``'s buckets on ``device``; zeroes ``wire_bytes``.  Returns
-        the codec."""
+    @property
+    def active(self) -> bool:
+        """True between ``configure`` and ``deactivate``: peer loss only
+        poisons an active ring."""
+        return self._active
+
+    @property
+    def gen(self) -> int:
+        """Current run generation (segments of earlier gens are dropped)."""
+        return self._gen
+
+    # -- run lifecycle -------------------------------------------------------
+    def configure(self, codec_name: str, plan, *, device="cpu",
+                  gen: Optional[int] = None) -> GradCodec:
+        """Arm the ring for one DDP run.
+
+        Args:
+            codec_name: a :data:`CODECS` key (``fp32`` | ``onebit``).
+            plan: the run's gradient ``FusionPlan`` (every rank builds the
+                identical plan from the same ``Plan``).
+            device: where the codec keeps its state and decodes to.
+            gen: explicit generation.  The driver configures first and
+                ships its generation in the ``ddp_train`` spec, so every
+                ring keys segments identically, even a ring on a freshly
+                spawned locality whose counter starts at 0.  None
+                increments the local counter (driver use).
+        Returns:
+            The codec instance, with freshly reset state.
+        """
         codec = get_codec(codec_name)
         codec.reset(plan, device)
-        self._codec, self._plan = codec, plan
-        self.wire_bytes = 0
+        with self._cond:
+            self._gen = int(gen) if gen is not None else self._gen + 1
+            gen = self._gen
+            self._inbox = {k: v for k, v in self._inbox.items()
+                           if k[0] >= gen}
+            self._codec, self._plan = codec, plan
+            self._dead = None
+            self._active = True
+            self.wire_bytes = 0
+            self._cond.notify_all()
         return codec
 
-    def allreduce(self, step: int, bufs, meta: Any = None):
-        """Sum ``bufs`` (this rank's float32 bucket partials) across the
-        ring: at world 1, ``decode(encode(bufs))``.  The caller divides by
-        its shard count.
+    def deactivate(self):
+        """Disarm after a run: later peer losses (normal teardown) no
+        longer poison the ring."""
+        with self._cond:
+            self._active = False
 
+    def abort(self, reason: str):
+        """Poison the ring: blocked and future ``allreduce`` calls of
+        this generation raise ``LocalityLostError(reason)``."""
+        with self._cond:
+            if not self._active or self._dead is not None:
+                return
+            self._dead = str(reason)
+            self._cond.notify_all()
+
+    def peer_lost(self, rank: int):
+        """Endpoint peer-loss hook: abort the step if a run is active."""
+        if self._active:
+            self.abort(f"locality {rank} died mid-all-reduce; "
+                       f"the step aborted (DESIGN.md §11 failure model)")
+
+    # -- the collective ------------------------------------------------------
+    def allreduce(self, step: int, bufs, meta: Any = None, *,
+                  timeout: float = 300.0):
+        """Sum ``bufs`` (this rank's float32 bucket partials) across the
+        ring.
+
+        Every contribution, this rank's included, passes through the codec
+        (``decode(encode(...))``), and the per-bucket sum runs in
+        origin-rank order 0..world-1 on the codec's device, so every
+        locality computes the same bits.  The caller divides by its shard
+        count; this method only sums.
+
+        Args:
+            step: monotone step index (keys segment matching).
+            bufs: float32 bucket buffers, one per plan bucket.
+            meta: small picklable sidecar (the shard loss, as numpy)
+                carried on the bucket-0 segment; not counted as gradient
+                wire bytes.
+            timeout: seconds to wait for the other ranks' segments.
         Returns:
-            ``(summed_bufs, metas)``: the per-bucket sums on the codec's
-            device and ``{origin_rank: meta}``.
+            ``(summed_bufs, metas)``: the rank-ordered per-bucket sums on
+            the codec's device and ``{origin_rank: meta}``.
         Raises:
+            LocalityLostError: a peer died mid-exchange (ring poisoned).
+            TimeoutError: segments missing after ``timeout``.
             RuntimeError: the ring was never ``configure``d.
         """
-        if self._codec is None:
-            raise RuntimeError("RingAllReduce.configure must run before "
-                               "allreduce")
-        payloads = self._codec.encode(bufs)
-        summed = [self._codec.decode(data, b)
-                  for data, b in zip(payloads, self._plan.buckets)]
-        return summed, {0: meta}
+        with self._cond:
+            if self._codec is None:
+                raise RuntimeError("RingAllReduce.configure must run before "
+                                   "allreduce")
+            codec, plan, gen = self._codec, self._plan, self._gen
+        payloads = codec.encode(bufs)
+        got: dict = {}
+        if self.world > 1:
+            succ = (self.rank + 1) % self.world
+            for i, data in enumerate(payloads):
+                try:
+                    self.endpoint.post(succ, GRAD_RING_ACTION, {
+                        "gen": gen, "step": int(step), "origin": self.rank,
+                        "hop": 1, "bucket": i, "data": data,
+                        "meta": meta if i == 0 else None})
+                except PeerLostError as e:
+                    self.abort(f"locality {succ} died mid-all-reduce "
+                               f"at step {step}: {e}")
+                    break
+                self._count(len(data))
+            need = [(gen, int(step), o, i)
+                    for o in range(self.world) if o != self.rank
+                    for i in range(len(payloads))]
+            with self._cond:
+                ok = self._cond.wait_for(
+                    lambda: self._dead is not None
+                    or all(k in self._inbox for k in need),
+                    timeout)
+                if self._dead is not None:
+                    raise _lost_error()(
+                        f"all-reduce at step {step}: {self._dead}")
+                if not ok:
+                    missing = [k for k in need if k not in self._inbox]
+                    raise TimeoutError(
+                        f"all-reduce at step {step}: {len(missing)} "
+                        f"segment(s) missing after {timeout}s "
+                        f"(first: origin {missing[0][2]} bucket "
+                        f"{missing[0][3]})")
+                got = {o: [self._inbox.pop((gen, int(step), o, i))
+                           for i in range(len(payloads))]
+                       for o in range(self.world) if o != self.rank}
+        acc: list = [None] * len(payloads)
+        metas: dict[int, Any] = {}
+        for origin in range(self.world):          # fixed combine order
+            if origin == self.rank:
+                datas, metas[origin] = payloads, meta
+            else:
+                datas = [d for d, _ in got[origin]]
+                metas[origin] = got[origin][0][1]
+            for i, data in enumerate(datas):
+                dec = codec.decode(data, plan.buckets[i])
+                acc[i] = dec if acc[i] is None else acc[i] + dec
+        return acc, metas
+
+    # -- wire handler --------------------------------------------------------
+    def _on_seg(self, src: int, msg: dict):
+        key = (msg["gen"], msg["step"], msg["origin"], msg["bucket"])
+        with self._cond:
+            if msg["gen"] < self._gen:
+                return                             # stale run: drop
+            self._inbox[key] = (msg["data"], msg.get("meta"))
+            self._cond.notify_all()
+        if msg["hop"] < self.world - 1:            # relay around the ring
+            succ = (self.rank + 1) % self.world
+            try:
+                self.endpoint.post(succ, GRAD_RING_ACTION,
+                                   dict(msg, hop=msg["hop"] + 1))
+            except PeerLostError as e:
+                self.abort(f"locality {succ} died relaying step "
+                           f"{msg['step']}: {e}")
+                return
+            self._count(len(msg["data"]))
+
+    def _count(self, n: int):
+        with self._cond:
+            self.wire_bytes += int(n)
+        if self.account is not None:
+            self.account(int(n))

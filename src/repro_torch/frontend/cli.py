@@ -4,9 +4,9 @@ Counterpart: ``repro/frontend/cli.py`` (``cli_args``, ``plan_from_args``,
 ``serve_flags``), cut to the flags that ``Session.serve``,
 ``Session.serve_stream`` and ``Session.train`` use, plus ``--device``.
 ``--localities``, ``--ddp``, ``--grad-codec``, ``--ddp-shards``,
-``--elastic`` and ``--replicas`` map onto the plan, which raises for more
-than one locality (ROADMAP item 12) and for elastic membership (item 13);
-the mesh flags come with item 14.  ``launch/train.py``'s ``--ckpt`` maps
+``--elastic`` and ``--replicas`` map onto the plan, which raises for
+elastic membership (ROADMAP item 13) and for replicas homed on worker
+localities (item 12); the mesh flags come with item 14.  ``launch/train.py``'s ``--ckpt`` maps
 onto ``Plan.ckpt_dir``.
 """
 from __future__ import annotations
@@ -44,8 +44,9 @@ def train_flags(ap: argparse.ArgumentParser) -> argparse.ArgumentParser:
                     help="override the config's layer count (full qwen3-4b "
                          "trains 12 of its 36 layers on one 80 GB card)")
     ap.add_argument("--localities", type=int, default=1,
-                    help="total process count (more than 1 needs the "
-                         "multi-locality runtime, ROADMAP item 12)")
+                    help="total process count, the driver included: "
+                         "worker localities build the batches, or with "
+                         "--ddp each trains its own shard block")
     ap.add_argument("--ddp", action="store_true",
                     help="fabric data parallelism: the batch is split into "
                          "--ddp-shards row shards and the summed gradient "

@@ -1,29 +1,40 @@
 """Fabric DDP: the per-locality train engine behind ``Plan(ddp=True)``.
 
-Counterpart: ``repro/frontend/ddp.py:42-143`` (``shard_batch``,
-``DDPEngine``).  The global batch is split into ``Plan.ddp_shards`` row
-shards; a locality computes the gradients of its contiguous block of
+Counterpart: ``repro/frontend/ddp.py`` (``shard_batch``, ``DDPEngine``,
+``ddp_shadow_train``).  The global batch is split into ``Plan.ddp_shards``
+row shards; a locality computes the gradients of its contiguous block of
 shards, sums them in fixed shard order into the fused float32 buckets,
 and ``distrib.collectives.RingAllReduce`` sums the buckets across
 localities through the gradient codec; every locality then applies the
-same optimizer update to the same averaged gradient.  The port runs the
-ring at world 1 only (the wire is ROADMAP item 12, and so is
-``ddp_shadow_train``, the loop a worker locality runs): one locality owns
-every shard, and with ``onebit`` each step still quantizes and
-dequantizes every bucket (K3a and K3b).
+same optimizer update to the same averaged gradient, so parameters stay
+replicated without ever being exchanged.  With ``onebit`` every step
+quantizes each locality's buckets on its device (K3a) and dequantizes
+every origin's payload there (K3b).
+
+Determinism is the contract: every locality draws the same step-keyed
+batch (``stream.batch_at(it)``), slices its shards by rows, and both the
+partial sums and the ring's combine run in fixed shard and rank order.
+With the fp32 codec a W-locality run is bit-identical in loss to a
+1-locality run over the same ``ddp_shards``.
 
 The buckets stay on the device: where the reference sums numpy copies of
 the buckets (``frontend/ddp.py:132``), the port adds each shard's buckets
-into the first shard's in place, and the loss stays a device scalar.
+into the first shard's in place.  At world 1 the loss stays a device
+scalar; across localities each shard block's loss crosses the wire as a
+float32 numpy scalar and is summed on the device in rank order.
 """
 from __future__ import annotations
 
+from typing import Any, Optional
+
 import torch
 
+from ..checkpoint.checkpoint import CheckpointManager
 from ..core import steps as steps_lib
-from ..data.pipeline import to_device
+from ..data.pipeline import stream_for, to_device
+from ..kernels import KERNELS
 
-__all__ = ["DDPEngine", "shard_batch"]
+__all__ = ["DDPEngine", "ddp_shadow_train", "shard_batch"]
 
 
 def shard_batch(batch: dict, shard: int, n_shards: int) -> dict:
@@ -54,13 +65,15 @@ class DDPEngine:
         plan: the run's ``Plan`` (``ddp=True``).
         ring: this locality's ``RingAllReduce`` (configured here, for the
             plan's device).
+        gen: explicit ring generation (the driver's, shipped in the
+            ``ddp_train`` spec); None lets the ring self-increment.
     Raises:
         ValueError: shard count not divisible by the world size, batch
             not divisible by the shard count, or an unsupported strategy
             (see ``core.steps.make_ddp_step``).
     """
 
-    def __init__(self, plan, ring):
+    def __init__(self, plan, ring, *, gen: Optional[int] = None):
         self.plan = plan
         self.ring = ring
         self.world = ring.world
@@ -75,7 +88,7 @@ class DDPEngine:
         self.shards = shards
         self.step = steps_lib.make_ddp_step(plan=plan)
         self.codec = ring.configure(plan.grad_codec, self.step.grad_plan,
-                                    device=self.device)
+                                    device=self.device, gen=gen)
         #: exact payload bytes ONE locality sends per exchange hop
         self.codec_bytes = self.codec.wire_bytes(self.step.grad_plan)
         per = shards // self.world
@@ -112,13 +125,80 @@ class DDPEngine:
                 for a, b in zip(part, bufs):
                     a.add_(b)
                 del bufs
+        if self.world > 1:       # the shard loss crosses the wire as numpy
+            loss = loss.cpu().numpy()
         summed, metas = self.ring.allreduce(it, part, meta={"loss": loss})
         del part
         total = torch.zeros((), dtype=torch.float32, device=self.device)
         for o in range(self.world):             # fixed rank order
-            total = total + metas[o]["loss"]
+            total = total + torch.as_tensor(metas[o]["loss"],
+                                            device=self.device)
         ns = float(self.shards)
         for b in summed:                        # the mean, in place
             b.div_(ns)
         gnorm, params, opt = step.apply_fn(summed, params, opt)
         return ({"loss": total / ns, "grad_norm": gnorm}, params, opt)
+
+
+def ddp_shadow_train(spec: dict, endpoint: Optional[Any] = None,
+                     ring=None) -> dict:
+    """What a worker locality runs for ``Plan(ddp=True)``: the DDP loop
+    over this locality's shard block, on the device of the plan in
+    ``spec`` (a CUDA plan without a GPU raises).
+
+    Checkpoints are driver-only in DDP mode - parameters are replicated,
+    so the driver's save is the global state; on ``resume`` this loop
+    restores the same latest checkpoint from the shared directory.
+
+    Args:
+        spec: ``{"plan", "steps", "ckpt_dir", "resume", "stream", "gen"}``
+            as posted by ``DistributedGraph.ddp_train``.
+        endpoint: this locality's active-message ``Endpoint``.
+        ring: the locality's long-lived ``RingAllReduce``; built from
+            ``endpoint`` when None (test use).
+    Returns:
+        dict with ``step``, ``grad_wire_bytes`` (payload bytes this
+        locality sent), ``final_loss`` and ``launches``: the launches of
+        each kernel wrapper during this loop, by wrapper name.  The
+        launch counts are the port's own addition, so that a driver can
+        see that every locality's steps ran the kernels (the K3 codec's
+        above all); the reference has no kernel counts.
+    Raises:
+        RuntimeError: the plan asks for CUDA and there is none.
+    """
+    plan = spec["plan"]
+    if torch.device(plan.device).type == "cuda" \
+            and not torch.cuda.is_available():
+        raise RuntimeError(f"Plan(device={plan.device!r}) on a locality "
+                           f"without a GPU")
+    steps: int = spec["steps"]
+    ckpt_dir: str = spec.get("ckpt_dir") or ""
+    if ring is None:
+        from ..distrib.collectives import RingAllReduce
+        ring = RingAllReduce(endpoint, plan.localities)
+    before = {fn.__name__: fn.launches for fn in KERNELS}
+    engine = DDPEngine(plan, ring, gen=spec.get("gen"))
+    params, opt = engine.init()
+    start = 0
+    if spec.get("resume") and ckpt_dir:
+        with CheckpointManager(ckpt_dir, async_save=False) as cm:
+            if cm.latest_step() is not None:
+                start, (params, opt) = cm.restore((params, opt))
+    stream = spec.get("stream")
+    if stream is None:
+        stream = stream_for(plan.config(), batch=plan.batch, seq=plan.seq,
+                            seed=plan.seed)
+    metrics = None
+    try:
+        for it in range(start, steps):
+            metrics, params, opt = engine.train_step(
+                it, stream.batch_at(it), params, opt)
+    finally:
+        ring.deactivate()
+    if engine.device.type == "cuda":
+        torch.cuda.synchronize(engine.device)
+    return {"step": steps, "grad_wire_bytes": int(ring.wire_bytes),
+            "final_loss": (float(metrics["loss"])
+                           if metrics is not None else float("nan")),
+            "launches": {fn.__name__: fn.launches - before[fn.__name__]
+                         for fn in KERNELS}}

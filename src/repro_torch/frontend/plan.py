@@ -10,15 +10,21 @@ Counterpart: ``repro/frontend/plan.py`` (``Plan``, and ``Session``'s
 
 ``Plan`` has the JAX package's fields plus ``device``, which is ``"cuda"``
 unless the caller asks for ``"cpu"``: a CUDA plan on a machine without a
-GPU raises, it never carries on on the CPU.  The port trains and serves
-on one device, in one process: ``Session.train`` runs the single-device
-loop and, with ``ddp=True`` at ``localities=1``, world-1 fabric DDP with
-the ``fp32`` or ``onebit`` gradient codec, each with checkpoints and
-resume (``checkpoint/``); ``serve_stream`` runs the serving gateway with
-every model replica in this process.  Plans that need more (localities,
-SPMD, elastic membership, mesh axes) raise ``NotImplementedError`` naming
-the ROADMAP item that brings them; so does step resilience (item 14) in
-``train``.
+GPU raises, it never carries on on the CPU.  ``Session.train`` runs the
+single-device loop and, with ``ddp=True``, fabric DDP with the ``fp32`` or
+``onebit`` gradient codec, each with checkpoints and resume
+(``checkpoint/``).  With ``localities > 1`` the session owns a
+``distrib.DistributedGraph`` (``self.distributed``) of spawned worker
+processes, as the reference's does: ``train`` builds its batches and
+``serve`` stacks its waves on worker localities while every device step
+stays here, and ``train`` with ``ddp=True`` runs the DDP loop on every
+locality, each on its own device, summing gradients over the active
+message ring.  ``serve_stream`` runs the serving gateway with every model
+replica in this process.  What is still missing raises
+``NotImplementedError`` naming the ROADMAP item that brings it:
+checkpoints placed on their owning localities and gateway replicas homed
+on worker localities (item 12), SPMD and elastic membership (item 13),
+mesh axes and step resilience (item 14), named shapes (item 15).
 """
 from __future__ import annotations
 
@@ -36,11 +42,21 @@ from ..core.futures import FuturizedGraph, Lane, Pipeline, block_until_ready
 from ..core.sharding import init_params
 from ..data.pipeline import Prefetcher, stream_for
 from ..distrib.collectives import CODECS, RingAllReduce
+from ..distrib.runtime import DistributedGraph
 from .ddp import DDPEngine
 from .futurize import Trace
 from .gateway import Gateway, RequestQueue
 
 __all__ = ["Plan", "Session"]
+
+_CKPT_PLACEMENT = ("checkpoints at localities > 1 without ddp (shards "
+                   "written by their owning localities, ROADMAP item 12)")
+
+
+def _stack_wave(wave):
+    """Host prep of one serve wave (module-level: ships to a worker
+    locality by reference when ``plan.localities > 1``)."""
+    return np.stack(wave)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,7 +64,8 @@ class Plan:
     """Declarative run description: arch + mesh axes + strategy + shapes.
 
     The fields are those of ``repro.frontend.Plan`` (see its docstring);
-    the port runs the single-device, single-process subset of them.
+    the port runs the single-device subset of them, on one process or, as
+    ``localities``, on several.
 
     Fields added by the port:
         device: ``"cuda"`` (the default) or ``"cpu"``.
@@ -96,8 +113,11 @@ class Plan:
 
 
 def _unsupported(plan: Plan) -> Optional[str]:
-    if plan.localities > 1:
-        return "localities > 1 (the multi-locality runtime, ROADMAP item 12)"
+    if plan.localities > 1 and plan.replicas > 1:
+        return ("gateway replicas homed on worker localities (ROADMAP "
+                "item 12)")
+    if plan.localities > 1 and plan.ckpt_dir and not plan.ddp:
+        return _CKPT_PLACEMENT
     if plan.spmd:
         return "spmd=True (SPMD mode, ROADMAP item 13)"
     if plan.elastic:
@@ -112,7 +132,13 @@ def _unsupported(plan: Plan) -> Optional[str]:
 class Session:
     """Compiled form of a ``Plan``: the device, lazily built serve steps,
     and one futurized runtime for every host-side task.  Use as a context
-    manager (or call ``close()``) to run the shutdown barrier."""
+    manager (or call ``close()``) to run the shutdown barrier.
+
+    With ``plan.localities > 1`` the session also owns a
+    ``DistributedGraph`` (``self.distributed``): worker localities are
+    spawned here and host-side nodes are placed on them; ``close()``
+    drains the distributed graph before the local shutdown barrier, so
+    worker teardown never strands a promise."""
 
     def __init__(self, plan: Plan, *, max_workers: int = 4):
         self.device = torch.device(plan.device)
@@ -127,24 +153,40 @@ class Session:
         missing = _unsupported(plan)
         if missing is not None:
             raise NotImplementedError(f"the port does not run {missing} yet")
-        if plan.ddp and plan.grad_codec not in CODECS:
-            raise ValueError(f"unknown grad_codec {plan.grad_codec!r} "
-                             f"(have: {sorted(CODECS)})")
+        if plan.ddp:
+            if plan.grad_codec not in CODECS:
+                raise ValueError(f"unknown grad_codec {plan.grad_codec!r} "
+                                 f"(have: {sorted(CODECS)})")
+            world = max(plan.localities, 1)
+            shards = plan.ddp_shards or world
+            if shards % world:
+                raise ValueError(f"ddp_shards={shards} must be a multiple "
+                                 f"of localities={world}")
+            if plan.batch % shards:
+                raise ValueError(f"batch={plan.batch} must be divisible by "
+                                 f"ddp_shards={shards}")
         self.plan = plan
         self.cfg = plan.config()
         self.strategy = plan.build_strategy()
         self.runtime = FuturizedGraph(max_workers=max_workers,
                                       name=f"session:{plan.arch}")
+        self.distributed = None
+        if plan.localities > 1:
+            self.distributed = DistributedGraph(
+                localities=plan.localities, graph=self.runtime,
+                name=f"session:{plan.arch}")
         self._train_step = None
         self._serve_steps: dict[tuple, tuple] = {}
         self._closed = False
 
     # -- lifecycle ----------------------------------------------------------
     def close(self):
-        """Run the shutdown barrier: drain and stop the runtime.
-        Idempotent."""
+        """Run the shutdown barrier: drain distributed tasks, stop worker
+        localities, then drain and stop the local runtime.  Idempotent."""
         if not self._closed:
             self._closed = True
+            if self.distributed is not None:
+                self.distributed.shutdown(wait=True)
             self.runtime.shutdown(wait=True)
 
     def __enter__(self) -> "Session":
@@ -156,6 +198,28 @@ class Session:
     def stats(self):
         """The session runtime's ``RuntimeStats``."""
         return self.runtime.stats()
+
+    def kill_locality(self, rank: Optional[int] = None) -> Optional[int]:
+        """Failure drill: SIGKILL a worker locality (the highest-ranked
+        alive one by default).  Its in-flight tasks re-spawn elsewhere.
+
+        Returns:
+            The killed rank, or None when no worker locality is alive.
+        """
+        if self.distributed is None:
+            return None
+        alive = self.distributed.group.alive_workers()
+        if not alive:
+            return None
+        rank = alive[-1] if rank is None else rank
+        self.distributed.group.kill(rank)
+        return rank
+
+    def _stats_json(self, st) -> dict:
+        out = st.to_json()
+        if self.distributed is not None:
+            out["distributed"] = self.distributed.stats()
+        return out
 
     # -- steps --------------------------------------------------------------
     @property
@@ -202,11 +266,21 @@ class Session:
               kill_locality_at_step: Optional[int] = None,
               resilience: str = "none", verbose: bool = True) -> dict:
         """The training loop: stream -> prefetch nodes -> step -> in-flight
-        pipeline, on the session runtime.  With ``plan.ddp=True`` each step
-        is a world-1 fabric-DDP step instead (this process is rank 0 of a
-        world-1 ring and trains every shard): gradients go through the
-        plan's codec every step, and the result gains ``grad_wire_bytes``
-        (0 at world 1: nothing is posted) and ``codec_bytes``.
+        pipeline, on the session runtime.  With ``plan.localities > 1``
+        the prefetch *builds* run on worker localities and stream back;
+        the device steps stay here, so the losses are the single-process
+        run's.
+
+        With ``plan.ddp=True`` each step is a fabric-DDP step instead:
+        this process is rank 0 of the gradient ring and trains its own
+        shard block, while ``ddp_train`` active messages start the same
+        loop (``frontend.ddp.ddp_shadow_train``) on every worker
+        locality; gradients go through the plan's codec every step, and
+        the result gains ``grad_wire_bytes`` (the exact gradient payload
+        bytes this process sent: 0 at one locality) and ``codec_bytes``.
+        A failure anywhere poisons the ring (``ddp_abort``), so no
+        locality hangs; checkpoints are driver-only, parameters being
+        replicated.
 
         Args:
             stream: object with ``batch_at(step) -> dict`` of numpy
@@ -221,7 +295,9 @@ class Session:
                 every ``ckpt_every`` steps, each save's write gated on the
                 step's retirement, and once more after the last step
                 unless the cadence saved it; saves already requested land
-                even when the loop fails.  The onebit codec's
+                even when the loop fails.  Without ``ddp`` at
+                ``localities > 1`` they raise (ROADMAP item 12).  The
+                onebit codec's
                 error-feedback residual is not part of the state, as in
                 the reference: a resumed onebit run restarts it at zero.
             ckpt_every: cadence in steps of the saves.
@@ -231,26 +307,39 @@ class Session:
             log_every: cadence in steps of the logged losses.
             fail_at_step: drill seam - raise an injected node failure at
                 this step (ignored under ``resume``).
-            kill_locality_at_step: drill seam of the multi-locality
-                runtime; a no-op with one locality, as in the reference.
+            kill_locality_at_step: drill seam - SIGKILL a worker
+                locality at this step.  Plain training survives by task
+                re-spawn; a DDP run aborts with ``LocalityLostError``.  A
+                no-op with one locality, as in the reference.
             resilience: ``"none"``; other modes raise
                 ``NotImplementedError`` (ROADMAP item 14).
             verbose: print progress and the final runtime report.
         Returns:
             dict with ``final_loss``, per-log ``losses``, ``params``,
             ``step`` (the last step run, or the resumed step when nothing
-            ran) and ``runtime_stats``.
+            ran) and ``runtime_stats`` (with ``distributed`` when
+            ``localities > 1``).
         Raises:
-            RuntimeError: the injected failure of ``fail_at_step``.
+            RuntimeError: the injected failure of ``fail_at_step``, or a
+                worker's failed DDP loop.
+            LocalityLostError: a locality died mid-all-reduce (DDP).
+            NotImplementedError: checkpoints at ``localities > 1`` without
+                ``ddp`` (ROADMAP item 12).
         """
         self._check_train(resilience)
         plan, runtime, dev = self.plan, self.runtime, self.device
+        dist = self.distributed
         if ckpt_dir is None:
             ckpt_dir = plan.ckpt_dir
+        if ckpt_dir and dist is not None and not plan.ddp:
+            raise NotImplementedError(f"the port does not run "
+                                      f"{_CKPT_PLACEMENT} yet")
         stream = self._stream(stream)
         engine = None
         if plan.ddp:
-            engine = DDPEngine(plan, RingAllReduce(None, 1))
+            ring = dist.grad_ring if dist is not None \
+                else RingAllReduce(None, 1)
+            engine = DDPEngine(plan, ring)
             params, opt = engine.init()
             step_fn = engine.train_step
             # no device: the engine slices its shards from the host batch
@@ -262,7 +351,7 @@ class Session:
 
             def step_fn(it, batch, params, opt):
                 return step.fn(params, opt, batch)
-            prefetch = Prefetcher(stream, dev, graph=runtime)
+            prefetch = Prefetcher(stream, dev, graph=runtime, dgraph=dist)
         start = 0
         ckpt = (CheckpointManager(ckpt_dir, keep=3, graph=runtime)
                 if ckpt_dir else None)
@@ -270,6 +359,10 @@ class Session:
             start, (params, opt) = ckpt.restore((params, opt))
             if verbose:
                 print(f"[train] resumed from step {start}")
+        if engine is not None and dist is not None:
+            dist.ddp_train({"plan": plan, "steps": steps,
+                            "ckpt_dir": ckpt_dir, "resume": resume,
+                            "stream": stream, "gen": engine.ring.gen})
         inflight = Pipeline(depth=2)
         log_futs: list = []
         t_log = time.time()
@@ -292,6 +385,12 @@ class Session:
         metrics = None
         try:
             for it in range(start, steps):
+                if kill_locality_at_step is not None \
+                        and it == kill_locality_at_step:
+                    killed = self.kill_locality()
+                    if verbose and killed is not None:
+                        print(f"[train] drill: killed locality {killed} "
+                              f"at step {it}", flush=True)
                 batch = prefetch.get(it)
                 if fail_at_step is not None and it == fail_at_step \
                         and not resume:
@@ -323,6 +422,12 @@ class Session:
             if ckpt is not None and steps % ckpt_every != 0 \
                     and metrics is not None:
                 ckpt.save(steps, (params, opt), meta={"arch": plan.arch})
+        except BaseException:
+            if engine is not None and dist is not None:
+                # poison the ring everywhere: workers blocked in an
+                # all-reduce must abort, not wait out their timeout
+                dist.ddp_abort("the driver aborted the DDP run")
+            raise
         finally:
             # shutdown barrier, also on the injected-failure path, so a
             # crash never loses a save that was already requested: retire
@@ -333,14 +438,23 @@ class Session:
             if ckpt is not None:
                 ckpt.close()
             runtime.barrier()
+            if engine is not None:
+                engine.ring.deactivate()
 
+        if engine is not None and dist is not None:
+            done = dist.wait_ddp_done(timeout=600.0)
+            failed = [m for m in done.values() if not m.get("ok")]
+            if failed:
+                raise RuntimeError(
+                    f"DDP train loop failed on locality "
+                    f"{failed[0]['rank']}: {failed[0].get('error')}")
         losses = [f.result() for f in log_futs]
         st = runtime.stats()
         final = float(metrics["loss"]) if metrics is not None \
             else float("nan")
         out = {"final_loss": final, "losses": losses, "params": params,
                "step": steps if metrics is not None else start,
-               "runtime_stats": st.to_json()}
+               "runtime_stats": self._stats_json(st)}
         if verbose:
             if metrics is None:    # resumed at/after steps: nothing left
                 print(f"[train] nothing to do: resumed at step {start} "
@@ -352,11 +466,20 @@ class Session:
         if engine is not None:
             out["grad_wire_bytes"] = int(engine.ring.wire_bytes)
             out["codec_bytes"] = engine.codec_bytes
+            if dist is not None:
+                out["localities"] = {r: {k: m.get(k) for k in (
+                    "grad_wire_bytes", "final_loss", "launches")}
+                    for r, m in sorted(done.items())}
             if verbose:
                 print(f"[train] ddp world {engine.world}, shards "
                       f"{engine.shards}: grad-wire {out['grad_wire_bytes']}B "
                       f"({plan.grad_codec} codec, {engine.codec_bytes}B/"
                       f"locality/exchange)")
+        if verbose and dist is not None:
+            d = out["runtime_stats"]["distributed"]
+            print(f"[train] localities: dispatched {d['dispatched']} "
+                  f"respawned {d['respawned']} wire {d['bytes_sent']}B out "
+                  f"/ {d['bytes_recv']}B in")
         return out
 
     # -- serve --------------------------------------------------------------
@@ -366,7 +489,9 @@ class Session:
         """Batched prefill + greedy decode with slot refill, as a futurized
         tree: each wave is a ``prefill`` node plus ``gen_len`` chained
         ``decode`` nodes (dependency edges carry the (token, cache) pair),
-        while the next wave's host prep runs as a PREFETCH node.
+        while the next wave's host prep runs as a PREFETCH node - its
+        stacking on a worker locality when ``plan.localities > 1``, with
+        placement and device work staying here.
 
         Args:
             requests: request count when ``prompts`` is None (otherwise
@@ -404,6 +529,8 @@ class Session:
                     "waves": 0, "generated": [], "first_prefill_logits": None}
 
         def prepare_wave(wave) -> dict:
+            # wave: list of prompt arrays, or the already-stacked ndarray
+            # a worker locality streamed back (np.stack handles both)
             toks = torch.from_numpy(np.stack(wave)).to(dev, torch.int64)
             batch = {"tokens": toks}
             if cfg.family == "encdec":
@@ -414,6 +541,10 @@ class Session:
             return batch
 
         def defer_wave(wave, w: int):
+            if self.distributed is not None:
+                wave = self.distributed.defer(
+                    _stack_wave, wave, lane=Lane.PREFETCH,
+                    name=f"stack:{w}")
             return runtime.defer(prepare_wave, wave, lane=Lane.PREFETCH,
                                  name=f"wave:{w}")
 
@@ -500,7 +631,7 @@ class Session:
         return {"tokens_per_s": tps, "requests": requests,
                 "tokens": tokens_out, "padded_tokens": padded_out,
                 "nodes": nodes, "trace": tracer.signature(),
-                "runtime_stats": st.to_json(), "waves": w + 1,
+                "runtime_stats": self._stats_json(st), "waves": w + 1,
                 "generated": [g.cpu() for g in generated],
                 "first_prefill_logits": first_logits[0].float().cpu()}
 
@@ -556,8 +687,14 @@ class Session:
             ``request_latency_hist``).
         Raises:
             ValueError: an encoder-decoder architecture.
+            NotImplementedError: ``plan.localities > 1`` (replicas homed
+                on worker localities, ROADMAP item 12).
         """
         plan, runtime, cfg, dev = self.plan, self.runtime, self.cfg, self.device
+        if self.distributed is not None:
+            raise NotImplementedError(
+                "serve_stream at localities > 1: gateway replicas homed on "
+                "worker localities are ROADMAP item 12")
         n_replicas = plan.replicas if replicas is None else int(replicas)
         if cfg.family == "encdec":
             raise ValueError("serve_stream does not support encdec "

@@ -8,8 +8,12 @@ from .mamba2_scan import (mamba2_chunk_scan, mamba2_chunk_scan_bwd,  # noqa: F40
 from .onebit import (onebit_dequantize, onebit_dequantize_ref,  # noqa: F401
                      onebit_quantize, onebit_quantize_ref)
 
-__all__ = ["flash_attention", "flash_attention_bwd", "flash_attention_ref",
-           "mamba2_chunk_scan", "mamba2_chunk_scan_bwd",
+#: every kernel wrapper, each counting its launches in ``.launches``
+KERNELS = (flash_attention, flash_attention_bwd, mamba2_chunk_scan,
+           mamba2_chunk_scan_bwd, onebit_quantize, onebit_dequantize)
+
+__all__ = ["KERNELS", "flash_attention", "flash_attention_bwd",
+           "flash_attention_ref", "mamba2_chunk_scan", "mamba2_chunk_scan_bwd",
            "mamba2_chunk_scan_bwd_ref", "mamba2_chunk_scan_ref",
            "onebit_dequantize",
            "onebit_dequantize_ref", "onebit_quantize", "onebit_quantize_ref"]

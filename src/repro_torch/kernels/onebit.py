@@ -44,11 +44,31 @@ def unpack_bits(packed):
     return bits.reshape(packed.shape[0], -1).bool()
 
 
+def _row_abs_mean(q):
+    """mean |q| over each row of ``q`` [R, C], summed in the order of the
+    reference's ``jnp.mean`` on XLA's CPU backend: each 32-element run in
+    sequence, then the C/32 run sums in sequence.  At C <= 1024 (the
+    codec's rows) the scales, and so the wire payloads, equal the
+    reference's bit for bit.  That order is a detail of the XLA version
+    the JAX package runs on, not a contract of ``jnp.mean``: if a jax
+    upgrade breaks the byte-identity tests of the onebit payloads (the
+    scales an ulp apart), XLA's order changed, not this port."""
+    R, C = q.shape
+    runs = q.abs().reshape(R, C // 32, 32)
+    s = torch.zeros((R, C // 32), dtype=q.dtype, device=q.device)
+    for j in range(32):
+        s = s + runs[:, :, j]
+    t = torch.zeros((R, 1), dtype=q.dtype, device=q.device)
+    for k in range(C // 32):
+        t = t + s[:, k:k + 1]
+    return t / C
+
+
 def onebit_quantize_ref(g, err):
     """Plain version: q = g + err -> (packed int32 [R, C/32], scale = mean
     |q| per row [R, 1], new_err = q - (+-scale)), in float32."""
     q = g + err
-    scale = q.abs().mean(dim=1, keepdim=True)
+    scale = _row_abs_mean(q)
     signs = q >= 0
     new_err = q - torch.where(signs, scale, -scale)
     return pack_bits(signs), scale, new_err

@@ -3,11 +3,13 @@
 Counterpart: ``repro/launch/train.py``, cut to the flags the port can
 run: ``--steps``, ``--strategy``, ``--grad-accum``, ``--remat``,
 ``--ckpt``, ``--ckpt-every``, ``--resume``, ``--log-every``,
-``--fail-at-step``, ``--stats-out`` and world-1 fabric DDP (``--ddp``,
-``--grad-codec``, ``--ddp-shards``), plus ``--device`` and
-``--n-layers``.  ``--localities`` above 1 (ROADMAP item 12), ``--join``
-(item 12) and ``--elastic`` (item 13) raise.  Runs on the GPU unless
-``--device cpu`` is given.
+``--fail-at-step``, ``--stats-out``, ``--localities`` and
+``--kill-locality-at-step`` (the multi-locality runtime) and fabric DDP
+(``--ddp``, ``--grad-codec``, ``--ddp-shards``), plus ``--device`` and
+``--n-layers``.  ``--join`` and ``--elastic`` (elastic membership,
+ROADMAP item 13) raise, and so does ``--ckpt`` at ``--localities`` above
+1 without ``--ddp`` (item 12).  Runs on the GPU unless ``--device cpu``
+is given; every locality runs on that device.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
@@ -21,8 +23,18 @@ Examples:
       --fail-at-step 6
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
       --steps 8 --batch 4 --seq 32 --ckpt /tmp/ck --ckpt-every 4 --resume
+  # two localities: batches built on the worker, a worker killed at step
+  # 10 (training goes on); then 2-locality fabric DDP over the ring
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --steps 20 --batch 4 --seq 32 --localities 2 \\
+      --kill-locality-at-step 10
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --steps 12 --batch 4 --seq 32 --localities 2 --ddp \\
+      --grad-codec onebit --ddp-shards 2 --log-every 4
   PYTHONPATH=src python -m repro_torch.launch.train --full --n-layers 12 \\
       --steps 6 --batch 8 --seq 512 --log-every 1
+  PYTHONPATH=src python -m repro_torch.launch.train --full \\
+      --arch whisper-medium --steps 6 --batch 8 --seq 512 --log-every 1
 """
 from __future__ import annotations
 
@@ -36,15 +48,16 @@ from repro_torch.frontend import cli_args, plan_from_args, train_flags
 def run(args) -> dict:
     if getattr(args, "join", None):
         raise NotImplementedError(
-            "--join dials into a multi-locality driver: the multi-locality "
-            "runtime is ROADMAP item 12")
+            "--join dials into a running elastic driver: elastic membership "
+            "is ROADMAP item 13")
     strategy = Strategy(name=args.strategy, grad_accum=args.grad_accum)
     plan = plan_from_args(args, strategy=strategy, remat=args.remat)
     with plan.compile() as session:
         out = session.train(
             steps=args.steps, ckpt_dir=args.ckpt,
             ckpt_every=args.ckpt_every, log_every=args.log_every,
-            resume=args.resume, fail_at_step=args.fail_at_step)
+            resume=args.resume, fail_at_step=args.fail_at_step,
+            kill_locality_at_step=args.kill_locality_at_step)
     if getattr(args, "stats_out", None):
         payload = {"final_loss": out["final_loss"], "losses": out["losses"],
                    "step": out["step"]}
@@ -74,8 +87,12 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--fail-at-step", type=int, default=None,
                     help="drill: raise an injected failure at this step "
                          "(ignored with --resume)")
+    ap.add_argument("--kill-locality-at-step", dest="kill_locality_at_step",
+                    type=int, default=None,
+                    help="drill: SIGKILL a worker locality at this step "
+                         "(plain training re-spawns its tasks; DDP aborts)")
     ap.add_argument("--join", default=None, metavar="HOST:PORT",
-                    help="join a running --elastic driver (ROADMAP item 12: "
+                    help="join a running --elastic driver (ROADMAP item 13: "
                          "raises)")
     ap.add_argument("--stats-out", dest="stats_out", default=None,
                     metavar="FILE",

@@ -1,0 +1,285 @@
+"""The port's multi-locality runtime (``repro_torch/distrib/runtime.py``)
+over real worker processes: the counterparts of ``tests/test_distrib.py``'s
+cross-process tests, and ``Session.train``/``serve`` at 2 localities
+against 1 locality and against the JAX package.
+
+One module-scoped 2-locality ``DistributedGraph`` (the driver and one
+spawned worker) serves most tests; everything a worker runs is a
+module-level function here, because it crosses the wire by reference.
+Every wait has its own timeout, so a hung locality fails its test.
+"""
+import time
+from concurrent.futures import CancelledError
+
+import jax
+import numpy as np
+import pytest
+
+import torch.utils._pytree as pytree
+
+from repro.frontend import Plan as JaxPlan
+from repro_torch.bridge import params_from_numpy
+from repro_torch.core.futures import FuturizedGraph, Lane
+from repro_torch.data.pipeline import Prefetcher
+from repro_torch.distrib import DistributedGraph, RemoteRef
+from repro_torch.frontend import Plan
+from repro_torch.optim import optimizers
+
+pytestmark = pytest.mark.multiproc
+
+ARCH = "qwen3-4b"
+WAIT = 30.0
+
+
+# -- module-level task functions (ship by reference) -------------------------
+
+def build(i):
+    return {"x": np.full((4,), i)}
+
+
+def double(b):
+    return {k: v * 2 for k, v in b.items()}
+
+
+def boom(i):
+    raise ValueError(f"poisoned batch {i}")
+
+
+def slow_mul(i, delay=0.4):
+    time.sleep(delay)
+    return i * 10
+
+
+class FlakyStream:
+    """Picklable stream whose ``batch_at`` raises for one step."""
+
+    def __init__(self, poison_step):
+        self.poison_step = poison_step
+
+    def batch_at(self, step):
+        if step == self.poison_step:
+            raise ValueError(f"poisoned batch {step}")
+        return {"tokens": np.full((2, 4), step, np.int32)}
+
+
+@pytest.fixture(scope="module")
+def cluster():
+    """The driver and one worker locality, reused across tests."""
+    dg = DistributedGraph(localities=2, name="test-cluster")
+    yield dg
+    dg.shutdown()
+
+
+# -- the distributed graph over a real process --------------------------------
+
+def test_remote_spawn_chain_and_data_affinity(cluster):
+    a = cluster.defer(build, 3, lane=Lane.PREFETCH, name="build")
+    b = cluster.defer(double, a, name="double")
+    assert (b.result(timeout=WAIT)["x"] == 6).all()
+    # the dependent followed its input's locality (data affinity)
+    assert a.home == 1 and b.home == a.home
+    assert cluster.stats()["dispatched"].get(1, 0) >= 2
+
+
+def test_pin_keeps_result_remote_and_fetches_across_the_wire(cluster):
+    pinned = cluster.defer(build, 7, locality=1, pin=True, name="pinned")
+    ref = pinned.result(timeout=WAIT)
+    assert isinstance(ref, RemoteRef) and ref.owner == 1
+    assert (cluster.fetch(ref, timeout=WAIT)["x"] == 7).all()   # driver <- 1
+    here = cluster.defer(double, ref, locality=0, name="here")
+    assert (here.result(timeout=WAIT)["x"] == 14).all()         # deref on 0
+    there = cluster.defer(double, ref, name="there")           # affinity: 1
+    assert (there.result(timeout=WAIT)["x"] == 14).all() and there.home == 1
+    local = cluster.defer(build, 8, locality=0, pin=True, name="pin-local")
+    lref = local.result(timeout=WAIT)
+    assert isinstance(lref, RemoteRef) and lref.owner == 0
+    far = cluster.defer(double, lref, locality=1, name="far")   # 1 <- driver
+    assert (far.result(timeout=WAIT)["x"] == 16).all()
+
+
+def test_remote_error_poisons_only_dependents_and_locality_survives(cluster):
+    bad = cluster.defer(boom, 9, locality=1, name="bad")
+    dep = cluster.graph.defer(lambda x: x, bad, name="dep")
+    sibling = cluster.defer(build, 1, locality=1, name="sibling")
+    with pytest.raises(ValueError, match="poisoned batch 9"):
+        dep.result(timeout=WAIT)
+    assert (sibling.result(timeout=WAIT)["x"] == 1).all()
+    after = cluster.defer(build, 2, locality=1, name="after")
+    assert (after.result(timeout=WAIT)["x"] == 2).all()    # locality alive
+    # a task whose dependency failed before dispatch settles too
+    downstream = cluster.defer(double, bad, name="downstream")
+    with pytest.raises(ValueError, match="poisoned batch 9"):
+        downstream.result(timeout=WAIT)
+    cluster.barrier(timeout=WAIT)
+    assert cluster.stats()["outstanding"] == 0
+
+
+def test_cancellation_across_the_wire(cluster):
+    # the worker graph has 2 threads: occupy both, then cancel the queued
+    # one there; and cancel a dependent before its dispatch ran
+    s1 = cluster.defer(slow_mul, 1, locality=1, name="slow1")
+    s2 = cluster.defer(slow_mul, 2, locality=1, name="slow2")
+    s3 = cluster.defer(slow_mul, 3, locality=1, name="slow3")
+    dep = cluster.defer(double, s1, name="dep-gated")
+    cluster.cancel(dep)
+    time.sleep(0.1)
+    cluster.cancel(s3)
+    with pytest.raises(CancelledError):
+        s3.result(timeout=WAIT)
+    with pytest.raises(CancelledError):
+        dep.result(timeout=WAIT)
+    assert s1.result(timeout=WAIT) == 10 and s2.result(timeout=WAIT) == 20
+    cluster.barrier(timeout=WAIT)
+    assert cluster.stats()["outstanding"] == 0
+
+
+def test_prefetcher_remote_poison_kills_only_that_batch(cluster):
+    pf = Prefetcher(FlakyStream(poison_step=1), None, depth=2,
+                    graph=cluster.graph, dgraph=cluster)
+    try:
+        assert (pf.get(0)["tokens"] == 0).all()
+        with pytest.raises(ValueError, match="poisoned batch 1"):
+            pf.get(1)
+        assert (pf.get(2)["tokens"] == 2).all()          # stream continues
+    finally:
+        pf.close()
+
+
+def test_replicate_checksum_vote_across_localities(cluster):
+    fut = cluster.replicate(build, 5, n=2, name="rep")
+    assert (fut.result(timeout=WAIT)["x"] == 5).all()
+    with pytest.raises(ValueError, match="needs 3 localities"):
+        cluster.replicate(build, 5, n=3)
+
+
+def test_unpicklable_function_fails_cleanly(cluster):
+    fut = cluster.defer(lambda: 1, locality=1, name="closure")
+    with pytest.raises(RuntimeError, match="not picklable"):
+        fut.result(timeout=WAIT)
+
+
+def test_foreign_graph_dependency_raises_and_leaves_nothing_behind(cluster):
+    other = FuturizedGraph(max_workers=1, name="other")
+    try:
+        foreign = other.defer(lambda: 1)
+        with pytest.raises(ValueError, match="different graph"):
+            cluster.defer(double, foreign, locality=1, name="foreign")
+        cluster.barrier(timeout=WAIT)
+        assert cluster.stats()["outstanding"] == 0
+    finally:
+        other.shutdown(wait=True)
+
+
+def test_remote_stats_visible_from_driver(cluster):
+    cluster.defer(build, 1, locality=1, name="warm").result(timeout=WAIT)
+    st = cluster.remote_stats(1, timeout=WAIT)
+    assert st["completed"] >= 1
+    assert st["lane_time_hist"]["labels"][0] == "<100us"
+    assert st["bytes_recv"] > 0 and st["unhandled_posts"] == {}
+
+
+def test_worker_loss_respawns_in_flight_tasks():
+    dg = DistributedGraph(localities=3, name="kill-drill")
+    try:
+        futs = [dg.defer(slow_mul, i, locality=2, name=f"r{i}")
+                for i in range(3)]
+        time.sleep(0.1)                  # let the first task start
+        dg.group.kill(2)
+        assert [f.result(timeout=60) for f in futs] == [0, 10, 20]
+        st = dg.stats()
+        assert st["respawned"] >= 1 and st["alive_workers"] == [1]
+        # a pinned value dies with its locality: a task needing it is
+        # poisoned, not re-run
+        ref = dg.defer(build, 1, locality=1, pin=True).result(timeout=WAIT)
+        gate = dg.defer(slow_mul, 0, locality=1, name="gate")
+        needs = dg.defer(double, ref, gate, locality=1, name="needs")
+        time.sleep(0.1)
+        dg.group.kill(1)
+        with pytest.raises(Exception):
+            needs.result(timeout=60)
+    finally:
+        dg.shutdown()
+
+
+# -- Session parity -----------------------------------------------------------
+
+def _plan(**kw):
+    kw.setdefault("arch", ARCH)
+    kw.setdefault("batch", 4)
+    kw.setdefault("seq", 16)
+    return Plan(device="cpu", **kw)
+
+
+def test_session_serve_parity_single_vs_multi_locality():
+    kw = dict(requests=4, slots=2, prompt_len=16, gen_len=4, verbose=False)
+    with _plan().compile() as single:
+        ref = single.serve(**kw)
+    with _plan(localities=2).compile() as multi:
+        out = multi.serve(**kw)
+        dstats = out["runtime_stats"]["distributed"]
+    assert out["tokens"] == ref["tokens"] and out["requests"] == 4
+    decode = [n for n in out["nodes"] if n.startswith("decode:")]
+    assert decode == [n for n in ref["nodes"] if n.startswith("decode:")]
+    for g, r in zip(out["generated"], ref["generated"]):
+        assert (g == r).all()
+    assert dstats["dispatched"].get(1, 0) > 0    # waves really went remote
+
+
+def _reference_params(arch):
+    """The parameters the JAX package's ``Session.train`` starts from:
+    its train step's ``init(PRNGKey(seed))``, as numpy."""
+    with JaxPlan(arch=arch, batch=4, seq=16).compile() as s:
+        params, _ = s.train_step.init(jax.random.PRNGKey(s.plan.seed))
+        return jax.tree.map(np.asarray, params)
+
+
+def _start_from(session, tree):
+    """Make the session's train step start from ``tree``."""
+    step = session.train_step
+    oc = step.strategy.opt
+
+    def init(generator, device):
+        params = params_from_numpy(tree, session.cfg, device)
+        for p in pytree.tree_leaves(params):
+            p.requires_grad_(True)
+        return params, optimizers.init(params, oc)
+    step.init = init
+
+
+def test_session_train_two_localities_matches_single_even_killed():
+    """The acceptance drill: a 2-locality run, with its worker SIGKILLed
+    mid-run, gives the single-process run's losses bit for bit (remote
+    prefetch changes where batches are built, never what they contain),
+    and from the reference's parameters both follow the reference's
+    ``Session.train`` within 1e-4."""
+    kw = dict(steps=6, log_every=1, verbose=False)
+    tree = _reference_params(ARCH)
+    with _plan().compile() as single:
+        _start_from(single, tree)
+        ref = single.train(**kw)
+    with _plan(localities=2).compile() as multi:
+        _start_from(multi, tree)
+        out = multi.train(kill_locality_at_step=3, **kw)
+        dstats = out["runtime_stats"]["distributed"]
+    with _plan(localities=2).compile() as multi:
+        _start_from(multi, tree)
+        alive = multi.train(**kw)
+    assert out["losses"] == ref["losses"] == alive["losses"]
+    assert dstats["dispatched"].get(1, 0) > 0
+    assert dstats["alive_workers"] == []         # the drill really killed it
+    # qwen3-4b, as the other trajectory tests (test_torch_train.py): tiny
+    # qwen2.5-3b's zero-initialized qkv biases get near-zero gradients,
+    # whose sign adamw turns into whole +-lr steps, so in float32 its
+    # trajectory parts from the reference's by 1.6e-4 at step 6 (with
+    # momentum it stays within 3e-7)
+    with JaxPlan(arch=ARCH, batch=4, seq=16).compile() as jax_session:
+        jref = jax_session.train(**kw)
+    np.testing.assert_allclose(out["losses"], jref["losses"], rtol=1e-5)
+
+
+def test_checkpoints_and_gateway_across_localities_name_item_12(tmp_path):
+    with _plan(localities=2).compile() as s:
+        with pytest.raises(NotImplementedError, match="item 12"):
+            s.train(steps=1, ckpt_dir=str(tmp_path), verbose=False)
+        with pytest.raises(NotImplementedError, match="item 12"):
+            s.serve_stream(requests=1, verbose=False)

@@ -5,25 +5,29 @@ run, train steps, its decode cache through the bridge, and the serving
 surface (``Session.serve``'s tree, ``serve_stream``'s refusal, the
 CLI)."""
 import dataclasses
+import math
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.utils._pytree as pytree
 
 from repro.configs import get_config as jax_get_config
+from repro.core.sharding import init_params as jax_init_params
 from repro.frontend import Plan as JaxPlan
 from repro.models import layers as jax_layers
 from repro.models.model import build_model as build_jax_model
 from repro_torch.bridge import cache_from_numpy, params_from_numpy
 from repro_torch.configs import get_config
-from repro_torch.core import steps
-from repro_torch.data.pipeline import stream_for
+from repro_torch.core import sharding, steps
+from repro_torch.data.pipeline import stream_for, to_device
 from repro_torch.frontend import Plan
 from repro_torch.models import layers
 from repro_torch.models.model import EncDec, build_model
 from torch_parity import (GEN, PROMPT, SLOTS, bf16_parity,
+                          resume_is_bit_identical, train_cli_runs,
                           jax_train_params, loss_and_grads_match,
                           serve_cli_runs, serve_parity, train_steps_match)
 
@@ -214,3 +218,92 @@ def test_train_steps_match_jax():
     The cross-attention ``bk``/``bv`` are never read by the loss: their
     gradient is zeros, as ``jax.grad`` gives it."""
     train_steps_match(ARCH, "momentum", 1e-3)
+
+
+def test_train_cli_runs_on_cpu(tmp_path):
+    train_cli_runs(ARCH, tmp_path)
+
+
+def test_checkpoint_resume_is_bit_identical(tmp_path):
+    resume_is_bit_identical(ARCH, tmp_path)
+
+
+def test_unread_cross_biases_come_out_of_adamw_unchanged():
+    """``Session.train`` with adamw: the step zero-fills the gradients of
+    exactly ``EncDec.unread``'s leaves (the cross ``bk``/``bv``), so
+    adamw's moments stay zero and those leaves leave the run as they
+    entered it; every other leaf moved."""
+    plan = Plan(arch=ARCH, batch=4, seq=16, device="cpu")
+    with plan.compile() as session:
+        init, _ = session.train_step.init(
+            torch.Generator().manual_seed(plan.seed), "cpu")
+        before = [t.detach().clone()
+                  for t in session.train_step.model.unread(init)]
+        out = session.train(steps=3, log_every=1, verbose=False)
+        after = session.train_step.model.unread(out["params"])
+    assert len(before) == 2 * session.cfg.n_layers > 0
+    for a, b in zip(before, after):
+        assert torch.equal(a, b)
+    unread = {id(t) for t in after}
+    moved = [not torch.equal(a, b) for a, b in zip(
+        pytree.tree_leaves(init), pytree.tree_leaves(out["params"]))
+        if id(b) not in unread]
+    assert all(moved)
+
+
+def _encoder_grad_norms(model, params, batch) -> list:
+    for t in pytree.tree_leaves(params):
+        t.requires_grad_(True)
+    model.loss(params, to_device(batch, "cpu")).backward()
+    return [float(torch.sqrt(sum(t.grad.double().square().sum()
+                                 for t in pytree.tree_leaves(p)
+                                 if t.grad is not None)))
+            for p in params["enc_stack"]]
+
+
+def _fan_in_d(spec):
+    """``spec`` with the std of a rank-3 attention projection rescaled to
+    1/sqrt(its input width), d_model or H*hd."""
+    if spec.init != "normal" or len(spec.shape) != 3:
+        return spec
+    fan = spec.shape[0] if spec.dims[0] == "embed" \
+        else spec.shape[0] * spec.shape[1]
+    return dataclasses.replace(
+        spec, scale=spec.scale * math.sqrt(spec.shape[-2] / fan))
+
+
+def test_reference_init_grows_the_encoder_gradient_layer_by_layer():
+    """Why whisper-medium does not train from the reference's random init
+    (ROADMAP §3): the init takes fan-in ``shape[-2]`` for every weight, H
+    for the attention projections [d, H, hd] and hd for [H, hd, d], so at
+    full width (3 encoder and 3 decoder layers here, one row of 16 tokens
+    over the 1,500 frames) each encoder layer's gradient is several times
+    the one above it, in the JAX package and in the port on the same
+    weights; drawn with fan-in d_model the growth goes.  At 24 layers
+    the float32 norm overflows (``chip_smoke.py``, whisper_grad_scale)."""
+    over = dict(n_layers=3, n_enc_layers=3)
+    jcfg = dataclasses.replace(jax_get_config(ARCH), **over)
+    cfg = dataclasses.replace(get_config(ARCH), **over)
+    batch = stream_for(cfg, batch=1, seq=16, seed=0).batch_at(0)
+    jmodel = build_jax_model(jcfg)
+    jparams = jax_init_params(jmodel.specs(), jax.random.PRNGKey(0))
+    jgrads = jax.grad(jmodel.loss)(jparams, jax.tree.map(jnp.asarray, batch))
+    enc = jgrads["enc_stack"]
+    layer = (lambda i: enc[i]) if isinstance(enc, list) else \
+        (lambda i: jax.tree.map(lambda x: x[i], enc))
+    ref = [float(np.sqrt(sum(np.sum(np.square(np.asarray(x, np.float64)))
+                             for x in jax.tree.leaves(layer(i)))))
+           for i in range(3)]
+    model = build_model(cfg)
+    mine = _encoder_grad_norms(
+        model, params_from_numpy(jax.tree.map(np.asarray, jparams), cfg,
+                                 "cpu"), batch)
+    specs = pytree.tree_map(_fan_in_d, model.specs(),
+                            is_leaf=sharding.is_spec)
+    fixed = _encoder_grad_norms(model, sharding.init_params(
+        specs, torch.Generator().manual_seed(0), "cpu"), batch)
+    print(f"encoder layers 0..2 gradient norms: JAX {ref}, port {mine}, "
+          f"fan-in d_model {fixed}")
+    for norms in (ref, mine):
+        assert norms[0] > 4 * norms[1] > 16 * norms[2]
+    assert max(fixed) < 2 * min(fixed)

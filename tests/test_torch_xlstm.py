@@ -26,6 +26,7 @@ from repro_torch.data.pipeline import LMStream, to_device
 from repro_torch.models import ssm
 from repro_torch.models.model import build_model
 from torch_parity import (GEN, PROMPT, SLOTS, bf16_parity, close,
+                          resume_is_bit_identical, train_cli_runs,
                           jax_train_params, loss_and_grads_match,
                           serve_cli_runs, serve_parity, train_steps_match)
 
@@ -370,3 +371,11 @@ def test_train_steps_match_jax():
 
 def test_serve_cli_runs_on_cpu():
     serve_cli_runs(ARCH)
+
+
+def test_train_cli_runs_on_cpu(tmp_path):
+    train_cli_runs(ARCH, tmp_path)
+
+
+def test_checkpoint_resume_is_bit_identical(tmp_path):
+    resume_is_bit_identical(ARCH, tmp_path)

@@ -1,8 +1,10 @@
 """Parity helpers shared by the port's family tests (tests/test_torch_xlstm.py
 and tests/test_torch_encdec.py): a tiny config's serve steps, loss and
 gradients, train steps and serve CLI, the port against the JAX package on
-the same bridged parameters and seeded numpy inputs."""
+the same bridged parameters and seeded numpy inputs; and the train CLI and
+its crash-and-resume drill, the port alone."""
 import dataclasses
+import json
 
 import jax
 import jax.numpy as jnp
@@ -16,10 +18,12 @@ from repro.core.sharding import init_params as jax_init_params
 from repro.launch.mesh import make_local_mesh
 from repro.models.model import build_model as build_jax_model
 from repro_torch.bridge import params_from_numpy, tree_to_numpy
+from repro_torch.checkpoint import format as ckfmt
 from repro_torch.configs import get_config
 from repro_torch.core import steps
 from repro_torch.data.pipeline import stream_for, to_device
 from repro_torch.launch import serve as serve_cli
+from repro_torch.launch import train as train_cli
 from repro_torch.models.model import build_model
 from repro_torch.optim import optimizers
 
@@ -265,3 +269,52 @@ def serve_cli_runs(arch):
     assert res["tokens"] == 6 and res["waves"] == 2
     assert res["padded_tokens"] == 2
     assert torch.isfinite(res["first_prefill_logits"]).all()
+
+
+def train_cli_runs(arch, tmp_path):
+    """``launch/train.py --device cpu --arch`` trains 4 steps with adamw
+    (the enc-dec family on the stream's frames): finite losses, logged
+    every 2 steps, in the ``--stats-out`` summary too."""
+    stats = tmp_path / "stats.json"
+    out = train_cli.run(train_cli.parser().parse_args([
+        "--device", "cpu", "--arch", arch, "--steps", "4", "--batch", "4",
+        "--seq", "16", "--log-every", "2", "--stats-out", str(stats)]))
+    assert out["step"] == 4 and len(out["losses"]) == 2
+    assert np.isfinite(out["losses"]).all()
+    assert json.loads(stats.read_text())["losses"] == out["losses"]
+    return out
+
+
+def _checksums(step_dir) -> list:
+    m = ckfmt.load_manifest(step_dir)
+    return [leaf["checksum"] for s in m["shards"] for leaf in s["leaves"]]
+
+
+def resume_is_bit_identical(arch, tmp_path):
+    """The crash-and-resume drill of ``launch/train.py`` for ``arch``:
+    ``--ckpt-every 3 --fail-at-step 4`` raises after the step-3
+    checkpoint; ``--resume`` continues from it to step 6.  Its losses,
+    final parameters and step-6 checkpoint (parameters and optimizer
+    state, leaf by leaf) equal an uninterrupted run's bit for bit."""
+    drill = ["--device", "cpu", "--arch", arch, "--steps", "6", "--batch",
+             "4", "--seq", "16", "--log-every", "1", "--ckpt-every", "3"]
+
+    def run(ckpt, *argv):
+        return train_cli.run(train_cli.parser().parse_args(
+            drill + ["--ckpt", str(ckpt), *argv]))
+    ref = run(tmp_path / "straight")
+    try:
+        run(tmp_path / "drill", "--fail-at-step", "4")
+    except RuntimeError as e:
+        assert "injected node failure at step 4" in str(e)
+    else:
+        raise AssertionError("the drill did not fail at step 4")
+    assert sorted(p.name for p in (tmp_path / "drill").iterdir()) == [
+        "step_00000003"]
+    out = run(tmp_path / "drill", "--resume")
+    assert out["step"] == 6 and out["losses"] == ref["losses"][3:]
+    for a, b in zip(pytree.tree_leaves(out["params"]),
+                    pytree.tree_leaves(ref["params"])):
+        assert torch.equal(a, b)
+    assert _checksums(tmp_path / "drill" / "step_00000006") == \
+        _checksums(tmp_path / "straight" / "step_00000006")
