@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --plant-k1-fault   # only the check's own test
+    python3 chip_smoke.py --ddp2-repeat N    # the 2-locality fp32 DDP run,
+                                             # N times, with host memory
 
 Phases, in order; any failure ends the script with a non-zero exit and
 without the final ``{"ok": true, ...}`` line:
@@ -73,7 +75,8 @@ without the final ``{"ok": true, ...}`` line:
    tiny=False).compile().train(...)`` and ``Plan(arch=
    "granite-moe-1b-a400m", tiny=False).compile().train(...)`` at full
    width and depth;
-8. checkpoint drill, granite-moe-1b-a400m at full size: 6 steps straight
+8. checkpoint drill, granite-moe-1b-a400m at full width, cut to 12 of its
+   24 layers (``CKPT_DRILL_LAYERS``, for the time limit): 6 steps straight
    (saved at step 6), then 6 steps saving every 3 with an injected
    failure at step 4, then ``resume=True`` to step 6 from the step-3
    checkpoint; the resumed losses, parameters and optimizer state (every
@@ -100,8 +103,23 @@ without the final ``{"ok": true, ...}`` line:
    (losses bit-identical to it) and the 2-locality onebit run (K3a and
    K3b counted in each locality, reported by the worker's loop), each
    locality's grad_wire_bytes exactly steps x codec bytes; the driver's
-   onebit step is profiled;
-12. where the time goes: one prefill (at the wave's batch, and at batch 1
+   onebit step is profiled; the host's memory, the worker's included, is
+   printed after every step of the 2-locality fp32 run;
+12. the rest of the multi-locality runtime on the one card: (a) the
+   gateway at two localities, ``Plan(arch="qwen3-4b", tiny=False,
+   localities=2, replicas=2)``: replica 0 homed on the worker (its
+   requests' ``stack`` prep runs there), streams bit-identical to one
+   locality's, K1's launches one locality's, then the worker SIGKILLed
+   mid-stream (replica deaths 1, no prefill recomputed, the same
+   streams); (b) checkpoint shards written by their owners:
+   granite-moe-1b-a400m at full width cut to the most layers whose
+   checkpoint is at most 3.2 GB, saved by two localities (ownership
+   {0, 1}, the worker's leaf bytes exactly its shard's), resumed at one,
+   bit-identical to a straight run; (c) an elastic join mid-train:
+   qwen3-4b at 4 layers, ``Plan(elastic=True)`` gaining a locality after
+   step 2, losses bit-identical to the static run's, tasks stolen, every
+   worker reaped;
+13. where the time goes: one prefill (at the wave's batch, and at batch 1
    but for whisper-medium) and one decode step of each served
    configuration, one plain and one
    DDP qwen3-4b train step, one zamba2-2.7b and one granite-moe-1b-a400m
@@ -112,24 +130,27 @@ without the final ``{"ok": true, ...}`` line:
    zamba2-2.7b's prefill and train step K2's tensor-core kernel and not
    its f32 one, the zamba2-2.7b train step K2's backward kernel, the DDP
    step K3b's row-stream kernel;
-13. the gateway's, the checkpoint's, the 2-locality runs' and the
-   profiles' readings as JSON lines, each phase's wall time, the
+14. the gateway's, the checkpoint's, the 2-locality runs', the
+   multi-locality phases' and the profiles' readings as JSON lines,
+   each phase's wall time, the
    ``kernels`` JSON line, then the ``ok`` line last.
 
 Every kernel launch count is set to 0 just before each run of phases 5,
-6, 7, 10 and 11 and of the drill's resumed run, and read just after; each
-run asserts the counts its layers give.  The worker locality of phase 11
-is a process spawned from this script, which imports it again (as
-``__mp_main__``) but runs nothing of ``main``.
+6, 7, 10, 11 and 12 and of the drills' resumed runs, and read just after;
+each run asserts the counts its layers give.  The worker localities of
+phases 11 and 12 are processes spawned from this script, which import it
+again (as ``__mp_main__``) but run nothing of ``main``.
 
 It imports ``torch`` and ``repro_torch`` only.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import gc
 import json
 import os
+import resource
 import shutil
 import subprocess
 import sys
@@ -261,9 +282,30 @@ MOE_TRAIN_ATTN = (MOE_TRAIN["batch"], _MOE_CFG.n_heads, _MOE_CFG.n_kv_heads,
                   None)
 # the drill: saves every CKPT_EVERY steps, fails at step CKPT_FAIL_AT, and
 # needs room for two committed checkpoints beside a temp one on the disk;
-# where there is none, the drill's depth is cut (printed)
+# where there is none, the drill's depth is cut further (printed).  It
+# runs CKPT_DRILL_LAYERS of granite's 24 layers (8.9 GB checkpoints, where
+# 24 layers' 16.6 GB took 287.6 s of the script's time limit at 0.23-0.26
+# GB/s): the multi-locality phases need the room
 CKPT_EVERY, CKPT_FAIL_AT = 3, 4
 CKPT_DISK_SHARE = 0.8
+CKPT_DRILL_LAYERS = 12
+# the multi-locality runtime's other paths on the one card: the gateway's
+# two replicas homed on two localities (qwen3-4b at full size; the kill
+# drill SIGKILLs the worker before the GATEWAY_LOC_KILL_AT-th of the
+# trace's prompts arrives, fed from a thread every GATEWAY_LOC_FEED_S);
+# checkpoint shards written by their owners: granite-moe-1b-a400m at full
+# width cut to the most layers whose checkpoint stays within
+# CKPT_LOC_BYTES (qwen3-4b's untied embedding and unembedding alone are
+# 9.3 GB of float32 state with adamw: 0.78 B x 12 B), saved by two
+# localities at step CKPT_LOC_SAVE_AT and resumed at one to
+# CKPT_LOC_STEPS; and an elastic join mid-train, qwen3-4b cut to
+# DDP2_LAYERS, a locality added at step ELASTIC_JOIN_AT and the driver
+# stalled 250 ms at step ELASTIC_STALL_AT (the steal window)
+GATEWAY_LOC_KILL_AT, GATEWAY_LOC_FEED_S = 3, 0.05
+CKPT_LOC_BYTES = 3.2e9
+CKPT_LOC_SAVE_AT, CKPT_LOC_STEPS = 3, 6
+ELASTIC_JOIN_AT, ELASTIC_STALL_AT, ELASTIC_STEPS = 2, 4, 6
+ELASTIC_STALL_S = 0.25
 # one MoE layer at granite's full width: 2,048 tokens (4 x 512, the serve
 # prefill's), bf16; with cap_factor E / k no assignment can drop
 MOE_LAYER_TOKENS = 2048
@@ -1569,6 +1611,9 @@ def report_profile(name: str, prof, wall: float, bound) -> dict:
 
 
 PROFILES: dict = {}     # profiled call -> its readings (report_profile)
+# arch -> the one-replica serve_stream run's (streams, prompts): the
+# two-locality gateway phase holds its streams to them
+STREAMS: dict = {}
 STEP_PROFILES: dict = {}  # config name -> its profiled train step's
 #                           readings and kernels by name (train_full)
 
@@ -1836,40 +1881,81 @@ class ProfileStep(StepClock):
             self.t[-1] = time.perf_counter()
 
 
-def host_memory() -> str:
+def host_memory(workers: dict = None) -> str:
     """The driver's resident memory and the host's available memory,
     after the driver returns its freed heap pages to the system (glibc's
     ``malloc_trim``): the fp32 ring holds each locality's payloads and
-    its peer's, 4.7 GB each, on the host."""
+    its peer's, 4.7 GB each, on the host.  With ``workers`` (rank ->
+    process), each worker's resident memory, or its exit code."""
     gc.collect()
     trim = getattr(ctypes.CDLL(None), "malloc_trim", None)
     if trim is not None:
         trim(0)
 
-    def kib(path, key):
+    def gib(path, key):
         with open(path) as f:
             return next(int(line.split()[1]) for line in f
-                        if line.startswith(key))
-    return (f"driver resident {kib('/proc/self/status', 'VmRSS:') / 2**20:.1f}"
-            f" GiB, host available "
-            f"{kib('/proc/meminfo', 'MemAvailable:') / 2**20:.1f} GiB")
+                        if line.startswith(key)) / 2**20
+    out = (f"driver resident {gib('/proc/self/status', 'VmRSS:'):.1f} GiB, "
+           f"host available {gib('/proc/meminfo', 'MemAvailable:'):.1f} GiB")
+    for r, p in sorted((workers or {}).items()):
+        if p.exitcode is not None:
+            out += f", worker {r} exited (code {p.exitcode})"
+            continue
+        try:
+            # statm: the process's size and resident set, in pages
+            with open(f"/proc/{p.pid}/statm") as f:
+                pages = int(f.read().split()[1])
+            out += (f", worker {r} resident "
+                    f"{pages * os.sysconf('SC_PAGE_SIZE') / 2**30:.1f} GiB")
+        except (OSError, IndexError, ValueError) as e:
+            out += f", worker {r} resident not readable ({e})"
+    return out
 
 
-def ddp_two_localities() -> tuple[dict, dict]:
+def reaped_peak() -> str:
+    """The largest peak resident memory of the reaped child processes
+    (``getrusage(RUSAGE_CHILDREN)``): after a session closes, its worker's
+    host peak, or an earlier worker's where that was larger."""
+    kib = resource.getrusage(resource.RUSAGE_CHILDREN).ru_maxrss
+    return f"reaped workers' peak resident {kib / 2**20:.1f} GiB"
+
+
+class MemoryClock(StepClock):
+    """A ``StepClock`` that prints the host's memory after every step:
+    the driver's, and each worker's of ``session``."""
+
+    def __init__(self, session):
+        super().__init__()
+        self.session = session
+
+    def on_step(self, it, metrics):
+        super().on_step(it, metrics)
+        print(f"after step {it}: "
+              + host_memory(self.session.distributed.group.procs),
+              flush=True)
+
+
+DDP2_RUNS = ((1, "fp32"), (2, "fp32"), (2, "onebit"))
+
+
+def ddp_two_localities(runs=DDP2_RUNS) -> tuple[dict, dict]:
     """Fabric DDP across two localities on the one card (``DDP2``): the
     driver and a spawned worker process, each training one of the two
     shards at full width, gradients summed over the active-message ring.
-    Runs the 1-locality fp32 run over the same two shards, the 2-locality
-    fp32 run and the 2-locality onebit run, ``DDP2_STEPS`` steps each on
-    one repeated batch, every kernel count set to 0 just before each run
-    and read just after, the worker's counts reported by its DDP loop.
+    Runs ``runs`` ((localities, codec) each): the 1-locality fp32 run over
+    the same two shards, the 2-locality fp32 run and the 2-locality
+    onebit run, ``DDP2_STEPS`` steps each on one repeated batch, every
+    kernel count set to 0 just before each run and read just after, the
+    worker's counts reported by its DDP loop.  At two localities the
+    host's memory, the worker's included, is printed after every step.
     Checks: finite losses; the 2-locality fp32 losses bit-identical to
-    the 1-locality run's; in every locality the launches its shard and the
-    codec give (``train_launches``: with onebit K3a once a bucket and step,
-    K3b once a bucket, step and origin); every locality's
-    ``grad_wire_bytes`` = steps x (W - 1) x codec bytes.  Profiles the
-    driver's step ``DDP2_PROFILE_AT`` of the onebit run.  Returns the
-    launch counts by path and locality, and the readings."""
+    the 1-locality run's (when both ran); in every locality the launches
+    its shard and the codec give (``train_launches``: with onebit K3a once
+    a bucket and step, K3b once a bucket, step and origin); every
+    locality's ``grad_wire_bytes`` = steps x (W - 1) x codec bytes.
+    Profiles the driver's step ``DDP2_PROFILE_AT`` of the onebit run.
+    Returns the launch counts by path and locality, and the readings."""
     kw = dict(DDP2, device="cuda")
     cfg = Plan(**kw).config()
     n_buckets = len(steps.make_ddp_step(cfg, steps.Strategy())
@@ -1877,20 +1963,20 @@ def ddp_two_localities() -> tuple[dict, dict]:
     stream = RepeatStream(stream_for(cfg, batch=DDP2["batch"],
                                      seq=DDP2["seq"], seed=0))
     launches, readings, losses = {}, {}, {}
-    for loc, codec in ((1, "fp32"), (2, "fp32"), (2, "onebit")):
+    for loc, codec in runs:
         name = f"ddp2_{loc}loc_{codec}"
         phase(f"fabric DDP, {cfg.name} at full width, {cfg.n_layers} of "
               f"{get_config(cfg.name).n_layers} layers, {loc} "
               f"{'localities' if loc > 1 else 'locality'} on the one card, "
               f"{DDP2['ddp_shards']} shards, {codec} codec")
         plan = Plan(**kw, localities=loc, grad_codec=codec)
-        hooks = ProfileStep(DDP2_PROFILE_AT) if codec == "onebit" \
-            else StepClock()
         torch.cuda.empty_cache()
         print(host_memory())
         t0 = time.perf_counter()
         with plan.compile() as session:
             up_s = time.perf_counter() - t0
+            hooks = (ProfileStep(DDP2_PROFILE_AT) if codec == "onebit"
+                     else MemoryClock(session) if loc > 1 else StepClock())
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             _zero_counts()
@@ -1902,10 +1988,12 @@ def ddp_two_localities() -> tuple[dict, dict]:
                     procs = session.distributed.group.procs
                     print(f"worker exit codes "
                           f"{ {r: p.exitcode for r, p in procs.items()} }; "
-                          f"{host_memory()}")
+                          f"{host_memory(procs)}")
                 raise
             counts = _counts()
         peak = torch.cuda.max_memory_allocated()
+        if loc > 1:
+            print(f"{host_memory()}; {reaped_peak()}")
         losses[name] = out["losses"]
         ms = hooks.step_ms()
         print(f"session up in {up_s:.1f} s; losses "
@@ -1960,14 +2048,366 @@ def ddp_two_localities() -> tuple[dict, dict]:
             check_ran("2-locality DDP step", kernels, K3B)
         del out
         torch.cuda.empty_cache()
-    same = losses["ddp2_2loc_fp32"] == losses["ddp2_1loc_fp32"]
-    print("2-locality fp32 losses "
-          + ("bit-identical to" if same else "DIFFER from")
-          + " the 1-locality run's")
-    if not same:
-        raise AssertionError("2-locality fp32 DDP losses differ from the "
-                             "1-locality run's")
+    if {"ddp2_2loc_fp32", "ddp2_1loc_fp32"} <= set(losses):
+        same = losses["ddp2_2loc_fp32"] == losses["ddp2_1loc_fp32"]
+        print("2-locality fp32 losses "
+              + ("bit-identical to" if same else "DIFFER from")
+              + " the 1-locality run's")
+        if not same:
+            raise AssertionError("2-locality fp32 DDP losses differ from "
+                                 "the 1-locality run's")
     return launches, readings
+
+
+def _reaped(pids, timeout: float = 30.0) -> bool:
+    """Every process of ``pids`` gone (exited and reaped) within
+    ``timeout``."""
+    deadline = time.monotonic() + timeout
+    for pid in pids:
+        while True:
+            try:
+                os.kill(pid, 0)
+            except ProcessLookupError:
+                break
+            if time.monotonic() > deadline:
+                return False
+            time.sleep(0.05)
+    return True
+
+
+def gateway_two_localities() -> tuple[dict, dict]:
+    """``Session.serve_stream`` of qwen3-4b at full width and depth at two
+    localities with two replicas: replica 0 is homed on the worker
+    locality, a spawned process that runs its requests' ``stack`` prep,
+    replica 1 on the driver; the model runs here for both.  The trace of
+    ``serve_stream_full`` (every kernel count set to 0 just before and
+    read just after), then the reference's kill drill
+    (``test_kill_locality_retires_its_replica_and_survivor_absorbs``): the
+    same prompts fed from a thread, the worker SIGKILLed before the
+    ``GATEWAY_LOC_KILL_AT``-th arrives.  Checks, for both: every request
+    completes with the one-locality run's stream, bit for bit; no prefill
+    recomputed, every page reclaimed; K1 once per layer and request, as at
+    one locality; the trace's ``stack`` nodes dispatched to the worker
+    (and its replica homes [1, 0]); the drill's replica deaths 1.  Returns
+    the counts by run and the readings."""
+    arch = "qwen3-4b"
+    phase(f"serve_stream {arch} at two localities, two replicas (replica "
+          f"0 homed on the worker), full width and depth; then the worker "
+          f"SIGKILLed mid-stream")
+    plan = Plan(arch=arch, tiny=False, localities=2, replicas=2,
+                device="cuda")
+    cfg = plan.config()
+    n = len(GATEWAY_ARRIVALS)
+    want = {k: v * n for k, v in prefill_launches(cfg).items()}
+    base, prompts = STREAMS[arch]
+    kw = dict(prompt_len=SERVE["prompt_len"], gen_len=SERVE["gen_len"],
+              slots=SERVE["slots"])
+    t0 = time.perf_counter()
+    with plan.compile() as session:
+        up_s = time.perf_counter() - t0
+        _zero_counts()
+        res = session.serve_stream(
+            trace=[{"at_round": r} for r in GATEWAY_ARRIVALS], **kw)
+        counts = _counts()
+        homes = [rep.home for rep in session._gateway.replicas]
+        session._gateway = None
+        serve = dict(res["runtime_stats"]["serve"])
+        stacks = res["runtime_stats"]["distributed"]["dispatched"].get(1, 0)
+        same = res["streams"] == base
+        print(f"session up in {up_s:.1f} s; replica homes {homes}; "
+              f"{res['tokens_per_s']:.1f} tok/s, {res['rounds']} rounds; "
+              f"{stacks} stack nodes on locality 1; streams "
+              f"{'bit-identical to' if same else 'DIFFER from'} one "
+              f"locality's; " + ", ".join(f"{k} launches {v}"
+                                          for k, v in counts.items() if v))
+        if not (same and homes == [1, 0] and stacks > 0 and counts == want
+                and res["completed"] == n
+                and not serve.get("prefill_recompute", 0)
+                and not serve.get("cross_replica_page_fetches", 0)
+                and res["cache"]["pages_live"] == 0):
+            raise AssertionError(f"{arch} at two localities: homes {homes}, "
+                                 f"stacks {stacks}, counts {counts} (want "
+                                 f"{want}), serve {serve}")
+
+        q = RequestQueue()
+        killed = {}
+
+        def feeder():
+            for i, p in enumerate(prompts):
+                if i == GATEWAY_LOC_KILL_AT:
+                    killed["rank"] = session.kill_locality()
+                    killed["t"] = time.perf_counter()
+                q.submit(p)
+                time.sleep(GATEWAY_LOC_FEED_S)
+            q.close()
+        _zero_counts()
+        t = threading.Thread(target=feeder)
+        t1 = time.perf_counter()
+        t.start()
+        out = session.serve_stream(queue=q, **kw)
+        t.join(timeout=600)
+        kill_counts = _counts()
+        session._gateway = None
+        kserve = out["runtime_stats"]["serve"]
+        deaths = kserve.get("replica_deaths", 0) \
+            - serve.get("replica_deaths", 0)
+        recompute = kserve.get("prefill_recompute", 0)
+        fetches = kserve.get("cross_replica_page_fetches", 0)
+        same_kill = all(out["streams"].get(f"r{i}") == base[f"r{i}"]
+                        for i in range(n))
+        print(f"locality {killed.get('rank')} SIGKILLed "
+              f"{killed.get('t', t1) - t1:.2f} s into the drill: "
+              f"{out['completed']} of {n} completed, streams "
+              f"{'bit-identical to' if same_kill else 'DIFFER from'} one "
+              f"locality's, replica deaths {deaths}, cross-replica page "
+              f"fetches {fetches}, prefill recompute {recompute}; "
+              f"{out['tokens_per_s']:.1f} tok/s; "
+              + ", ".join(f"{k} launches {v}"
+                          for k, v in kill_counts.items() if v))
+        if t.is_alive() or killed.get("rank") != 1 or not same_kill \
+                or out["completed"] != n or deaths != 1 or recompute \
+                or out["cache"]["pages_live"] or kill_counts != want:
+            raise AssertionError(f"{arch} kill-locality drill: killed "
+                                 f"{killed}, deaths {deaths}, serve "
+                                 f"{kserve}, counts {kill_counts}")
+    torch.cuda.empty_cache()
+    readings = {"session_up_s": up_s, "replica_homes": homes,
+                "stack_nodes_on_worker": stacks,
+                "tokens_per_s": res["tokens_per_s"], "rounds": res["rounds"],
+                "kill_drill": {"tokens_per_s": out["tokens_per_s"],
+                               "replica_deaths": deaths,
+                               "cross_replica_page_fetches": fetches,
+                               "prefill_recompute": recompute}}
+    return {"gateway_2loc": counts, "gateway_2loc_kill": kill_counts}, \
+        readings
+
+
+def _owned_leaf_bytes(manifest: dict, rank: int) -> int:
+    """The leaf bytes of the shards that locality ``rank`` wrote."""
+    return sum(int(np.prod(leaf["shape"])) * np.dtype(leaf["dtype"]).itemsize
+               for sh in manifest["shards"] if sh["locality"] == rank
+               for leaf in sh["leaves"])
+
+
+def checkpoint_two_localities() -> tuple[dict, dict]:
+    """Checkpoint shards written by their owners, through
+    ``Session.train``: granite-moe-1b-a400m at full width cut to the most
+    layers whose checkpoint stays within ``CKPT_LOC_BYTES``, on one
+    repeated batch, in a ``tempfile.mkdtemp()`` removed at the end.  A
+    straight one-locality run of ``CKPT_LOC_STEPS`` steps (saved at the
+    last); a two-locality run of ``CKPT_LOC_SAVE_AT`` steps saved there,
+    each locality writing its own shard (the worker's leaves cross the
+    wire to it); then a one-locality ``resume=True`` to
+    ``CKPT_LOC_STEPS``, every kernel count set to 0 just before and read
+    just after.  Checks: the two-locality losses are the straight run's;
+    its manifest's ownership is {"0", "1"} and ``ckpt_leaf_wire_bytes``
+    is exactly the leaf bytes of locality 1's shard; the resumed losses,
+    final parameters and every leaf checksum of the last checkpoint are
+    the straight run's, bit for bit; the resumed run's launches are the
+    steps' (``train_launches``).  Prints each save's host copy and write
+    and the restore (wall time, GB/s).  Returns the resumed run's counts
+    and the readings."""
+    cfg = Plan(**MOE_TRAIN, device="cpu").config()
+    per_layer = []
+    for layers in range(1, cfg.n_layers + 1):
+        c = dataclasses.replace(cfg, n_layers=layers)
+        per_layer.append(12 * sum(sp.size for sp in pytree.tree_leaves(
+            build_model(c).specs(), is_leaf=is_spec)))
+        if per_layer[-1] > CKPT_LOC_BYTES:
+            break
+    layers = max(1, sum(b <= CKPT_LOC_BYTES for b in per_layer))
+    plan = Plan(**MOE_TRAIN, device="cuda", overrides={"n_layers": layers})
+    phase(f"checkpoint shards written by their owners: {cfg.name}, full "
+          f"width, {layers} of {cfg.n_layers} layers, saved at two "
+          f"localities, resumed at one")
+    print(f"CUT to {layers} of {cfg.n_layers} layers: a checkpoint of "
+          f"about {per_layer[layers - 1] / 1e9:.2f} GB (at most "
+          f"{CKPT_LOC_BYTES / 1e9:.1f} GB; the crash drill measures the "
+          f"I/O at depth)")
+    stream = RepeatStream(stream_for(plan.config(), batch=plan.batch,
+                                     seq=plan.seq, seed=plan.seed))
+    kw = dict(log_every=1, verbose=False)
+    n, k = CKPT_LOC_STEPS, CKPT_LOC_SAVE_AT
+    root = tempfile.mkdtemp()
+    try:
+        with CkptClock() as clock:
+            with plan.compile() as session:
+                straight = session.train(stream, steps=n, ckpt_every=n,
+                                         ckpt_dir=f"{root}/straight", **kw)
+            want_sums, _ = _leaf_checksums(f"{root}/straight/step_{n:08d}")
+            want_params = straight.pop("params")
+            shutil.rmtree(f"{root}/straight")
+            d = f"{root}/two"
+            t0 = time.perf_counter()
+            with dataclasses.replace(plan, localities=2).compile() as session:
+                up_s = time.perf_counter() - t0
+                wrote = session.train(stream, steps=k, ckpt_every=k,
+                                      ckpt_dir=d, **kw)
+            dstats = wrote["runtime_stats"]["distributed"]
+            manifest = ckfmt.load_manifest(f"{d}/step_{k:08d}")
+            owned = {r: _owned_leaf_bytes(manifest, r) for r in (0, 1)}
+            nbytes = sum(sh["nbytes"] for sh in manifest["shards"])
+            torch.cuda.synchronize()
+            _zero_counts()
+            with plan.compile() as session:
+                resumed = session.train(stream, steps=n, ckpt_every=k,
+                                        ckpt_dir=d, resume=True, **kw)
+            counts = _counts()
+        got_sums, _ = _leaf_checksums(f"{d}/step_{n:08d}")
+        same_params = all(torch.equal(a, b) for a, b in zip(
+            pytree.tree_leaves(resumed["params"]),
+            pytree.tree_leaves(want_params)))
+        ownership = sorted(manifest["ownership"])
+        wire = dstats["ckpt_leaf_wire_bytes"]
+        print(f"two localities up in {up_s:.1f} s; step-{k} checkpoint "
+              f"{nbytes} B in {len(manifest['shards'])} shards, ownership "
+              f"{manifest['ownership']}; leaf bytes by writer {owned}; "
+              f"ckpt_leaf_wire_bytes {wire}")
+        print(f"losses straight "
+              f"{' '.join(f'{x:.6f}' for x in straight['losses'])}; two "
+              f"localities {' '.join(f'{x:.6f}' for x in wrote['losses'])}; "
+              f"resumed at one from step {k}: "
+              f"{' '.join(f'{x:.6f}' for x in resumed['losses'])} "
+              f"({'bit-identical' if resumed['losses'] == straight['losses'][k:] else 'DIFFER'})"
+              f"; final parameters "
+              f"{'bit-identical' if same_params else 'DIFFER'}; the step-{n} "
+              f"checkpoints' {len(want_sums)} leaf checksums "
+              f"{'equal' if got_sums == want_sums else 'DIFFER'}")
+        print(", ".join(f"{k_} launches {v}" for k_, v in counts.items()))
+        want = train_launches(plan.config(), n - k, 1, 0)
+        if not (ownership == ["0", "1"] and wire == owned[1] > 0
+                and wrote["losses"] == straight["losses"][:k]
+                and resumed["losses"] == straight["losses"][k:]
+                and same_params and got_sums == want_sums
+                and counts == want):
+            raise AssertionError(f"owner-written checkpoint: ownership "
+                                 f"{ownership}, wire {wire} (locality 1's "
+                                 f"{owned[1]}), counts {counts} (want "
+                                 f"{want}), or a resumed value differs")
+        saves = []
+        for r, what in zip(clock.saves, ("straight, one locality",
+                                         "two localities",
+                                         "resumed, one locality")):
+            gb_s = nbytes / (r["host_s"] + r["write_s"]) / 1e9
+            saves.append({"run": what, "step": r["step"],
+                          "host_s": r["host_s"], "write_s": r["write_s"],
+                          "gb_per_s": gb_s})
+            print(f"save of step {r['step']} ({what}): host copy "
+                  f"{r['host_s']:.2f} s, write {r['write_s']:.2f} s, "
+                  f"{gb_s:.2f} GB/s")
+        print(f"restore at one locality: {clock.restores[0]:.2f} s, "
+              f"{nbytes / clock.restores[0] / 1e9:.2f} GB/s")
+        readings = {"layers": layers, "checkpoint_bytes": nbytes,
+                    "leaf_bytes_by_writer": owned,
+                    "ckpt_leaf_wire_bytes": wire, "session_up_s": up_s,
+                    "saves": saves, "restore_s": clock.restores[0]}
+        del want_params, resumed, straight
+        torch.cuda.empty_cache()
+        return counts, readings
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+class ElasticChurn(StepClock):
+    """A ``Session.train`` hook: the step clock, a locality added to the
+    running session after step ``join_at`` (``Session.add_locality``:
+    spawn, gossip, rebalance) and a driver stall after step ``stall_at``
+    (the steal window).  Neither counts to a step's time: each is timed
+    on its own."""
+
+    def __init__(self, session, join_at: int, stall_at: int):
+        super().__init__()
+        self.session = session
+        self.join_at, self.stall_at = join_at, stall_at
+        self.rank = None
+        self.join_s = None
+        self.paused: dict = {}      # step -> host seconds before it began
+
+    def on_step(self, it, metrics):
+        super().on_step(it, metrics)
+        t0 = time.perf_counter()
+        if it == self.join_at:
+            self.rank = self.session.add_locality()
+            self.join_s = time.perf_counter() - t0
+        if it == self.stall_at:
+            time.sleep(ELASTIC_STALL_S)
+        self.paused[it + 1] = time.perf_counter() - t0
+
+    def step_ms(self) -> list:
+        return [x - 1e3 * self.paused.get(i, 0.0)
+                for i, x in enumerate(super().step_ms())]
+
+
+def elastic_join() -> tuple[dict, dict]:
+    """The reference's ``test_join_mid_train_matches_reference_and_steals``
+    on the card: qwen3-4b at full width, cut to ``DDP2_LAYERS`` as
+    ``DDP2`` is, on one repeated batch, ``ELASTIC_STEPS`` steps; first the
+    static one-locality run, then ``Plan(elastic=True)`` starting alone,
+    a locality added after step ``ELASTIC_JOIN_AT`` and the driver
+    stalled after step ``ELASTIC_STALL_AT`` (``ElasticChurn``), every
+    kernel count set to 0 just before each run and read just after.
+    Checks: the elastic losses are the static run's, bit for bit; one
+    locality joined, tasks were stolen and builds dispatched to it; both
+    runs' launches are the steps' (``train_launches``); every worker pid
+    is reaped after the session closes.  Prints the session-up time, the
+    join time and the step times.  Returns the counts and the
+    readings."""
+    plan = Plan(**dict(DDP2, ddp=False, ddp_shards=0), device="cuda")
+    cfg = plan.config()
+    phase(f"elastic join mid-train: {cfg.name}, full width, {cfg.n_layers} "
+          f"of {get_config(cfg.name).n_layers} layers, a locality added "
+          f"after step {ELASTIC_JOIN_AT}")
+    stream = RepeatStream(stream_for(cfg, batch=plan.batch, seq=plan.seq,
+                                     seed=plan.seed))
+    kw = dict(steps=ELASTIC_STEPS, log_every=1, verbose=False)
+    want = train_launches(cfg, ELASTIC_STEPS, 1, 0)
+    with plan.compile() as session:
+        clock = StepClock()
+        _zero_counts()
+        static = session.train(stream, hooks=clock, **kw)
+        static_counts = _counts()
+    static_ms = clock.step_ms()
+    del static["params"]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with dataclasses.replace(plan, elastic=True).compile() as session:
+        up_s = time.perf_counter() - t0
+        churn = ElasticChurn(session, ELASTIC_JOIN_AT, ELASTIC_STALL_AT)
+        _zero_counts()
+        out = session.train(stream, hooks=churn, **kw)
+        counts = _counts()
+        d = out["runtime_stats"]["distributed"]
+        pids = [p.pid for p in session.distributed.group.procs.values()]
+    reaped = _reaped(pids)
+    ms = churn.step_ms()
+    same = out["losses"] == static["losses"]
+    print(f"static run: step times {' '.join(f'{x:.1f}' for x in static_ms)}"
+          f" ms")
+    print(f"elastic session up in {up_s:.2f} s; locality {churn.rank} "
+          f"joined after step {ELASTIC_JOIN_AT} in {churn.join_s:.2f} s "
+          f"(spawn, gossip, rebalance); step times (the join and the "
+          f"{ELASTIC_STALL_S * 1e3:.0f} ms stall apart) "
+          f"{' '.join(f'{x:.1f}' for x in ms)} ms")
+    print(f"losses {' '.join(f'{x:.6f}' for x in out['losses'])} "
+          f"({'bit-identical to' if same else 'DIFFER from'} the static "
+          f"run's); joined {d['joined_localities']}, membership gen "
+          f"{d['membership_gen']}, stolen {d['stolen_tasks']}, dispatched "
+          f"{d['dispatched']}, migrated {d['migrated_objects']}; worker "
+          f"pids {pids} {'reaped' if reaped else 'STILL ALIVE'}")
+    print(", ".join(f"{k} launches {v}" for k, v in counts.items()))
+    if not (same and d["joined_localities"] == 1 and d["stolen_tasks"] > 0
+            and d["dispatched"].get(1, 0) > 0 and reaped and pids
+            and counts == static_counts == want):
+        raise AssertionError(f"elastic join: stats {d}, counts {counts} "
+                             f"(static {static_counts}, want {want})")
+    readings = {"session_up_s": up_s, "join_s": churn.join_s,
+                "step_ms": ms, "static_step_ms": static_ms,
+                "stolen_tasks": d["stolen_tasks"],
+                "dispatched": d["dispatched"],
+                "membership_gen": d["membership_gen"]}
+    del out
+    torch.cuda.empty_cache()
+    return counts, readings
 
 
 def check_reference(arch: str, prompt_len: int = 20, gen_len: int = 8,
@@ -2338,6 +2778,7 @@ def serve_stream_full(arch: str) -> tuple:
                 raise AssertionError(f"{arch} {rid}: gateway "
                                      f"{res['streams'][rid]}, plain greedy "
                                      f"loop {want}")
+        STREAMS[arch] = (res["streams"], [h.prompt for h in res["handles"]])
         readings = time_park_refill(gw, [h.prompt for h in res["handles"]])
         print("per request (host wall, median [min, max] of "
               f"{n}): " + "; ".join(
@@ -2517,7 +2958,7 @@ def checkpoint_drill(train: dict) -> tuple:
         n_params = sum(sp.size for sp in pytree.tree_leaves(
             build_model(cfg).specs(), is_leaf=is_spec))
         est = 12 * n_params                  # f32 params, adamw's m and v
-        layers = cfg.n_layers
+        layers = min(cfg.n_layers, CKPT_DRILL_LAYERS)
         while 2 * est * layers / cfg.n_layers > CKPT_DISK_SHARE * free \
                 and layers > 1:
             layers -= 1
@@ -2528,8 +2969,11 @@ def checkpoint_drill(train: dict) -> tuple:
         usage = shutil.disk_usage(root)
         print(f"checkpoint directory {root}: disk {usage.total / 1e9:.1f} GB,"
               f" free {usage.free / 1e9:.1f} GB; a checkpoint of the full "
-              f"model is about {est / 1e9:.1f} GB"
-              + (f"; CUT to {layers} layers to fit two" if over else ""))
+              f"model is about {est / 1e9:.1f} GB; CUT to {layers} of "
+              f"{cfg.n_layers} layers (at most {CKPT_DRILL_LAYERS}, for the "
+              f"time limit"
+              + (", and fewer to fit two on the disk)"
+                 if layers < CKPT_DRILL_LAYERS else ")"))
         stream = RepeatStream(stream_for(plan.config(), batch=plan.batch,
                                          seq=plan.seq, seed=plan.seed))
         kw = dict(steps=TRAIN_STEPS, log_every=1, verbose=False)
@@ -2683,6 +3127,12 @@ def main() -> int:
         print(json.dumps({"plant_k1_fault": check_plant_k1_fault(
             torch.Generator(device="cuda").manual_seed(0))}))
         return 0
+    if sys.argv[1:2] == ["--ddp2-repeat"] and len(sys.argv) == 3:
+        # the 2-locality fp32 DDP run alone, again and again, with the
+        # host's memory (the worker's included) after every step
+        ddp_two_localities(((2, "fp32"),) * int(sys.argv[2]))
+        print_phase_times()
+        return 0
     if sys.argv[1:]:
         print(f"unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
@@ -2776,6 +3226,10 @@ def main() -> int:
           f"({cross['share_of_step']:.3f})")
     ddp2_launches, ddp2 = ddp_two_localities()
     launches.update(ddp2_launches)
+    gw2_launches, gateway_2loc = gateway_two_localities()
+    launches.update(gw2_launches)
+    launches["ckpt_2loc_resume"], ckpt_2loc = checkpoint_two_localities()
+    launches["elastic_join"], elastic = elastic_join()
 
     for arch in SERVE_ARCHS:
         scfg = steps._serve_cfg(get_config(arch))
@@ -2818,6 +3272,9 @@ def main() -> int:
     print(json.dumps({"serve_stream": stream_readings}))
     print(json.dumps({"checkpoint": ckpt_readings, "har_cnn": har,
                       "moe_layer": moe_layer}))
+    print(json.dumps({"gateway_two_localities": gateway_2loc,
+                      "checkpoint_two_localities": ckpt_2loc,
+                      "elastic_join": elastic}))
     print(json.dumps({"ddp_two_localities": ddp2,
                       "whisper_cross_attention": cross,
                       "whisper_grad_scale": {

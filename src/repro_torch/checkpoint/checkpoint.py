@@ -1,16 +1,23 @@
-"""Checkpoint I/O: shard writes and the manifest commit as futurized tasks.
+"""Checkpoint I/O: locality-owned shards as futurized tasks.
 
-Counterpart: ``repro/checkpoint/checkpoint.py`` (``CheckpointManager``
-for one locality: ``save``, ``_commit``, ``_raise_if_failed``, ``wait``,
-``close``, ``_gc``, ``all_steps``, ``latest_step``, ``restore``,
-``_read_shards`` and ``meta``).  The byte-level format is ``format.py``,
-the reference's own, so a checkpoint written by either package restores
-in the other.  Every save is one shard on this locality: a
-``_prepare_tmp`` gate, one ``save_shard`` write and the manifest commit,
-each a ``Lane.CHECKPOINT`` node of the futurized runtime, chained behind
-the caller's ``deps`` (step retirement) and the previous save.  A save
-that cannot complete never commits its manifest, so the previous
-checkpoint stays latest.
+Counterpart: ``repro/checkpoint/checkpoint.py`` (``CheckpointManager``:
+``ranks``, ``_defer_on``, ``save``, ``_commit``, ``_raise_if_failed``,
+``wait``, ``close``, ``_gc``, ``all_steps``, ``latest_step``,
+``restore``, ``_read_shards`` and ``meta``).  The byte-level format is
+``format.py``, the reference's own, so a checkpoint written by either
+package restores in the other.  A save splits the snapshot into one
+shard per locality (``format.assign_shards`` over ``ranks()``: the
+driver, and with a ``dgraph`` every alive worker); each shard is written
+by the locality that owns it, as a ``Lane.CHECKPOINT`` task placed there
+(``DistributedGraph.defer(locality=...)``), behind a ``_prepare_tmp``
+gate chained on the caller's ``deps`` (step retirement) and the previous
+save; the driver commits the manifest once every shard entry resolved.
+A save that cannot complete never commits its manifest, so the previous
+checkpoint stays latest.  A shard task whose owner dies re-spawns on a
+survivor or the driver (it is idempotent), and the manifest records the
+actual writer.  A restore reads the shards on the localities it has
+now, spread round-robin, which need not be the writers: a checkpoint
+written by N localities restores into M.
 
 The leaves are those of the JAX layout, in ``jax.tree.flatten``'s order
 (``bridge.host_leaves``): each list level of a port tree (its per-layer
@@ -27,12 +34,14 @@ package's restore parses it (both check ``n_leaves`` only).
 The save's host copies are owned copies taken on the caller before
 ``save`` returns: the port's optimizer updates the parameters and its
 state in place, so a write that read the live tensors would race the next
-step.  On CUDA the synchronous device-to-host copy is that copy.
+step.  On CUDA the synchronous device-to-host copy is that copy.  Only
+those numpy copies cross the wire to a shard's owner, and the bytes are
+counted (``DistributedGraph.ckpt_leaf_wire_bytes``).
 
-Multi-locality placement (``dgraph=``, ROADMAP item 12) and the SPMD
-addressable-shard save (``checkpoint/spmd.py``, item 13) are not ported:
-``dgraph`` raises ``NotImplementedError``.  Reading a sliced (SPMD)
-checkpoint works: ``format.assemble_leaf`` re-joins its segments.
+The SPMD addressable-shard save (``checkpoint/spmd.py``, the reference's
+``_save_spmd``) is ROADMAP item 13, with the port's SPMD mode.  Reading a
+sliced (SPMD) checkpoint works: ``format.assemble_leaf`` re-joins its
+segments.
 """
 from __future__ import annotations
 
@@ -69,49 +78,85 @@ class CheckpointManager:
     context manager either way.
 
     Args:
-        directory: checkpoint root; one ``step_XXXXXXXX`` dir per save.
+        directory: checkpoint root; one ``step_XXXXXXXX`` dir per save,
+            shared by every locality (one filesystem).
         keep: committed checkpoints retained (older ones are removed).
-        async_save: write as graph nodes (False writes on the caller).
+        async_save: write as graph nodes (False writes every shard on the
+            caller).
         graph: the ``FuturizedGraph`` the save nodes ride.
-        dgraph: the multi-locality graph of the reference; not ported.
+        dgraph: a ``distrib.DistributedGraph``: shard writes are placed
+            on their owning localities and restores spread their shard
+            reads over the current localities.  Its local graph must be
+            ``graph`` (futures cannot span graphs).
     Raises:
-        NotImplementedError: ``dgraph`` is given (ROADMAP item 12).
+        ValueError: ``graph`` and ``dgraph.graph`` differ.
     """
 
     def __init__(self, directory: str | Path, *, keep: int = 3,
                  async_save: bool = True,
                  graph: Optional[FuturizedGraph] = None,
                  dgraph: Optional[Any] = None):
-        if dgraph is not None:
-            raise NotImplementedError(
-                "CheckpointManager(dgraph=...): shards placed on worker "
-                "localities need the multi-locality runtime, ROADMAP "
-                "item 12")
         self.dir = Path(directory)
         self.dir.mkdir(parents=True, exist_ok=True)
         self.keep = keep
         self.async_save = async_save
-        self._own_graph = graph is None
-        self._graph = graph if graph is not None else FuturizedGraph(
-            max_workers=2, name="checkpoint")
+        self._dgraph = dgraph
+        if dgraph is not None:
+            if graph is not None and graph is not dgraph.graph:
+                raise ValueError(
+                    "graph and dgraph.graph must be the same "
+                    "FuturizedGraph - distributed shard futures cannot "
+                    "span graphs")
+            self._own_graph = False
+            self._graph = dgraph.graph
+        else:
+            self._own_graph = graph is None
+            self._graph = graph if graph is not None else FuturizedGraph(
+                max_workers=2, name="checkpoint")
         self._pending: Optional[PhyFuture] = None
+
+    # -- placement ------------------------------------------------------------
+    def ranks(self) -> list[int]:
+        """Locality ranks owning a shard of the next save: the driver and
+        every alive worker (``[0]`` without a distributed graph)."""
+        if self._dgraph is None:
+            return [0]
+        return [0] + self._dgraph.group.alive_workers()
+
+    def _defer_on(self, rank: int, fn, *args, name: str, **kwargs):
+        """One CHECKPOINT-lane task on ``rank`` (on this graph without a
+        distributed graph); on the driver if ``rank`` died between
+        ``ranks()`` and this call."""
+        if self._dgraph is None:
+            return self._graph.defer(fn, *args, lane=Lane.CHECKPOINT,
+                                     name=name, **kwargs)
+        try:
+            return self._dgraph.defer(fn, *args, lane=Lane.CHECKPOINT,
+                                      name=name, locality=rank,
+                                      idempotent=True, **kwargs)
+        except ValueError:            # rank died since ranks(): retarget
+            return self._dgraph.defer(fn, *args, lane=Lane.CHECKPOINT,
+                                      name=name, locality=0,
+                                      idempotent=True, **kwargs)
 
     # -- save -----------------------------------------------------------------
     def save(self, step: int, tree: Any, *, meta: Optional[dict] = None,
              deps: tuple = ()):
-        """Snapshot a port tree (``bridge.host_leaves``' layout).
+        """Snapshot a port tree (``bridge.host_leaves``' layout) as
+        locality-owned shards.
 
-        The host copies are taken now, on the caller; the write is a
-        ``Lane.CHECKPOINT`` node gated on ``deps`` (e.g. the step's
-        retirement) and on the previous save, and the manifest is
-        committed after it.  Fails fast: a previous async save that
-        finished with an error raises here.
+        The host copies are taken now, on the caller; the tree is split
+        into one shard per locality of ``ranks()``, each written by its
+        owner as a ``Lane.CHECKPOINT`` task gated on ``deps`` (e.g. the
+        step's retirement) and on the previous save, and the manifest is
+        committed after every shard resolved.  Fails fast: a previous
+        async save that finished with an error raises here.
 
         Args:
             step: step number the snapshot belongs to.
             tree: the tree to snapshot.
             meta: free-form metadata stored in the manifest.
-            deps: futures the shard write must wait for.
+            deps: futures the shard writes must wait for.
         Returns:
             The manifest-commit ``PhyFuture`` (resolving to the committed
             directory) when async; the committed ``Path`` when sync.
@@ -121,7 +166,7 @@ class CheckpointManager:
         self._raise_if_failed()
         names, host = host_leaves(tree)
         treedef_str = f"repro_torch.bridge.host_leaves: {names}"
-        shards = fmt.assign_shards(len(host), [0])     # the driver's
+        shards = fmt.assign_shards(len(host), self.ranks())
         tmp = self.dir / f".tmp_step_{step:08d}"
         final = self.dir / f"step_{step:08d}"
 
@@ -139,12 +184,16 @@ class CheckpointManager:
         gate = self._graph.defer(_prepare_tmp, str(tmp), *order,
                                  lane=Lane.CHECKPOINT,
                                  name=f"ckpt:gate:{step}")
-        entry_futs = [
-            self._graph.defer(fmt.save_shard, str(tmp), sid, list(idx),
-                              [host[i] for i in idx], gate,
-                              lane=Lane.CHECKPOINT,
-                              name=f"ckpt:shard{sid}:{step}")
-            for sid, _rank, idx in shards]
+        entry_futs = []
+        for sid, rank, idx in shards:
+            if rank != 0:
+                # the owner gets its leaf bytes in the spawn payload
+                self._dgraph.account_ckpt_leaf_bytes(
+                    sum(host[i].nbytes for i in idx))
+            entry_futs.append(
+                self._defer_on(rank, fmt.save_shard, str(tmp), sid,
+                               list(idx), [host[i] for i in idx], gate,
+                               name=f"ckpt:shard{sid}:{step}"))
         self._pending = self._graph.defer(
             self._commit, step, treedef_str, len(host), meta,
             str(tmp), str(final), *entry_futs,
@@ -225,8 +274,11 @@ class CheckpointManager:
         """Load a tree with the structure of ``like``: leaf ``i`` of the
         manifest becomes the ``like`` leaves it stacks (``bridge.
         place_leaves``), each in the checkpoint's dtype on the device of
-        the ``like`` leaf it replaces.  A sliced (SPMD) checkpoint's
-        segments are re-joined per leaf (``format.assemble_leaf``).
+        the ``like`` leaf it replaces.  The shards are read by the CURRENT
+        localities (spread round-robin over the driver and the alive
+        workers), which need not be the writers.  A sliced (SPMD)
+        checkpoint's segments are re-joined per leaf
+        (``format.assemble_leaf``).
 
         Args:
             like: tree giving the structure (and leaf count) expected.
@@ -266,8 +318,16 @@ class CheckpointManager:
         return step, place_leaves(like, arrays)
 
     def _read_shards(self, d: Path, entries: list, verify: bool) -> list:
-        return [fmt.read_shard_segments(str(d), e, verify=verify)
-                for e in entries]
+        ranks = self.ranks()
+        if len(ranks) == 1:
+            return [fmt.read_shard_segments(str(d), e, verify=verify)
+                    for e in entries]
+        futs = [self._defer_on(ranks[i % len(ranks)],
+                               fmt.read_shard_segments,
+                               str(d), e, verify=verify,
+                               name=f"ckpt:load:{e['file']}")
+                for i, e in enumerate(entries)]
+        return [f.result() for f in futs]
 
     @property
     def meta(self) -> dict:

@@ -5,8 +5,7 @@ Counterpart: ``repro/core/futures.py``, the same runtime on PyTorch.  JAX
 served it only for pytree walks, now ``torch.utils._pytree``, and for
 blocking on device values, now a device synchronize for CUDA tensors (a
 no-op for CPU tensors).  The phylint hooks (``snapshot``, the sanitizer's
-deadlock watchdog) and the elastic ``load`` probe come with ROADMAP item
-13.
+deadlock watchdog) come with ROADMAP item 13.
 
 Phylanx turns user code into a *futurized execution tree* scheduled by HPX:
 every operation becomes a task whose execution is constrained only by the
@@ -32,7 +31,7 @@ in flight.  This module is that runtime:
     prefetch beats checkpoint I/O, so background saves never delay the
     step-critical path.
   * ``promise`` creates an *externally resolved* node (HPX's promise):
-    an outside producer (the distributed layer, ROADMAP item 12) fulfils
+    an outside producer (the distributed layer, ``distrib/``) fulfils
     it when its result arrives, and the usual edge propagation takes over
     from there.
   * ``stats()`` reports tasks run / failed / cancelled, max in-flight, and
@@ -226,7 +225,7 @@ class PhyFuture:
     runtime itself only ever runs a node once every input has resolved.
 
     ``home`` is the locality rank a node's work was placed on by the
-    distributed layer (ROADMAP item 12); ``None`` for purely local
+    distributed layer (``distrib/``); ``None`` for purely local
     nodes.
     """
 
@@ -631,6 +630,16 @@ class FuturizedGraph:
                 self._stats.serve[k] = self._stats.serve.get(k, 0) + int(v)
                 if per is not None:
                     per[k] = per.get(k, 0) + int(v)
+
+    def load(self) -> dict[str, int]:
+        """Instantaneous queue pressure: ``{"ready": n, "running": n,
+        "unfinished": n}``.  An elastic locality polls this to decide it
+        is idle enough to post a ``steal_request`` (DESIGN.md §13)."""
+        with self._lock:
+            ready = sum(1 for _, _, n in self._heap
+                        if n._state is TaskState.READY)
+            return {"ready": ready, "running": self._in_flight,
+                    "unfinished": self._unfinished}
 
     def shutdown(self, wait: bool = True, cancel_pending: bool = False):
         """Drain (or cancel) outstanding work, then stop the workers.

@@ -1,12 +1,11 @@
 """AGAS-style object directory: global ids for locality-owned values.
 
 Counterpart: ``repro/distrib/agas.py`` (``RemoteRef``, ``_Forward``,
-``ObjectDirectory``).  The reference walks a value's leaves with JAX to
-size it (``_nbytes``); the port walks dicts, lists and tuples itself and
-sums the bytes of the numpy arrays and tensors it finds.  Elastic
-rebalance (``rebalance_plan``, ``ObjectDirectory.rebalance`` and its
-``agas_adopt`` handler) is ROADMAP item 13 and raises; the runtime
-sanitizer's hooks are left out with it.
+``ObjectDirectory``, ``rebalance_plan``).  The reference walks a value's
+leaves with JAX to size it (``_nbytes``); the port walks dicts, lists and
+tuples itself and sums the bytes of the numpy arrays and tensors it
+finds.  The runtime sanitizer's hooks (PHY105, PHY107) are left out with
+phylint (ROADMAP item 13).
 
 HPX's Active Global Address Space names every distributed object with a
 global id (gid) and resolves gids to owning localities, so tasks can be
@@ -14,8 +13,12 @@ co-located with their data instead of the data moving to the task
 (DESIGN.md §9):
 
   * a ``gid`` is ``(owner_rank, index)``: ownership is encoded in the id
-    itself, so resolution is a tuple read, never a lookup round-trip.  A
-    dead locality's values die with it (re-create, never migrate);
+    itself, so resolution is a tuple read, never a lookup round-trip.
+    Under *failure* a dead locality's values die with it (re-create,
+    never migrate), but elastic scale-out migrates: ``rebalance`` moves a
+    contiguous block of live objects to newcomer localities and leaves a
+    ``_Forward`` stub per moved gid, so a stale ``RemoteRef`` derefs
+    through one extra hop (DESIGN.md §13);
   * ``ObjectDirectory.put`` registers a value owned by this locality and
     returns a ``RemoteRef`` others can hold, ship, or deref;
   * ``fetch`` resolves a ref: a local dictionary hit when this locality
@@ -36,11 +39,9 @@ import itertools
 import threading
 from typing import Any, Optional
 
-from .messaging import Endpoint
+from .messaging import Endpoint, PeerLostError
 
-__all__ = ["ObjectDirectory", "RemoteRef", "tree_leaves"]
-
-_ELASTIC = "elastic rebalance (AGAS migration): ROADMAP item 13"
+__all__ = ["ObjectDirectory", "RemoteRef", "rebalance_plan", "tree_leaves"]
 
 
 def tree_leaves(tree, is_leaf=None) -> list:
@@ -115,11 +116,34 @@ class RemoteRef:
 
 @dataclasses.dataclass(frozen=True)
 class _Forward:
-    """Owner-side forwarding stub: the value lives at ``ref``'s locality
-    and a deref of the old gid chases the stub one hop.  Only elastic
-    rebalance (ROADMAP item 13) leaves such stubs; ``fetch`` follows any
-    it meets, as the reference's does."""
+    """Owner-side forwarding stub left behind by ``rebalance``: the value
+    migrated to ``ref``'s locality; a deref of the old gid chases the stub
+    one hop.  Stored in ``_store`` in place of the value, so a stale
+    ``RemoteRef`` held anywhere keeps resolving."""
     ref: RemoteRef
+
+
+def rebalance_plan(indices: list[int], owner: int,
+                   newcomers: list[int]) -> dict[int, list[int]]:
+    """Contiguous-block reassignment of one owner's live object indices
+    across ``[owner] + newcomers``: the ownership math of
+    ``checkpoint.format.assign_shards`` (blocks as even as possible, at
+    most one element of spread); the owner keeps the first block, each
+    newcomer adopts one of the rest.
+
+    Returns:
+        ``{newcomer_rank: [indices to migrate]}`` (the owner's block is
+        implied; empty blocks are omitted).
+    """
+    # imported here: the checkpoint package imports this one
+    from ..checkpoint.format import assign_shards
+
+    idxs = sorted(indices)
+    plan: dict[int, list[int]] = {}
+    for _sid, rank, block in assign_shards(len(idxs), [owner, *newcomers]):
+        if rank != owner and block:
+            plan[rank] = [idxs[i] for i in block]
+    return plan
 
 
 class ObjectDirectory:
@@ -148,6 +172,7 @@ class ObjectDirectory:
         if endpoint is not None:
             endpoint.register("agas_fetch", self._on_fetch)
             endpoint.register("agas_free", self._on_free)
+            endpoint.register("agas_adopt", self._on_adopt)
 
     def __len__(self) -> int:
         with self._lock:
@@ -171,7 +196,9 @@ class ObjectDirectory:
     # -- resolution ---------------------------------------------------------
     def fetch(self, ref: RemoteRef, *, timeout: float = 60.0) -> Any:
         """Deref: local dictionary hit when owned here, one
-        ``agas_fetch`` round-trip to the owner otherwise.
+        ``agas_fetch`` round-trip to the owner otherwise.  A gid whose
+        value migrated away (elastic rebalance) resolves through its
+        forwarding stub: one extra hop.
 
         Raises:
             KeyError: the gid was never registered or already freed.
@@ -217,6 +244,13 @@ class ObjectDirectory:
             if value is not None:
                 self.frees += 1
                 self._freed.add(idx)
+        if isinstance(value, _Forward) and self.endpoint is not None:
+            # freeing a migrated gid frees the migrated value too
+            try:
+                self.endpoint.post(value.ref.owner, "agas_free",
+                                   list(value.ref.gid))
+            except PeerLostError:
+                pass                  # new owner already gone; nothing held
 
     def audit(self) -> dict:
         """Pin/deref accounting for this locality's slice of the address
@@ -227,13 +261,51 @@ class ObjectDirectory:
                     "frees": self.frees, "migrated": self.migrated,
                     "forwarded_fetches": self.forwarded_fetches}
 
+    # -- elastic rebalance ---------------------------------------------------
     def rebalance(self, newcomers: list[int]) -> int:
-        """Elastic migration of this locality's objects onto newcomers.
+        """Migrate contiguous tail blocks of this locality's live objects
+        onto ``newcomers`` (``rebalance_plan``), leaving a forwarding stub
+        per moved gid so that stale refs keep resolving.  Values that
+        cannot cross the wire and gids freed mid-pass stay put: migration
+        is best-effort and never needed for correctness.
 
-        Raises:
-            NotImplementedError: always (ROADMAP item 13).
+        Returns:
+            Number of objects migrated away.
         """
-        raise NotImplementedError(f"ObjectDirectory.rebalance: {_ELASTIC}")
+        newcomers = [r for r in newcomers if r != self.rank]
+        if not newcomers or self.endpoint is None:
+            return 0
+        with self._lock:
+            live = [i for i, v in self._store.items()
+                    if not isinstance(v, _Forward)]
+        moved = 0
+        for rank, idxs in rebalance_plan(live, self.rank, newcomers).items():
+            for idx in idxs:
+                with self._lock:
+                    value = self._store.get(idx)
+                if value is None or isinstance(value, _Forward):
+                    continue          # freed or migrated concurrently
+                try:
+                    new_ref = self.endpoint.request(
+                        rank, "agas_adopt",
+                        {"value": value,
+                         "summary": f"migrated:{self.rank}:{idx}"})
+                except Exception:  # noqa: BLE001 - unshippable value or
+                    continue       # unreachable newcomer: keep it home
+                with self._lock:
+                    still_here = idx in self._store
+                    if still_here:
+                        self._store[idx] = _Forward(ref=new_ref)
+                        self.migrated += 1
+                        moved += 1
+                if not still_here:
+                    # freed while in flight: release the adopted copy
+                    try:
+                        self.endpoint.post(rank, "agas_free",
+                                           list(new_ref.gid))
+                    except PeerLostError:
+                        pass
+        return moved
 
     # -- handlers ------------------------------------------------------------
     def _on_fetch(self, src: int, gid) -> Any:
@@ -248,3 +320,8 @@ class ObjectDirectory:
     def _on_free(self, src: int, gid):
         _, idx = gid
         self._free_local(idx)
+
+    def _on_adopt(self, src: int, p: dict) -> RemoteRef:
+        """Rebalance target side: take ownership of a migrated value and
+        return its new ref (the old owner stores it in a stub)."""
+        return self.put(p["value"], summary=p.get("summary", ""))

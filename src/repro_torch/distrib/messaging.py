@@ -3,12 +3,19 @@
 Counterpart: ``repro/distrib/messaging.py``, copied: the module imports
 no JAX, and its frames, envelopes and payload pickles are the
 reference's.  The runtime sanitizer's hooks (PHY102, PHY104) are left
-out: the sanitizer is ROADMAP item 13.  Three changes, none on the wire:
+out: the sanitizer is ROADMAP item 13.  Five changes, none on the wire:
 ``close`` shuts its connections down before closing them, so that a peer
 sees an endpoint closed in a live process end as it sees a dead
 process's; a frame is read into one buffer of its size and sent as its
 length prefix and its body without joining them, so that the gradient
-ring's frames of a gigabyte or more cost no extra copies.
+ring's frames of a gigabyte or more cost no extra copies; a peer lost
+while the endpoint closes no longer raises in its reader thread (the
+handler pool is already shut down: nobody is left to tell); and a dialed
+connection drops the dial's timeout once it is connected.  The reference
+keeps the 30 s timeout on the socket, so a connection quiet for 30 s
+(a worker waiting out a long step between two gradient ring frames)
+ends its reader and fires peer-lost at the dialing end, which then
+closes: its peer's next send fails with a broken pipe.
 
 HPX moves work between localities with *parcels* - messages that carry an
 action (what to run) plus its arguments, and invoke that action at the
@@ -59,6 +66,7 @@ __all__ = ["Endpoint", "PeerLostError", "raw_request", "recv_frame",
            "send_frame"]
 
 _LEN = struct.Struct("!I")           # frame length prefix; frames < 4 GiB
+DIAL_TIMEOUT_S = 30.0                # a dial's connect, not its connection
 
 
 class PeerLostError(ConnectionError):
@@ -260,7 +268,10 @@ class Endpoint:
         # dial OUTSIDE the endpoint lock: a slow handshake must not
         # stall unrelated sends / acks / reader registration
         try:
-            sock = socket.create_connection(address, timeout=30)
+            sock = socket.create_connection(address, timeout=DIAL_TIMEOUT_S)
+            # the timeout bounds the connect alone: left on the socket, it
+            # would end the reader of a connection quiet for that long
+            sock.settimeout(None)
             sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
         except OSError:
             with self._dial_cond:
@@ -559,7 +570,10 @@ class Endpoint:
                     p.exc = PeerLostError(f"locality {rank} disconnected")
                     p.event.set()
             if cb is not None:
-                self._pool.submit(cb, rank)
+                try:
+                    self._pool.submit(cb, rank)
+                except RuntimeError:
+                    pass        # closed since the check: nobody to tell
 
     def close(self):
         """Stop accepting, close every connection, drain the handler pool.

@@ -2,14 +2,15 @@
 
 Counterpart: ``repro/distrib/runtime.py`` (``RemoteTaskError``,
 ``LocalityLostError``, ``Locality``, ``worker_main``, ``LocalityGroup``,
-``DistributedGraph``, ``_LocalCall``, ``_checksum_vote``).  The
-reference uses JAX only to walk argument trees and to stand up
-``jax.distributed`` for SPMD mode; the port walks trees itself
-(``agas.tree_leaves``/``tree_map``) and has no SPMD mode.  Elastic
-membership (``join_locality``, ``DistributedGraph.add_locality`` and
-``rebalance``, work stealing) and the SPMD handlers are ROADMAP item 13
-and raise ``NotImplementedError``; the runtime sanitizer's hooks are left
-out with them.
+``DistributedGraph``, ``_LocalCall``, ``_checksum_vote``, and the
+elastic membership of DESIGN.md §13: ``join_locality``,
+``DistributedGraph.add_locality`` and ``rebalance``, victim-lease work
+stealing).  The reference uses JAX only to walk argument trees and to
+stand up ``jax.distributed`` for SPMD mode; the port walks trees itself
+(``agas.tree_leaves``/``tree_map``) and has no SPMD mode: its handlers
+are ROADMAP item 13 and raise ``NotImplementedError``.  The runtime
+sanitizer's hooks (PHY106, the steal-lease fencing diagnostics) are left
+out with phylint, also item 13; the fencing itself is kept.
 
 A *locality* is one Python process with its own ``FuturizedGraph``; the
 driver (rank 0) holds a ``DistributedGraph`` whose ``defer`` mirrors the
@@ -30,6 +31,12 @@ local one but may place the task on any locality (DESIGN.md §9):
     in-flight idempotent tasks are re-spawned on a surviving locality (or
     run on the driver when none is left); tasks holding refs owned by the
     dead locality are poisoned with ``LocalityLostError`` instead.
+  * **Elastic membership.**  An elastic driver takes new localities
+    mid-run (``add_locality`` spawns one, ``join_locality`` dials in),
+    gossips each join and loss under a membership generation, migrates a
+    block of pinned objects to every newcomer (``rebalance``) and lets an
+    idle locality steal steerable tasks: a driver-local one before it
+    runs, or one leased by cancel from a loaded worker.
 
 Task functions must be picklable (module-level functions or bound methods
 of picklable objects); closures fail with a clear error at dispatch.  No
@@ -54,13 +61,12 @@ from typing import Any, Callable, Optional
 from ..core.futures import FuturizedGraph, Lane, PhyFuture
 from .agas import ObjectDirectory, RemoteRef, tree_leaves, tree_map
 from .collectives import RingAllReduce
-from .messaging import Endpoint, PeerLostError
+from .messaging import Endpoint, PeerLostError, raw_request
 
 __all__ = ["DistributedGraph", "Locality", "LocalityGroup",
            "LocalityLostError", "RemoteTaskError", "join_locality",
            "worker_main"]
 
-_ELASTIC = "elastic membership and work stealing: ROADMAP item 13"
 _SPMD = "SPMD mode: ROADMAP item 13"
 
 
@@ -105,22 +111,41 @@ class Locality:
         rank: this locality's rank (>= 1 for spawned workers).
         world: total locality count, driver included.
         max_workers: local graph worker threads.
+        elastic: run the idle-thief steal loop (DESIGN.md §13): the
+            locality posts ``steal_request`` to the driver whenever its
+            local graph drains.
     """
 
-    def __init__(self, rank: int, world: int, *, max_workers: int = 2):
+    def __init__(self, rank: int, world: int, *, max_workers: int = 2,
+                 elastic: bool = False):
         self.rank = rank
         self.world = world
+        self.elastic = elastic
+        # membership generation (gossiped by the driver, monotone): every
+        # steal carries it, so a steal planned under a stale peer table is
+        # fenced instead of double-executing
+        self.membership_gen = 0
         self.endpoint = Endpoint(rank)
         self.graph = FuturizedGraph(max_workers=max_workers,
                                     name=f"locality{rank}")
         self.directory = ObjectDirectory(rank, self.endpoint)
         self._tasks: dict[str, PhyFuture] = {}
+        # tids a steal_lease may claim (the spawn said so: round-robin
+        # placement, not pinned and not data-affinity)
+        self._stealable: set[str] = set()
+        # tids leased away mid-steal: their cancelled completion must not
+        # be reported (the driver re-spawns them from its own payload)
+        self._stolen: set[str] = set()
+        self._steal_interval = 0.05
         self._lock = threading.Lock()
         self._stop = threading.Event()
         ep = self.endpoint
         ep.register("spawn", self._on_spawn)
         ep.register("cancel", self._on_cancel)
         ep.register("peers", self._on_peers)
+        ep.register("peer_joined", self._on_peer_joined)
+        ep.register("steal_lease", self._on_steal_lease)
+        ep.register("agas_rebalance", self._on_rebalance)
         ep.register("shutdown", lambda src, p: self._stop.set())
         ep.register("ping", lambda src, p: p)
         ep.register("stats", self._on_stats)
@@ -137,12 +162,18 @@ class Locality:
     # -- handlers ------------------------------------------------------------
     def _on_spawn(self, src: int, p: dict):
         with self._lock:
+            self.membership_gen = max(self.membership_gen,
+                                      int(p.get("gen", 0)))
             if p["tid"] in self._tasks:
-                return              # a duplicate spawn of one task: drop it
+                # the handoff protocol never lands one tid here twice: a
+                # second spawn means a lease raced a re-spawn - drop it
+                return
         node = self.graph.defer(self._run, p["fn"], p["args"], p["kwargs"],
                                 lane=Lane(p["lane"]), name=p["name"])
         with self._lock:
             self._tasks[p["tid"]] = node
+            if p.get("steal"):
+                self._stealable.add(p["tid"])
         node.add_done_callback(
             lambda n, tid=p["tid"], pin=p["pin"], src=src:
             self._report(src, tid, pin, n))
@@ -153,7 +184,12 @@ class Locality:
 
     def _report(self, src: int, tid: str, pin: bool, node: PhyFuture):
         with self._lock:
+            stolen = tid in self._stolen
+            self._stolen.discard(tid)
             self._tasks.pop(tid, None)
+            self._stealable.discard(tid)
+        if stolen:
+            return   # leased away before it ran; the driver re-spawns it
         exc = node.exception()
         if exc is None:
             value = node.result()
@@ -188,9 +224,98 @@ class Locality:
             node.cancel()
 
     def _on_peers(self, src: int, p: dict):
+        # a bare {rank: addr} book, or {"book": ..., "gen": ..., "world": ...}
         book = p["book"] if "book" in p else p
         self.endpoint.address_book.update(
             {int(r): tuple(a) for r, a in book.items()})
+        if "gen" in p:
+            with self._lock:
+                self.membership_gen = max(self.membership_gen,
+                                          int(p["gen"]))
+                self.world = max(self.world, int(p.get("world", 0)))
+
+    def _on_peer_joined(self, src: int, p: dict):
+        """Membership gossip, generation-keyed: a stale or reordered join
+        or leave message can only move this locality's view forward,
+        never back."""
+        gen = int(p["gen"])
+        with self._lock:
+            if gen <= self.membership_gen:
+                return
+            self.membership_gen = gen
+        if p.get("event", "join") == "left":
+            self.endpoint.address_book.pop(int(p["rank"]), None)
+        else:
+            self.endpoint.address_book[int(p["rank"])] = tuple(p["addr"])
+            with self._lock:
+                self.world = max(self.world, int(p["rank"]) + 1)
+
+    def _on_steal_lease(self, src: int, p: dict) -> int:
+        """Driver-brokered steal, victim side: claim (cancel) one spawned
+        task that has not started - that cancel IS the lease - and
+        release it to the driver in a ``steal_handoff``, which re-spawns
+        it on the thief from its own payload.  A task whose cancel fails
+        is running or done: the lease moves a task that never started, or
+        nothing.  Only tasks the spawn marked stealable are candidates."""
+        with self._lock:
+            candidates = [(tid, node) for tid, node in self._tasks.items()
+                          if tid in self._stealable]
+        for tid, node in candidates:
+            with self._lock:
+                self._stolen.add(tid)    # before cancel: its completion
+            if not node.cancel():        # callback checks this set
+                with self._lock:
+                    self._stolen.discard(tid)
+                continue
+            with self._lock:
+                self._tasks.pop(tid, None)
+            try:
+                self.endpoint.post(0, "steal_handoff",
+                                   {"tid": tid, "thief": int(p["thief"]),
+                                    "victim": self.rank,
+                                    "gen": int(p.get("gen", -1))})
+            except PeerLostError:
+                pass          # driver gone: shutdown is imminent anyway
+            return 1
+        return 0
+
+    def _on_rebalance(self, src: int, p: dict) -> int:
+        """Driver-driven AGAS rebalance: refresh the peer table (the
+        newcomers must be dialable before values ship to them) and migrate
+        this locality's block (``ObjectDirectory.rebalance``)."""
+        self.endpoint.address_book.update(
+            {int(r): tuple(a) for r, a in p.get("book", {}).items()})
+        return self.directory.rebalance([int(r) for r in p["newcomers"]])
+
+    def _steal_loop(self):
+        """Idle-thief loop (elastic mode): when the local graph drains,
+        ask the driver for work.  The ack carries the membership
+        generation; a ``parked`` reply (the driver had nothing either)
+        backs off - the driver diverts the next steerable dispatch here
+        without being asked again."""
+        backoff_until = 0.0
+        while not self._stop.is_set():
+            self._stop.wait(self._steal_interval)
+            if self._stop.is_set():
+                return
+            if time.monotonic() < backoff_until:
+                continue
+            ld = self.graph.load()
+            if ld["ready"] or ld["running"]:
+                continue
+            try:
+                out = self.endpoint.request(
+                    0, "steal_request",
+                    {"thief": self.rank, "gen": self.membership_gen},
+                    timeout=30.0)
+            except (PeerLostError, TimeoutError, RuntimeError):
+                backoff_until = time.monotonic() + 1.0
+                continue
+            with self._lock:
+                self.membership_gen = max(self.membership_gen,
+                                          int(out.get("gen", 0)))
+            if not out.get("handed"):
+                backoff_until = time.monotonic() + 0.5
 
     def _on_stats(self, src: int, p) -> dict:
         out = self.graph.stats().to_json()
@@ -235,36 +360,79 @@ class Locality:
         messages until shut down (blocking)."""
         self.endpoint.address_book[0] = tuple(driver_addr)
         self.endpoint.connect(0, tuple(driver_addr))
-        self.endpoint.request(0, "hello",
-                              {"rank": self.rank,
-                               "addr": list(self.endpoint.address)})
+        out = self.endpoint.request(0, "hello",
+                                    {"rank": self.rank,
+                                     "addr": list(self.endpoint.address)})
+        with self._lock:                 # adopt the driver's view
+            self.membership_gen = max(self.membership_gen,
+                                      int(out.get("gen", 0)))
+            self.world = max(self.world, int(out.get("world", 0)))
+        if self.elastic:
+            threading.Thread(target=self._steal_loop, daemon=True,
+                             name=f"steal{self.rank}").start()
         self._stop.wait()
         self.graph.shutdown(wait=True, cancel_pending=True)
         self.endpoint.close()
+
+
+def _locality_env(rank: int):
+    """Export the locality's rank, so locality-owned work records its
+    executing rank (a checkpoint shard's entry names its writer), and
+    create the checkpoint directory the session forwards, so an
+    unwritable mount fails the locality at once, not at its first
+    shard write."""
+    os.environ["PHYRAX_LOCALITY_RANK"] = str(rank)
+    ckpt_dir = os.environ.get("PHYRAX_CKPT_DIR")
+    if ckpt_dir:
+        os.makedirs(ckpt_dir, exist_ok=True)
 
 
 def worker_main(rank: int, world: int, driver_addr,
                 env: Optional[dict] = None):
     """Spawned-process entry point: become locality ``rank`` and serve.
 
-    ``env`` entries are exported before any device work, and
-    ``PHYRAX_LOCALITY_RANK`` always is, so locality-owned work records its
-    executing rank.
+    ``env`` entries are exported before any device work (the session
+    forwards the checkpoint directory as ``PHYRAX_CKPT_DIR``, an elastic
+    driver ``PHYRAX_ELASTIC``); ``_locality_env`` then exports the rank.
     """
     for k, v in (env or {}).items():
         os.environ[k] = v
-    os.environ["PHYRAX_LOCALITY_RANK"] = str(rank)
-    Locality(rank, world).serve(tuple(driver_addr))
+    _locality_env(rank)
+    elastic = os.environ.get("PHYRAX_ELASTIC", "") not in ("", "0")
+    Locality(rank, world, elastic=elastic).serve(tuple(driver_addr))
 
 
 def join_locality(driver_addr: tuple[str, int], *,
                   max_workers: int = 2) -> int:
     """Dial-in elastic join (the ``--join host:port`` entry point).
 
+    Two-phase registration (DESIGN.md §13): a ``join`` request over a raw
+    one-shot socket returns the assigned rank, the current peer table,
+    the driver's config spec (environment to adopt) and the membership
+    generation; then this process becomes that ``Locality`` and serves -
+    its ``hello`` triggers gossip and AGAS rebalance on the driver.
+    Blocks until the driver shuts the run down.
+
+    Returns:
+        The rank this process served as.
     Raises:
-        NotImplementedError: always (ROADMAP item 13).
+        RuntimeError: the driver does not accept joins (not elastic).
+        ConnectionError: no driver is listening at ``driver_addr``.
     """
-    raise NotImplementedError(f"join_locality: {_ELASTIC}")
+    driver_addr = (driver_addr[0], int(driver_addr[1]))
+    grant = raw_request(driver_addr, "join", {})
+    spec = grant.get("spec") or {}
+    for k, v in (spec.get("env") or {}).items():
+        os.environ.setdefault(k, str(v))
+    rank = int(grant["rank"])
+    _locality_env(rank)
+    loc = Locality(rank, int(grant["world"]), max_workers=max_workers,
+                   elastic=True)
+    loc.membership_gen = int(grant.get("gen", 0))
+    loc.endpoint.address_book.update(
+        {int(r): tuple(a) for r, a in grant["book"].items()})
+    loc.serve(driver_addr)
+    return rank
 
 
 # ---------------------------------------------------------------------------
@@ -276,12 +444,15 @@ class LocalityGroup:
     Spawns ``n_workers`` processes (ranks 1..n) with the ``spawn`` start
     method, waits for each to report in, then broadcasts the address book
     so workers can reach each other (AGAS fetches, the gradient ring).
-    ``kill`` is the failure-drill seam.
+    ``kill`` is the failure-drill seam; ``add_worker`` and ``next_rank``
+    are the elastic join's.
 
     Args:
         n_workers: worker process count (world size is ``n_workers + 1``).
         worker_env: extra environment for the children.
         start_timeout: seconds to wait for all workers to report in.
+        port: driver listen port (0 = ephemeral); fixed by elastic runs
+            so that ``--join`` has a known address to dial.
     Raises:
         TimeoutError: a worker did not report in (every child is reaped
             first).
@@ -289,34 +460,27 @@ class LocalityGroup:
 
     def __init__(self, n_workers: int, *,
                  worker_env: Optional[dict] = None,
-                 start_timeout: float = 120.0):
-        self.endpoint = Endpoint(0)
+                 start_timeout: float = 120.0, port: int = 0):
+        self.endpoint = Endpoint(0, port=port)
         self.world = n_workers + 1
+        # membership generation: bumped on every join and loss, gossiped
+        # with the peer table, and carried by every steal (fencing)
+        self.gen = 0
+        self._worker_env = worker_env
+        self._start_timeout = start_timeout
         self._addrs: dict[int, tuple[str, int]] = {}
         self._alive: set[int] = set()
+        self._reserved: set[int] = set()   # ranks granted, not yet hello'd
+        self._started = False
+        # called (rank, addr) on every post-startup hello - the elastic
+        # join seam; DistributedGraph wires gossip + rebalance here
+        self.on_join: Optional[Callable[[int, tuple[str, int]], None]] = None
         self._cond = threading.Condition()
         self.endpoint.register("hello", self._on_hello)
-        ctx = mp.get_context("spawn")
         self.procs: dict[int, Any] = {}
         for rank in range(1, self.world):
-            p = ctx.Process(
-                target=worker_main, daemon=True,
-                args=(rank, self.world, tuple(self.endpoint.address),
-                      worker_env))
-            p.start()
-            self.procs[rank] = p
-        # a child that dies before its hello (an import error, a device
-        # it cannot open) fails the start at once, not at the timeout
-        deadline = time.monotonic() + start_timeout
-        with self._cond:
-            while len(self._addrs) < n_workers:
-                dead = [r for r, p in self.procs.items()
-                        if r not in self._addrs and p.exitcode is not None]
-                left = deadline - time.monotonic()
-                if dead or left <= 0:
-                    break
-                self._cond.wait(min(left, 0.5))
-            missing = sorted(set(self.procs) - set(self._addrs))
+            self._spawn(rank)
+        missing = self._wait_reported(list(self.procs), start_timeout)
         if missing:
             self.shutdown()
             raise TimeoutError(
@@ -329,16 +493,89 @@ class LocalityGroup:
             {r: tuple(a) for r, a in self._addrs.items()})
         for rank in sorted(self._addrs):
             self.endpoint.post(rank, "peers",
-                               {"book": book, "world": self.world})
+                               {"book": book, "gen": self.gen,
+                                "world": self.world})
+        self._started = True
+
+    def _spawn(self, rank: int):
+        p = mp.get_context("spawn").Process(
+            target=worker_main, daemon=True,
+            args=(rank, self.world, tuple(self.endpoint.address),
+                  self._worker_env))
+        p.start()
+        self.procs[rank] = p
+
+    def _wait_reported(self, ranks: list, timeout: float) -> list:
+        """Wait until every rank of ``ranks`` said hello; a child that
+        dies first (an import error, a device it cannot open) ends the
+        wait at once, not at the timeout.  Returns the ranks missing."""
+        deadline = time.monotonic() + timeout
+        with self._cond:
+            while True:
+                missing = [r for r in ranks if r not in self._addrs]
+                dead = [r for r in missing
+                        if self.procs[r].exitcode is not None]
+                left = deadline - time.monotonic()
+                if not missing or dead or left <= 0:
+                    return sorted(missing)
+                self._cond.wait(min(left, 0.5))
 
     def _on_hello(self, src: int, p: dict) -> dict:
         rank, addr = int(p["rank"]), tuple(p["addr"])
         with self._cond:
             self._addrs[rank] = addr
             self._alive.add(rank)
+            self._reserved.discard(rank)
+            self.world = max(self.world, rank + 1)
+            started = self._started
             self._cond.notify_all()
         self.endpoint.address_book[rank] = addr
-        return {"world": self.world}
+        if started and self.on_join is not None:
+            # a post-startup hello is an elastic join: gossip and
+            # rebalance BEFORE the ack, so the joiner's serve loop starts
+            # against a settled peer table
+            self.on_join(rank, addr)
+        return {"world": self.world, "gen": self.gen}
+
+    def addresses(self) -> dict[int, tuple[str, int]]:
+        """The current peer table: ``rank -> (host, port)`` for every
+        alive locality, driver included."""
+        with self._cond:
+            out = {r: self._addrs[r] for r in self._alive
+                   if r in self._addrs}
+        out[0] = tuple(self.endpoint.address)
+        return out
+
+    def next_rank(self) -> int:
+        """Reserve and return the next unused rank (an elastic join's
+        grant); the reservation clears when that rank's hello arrives."""
+        with self._cond:
+            used = set(self.procs) | set(self._addrs) | self._reserved
+            rank = max(used, default=0) + 1
+            self._reserved.add(rank)
+            self.world = max(self.world, rank + 1)
+            return rank
+
+    def add_worker(self, timeout: Optional[float] = None) -> int:
+        """Spawn one extra worker process into the running group and wait
+        for it to report in (its hello fires ``on_join``).
+
+        Returns:
+            The new worker's rank.
+        Raises:
+            TimeoutError: it did not report in.
+        """
+        rank = self.next_rank()
+        self._spawn(rank)
+        if self._wait_reported([rank], timeout if timeout is not None
+                               else self._start_timeout):
+            self.procs[rank].kill()
+            with self._cond:
+                self._reserved.discard(rank)
+            raise TimeoutError(
+                f"locality {rank} did not report in (exit code "
+                f"{self.procs[rank].exitcode})")
+        return rank
 
     # -- liveness ------------------------------------------------------------
     def alive_workers(self) -> list[int]:
@@ -352,10 +589,17 @@ class LocalityGroup:
 
     def kill(self, rank: int):
         """SIGKILL a worker - the locality-loss drill.  The death is
-        observed through its connection, same as a real crash."""
+        observed through its connection, same as a real crash.  A dial-in
+        joiner has no process handle here; it gets a shutdown post
+        instead (its process belongs to whoever ran ``--join``)."""
         proc = self.procs.get(rank)
         if proc is not None and proc.is_alive():
             proc.kill()
+        elif proc is None:
+            try:
+                self.endpoint.post(rank, "shutdown")
+            except PeerLostError:
+                pass
         self.note_lost(rank)
 
     def shutdown(self, join_timeout: float = 10.0):
@@ -386,6 +630,13 @@ class _TaskRecord:
     promise: PhyFuture
     payload: Optional[tuple] = None     # (args, kwargs) resolved at dispatch
     sent: bool = False
+    # elastic scheduling: a steerable record (no explicit locality, no
+    # data affinity) may be diverted to a parked idle thief at dispatch;
+    # local_node holds the driver-local execution node, so a steal can
+    # claim (cancel) it before it runs
+    steerable: bool = False
+    stolen: bool = False
+    local_node: Optional[PhyFuture] = None
     # serializes target/sent mutation between the dispatching thread and
     # a concurrent peer-loss respawn (no double-spawn on two localities)
     lock: threading.Lock = dataclasses.field(
@@ -407,28 +658,39 @@ class DistributedGraph:
             one is created - and shut down with this object - if None.
         worker_env: forwarded to ``LocalityGroup``.
         name: display name for an internally-created graph.
-        elastic: must be False (elastic membership is ROADMAP item 13).
-    Raises:
-        NotImplementedError: ``elastic=True``.
+        elastic: accept dial-in joins, spawn workers with the steal loop
+            armed, and route driver-local tasks through stealable records
+            (DESIGN.md §13).
+        elastic_port: fixed driver listen port for ``--join`` dialers
+            (0 = ephemeral; only used with ``elastic``).
+        join_spec: shipped as it is to dial-in joiners in the join grant;
+            its ``{"env": {...}}`` entries are exported by the joiner
+            before it serves (the checkpoint directory).
     """
 
     def __init__(self, localities: int = 1, *,
                  graph: Optional[FuturizedGraph] = None,
                  worker_env: Optional[dict] = None,
-                 name: str = "distrib", elastic: bool = False):
-        if elastic:
-            raise NotImplementedError(f"DistributedGraph(elastic=True): "
-                                      f"{_ELASTIC}")
+                 name: str = "distrib", elastic: bool = False,
+                 elastic_port: int = 0, join_spec: Optional[dict] = None):
         self.localities = localities
+        self.elastic = elastic
+        if elastic:
+            worker_env = dict(worker_env or {}, PHYRAX_ELASTIC="1")
         self._own_graph = graph is None
         self._graph = graph if graph is not None else FuturizedGraph(
             max_workers=4, name=name)
         self.group = LocalityGroup(max(0, localities - 1),
-                                   worker_env=worker_env)
+                                   worker_env=worker_env,
+                                   port=elastic_port if elastic else 0)
+        self.group.on_join = self._on_member_joined
         self.endpoint = self.group.endpoint
         self.directory = ObjectDirectory(0, self.endpoint)
         self.endpoint.register("task_done", self._on_task_done)
         self.endpoint.register("ddp_done", self._on_ddp_done)
+        self.endpoint.register("join", self._on_join_request)
+        self.endpoint.register("steal_request", self._on_steal_request)
+        self.endpoint.register("steal_handoff", self._on_steal_handoff)
         self.endpoint.on_peer_lost = self._on_peer_lost
         self._outstanding: dict[str, _TaskRecord] = {}
         self._by_future: dict[int, _TaskRecord] = {}   # id(promise) -> rec
@@ -437,6 +699,15 @@ class DistributedGraph:
         self._rr = {lane: itertools.count() for lane in Lane}
         self.dispatched = collections.Counter()        # per-locality sends
         self.respawned = 0
+        # elastic counters (the train report and the drills)
+        self.stolen_tasks = 0
+        self.migrated_objects = 0
+        self.joined = 0
+        self._join_spec = dict(join_spec or {})
+        self._hungry: collections.deque = collections.deque()
+        self._join_done: set[int] = set()
+        # checkpoint leaf bytes shipped to their owners in save payloads
+        self.ckpt_leaf_wire_bytes = 0
         # gradient payload bytes the DRIVER sent over the ring (its own
         # encodes + relays)
         self.grad_wire_bytes = 0
@@ -453,13 +724,24 @@ class DistributedGraph:
         return self._graph
 
     # -- placement -----------------------------------------------------------
-    def _pick(self, lane: Lane, argskw, locality: Optional[int]) -> int:
+    def alive_localities(self) -> list[int]:
+        """Live locality ranks, the driver (rank 0, always alive) first.
+        The serving gateway homes its replicas over this list and polls it
+        each round for a replica whose home died."""
+        return [0] + self.group.alive_workers()
+
+    def _pick(self, lane: Lane, argskw,
+              locality: Optional[int]) -> tuple[int, bool]:
+        """Choose a target rank; the second element says whether the
+        choice was *steerable* (round-robin, not pinned and not
+        affinity-driven): only steerable tasks may be diverted to a parked
+        idle thief or claimed by a steal."""
         alive = self.group.alive_workers()
         if locality is not None:
             if locality != 0 and locality not in alive:
                 raise ValueError(f"locality {locality} is not alive "
                                  f"(workers: {alive})")
-            return locality
+            return locality, False
         homes: collections.Counter = collections.Counter()
         for leaf in tree_leaves(argskw, is_leaf=lambda x: isinstance(
                 x, (PhyFuture, RemoteRef))):
@@ -470,10 +752,10 @@ class DistributedGraph:
                 if leaf.owner == 0 or leaf.owner in alive:
                     homes[leaf.owner] += 1
         if homes:
-            return homes.most_common(1)[0][0]
+            return homes.most_common(1)[0][0], False
         if not alive:
-            return 0
-        return alive[next(self._rr[lane]) % len(alive)]
+            return 0, True
+        return alive[next(self._rr[lane]) % len(alive)], True
 
     # -- task construction ----------------------------------------------------
     def defer(self, fn: Callable, *args, lane: Lane = Lane.COMPUTE,
@@ -507,8 +789,11 @@ class DistributedGraph:
         if self._closed:
             raise RuntimeError("distributed graph is shut down")
         name = name or getattr(fn, "__name__", "task")
-        target = self._pick(lane, (args, kwargs), locality)
-        if target == 0:
+        target, steerable = self._pick(lane, (args, kwargs), locality)
+        if target == 0 and not self.elastic:
+            # non-elastic fast path: a driver-local task skips the record;
+            # elastic mode keeps one, so an idle joiner can claim the task
+            # before it runs
             node = self._graph.defer(
                 _LocalCall(fn, self.directory, pin=pin, summary=name),
                 *args, lane=lane, name=f"{name}@L0", **kwargs)
@@ -520,7 +805,7 @@ class DistributedGraph:
         promise.home = target
         rec = _TaskRecord(tid=tid, name=name, lane=lane, fn=fn, pin=pin,
                           idempotent=idempotent, target=target,
-                          promise=promise)
+                          promise=promise, steerable=steerable)
         with self._lock:
             self._outstanding[tid] = rec
             self._by_future[id(promise)] = rec
@@ -615,6 +900,14 @@ class DistributedGraph:
         args, kwargs = rec.payload
         with rec.lock:   # one spawner at a time: dispatch vs peer-loss
             while True:
+                if rec.steerable:
+                    thief = self._pop_hungry()
+                    if thief is not None:
+                        # a parked idle locality (its steal_request found
+                        # nothing) takes the next steerable dispatch - work
+                        # stealing's push half
+                        rec.target = thief
+                        rec.stolen = True
                 if rec.target != 0 \
                         and rec.target not in self.group.alive_workers():
                     rec.target = self._fallback(rec.lane)
@@ -625,6 +918,8 @@ class DistributedGraph:
                     self.endpoint.post(rec.target, "spawn", {
                         "tid": rec.tid, "name": rec.name,
                         "lane": int(rec.lane), "pin": rec.pin,
+                        "gen": self.group.gen,
+                        "steal": bool(rec.steerable),
                         "fn": rec.fn, "args": args, "kwargs": kwargs})
                 except PeerLostError:
                     self.group.note_lost(rec.target)
@@ -638,7 +933,22 @@ class DistributedGraph:
                 rec.promise.home = rec.target
                 with self._lock:
                     self.dispatched[rec.target] += 1
+                    if rec.stolen:
+                        self.stolen_tasks += 1
+                        rec.stolen = False
                 return
+
+    def _pop_hungry(self) -> Optional[int]:
+        with self._lock:
+            if not self._hungry:
+                return None
+        alive = set(self.group.alive_workers())
+        with self._lock:
+            while self._hungry:
+                r = self._hungry.popleft()
+                if r in alive:
+                    return r
+        return None
 
     def _fallback(self, lane: Lane) -> int:
         alive = self.group.alive_workers()
@@ -653,12 +963,16 @@ class DistributedGraph:
                        summary=rec.name),
             *rec.payload[0], lane=rec.lane,
             name=f"{rec.name}@L0", **rec.payload[1])
+        rec.local_node = node
         rec.promise.home = 0
         with self._lock:
             self.dispatched[0] += 1
         node.add_done_callback(lambda n: self._transfer(rec, n))
 
     def _transfer(self, rec: _TaskRecord, node: PhyFuture):
+        with rec.lock:
+            if rec.local_node is not node:
+                return   # claimed by a steal mid-flight: it re-spawns
         exc = node.exception()
         if exc is None:
             self._finish(rec, value=node.result())   # _LocalCall pinned
@@ -674,28 +988,244 @@ class DistributedGraph:
             self._by_future.pop(id(rec.promise), None)
             self._lock.notify_all()
         if not present:
-            return   # settled concurrently (completion vs peer loss)
+            return   # settled concurrently (steal claim vs completion)
         if exc is None:
             rec.promise.set_result(value)
         else:
             rec.promise.set_exception(exc, cancelled=cancelled)
 
-    # -- elastic membership (ROADMAP item 13) ----------------------------------
-    def add_locality(self, timeout: float = 120.0) -> int:
-        """Spawn one extra worker locality into the running graph.
+    # -- elastic membership + work stealing (DESIGN.md §13) -------------------
+    def _on_join_request(self, src: int, p) -> dict:
+        """Dial-in registration, phase one: grant the joiner a rank and
+        ship the peer table, the config spec and the membership
+        generation.  The joiner then becomes that ``Locality`` and says
+        hello like a spawned worker: gossip and rebalance run there."""
+        if not self.elastic:
+            raise RuntimeError(
+                "this driver does not accept elastic joins; start it "
+                "with Plan(elastic=True) / --elastic")
+        rank = self.group.next_rank()
+        book = {r: list(a) for r, a in self.group.addresses().items()}
+        return {"rank": rank, "world": self.group.world,
+                "gen": self.group.gen, "book": book,
+                "spec": dict(self._join_spec)}
 
+    def _on_member_joined(self, rank: int, addr: tuple[str, int]):
+        """A locality reported in after startup (an ``add_locality``
+        spawn or a ``--join`` dial-in).  Runs on the hello handler BEFORE
+        the hello's ack: bump the membership generation, gossip the join
+        and the refreshed peer table, and rebalance pinned objects toward
+        the newcomer - so when its serve loop starts, every peer can reach
+        it and it already owns a block of the address space."""
+        ep = self.endpoint
+        ep.address_book[rank] = tuple(addr)
+        with self._lock:
+            self.group.gen += 1
+            gen = self.group.gen
+            self.joined += 1
+        book = {r: list(a) for r, a in self.group.addresses().items()}
+        payload = {"book": book, "gen": gen, "world": self.group.world}
+        for r in self.group.alive_workers():
+            try:
+                ep.post(r, "peers", payload)
+                if r != rank:
+                    ep.post(r, "peer_joined",
+                            {"rank": rank, "addr": list(addr), "gen": gen})
+            except PeerLostError:
+                continue
+        self.rebalance([rank])
+        with self._lock:
+            self._join_done.add(rank)
+            self._lock.notify_all()
+
+    def add_locality(self, timeout: float = 120.0) -> int:
+        """Spawn one extra worker locality into the *running* graph (the
+        driver-side twin of a ``--join`` dial-in) and block until its
+        membership gossip and AGAS rebalance completed.
+
+        Returns:
+            The new locality's rank.
         Raises:
-            NotImplementedError: always (ROADMAP item 13).
+            TimeoutError: the worker did not report in, or its join never
+                settled.
         """
-        raise NotImplementedError(f"add_locality: {_ELASTIC}")
+        if self._closed:
+            raise RuntimeError("distributed graph is shut down")
+        rank = self.group.add_worker(timeout=timeout)
+        with self._lock:
+            ok = self._lock.wait_for(lambda: rank in self._join_done,
+                                     timeout=timeout)
+        if not ok:
+            raise TimeoutError(
+                f"locality {rank} reported in but its membership gossip "
+                f"did not complete within {timeout}s")
+        return rank
 
     def rebalance(self, newcomers: list[int]) -> int:
-        """AGAS rebalance onto newcomer localities.
+        """AGAS rebalance pass: every pre-existing locality, the driver
+        included, migrates a contiguous block of its pinned objects onto
+        the ``newcomers``, leaving forwarding stubs so that stale
+        ``RemoteRef``s keep resolving one hop away.
 
-        Raises:
-            NotImplementedError: always (ROADMAP item 13).
+        Returns:
+            Objects migrated across the cluster (also summed into
+            ``stats()["migrated_objects"]``).
         """
-        raise NotImplementedError(f"rebalance: {_ELASTIC}")
+        newcomers = [int(r) for r in newcomers]
+        book = {r: list(a) for r, a in self.group.addresses().items()}
+        moved = self.directory.rebalance(newcomers)
+        for rank in self.group.alive_workers():
+            if rank in newcomers:
+                continue
+            try:
+                moved += int(self.endpoint.request(
+                    rank, "agas_rebalance",
+                    {"newcomers": newcomers, "book": book}, timeout=60.0))
+            except (PeerLostError, TimeoutError):
+                continue
+        with self._lock:
+            self.migrated_objects += moved
+        return moved
+
+    def _queue_depths(self) -> dict[int, int]:
+        """Outstanding-task depth per locality (the load table a steal's
+        ack carries); the driver's count covers unclaimed records."""
+        depths: collections.Counter = collections.Counter()
+        with self._lock:
+            for rec in self._outstanding.values():
+                if rec.sent:
+                    depths[rec.target] += 1
+                elif rec.local_node is not None:
+                    depths[0] += 1
+        return {int(r): int(n) for r, n in depths.items()}
+
+    def _pick_victim(self, thief: int) -> Optional[int]:
+        # steerable work only: pinned and affinity tasks are not
+        # claimable, so they must not make a locality look like a victim
+        with self._lock:
+            depths = collections.Counter(
+                rec.target for rec in self._outstanding.values()
+                if rec.sent and rec.steerable)
+        # a depth-1 victim's only task is likely already running: a lease
+        # there would find nothing claimable
+        loaded = [r for r in self.group.alive_workers()
+                  if r != thief and depths.get(r, 0) >= 2]
+        if not loaded:
+            return None
+        return max(loaded, key=lambda r: depths[r])
+
+    def _steal_local(self, thief: int) -> Optional[_TaskRecord]:
+        """Claim one driver-local steerable record whose execution node
+        has not started: detaching ``local_node`` then cancelling it IS
+        the lease - a node already running refuses the cancel and the
+        claim rolls back, so the task runs exactly once either way."""
+        with self._lock:
+            recs = [r for r in self._outstanding.values()
+                    if r.steerable and r.local_node is not None]
+        for rec in recs:
+            with rec.lock:
+                node = rec.local_node
+                if node is None or rec.promise.done():
+                    continue
+                try:
+                    # only ship what pickles: this payload never crossed a
+                    # wire on the local path
+                    pickle.dumps((rec.fn, rec.payload),
+                                 protocol=pickle.HIGHEST_PROTOCOL)
+                except Exception:  # noqa: BLE001 - unshippable: skip it
+                    continue
+                rec.local_node = None
+            if node.cancel():
+                with rec.lock:
+                    rec.sent = False
+                    rec.target = thief
+                    rec.stolen = True
+                return rec
+            with rec.lock:       # running or done: roll the claim back
+                if rec.local_node is None:
+                    rec.local_node = node
+            if node.done():
+                # completion raced the claim and its _transfer saw the
+                # node detached: settle now (idempotent)
+                self._transfer(rec, node)
+        return None
+
+    def _on_steal_request(self, src: int, p: dict) -> dict:
+        """A thief's entry into the steal protocol: hand over a ready
+        driver-local task, else lease one from the most-loaded worker,
+        else park the thief - the next steerable dispatch is diverted to
+        it.  The ack carries the queue depths and the membership
+        generation; a request under a stale generation is fenced (the
+        thief re-syncs from the ack and asks again)."""
+        thief = int(p.get("thief", src))
+        with self._lock:
+            gen = self.group.gen
+        depths = self._queue_depths()
+        if int(p.get("gen", -1)) != gen:
+            return {"handed": 0, "stale": True, "gen": gen,
+                    "depths": depths}
+        rec = self._steal_local(thief)
+        if rec is not None:
+            try:
+                self._send_spawn(rec)
+            except BaseException as e:  # noqa: BLE001 - never strand it
+                self._finish(rec, exc=e)
+                return {"handed": 0, "gen": gen, "depths": depths}
+            return {"handed": 1, "gen": gen, "depths": depths}
+        victim = self._pick_victim(thief)
+        if victim is not None:
+            try:
+                self.endpoint.post(victim, "steal_lease",
+                                   {"thief": thief, "gen": gen})
+                return {"handed": 0, "leased": victim, "gen": gen,
+                        "depths": depths}
+            except PeerLostError:
+                pass
+        with self._lock:
+            if thief not in self._hungry:
+                self._hungry.append(thief)
+        return {"handed": 0, "parked": True, "gen": gen, "depths": depths}
+
+    def _on_steal_handoff(self, src: int, p: dict):
+        """A victim released a leased task: re-own and re-spawn it - on
+        the thief when the lease is current, on any live locality
+        otherwise (the victim already cancelled its copy, so the task MUST
+        re-spawn exactly once from the driver's payload).  The record lock
+        serializes this with a concurrent peer-loss re-spawn; a lease for
+        a record that already moved or finished is refused - the
+        authoritative copy is elsewhere."""
+        tid, thief = p["tid"], int(p["thief"])
+        gen = int(p.get("gen", -1))
+        with self._lock:
+            rec = self._outstanding.get(tid)
+            cur = self.group.gen
+        if rec is None:
+            return          # settled while the handoff was in flight
+        with rec.lock:
+            if rec.promise.done():
+                return
+            if not rec.sent or rec.target != src:
+                return      # a peer-loss re-spawn won the race
+            rec.sent = False
+            if gen == cur and thief in self.group.alive_workers():
+                rec.target = thief
+                rec.stolen = True
+            else:
+                # a stale lease generation (membership changed mid-steal)
+                # or a dead thief: fence the steal but never strand the
+                # task - the victim's copy is already cancelled
+                rec.target = self._fallback(rec.lane)
+        try:
+            self._send_spawn(rec)
+        except BaseException as e:  # noqa: BLE001 - never strand it
+            self._finish(rec, exc=e)
+
+    # -- locality-owned checkpoints (DESIGN.md §10) ---------------------------
+    def account_ckpt_leaf_bytes(self, n: int):
+        """Record ``n`` checkpoint leaf bytes about to ship to their owner
+        in a shard write's payload."""
+        with self._lock:
+            self.ckpt_leaf_wire_bytes += int(n)
 
     def spmd_train(self, spec: dict):
         """The SPMD shadow train loop on every worker.
@@ -787,6 +1317,22 @@ class DistributedGraph:
 
     def _on_peer_lost(self, rank: int):
         self.group.note_lost(rank)
+        if self.elastic:
+            # membership changed: bump the generation and gossip the
+            # leave, so steals planned against the old peer table fence
+            # instead of landing on (or crediting) a ghost
+            with self._lock:
+                self.group.gen += 1
+                gen = self.group.gen
+                self._hungry = collections.deque(
+                    r for r in self._hungry if r != rank)
+            for r in self.group.alive_workers():
+                try:
+                    self.endpoint.post(r, "peer_joined",
+                                       {"rank": rank, "event": "left",
+                                        "gen": gen})
+                except PeerLostError:
+                    continue
         if self.grad_ring.active:
             # a DDP exchange is in flight: poison it everywhere - a
             # survivor with no direct connection to the dead rank never
@@ -826,7 +1372,7 @@ class DistributedGraph:
     # -- observability --------------------------------------------------------
     def stats(self) -> dict:
         """Driver-side counters: per-locality dispatch counts, re-spawns,
-        outstanding tasks, and wire bytes."""
+        outstanding tasks, wire bytes and the elastic counters."""
         with self._lock:
             return {"dispatched": dict(self.dispatched),
                     "respawned": self.respawned,
@@ -834,7 +1380,12 @@ class DistributedGraph:
                     "alive_workers": self.group.alive_workers(),
                     "bytes_sent": self.endpoint.bytes_sent,
                     "bytes_recv": self.endpoint.bytes_recv,
+                    "ckpt_leaf_wire_bytes": self.ckpt_leaf_wire_bytes,
                     "grad_wire_bytes": self.grad_wire_bytes,
+                    "stolen_tasks": self.stolen_tasks,
+                    "migrated_objects": self.migrated_objects,
+                    "joined_localities": self.joined,
+                    "membership_gen": self.group.gen,
                     "unhandled_posts": dict(
                         self.endpoint.unhandled_posts)}
 

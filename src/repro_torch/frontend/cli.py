@@ -4,10 +4,9 @@ Counterpart: ``repro/frontend/cli.py`` (``cli_args``, ``plan_from_args``,
 ``serve_flags``), cut to the flags that ``Session.serve``,
 ``Session.serve_stream`` and ``Session.train`` use, plus ``--device``.
 ``--localities``, ``--ddp``, ``--grad-codec``, ``--ddp-shards``,
-``--elastic`` and ``--replicas`` map onto the plan, which raises for
-elastic membership (ROADMAP item 13) and for replicas homed on worker
-localities (item 12); the mesh flags come with item 14.  ``launch/train.py``'s ``--ckpt`` maps
-onto ``Plan.ckpt_dir``.
+``--elastic``, ``--elastic-port`` and ``--replicas`` map onto the plan;
+the mesh flags come with ROADMAP item 14.  ``launch/train.py``'s
+``--ckpt`` maps onto ``Plan.ckpt_dir``.
 """
 from __future__ import annotations
 
@@ -23,7 +22,8 @@ __all__ = ["cli_args", "plan_from_args", "serve_flags", "train_flags"]
 def cli_args(ap: Optional[argparse.ArgumentParser] = None
              ) -> argparse.ArgumentParser:
     """Add the shared launcher flags (``--arch``, ``--tiny``/``--full``,
-    ``--device``, ``--seed``) to ``ap`` (created if None)."""
+    ``--device``, ``--seed``, ``--localities``) to ``ap`` (created if
+    None)."""
     if ap is None:
         ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-4b", choices=ARCH_IDS)
@@ -33,20 +33,22 @@ def cli_args(ap: Optional[argparse.ArgumentParser] = None
                     help="where the port runs; 'cpu' runs the kernels' "
                          "plain versions")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--localities", type=int, default=1,
+                    help="total process count, the driver included: "
+                         "worker localities build the batches (or with "
+                         "--ddp each trains its own shard block), write "
+                         "their checkpoint shards, and host the gateway's "
+                         "replicas")
     return ap
 
 
 def train_flags(ap: argparse.ArgumentParser) -> argparse.ArgumentParser:
-    """The shape, locality and fabric-DDP flags of ``launch/train.py``."""
+    """The shape, fabric-DDP and elastic flags of ``launch/train.py``."""
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--n-layers", dest="n_layers", type=int, default=None,
                     help="override the config's layer count (full qwen3-4b "
                          "trains 12 of its 36 layers on one 80 GB card)")
-    ap.add_argument("--localities", type=int, default=1,
-                    help="total process count, the driver included: "
-                         "worker localities build the batches, or with "
-                         "--ddp each trains its own shard block")
     ap.add_argument("--ddp", action="store_true",
                     help="fabric data parallelism: the batch is split into "
                          "--ddp-shards row shards and the summed gradient "
@@ -59,7 +61,14 @@ def train_flags(ap: argparse.ArgumentParser) -> argparse.ArgumentParser:
                     help="batch shard count for --ddp (0 = one per "
                          "locality); must divide --batch")
     ap.add_argument("--elastic", action="store_true",
-                    help="elastic membership (ROADMAP item 13)")
+                    help="elastic membership: accept --join dial-ins "
+                         "mid-run, arm the work-stealing loop on every "
+                         "locality, and rebalance AGAS objects toward "
+                         "newcomers (DESIGN.md §13)")
+    ap.add_argument("--elastic-port", dest="elastic_port", type=int,
+                    default=0,
+                    help="fixed driver listen port for --join dialers "
+                         "(0 = ephemeral; printed at start)")
     return ap
 
 
@@ -89,7 +98,8 @@ def serve_flags(ap: argparse.ArgumentParser) -> argparse.ArgumentParser:
                          "replica has its own decode chain and the router "
                          "assigns every request to exactly one (page "
                          "affinity first); streams are bit-identical to "
-                         "--replicas 1")
+                         "--replicas 1.  With --localities N the replicas "
+                         "are homed on the localities in turn")
     ap.add_argument("--kill-replica-at", dest="kill_replica_at",
                     default=None, metavar="IDX:ROUND",
                     help="replica-death drill for --serve-stream: mark "
@@ -110,7 +120,7 @@ def plan_from_args(args, **overrides) -> Plan:
     fields = {name: getattr(args, name)
               for name in ("arch", "tiny", "seed", "device", "batch", "seq",
                            "localities", "ddp", "grad_codec", "ddp_shards",
-                           "elastic", "replicas")
+                           "elastic", "elastic_port", "replicas")
               if hasattr(args, name)}
     if getattr(args, "ckpt", ""):
         fields["ckpt_dir"] = args.ckpt

@@ -40,9 +40,14 @@ index).  Epoch-scoped nodes are namespaced (``refill:R1:e{k}``...).  When
 a replica dies (``kill_replica`` or ``kill_replica_at_round``), its
 requests migrate to the survivors, whose refill adopts the dead replica's
 pages (a counted ``cross_replica_page_fetches``): prefill never reruns.
-Every replica lives in this process, on the session's device, as the
-reference's do without a distributed runtime; homing replicas on other
-localities waits for the multi-locality runtime (ROADMAP item 12).
+With a ``distributed`` runtime (``Session.serve_stream`` at
+``localities > 1``) each replica has a *home* locality: its requests'
+host-side ``stack`` prep runs there, placed by ``DistributedGraph``
+(homes cycle over the live workers, then the driver), and a replica whose
+home dies is retired and its requests migrate to the survivors, as in a
+drill.  The model itself runs on the session's device in this process,
+as the reference's runs on the driver's devices: only the prompt's numpy
+array crosses the wire.
 
 The port's decode step updates the cache it is given in place (it stands
 in for JAX's buffer donation), so the refill and decode nodes of a replica
@@ -291,9 +296,10 @@ class _Replica:
     chain.  ``ns`` prefixes epoch-scoped node names so N decode chains
     coexist in one graph (empty for a single-replica gateway)."""
 
-    def __init__(self, idx: int, slots: int, pool: PagePool,
+    def __init__(self, idx: int, home: int, slots: int, pool: PagePool,
                  namespaced: bool):
         self.idx = idx
+        self.home = home                    # host locality rank (0=driver)
         self.alive = True
         self.ns = f"R{idx}:" if namespaced else ""
         self.icache = InferenceCache(pool,
@@ -337,22 +343,32 @@ class Gateway:
     ``Session.serve_stream``, which supplies the batch-1 prefill step and
     the ``slots``-wide decode step, both shared across replicas (same
     shapes, same parameters: that is what keeps N-replica streams
-    bit-identical to one replica).  ``kill_replica_at_round`` is the
-    deterministic replica-death drill; ``kill_replica()`` is the live one.
+    bit-identical to one replica).  ``replicas``/``homes`` place each
+    replica's host-side request prep (``stack`` nodes) on its home
+    locality through ``distributed`` (a ``distrib.DistributedGraph``);
+    homes default to cycling over the live worker ranks, then the driver.
+    ``kill_replica_at_round`` is the deterministic replica-death drill;
+    ``kill_replica()`` is the live one.
+
+    Raises:
+        ValueError: ``gen_len`` or ``replicas`` below 1, or ``homes`` not
+            one locality per replica.
     """
 
-    def __init__(self, runtime: FuturizedGraph, *, prefill_step, decode_step,
-                 params, prompt_len: int, gen_len: int, slots: int,
-                 device, max_inflight: Optional[int] = None,
+    def __init__(self, runtime: FuturizedGraph, *, distributed=None,
+                 prefill_step, decode_step, params, prompt_len: int,
+                 gen_len: int, slots: int, device,
+                 max_inflight: Optional[int] = None,
                  deadline_ms: Optional[float] = None,
                  page_bytes: int = 1 << 16, lookahead: int = 2,
-                 replicas: int = 1,
+                 replicas: int = 1, homes: Optional[list[int]] = None,
                  kill_replica_at_round: Optional[tuple] = None):
         if gen_len < 1:
             raise ValueError("gen_len must be >= 1")
         if replicas < 1:
             raise ValueError(f"replicas must be >= 1, got {replicas}")
         self.runtime = runtime
+        self.distributed = distributed
         self.pre = prefill_step
         self.dec = decode_step
         self.params = params
@@ -365,8 +381,13 @@ class Gateway:
         self.default_deadline_s = (None if deadline_ms is None
                                    else deadline_ms / 1e3)
         self.lookahead = max(1, lookahead)
+        if homes is None:
+            homes = self._default_homes(replicas)
+        elif len(homes) != replicas:
+            raise ValueError(f"homes={homes} must name one locality per "
+                             f"replica ({replicas})")
         self.pool = PagePool(page_bytes)
-        self.replicas = [_Replica(i, slots, self.pool,
+        self.replicas = [_Replica(i, homes[i], slots, self.pool,
                                   namespaced=replicas > 1)
                          for i in range(replicas)]
         self.router = ReplicaRouter(replicas)
@@ -376,6 +397,17 @@ class Gateway:
         self._killed: set[int] = set()      # kill_replica() drill marks
         self._kill_at = (tuple(kill_replica_at_round)
                          if kill_replica_at_round is not None else None)
+
+    def _default_homes(self, replicas: int) -> list[int]:
+        """Cycle replicas over the live worker localities, then the
+        driver: with 2 replicas on 2 localities, killing the worker kills
+        exactly replica 0 and the driver-homed replica survives.  A single
+        replica (or a single-process run) stays on the driver."""
+        if self.distributed is None or replicas == 1:
+            return [0] * replicas
+        workers = [r for r in self.distributed.alive_localities() if r != 0]
+        ranks = workers + [0] if workers else [0]
+        return [ranks[i % len(ranks)] for i in range(replicas)]
 
     # -- request lifecycle ---------------------------------------------------
     def _register(self, h: RequestHandle):
@@ -388,12 +420,26 @@ class Gateway:
             self._handles[h.rid] = h
 
     def _admit(self, h: RequestHandle) -> _Replica:
-        """Route to a replica, then launch the request's prefill chain."""
+        """Route to a replica, then launch the request's prefill chain;
+        its ``stack`` prep is pinned to the replica's home locality."""
         h._replica = self.router.assign(h.rid)
         rep = self.replicas[h._replica]
-        h._stack = self.runtime.defer(_stack_request, h.prompt,
-                                      lane=Lane.PREFETCH,
-                                      name=f"stack:{h.rid}")
+        if self.distributed is not None:
+            pin = rep.home if len(self.replicas) > 1 else None
+            try:
+                h._stack = self.distributed.defer(
+                    _stack_request, h.prompt, lane=Lane.PREFETCH,
+                    name=f"stack:{h.rid}", locality=pin)
+            except ValueError:
+                # the home died between the liveness sweep and this defer:
+                # place anywhere; the next sweep migrates the replica
+                h._stack = self.distributed.defer(
+                    _stack_request, h.prompt, lane=Lane.PREFETCH,
+                    name=f"stack:{h.rid}")
+        else:
+            h._stack = self.runtime.defer(_stack_request, h.prompt,
+                                          lane=Lane.PREFETCH,
+                                          name=f"stack:{h.rid}")
         h._prefill = self.runtime.defer(self._prefill_fn(h), h._stack,
                                         name=f"prefill:{h.rid}")
         h.status = "admitted"
@@ -592,13 +638,20 @@ class Gateway:
         self._killed.add(idx)
 
     def _sweep_dead_replicas(self, round_: int):
-        """Retire replicas that a drill killed and migrate everything they
-        held to the survivors."""
+        """Retire replicas whose home locality died (or that a drill
+        killed) and migrate everything they held to the survivors."""
         if self._kill_at is not None and round_ >= self._kill_at[1]:
             self._killed.add(int(self._kill_at[0]))
             self._kill_at = None
+        alive_ranks = (set(self.distributed.alive_localities())
+                       if self.distributed is not None else None)
         for rep in self.replicas:
-            if rep.alive and rep.idx in self._killed:
+            if not rep.alive:
+                continue
+            home_lost = (alive_ranks is not None and rep.home != 0
+                         and rep.home not in alive_ranks
+                         and len(self.replicas) > 1)
+            if rep.idx in self._killed or home_lost:
                 self._retire_replica(rep)
 
     def _retire_replica(self, rep: _Replica):
@@ -626,8 +679,9 @@ class Gateway:
         rep.emit_hist.clear()
         self.runtime.record_serve(replica_deaths=1)
         if not self.router.live:
-            # last replica standing died: revive it so queued work is
-            # never stranded
+            # last replica standing died: revive it homed on the driver so
+            # queued work is never stranded
+            rep.home = 0
             rep.alive = True
             self._killed.discard(rep.idx)
             self.router.revive(rep.idx)

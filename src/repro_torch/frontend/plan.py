@@ -17,14 +17,17 @@ single-device loop and, with ``ddp=True``, fabric DDP with the ``fp32`` or
 ``distrib.DistributedGraph`` (``self.distributed``) of spawned worker
 processes, as the reference's does: ``train`` builds its batches and
 ``serve`` stacks its waves on worker localities while every device step
-stays here, and ``train`` with ``ddp=True`` runs the DDP loop on every
+stays here, checkpoint shards are written by the localities that own
+them, and ``train`` with ``ddp=True`` runs the DDP loop on every
 locality, each on its own device, summing gradients over the active
-message ring.  ``serve_stream`` runs the serving gateway with every model
-replica in this process.  What is still missing raises
-``NotImplementedError`` naming the ROADMAP item that brings it:
-checkpoints placed on their owning localities and gateway replicas homed
-on worker localities (item 12), SPMD and elastic membership (item 13),
-mesh axes and step resilience (item 14), named shapes (item 15).
+message ring.  ``serve_stream`` homes its gateway replicas on the
+localities (their requests' ``stack`` prep runs there; the model runs
+here).  ``Plan(elastic=True)`` takes new localities mid-run
+(``Session.add_locality``, or a ``--join`` dial-in at
+``Session.join_address``) that steal host tasks (DESIGN.md §13).  What is
+still missing raises ``NotImplementedError`` naming the ROADMAP item that
+brings it: SPMD mode (item 13), mesh axes and step resilience (item 14),
+named shapes (item 15).
 """
 from __future__ import annotations
 
@@ -48,9 +51,6 @@ from .futurize import Trace
 from .gateway import Gateway, RequestQueue
 
 __all__ = ["Plan", "Session"]
-
-_CKPT_PLACEMENT = ("checkpoints at localities > 1 without ddp (shards "
-                   "written by their owning localities, ROADMAP item 12)")
 
 
 def _stack_wave(wave):
@@ -113,15 +113,8 @@ class Plan:
 
 
 def _unsupported(plan: Plan) -> Optional[str]:
-    if plan.localities > 1 and plan.replicas > 1:
-        return ("gateway replicas homed on worker localities (ROADMAP "
-                "item 12)")
-    if plan.localities > 1 and plan.ckpt_dir and not plan.ddp:
-        return _CKPT_PLACEMENT
     if plan.spmd:
         return "spmd=True (SPMD mode, ROADMAP item 13)"
-    if plan.elastic:
-        return "elastic=True (elastic membership, ROADMAP item 13)"
     if plan.mesh != "local" or plan.data * plan.model * plan.pod != 1:
         return "mesh axes (mesh-parallel strategies, ROADMAP item 14)"
     if plan.shape is not None:
@@ -134,11 +127,18 @@ class Session:
     and one futurized runtime for every host-side task.  Use as a context
     manager (or call ``close()``) to run the shutdown barrier.
 
-    With ``plan.localities > 1`` the session also owns a
-    ``DistributedGraph`` (``self.distributed``): worker localities are
-    spawned here and host-side nodes are placed on them; ``close()``
+    With ``plan.localities > 1`` (or ``plan.elastic``) the session also
+    owns a ``DistributedGraph`` (``self.distributed``): worker localities
+    are spawned here and host-side nodes are placed on them; ``close()``
     drains the distributed graph before the local shutdown barrier, so
-    worker teardown never strands a promise."""
+    worker teardown never strands a promise.
+
+    Raises:
+        ValueError: a plan the reference refuses (``elastic`` with
+            ``spmd`` or ``ddp``, a bad DDP codec or shard count).
+        NotImplementedError: a plan the port does not run yet.
+        RuntimeError: a CUDA plan without a GPU.
+    """
 
     def __init__(self, plan: Plan, *, max_workers: int = 4):
         self.device = torch.device(plan.device)
@@ -150,6 +150,11 @@ class Session:
                 f"Plan(device={plan.device!r}) but torch.cuda.is_available() "
                 f"is False: the port runs on a CUDA device; pass "
                 f"device='cpu' to run its plain versions on the CPU")
+        if plan.elastic and (plan.spmd or plan.ddp):
+            raise ValueError(
+                "Plan(elastic=True) does not compose with spmd or ddp: "
+                "their collectives assume a fixed world; elastic "
+                "membership is for the task-parallel runtime")
         missing = _unsupported(plan)
         if missing is not None:
             raise NotImplementedError(f"the port does not run {missing} yet")
@@ -171,10 +176,18 @@ class Session:
         self.runtime = FuturizedGraph(max_workers=max_workers,
                                       name=f"session:{plan.arch}")
         self.distributed = None
-        if plan.localities > 1:
+        if plan.localities > 1 or plan.elastic:
+            # workers get the checkpoint dir at spawn (PHYRAX_CKPT_DIR):
+            # each locality creates it and writes its own shards there
+            env = {"PHYRAX_CKPT_DIR": plan.ckpt_dir} if plan.ckpt_dir \
+                else {}
+            # dial-in joiners adopt the environment spawned workers get
+            join_spec = {"env": dict(env)} if plan.elastic else None
             self.distributed = DistributedGraph(
                 localities=plan.localities, graph=self.runtime,
-                name=f"session:{plan.arch}")
+                worker_env=env or None, name=f"session:{plan.arch}",
+                elastic=plan.elastic, elastic_port=plan.elastic_port,
+                join_spec=join_spec)
         self._train_step = None
         self._serve_steps: dict[tuple, tuple] = {}
         self._closed = False
@@ -198,6 +211,31 @@ class Session:
     def stats(self):
         """The session runtime's ``RuntimeStats``."""
         return self.runtime.stats()
+
+    @property
+    def join_address(self) -> Optional[tuple]:
+        """``(host, port)`` a ``--join`` dialer should use, or None when
+        the session is not elastic."""
+        if self.distributed is None or not self.plan.elastic:
+            return None
+        return tuple(self.distributed.endpoint.address)
+
+    def add_locality(self, timeout: float = 120.0) -> int:
+        """Elastic scale-out (DESIGN.md §13): spawn one extra worker
+        locality into the *running* session and block until it is a full
+        member - peers gossiped, AGAS rebalanced, steal loop armed.  Safe
+        to call from a training hook; later steerable host tasks may be
+        stolen by (or diverted to) the newcomer.
+
+        Returns:
+            The new locality's rank.
+        Raises:
+            RuntimeError: the session was not compiled from an elastic
+                plan.
+        """
+        if self.distributed is None or not self.plan.elastic:
+            raise RuntimeError("add_locality needs Plan(elastic=True)")
+        return self.distributed.add_locality(timeout=timeout)
 
     def kill_locality(self, rank: Optional[int] = None) -> Optional[int]:
         """Failure drill: SIGKILL a worker locality (the highest-ranked
@@ -295,9 +333,12 @@ class Session:
                 every ``ckpt_every`` steps, each save's write gated on the
                 step's retirement, and once more after the last step
                 unless the cadence saved it; saves already requested land
-                even when the loop fails.  Without ``ddp`` at
-                ``localities > 1`` they raise (ROADMAP item 12).  The
-                onebit codec's
+                even when the loop fails.  With ``localities > 1`` each
+                save is split into locality-owned shards written by their
+                owners, and a resume reads the shards on the current
+                localities, whatever count wrote them (DESIGN.md §10);
+                with ``ddp`` the driver saves alone (the parameters are
+                replicated).  The onebit codec's
                 error-feedback residual is not part of the state, as in
                 the reference: a resumed onebit run restarts it at zero.
             ckpt_every: cadence in steps of the saves.
@@ -318,22 +359,19 @@ class Session:
             dict with ``final_loss``, per-log ``losses``, ``params``,
             ``step`` (the last step run, or the resumed step when nothing
             ran) and ``runtime_stats`` (with ``distributed`` when
-            ``localities > 1``).
+            ``localities > 1`` or elastic: dispatch counts, checkpoint
+            leaf wire bytes, and ``joined_localities``,
+            ``membership_gen``, ``stolen_tasks``, ``migrated_objects``).
         Raises:
             RuntimeError: the injected failure of ``fail_at_step``, or a
                 worker's failed DDP loop.
             LocalityLostError: a locality died mid-all-reduce (DDP).
-            NotImplementedError: checkpoints at ``localities > 1`` without
-                ``ddp`` (ROADMAP item 12).
         """
         self._check_train(resilience)
         plan, runtime, dev = self.plan, self.runtime, self.device
         dist = self.distributed
         if ckpt_dir is None:
             ckpt_dir = plan.ckpt_dir
-        if ckpt_dir and dist is not None and not plan.ddp:
-            raise NotImplementedError(f"the port does not run "
-                                      f"{_CKPT_PLACEMENT} yet")
         stream = self._stream(stream)
         engine = None
         if plan.ddp:
@@ -353,7 +391,9 @@ class Session:
                 return step.fn(params, opt, batch)
             prefetch = Prefetcher(stream, dev, graph=runtime, dgraph=dist)
         start = 0
-        ckpt = (CheckpointManager(ckpt_dir, keep=3, graph=runtime)
+        # DDP checkpoints are the driver's alone: its replica IS the state
+        ckpt = (CheckpointManager(ckpt_dir, keep=3, graph=runtime,
+                                  dgraph=None if plan.ddp else dist)
                 if ckpt_dir else None)
         if ckpt is not None and resume and ckpt.latest_step() is not None:
             start, (params, opt) = ckpt.restore((params, opt))
@@ -479,7 +519,13 @@ class Session:
             d = out["runtime_stats"]["distributed"]
             print(f"[train] localities: dispatched {d['dispatched']} "
                   f"respawned {d['respawned']} wire {d['bytes_sent']}B out "
-                  f"/ {d['bytes_recv']}B in")
+                  f"/ {d['bytes_recv']}B in ckpt-leaf-wire "
+                  f"{d['ckpt_leaf_wire_bytes']}B")
+            if plan.elastic:
+                print(f"[train] elastic: joined {d['joined_localities']} "
+                      f"stolen {d['stolen_tasks']} migrated "
+                      f"{d['migrated_objects']} objects (membership gen "
+                      f"{d['membership_gen']})")
         return out
 
     # -- serve --------------------------------------------------------------
@@ -653,6 +699,9 @@ class Session:
         ``request:{rid}`` promise); prefill runs once at admission and its
         decode state parks in ``core.paging.InferenceCache`` pages on the
         host until a slot frees, so slot refill never recomputes prefill.
+        At ``localities > 1`` each replica is homed on a locality (its
+        requests' ``stack`` prep runs there) and a replica whose home dies
+        is retired, its requests absorbed by the survivors.
 
         Args:
             requests: synthetic request count when neither ``trace`` nor
@@ -684,17 +733,12 @@ class Session:
             traced ``nodes``/``trace``, ``cache``, ``rounds``, ``epochs``,
             ``replicas``/``replica_assignments`` and ``runtime_stats``
             (including the ``serve``/``serve_replicas`` counters and
-            ``request_latency_hist``).
+            ``request_latency_hist``, and ``distributed`` at
+            ``localities > 1``).
         Raises:
             ValueError: an encoder-decoder architecture.
-            NotImplementedError: ``plan.localities > 1`` (replicas homed
-                on worker localities, ROADMAP item 12).
         """
         plan, runtime, cfg, dev = self.plan, self.runtime, self.cfg, self.device
-        if self.distributed is not None:
-            raise NotImplementedError(
-                "serve_stream at localities > 1: gateway replicas homed on "
-                "worker localities are ROADMAP item 12")
         n_replicas = plan.replicas if replicas is None else int(replicas)
         if cfg.family == "encdec":
             raise ValueError("serve_stream does not support encdec "
@@ -723,9 +767,10 @@ class Session:
         else:
             q = queue
 
-        gw = Gateway(runtime, prefill_step=pre1, decode_step=dec,
-                     params=params, prompt_len=prompt_len, gen_len=gen_len,
-                     slots=slots, device=dev, max_inflight=max_inflight,
+        gw = Gateway(runtime, distributed=self.distributed,
+                     prefill_step=pre1, decode_step=dec, params=params,
+                     prompt_len=prompt_len, gen_len=gen_len, slots=slots,
+                     device=dev, max_inflight=max_inflight,
                      deadline_ms=deadline_ms, page_bytes=page_bytes,
                      replicas=n_replicas,
                      kill_replica_at_round=kill_replica_at_round)
@@ -747,7 +792,7 @@ class Session:
             "padded_tokens": st.serve.get("padded_slot_tokens", 0),
             "tokens_per_s": tokens / dt if dt > 0 else 0.0,
             "nodes": tracer.names(), "trace": tracer.signature(),
-            "runtime_stats": st.to_json(),
+            "runtime_stats": self._stats_json(st),
         })
         if verbose:
             rep_note = (f" across {n_replicas} replicas"

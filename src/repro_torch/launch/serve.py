@@ -12,8 +12,9 @@ entry point:
   laggards (``--deadline-ms``), and prefill state parks in the paged
   inference cache so retire-and-refill loads pages instead of
   recomputing.  ``--replicas N`` fans the gateway out over N model
-  replicas in this process, and ``--kill-replica-at IDX:ROUND`` runs the
-  replica-death drill.
+  replicas, homed on the ``--localities`` in turn (each replica's request
+  prep runs on its home; the model runs here), and ``--kill-replica-at
+  IDX:ROUND`` runs the replica-death drill.
 
 ``--stats-out FILE`` writes the run summary as JSON.  Runs on the GPU
 unless ``--device cpu`` is given.
@@ -27,6 +28,9 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
       --serve-stream --replicas 2 --kill-replica-at 0:2 --requests 5 \
       --slots 2 --prompt-len 16 --gen-len 4 --stats-out serve_stats.json
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --serve-stream --localities 2 --replicas 2 --requests 8 --slots 2 \
+      --prompt-len 16 --gen-len 4
 """
 from __future__ import annotations
 

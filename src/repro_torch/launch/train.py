@@ -4,12 +4,19 @@ Counterpart: ``repro/launch/train.py``, cut to the flags the port can
 run: ``--steps``, ``--strategy``, ``--grad-accum``, ``--remat``,
 ``--ckpt``, ``--ckpt-every``, ``--resume``, ``--log-every``,
 ``--fail-at-step``, ``--stats-out``, ``--localities`` and
-``--kill-locality-at-step`` (the multi-locality runtime) and fabric DDP
-(``--ddp``, ``--grad-codec``, ``--ddp-shards``), plus ``--device`` and
-``--n-layers``.  ``--join`` and ``--elastic`` (elastic membership,
-ROADMAP item 13) raise, and so does ``--ckpt`` at ``--localities`` above
-1 without ``--ddp`` (item 12).  Runs on the GPU unless ``--device cpu``
-is given; every locality runs on that device.
+``--kill-locality-at-step`` (the multi-locality runtime: with ``--ckpt``
+each locality writes its own shards, and ``--resume`` reads them at any
+locality count), fabric DDP (``--ddp``, ``--grad-codec``,
+``--ddp-shards``) and elastic membership (DESIGN.md §13: ``--elastic``
+and ``--elastic-port`` start a driver that prints its join address and
+takes new localities mid-run; ``--join HOST:PORT`` makes this invocation
+a dial-in locality of that driver instead of a training run, which
+steals host tasks when idle and exits when the driver's run ends;
+``--expect-joins N`` holds the driver's first step until N dial-ins
+joined, and ``--stall-at-step K`` sleeps 250 ms on the driver at step K,
+the deterministic steal window), plus ``--device`` and ``--n-layers``.
+Runs on the GPU unless ``--device cpu`` is given; every locality runs on
+that device.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
@@ -31,6 +38,18 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --steps 12 --batch 4 --seq 32 --localities 2 --ddp \\
       --grad-codec onebit --ddp-shards 2 --log-every 4
+  # owner-written checkpoint shards at two localities, resumed at one
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --steps 8 --batch 4 --seq 32 --localities 2 --ckpt /tmp/ck2 \\
+      --ckpt-every 4 --fail-at-step 6
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --steps 8 --batch 4 --seq 32 --ckpt /tmp/ck2 --ckpt-every 4 --resume
+  # an elastic driver held for one dial-in, and the dial-in (two shells)
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --steps 12 --batch 4 --seq 32 --elastic --elastic-port 29517 \\
+      --expect-joins 1 --stall-at-step 6
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --join 127.0.0.1:29517
   PYTHONPATH=src python -m repro_torch.launch.train --full --n-layers 12 \\
       --steps 6 --batch 8 --seq 512 --log-every 1
   PYTHONPATH=src python -m repro_torch.launch.train --full \\
@@ -40,27 +59,74 @@ from __future__ import annotations
 
 import argparse
 import json
+import time
 
 from repro_torch.core.steps import Strategy
+from repro_torch.distrib import join_locality
 from repro_torch.frontend import cli_args, plan_from_args, train_flags
+
+JOIN_WAIT_S = 180.0
+
+
+class StallHook:
+    """A driver-side 250 ms stall at one step: a joined locality drains
+    its queue, goes hungry, and the next steerable prefetch build is
+    diverted to it - the deterministic steal window (DESIGN.md §13)."""
+
+    def __init__(self, at: int):
+        self.at = at
+
+    def on_step(self, it, metrics):
+        if it == self.at:
+            time.sleep(0.25)
+
+
+def wait_for_joins(session, n: int, timeout: float = JOIN_WAIT_S):
+    """Hold until ``n`` dial-ins are members: a ``--join`` dialer pays
+    its own interpreter and import start-up, and a fast driver would
+    finish before the dial lands.
+
+    Raises:
+        TimeoutError: fewer than ``n`` joined within ``timeout``.
+    """
+    deadline = time.monotonic() + timeout
+    while session.distributed.stats()["joined_localities"] < n:
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"expected {n} --join dial-in(s) within "
+                               f"{timeout}s")
+        time.sleep(0.1)
 
 
 def run(args) -> dict:
     if getattr(args, "join", None):
-        raise NotImplementedError(
-            "--join dials into a running elastic driver: elastic membership "
-            "is ROADMAP item 13")
+        # this process is a dial-in locality, not a training driver
+        host, _, port = args.join.rpartition(":")
+        rank = join_locality((host or "127.0.0.1", int(port)))
+        print(f"[train] served as elastic locality {rank}; driver run "
+              f"ended", flush=True)
+        return {"joined_as": rank}
     strategy = Strategy(name=args.strategy, grad_accum=args.grad_accum)
     plan = plan_from_args(args, strategy=strategy, remat=args.remat)
     with plan.compile() as session:
+        if session.join_address is not None:
+            host, port = session.join_address
+            print(f"[train] elastic: accepting --join {host}:{port}",
+                  flush=True)
+        if args.expect_joins:
+            wait_for_joins(session, args.expect_joins)
+            print(f"[train] elastic: {args.expect_joins} dial-in(s) "
+                  f"joined; training", flush=True)
+        hooks = (StallHook(args.stall_at_step)
+                 if args.stall_at_step is not None else None)
         out = session.train(
-            steps=args.steps, ckpt_dir=args.ckpt,
+            steps=args.steps, hooks=hooks, ckpt_dir=args.ckpt,
             ckpt_every=args.ckpt_every, log_every=args.log_every,
             resume=args.resume, fail_at_step=args.fail_at_step,
             kill_locality_at_step=args.kill_locality_at_step)
     if getattr(args, "stats_out", None):
         payload = {"final_loss": out["final_loss"], "losses": out["losses"],
-                   "step": out["step"]}
+                   "step": out["step"],
+                   "distributed": out["runtime_stats"].get("distributed")}
         for k in ("grad_wire_bytes", "codec_bytes"):
             if k in out:
                 payload[k] = out[k]
@@ -92,12 +158,23 @@ def parser() -> argparse.ArgumentParser:
                     help="drill: SIGKILL a worker locality at this step "
                          "(plain training re-spawns its tasks; DDP aborts)")
     ap.add_argument("--join", default=None, metavar="HOST:PORT",
-                    help="join a running --elastic driver (ROADMAP item 13: "
-                         "raises)")
+                    help="join a running --elastic driver as an extra "
+                         "locality instead of training (all other flags "
+                         "are ignored; the driver ships its config)")
+    ap.add_argument("--expect-joins", dest="expect_joins", type=int,
+                    default=0, metavar="N",
+                    help="drill (needs --elastic): wait for N --join "
+                         "dial-ins before the first step, so the joiner "
+                         "is a member for the whole run")
+    ap.add_argument("--stall-at-step", dest="stall_at_step", type=int,
+                    default=None, metavar="K",
+                    help="drill: sleep 250 ms on the driver at step K - "
+                         "the deterministic work-steal window")
     ap.add_argument("--stats-out", dest="stats_out", default=None,
                     metavar="FILE",
-                    help="write a JSON summary (losses, and the DDP byte "
-                         "counts) here after training")
+                    help="write a JSON summary (losses, the distributed "
+                         "counters and the DDP byte counts) here after "
+                         "training")
     return ap
 
 

@@ -7,6 +7,7 @@ the same error in both."""
 import json
 import os
 import shutil
+import types
 
 import jax
 import jax.numpy as jnp
@@ -144,9 +145,17 @@ def test_bf16_leaf_is_refused_by_name(tmp_path):
         cm.save(1, {"x": {"half": torch.ones(2, dtype=torch.bfloat16)}})
 
 
-def test_multi_locality_placement_names_its_roadmap_item(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 12"):
-        CheckpointManager(tmp_path, dgraph=object())
+def test_dgraph_on_another_graph_is_refused(tmp_path):
+    """Shard futures cannot span graphs: a ``dgraph`` whose local graph
+    is not ``graph`` is refused, as in the reference."""
+    g, other = (FuturizedGraph(max_workers=1, name=n) for n in "ab")
+    try:
+        with pytest.raises(ValueError, match="same FuturizedGraph"):
+            CheckpointManager(tmp_path, graph=g,
+                              dgraph=types.SimpleNamespace(graph=other))
+    finally:
+        g.shutdown(wait=True)
+        other.shutdown(wait=True)
 
 
 def test_host_leaves_stack_list_levels_in_jax_order():

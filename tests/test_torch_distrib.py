@@ -277,9 +277,10 @@ def test_session_train_two_localities_matches_single_even_killed():
     np.testing.assert_allclose(out["losses"], jref["losses"], rtol=1e-5)
 
 
-def test_checkpoints_and_gateway_across_localities_name_item_12(tmp_path):
-    with _plan(localities=2).compile() as s:
-        with pytest.raises(NotImplementedError, match="item 12"):
-            s.train(steps=1, ckpt_dir=str(tmp_path), verbose=False)
-        with pytest.raises(NotImplementedError, match="item 12"):
-            s.serve_stream(requests=1, verbose=False)
+def test_spmd_across_localities_names_item_13(cluster):
+    """What the multi-locality runtime still refuses: SPMD mode, its
+    shadow train loop and the plan that asks for it (ROADMAP item 13)."""
+    with pytest.raises(NotImplementedError, match="item 13"):
+        cluster.spmd_train({})
+    with pytest.raises(NotImplementedError, match="item 13"):
+        _plan(localities=2, spmd=True).compile()

@@ -23,6 +23,7 @@ from repro_torch.core.resilience import tree_checksum
 from repro_torch.distrib import (DistributedGraph, ObjectDirectory,
                                  PeerLostError, RemoteRef, join_locality,
                                  raw_request)
+from repro_torch.distrib import messaging
 from repro_torch.distrib.agas import tree_leaves, tree_map
 from repro_torch.distrib.messaging import Endpoint
 
@@ -98,6 +99,27 @@ def test_request_times_out_on_a_silent_handler(pair):
         a.request(1, "stall", timeout=0.2)
 
 
+def test_a_dialed_connection_outlives_the_dial_timeout(pair, monkeypatch):
+    """The dial's timeout bounds the connect alone: a dialed connection
+    that stays quiet for longer (a worker waiting out the driver's long
+    step between two ring frames) is not taken for a lost peer.  Before
+    the fix the dialer's reader timed out, dropped the connection and
+    fired peer-lost: the 2-locality fp32 DDP worker died in step 2 of a
+    run on the card with a broken pipe and no traceback."""
+    monkeypatch.setattr(messaging, "DIAL_TIMEOUT_S", 0.2)
+    a, b = pair
+    lost = []
+    a.on_peer_lost = lost.append
+    b.register("echo", lambda src, p: p)
+    a.register("echo", lambda src, p: p)
+    a.connect(1, b.address)                   # a dials: its socket
+    assert _until(lambda: b.peers() == [0])
+    time.sleep(1.0)                           # quiet for 5 dial timeouts
+    assert lost == [] and a.peers() == [1]
+    assert a.request(1, "echo", 3, timeout=WAIT) == 3
+    assert b.request(0, "echo", 4, timeout=WAIT) == 4
+
+
 def test_raw_request_one_shot_socket(pair):
     _, b = pair
     b.register("join", lambda src, p: {"src": src, "p": p})
@@ -154,13 +176,17 @@ def test_agas_remote_fetch_and_free_over_the_wire(pair):
         da.fetch(ref, timeout=WAIT)
 
 
-def test_elastic_parts_name_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 13"):
-        ObjectDirectory(0).rebalance([1])
-    with pytest.raises(NotImplementedError, match="item 13"):
-        join_locality(("127.0.0.1", 1))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        DistributedGraph(localities=1, elastic=True)
+def test_join_refused_by_a_static_driver_and_rebalance_without_a_wire():
+    """A driver not started elastic refuses a dial-in join with the
+    reference's error; a directory with no endpoint migrates nothing."""
+    assert ObjectDirectory(0).rebalance([1]) == 0
+    dg = DistributedGraph(localities=1, name="static")
+    try:
+        with pytest.raises(RuntimeError, match="does not accept elastic"):
+            join_locality(tuple(dg.endpoint.address))
+        assert dg.stats()["joined_localities"] == 0
+    finally:
+        dg.shutdown()
 
 
 # -- promise nodes (the cross-wire resolution primitive) ---------------------

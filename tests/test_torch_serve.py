@@ -309,12 +309,19 @@ def test_plan_defaults_to_cuda_and_raises_without_it(monkeypatch):
 
 
 @pytest.mark.parametrize("field, item", [
-    # localities run, but not checkpoints placed on their owners or
-    # gateway replicas homed on worker localities
-    (dict(localities=2, ckpt_dir="unwritten"), "item 12"),
-    (dict(ddp=True, localities=2, replicas=2), "item 12"),
-    (dict(spmd=True), "item 13"), (dict(elastic=True), "item 13"),
-    (dict(replicas=2, localities=2), "item 12"), (dict(data=2), "item 14")])
+    # localities run, with elastic membership, but not SPMD mode, mesh
+    # axes or named shapes
+    (dict(spmd=True), "item 13"), (dict(spmd=True, localities=2), "item 13"),
+    (dict(data=2), "item 14"), (dict(model=2), "item 14"),
+    (dict(mesh="single"), "item 14"), (dict(shape="train_4k"), "item 15")])
 def test_plans_beyond_one_device_name_their_roadmap_item(field, item):
     with pytest.raises(NotImplementedError, match=item):
         Plan(device="cpu", **field).compile()
+
+
+@pytest.mark.parametrize("field", [dict(ddp=True), dict(spmd=True)])
+def test_elastic_with_a_fixed_world_mode_is_a_value_error(field):
+    """The reference's validation: elastic membership is for the
+    task-parallel runtime, not for DDP's or SPMD's fixed world."""
+    with pytest.raises(ValueError, match="does not compose"):
+        Plan(device="cpu", elastic=True, **field).compile()

@@ -376,10 +376,6 @@ def test_launch_train_run_on_the_cpu(tmp_path, arch):
 
 
 @pytest.mark.parametrize("argv, match", [
-    # checkpoints across localities wait for owner placement (item 12)
-    (["--localities", "2", "--ckpt", "unwritten"], "item 12"),
-    (["--join", "127.0.0.1:1"], "item 13"),
-    (["--elastic"], "item 13"),
     (["--strategy", "zero1"], "item 14"),
     (["--strategy", "onebit"], "item 14"),
 ])
