@@ -75,7 +75,7 @@ without the final ``{"ok": true, ...}`` line:
    tiny=False).compile().train(...)`` and ``Plan(arch=
    "granite-moe-1b-a400m", tiny=False).compile().train(...)`` at full
    width and depth;
-8. checkpoint drill, granite-moe-1b-a400m at full width, cut to 12 of its
+8. checkpoint drill, granite-moe-1b-a400m at full width, cut to 8 of its
    24 layers (``CKPT_DRILL_LAYERS``, for the time limit): 6 steps straight
    (saved at step 6), then 6 steps saving every 3 with an injected
    failure at step 4, then ``resume=True`` to step 6 from the step-3
@@ -274,7 +274,7 @@ WHISPER_TRAIN_CUT = dict(WHISPER_TRAIN,
 DDP2_LAYERS = 4
 DDP2 = dict(arch="qwen3-4b", tiny=False, batch=8, seq=512, ddp=True,
             ddp_shards=2, overrides={"n_layers": DDP2_LAYERS})
-DDP2_STEPS = 4
+DDP2_STEPS = 3              # cut from 4 to keep the script within 1,000 s
 DDP2_PROFILE_AT = 2         # the driver's step profiled in the onebit run
 _MOE_CFG = get_config(MOE_TRAIN["arch"])
 MOE_TRAIN_ATTN = (MOE_TRAIN["batch"], _MOE_CFG.n_heads, _MOE_CFG.n_kv_heads,
@@ -283,12 +283,13 @@ MOE_TRAIN_ATTN = (MOE_TRAIN["batch"], _MOE_CFG.n_heads, _MOE_CFG.n_kv_heads,
 # the drill: saves every CKPT_EVERY steps, fails at step CKPT_FAIL_AT, and
 # needs room for two committed checkpoints beside a temp one on the disk;
 # where there is none, the drill's depth is cut further (printed).  It
-# runs CKPT_DRILL_LAYERS of granite's 24 layers (8.9 GB checkpoints, where
-# 24 layers' 16.6 GB took 287.6 s of the script's time limit at 0.23-0.26
-# GB/s): the multi-locality phases need the room
+# runs CKPT_DRILL_LAYERS of granite's 24 layers (6.3 GB checkpoints, where
+# 24 layers' 16.6 GB took 287.6 s of the script's time limit and 12
+# layers' 8.9 GB 147.8-163.1 s at 0.23-0.26 GB/s): the multi-locality
+# phases need the room
 CKPT_EVERY, CKPT_FAIL_AT = 3, 4
 CKPT_DISK_SHARE = 0.8
-CKPT_DRILL_LAYERS = 12
+CKPT_DRILL_LAYERS = 8
 # the multi-locality runtime's other paths on the one card: the gateway's
 # two replicas homed on two localities (qwen3-4b at full size; the kill
 # drill SIGKILLs the worker before the GATEWAY_LOC_KILL_AT-th of the
@@ -1494,7 +1495,8 @@ def train_full(train: dict, ddp: bool, n_buckets: int,
             title, clock.prof, step_ms,
             roofline(32 * n, train_ops(cfg, out["params"], plan.batch,
                                        plan.seq)))
-        STEP_PROFILES[cfg.name] = {**PROFILES[title], "by_name": kernels}
+        STEP_PROFILES[cfg.name] = {**PROFILES[title], "by_name": kernels,
+                                   "launched": clock.launched}
     want = train_launches(cfg, n_steps, TRAIN_DDP_SHARDS if ddp else 1,
                           n_buckets if ddp else 0)
     if counts != want:
@@ -1559,7 +1561,9 @@ def profile_one(name: str, fn, bound, repeats: int = 3) -> dict:
     """Host wall (median of ``repeats`` calls, each ending in a device
     synchronize), the device time of the kernels one call launches, the
     kernels that take most of it (torch.profiler) and the bound.  Returns
-    every kernel the profiled call ran, by name, with its launch count."""
+    every kernel the profiled call ran, by name, with its launch count;
+    the wrappers' launch counts of that call go to ``PROFILES[name]``
+    under ``launched``."""
     fn()
     torch.cuda.synchronize()
     walls = []
@@ -1569,10 +1573,13 @@ def profile_one(name: str, fn, bound, repeats: int = 3) -> dict:
         torch.cuda.synchronize()
         walls.append(1e3 * (time.perf_counter() - t0))
     wall = sorted(walls)[len(walls) // 2]
+    before = _counts()
     with torch.profiler.profile(activities=PROFILED) as prof:
         fn()
         torch.cuda.synchronize()
-    return report_profile(name, prof, wall, bound)
+    kernels = report_profile(name, prof, wall, bound)
+    PROFILES[name]["launched"] = _launched_since(before)
+    return kernels
 
 
 def report_profile(name: str, prof, wall: float, bound) -> dict:
@@ -1643,27 +1650,50 @@ def check_k1_route(name: str, kernels: list, want: tuple) -> None:
                              f"tensor-core kernels: {ran}, f32 {f32}")
 
 
-def check_k1_launches(name: str, kernels: dict, want: int) -> None:
-    """The profiled call launched K1's tensor-core forward ``want`` times
-    (whisper-medium's prefill: its encoder's non-causal layers and its
-    decoder's causal ones, one kernel by name)."""
-    n = sum(c for k, c in kernels.items() if K1_TC["forward"] in k)
-    print(f"{name}: {K1_TC['forward']} launched {n} times, want {want}")
-    if n != want:
-        raise AssertionError(f"{name}: {n} K1 forward launches, want {want}")
+def _launched_since(before: dict) -> dict:
+    """Each wrapper's launches since ``_counts()`` read ``before``."""
+    return {k: v - before[k] for k, v in _counts().items()}
 
 
-def check_k1_train_launches(name: str, kernels: dict, fwd: int,
-                            bwd: int) -> None:
-    """The profiled train step launched K1's tensor-core forward ``fwd``
-    times and its backward (``dkdv``, once a backward) ``bwd`` times."""
-    n_f = sum(c for k, c in kernels.items() if K1_TC["forward"] in k)
-    n_b = sum(c for k, c in kernels.items() if K1_TC["dkdv"] in k)
-    print(f"{name}: {K1_TC['forward']} launched {n_f} times (want {fwd}), "
-          f"{K1_TC['dkdv']} {n_b} (want {bwd})")
-    if (n_f, n_b) != (fwd, bwd):
-        raise AssertionError(f"{name}: K1 launches {n_f}/{n_b}, want "
-                             f"{fwd}/{bwd}")
+def _check_profiled_launches(name: str, kernels: dict, launched: dict,
+                             want: dict) -> None:
+    """The profiled call's wrappers launched K1 ``want`` times (by
+    wrapper name), counted by the wrappers' own counts, which are exact;
+    and the profiler, which recorded each of those launches under K1's
+    tensor-core kernel's name (``K1_TC``), recorded no more of them than
+    were launched.  The profiler may miss a record (CUPTI once recorded 47
+    of whisper-medium prefill's 48 forwards on the H100), so its count is
+    printed beside the wrappers' and held only from above; ``check_k1_
+    route`` has held by name that these kernels ran and no f32 one did."""
+    for wrapper, want_n in want.items():
+        tc = K1_TC["dkdv" if wrapper == "flash_attention_bwd"
+                   else "forward"]
+        seen = sum(c for k, c in kernels.items() if tc in k)
+        n = launched[wrapper]
+        print(f"{name}: {wrapper} launched {n} times (want {want_n}); the "
+              f"profiler recorded {tc} {seen} times"
+              + (f" ({n - seen} records missing)" if seen < n else ""))
+        if n != want_n or seen > n:
+            raise AssertionError(f"{name}: {wrapper} launched {n} times, "
+                                 f"want {want_n}; profiled {tc} {seen}")
+
+
+def check_k1_launches(name: str, kernels: dict, launched: dict,
+                      want: int) -> None:
+    """The profiled call launched K1's forward ``want`` times (whisper-
+    medium's prefill: its encoder's non-causal layers and its decoder's
+    causal ones, one tensor-core kernel by name)."""
+    _check_profiled_launches(name, kernels, launched,
+                             {"flash_attention": want})
+
+
+def check_k1_train_launches(name: str, kernels: dict, launched: dict,
+                            fwd: int, bwd: int) -> None:
+    """The profiled train step launched K1's forward ``fwd`` times and its
+    backward (``dkdv``, once a backward) ``bwd`` times."""
+    _check_profiled_launches(name, kernels, launched,
+                             {"flash_attention": fwd,
+                              "flash_attention_bwd": bwd})
 
 
 def check_no_kernel(name: str, kernels: dict) -> None:
@@ -1873,9 +1903,11 @@ class ProfileStep(StepClock):
         if it == self.at - 1:
             self.prof = torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CUDA])
+            self.before = _counts()
             self.prof.__enter__()
         elif it == self.at:
             self.prof.__exit__(None, None, None)
+            self.launched = _launched_since(self.before)
             # stopping the profiler takes seconds after a large step: it
             # counts to the profiled step, not to the next one
             self.t[-1] = time.perf_counter()
@@ -3215,6 +3247,7 @@ def main() -> int:
                    ("forward", "dkdv", "dq"))
     want = train_launches(Plan(**WHISPER_TRAIN).config(), 1, 1, 0)
     check_k1_train_launches("whisper-medium train step", kernels,
+                            STEP_PROFILES["whisper-medium"]["launched"],
                             want["flash_attention"],
                             want["flash_attention_bwd"])
     launches["train_whisper_cut"] = train_full(WHISPER_TRAIN_CUT, False, 0,
@@ -3250,6 +3283,8 @@ def main() -> int:
             check_k1_route(name, kernels, ("forward",))
             if scfg.family == "encdec":
                 check_k1_launches(name, kernels,
+                                  PROFILES[f"prefill, batch {slots}"]
+                                  ["launched"],
                                   prefill_launches(scfg)["flash_attention"])
             if arch == "zamba2-2.7b":
                 check_ran(name, kernels, K2_TC, K2_F32)
