@@ -75,7 +75,7 @@ without the final ``{"ok": true, ...}`` line:
    tiny=False).compile().train(...)`` and ``Plan(arch=
    "granite-moe-1b-a400m", tiny=False).compile().train(...)`` at full
    width and depth;
-8. checkpoint drill, granite-moe-1b-a400m at full width, cut to 8 of its
+8. checkpoint drill, granite-moe-1b-a400m at full width, cut to 6 of its
    24 layers (``CKPT_DRILL_LAYERS``, for the time limit): 6 steps straight
    (saved at step 6), then 6 steps saving every 3 with an injected
    failure at step 4, then ``resume=True`` to step 6 from the step-3
@@ -111,11 +111,19 @@ without the final ``{"ok": true, ...}`` line:
    requests' ``stack`` prep runs there), streams bit-identical to one
    locality's, K1's launches one locality's, then the worker SIGKILLed
    mid-stream (replica deaths 1, no prefill recomputed, the same
-   streams); (b) checkpoint shards written by their owners:
-   granite-moe-1b-a400m at full width cut to the most layers whose
-   checkpoint is at most 3.2 GB, saved by two localities (ownership
-   {0, 1}, the worker's leaf bytes exactly its shard's), resumed at one,
-   bit-identical to a straight run; (c) an elastic join mid-train:
+   streams), and ``Session.lint()`` of the session's live graph empty;
+   (b) checkpoint shards written by their owners: granite-moe-1b-a400m
+   at full width cut to the most layers, an even count, whose checkpoint
+   is at most 3.2 GB, saved by two localities (ownership {0, 1}, the
+   worker's leaf bytes exactly its shard's), resumed at one,
+   bit-identical to a straight run; (b') SPMD mode on the same plan,
+   ``Plan(spmd=True, localities=2)``: two processes in a gloo world train
+   in lockstep on the one card with the sanitizer armed and write their
+   own segments (each leaf's by the layout of ``checkpoint/spmd.py``, no
+   leaf byte on the wire), the losses the straight run's, both processes'
+   K1 launches the steps', ``Session.lint()`` empty and no sanitizer
+   diagnostic; resumed at one locality, bit-identical to the straight
+   run; (c) an elastic join mid-train:
    qwen3-4b at 4 layers, ``Plan(elastic=True)`` gaining a locality after
    step 2, losses bit-identical to the static run's, tasks stolen, every
    worker reaped;
@@ -166,8 +174,10 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 import torch.utils._pytree as pytree  # noqa: E402
 
+from repro_torch.analysis import sanitize  # noqa: E402
 from repro_torch.checkpoint import checkpoint as ckpt_io  # noqa: E402
 from repro_torch.checkpoint import format as ckfmt  # noqa: E402
+from repro_torch.checkpoint import spmd as ckspmd  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import steps  # noqa: E402
 from repro_torch.core.sharding import init_params, is_spec  # noqa: E402
@@ -274,7 +284,10 @@ WHISPER_TRAIN_CUT = dict(WHISPER_TRAIN,
 DDP2_LAYERS = 4
 DDP2 = dict(arch="qwen3-4b", tiny=False, batch=8, seq=512, ddp=True,
             ddp_shards=2, overrides={"n_layers": DDP2_LAYERS})
-DDP2_STEPS = 3              # cut from 4 to keep the script within 1,000 s
+# steps a run: the fp32 runs cut from 3 to 2 (from 4 before that) to make
+# room for the SPMD phase within 1,000 s, the onebit run's 3 keep a step
+# beside the profiled one
+DDP2_FP32_STEPS, DDP2_ONEBIT_STEPS = 2, 3
 DDP2_PROFILE_AT = 2         # the driver's step profiled in the onebit run
 _MOE_CFG = get_config(MOE_TRAIN["arch"])
 MOE_TRAIN_ATTN = (MOE_TRAIN["batch"], _MOE_CFG.n_heads, _MOE_CFG.n_kv_heads,
@@ -283,23 +296,26 @@ MOE_TRAIN_ATTN = (MOE_TRAIN["batch"], _MOE_CFG.n_heads, _MOE_CFG.n_kv_heads,
 # the drill: saves every CKPT_EVERY steps, fails at step CKPT_FAIL_AT, and
 # needs room for two committed checkpoints beside a temp one on the disk;
 # where there is none, the drill's depth is cut further (printed).  It
-# runs CKPT_DRILL_LAYERS of granite's 24 layers (6.3 GB checkpoints, where
-# 24 layers' 16.6 GB took 287.6 s of the script's time limit and 12
-# layers' 8.9 GB 147.8-163.1 s at 0.23-0.26 GB/s): the multi-locality
-# phases need the room
+# runs CKPT_DRILL_LAYERS of granite's 24 layers (5.1 GB checkpoints, where
+# 24 layers' 16.6 GB took 287.6 s of the script's time limit, 12 layers'
+# 8.9 GB 147.8-163.1 s at 0.23-0.26 GB/s and 8 layers' 6.3 GB 110.4-124.0
+# s): the multi-locality phases and the SPMD phase need the room
 CKPT_EVERY, CKPT_FAIL_AT = 3, 4
 CKPT_DISK_SHARE = 0.8
-CKPT_DRILL_LAYERS = 8
+CKPT_DRILL_LAYERS = 6
 # the multi-locality runtime's other paths on the one card: the gateway's
 # two replicas homed on two localities (qwen3-4b at full size; the kill
 # drill SIGKILLs the worker before the GATEWAY_LOC_KILL_AT-th of the
 # trace's prompts arrives, fed from a thread every GATEWAY_LOC_FEED_S);
 # checkpoint shards written by their owners: granite-moe-1b-a400m at full
-# width cut to the most layers whose checkpoint stays within
-# CKPT_LOC_BYTES (qwen3-4b's untied embedding and unembedding alone are
-# 9.3 GB of float32 state with adamw: 0.78 B x 12 B), saved by two
+# width cut to the most layers, an even count, whose checkpoint stays
+# within CKPT_LOC_BYTES (qwen3-4b's untied embedding and unembedding alone
+# are 9.3 GB of float32 state with adamw: 0.78 B x 12 B), saved by two
 # localities at step CKPT_LOC_SAVE_AT and resumed at one to
-# CKPT_LOC_STEPS; and an elastic join mid-train, qwen3-4b cut to
+# CKPT_LOC_STEPS; the same plan in SPMD mode, two processes each writing
+# its own segments (an even layer count splits the stacked per-layer
+# leaves between the two: at 3 layers they would all be rank 0's); and an
+# elastic join mid-train, qwen3-4b cut to
 # DDP2_LAYERS, a locality added at step ELASTIC_JOIN_AT and the driver
 # stalled 250 ms at step ELASTIC_STALL_AT (the steal window)
 GATEWAY_LOC_KILL_AT, GATEWAY_LOC_FEED_S = 3, 0.05
@@ -1968,16 +1984,18 @@ class MemoryClock(StepClock):
               flush=True)
 
 
-DDP2_RUNS = ((1, "fp32"), (2, "fp32"), (2, "onebit"))
+DDP2_RUNS = ((1, "fp32", DDP2_FP32_STEPS), (2, "fp32", DDP2_FP32_STEPS),
+             (2, "onebit", DDP2_ONEBIT_STEPS))
 
 
 def ddp_two_localities(runs=DDP2_RUNS) -> tuple[dict, dict]:
     """Fabric DDP across two localities on the one card (``DDP2``): the
     driver and a spawned worker process, each training one of the two
     shards at full width, gradients summed over the active-message ring.
-    Runs ``runs`` ((localities, codec) each): the 1-locality fp32 run over
-    the same two shards, the 2-locality fp32 run and the 2-locality
-    onebit run, ``DDP2_STEPS`` steps each on one repeated batch, every
+    Runs ``runs`` ((localities, codec, steps) each): the 1-locality fp32
+    run over the same two shards, the 2-locality fp32 run
+    (``DDP2_FP32_STEPS`` steps each) and the 2-locality onebit run
+    (``DDP2_ONEBIT_STEPS``), each on one repeated batch, every
     kernel count set to 0 just before each run and read just after, the
     worker's counts reported by its DDP loop.  At two localities the
     host's memory, the worker's included, is printed after every step.
@@ -1995,7 +2013,7 @@ def ddp_two_localities(runs=DDP2_RUNS) -> tuple[dict, dict]:
     stream = RepeatStream(stream_for(cfg, batch=DDP2["batch"],
                                      seq=DDP2["seq"], seed=0))
     launches, readings, losses = {}, {}, {}
-    for loc, codec in runs:
+    for loc, codec, n_steps in runs:
         name = f"ddp2_{loc}loc_{codec}"
         phase(f"fabric DDP, {cfg.name} at full width, {cfg.n_layers} of "
               f"{get_config(cfg.name).n_layers} layers, {loc} "
@@ -2013,7 +2031,7 @@ def ddp_two_localities(runs=DDP2_RUNS) -> tuple[dict, dict]:
             torch.cuda.reset_peak_memory_stats()
             _zero_counts()
             try:
-                out = session.train(stream, steps=DDP2_STEPS, log_every=1,
+                out = session.train(stream, steps=n_steps, log_every=1,
                                     hooks=hooks)
             except BaseException:
                 if loc > 1:
@@ -2037,10 +2055,10 @@ def ddp_two_localities(runs=DDP2_RUNS) -> tuple[dict, dict]:
         per_loc = {0: {"launches": counts, "grad_wire_bytes": wire}}
         for r, m in out.get("localities", {}).items():
             per_loc[r] = m
-        want_wire = DDP2_STEPS * (loc - 1) * codec_bytes
+        want_wire = n_steps * (loc - 1) * codec_bytes
         for r, m in per_loc.items():
             want = train_launches(
-                cfg, DDP2_STEPS, DDP2["ddp_shards"] // loc,
+                cfg, n_steps, DDP2["ddp_shards"] // loc,
                 n_buckets if codec == "onebit" else 0, decodes=loc)
             print(f"locality {r}: grad_wire_bytes {m['grad_wire_bytes']} "
                   f"(want {want_wire}), "
@@ -2054,7 +2072,7 @@ def ddp_two_localities(runs=DDP2_RUNS) -> tuple[dict, dict]:
                                      f"{m['grad_wire_bytes']} B, want "
                                      f"{want_wire}")
             launches[f"{name}_L{r}"] = m["launches"]
-        if len(out["losses"]) != DDP2_STEPS \
+        if len(out["losses"]) != n_steps \
                 or not all(np.isfinite(out["losses"])):
             raise AssertionError(f"{name}: losses {out['losses']}")
         readings[name] = {"losses": out["losses"], "step_ms": ms,
@@ -2202,10 +2220,17 @@ def gateway_two_localities() -> tuple[dict, dict]:
             raise AssertionError(f"{arch} kill-locality drill: killed "
                                  f"{killed}, deaths {deaths}, serve "
                                  f"{kserve}, counts {kill_counts}")
+        findings = [str(f) for f in session.lint()]
+        print(f"phylint: Session.lint() of the session's live graph "
+              f"{findings}")
+        if findings:
+            raise AssertionError(f"{arch} at two localities: phylint "
+                                 f"findings {findings}")
     torch.cuda.empty_cache()
     readings = {"session_up_s": up_s, "replica_homes": homes,
                 "stack_nodes_on_worker": stacks,
                 "tokens_per_s": res["tokens_per_s"], "rounds": res["rounds"],
+                "lint": findings,
                 "kill_drill": {"tokens_per_s": out["tokens_per_s"],
                                "replica_deaths": deaths,
                                "cross_replica_page_fetches": fetches,
@@ -2221,13 +2246,13 @@ def _owned_leaf_bytes(manifest: dict, rank: int) -> int:
                for leaf in sh["leaves"])
 
 
-def checkpoint_two_localities() -> tuple[dict, dict]:
+def checkpoint_two_localities() -> tuple[dict, dict, dict]:
     """Checkpoint shards written by their owners, through
     ``Session.train``: granite-moe-1b-a400m at full width cut to the most
-    layers whose checkpoint stays within ``CKPT_LOC_BYTES``, on one
-    repeated batch, in a ``tempfile.mkdtemp()`` removed at the end.  A
-    straight one-locality run of ``CKPT_LOC_STEPS`` steps (saved at the
-    last); a two-locality run of ``CKPT_LOC_SAVE_AT`` steps saved there,
+    layers, an even count, whose checkpoint stays within
+    ``CKPT_LOC_BYTES``, on one repeated batch, in a ``tempfile.mkdtemp()``
+    removed at the end.  A straight one-locality run of ``CKPT_LOC_STEPS``
+    steps (saved at the last, each step timed); a two-locality run of ``CKPT_LOC_SAVE_AT`` steps saved there,
     each locality writing its own shard (the worker's leaves cross the
     wire to it); then a one-locality ``resume=True`` to
     ``CKPT_LOC_STEPS``, every kernel count set to 0 just before and read
@@ -2237,8 +2262,10 @@ def checkpoint_two_localities() -> tuple[dict, dict]:
     final parameters and every leaf checksum of the last checkpoint are
     the straight run's, bit for bit; the resumed run's launches are the
     steps' (``train_launches``).  Prints each save's host copy and write
-    and the restore (wall time, GB/s).  Returns the resumed run's counts
-    and the readings."""
+    and the restore (wall time, GB/s).  Returns the resumed run's counts,
+    the readings and the straight run as the oracle of
+    ``spmd_two_localities`` (its plan, stream, losses, step times, final
+    parameters and step-``CKPT_LOC_STEPS`` leaf checksums)."""
     cfg = Plan(**MOE_TRAIN, device="cpu").config()
     per_layer = []
     for layers in range(1, cfg.n_layers + 1):
@@ -2247,15 +2274,15 @@ def checkpoint_two_localities() -> tuple[dict, dict]:
             build_model(c).specs(), is_leaf=is_spec)))
         if per_layer[-1] > CKPT_LOC_BYTES:
             break
-    layers = max(1, sum(b <= CKPT_LOC_BYTES for b in per_layer))
+    layers = max(2, sum(b <= CKPT_LOC_BYTES for b in per_layer) // 2 * 2)
     plan = Plan(**MOE_TRAIN, device="cuda", overrides={"n_layers": layers})
     phase(f"checkpoint shards written by their owners: {cfg.name}, full "
           f"width, {layers} of {cfg.n_layers} layers, saved at two "
           f"localities, resumed at one")
     print(f"CUT to {layers} of {cfg.n_layers} layers: a checkpoint of "
           f"about {per_layer[layers - 1] / 1e9:.2f} GB (at most "
-          f"{CKPT_LOC_BYTES / 1e9:.1f} GB; the crash drill measures the "
-          f"I/O at depth)")
+          f"{CKPT_LOC_BYTES / 1e9:.1f} GB and an even layer count, for the "
+          f"SPMD split; the crash drill measures the I/O at depth)")
     stream = RepeatStream(stream_for(plan.config(), batch=plan.batch,
                                      seq=plan.seq, seed=plan.seed))
     kw = dict(log_every=1, verbose=False)
@@ -2263,9 +2290,11 @@ def checkpoint_two_localities() -> tuple[dict, dict]:
     root = tempfile.mkdtemp()
     try:
         with CkptClock() as clock:
+            steps_clock = StepClock()
             with plan.compile() as session:
                 straight = session.train(stream, steps=n, ckpt_every=n,
-                                         ckpt_dir=f"{root}/straight", **kw)
+                                         ckpt_dir=f"{root}/straight",
+                                         hooks=steps_clock, **kw)
             want_sums, _ = _leaf_checksums(f"{root}/straight/step_{n:08d}")
             want_params = straight.pop("params")
             shutil.rmtree(f"{root}/straight")
@@ -2333,10 +2362,187 @@ def checkpoint_two_localities() -> tuple[dict, dict]:
                     "leaf_bytes_by_writer": owned,
                     "ckpt_leaf_wire_bytes": wire, "session_up_s": up_s,
                     "saves": saves, "restore_s": clock.restores[0]}
-        del want_params, resumed, straight
+        oracle = {"plan": plan, "stream": stream,
+                  "losses": straight["losses"],
+                  "step_ms": steps_clock.step_ms(), "params": want_params,
+                  "sums": want_sums}
+        del resumed, straight
         torch.cuda.empty_cache()
-        return counts, readings
+        return counts, readings, oracle
     finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def spmd_two_localities(oracle: dict) -> tuple[dict, dict]:
+    """SPMD mode (``Plan(spmd=True, localities=2)``) through
+    ``Session.train``, on the plan and batch of ``checkpoint_two_localities``
+    and against its straight run (``oracle``): the driver and one spawned
+    worker process join a ``torch.distributed`` gloo world, both train in
+    lockstep on the one card, and each writes its own checkpoint segments
+    at step ``CKPT_LOC_SAVE_AT``; then a one-locality ``resume=True`` to
+    ``CKPT_LOC_STEPS``.  The SPMD run has the sanitizer armed
+    (``PHYRAX_SANITIZE=1``, inherited by the worker, unset after it).
+    Every kernel count is set to 0 just before each run and read just
+    after; the worker's come in its ``spmd_done`` report.  Checks: the SPMD
+    losses are the straight run's, bit for bit; the manifest's ownership is
+    {"0", "1"}; ``ckpt_leaf_wire_bytes`` is 0; every leaf's segments are
+    ``checkpoint.spmd.segments``' layout; both processes launched K1 as the
+    steps give (``train_launches``); ``Session.lint()`` is ``[]`` and the
+    sanitizer recorded nothing in either process; no ``torch.distributed``
+    world is left after the session; the resumed losses, final parameters
+    and every step-``CKPT_LOC_STEPS`` leaf checksum are the straight
+    run's.  Prints the bytes each rank wrote, each save's host copy, write
+    and GB/s, the restore, and the armed run's median step beside the
+    straight run's.  Returns the counts by run and the readings."""
+    plan, stream = oracle["plan"], oracle["stream"]
+    cfg = plan.config()
+    n, k = CKPT_LOC_STEPS, CKPT_LOC_SAVE_AT
+    phase(f"SPMD mode: {cfg.name}, full width, {cfg.n_layers} of "
+          f"{get_config(cfg.name).n_layers} layers, two processes in "
+          f"lockstep on the one card writing their own segments at step "
+          f"{k} (sanitizer armed), resumed at one locality")
+    kw = dict(log_every=1, verbose=False)
+    want = train_launches(cfg, k, 1, 0)
+    root = tempfile.mkdtemp()
+    d = f"{root}/spmd"
+    os.environ["PHYRAX_SANITIZE"] = "1"
+    sanitize.get().clear()
+    try:
+        with CkptClock() as clock:
+            t0 = time.perf_counter()
+            spmd_plan = dataclasses.replace(plan, spmd=True, localities=2)
+            with spmd_plan.compile() as session:
+                up_s = time.perf_counter() - t0
+                steps_clock = StepClock()
+                torch.cuda.synchronize()
+                _zero_counts()
+                wrote = session.train(stream, steps=k, ckpt_every=k,
+                                      ckpt_dir=d, hooks=steps_clock, **kw)
+                counts = _counts()
+                findings = [str(f) for f in session.lint()]
+            diags = [str(x) for x in sanitize.get().diagnostics()]
+            world_left = torch.distributed.is_initialized()
+            os.environ.pop("PHYRAX_SANITIZE")
+            torch.cuda.synchronize()
+            _zero_counts()
+            with plan.compile() as session:
+                resumed = session.train(stream, steps=n, ckpt_every=k,
+                                        ckpt_dir=d, resume=True, **kw)
+            resumed_counts = _counts()
+        worker = wrote["localities"][1]
+        dstats = wrote["runtime_stats"]["distributed"]
+        manifest = ckfmt.load_manifest(f"{d}/step_{k:08d}")
+        owned = {r: _owned_leaf_bytes(manifest, r) for r in (0, 1)}
+        nbytes = sum(sh["nbytes"] for sh in manifest["shards"])
+        by_leaf: dict = {}
+        for sh in manifest["shards"]:
+            for leaf in sh["leaves"]:
+                by_leaf.setdefault(leaf["index"], {})[sh["locality"]] = leaf
+        bad_layout = []
+        for i, leaves in sorted(by_leaf.items()):
+            shape = next(iter(leaves.values())).get(
+                "global_shape", next(iter(leaves.values()))["shape"])
+            for r in (0, 1):
+                seg = ckspmd.segments(shape, 2, r)
+                got = leaves.get(r)
+                if (got is None) != (not seg) or (
+                        got is not None and got.get("slice") != seg[0]):
+                    bad_layout.append((i, r))
+        split = sum(len(v) == 2 for v in by_leaf.values())
+        got_sums, _ = _leaf_checksums(f"{d}/step_{n:08d}")
+        same_params = all(torch.equal(a, b) for a, b in zip(
+            pytree.tree_leaves(resumed["params"]),
+            pytree.tree_leaves(oracle["params"])))
+        wire = dstats["ckpt_leaf_wire_bytes"]
+        ownership = sorted(manifest["ownership"])
+        armed = sorted(steps_clock.step_ms())
+        plain = sorted(oracle["step_ms"][1:])
+        med = {"armed_spmd": armed[len(armed) // 2],
+               "straight": plain[len(plain) // 2]}
+        print(f"session up in {up_s:.1f} s (a worker spawned, both in the "
+              f"gloo world); step-{k} checkpoint {nbytes} B in "
+              f"{len(manifest['shards'])} shards, ownership "
+              f"{manifest['ownership']}; leaf bytes by writer {owned}; "
+              f"{len(by_leaf)} leaves, {split} split by rows; "
+              f"ckpt_leaf_wire_bytes {wire}")
+        print(f"losses straight "
+              f"{' '.join(f'{x:.6f}' for x in oracle['losses'])}; SPMD "
+              f"{' '.join(f'{x:.6f}' for x in wrote['losses'])} (worker's "
+              f"final {worker['final_loss']:.6f}); resumed at one from step "
+              f"{k}: {' '.join(f'{x:.6f}' for x in resumed['losses'])} "
+              f"({'bit-identical' if resumed['losses'] == oracle['losses'][k:] else 'DIFFER'})"
+              f"; final parameters "
+              f"{'bit-identical' if same_params else 'DIFFER'}; the step-{n} "
+              f"checkpoints' {len(got_sums)} leaf checksums "
+              f"{'equal' if got_sums == oracle['sums'] else 'DIFFER'}")
+        print("driver: " + ", ".join(f"{k_} launches {v}"
+                                      for k_, v in counts.items() if v)
+              + "; worker: " + ", ".join(f"{k_} launches {v}" for k_, v in
+                                         worker["launches"].items() if v)
+              + "; resumed: " + ", ".join(f"{k_} launches {v}" for k_, v in
+                                          resumed_counts.items() if v))
+        print(f"phylint: Session.lint() {findings}; sanitizer diagnostics: "
+              f"driver {diags}, worker {worker['diagnostics']}; "
+              f"torch.distributed world left after close: {world_left}")
+        print(f"median step (host wall, each ending in a synchronize): SPMD "
+              f"with the sanitizer armed {med['armed_spmd']:.1f} ms (steps "
+              f"{' '.join(f'{x:.1f}' for x in steps_clock.step_ms())}), "
+              f"straight unarmed {med['straight']:.1f} ms")
+        want_resumed = train_launches(cfg, n - k, 1, 0)
+        if not (wrote["losses"] == oracle["losses"][:k]
+                and worker["final_loss"] == oracle["losses"][k - 1]
+                and ownership == ["0", "1"] and wire == 0
+                and not bad_layout and split > 0
+                and counts == want and worker["launches"] == want
+                and findings == [] and diags == []
+                and worker["diagnostics"] == [] and not world_left
+                and resumed["losses"] == oracle["losses"][k:]
+                and same_params and got_sums == oracle["sums"]
+                and resumed_counts == want_resumed):
+            raise AssertionError(
+                f"SPMD: ownership {ownership}, wire {wire}, layout "
+                f"mismatches {bad_layout}, counts {counts} / worker "
+                f"{worker['launches']} (want {want}), resumed "
+                f"{resumed_counts} (want {want_resumed}), lint {findings}, "
+                f"diagnostics {diags} / {worker['diagnostics']}, world "
+                f"left {world_left}, or a loss or resumed value differs")
+        saves = []
+        for r, what in zip(clock.saves, ("SPMD, two processes",
+                                         "resumed, one locality")):
+            size = nbytes if what.startswith("SPMD") else \
+                _leaf_checksums(f"{d}/step_{n:08d}")[1]
+            gb_s = size / (r["host_s"] + r["write_s"]) / 1e9
+            saves.append({"run": what, "step": r["step"], "bytes": size,
+                          "host_s": r["host_s"], "write_s": r["write_s"],
+                          "gb_per_s": gb_s})
+            print(f"save of step {r['step']} ({what}, {size} B): host copy "
+                  f"{r['host_s']:.2f} s, write {r['write_s']:.2f} s, "
+                  f"{gb_s:.2f} GB/s")
+        print(f"restore at one locality: {clock.restores[0]:.2f} s, "
+              f"{nbytes / clock.restores[0] / 1e9:.2f} GB/s")
+        # when each rank's shard file of the SPMD save landed, and the
+        # manifest: seconds after the driver's save call (file mtimes)
+        landed = {name: os.stat(f"{d}/step_{k:08d}/{name}").st_mtime
+                  - clock.saves[0]["wall"]
+                  for name in (ckfmt.shard_filename(0),
+                               ckfmt.shard_filename(1), "manifest.json")}
+        print("SPMD save of step " + str(k) + ", seconds after the "
+              "driver's save call: " + ", ".join(
+                  f"{name} {t:.2f}" for name, t in landed.items()))
+        saves[0]["landed_s"] = landed
+        readings = {"layers": cfg.n_layers, "checkpoint_bytes": nbytes,
+                    "leaf_bytes_by_writer": owned, "leaves_split": split,
+                    "ckpt_leaf_wire_bytes": wire, "session_up_s": up_s,
+                    "saves": saves, "restore_s": clock.restores[0],
+                    "step_ms": steps_clock.step_ms(), "median_step_ms": med,
+                    "lint": findings, "diagnostics": diags + worker[
+                        "diagnostics"]}
+        del resumed, wrote
+        torch.cuda.empty_cache()
+        return {"spmd_2loc_L0": counts, "spmd_2loc_L1": worker["launches"],
+                "spmd_resume": resumed_counts}, readings
+    finally:
+        os.environ.pop("PHYRAX_SANITIZE", None)
         shutil.rmtree(root, ignore_errors=True)
 
 
@@ -2941,9 +3147,10 @@ class CkptClock:
         clock = self
 
         def timed_save(mgr, step, tree, **kw):
-            t0 = time.perf_counter()
+            t0, wall = time.perf_counter(), time.time()
             fut = save(mgr, step, tree, **kw)
-            rec = {"step": step, "host_s": time.perf_counter() - t0}
+            rec = {"step": step, "host_s": time.perf_counter() - t0,
+                   "wall": wall}
             clock.saves.append(rec)
             fut.add_done_callback(lambda f, t1=time.perf_counter(): rec.update(
                 write_s=time.perf_counter() - t1))
@@ -3162,7 +3369,8 @@ def main() -> int:
     if sys.argv[1:2] == ["--ddp2-repeat"] and len(sys.argv) == 3:
         # the 2-locality fp32 DDP run alone, again and again, with the
         # host's memory (the worker's included) after every step
-        ddp_two_localities(((2, "fp32"),) * int(sys.argv[2]))
+        ddp_two_localities(((2, "fp32", DDP2_FP32_STEPS),)
+                           * int(sys.argv[2]))
         print_phase_times()
         return 0
     if sys.argv[1:]:
@@ -3261,7 +3469,11 @@ def main() -> int:
     launches.update(ddp2_launches)
     gw2_launches, gateway_2loc = gateway_two_localities()
     launches.update(gw2_launches)
-    launches["ckpt_2loc_resume"], ckpt_2loc = checkpoint_two_localities()
+    launches["ckpt_2loc_resume"], ckpt_2loc, oracle = \
+        checkpoint_two_localities()
+    spmd_launches, spmd = spmd_two_localities(oracle)
+    launches.update(spmd_launches)
+    del oracle
     launches["elastic_join"], elastic = elastic_join()
 
     for arch in SERVE_ARCHS:
@@ -3309,6 +3521,7 @@ def main() -> int:
                       "moe_layer": moe_layer}))
     print(json.dumps({"gateway_two_localities": gateway_2loc,
                       "checkpoint_two_localities": ckpt_2loc,
+                      "spmd_two_localities": spmd,
                       "elastic_join": elastic}))
     print(json.dumps({"ddp_two_localities": ddp2,
                       "whisper_cross_attention": cross,

@@ -1,9 +1,11 @@
 """Checkpoint I/O: locality-owned shards as futurized tasks.
 
-Counterpart: ``repro/checkpoint/checkpoint.py`` (``CheckpointManager``:
-``ranks``, ``_defer_on``, ``save``, ``_commit``, ``_raise_if_failed``,
-``wait``, ``close``, ``_gc``, ``all_steps``, ``latest_step``,
-``restore``, ``_read_shards`` and ``meta``).  The byte-level format is
+Counterpart: ``repro/checkpoint/checkpoint.py`` (``_prepare_tmp``,
+``_prepare_tmp_spmd``, and ``CheckpointManager``: ``ranks``,
+``_defer_on``, ``save``, ``_save_spmd``, ``_commit``,
+``_raise_if_failed``, ``aborted_saves``, ``wait``, ``close``, ``_gc``,
+``all_steps``, ``latest_step``, ``restore``, ``_read_shards`` and
+``meta``).  The byte-level format is
 ``format.py``, the reference's own, so a checkpoint written by either
 package restores in the other.  A save splits the snapshot into one
 shard per locality (``format.assign_shards`` over ``ranks()``: the
@@ -38,10 +40,21 @@ step.  On CUDA the synchronous device-to-host copy is that copy.  Only
 those numpy copies cross the wire to a shard's owner, and the bytes are
 counted (``DistributedGraph.ckpt_leaf_wire_bytes``).
 
-The SPMD addressable-shard save (``checkpoint/spmd.py``, the reference's
-``_save_spmd``) is ROADMAP item 13, with the port's SPMD mode.  Reading a
-sliced (SPMD) checkpoint works: ``format.assemble_leaf`` re-joins its
-segments.
+SPMD mode (a ``torch.distributed`` world of more than one process,
+``spmd.is_multiprocess``; DESIGN.md §10): this process, the driver (rank
+0), writes only its own segments (``spmd.collect_segments``: a leaf whose
+leading dim divides by the world size is split by rows, any other leaf is
+process 0's), and every other process writes its own from inside its
+shadow train loop (``frontend/spmd.py``) and posts back just the manifest
+ENTRY, which resolves a ``DistributedGraph.spmd_entry_futures`` promise
+here.  No leaf bytes cross the messaging layer either way
+(``ckpt_leaf_wire_bytes`` stays 0); the driver still assembles and
+atomically commits the manifest.  A writer lost mid-save is
+unrecoverable (nobody else holds its bytes), so that save aborts, never
+commits, and is counted in ``aborted_saves``; the previous checkpoint
+stays latest.  Restores read every shard on the caller
+(``format.assemble_leaf`` re-joins the segments, whatever the process
+count that wrote them).
 """
 from __future__ import annotations
 
@@ -51,7 +64,9 @@ from typing import Any, Optional
 
 from ..bridge import host_leaves, leaf_names, place_leaves
 from ..core.futures import FuturizedGraph, Lane, PhyFuture
+from ..distrib.runtime import LocalityLostError
 from . import format as fmt
+from . import spmd
 from .format import CheckpointCorruptError
 
 __all__ = ["CheckpointCorruptError", "CheckpointManager"]
@@ -66,6 +81,17 @@ def _prepare_tmp(tmp: str, *_deps):
     if p.exists():
         shutil.rmtree(p)
     p.mkdir(parents=True)
+    return None
+
+
+def _prepare_tmp_spmd(tmp: str, *_deps):
+    """The SPMD save gate: the same edge collapse, but NO wipe - the other
+    processes' shadow loops may already have streamed their shard files
+    into the temp dir before the driver's gate runs (they pace
+    themselves, not the driver).  Stale files of an aborted earlier
+    attempt are pruned at commit instead: ``format.commit_manifest``
+    deletes everything the manifest does not reference."""
+    Path(tmp).mkdir(parents=True, exist_ok=True)
     return None
 
 
@@ -114,6 +140,8 @@ class CheckpointManager:
             self._graph = graph if graph is not None else FuturizedGraph(
                 max_workers=2, name="checkpoint")
         self._pending: Optional[PhyFuture] = None
+        self._pending_step: Optional[int] = None
+        self.aborted_saves = 0          # SPMD saves lost with a writer
 
     # -- placement ------------------------------------------------------------
     def ranks(self) -> list[int]:
@@ -150,7 +178,16 @@ class CheckpointManager:
         owner as a ``Lane.CHECKPOINT`` task gated on ``deps`` (e.g. the
         step's retirement) and on the previous save, and the manifest is
         committed after every shard resolved.  Fails fast: a previous
-        async save that finished with an error raises here.
+        async save that finished with an error raises here, except an
+        SPMD save aborted because its writer died (``LocalityLostError``),
+        which is expected under host loss: it never committed, the
+        previous checkpoint stays latest, so it is counted
+        (``aborted_saves``) and warned about.
+
+        In SPMD mode (``spmd.is_multiprocess()``) each process writes its
+        own segments: see the module docstring.  ``async_save=False`` is
+        unsupported there (a synchronous save cannot await the other
+        processes' entries).
 
         Args:
             step: step number the snapshot belongs to.
@@ -162,8 +199,12 @@ class CheckpointManager:
             directory) when async; the committed ``Path`` when sync.
         Raises:
             ValueError: a leaf numpy cannot hold (bfloat16), named.
+            RuntimeError: an SPMD save with ``async_save=False``, on a
+                process other than the driver, or without a ``dgraph``.
         """
         self._raise_if_failed()
+        if spmd.is_multiprocess():
+            return self._save_spmd(step, tree, meta=meta, deps=deps)
         names, host = host_leaves(tree)
         treedef_str = f"repro_torch.bridge.host_leaves: {names}"
         shards = fmt.assign_shards(len(host), self.ranks())
@@ -198,10 +239,56 @@ class CheckpointManager:
             self._commit, step, treedef_str, len(host), meta,
             str(tmp), str(final), *entry_futs,
             lane=Lane.CHECKPOINT, name=f"ckpt:manifest:{step}")
+        self._pending_step = step
+        return self._pending
+
+    # -- SPMD save (each process its own segments; DESIGN.md §10) ------------
+    def _save_spmd(self, step: int, tree: Any, *, meta, deps) -> PhyFuture:
+        if not self.async_save:
+            raise RuntimeError(
+                "async_save=False is unsupported in SPMD mode: a "
+                "synchronous save cannot await the other processes' "
+                "shard entries")
+        world, rank = spmd.world_rank()
+        if rank != 0:
+            raise RuntimeError(
+                "CheckpointManager.save drives SPMD saves from process 0 "
+                "(the driver); other processes write their shards via "
+                "checkpoint.spmd.write_spmd_shard (frontend.spmd shadow "
+                "loop)")
+        if self._dgraph is None:
+            raise RuntimeError(
+                "SPMD save needs a DistributedGraph to receive the other "
+                "processes' shard entries (Session passes it; pass "
+                "dgraph= for standalone use)")
+        names = leaf_names(tree)
+        # this process's segments, copied now: the next step updates the
+        # state in place
+        indices, slices, arrays = spmd.collect_segments(tree, world, rank)
+        tmp = self.dir / f".tmp_step_{step:08d}"
+        final = self.dir / f"step_{step:08d}"
+        order = deps if self._pending is None else (*deps, self._pending)
+        gate = self._graph.defer(_prepare_tmp_spmd, str(tmp), *order,
+                                 lane=Lane.CHECKPOINT,
+                                 name=f"ckpt:gate:{step}")
+        # the driver's own shard: a local node - nothing ships anywhere
+        mine = self._graph.defer(fmt.save_shard, str(tmp), rank,
+                                 indices, arrays, gate, slices=slices,
+                                 lane=Lane.CHECKPOINT,
+                                 name=f"ckpt:shard{rank}:{step}")
+        others = self._dgraph.spmd_entry_futures(
+            step, [r for r in range(world) if r != rank])
+        self._pending = self._graph.defer(
+            self._commit, step, f"repro_torch.bridge.host_leaves: {names}",
+            len(names), meta, str(tmp), str(final), mine, *others,
+            lane=Lane.CHECKPOINT, name=f"ckpt:manifest:{step}")
+        self._pending_step = step
         return self._pending
 
     def _commit(self, step, treedef_str, n_leaves, meta, tmp, final,
                 *entries) -> Path:
+        # a process that writes no block of any leaf contributes no shard
+        entries = [e for e in entries if e is not None]
         manifest = fmt.build_manifest(step=step, treedef=treedef_str,
                                       n_leaves=n_leaves,
                                       shards=list(entries), meta=meta)
@@ -210,20 +297,41 @@ class CheckpointManager:
         return out
 
     def _raise_if_failed(self):
-        """Surface a finished-failed pending save."""
+        """Surface a finished-failed pending save.  A LocalityLostError in
+        SPMD mode means a writer died holding bytes nobody else has: the
+        save aborted atomically (no manifest), which is survivable - warn
+        and count it instead of killing the run."""
         if self._pending is None or not self._pending.done():
             return
         failed, self._pending = self._pending, None
+        step, self._pending_step = self._pending_step, None
         exc = failed.exception()
-        if exc is not None:
-            raise exc
+        if exc is None:
+            return
+        if isinstance(exc, LocalityLostError) and spmd.is_multiprocess():
+            self.aborted_saves += 1
+            if step is not None:
+                # reclaim the aborted attempt's temp dir now: _gc only
+                # prunes temp dirs a LATER commit supersedes, and with a
+                # writer gone for good there may never be one
+                shutil.rmtree(self.dir / f".tmp_step_{step:08d}",
+                              ignore_errors=True)
+            print(f"[ckpt] WARNING: SPMD save aborted, previous "
+                  f"checkpoint stays latest: {exc}", flush=True)
+            return
+        raise exc
 
     def wait(self):
-        """Barrier: block until every pending save has committed (raises
-        the error of one that failed)."""
+        """Barrier: block until every pending save has committed (or, in
+        SPMD mode, aborted with its lost writer - see ``save``); raises
+        the error of one that failed."""
         if self._pending is not None:
-            self._pending.result()
-            self._pending = None
+            try:
+                self._pending.result()
+                self._pending = None
+                self._pending_step = None
+            except LocalityLostError:
+                self._raise_if_failed()
 
     def close(self):
         """Shutdown barrier: drain pending saves; stop the workers if the
@@ -319,7 +427,10 @@ class CheckpointManager:
 
     def _read_shards(self, d: Path, entries: list, verify: bool) -> list:
         ranks = self.ranks()
-        if len(ranks) == 1:
+        # SPMD mode reads locally: every process runs its own shadow loop
+        # (each restores its own copy), and shipping segment bytes back
+        # over the wire is what the mode exists to avoid
+        if len(ranks) == 1 or spmd.is_multiprocess():
             return [fmt.read_shard_segments(str(d), e, verify=verify)
                     for e in entries]
         futs = [self._defer_on(ranks[i % len(ranks)],

@@ -4,8 +4,11 @@ lives).
 Counterpart: ``repro/core/futures.py``, the same runtime on PyTorch.  JAX
 served it only for pytree walks, now ``torch.utils._pytree``, and for
 blocking on device values, now a device synchronize for CUDA tensors (a
-no-op for CPU tensors).  The phylint hooks (``snapshot``, the sanitizer's
-deadlock watchdog) come with ROADMAP item 13.
+no-op for CPU tensors).  The phylint hooks are the reference's: the weak
+node registry and ``snapshot()`` the static linter reads, and the
+sanitizer's deadlock watchdog (``PHYRAX_SANITIZE=1``), which walks the
+wait-for graph under the graph's own lock.  Unarmed, a wait costs one
+environment lookup more than a plain condition wait.
 
 Phylanx turns user code into a *futurized execution tree* scheduled by HPX:
 every operation becomes a task whose execution is constrained only by the
@@ -52,11 +55,15 @@ import heapq
 import itertools
 import threading
 import time
+import weakref
 from concurrent.futures import CancelledError
 from typing import Any, Callable, Iterable, Optional, Sequence
 
 import torch
 import torch.utils._pytree as pytree
+
+# stdlib-only module: safe to import here without a package cycle
+from ..analysis import sanitize as _san
 
 __all__ = [
     "CancelledError", "FuturizedGraph", "HIST_EDGES_S", "InFlight", "Lane",
@@ -232,7 +239,8 @@ class PhyFuture:
     __slots__ = ("_graph", "name", "lane", "home", "_fn", "_args",
                  "_kwargs", "_state", "_value", "_exc", "_ndeps",
                  "_dependents", "_callbacks", "_seq", "_promise",
-                 "_kind", "_producer")
+                 "_kind", "_producer", "_observed", "_deps", "_fanout",
+                 "__weakref__")
 
     def __init__(self, graph: "FuturizedGraph", fn: Optional[Callable],
                  args, kwargs, *, lane: Lane, name: str, seq: int,
@@ -254,6 +262,10 @@ class PhyFuture:
         self._promise = False
         self._kind = kind         # task | promise | immediate | join
         self._producer = ""       # promise nodes: who committed to resolve it
+        self._observed = False    # result()/exception()/done-callback seen
+        self._fanout = 0          # dependents ever attached (never reset:
+                                  # _dependents is consumed at retirement)
+        self._deps: tuple = ()    # dependency seqs at submission (analysis)
 
     # -- inspection ---------------------------------------------------------
     @property
@@ -265,6 +277,7 @@ class PhyFuture:
 
     def exception(self) -> Optional[BaseException]:
         """The task's exception, if it errored (blocks until terminal)."""
+        self._observed = True
         self._graph._wait_terminal(self)
         return self._exc
 
@@ -272,6 +285,7 @@ class PhyFuture:
     def result(self, timeout: Optional[float] = None):
         """Block the caller until resolved; raise the task's exception (or
         ``CancelledError``) if it did not complete."""
+        self._observed = True
         self._graph._wait_terminal(self, timeout)
         if self._state is TaskState.DONE:
             return self._value
@@ -287,6 +301,7 @@ class PhyFuture:
     def add_done_callback(self, cb: Callable[["PhyFuture"], None]):
         """Run ``cb(self)`` once terminal (immediately if already)."""
         fire = False
+        self._observed = True
         with self._graph._lock:
             if self.done():
                 fire = True
@@ -362,6 +377,13 @@ class FuturizedGraph:
         self._stats = RuntimeStats()
         self._trace_hooks: list[Callable[[PhyFuture, tuple], None]] = []
         self._closed = False
+        # analysis support: weak registry of every node (snapshot()), the
+        # node each worker thread is running, and the per-thread blocked
+        # waits the sanitizer's deadlock watchdog walks
+        self._node_refs: list[weakref.ref] = []
+        self._refs_hwm = 256
+        self._running: dict[int, PhyFuture] = {}
+        self._waits: dict[int, tuple[Optional[PhyFuture], float]] = {}
         self._workers = [
             threading.Thread(target=self._worker, daemon=True,
                              name=f"{name}-futures-{i}")
@@ -403,10 +425,13 @@ class FuturizedGraph:
             node = PhyFuture(self, fn, args, kwargs, lane=lane,
                              name=name or getattr(fn, "__name__", "task"),
                              seq=next(self._seq))
+            node._deps = tuple(d._seq for d in deps)
+            self._register_locked(node)
             self._stats.submitted += 1
             self._unfinished += 1
             poisoned: Optional[PhyFuture] = None
             for d in deps:
+                d._fanout += 1
                 if d._state is TaskState.DONE:
                     continue
                 if d._state in _TERMINAL:      # errored / cancelled upstream
@@ -433,6 +458,7 @@ class FuturizedGraph:
                              kind="immediate")
             node._state = TaskState.DONE
             node._value = value
+            self._register_locked(node)
             self._stats.submitted += 1
             self._stats.completed += 1
         self._notify_trace(node, ())
@@ -469,6 +495,7 @@ class FuturizedGraph:
                              seq=next(self._seq), kind="promise")
             node._promise = True
             node._producer = producer
+            self._register_locked(node)
             self._stats.submitted += 1
             self._unfinished += 1
         self._notify_trace(node, ())
@@ -539,6 +566,8 @@ class FuturizedGraph:
         with self._lock:
             node = PhyFuture(self, None, (), {}, lane=Lane.COMPUTE,
                              name=name, seq=next(self._seq), kind="join")
+            node._deps = tuple(f._seq for f in futures)
+            self._register_locked(node)
             self._stats.submitted += 1
             self._unfinished += 1
         self._notify_trace(node, tuple(futures))
@@ -590,10 +619,48 @@ class FuturizedGraph:
         """Block the caller for all results (edge of the futurized world)."""
         return [f.result() for f in futures]
 
+    # -- analysis support ---------------------------------------------------
+    def _register_locked(self, node: PhyFuture):
+        refs = self._node_refs
+        refs.append(weakref.ref(node))
+        if len(refs) >= self._refs_hwm:   # amortized O(1) compaction
+            self._node_refs = [r for r in refs if r() is not None]
+            self._refs_hwm = max(256, 2 * len(self._node_refs))
+
+    def snapshot(self) -> list[dict]:
+        """A consistent structural snapshot of every live node, for the
+        static linter (``repro_torch.analysis.lint.LintGraph.from_graph``).
+
+        Returns:
+            One dict per node still alive (non-terminal nodes are always
+            strongly held by the scheduler; terminal ones only as long as
+            someone holds their future), in submission order::
+
+                {"seq": int, "name": str, "lane": "COMPUTE"|...,
+                 "kind": "task"|"promise"|"immediate"|"join",
+                 "state": "PENDING"|..., "producer": str,
+                 "observed": bool, "fanout": int, "deps": (seq, ...)}
+
+        ``fanout`` counts dependents ever attached - a collected
+        dependent drops its edge from the snapshot, but not this count,
+        so consumed nodes never read as dead (PHY004).
+        """
+        with self._lock:
+            nodes = [n for n in (r() for r in self._node_refs)
+                     if n is not None]
+            return [{"seq": n._seq, "name": n.name, "lane": n.lane.name,
+                     "kind": n._kind, "state": n._state.name,
+                     "producer": n._producer, "observed": n._observed,
+                     "fanout": n._fanout, "deps": n._deps} for n in nodes]
+
     # -- lifecycle ----------------------------------------------------------
     def barrier(self, timeout: Optional[float] = None):
         """Block until every submitted node is terminal."""
         with self._lock:
+            if _san.active():
+                self._sanitized_wait_locked(
+                    lambda: self._unfinished == 0, None, timeout)
+                return
             if not self._cond.wait_for(lambda: self._unfinished == 0,
                                        timeout):
                 raise TimeoutError(
@@ -676,6 +743,7 @@ class FuturizedGraph:
                 if node._state is not TaskState.READY:  # lazily cancelled
                     continue
                 node._state = TaskState.RUNNING
+                self._running[threading.get_ident()] = node
                 self._in_flight += 1
                 self._stats.max_in_flight = max(self._stats.max_in_flight,
                                                 self._in_flight)
@@ -692,6 +760,7 @@ class FuturizedGraph:
             except BaseException as e:  # noqa: BLE001 - propagated to deps
                 dt = time.perf_counter() - t1
                 with self._lock:
+                    self._running.pop(threading.get_ident(), None)
                     self._stats.busy_s += dt
                     self._stats.record_task(node.lane, dt)
                     self._in_flight -= 1
@@ -699,6 +768,7 @@ class FuturizedGraph:
             else:
                 dt = time.perf_counter() - t1
                 with self._lock:
+                    self._running.pop(threading.get_ident(), None)
                     self._stats.busy_s += dt
                     self._stats.record_task(node.lane, dt)
                     self._in_flight -= 1
@@ -769,9 +839,150 @@ class FuturizedGraph:
     def _wait_terminal(self, node: PhyFuture,
                        timeout: Optional[float] = None):
         with self._lock:
+            if _san.active():
+                self._sanitized_wait_locked(node.done, node, timeout)
+                return
             if not self._cond.wait_for(node.done, timeout):
                 raise TimeoutError(f"task {node.name!r} still "
                                    f"{node._state.value}")
+
+    # -- sanitizer: deadlock watchdog (DESIGN.md §12) ------------------------
+    def _sanitized_wait_locked(self, pred: Callable[[], bool],
+                               node: Optional[PhyFuture],
+                               timeout: Optional[float]):
+        """Chunked condition wait that registers itself in the wait-for
+        graph and periodically runs the deadlock scan; raises
+        ``sanitize.DeadlockError`` on a provable non-progress state
+        instead of hanging.  ``node`` is None for ``barrier()`` (waiting
+        on *every* unfinished node)."""
+        cfg = _san.config()
+        ident = threading.get_ident()
+        t0 = time.monotonic()
+        deadline = None if timeout is None else t0 + timeout
+        self._waits[ident] = (node, t0)
+        try:
+            while not pred():
+                now = time.monotonic()
+                if deadline is not None and now >= deadline:
+                    what = (f"task {node.name!r} still {node._state.value}"
+                            if node is not None else
+                            f"{self._unfinished} tasks still pending")
+                    raise TimeoutError(what)
+                step = cfg.chunk if deadline is None else min(
+                    cfg.chunk, deadline - now)
+                if self._cond.wait_for(pred, step):
+                    return
+                waited = time.monotonic() - t0
+                if waited >= cfg.deadlock_after:
+                    self._watchdog_locked(node, waited, cfg)
+        finally:
+            self._waits.pop(ident, None)
+
+    def _watchdog_locked(self, node: Optional[PhyFuture], waited: float,
+                         cfg) -> None:
+        """One deadlock scan over the wait-for graph; raises on proof.
+
+        Vertices are ``("T", thread_ident)`` and ``("N", node_seq)``.
+        Edges: a blocked thread -> the node(s) it waits on; a PENDING
+        node -> its unresolved deps; a RUNNING node -> its worker thread
+        *if that thread is itself blocked*; a READY node -> every blocked
+        worker, but only when ALL workers are blocked (otherwise a free
+        worker will drain it - progress).  A cycle reachable from the
+        calling thread can never resolve -> raise.  Separately, if the
+        wait has outlived ``orphan_after`` and every reachable frontier
+        leaf is an unproduced promise, nothing inside the process can
+        make progress either -> raise (PHY101 both ways)."""
+        alive = {n._seq: n for n in (r() for r in self._node_refs)
+                 if n is not None and not n.done()}
+        edges: dict = {}
+        by_seq_running = {id(rn): tid for tid, rn in self._running.items()}
+        worker_idents = {t.ident for t in self._workers}
+        blocked_workers = [i for i in worker_idents if i in self._waits]
+        all_workers_blocked = (len(blocked_workers) == len(self._workers))
+        for tid, (wnode, _) in self._waits.items():
+            if wnode is None:   # barrier: waits on every unfinished node
+                edges[("T", tid)] = tuple(("N", s) for s in alive)
+            elif not wnode.done():
+                edges[("T", tid)] = (("N", wnode._seq),)
+        for seq, n in alive.items():
+            if n._state is TaskState.PENDING and not n._promise:
+                edges[("N", seq)] = tuple(
+                    ("N", s) for s in n._deps
+                    if s in alive)
+            elif n._state is TaskState.READY and all_workers_blocked:
+                edges[("N", seq)] = tuple(
+                    ("T", i) for i in blocked_workers)
+            elif n._state is TaskState.RUNNING:
+                tid = by_seq_running.get(id(n))
+                if tid is not None and tid in self._waits:
+                    edges[("N", seq)] = (("T", tid),)
+        root = ("T", threading.get_ident())
+        cycle = _san.find_cycle(edges, (root,))
+        if cycle is not None:
+            names = [self._vertex_name(v, alive) for v in cycle]
+            idents = tuple(v[1] for v in cycle if v[0] == "T")
+            detail = (" -> ".join(names) + " -> (cycle)\n"
+                      + _san.thread_stacks(idents))
+            _san.get().record(
+                "PHY101", f"deadlock: wait-for cycle in graph "
+                f"{self.name!r} after {waited:.1f}s", detail=detail,
+                once_key=f"cycle:{self.name}:{names[0]}")
+            raise _san.DeadlockError(
+                f"PHY101 deadlock in graph {self.name!r}: "
+                + " -> ".join(names) + " -> (cycle)\n" + detail)
+        if waited < cfg.orphan_after:
+            return
+        # reachability: is every frontier leaf an unproduced promise?
+        seen = {root}
+        frontier: list[PhyFuture] = []
+        progress = False
+        stack = [root]
+        while stack:
+            v = stack.pop()
+            nbrs = edges.get(v, ())
+            if not nbrs and v[0] == "N":
+                n = alive.get(v[1])
+                if n is None:
+                    continue
+                if n._promise:
+                    frontier.append(n)
+                else:           # READY with a free worker / RUNNING free
+                    progress = True
+            for w in nbrs:
+                if w not in seen:
+                    seen.add(w)
+                    stack.append(w)
+        if progress or not frontier:
+            return
+        if any(n._producer for n in frontier):
+            # a declared producer means out-of-process work may still
+            # land; only an all-unproduced frontier is provably stuck
+            return
+        names = ", ".join(f"{n.name!r} (no producer)" for n in frontier)
+        detail = _san.thread_stacks(tuple(
+            t for t in self._waits))
+        _san.get().record(
+            "PHY101", f"stalled wait in graph {self.name!r}: every "
+            f"progress path ends in an unresolved promise ({names}) "
+            f"after {waited:.1f}s", detail=detail,
+            once_key=f"stall:{self.name}")
+        raise _san.DeadlockError(
+            f"PHY101 stalled wait in graph {self.name!r}: every progress "
+            f"path ends in an unresolved promise ({names}); waited "
+            f"{waited:.1f}s\n{detail}")
+
+    @staticmethod
+    def _vertex_name(v: tuple, alive: dict) -> str:
+        if v[0] == "T":
+            for t in threading.enumerate():
+                if t.ident == v[1]:
+                    return f"thread[{t.name}]"
+            return f"thread[{v[1]}]"
+        n = alive.get(v[1])
+        return (f"{n.name}({n._state.value})" if n is not None
+                else f"node[{v[1]}]")
+
+
 
 def block_until_ready(tree):
     """Wait until the device has computed every tensor in ``tree``: a

@@ -91,6 +91,10 @@ def _grads(leaves, unread) -> list:
 # ---------------------------------------------------------------------------
 @dataclasses.dataclass
 class TrainStep:
+    # the buffers fn takes over per call: updated in place where the
+    # reference donates them (donate_argnums=(0, 1)); the phylint
+    # step-contract builder lints against this declaration
+    donated_buffers = ("params", "opt")
     fn: Any          # (params, opt, batch) -> (metrics, params, opt)
     model: Any = None
     specs: Any = None            # ParamSpec tree
@@ -171,6 +175,9 @@ class DDPStep:
     them across localities; ``apply_fn`` applies the optimizer update to
     the summed-and-averaged buckets."""
 
+    # apply_fn updates (params, opt) in place where the reference's
+    # apply donates them (donate_argnums=(1, 2)); phylint lints against it
+    donated_buffers = ("params", "opt")
     grad_fn: Any     # (params, batch) -> (loss, [bufs])
     apply_fn: Any    # ([bufs], params, opt) -> (gnorm, params, opt)
     model: Any = None
@@ -241,6 +248,9 @@ def _serve_cfg(cfg):
 
 @dataclasses.dataclass
 class ServeStep:
+    # decode updates the cache in place where the reference donates it
+    # (donate_argnums=(1,)); phylint lints against this declaration
+    donated_buffers = ("cache",)
     fn: Any
     model: Any
     specs: Any

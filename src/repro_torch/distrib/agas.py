@@ -4,8 +4,9 @@ Counterpart: ``repro/distrib/agas.py`` (``RemoteRef``, ``_Forward``,
 ``ObjectDirectory``, ``rebalance_plan``).  The reference walks a value's
 leaves with JAX to size it (``_nbytes``); the port walks dicts, lists and
 tuples itself and sums the bytes of the numpy arrays and tensors it
-finds.  The runtime sanitizer's hooks (PHY105, PHY107) are left out with
-phylint (ROADMAP item 13).
+finds.  The runtime sanitizer's hooks are the reference's: unbalanced
+pin/deref accounting (PHY105) and a deref through a dead forwarding stub
+(PHY107).
 
 HPX's Active Global Address Space names every distributed object with a
 global id (gid) and resolves gids to owning localities, so tasks can be
@@ -38,6 +39,8 @@ import dataclasses
 import itertools
 import threading
 from typing import Any, Optional
+
+from ..analysis import sanitize as _san
 
 from .messaging import Endpoint, PeerLostError
 
@@ -209,25 +212,38 @@ class ObjectDirectory:
         if owner == self.rank:
             with self._lock:
                 if idx not in self._store:
+                    self._diagnose_miss(idx, self.rank)
                     raise KeyError(f"gid {ref.gid} not in directory")
                 value = self._store[idx]
                 if not isinstance(value, _Forward):
                     self.local_fetches += 1
                     return value
-            return self._chase(value, timeout)
+            return self._chase(ref, value, timeout)
         if self.endpoint is None:
             raise KeyError(f"gid {ref.gid} is remote and this directory "
                            f"has no endpoint")
         out = self.endpoint.request(owner, "agas_fetch", list(ref.gid),
                                     timeout=timeout)
         if isinstance(out, _Forward):
-            return self._chase(out, timeout)
+            return self._chase(ref, out, timeout)
         return out
 
-    def _chase(self, fwd: _Forward, timeout: float) -> Any:
+    def _chase(self, ref: RemoteRef, fwd: _Forward, timeout: float) -> Any:
+        """Deref one hop through a forwarding stub.  A chase that lands
+        on a dead locality or a freed target means the stub outlived the
+        migrated value: PHY107."""
         with self._lock:
             self.forwarded_fetches += 1
-        return self.fetch(fwd.ref, timeout=timeout)
+        try:
+            return self.fetch(fwd.ref, timeout=timeout)
+        except (KeyError, ConnectionError) as e:
+            if _san.active():
+                _san.get().record(
+                    "PHY107",
+                    f"locality {self.rank}: deref of gid {ref.gid} chased "
+                    f"a forwarding stub to dead gid {fwd.ref.gid}: {e}",
+                    once_key=f"fwd:{self.rank}:{ref.gid}")
+            raise
 
     def free(self, ref: RemoteRef):
         """Drop the value behind ``ref`` (idempotent; remote owners get
@@ -241,9 +257,19 @@ class ObjectDirectory:
     def _free_local(self, idx: int):
         with self._lock:
             value = self._store.pop(idx, None)
-            if value is not None:
+            present = value is not None
+            if present:
                 self.frees += 1
                 self._freed.add(idx)
+            # double-free is idempotent by contract; freeing an index
+            # that was never issued is an accounting bug (PHY105)
+            unknown = not present and idx not in self._freed
+        if unknown and _san.active():
+            _san.get().record(
+                "PHY105",
+                f"locality {self.rank}: free of never-registered gid "
+                f"({self.rank}, {idx})",
+                once_key=f"free:{self.rank}:{idx}")
         if isinstance(value, _Forward) and self.endpoint is not None:
             # freeing a migrated gid frees the migrated value too
             try:
@@ -252,9 +278,22 @@ class ObjectDirectory:
             except PeerLostError:
                 pass                  # new owner already gone; nothing held
 
+    def _diagnose_miss(self, idx: int, requester) -> None:
+        """Classify a fetch miss for the sanitizer (caller raises)."""
+        if not _san.active():
+            return
+        kind = ("fetch after free" if idx in self._freed
+                else "fetch of never-registered gid")
+        _san.get().record(
+            "PHY105",
+            f"locality {self.rank}: {kind} ({self.rank}, {idx}) "
+            f"requested by locality {requester}",
+            once_key=f"fetch:{self.rank}:{idx}")
+
     def audit(self) -> dict:
         """Pin/deref accounting for this locality's slice of the address
-        space (surfaced in runtime stats)."""
+        space: informational (surfaced in runtime stats); imbalances that
+        are provable bugs are reported as PHY105 diagnostics instead."""
         with self._lock:
             return {"live": len(self._store), "puts": self.puts,
                     "local_fetches": self.local_fetches,
@@ -314,6 +353,7 @@ class ObjectDirectory:
             if idx in self._store:
                 self.local_fetches += 1
                 return self._store[idx]
+        self._diagnose_miss(idx, src)
         raise KeyError(f"gid {tuple(gid)} not in directory of "
                        f"locality {self.rank}")
 

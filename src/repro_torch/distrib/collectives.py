@@ -24,7 +24,9 @@ little-endian uint32 words) followed by the R float32 row scales.  Only
 the payload bytes cross to the host and the wire, through a pageable
 ``.cpu().numpy().tobytes()`` copy; ``decode`` returns the contribution on
 the codec's device.  At world 1 nothing is posted, but every bucket still
-passes through the codec, as in the reference.
+passes through the codec, as in the reference.  The runtime sanitizer
+flags a ring generation that goes back in ``configure`` (PHY103), as the
+reference's does.
 """
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
+from ..analysis import sanitize as _san
 from ..optim import compression
 from .messaging import Endpoint, PeerLostError
 
@@ -244,6 +247,14 @@ class RingAllReduce:
         codec = get_codec(codec_name)
         codec.reset(plan, device)
         with self._cond:
+            if gen is not None and int(gen) < self._gen and _san.active():
+                # a regressed generation would resurrect stale inbox
+                # segments this ring already agreed to drop (PHY103)
+                _san.get().record(
+                    "PHY103",
+                    f"rank {self.rank}: ring generation regressed "
+                    f"{self._gen} -> {int(gen)} in configure()",
+                    once_key=f"{self.rank}:{self._gen}:{gen}")
             self._gen = int(gen) if gen is not None else self._gen + 1
             gen = self._gen
             self._inbox = {k: v for k, v in self._inbox.items()

@@ -2,8 +2,9 @@
 
 Counterpart: ``repro/distrib/messaging.py``, copied: the module imports
 no JAX, and its frames, envelopes and payload pickles are the
-reference's.  The runtime sanitizer's hooks (PHY102, PHY104) are left
-out: the sanitizer is ROADMAP item 13.  Five changes, none on the wire:
+reference's, and so are the runtime sanitizer's hooks: a post to an
+unregistered action (PHY102) and an ack dropped because its requester is
+gone (PHY104).  Five changes, none on the wire:
 ``close`` shuts its connections down before closing them, so that a peer
 sees an endpoint closed in a live process end as it sees a dead
 process's; a frame is read into one buffer of its size and sent as its
@@ -54,6 +55,8 @@ import struct
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, Optional
+
+from ..analysis import sanitize as _san
 
 try:
     import msgpack
@@ -511,10 +514,16 @@ class Endpoint:
                         send_frame(sock, ack)
                         with self._lock:
                             self.bytes_sent += len(ack["payload"])
-                except (OSError, pickle.PicklingError, TypeError):
+                except (OSError, pickle.PicklingError, TypeError) as e:
                     # requester is gone or the value is unpicklable; the
-                    # reply is undeliverable either way
-                    pass
+                    # reply is undeliverable either way (PHY104)
+                    if _san.active():
+                        _san.get().record(
+                            "PHY104",
+                            f"locality {self.rank}: ack for "
+                            f"{env['action']!r} to locality {src} "
+                            f"dropped: {e}",
+                            once_key=f"{self.rank}:{src}:{env['action']}")
 
         if self._closed:
             return
@@ -532,6 +541,12 @@ class Endpoint:
                 "(from locality %s); further drops to it are counted "
                 "in unhandled_posts without logging", self.rank, action,
                 src)
+        if _san.active():
+            _san.get().record(
+                "PHY102",
+                f"locality {self.rank}: post to unregistered action "
+                f"{action!r} (from locality {src})",
+                once_key=f"{self.rank}:{action}")
 
     def _drop(self, rank: int, sock: Optional[socket.socket] = None):
         """Tear down the connection to ``rank``.

@@ -5,12 +5,16 @@ Counterpart: ``repro/distrib/runtime.py`` (``RemoteTaskError``,
 ``DistributedGraph``, ``_LocalCall``, ``_checksum_vote``, and the
 elastic membership of DESIGN.md §13: ``join_locality``,
 ``DistributedGraph.add_locality`` and ``rebalance``, victim-lease work
-stealing).  The reference uses JAX only to walk argument trees and to
-stand up ``jax.distributed`` for SPMD mode; the port walks trees itself
-(``agas.tree_leaves``/``tree_map``) and has no SPMD mode: its handlers
-are ROADMAP item 13 and raise ``NotImplementedError``.  The runtime
-sanitizer's hooks (PHY106, the steal-lease fencing diagnostics) are left
-out with phylint, also item 13; the fencing itself is kept.
+stealing, and SPMD mode's ``spmd_train`` / ``ckpt_entries`` /
+``spmd_done`` protocol, DESIGN.md §10).  The reference uses JAX to walk
+argument trees and to stand up ``jax.distributed`` for SPMD mode; the
+port walks trees itself (``agas.tree_leaves``/``tree_map``), and a worker
+of an SPMD session joins a ``torch.distributed`` gloo world instead
+(``launch.mesh.maybe_init_distributed``), which runs no collective: it
+only makes the world's size and this process's rank known to the
+checkpoint layer.  The runtime sanitizer's hooks are the reference's: a
+task spawned twice on one locality, completed by a locality that no
+longer owns it, or a steal under a stale membership generation (PHY106).
 
 A *locality* is one Python process with its own ``FuturizedGraph``; the
 driver (rank 0) holds a ``DistributedGraph`` whose ``defer`` mirrors the
@@ -58,6 +62,7 @@ import time
 from concurrent.futures import CancelledError
 from typing import Any, Callable, Optional
 
+from ..analysis import sanitize as _san
 from ..core.futures import FuturizedGraph, Lane, PhyFuture
 from .agas import ObjectDirectory, RemoteRef, tree_leaves, tree_map
 from .collectives import RingAllReduce
@@ -66,8 +71,6 @@ from .messaging import Endpoint, PeerLostError, raw_request
 __all__ = ["DistributedGraph", "Locality", "LocalityGroup",
            "LocalityLostError", "RemoteTaskError", "join_locality",
            "worker_main"]
-
-_SPMD = "SPMD mode: ROADMAP item 13"
 
 
 class RemoteTaskError(RuntimeError):
@@ -89,10 +92,6 @@ def _deref_tree(argskw, directory: ObjectDirectory):
     owner, one AGAS fetch otherwise)."""
     return tree_map(lambda x: directory.fetch(x) if _is_ref(x) else x,
                     argskw, is_leaf=_is_ref)
-
-
-def _raise_spmd(src, spec):
-    raise NotImplementedError(f"spmd_train: {_SPMD}")
 
 
 # ---------------------------------------------------------------------------
@@ -149,7 +148,7 @@ class Locality:
         ep.register("shutdown", lambda src, p: self._stop.set())
         ep.register("ping", lambda src, p: p)
         ep.register("stats", self._on_stats)
-        ep.register("spmd_train", _raise_spmd)
+        ep.register("spmd_train", self._on_spmd_train)
         # the ring registers its own "grad_ring" handler: it must exist
         # BEFORE any peer can send (posts to an unregistered action are
         # dropped, never delivered late), so it is born with the locality
@@ -164,10 +163,19 @@ class Locality:
         with self._lock:
             self.membership_gen = max(self.membership_gen,
                                       int(p.get("gen", 0)))
-            if p["tid"] in self._tasks:
-                # the handoff protocol never lands one tid here twice: a
-                # second spawn means a lease raced a re-spawn - drop it
-                return
+            dup = p["tid"] in self._tasks
+        if dup:
+            # the handoff protocol never lands one tid here twice: a
+            # second spawn means a lease raced a re-spawn past the
+            # driver's fencing (PHY106) - drop it
+            if _san.active():
+                _san.get().record(
+                    "PHY106",
+                    f"locality {self.rank}: task {p['tid']} "
+                    f"({p['name']}) spawned here twice - steal-lease "
+                    f"violation",
+                    once_key=f"spawn:{self.rank}:{p['tid']}")
+            return
         node = self.graph.defer(self._run, p["fn"], p["args"], p["kwargs"],
                                 lane=Lane(p["lane"]), name=p["name"])
         with self._lock:
@@ -331,6 +339,30 @@ class Locality:
         if rank == 0:               # driver died: nothing left to serve
             self._stop.set()
 
+    def _on_spmd_train(self, src: int, spec: dict):
+        """Run the SPMD shadow train loop (``frontend.spmd``) on its own
+        thread: this locality mirrors the driver's device computation in
+        lockstep and writes its own checkpoint segments, posting back only
+        the manifest entries.  Completion (or the failure) is reported in
+        a ``spmd_done`` post, which also carries the kernel launches of
+        the loop and the sanitizer's diagnostics on this locality (the
+        port's own additions: the driver checks both)."""
+        def run():
+            try:
+                from ..frontend.spmd import shadow_train
+                out = shadow_train(spec, endpoint=self.endpoint)
+                msg = dict(out, rank=self.rank, ok=True)
+            except BaseException as e:  # noqa: BLE001 - shipped back
+                msg = {"rank": self.rank, "ok": False,
+                       "error": f"{type(e).__name__}: {e}"}
+            msg["diagnostics"] = [str(d) for d in _san.get().diagnostics()]
+            try:
+                self.endpoint.post(src, "spmd_done", msg)
+            except PeerLostError:
+                pass
+        threading.Thread(target=run, daemon=True,
+                         name=f"spmd-shadow-{self.rank}").start()
+
     def _on_ddp_train(self, src: int, spec: dict):
         """Run the fabric-DDP train loop (``frontend.ddp``) on its own
         thread: this locality computes the gradients of its shard block,
@@ -393,13 +425,26 @@ def worker_main(rank: int, world: int, driver_addr,
 
     ``env`` entries are exported before any device work (the session
     forwards the checkpoint directory as ``PHYRAX_CKPT_DIR``, an elastic
-    driver ``PHYRAX_ELASTIC``); ``_locality_env`` then exports the rank.
+    driver ``PHYRAX_ELASTIC``, an SPMD session its gloo coordinator as
+    ``PHYRAX_DIST_COORDINATOR``); ``_locality_env`` then exports the
+    rank, and ``launch.mesh.maybe_init_distributed`` joins the
+    ``torch.distributed`` world (a no-op unless a coordinator is set)
+    before this process serves: the driver's own join, on a thread,
+    completes only when every rank has joined.  The world is torn down
+    after the driver's shutdown.
     """
     for k, v in (env or {}).items():
         os.environ[k] = v
     _locality_env(rank)
+    from ..launch.mesh import maybe_init_distributed
+    spmd = maybe_init_distributed(process_id=rank, num_processes=world)
     elastic = os.environ.get("PHYRAX_ELASTIC", "") not in ("", "0")
-    Locality(rank, world, elastic=elastic).serve(tuple(driver_addr))
+    try:
+        Locality(rank, world, elastic=elastic).serve(tuple(driver_addr))
+    finally:
+        if spmd:
+            import torch.distributed as dist
+            dist.destroy_process_group()
 
 
 def join_locality(driver_addr: tuple[str, int], *,
@@ -688,6 +733,8 @@ class DistributedGraph:
         self.directory = ObjectDirectory(0, self.endpoint)
         self.endpoint.register("task_done", self._on_task_done)
         self.endpoint.register("ddp_done", self._on_ddp_done)
+        self.endpoint.register("ckpt_entries", self._on_ckpt_entries)
+        self.endpoint.register("spmd_done", self._on_spmd_done)
         self.endpoint.register("join", self._on_join_request)
         self.endpoint.register("steal_request", self._on_steal_request)
         self.endpoint.register("steal_handoff", self._on_steal_handoff)
@@ -716,6 +763,10 @@ class DistributedGraph:
         self.grad_ring = RingAllReduce(self.endpoint, localities,
                                        account=self.account_grad_wire_bytes)
         self._ddp_done: dict[int, dict] = {}
+        # (step, rank) -> entry promise (save registered first) or the
+        # buffered entry value (the worker's post arrived first)
+        self._spmd_entries: dict[tuple[int, int], Any] = {}
+        self._spmd_done: dict[int, dict] = {}
         self._closed = False
 
     @property
@@ -1162,6 +1213,13 @@ class DistributedGraph:
             gen = self.group.gen
         depths = self._queue_depths()
         if int(p.get("gen", -1)) != gen:
+            if _san.active():
+                _san.get().record(
+                    "PHY106",
+                    f"steal_request from locality {thief} under stale "
+                    f"membership generation {p.get('gen')} "
+                    f"(current {gen})",
+                    once_key=f"reqgen:{thief}:{p.get('gen')}")
             return {"handed": 0, "stale": True, "gen": gen,
                     "depths": depths}
         rec = self._steal_local(thief)
@@ -1205,15 +1263,36 @@ class DistributedGraph:
             if rec.promise.done():
                 return
             if not rec.sent or rec.target != src:
-                return      # a peer-loss re-spawn won the race
+                # the record moved while the lease was in flight (a
+                # peer-loss re-spawn won the race): refusing keeps
+                # execution at exactly one locality
+                if _san.active():
+                    _san.get().record(
+                        "PHY106",
+                        f"steal handoff for {tid} from locality {src} "
+                        f"refused: the record "
+                        + ("was never dispatched" if not rec.sent else
+                           f"is owned by locality {rec.target}")
+                        + " (lease raced a re-spawn)",
+                        once_key=f"handoff:{tid}")
+                return
             rec.sent = False
-            if gen == cur and thief in self.group.alive_workers():
+            alive = set(self.group.alive_workers())
+            if gen == cur and thief in alive:
                 rec.target = thief
                 rec.stolen = True
             else:
                 # a stale lease generation (membership changed mid-steal)
                 # or a dead thief: fence the steal but never strand the
                 # task - the victim's copy is already cancelled
+                if _san.active():
+                    _san.get().record(
+                        "PHY106",
+                        f"steal of {tid} fenced: "
+                        + (f"lease generation {gen} != membership "
+                           f"generation {cur}" if gen != cur
+                           else f"thief locality {thief} is dead"),
+                        once_key=f"fence:{tid}")
                 rec.target = self._fallback(rec.lane)
         try:
             self._send_spawn(rec)
@@ -1226,14 +1305,6 @@ class DistributedGraph:
         in a shard write's payload."""
         with self._lock:
             self.ckpt_leaf_wire_bytes += int(n)
-
-    def spmd_train(self, spec: dict):
-        """The SPMD shadow train loop on every worker.
-
-        Raises:
-            NotImplementedError: always (ROADMAP item 13).
-        """
-        raise NotImplementedError(f"spmd_train: {_SPMD}")
 
     # -- fabric DDP (ring all-reduce; DESIGN.md §11) --------------------------
     def account_grad_wire_bytes(self, n: int):
@@ -1301,6 +1372,132 @@ class DistributedGraph:
                                f"{timeout}s")
         return done
 
+    # -- SPMD mode (DESIGN.md §10) ---------------------------------------------
+    def spmd_train(self, spec: dict):
+        """Start the SPMD shadow train loop (``frontend.spmd``) on every
+        alive worker locality: each mirrors the driver's device
+        computation in lockstep and writes its own checkpoint segments
+        (``checkpoint.spmd.write_spmd_shard``).
+
+        Args:
+            spec: picklable dict - ``plan``, ``steps``, ``ckpt_every``,
+                ``ckpt_dir``, ``resume``, ``stream`` and ``num_threads``
+                (the driver's CPU thread count, so that CPU float32 sums
+                run in the same order in every process).
+        """
+        with self._lock:
+            self._spmd_done.clear()    # completions are per-run
+        for rank in self.group.alive_workers():
+            try:
+                self.endpoint.post(rank, "spmd_train", spec)
+            except PeerLostError:      # died since alive_workers(): its
+                pass                   # entry promises poison via peer loss
+
+    def spmd_entry_futures(self, step: int, ranks) -> list[PhyFuture]:
+        """One promise per other process of the world for its shard
+        manifest entry of ``step`` - the metadata-only return channel of
+        an SPMD save.  A promise for an already-dead locality (or one whose
+        locality dies before posting) is poisoned with
+        ``LocalityLostError``: its bytes exist nowhere else, so the save
+        must abort, never commit.
+
+        Args:
+            step: the save's step number.
+            ranks: the non-driver process ranks expected to write.
+        Returns:
+            List of ``PhyFuture`` resolving to the entries (or None for
+            a rank that had nothing to write).
+        """
+        out = []
+        for r in ranks:
+            key = (int(step), int(r))
+            p = self._graph.promise(name=f"ckpt:entry{r}:{step}",
+                                    lane=Lane.CHECKPOINT,
+                                    producer=f"L{r}")
+            settle = None
+            with self._lock:
+                done = self._spmd_done.get(int(r))
+                if key in self._spmd_entries and not isinstance(
+                        self._spmd_entries[key], PhyFuture):
+                    settle = ("value", self._spmd_entries.pop(key))
+                elif r != 0 and r not in self.group.alive_workers():
+                    settle = ("lost", f"locality {r} is not alive")
+                elif done is not None and not done.get("ok"):
+                    # the shadow ALREADY failed on a live worker: this
+                    # entry will never be posted
+                    settle = ("lost", f"SPMD shadow on locality {r} "
+                                      f"failed: {done.get('error')}")
+                else:
+                    self._spmd_entries[key] = p
+            if settle is None:
+                pass
+            elif settle[0] == "value":
+                p.set_result(settle[1])
+            else:
+                p.set_exception(LocalityLostError(
+                    f"ckpt entry for step {step}: {settle[1]}; its "
+                    f"segments exist nowhere else - SPMD save aborted"))
+            out.append(p)
+        return out
+
+    def _on_ckpt_entries(self, src: int, msg: dict):
+        key = (int(msg["step"]), int(msg["rank"]))
+        with self._lock:
+            cur = self._spmd_entries.get(key)
+            if isinstance(cur, PhyFuture):
+                del self._spmd_entries[key]
+            else:                    # worker ahead of the driver: buffer
+                self._spmd_entries[key] = msg["entry"]
+                cur = None
+        if cur is not None:
+            cur.set_result(msg["entry"])
+
+    def _on_spmd_done(self, src: int, msg: dict):
+        with self._lock:
+            self._spmd_done[int(msg["rank"])] = msg
+            self._lock.notify_all()
+        if not msg.get("ok"):
+            # the shadow died: entries it still owes will never arrive
+            self._poison_spmd_entries(
+                int(msg["rank"]),
+                f"SPMD shadow on locality {msg['rank']} failed: "
+                f"{msg.get('error')}")
+
+    def _poison_spmd_entries(self, rank: int, reason: str):
+        with self._lock:
+            pend = [(k, v) for k, v in self._spmd_entries.items()
+                    if k[1] == rank and isinstance(v, PhyFuture)]
+            for k, _ in pend:
+                del self._spmd_entries[k]
+        for _, p in pend:
+            p.set_exception(LocalityLostError(reason))
+
+    def wait_spmd_done(self, timeout: float = 600.0) -> dict:
+        """Block until every *alive* worker's shadow train loop reported
+        completion (a killed worker is excused - its saves aborted).
+
+        Returns:
+            ``{rank: done message}`` as received, each with ``ok`` and,
+            from a shadow that ran, ``step``, ``final_loss``,
+            ``launches`` and ``diagnostics`` (the port's additions).
+        Raises:
+            TimeoutError: an alive worker's shadow did not finish.
+        """
+        deadline = time.monotonic() + timeout
+
+        def ready():
+            alive = set(self.group.alive_workers())
+            return all(r in self._spmd_done for r in alive)
+
+        with self._lock:
+            ok = self._lock.wait_for(
+                ready, timeout=max(0.0, deadline - time.monotonic()))
+            done = dict(self._spmd_done)
+        if not ok:
+            raise TimeoutError("SPMD shadow train loops still running "
+                               f"after {timeout}s")
+        return done
+
     # -- wire handlers --------------------------------------------------------
     def _on_task_done(self, src: int, msg: dict):
         with self._lock:
@@ -1308,6 +1505,19 @@ class DistributedGraph:
         if rec is None:
             return                           # cancelled/re-spawned: stale
         status = msg["status"]
+        if status == "ok" and rec.sent and src != rec.target:
+            # a completion from a locality that no longer owns the record
+            # means the task ran somewhere the driver had moved it away
+            # from - the exactly-once invariant broke (PHY106).  The
+            # result is still good: settle with it (the owning copy's
+            # duplicate spawn was dropped on arrival).
+            if _san.active():
+                _san.get().record(
+                    "PHY106",
+                    f"task {msg['tid']} ({rec.name}) completed on "
+                    f"locality {src} but the record is owned by locality "
+                    f"{rec.target} - steal-lease violation",
+                    once_key=f"done:{msg['tid']}")
         if status == "ok":
             self._finish(rec, value=msg["value"])
         elif status == "cancelled":
@@ -1338,6 +1548,11 @@ class DistributedGraph:
             # survivor with no direct connection to the dead rank never
             # observes the loss itself
             self.ddp_abort(f"locality {rank} died mid-all-reduce")
+        # SPMD shard entries die with their writer: poison, never re-spawn
+        self._poison_spmd_entries(
+            rank, f"locality {rank} died before shipping its shard "
+                  f"entry; its segments exist nowhere else - SPMD save "
+                  f"aborted")
         with self._lock:
             stranded = [r for r in self._outstanding.values()
                         if r.target == rank]
@@ -1421,9 +1636,16 @@ class DistributedGraph:
                 pass
         with self._lock:
             stranded = list(self._outstanding.values())
+            entry_pend = [(k, v) for k, v in self._spmd_entries.items()
+                          if isinstance(v, PhyFuture)]
+            self._spmd_entries.clear()
         for rec in stranded:
             self._finish(rec, exc=LocalityLostError(
                 f"{rec.name}: distributed graph shut down"))
+        for k, p in entry_pend:        # an unresolved promise would hang
+            p.set_exception(LocalityLostError(  # the graph's barrier
+                f"ckpt entry for step {k[0]}: distributed graph shut "
+                f"down"))
         self.group.shutdown()
         if self._own_graph:
             self._graph.shutdown(wait=True)

@@ -3,8 +3,9 @@
 Counterpart: ``repro/frontend/cli.py`` (``cli_args``, ``plan_from_args``,
 ``serve_flags``), cut to the flags that ``Session.serve``,
 ``Session.serve_stream`` and ``Session.train`` use, plus ``--device``.
-``--localities``, ``--ddp``, ``--grad-codec``, ``--ddp-shards``,
-``--elastic``, ``--elastic-port`` and ``--replicas`` map onto the plan;
+``--localities``, ``--spmd``, ``--ddp``, ``--grad-codec``,
+``--ddp-shards``, ``--elastic``, ``--elastic-port`` and ``--replicas``
+map onto the plan;
 the mesh flags come with ROADMAP item 14.  ``launch/train.py``'s
 ``--ckpt`` maps onto ``Plan.ckpt_dir``.
 """
@@ -22,8 +23,8 @@ __all__ = ["cli_args", "plan_from_args", "serve_flags", "train_flags"]
 def cli_args(ap: Optional[argparse.ArgumentParser] = None
              ) -> argparse.ArgumentParser:
     """Add the shared launcher flags (``--arch``, ``--tiny``/``--full``,
-    ``--device``, ``--seed``, ``--localities``) to ``ap`` (created if
-    None)."""
+    ``--device``, ``--seed``, ``--localities``, ``--spmd``) to ``ap``
+    (created if None)."""
     if ap is None:
         ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-4b", choices=ARCH_IDS)
@@ -39,6 +40,11 @@ def cli_args(ap: Optional[argparse.ArgumentParser] = None
                          "--ddp each trains its own shard block), write "
                          "their checkpoint shards, and host the gateway's "
                          "replicas")
+    ap.add_argument("--spmd", action="store_true",
+                    help="SPMD mode over a torch.distributed world (needs "
+                         "--localities > 1): every process trains in "
+                         "lockstep and checkpoints only its own segments "
+                         "(DESIGN.md §10)")
     return ap
 
 
@@ -119,7 +125,8 @@ def plan_from_args(args, **overrides) -> Plan:
     win over parsed flags."""
     fields = {name: getattr(args, name)
               for name in ("arch", "tiny", "seed", "device", "batch", "seq",
-                           "localities", "ddp", "grad_codec", "ddp_shards",
+                           "localities", "spmd", "ddp", "grad_codec",
+                           "ddp_shards",
                            "elastic", "elastic_port", "replicas")
               if hasattr(args, name)}
     if getattr(args, "ckpt", ""):

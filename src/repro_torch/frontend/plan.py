@@ -1,7 +1,8 @@
 """Plan/Session: the declarative frontend over the futurized runtime.
 
 Counterpart: ``repro/frontend/plan.py`` (``Plan``, and ``Session``'s
-``__init__``, ``close``, ``stats``, ``train_step``, ``train`` with
+``__init__``, ``_start_jax_distributed`` as ``_start_distributed``,
+``close``, ``stats``, ``lint``, ``train_step``, ``train`` with
 ``_train_ddp`` folded into it, ``_serve_steps_for``, ``serve`` and
 ``serve_stream``).  A
 ``Plan`` is the *what* of a run, a frozen value that touches no device state;
@@ -24,14 +25,20 @@ message ring.  ``serve_stream`` homes its gateway replicas on the
 localities (their requests' ``stack`` prep runs there; the model runs
 here).  ``Plan(elastic=True)`` takes new localities mid-run
 (``Session.add_locality``, or a ``--join`` dial-in at
-``Session.join_address``) that steal host tasks (DESIGN.md §13).  What is
-still missing raises ``NotImplementedError`` naming the ROADMAP item that
-brings it: SPMD mode (item 13), mesh axes and step resilience (item 14),
-named shapes (item 15).
+``Session.join_address``) that steal host tasks (DESIGN.md §13).
+``Plan(spmd=True, localities=N)`` is SPMD mode (DESIGN.md §10): the N
+processes join a ``torch.distributed`` gloo world, every worker runs the
+train loop in lockstep (``frontend/spmd.py``) and each process writes its
+own checkpoint segments (``checkpoint/spmd.py``).  ``Session.lint`` runs
+phylint's static passes over the session's live graph.  What is still
+missing raises ``NotImplementedError`` naming the ROADMAP item that
+brings it: mesh axes and step resilience (item 14), named shapes (item
+15).
 """
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 from typing import Any, Optional
 
@@ -51,6 +58,9 @@ from .futurize import Trace
 from .gateway import Gateway, RequestQueue
 
 __all__ = ["Plan", "Session"]
+
+#: how long the driver waits for its own join of the SPMD world
+_DIST_INIT_TIMEOUT_S = 120.0
 
 
 def _stack_wave(wave):
@@ -112,9 +122,26 @@ class Plan:
         return Session(self)
 
 
+def _destroy_world():
+    """Leave the ``torch.distributed`` world, if this process is in one.
+    After a join that never completed (a worker died before it joined),
+    give back the name it took instead: the default group's name comes
+    from a per-process counter that ``destroy_process_group`` resets, and
+    a counter left one ahead would key this process's next world apart
+    from its new peers', which start at zero."""
+    import torch.distributed as dist
+    if not dist.is_available():
+        return
+    if dist.is_initialized():
+        dist.destroy_process_group()
+        return
+    from torch.distributed import distributed_c10d
+    world = getattr(distributed_c10d, "_world", None)
+    if world is not None and hasattr(world, "group_count"):
+        world.group_count = 0
+
+
 def _unsupported(plan: Plan) -> Optional[str]:
-    if plan.spmd:
-        return "spmd=True (SPMD mode, ROADMAP item 13)"
     if plan.mesh != "local" or plan.data * plan.model * plan.pod != 1:
         return "mesh axes (mesh-parallel strategies, ROADMAP item 14)"
     if plan.shape is not None:
@@ -133,8 +160,16 @@ class Session:
     drains the distributed graph before the local shutdown barrier, so
     worker teardown never strands a promise.
 
+    With ``plan.spmd`` the processes also form a ``torch.distributed``
+    world (gloo; rank 0 is this process): the driver's join starts on a
+    thread before the workers are spawned, since it completes only when
+    every rank has joined, and the coordinator reaches the workers through
+    their spawn environment alone; ``close()`` tears the world down, so a
+    later session in the same interpreter starts clean.
+
     Raises:
-        ValueError: a plan the reference refuses (``elastic`` with
+        ValueError: a plan the reference refuses (``spmd`` with fewer
+            than two localities or with ``ddp``, ``elastic`` with
             ``spmd`` or ``ddp``, a bad DDP codec or shard count).
         NotImplementedError: a plan the port does not run yet.
         RuntimeError: a CUDA plan without a GPU.
@@ -155,6 +190,13 @@ class Session:
                 "Plan(elastic=True) does not compose with spmd or ddp: "
                 "their collectives assume a fixed world; elastic "
                 "membership is for the task-parallel runtime")
+        if plan.spmd and plan.localities < 2:
+            raise ValueError("Plan(spmd=True) needs localities >= 2: "
+                             "SPMD mode is the multi-process path")
+        if plan.ddp and plan.spmd:
+            raise ValueError("Plan(ddp=True) and Plan(spmd=True) are "
+                             "exclusive multi-process modes: ddp shards "
+                             "the batch, spmd mirrors it")
         missing = _unsupported(plan)
         if missing is not None:
             raise NotImplementedError(f"the port does not run {missing} yet")
@@ -181,26 +223,79 @@ class Session:
             # each locality creates it and writes its own shards there
             env = {"PHYRAX_CKPT_DIR": plan.ckpt_dir} if plan.ckpt_dir \
                 else {}
+            init_thread = None
+            if plan.spmd:
+                env, init_thread = self._start_distributed(env)
             # dial-in joiners adopt the environment spawned workers get
             join_spec = {"env": dict(env)} if plan.elastic else None
-            self.distributed = DistributedGraph(
-                localities=plan.localities, graph=self.runtime,
-                worker_env=env or None, name=f"session:{plan.arch}",
-                elastic=plan.elastic, elastic_port=plan.elastic_port,
-                join_spec=join_spec)
+            try:
+                self.distributed = DistributedGraph(
+                    localities=plan.localities, graph=self.runtime,
+                    worker_env=env or None, name=f"session:{plan.arch}",
+                    elastic=plan.elastic, elastic_port=plan.elastic_port,
+                    join_spec=join_spec)
+                if init_thread is not None:
+                    init_thread.join(timeout=_DIST_INIT_TIMEOUT_S)
+                    if init_thread.is_alive():
+                        raise TimeoutError(
+                            "torch.distributed.init_process_group did not "
+                            "complete on the driver")
+                    if self._dist_init_error:
+                        raise self._dist_init_error[0]
+            except BaseException:
+                # a failed bring-up must not leave a world (or workers)
+                # behind to poison the next session in this interpreter
+                if self.distributed is not None:
+                    self.distributed.shutdown(wait=False)
+                self.runtime.shutdown(wait=False)
+                _destroy_world()
+                raise
         self._train_step = None
         self._serve_steps: dict[tuple, tuple] = {}
         self._closed = False
 
+    def _start_distributed(self, env: dict):
+        """SPMD bring-up: pick a loopback coordinator, put it in the
+        workers' spawn environment, and start the driver's own join (rank
+        0) on a thread: it blocks until every process has joined, and the
+        workers are spawned only by the ``DistributedGraph`` made next.
+        This process's ``os.environ`` stays untouched, so a later
+        non-SPMD session in the same interpreter cannot inherit a stale
+        coordinator."""
+        from ..launch.mesh import free_port, maybe_init_distributed
+        coord = f"127.0.0.1:{free_port()}"
+        env = dict(env)
+        env["PHYRAX_DIST_COORDINATOR"] = coord
+        env["PHYRAX_DIST_NUM_PROCESSES"] = str(self.plan.localities)
+        self._dist_init_error: list = []
+
+        def init():
+            try:
+                maybe_init_distributed(
+                    process_id=0, num_processes=self.plan.localities,
+                    coordinator=coord)
+            except BaseException as e:  # noqa: BLE001 - re-raised above
+                self._dist_init_error.append(e)
+
+        t = threading.Thread(target=init, daemon=True,
+                             name="distributed-init")
+        t.start()
+        return env, t
+
     # -- lifecycle ----------------------------------------------------------
     def close(self):
         """Run the shutdown barrier: drain distributed tasks, stop worker
-        localities, then drain and stop the local runtime.  Idempotent."""
+        localities, then drain and stop the local runtime; in SPMD mode
+        also leave the ``torch.distributed`` world.  Idempotent."""
         if not self._closed:
             self._closed = True
-            if self.distributed is not None:
-                self.distributed.shutdown(wait=True)
-            self.runtime.shutdown(wait=True)
+            try:
+                if self.distributed is not None:
+                    self.distributed.shutdown(wait=True)
+                self.runtime.shutdown(wait=True)
+            finally:
+                if self.plan.spmd:
+                    _destroy_world()
 
     def __enter__(self) -> "Session":
         return self
@@ -211,6 +306,23 @@ class Session:
     def stats(self):
         """The session runtime's ``RuntimeStats``."""
         return self.runtime.stats()
+
+    def lint(self, *, strict_lanes: bool = False):
+        """Run the static phylint passes over this session's live graph.
+
+        Snapshots every node the runtime still holds (in flight and
+        recently retired) and applies the PHY001-PHY006 rule set
+        (DESIGN.md §12).  Works for any locality count: unlike the dryrun
+        mirrors in ``analysis.trace_builders``, this sees the
+        promise/dispatch pairs a distributed run actually created.
+
+        Returns:
+            List of ``analysis.lint.Finding``, empty when clean.
+        """
+        from ..analysis import lint as lint_mod
+
+        return lint_mod.lint(lint_mod.LintGraph.from_graph(self.runtime),
+                             strict_lanes=strict_lanes)
 
     @property
     def join_address(self) -> Optional[tuple]:
@@ -281,7 +393,17 @@ class Session:
         return self._serve_steps[key]
 
     # -- train --------------------------------------------------------------
-    def _check_train(self, resilience) -> None:
+    def _check_train(self, resilience, kill_locality_at_step) -> None:
+        if self.plan.spmd and resilience != "none":
+            raise ValueError("resilience modes are not mirrored by the "
+                             "SPMD shadow loop; use resilience='none' "
+                             "with Plan(spmd=True)")
+        if self.plan.spmd and kill_locality_at_step is not None:
+            raise ValueError(
+                "kill_locality_at_step is a multi-locality drill: an SPMD "
+                "world does not survive losing a process.  Drill SPMD host "
+                "loss with fail_at_step + a resume run on a different "
+                "process count instead")
         if resilience != "none":
             if self.plan.ddp:
                 raise ValueError("resilience modes do not compose with "
@@ -318,7 +440,17 @@ class Session:
         bytes this process sent: 0 at one locality) and ``codec_bytes``.
         A failure anywhere poisons the ring (``ddp_abort``), so no
         locality hangs; checkpoints are driver-only, parameters being
-        replicated.
+        replicated.  The DDP loop logs inline, as the reference's
+        ``_train_ddp`` does, so its tree has no ``log:`` nodes.
+
+        With ``plan.spmd=True`` every worker locality runs this loop in
+        lockstep (``frontend.spmd.shadow_train``, started by a
+        ``spmd_train`` active message), each process building its own
+        batches, and every save is written as each process's own
+        segments (``checkpoint/spmd.py``): only manifest entries cross the
+        wire.  The result then gains ``localities``: each worker's
+        ``spmd_done`` report (``step``, ``final_loss``, ``launches``,
+        ``diagnostics``).
 
         Args:
             stream: object with ``batch_at(step) -> dict`` of numpy
@@ -364,10 +496,12 @@ class Session:
             ``membership_gen``, ``stolen_tasks``, ``migrated_objects``).
         Raises:
             RuntimeError: the injected failure of ``fail_at_step``, or a
-                worker's failed DDP loop.
+                worker's failed DDP loop or SPMD shadow loop.
+            ValueError: ``resilience`` or ``kill_locality_at_step`` with
+                ``spmd``.
             LocalityLostError: a locality died mid-all-reduce (DDP).
         """
-        self._check_train(resilience)
+        self._check_train(resilience, kill_locality_at_step)
         plan, runtime, dev = self.plan, self.runtime, self.device
         dist = self.distributed
         if ckpt_dir is None:
@@ -389,7 +523,9 @@ class Session:
 
             def step_fn(it, batch, params, opt):
                 return step.fn(params, opt, batch)
-            prefetch = Prefetcher(stream, dev, graph=runtime, dgraph=dist)
+            # SPMD mode builds every batch locally on each process
+            prefetch = Prefetcher(stream, dev, graph=runtime,
+                                  dgraph=None if plan.spmd else dist)
         start = 0
         # DDP checkpoints are the driver's alone: its replica IS the state
         ckpt = (CheckpointManager(ckpt_dir, keep=3, graph=runtime,
@@ -403,8 +539,15 @@ class Session:
             dist.ddp_train({"plan": plan, "steps": steps,
                             "ckpt_dir": ckpt_dir, "resume": resume,
                             "stream": stream, "gen": engine.ring.gen})
+        if plan.spmd:
+            # every worker mirrors this loop in lockstep and writes its
+            # own checkpoint segments (DESIGN.md §10)
+            dist.spmd_train({"plan": plan, "steps": steps,
+                             "ckpt_every": ckpt_every, "ckpt_dir": ckpt_dir,
+                             "resume": resume, "stream": stream,
+                             "num_threads": torch.get_num_threads()})
         inflight = Pipeline(depth=2)
-        log_futs: list = []
+        logs: list = []        # losses (DDP) or their log: nodes
         t_log = time.time()
         on_step = getattr(hooks, "on_step", None)
         on_log = getattr(hooks, "on_log", None)
@@ -440,11 +583,16 @@ class Session:
                 if on_step is not None:
                     on_step(it, metrics)
                 if (it + 1) % log_every == 0:
-                    # CHECKPOINT lane: forcing metrics for logs must never
-                    # outrank the PREFETCH nodes the loop blocks on next
-                    log_futs.append(runtime.defer(
-                        _force_and_log, it, metrics, t_log,
-                        lane=Lane.CHECKPOINT, name=f"log:{it}"))
+                    if engine is not None:
+                        # DDP logs inline, as the reference's _train_ddp
+                        logs.append(_force_and_log(it, metrics, t_log))
+                    else:
+                        # CHECKPOINT lane: forcing metrics for logs must
+                        # never outrank the PREFETCH nodes the loop blocks
+                        # on next
+                        logs.append(runtime.defer(
+                            _force_and_log, it, metrics, t_log,
+                            lane=Lane.CHECKPOINT, name=f"log:{it}"))
                     t_log = time.time()
                 if ckpt is not None and (it + 1) % ckpt_every == 0:
                     # the write node depends on step retirement: file I/O
@@ -488,7 +636,18 @@ class Session:
                 raise RuntimeError(
                     f"DDP train loop failed on locality "
                     f"{failed[0]['rank']}: {failed[0].get('error')}")
-        losses = [f.result() for f in log_futs]
+        if plan.spmd:
+            # the shadows posted every entry this run's saves needed
+            # (ckpt.close() waited on the commits); now surface a shadow
+            # that FAILED - its saves were aborted
+            done = dist.wait_spmd_done(timeout=600.0)
+            failed = [m for m in done.values() if not m.get("ok")]
+            if failed:
+                raise RuntimeError(
+                    f"SPMD shadow train loop failed on locality "
+                    f"{failed[0]['rank']}: {failed[0].get('error')}")
+        losses = logs if engine is not None \
+            else [f.result() for f in logs]
         st = runtime.stats()
         final = float(metrics["loss"]) if metrics is not None \
             else float("nan")
@@ -515,12 +674,20 @@ class Session:
                       f"{engine.shards}: grad-wire {out['grad_wire_bytes']}B "
                       f"({plan.grad_codec} codec, {engine.codec_bytes}B/"
                       f"locality/exchange)")
+        if plan.spmd:
+            out["localities"] = {r: {k: m.get(k) for k in (
+                "step", "final_loss", "launches", "diagnostics")}
+                for r, m in sorted(done.items())}
         if verbose and dist is not None:
             d = out["runtime_stats"]["distributed"]
             print(f"[train] localities: dispatched {d['dispatched']} "
                   f"respawned {d['respawned']} wire {d['bytes_sent']}B out "
                   f"/ {d['bytes_recv']}B in ckpt-leaf-wire "
                   f"{d['ckpt_leaf_wire_bytes']}B")
+            if ckpt is not None and ckpt.aborted_saves:
+                print(f"[train] WARNING: {ckpt.aborted_saves} SPMD save(s) "
+                      f"aborted with a lost writer; the last committed "
+                      f"checkpoint is step {ckpt.latest_step()}")
             if plan.elastic:
                 print(f"[train] elastic: joined {d['joined_localities']} "
                       f"stolen {d['stolen_tasks']} migrated "

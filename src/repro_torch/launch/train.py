@@ -7,7 +7,11 @@ run: ``--steps``, ``--strategy``, ``--grad-accum``, ``--remat``,
 ``--kill-locality-at-step`` (the multi-locality runtime: with ``--ckpt``
 each locality writes its own shards, and ``--resume`` reads them at any
 locality count), fabric DDP (``--ddp``, ``--grad-codec``,
-``--ddp-shards``) and elastic membership (DESIGN.md §13: ``--elastic``
+``--ddp-shards``), SPMD mode (``--spmd`` with ``--localities N``: all N
+processes join one ``torch.distributed`` world, train in lockstep and
+each writes only its own checkpoint segments, DESIGN.md §10; a later
+``--resume`` run at any process count reads them back) and elastic
+membership (DESIGN.md §13: ``--elastic``
 and ``--elastic-port`` start a driver that prints its join address and
 takes new localities mid-run; ``--join HOST:PORT`` makes this invocation
 a dial-in locality of that driver instead of a training run, which
@@ -44,6 +48,13 @@ Examples:
       --ckpt-every 4 --fail-at-step 6
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --steps 8 --batch 4 --seq 32 --ckpt /tmp/ck2 --ckpt-every 4 --resume
+  # SPMD host-loss drill: two processes in lockstep, each writing its own
+  # segments; the run fails after the step-4 save, resumes at one process
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+      --steps 8 --batch 4 --seq 32 --localities 2 --spmd --ckpt /tmp/ck3 \
+      --ckpt-every 4 --fail-at-step 6
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+      --steps 8 --batch 4 --seq 32 --ckpt /tmp/ck3 --ckpt-every 4 --resume
   # an elastic driver held for one dial-in, and the dial-in (two shells)
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --steps 12 --batch 4 --seq 32 --elastic --elastic-port 29517 \\

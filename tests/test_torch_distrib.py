@@ -278,9 +278,15 @@ def test_session_train_two_localities_matches_single_even_killed():
 
 
 def test_spmd_across_localities_names_item_13(cluster):
-    """What the multi-locality runtime still refuses: SPMD mode, its
-    shadow train loop and the plan that asks for it (ROADMAP item 13)."""
-    with pytest.raises(NotImplementedError, match="item 13"):
-        cluster.spmd_train({})
-    with pytest.raises(NotImplementedError, match="item 13"):
-        _plan(localities=2, spmd=True).compile()
+    """SPMD mode, which ROADMAP item 13 brought to the port: a shadow
+    train loop started with a malformed spec fails on its worker and says
+    so in its ``spmd_done`` report (the driver never hangs on it), and a
+    one-locality SPMD plan is the reference's ``ValueError``.  The SPMD
+    runs themselves are ``tests/test_torch_spmd.py``'s."""
+    cluster.spmd_train({})
+    done = cluster.wait_spmd_done(timeout=60)
+    assert sorted(done) == cluster.group.alive_workers()
+    assert all(not m["ok"] and "KeyError" in m["error"]
+               for m in done.values())
+    with pytest.raises(ValueError, match="localities >= 2"):
+        _plan(spmd=True).compile()

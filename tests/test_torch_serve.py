@@ -309,9 +309,9 @@ def test_plan_defaults_to_cuda_and_raises_without_it(monkeypatch):
 
 
 @pytest.mark.parametrize("field, item", [
-    # localities run, with elastic membership, but not SPMD mode, mesh
+    # localities run, with elastic membership and SPMD mode, but not mesh
     # axes or named shapes
-    (dict(spmd=True), "item 13"), (dict(spmd=True, localities=2), "item 13"),
+    (dict(pod=2), "item 14"), (dict(mesh="multipod"), "item 14"),
     (dict(data=2), "item 14"), (dict(model=2), "item 14"),
     (dict(mesh="single"), "item 14"), (dict(shape="train_4k"), "item 15")])
 def test_plans_beyond_one_device_name_their_roadmap_item(field, item):
