@@ -3,8 +3,10 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --plant-k1-fault   # only the check's own test
-    python3 chip_smoke.py --ddp2-repeat N    # the 2-locality fp32 DDP run,
-                                             # N times, with host memory
+    python3 chip_smoke.py --ddp2-repeat N    # the 1-locality fp32 DDP run,
+                                             # then the 2-locality one N
+                                             # times, with host memory
+    python3 chip_smoke.py --mesh-only        # the mesh-training phase only
 
 Phases, in order; any failure ends the script with a non-zero exit and
 without the final ``{"ok": true, ...}`` line:
@@ -75,7 +77,7 @@ without the final ``{"ok": true, ...}`` line:
    tiny=False).compile().train(...)`` and ``Plan(arch=
    "granite-moe-1b-a400m", tiny=False).compile().train(...)`` at full
    width and depth;
-8. checkpoint drill, granite-moe-1b-a400m at full width, cut to 6 of its
+8. checkpoint drill, granite-moe-1b-a400m at full width, cut to 4 of its
    24 layers (``CKPT_DRILL_LAYERS``, for the time limit): 6 steps straight
    (saved at step 6), then 6 steps saving every 3 with an injected
    failure at step 4, then ``resume=True`` to step 6 from the step-3
@@ -126,7 +128,16 @@ without the final ``{"ok": true, ...}`` line:
    run; (c) an elastic join mid-train:
    qwen3-4b at 4 layers, ``Plan(elastic=True)`` gaining a locality after
    step 2, losses bit-identical to the static run's, tasks stolen, every
-   worker reaped;
+   worker reaped; (d) data-parallel mesh training on the SPMD phase's plan,
+   ``Plan(data=2)``: two rank processes in a gloo world on the one card
+   run phylanx, horovod, zero1 and onebit 3 steps each from the same init
+   (``Session.run_ranks``), phylanx and horovod within 1e-6 of world-1
+   2-shard fp32 DDP's losses and gradient norms, zero1 within 1e-5, its
+   m and v on the scattered leaves half of phylanx's, every rank's K1,
+   K3a and K3b counts exact, onebit's bucket-0 mean the plain K3b's; the
+   zero1 crash drill on the same session, resumed bit-identically, its
+   checkpoint in the reference's global shapes; step replay at data=1
+   bit-identical to the straight run;
 13. where the time goes: one prefill (at the wave's batch, and at batch 1
    but for whisper-medium) and one decode step of each served
    configuration, one plain and one
@@ -139,7 +150,8 @@ without the final ``{"ok": true, ...}`` line:
    its f32 one, the zamba2-2.7b train step K2's backward kernel, the DDP
    step K3b's row-stream kernel;
 14. the gateway's, the checkpoint's, the 2-locality runs', the
-   multi-locality phases' and the profiles' readings as JSON lines,
+   multi-locality phases', the mesh phase's and the profiles' readings as
+   JSON lines,
    each phase's wall time, the
    ``kernels`` JSON line, then the ``ok`` line last.
 
@@ -179,7 +191,9 @@ from repro_torch.checkpoint import checkpoint as ckpt_io  # noqa: E402
 from repro_torch.checkpoint import format as ckfmt  # noqa: E402
 from repro_torch.checkpoint import spmd as ckspmd  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core import steps  # noqa: E402
+from repro_torch import bridge  # noqa: E402
+from repro_torch.core import collectives, overlap, steps  # noqa: E402
+from repro_torch.core.sharding import default_rules  # noqa: E402
 from repro_torch.core.sharding import init_params, is_spec  # noqa: E402
 from repro_torch.data.pipeline import (  # noqa: E402
     HARStream, stream_for, to_device)
@@ -188,6 +202,7 @@ from repro_torch.frontend import Plan  # noqa: E402
 from repro_torch.frontend import gateway  # noqa: E402
 from repro_torch.frontend.gateway import RequestQueue  # noqa: E402
 from repro_torch.kernels import KERNELS, build  # noqa: E402
+from repro_torch.launch.mesh import make_local_mesh  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_bwd, flash_attention_ref)
 from repro_torch.kernels.mamba2_scan import (  # noqa: E402
@@ -284,10 +299,13 @@ WHISPER_TRAIN_CUT = dict(WHISPER_TRAIN,
 DDP2_LAYERS = 4
 DDP2 = dict(arch="qwen3-4b", tiny=False, batch=8, seq=512, ddp=True,
             ddp_shards=2, overrides={"n_layers": DDP2_LAYERS})
-# steps a run: the fp32 runs cut from 3 to 2 (from 4 before that) to make
-# room for the SPMD phase within 1,000 s, the onebit run's 3 keep a step
-# beside the profiled one
-DDP2_FP32_STEPS, DDP2_ONEBIT_STEPS = 2, 3
+# steps a run: the fp32 runs cut to 1 (from 2, then 3 and 4 before that,
+# about 35 s a 2-locality step) to make room for the SPMD and mesh phases
+# within 1,000 s; the 1- and 2-locality runs' parameters after the step,
+# which the exchanged gradient sum made, are held bit-identical (as the
+# second step's loss was); the onebit run's 3 keep a step beside the
+# profiled one
+DDP2_FP32_STEPS, DDP2_ONEBIT_STEPS = 1, 3
 DDP2_PROFILE_AT = 2         # the driver's step profiled in the onebit run
 _MOE_CFG = get_config(MOE_TRAIN["arch"])
 MOE_TRAIN_ATTN = (MOE_TRAIN["batch"], _MOE_CFG.n_heads, _MOE_CFG.n_kv_heads,
@@ -296,13 +314,14 @@ MOE_TRAIN_ATTN = (MOE_TRAIN["batch"], _MOE_CFG.n_heads, _MOE_CFG.n_kv_heads,
 # the drill: saves every CKPT_EVERY steps, fails at step CKPT_FAIL_AT, and
 # needs room for two committed checkpoints beside a temp one on the disk;
 # where there is none, the drill's depth is cut further (printed).  It
-# runs CKPT_DRILL_LAYERS of granite's 24 layers (5.1 GB checkpoints, where
-# 24 layers' 16.6 GB took 287.6 s of the script's time limit, 12 layers'
-# 8.9 GB 147.8-163.1 s at 0.23-0.26 GB/s and 8 layers' 6.3 GB 110.4-124.0
-# s): the multi-locality phases and the SPMD phase need the room
+# runs CKPT_DRILL_LAYERS of granite's 24 layers (about 3.8 GB checkpoints,
+# where 24 layers' 16.6 GB took 287.6 s of the script's time limit, 12
+# layers' 8.9 GB 147.8-163.1 s at 0.23-0.26 GB/s, 8 layers' 6.3 GB
+# 110.4-124.0 s and 6 layers' 5.1 GB 98.4 s): the multi-locality, SPMD and
+# mesh phases need the room
 CKPT_EVERY, CKPT_FAIL_AT = 3, 4
 CKPT_DISK_SHARE = 0.8
-CKPT_DRILL_LAYERS = 6
+CKPT_DRILL_LAYERS = 4
 # the multi-locality runtime's other paths on the one card: the gateway's
 # two replicas homed on two localities (qwen3-4b at full size; the kill
 # drill SIGKILLs the worker before the GATEWAY_LOC_KILL_AT-th of the
@@ -323,6 +342,24 @@ CKPT_LOC_BYTES = 3.2e9
 CKPT_LOC_SAVE_AT, CKPT_LOC_STEPS = 3, 6
 ELASTIC_JOIN_AT, ELASTIC_STALL_AT, ELASTIC_STEPS = 2, 4, 6
 ELASTIC_STALL_S = 0.25
+# data-parallel mesh training (ROADMAP item 14, its data half): the SPMD
+# phase's plan, granite-moe-1b-a400m at full width cut to MESH_LAYERS of
+# its 24 layers (8 x 512, seed 0: 2.49 GB of float32 state with adamw and
+# 0.83 GB of float32 gradients a step on the wire), two rank processes on
+# the one card, each strategy MESH_STEPS steps from the same init.
+# phylanx and horovod must give world-1 2-shard fp32 DDP's losses and
+# gradient norms within MESH_RTOL; zero1 sums its norm in another order
+# (the scattered squares over ranks, then the dense ones) and is held to
+# MESH_ZERO1_RTOL, the CPU tests' tolerance against the reference.  The
+# zero1 drill: MESH_DRILL_STEPS saving every MESH_DRILL_EVERY and failing
+# at MESH_DRILL_FAIL_AT, then resumed; its straight run is the strategies
+# phase's zero1 run, which takes MESH_DRILL_STEPS steps
+MESH_LAYERS, MESH_STEPS = 2, 3
+MESH_TRAIN = dict(MOE_TRAIN, overrides={"n_layers": MESH_LAYERS})
+MESH_STRATEGIES = ("phylanx", "horovod", "zero1", "onebit")
+MESH_RTOL, MESH_ZERO1_RTOL = 1e-6, 1e-5
+MESH_DRILL_STEPS, MESH_DRILL_EVERY, MESH_DRILL_FAIL_AT = 6, 3, 4
+MESH_PROBE_ITERS = 9
 # one MoE layer at granite's full width: 2,048 tokens (4 x 512, the serve
 # prefill's), bf16; with cap_factor E / k no assignment can drop
 MOE_LAYER_TOKENS = 2048
@@ -1168,6 +1205,27 @@ def train_plan_buckets() -> list:
         cfg, steps.Strategy()).grad_plan.buckets]
 
 
+def k3a_against_plain(g, err, packed, scale, new_err) -> dict:
+    """K3a's outputs on ``g``, ``err`` ([R, C] float32 on the card)
+    against ``onebit_quantize_ref``'s: the sign words that differ, those
+    of them holding a |q| within 1e-6 * scale of 0 (``near``: either sign
+    is right there) and the others (``bad``), the scales' largest
+    relative error and new_err's largest absolute error.  ``ok`` is the
+    kernels phase's tolerance: no other word, both errors within 1e-6."""
+    R = g.shape[0]
+    p_ref, s_ref, e_ref = onebit_quantize_ref(g, err)
+    near = ((g + err).abs() <= 1e-6 * s_ref).reshape(R, -1, 32).any(-1)
+    differ = packed != p_ref
+    out = {"words": packed.numel(), "differ": int(differ.sum()),
+           "near": int(near.sum()), "bad": int((differ & ~near).sum()),
+           "scale_rel_err": ((scale - s_ref).abs() / s_ref.abs()).max()
+           .item(),
+           "err_abs_err": (new_err - e_ref).abs().max().item()}
+    out["ok"] = (out["bad"] == 0 and out["scale_rel_err"] <= 1e-6
+                 and out["err_abs_err"] <= 1e-6)
+    return out
+
+
 def check_onebit(gen, rows_list) -> dict:
     """K3a/K3b against their plain versions on the card at [R, 1024] for
     each R of ``rows_list``: sign words bit-identical except words holding
@@ -1181,20 +1239,16 @@ def check_onebit(gen, rows_list) -> dict:
         err = 0.1 * torch.randn(R, 1024, generator=gen, device="cuda")
         packed, scale, new_err = onebit_quantize(g, err)
         torch.cuda.synchronize()
-        p_ref, s_ref, e_ref = onebit_quantize_ref(g, err)
-        near = ((g + err).abs() <= 1e-6 * s_ref).reshape(R, 32, 32).any(-1)
-        differ = packed != p_ref
-        bad_words = int((differ & ~near).sum())
-        s_err = ((scale - s_ref).abs() / s_ref.abs()).max().item()
-        e_err = (new_err - e_ref).abs().max().item()
+        q = k3a_against_plain(g, err, packed, scale, new_err)
         deq = onebit_dequantize(packed, scale)
         torch.cuda.synchronize()
         d_same = torch.equal(deq, onebit_dequantize_ref(packed, scale))
-        ok = bad_words == 0 and s_err <= 1e-6 and e_err <= 1e-6 and d_same
+        ok = q["ok"] and d_same
         print(f"onebit [{R}, 1024] ({4 * R * 1024 / 2**20:.0f} MB): words "
-              f"differing {int(differ.sum())} of {packed.numel()} (near-zero "
-              f"words {int(near.sum())}, other {bad_words}), scale rel err "
-              f"{s_err:.3g}, new_err abs err {e_err:.3g}, dequantize "
+              f"differing {q['differ']} of {q['words']} (near-zero "
+              f"words {q['near']}, other {q['bad']}), scale rel err "
+              f"{q['scale_rel_err']:.3g}, new_err abs err "
+              f"{q['err_abs_err']:.3g}, dequantize "
               f"{'identical' if d_same else 'DIFFERS'} {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError("onebit kernels disagree with their plain "
@@ -1215,7 +1269,7 @@ def check_onebit(gen, rows_list) -> dict:
         qb, qby = roofline(12 * el + el // 8 + 4 * R, 5 * el, F32_FLOPS)
         db, dby = roofline(4 * el + el // 8 + 4 * R, 3 * el, F32_FLOPS)
         key = "" if n == 0 else "largest_bucket_"
-        out[key + "quantize"] = {"max_abs_err": e_err, **tq,
+        out[key + "quantize"] = {"max_abs_err": q["err_abs_err"], **tq,
                                  "bound_ms": qb, "bound_by": qby}
         out[key + "dequantize"] = {"max_abs_err": 0.0, **td,
                                    "bound_ms": db, "bound_by": dby}
@@ -1225,7 +1279,7 @@ def check_onebit(gen, rows_list) -> dict:
               f"{td['plain_ms']:.4f} ms, bound {db:.4f} ms ({dby}); no "
               f"library call; host-paced: kernels {tq['ms_host_paced']:.4f}"
               f", {td['ms_host_paced']:.4f} ms")
-        del g, err, packed, scale, new_err, p_ref, s_ref, e_ref, deq
+        del g, err, packed, scale, new_err, deq
         torch.cuda.empty_cache()
     return out
 
@@ -1999,8 +2053,10 @@ def ddp_two_localities(runs=DDP2_RUNS) -> tuple[dict, dict]:
     kernel count set to 0 just before each run and read just after, the
     worker's counts reported by its DDP loop.  At two localities the
     host's memory, the worker's included, is printed after every step.
-    Checks: finite losses; the 2-locality fp32 losses bit-identical to
-    the 1-locality run's (when both ran); in every locality the launches
+    Checks: finite losses; the 2-locality fp32 losses, and the driver's
+    parameters after the last step (``param_bit_sums``: they hold the
+    gradient sum that crossed the ring), bit-identical to the 1-locality
+    run's (when both ran); in every locality the launches
     its shard and the codec give (``train_launches``: with onebit K3a once
     a bucket and step, K3b once a bucket, step and origin); every
     locality's ``grad_wire_bytes`` = steps x (W - 1) x codec bytes.
@@ -2012,7 +2068,7 @@ def ddp_two_localities(runs=DDP2_RUNS) -> tuple[dict, dict]:
                     .grad_plan.buckets)
     stream = RepeatStream(stream_for(cfg, batch=DDP2["batch"],
                                      seq=DDP2["seq"], seed=0))
-    launches, readings, losses = {}, {}, {}
+    launches, readings, losses, sums = {}, {}, {}, {}
     for loc, codec, n_steps in runs:
         name = f"ddp2_{loc}loc_{codec}"
         phase(f"fabric DDP, {cfg.name} at full width, {cfg.n_layers} of "
@@ -2045,6 +2101,8 @@ def ddp_two_localities(runs=DDP2_RUNS) -> tuple[dict, dict]:
         if loc > 1:
             print(f"{host_memory()}; {reaped_peak()}")
         losses[name] = out["losses"]
+        if codec == "fp32":
+            sums[name] = param_bit_sums(out["params"])
         ms = hooks.step_ms()
         print(f"session up in {up_s:.1f} s; losses "
               f"{' '.join(f'{x:.6f}' for x in out['losses'])}")
@@ -2100,13 +2158,28 @@ def ddp_two_localities(runs=DDP2_RUNS) -> tuple[dict, dict]:
         torch.cuda.empty_cache()
     if {"ddp2_2loc_fp32", "ddp2_1loc_fp32"} <= set(losses):
         same = losses["ddp2_2loc_fp32"] == losses["ddp2_1loc_fp32"]
+        same_p = sums["ddp2_2loc_fp32"] == sums["ddp2_1loc_fp32"]
         print("2-locality fp32 losses "
               + ("bit-identical to" if same else "DIFFER from")
+              + " the 1-locality run's; its parameters after the last "
+              f"step ({len(sums['ddp2_1loc_fp32'])} leaves) "
+              + ("bit-identical to" if same_p else "DIFFER from")
               + " the 1-locality run's")
-        if not same:
-            raise AssertionError("2-locality fp32 DDP losses differ from "
-                                 "the 1-locality run's")
+        if not (same and same_p):
+            raise AssertionError("2-locality fp32 DDP losses or parameters "
+                                 "differ from the 1-locality run's")
     return launches, readings
+
+
+def param_bit_sums(params) -> list:
+    """Each leaf's bit patterns summed as integers on the card (int64,
+    exact in any order): equal for bit-identical trees, and any one
+    element that differs changes its leaf's sum."""
+    bits = {torch.float32: torch.int32, torch.bfloat16: torch.int16,
+            torch.float16: torch.int16}
+    return torch.stack([torch.sum(t.detach().view(bits[t.dtype]),
+                                  dtype=torch.int64)
+                        for t in pytree.tree_leaves(params)]).tolist()
 
 
 def _reaped(pids, timeout: float = 30.0) -> bool:
@@ -2645,6 +2718,411 @@ def elastic_join() -> tuple[dict, dict]:
                 "membership_gen": d["membership_gen"]}
     del out
     torch.cuda.empty_cache()
+    return counts, readings
+
+
+def wire_probe(mesh) -> dict:
+    """gloo's loopback between the mesh's ranks, staged as the mesh
+    steps stage it: the median seconds of a 4-byte all-reduce (the
+    latency) and of a 32 MiB float32 all-reduce from the card (its
+    payload over that time: the rate), ``MESH_PROBE_ITERS`` each after
+    a warm-up; the values ``core/granularity.py`` states."""
+    def median(fn):
+        fn()
+        ts = []
+        for _ in range(MESH_PROBE_ITERS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t0)
+        return sorted(ts)[len(ts) // 2]
+    small = torch.ones(1, device="cuda")
+    big = torch.ones(8 << 20, device="cuda")
+    lat = median(lambda: collectives.all_reduce(small, mesh))
+    t = median(lambda: collectives.all_reduce(big, mesh))
+    return {"latency_s": lat, "rate_bytes_per_s": big.numel() * 4 / t,
+            "big_s": t}
+
+
+def mesh_warmup(spec: dict, endpoint=None, driver=None) -> dict:
+    """A worker rank's cold start, taken while the driver runs the
+    oracle: one step of the plan on this process alone (no mesh, so no
+    collective), which loads the CUDA context, the libraries and the
+    kernels' modules (the first step of a fresh rank process otherwise
+    took about 10 s)."""
+    plan = dataclasses.replace(spec["plan"], data=1)
+    step = steps.make_train_step(plan.config(), steps.Strategy(), plan=plan)
+    params, opt = step.init(
+        torch.Generator(device="cuda").manual_seed(plan.seed), "cuda")
+    step.fn(params, opt, to_device(spec["stream"].batch_at(0), "cuda"))
+    torch.cuda.synchronize()
+    return {}
+
+
+def mesh_strategies_rank(spec: dict, endpoint=None, driver=None) -> dict:
+    """One rank's half of the mesh-strategies phase (module level: the
+    worker rank runs it too, shipped by reference): on
+    ``make_local_mesh(data=2)``, each of ``MESH_STRATEGIES`` for
+    ``MESH_STEPS`` steps from the seed's init, every kernel count and the
+    wire counters set to 0 just before the steps and read just after,
+    each step ending in a synchronize (host wall); zero1 takes
+    ``MESH_DRILL_STEPS`` steps (the drill's straight run).  At every
+    onebit step, bucket 0's exchange (``TrainStep.on_bucket``, kept in the
+    step and checked after its clock stops) is held
+    against the plain versions, so that the trajectory, not one step, is
+    checked on the card: this rank's payload and new residual against the
+    plain K3a on its bucket and the residual it read
+    (``k3a_against_plain``), that residual the one the previous step
+    returned (zero at the first), this rank's payload at its own origin
+    of the gathered ones, and the mean bit for bit the plain K3b's on the
+    gathered payloads, summed in origin order.  Returns, per strategy,
+    the losses, gradient norms, step times, launches, wire counters, the
+    device's peak allocation, the m and v bytes of the leaves zero1
+    scatters and the parameters' ``param_bit_sums`` after the last step
+    (the ranks' replicas must agree bit for bit); for onebit, the worst
+    of its per-step checks."""
+    plan, stream = spec["plan"], spec["stream"]
+    mesh = make_local_mesh(data=plan.data)
+    cfg = plan.config()
+    out = {"wire_probe": wire_probe(mesh)}
+    for name in MESH_STRATEGIES:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        step = steps.make_train_step(cfg, steps.Strategy(name=name),
+                                     plan=plan, mesh=mesh)
+        params, opt = step.init(
+            torch.Generator(device="cuda").manual_seed(plan.seed), "cuda")
+        mask = overlap.zero1_scatter_mask([lf.spec for lf in step.leaves],
+                                          mesh, default_rules(), 2)
+        if name == "zero1":
+            mv = sum(4 * (m.numel() + v.numel()) for m, v, sc in zip(
+                opt["m"], opt["v"], mask) if sc)
+        else:
+            flat_m = pytree.tree_leaves(opt["m"])
+            mv = sum(8 * flat_m[i].numel() for lf, sc in zip(step.leaves,
+                                                             mask)
+                     if sc for i in lf.members)
+        checks: dict = {}
+        pending: dict = {}
+        if name == "onebit":
+            checks.update(steps=0, bad_words=0, near_words=0,
+                          scale_rel_err=0.0, err_abs_err=0.0,
+                          mean_max_abs_err=0.0, carried=True)
+
+            def keep(i, packed, scales, mean, own):
+                # held for check() after the step's clock stops; the
+                # mean is cloned, the optimizer may clip it in place
+                if i == 0:
+                    pending.update(packed=packed, scales=scales,
+                                   mean=mean.clone(), own=own)
+
+            def check(packed, scales, mean, own):
+                buf, err, new_err = own
+                prev = checks.pop("prev_err", None)
+                checks["carried"] &= (torch.equal(err, prev)
+                                      if prev is not None
+                                      else not bool(err.any()))
+                r = mesh.rank
+                q = k3a_against_plain(buf.reshape(err.shape), err,
+                                      packed[r], scales[r], new_err)
+                checks["bad_words"] = max(checks["bad_words"], q["bad"])
+                checks["near_words"] += q["near"]
+                for k in ("scale_rel_err", "err_abs_err"):
+                    checks[k] = max(checks[k], q[k])
+                acc = onebit_dequantize_ref(packed[0], scales[0])
+                for o in range(1, packed.shape[0]):
+                    acc = acc + onebit_dequantize_ref(packed[o], scales[o])
+                plain = acc.div_(packed.shape[0]).reshape(-1)
+                checks["mean_max_abs_err"] = max(
+                    checks["mean_max_abs_err"],
+                    float((plain - mean).abs().max()))
+                checks["bucket0_elements"] = int(plain.numel())
+                checks["steps"] += 1
+                checks["prev_err"] = new_err
+            step.on_bucket = keep
+        torch.cuda.synchronize()
+        _zero_counts()
+        collectives.reset_stats()
+        losses, gnorms, wall = [], [], []
+        n_steps = MESH_DRILL_STEPS if name == "zero1" else MESH_STEPS
+        for it in range(n_steps):
+            batch = to_device(stream.batch_at(it), "cuda")
+            t0 = time.perf_counter()
+            m, params, opt = step.fn(params, opt, batch)
+            torch.cuda.synchronize()
+            wall.append(1e3 * (time.perf_counter() - t0))
+            losses.append(float(m["loss"]))
+            gnorms.append(float(m["grad_norm"]))
+            if pending:
+                check(**pending)
+                pending.clear()
+        rec = {"losses": losses, "grad_norms": gnorms, "step_ms": wall,
+               "launches": _counts(), "wire": collectives.stats(),
+               "peak_bytes": torch.cuda.max_memory_allocated(),
+               "scattered_mv_bytes": mv, "steps": n_steps,
+               "buckets": len(step.plan.buckets) if step.plan else 0,
+               "param_bit_sums": param_bit_sums(params)}
+        if name == "onebit":
+            checks.pop("prev_err", None)
+            rec["onebit_checks"] = checks
+        out[name] = rec
+        del step, params, opt, m
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_training() -> tuple[dict, dict]:
+    """Data-parallel mesh training on the one card (ROADMAP item 14, its
+    data half), on the SPMD phase's plan: granite-moe-1b-a400m at full
+    width cut to ``MESH_LAYERS`` layers, one repeated 8 x 512 batch, seed
+    0.  One mesh session, ``Plan(data=2)``: two rank processes (this one
+    and a spawned worker) in a gloo world.  (a) The oracle, world-1 fabric
+    DDP with 2 fp32 shards, ``MESH_STEPS`` steps, which computes the
+    data=2 meaning in one process, run here while the worker rank takes
+    its cold start (``mesh_warmup``).  (b) ``Session.run_ranks``
+    runs ``mesh_strategies_rank`` on both: phylanx and horovod must give
+    the oracle's losses and gradient norms within ``MESH_RTOL``, zero1
+    within ``MESH_ZERO1_RTOL``; zero1's m and v on the scattered leaves
+    exactly half of phylanx's; onebit's K3a and K3b counts exact from the
+    bucket plan (``train_launches``: buckets a step for K3a, twice that
+    for K3b), K1's exact in each rank for every strategy; onebit's bucket-0
+    exchange at every step the plain versions' (this rank's payload and
+    residual to the kernels phase's tolerance, the mean bit for bit), the
+    residual carried between steps, its first loss phylanx's; every
+    strategy's parameters bit-identical across the two ranks.  (c) The
+    drill of ``examples/train_lm_ddp.py`` on the same session with zero1:
+    a run saving every ``MESH_DRILL_EVERY`` steps that fails at
+    ``MESH_DRILL_FAIL_AT`` (it must raise), then ``resume=True`` to
+    ``MESH_DRILL_STEPS``: the resumed steps bit-identical to (b)'s
+    straight zero1 run, the checkpoint's leaves the reference's global
+    shapes.  (d) ``resilience="replay"`` at data=1 for ``MESH_STEPS``
+    steps: the straight run's losses bit for bit, and what the input
+    copies cost.  No ``torch.distributed`` world is left and the worker
+    is reaped.  Returns the counts by run and the readings."""
+    plan = Plan(**MESH_TRAIN, device="cuda")
+    cfg = plan.config()
+    stream = RepeatStream(stream_for(cfg, batch=plan.batch, seq=plan.seq,
+                                     seed=plan.seed))
+    phase(f"mesh training: {cfg.name}, full width, {cfg.n_layers} of "
+          f"{get_config(cfg.name).n_layers} layers, two rank processes on "
+          f"the one card: four strategies against world-1 2-shard fp32 "
+          f"DDP, the zero1 crash drill, step replay")
+    print(f"CUT to {cfg.n_layers} of {get_config(cfg.name).n_layers} "
+          f"layers: the SPMD phase's plan (two processes of this state on "
+          f"the one card, the phase within its time)")
+    kw = dict(log_every=1, verbose=False)
+    counts: dict = {}
+    mesh_plan = dataclasses.replace(plan, data=2, strategy="zero1")
+    root = tempfile.mkdtemp()
+    d = f"{root}/mesh"
+    try:
+        t0 = time.perf_counter()
+        with mesh_plan.compile() as session:
+            up_s = time.perf_counter() - t0
+            pids = [pr.pid for pr in
+                    session.distributed.group.procs.values()]
+            # (a) the oracle, while the worker rank warms up
+            session.distributed.spmd_train({"plan": mesh_plan,
+                                            "stream": stream,
+                                            "loop": mesh_warmup})
+            clock = StepClock()
+            oracle_plan = dataclasses.replace(plan, ddp=True, ddp_shards=2,
+                                              grad_codec="fp32")
+            with oracle_plan.compile() as oracle_session:
+                oracle = oracle_session.train(stream, steps=MESH_STEPS,
+                                              hooks=clock, **kw)
+            want_l, want_g = oracle["losses"], clock.grad_norms
+            del oracle
+            torch.cuda.empty_cache()
+            warm = session.distributed.wait_spmd_done(timeout=300.0)
+            if not all(m.get("ok") for m in warm.values()):
+                raise AssertionError(f"mesh warm-up failed: {warm}")
+            # (b) the strategies, one world
+            t1 = time.perf_counter()
+            ranks = session.run_ranks(mesh_strategies_rank,
+                                      {"plan": mesh_plan, "stream": stream})
+            strategies_s = time.perf_counter() - t1
+            # (c) the drill, against (b)'s zero1 run
+            t1 = time.perf_counter()
+            straight = {"losses": ranks[0]["zero1"]["losses"]}
+            try:
+                session.train(stream, steps=MESH_DRILL_STEPS,
+                              ckpt_every=MESH_DRILL_EVERY, ckpt_dir=d,
+                              fail_at_step=MESH_DRILL_FAIL_AT, **kw)
+                raised = False
+            except RuntimeError as e:
+                raised = "injected node failure" in str(e)
+            torch.cuda.synchronize()
+            _zero_counts()
+            with CkptClock() as cclock:
+                resumed = session.train(stream, steps=MESH_DRILL_STEPS,
+                                        ckpt_every=MESH_DRILL_EVERY,
+                                        ckpt_dir=d, resume=True, **kw)
+            counts["mesh_drill_resume_L0"] = _counts()
+            counts["mesh_drill_resume_L1"] = resumed["localities"][1][
+                "launches"]
+            drill_s = time.perf_counter() - t1
+            manifest = ckfmt.load_manifest(
+                f"{d}/step_{MESH_DRILL_STEPS:08d}")
+            step = steps.make_train_step(cfg, steps.Strategy(name="zero1"))
+            meta = lambda s: torch.empty(s.shape, dtype=s.dtype,
+                                         device="meta")
+            like = (pytree.tree_map(meta, step.specs, is_leaf=is_spec),
+                    pytree.tree_map(meta, step.opt_structs(),
+                                    is_leaf=is_spec))
+            want_shapes = [list(lead) + list(items[0][1].shape)
+                           for _, lead, items in bridge._slots(like)]
+            got_shapes = [None] * len(want_shapes)
+            for sh in manifest["shards"]:
+                for leaf in sh["leaves"]:
+                    got_shapes[leaf["index"]] = leaf["shape"]
+            del step, like
+        world_left = torch.distributed.is_initialized()
+        reaped = _reaped(pids)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    # (d) replay at data=1
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    with plan.compile() as session:
+        plain = session.train(stream, steps=MESH_STEPS, **kw)
+        _zero_counts()
+        replay = session.train(stream, steps=MESH_STEPS, resilience="replay",
+                               **kw)
+        counts["replay"] = _counts()
+    replay_s = time.perf_counter() - t1
+    del plain["params"], replay["params"], resumed["params"]
+
+    res = {r: ranks[r] for r in (0, 1)}
+    fails = []
+    rel = lambda a, b: max(abs(x - y) / abs(y) for x, y in zip(a, b))
+    identical = {}
+    for name in MESH_STRATEGIES:
+        for r in (0, 1):
+            rec = res[r][name]
+            counts[f"mesh_{name}_L{r}"] = rec["launches"]
+            want = train_launches(cfg, rec["steps"], 1, rec["buckets"],
+                                  decodes=2)
+            if rec["launches"] != want:
+                fails.append(f"{name} rank {r} launches {rec['launches']} "
+                             f"(want {want})")
+        rec = res[0][name]
+        if res[1][name]["param_bit_sums"] != rec["param_bit_sums"]:
+            fails.append(f"{name}: the ranks' parameters differ")
+        if name == "onebit":
+            for r in (0, 1):
+                c = res[r][name]["onebit_checks"]
+                if not (c["steps"] == rec["steps"] and c["bad_words"] == 0
+                        and c["scale_rel_err"] <= 1e-6
+                        and c["err_abs_err"] <= 1e-6 and c["carried"]
+                        and c["mean_max_abs_err"] == 0.0):
+                    fails.append(f"onebit exchange on rank {r}: {c}")
+            # the first step's loss is the init's: phylanx's, bit for bit
+            if rec["losses"][0] != res[0]["phylanx"]["losses"][0] \
+                    or res[1][name]["losses"] != rec["losses"]:
+                fails.append(f"onebit losses {rec['losses']} (rank 1 "
+                             f"{res[1][name]['losses']}, phylanx's first "
+                             f"{res[0]['phylanx']['losses'][0]})")
+            continue
+        tol = MESH_ZERO1_RTOL if name == "zero1" else MESH_RTOL
+        got_l, got_g = rec["losses"][:MESH_STEPS], \
+            rec["grad_norms"][:MESH_STEPS]
+        le, ge = rel(got_l, want_l), rel(got_g, want_g)
+        identical[name] = got_l == want_l and got_g == want_g
+        if le > tol or ge > tol or res[1][name]["losses"] != rec["losses"]:
+            fails.append(f"{name} losses {got_l} / gnorms "
+                         f"{got_g} against the oracle "
+                         f"{want_l} / {want_g} (rel {le:.3g}, {ge:.3g})")
+    z, p = res[0]["zero1"]["scattered_mv_bytes"], \
+        res[0]["phylanx"]["scattered_mv_bytes"]
+    if 2 * z != p:
+        fails.append(f"zero1's scattered m and v {z} B, phylanx's {p} B")
+    drill_ok = (raised and resumed["losses"] == straight["losses"][
+        MESH_DRILL_EVERY:] and got_shapes == want_shapes)
+    if not drill_ok:
+        fails.append(f"drill: raised {raised}, resumed "
+                     f"{resumed['losses']} against {straight['losses']}, "
+                     f"shapes {'equal' if got_shapes == want_shapes else 'DIFFER'}")
+    want_drill = train_launches(cfg, MESH_DRILL_STEPS - MESH_DRILL_EVERY, 1,
+                                0)
+    for r in (0, 1):
+        if counts[f"mesh_drill_resume_L{r}"] != want_drill:
+            fails.append(f"drill rank {r} launches "
+                         f"{counts[f'mesh_drill_resume_L{r}']}")
+    if replay["losses"] != plain["losses"] or \
+            counts["replay"] != train_launches(cfg, MESH_STEPS, 1, 0):
+        fails.append(f"replay {replay['losses']} against {plain['losses']}"
+                     f", launches {counts['replay']}")
+    if world_left or not reaped:
+        fails.append(f"world left {world_left}, worker reaped {reaped}")
+
+    for name in MESH_STRATEGIES:
+        for r in (0, 1):
+            rec = res[r][name]
+            w = rec["wire"]
+            print(f"{name} rank {r}: losses "
+                  f"{' '.join(f'{x:.6f}' for x in rec['losses'])}, gnorms "
+                  f"{' '.join(f'{x:.6f}' for x in rec['grad_norms'])}; steps "
+                  f"{' '.join(f'{x:.1f}' for x in rec['step_ms'])} ms; wire "
+                  f"{w['bytes']} B in {w['calls']} collectives ({w['hops']} "
+                  f"hops), {w['wire_s']:.3f} s in gloo, staging "
+                  f"{w['staged_bytes']} B in {w['staging_s']:.3f} s; peak "
+                  f"{rec['peak_bytes'] / 1e9:.3f} GB; m+v on zero1's "
+                  f"scattered leaves {rec['scattered_mv_bytes']} B")
+    print(f"oracle (world-1 DDP, 2 fp32 shards): losses "
+          f"{' '.join(f'{x:.6f}' for x in want_l)}, gnorms "
+          f"{' '.join(f'{x:.6f}' for x in want_g)}; bit-identical to it: "
+          f"{identical}")
+    for r in (0, 1):
+        w = res[r]["wire_probe"]
+        print(f"gloo loopback, rank {r}: 4-byte all-reduce "
+              f"{w['latency_s'] * 1e6:.1f} us, 32 MiB all-reduce "
+              f"{w['big_s'] * 1e3:.1f} ms ({w['rate_bytes_per_s'] / 1e9:.3f}"
+              f" GB/s, staging included)")
+    for r in (0, 1):
+        c = res[r]["onebit"]["onebit_checks"]
+        print(f"onebit rank {r}: {res[r]['onebit']['buckets']} buckets, "
+              f"K3a {res[r]['onebit']['launches']['onebit_quantize']} and "
+              f"K3b {res[r]['onebit']['launches']['onebit_dequantize']} "
+              f"launches; bucket 0 ({c.get('bucket0_elements')} elements) "
+              f"at each of {c['steps']} steps against the plain versions: "
+              f"own payload words other than near-zero {c['bad_words']} "
+              f"(near-zero {c['near_words']}), scale rel err "
+              f"{c['scale_rel_err']:.3g}, new residual abs err "
+              f"{c['err_abs_err']:.3g}, residual carried {c['carried']}, "
+              f"mean max abs err {c['mean_max_abs_err']}")
+    print("ranks' parameters bit-identical after the last step: "
+          + str({n: res[0][n]["param_bit_sums"] == res[1][n][
+              "param_bit_sums"] for n in MESH_STRATEGIES}))
+    saves = [dict(r) for r in cclock.saves]
+    print(f"session up in {up_s:.1f} s; strategies {strategies_s:.1f} s; "
+          f"drill {drill_s:.1f} s (raised {raised}; resumed "
+          f"{' '.join(f'{x:.6f}' for x in resumed['losses'])} against "
+          f"straight {' '.join(f'{x:.6f}' for x in straight['losses'])}; "
+          f"{len(got_shapes)} leaves in the reference's global shapes: "
+          f"{got_shapes == want_shapes}; saves {saves}, restore "
+          f"{cclock.restores}); replay {replay_s:.1f} s ({replay['losses']} "
+          f"against {plain['losses']}, input copies "
+          f"{replay['resilience']['copies']}); world left {world_left}, "
+          f"worker reaped {reaped}")
+    if fails:
+        raise AssertionError("mesh training: " + "; ".join(fails))
+    readings = {"layers": cfg.n_layers, "session_up_s": up_s,
+                "strategies_s": strategies_s, "drill_s": drill_s,
+                "replay_s": replay_s, "oracle": {"losses": want_l,
+                                                 "grad_norms": want_g},
+                "bit_identical_to_oracle": identical,
+                "wire_probe": {r: res[r]["wire_probe"] for r in (0, 1)},
+                "ranks": {r: {n: {k: v for k, v in res[r][n].items()
+                                  if k != "launches"}
+                              for n in MESH_STRATEGIES} for r in (0, 1)},
+                "drill": {"straight": straight["losses"],
+                          "resumed": resumed["losses"], "saves": saves,
+                          "restores": cclock.restores},
+                "replay": {"losses": replay["losses"],
+                           "copies": replay["resilience"]["copies"]}}
     return counts, readings
 
 
@@ -3367,10 +3845,18 @@ def main() -> int:
             torch.Generator(device="cuda").manual_seed(0))}))
         return 0
     if sys.argv[1:2] == ["--ddp2-repeat"] and len(sys.argv) == 3:
-        # the 2-locality fp32 DDP run alone, again and again, with the
-        # host's memory (the worker's included) after every step
-        ddp_two_localities(((2, "fp32", DDP2_FP32_STEPS),)
+        # the 2-locality fp32 DDP run again and again, with the host's
+        # memory (the worker's included) after every step, each held to
+        # the 1-locality run
+        ddp_two_localities(((1, "fp32", DDP2_FP32_STEPS),)
+                           + ((2, "fp32", DDP2_FP32_STEPS),)
                            * int(sys.argv[2]))
+        print_phase_times()
+        return 0
+    if sys.argv[1:] == ["--mesh-only"]:
+        # the mesh phase alone (its readings, no kernels line)
+        _, mesh = mesh_training()
+        print(json.dumps({"mesh_training": mesh}))
         print_phase_times()
         return 0
     if sys.argv[1:]:
@@ -3475,6 +3961,8 @@ def main() -> int:
     launches.update(spmd_launches)
     del oracle
     launches["elastic_join"], elastic = elastic_join()
+    mesh_launches, mesh = mesh_training()
+    launches.update(mesh_launches)
 
     for arch in SERVE_ARCHS:
         scfg = steps._serve_cfg(get_config(arch))
@@ -3519,6 +4007,7 @@ def main() -> int:
     print(json.dumps({"serve_stream": stream_readings}))
     print(json.dumps({"checkpoint": ckpt_readings, "har_cnn": har,
                       "moe_layer": moe_layer}))
+    print(json.dumps({"mesh_training": mesh}))
     print(json.dumps({"gateway_two_localities": gateway_2loc,
                       "checkpoint_two_localities": ckpt_2loc,
                       "spmd_two_localities": spmd,

@@ -16,18 +16,24 @@ state) to the JAX layout in float32 numpy.  ``host_leaves`` and
 the JAX layout *and* in ``jax.tree.flatten``'s order (dict keys sorted,
 tuples in order), each in its own dtype, and back into a port tree.
 ``cnn_params_from_numpy`` carries the HAR CNN's plain parameter dict.
+``opt_state_from_numpy`` carries the reference's optimizer state (any
+strategy's, in its global layout: zero1's whole m and v, onebit's
+``[ndp R, ROW]`` residuals) into one rank's state of a port train step.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
+import torch.utils._pytree as pytree
 
 from .core.sharding import is_spec
 from .models.model import build_model
 
 __all__ = ["cache_from_numpy", "cnn_params_from_numpy", "host_leaves",
-           "leaf_names", "params_from_numpy", "place_leaves",
-           "tree_to_numpy"]
+           "leaf_names", "opt_state_from_numpy", "params_from_numpy",
+           "place_leaves", "tree_to_numpy"]
 
 
 def _flatten(tree, prefix=()) -> dict:
@@ -79,6 +85,31 @@ def params_from_numpy(tree: dict, cfg, device) -> dict:
     Raises ``KeyError`` if a port parameter has no JAX leaf, and
     ``ValueError`` on a shape mismatch or a JAX leaf left over."""
     return _from_stacked(tree, build_model(cfg).specs(), device, "parameter")
+
+
+def opt_state_from_numpy(tree: dict, step, device) -> dict:
+    """The reference's optimizer state ``tree`` (``count``, ``m``/``v``
+    stacked like its parameters, onebit's ``ef`` list) as this rank's
+    state of the port's ``step`` (a ``core.steps.TrainStep`` on its
+    mesh), on ``device``: the global layout cut by ``step.shard_opt``.
+
+    Raises as ``params_from_numpy`` does for ``m`` and ``v``."""
+    f32 = _f32_specs(step.specs)
+    glob = {"count": torch.tensor(np.asarray(tree["count"]),
+                                  dtype=torch.int32)}
+    for k in ("m", "v"):
+        if k in tree:
+            glob[k] = _from_stacked(tree[k], f32, "cpu", f"{k} leaf")
+    if "ef" in tree:
+        glob["ef"] = [torch.tensor(np.asarray(e), dtype=torch.float32)
+                      for e in tree["ef"]]
+    return step.shard_opt(glob, device)
+
+
+def _f32_specs(specs):
+    return pytree.tree_map(
+        lambda s: dataclasses.replace(s, dtype=torch.float32), specs,
+        is_leaf=is_spec)
 
 
 def cache_from_numpy(tree: dict, cfg, device):

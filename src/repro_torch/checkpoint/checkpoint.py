@@ -55,6 +55,12 @@ commits, and is counted in ``aborted_saves``; the previous checkpoint
 stays latest.  Restores read every shard on the caller
 (``format.assemble_leaf`` re-joins the segments, whatever the process
 count that wrote them).
+
+A mesh run's world (``Plan(data=...)``) is not SPMD mode: its ranks'
+states differ (zero1 and onebit shard theirs), so rank 0 saves the state
+gathered into the reference's global layout alone, and each rank restores
+the whole checkpoint and cuts its own shard.  Its manager passes
+``spmd=False``.
 """
 from __future__ import annotations
 
@@ -114,6 +120,9 @@ class CheckpointManager:
             on their owning localities and restores spread their shard
             reads over the current localities.  Its local graph must be
             ``graph`` (futures cannot span graphs).
+        spmd: take the SPMD save path; None (the default) takes it in a
+            ``torch.distributed`` world of more than one process
+            (``spmd.is_multiprocess``), False never.
     Raises:
         ValueError: ``graph`` and ``dgraph.graph`` differ.
     """
@@ -121,7 +130,9 @@ class CheckpointManager:
     def __init__(self, directory: str | Path, *, keep: int = 3,
                  async_save: bool = True,
                  graph: Optional[FuturizedGraph] = None,
-                 dgraph: Optional[Any] = None):
+                 dgraph: Optional[Any] = None,
+                 spmd: Optional[bool] = None):
+        self._spmd = spmd
         self.dir = Path(directory)
         self.dir.mkdir(parents=True, exist_ok=True)
         self.keep = keep
@@ -142,6 +153,9 @@ class CheckpointManager:
         self._pending: Optional[PhyFuture] = None
         self._pending_step: Optional[int] = None
         self.aborted_saves = 0          # SPMD saves lost with a writer
+
+    def _is_spmd(self) -> bool:
+        return spmd.is_multiprocess() if self._spmd is None else self._spmd
 
     # -- placement ------------------------------------------------------------
     def ranks(self) -> list[int]:
@@ -203,7 +217,7 @@ class CheckpointManager:
                 process other than the driver, or without a ``dgraph``.
         """
         self._raise_if_failed()
-        if spmd.is_multiprocess():
+        if self._is_spmd():
             return self._save_spmd(step, tree, meta=meta, deps=deps)
         names, host = host_leaves(tree)
         treedef_str = f"repro_torch.bridge.host_leaves: {names}"
@@ -308,7 +322,7 @@ class CheckpointManager:
         exc = failed.exception()
         if exc is None:
             return
-        if isinstance(exc, LocalityLostError) and spmd.is_multiprocess():
+        if isinstance(exc, LocalityLostError) and self._is_spmd():
             self.aborted_saves += 1
             if step is not None:
                 # reclaim the aborted attempt's temp dir now: _gc only
@@ -430,7 +444,7 @@ class CheckpointManager:
         # SPMD mode reads locally: every process runs its own shadow loop
         # (each restores its own copy), and shipping segment bytes back
         # over the wire is what the mode exists to avoid
-        if len(ranks) == 1 or spmd.is_multiprocess():
+        if len(ranks) == 1 or self._is_spmd():
             return [fmt.read_shard_segments(str(d), e, verify=verify)
                     for e in entries]
         futs = [self._defer_on(ranks[i % len(ranks)],

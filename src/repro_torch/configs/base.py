@@ -1,8 +1,9 @@
 """ArchConfig: declarative architecture description (paper R8 - the user
 describes the network; distribution is the framework's job).
 
-Counterpart: ``repro/configs/base.py``, field for field; only the dtype
-table maps to torch dtypes."""
+Counterpart: ``repro/configs/base.py``, field for field, with its
+parameter counts (``_layer_params``, ``n_params``, which size the phylanx
+fusion cap); only the dtype table maps to torch dtypes."""
 from __future__ import annotations
 
 import dataclasses
@@ -94,6 +95,48 @@ class ArchConfig:
     @property
     def cache_dtype(self):
         return _DTYPES[self.cache_dtype_str]
+
+    # -- parameter counts (for 6ND roofline bookkeeping) ----------------------
+    def _layer_params(self) -> tuple[int, int]:
+        """(total, active) params per layer."""
+        d, ff = self.d_model, self.d_ff
+        attn = d * self.head_dim * (self.n_heads * 2 + self.n_kv_heads * 2)
+        if self.family in ("dense", "encdec"):
+            mlp_mults = 3 if self.mlp_kind == "swiglu" else 2
+            return attn + mlp_mults * d * ff, attn + mlp_mults * d * ff
+        if self.family == "moe":
+            router = d * self.n_experts
+            expert = 3 * d * ff
+            tot = attn + router + self.n_experts * expert
+            act = attn + router + self.top_k * expert
+            return tot, act
+        if self.family == "xlstm":
+            d_in = self.expand * d
+            m = d * 2 * d_in + 3 * d_in * d_in + d_in * d
+            return m, m
+        if self.family == "zamba":
+            d_in = self.expand * d
+            H = d_in // self.ssm_head_dim
+            gn = self.ssm_groups * self.ssm_state
+            mamba = d * (2 * d_in + 2 * gn + H) + d_in * d
+            return mamba, mamba
+        raise ValueError(self.family)
+
+    def n_params(self) -> tuple[int, int]:
+        """(total, active) including embeddings."""
+        tot, act = self._layer_params()
+        n_l = self.n_layers + self.n_enc_layers
+        tot, act = tot * n_l, act * n_l
+        if self.family == "zamba":
+            # shared transformer block, one copy
+            d, ff = self.d_model, self.d_ff
+            attn = d * self.head_dim * (self.n_heads * 2
+                                        + self.n_kv_heads * 2)
+            shared = attn + 3 * d * ff
+            tot += shared
+            act += shared * (self.n_layers // self.shared_every)
+        emb = self.vocab * self.d_model * 2   # embed + unembed
+        return tot + emb, act + emb
 
     # -- reductions for smoke tests -------------------------------------------
     def tiny(self) -> "ArchConfig":

@@ -1,8 +1,12 @@
 """Core of the port (counterpart: ``repro/core/``).
 
 Modules:
-  sharding - parameter specs and their initialization
-  futures  - host-side futurized execution runtime
-  fusion   - gradient buckets in the reference's layout
-  steps    - train / DDP / prefill / decode step builders
+  sharding    - parameter specs, their initialization, the tiling rules
+  futures     - host-side futurized execution runtime
+  fusion      - gradient buckets in the reference's layout
+  collectives - collectives over a mesh's dp process group
+  granularity - grain-size napkin math (the fusion cap)
+  overlap     - the horovod / phylanx / zero1 gradient exchange
+  resilience  - checksums, replay and replicate of a step
+  steps       - train / DDP / prefill / decode step builders
 """

@@ -1,8 +1,9 @@
 """Tensor fusion: coalesce many tensors into few capped 1-D buckets (paper
 R5), one collective or codec call per bucket instead of one per tensor.
 
-Counterpart: ``repro/core/fusion.py:27-118`` (``Bucket``, ``FusionPlan``,
-``make_plan``, ``pack``, ``unpack``).  The plan here is the reference's
+Counterpart: ``repro/core/fusion.py:27-134`` (``Bucket``, ``FusionPlan``,
+``make_plan``, ``pack``, ``unpack``, ``fused_apply``,
+``collective_stats``).  The plan here is the reference's
 plan, leaf for leaf: the JAX model keeps one stacked ``[L, ...]`` leaf per
 parameter kind and ``jax.tree.flatten`` orders dict keys by sort, while
 the port keeps nested lists of per-layer dicts in insertion order.  So
@@ -18,15 +19,15 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Sequence
+from typing import Any, Callable, Sequence
 
 import torch
 import torch.utils._pytree as pytree
 
 from .sharding import is_spec
 
-__all__ = ["Bucket", "FusionPlan", "make_plan", "pack", "pack_bucket",
-           "unpack"]
+__all__ = ["Bucket", "FusionPlan", "collective_stats", "fused_apply",
+           "make_plan", "pack", "pack_bucket", "unpack"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -169,3 +170,23 @@ def unpack(buffers: Sequence[torch.Tensor], plan: FusionPlan):
                 start = e.offset + k * n
                 leaves[m] = buf[start:start + n].view(shape)
     return pytree.tree_unflatten(leaves, plan.treespec)
+
+
+def fused_apply(tree, fn: Callable[[torch.Tensor], torch.Tensor],
+                cap_bytes: int = 32 * 1024 * 1024):
+    """Apply ``fn`` (e.g. a collective) per fused bucket instead of per
+    leaf; the result's leaves are views into ``fn``'s outputs."""
+    plan = make_plan(tree, cap_bytes)
+    return unpack([fn(b) for b in pack(tree, plan)], plan)
+
+
+def collective_stats(tree, cap_bytes: int) -> dict:
+    """Napkin-math readout: collectives saved by fusion (for logs/tests);
+    ``tensors`` counts the reference's (stacked) leaves."""
+    plan = make_plan(tree, cap_bytes)
+    return {
+        "tensors": plan.n_leaves,
+        "buckets": plan.n_buckets,
+        "bytes": int(sum(b.nbytes for b in plan.buckets)),
+        "launches_saved": plan.n_leaves - plan.n_buckets,
+    }

@@ -346,11 +346,15 @@ class Locality:
         the manifest entries.  Completion (or the failure) is reported in
         a ``spmd_done`` post, which also carries the kernel launches of
         the loop and the sanitizer's diagnostics on this locality (the
-        port's own additions: the driver checks both)."""
+        port's own additions: the driver checks both).  A spec with a
+        ``loop`` (a module-level function, shipped by reference) runs that
+        instead: a mesh session's rank train loop (``frontend/mesh.py``)
+        rides this protocol."""
         def run():
             try:
                 from ..frontend.spmd import shadow_train
-                out = shadow_train(spec, endpoint=self.endpoint)
+                loop = spec.get("loop") or shadow_train
+                out = loop(spec, endpoint=self.endpoint)
                 msg = dict(out, rank=self.rank, ok=True)
             except BaseException as e:  # noqa: BLE001 - shipped back
                 msg = {"rank": self.rank, "ok": False,

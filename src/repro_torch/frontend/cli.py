@@ -5,9 +5,10 @@ Counterpart: ``repro/frontend/cli.py`` (``cli_args``, ``plan_from_args``,
 ``Session.serve_stream`` and ``Session.train`` use, plus ``--device``.
 ``--localities``, ``--spmd``, ``--ddp``, ``--grad-codec``,
 ``--ddp-shards``, ``--elastic``, ``--elastic-port`` and ``--replicas``
-map onto the plan;
-the mesh flags come with ROADMAP item 14.  ``launch/train.py``'s
-``--ckpt`` maps onto ``Plan.ckpt_dir``.
+map onto the plan, and so do the mesh flags ``--data``, ``--model`` and
+``--pod`` (``--data 2`` trains on two rank processes; ``--model`` > 1 is
+ROADMAP item 14b and raises).  ``launch/train.py``'s ``--ckpt`` maps onto
+``Plan.ckpt_dir``.
 """
 from __future__ import annotations
 
@@ -23,8 +24,9 @@ __all__ = ["cli_args", "plan_from_args", "serve_flags", "train_flags"]
 def cli_args(ap: Optional[argparse.ArgumentParser] = None
              ) -> argparse.ArgumentParser:
     """Add the shared launcher flags (``--arch``, ``--tiny``/``--full``,
-    ``--device``, ``--seed``, ``--localities``, ``--spmd``) to ``ap``
-    (created if None)."""
+    ``--device``, ``--seed``, the mesh axes ``--data``/``--model``/
+    ``--pod``, ``--localities``, ``--spmd``) to ``ap`` (created if
+    None)."""
     if ap is None:
         ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-4b", choices=ARCH_IDS)
@@ -34,6 +36,13 @@ def cli_args(ap: Optional[argparse.ArgumentParser] = None
                     help="where the port runs; 'cpu' runs the kernels' "
                          "plain versions")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--data", type=int, default=1,
+                    help="the mesh's data axis: rank processes, each "
+                         "training its rows of the batch")
+    ap.add_argument("--model", type=int, default=1,
+                    help="the mesh's model axis (> 1 is ROADMAP item 14b)")
+    ap.add_argument("--pod", type=int, default=1,
+                    help="the mesh's pod axis (a second dp axis)")
     ap.add_argument("--localities", type=int, default=1,
                     help="total process count, the driver included: "
                          "worker localities build the batches (or with "
@@ -125,6 +134,7 @@ def plan_from_args(args, **overrides) -> Plan:
     win over parsed flags."""
     fields = {name: getattr(args, name)
               for name in ("arch", "tiny", "seed", "device", "batch", "seq",
+                           "data", "model", "pod",
                            "localities", "spmd", "ddp", "grad_codec",
                            "ddp_shards",
                            "elastic", "elastic_port", "replicas")

@@ -30,10 +30,18 @@ here).  ``Plan(elastic=True)`` takes new localities mid-run
 processes join a ``torch.distributed`` gloo world, every worker runs the
 train loop in lockstep (``frontend/spmd.py``) and each process writes its
 own checkpoint segments (``checkpoint/spmd.py``).  ``Session.lint`` runs
-phylint's static passes over the session's live graph.  What is still
+phylint's static passes over the session's live graph.
+``Plan(data=D, pod=P)`` with ``D * P > 1`` is a mesh session: ``compile``
+stands up a ``torch.distributed`` world of ``D * P`` rank processes (this
+process rank 0, the others spawned as worker localities, over SPMD mode's
+bring-up), and ``train`` runs the mesh train step (``core/steps.py``:
+the phylanx, horovod, zero1 and onebit strategies) in lockstep on every
+rank (``frontend/mesh.py``), with checkpoints in the reference's global
+layout and the ``replay``/``replicate`` resilience modes.  What is still
 missing raises ``NotImplementedError`` naming the ROADMAP item that
-brings it: mesh axes and step resilience (item 14), named shapes (item
-15).
+brings it: the model axis, serving over a mesh, and a mesh with SPMD mode,
+fabric localities or elastic membership (item 14b), the production
+meshes and named shapes (item 15).
 """
 from __future__ import annotations
 
@@ -49,6 +57,7 @@ from ..checkpoint.checkpoint import CheckpointManager
 from ..configs import get_config
 from ..core import steps as steps_lib
 from ..core.futures import FuturizedGraph, Lane, Pipeline, block_until_ready
+from ..core.resilience import ResilientRunner
 from ..core.sharding import init_params
 from ..data.pipeline import Prefetcher, stream_for
 from ..distrib.collectives import CODECS, RingAllReduce
@@ -56,6 +65,7 @@ from ..distrib.runtime import DistributedGraph
 from .ddp import DDPEngine
 from .futurize import Trace
 from .gateway import Gateway, RequestQueue
+from .mesh import rank_train
 
 __all__ = ["Plan", "Session"]
 
@@ -73,9 +83,10 @@ def _stack_wave(wave):
 class Plan:
     """Declarative run description: arch + mesh axes + strategy + shapes.
 
-    The fields are those of ``repro.frontend.Plan`` (see its docstring);
-    the port runs the single-device subset of them, on one process or, as
-    ``localities``, on several.
+    The fields are those of ``repro.frontend.Plan`` (see its docstring):
+    ``data`` and ``pod`` are the local mesh's dp axes, each rank a
+    process; ``model`` > 1 and the production meshes wait (ROADMAP items
+    14b and 15).
 
     Fields added by the port:
         device: ``"cuda"`` (the default) or ``"cpu"``.
@@ -142,10 +153,19 @@ def _destroy_world():
 
 
 def _unsupported(plan: Plan) -> Optional[str]:
-    if plan.mesh != "local" or plan.data * plan.model * plan.pod != 1:
-        return "mesh axes (mesh-parallel strategies, ROADMAP item 14)"
+    ndp = plan.data * plan.pod
+    if plan.mesh != "local":
+        return (f"the {plan.mesh!r} production mesh (dryrun's, ROADMAP "
+                f"item 15)")
+    if plan.model > 1:
+        return "a model axis > 1 (ROADMAP item 14b)"
     if plan.shape is not None:
         return "named shapes (dryrun, ROADMAP item 15)"
+    if ndp > 1 and plan.spmd:
+        return "SPMD mode with mesh axes (ROADMAP item 14b)"
+    if ndp > 1 and (plan.localities > 1 or plan.elastic):
+        return ("mesh axes with fabric localities or elastic membership "
+                "(ROADMAP item 14b)")
     return None
 
 
@@ -197,6 +217,10 @@ class Session:
             raise ValueError("Plan(ddp=True) and Plan(spmd=True) are "
                              "exclusive multi-process modes: ddp shards "
                              "the batch, spmd mirrors it")
+        if plan.ddp and plan.data * plan.pod > 1:
+            raise ValueError("ddp=True replaces the in-process dp axes: use "
+                             "a mesh with data=pod=1 (model-axis sharding "
+                             "is fine)")
         missing = _unsupported(plan)
         if missing is not None:
             raise NotImplementedError(f"the port does not run {missing} yet")
@@ -213,35 +237,37 @@ class Session:
                 raise ValueError(f"batch={plan.batch} must be divisible by "
                                  f"ddp_shards={shards}")
         self.plan = plan
+        #: ``ResilientRunner``'s ``fault_hook`` for the resilience modes of
+        #: ``train`` (a module-level callable, on every rank of a mesh): a
+        #: test seam, kept out of ``train``'s signature, the reference's
+        self._fault_hook = None
         self.cfg = plan.config()
         self.strategy = plan.build_strategy()
         self.runtime = FuturizedGraph(max_workers=max_workers,
                                       name=f"session:{plan.arch}")
         self.distributed = None
-        if plan.localities > 1 or plan.elastic:
+        #: rank processes of a mesh session (1: no mesh world); its ranks
+        #: are the worker localities (a mesh with localities is refused)
+        self.mesh_ranks = plan.data * plan.pod
+        n = max(plan.localities, self.mesh_ranks)
+        if n > 1 or plan.elastic:
             # workers get the checkpoint dir at spawn (PHYRAX_CKPT_DIR):
             # each locality creates it and writes its own shards there
             env = {"PHYRAX_CKPT_DIR": plan.ckpt_dir} if plan.ckpt_dir \
                 else {}
             init_thread = None
-            if plan.spmd:
-                env, init_thread = self._start_distributed(env)
+            if plan.spmd or self.mesh_ranks > 1:
+                env, init_thread = self._start_distributed(env, n)
             # dial-in joiners adopt the environment spawned workers get
             join_spec = {"env": dict(env)} if plan.elastic else None
             try:
                 self.distributed = DistributedGraph(
-                    localities=plan.localities, graph=self.runtime,
+                    localities=n, graph=self.runtime,
                     worker_env=env or None, name=f"session:{plan.arch}",
                     elastic=plan.elastic, elastic_port=plan.elastic_port,
                     join_spec=join_spec)
                 if init_thread is not None:
-                    init_thread.join(timeout=_DIST_INIT_TIMEOUT_S)
-                    if init_thread.is_alive():
-                        raise TimeoutError(
-                            "torch.distributed.init_process_group did not "
-                            "complete on the driver")
-                    if self._dist_init_error:
-                        raise self._dist_init_error[0]
+                    self._join_world(init_thread)
             except BaseException:
                 # a failed bring-up must not leave a world (or workers)
                 # behind to poison the next session in this interpreter
@@ -254,26 +280,26 @@ class Session:
         self._serve_steps: dict[tuple, tuple] = {}
         self._closed = False
 
-    def _start_distributed(self, env: dict):
-        """SPMD bring-up: pick a loopback coordinator, put it in the
-        workers' spawn environment, and start the driver's own join (rank
-        0) on a thread: it blocks until every process has joined, and the
-        workers are spawned only by the ``DistributedGraph`` made next.
-        This process's ``os.environ`` stays untouched, so a later
-        non-SPMD session in the same interpreter cannot inherit a stale
+    def _start_distributed(self, env: dict, n: int):
+        """World bring-up (SPMD mode, and a mesh session's rank
+        processes): pick a loopback coordinator, put it in the workers'
+        spawn environment, and start the driver's own join (rank 0 of
+        ``n``) on a thread: it blocks until every process has joined, and
+        the workers are spawned only by the ``DistributedGraph`` made
+        next.  This process's ``os.environ`` stays untouched, so a later
+        session in the same interpreter cannot inherit a stale
         coordinator."""
         from ..launch.mesh import free_port, maybe_init_distributed
         coord = f"127.0.0.1:{free_port()}"
         env = dict(env)
         env["PHYRAX_DIST_COORDINATOR"] = coord
-        env["PHYRAX_DIST_NUM_PROCESSES"] = str(self.plan.localities)
+        env["PHYRAX_DIST_NUM_PROCESSES"] = str(n)
         self._dist_init_error: list = []
 
         def init():
             try:
-                maybe_init_distributed(
-                    process_id=0, num_processes=self.plan.localities,
-                    coordinator=coord)
+                maybe_init_distributed(process_id=0, num_processes=n,
+                                       coordinator=coord)
             except BaseException as e:  # noqa: BLE001 - re-raised above
                 self._dist_init_error.append(e)
 
@@ -281,6 +307,14 @@ class Session:
                              name="distributed-init")
         t.start()
         return env, t
+
+    def _join_world(self, init_thread) -> None:
+        init_thread.join(timeout=_DIST_INIT_TIMEOUT_S)
+        if init_thread.is_alive():
+            raise TimeoutError("torch.distributed.init_process_group did "
+                               "not complete on the driver")
+        if self._dist_init_error:
+            raise self._dist_init_error[0]
 
     # -- lifecycle ----------------------------------------------------------
     def close(self):
@@ -294,7 +328,7 @@ class Session:
                     self.distributed.shutdown(wait=True)
                 self.runtime.shutdown(wait=True)
             finally:
-                if self.plan.spmd:
+                if self.plan.spmd or self.mesh_ranks > 1:
                     _destroy_world()
 
     def __enter__(self) -> "Session":
@@ -409,9 +443,15 @@ class Session:
                 raise ValueError("resilience modes do not compose with "
                                  "Plan(ddp=True): the ring's abort-on-loss "
                                  "failure model replaces step replay")
+            if resilience not in ("replay", "replicate"):
+                raise ValueError(f"unknown resilience mode {resilience!r} "
+                                 f"(none | replay | replicate)")
+
+    def _check_serve(self) -> None:
+        if self.mesh_ranks > 1:
             raise NotImplementedError(
-                f"resilience={resilience!r} (step replay and replication, "
-                f"ROADMAP item 14)")
+                "serving over a mesh (decode_rules, the KV cache tiled over "
+                "the mesh) is ROADMAP item 14b")
 
     def _stream(self, stream):
         if stream is not None:
@@ -484,8 +524,11 @@ class Session:
                 locality at this step.  Plain training survives by task
                 re-spawn; a DDP run aborts with ``LocalityLostError``.  A
                 no-op with one locality, as in the reference.
-            resilience: ``"none"``; other modes raise
-                ``NotImplementedError`` (ROADMAP item 14).
+            resilience: ``"none"``, ``"replay"`` or ``"replicate"``
+                (HPX-style step resilience, ``core.resilience``: the step
+                runs as ``fn_nodonate`` from copies of its inputs, which
+                doubles the train state's memory; a mesh agrees every
+                verdict over its dp group).
             verbose: print progress and the final runtime report.
         Returns:
             dict with ``final_loss``, per-log ``losses``, ``params``,
@@ -502,6 +545,12 @@ class Session:
             LocalityLostError: a locality died mid-all-reduce (DDP).
         """
         self._check_train(resilience, kill_locality_at_step)
+        if self.mesh_ranks > 1:
+            return self._train_mesh(
+                stream, steps=steps, hooks=hooks, ckpt_dir=ckpt_dir,
+                ckpt_every=ckpt_every, log_every=log_every, resume=resume,
+                fail_at_step=fail_at_step, resilience=resilience,
+                verbose=verbose)
         plan, runtime, dev = self.plan, self.runtime, self.device
         dist = self.distributed
         if ckpt_dir is None:
@@ -520,8 +569,15 @@ class Session:
             step = self.train_step
             params, opt = step.init(
                 torch.Generator(device=dev).manual_seed(plan.seed), dev)
+            runner = ResilientRunner(step.fn_nodonate,
+                                     fault_hook=self._fault_hook)
+            step.copy_stats.update(calls=0, bytes=0, seconds=0.0)
 
             def step_fn(it, batch, params, opt):
+                if resilience == "replay":
+                    return runner.replay(params, opt, batch)
+                if resilience == "replicate":
+                    return runner.replicate(params, opt, batch, n=2)
                 return step.fn(params, opt, batch)
             # SPMD mode builds every batch locally on each process
             prefetch = Prefetcher(stream, dev, graph=runtime,
@@ -531,8 +587,21 @@ class Session:
         ckpt = (CheckpointManager(ckpt_dir, keep=3, graph=runtime,
                                   dgraph=None if plan.ddp else dist)
                 if ckpt_dir else None)
+        # the train step's state is saved and restored in the reference's
+        # global layout (zero1's and onebit's differ from theirs in memory)
+        if engine is None:
+            def state(params, opt):
+                return params, step.gather_opt(opt)
+        else:
+            def state(params, opt):
+                return params, opt
         if ckpt is not None and resume and ckpt.latest_step() is not None:
-            start, (params, opt) = ckpt.restore((params, opt))
+            if engine is None:
+                start, (params, og) = ckpt.restore(
+                    (params, step.global_like()))
+                opt = step.shard_opt(og, dev)
+            else:
+                start, (params, opt) = ckpt.restore((params, opt))
             if verbose:
                 print(f"[train] resumed from step {start}")
         if engine is not None and dist is not None:
@@ -600,8 +669,8 @@ class Session:
                     retired = runtime.defer(block_until_ready, metrics,
                                             lane=Lane.CHECKPOINT,
                                             name=f"retire:{it}")
-                    fut = ckpt.save(it + 1, (params, opt), deps=(retired,),
-                                    meta={"arch": plan.arch})
+                    fut = ckpt.save(it + 1, state(params, opt),
+                                    deps=(retired,), meta={"arch": plan.arch})
                     if on_ckpt is not None:
                         on_ckpt(it + 1, fut)
             inflight.drain()
@@ -609,7 +678,8 @@ class Session:
             # nothing ran
             if ckpt is not None and steps % ckpt_every != 0 \
                     and metrics is not None:
-                ckpt.save(steps, (params, opt), meta={"arch": plan.arch})
+                ckpt.save(steps, state(params, opt),
+                          meta={"arch": plan.arch})
         except BaseException:
             if engine is not None and dist is not None:
                 # poison the ring everywhere: workers blocked in an
@@ -662,6 +732,9 @@ class Session:
                 print(f"[train] done: final loss {final:.4f} "
                       f"(host tasks {st.completed}, "
                       f"max in-flight {st.max_in_flight}, device {dev})")
+        if resilience != "none":
+            out["resilience"] = dict(runner.stats,
+                                     copies=dict(step.copy_stats))
         if engine is not None:
             out["grad_wire_bytes"] = int(engine.ring.wire_bytes)
             out["codec_bytes"] = engine.codec_bytes
@@ -695,6 +768,96 @@ class Session:
                       f"{d['membership_gen']})")
         return out
 
+    def run_ranks(self, loop, spec: dict, *, driver=None) -> dict:
+        """Run ``loop(spec, endpoint=None, driver=None)`` on every rank of
+        this mesh session in lockstep: each worker locality through the
+        ``spmd_train`` protocol, this process as rank 0 with ``driver``.
+        ``loop`` is a module-level function (it ships by reference).
+
+        Returns:
+            ``{rank: result}``, rank 0's as ``loop`` returned it, the
+            workers' as posted (with ``rank`` and ``ok``).
+        Raises:
+            RuntimeError: a session without a mesh world, or a worker's
+                loop failed (after rank 0's own exception, if it raised:
+                the workers raise an injected failure at the same step,
+                and after a failure of rank 0 alone they fail at their dp
+                group's timeout).
+        """
+        if self.mesh_ranks <= 1:
+            raise RuntimeError("run_ranks needs a mesh session "
+                               "(Plan(data=...) with data * pod > 1)")
+        dist = self.distributed
+        dist.spmd_train(dict(spec, loop=loop))
+        try:
+            mine = loop(spec, driver=driver)
+        except BaseException:
+            try:
+                dist.wait_spmd_done(timeout=30.0)
+            except TimeoutError:
+                pass
+            raise
+        done = dist.wait_spmd_done(timeout=600.0)
+        failed = [m for m in done.values() if not m.get("ok")]
+        if failed:
+            raise RuntimeError(f"mesh loop failed on rank "
+                               f"{failed[0]['rank']}: "
+                               f"{failed[0].get('error')}")
+        return {0: mine, **done}
+
+    def _train_mesh(self, stream, *, steps, hooks, ckpt_dir, ckpt_every,
+                    log_every, resume, fail_at_step, resilience,
+                    verbose) -> dict:
+        """``train`` on a mesh session: this process runs
+        ``frontend.mesh.rank_train`` as rank 0 (logging, hooks and the
+        checkpoint writes), every worker locality the same loop, started
+        by a ``spmd_train`` post.  A resume restores the driver's latest
+        checkpoint on every rank.  The result gains ``localities`` (each
+        worker's report: ``step``, ``final_loss``, ``launches``, ``wire``,
+        ``resilience``, ``peak_bytes``) and this rank's ``wire``,
+        ``resilience`` and ``peak_bytes``."""
+        plan, runtime, dist = self.plan, self.runtime, self.distributed
+        if ckpt_dir is None:
+            ckpt_dir = plan.ckpt_dir
+        stream = self._stream(stream)
+        ckpt = (CheckpointManager(ckpt_dir, keep=3, graph=runtime,
+                                  spmd=False) if ckpt_dir else None)
+        start = (ckpt.latest_step() or 0) if (ckpt is not None and resume) \
+            else 0
+        if verbose and start:
+            print(f"[train] resumed from step {start}")
+        spec = {"plan": plan, "steps": steps, "start": start,
+                "ckpt_dir": ckpt_dir, "ckpt_every": ckpt_every,
+                "fail_at_step": None if resume else fail_at_step,
+                "resilience": resilience, "fault_hook": self._fault_hook,
+                "stream": stream, "num_threads": torch.get_num_threads()}
+        driver = _MeshDriver(runtime, ckpt, hooks, log_every, verbose,
+                             plan.arch)
+        try:
+            done = self.run_ranks(rank_train, spec, driver=driver)
+        finally:
+            if ckpt is not None:
+                ckpt.close()
+            runtime.barrier()
+        mine = done.pop(0)
+        out = {"final_loss": mine["final_loss"], "losses": driver.losses,
+               "params": mine["params"],
+               "step": steps if steps > start else start,
+               "runtime_stats": self._stats_json(runtime.stats()),
+               "localities": {r: {k: m.get(k) for k in (
+                   "step", "final_loss", "launches", "wire", "resilience",
+                   "peak_bytes")} for r, m in sorted(done.items())}}
+        for k in ("wire", "resilience", "peak_bytes", "launches"):
+            out[k] = mine[k]
+        if verbose:
+            w = mine["wire"]
+            print(f"[train] mesh of {self.mesh_ranks} ranks "
+                  f"({self.strategy.name}): final loss "
+                  f"{out['final_loss']:.4f}; rank 0 wire {w['bytes']}B in "
+                  f"{w['calls']} collectives, {w['wire_s']:.3f}s in gloo, "
+                  f"staging {w['staging_s']:.3f}s")
+        return out
+
     # -- serve --------------------------------------------------------------
     def serve(self, requests: int = 8, *, prompt_len: int = 32,
               gen_len: int = 16, slots: int = 4, prompts=None,
@@ -723,6 +886,7 @@ class Session:
             ``first_prefill_logits`` (wave 0's ``[slots, vocab]`` prefill
             logits on the CPU).
         """
+        self._check_serve()
         plan, runtime, cfg, dev = self.plan, self.runtime, self.cfg, self.device
         pre, dec = self._serve_steps_for(prompt_len, gen_len, slots)
         params = init_params(
@@ -905,6 +1069,7 @@ class Session:
         Raises:
             ValueError: an encoder-decoder architecture.
         """
+        self._check_serve()
         plan, runtime, cfg, dev = self.plan, self.runtime, self.cfg, self.device
         n_replicas = plan.replicas if replicas is None else int(replicas)
         if cfg.family == "encdec":
@@ -973,3 +1138,43 @@ class Session:
                   f"epochs (page hits {st.serve.get('page_hits', 0)}/"
                   f"{st.serve.get('refills', 0)} refills, device {dev})")
         return out
+
+
+class _MeshDriver:
+    """Rank 0's side of a mesh run (``frontend.mesh.rank_train``'s
+    ``driver``): the logged losses, the hooks, and the checkpoint writes
+    on the session runtime, each gated on its step's retirement."""
+
+    def __init__(self, runtime, ckpt, hooks, log_every: int, verbose: bool,
+                 arch: str):
+        self.runtime, self.ckpt = runtime, ckpt
+        self.log_every, self.verbose, self.arch = log_every, verbose, arch
+        self.on_step_hook = getattr(hooks, "on_step", None)
+        self.on_log = getattr(hooks, "on_log", None)
+        self.on_ckpt = getattr(hooks, "on_checkpoint", None)
+        self.losses: list = []
+        self.t_log = time.time()
+
+    def on_step(self, it: int, metrics) -> None:
+        if self.on_step_hook is not None:
+            self.on_step_hook(it, metrics)
+        if (it + 1) % self.log_every == 0:
+            loss = float(metrics["loss"])
+            if self.verbose:
+                dt = (time.time() - self.t_log) / self.log_every
+                print(f"[train] step {it + 1:5d} loss {loss:8.4f} gnorm "
+                      f"{float(metrics['grad_norm']):8.3f} "
+                      f"{dt * 1e3:8.1f} ms/step", flush=True)
+            if self.on_log is not None:
+                self.on_log(it, loss)
+            self.losses.append(loss)
+            self.t_log = time.time()
+
+    def save(self, step: int, state, metrics) -> None:
+        retired = self.runtime.defer(block_until_ready, metrics,
+                                     lane=Lane.CHECKPOINT,
+                                     name=f"retire:{step - 1}")
+        fut = self.ckpt.save(step, state, deps=(retired,),
+                             meta={"arch": self.arch})
+        if self.on_ckpt is not None:
+            self.on_ckpt(step, fut)

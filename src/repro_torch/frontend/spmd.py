@@ -37,21 +37,19 @@ import os
 from pathlib import Path
 from typing import Any, Optional
 
-import torch
-
 from ..checkpoint import spmd as ckspmd
 from ..checkpoint.checkpoint import CheckpointManager
-from ..core import steps as steps_lib
 from ..core.futures import block_until_ready
-from ..data.pipeline import stream_for, to_device
-from ..kernels import KERNELS
+from .mesh import train_loop
 
 __all__ = ["shadow_train"]
 
 
 def shadow_train(spec: dict, endpoint: Optional[Any] = None) -> dict:
     """Mirror ``Session.train``'s device computation on this process and
-    write this process's checkpoint segments (see the module docstring).
+    write this process's checkpoint segments (see the module docstring):
+    ``frontend.mesh.train_loop`` on a mesh of one, whose saves write
+    segments.
 
     Args:
         spec: ``{"plan", "steps", "ckpt_every", "ckpt_dir", "resume",
@@ -69,52 +67,22 @@ def shadow_train(spec: dict, endpoint: Optional[Any] = None) -> dict:
     Raises:
         RuntimeError: the plan asks for CUDA and there is none.
     """
-    plan = spec["plan"]
-    device = torch.device(plan.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"Plan(device={plan.device!r}) on a locality "
-                           f"without a GPU")
-    if spec.get("num_threads"):
-        torch.set_num_threads(int(spec["num_threads"]))
-    steps: int = spec["steps"]
-    ckpt_every: int = spec.get("ckpt_every") or 0
     ckpt_dir: str = spec.get("ckpt_dir") or ""
     rank = int(os.environ.get("PHYRAX_LOCALITY_RANK", "0"))
-    before = {fn.__name__: fn.launches for fn in KERNELS}
-    step = steps_lib.make_train_step(plan.config(), plan.build_strategy(),
-                                     plan=plan)
-    params, opt = step.init(
-        torch.Generator(device=device).manual_seed(plan.seed), device)
     start = 0
     if spec.get("resume") and ckpt_dir:
         with CheckpointManager(ckpt_dir, async_save=False) as cm:
-            if cm.latest_step() is not None:
-                start, (params, opt) = cm.restore((params, opt))
-    stream = spec.get("stream")
-    if stream is None:
-        stream = stream_for(plan.config(), batch=plan.batch, seq=plan.seq,
-                            seed=plan.seed)
+            start = cm.latest_step() or 0
 
-    def save(s: int, state):
+    def save(s: int, step, params, opt, metrics):
+        block_until_ready(metrics)          # save only retired state
         tmp = Path(ckpt_dir) / f".tmp_step_{s:08d}"
+        state = (params, step.gather_opt(opt))          # global layout
         entry = ckspmd.write_spmd_shard(str(tmp), rank, state)
         if endpoint is not None:
             endpoint.post(0, "ckpt_entries",
                           {"step": int(s), "rank": rank, "entry": entry})
 
-    metrics = None
-    for it in range(start, steps):
-        batch = to_device(stream.batch_at(it), device)
-        metrics, params, opt = step.fn(params, opt, batch)
-        if ckpt_dir and ckpt_every and (it + 1) % ckpt_every == 0:
-            block_until_ready(metrics)      # save only retired state
-            save(it + 1, (params, opt))
-    block_until_ready(metrics)
-    if ckpt_dir and ckpt_every and steps % ckpt_every != 0 \
-            and metrics is not None:
-        save(steps, (params, opt))          # mirrors the driver's final save
-    return {"step": steps,
-            "final_loss": (float(metrics["loss"]) if metrics is not None
-                           else float("nan")),
-            "launches": {fn.__name__: fn.launches - before[fn.__name__]
-                         for fn in KERNELS}}
+    out = train_loop(dict(spec, start=start),
+                     save=save if ckpt_dir else None)
+    return {k: out[k] for k in ("step", "final_loss", "launches")}

@@ -1,28 +1,168 @@
-"""The multi-process world of SPMD mode (DESIGN.md §10).
+"""Meshes as worlds of rank processes, and the multi-process bring-up.
 
-Counterpart: ``repro/launch/mesh.py``, only ``free_port`` and
-``maybe_init_jax_distributed``, here ``maybe_init_distributed``: it joins
-a ``torch.distributed`` world over the ``gloo`` backend, on the card too.
-SPMD mode runs no collective (its compute is lockstep and local, its
-checkpoint segments are written by their own processes); the world only
-makes its size and this process's rank known to the checkpoint layer
-(``checkpoint.spmd.is_multiprocess``), and NCCL would refuse two ranks on
-one GPU.  The environment names are the port's own:
-``PHYRAX_DIST_COORDINATOR`` (``host:port`` of rank 0),
-``PHYRAX_DIST_NUM_PROCESSES`` and ``PHYRAX_DIST_PROCESS_ID``.  The mesh
-builders (``make_local_mesh`` and the rest) come with the mesh-parallel
-strategies, ROADMAP item 14.
+Counterpart: ``repro/launch/mesh.py`` (``make_mesh``,
+``make_production_mesh``, ``make_local_mesh``, ``mesh_devices``,
+``free_port`` and ``maybe_init_jax_distributed``, here
+``maybe_init_distributed``).  Everything here is a function: importing
+this module touches no ``torch.distributed`` state.
+
+Where the reference lays a mesh of D*P host devices out in one process
+and runs the train step on each under ``shard_map``, a port mesh is a
+``torch.distributed`` world of D*P rank *processes*: each computes on its
+own rows of the global batch and exchanges over the mesh's dp process
+group.  The backend is ``gloo``, on the card too: NCCL refuses two ranks
+on one GPU, and every rank of a one-card run shares ``cuda:0``.  Compute
+stays on the device; ``core/collectives.py`` stages CUDA tensors through
+pinned host buffers for the wire.  The ``model`` axis (tensor, expert and
+sequence parallelism) is ROADMAP item 14b and raises; the production
+meshes are dryrun's, item 15.
+
+SPMD mode uses the same world for persistence only (its compute is
+lockstep and local): the world makes its size and this process's rank
+known to the checkpoint layer (``checkpoint.spmd.is_multiprocess``).  The
+environment names are the port's own: ``PHYRAX_DIST_COORDINATOR``
+(``host:port`` of rank 0), ``PHYRAX_DIST_NUM_PROCESSES`` and
+``PHYRAX_DIST_PROCESS_ID``.
 """
 from __future__ import annotations
 
+import dataclasses
+import math
 import os
 import socket
 from datetime import timedelta
+from typing import Any, Optional, Sequence
 
-__all__ = ["free_port", "maybe_init_distributed"]
+__all__ = ["Mesh", "free_port", "make_local_mesh", "make_mesh",
+           "make_production_mesh", "maybe_init_distributed", "mesh_devices"]
 
 #: how long a rank waits for the others to join the world
 INIT_TIMEOUT_S = 120.0
+#: how long a collective of a mesh's dp group waits for its peers before
+#: it fails the run: a rank that raised alone must not hang the others
+MESH_TIMEOUT_S = 300.0
+
+_DP_AXES = ("pod", "data")
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """One rank's view of a mesh of rank processes.
+
+    Attributes:
+        shape: axis name -> size, the reference's ``mesh.shape``
+            (``data`` and ``model`` always, ``pod`` when > 1).
+        rank: this process's rank along the dp axes (``pod`` major).
+        coords: axis name -> this rank's coordinate.
+        ranks: the world ranks of the mesh, by dp rank.
+        group: the dp process group (None when the dp size is 1).
+    """
+    shape: dict
+    rank: int = 0
+    coords: dict = dataclasses.field(default_factory=dict)
+    ranks: tuple = (0,)
+    group: Any = None
+
+    @property
+    def dp_size(self) -> int:
+        return math.prod(self.shape.get(a, 1) for a in _DP_AXES)
+
+
+def make_mesh(shape: Sequence[int], axes: Sequence[str], *,
+              devices: Optional[Sequence[int]] = None) -> Optional[Mesh]:
+    """A mesh of ``shape`` over ``axes`` whose dp axes (``pod``, ``data``)
+    span rank processes of the current ``torch.distributed`` world.
+
+    Every rank of the world calls this in the same order (making the dp
+    group is collective).  ``devices`` are the world ranks of the mesh,
+    in dp-rank order (default: the whole world, whose size must then be
+    the dp size; at a dp size of 1, this process alone); a rank outside
+    ``devices`` gets None.
+
+    Raises:
+        NotImplementedError: a ``model`` axis > 1 (ROADMAP item 14b) or
+            an axis the port does not know.
+        ValueError: the dp size is not the world's (or ``devices``') size,
+            or the mesh spans processes without a world.
+    """
+    shape, axes = tuple(int(n) for n in shape), tuple(axes)
+    if len(shape) != len(axes):
+        raise ValueError(f"mesh shape {shape} for axes {axes}")
+    sizes = dict(zip(axes, shape))
+    unknown = set(axes) - {"pod", "data", "model"}
+    if unknown:
+        raise NotImplementedError(f"mesh axes {sorted(unknown)}: the port "
+                                  f"knows pod, data and model")
+    if sizes.get("model", 1) > 1:
+        raise NotImplementedError(
+            "a model axis > 1 (tensor, expert and sequence parallelism "
+            "over rank processes) is ROADMAP item 14b")
+    ndp = math.prod(sizes.get(a, 1) for a in _DP_AXES)
+    import torch.distributed as dist
+    in_world = dist.is_available() and dist.is_initialized()
+    world = dist.get_world_size() if in_world else 1
+    me = dist.get_rank() if in_world else 0
+    if devices is not None:
+        ranks = tuple(int(r) for r in devices)
+    else:       # a dp size of 1 is this process alone, in a world or not
+        ranks = tuple(range(world)) if ndp > 1 else (me,)
+    if ndp > 1 and not in_world:
+        raise ValueError(f"a mesh of {ndp} dp ranks needs a "
+                         f"torch.distributed world of rank processes "
+                         f"(Plan(data=...).compile() stands one up)")
+    if len(ranks) != ndp:
+        raise ValueError(f"a mesh of {ndp} dp ranks over "
+                         f"{'the world of ' if devices is None else ''}"
+                         f"{len(ranks)} rank processes")
+    group = None
+    if ndp > 1:
+        group = dist.new_group(ranks=list(ranks), backend="gloo",
+                               timeout=timedelta(seconds=MESH_TIMEOUT_S))
+    if me not in ranks:
+        return None
+    r = ranks.index(me)
+    data = sizes.get("data", 1)
+    coords = {a: 0 for a in axes}
+    if "data" in coords:
+        coords["data"] = r % data
+    if "pod" in coords:
+        coords["pod"] = r // data
+    return Mesh(shape=sizes, rank=r, coords=coords, ranks=ranks,
+                group=group)
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """The reference's 256/512-chip production meshes are dryrun's.
+
+    Raises:
+        NotImplementedError: always (ROADMAP item 15).
+    """
+    raise NotImplementedError(
+        f"the {'multipod' if multi_pod else 'single'} production mesh is "
+        f"dryrun's (ROADMAP item 15)")
+
+
+def make_local_mesh(data: int = 1, model: int = 1, pod: int = 1) -> Mesh:
+    """The mesh of ``Plan(mesh="local")``: ``data`` and ``model`` always
+    present, ``pod`` when > 1, as in the reference.  At ``data * pod >
+    1`` this process must be in a world of exactly that many rank
+    processes.
+
+    Raises:
+        NotImplementedError: ``model > 1`` (ROADMAP item 14b).
+        ValueError: the dp size is not the world's size.
+    """
+    shape, axes = [], []
+    for n, a in ((pod, "pod"), (data, "data"), (model, "model")):
+        if n > 1 or a in ("data", "model"):
+            shape.append(n)
+            axes.append(a)
+    return make_mesh(tuple(shape), tuple(axes))
+
+
+def mesh_devices(mesh) -> int:
+    """The mesh's size: its rank processes (times its model axis)."""
+    return math.prod(mesh.shape.values())
 
 
 def free_port() -> int:

@@ -18,13 +18,20 @@ a dial-in locality of that driver instead of a training run, which
 steals host tasks when idle and exits when the driver's run ends;
 ``--expect-joins N`` holds the driver's first step until N dial-ins
 joined, and ``--stall-at-step K`` sleeps 250 ms on the driver at step K,
-the deterministic steal window), plus ``--device`` and ``--n-layers``.
+the deterministic steal window), the mesh axes (``--data``, ``--pod``:
+that many rank processes, each training its rows of the batch with
+``--strategy`` phylanx, horovod, zero1 or onebit) and ``--resilience``
+(``none``, ``replay``, ``replicate``), plus ``--device`` and
+``--n-layers``.
 Runs on the GPU unless ``--device cpu`` is given; every locality runs on
 that device.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --steps 12 --batch 4 --seq 32 --log-every 4
+  # a mesh of two rank processes with sharded (ZeRO-1) solver state
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --steps 12 --batch 4 --seq 32 --log-every 4 --data 2 --strategy zero1
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --steps 12 --batch 4 --seq 32 --ddp --grad-codec onebit \\
       --ddp-shards 2 --log-every 4
@@ -133,7 +140,8 @@ def run(args) -> dict:
             steps=args.steps, hooks=hooks, ckpt_dir=args.ckpt,
             ckpt_every=args.ckpt_every, log_every=args.log_every,
             resume=args.resume, fail_at_step=args.fail_at_step,
-            kill_locality_at_step=args.kill_locality_at_step)
+            kill_locality_at_step=args.kill_locality_at_step,
+            resilience=args.resilience)
     if getattr(args, "stats_out", None):
         payload = {"final_loss": out["final_loss"], "losses": out["losses"],
                    "step": out["step"],
@@ -168,6 +176,11 @@ def parser() -> argparse.ArgumentParser:
                     type=int, default=None,
                     help="drill: SIGKILL a worker locality at this step "
                          "(plain training re-spawns its tasks; DDP aborts)")
+    ap.add_argument("--resilience", default="none",
+                    choices=["none", "replay", "replicate"],
+                    help="HPX-style step resilience: replay a step whose "
+                         "result is not finite, or run two replicas and "
+                         "pick by checksum (a mesh agrees the verdict)")
     ap.add_argument("--join", default=None, metavar="HOST:PORT",
                     help="join a running --elastic driver as an extra "
                          "locality instead of training (all other flags "

@@ -1,11 +1,12 @@
 """Gradient compression for the data-parallel wire: 1-bit signs with
 per-row L1 scales and error feedback.
 
-Counterpart: ``repro/optim/compression.py:19-83`` (``ROW``,
+Counterpart: ``repro/optim/compression.py:19-108`` (``ROW``,
 ``pack_bits``/``unpack_bits``, ``pack_signs``/``unpack_signs``,
 ``quantize_bucket``, ``dequantize_bucket``, ``make_plan``,
-``init_error_state``).  ``exchange_onebit``, the in-jit dp exchange, waits
-for the mesh-parallel strategies (ROADMAP item 14).
+``init_error_state``, ``exchange_onebit``).  ``exchange_onebit`` is the
+``onebit`` strategy's exchange over a mesh's dp group: per bucket one K3a
+launch for this rank's payload and one K3b launch for each origin's.
 
 PyTorch's uint32 arithmetic is thin, so sign words are int32 tensors
 whose bytes equal the reference's little-endian uint32 words: bit j of
@@ -19,14 +20,15 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.utils._pytree as pytree
 
-from ..core import fusion
+from ..core import collectives, fusion
 from ..kernels.onebit import (onebit_dequantize, onebit_quantize, pack_bits,
                               unpack_bits)
 
-__all__ = ["ROW", "dequantize_bucket", "init_error_state", "make_plan",
-           "pack_bits", "pack_signs", "quantize_bucket", "unpack_bits",
-           "unpack_signs"]
+__all__ = ["ROW", "dequantize_bucket", "exchange_onebit",
+           "init_error_state", "make_plan", "pack_bits", "pack_signs",
+           "quantize_bucket", "unpack_bits", "unpack_signs"]
 
 ROW = 1024  # bucket rows are reshaped to [R, ROW] for per-row scales
 
@@ -68,3 +70,51 @@ def init_error_state(plan: fusion.FusionPlan, device="cpu"):
     """Zero residual ``[R, ROW]`` float32 per bucket, on ``device``."""
     return [torch.zeros((b.size // ROW, ROW), dtype=torch.float32,
                         device=device) for b in plan.buckets]
+
+
+def exchange_onebit(grads, err_state, mesh, plan, *, on_bucket=None):
+    """The 1-bit exchange with error feedback over a mesh's dp group.
+
+    Per bucket of ``plan``: this rank's float32 gradient bucket and its
+    residual go through K3a (``quantize_bucket``); the packed sign words
+    and the scales of every rank are all-gathered; every origin's payload
+    is decoded by K3b (``onebit_dequantize``, one launch an origin); and
+    the decoded rows are averaged in float32 in origin order (summed,
+    then divided by the dp size), the reference's ``jnp.mean(deq,
+    axis=0)``.  Wire per bucket and rank: ``size / 8`` bytes of signs and
+    ``size / 256`` bytes of scales, against ``4 * size`` uncompressed.
+
+    Args:
+        grads: this rank's gradient tree (the port's layout).
+        err_state: this rank's residual, one ``[R, ROW]`` float32 tensor a
+            bucket (rows ``[r R, (r + 1) R)`` of the reference's global
+            ``[ndp R, ROW]``).
+        mesh: the ``launch.mesh.Mesh``.
+        plan: ``make_plan(f32 specs, ndp)``.
+        on_bucket: called as ``on_bucket(i, packed, scales, mean, own)``
+            with bucket ``i``'s gathered ``[ndp, R, ROW / 32]`` words,
+            ``[ndp, R, 1]`` scales, the 1-D mean and ``own``: this rank's
+            1-D float32 bucket, the residual it read and the residual it
+            returns (a test and measurement seam).
+    Returns:
+        ``(mean gradient tree, new residuals)``; the tree's leaves are
+        views into the mean buckets.
+    """
+    leaves = pytree.tree_leaves(grads)
+    outs, new_err = [], []
+    for i, err in enumerate(err_state):
+        buf = fusion.pack_bucket(leaves, plan, i).float()
+        packed, scale, err2 = quantize_bucket(buf, err)
+        all_packed = collectives.all_gather(packed, mesh, tiled=False)
+        all_scale = collectives.all_gather(scale, mesh, tiled=False)
+        ndp = all_packed.shape[0]
+        acc = onebit_dequantize(all_packed[0], all_scale[0])
+        for o in range(1, ndp):               # fixed origin order
+            acc = acc + onebit_dequantize(all_packed[o], all_scale[o])
+        mean = acc.div_(ndp).reshape(-1)
+        if on_bucket is not None:
+            on_bucket(i, all_packed, all_scale, mean, (buf, err, err2))
+        del buf
+        outs.append(mean)
+        new_err.append(err2)
+    return fusion.unpack(outs, plan), new_err

@@ -1,10 +1,10 @@
 """Solvers (paper terminology): synchronous SGD / momentum / AdamW, in the
 dense layout (m/v mirror the parameter tree).
 
-Counterpart: ``repro/optim/optimizers.py:22-109`` (``OptConfig``,
-``init_specs``, ``init``, ``global_norm``, ``clip_by_global_norm``, and the
-dense ``update``).  The ZeRO-1 layout waits for the mesh-parallel
-strategies (ROADMAP item 14).
+Counterpart: ``repro/optim/optimizers.py:22-124`` (``OptConfig``,
+``init_specs``, ``init``, ``global_norm``, ``clip_by_global_norm``, the
+dense ``update`` and ``zero1_shard_update``, the ZeRO-1 layout's solver on
+1-D shards, which ``core/overlap.py`` drives).
 
 The arithmetic is the reference's, leaf by leaf in float32.  One
 difference on purpose: ``update`` writes the new parameters and the new
@@ -23,7 +23,7 @@ import torch.utils._pytree as pytree
 from ..core.sharding import ParamSpec, is_spec
 
 __all__ = ["OptConfig", "clip_by_global_norm", "global_norm", "init",
-           "init_specs", "update"]
+           "init_specs", "update", "zero1_shard_update"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,3 +131,20 @@ def update(grads, state, params, oc: OptConfig):
     for g, p in zip(g_leaves, p_leaves):
         p.copy_(p.float() - oc.lr * clipped(g))
     return params, {"count": count}, {"grad_norm": gn}
+
+
+@torch.no_grad()
+def zero1_shard_update(g_shard, p_shard, m, v, count, oc: OptConfig,
+                       clip_scale):
+    """AdamW on 1-D float32 shards, whatever ``oc.kind`` says, as in the
+    reference: ``m`` and ``v`` are updated in place, the new parameter
+    shard is returned (a new tensor)."""
+    g = g_shard.float() * clip_scale
+    t = count.float()
+    bc1 = 1 - torch.pow(torch.tensor(oc.b1, device=t.device), t)
+    bc2 = 1 - torch.pow(torch.tensor(oc.b2, device=t.device), t)
+    m.mul_(oc.b1).add_((1 - oc.b1) * g)
+    v.mul_(oc.b2).add_((1 - oc.b2) * g * g)
+    upd = (m / bc1) / (torch.sqrt(v / bc2) + oc.eps) \
+        + oc.weight_decay * p_shard
+    return p_shard - oc.lr * upd

@@ -376,8 +376,8 @@ def test_launch_train_run_on_the_cpu(tmp_path, arch):
 
 
 @pytest.mark.parametrize("argv, match", [
-    (["--strategy", "zero1"], "item 14"),
-    (["--strategy", "onebit"], "item 14"),
+    (["--model", "2"], "item 14b"),
+    (["--data", "2", "--spmd", "--localities", "2"], "item 14b"),
 ])
 def test_launch_train_raises_for_what_the_port_does_not_run(argv, match):
     args = train_cli.parser().parse_args(
@@ -387,9 +387,11 @@ def test_launch_train_raises_for_what_the_port_does_not_run(argv, match):
 
 
 def test_not_implemented_surface():
+    with pytest.raises(NotImplementedError, match="item 14b"):
+        Plan(device="cpu", model=2).compile()
     with Plan(device="cpu").compile() as session:
-        with pytest.raises(NotImplementedError, match="item 14"):
-            session.train(steps=1, resilience="replay", verbose=False)
+        with pytest.raises(ValueError, match="resilience"):
+            session.train(steps=1, resilience="retry", verbose=False)
     with pytest.raises(ValueError, match="zero1"):
         steps.make_ddp_step(get_config("qwen3-4b", tiny=True),
                             steps.Strategy(name="zero1"))
