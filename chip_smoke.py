@@ -7,6 +7,9 @@
                                              # then the 2-locality one N
                                              # times, with host memory
     python3 chip_smoke.py --mesh-only        # the mesh-training phase only
+    python3 chip_smoke.py --model-axis-only  # K1 at the model axis's shapes,
+                                             # the qwen3-4b serve phase and
+                                             # the model-axis phase only
 
 Phases, in order; any failure ends the script with a non-zero exit and
 without the final ``{"ok": true, ...}`` line:
@@ -65,7 +68,8 @@ without the final ``{"ok": true, ...}`` line:
 6. serve_stream: the serving gateway,
    ``Plan(arch=..., tiny=False).compile().serve_stream(...)``, for the
    same but whisper-medium (which it refuses with the reference's
-   ``ValueError``, asserted) at full width and depth: 8 requests arriving
+   ``ValueError``, asserted) at full width and a third of each model's
+   depth (``STREAM_LAYERS``): 8 requests arriving
    mid-flight, each prefilled once at batch 1 and parked in host pages
    until a slot frees; an independent greedy loop over the same steps
    reproduces two of the streams bit for bit, two replicas and the
@@ -77,7 +81,7 @@ without the final ``{"ok": true, ...}`` line:
    tiny=False).compile().train(...)`` and ``Plan(arch=
    "granite-moe-1b-a400m", tiny=False).compile().train(...)`` at full
    width and depth;
-8. checkpoint drill, granite-moe-1b-a400m at full width, cut to 4 of its
+8. checkpoint drill, granite-moe-1b-a400m at full width, cut to 2 of its
    24 layers (``CKPT_DRILL_LAYERS``, for the time limit): 6 steps straight
    (saved at step 6), then 6 steps saving every 3 with an injected
    failure at step 4, then ``resume=True`` to step 6 from the step-3
@@ -88,8 +92,10 @@ without the final ``{"ok": true, ...}`` line:
 9. HAR CNN: the paper's Fig. 1 model, loss and gradients at minibatch
    8,000 on the card against the CPU, and its forward's device time;
 10. train the xlstm and enc-dec families: ``Plan(arch="xlstm-350m",
-   tiny=False)`` and ``Plan(arch="whisper-medium", tiny=False)``
-   ``.compile().train(...)`` at full width and depth with adamw
+   tiny=False)`` (cut to ``XLSTM_TRAIN_LAYERS`` of its 24 layers) and
+   ``Plan(arch="whisper-medium", tiny=False)``
+   ``.compile().train(...)`` at full width (whisper-medium at full depth)
+   with adamw
    (whisper-medium: K1 forward 96 and backward 48 a step, its encoder's
    non-causal backward included, and the cross ``bk``/``bv`` leave the
    run unchanged; from the reference's random init its float32 gradient
@@ -99,7 +105,7 @@ without the final ``{"ok": true, ...}`` line:
    no K1 or K2 name in xlstm-350m's), and whisper's plain
    cross-attention timed at its train shape, with its share of the step;
 11. fabric DDP across two localities on the one card: qwen3-4b at full
-   width, cut to 4 layers so that two processes fit, 2 shards, the
+   width, cut to 2 layers so that two processes fit, 2 shards, the
    driver and one spawned worker process summing gradients over the
    active-message ring: the 1-locality fp32 run, the 2-locality fp32 run
    (losses bit-identical to it) and the 2-locality onebit run (K3a and
@@ -109,7 +115,8 @@ without the final ``{"ok": true, ...}`` line:
    printed after every step of the 2-locality fp32 run;
 12. the rest of the multi-locality runtime on the one card: (a) the
    gateway at two localities, ``Plan(arch="qwen3-4b", tiny=False,
-   localities=2, replicas=2)``: replica 0 homed on the worker (its
+   localities=2, replicas=2)`` at the serve_stream phase's depth: replica
+   0 homed on the worker (its
    requests' ``stack`` prep runs there), streams bit-identical to one
    locality's, K1's launches one locality's, then the worker SIGKILLed
    mid-stream (replica deaths 1, no prefill recomputed, the same
@@ -126,21 +133,29 @@ without the final ``{"ok": true, ...}`` line:
    K1 launches the steps', ``Session.lint()`` empty and no sanitizer
    diagnostic; resumed at one locality, bit-identical to the straight
    run; (c) an elastic join mid-train:
-   qwen3-4b at 4 layers, ``Plan(elastic=True)`` gaining a locality after
+   qwen3-4b at 2 layers, ``Plan(elastic=True)`` gaining a locality after
    step 2, losses bit-identical to the static run's, tasks stolen, every
    worker reaped; (d) data-parallel mesh training on the SPMD phase's plan,
    ``Plan(data=2)``: two rank processes in a gloo world on the one card
-   run phylanx, horovod, zero1 and onebit 3 steps each from the same init
+   run phylanx, horovod, zero1 and onebit 2 steps each from the same init
    (``Session.run_ranks``), phylanx and horovod within 1e-6 of world-1
    2-shard fp32 DDP's losses and gradient norms, zero1 within 1e-5, its
    m and v on the scattered leaves half of phylanx's, every rank's K1,
    K3a and K3b counts exact, onebit's bucket-0 mean the plain K3b's; the
    zero1 crash drill on the same session, resumed bit-identically, its
    checkpoint in the reference's global shapes; step replay at data=1
-   bit-identical to the straight run;
+   bit-identical to the straight run; (e) the model axis, qwen3-4b at full
+   width on ``Plan(model=2)``: two rank processes each holding half of
+   every split leaf train 4 of its 36 layers 3 steps within 1e-3 (loss)
+   and 1e-2 (gradient norm) of the one-process run, every unsplit leaf
+   bit-identical on both ranks, K1 24 / 12 a rank; the same layers'
+   prefill and 8 decode logits within 1e-2 mean relative error of one
+   process's; ``Session.serve`` at all 36 layers (K1 72 a rank; tokens
+   equal to the serve phase's counted); one phylanx step at ``data=2,
+   model=2`` on four rank processes (2 layers, K1 4 / 2 a rank);
 13. where the time goes: one prefill (at the wave's batch, and at batch 1
    but for whisper-medium) and one decode step of each served
-   configuration, one plain and one
+   configuration (xlstm-350m's at ``PROFILE_LAYERS``), one plain and one
    DDP qwen3-4b train step, one zamba2-2.7b and one granite-moe-1b-a400m
    train step; the prefills
    and the train steps must show K1's tensor-core kernels by name and
@@ -150,7 +165,8 @@ without the final ``{"ok": true, ...}`` line:
    its f32 one, the zamba2-2.7b train step K2's backward kernel, the DDP
    step K3b's row-stream kernel;
 14. the gateway's, the checkpoint's, the 2-locality runs', the
-   multi-locality phases', the mesh phase's and the profiles' readings as
+   multi-locality phases', the mesh and model-axis phases' and the
+   profiles' readings as
    JSON lines,
    each phase's wall time, the
    ``kernels`` JSON line, then the ``ok`` line last.
@@ -271,7 +287,13 @@ MOE_TRAIN = dict(arch="granite-moe-1b-a400m", tiny=False, batch=8, seq=512)
 # the xlstm and enc-dec families at full width and depth: float32 state
 # with adamw 0.525 B x 16 B = 8.4 GB (xlstm-350m) and 0.879 B x 16 B = 14.1
 # GB (whisper-medium), so neither needs a cut
-XLSTM_TRAIN = dict(arch="xlstm-350m", tiny=False, batch=8, seq=512)
+# xlstm-350m trains cut to XLSTM_TRAIN_LAYERS of its 24 layers (one
+# group of seven mLSTM layers and an sLSTM layer): its step is host-bound
+# (144,055 kernels at 24 layers, 3.1 s a step on an H100) and its profile
+# walks every event, 40.4 s of the script's 1,200 s at full depth
+XLSTM_TRAIN_LAYERS = 8
+XLSTM_TRAIN = dict(arch="xlstm-350m", tiny=False, batch=8, seq=512,
+                   overrides={"n_layers": XLSTM_TRAIN_LAYERS})
 WHISPER_TRAIN = dict(arch="whisper-medium", tiny=False, batch=8, seq=512)
 # 4 steps (the others run TRAIN_STEPS), to keep the script inside its
 # time limit; step 2 of each run is profiled
@@ -290,13 +312,13 @@ WHISPER_CUT_ENC_LAYERS = 9
 WHISPER_TRAIN_CUT = dict(WHISPER_TRAIN,
                          overrides={"n_enc_layers": WHISPER_CUT_ENC_LAYERS})
 # fabric DDP across two localities, both on the one card: qwen3-4b at full
-# width cut to DDP2_LAYERS.  Each process holds 1.18 B parameters (the
-# untied 0.78 B embedding and unembedding and 0.10 B a layer) in float32
-# with adamw (16 B a parameter, 18.9 GB) plus the gradient buckets, the
-# codec's residual and the decoded sums (4.7 GB each): about 33 GB a
-# process and 66 GB for the two, inside 80 GB; at 12 layers two would need
-# about 110 GB
-DDP2_LAYERS = 4
+# width cut to DDP2_LAYERS (4 before the model-axis phase).  Each
+# process holds 0.98 B parameters (the untied 0.78 B embedding and
+# unembedding and 0.10 B a layer) in float32 with adamw (16 B a
+# parameter, 15.7 GB) plus the gradient buckets, the codec's residual and
+# the decoded sums (3.9 GB each): about 28 GB a process and 55 GB for the
+# two, inside 80 GB; at 12 layers two would need about 110 GB
+DDP2_LAYERS = 2
 DDP2 = dict(arch="qwen3-4b", tiny=False, batch=8, seq=512, ddp=True,
             ddp_shards=2, overrides={"n_layers": DDP2_LAYERS})
 # steps a run: the fp32 runs cut to 1 (from 2, then 3 and 4 before that,
@@ -314,14 +336,14 @@ MOE_TRAIN_ATTN = (MOE_TRAIN["batch"], _MOE_CFG.n_heads, _MOE_CFG.n_kv_heads,
 # the drill: saves every CKPT_EVERY steps, fails at step CKPT_FAIL_AT, and
 # needs room for two committed checkpoints beside a temp one on the disk;
 # where there is none, the drill's depth is cut further (printed).  It
-# runs CKPT_DRILL_LAYERS of granite's 24 layers (about 3.8 GB checkpoints,
+# runs CKPT_DRILL_LAYERS of granite's 24 layers (about 2.5 GB checkpoints,
 # where 24 layers' 16.6 GB took 287.6 s of the script's time limit, 12
 # layers' 8.9 GB 147.8-163.1 s at 0.23-0.26 GB/s, 8 layers' 6.3 GB
-# 110.4-124.0 s and 6 layers' 5.1 GB 98.4 s): the multi-locality, SPMD and
-# mesh phases need the room
+# 110.4-124.0 s, 6 layers' 5.1 GB 98.4 s and 4 layers' 3.8 GB 74.8 s): the
+# multi-locality, SPMD, mesh and model-axis phases need the room
 CKPT_EVERY, CKPT_FAIL_AT = 3, 4
 CKPT_DISK_SHARE = 0.8
-CKPT_DRILL_LAYERS = 4
+CKPT_DRILL_LAYERS = 2
 # the multi-locality runtime's other paths on the one card: the gateway's
 # two replicas homed on two localities (qwen3-4b at full size; the kill
 # drill SIGKILLs the worker before the GATEWAY_LOC_KILL_AT-th of the
@@ -354,11 +376,11 @@ ELASTIC_STALL_S = 0.25
 # zero1 drill: MESH_DRILL_STEPS saving every MESH_DRILL_EVERY and failing
 # at MESH_DRILL_FAIL_AT, then resumed; its straight run is the strategies
 # phase's zero1 run, which takes MESH_DRILL_STEPS steps
-MESH_LAYERS, MESH_STEPS = 2, 3
+MESH_LAYERS, MESH_STEPS = 2, 2
 MESH_TRAIN = dict(MOE_TRAIN, overrides={"n_layers": MESH_LAYERS})
 MESH_STRATEGIES = ("phylanx", "horovod", "zero1", "onebit")
 MESH_RTOL, MESH_ZERO1_RTOL = 1e-6, 1e-5
-MESH_DRILL_STEPS, MESH_DRILL_EVERY, MESH_DRILL_FAIL_AT = 6, 3, 4
+MESH_DRILL_STEPS, MESH_DRILL_EVERY, MESH_DRILL_FAIL_AT = 4, 2, 3
 MESH_PROBE_ITERS = 9
 # one MoE layer at granite's full width: 2,048 tokens (4 x 512, the serve
 # prefill's), bf16; with cap_factor E / k no assignment can drop
@@ -410,6 +432,17 @@ MOE_SERVE_B1_ATTN = (1, *MOE_TRAIN_ATTN[1:])
 SERVE_B1_SCAN = (1, ZAMBA_HEADS, _ZAMBA_CFG.ssm_groups, SERVE["prompt_len"],
                  _ZAMBA_CFG.ssm_head_dim, _ZAMBA_CFG.ssm_state,
                  _ZAMBA_CFG.ssm_chunk, torch.bfloat16)
+# the gateway's runs (serve_stream) at full width, cut to a third of each
+# model's depth (whole groups: zamba2-2.7b's shared block every 6 layers,
+# xlstm-350m's sLSTM every 8): a run's time is its host's per-layer work
+# (the park and refill copy each layer's cache), 205 s of the script's
+# 1,200 s at full depth; the 2-locality gateway runs qwen3-4b's cut too
+STREAM_LAYERS = {"qwen3-4b": 12, "zamba2-2.7b": 18,
+                 "granite-moe-1b-a400m": 8, "xlstm-350m": 8}
+# where the time goes: xlstm-350m's prefills and decode step profiled at
+# PROFILE_LAYERS of its depth (37,000 kernels a prefill at 24 layers,
+# whose events the profiler's report walks: 59.8 s at full depth)
+PROFILE_LAYERS = {"xlstm-350m": 8}
 # the gateway's runs (serve_stream): 8 requests arriving at these decode
 # rounds into SERVE's 4 slots; the independent greedy loop replays two of
 # them; the drill kills replica 0 at round 3; qwen3-4b's live queue takes
@@ -428,6 +461,27 @@ PAGE_BYTES = 1 << 16        # serve_stream's default page size
 # step's), then the edge cases.  bf16 runs the
 # tensor-core kernels, f32 the CUDA-core kernels, so each edge is held in
 # both dtypes.
+# the model axis (ROADMAP item 14b, part 1): qwen3-4b at full width on
+# model=2 rank processes sharing the one card, each holding half of every
+# split leaf.  (a) training cut to TP_LAYERS of its 36 layers (8 x 512,
+# adamw, phylanx, TP_STEPS steps: two ranks of 10 GB of float32 state
+# each, beside the 19 GB one-process oracle run first), held to the
+# oracle's losses within TP_LOSS_RTOL and gradient norms within
+# TP_NORM_RTOL (bf16 compute; the row-parallel sums round in another
+# order); (b) the same layers' prefill and TP_DECODE_STEPS decode steps,
+# teacher-forced with the oracle's tokens, each step's last-position
+# logits within TP_LOGIT_MEAN_REL_TOL (mean relative error) of the
+# one-process steps'; (c) Session.serve at all 36 layers (SERVE); (d) one
+# phylanx step at data=2, model=2, TP_D2_LAYERS layers, four rank
+# processes.  K1 runs each rank's own heads: H/2 query and Hkv/2 kv heads
+TP_LAYERS, TP_STEPS, TP_DECODE_STEPS, TP_D2_LAYERS = 4, 3, 8, 2
+TP_TRAIN = dict(TRAIN, overrides={"n_layers": TP_LAYERS})
+TP_D2_TRAIN = dict(TRAIN, overrides={"n_layers": TP_D2_LAYERS})
+TP_LOSS_RTOL, TP_NORM_RTOL, TP_LOGIT_MEAN_REL_TOL = 1e-3, 1e-2, 1e-2
+TP_SERVE_ATTN = (SERVE["slots"], _TRAIN_CFG.n_heads // 2,
+                 _TRAIN_CFG.n_kv_heads // 2, SERVE["prompt_len"],
+                 _TRAIN_CFG.head_dim, torch.bfloat16, True, None)
+TP_TRAIN_ATTN = (TRAIN["batch"], *TP_SERVE_ATTN[1:])
 FA_CASES = [
     (4, 32, 8, 512, 128, torch.bfloat16, True, None),
     (4, 32, 32, 512, 80, torch.bfloat16, True, None),     # d=80 (zamba)
@@ -442,6 +496,8 @@ FA_CASES = [
     WHISPER_DEC_ATTN,
     WHISPER_TRAIN_ENC_ATTN,
     WHISPER_TRAIN_DEC_ATTN,
+    TP_SERVE_ATTN,
+    TP_TRAIN_ATTN,
     (2, 8, 2, 200, 128, torch.bfloat16, True, None),      # ragged S
     (1, 32, 32, 256, 96, torch.bfloat16, True, None),     # d=96 (phi3)
     (2, 4, 2, 256, 32, torch.float32, True, None),        # d=32 f32 (tiny)
@@ -453,7 +509,7 @@ FA_CASES = [
     (2, 4, 4, 100, 80, torch.bfloat16, True, None),       # d=80, ragged S
     (1, 8, 8, 512, 80, torch.bfloat16, True, 128),        # d=80, window
 ]
-FA_TIMED = 13           # the first FA_TIMED cases are timed
+FA_TIMED = 15           # the first FA_TIMED cases are timed
 # K2 tolerances of tests/test_kernels.py's sweep, as atol and rtol
 SCAN_TOL = {torch.float32: 2e-4, torch.bfloat16: 6e-2}
 # (B, H, G, L, P, N, chunk, dtype), G the groups of Bm, Cm: zamba2-2.7b's
@@ -496,6 +552,7 @@ FA_BWD_CASES = [
     WHISPER_ENC_ATTN,
     WHISPER_TRAIN_ENC_ATTN,
     WHISPER_TRAIN_DEC_ATTN,
+    TP_TRAIN_ATTN,
     (2, 8, 2, 200, 64, torch.float32, True, None),        # GQA, ragged S
     (1, 4, 4, 256, 64, torch.float32, False, None),       # MHA, non-causal
     (2, 4, 2, 256, 32, torch.float32, True, 64),          # window, d=32
@@ -511,7 +568,7 @@ FA_BWD_CASES = [
     (2, 4, 2, 130, 96, torch.float32, True, None),        # d=96, GQA
     (2, 4, 2, 130, 96, torch.bfloat16, True, None),
 ]
-FA_BWD_TIMED = 8        # the first FA_BWD_TIMED cases are timed
+FA_BWD_TIMED = 9        # the first FA_BWD_TIMED cases are timed
 # f32: within 1e-4 of the largest gradient magnitude (at least 1); bf16:
 # the plain version rounds its products and probabilities to bf16, the
 # kernel sums in f32, so bf16 is held to 3e-2 of the largest magnitude
@@ -823,7 +880,7 @@ def fa_agreement(got, q, k, v, causal, window) -> dict:
             "ok": ok, "want": want}
 
 
-def check_kernels(gen) -> list:
+def check_kernels(gen, cases=None, timed: int = FA_TIMED) -> list:
     """K1 against its plain version and ``scaled_dot_product_attention``
     at ``FA_CASES`` (``fa_agreement``), and against itself: a second run
     on the same inputs gives the same bits.  At a non-causal ragged S, the
@@ -832,7 +889,7 @@ def check_kernels(gen) -> list:
     any failure raises.  Times the first ``FA_TIMED`` cases and returns
     their readings."""
     out, failed = [], []
-    for case in FA_CASES:
+    for case in (FA_CASES if cases is None else cases):
         B, H, Hkv, S, d, dt, causal, window = case
         q = torch.randn(B, H, S, d, generator=gen, device="cuda").to(dt)
         k = torch.randn(B, Hkv, S, d, generator=gen, device="cuda").to(dt)
@@ -862,7 +919,7 @@ def check_kernels(gen) -> list:
             ok &= seen
         if not ok:
             failed.append(case)
-        if len(out) < FA_TIMED:          # a serving slice's shape: time it
+        if len(out) < timed:             # a serving slice's shape: time it
             t = timings(
                 ms=lambda: flash_attention(q, k, v, causal=causal),
                 plain_ms=lambda: flash_attention_ref(q, k, v, causal=causal),
@@ -1121,7 +1178,7 @@ def causal_pairs(S: int, causal: bool, window) -> int:
     return int(keep.sum())
 
 
-def check_fa_bwd(gen) -> list:
+def check_fa_bwd(gen, cases=None, timed: int = FA_BWD_TIMED) -> list:
     """K1's backward kernel against autograd through the plain version on
     the card at ``FA_BWD_CASES``, and against itself: a second backward of
     the same graph gives the same bits (no atomics).  Times the first
@@ -1130,7 +1187,8 @@ def check_fa_bwd(gen) -> list:
     backward; returns their readings.  Every case is printed before any
     failure raises."""
     out, failed = [], []
-    for B, H, Hkv, S, d, dt, causal, window in FA_BWD_CASES:
+    for B, H, Hkv, S, d, dt, causal, window in (
+            FA_BWD_CASES if cases is None else cases):
         q = torch.randn(B, H, S, d, generator=gen, device="cuda").to(dt)
         k = torch.randn(B, Hkv, S, d, generator=gen, device="cuda").to(dt)
         v = torch.randn(B, Hkv, S, d, generator=gen, device="cuda").to(dt)
@@ -1165,7 +1223,7 @@ def check_fa_bwd(gen) -> list:
               f"{'ok' if ok else 'FAIL'}")
         if not ok:
             failed.append((B, H, Hkv, S, d, dt, causal, window))
-        if len(out) >= FA_BWD_TIMED:
+        if len(out) >= timed:
             continue
         # a training shape: time the backward alone, each call re-running
         # the recorded graph's backward
@@ -2199,8 +2257,8 @@ def _reaped(pids, timeout: float = 30.0) -> bool:
 
 
 def gateway_two_localities() -> tuple[dict, dict]:
-    """``Session.serve_stream`` of qwen3-4b at full width and depth at two
-    localities with two replicas: replica 0 is homed on the worker
+    """``Session.serve_stream`` of qwen3-4b at full width, at
+    ``serve_stream_full``'s depth, at two localities with two replicas: replica 0 is homed on the worker
     locality, a spawned process that runs its requests' ``stack`` prep,
     replica 1 on the driver; the model runs here for both.  The trace of
     ``serve_stream_full`` (every kernel count set to 0 just before and
@@ -2214,12 +2272,13 @@ def gateway_two_localities() -> tuple[dict, dict]:
     (and its replica homes [1, 0]); the drill's replica deaths 1.  Returns
     the counts by run and the readings."""
     arch = "qwen3-4b"
-    phase(f"serve_stream {arch} at two localities, two replicas (replica "
-          f"0 homed on the worker), full width and depth; then the worker "
-          f"SIGKILLed mid-stream")
     plan = Plan(arch=arch, tiny=False, localities=2, replicas=2,
-                device="cuda")
+                device="cuda", overrides={"n_layers": STREAM_LAYERS[arch]})
     cfg = plan.config()
+    phase(f"serve_stream {arch} at two localities, two replicas (replica "
+          f"0 homed on the worker), full width, {cfg.n_layers} of "
+          f"{get_config(arch).n_layers} layers; then the worker SIGKILLed "
+          f"mid-stream")
     n = len(GATEWAY_ARRIVALS)
     want = {k: v * n for k, v in prefill_launches(cfg).items()}
     base, prompts = STREAMS[arch]
@@ -3126,6 +3185,372 @@ def mesh_training() -> tuple[dict, dict]:
     return counts, readings
 
 
+def tp_warmup(spec: dict, endpoint=None, driver=None) -> dict:
+    """A worker rank's cold start, taken while the driver runs an oracle:
+    one step of tiny qwen3-4b on the card (the CUDA context, the
+    libraries and the kernels' modules; no collective)."""
+    cfg = get_config("qwen3-4b", tiny=True)
+    step = steps.make_train_step(cfg, steps.Strategy())
+    params, opt = step.init(torch.Generator(device="cuda").manual_seed(0),
+                            "cuda")
+    batch = to_device(stream_for(cfg, batch=2, seq=64, seed=0).batch_at(0),
+                      "cuda")
+    step.fn(params, opt, batch)
+    torch.cuda.synchronize()
+    return {}
+
+
+def tp_train(step, params, opt, stream, n_steps: int) -> dict:
+    """``n_steps`` of ``step`` from ``params``, each ended by a
+    synchronize, every kernel count and the wire counters set to 0 just
+    before the steps and read just after: losses, gradient norms, step
+    host walls, launches, wire, the device's peak, and after every step
+    ``param_bit_sums`` of the leaves no rule splits over the model
+    axis."""
+    mask = pytree.tree_leaves(step.split_mask) if step.split_mask \
+        is not None else [False] * len(pytree.tree_leaves(params))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    collectives.reset_stats()
+    losses, gnorms, wall, sums = [], [], [], []
+    for it in range(n_steps):
+        batch = to_device(stream.batch_at(it), "cuda")
+        t0 = time.perf_counter()
+        m, params, opt = step.fn(params, opt, batch)
+        torch.cuda.synchronize()
+        wall.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        sums.append(param_bit_sums([p for p, s in zip(
+            pytree.tree_leaves(params), mask) if not s]))
+    return {"losses": losses, "grad_norms": gnorms, "step_ms": wall,
+            "launches": _counts(), "wire": collectives.stats(),
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "replicated_bit_sums": sums, "replicated": len(sums[0]),
+            "leaves": len(mask)}
+
+
+def tp_rank(spec: dict, endpoint=None, driver=None) -> dict:
+    """One rank's share of the model-axis phase (module level: every
+    worker rank runs it too): on the mesh of ``spec["plan"]``, phylanx
+    for ``spec["steps"]`` steps from the seed's init (``tp_train``); then,
+    where ``spec["logits"]`` holds the oracle's prompts and tokens, the
+    prefill and decode steps at that depth, teacher-forced, each step's
+    whole last-position logits gathered (rank 0 keeps them)."""
+    plan, stream = spec["plan"], spec["stream"]
+    mesh = make_local_mesh(data=plan.data, model=plan.model, pod=plan.pod)
+    cfg = plan.config()
+    step = steps.make_train_step(cfg, steps.Strategy(name="phylanx"),
+                                 plan=plan, mesh=mesh)
+    params, opt = step.init(
+        torch.Generator(device="cuda").manual_seed(plan.seed), "cuda")
+    out = {"train": tp_train(step, params, opt, stream, spec["steps"])}
+    del step, params, opt
+    torch.cuda.empty_cache()
+    lg = spec.get("logits")
+    if lg is None:
+        return out
+    prompts, toks = lg["prompts"], lg["tokens"]
+    shape = {"seq_len": prompts.shape[1] + len(toks),
+             "global_batch": prompts.shape[0]}
+    pre = steps.make_prefill_step(cfg, shape, mesh=mesh)
+    dec = steps.make_decode_step(cfg, shape, mesh=mesh)
+    params = pre.init(torch.Generator(device="cuda").manual_seed(plan.seed),
+                      "cuda")
+    keep = mesh.rank == 0 and mesh.model_rank == 0
+    got = []
+    torch.cuda.synchronize()
+    _zero_counts()
+    collectives.reset_stats()
+    with torch.no_grad():
+        logits, cache = pre.fn(params, {"tokens": prompts.cuda()})
+        got.append(pre.gather_logits(logits).float().cpu())
+        for t, tok in enumerate(toks):
+            logits, cache = dec.fn(params, cache, {"tokens": tok.cuda()[:, None]},
+                                   prompts.shape[1] + t)
+            got.append(dec.gather_logits(logits).float().cpu())
+    torch.cuda.synchronize()
+    out["logits"] = {"logits": got if keep else None, "launches": _counts(),
+                     "wire": collectives.stats()}
+    del pre, dec, params, cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_oracle_train(plan_kw: dict, stream, n_steps: int) -> dict:
+    """The one-process run of ``plan_kw`` (phylanx, one rank: the plain
+    update) from the seed's init: the model axis's oracle."""
+    plan = Plan(**plan_kw, device="cuda")
+    step = steps.make_train_step(plan.config(), steps.Strategy(
+        name="phylanx"), plan=plan)
+    params, opt = step.init(
+        torch.Generator(device="cuda").manual_seed(plan.seed), "cuda")
+    out = tp_train(step, params, opt, stream, n_steps)
+    del step, params, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_oracle_logits(plan_kw: dict) -> dict:
+    """The one-process prefill (SERVE's slots and prompt length, seeded
+    prompts) and ``TP_DECODE_STEPS`` greedy decode steps of ``plan_kw``:
+    the prompts, the greedy tokens fed at each decode step and each
+    step's last-position logits (float32, on the CPU)."""
+    cfg = Plan(**plan_kw).config()
+    slots, prompt_len = SERVE["slots"], SERVE["prompt_len"]
+    shape = {"seq_len": prompt_len + TP_DECODE_STEPS, "global_batch": slots}
+    pre = steps.make_prefill_step(cfg, shape)
+    dec = steps.make_decode_step(cfg, shape)
+    params = init_params(pre.specs,
+                         torch.Generator(device="cuda").manual_seed(0),
+                         "cuda")
+    rng = np.random.default_rng(0)
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab,
+                                            (slots, prompt_len)))
+    want, toks = [], []
+    with torch.no_grad():
+        logits, cache = pre.fn(params, {"tokens": prompts.cuda()})
+        want.append(logits.float().cpu())
+        for t in range(TP_DECODE_STEPS):
+            tok = logits.argmax(-1)
+            toks.append(tok.cpu())
+            logits, cache = dec.fn(params, cache, {"tokens": tok[:, None]},
+                                   prompt_len + t)
+            want.append(logits.float().cpu())
+    del pre, dec, params, cache
+    torch.cuda.empty_cache()
+    return {"prompts": prompts, "tokens": toks, "logits": want}
+
+
+def _tp_held(name: str, got: dict, want: dict, fails: list) -> dict:
+    """A mesh run's losses and gradient norms against the oracle's."""
+    rel = lambda a, b: max(abs(x - y) / abs(y) for x, y in zip(a, b))
+    le = rel(got["losses"], want["losses"])
+    ge = rel(got["grad_norms"], want["grad_norms"])
+    if le > TP_LOSS_RTOL or ge > TP_NORM_RTOL:
+        fails.append(f"{name}: losses {got['losses']} / gnorms "
+                     f"{got['grad_norms']} against the oracle's "
+                     f"{want['losses']} / {want['grad_norms']} (rel "
+                     f"{le:.3g}, {ge:.3g})")
+    return {"loss_rel_err": le, "grad_norm_rel_err": ge}
+
+
+def _tp_launches(name: str, launches: dict, k1: int, k1_bwd: int,
+                 fails: list) -> None:
+    want = dict.fromkeys(launches, 0)
+    want.update(flash_attention=k1, flash_attention_bwd=k1_bwd)
+    if launches != want:
+        fails.append(f"{name} launches {launches} (want {want})")
+
+
+def _tp_wire(w: dict) -> str:
+    m, d = w["axes"]["model"], w["axes"]["dp"]
+    return (f"model axis {m['bytes']} B in {m['calls']} collectives, "
+            f"{m['wire_s']:.3f} s in gloo, staging {m['staging_s']:.3f} s; "
+            f"dp axis {d['bytes']} B in {d['calls']}, {d['wire_s']:.3f} s")
+
+
+def model_axis() -> tuple[dict, dict]:
+    """The model axis on the one card (ROADMAP item 14b, part 1):
+    qwen3-4b at full width, random weights from seed 0, one repeated 8 x
+    512 batch.  A ``Plan(model=2)`` session (two rank processes in a gloo
+    world: this one and a spawned worker) runs (a) and (b) through
+    ``Session.run_ranks`` (``tp_rank``) after their one-process oracles
+    (run here while the worker takes its cold start, ``tp_warmup``): (a)
+    phylanx at ``TP_LAYERS`` layers for ``TP_STEPS`` steps within
+    ``TP_LOSS_RTOL``/``TP_NORM_RTOL`` of the oracle, the leaves no rule
+    splits bit-identical on both ranks after every step, K1 24 / 12 a
+    rank; (b) the prefill and decode logits within
+    ``TP_LOGIT_MEAN_REL_TOL``; (c) ``Session.serve`` at all 36 layers: K1
+    72 a rank, the tokens against the one-process serve phase's (counted,
+    not held: bf16 near-ties may flip).  Then a ``Plan(data=2, model=2)``
+    session of four ranks: (d) one phylanx step at ``TP_D2_LAYERS``
+    layers against its oracle, the unsplit leaves bit-identical on all
+    four, K1 4 / 2 a rank.  No world is left and the workers are reaped.
+    Returns the counts by run and the readings."""
+    cfg = Plan(**TP_TRAIN).config()
+    full = get_config(cfg.name).n_layers
+    stream = RepeatStream(stream_for(cfg, batch=TRAIN["batch"],
+                                     seq=TRAIN["seq"], seed=0))
+    phase(f"model axis: {cfg.name} at full width on model=2 rank processes "
+          f"on the one card: train {TP_LAYERS} of {full} layers, its logits, "
+          f"serve all {full}; one data=2, model=2 step at {TP_D2_LAYERS}")
+    print(f"CUT to {TP_LAYERS} (train, logits) and {TP_D2_LAYERS} (data=2, "
+          f"model=2) of {full} layers: each oracle's float32 state with adamw "
+          f"beside the ranks' on the one card, and the phase's time")
+    counts: dict = {}
+    fails: list = []
+    serve_plan = Plan(arch=cfg.name, tiny=False, model=2, device="cuda")
+    t0 = time.perf_counter()
+    with serve_plan.compile() as session:
+        up_s = time.perf_counter() - t0
+        pids = [pr.pid for pr in session.distributed.group.procs.values()]
+        session.distributed.spmd_train({"loop": tp_warmup})
+        oracle = tp_oracle_train(TP_TRAIN, stream, TP_STEPS)
+        want_lg = tp_oracle_logits(TP_TRAIN)
+        warm = session.distributed.wait_spmd_done(timeout=300.0)
+        if not all(m.get("ok") for m in warm.values()):
+            raise AssertionError(f"model-axis warm-up failed: {warm}")
+        t1 = time.perf_counter()
+        ranks = session.run_ranks(tp_rank, {
+            "plan": Plan(**TP_TRAIN, model=2, device="cuda"),
+            "stream": stream, "steps": TP_STEPS,
+            "logits": {"prompts": want_lg["prompts"],
+                       "tokens": want_lg["tokens"]}})
+        ranks_s = time.perf_counter() - t1
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        _zero_counts()
+        served = session.serve(**SERVE)
+        counts["tp_serve_L0"] = _counts()
+        serve_s = time.perf_counter() - t1
+    world_left = torch.distributed.is_initialized()
+    reaped = _reaped(pids)
+    counts["tp_serve_L1"] = served["localities"][1]["launches"]
+    res = {r: ranks[r] for r in (0, 1)}
+    # (a)
+    train = {}
+    for r in (0, 1):
+        rec = res[r]["train"]
+        counts[f"tp_train_L{r}"] = rec["launches"]
+        _tp_launches(f"train rank {r}", rec["launches"],
+                     2 * TP_LAYERS * TP_STEPS, TP_LAYERS * TP_STEPS, fails)
+        train[r] = _tp_held(f"train rank {r}", rec, oracle, fails)
+    same = res[0]["train"]["replicated_bit_sums"] == \
+        res[1]["train"]["replicated_bit_sums"]
+    if not same or res[0]["train"]["losses"] != res[1]["train"]["losses"]:
+        fails.append("train: the ranks' unsplit leaves or losses differ")
+    # (b)
+    got_lg = res[0]["logits"]["logits"]
+    lg_rel = [mean_rel_err(g, w) for g, w in zip(got_lg, want_lg["logits"])]
+    lg_max = [float((g - w).abs().max())
+              for g, w in zip(got_lg, want_lg["logits"])]
+    if len(got_lg) != TP_DECODE_STEPS + 1 or \
+            max(lg_rel) > TP_LOGIT_MEAN_REL_TOL:
+        fails.append(f"logits mean rel err {lg_rel}")
+    for r in (0, 1):
+        counts[f"tp_logits_L{r}"] = res[r]["logits"]["launches"]
+        _tp_launches(f"logits rank {r}", res[r]["logits"]["launches"],
+                     TP_LAYERS, 0, fails)
+    # (c)
+    waves = served["waves"]
+    for r in (0, 1):
+        _tp_launches(f"serve rank {r}", counts[f"tp_serve_L{r}"],
+                     waves * full, 0, fails)
+    gen = torch.cat(served["generated"])
+    ref = SERVE_TOKENS.get(cfg.name)
+    same_tokens = None if ref is None else int((gen == ref).sum())
+    if gen.shape != (waves * SERVE["slots"], SERVE["gen_len"] + 1) or \
+            int(gen.min()) < 0 or int(gen.max()) >= cfg.vocab or \
+            not bool(torch.isfinite(served["first_prefill_logits"]).all()):
+        fails.append(f"serve: tokens {gen.shape} out of range or logits "
+                     f"not finite")
+    if world_left or not reaped:
+        fails.append(f"world left {world_left}, worker reaped {reaped}")
+    # (d)
+    d2_plan = Plan(**TP_D2_TRAIN, data=2, model=2, device="cuda")
+    t1 = time.perf_counter()
+    with d2_plan.compile() as session:
+        d2_up_s = time.perf_counter() - t1
+        pids = [pr.pid for pr in session.distributed.group.procs.values()]
+        session.distributed.spmd_train({"loop": tp_warmup})
+        d2_oracle = tp_oracle_train(TP_D2_TRAIN, stream, 1)
+        warm = session.distributed.wait_spmd_done(timeout=300.0)
+        if not all(m.get("ok") for m in warm.values()):
+            raise AssertionError(f"data=2, model=2 warm-up failed: {warm}")
+        d2 = session.run_ranks(tp_rank, {"plan": d2_plan, "stream": stream,
+                                         "steps": 1})
+    d2_s = time.perf_counter() - t1
+    world_left = torch.distributed.is_initialized()
+    reaped = _reaped(pids)
+    d2_held = {}
+    for r in range(4):
+        rec = d2[r]["train"]
+        counts[f"tp_d2_L{r}"] = rec["launches"]
+        _tp_launches(f"data=2, model=2 rank {r}", rec["launches"],
+                     2 * TP_D2_LAYERS, TP_D2_LAYERS, fails)
+        d2_held[r] = _tp_held(f"data=2, model=2 rank {r}", rec, d2_oracle,
+                              fails)
+        if rec["replicated_bit_sums"] != d2[0]["train"]["replicated_bit_sums"]:
+            fails.append(f"data=2, model=2: rank {r}'s unsplit leaves differ")
+    if world_left or not reaped:
+        fails.append(f"data=2, model=2: world left {world_left}, workers "
+                     f"reaped {reaped}")
+
+    for r in (0, 1):
+        rec = res[r]["train"]
+        print(f"train rank {r}: losses "
+              f"{' '.join(f'{x:.6f}' for x in rec['losses'])}, gnorms "
+              f"{' '.join(f'{x:.6f}' for x in rec['grad_norms'])} (rel err "
+              f"{train[r]['loss_rel_err']:.3g}, "
+              f"{train[r]['grad_norm_rel_err']:.3g}); steps "
+              f"{' '.join(f'{x:.1f}' for x in rec['step_ms'])} ms; "
+              f"{_tp_wire(rec['wire'])}; peak "
+              f"{rec['peak_bytes'] / 1e9:.3f} GB; K1 "
+              f"{rec['launches']['flash_attention']} / "
+              f"{rec['launches']['flash_attention_bwd']}")
+    print(f"oracle (one process): losses "
+          f"{' '.join(f'{x:.6f}' for x in oracle['losses'])}, gnorms "
+          f"{' '.join(f'{x:.6f}' for x in oracle['grad_norms'])}; steps "
+          f"{' '.join(f'{x:.1f}' for x in oracle['step_ms'])} ms; peak "
+          f"{oracle['peak_bytes'] / 1e9:.3f} GB")
+    print(f"the {res[0]['train']['replicated']} unsplit leaves (of "
+          f"{res[0]['train']['leaves']}) bit-identical on both ranks after "
+          f"every step: {same}")
+    print(f"logits, prefill then {TP_DECODE_STEPS} decode steps: mean rel "
+          f"err {' '.join(f'{x:.3g}' for x in lg_rel)} (tolerance "
+          f"{TP_LOGIT_MEAN_REL_TOL:g}); max abs err "
+          f"{' '.join(f'{x:.3g}' for x in lg_max)}; "
+          f"{_tp_wire(res[0]['logits']['wire'])}")
+    pre_ms = [1e3 * x for x in served["prefill_s"]]
+    dec_ms = sorted(1e3 * x for x in served["decode_s"])
+    print(f"serve at model=2, {full} layers: {served['tokens_per_s']:.1f} "
+          f"tok/s, {waves} waves, prefill "
+          f"{' '.join(f'{x:.1f}' for x in pre_ms)} ms, decode step median "
+          f"{dec_ms[len(dec_ms) // 2]:.1f} ms (min {dec_ms[0]:.1f}, max "
+          f"{dec_ms[-1]:.1f}); tokens equal to the one-process serve "
+          f"phase's: {same_tokens} of {gen.numel()}; K1 "
+          f"{counts['tp_serve_L0']['flash_attention']} / "
+          f"{counts['tp_serve_L1']['flash_attention']}")
+    for r, w in ((0, served["wire"]), (1, served["localities"][1]["wire"])):
+        print(f"  serve rank {r}: {_tp_wire(w)}")
+    for r in range(4):
+        rec = d2[r]["train"]
+        print(f"data=2, model=2 rank {r}: loss {rec['losses'][0]:.6f}, gnorm "
+              f"{rec['grad_norms'][0]:.6f} (oracle {d2_oracle['losses'][0]:.6f}"
+              f", {d2_oracle['grad_norms'][0]:.6f}); step "
+              f"{rec['step_ms'][0]:.1f} ms; {_tp_wire(rec['wire'])}; K1 "
+              f"{rec['launches']['flash_attention']} / "
+              f"{rec['launches']['flash_attention_bwd']}")
+    print(f"session up {up_s:.1f} s (data=2, model=2: {d2_up_s:.1f} s); "
+          f"ranks' train and logits {ranks_s:.1f} s; serve {serve_s:.1f} s; "
+          f"data=2, model=2 {d2_s:.1f} s; world left {world_left}, workers "
+          f"reaped {reaped}")
+    if fails:
+        raise AssertionError("model axis: " + "; ".join(fails))
+    readings = {
+        "layers": {"train": TP_LAYERS, "serve": full, "d2": TP_D2_LAYERS},
+        "session_up_s": up_s, "d2_session_up_s": d2_up_s,
+        "ranks_s": ranks_s, "serve_s": serve_s, "d2_s": d2_s,
+        "oracle": {k: oracle[k] for k in ("losses", "grad_norms",
+                                          "step_ms", "peak_bytes")},
+        "train": {r: dict(train[r], **{k: res[r]["train"][k] for k in (
+            "losses", "grad_norms", "step_ms", "wire", "peak_bytes")})
+            for r in (0, 1)},
+        "replicated_bit_identical": same,
+        "logits": {"mean_rel_err": lg_rel, "max_abs_err": lg_max},
+        "serve": {"tokens_per_s": served["tokens_per_s"],
+                  "prefill_ms": pre_ms, "decode_ms": dec_ms,
+                  "same_tokens": same_tokens, "tokens": gen.numel(),
+                  "wire": {0: served["wire"],
+                           1: served["localities"][1]["wire"]}},
+        "d2": {r: dict(d2_held[r], **{k: d2[r]["train"][k] for k in (
+            "losses", "grad_norms", "step_ms", "wire")}) for r in range(4)}}
+    return counts, readings
+
+
 def check_reference(arch: str, prompt_len: int = 20, gen_len: int = 8,
                     slots: int = 2, tol: float = 1e-4, scaled: bool = False):
     """Greedy serve of a tiny config on the card against the same
@@ -3239,6 +3664,11 @@ def xlstm_request_bytes(cfg) -> int:
     return groups * ((cfg.slstm_every - 1) * mlstm + slstm)
 
 
+#: each serve phase's generated tokens, by arch (the model-axis phase
+#: counts how many of qwen3-4b's its own serve reproduces)
+SERVE_TOKENS: dict = {}
+
+
 def serve_full(arch: str) -> dict:
     """``Session.serve`` of ``arch`` at full width and depth (random
     weights, seed 0), with every kernel launch count set to 0 just before
@@ -3274,6 +3704,7 @@ def serve_full(arch: str) -> dict:
             not bool(torch.isfinite(lg).all()):
         raise AssertionError("prefill logits are not finite")
     print(f"tokens in [0, {cfg.vocab}), prefill logits finite")
+    SERVE_TOKENS[arch] = gen
     return counts
 
 
@@ -3408,8 +3839,9 @@ def time_park_refill(gw, prompts) -> dict:
 
 
 def serve_stream_full(arch: str) -> tuple:
-    """``Session.serve_stream`` of ``arch`` at full width and depth (random
-    weights, seed 0): 8 requests arriving at ``GATEWAY_ARRIVALS``, with
+    """``Session.serve_stream`` of ``arch`` at full width, cut to
+    ``STREAM_LAYERS`` (random weights, seed 0): 8 requests arriving at
+    ``GATEWAY_ARRIVALS``, with
     every kernel launch count set to 0 just before and read just after.
     Checks completion, the paged-cache counters (every refill a page hit,
     no prefill recompute, every page reclaimed, the parked bytes those of
@@ -3421,10 +3853,11 @@ def serve_stream_full(arch: str) -> tuple:
     for qwen3-4b a live ``RequestQueue`` fed from another thread.  Returns
     (the single-replica run's counts, its readings).  For xlstm-350m the
     parked bytes are also held to ``xlstm_request_bytes``."""
-    phase(f"serve_stream {arch}, full width and depth, random weights "
-          f"(seed 0)")
-    plan = Plan(arch=arch, tiny=False, device="cuda")
+    plan = Plan(arch=arch, tiny=False, device="cuda",
+                overrides={"n_layers": STREAM_LAYERS[arch]})
     cfg = plan.config()
+    phase(f"serve_stream {arch}, full width, {cfg.n_layers} of "
+          f"{get_config(arch).n_layers} layers, random weights (seed 0)")
     n = len(GATEWAY_ARRIVALS)
     trace = [{"at_round": r} for r in GATEWAY_ARRIVALS]
     kw = dict(prompt_len=SERVE["prompt_len"], gen_len=SERVE["gen_len"],
@@ -3859,6 +4292,20 @@ def main() -> int:
         print(json.dumps({"mesh_training": mesh}))
         print_phase_times()
         return 0
+    if sys.argv[1:] == ["--model-axis-only"]:
+        # the model-axis phase alone, after K1 at its sharded shapes and
+        # the one-process qwen3-4b serve whose tokens it counts (its
+        # readings, no kernels line)
+        phase("K1 at the model axis's shapes against its plain versions")
+        check_kernels(torch.Generator(device="cuda").manual_seed(0),
+                      [TP_SERVE_ATTN, TP_TRAIN_ATTN], 2)
+        check_fa_bwd(torch.Generator(device="cuda").manual_seed(0),
+                     [TP_TRAIN_ATTN], 1)
+        serve_full("qwen3-4b")
+        _, tp = model_axis()
+        print(json.dumps({"model_axis": tp}))
+        print_phase_times()
+        return 0
     if sys.argv[1:]:
         print(f"unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
@@ -3963,12 +4410,18 @@ def main() -> int:
     launches["elastic_join"], elastic = elastic_join()
     mesh_launches, mesh = mesh_training()
     launches.update(mesh_launches)
+    tp_launches, tp = model_axis()
+    launches.update(tp_launches)
 
     for arch in SERVE_ARCHS:
         scfg = steps._serve_cfg(get_config(arch))
+        if arch in PROFILE_LAYERS:
+            scfg = dataclasses.replace(scfg, n_layers=PROFILE_LAYERS[arch])
+        depth = ("" if arch not in PROFILE_LAYERS else
+                 f" ({scfg.n_layers} of {get_config(arch).n_layers} layers)")
         batches = (SERVE["slots"],) if arch not in STREAM_ARCHS \
             else (SERVE["slots"], 1)
-        phase(f"where the time goes: {arch}, one prefill at batch "
+        phase(f"where the time goes: {arch}{depth}, one prefill at batch "
               f"{' and at batch '.join(map(str, batches))}, one decode "
               f"step (not counted)")
         for slots in batches:
@@ -4008,6 +4461,7 @@ def main() -> int:
     print(json.dumps({"checkpoint": ckpt_readings, "har_cnn": har,
                       "moe_layer": moe_layer}))
     print(json.dumps({"mesh_training": mesh}))
+    print(json.dumps({"model_axis": tp}))
     print(json.dumps({"gateway_two_localities": gateway_2loc,
                       "checkpoint_two_localities": ckpt_2loc,
                       "spmd_two_localities": spmd,
@@ -4042,6 +4496,8 @@ def main() -> int:
                             for k, v in fa[11].items()}
     fa_whisper_train_dec = {f"whisper_train_dec_{k}": v
                             for k, v in fa[12].items()}
+    fa_tp_serve = {f"tp_serve_{k}": v for k, v in fa[13].items()}
+    fa_tp_train = {f"tp_train_{k}": v for k, v in fa[14].items()}
     bwd_b8 = {f"train_b8_{k}": v for k, v in fa_bwd[1].items()}
     bwd_d80 = {f"zamba_train_{k}": v for k, v in fa_bwd[2].items()}
     bwd_d96 = {f"phi3_d96_{k}": v for k, v in fa_bwd[3].items()}
@@ -4051,6 +4507,7 @@ def main() -> int:
                              for k, v in fa_bwd[6].items()}
     bwd_whisper_train_dec = {f"whisper_train_dec_{k}": v
                              for k, v in fa_bwd[7].items()}
+    bwd_tp_train = {f"tp_train_{k}": v for k, v in fa_bwd[8].items()}
     largest = {k[len("largest_bucket_"):]: v for k, v in onebit.items()
                if k.startswith("largest_bucket_")}
     print(json.dumps({"kernels": [
@@ -4058,11 +4515,13 @@ def main() -> int:
               "src/repro/kernels/flash_attention.py:86", fa[0], **fa_zamba,
               **fa_b8, **fa_zamba_b8, **fa_b1, **fa_zamba_b1, **fa_moe,
               **fa_moe_b1, **fa_moe_b8, **fa_whisper_enc, **fa_whisper_dec,
-              **fa_whisper_train_enc, **fa_whisper_train_dec),
+              **fa_whisper_train_enc, **fa_whisper_train_dec, **fa_tp_serve,
+              **fa_tp_train),
         entry("flash_attention_bwd",
               "src/repro_torch/csrc/flash_attention.cu", None, fa_bwd[0],
               **bwd_b8, **bwd_d80, **bwd_d96, **bwd_moe, **bwd_whisper,
               **bwd_whisper_train_enc, **bwd_whisper_train_dec,
+              **bwd_tp_train,
               note="no Pallas counterpart: the JAX package differentiates "
                    "attend_chunked (src/repro/models/attention.py:130)"),
         entry("mamba2_chunk_scan", "src/repro_torch/csrc/mamba2_scan.cu",

@@ -19,6 +19,10 @@ tuples in order), each in its own dtype, and back into a port tree.
 ``opt_state_from_numpy`` carries the reference's optimizer state (any
 strategy's, in its global layout: zero1's whole m and v, onebit's
 ``[ndp R, ROW]`` residuals) into one rank's state of a port train step.
+On a mesh with a model axis ``params_from_numpy(..., mesh=)`` returns
+this rank's blocks of the global leaves (``core/sharding.py``), and
+``host_leaves(..., mesh=, specs=)`` gathers the global leaves first (a
+collective over the model group).
 """
 from __future__ import annotations
 
@@ -28,7 +32,7 @@ import numpy as np
 import torch
 import torch.utils._pytree as pytree
 
-from .core.sharding import is_spec
+from .core.sharding import default_rules, gather_tree, is_spec, shard_tree
 from .models.model import build_model
 
 __all__ = ["cache_from_numpy", "cnn_params_from_numpy", "host_leaves",
@@ -78,13 +82,20 @@ def _from_stacked(tree: dict, specs, device, what: str):
     return out
 
 
-def params_from_numpy(tree: dict, cfg, device) -> dict:
+def params_from_numpy(tree: dict, cfg, device, *, mesh=None,
+                      rules=None) -> dict:
     """The JAX parameter tree of ``cfg``'s model as the port's parameters
-    (in the dtypes of the port's specs for ``cfg``) on ``device``.
+    (in the dtypes of the port's specs for ``cfg``) on ``device``; on a
+    ``mesh`` with a model axis, this rank's blocks of them by ``rules``
+    (default: the training plan's).
 
     Raises ``KeyError`` if a port parameter has no JAX leaf, and
     ``ValueError`` on a shape mismatch or a JAX leaf left over."""
-    return _from_stacked(tree, build_model(cfg).specs(), device, "parameter")
+    specs = build_model(cfg).specs()
+    if mesh is None or mesh.model_size == 1:
+        return _from_stacked(tree, specs, device, "parameter")
+    whole = _from_stacked(tree, specs, "cpu", "parameter")
+    return shard_tree(whole, specs, mesh, rules or default_rules(), device)
 
 
 def opt_state_from_numpy(tree: dict, step, device) -> dict:
@@ -212,12 +223,16 @@ def leaf_names(tree) -> list[str]:
     return [_name(path) for path, _, _ in _slots(tree)]
 
 
-def host_leaves(tree) -> tuple[list, list]:
+def host_leaves(tree, *, mesh=None, specs=None,
+                rules=None) -> tuple[list, list]:
     """The leaves of a port tree (tensors, or numpy arrays and scalars) in
     the JAX layout and in ``jax.tree.flatten``'s order (``_slots``):
     ``(names, arrays)``.  Each array is an owned host copy in its leaf's
     own dtype (int32 stays int32), taken now and synchronously, so that
-    a later in-place update of the tree cannot reach it.
+    a later in-place update of the tree cannot reach it.  On a ``mesh``
+    with a model axis, ``tree`` holds this rank's blocks of the global
+    leaves of ``specs`` (a spec tree shaped like it), which are gathered
+    first: a collective over the model group.
 
     Raises:
         ValueError: a leaf's dtype has no numpy counterpart (bfloat16),
@@ -225,6 +240,8 @@ def host_leaves(tree) -> tuple[list, list]:
             shape or dtype; a list is empty or its items differ in
             structure.
     """
+    if mesh is not None and mesh.model_size > 1:
+        tree = gather_tree(tree, specs, mesh, rules or default_rules())
     names, arrays = [], []
     for path, lead, items in _slots(tree):
         name = _name(path)

@@ -57,6 +57,7 @@ import json
 import os
 import shutil
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Iterable, Optional
 
@@ -72,6 +73,7 @@ FORMAT_VERSION = "phyrax-ckpt/3"
 # phyrax-ckpt/2 checkpoints (whole-leaf segments only) read unchanged
 COMPAT_VERSIONS = frozenset({"phyrax-ckpt/2", FORMAT_VERSION})
 MANIFEST_NAME = "manifest.json"
+_HASH_THREADS = max(1, min(8, os.cpu_count() or 1))
 
 
 class CheckpointCorruptError(IOError):
@@ -97,12 +99,23 @@ def shard_filename(shard_id: int) -> str:
 
 
 def leaf_checksum(a: np.ndarray) -> str:
-    """blake2b over one leaf's dtype + shape + raw bytes."""
+    """blake2b over one leaf's dtype + shape + raw bytes (hashed in place:
+    no copy of a contiguous leaf)."""
     h = hashlib.blake2b(digest_size=16)
     h.update(str(a.dtype).encode())
     h.update(str(a.shape).encode())
-    h.update(np.ascontiguousarray(a).tobytes())
+    h.update(np.ascontiguousarray(a).reshape(-1).view(np.uint8))
     return h.hexdigest()
+
+
+def _checksums(arrays: list) -> list:
+    """``leaf_checksum`` of every array, on a pool of threads: hashlib
+    releases the GIL while it hashes, and one thread hashes a few hundred
+    MB a second, the slowest part of a save or a verified restore."""
+    if len(arrays) < 2:
+        return [leaf_checksum(a) for a in arrays]
+    with ThreadPoolExecutor(min(len(arrays), _HASH_THREADS)) as pool:
+        return list(pool.map(leaf_checksum, arrays))
 
 
 def shard_checksum(leaf_checksums: Iterable[str]) -> str:
@@ -175,29 +188,57 @@ def save_shard(directory: str, shard_id: int, indices, arrays,
     if slices is None:
         slices = [None] * len(list(indices))
     tmp = d / f"{name}.wip-{os.getpid()}"
-    # stream segment by segment: only one serialized blob is in memory
-    # at a time, not the whole shard
-    with open(tmp, "wb") as f:
-        for idx, a, sl in zip(indices, arrays, slices):
-            a = np.asarray(a)
-            buf = io.BytesIO()
-            np.save(buf, a)
-            blob = buf.getvalue()
-            entry = {"index": int(idx), "shape": list(a.shape),
-                     "dtype": str(a.dtype),
-                     "offset": offset, "nbytes": len(blob),
-                     "checksum": leaf_checksum(a)}
-            if sl is not None:
-                pairs, global_shape = sl
-                entry["slice"] = [[int(s), int(e)] for s, e in pairs]
-                entry["global_shape"] = [int(n) for n in global_shape]
-            leaves.append(entry)
-            f.write(blob)
-            offset += len(blob)
+    arrays = [np.asarray(a) for a in arrays]
+    # each segment goes to the file as np.save writes it (its header, then
+    # its bytes straight from the array), while the pool hashes the leaves
+    with ThreadPoolExecutor(_HASH_THREADS) as pool:
+        sums = [pool.submit(leaf_checksum, a) for a in arrays]
+        with open(tmp, "wb") as f:
+            for idx, a, sl in zip(indices, arrays, slices):
+                np.lib.format.write_array(f, a)
+                nbytes = f.tell() - offset
+                entry = {"index": int(idx), "shape": list(a.shape),
+                         "dtype": str(a.dtype),
+                         "offset": offset, "nbytes": nbytes}
+                if sl is not None:
+                    pairs, global_shape = sl
+                    entry["slice"] = [[int(s), int(e)] for s, e in pairs]
+                    entry["global_shape"] = [int(n) for n in global_shape]
+                leaves.append(entry)
+                offset += nbytes
+        for entry, c in zip(leaves, sums):
+            entry["checksum"] = c.result()
     os.replace(tmp, d / name)     # atomic: re-runs converge, never tear
     return {"file": name, "shard": int(shard_id),
             "locality": writer_rank(), "nbytes": offset, "leaves": leaves,
             "checksum": shard_checksum(e["checksum"] for e in leaves)}
+
+
+def _npy_view(blob: memoryview) -> np.ndarray:
+    """The array of one ``.npy`` segment, as a view of ``blob``'s bytes
+    (``np.load`` reads it into a copy).  Raises on a malformed header, an
+    object dtype or a byte count other than the header's."""
+    fmt = np.lib.format
+    head = io.BytesIO(blob[:12])
+    version = fmt.read_magic(head)
+    size = np.frombuffer(blob[8:12], dtype="<u4" if version[0] > 1
+                         else "<u2", count=1)[0]
+    start = (10 if version[0] == 1 else 12) + int(size)
+    if version not in ((1, 0), (2, 0)):
+        return np.load(io.BytesIO(blob), allow_pickle=False)
+    head = io.BytesIO(blob[:start])
+    fmt.read_magic(head)
+    read_header = (fmt.read_array_header_1_0 if version == (1, 0)
+                   else fmt.read_array_header_2_0)
+    shape, fortran, dtype = read_header(head)
+    if dtype.hasobject:
+        raise ValueError("object arrays are not loaded")
+    count = int(np.prod(shape, dtype=np.int64))
+    if len(blob) - start != count * dtype.itemsize:
+        raise ValueError(f"{len(blob) - start} data bytes, the header "
+                         f"gives {count * dtype.itemsize}")
+    a = np.frombuffer(blob, dtype=dtype, count=count, offset=start)
+    return a.reshape(shape[::-1]).T if fortran else a.reshape(shape)
 
 
 def read_shard_segments(directory: str, entry: dict, *,
@@ -221,12 +262,15 @@ def read_shard_segments(directory: str, entry: dict, *,
     """
     path = Path(directory) / entry["file"]
     try:
-        raw = path.read_bytes()
+        # one writable buffer for the whole shard: each leaf is a view of
+        # its bytes, not a copy
+        with open(path, "rb") as f:
+            raw = memoryview(bytearray(os.fstat(f.fileno()).st_size))
+            raw = raw[:f.readinto(raw)]
     except OSError as e:
         raise CheckpointCorruptError(
             f"shard {entry['file']} unreadable in {directory}: {e}") from e
     out: list[dict] = []
-    sums = []
     for leaf in entry["leaves"]:
         blob = raw[leaf["offset"]:leaf["offset"] + leaf["nbytes"]]
         if len(blob) != leaf["nbytes"]:
@@ -234,24 +278,25 @@ def read_shard_segments(directory: str, entry: dict, *,
                 f"shard {entry['file']} truncated at leaf {leaf['index']} "
                 f"({len(blob)} of {leaf['nbytes']} bytes)")
         try:
-            a = np.load(io.BytesIO(blob), allow_pickle=False)
+            a = _npy_view(blob)
         except Exception as e:
             raise CheckpointCorruptError(
                 f"shard {entry['file']} leaf {leaf['index']} does not "
                 f"parse: {e}") from e
-        if verify:
-            got = leaf_checksum(a)
-            sums.append(got)
-            if got != leaf["checksum"]:
-                raise CheckpointCorruptError(
-                    f"checksum mismatch in shard {entry['file']} "
-                    f"(leaf {leaf['index']}) - refusing to load a corrupt "
-                    f"checkpoint")
         out.append({"index": int(leaf["index"]),
                     "slice": leaf.get("slice"),
                     "global_shape": leaf.get("global_shape"),
                     "array": a})
-    if verify and shard_checksum(sums) != entry["checksum"]:
+    if not verify:
+        return out
+    sums = _checksums([seg["array"] for seg in out])
+    for leaf, got in zip(entry["leaves"], sums):
+        if got != leaf["checksum"]:
+            raise CheckpointCorruptError(
+                f"checksum mismatch in shard {entry['file']} "
+                f"(leaf {leaf['index']}) - refusing to load a corrupt "
+                f"checkpoint")
+    if shard_checksum(sums) != entry["checksum"]:
         raise CheckpointCorruptError(
             f"shard checksum mismatch in {entry['file']}")
     return out

@@ -1,13 +1,22 @@
-"""Collectives over a mesh's dp process group.
+"""Collectives over a mesh's dp or model process group.
 
 Counterpart: ``repro/core/collectives.py`` (``fused_psum``,
 ``fused_pmean``, ``naive_psum``, ``reduce_scatter``, ``all_gather``,
 ``ring_all_reduce``, ``halo_exchange``, ``softmax_combine``,
 ``pipeline_shift``).  Where the reference names a mesh axis inside
-``shard_map``, these take the port's ``launch.mesh.Mesh`` and run on its
-dp process group (gloo): every rank of the mesh calls the same
-collectives in the same order with its own local tensors, and gets what
-the reference's body gets on its device.
+``shard_map``, these take the port's ``launch.mesh.Mesh`` and the axis
+they run over: ``"dp"`` (the default: the ``pod`` and ``data`` axes, the
+mesh's dp process group) or ``"model"`` (its model group, the row of
+ranks that share one dp rank).  Every rank of the group calls the same
+collectives in the same order with its own local tensors (gloo), and
+gets what the reference's body gets on its device.
+
+The model axis also has the two autograd pairs that XLA's partitioner
+inserts around a tensor-parallel product in the reference:
+``copy_to_model`` (identity forward, all-reduce backward: into a
+column-parallel product, whose input gradient each rank holds a part of)
+and ``reduce_from_model`` (all-reduce forward, identity backward: out of
+a row-parallel product, whose output each rank holds a part of).
 
 gloo is the wire, the device keeps the compute: a CUDA tensor is copied
 into a pinned host buffer (reused per size), exchanged, and copied back.
@@ -17,7 +26,8 @@ visible: ``stats()`` counts the payload bytes handed to the wire, the
 point-to-point hops, the seconds in gloo and the seconds of the staging
 copies, per process.  The reduce-scatter is a ring of point-to-point
 hops (``n - 1`` of them, each moving one ``1/n`` chunk), so that its
-wire bytes are a reduce-scatter's and not an all-reduce's.
+wire bytes are a reduce-scatter's and not an all-reduce's.  ``stats()``
+also keeps the counters of each axis apart (``stats()["axes"]``).
 """
 from __future__ import annotations
 
@@ -28,35 +38,66 @@ import torch.utils._pytree as pytree
 
 from . import fusion
 
-__all__ = ["all_gather", "all_reduce", "fused_pmean", "fused_psum",
-           "halo_exchange", "naive_psum", "pipeline_shift", "pmean",
-           "ppermute", "reduce_scatter", "reset_stats", "ring_all_reduce",
+__all__ = ["AXES", "all_gather", "all_reduce", "copy_to_model",
+           "fused_pmean", "fused_psum", "halo_exchange", "naive_psum",
+           "pipeline_shift", "pmean", "ppermute", "reduce_from_model",
+           "reduce_scatter", "reset_stats", "ring_all_reduce",
            "softmax_combine", "stats"]
 
-_STATS = {"calls": 0, "bytes": 0, "hops": 0, "wire_s": 0.0,
-          "staging_s": 0.0, "staged_bytes": 0}
+#: the axes a collective runs over
+AXES = ("dp", "model")
+
+_KEYS = {"calls": 0, "bytes": 0, "hops": 0, "wire_s": 0.0,
+         "staging_s": 0.0, "staged_bytes": 0}
+_STATS = {a: dict(_KEYS) for a in AXES}
 _PINNED: dict = {}
 
 
 def reset_stats() -> None:
     """Zero this process's wire counters."""
-    for k in _STATS:
-        _STATS[k] = type(_STATS[k])()
+    for a in AXES:
+        _STATS[a] = dict(_KEYS)
 
 
 def stats() -> dict:
-    """This process's wire counters since ``reset_stats``: ``calls``
-    (collectives), ``bytes`` (payload handed to the wire), ``hops``
-    (point-to-point sends), ``wire_s`` (seconds in gloo), ``staging_s``
-    and ``staged_bytes`` (the device <-> pinned host copies)."""
-    return dict(_STATS)
+    """This process's wire counters since ``reset_stats``, summed over
+    the axes: ``calls`` (collectives), ``bytes`` (payload handed to the
+    wire), ``hops`` (point-to-point sends), ``wire_s`` (seconds in gloo),
+    ``staging_s`` and ``staged_bytes`` (the device <-> pinned host
+    copies); and ``axes``: the same counters of each axis."""
+    out = {k: sum(_STATS[a][k] for a in AXES) for k in _KEYS}
+    out["axes"] = {a: dict(_STATS[a]) for a in AXES}
+    return out
 
 
-def _size(mesh) -> int:
-    return 1 if mesh is None else mesh.dp_size
+def _check(axis: str) -> None:
+    if axis not in AXES:
+        raise ValueError(f"unknown mesh axis {axis!r} (have {AXES})")
 
 
-def _host(t: torch.Tensor, slot: str) -> torch.Tensor:
+def _size(mesh, axis: str = "dp") -> int:
+    _check(axis)
+    if mesh is None:
+        return 1
+    return mesh.dp_size if axis == "dp" else mesh.model_size
+
+
+def _group(mesh, axis: str):
+    return mesh.group if axis == "dp" else mesh.model_group
+
+
+def _index(mesh, axis: str) -> int:
+    """This rank's place in the ``axis`` group."""
+    if mesh is None:
+        return 0
+    return mesh.rank if axis == "dp" else mesh.model_rank
+
+
+def _world_ranks(mesh, axis: str) -> tuple:
+    return mesh.ranks if axis == "dp" else mesh.model_ranks
+
+
+def _host(t: torch.Tensor, slot: str, axis: str) -> torch.Tensor:
     """A host tensor holding ``t``'s values that the wire may overwrite:
     a clone on the CPU, a reused pinned buffer for a CUDA tensor."""
     if t.device.type == "cpu":
@@ -69,158 +110,175 @@ def _host(t: torch.Tensor, slot: str) -> torch.Tensor:
     torch.cuda.current_stream(t.device).synchronize()
     t0 = time.perf_counter()
     buf.copy_(t.detach().reshape(-1))
-    _STATS["staging_s"] += time.perf_counter() - t0
-    _STATS["staged_bytes"] += t.numel() * t.element_size()
+    _STATS[axis]["staging_s"] += time.perf_counter() - t0
+    _STATS[axis]["staged_bytes"] += t.numel() * t.element_size()
     return buf.view(t.shape)
 
 
-def _back(h: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+def _back(h: torch.Tensor, like: torch.Tensor, axis: str) -> torch.Tensor:
     """``h`` on ``like``'s device (a new tensor on the card)."""
     if like.device.type == "cpu":
         return h
     t0 = time.perf_counter()
     out = h.to(like.device)
-    _STATS["staging_s"] += time.perf_counter() - t0
-    _STATS["staged_bytes"] += h.numel() * h.element_size()
+    _STATS[axis]["staging_s"] += time.perf_counter() - t0
+    _STATS[axis]["staged_bytes"] += h.numel() * h.element_size()
     return out
 
 
-def _wire(fn, nbytes: int, hops: int = 0):
+def _wire(fn, nbytes: int, axis: str, hops: int = 0):
     t0 = time.perf_counter()
     out = fn()
-    _STATS["wire_s"] += time.perf_counter() - t0
-    _STATS["calls"] += 1
-    _STATS["bytes"] += nbytes
-    _STATS["hops"] += hops
+    st = _STATS[axis]
+    st["wire_s"] += time.perf_counter() - t0
+    st["calls"] += 1
+    st["bytes"] += nbytes
+    st["hops"] += hops
     return out
 
 
-def all_reduce(x: torch.Tensor, mesh, op: str = "sum") -> torch.Tensor:
-    """The ``op`` (``sum`` or ``max``) of every rank's ``x``, a new tensor
-    on ``x``'s device (``x`` itself at a dp size of 1)."""
-    if _size(mesh) == 1:
+def all_reduce(x: torch.Tensor, mesh, op: str = "sum", *,
+               mesh_axis: str = "dp") -> torch.Tensor:
+    """The ``op`` (``sum`` or ``max``) of every ``mesh_axis`` rank's
+    ``x``, a new tensor on ``x``'s device (``x`` itself when the axis is
+    1)."""
+    if _size(mesh, mesh_axis) == 1:
         return x
     import torch.distributed as dist
-    h = _host(x, "all_reduce")
+    h = _host(x, "all_reduce", mesh_axis)
     red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
-    _wire(lambda: dist.all_reduce(h, op=red, group=mesh.group),
-          h.numel() * h.element_size())
-    return _back(h, x)
+    _wire(lambda: dist.all_reduce(h, op=red,
+                                  group=_group(mesh, mesh_axis)),
+          h.numel() * h.element_size(), mesh_axis)
+    return _back(h, x, mesh_axis)
 
 
-def pmean(x: torch.Tensor, mesh) -> torch.Tensor:
+def pmean(x: torch.Tensor, mesh, *, mesh_axis: str = "dp") -> torch.Tensor:
     """The mean of every rank's ``x``: the sum over the wire, then one
-    division by the dp size (the reference's ``lax.pmean``)."""
-    n = _size(mesh)
-    return x if n == 1 else all_reduce(x, mesh).div_(n)
+    division by the axis size (the reference's ``lax.pmean``)."""
+    n = _size(mesh, mesh_axis)
+    return x if n == 1 else all_reduce(x, mesh,
+                                       mesh_axis=mesh_axis).div_(n)
 
 
-def all_gather(x: torch.Tensor, mesh, *, axis: int = 0,
-               tiled: bool = True) -> torch.Tensor:
-    """Every rank's ``x`` in dp-rank order: concatenated along ``axis``
-    (``tiled``) or stacked on a new leading dim."""
-    n = _size(mesh)
+def all_gather(x: torch.Tensor, mesh, *, axis: int = 0, tiled: bool = True,
+               mesh_axis: str = "dp") -> torch.Tensor:
+    """Every ``mesh_axis`` rank's ``x`` in rank order: concatenated along
+    ``axis`` (``tiled``) or stacked on a new leading dim."""
+    n = _size(mesh, mesh_axis)
     if n == 1:
         return x if tiled else x[None]
     import torch.distributed as dist
-    h = _host(x, "all_gather")
+    h = _host(x.contiguous(), "all_gather", mesh_axis)
     outs = [torch.empty_like(h) for _ in range(n)]
-    _wire(lambda: dist.all_gather(outs, h, group=mesh.group),
-          h.numel() * h.element_size())
+    _wire(lambda: dist.all_gather(outs, h, group=_group(mesh, mesh_axis)),
+          h.numel() * h.element_size(), mesh_axis)
     full = torch.cat(outs, dim=axis) if tiled else torch.stack(outs)
-    return _back(full, x)
+    return _back(full, x, mesh_axis)
 
 
-def ppermute(x: torch.Tensor, mesh, perm) -> torch.Tensor:
+def ppermute(x: torch.Tensor, mesh, perm, *,
+             mesh_axis: str = "dp") -> torch.Tensor:
     """The reference's ``lax.ppermute``: for each ``(src, dst)`` pair of
-    dp ranks, ``src``'s ``x`` goes to ``dst``; a rank no pair sends to
-    gets zeros."""
-    n = _size(mesh)
+    ``mesh_axis`` ranks, ``src``'s ``x`` goes to ``dst``; a rank no pair
+    sends to gets zeros."""
+    axis = mesh_axis
+    n = _size(mesh, axis)
     if n == 1:
         return x.clone() if (0, 0) in perm else torch.zeros_like(x)
     import torch.distributed as dist
-    me = mesh.rank
-    h = _host(x, "ppermute")
+    me, ranks, group = _index(mesh, axis), _world_ranks(mesh, axis), \
+        _group(mesh, axis)
+    h = _host(x, "ppermute", axis)
     recv = torch.zeros_like(h)
     dsts = [d for s, d in perm if s == me]
     srcs = [s for s, d in perm if d == me]
 
     def hop():
-        reqs = [dist.isend(h, dst=mesh.ranks[d], group=mesh.group)
-                for d in dsts]
+        reqs = [dist.isend(h, dst=ranks[d], group=group) for d in dsts]
         for s in srcs:
-            dist.recv(recv, src=mesh.ranks[s], group=mesh.group)
+            dist.recv(recv, src=ranks[s], group=group)
         for r in reqs:
             r.wait()
-    _wire(hop, len(dsts) * h.numel() * h.element_size(), hops=len(dsts))
-    return _back(recv, x) if srcs else torch.zeros_like(x)
+    _wire(hop, len(dsts) * h.numel() * h.element_size(), axis,
+          hops=len(dsts))
+    return _back(recv, x, axis) if srcs else torch.zeros_like(x)
 
 
 def _ring(n: int, step: int = 1):
     return [(i, (i + step) % n) for i in range(n)]
 
 
-def reduce_scatter(x: torch.Tensor, mesh, *, axis: int = 0) -> torch.Tensor:
-    """The sum over ranks of ``x``'s ``dp rank``-th chunk along ``axis``
+def reduce_scatter(x: torch.Tensor, mesh, *, axis: int = 0,
+                   mesh_axis: str = "dp") -> torch.Tensor:
+    """The sum over ranks of ``x``'s ``rank``-th chunk along ``axis``
     (the reference's tiled ``psum_scatter``), by ``n - 1`` ring hops: at
     hop ``s`` rank ``r`` passes its partial sum of chunk ``(r - s - 1) %
     n`` to rank ``r + 1``, which adds its own.
 
     Raises:
-        ValueError: ``x.shape[axis]`` does not divide by the dp size.
+        ValueError: ``x.shape[axis]`` does not divide by the axis size.
     """
-    n = _size(mesh)
+    n = _size(mesh, mesh_axis)
     if n == 1:
         return x
     if x.shape[axis] % n:
         raise ValueError(f"reduce_scatter of dim {x.shape[axis]} over "
                          f"{n} ranks")
     chunks = torch.chunk(x.movedim(axis, 0), n)
-    r = mesh.rank
+    r = _index(mesh, mesh_axis)
     acc = chunks[(r - 1) % n].contiguous()
     for s in range(n - 1):
-        got = ppermute(acc, mesh, _ring(n))
+        got = ppermute(acc, mesh, _ring(n), mesh_axis=mesh_axis)
         acc = got + chunks[(r - s - 2) % n]
     return acc.movedim(0, axis).contiguous()
 
 
-def naive_psum(tree, mesh):
+def naive_psum(tree, mesh, *, mesh_axis: str = "dp"):
     """Horovod baseline: one all-reduce per tensor, no fusion (Fig. 1)."""
-    return pytree.tree_map(lambda g: all_reduce(g, mesh), tree)
+    return pytree.tree_map(
+        lambda g: all_reduce(g, mesh, mesh_axis=mesh_axis), tree)
 
 
-def fused_psum(tree, mesh, cap_bytes: int = 32 * 1024 * 1024):
+def fused_psum(tree, mesh, cap_bytes: int = 32 * 1024 * 1024, *,
+               mesh_axis: str = "dp"):
     """All-reduce a tree in dtype-homogeneous fused buckets (paper R5)."""
-    return fusion.fused_apply(tree, lambda b: all_reduce(b, mesh), cap_bytes)
+    return fusion.fused_apply(
+        tree, lambda b: all_reduce(b, mesh, mesh_axis=mesh_axis), cap_bytes)
 
 
-def fused_pmean(tree, mesh, cap_bytes: int = 32 * 1024 * 1024):
-    return fusion.fused_apply(tree, lambda b: pmean(b, mesh), cap_bytes)
+def fused_pmean(tree, mesh, cap_bytes: int = 32 * 1024 * 1024, *,
+                mesh_axis: str = "dp"):
+    return fusion.fused_apply(
+        tree, lambda b: pmean(b, mesh, mesh_axis=mesh_axis), cap_bytes)
 
 
-def ring_all_reduce(x: torch.Tensor, mesh) -> torch.Tensor:
+def ring_all_reduce(x: torch.Tensor, mesh, *,
+                    mesh_axis: str = "dp") -> torch.Tensor:
     """Bandwidth-optimal ring all-reduce: the ring reduce-scatter's
     ``n - 1`` point-to-point hops (``stats()["hops"]``), then an
     all-gather of the reduced chunks.  An indivisible payload takes the
     plain all-reduce, as in the reference."""
-    n = _size(mesh)
+    n = _size(mesh, mesh_axis)
     if n == 1:
         return x
     if x.numel() % n:
-        return all_reduce(x, mesh)
-    part = reduce_scatter(x.reshape(n, -1), mesh)
-    return all_gather(part, mesh).reshape(x.shape)
+        return all_reduce(x, mesh, mesh_axis=mesh_axis)
+    part = reduce_scatter(x.reshape(n, -1), mesh, mesh_axis=mesh_axis)
+    return all_gather(part, mesh, mesh_axis=mesh_axis).reshape(x.shape)
 
 
-def halo_exchange(x: torch.Tensor, mesh, halo: int, *,
-                  dim: int = 0) -> torch.Tensor:
+def halo_exchange(x: torch.Tensor, mesh, halo: int, *, dim: int = 0,
+                  mesh_axis: str = "dp") -> torch.Tensor:
     """Overlapped tiling: the tile extended by ``halo`` ghost slices from
     each neighbour; the edge tiles get zeros (non-periodic boundary)."""
-    n, idx = _size(mesh), (mesh.rank if mesh is not None else 0)
+    n, idx = _size(mesh, mesh_axis), _index(mesh, mesh_axis)
     lo = x.narrow(dim, 0, halo).contiguous()
     hi = x.narrow(dim, x.shape[dim] - halo, halo).contiguous()
-    from_left = ppermute(hi, mesh, _ring(n, +1))      # rank i-1's hi
-    from_right = ppermute(lo, mesh, _ring(n, -1))     # rank i+1's lo
+    from_left = ppermute(hi, mesh, _ring(n, +1),       # rank i-1's hi
+                         mesh_axis=mesh_axis)
+    from_right = ppermute(lo, mesh, _ring(n, -1),      # rank i+1's lo
+                          mesh_axis=mesh_axis)
     if idx == 0:
         from_left = torch.zeros_like(lo)
     if idx == n - 1:
@@ -228,21 +286,65 @@ def halo_exchange(x: torch.Tensor, mesh, halo: int, *,
     return torch.cat([from_left, x, from_right], dim=dim)
 
 
-def softmax_combine(partials, mesh) -> torch.Tensor:
+def softmax_combine(partials, mesh, *, mesh_axis: str = "dp"
+                    ) -> torch.Tensor:
     """Exact merge of per-rank softmax partials ``(m, l, o)`` (running
     max, denominator, weighted values) across a sharded KV axis: a max
     and two sums over the wire, O(d) per token."""
     m, l, o = partials
-    m_glob = all_reduce(m, mesh, "max")
+    m_glob = all_reduce(m, mesh, "max", mesh_axis=mesh_axis)
     scale = torch.exp(m - m_glob)
-    l_glob = all_reduce(l * scale, mesh)
-    o_glob = all_reduce(o * scale, mesh)
+    l_glob = all_reduce(l * scale, mesh, mesh_axis=mesh_axis)
+    o_glob = all_reduce(o * scale, mesh, mesh_axis=mesh_axis)
     return o_glob / torch.clamp(l_glob, min=1e-30)
 
 
-def pipeline_shift(x: torch.Tensor, mesh, *,
-                   reverse: bool = False) -> torch.Tensor:
+def pipeline_shift(x: torch.Tensor, mesh, *, reverse: bool = False,
+                   mesh_axis: str = "dp") -> torch.Tensor:
     """Hand activations (or gradients, ``reverse``) to the neighbouring
     stage of the ring."""
-    return ppermute(x, mesh, _ring(_size(mesh), -1 if reverse else 1))
+    return ppermute(x, mesh, _ring(_size(mesh, mesh_axis),
+                                   -1 if reverse else 1),
+                    mesh_axis=mesh_axis)
 
+
+# ---------------------------------------------------------------------------
+# Autograd pairs of the model axis
+# ---------------------------------------------------------------------------
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous(), ctx.mesh, mesh_axis="model"), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        return all_reduce(x.contiguous(), mesh, mesh_axis="model")
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_model(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Identity forward, sum over the model group backward: the input of
+    a column-parallel product, each rank's gradient of which is the part
+    its own columns give."""
+    if _size(mesh, "model") == 1:
+        return x
+    return _CopyToModel.apply(x, mesh)
+
+
+def reduce_from_model(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Sum over the model group forward, identity backward: the output of
+    a row-parallel product, each rank's value of which is the part its
+    own rows give."""
+    if _size(mesh, "model") == 1:
+        return x
+    return _ReduceFromModel.apply(x, mesh)

@@ -24,6 +24,15 @@ any other leaf the whole flattened leaf.  This module is the one place
 that maps between that per-rank state and the reference's global layout
 (``zero1_gather_state``, ``zero1_shard_state``): checkpoints, the bridge
 and ``TrainStep.opt_structs`` see only the global one.
+
+On a mesh with a model axis every exchange here runs over the dp group
+of this rank's column on its own model blocks: the ZeRO-1 ranges are
+those of the blocks' ravels (``leaves`` of the local specs), the scatter
+decision is the reference's on the global leaves (a leaf split over the
+model axis on its dim 0 is never scattered), and the gradient norm sums
+the model-split leaves' squares over the model group as well
+(``zero1_update``'s ``leaf_split``).  ``TrainStep.gather_opt`` and
+``shard_opt`` add the model axis to the two layout helpers.
 """
 from __future__ import annotations
 
@@ -197,34 +206,44 @@ def zero1_shard_state(opt_global, leaves: list, scatter_mask: list, mesh,
 
 @torch.no_grad()
 def zero1_update(grads, opt_state, params, oc, mesh, leaves: list,
-                 scatter_mask: list):
+                 scatter_mask: list, *, leaf_split=None):
     """ZeRO-1 step on this rank: each reference leaf's float32 gradient
     reduce-scattered (``/ ndp``) where scattered, all-reduced (mean)
     where not; the exact global norm ``sqrt(psum(sq_scattered) +
-    sq_dense)``; the solver (``optim.zero1_shard_update``) on this rank's
-    shard; then an all-gather of the updated shard into the parameters
-    (in place).  Returns ``(params, state, {"grad_norm"})``."""
+    sq_dense)`` (the leaves of ``leaf_split``, split over the model axis,
+    summed over the model group too); the solver
+    (``optim.zero1_shard_update``) on this rank's shard; then an
+    all-gather of the updated shard into the parameters (in place).
+    Returns ``(params, state, {"grad_norm"})``."""
     n = _size(mesh)
     count = opt_state["count"] + 1
     g_flat = pytree.tree_leaves(grads)
     p_flat = pytree.tree_leaves(params)
     dev = p_flat[0].device
+    if leaf_split is None:
+        leaf_split = [False] * len(leaves)
 
     reduced = []
-    sq_scattered = torch.zeros((), dtype=torch.float32, device=dev)
-    sq_dense = torch.zeros((), dtype=torch.float32, device=dev)
-    for leaf, sc in zip(leaves, scatter_mask):
+    # squares by (scattered over dp, split over the model axis)
+    sq = {(a, b): torch.zeros((), dtype=torch.float32, device=dev)
+          for a in (True, False) for b in (True, False)}
+    for leaf, sc, ms in zip(leaves, scatter_mask, leaf_split):
         g = _flat([g_flat[m] for m in leaf.members])
         if sc:
-            g_sh = collectives.reduce_scatter(g, mesh).div_(n)
-            sq_scattered = sq_scattered + g_sh.square().sum()
-            reduced.append(g_sh)
+            g_r = collectives.reduce_scatter(g, mesh).div_(n)
         else:
             g_r = collectives.pmean(g, mesh)
-            sq_dense = sq_dense + g_r.square().sum()
-            reduced.append(g_r)
+        sq[sc, bool(ms)] = sq[sc, bool(ms)] + g_r.square().sum()
+        reduced.append(g_r)
         del g
-    gn = torch.sqrt(collectives.all_reduce(sq_scattered, mesh) + sq_dense)
+    if any(leaf_split):
+        whole = {b: collectives.all_reduce(sq[True, b], mesh) + sq[False, b]
+                 for b in (True, False)}
+        gn = torch.sqrt(whole[False] + collectives.all_reduce(
+            whole[True], mesh, mesh_axis="model"))
+    else:
+        gn = torch.sqrt(collectives.all_reduce(sq[True, False], mesh)
+                        + sq[False, False])
     clip = optim._clip_scale(gn, oc.grad_clip)
 
     ranges = zero1_state_shard_specs(leaves, scatter_mask, mesh)

@@ -8,8 +8,9 @@ or run *replicates* and pick by checksum majority, a consensus function,
 or the validate function.  Tests inject faults through ``fault_hook``.
 ``DistributedGraph.replicate`` votes on its replicas by ``tree_checksum``.
 
-Inside a mesh of rank processes every verdict is agreed over the dp
-group (``ResilientRunner(mesh=...)``): a replay happens on every rank
+Inside a mesh of rank processes every verdict is agreed over the whole
+world, the dp group and then the model group (``ResilientRunner(mesh=
+...)``): a replay happens on every rank
 when any rank's result fails to validate, and a replicate keeps the
 first replica that is good on every rank, so that no rank replays alone
 and the collectives of the next attempt stay in step.
@@ -73,12 +74,15 @@ class ResilienceError(RuntimeError):
 
 
 def _agree(flags: list, mesh) -> list:
-    """``flags`` (bools) and-ed over every rank of ``mesh``."""
-    if mesh is None or mesh.dp_size == 1:
+    """``flags`` (bools) and-ed over every rank of ``mesh``: its dp
+    group, then its model group."""
+    if mesh is None or mesh.dp_size * mesh.model_size == 1:
         return list(flags)
     from . import collectives
-    t = torch.tensor([1.0 if f else 0.0 for f in flags])
-    return [bool(x) for x in -collectives.all_reduce(-t, mesh, "max") > 0.5]
+    t = -torch.tensor([1.0 if f else 0.0 for f in flags])
+    for axis in collectives.AXES:
+        t = collectives.all_reduce(t, mesh, "max", mesh_axis=axis)
+    return [bool(x) for x in -t > 0.5]
 
 
 @dataclasses.dataclass

@@ -1,15 +1,30 @@
-"""Parameter specs, and the tiling rules that map logical dims to mesh axes.
+"""Parameter specs, the tiling rules that map logical dims to mesh axes,
+and placing tensors by them.
 
 Counterpart: ``repro/core/sharding.py:28-132`` (``DEFAULT_RULES``,
 ``ShardingRules``, ``default_rules``, ``_axis_size``, ``_present``,
-``spec_for``) and ``:142-196`` (``ParamSpec``, ``initialize``,
-``init_params``).  The rules are pure functions of the mesh's axis sizes
-(any object with a ``shape`` dict), and a spec is a plain tuple: the
-reference's ``PartitionSpec`` parts, trailing Nones stripped.  They
-decide the ZeRO-1 scatter mask and the phylanx fuse mask
-(``core/overlap.py``); placing tensors by them (``param_shardings``,
-``constrain``, the activation hook) comes with the model axis, ROADMAP
-item 14b.  The same init rules: ``normal`` draws
+``spec_for``), ``:142-196`` (``ParamSpec``, ``initialize``,
+``init_params``, ``param_shardings`` as ``local_slices``/``local_specs``)
+and ``:199-230`` (``set_act_hook``; ``model_axis`` stands for
+``act_constrain``: where the reference constrains an activation, the
+port's layer asks the hook how it is split; ``constrain`` has no port:
+nothing is placed lazily).  The rules are pure functions of the
+mesh's axis sizes (any object with a ``shape`` dict), and a spec is a
+plain tuple: the reference's ``PartitionSpec`` parts, trailing Nones
+stripped.  They decide the ZeRO-1 scatter mask and the phylanx fuse mask
+(``core/overlap.py``), and where a tensor lives: on a mesh with a model
+axis each rank process holds exactly the block of every parameter and
+cache leaf that the reference's tiling plan gives its device
+(``local_slices``; a dim that does not divide stays replicated), and
+``init_params`` on a mesh draws every global leaf as one process does,
+then keeps this rank's block, one leaf at a time.
+
+The activation hook (``act_hook``) is where the model's layers learn the
+mesh: a step installs ``(mesh, rules)`` around its call, and the layers
+read it through ``model_axis()``, which says per logical dim whether it
+is split over the model group, and which block this rank holds.  With no
+hook installed (or a model axis of 1) the layers are the one-process
+code.  The same init rules: ``normal`` draws
 with std ``scale / sqrt(fan_in)``, fan_in = ``shape[-2]`` (or the last dim
 of a vector); ``scaled`` with std ``scale``; ``ones`` and ``zeros``.  Random
 draws come from a ``torch.Generator``, so they differ from JAX's
@@ -27,8 +42,11 @@ from typing import Any, Mapping, Sequence
 import torch
 import torch.utils._pytree as pytree
 
-__all__ = ["DEFAULT_RULES", "ParamSpec", "ShardingRules", "default_rules",
-           "init_params", "initialize", "is_spec", "spec_for"]
+__all__ = ["DEFAULT_RULES", "ModelAxis", "ParamSpec", "ShardingRules",
+           "act_hook", "default_rules", "gather_leaf", "gather_tree",
+           "init_params", "initialize", "is_spec", "local_slices",
+           "local_specs", "model_axis", "model_sharded", "set_act_hook",
+           "shard_leaf", "shard_tree", "spec_for"]
 
 #   batch      -> data-parallel axes ("pod","data")
 #   seq        -> sequence; sharded only under sequence parallelism
@@ -171,8 +189,164 @@ def initialize(spec: ParamSpec, generator: torch.Generator,
     return x.mul_(std).to(spec.dtype)
 
 
-def init_params(specs, generator: torch.Generator, device):
+def _parts(spec) -> tuple:
+    return tuple((p,) if isinstance(p, str) else tuple(p or ())
+                 for p in spec)
+
+
+def local_slices(mesh, rules: ShardingRules, shape: Sequence[int],
+                 dims: Sequence) -> tuple:
+    """This rank's block of a global tensor of ``shape``: one ``slice``
+    per dim, cut by ``spec_for`` over the rank's mesh coordinates (a dim
+    on several axes is cut row-major over them, as JAX lays a tuple of
+    axes out)."""
+    spec = spec_for(mesh, rules, shape, dims)
+    out = []
+    for i, n in enumerate(shape):
+        axes = _parts(spec)[i] if i < len(spec) else ()
+        k, idx = 1, 0
+        for a in axes:
+            idx = idx * mesh.shape[a] + mesh.coords.get(a, 0)
+            k *= mesh.shape[a]
+        out.append(slice(idx * n // k, (idx + 1) * n // k))
+    return tuple(out)
+
+
+def model_sharded(mesh, rules: ShardingRules, shape: Sequence[int],
+                  dims: Sequence) -> bool:
+    """Whether the tiling plan splits any dim of the leaf over the model
+    axis."""
+    return any("model" in p for p in
+               _parts(spec_for(mesh, rules, shape, dims)))
+
+
+def local_specs(specs, mesh, rules: ShardingRules):
+    """The spec tree of this rank's blocks (local shapes)."""
+    def one(s: ParamSpec) -> ParamSpec:
+        sl = local_slices(mesh, rules, s.shape, s.dims)
+        return dataclasses.replace(
+            s, shape=tuple(x.stop - x.start for x in sl))
+    return pytree.tree_map(one, specs, is_leaf=is_spec)
+
+
+def shard_leaf(t: torch.Tensor, spec: ParamSpec, mesh,
+               rules: ShardingRules) -> torch.Tensor:
+    """This rank's block of the global tensor ``t`` (a view)."""
+    return t[local_slices(mesh, rules, spec.shape, spec.dims)]
+
+
+def shard_tree(tree, specs, mesh, rules: ShardingRules, device=None):
+    """This rank's blocks of a tree of global tensors (owned copies on
+    ``device``, default: each leaf's own)."""
+    return pytree.tree_map(
+        lambda t, s: shard_leaf(t, s, mesh, rules).to(
+            device if device is not None else t.device, copy=True),
+        tree, specs)
+
+
+def gather_leaf(t: torch.Tensor, spec: ParamSpec, mesh,
+                rules: ShardingRules) -> torch.Tensor:
+    """The global tensor of every model rank's block ``t`` (a collective
+    over the model group; ``t`` itself where the leaf is replicated)."""
+    from . import collectives
+    spec_p = spec_for(mesh, rules, spec.shape, spec.dims)
+    for i, axes in enumerate(_parts(spec_p)):
+        if "model" in axes:
+            return collectives.all_gather(t, mesh, axis=i,
+                                          mesh_axis="model")
+    return t
+
+
+def gather_tree(tree, specs, mesh, rules: ShardingRules):
+    """The global tensors of a tree of model blocks, on the CPU: a
+    collective over the model group (every model rank calls it)."""
+    return pytree.tree_map(
+        lambda t, s: gather_leaf(t, s, mesh, rules).detach().cpu(),
+        tree, specs)
+
+
+def init_params(specs, generator: torch.Generator, device, *, mesh=None,
+                rules: ShardingRules | None = None):
     """Initialize a tree (dicts/lists) of ParamSpec into tensors on
-    ``device``, leaf by leaf in tree order."""
-    return pytree.tree_map(lambda s: initialize(s, generator, device),
-                           specs, is_leaf=is_spec)
+    ``device``, leaf by leaf in tree order.  On a ``mesh`` with a model
+    axis every global leaf is drawn in the same order from the same
+    generator as one process draws it, and only this rank's block is
+    kept (``local_slices``, by ``rules``): the weights of a mesh are the
+    weights of ``model=1``, and one global leaf at a time exists."""
+    if mesh is None or mesh.model_size == 1:
+        return pytree.tree_map(lambda s: initialize(s, generator, device),
+                               specs, is_leaf=is_spec)
+    rules = rules or default_rules()
+
+    def one(s: ParamSpec) -> torch.Tensor:
+        full = initialize(s, generator, device)
+        part = shard_leaf(full, s, mesh, rules)
+        return part if part.shape == full.shape else part.clone()
+    return pytree.tree_map(one, specs, is_leaf=is_spec)
+
+
+# ---------------------------------------------------------------------------
+# The activation hook: where the layers learn the model axis
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class ModelAxis:
+    """A layer's view of the mesh's model axis: ``size`` ranks, this one
+    at ``index``, the tiling ``rules``, and the serve steps' global
+    decode ``cache_len`` (None in training)."""
+    mesh: Any
+    rules: ShardingRules
+    cache_len: Any = None
+
+    @property
+    def size(self) -> int:
+        return self.mesh.model_size
+
+    @property
+    def index(self) -> int:
+        return self.mesh.model_rank
+
+    def split(self, dim: str, n: int) -> bool:
+        """Whether a logical ``dim`` of global size ``n`` is split over
+        the model group."""
+        return model_sharded(self.mesh, self.rules, (n,), (dim,))
+
+    def block(self, n: int) -> slice:
+        """This rank's block of a split dim of global size ``n``."""
+        k = self.size
+        return slice(self.index * n // k, (self.index + 1) * n // k)
+
+
+_ACT_HOOK: list = [None]
+
+
+def set_act_hook(mesh, rules: ShardingRules | None, *,
+                 cache_len=None) -> None:
+    """Install ``(mesh, rules)`` for the layers (None: no mesh)."""
+    _ACT_HOOK[0] = None if mesh is None else ModelAxis(
+        mesh, rules or default_rules(), cache_len)
+
+
+class act_hook:
+    """``with act_hook(mesh, rules): ...`` installs the hook for the
+    block and restores the one before it."""
+
+    def __init__(self, mesh, rules: ShardingRules | None, *,
+                 cache_len=None):
+        self.mesh, self.rules, self.cache_len = mesh, rules, cache_len
+
+    def __enter__(self):
+        self.prev = _ACT_HOOK[0]
+        set_act_hook(self.mesh, self.rules, cache_len=self.cache_len)
+        return _ACT_HOOK[0]
+
+    def __exit__(self, *exc):
+        _ACT_HOOK[0] = self.prev
+
+
+def model_axis() -> ModelAxis | None:
+    """The installed hook's model axis, or None when there is no hook or
+    the model axis is 1 (the one-process code)."""
+    hook = _ACT_HOOK[0]
+    if hook is None or hook.size == 1:
+        return None
+    return hook

@@ -1,10 +1,11 @@
 """Step builders: train, fabric-DDP grad/apply, prefill and decode.
 
-Counterpart: ``repro/core/steps.py:38-72,120-437,473-542``
+Counterpart: ``repro/core/steps.py:38-72,120-437,454-542``
 (``Strategy``, ``dp_axes``, ``dp_degree``, ``TrainStep``/
 ``make_train_step``, ``DDPStep``/``make_ddp_step``, ``_serve_cfg``,
-``ServeStep``, ``make_prefill_step``, ``make_decode_step``).  ``fn`` is a
-plain callable: PyTorch runs eagerly, so there is no jit to build.
+``decode_rules``, ``ServeStep``, ``make_prefill_step``,
+``make_decode_step``).  ``fn`` is a plain callable: PyTorch runs eagerly,
+so there is no jit to build.
 
 The train step runs on a mesh of rank processes (``launch/mesh.py``):
 each rank computes the loss and gradients of its own rows of the global
@@ -14,8 +15,19 @@ the mesh's dp group with the strategy's exchange (``core/overlap.py``:
 ``horovod``, ``phylanx``, ``zero1``; ``optim/compression.py``:
 ``onebit``), and ends with the same parameters as every other rank.  At
 a dp degree of 1 (``mesh=None`` included) every exchange is dropped and
-``onebit`` is the plain update, as in the reference.  The reference's
-``sequence_parallel`` acts on the model axis, ROADMAP item 14b.  Where
+``onebit`` is the plain update, as in the reference.
+
+A model axis (the dense family) splits each dp rank into a model group of
+rank processes (``launch/mesh.py``): each holds its blocks of the
+parameters (``core/sharding.py``), runs the model under the activation
+hook (``sharding.act_hook``: vocab-parallel embedding and loss, Megatron
+blocks), sums over its model group the gradients of the replicated leaves
+whose use depends on its rank (``model.partial_mask``: ``q_norm``,
+``k_norm``, and a replicated ``wk``/``wv``/``bk``/``bv``), exchanges over
+its column's dp group on its own blocks, and takes the global gradient
+norm over the model group (``optim.global_norm``).  The serve steps tile
+the KV cache by ``decode_rules``.  ``sequence_parallel``, ``onebit`` at a
+model axis > 1 and the other families on it are ROADMAP item 14b.  Where
 JAX donates the parameters and the optimizer state to the step, the port
 updates them in place and returns the same objects; ``fn_nodonate``
 leaves its inputs as they were (the resilience modes replay from them).
@@ -33,8 +45,10 @@ import torch.utils._pytree as pytree
 
 from . import collectives, fusion, overlap
 from .granularity import GrainPolicy
-from .sharding import ParamSpec, default_rules, init_params, is_spec, \
-    spec_for
+from .sharding import ModelAxis, ParamSpec, act_hook, default_rules, \
+    gather_tree, init_params, is_spec, local_specs, model_sharded, \
+    shard_tree
+from ..models import layers
 from ..models.model import build_model
 from ..optim import compression
 from ..optim import optimizers as optim
@@ -48,10 +62,11 @@ _STRATEGIES = ("phylanx", "horovod", "zero1", "onebit")
 # ---------------------------------------------------------------------------
 @dataclasses.dataclass(frozen=True)
 class Strategy:
-    """The reference's fields but ``sequence_parallel``, which acts on
-    the model axis (ROADMAP item 14b)."""
+    """The reference's fields; ``sequence_parallel`` raises (ROADMAP item
+    14b)."""
     name: str = "phylanx"            # phylanx | horovod | zero1 | onebit
     bucket_bytes: int = 0            # 0 -> runtime-adaptive (GrainPolicy)
+    sequence_parallel: bool = False  # shard residual seq dim on "model"
     grad_accum: int = 1
     opt: OptConfig = dataclasses.field(default_factory=OptConfig)
 
@@ -90,9 +105,10 @@ def _resolve(plan, cfg, strategy):
     return cfg, strategy or Strategy()
 
 
-def _init(specs, oc: OptConfig, generator, device):
-    """Parameters from ``specs`` (requiring grad) and their zero state."""
-    params = init_params(specs, generator, device)
+def _init(specs, oc: OptConfig, generator, device, mesh=None, rules=None):
+    """Parameters from ``specs`` (requiring grad; this rank's blocks on a
+    mesh) and their zero state."""
+    params = init_params(specs, generator, device, mesh=mesh, rules=rules)
     for p in pytree.tree_leaves(params):
         p.requires_grad_(True)
     return params, optim.init(params, oc)
@@ -138,6 +154,32 @@ def batch_rows(batch: dict, mesh) -> dict:
     return out
 
 
+def model_axis_refusal(cfg, strategy) -> Optional[str]:
+    """What the port does not run on a model axis > 1 yet (ROADMAP item
+    14b), or None."""
+    if cfg.family != "dense":
+        return (f"a model axis for the {cfg.family} family (ROADMAP item "
+                f"14b)")
+    if strategy is not None and strategy.name == "onebit":
+        return ("onebit at a model axis > 1: its buckets are rows of the "
+                "global leaves (ROADMAP item 14b)")
+    return None
+
+
+def _sum_partials(grads, mask, mesh):
+    """``grads`` with the leaves of ``mask`` summed over the model group
+    (one fused exchange)."""
+    flat, spec = pytree.tree_flatten(grads)
+    picked = {f"{i:08d}": g for i, (g, m) in
+              enumerate(zip(flat, pytree.tree_leaves(mask))) if m}
+    if not picked:
+        return grads
+    summed = collectives.fused_psum(picked, mesh, mesh_axis="model")
+    for k, g in summed.items():
+        flat[int(k)] = g
+    return pytree.tree_unflatten(flat, spec)
+
+
 def _copy_tree(tree):
     """A deep copy of a tree of tensors (parameters keep requiring
     grad)."""
@@ -166,6 +208,8 @@ class TrainStep:
     leaves: Any = None           # zero1: the reference's leaves
     scatter_mask: Any = None     # zero1: per reference leaf
     bucket_bytes: int = 0        # phylanx's fusion cap
+    rules: Any = None            # the tiling plan of the parameters
+    split_mask: Any = None       # per leaf: split over the model axis
     #: onebit: ``exchange_onebit``'s ``on_bucket`` seam (measurement)
     on_bucket: Any = None
     #: what ``fn_nodonate``'s input copies cost this process: calls, bytes
@@ -176,19 +220,24 @@ class TrainStep:
     def _ndp(self) -> int:
         return dp_degree(self.mesh)
 
+    def _split(self) -> bool:
+        return self.mesh is not None and self.mesh.model_size > 1
+
     def init(self, generator: torch.Generator, device):
         """(params, opt) on ``device``, parameters drawn from
-        ``generator`` (the same on every rank), the optimizer state in
-        this rank's layout."""
+        ``generator`` (the same on every rank; this rank's blocks of
+        them on a model axis), the optimizer state in this rank's
+        layout."""
         name = self.strategy.name
         if name == "zero1":
-            params = init_params(self.specs, generator, device)
+            params = init_params(self.specs, generator, device,
+                                 mesh=self.mesh, rules=self.rules)
             for p in pytree.tree_leaves(params):
                 p.requires_grad_(True)
             return params, overlap.zero1_local_state(
                 self.leaves, self.scatter_mask, self.mesh, device)
         params, opt = _init(self.specs, self.strategy.opt, generator,
-                            device)
+                            device, self.mesh, self.rules)
         if name == "onebit":
             opt["ef"] = compression.init_error_state(self.plan, device)
         return params, opt
@@ -219,25 +268,65 @@ class TrainStep:
             lambda s: torch.empty(s.shape, dtype=s.dtype),
             self.opt_structs(), is_leaf=is_spec)
 
+    def params_like(self):
+        """Empty CPU tensors of the global parameters: a restore template
+        for ``(params, opt)``'s parameter half."""
+        return pytree.tree_map(
+            lambda s: torch.empty(s.shape, dtype=s.dtype), self.specs,
+            is_leaf=is_spec)
+
+    def gather_params(self, params):
+        """The global parameters, on the CPU on a model axis (a collective
+        over the model group); ``params`` itself otherwise."""
+        if not self._split():
+            return params
+        return gather_tree(params, self.specs, self.mesh, self.rules)
+
+    def shard_params(self, params_global, device):
+        """This rank's blocks of the global parameters, on ``device``,
+        requiring grad (the inverse of ``gather_params``)."""
+        if self._split():
+            out = shard_tree(params_global, self.specs, self.mesh,
+                             self.rules, device)
+        else:
+            out = pytree.tree_map(lambda t: t.to(device), params_global)
+        for p in pytree.tree_leaves(out):
+            p.requires_grad_(True)
+        return out
+
+    def _gather_moments(self, out):
+        if self._split():
+            for k in ("m", "v"):
+                if k in out:
+                    out[k] = gather_tree(out[k], self.specs, self.mesh,
+                                         self.rules)
+        return out
+
     def gather_opt(self, opt):
         """The optimizer state in the reference's global layout, on the
         CPU: a collective (every rank of the mesh calls it, in step)."""
         name = self.strategy.name
         if name == "zero1":
-            return overlap.zero1_gather_state(
+            return self._gather_moments(overlap.zero1_gather_state(
                 opt, self.leaves, self.scatter_mask, self.mesh,
-                self.specs)
+                self.specs))
         if name == "onebit":
             out = dict(opt)
             out["ef"] = [collectives.all_gather(e, self.mesh).cpu()
                          for e in opt["ef"]]
             return out
-        return opt
+        return self._gather_moments(dict(opt))
 
     def shard_opt(self, opt_global, device):
         """This rank's optimizer state cut from the global layout (the
         inverse of ``gather_opt``)."""
         name = self.strategy.name
+        if self._split():
+            opt_global = dict(opt_global)
+            for k in ("m", "v"):
+                if k in opt_global:
+                    opt_global[k] = shard_tree(opt_global[k], self.specs,
+                                               self.mesh, self.rules, "cpu")
         if name == "zero1":
             return overlap.zero1_shard_state(
                 opt_global, self.leaves, self.scatter_mask, self.mesh,
@@ -266,12 +355,22 @@ def make_train_step(cfg=None, strategy: Optional[Strategy] = None, *,
     callers keep theirs.  ``shape`` (``global_batch``, ``seq_len``) sizes
     phylanx's fusion cap (default: the plan's batch and sequence).
 
+    On a model axis each rank computes on its blocks (the module's
+    docstring).
+
     Raises:
         ValueError: an unknown strategy.
+        NotImplementedError: ``sequence_parallel``, or what
+            ``model_axis_refusal`` names at a model axis > 1 (ROADMAP
+            item 14b).
     """
     cfg, strategy = _resolve(plan, cfg, strategy)
     if strategy.name not in _STRATEGIES:
         raise ValueError(f"unknown strategy {strategy.name!r}")
+    if strategy.sequence_parallel:
+        raise NotImplementedError("sequence parallelism "
+                                  "(Strategy.sequence_parallel) is ROADMAP "
+                                  "item 14b")
     if shape is None:
         shape = {"global_batch": plan.batch if plan is not None else 8,
                  "seq_len": plan.seq if plan is not None else 1024,
@@ -279,13 +378,22 @@ def make_train_step(cfg=None, strategy: Optional[Strategy] = None, *,
     if mesh is None:            # one process: a mesh of one rank
         from ..launch.mesh import Mesh
         mesh = Mesh(shape={"data": 1, "model": 1})
+    split = mesh.model_size > 1
+    if split:
+        refused = model_axis_refusal(cfg, strategy)
+        if refused:
+            raise NotImplementedError(f"the port does not run {refused} "
+                                      f"yet")
     model = build_model(cfg)
     specs = model.specs()
     oc = strategy.opt
     k = max(strategy.grad_accum, 1)
     ndp = dp_degree(mesh)
     rules = default_rules()
-    leaves = overlap.stacked_specs(specs)
+    # the reference's leaves decide (global shapes); this rank's state
+    # holds its blocks of them (local shapes)
+    global_leaves = overlap.stacked_specs(specs)
+    leaves = overlap.stacked_specs(local_specs(specs, mesh, rules))
     bucket_bytes = strategy.resolve_bucket_bytes(cfg, mesh, len(leaves),
                                                  shape)
     f32 = pytree.tree_map(
@@ -294,16 +402,20 @@ def make_train_step(cfg=None, strategy: Optional[Strategy] = None, *,
     onebit_plan = scatter_mask = None
     if strategy.name == "zero1":
         scatter_mask = overlap.zero1_scatter_mask(
-            [l.spec for l in leaves], mesh, rules, ndp)
+            [l.spec for l in global_leaves], mesh, rules, ndp)
     elif strategy.name == "onebit":
         onebit_plan = compression.make_plan(f32, ndp)
 
     # tensors safe to coalesce into fused buckets: not sharded on "model"
-    def _fusable(sp):
-        return not any("model" in ((p,) if isinstance(p, str)
-                                   else tuple(p or ()))
-                       for p in spec_for(mesh, rules, sp.shape, sp.dims))
-    fuse_mask = pytree.tree_map(_fusable, specs, is_leaf=is_spec)
+    split_mask = pytree.tree_map(
+        lambda sp: model_sharded(mesh, rules, sp.shape, sp.dims), specs,
+        is_leaf=is_spec)
+    fuse_mask = pytree.tree_map(lambda m: not m, split_mask)
+    split_flat = pytree.tree_leaves(split_mask)
+    leaf_split = [split_flat[l.members[0]] for l in leaves]
+    partial_mask = model.partial_mask(specs, ModelAxis(mesh, rules)) \
+        if split else None
+    norm_kw = dict(mesh=mesh, split_mask=split_mask) if split else {}
 
     def grads_of(params, batch):
         leaves_p = _grad_leaves(params)
@@ -337,11 +449,15 @@ def make_train_step(cfg=None, strategy: Optional[Strategy] = None, *,
                                            pytree.tree_structure(params))
 
     def fn(params, opt_state, batch):
-        loss, grads = grads_of(params, batch_rows(batch, mesh))
+        with act_hook(mesh, rules):
+            loss, grads = grads_of(params, batch_rows(batch, mesh))
+        if split:
+            grads = _sum_partials(grads, partial_mask, mesh)
         loss = collectives.pmean(loss, mesh)
         if strategy.name == "zero1":
             params, opt_state, m = overlap.zero1_update(
-                grads, opt_state, params, oc, mesh, leaves, scatter_mask)
+                grads, opt_state, params, oc, mesh, leaves, scatter_mask,
+                leaf_split=leaf_split)
         elif strategy.name == "onebit":
             ef = opt_state["ef"]
             if ndp > 1:
@@ -356,12 +472,14 @@ def make_train_step(cfg=None, strategy: Optional[Strategy] = None, *,
                          if strategy.name == "horovod" else
                          overlap.exchange_phylanx(grads, mesh, bucket_bytes,
                                                   fuse_mask=fuse_mask))
-            params, opt_state, m = optim.update(grads, opt_state, params, oc)
+            params, opt_state, m = optim.update(grads, opt_state, params, oc,
+                                                **norm_kw)
         return {"loss": loss, "grad_norm": m["grad_norm"]}, params, opt_state
 
     step = TrainStep(fn=fn, model=model, specs=specs, strategy=strategy,
                      mesh=mesh, plan=onebit_plan, leaves=leaves,
-                     scatter_mask=scatter_mask, bucket_bytes=bucket_bytes)
+                     scatter_mask=scatter_mask, bucket_bytes=bucket_bytes,
+                     rules=rules, split_mask=split_mask)
 
     def fn_nodonate(params, opt_state, batch):
         dev = pytree.tree_leaves(params)[0].device
@@ -466,6 +584,23 @@ def _serve_cfg(cfg):
     return dataclasses.replace(cfg, param_dtype="bf16", remat=False)
 
 
+def decode_rules(cfg, mesh, shape: dict):
+    """The tiling plan of the serve steps' parameters and KV caches: the
+    cache's kv heads on the model axis when they divide it, else its
+    sequence (``kv_seq``); a single stream spreads it over ``data``
+    too."""
+    r = default_rules()
+    model_n = 1 if mesh is None else mesh.shape.get("model", 1)
+    over = {}
+    if model_n > 1 and cfg.n_kv_heads % model_n != 0:
+        over["kv_seq"] = "model"
+        over["kv_heads"] = None
+    if shape["global_batch"] == 1:
+        over["kv_seq"] = ("data", "model") if over.get("kv_seq") == "model" \
+            else "data"
+    return r.with_overrides(**over)
+
+
 @dataclasses.dataclass
 class ServeStep:
     # decode updates the cache in place where the reference donates it
@@ -473,36 +608,69 @@ class ServeStep:
     donated_buffers = ("cache",)
     fn: Any
     model: Any
-    specs: Any
-    cache_specs: Any
+    specs: Any                  # global parameter specs
+    cache_specs: Any            # this rank's cache blocks (local shapes)
+    mesh: Any = None
+    rules: Any = None           # ``decode_rules``
+
+    def init(self, generator: torch.Generator, device):
+        """The serve parameters (this rank's blocks on a model axis)."""
+        return init_params(self.specs, generator, device, mesh=self.mesh,
+                           rules=self.rules)
+
+    def greedy(self, logits):
+        """The greedy tokens of this step's logits (over the model group's
+        whole vocab on a model axis)."""
+        with act_hook(self.mesh, self.rules):
+            return layers.greedy(logits, self.model.cfg.vocab)
+
+    def gather_logits(self, logits):
+        """The whole vocab of this step's logits (a collective over the
+        model group on a model axis)."""
+        with act_hook(self.mesh, self.rules):
+            return layers.gather_vocab(logits, self.model.cfg.vocab)
 
 
-def make_prefill_step(cfg, shape: dict) -> ServeStep:
-    """``fn(params, batch) -> (last-token logits, cache)``; the cache is
-    padded to ``shape["seq_len"]``.  ``batch`` holds ``"tokens"``, and for
-    the encdec family also the encoder's ``"frames"``."""
+def _serve_step(cfg, shape: dict, mesh, body) -> ServeStep:
     scfg = _serve_cfg(cfg)
     model = build_model(scfg)
     S = shape["seq_len"]
+    split = mesh is not None and mesh.model_size > 1
+    if split:
+        refused = model_axis_refusal(scfg, None)
+        if refused:
+            raise NotImplementedError(f"the port does not run {refused} "
+                                      f"yet")
+    rules = decode_rules(scfg, mesh, shape)
+    cache = model.cache_specs(shape["global_batch"], S)
+    if split:
+        cache = local_specs(cache, mesh, rules)
 
-    def fn(params, batch):
-        return model.prefill(params, batch, S)
+    def fn(*args):
+        with act_hook(mesh, rules, cache_len=S):
+            return body(model, S, *args)
 
     return ServeStep(fn=fn, model=model, specs=model.specs(),
-                     cache_specs=model.cache_specs(shape["global_batch"], S))
+                     cache_specs=cache, mesh=mesh, rules=rules)
 
 
-def make_decode_step(cfg, shape: dict) -> ServeStep:
+def make_prefill_step(cfg, shape: dict, *, mesh=None) -> ServeStep:
+    """``fn(params, batch) -> (last-token logits, cache)``; the cache is
+    padded to ``shape["seq_len"]``.  ``batch`` holds ``"tokens"``, and for
+    the encdec family also the encoder's ``"frames"``.  On a ``mesh``
+    with a model axis: this rank's vocab columns of the logits and its
+    blocks of the cache (``decode_rules``)."""
+    return _serve_step(cfg, shape, mesh,
+                       lambda model, S, params, batch:
+                       model.prefill(params, batch, S))
+
+
+def make_decode_step(cfg, shape: dict, *, mesh=None) -> ServeStep:
     """``fn(params, cache, batch, pos) -> (logits, cache)``.  The cache is
     updated in place and returned: this stands in for JAX's
     ``donate_argnums=(1,)``, so the caller must not reuse the cache it
-    passed in as the state before the step."""
-    scfg = _serve_cfg(cfg)
-    model = build_model(scfg)
-
-    def fn(params, cache, batch, pos):
-        return model.decode_step(params, cache, batch, pos)
-
-    return ServeStep(fn=fn, model=model, specs=model.specs(),
-                     cache_specs=model.cache_specs(shape["global_batch"],
-                                                   shape["seq_len"]))
+    passed in as the state before the step.  On a ``mesh``, as
+    ``make_prefill_step``."""
+    return _serve_step(cfg, shape, mesh,
+                       lambda model, S, params, cache, batch, pos:
+                       model.decode_step(params, cache, batch, pos))

@@ -6,8 +6,9 @@ Counterpart: ``repro/frontend/cli.py`` (``cli_args``, ``plan_from_args``,
 ``--localities``, ``--spmd``, ``--ddp``, ``--grad-codec``,
 ``--ddp-shards``, ``--elastic``, ``--elastic-port`` and ``--replicas``
 map onto the plan, and so do the mesh flags ``--data``, ``--model`` and
-``--pod`` (``--data 2`` trains on two rank processes; ``--model`` > 1 is
-ROADMAP item 14b and raises).  ``launch/train.py``'s ``--ckpt`` maps onto
+``--pod`` (``--data 2 --model 2`` trains on four rank processes, the
+dense family's layers split over each pair; ``--model 2`` serves on
+two).  ``launch/train.py``'s ``--ckpt`` maps onto
 ``Plan.ckpt_dir``.
 """
 from __future__ import annotations
@@ -40,7 +41,8 @@ def cli_args(ap: Optional[argparse.ArgumentParser] = None
                     help="the mesh's data axis: rank processes, each "
                          "training its rows of the batch")
     ap.add_argument("--model", type=int, default=1,
-                    help="the mesh's model axis (> 1 is ROADMAP item 14b)")
+                    help="the mesh's model axis: rank processes that split "
+                         "the dense family's layers (tensor parallelism)")
     ap.add_argument("--pod", type=int, default=1,
                     help="the mesh's pod axis (a second dp axis)")
     ap.add_argument("--localities", type=int, default=1,

@@ -1,4 +1,5 @@
-"""The train loop of every rank of a mesh session (``Plan(data=...)``).
+"""The train and serve loops of every rank of a mesh session
+(``Plan(data=..., model=...)``).
 
 No counterpart file: the reference runs a mesh's ranks as devices of one
 process under ``shard_map`` (``repro/frontend/plan.py``'s train loop over
@@ -10,6 +11,8 @@ runs the same function, started by the ``spmd_train`` active message
 with this loop in its spec, and reports in a ``spmd_done`` post.  Its
 loop, ``train_loop``, is also SPMD mode's shadow loop
 (``frontend/spmd.py``): a mesh of one with a save of its own.
+``Session.serve`` on a mesh with a model axis runs ``rank_serve`` the
+same way: the wave loop on every rank, on the same requests.
 
 Lockstep is the contract: every rank issues the same collectives in the
 same order, so everything that decides one is a function of the spec
@@ -22,12 +25,15 @@ alone, never of one rank's state:
   * a resume restores the step the driver chose (``spec["start"]``) from
     the shared directory on every rank, each cutting its own shard;
   * saves happen at the same steps on every rank, each starting with the
-    collective that gathers the optimizer state into the reference's
-    global layout; rank 0 alone writes it;
+    collectives that gather the parameters and the optimizer state into
+    the reference's global layout (over the model group and the dp
+    group); rank 0 alone writes it;
   * the injected failure (``fail_at_step``) raises on every rank before
     the step's collectives, so the world survives it;
-  * the resilience modes agree every verdict over the dp group
-    (``core/resilience.py``).
+  * the resilience modes agree every verdict over the whole world
+    (``core/resilience.py``);
+  * the serve loop's greedy tokens are the global argmax of the model
+    group's logits (``LM.greedy``), the same on every rank.
 A rank that raises alone leaves the others waiting in a collective until
 the dp group's timeout (``launch.mesh.MESH_TIMEOUT_S``), which fails them
 loudly.
@@ -36,6 +42,9 @@ from __future__ import annotations
 
 from typing import Any, Callable, Optional
 
+import time
+
+import numpy as np
 import torch
 
 from ..checkpoint.checkpoint import CheckpointManager
@@ -47,7 +56,7 @@ from ..data.pipeline import stream_for, to_device
 from ..kernels import KERNELS
 from ..launch.mesh import make_local_mesh
 
-__all__ = ["rank_train", "train_loop"]
+__all__ = ["rank_serve", "rank_train", "serve_loop", "train_loop"]
 
 
 def train_loop(spec: dict, *, save: Optional[Callable] = None,
@@ -95,10 +104,11 @@ def train_loop(spec: dict, *, save: Optional[Callable] = None,
     start, ckpt_dir = int(spec.get("start") or 0), spec.get("ckpt_dir")
     if start:
         with CheckpointManager(ckpt_dir, async_save=False, spmd=False) as cm:
-            _, (params, og) = cm.restore((params, step.global_like()),
-                                         step=start)
+            _, (pg, og) = cm.restore(
+                (step.params_like(), step.global_like()), step=start)
+        params = step.shard_params(pg, device)
         opt = step.shard_opt(og, device)
-        del og
+        del pg, og
     stream = spec.get("stream") or stream_for(
         plan.config(), batch=plan.batch, seq=plan.seq, seed=plan.seed)
     resilience = spec.get("resilience", "none")
@@ -156,12 +166,127 @@ def rank_train(spec: dict, endpoint: Optional[Any] = None, *,
         ``train_loop``'s dict; ``params`` is None on the workers.
     """
     def save(s: int, step, params, opt, metrics):
-        gathered = step.gather_opt(opt)           # every rank: collective
+        # every rank: collectives
+        gathered = (step.gather_params(params), step.gather_opt(opt))
         if driver is not None:
-            driver.save(s, (params, gathered), metrics)
+            driver.save(s, gathered, metrics)
 
     out = train_loop(spec, save=save if spec.get("ckpt_dir") else None,
                      on_step=driver.on_step if driver is not None else None)
     if driver is None:
         out["params"] = None
     return out
+
+
+def serve_loop(spec: dict) -> dict:
+    """The wave loop of one rank of a mesh with a model axis: the serve
+    steps on this rank's blocks (``core/steps.py`` over ``decode_rules``),
+    the same requests in the same waves on every rank, greedy tokens by
+    the model group's argmax.
+
+    Args:
+        spec: ``{"plan", "requests", "prompt_len", "gen_len", "slots",
+            "prompts", "params", "num_threads"}``; ``prompts`` a list of
+            int32 arrays (None: ``requests`` seeded ones, the one-process
+            loop's), ``params`` a host tree of the global serve parameters
+            in the reference's layout (a test seam; None: drawn from
+            ``plan.seed``).
+    Returns:
+        dict with the one-process loop's keys (``tokens_per_s``,
+        ``requests``, ``tokens``, ``padded_tokens``, ``nodes``, ``waves``,
+        ``generated``, ``first_prefill_logits``: the whole vocab) and
+        ``launches``, ``wire`` (``collectives.stats``), ``prefill_s`` and
+        ``decode_s`` (each step's host wall, ended by a synchronize on
+        the card) and ``peak_bytes``.
+    """
+    plan = spec["plan"]
+    device = torch.device(plan.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"Plan(device={plan.device!r}) on a rank "
+                           f"without a GPU")
+    if spec.get("num_threads"):
+        torch.set_num_threads(int(spec["num_threads"]))
+    cfg = plan.config()
+    prompt_len, gen_len = spec["prompt_len"], spec["gen_len"]
+    slots = spec["slots"]
+    mesh = make_local_mesh(data=plan.data, model=plan.model, pod=plan.pod)
+    shape = {"seq_len": prompt_len + gen_len, "global_batch": slots}
+    pre = steps_lib.make_prefill_step(cfg, shape, mesh=mesh)
+    dec = steps_lib.make_decode_step(cfg, shape, mesh=mesh)
+    if spec.get("params") is not None:
+        from ..bridge import params_from_numpy
+        params = params_from_numpy(spec["params"], steps_lib._serve_cfg(cfg),
+                                   device, mesh=mesh, rules=pre.rules)
+    else:
+        params = pre.init(torch.Generator(device=device).manual_seed(
+            plan.seed), device)
+    prompts = spec.get("prompts")
+    if prompts is None:
+        rng = np.random.default_rng(plan.seed)
+        prompts = [rng.integers(0, cfg.vocab, prompt_len).astype(np.int32)
+                   for _ in range(spec["requests"])]
+    waiting = list(prompts)
+    requests = len(waiting)
+
+    def clock(t0):
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        return time.perf_counter() - t0
+
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    before = {fn.__name__: fn.launches for fn in KERNELS}
+    collectives.reset_stats()
+    generated, nodes, first = [], [], None
+    prefill_s, decode_s = [], []
+    tokens_out = padded_out = done = 0
+    t_start = time.perf_counter()
+    with torch.no_grad():
+        while waiting and done < requests:
+            wave = [waiting.pop() for _ in range(min(slots, len(waiting)))]
+            n_real = len(wave)
+            wave += [np.zeros(prompt_len, np.int32)] * (slots - n_real)
+            w = len(generated)
+            toks = torch.from_numpy(np.stack(wave)).to(device, torch.int64)
+            t0 = time.perf_counter()
+            logits, cache = pre.fn(params, {"tokens": toks})
+            if first is None:
+                first = pre.gather_logits(logits).float().cpu()
+            tok = pre.greedy(logits)[:, None]
+            prefill_s.append(clock(t0))
+            nodes.append(f"prefill:w{w}")
+            out = torch.empty((slots, gen_len + 1), dtype=torch.int64,
+                              device=device)
+            out[:, 0] = tok[:, 0]
+            for t in range(gen_len):
+                t0 = time.perf_counter()
+                logits, cache = dec.fn(params, cache, {"tokens": tok},
+                                       prompt_len + t)
+                tok = dec.greedy(logits)[:, None]
+                out[:, t + 1] = tok[:, 0]
+                decode_s.append(clock(t0))
+                nodes.append(f"decode:w{w}:t{t}")
+            generated.append(out.cpu())
+            tokens_out += n_real * gen_len
+            padded_out += (slots - n_real) * gen_len
+            done += n_real
+    dt = clock(t_start)
+    return {"tokens_per_s": tokens_out / dt if dt else 0.0,
+            "requests": requests, "tokens": tokens_out,
+            "padded_tokens": padded_out, "nodes": nodes,
+            "waves": len(generated), "generated": generated,
+            "first_prefill_logits": first,
+            "launches": {fn.__name__: fn.launches - before[fn.__name__]
+                         for fn in KERNELS},
+            "wire": collectives.stats(), "prefill_s": prefill_s,
+            "decode_s": decode_s,
+            "peak_bytes": (torch.cuda.max_memory_allocated(device)
+                           if device.type == "cuda" else 0)}
+
+
+def rank_serve(spec: dict, endpoint: Optional[Any] = None, *,
+               driver: Optional[Any] = None) -> dict:
+    """Serve on this rank of the mesh in lockstep with the others
+    (``serve_loop``); ``endpoint`` and ``driver`` are unused (the
+    ``Session.run_ranks`` contract)."""
+    return serve_loop(spec)

@@ -31,15 +31,20 @@ processes join a ``torch.distributed`` gloo world, every worker runs the
 train loop in lockstep (``frontend/spmd.py``) and each process writes its
 own checkpoint segments (``checkpoint/spmd.py``).  ``Session.lint`` runs
 phylint's static passes over the session's live graph.
-``Plan(data=D, pod=P)`` with ``D * P > 1`` is a mesh session: ``compile``
-stands up a ``torch.distributed`` world of ``D * P`` rank processes (this
-process rank 0, the others spawned as worker localities, over SPMD mode's
-bring-up), and ``train`` runs the mesh train step (``core/steps.py``:
-the phylanx, horovod, zero1 and onebit strategies) in lockstep on every
-rank (``frontend/mesh.py``), with checkpoints in the reference's global
-layout and the ``replay``/``replicate`` resilience modes.  What is still
-missing raises ``NotImplementedError`` naming the ROADMAP item that
-brings it: the model axis, serving over a mesh, and a mesh with SPMD mode,
+``Plan(data=D, pod=P, model=M)`` with ``D * P * M > 1`` is a mesh
+session: ``compile`` stands up a ``torch.distributed`` world of ``D * P *
+M`` rank processes (this process rank 0, the others spawned as worker
+localities, over SPMD mode's bring-up), and ``train`` runs the mesh train
+step (``core/steps.py``: the phylanx, horovod, zero1 and onebit
+strategies; a model axis > 1 splits the dense family's layers over each
+row of M ranks) in lockstep on every rank (``frontend/mesh.py``), with
+checkpoints in the reference's global layout and the
+``replay``/``replicate`` resilience modes.  ``serve`` on a mesh of
+``model=M`` runs the wave loop on every rank (``frontend/mesh.
+rank_serve``).  What is still missing raises ``NotImplementedError``
+naming the ROADMAP item that brings it: sequence parallelism, the model
+axis for the other families and for onebit, serving over a mesh with
+data axes, ``serve_stream`` over a mesh, and a mesh with SPMD mode,
 fabric localities or elastic membership (item 14b), the production
 meshes and named shapes (item 15).
 """
@@ -65,7 +70,7 @@ from ..distrib.runtime import DistributedGraph
 from .ddp import DDPEngine
 from .futurize import Trace
 from .gateway import Gateway, RequestQueue
-from .mesh import rank_train
+from .mesh import rank_serve, rank_train
 
 __all__ = ["Plan", "Session"]
 
@@ -84,9 +89,8 @@ class Plan:
     """Declarative run description: arch + mesh axes + strategy + shapes.
 
     The fields are those of ``repro.frontend.Plan`` (see its docstring):
-    ``data`` and ``pod`` are the local mesh's dp axes, each rank a
-    process; ``model`` > 1 and the production meshes wait (ROADMAP items
-    14b and 15).
+    ``data``, ``pod`` and ``model`` are the local mesh's axes, each rank a
+    process; the production meshes wait (ROADMAP item 15).
 
     Fields added by the port:
         device: ``"cuda"`` (the default) or ``"cpu"``.
@@ -153,19 +157,25 @@ def _destroy_world():
 
 
 def _unsupported(plan: Plan) -> Optional[str]:
-    ndp = plan.data * plan.pod
+    n = plan.data * plan.pod * plan.model
     if plan.mesh != "local":
         return (f"the {plan.mesh!r} production mesh (dryrun's, ROADMAP "
                 f"item 15)")
-    if plan.model > 1:
-        return "a model axis > 1 (ROADMAP item 14b)"
     if plan.shape is not None:
         return "named shapes (dryrun, ROADMAP item 15)"
-    if ndp > 1 and plan.spmd:
+    if plan.build_strategy().sequence_parallel:
+        return ("sequence parallelism (Strategy.sequence_parallel, ROADMAP "
+                "item 14b)")
+    if n > 1 and plan.spmd:
         return "SPMD mode with mesh axes (ROADMAP item 14b)"
-    if ndp > 1 and (plan.localities > 1 or plan.elastic):
+    if n > 1 and (plan.localities > 1 or plan.elastic):
         return ("mesh axes with fabric localities or elastic membership "
                 "(ROADMAP item 14b)")
+    if plan.model > 1:
+        if plan.ddp:
+            return "fabric DDP with a model axis (ROADMAP item 14b)"
+        return steps_lib.model_axis_refusal(plan.config(),
+                                            plan.build_strategy())
     return None
 
 
@@ -248,7 +258,11 @@ class Session:
         self.distributed = None
         #: rank processes of a mesh session (1: no mesh world); its ranks
         #: are the worker localities (a mesh with localities is refused)
-        self.mesh_ranks = plan.data * plan.pod
+        self.mesh_ranks = plan.data * plan.pod * plan.model
+        #: ``serve``'s parameters on a mesh, as a host tree in the
+        #: reference's layout (None: drawn from ``plan.seed``): a test
+        #: seam, kept out of ``serve``'s signature, the reference's
+        self._serve_params = None
         n = max(plan.localities, self.mesh_ranks)
         if n > 1 or plan.elastic:
             # workers get the checkpoint dir at spawn (PHYRAX_CKPT_DIR):
@@ -447,11 +461,17 @@ class Session:
                 raise ValueError(f"unknown resilience mode {resilience!r} "
                                  f"(none | replay | replicate)")
 
-    def _check_serve(self) -> None:
-        if self.mesh_ranks > 1:
+    def _check_serve(self, stream: bool = False) -> None:
+        if self.mesh_ranks <= 1:
+            return
+        if stream:
             raise NotImplementedError(
-                "serving over a mesh (decode_rules, the KV cache tiled over "
-                "the mesh) is ROADMAP item 14b")
+                "serve_stream over a mesh (the gateway's paged cache tiled "
+                "over the mesh) is ROADMAP item 14b")
+        if self.plan.data * self.plan.pod > 1:
+            raise NotImplementedError(
+                "serving over a mesh with data axes (decode_rules' batch "
+                "and kv_seq over data) is ROADMAP item 14b")
 
     def _stream(self, stream):
         if stream is not None:
@@ -786,7 +806,8 @@ class Session:
         """
         if self.mesh_ranks <= 1:
             raise RuntimeError("run_ranks needs a mesh session "
-                               "(Plan(data=...) with data * pod > 1)")
+                               "(Plan(data=..., model=...) with data * pod "
+                               "* model > 1)")
         dist = self.distributed
         dist.spmd_train(dict(spec, loop=loop))
         try:
@@ -887,6 +908,10 @@ class Session:
             logits on the CPU).
         """
         self._check_serve()
+        if self.mesh_ranks > 1:
+            return self._serve_mesh(requests, prompt_len=prompt_len,
+                                    gen_len=gen_len, slots=slots,
+                                    prompts=prompts, verbose=verbose)
         plan, runtime, cfg, dev = self.plan, self.runtime, self.cfg, self.device
         pre, dec = self._serve_steps_for(prompt_len, gen_len, slots)
         params = init_params(
@@ -1012,6 +1037,33 @@ class Session:
                 "generated": [g.cpu() for g in generated],
                 "first_prefill_logits": first_logits[0].float().cpu()}
 
+    def _serve_mesh(self, requests, *, prompt_len, gen_len, slots, prompts,
+                    verbose) -> dict:
+        """``serve`` on a mesh with a model axis: every rank runs
+        ``frontend.mesh.rank_serve`` on the same requests; the result is
+        rank 0's, with each worker's ``launches``, ``wire`` and
+        ``peak_bytes`` under ``localities``."""
+        spec = {"plan": self.plan, "requests": requests,
+                "prompt_len": prompt_len, "gen_len": gen_len, "slots": slots,
+                "prompts": prompts, "params": self._serve_params,
+                "num_threads": torch.get_num_threads()}
+        done = self.run_ranks(rank_serve, spec)
+        out = done.pop(0)
+        out["localities"] = {r: {k: m.get(k) for k in (
+            "launches", "wire", "peak_bytes", "tokens")}
+            for r, m in sorted(done.items())}
+        out["runtime_stats"] = self._stats_json(self.runtime.stats())
+        if verbose:
+            w = out["wire"]
+            n_decode = sum(n.startswith("decode:") for n in out["nodes"])
+            print(f"[serve] mesh of {self.mesh_ranks} ranks: {out['requests']}"
+                  f" requests, {out['tokens']} tokens -> "
+                  f"{out['tokens_per_s']:.1f} tok/s (slots={slots}, padded "
+                  f"{out['padded_tokens']}, decode nodes {n_decode}); rank 0 "
+                  f"wire {w['bytes']}B in {w['calls']} collectives, "
+                  f"{w['wire_s']:.3f}s in gloo")
+        return out
+
     # -- serve (gateway) -----------------------------------------------------
     def serve_stream(self, requests: int = 8, *, prompt_len: int = 32,
                      gen_len: int = 16, slots: int = 4,
@@ -1069,7 +1121,7 @@ class Session:
         Raises:
             ValueError: an encoder-decoder architecture.
         """
-        self._check_serve()
+        self._check_serve(stream=True)
         plan, runtime, cfg, dev = self.plan, self.runtime, self.cfg, self.device
         n_replicas = plan.replicas if replicas is None else int(replicas)
         if cfg.family == "encdec":

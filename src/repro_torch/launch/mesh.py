@@ -10,12 +10,17 @@ Where the reference lays a mesh of D*P host devices out in one process
 and runs the train step on each under ``shard_map``, a port mesh is a
 ``torch.distributed`` world of D*P rank *processes*: each computes on its
 own rows of the global batch and exchanges over the mesh's dp process
+group.  A ``model`` axis of M splits every rank of the dp axes into M
+rank processes, laid out as ``jax.make_mesh((..., D, M), (..., "data",
+"model"))`` lays out devices: row-major, ``model`` the fastest axis, so
+world rank = dp rank * M + model coordinate.  Each row of M ranks is a
+model group (tensor parallelism: ``core/sharding.py`` places the
+parameters, the layers exchange over it), each column of D*P ranks a dp
 group.  The backend is ``gloo``, on the card too: NCCL refuses two ranks
 on one GPU, and every rank of a one-card run shares ``cuda:0``.  Compute
 stays on the device; ``core/collectives.py`` stages CUDA tensors through
-pinned host buffers for the wire.  The ``model`` axis (tensor, expert and
-sequence parallelism) is ROADMAP item 14b and raises; the production
-meshes are dryrun's, item 15.
+pinned host buffers for the wire.  The production meshes are dryrun's,
+item 15.
 
 SPMD mode uses the same world for persistence only (its compute is
 lockstep and local): the world makes its size and this process's rank
@@ -54,36 +59,52 @@ class Mesh:
             (``data`` and ``model`` always, ``pod`` when > 1).
         rank: this process's rank along the dp axes (``pod`` major).
         coords: axis name -> this rank's coordinate.
-        ranks: the world ranks of the mesh, by dp rank.
+        ranks: the world ranks of this rank's dp group (its column), by
+            dp rank.
         group: the dp process group (None when the dp size is 1).
+        model_ranks: the world ranks of this rank's model group (its
+            row), by model coordinate.
+        model_group: the model process group (None when the model axis
+            is 1).
     """
     shape: dict
     rank: int = 0
     coords: dict = dataclasses.field(default_factory=dict)
     ranks: tuple = (0,)
     group: Any = None
+    model_ranks: tuple = (0,)
+    model_group: Any = None
 
     @property
     def dp_size(self) -> int:
         return math.prod(self.shape.get(a, 1) for a in _DP_AXES)
 
+    @property
+    def model_size(self) -> int:
+        return self.shape.get("model", 1)
+
+    @property
+    def model_rank(self) -> int:
+        return self.coords.get("model", 0)
+
 
 def make_mesh(shape: Sequence[int], axes: Sequence[str], *,
               devices: Optional[Sequence[int]] = None) -> Optional[Mesh]:
-    """A mesh of ``shape`` over ``axes`` whose dp axes (``pod``, ``data``)
-    span rank processes of the current ``torch.distributed`` world.
+    """A mesh of ``shape`` over ``axes`` whose every device is a rank
+    process of the current ``torch.distributed`` world.
 
-    Every rank of the world calls this in the same order (making the dp
-    group is collective).  ``devices`` are the world ranks of the mesh,
-    in dp-rank order (default: the whole world, whose size must then be
-    the dp size; at a dp size of 1, this process alone); a rank outside
-    ``devices`` gets None.
+    Every rank of the world calls this in the same order: it makes every
+    dp group (one per model coordinate) and every model group (one per dp
+    rank), in that fixed order, because ``new_group`` is collective over
+    the whole world.  ``devices`` are the world ranks of the mesh in mesh
+    order (row-major, ``model`` fastest; default: the whole world, whose
+    size must then be the mesh's; at a mesh size of 1, this process
+    alone); a rank outside ``devices`` gets None.
 
     Raises:
-        NotImplementedError: a ``model`` axis > 1 (ROADMAP item 14b) or
-            an axis the port does not know.
-        ValueError: the dp size is not the world's (or ``devices``') size,
-            or the mesh spans processes without a world.
+        NotImplementedError: an axis the port does not know.
+        ValueError: the mesh size is not the world's (or ``devices``')
+            size, or the mesh spans processes without a world.
     """
     shape, axes = tuple(int(n) for n in shape), tuple(axes)
     if len(shape) != len(axes):
@@ -93,42 +114,49 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str], *,
     if unknown:
         raise NotImplementedError(f"mesh axes {sorted(unknown)}: the port "
                                   f"knows pod, data and model")
-    if sizes.get("model", 1) > 1:
-        raise NotImplementedError(
-            "a model axis > 1 (tensor, expert and sequence parallelism "
-            "over rank processes) is ROADMAP item 14b")
     ndp = math.prod(sizes.get(a, 1) for a in _DP_AXES)
+    nm = sizes.get("model", 1)
+    n = ndp * nm
     import torch.distributed as dist
     in_world = dist.is_available() and dist.is_initialized()
     world = dist.get_world_size() if in_world else 1
     me = dist.get_rank() if in_world else 0
     if devices is not None:
         ranks = tuple(int(r) for r in devices)
-    else:       # a dp size of 1 is this process alone, in a world or not
-        ranks = tuple(range(world)) if ndp > 1 else (me,)
-    if ndp > 1 and not in_world:
-        raise ValueError(f"a mesh of {ndp} dp ranks needs a "
-                         f"torch.distributed world of rank processes "
-                         f"(Plan(data=...).compile() stands one up)")
-    if len(ranks) != ndp:
-        raise ValueError(f"a mesh of {ndp} dp ranks over "
+    else:       # a mesh of 1 is this process alone, in a world or not
+        ranks = tuple(range(world)) if n > 1 else (me,)
+    if n > 1 and not in_world:
+        raise ValueError(f"a mesh of {n} ranks needs a torch.distributed "
+                         f"world of rank processes (Plan(data=..., "
+                         f"model=...).compile() stands one up)")
+    if len(ranks) != n:
+        raise ValueError(f"a mesh of {n} ranks over "
                          f"{'the world of ' if devices is None else ''}"
                          f"{len(ranks)} rank processes")
-    group = None
-    if ndp > 1:
-        group = dist.new_group(ranks=list(ranks), backend="gloo",
-                               timeout=timedelta(seconds=MESH_TIMEOUT_S))
+    cols = [tuple(ranks[d * nm + c] for d in range(ndp)) for c in range(nm)]
+    rows = [tuple(ranks[d * nm:(d + 1) * nm]) for d in range(ndp)]
+    timeout = timedelta(seconds=MESH_TIMEOUT_S)
+    dp_groups = [dist.new_group(ranks=list(c), backend="gloo",
+                                timeout=timeout) if ndp > 1 else None
+                 for c in cols]
+    model_groups = [dist.new_group(ranks=list(r), backend="gloo",
+                                   timeout=timeout) if nm > 1 else None
+                    for r in rows]
     if me not in ranks:
         return None
-    r = ranks.index(me)
+    i = ranks.index(me)
+    r, c = divmod(i, nm)
     data = sizes.get("data", 1)
     coords = {a: 0 for a in axes}
     if "data" in coords:
         coords["data"] = r % data
     if "pod" in coords:
         coords["pod"] = r // data
-    return Mesh(shape=sizes, rank=r, coords=coords, ranks=ranks,
-                group=group)
+    if "model" in coords:
+        coords["model"] = c
+    return Mesh(shape=sizes, rank=r, coords=coords, ranks=cols[c],
+                group=dp_groups[c], model_ranks=rows[r],
+                model_group=model_groups[r])
 
 
 def make_production_mesh(*, multi_pod: bool = False):
@@ -144,13 +172,12 @@ def make_production_mesh(*, multi_pod: bool = False):
 
 def make_local_mesh(data: int = 1, model: int = 1, pod: int = 1) -> Mesh:
     """The mesh of ``Plan(mesh="local")``: ``data`` and ``model`` always
-    present, ``pod`` when > 1, as in the reference.  At ``data * pod >
-    1`` this process must be in a world of exactly that many rank
+    present, ``pod`` when > 1, as in the reference.  At ``data * pod *
+    model > 1`` this process must be in a world of exactly that many rank
     processes.
 
     Raises:
-        NotImplementedError: ``model > 1`` (ROADMAP item 14b).
-        ValueError: the dp size is not the world's size.
+        ValueError: the mesh size is not the world's size.
     """
     shape, axes = [], []
     for n, a in ((pod, "pod"), (data, "data"), (model, "model")):
@@ -161,7 +188,7 @@ def make_local_mesh(data: int = 1, model: int = 1, pod: int = 1) -> Mesh:
 
 
 def mesh_devices(mesh) -> int:
-    """The mesh's size: its rank processes (times its model axis)."""
+    """The mesh's size: its rank processes, D * P * M."""
     return math.prod(mesh.shape.values())
 
 

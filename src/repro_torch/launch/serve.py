@@ -16,6 +16,8 @@ entry point:
   prep runs on its home; the model runs here), and ``--kill-replica-at
   IDX:ROUND`` runs the replica-death drill.
 
+``--model M`` runs the wave loop on M rank processes that split the
+dense family's layers (tensor parallelism, ``frontend/mesh.rank_serve``).
 ``--stats-out FILE`` writes the run summary as JSON.  Runs on the GPU
 unless ``--device cpu`` is given.
 
@@ -31,6 +33,8 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
       --serve-stream --localities 2 --replicas 2 --requests 8 --slots 2 \
       --prompt-len 16 --gen-len 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --model 2 --requests 5 --slots 2 --prompt-len 16 --gen-len 8
 """
 from __future__ import annotations
 

@@ -20,7 +20,9 @@ steals host tasks when idle and exits when the driver's run ends;
 joined, and ``--stall-at-step K`` sleeps 250 ms on the driver at step K,
 the deterministic steal window), the mesh axes (``--data``, ``--pod``:
 that many rank processes, each training its rows of the batch with
-``--strategy`` phylanx, horovod, zero1 or onebit) and ``--resilience``
+``--strategy`` phylanx, horovod, zero1 or onebit; ``--model M``: M rank
+processes for each, splitting the dense family's layers;
+``--seq-parallel`` raises, ROADMAP item 14b) and ``--resilience``
 (``none``, ``replay``, ``replicate``), plus ``--device`` and
 ``--n-layers``.
 Runs on the GPU unless ``--device cpu`` is given; every locality runs on
@@ -32,6 +34,9 @@ Examples:
   # a mesh of two rank processes with sharded (ZeRO-1) solver state
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --steps 12 --batch 4 --seq 32 --log-every 4 --data 2 --strategy zero1
+  # a data=2, model=2 mesh: four rank processes, tensor parallel in pairs
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu --tiny \
+      --data 2 --model 2 --steps 4
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --steps 12 --batch 4 --seq 32 --ddp --grad-codec onebit \\
       --ddp-shards 2 --log-every 4
@@ -123,7 +128,8 @@ def run(args) -> dict:
         print(f"[train] served as elastic locality {rank}; driver run "
               f"ended", flush=True)
         return {"joined_as": rank}
-    strategy = Strategy(name=args.strategy, grad_accum=args.grad_accum)
+    strategy = Strategy(name=args.strategy, grad_accum=args.grad_accum,
+                        sequence_parallel=args.seq_parallel)
     plan = plan_from_args(args, strategy=strategy, remat=args.remat)
     with plan.compile() as session:
         if session.join_address is not None:
@@ -161,6 +167,9 @@ def parser() -> argparse.ArgumentParser:
                     choices=["phylanx", "horovod", "zero1", "onebit"])
     ap.add_argument("--grad-accum", type=int, default=1)
     ap.add_argument("--remat", action="store_true")
+    ap.add_argument("--seq-parallel", action="store_true",
+                    help="sequence parallelism on the model axis (ROADMAP "
+                         "item 14b: raises)")
     ap.add_argument("--ckpt", default="",
                     help="checkpoint directory (empty: no checkpoints)")
     ap.add_argument("--ckpt-every", type=int, default=20,

@@ -15,15 +15,31 @@ stays as the oracle.
 Decode attends one new token against the cache with plain tensor code.
 ``cache_update`` writes the cache in place: that stands in for JAX's
 donation of the cache buffer to the decode step.
+
+On a mesh with a model axis (``head_plan``) each rank projects its own
+query heads (``wq``, ``wo`` split by heads) and its own kv heads when
+``kv_heads`` divides the axis.  When it does not, ``wk``/``wv`` stay
+replicated and each rank picks the kv heads its query heads read,
+``(r * H/M + i) // (H/Hkv)``, before K1, whose ``h // (H/Hkv)`` then maps
+its local heads right.  The decode cache is tiled as ``decode_rules``
+tiles it: by heads, or else by sequence (``kv_seq`` on the model axis):
+each rank holds the cache positions ``[r * S/M, (r+1) * S/M)`` of every
+kv head, attends its chunk with every query head (gathered over the
+model group, ``decode_partial``) and merges the partials exactly with
+``collectives.softmax_combine``; only the rank that owns ``pos`` writes
+the new k, v (``cache_update``'s ``offset``).  This is what the
+reference leaves to XLA (``repro/models/attention.py:229-251``).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional
 
 import torch
 
-from ..core.sharding import ParamSpec
+from ..core import collectives
+from ..core.sharding import ModelAxis, ParamSpec, model_axis
 from ..kernels.flash_attention import flash_attention
 from . import layers
 
@@ -71,6 +87,74 @@ def project_qkv(x, p, *, positions=None, rope_theta: float = 10000.0,
         q = layers.apply_rope(q, positions, rope_theta)
         k = layers.apply_rope(k, positions, rope_theta)
     return q, k, v
+
+
+# ---------------------------------------------------------------------------
+# The model axis
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class HeadPlan:
+    """How one rank's attention splits over the model axis ``ax``:
+    ``heads`` (the query heads are split), ``kv`` (the kv heads are
+    split), ``pick`` (kv replicated: the kv heads this rank's query heads
+    read, in K1's grouping), ``seq`` (the decode cache is split by
+    position) and ``seq_block`` (this rank's cache positions)."""
+    ax: ModelAxis
+    heads: bool
+    kv: bool
+    pick: Optional[tuple]
+    seq: bool
+    seq_block: slice
+
+    def pick_kv(self, k, v):
+        """k, v ``[B, S, Hkv, hd]`` with all kv heads -> the heads this
+        rank's query heads read (a view where they are contiguous)."""
+        if self.pick is None:
+            return k, v
+        lo, n = self.pick[0], len(self.pick)
+        if self.pick == tuple(range(lo, lo + n)):
+            return k.narrow(2, lo, n), v.narrow(2, lo, n)
+        idx = torch.tensor(self.pick, device=k.device)
+        return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def head_plan(n_heads: int, n_kv: int,
+              cache_len: Optional[int] = None) -> Optional[HeadPlan]:
+    """The installed model axis's plan for ``n_heads`` query and ``n_kv``
+    kv heads (global), with the decode cache's global ``cache_len``;
+    None with no model axis (the one-process code)."""
+    ax = model_axis()
+    if ax is None:
+        return None
+    heads = ax.split("heads", n_heads)
+    kv = heads and ax.split("kv_heads", n_kv)
+    pick = None
+    if heads and not kv:
+        loc, g = n_heads // ax.size, n_heads // n_kv
+        idx = [(ax.index * loc + i) // g for i in range(loc)]
+        uniq = sorted(set(idx))
+        rep = loc // len(uniq)
+        grouped = loc % len(uniq) == 0 and \
+            idx == [u for u in uniq for _ in range(rep)]
+        pick = tuple(uniq if grouped else idx)
+    seq = cache_len is not None and ax.split("kv_seq", cache_len)
+    block = ax.block(cache_len) if seq else slice(0, cache_len or 0)
+    return HeadPlan(ax, heads, kv, pick, seq, block)
+
+
+def partial_grad_leaves(n_heads: int, n_kv: int, ax: ModelAxis) -> tuple:
+    """The replicated attention leaves whose use depends on the model
+    rank, so that each rank's gradient is a part to sum over the group:
+    ``q_norm``/``k_norm`` (applied to this rank's heads) and, when the kv
+    heads do not split, ``wk``/``wv``/``bk``/``bv`` (read through
+    ``pick``).  None when the query heads do not split (every rank
+    computes the whole attention)."""
+    if not ax.split("heads", n_heads):
+        return ()
+    out = ("q_norm", "k_norm")
+    if not ax.split("kv_heads", n_kv):
+        out += ("wk", "wv", "bk", "bv")
+    return out
 
 
 def _expand_kv(k, n_heads: int):
@@ -130,6 +214,21 @@ def _is_scalar(pos) -> bool:
     return not isinstance(pos, torch.Tensor) or pos.dim() == 0
 
 
+def _decode_mask(k_pos, pos, window):
+    """``[.., 1, S]`` (``[B, 1, 1, 1, S]`` for a ``[B]`` pos): which cache
+    positions ``k_pos`` the token at ``pos`` attends."""
+    if _is_scalar(pos):
+        valid = k_pos <= pos
+        if window is not None:
+            valid = valid & (k_pos > pos - window)
+        return valid[None, None, None, None, :]
+    pos = pos.to(k_pos.device)              # per-row positions: [B] -> [B,S]
+    valid = k_pos[None, :] <= pos[:, None]
+    if window is not None:
+        valid = valid & (k_pos[None, :] > pos[:, None] - window)
+    return valid[:, None, None, None, :]
+
+
 def decode_attend(q, k_cache, v_cache, pos, *, scale: Optional[float] = None,
                   window: Optional[int] = None):
     """q: [B,1,H,hd]; caches [B,S,Hkv,hd]; pos: scalar current index, or a
@@ -141,27 +240,45 @@ def decode_attend(q, k_cache, v_cache, pos, *, scale: Optional[float] = None,
     scale = scale or (1.0 / math.sqrt(hd))
     qg = q.reshape(B, 1, Hkv, G, hd)
     lg = torch.einsum("bqhgk,bshk->bhgqs", qg, k_cache).float() * scale
-    k_pos = torch.arange(S, device=q.device)
-    if _is_scalar(pos):
-        valid = k_pos <= pos
-        if window is not None:
-            valid = valid & (k_pos > pos - window)
-        mask = valid[None, None, None, None, :]
-    else:                                   # per-row positions: [B] -> [B,S]
-        pos = pos.to(q.device)
-        valid = k_pos[None, :] <= pos[:, None]
-        if window is not None:
-            valid = valid & (k_pos[None, :] > pos[:, None] - window)
-        mask = valid[:, None, None, None, :]
+    mask = _decode_mask(torch.arange(S, device=q.device), pos, window)
     lg = torch.where(mask, lg, NEG_INF)
     pr = torch.softmax(lg, dim=-1).to(q.dtype)
     o = torch.einsum("bhgqs,bshk->bqhgk", pr, v_cache)
     return o.reshape(B, 1, H, hd)
 
 
-def cache_update(k_cache, v_cache, k_new, v_new, pos, *, mode: str = "dus"):
+def decode_partial(q, k_cache, v_cache, pos, *, offset: int = 0,
+                   scale: Optional[float] = None,
+                   window: Optional[int] = None):
+    """One rank's share of decode attention over a cache chunk that holds
+    the positions ``[offset, offset + S)``: the softmax partials ``(m, l,
+    o)`` (``[B, 1, H, 1]``, ``[B, 1, H, 1]``, ``[B, 1, H, hd]``, float32)
+    that ``collectives.softmax_combine`` merges exactly.  Grouped-GQA
+    form, as ``decode_attend``."""
+    B, _, H, hd = q.shape
+    S, Hkv = k_cache.shape[1], k_cache.shape[2]
+    G = H // Hkv
+    scale = scale or (1.0 / math.sqrt(hd))
+    qg = q.reshape(B, 1, Hkv, G, hd)
+    lg = torch.einsum("bqhgk,bshk->bhgqs", qg, k_cache).float() * scale
+    mask = _decode_mask(offset + torch.arange(S, device=q.device), pos,
+                        window)
+    lg = torch.where(mask, lg, NEG_INF)
+    m = lg.amax(-1, keepdim=True)
+    w = torch.where(mask, torch.exp(lg - m), 0.0)
+    o = torch.einsum("bhgqs,bshk->bqhgk", w, v_cache.float())
+    shape = (B, 1, H, 1)
+    return (m.permute(0, 3, 1, 2, 4).reshape(shape),
+            w.sum(-1, keepdim=True).permute(0, 3, 1, 2, 4).reshape(shape),
+            o.reshape(B, 1, H, hd))
+
+
+def cache_update(k_cache, v_cache, k_new, v_new, pos, *, mode: str = "dus",
+                 offset: int = 0):
     """Write the new token's K/V at ``pos`` (scalar, or ``[B]`` for
-    per-row write offsets), in place; returns the two caches.
+    per-row write offsets), in place; returns the two caches.  A cache
+    chunk holding the positions ``[offset, offset + S)`` (a
+    sequence-tiled cache) writes only where ``pos`` falls in it.
 
     mode="dus" writes the one slice; mode="masked" is the one-hot select
     over the sequence dim, the form a ``[B]`` pos always takes (each row
@@ -170,12 +287,14 @@ def cache_update(k_cache, v_cache, k_new, v_new, pos, *, mode: str = "dus"):
         raise ValueError(f"unknown cache_update mode {mode!r}")
     k_new = k_new.to(k_cache.dtype)
     v_new = v_new.to(v_cache.dtype)
-    if mode == "dus" and _is_scalar(pos):
-        k_cache.narrow(1, int(pos), 1).copy_(k_new)
-        v_cache.narrow(1, int(pos), 1).copy_(v_new)
-        return k_cache, v_cache
     S = k_cache.shape[1]
-    s_idx = torch.arange(S, device=k_cache.device)
+    if mode == "dus" and _is_scalar(pos):
+        at = int(pos) - offset
+        if 0 <= at < S:
+            k_cache.narrow(1, at, 1).copy_(k_new)
+            v_cache.narrow(1, at, 1).copy_(v_new)
+        return k_cache, v_cache
+    s_idx = offset + torch.arange(S, device=k_cache.device)
     if _is_scalar(pos):
         hit = (s_idx == pos)[None, :, None, None]
     else:

@@ -16,6 +16,13 @@ caller, projected without biases as the reference's ``EncDec`` does; only
 its query gets ``bq``.  It always runs through ``attention.attend_full``
 (the query and key lengths differ, which K1 does not take), as the
 reference computes it with jnp.
+
+On a mesh with a model axis (the dense family) the transformer block is
+Megatron's: the normed input enters the attention and the MLP through
+``collectives.copy_to_model``, each rank computes its own heads and its
+own ``d_ff`` columns, and the row-parallel out projection (``_out_proj``)
+and ``w_down`` leave through ``collectives.reduce_from_model``; the
+residual stream and the norms are the same on every rank.
 """
 from __future__ import annotations
 
@@ -24,6 +31,7 @@ import types
 import torch
 import torch.nn.functional as F
 
+from ..core import collectives
 from ..core.sharding import ParamSpec
 from . import attention, layers, moe, ssm
 
@@ -55,7 +63,7 @@ def _ffn(h, p, cfg):
         return moe.apply_moe(h, p["moe"], top_k=cfg.top_k,
                              group_size=cfg.moe_group,
                              dispatch=cfg.moe_dispatch)
-    return (layers.apply_mlp(h, p["mlp"], cfg.mlp_kind),
+    return (layers.apply_mlp(h, p["mlp"], cfg.mlp_kind, d_ff=cfg.d_ff),
             torch.zeros((), dtype=torch.float32, device=h.device))
 
 
@@ -67,8 +75,27 @@ def kv_cache_specs(cfg, batch: int, seq: int) -> dict:
     return {"k": mk(), "v": mk()}
 
 
-def _out_proj(o, wo, dt):
-    return torch.einsum("bqhk,hkd->bqd", o, wo.to(dt))
+def _out_proj(o, wo, dt, hp=None):
+    """The attention's out projection; row-parallel (this rank's heads'
+    rows of ``wo``, summed over the model group) under a head plan that
+    splits the heads."""
+    y = torch.einsum("bqhk,hkd->bqd", o, wo.to(dt))
+    if hp is not None and hp.heads:
+        y = collectives.reduce_from_model(y, hp.ax.mesh)
+    return y
+
+
+def _attn_in(h, cfg, cache_len=None):
+    """(the attention's input, its head plan): ``h`` enters a head-split
+    attention through ``copy_to_model``."""
+    hp = attention.head_plan(cfg.n_heads, cfg.n_kv_heads, cache_len)
+    if hp is not None and hp.heads:
+        h = collectives.copy_to_model(h, hp.ax.mesh)
+    return h, hp
+
+
+def _pick(hp, k, v):
+    return (k, v) if hp is None else hp.pick_kv(k, v)
 
 
 def _cross(x, p, cfg, enc_kv):
@@ -88,10 +115,12 @@ def tblock_apply(x, p, cfg, *, causal: bool = True, enc_kv=None):
     flash-attention kernel, whose backward is a kernel too, then
     cross-attention to ``enc_kv`` where the block has it."""
     h = layers.apply_norm(x, p["ln_attn"], cfg.norm)
+    h, hp = _attn_in(h, cfg)
     q, k, v = attention.project_qkv(
         h, p["attn"], rope_theta=cfg.rope_theta, use_rope=cfg.use_rope)
+    k, v = _pick(hp, k, v)
     o = attention.attend(q, k, v, causal=causal, window=cfg.sliding_window)
-    x = x + _out_proj(o, p["attn"]["wo"], x.dtype)
+    x = x + _out_proj(o, p["attn"]["wo"], x.dtype, hp)
     if "cross" in p:
         x = _cross(x, p, cfg, enc_kv)
     h = layers.apply_norm(x, p["ln_mlp"], cfg.norm)
@@ -104,13 +133,18 @@ def tblock_prefill(x, p, cfg, cache_len: int, *, enc_kv=None):
     the cache dtype and padded to cache_len).  A block with
     cross-attention also caches the encoder's K/V as ``"ck"``, ``"cv"``."""
     h = layers.apply_norm(x, p["ln_attn"], cfg.norm)
+    h, hp = _attn_in(h, cfg, cache_len)
     q, k, v = attention.project_qkv(
         h, p["attn"], rope_theta=cfg.rope_theta, use_rope=cfg.use_rope)
-    o = attention.attend(q, k, v, causal=True, window=cfg.sliding_window)
-    x = x + _out_proj(o, p["attn"]["wo"], x.dtype)
+    o = attention.attend(q, *_pick(hp, k, v), causal=True,
+                         window=cfg.sliding_window)
+    x = x + _out_proj(o, p["attn"]["wo"], x.dtype, hp)
     pad = cache_len - k.shape[1]
     cache = {"k": F.pad(k.to(cfg.cache_dtype), (0, 0, 0, 0, 0, pad)),
              "v": F.pad(v.to(cfg.cache_dtype), (0, 0, 0, 0, 0, pad))}
+    if hp is not None and hp.seq:        # this rank's cache positions
+        b = hp.seq_block
+        cache = {n: c[:, b].contiguous() for n, c in cache.items()}
     if "cross" in p:
         x = _cross(x, p, cfg, enc_kv)
         cache["ck"], cache["cv"] = enc_kv
@@ -128,13 +162,30 @@ def tblock_decode(x, p, cfg, cache, pos, *, enc_kv=None):
         positions = pos.to(x.device)[:, None]
     else:
         positions = torch.full((h.shape[0], 1), int(pos), device=x.device)
+    ax = attention.model_axis()
+    h, hp = _attn_in(h, cfg, None if ax is None else ax.cache_len)
     q, k, v = attention.project_qkv(
         h, p["attn"], positions=positions,
         rope_theta=cfg.rope_theta, use_rope=cfg.use_rope)
+    off = hp.seq_block.start if hp is not None and hp.seq else 0
     kc, vc = attention.cache_update(cache["k"], cache["v"], k, v, pos,
-                                    mode=cfg.cache_update)
-    o = attention.decode_attend(q, kc, vc, pos, window=cfg.sliding_window)
-    x = x + _out_proj(o, p["attn"]["wo"], x.dtype)
+                                    mode=cfg.cache_update, offset=off)
+    if hp is not None and hp.seq:
+        # a sequence-tiled cache: every query head against this rank's
+        # positions, the partials merged over the model group
+        if hp.heads:
+            q = collectives.all_gather(q, hp.ax.mesh, axis=2,
+                                       mesh_axis="model")
+        part = attention.decode_partial(q, kc, vc, pos, offset=off,
+                                        window=cfg.sliding_window)
+        o = collectives.softmax_combine(part, hp.ax.mesh,
+                                        mesh_axis="model").to(q.dtype)
+        if hp.heads:
+            o = o[:, :, hp.ax.block(cfg.n_heads)]
+    else:
+        o = attention.decode_attend(q, *_pick(hp, kc, vc), pos,
+                                    window=cfg.sliding_window)
+    x = x + _out_proj(o, p["attn"]["wo"], x.dtype, hp)
     new_cache = {"k": kc, "v": vc}
     if "cross" in p:
         x = _cross(x, p, cfg, enc_kv)

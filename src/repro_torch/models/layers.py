@@ -8,13 +8,26 @@ float32 and normalizes in the input dtype; RoPE rotates the split halves
 in float32 and casts back; the cross entropy reduces in float32.  The
 gelu MLP uses the tanh approximation, which is ``jax.nn.gelu``'s
 default.
+
+On a mesh with a model axis (``core.sharding.model_axis()``: the hook a
+step installs) the layers that the tiling plan splits compute their
+share and exchange over the model group, as the reference's SPMD
+partitioner does: the embedding is vocab-parallel (each rank looks up
+the tokens of its rows, the model group sums), the logits are this
+rank's vocab columns, ``softmax_xent`` reduces over the group
+(``vocab_parallel_xent``), the MLP splits ``d_ff`` (column-parallel
+``w_gate``/``w_up``, row-parallel ``w_down``, ``b_down`` added once after
+the sum) and ``greedy`` takes the argmax over the whole vocab.  Each
+takes the dim's global size from its caller; without the hook, or when
+the dim does not divide, they are the one-process code.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from ..core.sharding import ParamSpec
+from ..core import collectives
+from ..core.sharding import ParamSpec, model_axis
 
 
 # ---------------------------------------------------------------------------
@@ -103,13 +116,29 @@ def mlp_specs(d: int, ff: int, kind: str = "swiglu") -> dict:
     }
 
 
-def apply_mlp(x, p, kind: str = "swiglu"):
+def _split(dim: str, n):
+    """The model axis when the hook splits the logical ``dim`` of global
+    size ``n`` (None: the one-process code)."""
+    ax = model_axis()
+    return ax if ax is not None and n is not None and ax.split(dim, n) \
+        else None
+
+
+def apply_mlp(x, p, kind: str = "swiglu", d_ff=None):
+    """The MLP; ``d_ff`` (global) lets it split over the model axis."""
+    ax = _split("d_ff", d_ff)
+    if ax is not None:
+        x = collectives.copy_to_model(x, ax.mesh)
     dt = x.dtype
     if kind == "swiglu":
         h = F.silu(x @ p["w_gate"].to(dt)) * (x @ p["w_up"].to(dt))
-        return h @ p["w_down"].to(dt)
+        y = h @ p["w_down"].to(dt)
+        return collectives.reduce_from_model(y, ax.mesh) if ax else y
     h = gelu(x @ p["w_up"].to(dt) + p["b_up"].to(dt))
-    return h @ p["w_down"].to(dt) + p["b_down"].to(dt)
+    y = h @ p["w_down"].to(dt)
+    if ax is not None:
+        y = collectives.reduce_from_model(y, ax.mesh)
+    return y + p["b_down"].to(dt)
 
 
 # ---------------------------------------------------------------------------
@@ -120,28 +149,119 @@ def embed_specs(vocab: int, d: int) -> dict:
                              scale=0.02)}
 
 
-def embed(tokens, p):
-    return F.embedding(tokens, p["tok"])
+def embed(tokens, p, vocab=None):
+    """Token embedding; ``vocab`` (global) lets it split over the model
+    axis: each rank looks up the tokens of its own rows (zeros for the
+    others) and the model group sums, exactly."""
+    ax = _split("vocab", vocab)
+    if ax is None:
+        return F.embedding(tokens, p["tok"])
+    rows = ax.block(vocab)
+    local = tokens - rows.start
+    hit = (local >= 0) & (local < rows.stop - rows.start)
+    out = F.embedding(torch.where(hit, local, torch.zeros_like(local)),
+                      p["tok"])
+    out = out.masked_fill(~hit[..., None], 0)
+    return collectives.reduce_from_model(out, ax.mesh)
 
 
 def unembed_specs(d: int, vocab: int) -> dict:
     return {"w": ParamSpec((d, vocab), ("embed", "vocab"))}
 
 
-def logits(x, p):
+def logits(x, p, vocab=None):
+    """``[..., vocab]``; split over the model axis (``vocab`` global):
+    this rank's vocab columns."""
+    ax = _split("vocab", vocab)
+    if ax is not None:
+        x = collectives.copy_to_model(x, ax.mesh)
     return x @ p["w"].to(x.dtype)
+
+
+def greedy(lg, vocab=None):
+    """The argmax over the last dim of logits that may be split over the
+    model axis (``vocab`` global): each rank's (max, global index) is
+    gathered and ties go to the lowest global index, as ``torch.argmax``
+    breaks them."""
+    ax = _split("vocab", vocab)
+    if ax is None:
+        return lg.argmax(-1)
+    val, idx = lg.max(-1)
+    idx = idx + ax.block(vocab).start
+    both = torch.stack([val.float(), idx.float()])
+    allr = collectives.all_gather(both, ax.mesh, tiled=False,
+                                  mesh_axis="model")        # [M, 2, ...]
+    best = allr[:, 0].max(0).values
+    cand = torch.where(allr[:, 0] == best, allr[:, 1],
+                       torch.full_like(allr[:, 1], float("inf")))
+    return cand.min(0).values.long()
+
+
+def gather_vocab(lg, vocab=None):
+    """The whole ``[..., vocab]`` logits of a model group's columns (a
+    collective; ``lg`` itself where the vocab is not split)."""
+    ax = _split("vocab", vocab)
+    if ax is None:
+        return lg
+    return collectives.all_gather(lg, ax.mesh, axis=lg.dim() - 1,
+                                  mesh_axis="model")
 
 
 # ---------------------------------------------------------------------------
 # Losses
 # ---------------------------------------------------------------------------
-def softmax_xent(lg, labels, mask=None):
+class _VocabXent(torch.autograd.Function):
+    """Per-token ``logsumexp - logit[label]`` of float32 logits split
+    over the model group by vocab columns ``[start, start + V/M)``: the
+    max, then the sum of exponentials and the label's logit (from the
+    rank that owns it) summed over the group in one exchange.  Backward:
+    ``softmax - onehot`` on this rank's columns, no exchange."""
+
+    @staticmethod
+    def forward(ctx, lg, labels, start, mesh):
+        m = collectives.all_reduce(lg.max(-1).values, mesh, "max",
+                                   mesh_axis="model")
+        e = torch.exp(lg - m[..., None])
+        local = labels.long() - start
+        hit = (local >= 0) & (local < lg.shape[-1])
+        local = torch.where(hit, local, torch.zeros_like(local))
+        ll = torch.gather(lg, -1, local[..., None])[..., 0]
+        ll = torch.where(hit, ll, torch.zeros_like(ll))
+        sums = collectives.all_reduce(torch.stack([e.sum(-1), ll]), mesh,
+                                      mesh_axis="model")
+        ctx.save_for_backward(e, sums[0], local, hit)
+        return torch.log(sums[0]) + m - sums[1]
+
+    @staticmethod
+    def backward(ctx, g):
+        e, s, local, hit = ctx.saved_tensors
+        grad = e * (g / s)[..., None]
+        grad.scatter_add_(-1, local[..., None],
+                          torch.where(hit, -g, torch.zeros_like(g))[..., None])
+        return grad, None, None, None
+
+
+def vocab_parallel_xent(lg, labels, vocab: int):
+    """Per-token negative log-likelihood ``[...]`` (float32) of logits
+    split over the installed model axis by vocab columns; the plain
+    version is ``softmax_xent``'s one-process body."""
+    ax = model_axis()
+    return _VocabXent.apply(lg.float(), labels, ax.block(vocab).start,
+                            ax.mesh)
+
+
+def softmax_xent(lg, labels, mask=None, vocab=None):
     """Token-mean cross entropy; fp32 for the reduction.  With ``mask``,
-    the mean over the tokens it keeps (at least 1)."""
-    lg = lg.float()
-    lse = torch.logsumexp(lg, dim=-1)
-    ll = torch.gather(lg, -1, labels[..., None].long())[..., 0]
-    nll = lse - ll
+    the mean over the tokens it keeps (at least 1).  ``vocab`` (global)
+    lets the logits be split over the model axis
+    (``vocab_parallel_xent``)."""
+    if _split("vocab", vocab) is not None:
+        nll = vocab_parallel_xent(lg, labels, vocab)
+    else:
+        lg = lg.float()
+        lse = torch.logsumexp(lg, dim=-1)
+        ll = torch.gather(lg, -1, labels[..., None].long())[..., 0]
+        nll = lse - ll
     if mask is None:
         return nll.mean()
     mask = mask.float()

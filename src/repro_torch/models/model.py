@@ -36,6 +36,14 @@ each dense or moe layer, its aux included; each mLSTM layer; each mamba
 layer, and each zamba group around them; each encoder and decoder layer
 (the activations are recomputed in the backward pass).
 
+On a mesh with a model axis (the dense family) ``LM`` runs on this rank's
+blocks of every parameter and cache leaf (``core/sharding.py``): the
+embedding, the logits and the loss are vocab-parallel, the blocks
+Megatron's (``blocks.py``); ``prefill`` and ``decode_step`` return this
+rank's vocab columns of the logits (``layers.greedy`` takes their global
+argmax, ``layers.gather_vocab`` the whole).  ``partial_mask`` names the
+replicated leaves whose gradient is a per-rank part.
+
 Contract:
   m = build_model(cfg)
   m.specs()                                  ParamSpec tree
@@ -55,7 +63,7 @@ import torch.utils._pytree as pytree
 from torch.utils.checkpoint import checkpoint
 
 from ..core.sharding import ParamSpec, is_spec
-from . import blocks, layers
+from . import attention, blocks, layers
 
 # the families ``LM`` builds; ``EncDec`` builds "encdec"
 LM_FAMILIES = ("dense", "moe", "xlstm", "zamba")
@@ -129,7 +137,8 @@ class LM:
         """The training forward: (logits [B, S, vocab] in the compute
         dtype, aux loss: the moe layers' sum, 0 for the other families)."""
         cfg = self.cfg
-        x = layers.embed(batch["tokens"], params["embed"]).to(cfg.c_dtype)
+        x = layers.embed(batch["tokens"], params["embed"],
+                         cfg.vocab).to(cfg.c_dtype)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if cfg.family in ("dense", "moe"):
             for p in params["stack"]:
@@ -146,16 +155,34 @@ class LM:
             for group in params["stack"]["mamba"]:
                 x = _remat(cfg, self._mamba_group, x, group, shared)
         x = layers.apply_norm(x, params["ln_f"], cfg.norm)
-        return layers.logits(x, params["unembed"]), aux
+        return layers.logits(x, params["unembed"], cfg.vocab), aux
 
     def loss(self, params, batch):
         lg, aux = self.apply(params, batch)
-        return layers.softmax_xent(lg, batch["labels"], batch.get("mask")) \
+        return layers.softmax_xent(lg, batch["labels"], batch.get("mask"),
+                                   self.cfg.vocab) \
             + self.cfg.aux_weight * aux
 
     def unread(self, params) -> list:
         """The parameters ``loss`` never reads: none."""
         return []
+
+    def partial_mask(self, specs, ax):
+        """A bool tree shaped like ``specs``: True for the replicated
+        leaves whose gradient on a rank of the model axis ``ax`` is that
+        rank's part, to be summed over the model group (``q_norm``,
+        ``k_norm``; ``wk``, ``wv``, ``bk``, ``bv`` when the kv heads do not
+        split: ``attention.partial_grad_leaves``)."""
+        cfg = self.cfg
+        names = attention.partial_grad_leaves(cfg.n_heads, cfg.n_kv_heads,
+                                              ax)
+        out = pytree.tree_map(lambda s: False, specs, is_leaf=is_spec)
+        if cfg.family == "dense":
+            for layer in out["stack"]:
+                for n in names:
+                    if n in layer["attn"]:
+                        layer["attn"][n] = True
+        return out
 
     def cache_specs(self, batch: int, cache_len: int):
         cfg = self.cfg
@@ -180,7 +207,8 @@ class LM:
 
     def prefill(self, params, batch, cache_len: int):
         cfg = self.cfg
-        x = layers.embed(batch["tokens"], params["embed"]).to(cfg.c_dtype)
+        x = layers.embed(batch["tokens"], params["embed"],
+                         cfg.vocab).to(cfg.c_dtype)
         if cfg.family in ("dense", "moe"):
             cache = []
             for p in params["stack"]:
@@ -210,14 +238,15 @@ class LM:
                 cache["mamba"].append(states)
                 cache["shared"].append(c)
         x = layers.apply_norm(x[:, -1:], params["ln_f"], cfg.norm)
-        return layers.logits(x, params["unembed"])[:, 0], cache
+        return layers.logits(x, params["unembed"], cfg.vocab)[:, 0], cache
 
     def decode_step(self, params, cache, batch, pos):
         """batch["tokens"]: [B, 1]; pos: scalar int, or a ``[B]`` tensor of
         per-row positions (the recurrent mamba and xLSTM blocks ignore
         it).  Updates the KV caches in place."""
         cfg = self.cfg
-        x = layers.embed(batch["tokens"], params["embed"]).to(cfg.c_dtype)
+        x = layers.embed(batch["tokens"], params["embed"],
+                         cfg.vocab).to(cfg.c_dtype)
         if cfg.family in ("dense", "moe"):
             new_cache = []
             for p, c in zip(params["stack"], cache):
@@ -248,7 +277,8 @@ class LM:
                 new_cache["mamba"].append(new_states)
                 new_cache["shared"].append(kv)
         x = layers.apply_norm(x, params["ln_f"], cfg.norm)
-        return layers.logits(x, params["unembed"])[:, 0], new_cache
+        return layers.logits(x, params["unembed"], cfg.vocab)[:, 0], \
+            new_cache
 
 
 class EncDec:

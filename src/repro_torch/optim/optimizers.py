@@ -12,6 +12,12 @@ m/v into the tensors it was given and returns those same objects, where
 JAX returns new arrays.  At full width a second copy of the parameters
 and of m/v would not fit beside the first (7.96 GB of float32 a copy for
 12 layers of qwen3-4b).
+
+On a mesh with a model axis the tree holds this rank's blocks:
+``global_norm(tree, mesh, split_mask)`` sums the squares of the leaves
+split over the model axis (``split_mask``) over the model group and
+counts every replicated leaf once, so that the norm is the reference's
+norm of the global gradients, and every rank clips by the same scale.
 """
 from __future__ import annotations
 
@@ -71,9 +77,26 @@ def init(params, oc: OptConfig):
     return st
 
 
-def global_norm(tree):
-    return torch.sqrt(sum(g.float().square().sum()
-                          for g in pytree.tree_leaves(tree)))
+def _sq(leaves, device):
+    return sum((g.float().square().sum() for g in leaves),
+               torch.zeros((), dtype=torch.float32, device=device))
+
+
+def global_norm(tree, mesh=None, split_mask=None):
+    """The L2 norm of a tree of gradients; on a mesh with a model axis,
+    of the global tree whose model blocks ``tree`` holds (``split_mask``:
+    a bool tree, True for the leaves split over the model axis)."""
+    leaves = pytree.tree_leaves(tree)
+    if split_mask is None or mesh is None or mesh.model_size == 1:
+        return torch.sqrt(sum(g.float().square().sum() for g in leaves))
+    from ..core import collectives
+    mask = pytree.tree_leaves(split_mask)
+    dev = leaves[0].device
+    split = collectives.all_reduce(
+        _sq([g for g, m in zip(leaves, mask) if m], dev), mesh,
+        mesh_axis="model")
+    return torch.sqrt(_sq([g for g, m in zip(leaves, mask) if not m], dev)
+                      + split)
 
 
 def _clip_scale(gn, max_norm: float):
@@ -89,11 +112,12 @@ def clip_by_global_norm(grads, max_norm: float):
 
 
 @torch.no_grad()
-def update(grads, state, params, oc: OptConfig):
+def update(grads, state, params, oc: OptConfig, *, mesh=None,
+           split_mask=None):
     """Dense update.  Returns (params, state, metrics) with the parameters
     and m/v updated in place; ``metrics["grad_norm"]`` is the norm before
-    clipping, a device scalar."""
-    gn = global_norm(grads)
+    clipping, a device scalar (``global_norm``'s, on a mesh)."""
+    gn = global_norm(grads, mesh, split_mask)
     clip = _clip_scale(gn, oc.grad_clip)
     count = state["count"] + 1
     g_leaves = pytree.tree_leaves(grads)

@@ -65,6 +65,36 @@ def _boom():
     raise RuntimeError("boom: injected dependency failure")
 
 
+_ODD_LEAVES = {
+    "f32 matrix": np.arange(12, dtype=np.float32).reshape(3, 4),
+    "fortran order": np.asfortranarray(np.arange(6.0).reshape(2, 3)),
+    "strided view": np.arange(10, dtype=np.int32)[::3],
+    "0-d": np.array(2.5, dtype=np.float32),
+    "empty": np.zeros((0, 5), dtype=np.float32),
+    "bool": np.array([True, False, True]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_ODD_LEAVES))
+def test_shard_bytes_equal_the_reference_and_read_back(tmp_path, name):
+    """A shard of the leaf beside a float32 matrix: the port writes the
+    reference's bytes and manifest entry, and reads back each leaf's
+    dtype, shape and values (as a view of the one read) and checksum."""
+    from repro.checkpoint import format as jaxfmt
+    arrays = [_ODD_LEAVES[name], _ODD_LEAVES["f32 matrix"]]
+    ours = ckfmt.save_shard(str(tmp_path / "port"), 0, [0, 1], arrays)
+    ref = jaxfmt.save_shard(str(tmp_path / "ref"), 0, [0, 1], arrays)
+    assert ours == ref
+    shard = ckfmt.shard_filename(0)
+    assert (tmp_path / "port" / shard).read_bytes() == \
+        (tmp_path / "ref" / shard).read_bytes()
+    for seg, want in zip(ckfmt.read_shard_segments(str(tmp_path / "ref"),
+                                                   ref), arrays):
+        a = seg["array"]
+        assert a.dtype == want.dtype and a.shape == want.shape
+        np.testing.assert_array_equal(a, want)
+
+
 # -- the reference's battery, within the port ----------------------------------
 
 def test_roundtrip(tmp_path):

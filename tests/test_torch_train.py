@@ -376,7 +376,8 @@ def test_launch_train_run_on_the_cpu(tmp_path, arch):
 
 
 @pytest.mark.parametrize("argv, match", [
-    (["--model", "2"], "item 14b"),
+    # the model axis trains the dense family, but not sequence-parallel
+    (["--model", "2", "--seq-parallel"], "item 14b"),
     (["--data", "2", "--spmd", "--localities", "2"], "item 14b"),
 ])
 def test_launch_train_raises_for_what_the_port_does_not_run(argv, match):
@@ -388,7 +389,7 @@ def test_launch_train_raises_for_what_the_port_does_not_run(argv, match):
 
 def test_not_implemented_surface():
     with pytest.raises(NotImplementedError, match="item 14b"):
-        Plan(device="cpu", model=2).compile()
+        Plan(device="cpu", model=2, arch="zamba2-2.7b").compile()
     with Plan(device="cpu").compile() as session:
         with pytest.raises(ValueError, match="resilience"):
             session.train(steps=1, resilience="retry", verbose=False)

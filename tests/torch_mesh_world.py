@@ -174,7 +174,190 @@ def job_collectives(rank: int, n: int, payload: dict) -> dict:
     return out
 
 
-JOBS = {"trajectories": job_trajectories, "collectives": job_collectives}
+def _digest(t) -> str:
+    import hashlib
+    return hashlib.blake2b(t.detach().cpu().contiguous().numpy().tobytes(),
+                           digest_size=8).hexdigest()
+
+
+def _tp_grads(mesh, cfg, params_np, batch_np) -> dict:
+    """Loss and the gathered gradient of every leaf (reference layout)."""
+    import torch
+    import torch.utils._pytree as pytree
+
+    from repro_torch import bridge
+    from repro_torch.core import steps
+    from repro_torch.core.sharding import ModelAxis, act_hook, gather_tree
+    step = steps.make_train_step(cfg, steps.Strategy(), mesh=mesh)
+    params = bridge.params_from_numpy(params_np, cfg, "cpu", mesh=mesh)
+    for p in pytree.tree_leaves(params):
+        p.requires_grad_(True)
+    batch = {k: torch.from_numpy(v).long() for k, v in batch_np.items()}
+    with act_hook(mesh, step.rules):
+        loss = step.model.loss(params, batch)
+        loss.backward()
+    grads = pytree.tree_map(lambda p: p.grad, params)
+    grads = steps._sum_partials(
+        grads, step.model.partial_mask(step.specs, ModelAxis(mesh,
+                                                             step.rules)),
+        mesh)
+    whole = gather_tree(grads, step.specs, mesh, step.rules)
+    return {"loss": float(loss.detach()),
+            "grads": bridge.tree_to_numpy(whole)}
+
+
+def _replicated_digests(step, params) -> list:
+    """The digests of this rank's leaves that no rule splits over the
+    model axis, in leaf order."""
+    import torch.utils._pytree as pytree
+    return [_digest(p) for p, m in zip(pytree.tree_leaves(params),
+                                       pytree.tree_leaves(step.split_mask))
+            if not m]
+
+
+def _tp_trajectory(mesh, cfg, case: dict) -> dict:
+    import torch
+
+    from repro_torch import bridge
+    from repro_torch.core import steps
+    from repro_torch.data.pipeline import LMStream, to_device
+    from repro_torch.optim.optimizers import OptConfig
+    step = steps.make_train_step(
+        cfg, steps.Strategy(name=case["name"], opt=OptConfig(lr=case["lr"])),
+        mesh=mesh, shape={"global_batch": case["batch"],
+                          "seq_len": case["seq"]})
+    _, opt = step.init(torch.Generator().manual_seed(0), "cpu")
+    params = bridge.params_from_numpy(case["params"], cfg, "cpu", mesh=mesh)
+    for p in torch.utils._pytree.tree_leaves(params):
+        p.requires_grad_(True)
+    stream = LMStream(vocab=cfg.vocab, batch=case["batch"], seq=case["seq"],
+                      seed=0)
+    out = {"loss": [], "grad_norm": [], "replicated": []}
+    for it in range(case["steps"]):
+        m, params, opt = step.fn(params, opt,
+                                 to_device(stream.batch_at(it), "cpu"))
+        out["loss"].append(float(m["loss"]))
+        out["grad_norm"].append(float(m["grad_norm"]))
+        out["replicated"].append(_replicated_digests(step, params))
+    return out
+
+
+def _vocab_checks(mesh) -> dict:
+    """The vocab-parallel cross entropy (loss and the logits' gradient)
+    and greedy argmax on this rank's columns, and their plain versions on
+    the whole logits (seeded; a tie planted across two shards)."""
+    import torch
+
+    from repro_torch.core.sharding import act_hook, default_rules
+    from repro_torch.models import layers
+    V, n = 64, mesh.model_size
+    lg = torch.from_numpy(seeded((3, 5, V), 11))
+    labels = torch.from_numpy(
+        np.random.default_rng(12).integers(0, V, (3, 5)))
+    # row (0, 0): the max at column 3 (shard 0) and 40 (a later shard)
+    lg[0, 0, 3] = lg[0, 0, 40] = lg[0, 0].max() + 1.0
+    mask = torch.from_numpy((seeded((3, 5), 13) > -0.5).astype(np.float32))
+    blk = slice(mesh.model_rank * V // n, (mesh.model_rank + 1) * V // n)
+    mine = lg[..., blk].clone().requires_grad_(True)
+    with act_hook(mesh, default_rules()):
+        loss = layers.softmax_xent(mine, labels, mask, vocab=V)
+        loss.backward()
+        tok = layers.greedy(mine.detach(), vocab=V)
+        whole = layers.gather_vocab(mine.detach(), vocab=V)
+    ref = lg.clone().requires_grad_(True)
+    want = layers.softmax_xent(ref, labels, mask)
+    want.backward()
+    return {"loss": float(loss.detach()), "want": float(want.detach()),
+            "grad": mine.grad.numpy(), "want_grad": ref.grad[..., blk].numpy(),
+            "tok": tok.numpy(), "want_tok": lg.argmax(-1).numpy(),
+            "gathered": bool(torch.equal(whole, lg))}
+
+
+def _tp_checkpoints(mesh, cfg, payload: dict) -> dict:
+    """zero1 at ``mesh``: 2 steps from the reference's init, saved (rank
+    0) to ``payload["dir_a"]`` in the global layout; then the model=1
+    checkpoint ``payload["dir_b"]`` restored on the mesh, each rank's
+    parameter blocks and zero1 state returned, and gathered back."""
+    import torch
+    import torch.utils._pytree as pytree
+
+    from repro_torch import bridge
+    from repro_torch.checkpoint.checkpoint import CheckpointManager
+    from repro_torch.core import steps
+    from repro_torch.data.pipeline import LMStream, to_device
+    step = steps.make_train_step(cfg, steps.Strategy(name="zero1"),
+                                 mesh=mesh, shape={"global_batch": 8,
+                                                   "seq_len": 16})
+    _, opt = step.init(torch.Generator().manual_seed(0), "cpu")
+    params = bridge.params_from_numpy(payload["params"], cfg, "cpu",
+                                      mesh=mesh)
+    stream = LMStream(vocab=cfg.vocab, batch=8, seq=16, seed=0)
+    for it in range(2):
+        _, params, opt = step.fn(params, opt,
+                                 to_device(stream.batch_at(it), "cpu"))
+    state = (step.gather_params(params), step.gather_opt(opt))
+    # host_leaves on the mesh gathers the same global leaves
+    names_m, arrays_m = bridge.host_leaves(params, mesh=mesh,
+                                           specs=step.specs)
+    host_gathers = [_digest(torch.from_numpy(a)) for a in arrays_m] == [
+        _digest(torch.from_numpy(a))
+        for a in bridge.host_leaves(state[0])[1]]
+    if mesh.rank == 0 and mesh.model_rank == 0:
+        with CheckpointManager(payload["dir_a"], async_save=False,
+                               spmd=False) as cm:
+            cm.save(2, state)
+    names, arrays = bridge.host_leaves(state)
+    saved = {n: _digest(torch.from_numpy(a)) for n, a in zip(names, arrays)}
+    with CheckpointManager(payload["dir_b"], async_save=False,
+                           spmd=False) as cm:
+        _, (pg, og) = cm.restore((step.params_like(), step.global_like()))
+    params_b = step.shard_params(pg, "cpu")
+    opt_b = step.shard_opt(og, "cpu")
+    back = (step.gather_params(params_b), step.gather_opt(opt_b))
+    names, arrays = bridge.host_leaves(back)
+    return {"saved": saved, "host_gathers": host_gathers,
+            "round_trip": {n: _digest(torch.from_numpy(a))
+                           for n, a in zip(names, arrays)},
+            "blocks": bridge.tree_to_numpy(pytree.tree_map(
+                lambda t: t.detach(), params_b)),
+            "coords": dict(mesh.coords)}
+
+
+def job_tensor_parallel(rank: int, n: int, payload: dict) -> dict:
+    """The model-axis checks of ``tests/test_torch_tensor_parallel.py`` on
+    a world of 4: the layout of ``make_local_mesh(data=2, model=2)``, the
+    gradients at model 2 (ranks 0, 1) and 4, the strategies' trajectories
+    (``payload["cases"]``), the vocab-parallel loss and argmax, and the
+    checkpoints."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_local_mesh, make_mesh
+    cfg = get_config(payload["arch"], tiny=True)
+    out: dict = {}
+    mesh22 = make_local_mesh(data=2, model=2)
+    out["layout"] = {"coords": dict(mesh22.coords), "ranks": mesh22.ranks,
+                     "model_ranks": mesh22.model_ranks}
+    mesh14 = make_local_mesh(model=4)
+    mesh12 = make_mesh((1, 2), ("data", "model"), devices=[0, 1])
+    out["grads"] = {}
+    for m, mesh in ((2, mesh12), (4, mesh14)):
+        if mesh is not None:
+            out["grads"][m] = _tp_grads(mesh, cfg, payload["params"],
+                                        payload["batch"])
+    out["cases"] = {}
+    for case in payload["cases"]:
+        mesh = mesh22 if case["mesh"] == (2, 2) else mesh14
+        out["cases"][case["key"]] = _tp_trajectory(
+            mesh, cfg, dict(case, params=payload["params"]))
+    out["vocab"] = _vocab_checks(mesh14)
+    out["ckpt"] = _tp_checkpoints(mesh22, cfg, payload)
+    dist.barrier()
+    return out
+
+
+JOBS = {"trajectories": job_trajectories, "collectives": job_collectives,
+        "tensor_parallel": job_tensor_parallel}
 
 
 # -- fault hooks (shipped to worker ranks by reference) -----------------------
