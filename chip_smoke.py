@@ -68,7 +68,7 @@ without the final ``{"ok": true, ...}`` line:
 6. serve_stream: the serving gateway,
    ``Plan(arch=..., tiny=False).compile().serve_stream(...)``, for the
    same but whisper-medium (which it refuses with the reference's
-   ``ValueError``, asserted) at full width and a third of each model's
+   ``ValueError``, asserted) at full width and a cut of each model's
    depth (``STREAM_LAYERS``): 8 requests arriving
    mid-flight, each prefilled once at batch 1 and parked in host pages
    until a slot frees; an independent greedy loop over the same steps
@@ -152,12 +152,26 @@ without the final ``{"ok": true, ...}`` line:
    prefill and 8 decode logits within 1e-2 mean relative error of one
    process's; ``Session.serve`` at all 36 layers (K1 72 a rank; tokens
    equal to the serve phase's counted); one phylanx step at ``data=2,
-   model=2`` on four rank processes (2 layers, K1 4 / 2 a rank);
+   model=2`` on four rank processes (2 layers, K1 4 / 2 a rank); in the
+   two-rank session also (e) the same training with sequence parallelism
+   (the residual split by sequence; the same bounds against the same
+   oracle, the unsplit leaves, now with the norms' summed gradients,
+   bit-identical, K1 24 / 12 a rank), (h) ``TiledArray`` of an 8 x 512 x
+   2560 bf16 activation tiled by sequence: its halo, re-tiling and
+   replication bit for bit against the whole array, and (g) GPipe over
+   qwen3-4b decoder blocks at full width on a stage mesh of 2 (2 layers
+   a stage, 4 microbatches of 4 x 512, bf16): the outputs and every
+   stage leaf's gradient of a mean-square loss within 1e-3 of one
+   process applying the 4 layers microbatch by microbatch, K1 8 / 8 a
+   rank; in the four-rank session (f) the GPipe example's program on a
+   stage mesh of 4 (d=256, ``tanh(x @ W)``, microbatches of 32): the
+   bubble and ms a microbatch at 1-16 microbatches, 10 training steps,
+   outputs and gathered gradients against a sequential loop;
 13. where the time goes: one prefill (at the wave's batch, and at batch 1
    but for whisper-medium) and one decode step of each served
    configuration (xlstm-350m's at ``PROFILE_LAYERS``), one plain and one
    DDP qwen3-4b train step, one zamba2-2.7b and one granite-moe-1b-a400m
-   train step; the prefills
+   train step (at ``PROFILE_TRAIN_LAYERS``); the prefills
    and the train steps must show K1's tensor-core kernels by name and
    none of its f32 kernels (whisper-medium's prefill 48 forward launches,
    its encoder's and its decoder's; xlstm-350m's no K1 or K2 kernel),
@@ -208,7 +222,9 @@ from repro_torch.checkpoint import format as ckfmt  # noqa: E402
 from repro_torch.checkpoint import spmd as ckspmd  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch import bridge  # noqa: E402
-from repro_torch.core import collectives, overlap, steps  # noqa: E402
+from repro_torch.core import collectives, overlap, pipeline  # noqa: E402
+from repro_torch.core import steps  # noqa: E402
+from repro_torch.core.dist_array import TiledArray  # noqa: E402
 from repro_torch.core.sharding import default_rules  # noqa: E402
 from repro_torch.core.sharding import init_params, is_spec  # noqa: E402
 from repro_torch.data.pipeline import (  # noqa: E402
@@ -218,13 +234,13 @@ from repro_torch.frontend import Plan  # noqa: E402
 from repro_torch.frontend import gateway  # noqa: E402
 from repro_torch.frontend.gateway import RequestQueue  # noqa: E402
 from repro_torch.kernels import KERNELS, build  # noqa: E402
-from repro_torch.launch.mesh import make_local_mesh  # noqa: E402
+from repro_torch.launch.mesh import make_local_mesh, make_mesh  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_bwd, flash_attention_ref)
 from repro_torch.kernels.mamba2_scan import (  # noqa: E402
     TILE as SCAN_TILE, mamba2_chunk_scan, mamba2_chunk_scan_bwd,
     mamba2_chunk_scan_bwd_ref, mamba2_chunk_scan_ref)
-from repro_torch.models import attention, cnn, moe, ssm  # noqa: E402
+from repro_torch.models import attention, blocks, cnn, moe, ssm  # noqa: E402
 from repro_torch.models.model import build_model  # noqa: E402
 from repro_torch.optim import optimizers  # noqa: E402
 from repro_torch.kernels.onebit import (  # noqa: E402
@@ -432,17 +448,24 @@ MOE_SERVE_B1_ATTN = (1, *MOE_TRAIN_ATTN[1:])
 SERVE_B1_SCAN = (1, ZAMBA_HEADS, _ZAMBA_CFG.ssm_groups, SERVE["prompt_len"],
                  _ZAMBA_CFG.ssm_head_dim, _ZAMBA_CFG.ssm_state,
                  _ZAMBA_CFG.ssm_chunk, torch.bfloat16)
-# the gateway's runs (serve_stream) at full width, cut to a third of each
-# model's depth (whole groups: zamba2-2.7b's shared block every 6 layers,
+# the gateway's runs (serve_stream) at full width, cut to a sixth of
+# qwen3-4b's and granite's depth and to one group of zamba2-2.7b's and
+# xlstm-350m's (whole groups: zamba2-2.7b's shared block every 6 layers,
 # xlstm-350m's sLSTM every 8): a run's time is its host's per-layer work
 # (the park and refill copy each layer's cache), 205 s of the script's
-# 1,200 s at full depth; the 2-locality gateway runs qwen3-4b's cut too
-STREAM_LAYERS = {"qwen3-4b": 12, "zamba2-2.7b": 18,
-                 "granite-moe-1b-a400m": 8, "xlstm-350m": 8}
+# 1,200 s at full depth, 72 s at a third; the 2-locality gateway runs
+# qwen3-4b's cut too
+STREAM_LAYERS = {"qwen3-4b": 6, "zamba2-2.7b": 6,
+                 "granite-moe-1b-a400m": 4, "xlstm-350m": 8}
 # where the time goes: xlstm-350m's prefills and decode step profiled at
 # PROFILE_LAYERS of its depth (37,000 kernels a prefill at 24 layers,
 # whose events the profiler's report walks: 59.8 s at full depth)
 PROFILE_LAYERS = {"xlstm-350m": 8}
+# where the time goes: the train steps profiled at PROFILE_TRAIN_LAYERS
+# (the profiler's report walks every event: 61-77 s for the four steps
+# at 12, 12, 54 and 24 layers)
+PROFILE_TRAIN_LAYERS = {"qwen3-4b": 4, "zamba2-2.7b": 18,
+                        "granite-moe-1b-a400m": 8}
 # the gateway's runs (serve_stream): 8 requests arriving at these decode
 # rounds into SERVE's 4 slots; the independent greedy loop replays two of
 # them; the drill kills replica 0 at round 3; qwen3-4b's live queue takes
@@ -482,6 +505,19 @@ TP_SERVE_ATTN = (SERVE["slots"], _TRAIN_CFG.n_heads // 2,
                  _TRAIN_CFG.n_kv_heads // 2, SERVE["prompt_len"],
                  _TRAIN_CFG.head_dim, torch.bfloat16, True, None)
 TP_TRAIN_ATTN = (TRAIN["batch"], *TP_SERVE_ATTN[1:])
+# the model axis, part 2 (ROADMAP item 14b): (e) sequence parallelism
+# in the model=2 session, (h) TiledArray there, (g) GPipe over qwen3-4b
+# decoder blocks at full width on a stage mesh of that session's 2 ranks
+# (GPIPE_LAYERS a stage, GPIPE_MICRO microbatches of GPIPE_MB x 512:
+# K1 at the serve row's forward shape and the DDP shard row's backward
+# shape), and (f) the GPipe example's program (S=4, d=256, tanh(x @ W),
+# microbatches of 32) on a stage mesh of the four-rank session's ranks
+TILED = (TRAIN["batch"], TRAIN["seq"], _TRAIN_CFG.d_model)
+GPIPE_STAGES, GPIPE_LAYERS, GPIPE_MICRO, GPIPE_MB = 2, 2, 4, 4
+GPIPE_RTOL = 1e-3
+GPIPE_EX = dict(stages=4, d=256, mb=32, micro=(1, 2, 4, 8, 16), steps=10,
+                train_micro=8, lr=0.1, timed=5)
+GPIPE_EX_OUT_RTOL, GPIPE_EX_GRAD_RTOL = 1e-5, 1e-4
 FA_CASES = [
     (4, 32, 8, 512, 128, torch.bfloat16, True, None),
     (4, 32, 32, 512, 80, torch.bfloat16, True, None),     # d=80 (zamba)
@@ -3351,6 +3387,333 @@ def _tp_wire(w: dict) -> str:
             f"dp axis {d['bytes']} B in {d['calls']}, {d['wire_s']:.3f} s")
 
 
+def _rel(got, want) -> float:
+    """max |got - want| / max |want|, in float32."""
+    want = want.detach().float()
+    return float((got.detach().float() - want).abs().max()
+                 / want.abs().max())
+
+
+def _synced(fn):
+    """(fn(), host ms), the call ended by a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def tiled_rank(mesh) -> dict:
+    """(h) ``TiledArray`` of a seeded ``TILED`` bf16 activation on this
+    rank of a model=2 mesh: tiled by ``("batch", "seq", "embed")`` under
+    ``default_rules(sequence_parallel=True)`` (each rank ``S/2`` rows), its
+    ``seq`` halo of 1 against the whole array's neighbouring rows (zeros
+    at the edges), ``retile(default_rules())`` and ``replicated()``
+    against the whole array, bit for bit; each call's bytes on the wire
+    and host wall."""
+    x = torch.randn(TILED, generator=torch.Generator(device="cuda")
+                    .manual_seed(0), device="cuda").to(torch.bfloat16)
+    dims, fails, readings = ("batch", "seq", "embed"), [], {}
+
+    def run(name, fn):
+        collectives.reset_stats()
+        out, ms = _synced(fn)
+        readings[name] = {"ms": ms, "bytes": collectives.stats()["bytes"]}
+        return out
+    t = run("tile", lambda: TiledArray.tile(
+        x, dims, mesh, default_rules(sequence_parallel=True)))
+    n, r = mesh.model_size, mesh.model_rank
+    rows = TILED[1] // n
+    if t.tile_shape() != (TILED[0], rows, TILED[2]) or \
+            t.global_shape != TILED or t.spec != (None, "model"):
+        fails.append(f"tile: {t.tile_shape()} {t.spec}")
+    halo = run("halo", lambda: t.with_halo("seq", 1))
+    zero = torch.zeros_like(x[:, :1])
+    lo = x[:, r * rows - 1:r * rows] if r > 0 else zero
+    hi = x[:, (r + 1) * rows:(r + 1) * rows + 1] if r < n - 1 else zero
+    if not torch.equal(halo, torch.cat(
+            [lo, x[:, r * rows:(r + 1) * rows], hi], 1)):
+        fails.append("with_halo differs from the whole array's rows")
+    back = run("retile", lambda: t.retile(default_rules()))
+    rep = run("replicated", lambda: t.replicated())
+    for name, got in (("retile", back), ("replicated", rep)):
+        if not torch.equal(got.data, x) or got.tile_shape() != TILED:
+            fails.append(f"{name} differs from the whole array")
+    return {"readings": readings, "fails": fails}
+
+
+def gpipe_stage_params(cfg, stage: int):
+    """Stage ``stage``'s ``GPIPE_LAYERS`` qwen3-4b decoder blocks as
+    leaves ``[1, GPIPE_LAYERS, ...]`` (requiring grad) on the card: layer
+    ``l`` drawn from seed ``l`` alone, so that a rank draws its own
+    stage's layers and one process all of them."""
+    specs = blocks.tblock_specs(cfg)
+    layers = [init_params(specs, torch.Generator(device="cuda")
+                          .manual_seed(layer), "cuda")
+              for layer in range(stage * GPIPE_LAYERS,
+                                 (stage + 1) * GPIPE_LAYERS)]
+    flat = [pytree.tree_flatten(t)[0] for t in layers]
+    stacked = [torch.stack(ts)[None].requires_grad_(True)
+               for ts in zip(*flat)]
+    return pytree.tree_unflatten(stacked, pytree.tree_flatten(layers[0])[1])
+
+
+def gpipe_stage_fn(cfg):
+    """A stage: its layers' ``tblock_apply`` in order."""
+    def stage_fn(p, x):
+        for i in range(p["ln_attn"]["w"].shape[0]):
+            x = blocks.tblock_apply(
+                x, pytree.tree_map(lambda t: t[i], p), cfg)[0]
+        return x
+    return stage_fn
+
+
+def gpipe_micro(cfg) -> torch.Tensor:
+    """(g)'s seeded input: ``[GPIPE_MICRO, GPIPE_MB, seq, d_model]`` in
+    the compute dtype, the same on every rank."""
+    return torch.randn((GPIPE_MICRO, GPIPE_MB, TRAIN["seq"], cfg.d_model),
+                       generator=torch.Generator(device="cuda")
+                       .manual_seed(1), device="cuda").to(cfg.c_dtype)
+
+
+def gpipe_blocks_rank(cfg) -> dict:
+    """(g) on this rank of a stage mesh of ``GPIPE_STAGES``: its stage's
+    blocks only; a forward (no grad, timed), then a forward and backward
+    of ``mean(y ** 2)`` (timed, every kernel count and the wire counters
+    set to 0 just before and read just after); the gradients gathered
+    over the stage group, and on stage 0 one process's 4 layers applied
+    microbatch by microbatch as the oracle of the outputs and of every
+    stage leaf's gradient."""
+    mesh = make_mesh((GPIPE_STAGES,), ("stage",))
+    s = mesh.stage_rank
+    params = gpipe_stage_params(cfg, s)
+    fn = pipeline.make_pipeline_fn(gpipe_stage_fn(cfg), mesh)
+    x = gpipe_micro(cfg)
+    with torch.no_grad():
+        _, fwd_ms = _synced(lambda: fn(params, x))
+    _zero_counts()
+    collectives.reset_stats()
+
+    def fwd_bwd():
+        y = fn(params, x)
+        y.float().square().mean().backward()
+        return y.detach()
+    y, fb_ms = _synced(fwd_bwd)
+    launches, wire = _counts(), collectives.stats()["axes"]["stage"]
+    leaves = pytree.tree_leaves(params)
+    grads = [collectives.all_gather(p.grad, mesh, mesh_axis="stage")
+             for p in leaves]
+    out = {"fwd_ms": fwd_ms, "fwd_bwd_ms": fb_ms, "launches": launches,
+           "wire": wire, "peak_bytes": torch.cuda.max_memory_allocated()}
+    del params, leaves
+    if s != 0:
+        return out
+    oracle = [gpipe_stage_params(cfg, st) for st in range(GPIPE_STAGES)]
+    stage_fn = gpipe_stage_fn(cfg)
+    ys = []
+    for m in range(GPIPE_MICRO):
+        h = x[m]
+        for p in oracle:
+            h = stage_fn(pytree.tree_map(lambda t: t[0], p), h)
+        ys.append(h)
+    want = torch.stack(ys)
+    want.float().square().mean().backward()
+    per_stage = [pytree.tree_leaves(p) for p in oracle]
+    grad_rel = [_rel(g[st:st + 1], per_stage[st][i].grad)
+                for i, g in enumerate(grads)
+                for st in range(GPIPE_STAGES)]
+    out.update(out_rel_err=_rel(y, want), bit_identical=bool(
+        torch.equal(y, want.detach())), grad_rel_err=max(grad_rel),
+        leaves=len(grads) * GPIPE_STAGES)
+    return out
+
+
+def tp_part2_rank(spec: dict, endpoint=None, driver=None) -> dict:
+    """The model=2 session's part 2 (module level: the worker runs it
+    too): (e) ``spec["steps"]`` phylanx steps with sequence parallelism
+    (``tp_train``; the residual's split asserted), (h) ``tiled_rank``,
+    then (g) ``gpipe_blocks_rank`` on a stage mesh of the same ranks."""
+    plan, stream = spec["plan"], spec["stream"]
+    mesh = make_local_mesh(data=plan.data, model=plan.model, pod=plan.pod)
+    cfg = plan.config()
+    step = steps.make_train_step(cfg, steps.Strategy(
+        name="phylanx", sequence_parallel=True), plan=plan, mesh=mesh)
+    params, opt = step.init(
+        torch.Generator(device="cuda").manual_seed(plan.seed), "cuda")
+    seq = steps.residual_seq(cfg, mesh, step.rules, stream.batch_at(0))
+    out = {"train": dict(tp_train(step, params, opt, stream, spec["steps"]),
+                         seq=seq)}
+    del step, params, opt
+    torch.cuda.empty_cache()
+    out["tiled"] = tiled_rank(mesh)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out["gpipe"] = gpipe_blocks_rank(cfg)
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ex_stage(w, x):
+    return torch.tanh(x @ w)
+
+
+def _ex_sequential(ws, x):
+    """The stages one after the other, microbatch by microbatch."""
+    outs = []
+    for h in x:
+        for s in range(ws.shape[0]):
+            h = torch.tanh(h @ ws[s])
+        outs.append(h)
+    return torch.stack(outs)
+
+
+def gpipe_example_rank(spec: dict, endpoint=None, driver=None) -> dict:
+    """(f) ``examples/pipeline_parallel.py``'s program on a stage mesh of
+    the session's ranks (module level: every worker runs it too): each
+    rank its own ``[1, d, d]`` slice of the seeded weights; the forward at
+    each microbatch count (bubble, host ms a microbatch over ``timed``
+    calls, the outputs against the sequential loop), then ``steps`` SGD
+    steps of ``mean((y - roll(x)) ** 2)``, each step's outputs, loss and
+    gathered gradients against the sequential loop at the same
+    weights."""
+    ex = GPIPE_EX
+    S, d = ex["stages"], ex["d"]
+    mesh = make_mesh((S,), ("stage",))
+    s = mesh.stage_rank
+    def gen(seed):
+        return torch.Generator(device="cuda").manual_seed(seed)
+    ws = torch.randn((S, d, d), generator=gen(0), device="cuda") / d ** 0.5
+    w = ws[s:s + 1].clone()
+    fn = pipeline.make_pipeline_fn(_ex_stage, mesh)
+    sweep, errs = {}, {"out": 0.0, "grad": 0.0, "loss": 0.0}
+    for m in ex["micro"]:
+        x = torch.randn((m, ex["mb"], d), generator=gen(1), device="cuda")
+        with torch.no_grad():
+            y = fn(w, x)
+            errs["out"] = max(errs["out"], _rel(y, _ex_sequential(ws, x)))
+            _, ms = _synced(lambda: [fn(w, x) for _ in range(ex["timed"])])
+        sweep[m] = {"bubble": pipeline.bubble_fraction(S, m),
+                    "ms_per_micro": ms / ex["timed"] / m}
+    x = torch.randn((ex["train_micro"], ex["mb"], d), generator=gen(2),
+                    device="cuda")
+    target = torch.roll(x, 1, dims=-1)
+    w = w.requires_grad_(True)
+    losses, t0 = [], time.perf_counter()
+    for _ in range(ex["steps"]):
+        y = fn(w, x)
+        loss = ((y - target) ** 2).mean()
+        loss.backward()
+        whole = collectives.all_gather(w.detach(), mesh, mesh_axis="stage")
+        grad = collectives.all_gather(w.grad, mesh, mesh_axis="stage")
+        ref_w = whole.clone().requires_grad_(True)
+        ref_y = _ex_sequential(ref_w, x)
+        ref_loss = ((ref_y - target) ** 2).mean()
+        ref_loss.backward()
+        errs["out"] = max(errs["out"], _rel(y.detach(), ref_y.detach()))
+        errs["grad"] = max(errs["grad"], _rel(grad, ref_w.grad))
+        loss, ref_loss = float(loss.detach()), float(ref_loss.detach())
+        errs["loss"] = max(errs["loss"], abs(loss - ref_loss) / ref_loss)
+        losses.append(loss)
+        with torch.no_grad():
+            w -= ex["lr"] * w.grad
+        w.grad = None
+    torch.cuda.synchronize()
+    return {"sweep": sweep, "losses": losses, "errs": errs,
+            "train_s": time.perf_counter() - t0}
+
+
+def _tp_part2(counts: dict, res: dict, oracle: dict, fails: list) -> dict:
+    """(e), (h) and (g)'s checks on both ranks' results and their
+    printed readings."""
+    sp, tiled, gp = {}, {}, res[0]["gpipe"]
+    for r in (0, 1):
+        rec = res[r]["train"]
+        counts[f"tp_sp_L{r}"] = rec["launches"]
+        _tp_launches(f"sequence-parallel train rank {r}", rec["launches"],
+                     2 * TP_LAYERS * TP_STEPS, TP_LAYERS * TP_STEPS, fails)
+        sp[r] = _tp_held(f"sequence-parallel train rank {r}", rec, oracle,
+                         fails)
+        if rec["seq"] != TRAIN["seq"]:
+            fails.append(f"sequence-parallel rank {r}: the residual did not "
+                         f"split ({rec['seq']})")
+        fails.extend(res[r]["tiled"]["fails"])
+        tiled[r] = res[r]["tiled"]["readings"]
+        g = res[r]["gpipe"]
+        counts[f"gpipe_L{r}"] = g["launches"]
+        _tp_launches(f"GPipe stage {r}", g["launches"],
+                     GPIPE_MICRO * GPIPE_LAYERS, GPIPE_MICRO * GPIPE_LAYERS,
+                     fails)
+    same = res[0]["train"]["replicated_bit_sums"] == \
+        res[1]["train"]["replicated_bit_sums"]
+    if not same or res[0]["train"]["losses"] != res[1]["train"]["losses"]:
+        fails.append("sequence-parallel train: the ranks' unsplit leaves or "
+                     "losses differ")
+    if gp["out_rel_err"] > GPIPE_RTOL or gp["grad_rel_err"] > GPIPE_RTOL:
+        fails.append(f"GPipe blocks: outputs {gp['out_rel_err']:.3g}, "
+                     f"gradients {gp['grad_rel_err']:.3g} from one process")
+    for r in (0, 1):
+        rec = res[r]["train"]
+        print(f"(e) sequence-parallel train rank {r}: losses "
+              f"{' '.join(f'{x:.6f}' for x in rec['losses'])}, gnorms "
+              f"{' '.join(f'{x:.6f}' for x in rec['grad_norms'])} (rel err "
+              f"{sp[r]['loss_rel_err']:.3g}, {sp[r]['grad_norm_rel_err']:.3g}"
+              f"); steps {' '.join(f'{x:.1f}' for x in rec['step_ms'])} ms; "
+              f"{_tp_wire(rec['wire'])}; peak {rec['peak_bytes'] / 1e9:.3f} "
+              f"GB; K1 {rec['launches']['flash_attention']} / "
+              f"{rec['launches']['flash_attention_bwd']}")
+    print(f"(e) the {res[0]['train']['replicated']} unsplit leaves "
+          f"bit-identical on both ranks after every step: {same}")
+    for r in (0, 1):
+        print(f"(h) TiledArray {TILED} bf16, rank {r}: " + "; ".join(
+            f"{k} {v['ms']:.2f} ms, {v['bytes']} B" for k, v in
+            tiled[r].items()))
+    bubble = pipeline.bubble_fraction(GPIPE_STAGES, GPIPE_MICRO)
+    for r in (0, 1):
+        g = res[r]["gpipe"]
+        print(f"(g) GPipe stage {r} of {GPIPE_STAGES} ({GPIPE_LAYERS} "
+              f"qwen3-4b blocks, {GPIPE_MICRO} x {GPIPE_MB} x {TRAIN['seq']}"
+              f", bubble {bubble:.3f}): forward {g['fwd_ms']:.1f} ms, "
+              f"forward + backward {g['fwd_bwd_ms']:.1f} ms; stage axis {g['wire']['bytes']} B "
+              f"in {g['wire']['calls']} collectives, {g['wire']['wire_s']:.3f}"
+              f" s in gloo; peak {g['peak_bytes'] / 1e9:.3f} GB; K1 "
+              f"{g['launches']['flash_attention']} / "
+              f"{g['launches']['flash_attention_bwd']}")
+    print(f"(g) against one process: outputs rel err {gp['out_rel_err']:.3g}"
+          f" (bit-identical {gp['bit_identical']}), gradients max rel err "
+          f"{gp['grad_rel_err']:.3g} over {gp['leaves']} leaves (tolerance "
+          f"{GPIPE_RTOL:g})")
+    return {"sp": {r: dict(sp[r], **{k: res[r]["train"][k] for k in (
+        "losses", "grad_norms", "step_ms", "wire", "peak_bytes")})
+        for r in (0, 1)}, "tiled": tiled,
+        "gpipe": {r: {k: v for k, v in res[r]["gpipe"].items()
+                      if k != "launches"} for r in (0, 1)}}
+
+
+def _gpipe_example(ex: dict, fails: list) -> dict:
+    """(f)'s checks on the four ranks' results, and its readings."""
+    for r, rec in ex.items():
+        e = rec["errs"]
+        if e["out"] > GPIPE_EX_OUT_RTOL or e["grad"] > GPIPE_EX_GRAD_RTOL \
+                or e["loss"] > GPIPE_EX_OUT_RTOL:
+            fails.append(f"(f) GPipe example rank {r}: errors {e}")
+        if rec["losses"] != ex[0]["losses"]:
+            fails.append(f"(f) rank {r}'s losses differ from rank 0's")
+    rec = ex[0]
+    if not rec["losses"][-1] < rec["losses"][0]:
+        fails.append(f"(f) the loss did not fall: {rec['losses']}")
+    for m, v in rec["sweep"].items():
+        print(f"(f) GPipe example, {GPIPE_EX['stages']} stages, {m} "
+              f"microbatches of {GPIPE_EX['mb']}: bubble {v['bubble']:.2%},"
+              f" {v['ms_per_micro']:.2f} ms a microbatch (rank 0's host)")
+    print(f"(f) {GPIPE_EX['steps']} steps: losses "
+          f"{' '.join(f'{x:.5f}' for x in rec['losses'])} in "
+          f"{rec['train_s']:.2f} s; against the sequential loop: outputs "
+          f"{max(x['errs']['out'] for x in ex.values()):.3g}, gradients "
+          f"{max(x['errs']['grad'] for x in ex.values()):.3g}, losses "
+          f"{max(x['errs']['loss'] for x in ex.values()):.3g}")
+    return {r: {k: v for k, v in x.items()} for r, x in ex.items()}
+
+
 def model_axis() -> tuple[dict, dict]:
     """The model axis on the one card (ROADMAP item 14b, part 1):
     qwen3-4b at full width, random weights from seed 0, one repeated 8 x
@@ -3399,6 +3762,13 @@ def model_axis() -> tuple[dict, dict]:
             "logits": {"prompts": want_lg["prompts"],
                        "tokens": want_lg["tokens"]}})
         ranks_s = time.perf_counter() - t1
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        part2 = session.run_ranks(tp_part2_rank, {
+            "plan": Plan(**TP_TRAIN, model=2, device="cuda"),
+            "stream": stream, "steps": TP_STEPS})
+        part2_s = time.perf_counter() - t1
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         t1 = time.perf_counter()
@@ -3462,7 +3832,10 @@ def model_axis() -> tuple[dict, dict]:
             raise AssertionError(f"data=2, model=2 warm-up failed: {warm}")
         d2 = session.run_ranks(tp_rank, {"plan": d2_plan, "stream": stream,
                                          "steps": 1})
-    d2_s = time.perf_counter() - t1
+        d2_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        ex = session.run_ranks(gpipe_example_rank, {})
+        ex_s = time.perf_counter() - t1
     world_left = torch.distributed.is_initialized()
     reaped = _reaped(pids)
     d2_held = {}
@@ -3478,6 +3851,9 @@ def model_axis() -> tuple[dict, dict]:
     if world_left or not reaped:
         fails.append(f"data=2, model=2: world left {world_left}, workers "
                      f"reaped {reaped}")
+    part2_readings = _tp_part2(counts, {r: part2[r] for r in (0, 1)},
+                               oracle, fails)
+    ex_readings = _gpipe_example({r: ex[r] for r in range(4)}, fails)
 
     for r in (0, 1):
         rec = res[r]["train"]
@@ -3526,8 +3902,9 @@ def model_axis() -> tuple[dict, dict]:
               f"{rec['launches']['flash_attention_bwd']}")
     print(f"session up {up_s:.1f} s (data=2, model=2: {d2_up_s:.1f} s); "
           f"ranks' train and logits {ranks_s:.1f} s; serve {serve_s:.1f} s; "
-          f"data=2, model=2 {d2_s:.1f} s; world left {world_left}, workers "
-          f"reaped {reaped}")
+          f"data=2, model=2 {d2_s:.1f} s; part 2: (e), (h), (g) "
+          f"{part2_s:.1f} s, (f) {ex_s:.1f} s; world left {world_left}, "
+          f"workers reaped {reaped}")
     if fails:
         raise AssertionError("model axis: " + "; ".join(fails))
     readings = {
@@ -3547,7 +3924,9 @@ def model_axis() -> tuple[dict, dict]:
                   "wire": {0: served["wire"],
                            1: served["localities"][1]["wire"]}},
         "d2": {r: dict(d2_held[r], **{k: d2[r]["train"][k] for k in (
-            "losses", "grad_norms", "step_ms", "wire")}) for r in range(4)}}
+            "losses", "grad_norms", "step_ms", "wire")}) for r in range(4)},
+        "part2_s": part2_s, "gpipe_example_s": ex_s, **part2_readings,
+        "gpipe_example": ex_readings}
     return counts, readings
 
 
@@ -4443,12 +4822,14 @@ def main() -> int:
                 check_ran(name, kernels, K2_TC, K2_F32)
     phase("where the time goes: one full-width train step, qwen3-4b plain "
           "and world-1 DDP onebit, zamba2-2.7b and granite-moe-1b-a400m "
-          "plain (not counted)")
+          f"plain, at {', '.join(map(str, PROFILE_TRAIN_LAYERS.values()))} "
+          f"layers (not counted)")
     for train, ddp in ((TRAIN, False), (TRAIN, True), (ZAMBA_TRAIN, False),
                        (MOE_TRAIN, False)):
         name = (f"{train['arch']} "
                 f"{'DDP train step' if ddp else 'train step'}")
-        kernels = profile_train(train, ddp)
+        kernels = profile_train(dict(train, overrides={
+            "n_layers": PROFILE_TRAIN_LAYERS[train["arch"]]}), ddp)
         check_k1_route(name, kernels, ("forward", "dkdv", "dq"))
         if ddp:
             check_ran(name, kernels, K3B)

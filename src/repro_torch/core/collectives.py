@@ -1,4 +1,4 @@
-"""Collectives over a mesh's dp or model process group.
+"""Collectives over a mesh's dp, model or stage process group.
 
 Counterpart: ``repro/core/collectives.py`` (``fused_psum``,
 ``fused_pmean``, ``naive_psum``, ``reduce_scatter``, ``all_gather``,
@@ -6,10 +6,12 @@ Counterpart: ``repro/core/collectives.py`` (``fused_psum``,
 ``pipeline_shift``).  Where the reference names a mesh axis inside
 ``shard_map``, these take the port's ``launch.mesh.Mesh`` and the axis
 they run over: ``"dp"`` (the default: the ``pod`` and ``data`` axes, the
-mesh's dp process group) or ``"model"`` (its model group, the row of
-ranks that share one dp rank).  Every rank of the group calls the same
-collectives in the same order with its own local tensors (gloo), and
-gets what the reference's body gets on its device.
+mesh's dp process group), ``"model"`` (its model group, the row of
+ranks that share one dp rank) or ``"stage"`` (the stage group of a GPipe
+mesh); ``axis_of`` maps the reference's axis names onto these.  Every
+rank of the group calls the same collectives in the same order with its
+own local tensors (gloo), and gets what the reference's body gets on its
+device.
 
 The model axis also has the two autograd pairs that XLA's partitioner
 inserts around a tensor-parallel product in the reference:
@@ -17,6 +19,14 @@ inserts around a tensor-parallel product in the reference:
 column-parallel product, whose input gradient each rank holds a part of)
 and ``reduce_from_model`` (all-reduce forward, identity backward: out of
 a row-parallel product, whose output each rank holds a part of).
+Under sequence parallelism the residual between blocks holds this rank's
+rows of the sequence, and the pairs become ``all_gather_seq`` (all-gather
+along ``seq`` forward, reduce-scatter backward: into a column-parallel
+product) and ``reduce_scatter_seq`` (reduce-scatter along ``seq``
+forward, all-gather backward: out of a row-parallel product), the
+collectives XLA inserts around the reference's ``act_constrain``.
+``pipeline_shift`` is an autograd function too: its backward is the
+reverse shift, the transpose JAX derives for ``ppermute``.
 
 gloo is the wire, the device keeps the compute: a CUDA tensor is copied
 into a pinned host buffer (reused per size), exchanged, and copied back.
@@ -38,14 +48,15 @@ import torch.utils._pytree as pytree
 
 from . import fusion
 
-__all__ = ["AXES", "all_gather", "all_reduce", "copy_to_model",
-           "fused_pmean", "fused_psum", "halo_exchange", "naive_psum",
-           "pipeline_shift", "pmean", "ppermute", "reduce_from_model",
-           "reduce_scatter", "reset_stats", "ring_all_reduce",
+__all__ = ["AXES", "all_gather", "all_gather_seq", "all_reduce",
+           "axis_of", "copy_to_model", "fused_pmean", "fused_psum",
+           "halo_exchange", "naive_psum", "pipeline_shift", "pmean",
+           "ppermute", "reduce_from_model", "reduce_scatter",
+           "reduce_scatter_seq", "reset_stats", "ring_all_reduce",
            "softmax_combine", "stats"]
 
 #: the axes a collective runs over
-AXES = ("dp", "model")
+AXES = ("dp", "model", "stage")
 
 _KEYS = {"calls": 0, "bytes": 0, "hops": 0, "wire_s": 0.0,
          "staging_s": 0.0, "staged_bytes": 0}
@@ -75,26 +86,52 @@ def _check(axis: str) -> None:
         raise ValueError(f"unknown mesh axis {axis!r} (have {AXES})")
 
 
+def axis_of(mesh, name) -> str:
+    """The collectives axis of the reference's mesh axis ``name`` (a
+    name or a tuple of names; the ones absent from ``mesh`` are
+    dropped): ``"dp"`` for the ``pod`` and ``data`` axes, ``"model"``,
+    ``"stage"``.
+
+    Raises:
+        NotImplementedError: ``name`` leaves out a dp axis > 1 (the port
+            has one dp group over both), or spans two groups.
+    """
+    names = (name,) if isinstance(name, str) else tuple(name)
+    names = tuple(a for a in names if a in mesh.shape)
+    if names in (("model",), ("stage",)):
+        return names[0]
+    big = {a for a in ("pod", "data") if mesh.shape.get(a, 1) > 1} \
+        if set(names) <= {"pod", "data"} else None
+    if big is not None and big <= set(names):
+        return "dp"
+    raise NotImplementedError(f"mesh axes {names} as one process group of "
+                              f"the mesh {mesh.shape}")
+
+
 def _size(mesh, axis: str = "dp") -> int:
     _check(axis)
     if mesh is None:
         return 1
-    return mesh.dp_size if axis == "dp" else mesh.model_size
+    return {"dp": mesh.dp_size, "model": mesh.model_size,
+            "stage": mesh.stage_size}[axis]
 
 
 def _group(mesh, axis: str):
-    return mesh.group if axis == "dp" else mesh.model_group
+    return {"dp": mesh.group, "model": mesh.model_group,
+            "stage": mesh.stage_group}[axis]
 
 
 def _index(mesh, axis: str) -> int:
     """This rank's place in the ``axis`` group."""
     if mesh is None:
         return 0
-    return mesh.rank if axis == "dp" else mesh.model_rank
+    return {"dp": mesh.rank, "model": mesh.model_rank,
+            "stage": mesh.stage_rank}[axis]
 
 
 def _world_ranks(mesh, axis: str) -> tuple:
-    return mesh.ranks if axis == "dp" else mesh.model_ranks
+    return {"dp": mesh.ranks, "model": mesh.model_ranks,
+            "stage": mesh.stage_ranks}[axis]
 
 
 def _host(t: torch.Tensor, slot: str, axis: str) -> torch.Tensor:
@@ -299,13 +336,28 @@ def softmax_combine(partials, mesh, *, mesh_axis: str = "dp"
     return o_glob / torch.clamp(l_glob, min=1e-30)
 
 
+class _Shift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, step, axis):
+        ctx.mesh, ctx.step, ctx.axis = mesh, step, axis
+        return ppermute(x, mesh, _ring(_size(mesh, axis), step),
+                        mesh_axis=axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ppermute(g.contiguous(), ctx.mesh,
+                        _ring(_size(ctx.mesh, ctx.axis), -ctx.step),
+                        mesh_axis=ctx.axis), None, None, None
+
+
 def pipeline_shift(x: torch.Tensor, mesh, *, reverse: bool = False,
                    mesh_axis: str = "dp") -> torch.Tensor:
     """Hand activations (or gradients, ``reverse``) to the neighbouring
-    stage of the ring."""
-    return ppermute(x, mesh, _ring(_size(mesh, mesh_axis),
-                                   -1 if reverse else 1),
-                    mesh_axis=mesh_axis)
+    stage of the ring: rank ``i``'s ``x`` goes to rank ``i + 1`` (``i -
+    1``).  Differentiable: the gradient goes the other way round the
+    ring."""
+    return _Shift.apply(x.contiguous(), mesh, -1 if reverse else 1,
+                        mesh_axis)
 
 
 # ---------------------------------------------------------------------------
@@ -348,3 +400,48 @@ def reduce_from_model(x: torch.Tensor, mesh) -> torch.Tensor:
     if _size(mesh, "model") == 1:
         return x
     return _ReduceFromModel.apply(x, mesh)
+
+
+class _AllGatherSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        return all_gather(x.contiguous(), mesh, axis=dim, mesh_axis="model")
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter(g.contiguous(), ctx.mesh, axis=ctx.dim,
+                              mesh_axis="model"), None, None
+
+
+class _ReduceScatterSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        return reduce_scatter(x.contiguous(), mesh, axis=dim,
+                              mesh_axis="model")
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g.contiguous(), ctx.mesh, axis=ctx.dim,
+                          mesh_axis="model"), None, None
+
+
+def all_gather_seq(x: torch.Tensor, mesh, dim: int = 1) -> torch.Tensor:
+    """Every model rank's rows of the sequence (dim ``dim``), in rank
+    order, forward; the sum over the model group of the gradient's rows
+    of this rank (a reduce-scatter), backward: the input of a
+    column-parallel product under sequence parallelism."""
+    if _size(mesh, "model") == 1:
+        return x
+    return _AllGatherSeq.apply(x, mesh, dim)
+
+
+def reduce_scatter_seq(x: torch.Tensor, mesh, dim: int = 1) -> torch.Tensor:
+    """The sum over the model group of this rank's rows of the sequence
+    (dim ``dim``: a reduce-scatter), forward; the gradient of every
+    rank's rows (an all-gather), backward: the output of a row-parallel
+    product under sequence parallelism."""
+    if _size(mesh, "model") == 1:
+        return x
+    return _ReduceScatterSeq.apply(x, mesh, dim)

@@ -22,7 +22,13 @@ then keeps this rank's block, one leaf at a time.
 The activation hook (``act_hook``) is where the model's layers learn the
 mesh: a step installs ``(mesh, rules)`` around its call, and the layers
 read it through ``model_axis()``, which says per logical dim whether it
-is split over the model group, and which block this rank holds.  With no
+is split over the model group, and which block this rank holds.  Under
+sequence parallelism (``default_rules(sequence_parallel=True)``: ``seq``
+on ``model``) the train step also tells it the residual's global
+sequence length, and the hook says whether the residual between blocks
+holds only this rank's ``S/M`` rows (``ModelAxis.seq``): where the
+reference constrains the residual to ``("batch", "seq", "embed")``
+before and after every block.  With no
 hook installed (or a model axis of 1) the layers are the one-process
 code.  The same init rules: ``normal`` draws
 with std ``scale / sqrt(fan_in)``, fan_in = ``shape[-2]`` (or the last dim
@@ -291,11 +297,25 @@ def init_params(specs, generator: torch.Generator, device, *, mesh=None,
 @dataclasses.dataclass(frozen=True)
 class ModelAxis:
     """A layer's view of the mesh's model axis: ``size`` ranks, this one
-    at ``index``, the tiling ``rules``, and the serve steps' global
-    decode ``cache_len`` (None in training)."""
+    at ``index``, the tiling ``rules``, the serve steps' global decode
+    ``cache_len`` (None in training), and ``seq_len``: the residual's
+    global sequence length where it is split by sequence over the model
+    group (None: every rank holds the whole sequence)."""
     mesh: Any
     rules: ShardingRules
     cache_len: Any = None
+    seq_len: Any = None
+
+    @property
+    def seq(self) -> bool:
+        """Whether the residual between blocks holds only this rank's
+        rows of the sequence (``seq_block``): sequence parallelism."""
+        return self.seq_len is not None
+
+    @property
+    def seq_block(self) -> slice:
+        """This rank's rows of the residual's sequence."""
+        return self.block(self.seq_len)
 
     @property
     def size(self) -> int:
@@ -320,10 +340,19 @@ _ACT_HOOK: list = [None]
 
 
 def set_act_hook(mesh, rules: ShardingRules | None, *,
-                 cache_len=None) -> None:
-    """Install ``(mesh, rules)`` for the layers (None: no mesh)."""
-    _ACT_HOOK[0] = None if mesh is None else ModelAxis(
-        mesh, rules or default_rules(), cache_len)
+                 cache_len=None, seq_len=None) -> None:
+    """Install ``(mesh, rules)`` for the layers (None: no mesh).  A
+    ``seq_len`` splits the residual by sequence where the rules put a
+    ``seq`` of that length on the model axis (``spec_for``'s fallback:
+    only when it divides); the train step passes it only where the
+    model's vocab splits too."""
+    if mesh is None:
+        _ACT_HOOK[0] = None
+        return
+    ax = ModelAxis(mesh, rules or default_rules(), cache_len)
+    if seq_len is not None and ax.split("seq", seq_len):
+        ax = dataclasses.replace(ax, seq_len=seq_len)
+    _ACT_HOOK[0] = ax
 
 
 class act_hook:
@@ -331,12 +360,14 @@ class act_hook:
     block and restores the one before it."""
 
     def __init__(self, mesh, rules: ShardingRules | None, *,
-                 cache_len=None):
-        self.mesh, self.rules, self.cache_len = mesh, rules, cache_len
+                 cache_len=None, seq_len=None):
+        self.mesh, self.rules = mesh, rules
+        self.cache_len, self.seq_len = cache_len, seq_len
 
     def __enter__(self):
         self.prev = _ACT_HOOK[0]
-        set_act_hook(self.mesh, self.rules, cache_len=self.cache_len)
+        set_act_hook(self.mesh, self.rules, cache_len=self.cache_len,
+                     seq_len=self.seq_len)
         return _ACT_HOOK[0]
 
     def __exit__(self, *exc):

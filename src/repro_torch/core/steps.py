@@ -26,8 +26,14 @@ whose use depends on its rank (``model.partial_mask``: ``q_norm``,
 ``k_norm``, and a replicated ``wk``/``wv``/``bk``/``bv``), exchanges over
 its column's dp group on its own blocks, and takes the global gradient
 norm over the model group (``optim.global_norm``).  The serve steps tile
-the KV cache by ``decode_rules``.  ``sequence_parallel``, ``onebit`` at a
-model axis > 1 and the other families on it are ROADMAP item 14b.  Where
+the KV cache by ``decode_rules``.  ``sequence_parallel`` installs the
+reference's ``default_rules(sequence_parallel=True)``: where the batch's
+sequence divides by the model axis (and the vocab splits, as the loss
+needs), the residual between blocks holds each rank's ``S/M`` rows
+(``sharding.ModelAxis.seq``), and every unsplit leaf's gradient is a
+part to sum over the model group; elsewhere, and at a model axis of 1,
+it is the plain path, as in the reference.  ``onebit`` at a model axis >
+1 and the other families on it are ROADMAP item 14b.  Where
 JAX donates the parameters and the optimizer state to the step, the port
 updates them in place and returns the same objects; ``fn_nodonate``
 leaves its inputs as they were (the resilience modes replay from them).
@@ -62,8 +68,7 @@ _STRATEGIES = ("phylanx", "horovod", "zero1", "onebit")
 # ---------------------------------------------------------------------------
 @dataclasses.dataclass(frozen=True)
 class Strategy:
-    """The reference's fields; ``sequence_parallel`` raises (ROADMAP item
-    14b)."""
+    """The reference's fields."""
     name: str = "phylanx"            # phylanx | horovod | zero1 | onebit
     bucket_bytes: int = 0            # 0 -> runtime-adaptive (GrainPolicy)
     sequence_parallel: bool = False  # shard residual seq dim on "model"
@@ -164,6 +169,20 @@ def model_axis_refusal(cfg, strategy) -> Optional[str]:
         return ("onebit at a model axis > 1: its buckets are rows of the "
                 "global leaves (ROADMAP item 14b)")
     return None
+
+
+def residual_seq(cfg, mesh, rules, batch) -> Optional[int]:
+    """The global sequence length by which the residual splits over the
+    model group (sequence parallelism), or None: the batch's sequence
+    where ``rules`` put ``seq`` on a model axis > 1 that it divides, and
+    the model's vocab splits over it too (the loss's exchange is over
+    the vocab, of the gathered sequence)."""
+    if mesh is None or mesh.model_size == 1 or "tokens" not in batch:
+        return None
+    n = batch["tokens"].shape[1]
+    ax = ModelAxis(mesh, rules)
+    return n if ax.split("seq", n) and ax.split("vocab", cfg.vocab) \
+        else None
 
 
 def _sum_partials(grads, mask, mesh):
@@ -360,17 +379,12 @@ def make_train_step(cfg=None, strategy: Optional[Strategy] = None, *,
 
     Raises:
         ValueError: an unknown strategy.
-        NotImplementedError: ``sequence_parallel``, or what
-            ``model_axis_refusal`` names at a model axis > 1 (ROADMAP
-            item 14b).
+        NotImplementedError: what ``model_axis_refusal`` names at a
+            model axis > 1 (ROADMAP item 14b).
     """
     cfg, strategy = _resolve(plan, cfg, strategy)
     if strategy.name not in _STRATEGIES:
         raise ValueError(f"unknown strategy {strategy.name!r}")
-    if strategy.sequence_parallel:
-        raise NotImplementedError("sequence parallelism "
-                                  "(Strategy.sequence_parallel) is ROADMAP "
-                                  "item 14b")
     if shape is None:
         shape = {"global_batch": plan.batch if plan is not None else 8,
                  "seq_len": plan.seq if plan is not None else 1024,
@@ -389,7 +403,7 @@ def make_train_step(cfg=None, strategy: Optional[Strategy] = None, *,
     oc = strategy.opt
     k = max(strategy.grad_accum, 1)
     ndp = dp_degree(mesh)
-    rules = default_rules()
+    rules = default_rules(sequence_parallel=strategy.sequence_parallel)
     # the reference's leaves decide (global shapes); this rank's state
     # holds its blocks of them (local shapes)
     global_leaves = overlap.stacked_specs(specs)
@@ -413,8 +427,7 @@ def make_train_step(cfg=None, strategy: Optional[Strategy] = None, *,
     fuse_mask = pytree.tree_map(lambda m: not m, split_mask)
     split_flat = pytree.tree_leaves(split_mask)
     leaf_split = [split_flat[l.members[0]] for l in leaves]
-    partial_mask = model.partial_mask(specs, ModelAxis(mesh, rules)) \
-        if split else None
+    partial_masks = {}
     norm_kw = dict(mesh=mesh, split_mask=split_mask) if split else {}
 
     def grads_of(params, batch):
@@ -449,10 +462,14 @@ def make_train_step(cfg=None, strategy: Optional[Strategy] = None, *,
                                            pytree.tree_structure(params))
 
     def fn(params, opt_state, batch):
-        with act_hook(mesh, rules):
+        seq = residual_seq(cfg, mesh, rules, batch)
+        with act_hook(mesh, rules, seq_len=seq):
             loss, grads = grads_of(params, batch_rows(batch, mesh))
         if split:
-            grads = _sum_partials(grads, partial_mask, mesh)
+            if seq not in partial_masks:
+                partial_masks[seq] = model.partial_mask(
+                    specs, ModelAxis(mesh, rules, seq_len=seq))
+            grads = _sum_partials(grads, partial_masks[seq], mesh)
         loss = collectives.pmean(loss, mesh)
         if strategy.name == "zero1":
             params, opt_state, m = overlap.zero1_update(

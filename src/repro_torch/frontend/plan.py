@@ -41,12 +41,13 @@ row of M ranks) in lockstep on every rank (``frontend/mesh.py``), with
 checkpoints in the reference's global layout and the
 ``replay``/``replicate`` resilience modes.  ``serve`` on a mesh of
 ``model=M`` runs the wave loop on every rank (``frontend/mesh.
-rank_serve``).  What is still missing raises ``NotImplementedError``
-naming the ROADMAP item that brings it: sequence parallelism, the model
-axis for the other families and for onebit, serving over a mesh with
-data axes, ``serve_stream`` over a mesh, and a mesh with SPMD mode,
-fabric localities or elastic membership (item 14b), the production
-meshes and named shapes (item 15).
+rank_serve``; it ignores ``Strategy.sequence_parallel``, as the
+reference's serve steps take ``decode_rules``, while ``train`` runs it).
+What is still missing raises ``NotImplementedError`` naming the ROADMAP
+item that brings it: the model axis for the other families and for
+onebit, serving over a mesh with data axes, ``serve_stream`` over a
+mesh, and a mesh with SPMD mode, fabric localities or elastic membership
+(item 14b), the production meshes and named shapes (item 15).
 """
 from __future__ import annotations
 
@@ -163,9 +164,6 @@ def _unsupported(plan: Plan) -> Optional[str]:
                 f"item 15)")
     if plan.shape is not None:
         return "named shapes (dryrun, ROADMAP item 15)"
-    if plan.build_strategy().sequence_parallel:
-        return ("sequence parallelism (Strategy.sequence_parallel, ROADMAP "
-                "item 14b)")
     if n > 1 and plan.spmd:
         return "SPMD mode with mesh axes (ROADMAP item 14b)"
     if n > 1 and (plan.localities > 1 or plan.elastic):

@@ -66,6 +66,9 @@ class Mesh:
             row), by model coordinate.
         model_group: the model process group (None when the model axis
             is 1).
+        stage_ranks: the world ranks of the stage group, by stage.
+        stage_group: the stage process group (None when the stage axis
+            is 1).
     """
     shape: dict
     rank: int = 0
@@ -74,6 +77,8 @@ class Mesh:
     group: Any = None
     model_ranks: tuple = (0,)
     model_group: Any = None
+    stage_ranks: tuple = (0,)
+    stage_group: Any = None
 
     @property
     def dp_size(self) -> int:
@@ -87,6 +92,14 @@ class Mesh:
     def model_rank(self) -> int:
         return self.coords.get("model", 0)
 
+    @property
+    def stage_size(self) -> int:
+        return self.shape.get("stage", 1)
+
+    @property
+    def stage_rank(self) -> int:
+        return self.coords.get("stage", 0)
+
 
 def make_mesh(shape: Sequence[int], axes: Sequence[str], *,
               devices: Optional[Sequence[int]] = None) -> Optional[Mesh]:
@@ -94,15 +107,17 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str], *,
     process of the current ``torch.distributed`` world.
 
     Every rank of the world calls this in the same order: it makes every
-    dp group (one per model coordinate) and every model group (one per dp
-    rank), in that fixed order, because ``new_group`` is collective over
-    the whole world.  ``devices`` are the world ranks of the mesh in mesh
-    order (row-major, ``model`` fastest; default: the whole world, whose
-    size must then be the mesh's; at a mesh size of 1, this process
-    alone); a rank outside ``devices`` gets None.
+    dp group (one per model coordinate), every model group (one per dp
+    rank) and the stage group, in that fixed order, because ``new_group``
+    is collective over the whole world.  ``devices`` are the world ranks
+    of the mesh in mesh order (row-major, ``model`` fastest; default: the
+    whole world, whose size must then be the mesh's; at a mesh size of 1,
+    this process alone); a rank outside ``devices`` gets None.
 
     Raises:
-        NotImplementedError: an axis the port does not know.
+        NotImplementedError: an axis the port does not know, or a
+            ``stage`` axis > 1 beside dp or model axes > 1 (ROADMAP item
+            14b, part 7).
         ValueError: the mesh size is not the world's (or ``devices``')
             size, or the mesh spans processes without a world.
     """
@@ -110,13 +125,18 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str], *,
     if len(shape) != len(axes):
         raise ValueError(f"mesh shape {shape} for axes {axes}")
     sizes = dict(zip(axes, shape))
-    unknown = set(axes) - {"pod", "data", "model"}
+    unknown = set(axes) - {"pod", "data", "model", "stage"}
     if unknown:
         raise NotImplementedError(f"mesh axes {sorted(unknown)}: the port "
-                                  f"knows pod, data and model")
+                                  f"knows pod, data, model and stage")
     ndp = math.prod(sizes.get(a, 1) for a in _DP_AXES)
     nm = sizes.get("model", 1)
-    n = ndp * nm
+    ns = sizes.get("stage", 1)
+    if ns > 1 and ndp * nm > 1:
+        raise NotImplementedError(
+            f"a stage axis combined with other mesh axes ({sizes}): GPipe "
+            f"beside data or model parallelism is ROADMAP item 14b, part 7")
+    n = ndp * nm * ns
     import torch.distributed as dist
     in_world = dist.is_available() and dist.is_initialized()
     world = dist.get_world_size() if in_world else 1
@@ -142,6 +162,17 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str], *,
     model_groups = [dist.new_group(ranks=list(r), backend="gloo",
                                    timeout=timeout) if nm > 1 else None
                     for r in rows]
+    if ns > 1:
+        stage_group = dist.new_group(ranks=list(ranks), backend="gloo",
+                                     timeout=timeout)
+        if me not in ranks:
+            return None
+        s = ranks.index(me)
+        coords = {a: 0 for a in axes}
+        coords["stage"] = s
+        return Mesh(shape=sizes, coords=coords, ranks=(me,),
+                    model_ranks=(me,), stage_ranks=ranks,
+                    stage_group=stage_group)
     if me not in ranks:
         return None
     i = ranks.index(me)
@@ -188,7 +219,7 @@ def make_local_mesh(data: int = 1, model: int = 1, pod: int = 1) -> Mesh:
 
 
 def mesh_devices(mesh) -> int:
-    """The mesh's size: its rank processes, D * P * M."""
+    """The mesh's size: its rank processes, D * P * M (or S)."""
     return math.prod(mesh.shape.values())
 
 

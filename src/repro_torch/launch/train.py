@@ -22,7 +22,8 @@ the deterministic steal window), the mesh axes (``--data``, ``--pod``:
 that many rank processes, each training its rows of the batch with
 ``--strategy`` phylanx, horovod, zero1 or onebit; ``--model M``: M rank
 processes for each, splitting the dense family's layers;
-``--seq-parallel`` raises, ROADMAP item 14b) and ``--resilience``
+``--seq-parallel``: the residual split by sequence over the model
+group) and ``--resilience``
 (``none``, ``replay``, ``replicate``), plus ``--device`` and
 ``--n-layers``.
 Runs on the GPU unless ``--device cpu`` is given; every locality runs on
@@ -168,8 +169,10 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--grad-accum", type=int, default=1)
     ap.add_argument("--remat", action="store_true")
     ap.add_argument("--seq-parallel", action="store_true",
-                    help="sequence parallelism on the model axis (ROADMAP "
-                         "item 14b: raises)")
+                    help="sequence parallelism on the model axis: the "
+                         "residual between blocks holds each model rank's "
+                         "rows of the sequence (the plain path at --model "
+                         "1)")
     ap.add_argument("--ckpt", default="",
                     help="checkpoint directory (empty: no checkpoints)")
     ap.add_argument("--ckpt-every", type=int, default=20,

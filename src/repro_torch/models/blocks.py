@@ -22,7 +22,13 @@ Megatron's: the normed input enters the attention and the MLP through
 ``collectives.copy_to_model``, each rank computes its own heads and its
 own ``d_ff`` columns, and the row-parallel out projection (``_out_proj``)
 and ``w_down`` leave through ``collectives.reduce_from_model``; the
-residual stream and the norms are the same on every rank.
+residual stream and the norms are the same on every rank.  Under
+sequence parallelism (the hook's ``seq``) the residual and the norms
+hold this rank's rows of the sequence: the attention and the MLP enter
+through ``collectives.all_gather_seq`` (RoPE and the qk-norms see the
+whole sequence, K1 this rank's heads of it, as without) and leave
+through ``collectives.reduce_scatter_seq`` (``layers.enter_split``,
+``layers.leave_split``).
 """
 from __future__ import annotations
 
@@ -78,19 +84,21 @@ def kv_cache_specs(cfg, batch: int, seq: int) -> dict:
 def _out_proj(o, wo, dt, hp=None):
     """The attention's out projection; row-parallel (this rank's heads'
     rows of ``wo``, summed over the model group) under a head plan that
-    splits the heads."""
+    splits the heads; cut to this rank's rows under sequence
+    parallelism."""
     y = torch.einsum("bqhk,hkd->bqd", o, wo.to(dt))
-    if hp is not None and hp.heads:
-        y = collectives.reduce_from_model(y, hp.ax.mesh)
-    return y
+    if hp is None:
+        return y
+    return layers.leave_split(y, hp.ax, hp.heads)
 
 
 def _attn_in(h, cfg, cache_len=None):
     """(the attention's input, its head plan): ``h`` enters a head-split
-    attention through ``copy_to_model``."""
+    attention through ``copy_to_model``, or gathered by sequence under
+    sequence parallelism."""
     hp = attention.head_plan(cfg.n_heads, cfg.n_kv_heads, cache_len)
-    if hp is not None and hp.heads:
-        h = collectives.copy_to_model(h, hp.ax.mesh)
+    if hp is not None:
+        h = layers.enter_split(h, hp.ax, hp.heads)
     return h, hp
 
 

@@ -20,6 +20,14 @@ rank's vocab columns, ``softmax_xent`` reduces over the group
 the sum) and ``greedy`` takes the argmax over the whole vocab.  Each
 takes the dim's global size from its caller; without the hook, or when
 the dim does not divide, they are the one-process code.
+
+Under sequence parallelism (the hook's ``seq``) the residual between
+blocks holds this rank's rows of the sequence: a split product enters
+through ``collectives.all_gather_seq`` and leaves through
+``collectives.reduce_scatter_seq`` (``enter_split``, ``leave_split``),
+an unsplit one computes the whole sequence and keeps its rows; the
+embedding's vocab-parallel sum is the reduce-scatter, and the logits
+take the gathered sequence after ``ln_f``.
 """
 from __future__ import annotations
 
@@ -124,20 +132,42 @@ def _split(dim: str, n):
         else None
 
 
+def enter_split(x, ax, split: bool):
+    """The input ``[B, S, D]`` of a product on the model axis ``ax``
+    (None: one process) that splits its output columns over the group
+    (``split``) or not: under sequence parallelism every rank's rows,
+    gathered; else ``copy_to_model`` where it splits."""
+    if ax is None:
+        return x
+    if ax.seq:
+        return collectives.all_gather_seq(x, ax.mesh)
+    return collectives.copy_to_model(x, ax.mesh) if split else x
+
+
+def leave_split(y, ax, split: bool):
+    """The output ``[B, S, D]`` of a product that ``enter_split`` began:
+    summed over the group where it split (row-parallel), and under
+    sequence parallelism cut to this rank's rows (a reduce-scatter, or
+    a plain cut of a whole output)."""
+    if ax is None:
+        return y
+    if ax.seq:
+        return collectives.reduce_scatter_seq(y, ax.mesh) if split \
+            else y[:, ax.seq_block]
+    return collectives.reduce_from_model(y, ax.mesh) if split else y
+
+
 def apply_mlp(x, p, kind: str = "swiglu", d_ff=None):
     """The MLP; ``d_ff`` (global) lets it split over the model axis."""
-    ax = _split("d_ff", d_ff)
-    if ax is not None:
-        x = collectives.copy_to_model(x, ax.mesh)
+    ax = model_axis()
+    split = _split("d_ff", d_ff) is not None
+    x = enter_split(x, ax, split)
     dt = x.dtype
     if kind == "swiglu":
         h = F.silu(x @ p["w_gate"].to(dt)) * (x @ p["w_up"].to(dt))
-        y = h @ p["w_down"].to(dt)
-        return collectives.reduce_from_model(y, ax.mesh) if ax else y
+        return leave_split(h @ p["w_down"].to(dt), ax, split)
     h = gelu(x @ p["w_up"].to(dt) + p["b_up"].to(dt))
-    y = h @ p["w_down"].to(dt)
-    if ax is not None:
-        y = collectives.reduce_from_model(y, ax.mesh)
+    y = leave_split(h @ p["w_down"].to(dt), ax, split)
     return y + p["b_down"].to(dt)
 
 
@@ -152,7 +182,8 @@ def embed_specs(vocab: int, d: int) -> dict:
 def embed(tokens, p, vocab=None):
     """Token embedding; ``vocab`` (global) lets it split over the model
     axis: each rank looks up the tokens of its own rows (zeros for the
-    others) and the model group sums, exactly."""
+    others) and the model group sums, exactly (under sequence
+    parallelism, the sum of this rank's rows of the sequence)."""
     ax = _split("vocab", vocab)
     if ax is None:
         return F.embedding(tokens, p["tok"])
@@ -162,7 +193,7 @@ def embed(tokens, p, vocab=None):
     out = F.embedding(torch.where(hit, local, torch.zeros_like(local)),
                       p["tok"])
     out = out.masked_fill(~hit[..., None], 0)
-    return collectives.reduce_from_model(out, ax.mesh)
+    return leave_split(out, ax, True)
 
 
 def unembed_specs(d: int, vocab: int) -> dict:
@@ -171,10 +202,20 @@ def unembed_specs(d: int, vocab: int) -> dict:
 
 def logits(x, p, vocab=None):
     """``[..., vocab]``; split over the model axis (``vocab`` global):
-    this rank's vocab columns."""
-    ax = _split("vocab", vocab)
-    if ax is not None:
-        x = collectives.copy_to_model(x, ax.mesh)
+    this rank's vocab columns (of the whole sequence, gathered, under
+    sequence parallelism, which needs the vocab split: the loss's
+    exchange is over the vocab).
+
+    Raises:
+        ValueError: a residual split by sequence with a vocab that is
+            not.
+    """
+    ax = model_axis()
+    split = _split("vocab", vocab) is not None
+    if ax is not None and ax.seq and not split:
+        raise ValueError(f"sequence parallelism with a vocab of {vocab} "
+                         f"that does not split over {ax.size} ranks")
+    x = enter_split(x, ax, split)
     return x @ p["w"].to(x.dtype)
 
 

@@ -42,7 +42,11 @@ embedding, the logits and the loss are vocab-parallel, the blocks
 Megatron's (``blocks.py``); ``prefill`` and ``decode_step`` return this
 rank's vocab columns of the logits (``layers.greedy`` takes their global
 argmax, ``layers.gather_vocab`` the whole).  ``partial_mask`` names the
-replicated leaves whose gradient is a per-rank part.
+replicated leaves whose gradient is a per-rank part.  Under sequence
+parallelism (the hook's ``seq``) the residual between the dense blocks,
+and so what ``_remat`` saves of it, is this rank's ``S/M`` rows; the
+embedding leaves through a reduce-scatter and the logits take the
+gathered sequence after ``ln_f``.
 
 Contract:
   m = build_model(cfg)
@@ -62,7 +66,7 @@ import torch
 import torch.utils._pytree as pytree
 from torch.utils.checkpoint import checkpoint
 
-from ..core.sharding import ParamSpec, is_spec
+from ..core.sharding import ParamSpec, is_spec, model_sharded
 from . import attention, blocks, layers
 
 # the families ``LM`` builds; ``EncDec`` builds "encdec"
@@ -172,8 +176,15 @@ class LM:
         leaves whose gradient on a rank of the model axis ``ax`` is that
         rank's part, to be summed over the model group (``q_norm``,
         ``k_norm``; ``wk``, ``wv``, ``bk``, ``bv`` when the kv heads do not
-        split: ``attention.partial_grad_leaves``)."""
+        split: ``attention.partial_grad_leaves``).  Under sequence
+        parallelism (``ax.seq``) that is every leaf the rules do not
+        split: the norms and ``b_down`` see this rank's rows, and an
+        unsplit product's cut keeps only their gradient."""
         cfg = self.cfg
+        if ax.seq:
+            return pytree.tree_map(
+                lambda s: not model_sharded(ax.mesh, ax.rules, s.shape,
+                                            s.dims), specs, is_leaf=is_spec)
         names = attention.partial_grad_leaves(cfg.n_heads, cfg.n_kv_heads,
                                               ax)
         out = pytree.tree_map(lambda s: False, specs, is_leaf=is_spec)

@@ -32,9 +32,11 @@ from repro_torch.checkpoint.checkpoint import CheckpointManager
 from repro_torch.configs import get_config
 from repro_torch.core import pipeline, steps
 from repro_torch.core.dist_array import TiledArray
+from repro_torch.core.sharding import default_rules
+from repro_torch.data.pipeline import LMStream
 from repro_torch.frontend import Plan
 from repro_torch.launch import train as train_cli
-from repro_torch.launch.mesh import Mesh
+from repro_torch.launch.mesh import Mesh, make_local_mesh, make_mesh
 from torch_mesh_world import NanOnRank, with_fault_hook
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -217,8 +219,9 @@ def test_replay_verdicts_are_agreed_over_the_model_group():
     (dict(arch="xlstm-350m", model=2), "xlstm family"),
     (dict(arch="whisper-medium", model=2), "encdec family"),
     (dict(model=2, strategy="onebit"), "onebit at a model axis"),
-    (dict(strategy=steps.Strategy(sequence_parallel=True)),
-     "sequence parallelism"),
+    # sequence parallelism runs on the dense family only, as the model axis
+    (dict(arch="granite-moe-1b-a400m", model=2,
+          strategy=steps.Strategy(sequence_parallel=True)), "moe family"),
     (dict(model=2, spmd=True, localities=2), "SPMD mode"),
     (dict(model=2, localities=2), "fabric localities"),
     (dict(model=2, elastic=True), "elastic membership"),
@@ -241,20 +244,41 @@ def test_step_builders_refuse_what_the_plan_refuses():
                                            tiny=True),
                                 {"seq_len": 8, "global_batch": 1},
                                 mesh=mesh)
-    with pytest.raises(NotImplementedError, match="sequence.*item 14b"):
-        steps.make_train_step(get_config("qwen3-4b", tiny=True),
-                              steps.Strategy(sequence_parallel=True))
+    # sequence parallelism builds and runs (at model=1: the plain path)
+    cfg = get_config("qwen3-4b", tiny=True)
+    sp, plain = (steps.make_train_step(cfg, steps.Strategy(
+        sequence_parallel=v)) for v in (True, False))
+    assert sp.rules.axis_for("seq") == "model"
+    batch = {k: torch.from_numpy(v) for k, v in LMStream(
+        vocab=cfg.vocab, batch=2, seq=8).batch_at(0).items()}
+    got = [step.fn(*step.init(torch.Generator().manual_seed(0), "cpu"),
+                   batch)[0]["loss"] for step in (sp, plain)]
+    assert torch.equal(got[0], got[1])
     args = train_cli.parser().parse_args(
-        ["--device", "cpu", "--steps", "1", "--seq-parallel"])
-    with pytest.raises(NotImplementedError, match="item 14b"):
-        train_cli.run(args)
+        ["--device", "cpu", "--steps", "1", "--batch", "2", "--seq", "8",
+         "--log-every", "1", "--seq-parallel"])
+    assert len(train_cli.run(args)["losses"]) == 1
 
 
 def test_pipeline_and_dist_array_name_item_14b():
+    """GPipe and ``TiledArray`` run on a mesh of one process (the
+    reference's ``test_tiled_array_metadata_and_retile``); a stage axis
+    beside other mesh axes is what stays refused (item 14b, part 7)."""
     assert pipeline.bubble_fraction(4, 12) == 3 / 15
-    with pytest.raises(NotImplementedError, match="item 14b"):
-        pipeline.gpipe_apply(None, None, None)
-    with pytest.raises(NotImplementedError, match="item 14b"):
-        pipeline.make_pipeline_fn(None, None)
-    with pytest.raises(NotImplementedError, match="item 14b"):
-        TiledArray.tile(torch.zeros(4), ("batch",), None, None)
+    stage = make_mesh((1,), ("stage",))
+    ws = torch.randn(1, 4, 4, generator=torch.Generator().manual_seed(0))
+    x = torch.randn(3, 2, 4, generator=torch.Generator().manual_seed(1))
+    fn = pipeline.make_pipeline_fn(lambda w, h: torch.tanh(h @ w), stage)
+    assert torch.allclose(fn(ws, x), torch.tanh(x @ ws[0]))
+    assert torch.equal(pipeline.gpipe_apply(
+        lambda w, h: torch.tanh(h @ w), ws[0], x, stage), fn(ws, x))
+    mesh = make_local_mesh()
+    v = torch.arange(64.0).reshape(8, 8)
+    t = TiledArray.tile(v, ("batch", "embed"), mesh, default_rules())
+    assert t.global_shape == (8, 8) and t.tile_shape() == (8, 8)
+    assert torch.equal(t.replicated().data, v)
+    r2 = t.retile(default_rules(sequence_parallel=True))
+    assert r2.global_shape == (8, 8) and torch.equal(r2.data, v)
+    assert torch.equal(t.with_halo("batch", 1), v)
+    with pytest.raises(NotImplementedError, match="stage.*item 14b"):
+        make_mesh((2, 2), ("data", "stage"))

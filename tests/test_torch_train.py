@@ -376,8 +376,9 @@ def test_launch_train_run_on_the_cpu(tmp_path, arch):
 
 
 @pytest.mark.parametrize("argv, match", [
-    # the model axis trains the dense family, but not sequence-parallel
-    (["--model", "2", "--seq-parallel"], "item 14b"),
+    # sequence parallelism trains the dense family only, as the model axis
+    (["--model", "2", "--seq-parallel", "--arch", "zamba2-2.7b"],
+     "item 14b"),
     (["--data", "2", "--spmd", "--localities", "2"], "item 14b"),
 ])
 def test_launch_train_raises_for_what_the_port_does_not_run(argv, match):

@@ -223,7 +223,8 @@ def _tp_trajectory(mesh, cfg, case: dict) -> dict:
     from repro_torch.data.pipeline import LMStream, to_device
     from repro_torch.optim.optimizers import OptConfig
     step = steps.make_train_step(
-        cfg, steps.Strategy(name=case["name"], opt=OptConfig(lr=case["lr"])),
+        cfg, steps.Strategy(name=case["name"], opt=OptConfig(lr=case["lr"]),
+                            sequence_parallel=case.get("sp", False)),
         mesh=mesh, shape={"global_batch": case["batch"],
                           "seq_len": case["seq"]})
     _, opt = step.init(torch.Generator().manual_seed(0), "cpu")
@@ -356,8 +357,247 @@ def job_tensor_parallel(rank: int, n: int, payload: dict) -> dict:
     return out
 
 
+def _sp_grads(mesh, cfg, params_np, batch_np, sp: bool = True) -> dict:
+    """The loss and every leaf's gradient of the global batch (each dp
+    rank's rows, averaged over the dp group), gathered to the reference's
+    layout, with or without sequence parallelism; and the residual's
+    split (``seq``)."""
+    import torch
+    import torch.utils._pytree as pytree
+
+    from repro_torch import bridge
+    from repro_torch.core import collectives, steps
+    from repro_torch.core.sharding import ModelAxis, act_hook, gather_tree
+    step = steps.make_train_step(
+        cfg, steps.Strategy(sequence_parallel=sp), mesh=mesh)
+    params = bridge.params_from_numpy(params_np, cfg, "cpu", mesh=mesh)
+    for p in pytree.tree_leaves(params):
+        p.requires_grad_(True)
+    batch = steps.batch_rows({k: torch.from_numpy(v).long()
+                              for k, v in batch_np.items()}, mesh)
+    seq = steps.residual_seq(cfg, mesh, step.rules, batch)
+    with act_hook(mesh, step.rules, seq_len=seq):
+        loss = step.model.loss(params, batch)
+        loss.backward()
+    grads = steps._sum_partials(
+        pytree.tree_map(lambda p: p.grad, params),
+        step.model.partial_mask(step.specs, ModelAxis(mesh, step.rules,
+                                                      seq_len=seq)), mesh)
+    grads = pytree.tree_map(lambda g: collectives.pmean(g, mesh), grads)
+    whole = gather_tree(grads, step.specs, mesh, step.rules)
+    return {"loss": float(collectives.pmean(loss.detach(), mesh)),
+            "grads": bridge.tree_to_numpy(whole), "seq": seq}
+
+
+def _sp_pairs(mesh) -> dict:
+    """``all_gather_seq`` and ``reduce_scatter_seq`` forward and backward
+    on seeded ``[2, 4M, 3]`` tensors (rank ``r``'s own seeds ``100 + r``,
+    ``200 + r``), with their plain one-process versions: the whole
+    tensor, and sums over the ranks' seeds cut to this rank's rows."""
+    import torch
+
+    from repro_torch.core import collectives
+    n, r = mesh.model_size, mesh.model_rank
+    shape = (2, 4 * n, 3)
+    blk = slice(r * 4, (r + 1) * 4)
+    x = torch.from_numpy(seeded(shape, 7))
+    mine = x[:, blk].clone().requires_grad_(True)
+    y = collectives.all_gather_seq(mine, mesh)
+    y.backward(torch.from_numpy(seeded(shape, 100 + r)))
+    part = torch.from_numpy(seeded(shape, 200 + r)).requires_grad_(True)
+    z = collectives.reduce_scatter_seq(part, mesh)
+    gz = seeded((2, 4, 3), 300 + r)
+    z.backward(torch.from_numpy(gz))
+    return {
+        "gather": y.detach().numpy(), "gather_want": x.numpy(),
+        "gather_grad": mine.grad.numpy(),
+        "gather_grad_want": sum(seeded(shape, 100 + k)
+                                for k in range(n))[:, blk],
+        "scatter": z.detach().numpy(),
+        "scatter_want": sum(seeded(shape, 200 + k)
+                            for k in range(n))[:, blk],
+        "scatter_grad": part.grad.numpy(),
+        "scatter_grad_want": np.concatenate(
+            [seeded((2, 4, 3), 300 + k) for k in range(n)], axis=1)}
+
+
+def _tiled(mesh, x_np) -> dict:
+    """``TiledArray`` on ``mesh`` of the seeded ``[B, S, D]`` array under
+    the default rules and sequence parallelism's: each plan's tile,
+    spec and shapes, its ``seq`` halo of 1, and whether ``retile`` and
+    ``replicated`` give the tiles and the array bit for bit."""
+    import torch
+
+    from repro_torch.core.dist_array import TiledArray
+    from repro_torch.core.sharding import default_rules
+    x = torch.from_numpy(x_np)
+    dims = ("batch", "seq", "embed")
+    rules = {"default": default_rules(),
+             "sp": default_rules(sequence_parallel=True)}
+    tiles = {k: TiledArray.tile(x, dims, mesh, r) for k, r in rules.items()}
+    out = {k: {"data": t.data.numpy(), "tile_shape": list(t.tile_shape()),
+               "global_shape": list(t.global_shape),
+               "spec": [list(p) if isinstance(p, tuple) else p
+                        for p in t.spec],
+               "halo": t.with_halo("seq", 1).numpy()}
+           for k, t in tiles.items()}
+    to_sp = tiles["default"].retile(rules["sp"])
+    back = tiles["sp"].retile(rules["default"])
+    out["retile"] = bool(torch.equal(to_sp.data, tiles["sp"].data)) and \
+        bool(torch.equal(back.data, tiles["default"].data)) and \
+        to_sp.global_shape == tiles["sp"].global_shape
+    out["replicated"] = all(
+        torch.equal(t.replicated().data, x) and
+        t.replicated().tile_shape() == tuple(x.shape)
+        for t in tiles.values())
+    return out
+
+
+def job_seq_parallel(rank: int, n: int, payload: dict) -> dict:
+    """The sequence-parallel checks of ``tests/test_torch_seq_parallel.py``
+    on a world of 4: the gradients at ``data=2, model=2`` and ``model=4``
+    with sequence parallelism (and at ``model=4`` without), the
+    strategies' trajectories (``payload["cases"]``), the two autograd
+    pairs, and ``TiledArray`` on the ``data=2, model=2`` mesh."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_local_mesh
+    cfg = get_config(payload["arch"], tiny=True)
+    mesh22 = make_local_mesh(data=2, model=2)
+    mesh14 = make_local_mesh(model=4)
+    meshes = {(2, 2): mesh22, (1, 4): mesh14}
+    out: dict = {"grads": {
+        "2x2": _sp_grads(mesh22, cfg, payload["params"], payload["batch"]),
+        "1x4": _sp_grads(mesh14, cfg, payload["params"], payload["batch"]),
+        "1x4 plain": _sp_grads(mesh14, cfg, payload["params"],
+                               payload["batch"], sp=False)}}
+    out["cases"] = {}
+    for case in payload["cases"]:
+        c = cfg if case.get("d_ff") is None else \
+            dataclasses.replace(cfg, d_ff=case["d_ff"])
+        out["cases"][case["key"]] = _tp_trajectory(
+            meshes[tuple(case["mesh"])], c,
+            dict(case, params=case.get("params", payload["params"])))
+    out["pairs"] = {2: _sp_pairs(mesh22), 4: _sp_pairs(mesh14)}
+    out["tiled"] = _tiled(mesh22, payload["tiled"])
+    dist.barrier()
+    return out
+
+
+def _tanh_stage(w, x):
+    """The reference test's stage: ``tanh(x @ W)``."""
+    import torch
+    return torch.tanh(x @ w)
+
+
+def _sequential(ws, x):
+    import torch
+    for s in range(ws.shape[0]):
+        x = torch.tanh(x @ ws[s])
+    return x
+
+
+def _gpipe_case(mesh, ws_np, x_np, own_slice: bool = False) -> dict:
+    """The reference test's program on the stage mesh: the outputs and
+    the gradient of ``mean(y ** 2)`` with respect to the stacked weights
+    (each rank's slice, gathered over the stage group) and to the input,
+    beside a sequential loop's on the same tensors."""
+    import torch
+
+    from repro_torch.core import collectives, pipeline
+    ws, x = torch.from_numpy(ws_np), torch.from_numpy(x_np)
+    s = mesh.stage_rank
+    fn = pipeline.make_pipeline_fn(_tanh_stage, mesh)
+    w = (ws[s:s + 1] if own_slice else ws).clone().requires_grad_(True)
+    xg = x.clone().requires_grad_(True)
+    y = fn(w, xg)
+    (y ** 2).mean().backward()
+    gw = w.grad if own_slice else w.grad[s:s + 1]
+    wr = ws.clone().requires_grad_(True)
+    xr = x.clone().requires_grad_(True)
+    ref = _sequential(wr, xr)
+    (ref ** 2).mean().backward()
+    return {"y": y.detach().numpy(), "seq_y": ref.detach().numpy(),
+            "grad": collectives.all_gather(gw, mesh,
+                                           mesh_axis="stage").numpy(),
+            "seq_grad": wr.grad.numpy(), "x_grad": xg.grad.numpy(),
+            "seq_x_grad": xr.grad.numpy(),
+            "others_zero": bool(own_slice or not any(
+                w.grad[k].any() for k in range(ws.shape[0]) if k != s))}
+
+
+def _block_stage(cfg):
+    def stage_fn(p, x):
+        import torch.utils._pytree as pytree
+
+        from repro_torch.models import blocks
+        for i in range(p["ln_attn"]["w"].shape[0]):
+            x = blocks.tblock_apply(x, pytree.tree_map(lambda t: t[i], p),
+                                    cfg)[0]
+        return x
+    return stage_fn
+
+
+def _block_pipeline(mesh, payload) -> dict:
+    """GPipe over tiny qwen3-4b decoder blocks: each stage applies its
+    ``[S, L, ...]`` slice's L layers with ``tblock_apply``; the outputs
+    and the gradient of ``mean(y ** 2)`` with respect to every stage
+    leaf, gathered over the stage group."""
+    import torch
+    import torch.utils._pytree as pytree
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import collectives, pipeline
+    cfg = get_config(payload["arch"], tiny=True)
+    s = mesh.stage_rank
+    stack = pytree.tree_map(
+        lambda a: torch.from_numpy(a[s:s + 1]).requires_grad_(True),
+        payload["blocks"])
+    fn = pipeline.make_pipeline_fn(_block_stage(cfg), mesh)
+    y = fn(stack, torch.from_numpy(payload["block_x"]))
+    (y ** 2).mean().backward()
+    grads = pytree.tree_map(
+        lambda t: collectives.all_gather(t.grad, mesh,
+                                         mesh_axis="stage").numpy(), stack)
+    return {"y": y.detach().numpy(), "grads": grads}
+
+
+def job_pipeline(rank: int, n: int, payload: dict) -> dict:
+    """The GPipe checks of ``tests/test_torch_pipeline.py`` on a stage
+    mesh of the world's ``n`` ranks: the reference test's program at
+    each ``payload["micro"]`` count (the global stack, and at the first
+    count each rank's own slice), the decoder-block pipeline, and
+    ``pipeline_shift``'s backward."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import collectives
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh((n,), ("stage",))
+    ws = payload["ws"]
+    out = {"layout": {"coords": dict(mesh.coords),
+                      "stage_ranks": mesh.stage_ranks,
+                      "shape": dict(mesh.shape)}}
+    out["gpipe"] = {m: _gpipe_case(mesh, ws, x) for m, x in
+                    payload["micro"].items()}
+    m0 = next(iter(payload["micro"]))
+    out["own_slice"] = _gpipe_case(mesh, ws, payload["micro"][m0],
+                                   own_slice=True)
+    out["blocks"] = _block_pipeline(mesh, payload)
+    x = torch.from_numpy(seeded((3, 5), 40 + rank)).requires_grad_(True)
+    y = collectives.pipeline_shift(x, mesh, mesh_axis="stage")
+    y.backward(torch.from_numpy(seeded((3, 5), 50 + rank)))
+    out["shift"] = {"y": y.detach().numpy(), "grad": x.grad.numpy()}
+    dist.barrier()
+    return out
+
+
 JOBS = {"trajectories": job_trajectories, "collectives": job_collectives,
-        "tensor_parallel": job_tensor_parallel}
+        "tensor_parallel": job_tensor_parallel,
+        "seq_parallel": job_seq_parallel, "pipeline": job_pipeline}
 
 
 # -- fault hooks (shipped to worker ranks by reference) -----------------------
