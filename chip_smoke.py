@@ -166,7 +166,22 @@ without the final ``{"ok": true, ...}`` line:
    rank; in the four-rank session (f) the GPipe example's program on a
    stage mesh of 4 (d=256, ``tanh(x @ W)``, microbatches of 32): the
    bubble and ms a microbatch at 1-16 microbatches, 10 training steps,
-   outputs and gathered gradients against a sequential loop;
+   outputs and gathered gradients against a sequential loop; and
+   serving over a mesh in the same two sessions: (i) ``Session.serve``'s
+   wave loop at ``data=2`` (all 36 layers, one wave of 8, 4 rows a rank:
+   K1 36 a rank, no model-axis call, the tokens counted against the serve
+   phase's), (j) a single stream at ``data=2`` whose cache is tiled by
+   sequence (272 of 544 positions a rank; the prefill and 8 decode
+   logits at 4 layers within 1e-2 mean relative error of one process's,
+   then one request at 36 layers, K1 36 a rank, the dp all-reduces a
+   step), (l) the gateway at ``model=2`` (36 layers, ``serve_stream``)
+   and at ``data=2`` (6 layers), each with K1 8 x layers a rank, every
+   refill a page hit, every page reclaimed on both ranks, each rank's
+   parked bytes (half at ``model=2``) and two streams held bit for bit
+   against a plain greedy loop on the same ranks, (m) zamba2-2.7b's wave
+   loop at ``data=2`` (6 layers, K1 1 and K2 6 a rank), and in the
+   four-rank session (k) the wave loop at ``data=2, model=2`` (4 layers,
+   K1 4 a rank, both wires busy, the tokens equal on every rank);
 13. where the time goes: one prefill (at the wave's batch, and at batch 1
    but for whisper-medium) and one decode step of each served
    configuration (xlstm-350m's at ``PROFILE_LAYERS``), one plain and one
@@ -232,6 +247,7 @@ from repro_torch.data.pipeline import (  # noqa: E402
 from repro_torch.core.paging import InferenceCache  # noqa: E402
 from repro_torch.frontend import Plan  # noqa: E402
 from repro_torch.frontend import gateway  # noqa: E402
+from repro_torch.frontend import mesh as mesh_serve  # noqa: E402
 from repro_torch.frontend.gateway import RequestQueue  # noqa: E402
 from repro_torch.kernels import KERNELS, build  # noqa: E402
 from repro_torch.launch.mesh import make_local_mesh, make_mesh  # noqa: E402
@@ -505,6 +521,21 @@ TP_SERVE_ATTN = (SERVE["slots"], _TRAIN_CFG.n_heads // 2,
                  _TRAIN_CFG.n_kv_heads // 2, SERVE["prompt_len"],
                  _TRAIN_CFG.head_dim, torch.bfloat16, True, None)
 TP_TRAIN_ATTN = (TRAIN["batch"], *TP_SERVE_ATTN[1:])
+# the gateway's batch-1 prefill on a rank's heads at model=2
+TP_B1_ATTN = (1, *TP_SERVE_ATTN[1:])
+# serving over a mesh (ROADMAP item 14b, part 3), inside the model-axis
+# phase's two worlds: in the two-rank one (i) the wave loop at data=2
+# (qwen3-4b at all 36 layers, MESH_SERVE: one wave of 8, 4 rows a rank),
+# (j) a single stream at data=2, its cache tiled by sequence over the dp
+# group (the prefill and TP_DECODE_STEPS decode steps' logits at
+# TP_LAYERS against one process's, then one request at all 36 layers),
+# (l) the gateway (serve_stream) at model=2 at all 36 layers, then at
+# data=2 at MESH_GATEWAY_LAYERS, each with GATEWAY_ORACLE held against a
+# plain greedy loop on the same ranks, (m) zamba2-2.7b's wave loop at
+# data=2 at STREAM_LAYERS; in the four-rank one (k) the wave loop at
+# data=2, model=2 at TP_LAYERS
+MESH_SERVE = dict(requests=8, slots=8, prompt_len=512, gen_len=32)
+MESH_GATEWAY_LAYERS = 6
 # the model axis, part 2 (ROADMAP item 14b): (e) sequence parallelism
 # in the model=2 session, (h) TiledArray there, (g) GPipe over qwen3-4b
 # decoder blocks at full width on a stage mesh of that session's 2 ranks
@@ -534,6 +565,7 @@ FA_CASES = [
     WHISPER_TRAIN_DEC_ATTN,
     TP_SERVE_ATTN,
     TP_TRAIN_ATTN,
+    TP_B1_ATTN,
     (2, 8, 2, 200, 128, torch.bfloat16, True, None),      # ragged S
     (1, 32, 32, 256, 96, torch.bfloat16, True, None),     # d=96 (phi3)
     (2, 4, 2, 256, 32, torch.float32, True, None),        # d=32 f32 (tiny)
@@ -545,7 +577,7 @@ FA_CASES = [
     (2, 4, 4, 100, 80, torch.bfloat16, True, None),       # d=80, ragged S
     (1, 8, 8, 512, 80, torch.bfloat16, True, 128),        # d=80, window
 ]
-FA_TIMED = 15           # the first FA_TIMED cases are timed
+FA_TIMED = 16           # the first FA_TIMED cases are timed
 # K2 tolerances of tests/test_kernels.py's sweep, as atol and rtol
 SCAN_TOL = {torch.float32: 2e-4, torch.bfloat16: 6e-2}
 # (B, H, G, L, P, N, chunk, dtype), G the groups of Bm, Cm: zamba2-2.7b's
@@ -3328,13 +3360,13 @@ def tp_oracle_train(plan_kw: dict, stream, n_steps: int) -> dict:
     return out
 
 
-def tp_oracle_logits(plan_kw: dict) -> dict:
-    """The one-process prefill (SERVE's slots and prompt length, seeded
-    prompts) and ``TP_DECODE_STEPS`` greedy decode steps of ``plan_kw``:
-    the prompts, the greedy tokens fed at each decode step and each
-    step's last-position logits (float32, on the CPU)."""
+def tp_oracle_logits(plan_kw: dict, slots: int = SERVE["slots"]) -> dict:
+    """The one-process prefill (``slots`` rows of SERVE's prompt length,
+    seeded prompts) and ``TP_DECODE_STEPS`` greedy decode steps of
+    ``plan_kw``: the prompts, the greedy tokens fed at each decode step
+    and each step's last-position logits (float32, on the CPU)."""
     cfg = Plan(**plan_kw).config()
-    slots, prompt_len = SERVE["slots"], SERVE["prompt_len"]
+    prompt_len = SERVE["prompt_len"]
     shape = {"seq_len": prompt_len + TP_DECODE_STEPS, "global_batch": slots}
     pre = steps.make_prefill_step(cfg, shape)
     dec = steps.make_decode_step(cfg, shape)
@@ -3714,6 +3746,391 @@ def _gpipe_example(ex: dict, fails: list) -> dict:
     return {r: {k: v for k, v in x.items()} for r, x in ex.items()}
 
 
+def stream_rank(spec: dict, endpoint=None, driver=None) -> dict:
+    """(j) on this rank of a data=2 mesh (module level: the worker runs it
+    too): a single stream (batch 1) whose decode cache is tiled by
+    sequence over the dp group.  At ``spec["plan"]``'s depth, the prefill
+    and the decode steps teacher-forced with the oracle's tokens, each
+    step's logits kept (rank 0) and this rank's cache positions; then one
+    request of ``spec["full"]`` (all the layers) through the wave loop
+    (``frontend.mesh.serve_loop``)."""
+    plan, lg = spec["plan"], spec["logits"]
+    mesh = make_local_mesh(data=plan.data, model=plan.model, pod=plan.pod)
+    cfg = plan.config()
+    prompts, toks = lg["prompts"], lg["tokens"]
+    shape = {"seq_len": prompts.shape[1] + len(toks), "global_batch": 1}
+    pre = steps.make_prefill_step(cfg, shape, mesh=mesh)
+    dec = steps.make_decode_step(cfg, shape, mesh=mesh)
+    params = pre.init(torch.Generator(device="cuda").manual_seed(plan.seed),
+                      "cuda")
+    got = []
+    torch.cuda.synchronize()
+    _zero_counts()
+    collectives.reset_stats()
+    with torch.no_grad():
+        logits, cache = pre.fn(params, {"tokens": prompts.cuda()})
+        got.append(pre.gather_logits(logits).float().cpu())
+        positions = cache[0]["k"].shape[1]
+        for t, tok in enumerate(toks):
+            logits, cache = dec.fn(params, cache,
+                                   {"tokens": tok.cuda()[:, None]},
+                                   prompts.shape[1] + t)
+            got.append(dec.gather_logits(logits).float().cpu())
+    torch.cuda.synchronize()
+    out = {"logits": got if mesh.rank == 0 else None,
+           "positions": positions, "launches": _counts(),
+           "wire": collectives.stats()}
+    del pre, dec, params, cache
+    torch.cuda.empty_cache()
+    full = mesh_serve.serve_loop(dict(spec["full"], requests=1, slots=1))
+    out["full"] = {k: full[k] for k in (
+        "launches", "wire", "prefill_s", "decode_s", "cache_shapes",
+        "generated", "tokens_per_s")}
+    torch.cuda.empty_cache()
+    return out
+
+
+def gateway_run(runtime, prompts, arrivals, kw: dict):
+    """Rank 0's gateway run for ``frontend.mesh.rank_serve_stream`` (the
+    driver of a mesh plan other than the session's): ``prompts`` arriving
+    at ``arrivals`` rounds through a ``RequestQueue``, every device body
+    through the lockstep."""
+    def run(pre, dec, params, lockstep):
+        gw = gateway.Gateway(runtime, prefill_step=pre, decode_step=dec,
+                             params=params, device="cuda",
+                             lockstep=lockstep, **kw)
+        q = RequestQueue()
+        for p, r in zip(prompts, arrivals):
+            q.submit(p, at_round=r)
+        q.close()
+        t0 = time.perf_counter()
+        out = gw.run(q)
+        torch.cuda.synchronize()
+        out["seconds"] = time.perf_counter() - t0
+        out["serve"] = dict(runtime.stats().serve)
+        return out
+    return run
+
+
+def gateway_oracle_rank(spec: dict, endpoint=None, driver=None) -> dict:
+    """A plain greedy loop on this rank of the gateway's mesh (module
+    level: every rank runs it): for each ``(prompt, slot)`` of
+    ``spec["oracle"]``, the batch-1 prefill on this rank's blocks, its
+    state written into row ``slot`` of a zero decode cache where that row
+    is this rank's, then the ``slots``-wide decode step on this rank's
+    rows, the other rows' tokens zero, per-row positions, the greedy
+    tokens gathered over the dp group.  Returns the token streams."""
+    plan = spec["plan"]
+    mesh = make_local_mesh(data=plan.data, model=plan.model, pod=plan.pod)
+    P, G, slots = spec["prompt_len"], spec["gen_len"], spec["slots"]
+    pre, dec = mesh_serve.stream_steps(plan.config(), mesh, P, G, slots)
+    params = pre.init(torch.Generator(device="cuda").manual_seed(plan.seed),
+                      "cuda")
+    rows = dec.rows
+    streams = []
+    with torch.no_grad():
+        for prompt, slot in spec["oracle"]:
+            toks = torch.as_tensor(np.asarray(prompt, np.int64),
+                                   device="cuda")[None]
+            lg, state = pre.fn(params, {"tokens": toks})
+            carry = init_params(dec.cache_specs, None, "cuda")
+            if rows.start <= slot < rows.stop:
+                for c, st, sp in zip(
+                        pytree.tree_leaves(carry), pytree.tree_leaves(state),
+                        pytree.tree_leaves(dec.cache_specs,
+                                           is_leaf=is_spec)):
+                    ax = sp.dims.index("batch")
+                    c.select(ax, slot - rows.start).copy_(st.select(ax, 0))
+            stream = [int(pre.greedy(lg)[0])]
+            tok = torch.zeros((slots, 1), dtype=torch.int64, device="cuda")
+            for t in range(G):
+                tok[slot, 0] = stream[-1]
+                pos = torch.full((slots,), P, dtype=torch.int64,
+                                 device="cuda")
+                pos[slot] = P + t
+                lg, carry = dec.fn(params, carry, {"tokens": tok[rows]},
+                                   pos[rows])
+                nxt = dec.gather_rows(dec.greedy(lg))
+                stream.append(int(nxt[slot]))
+            streams.append(stream)
+    del params, pre, dec
+    torch.cuda.empty_cache()
+    return {"streams": streams}
+
+
+def _mesh_gateway_checks(name: str, res: dict, others: dict, layers: int,
+                         whole_bytes: int, share: int, fails: list) -> None:
+    """(l)'s checks of one gateway run: completion, every refill a page
+    hit, no recompute, every page reclaimed on every rank, K1 once a
+    layer and request on every rank, each rank's parked bytes."""
+    n = len(GATEWAY_ARRIVALS)
+    serve, cache = res["serve"], res["cache"]
+    if not (res["completed"] == n and serve["refills"] == serve["page_hits"]
+            and serve.get("prefill_recompute", 0) == 0
+            and cache["pages_live"] == 0):
+        fails.append(f"{name}: completed {res['completed']}, serve {serve}, "
+                     f"cache {cache}")
+    ranks = {0: res, **others}
+    for r, rec in ranks.items():
+        want = dict.fromkeys(rec["launches"], 0)
+        want["flash_attention"] = n * layers
+        if rec["launches"] != want:
+            fails.append(f"{name} rank {r}: launches {rec['launches']} "
+                         f"(want {want})")
+        if rec["request_bytes"] != whole_bytes // share:
+            fails.append(f"{name} rank {r}: {rec['request_bytes']} B parked "
+                         f"a request, want {whole_bytes} / {share}")
+        if r and (rec["cache"]["pages_live"] or rec["cache"]["cache_entries"]
+                  or rec["cache"]["page_allocs"]
+                  != rec["cache"]["page_frees"]):
+            fails.append(f"{name} rank {r}: pages left {rec['cache']}")
+
+
+def _b1_cache_bytes(cfg) -> int:
+    """One request's whole batch-1 decode state (one process's)."""
+    pre = steps.make_prefill_step(cfg, {
+        "seq_len": SERVE["prompt_len"] + SERVE["gen_len"],
+        "global_batch": 1})
+    return sum(sp.size * sp.dtype.itemsize for sp in pytree.tree_leaves(
+        pre.cache_specs, is_leaf=is_spec))
+
+
+def _mesh_serve_line(name: str, rec: dict) -> str:
+    pre = " ".join(f"{1e3 * x:.1f}" for x in rec["prefill_s"])
+    dec = sorted(1e3 * x for x in rec["decode_s"])
+    return (f"{name}: {rec['tokens_per_s']:.1f} tok/s, prefill {pre} ms, "
+            f"decode step median {dec[len(dec) // 2]:.1f} ms (min "
+            f"{dec[0]:.1f}, max {dec[-1]:.1f}); {_tp_wire(rec['wire'])}; K1 "
+            f"{rec['launches']['flash_attention']}, K2 "
+            f"{rec['launches']['mamba2_chunk_scan']}")
+
+
+def mesh_serving(session, counts: dict, fails: list) -> dict:
+    """(i), (j), (l) and (m) in the two-rank session (ROADMAP item 14b,
+    part 3): each through ``Session.run_ranks`` with a plan of its own, but
+    (l) at model=2, which is the session's ``serve_stream``.  Returns the
+    readings."""
+    cfg = get_config("qwen3-4b")
+    full = cfg.n_layers
+    out: dict = {}
+    print(f"CUT the gateway at data=2 to {MESH_GATEWAY_LAYERS}, zamba2-2.7b "
+          f"to {STREAM_LAYERS['zamba2-2.7b']} and data=2, model=2 to "
+          f"{TP_LAYERS} layers: the phase's time")
+    # (i) the wave loop at data=2
+    phase(f"serving over a mesh: (i) the wave loop at data=2, {cfg.name} "
+          f"at all {full} layers, one wave of {MESH_SERVE['slots']}")
+    t0 = time.perf_counter()
+    d2 = Plan(arch=cfg.name, tiny=False, data=2, device="cuda")
+    res = session.run_ranks(mesh_serve.rank_serve, dict(
+        MESH_SERVE, plan=d2, prompts=None, params=None))
+    out["i_s"] = time.perf_counter() - t0
+    gen = res[0]["generated"][0]
+    ref = SERVE_TOKENS.get(cfg.name)
+    same = None if ref is None else int((gen == ref).sum())
+    for r in (0, 1):
+        rec = res[r]
+        counts[f"mesh_serve_i_L{r}"] = rec["launches"]
+        _tp_launches(f"(i) rank {r}", rec["launches"], full, 0, fails)
+        if rec["wire"]["axes"]["model"]["calls"]:
+            fails.append(f"(i) rank {r}: the model axis made calls")
+        if not torch.equal(rec["generated"][0], gen):
+            fails.append(f"(i) rank {r}'s gathered tokens differ")
+    if gen.shape != (MESH_SERVE["slots"], MESH_SERVE["gen_len"] + 1) or \
+            int(gen.min()) < 0 or int(gen.max()) >= cfg.vocab:
+        fails.append(f"(i) tokens {tuple(gen.shape)} out of range")
+    for r in (0, 1):
+        print(_mesh_serve_line(f"(i) data=2 rank {r}", res[r]))
+    print(f"(i) tokens equal to the one-process serve phase's: {same} of "
+          f"{gen.numel()}")
+    out["i"] = {r: {k: res[r][k] for k in ("tokens_per_s", "prefill_s",
+                                           "decode_s", "wire")}
+                for r in (0, 1)}
+    out["i"]["same_tokens"] = same
+    torch.cuda.empty_cache()
+
+    # (j) the single stream, its cache tiled over data
+    phase(f"serving over a mesh: (j) a single stream at data=2, the cache "
+          f"tiled by sequence: logits at {TP_LAYERS} layers against one "
+          f"process, then one request at {full}")
+    t0 = time.perf_counter()
+    want = tp_oracle_logits(TP_TRAIN, slots=1)
+    res = session.run_ranks(stream_rank, {
+        "plan": Plan(**TP_TRAIN, data=2, device="cuda"),
+        "logits": {"prompts": want["prompts"], "tokens": want["tokens"]},
+        "full": dict(MESH_SERVE, plan=d2, prompts=None, params=None)})
+    out["j_s"] = time.perf_counter() - t0
+    got = res[0]["logits"]
+    rel = [mean_rel_err(g, w) for g, w in zip(got, want["logits"])]
+    if len(got) != TP_DECODE_STEPS + 1 or max(rel) > TP_LOGIT_MEAN_REL_TOL:
+        fails.append(f"(j) logits mean rel err {rel}")
+    S = MESH_SERVE["prompt_len"] + MESH_SERVE["gen_len"]
+    S_lg = SERVE["prompt_len"] + TP_DECODE_STEPS
+    for r in (0, 1):
+        rec = res[r]
+        counts[f"mesh_stream_lg_L{r}"] = rec["launches"]
+        _tp_launches(f"(j) logits rank {r}", rec["launches"], TP_LAYERS, 0,
+                     fails)
+        counts[f"mesh_stream_L{r}"] = rec["full"]["launches"]
+        _tp_launches(f"(j) rank {r}", rec["full"]["launches"], full, 0,
+                     fails)
+        k_shape = rec["full"]["cache_shapes"][0]
+        if rec["positions"] != S_lg // 2 or k_shape[1] != S // 2:
+            fails.append(f"(j) rank {r} holds {rec['positions']} of {S_lg} "
+                         f"and {k_shape} of {S} positions")
+    dec_steps = len(res[0]["full"]["decode_s"])
+    per_step = res[0]["full"]["wire"]["axes"]["dp"]["calls"] / dec_steps
+    print(f"(j) logits, prefill then {TP_DECODE_STEPS} decode steps at "
+          f"{TP_LAYERS} layers: mean rel err "
+          f"{' '.join(f'{x:.3g}' for x in rel)} (tolerance "
+          f"{TP_LOGIT_MEAN_REL_TOL:g}); {_tp_wire(res[0]['wire'])}")
+    for r in (0, 1):
+        print(f"(j) rank {r} holds {res[r]['full']['cache_shapes'][0][1]} "
+              f"of {S} positions; " + _mesh_serve_line(
+                  f"one request at {full} layers", res[r]["full"]))
+    print(f"(j) dp all-reduces a decode step: {per_step:.1f} ({full} "
+          f"layers; softmax_combine's 3 a layer)")
+    out["j"] = {"logits_mean_rel_err": rel, "dp_calls_per_step": per_step,
+                **{r: {k: res[r]["full"][k] for k in (
+                    "tokens_per_s", "prefill_s", "decode_s", "wire")}
+                   for r in (0, 1)}}
+    torch.cuda.empty_cache()
+
+    # (l) the gateway at model=2 (the session's serve_stream), then data=2
+    trace = [{"at_round": r} for r in GATEWAY_ARRIVALS]
+    kw = dict(prompt_len=SERVE["prompt_len"], gen_len=SERVE["gen_len"],
+              slots=SERVE["slots"])
+    whole = _b1_cache_bytes(cfg)
+    phase(f"serving over a mesh: (l) the gateway at model=2, {cfg.name} at "
+          f"all {full} layers, {len(GATEWAY_ARRIVALS)} requests")
+    t0 = time.perf_counter()
+    gw = session.serve_stream(trace=trace, verbose=False, **kw)
+    session._gateway = None
+    gw["serve"] = gw["runtime_stats"]["serve"]
+    handles = {h.rid: h for h in gw["handles"]}
+    oracle = session.run_ranks(gateway_oracle_rank, dict(
+        kw, plan=session.plan, oracle=[(handles[r].prompt, handles[r]._slot)
+                                       for r in GATEWAY_ORACLE]))
+    out["l_s"] = time.perf_counter() - t0
+    for r in (0, 1):
+        counts[f"mesh_gateway_m2_L{r}"] = (gw if r == 0 else
+                                           gw["localities"][r])["launches"]
+    _mesh_gateway_checks("(l) model=2", gw, gw["localities"], full, whole, 2,
+                         fails)
+    same_m2 = [oracle[0]["streams"][i] == gw["streams"][r]
+               for i, r in enumerate(GATEWAY_ORACLE)]
+    if not all(same_m2):
+        fails.append(f"(l) model=2: oracle streams differ {same_m2}")
+    print(f"(l) model=2: {gw['tokens_per_s']:.1f} tok/s, {gw['rounds']} "
+          f"rounds, {gw['epochs']} epochs, {gw['commands']} commands; page "
+          f"hits {gw['serve']['page_hits']}/{gw['serve']['refills']}; "
+          f"parked a request {gw['request_bytes']} B a rank of {whole}; "
+          f"oracle {dict(zip(GATEWAY_ORACLE, same_m2))}; "
+          f"{_tp_wire(gw['wire'])}")
+    out["l_m2"] = {"tokens_per_s": gw["tokens_per_s"],
+                   "rounds": gw["rounds"], "commands": gw["commands"],
+                   "request_bytes": gw["request_bytes"],
+                   "wire": {0: gw["wire"], 1: gw["localities"][1]["wire"]}}
+    torch.cuda.empty_cache()
+
+    L = MESH_GATEWAY_LAYERS
+    phase(f"serving over a mesh: (l) the gateway at data=2, {cfg.name} at "
+          f"{L} of {full} layers")
+    t0 = time.perf_counter()
+    d2g = Plan(arch=cfg.name, tiny=False, data=2, device="cuda",
+               overrides={"n_layers": L})
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, SERVE["prompt_len"]).astype(
+        np.int32) for _ in GATEWAY_ARRIVALS]
+    res = session.run_ranks(
+        mesh_serve.rank_serve_stream,
+        dict(kw, plan=d2g, page_bytes=PAGE_BYTES, params=None),
+        driver=gateway_run(session.runtime, prompts, GATEWAY_ARRIVALS, kw))
+    gd = res[0]
+    handles = {h.rid: h for h in gd["handles"]}
+    oracle = session.run_ranks(gateway_oracle_rank, dict(
+        kw, plan=d2g, oracle=[(handles[r].prompt, handles[r]._slot)
+                              for r in GATEWAY_ORACLE]))
+    out["l_d2_s"] = time.perf_counter() - t0
+    for r in (0, 1):
+        counts[f"mesh_gateway_d2_L{r}"] = res[r]["launches"]
+    _mesh_gateway_checks("(l) data=2", gd, {1: res[1]}, L,
+                         _b1_cache_bytes(d2g.config()), 1, fails)
+    same_d2 = [oracle[0]["streams"][i] == gd["streams"][r]
+               for i, r in enumerate(GATEWAY_ORACLE)]
+    if not all(same_d2):
+        fails.append(f"(l) data=2: oracle streams differ {same_d2}")
+    tokens = sum(len(s) - 1 for s in gd["streams"].values())
+    print(f"(l) data=2: {tokens / gd['seconds']:.1f} tok/s, {gd['rounds']} "
+          f"rounds, {gd['epochs']} epochs, {gd['commands']} commands; page "
+          f"hits {gd['serve']['page_hits']}/{gd['serve']['refills']} "
+          f"(the session's counters); parked a request "
+          f"{gd['request_bytes']} B a rank; oracle "
+          f"{dict(zip(GATEWAY_ORACLE, same_d2))}; {_tp_wire(gd['wire'])}")
+    out["l_d2"] = {"tokens_per_s": tokens / gd["seconds"],
+                   "rounds": gd["rounds"], "commands": gd["commands"],
+                   "request_bytes": gd["request_bytes"],
+                   "wire": {0: gd["wire"], 1: res[1]["wire"]}}
+    torch.cuda.empty_cache()
+
+    # (m) zamba2-2.7b at data=2
+    zl = STREAM_LAYERS["zamba2-2.7b"]
+    phase(f"serving over a mesh: (m) zamba2-2.7b's wave loop at data=2, "
+          f"{zl} layers, one wave of {MESH_SERVE['slots']}")
+    t0 = time.perf_counter()
+    zp = Plan(arch="zamba2-2.7b", tiny=False, data=2, device="cuda",
+              overrides={"n_layers": zl})
+    res = session.run_ranks(mesh_serve.rank_serve, dict(
+        MESH_SERVE, plan=zp, prompts=None, params=None))
+    out["m_s"] = time.perf_counter() - t0
+    zcfg = zp.config()
+    want_l = prefill_launches(zcfg)
+    for r in (0, 1):
+        rec = res[r]
+        counts[f"mesh_serve_m_L{r}"] = rec["launches"]
+        if rec["launches"] != want_l:
+            fails.append(f"(m) rank {r}: launches {rec['launches']} (want "
+                         f"{want_l})")
+        g = rec["generated"][0]
+        if g.shape != (MESH_SERVE["slots"], MESH_SERVE["gen_len"] + 1) or \
+                int(g.min()) < 0 or int(g.max()) >= zcfg.vocab:
+            fails.append(f"(m) rank {r}: tokens out of range")
+        print(_mesh_serve_line(f"(m) zamba2-2.7b data=2 rank {r}", rec))
+    out["m"] = {r: {k: res[r][k] for k in ("tokens_per_s", "prefill_s",
+                                           "decode_s", "wire")}
+                for r in (0, 1)}
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_serving_d2m2(session, counts: dict, fails: list) -> dict:
+    """(k) in the four-rank session: the wave loop at data=2, model=2
+    (qwen3-4b at TP_LAYERS, one wave of 8: 4 rows a dp rank, half the
+    heads a model rank)."""
+    phase(f"serving over a mesh: (k) the wave loop at data=2, model=2, "
+          f"qwen3-4b at {TP_LAYERS} layers, one wave of "
+          f"{MESH_SERVE['slots']}")
+    t0 = time.perf_counter()
+    res = session.run_ranks(mesh_serve.rank_serve, dict(
+        MESH_SERVE, plan=Plan(**TP_TRAIN, data=2, model=2, device="cuda"),
+        prompts=None, params=None))
+    secs = time.perf_counter() - t0
+    gen = res[0]["generated"][0]
+    for r in range(4):
+        rec = res[r]
+        counts[f"mesh_serve_k_L{r}"] = rec["launches"]
+        _tp_launches(f"(k) rank {r}", rec["launches"], TP_LAYERS, 0, fails)
+        ax = rec["wire"]["axes"]
+        if not (ax["dp"]["calls"] and ax["model"]["calls"]):
+            fails.append(f"(k) rank {r}: dp or model wire idle {ax}")
+        if not torch.equal(rec["generated"][0], gen):
+            fails.append(f"(k) rank {r}'s tokens differ from rank 0's")
+        print(_mesh_serve_line(f"(k) data=2, model=2 rank {r}", rec))
+    if gen.shape != (MESH_SERVE["slots"], MESH_SERVE["gen_len"] + 1):
+        fails.append(f"(k) tokens {tuple(gen.shape)}")
+    return {"s": secs, **{r: {k: res[r][k] for k in (
+        "tokens_per_s", "prefill_s", "decode_s", "wire")} for r in range(4)}}
+
+
 def model_axis() -> tuple[dict, dict]:
     """The model axis on the one card (ROADMAP item 14b, part 1):
     qwen3-4b at full width, random weights from seed 0, one repeated 8 x
@@ -3730,8 +4147,11 @@ def model_axis() -> tuple[dict, dict]:
     not held: bf16 near-ties may flip).  Then a ``Plan(data=2, model=2)``
     session of four ranks: (d) one phylanx step at ``TP_D2_LAYERS``
     layers against its oracle, the unsplit leaves bit-identical on all
-    four, K1 4 / 2 a rank.  No world is left and the workers are reaped.
-    Returns the counts by run and the readings."""
+    four, K1 4 / 2 a rank.  Serving over a mesh (ROADMAP item 14b, part
+    3) runs in the same two worlds: (i), (j), (l) and (m) in the first
+    (``mesh_serving``), (k) in the second (``mesh_serving_d2m2``).  No
+    world is left and the workers are reaped.  Returns the counts by run
+    and the readings."""
     cfg = Plan(**TP_TRAIN).config()
     full = get_config(cfg.name).n_layers
     stream = RepeatStream(stream_for(cfg, batch=TRAIN["batch"],
@@ -3776,6 +4196,8 @@ def model_axis() -> tuple[dict, dict]:
         served = session.serve(**SERVE)
         counts["tp_serve_L0"] = _counts()
         serve_s = time.perf_counter() - t1
+        torch.cuda.empty_cache()
+        mesh_readings = mesh_serving(session, counts, fails)
     world_left = torch.distributed.is_initialized()
     reaped = _reaped(pids)
     counts["tp_serve_L1"] = served["localities"][1]["launches"]
@@ -3836,6 +4258,8 @@ def model_axis() -> tuple[dict, dict]:
         t1 = time.perf_counter()
         ex = session.run_ranks(gpipe_example_rank, {})
         ex_s = time.perf_counter() - t1
+        torch.cuda.empty_cache()
+        mesh_readings["k"] = mesh_serving_d2m2(session, counts, fails)
     world_left = torch.distributed.is_initialized()
     reaped = _reaped(pids)
     d2_held = {}
@@ -3926,7 +4350,7 @@ def model_axis() -> tuple[dict, dict]:
         "d2": {r: dict(d2_held[r], **{k: d2[r]["train"][k] for k in (
             "losses", "grad_norms", "step_ms", "wire")}) for r in range(4)},
         "part2_s": part2_s, "gpipe_example_s": ex_s, **part2_readings,
-        "gpipe_example": ex_readings}
+        "gpipe_example": ex_readings, "mesh_serving": mesh_readings}
     return counts, readings
 
 
@@ -4672,12 +5096,12 @@ def main() -> int:
         print_phase_times()
         return 0
     if sys.argv[1:] == ["--model-axis-only"]:
-        # the model-axis phase alone, after K1 at its sharded shapes and
-        # the one-process qwen3-4b serve whose tokens it counts (its
-        # readings, no kernels line)
+        # the model-axis phase alone, serving over a mesh included, after
+        # K1 at its sharded shapes and the one-process qwen3-4b serve
+        # whose tokens it counts (its readings, no kernels line)
         phase("K1 at the model axis's shapes against its plain versions")
         check_kernels(torch.Generator(device="cuda").manual_seed(0),
-                      [TP_SERVE_ATTN, TP_TRAIN_ATTN], 2)
+                      [TP_SERVE_ATTN, TP_TRAIN_ATTN, TP_B1_ATTN], 3)
         check_fa_bwd(torch.Generator(device="cuda").manual_seed(0),
                      [TP_TRAIN_ATTN], 1)
         serve_full("qwen3-4b")
@@ -4879,6 +5303,7 @@ def main() -> int:
                             for k, v in fa[12].items()}
     fa_tp_serve = {f"tp_serve_{k}": v for k, v in fa[13].items()}
     fa_tp_train = {f"tp_train_{k}": v for k, v in fa[14].items()}
+    fa_tp_b1 = {f"tp_serve_b1_{k}": v for k, v in fa[15].items()}
     bwd_b8 = {f"train_b8_{k}": v for k, v in fa_bwd[1].items()}
     bwd_d80 = {f"zamba_train_{k}": v for k, v in fa_bwd[2].items()}
     bwd_d96 = {f"phi3_d96_{k}": v for k, v in fa_bwd[3].items()}
@@ -4897,7 +5322,7 @@ def main() -> int:
               **fa_b8, **fa_zamba_b8, **fa_b1, **fa_zamba_b1, **fa_moe,
               **fa_moe_b1, **fa_moe_b8, **fa_whisper_enc, **fa_whisper_dec,
               **fa_whisper_train_enc, **fa_whisper_train_dec, **fa_tp_serve,
-              **fa_tp_train),
+              **fa_tp_train, **fa_tp_b1),
         entry("flash_attention_bwd",
               "src/repro_torch/csrc/flash_attention.cu", None, fa_bwd[0],
               **bwd_b8, **bwd_d80, **bwd_d96, **bwd_moe, **bwd_whisper,

@@ -7,8 +7,14 @@ Counterpart: ``repro/core/collectives.py`` (``fused_psum``,
 ``shard_map``, these take the port's ``launch.mesh.Mesh`` and the axis
 they run over: ``"dp"`` (the default: the ``pod`` and ``data`` axes, the
 mesh's dp process group), ``"model"`` (its model group, the row of
-ranks that share one dp rank) or ``"stage"`` (the stage group of a GPipe
-mesh); ``axis_of`` maps the reference's axis names onto these.  Every
+ranks that share one dp rank), ``"stage"`` (the stage group of a GPipe
+mesh) or ``"mesh"`` (every rank of the mesh, data-major: where the
+reference names ``("data", "model")``); on a mesh with pods also
+``"data"`` (a pod's ``data`` axis) and ``"pod"`` (a pod's ranks: its
+``("data", "model")``).  ``axis_of`` maps the reference's axis names
+onto these.  ``broadcast_object`` sends a picklable value
+from the group's first rank to the others (the gateway's command
+stream).  Every
 rank of the group calls the same collectives in the same order with its
 own local tensors (gloo), and gets what the reference's body gets on its
 device.
@@ -48,15 +54,15 @@ import torch.utils._pytree as pytree
 
 from . import fusion
 
-__all__ = ["AXES", "all_gather", "all_gather_seq", "all_reduce",
-           "axis_of", "copy_to_model", "fused_pmean", "fused_psum",
+__all__ = ["AXES", "all_gather", "all_gather_seq", "all_reduce", "axis_of",
+           "broadcast_object", "copy_to_model", "fused_pmean", "fused_psum",
            "halo_exchange", "naive_psum", "pipeline_shift", "pmean",
            "ppermute", "reduce_from_model", "reduce_scatter",
            "reduce_scatter_seq", "reset_stats", "ring_all_reduce",
            "softmax_combine", "stats"]
 
 #: the axes a collective runs over
-AXES = ("dp", "model", "stage")
+AXES = ("dp", "model", "stage", "mesh", "data", "pod")
 
 _KEYS = {"calls": 0, "bytes": 0, "hops": 0, "wire_s": 0.0,
          "staging_s": 0.0, "staged_bytes": 0}
@@ -89,21 +95,32 @@ def _check(axis: str) -> None:
 def axis_of(mesh, name) -> str:
     """The collectives axis of the reference's mesh axis ``name`` (a
     name or a tuple of names; the ones absent from ``mesh`` are
-    dropped): ``"dp"`` for the ``pod`` and ``data`` axes, ``"model"``,
-    ``"stage"``.
+    dropped, and a tuple's axes of size 1 add nothing): ``"dp"`` for the
+    ``pod`` and ``data`` axes, ``"model"``, ``"stage"``, ``"mesh"`` for
+    every axis > 1 of a dp and model mesh (``("data", "model")``), and on
+    a mesh with pods ``"data"`` and ``"pod"`` for ``data`` and
+    ``("data", "model")`` within a pod.
 
     Raises:
-        NotImplementedError: ``name`` leaves out a dp axis > 1 (the port
-            has one dp group over both), or spans two groups.
+        NotImplementedError: ``name`` spans groups that the mesh does not
+            have (``pod`` without ``data``, or with ``model``).
     """
     names = (name,) if isinstance(name, str) else tuple(name)
     names = tuple(a for a in names if a in mesh.shape)
     if names in (("model",), ("stage",)):
         return names[0]
-    big = {a for a in ("pod", "data") if mesh.shape.get(a, 1) > 1} \
-        if set(names) <= {"pod", "data"} else None
-    if big is not None and big <= set(names):
+    sized = {a for a in names if mesh.shape[a] > 1}
+    big = {a for a, n in mesh.shape.items() if n > 1}
+    if sized == {"model"}:
+        return "model"
+    if sized <= {"pod", "data"} and big & {"pod", "data"} <= sized:
         return "dp"
+    if "stage" not in big and sized == big:
+        return "mesh"
+    if "pod" in big and sized == {"data"}:
+        return "data"
+    if "pod" in big and sized == {"data", "model"}:
+        return "pod"
     raise NotImplementedError(f"mesh axes {names} as one process group of "
                               f"the mesh {mesh.shape}")
 
@@ -113,12 +130,14 @@ def _size(mesh, axis: str = "dp") -> int:
     if mesh is None:
         return 1
     return {"dp": mesh.dp_size, "model": mesh.model_size,
-            "stage": mesh.stage_size}[axis]
+            "stage": mesh.stage_size, "mesh": mesh.world_size,
+            "data": len(mesh.data_ranks), "pod": len(mesh.pod_ranks)}[axis]
 
 
 def _group(mesh, axis: str):
     return {"dp": mesh.group, "model": mesh.model_group,
-            "stage": mesh.stage_group}[axis]
+            "stage": mesh.stage_group, "mesh": mesh.world_group,
+            "data": mesh.data_group, "pod": mesh.pod_group}[axis]
 
 
 def _index(mesh, axis: str) -> int:
@@ -126,12 +145,16 @@ def _index(mesh, axis: str) -> int:
     if mesh is None:
         return 0
     return {"dp": mesh.rank, "model": mesh.model_rank,
-            "stage": mesh.stage_rank}[axis]
+            "stage": mesh.stage_rank, "mesh": mesh.world_rank,
+            "data": mesh.coords.get("data", 0),
+            "pod": mesh.coords.get("data", 0) * mesh.model_size
+            + mesh.model_rank}[axis]
 
 
 def _world_ranks(mesh, axis: str) -> tuple:
     return {"dp": mesh.ranks, "model": mesh.model_ranks,
-            "stage": mesh.stage_ranks}[axis]
+            "stage": mesh.stage_ranks, "mesh": mesh.world_ranks,
+            "data": mesh.data_ranks, "pod": mesh.pod_ranks}[axis]
 
 
 def _host(t: torch.Tensor, slot: str, axis: str) -> torch.Tensor:
@@ -212,6 +235,27 @@ def all_gather(x: torch.Tensor, mesh, *, axis: int = 0, tiled: bool = True,
           h.numel() * h.element_size(), mesh_axis)
     full = torch.cat(outs, dim=axis) if tiled else torch.stack(outs)
     return _back(full, x, mesh_axis)
+
+
+def broadcast_object(obj, mesh, *, mesh_axis: str = "mesh"):
+    """The first ``mesh_axis`` rank's picklable ``obj`` on every rank of
+    the group (the others pass anything, None by convention): its length,
+    then its pickled bytes, from the host."""
+    if _size(mesh, mesh_axis) == 1:
+        return obj
+    import pickle
+
+    import torch.distributed as dist
+    group, src = _group(mesh, mesh_axis), _world_ranks(mesh, mesh_axis)[0]
+    first = _index(mesh, mesh_axis) == 0
+    blob = pickle.dumps(obj) if first else b""
+    n = torch.tensor([len(blob)], dtype=torch.int64)
+    _wire(lambda: dist.broadcast(n, src=src, group=group), 8, mesh_axis)
+    buf = torch.frombuffer(bytearray(blob), dtype=torch.uint8) if first \
+        else torch.empty(int(n), dtype=torch.uint8)
+    _wire(lambda: dist.broadcast(buf, src=src, group=group), int(n),
+          mesh_axis)
+    return obj if first else pickle.loads(buf.numpy().tobytes())
 
 
 def ppermute(x: torch.Tensor, mesh, perm, *,

@@ -22,7 +22,12 @@ then keeps this rank's block, one leaf at a time.
 The activation hook (``act_hook``) is where the model's layers learn the
 mesh: a step installs ``(mesh, rules)`` around its call, and the layers
 read it through ``model_axis()``, which says per logical dim whether it
-is split over the model group, and which block this rank holds.  Under
+is split over the model group, and which block this rank holds.  The
+decode cache's tiling is one view for every mesh (``act_axis()``, with
+or without a model axis): ``ModelAxis.tiles`` names the group a cache
+dim lies on (``model``, the dp group or the whole mesh, as the rules put
+``kv_seq`` on ``model``, ``data`` or ``("data", "model")``), this
+rank's index in it and its block, the same block ``local_specs`` cuts.  Under
 sequence parallelism (``default_rules(sequence_parallel=True)``: ``seq``
 on ``model``) the train step also tells it the residual's global
 sequence length, and the hook says whether the residual between blocks
@@ -48,11 +53,11 @@ from typing import Any, Mapping, Sequence
 import torch
 import torch.utils._pytree as pytree
 
-__all__ = ["DEFAULT_RULES", "ModelAxis", "ParamSpec", "ShardingRules",
-           "act_hook", "default_rules", "gather_leaf", "gather_tree",
-           "init_params", "initialize", "is_spec", "local_slices",
-           "local_specs", "model_axis", "model_sharded", "set_act_hook",
-           "shard_leaf", "shard_tree", "spec_for"]
+__all__ = ["DEFAULT_RULES", "ModelAxis", "ParamSpec", "ShardingRules", "Tiles",
+           "act_axis", "act_hook", "default_rules", "gather_leaf",
+           "gather_tree", "init_params", "initialize", "is_spec",
+           "local_slices", "local_specs", "model_axis", "model_sharded",
+           "set_act_hook", "shard_leaf", "shard_tree", "spec_for"]
 
 #   batch      -> data-parallel axes ("pod","data")
 #   seq        -> sequence; sharded only under sequence parallelism
@@ -295,6 +300,19 @@ def init_params(specs, generator: torch.Generator, device, *, mesh=None,
 # The activation hook: where the layers learn the model axis
 # ---------------------------------------------------------------------------
 @dataclasses.dataclass(frozen=True)
+class Tiles:
+    """Where one split dim of global size ``n`` lives: over the
+    collectives ``axis`` (``"model"``, ``"dp"`` or ``"mesh"``) of
+    ``mesh``, whose reference axes are ``axes``, ``size`` ranks; this
+    rank's ``block``."""
+    mesh: Any
+    axis: str
+    axes: tuple
+    size: int
+    block: slice
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelAxis:
     """A layer's view of the mesh's model axis: ``size`` ranks, this one
     at ``index``, the tiling ``rules``, the serve steps' global decode
@@ -335,6 +353,21 @@ class ModelAxis:
         k = self.size
         return slice(self.index * n // k, (self.index + 1) * n // k)
 
+    def tiles(self, dim: str, n) -> "Tiles | None":
+        """Where the cache dim ``dim`` of global size ``n`` lives, by the
+        rules (``spec_for``'s fallback); None where every rank holds it
+        whole, or ``n`` is None."""
+        if n is None:
+            return None
+        from . import collectives
+        spec = spec_for(self.mesh, self.rules, (n,), (dim,))
+        if not spec:
+            return None
+        axes = _parts(spec)[0]
+        return Tiles(self.mesh, collectives.axis_of(self.mesh, axes), axes,
+                     math.prod(self.mesh.shape[a] for a in axes),
+                     local_slices(self.mesh, self.rules, (n,), (dim,))[0])
+
 
 _ACT_HOOK: list = [None]
 
@@ -372,6 +405,12 @@ class act_hook:
 
     def __exit__(self, *exc):
         _ACT_HOOK[0] = self.prev
+
+
+def act_axis() -> ModelAxis | None:
+    """The installed hook, whatever the model axis's size (None: no
+    hook): the decode cache's tiling over data axes (``tiles``)."""
+    return _ACT_HOOK[0]
 
 
 def model_axis() -> ModelAxis | None:

@@ -26,7 +26,11 @@ whose use depends on its rank (``model.partial_mask``: ``q_norm``,
 ``k_norm``, and a replicated ``wk``/``wv``/``bk``/``bv``), exchanges over
 its column's dp group on its own blocks, and takes the global gradient
 norm over the model group (``optim.global_norm``).  The serve steps tile
-the KV cache by ``decode_rules``.  ``sequence_parallel`` installs the
+the KV cache by ``decode_rules`` on any mesh: each dp rank serves its
+rows of the batch (``ServeStep.rows``, gathered back by
+``ServeStep.gather_rows``), and a single stream (batch 1) tiles its
+cache by sequence over ``data`` or the whole mesh, every family on data
+axes, the dense family on a model axis.  ``sequence_parallel`` installs the
 reference's ``default_rules(sequence_parallel=True)``: where the batch's
 sequence divides by the model axis (and the vocab splits, as the loss
 needs), the residual between blocks holds each rank's ``S/M`` rows
@@ -52,8 +56,8 @@ import torch.utils._pytree as pytree
 from . import collectives, fusion, overlap
 from .granularity import GrainPolicy
 from .sharding import ModelAxis, ParamSpec, act_hook, default_rules, \
-    gather_tree, init_params, is_spec, local_specs, model_sharded, \
-    shard_tree
+    gather_tree, init_params, is_spec, local_slices, local_specs, \
+    model_sharded, shard_tree
 from ..models import layers
 from ..models.model import build_model
 from ..optim import compression
@@ -629,11 +633,22 @@ class ServeStep:
     cache_specs: Any            # this rank's cache blocks (local shapes)
     mesh: Any = None
     rules: Any = None           # ``decode_rules``
+    batch: int = 1              # the global batch (slots)
 
     def init(self, generator: torch.Generator, device):
         """The serve parameters (this rank's blocks on a model axis)."""
         return init_params(self.specs, generator, device, mesh=self.mesh,
                            rules=self.rules)
+
+    @property
+    def rows(self) -> slice:
+        """This rank's rows of the global batch: its dp block where the
+        rules split ``batch`` (``spec_for``'s fallback: every row where
+        the batch does not divide by the dp degree)."""
+        if self.mesh is None:
+            return slice(0, self.batch)
+        return local_slices(self.mesh, self.rules, (self.batch,),
+                            ("batch",))[0]
 
     def greedy(self, logits):
         """The greedy tokens of this step's logits (over the model group's
@@ -647,20 +662,27 @@ class ServeStep:
         with act_hook(self.mesh, self.rules):
             return layers.gather_vocab(logits, self.model.cfg.vocab)
 
+    def gather_rows(self, x):
+        """Every row of the global batch of a tensor whose dim 0 is this
+        rank's ``rows`` (a collective over the dp group where the rules
+        split the batch; ``x`` itself where they do not)."""
+        if self.rows.stop - self.rows.start == self.batch:
+            return x
+        return collectives.all_gather(x.contiguous(), self.mesh, axis=0)
 
-def _serve_step(cfg, shape: dict, mesh, body) -> ServeStep:
+
+def _serve_step(cfg, shape: dict, mesh, body, rules=None) -> ServeStep:
     scfg = _serve_cfg(cfg)
     model = build_model(scfg)
     S = shape["seq_len"]
-    split = mesh is not None and mesh.model_size > 1
-    if split:
+    if mesh is not None and mesh.model_size > 1:
         refused = model_axis_refusal(scfg, None)
         if refused:
             raise NotImplementedError(f"the port does not run {refused} "
                                       f"yet")
-    rules = decode_rules(scfg, mesh, shape)
+    rules = rules or decode_rules(scfg, mesh, shape)
     cache = model.cache_specs(shape["global_batch"], S)
-    if split:
+    if mesh is not None and mesh.world_size > 1:
         cache = local_specs(cache, mesh, rules)
 
     def fn(*args):
@@ -668,18 +690,22 @@ def _serve_step(cfg, shape: dict, mesh, body) -> ServeStep:
             return body(model, S, *args)
 
     return ServeStep(fn=fn, model=model, specs=model.specs(),
-                     cache_specs=cache, mesh=mesh, rules=rules)
+                     cache_specs=cache, mesh=mesh, rules=rules,
+                     batch=shape["global_batch"])
 
 
-def make_prefill_step(cfg, shape: dict, *, mesh=None) -> ServeStep:
+def make_prefill_step(cfg, shape: dict, *, mesh=None,
+                      rules=None) -> ServeStep:
     """``fn(params, batch) -> (last-token logits, cache)``; the cache is
     padded to ``shape["seq_len"]``.  ``batch`` holds ``"tokens"``, and for
-    the encdec family also the encoder's ``"frames"``.  On a ``mesh``
-    with a model axis: this rank's vocab columns of the logits and its
-    blocks of the cache (``decode_rules``)."""
+    the encdec family also the encoder's ``"frames"``.  On a ``mesh``:
+    ``batch`` is this rank's ``rows`` of the global batch, and the step
+    gives this rank's vocab columns of their logits (a model axis) and
+    its blocks of the cache (``decode_rules``, or ``rules``: the
+    gateway's batch-1 prefill tiles its cache as the decode step's)."""
     return _serve_step(cfg, shape, mesh,
                        lambda model, S, params, batch:
-                       model.prefill(params, batch, S))
+                       model.prefill(params, batch, S), rules)
 
 
 def make_decode_step(cfg, shape: dict, *, mesh=None) -> ServeStep:
@@ -687,7 +713,7 @@ def make_decode_step(cfg, shape: dict, *, mesh=None) -> ServeStep:
     updated in place and returned: this stands in for JAX's
     ``donate_argnums=(1,)``, so the caller must not reuse the cache it
     passed in as the state before the step.  On a ``mesh``, as
-    ``make_prefill_step``."""
+    ``make_prefill_step``; a ``[B]`` ``pos`` is this rank's rows'."""
     return _serve_step(cfg, shape, mesh,
                        lambda model, S, params, cache, batch, pos:
                        model.decode_step(params, cache, batch, pos))

@@ -7,9 +7,9 @@ Counterpart: ``repro/frontend/cli.py`` (``cli_args``, ``plan_from_args``,
 ``--ddp-shards``, ``--elastic``, ``--elastic-port`` and ``--replicas``
 map onto the plan, and so do the mesh flags ``--data``, ``--model`` and
 ``--pod`` (``--data 2 --model 2`` trains on four rank processes, the
-dense family's layers split over each pair; ``--model 2`` serves on
-two).  ``launch/train.py``'s ``--ckpt`` maps onto
-``Plan.ckpt_dir``.
+dense family's layers split over each pair; ``--model 2`` or ``--data
+2`` serves on two, through either loop).  ``launch/train.py``'s
+``--ckpt`` maps onto ``Plan.ckpt_dir``.
 """
 from __future__ import annotations
 
@@ -39,7 +39,7 @@ def cli_args(ap: Optional[argparse.ArgumentParser] = None
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--data", type=int, default=1,
                     help="the mesh's data axis: rank processes, each "
-                         "training its rows of the batch")
+                         "training (or serving) its rows of the batch")
     ap.add_argument("--model", type=int, default=1,
                     help="the mesh's model axis: rank processes that split "
                          "the dense family's layers (tensor parallelism)")

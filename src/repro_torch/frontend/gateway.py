@@ -54,7 +54,21 @@ in for JAX's buffer donation), so the refill and decode nodes of a replica
 form one chain and no node keeps a cache it passed on.  Token streams are
 bit-identical across co-tenancy and replica counts: prefill is batch 1 and
 decode is row-independent (masked per-row cache writes, per-row masks and
-argmax), so a request's stream depends only on its prompt.
+greedy tokens), so a request's stream depends only on its prompt.
+
+On a mesh (``Session.serve_stream`` of a mesh session) the gateway runs
+on rank 0 with its control flow unchanged, as the reference's runs on one
+controller (``repro/frontend/gateway.py:370-600``, which parks host
+arrays and ``device_put``s the refilled carry to the decode step's
+shardings).  Its device bodies (``DeviceBodies``: the batch-1 prefill,
+the refill's fresh carry and row writes, the decode round, the page
+drops) go through a ``lockstep`` (``frontend/mesh.Lockstep``) that first
+sends each body's command to the other ranks, which run the same body on
+their blocks (``frontend/mesh.rank_serve_stream``).  Each rank parks the
+blocks of a request's state that the decode cache tiles onto it along
+every dim but ``batch`` (a request's slot, so its dp rank, is chosen only
+at refill), decodes its rows of the batch and gathers the greedy tokens
+of every row over the dp group, so that rank 0 emits every row.
 """
 from __future__ import annotations
 
@@ -73,8 +87,8 @@ from ..core.futures import FuturizedGraph, Lane
 from ..core.paging import InferenceCache, PagePool
 from ..core.sharding import init_params, is_spec
 
-__all__ = ["DeadlineExpired", "Gateway", "ReplicaRouter", "RequestHandle",
-           "RequestQueue", "RequestRejected"]
+__all__ = ["DeadlineExpired", "DeviceBodies", "Gateway", "ReplicaRouter",
+           "RequestHandle", "RequestQueue", "RequestRejected"]
 
 
 class RequestRejected(RuntimeError):
@@ -332,6 +346,72 @@ def _write_rows(carry, state, specs, slot: int):
             _write_rows(c, s, sp, slot)
 
 
+def _adopt(cache: InferenceCache, others, rid: str):
+    """``rid``'s parked state from ``cache``, or else moved into it from the
+    first of ``others`` that holds it (a request that migrated off a dead
+    replica): (the state or None, whether it was moved)."""
+    state = cache.get(rid)
+    if state is not None:
+        return state, False
+    for other in others:
+        if rid in other:
+            other.transfer(rid, cache)
+            return cache.get(rid), True
+    return None, False
+
+
+class DeviceBodies:
+    """The gateway's device bodies on one rank's blocks: the batch-1
+    prefill ``pre`` (whose cache is tiled as ``dec``'s along every dim
+    but ``batch``), and the ``slots``-wide decode ``dec`` on this rank's
+    ``rows`` of the batch (every row in one process).  The carry is
+    ``(tok, cache)``: every slot's token ``[slots, 1]``, this rank's
+    cache blocks."""
+
+    def __init__(self, pre, dec, params, device, slots: int):
+        self.pre, self.dec, self.params = pre, dec, params
+        self.device = torch.device(device)
+        self.slots = slots
+        self.rows = dec.rows
+
+    def prefill(self, prompt):
+        """Batch-1 prefill of one prompt: (first token, decode state on
+        the device)."""
+        toks = torch.from_numpy(np.asarray(prompt, np.int64))[None, :]
+        logits, cache1 = self.pre.fn(self.params,
+                                     {"tokens": toks.to(self.device)})
+        return int(self.pre.greedy(logits)[0]), cache1
+
+    @staticmethod
+    def park(state):
+        """A prefill's decode state as host tensors, for the pages."""
+        return pytree.tree_map(lambda t: t.cpu(), state)
+
+    def fresh_carry(self):
+        cache = init_params(self.dec.cache_specs, None, self.device)
+        tok = torch.zeros((self.slots, 1), dtype=torch.int64,
+                          device=self.device)
+        return tok, cache
+
+    def write_row(self, cache, state, slot: int):
+        """A parked state into slot ``slot`` of the carry's cache, where
+        that slot is one of this rank's rows."""
+        if self.rows.start <= slot < self.rows.stop:
+            _write_rows(cache, state, self.dec.cache_specs,
+                        slot - self.rows.start)
+
+    def decode(self, carry, pos):
+        """One decode round of this rank's rows at per-slot positions
+        ``pos`` (int64 ``[slots]``): (every slot's greedy token, the
+        cache)."""
+        tok, cache = carry
+        r = self.rows
+        pos = torch.from_numpy(pos[r]).to(self.device, non_blocking=True)
+        logits, cache = self.dec.fn(self.params, cache, {"tokens": tok[r]},
+                                    pos)
+        return self.dec.gather_rows(self.dec.greedy(logits)[:, None]), cache
+
+
 class Gateway:
     """The continuous-batching loop (one ``run()`` per instance).
 
@@ -348,7 +428,8 @@ class Gateway:
     locality through ``distributed`` (a ``distrib.DistributedGraph``);
     homes default to cycling over the live worker ranks, then the driver.
     ``kill_replica_at_round`` is the deterministic replica-death drill;
-    ``kill_replica()`` is the live one.
+    ``kill_replica()`` is the live one.  ``lockstep`` (rank 0 of a mesh)
+    runs every device body after sending its command to the other ranks.
 
     Raises:
         ValueError: ``gen_len`` or ``replicas`` below 1, or ``homes`` not
@@ -362,7 +443,8 @@ class Gateway:
                  deadline_ms: Optional[float] = None,
                  page_bytes: int = 1 << 16, lookahead: int = 2,
                  replicas: int = 1, homes: Optional[list[int]] = None,
-                 kill_replica_at_round: Optional[tuple] = None):
+                 kill_replica_at_round: Optional[tuple] = None,
+                 lockstep=None):
         if gen_len < 1:
             raise ValueError("gen_len must be >= 1")
         if replicas < 1:
@@ -373,6 +455,9 @@ class Gateway:
         self.dec = decode_step
         self.params = params
         self.device = torch.device(device)
+        self.lockstep = lockstep
+        self.bodies = DeviceBodies(prefill_step, decode_step, params,
+                                   device, slots)
         self.prompt_len = prompt_len
         self.gen_len = gen_len
         self.slots = slots
@@ -447,13 +532,20 @@ class Gateway:
         return rep
 
 
-    def _prefill_once(self, prompt):
+    def _on_device(self, cmd: tuple, body, *args):
+        """Run a device body; on a mesh, after sending its command to the
+        other ranks (``lockstep``)."""
+        if self.lockstep is None:
+            return body(*args)
+        return self.lockstep.run(cmd, body, *args)
+
+    def _prefill_once(self, prompt, rid: Optional[str] = None,
+                      replica: Optional[int] = None):
         """Batch-1 prefill of one prompt: (first token, decode state on the
         device)."""
-        toks = torch.from_numpy(np.asarray(prompt, np.int64))[None, :]
-        logits, cache1 = self.pre.fn(self.params,
-                                     {"tokens": toks.to(self.device)})
-        return int(logits.argmax(-1)[0]), cache1
+        return self._on_device(("prefill", rid, replica,
+                                np.asarray(prompt)),
+                               self.bodies.prefill, prompt)
 
     def _prefill_fn(self, h: RequestHandle):
         def prefill(arr):
@@ -462,8 +554,8 @@ class Gateway:
                                       dt_s=t0 - h.submit_t)
             if h.inject == "poison-prefill":
                 raise RuntimeError(f"injected prefill poison on {h.rid}")
-            first, cache1 = self._prefill_once(arr)
-            state = pytree.tree_map(lambda t: t.cpu(), cache1)
+            first, cache1 = self._prefill_once(arr, h.rid, h._replica)
+            state = self.bodies.park(cache1)
             self.runtime.record_serve(phase="prefill",
                                       dt_s=time.perf_counter() - t0)
             with self._lock:
@@ -479,7 +571,11 @@ class Gateway:
 
     def _drop_pages(self, rid: str):
         """Free ``rid``'s pages wherever they are parked (a migrated
-        request's pages may sit in its old replica's cache)."""
+        request's pages may sit in its old replica's cache), on every
+        rank."""
+        self._on_device(("drop", rid), self._drop_local, rid)
+
+    def _drop_local(self, rid: str):
         for rep in self.replicas:
             if rid in rep.icache:
                 rep.icache.drop(rid)
@@ -544,58 +640,55 @@ class Gateway:
         return True
 
     # -- device-side node bodies --------------------------------------------
-    def _fresh_carry(self):
-        cache = init_params(self.dec.cache_specs, None, self.device)
-        tok = torch.zeros((self.slots, 1), dtype=torch.int64,
-                          device=self.device)
-        return tok, cache
-
     def _recompute(self, rid: str):
         """Paged-cache miss fallback: rerun the prefill.  Never taken when
         the page accounting holds: the tests assert its counter is 0."""
-        first, cache1 = self._prefill_once(self._handles[rid].prompt)
+        first, cache1 = self.bodies.prefill(self._handles[rid].prompt)
         return cache1, first
 
     def _refill_fn(self, rep: _Replica, joins: tuple):
         def refill(carry, *firsts):
-            tok, cache = carry if carry is not None else self._fresh_carry()
-            # a new token tensor: the emit node of the round that made
-            # ``tok`` may not have read it yet
-            tok = tok.clone()
-            for (slot, rid), first in zip(joins, firsts):
-                with self._lock:
-                    state = rep.icache.get(rid)
-                    if state is None:
-                        # the pages may be parked under another replica
-                        # (this request migrated off a dead one): adopt
-                        # them - a fetch, never a recompute
-                        for other in self.replicas:
-                            if other is not rep and rid in other.icache:
-                                other.icache.transfer(rid, rep.icache)
-                                state = rep.icache.get(rid)
-                                self.runtime.record_serve(
-                                    cross_replica_page_fetches=1,
-                                    replica=rep.idx)
-                                break
-                if state is None:
-                    self.runtime.record_serve(prefill_recompute=1,
-                                              replica=rep.idx)
-                    state, first = self._recompute(rid)
-                else:
-                    self.runtime.record_serve(page_hits=1, replica=rep.idx)
-                # in place: the carry is this chain's own (the decode step
-                # that returned it has handed it on)
-                _write_rows(cache, state, self.dec.cache_specs, slot)
-                tok[slot, 0] = first
-                self.runtime.record_serve(refills=1, replica=rep.idx)
-            return tok, cache
+            cmd = ("refill", rep.idx, carry is None,
+                   tuple((slot, rid, int(first))
+                         for (slot, rid), first in zip(joins, firsts)))
+            return self._on_device(cmd, self._refill, rep, joins, carry,
+                                   firsts)
         return refill
 
-    def _decode_fn(self, carry, pos):
-        tok, cache = carry
-        pos = torch.from_numpy(pos).to(self.device, non_blocking=True)
-        logits, cache = self.dec.fn(self.params, cache, {"tokens": tok}, pos)
-        return logits.argmax(-1)[:, None], cache
+    def _refill(self, rep: _Replica, joins: tuple, carry, firsts):
+        tok, cache = carry if carry is not None \
+            else self.bodies.fresh_carry()
+        # a new token tensor: the emit node of the round that made
+        # ``tok`` may not have read it yet
+        tok = tok.clone()
+        for (slot, rid), first in zip(joins, firsts):
+            with self._lock:
+                # the pages may be parked under another replica (this
+                # request migrated off a dead one): adopt them - a fetch,
+                # never a recompute
+                state, fetched = _adopt(rep.icache, [
+                    o.icache for o in self.replicas if o is not rep], rid)
+            if fetched:
+                self.runtime.record_serve(cross_replica_page_fetches=1,
+                                          replica=rep.idx)
+            if state is None:
+                self.runtime.record_serve(prefill_recompute=1,
+                                          replica=rep.idx)
+                state, first = self._recompute(rid)
+            else:
+                self.runtime.record_serve(page_hits=1, replica=rep.idx)
+            # in place: the carry is this chain's own (the decode step
+            # that returned it has handed it on)
+            self.bodies.write_row(cache, state, slot)
+            tok[slot, 0] = first
+            self.runtime.record_serve(refills=1, replica=rep.idx)
+        return tok, cache
+
+    def _decode_fn(self, rep: _Replica):
+        def decode(carry, pos):
+            return self._on_device(("decode", rep.idx, pos),
+                                   self.bodies.decode, carry, pos)
+        return decode
 
     def _emit_fn(self, rep: _Replica, live_rows: tuple):
         def emit(carry, *_prev_emit):
@@ -848,7 +941,7 @@ class Gateway:
                         pos[s] = self.prompt_len \
                             + self._handles[rid]._emitted
                     rep.carry = runtime.defer(
-                        self._decode_fn, rep.carry, pos,
+                        self._decode_fn(rep), rep.carry, pos,
                         name=f"decode:{rep.ns}e{rep.epoch}:t{rep.j}")
                     emit_deps = (rep.carry,) if rep.prev_emit is None \
                         else (rep.carry, rep.prev_emit)

@@ -39,15 +39,18 @@ step (``core/steps.py``: the phylanx, horovod, zero1 and onebit
 strategies; a model axis > 1 splits the dense family's layers over each
 row of M ranks) in lockstep on every rank (``frontend/mesh.py``), with
 checkpoints in the reference's global layout and the
-``replay``/``replicate`` resilience modes.  ``serve`` on a mesh of
-``model=M`` runs the wave loop on every rank (``frontend/mesh.
-rank_serve``; it ignores ``Strategy.sequence_parallel``, as the
-reference's serve steps take ``decode_rules``, while ``train`` runs it).
+``replay``/``replicate`` resilience modes.  ``serve`` on any mesh runs
+the wave loop on every rank (``frontend/mesh.rank_serve``: each dp rank
+on its rows of every wave, a single stream's cache tiled by sequence as
+``decode_rules`` says; it ignores ``Strategy.sequence_parallel``, as the
+reference's serve steps take ``decode_rules``, while ``train`` runs it),
+and ``serve_stream`` runs the gateway on rank 0 with every other rank
+following its command stream (``frontend/mesh.rank_serve_stream``).
 What is still missing raises ``NotImplementedError`` naming the ROADMAP
 item that brings it: the model axis for the other families and for
-onebit, serving over a mesh with data axes, ``serve_stream`` over a
-mesh, and a mesh with SPMD mode, fabric localities or elastic membership
-(item 14b), the production meshes and named shapes (item 15).
+onebit, and a mesh with SPMD mode, fabric localities or elastic
+membership (item 14b), the production meshes and named shapes (item
+15).
 """
 from __future__ import annotations
 
@@ -71,7 +74,7 @@ from ..distrib.runtime import DistributedGraph
 from .ddp import DDPEngine
 from .futurize import Trace
 from .gateway import Gateway, RequestQueue
-from .mesh import rank_serve, rank_train
+from .mesh import rank_serve, rank_serve_stream, rank_train
 
 __all__ = ["Plan", "Session"]
 
@@ -458,18 +461,6 @@ class Session:
             if resilience not in ("replay", "replicate"):
                 raise ValueError(f"unknown resilience mode {resilience!r} "
                                  f"(none | replay | replicate)")
-
-    def _check_serve(self, stream: bool = False) -> None:
-        if self.mesh_ranks <= 1:
-            return
-        if stream:
-            raise NotImplementedError(
-                "serve_stream over a mesh (the gateway's paged cache tiled "
-                "over the mesh) is ROADMAP item 14b")
-        if self.plan.data * self.plan.pod > 1:
-            raise NotImplementedError(
-                "serving over a mesh with data axes (decode_rules' batch "
-                "and kv_seq over data) is ROADMAP item 14b")
 
     def _stream(self, stream):
         if stream is not None:
@@ -905,7 +896,6 @@ class Session:
             ``first_prefill_logits`` (wave 0's ``[slots, vocab]`` prefill
             logits on the CPU).
         """
-        self._check_serve()
         if self.mesh_ranks > 1:
             return self._serve_mesh(requests, prompt_len=prompt_len,
                                     gen_len=gen_len, slots=slots,
@@ -1037,10 +1027,11 @@ class Session:
 
     def _serve_mesh(self, requests, *, prompt_len, gen_len, slots, prompts,
                     verbose) -> dict:
-        """``serve`` on a mesh with a model axis: every rank runs
-        ``frontend.mesh.rank_serve`` on the same requests; the result is
-        rank 0's, with each worker's ``launches``, ``wire`` and
-        ``peak_bytes`` under ``localities``."""
+        """``serve`` on a mesh: every rank runs ``frontend.mesh.rank_serve``
+        on the same requests, each dp rank on its rows; the result is rank
+        0's (every row's tokens), with each worker's ``launches``,
+        ``wire``, ``peak_bytes``, ``tokens`` and ``cache_shapes`` under
+        ``localities``."""
         spec = {"plan": self.plan, "requests": requests,
                 "prompt_len": prompt_len, "gen_len": gen_len, "slots": slots,
                 "prompts": prompts, "params": self._serve_params,
@@ -1048,7 +1039,7 @@ class Session:
         done = self.run_ranks(rank_serve, spec)
         out = done.pop(0)
         out["localities"] = {r: {k: m.get(k) for k in (
-            "launches", "wire", "peak_bytes", "tokens")}
+            "launches", "wire", "peak_bytes", "tokens", "cache_shapes")}
             for r, m in sorted(done.items())}
         out["runtime_stats"] = self._stats_json(self.runtime.stats())
         if verbose:
@@ -1082,7 +1073,11 @@ class Session:
         host until a slot frees, so slot refill never recomputes prefill.
         At ``localities > 1`` each replica is homed on a locality (its
         requests' ``stack`` prep runs there) and a replica whose home dies
-        is retired, its requests absorbed by the survivors.
+        is retired, its requests absorbed by the survivors.  On a mesh
+        session the gateway runs here, as rank 0, and every other rank
+        runs its device bodies on its blocks in the order it sends them
+        (``frontend/mesh.rank_serve_stream``); the streams, statuses and
+        counters are the reference's on the same mesh.
 
         Args:
             requests: synthetic request count when neither ``trace`` nor
@@ -1115,22 +1110,19 @@ class Session:
             ``replicas``/``replica_assignments`` and ``runtime_stats``
             (including the ``serve``/``serve_replicas`` counters and
             ``request_latency_hist``, and ``distributed`` at
-            ``localities > 1``).
+            ``localities > 1``); on a mesh also ``launches``, ``wire``,
+            ``commands`` (sent to the other ranks), ``request_bytes`` (one
+            request's parked state on this rank) and ``localities`` (each
+            other rank's, with its page ``cache`` counters).
         Raises:
             ValueError: an encoder-decoder architecture.
         """
-        self._check_serve(stream=True)
         plan, runtime, cfg, dev = self.plan, self.runtime, self.cfg, self.device
         n_replicas = plan.replicas if replicas is None else int(replicas)
         if cfg.family == "encdec":
             raise ValueError("serve_stream does not support encdec "
                              "architectures (scalar-only decoder position "
                              "embedding); use serve()")
-        pre1 = self._serve_steps_for(prompt_len, gen_len, 1)[0]
-        dec = self._serve_steps_for(prompt_len, gen_len, slots)[1]
-        params = init_params(
-            pre1.specs, torch.Generator(device=dev).manual_seed(plan.seed), dev)
-
         if queue is None:
             q = RequestQueue()
             entries = trace if trace is not None \
@@ -1149,37 +1141,65 @@ class Session:
         else:
             q = queue
 
-        gw = Gateway(runtime, distributed=self.distributed,
-                     prefill_step=pre1, decode_step=dec, params=params,
-                     prompt_len=prompt_len, gen_len=gen_len, slots=slots,
-                     device=dev, max_inflight=max_inflight,
-                     deadline_ms=deadline_ms, page_bytes=page_bytes,
-                     replicas=n_replicas,
-                     kill_replica_at_round=kill_replica_at_round)
-        self._gateway = gw          # drill seam: tests call kill_replica()
-        tracer = Trace(runtime)
-        remove = runtime.add_trace_hook(tracer.record)
-        t0 = time.perf_counter()
-        try:
-            out = gw.run(q)
-            if dev.type == "cuda":            # honest timing: retire it all
-                torch.cuda.synchronize(dev)
-        finally:
-            remove()
-        dt = time.perf_counter() - t0
+        def run(pre1, dec, params, lockstep=None) -> dict:
+            # the gateway over one process's steps, or rank 0's of a mesh
+            # (its device bodies sent to the other ranks by ``lockstep``;
+            # a mesh's ranks are not localities to home replicas on)
+            gw = Gateway(runtime, distributed=None if lockstep is not None
+                         else self.distributed, prefill_step=pre1,
+                         decode_step=dec, params=params,
+                         prompt_len=prompt_len, gen_len=gen_len, slots=slots,
+                         device=dev, max_inflight=max_inflight,
+                         deadline_ms=deadline_ms, page_bytes=page_bytes,
+                         replicas=n_replicas,
+                         kill_replica_at_round=kill_replica_at_round,
+                         lockstep=lockstep)
+            self._gateway = gw      # drill seam: tests call kill_replica()
+            tracer = Trace(runtime)
+            remove = runtime.add_trace_hook(tracer.record)
+            t0 = time.perf_counter()
+            try:
+                out = gw.run(q)
+                if dev.type == "cuda":        # honest timing: retire it all
+                    torch.cuda.synchronize(dev)
+            finally:
+                remove()
+            out["seconds"] = time.perf_counter() - t0
+            out["nodes"], out["trace"] = tracer.names(), tracer.signature()
+            return out
+
+        if self.mesh_ranks > 1:
+            spec = {"plan": plan, "prompt_len": prompt_len,
+                    "gen_len": gen_len, "slots": slots,
+                    "page_bytes": page_bytes, "params": self._serve_params,
+                    "num_threads": torch.get_num_threads()}
+            done = self.run_ranks(rank_serve_stream, spec, driver=run)
+            out = done.pop(0)
+            out["localities"] = {r: {k: m.get(k) for k in (
+                "launches", "wire", "cache", "commands", "request_bytes")}
+                for r, m in sorted(done.items())}
+        else:
+            pre1 = self._serve_steps_for(prompt_len, gen_len, 1)[0]
+            dec = self._serve_steps_for(prompt_len, gen_len, slots)[1]
+            params = init_params(
+                pre1.specs, torch.Generator(device=dev).manual_seed(
+                    plan.seed), dev)
+            out = run(pre1, dec, params)
+        dt = out.pop("seconds")
         tokens = sum(max(0, len(h.tokens) - 1) for h in out["handles"])
         st = runtime.stats()
         out.update({
             "requests": q.submitted, "tokens": tokens,
             "padded_tokens": st.serve.get("padded_slot_tokens", 0),
             "tokens_per_s": tokens / dt if dt > 0 else 0.0,
-            "nodes": tracer.names(), "trace": tracer.signature(),
             "runtime_stats": self._stats_json(st),
         })
         if verbose:
             rep_note = (f" across {n_replicas} replicas"
                         if n_replicas > 1 else "")
-            print(f"[gateway] {q.submitted} requests{rep_note} "
+            mesh_note = (f" on a mesh of {self.mesh_ranks} ranks"
+                         if self.mesh_ranks > 1 else "")
+            print(f"[gateway] {q.submitted} requests{rep_note}{mesh_note} "
                   f"({out['completed']} done, {out['cancelled']} "
                   f"cancelled, {out['expired']} expired, "
                   f"{out['failed']} failed, {out['rejected']} rejected), "

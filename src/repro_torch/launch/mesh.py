@@ -16,8 +16,13 @@ rank processes, laid out as ``jax.make_mesh((..., D, M), (..., "data",
 world rank = dp rank * M + model coordinate.  Each row of M ranks is a
 model group (tensor parallelism: ``core/sharding.py`` places the
 parameters, the layers exchange over it), each column of D*P ranks a dp
-group.  The backend is ``gloo``, on the card too: NCCL refuses two ranks
-on one GPU, and every rank of a one-card run shares ``cuda:0``.  Compute
+group, and all D*P*M ranks, in that data-major order, the whole-mesh
+group: the one a ``NamedSharding`` over ``("data", "model")`` tiles a dim
+over (rank ``(d, m)`` holds block ``d * M + m``; the single stream's
+decode cache at ``kv_seq`` on ``("data", "model")``), and the gateway's
+command stream (``frontend/mesh.py``).  The backend is ``gloo``, on the
+card too: NCCL refuses two ranks on one GPU, and every rank of a
+one-card run shares ``cuda:0``.  Compute
 stays on the device; ``core/collectives.py`` stages CUDA tensors through
 pinned host buffers for the wire.  The production meshes are dryrun's,
 item 15.
@@ -69,6 +74,16 @@ class Mesh:
         stage_ranks: the world ranks of the stage group, by stage.
         stage_group: the stage process group (None when the stage axis
             is 1).
+        world_ranks: the world ranks of the whole mesh, data-major (mesh
+            order).
+        world_group: the whole-mesh process group (None at a mesh of 1
+            and on a stage mesh, whose stage group is the whole mesh).
+        data_ranks, data_group: with ``pod`` and ``data`` > 1, the ranks
+            of this rank's pod and model coordinate (its ``data`` axis
+            alone) and their group.
+        pod_ranks, pod_group: with ``pod``, ``data`` and ``model`` > 1,
+            the ranks of this rank's pod, data-major (its ``("data",
+            "model")``), and their group.
     """
     shape: dict
     rank: int = 0
@@ -79,6 +94,12 @@ class Mesh:
     model_group: Any = None
     stage_ranks: tuple = (0,)
     stage_group: Any = None
+    world_ranks: tuple = (0,)
+    world_group: Any = None
+    data_ranks: tuple = (0,)
+    data_group: Any = None
+    pod_ranks: tuple = (0,)
+    pod_group: Any = None
 
     @property
     def dp_size(self) -> int:
@@ -91,6 +112,16 @@ class Mesh:
     @property
     def model_rank(self) -> int:
         return self.coords.get("model", 0)
+
+    @property
+    def world_size(self) -> int:
+        """The ranks of the whole mesh (its dp and model axes)."""
+        return self.dp_size * self.model_size
+
+    @property
+    def world_rank(self) -> int:
+        """This rank's place in the whole mesh, data-major."""
+        return self.rank * self.model_size + self.model_rank
 
     @property
     def stage_size(self) -> int:
@@ -108,11 +139,13 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str], *,
 
     Every rank of the world calls this in the same order: it makes every
     dp group (one per model coordinate), every model group (one per dp
-    rank) and the stage group, in that fixed order, because ``new_group``
-    is collective over the whole world.  ``devices`` are the world ranks
-    of the mesh in mesh order (row-major, ``model`` fastest; default: the
-    whole world, whose size must then be the mesh's; at a mesh size of 1,
-    this process alone); a rank outside ``devices`` gets None.
+    rank), the stage group and the whole-mesh group, then at ``pod`` > 1
+    every pod's data groups and whole-pod groups, in that fixed order,
+    because ``new_group`` is collective over the whole world.
+    ``devices`` are the world ranks of the mesh in mesh order (row-major,
+    ``model`` fastest; default: the whole world, whose size must then be
+    the mesh's; at a mesh size of 1, this process alone); a rank outside
+    ``devices`` gets None.
 
     Raises:
         NotImplementedError: an axis the port does not know, or a
@@ -162,9 +195,21 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str], *,
     model_groups = [dist.new_group(ranks=list(r), backend="gloo",
                                    timeout=timeout) if nm > 1 else None
                     for r in rows]
+    # the stage group and the whole-mesh group: the same ranks
+    whole = dist.new_group(ranks=list(ranks), backend="gloo",
+                           timeout=timeout) if n > 1 else None
+    # a pod's own groups, where the reference names "data" or ("data",
+    # "model") on a mesh with pods
+    npod, data = sizes.get("pod", 1), sizes.get("data", 1)
+    per_pod = data * nm
+    data_sets = [tuple(ranks[p * per_pod + d * nm + c] for d in range(data))
+                 for p in range(npod) for c in range(nm)] \
+        if npod > 1 and data > 1 else []
+    pod_sets = [tuple(ranks[p * per_pod:(p + 1) * per_pod])
+                for p in range(npod)] if data_sets and nm > 1 else []
+    sub = {t: dist.new_group(ranks=list(t), backend="gloo", timeout=timeout)
+           for t in data_sets + pod_sets}
     if ns > 1:
-        stage_group = dist.new_group(ranks=list(ranks), backend="gloo",
-                                     timeout=timeout)
         if me not in ranks:
             return None
         s = ranks.index(me)
@@ -172,12 +217,11 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str], *,
         coords["stage"] = s
         return Mesh(shape=sizes, coords=coords, ranks=(me,),
                     model_ranks=(me,), stage_ranks=ranks,
-                    stage_group=stage_group)
+                    stage_group=whole)
     if me not in ranks:
         return None
     i = ranks.index(me)
     r, c = divmod(i, nm)
-    data = sizes.get("data", 1)
     coords = {a: 0 for a in axes}
     if "data" in coords:
         coords["data"] = r % data
@@ -185,9 +229,14 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str], *,
         coords["pod"] = r // data
     if "model" in coords:
         coords["model"] = c
+    mine = [t for t in data_sets if me in t] or [(me,)]
+    pod = [t for t in pod_sets if me in t] or [(me,)]
     return Mesh(shape=sizes, rank=r, coords=coords, ranks=cols[c],
                 group=dp_groups[c], model_ranks=rows[r],
-                model_group=model_groups[r])
+                model_group=model_groups[r], world_ranks=ranks,
+                world_group=whole, data_ranks=mine[0],
+                data_group=sub.get(mine[0]), pod_ranks=pod[0],
+                pod_group=sub.get(pod[0]))
 
 
 def make_production_mesh(*, multi_pod: bool = False):

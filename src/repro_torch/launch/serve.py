@@ -16,8 +16,13 @@ entry point:
   prep runs on its home; the model runs here), and ``--kill-replica-at
   IDX:ROUND`` runs the replica-death drill.
 
-``--model M`` runs the wave loop on M rank processes that split the
-dense family's layers (tensor parallelism, ``frontend/mesh.rank_serve``).
+``--data D``, ``--pod P`` and ``--model M`` run either loop on a mesh of
+D * P * M rank processes: the wave loop on every rank, each dp rank on
+its rows of every wave (a single stream, ``--slots 1``, tiles its cache
+by sequence over the mesh), M ranks splitting the dense family's layers
+(tensor parallelism, ``frontend/mesh.rank_serve``); the gateway on rank
+0, every other rank following its command stream
+(``frontend/mesh.rank_serve_stream``).
 ``--stats-out FILE`` writes the run summary as JSON.  Runs on the GPU
 unless ``--device cpu`` is given.
 
@@ -35,6 +40,11 @@ Examples:
       --prompt-len 16 --gen-len 4
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
       --model 2 --requests 5 --slots 2 --prompt-len 16 --gen-len 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --data 2 --requests 5 --slots 2 --prompt-len 16 --gen-len 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --serve-stream --model 2 --requests 5 --slots 2 --prompt-len 16 \
+      --gen-len 4
 """
 from __future__ import annotations
 

@@ -22,12 +22,17 @@ query heads (``wq``, ``wo`` split by heads) and its own kv heads when
 replicated and each rank picks the kv heads its query heads read,
 ``(r * H/M + i) // (H/Hkv)``, before K1, whose ``h // (H/Hkv)`` then maps
 its local heads right.  The decode cache is tiled as ``decode_rules``
-tiles it: by heads, or else by sequence (``kv_seq`` on the model axis):
-each rank holds the cache positions ``[r * S/M, (r+1) * S/M)`` of every
-kv head, attends its chunk with every query head (gathered over the
-model group, ``decode_partial``) and merges the partials exactly with
-``collectives.softmax_combine``; only the rank that owns ``pos`` writes
-the new k, v (``cache_update``'s ``offset``).  This is what the
+tiles it, on any mesh (``head_plan``'s ``seq``, the hook's ``tiles`` of
+``kv_seq``): by heads, or by sequence over the model group (``kv_seq`` on
+``model``), over the dp group (a single stream's cache on ``data``) or
+over the whole mesh (``("data", "model")``).  Each rank holds its block
+of cache positions, attends it (``decode_partial``: with every query
+head, gathered over the model group, where the group spans the model
+axis; else with its own) and merges the partials exactly over the group
+with ``collectives.softmax_combine``; only the rank that owns ``pos``
+writes the new k, v (``cache_update``'s ``offset``).  Prefill computes
+the whole sequence on every rank, as the reference's replicated
+activations do, and each rank keeps its block.  This is what the
 reference leaves to XLA (``repro/models/attention.py:229-251``).
 """
 from __future__ import annotations
@@ -39,7 +44,7 @@ from typing import Optional
 import torch
 
 from ..core import collectives
-from ..core.sharding import ModelAxis, ParamSpec, model_axis
+from ..core.sharding import ModelAxis, ParamSpec, Tiles, act_axis, model_axis
 from ..kernels.flash_attention import flash_attention
 from . import layers
 
@@ -94,17 +99,28 @@ def project_qkv(x, p, *, positions=None, rope_theta: float = 10000.0,
 # ---------------------------------------------------------------------------
 @dataclasses.dataclass(frozen=True)
 class HeadPlan:
-    """How one rank's attention splits over the model axis ``ax``:
-    ``heads`` (the query heads are split), ``kv`` (the kv heads are
-    split), ``pick`` (kv replicated: the kv heads this rank's query heads
-    read, in K1's grouping), ``seq`` (the decode cache is split by
-    position) and ``seq_block`` (this rank's cache positions)."""
-    ax: ModelAxis
+    """How one rank's attention splits over the mesh: over the model
+    axis ``ax`` (None: no model axis) ``heads`` (the query heads are
+    split), ``kv`` (the kv heads are split), ``pick`` (kv replicated: the
+    kv heads this rank's query heads read, in K1's grouping); and ``seq``,
+    the decode cache's ``kv_seq`` tiles (None: every rank holds every
+    position)."""
+    ax: Optional[ModelAxis]
     heads: bool
     kv: bool
     pick: Optional[tuple]
-    seq: bool
-    seq_block: slice
+    seq: Optional[Tiles]
+
+    @property
+    def seq_block(self) -> slice:
+        """This rank's cache positions."""
+        return self.seq.block
+
+    @property
+    def gather_q(self) -> bool:
+        """Whether a sequence-tiled decode attends with every query head:
+        the heads split over a model axis that the cache's group spans."""
+        return self.heads and "model" in self.seq.axes
 
     def pick_kv(self, k, v):
         """k, v ``[B, S, Hkv, hd]`` with all kv heads -> the heads this
@@ -120,13 +136,18 @@ class HeadPlan:
 
 def head_plan(n_heads: int, n_kv: int,
               cache_len: Optional[int] = None) -> Optional[HeadPlan]:
-    """The installed model axis's plan for ``n_heads`` query and ``n_kv``
-    kv heads (global), with the decode cache's global ``cache_len``;
-    None with no model axis (the one-process code)."""
-    ax = model_axis()
-    if ax is None:
+    """The installed hook's plan for ``n_heads`` query and ``n_kv`` kv
+    heads (global), with the decode cache's global ``cache_len``; None
+    with neither a model axis nor a tiled cache (the one-process
+    code)."""
+    hook = act_axis()
+    if hook is None:
         return None
-    heads = ax.split("heads", n_heads)
+    ax = model_axis()
+    seq = hook.tiles("kv_seq", cache_len)
+    if ax is None and seq is None:
+        return None
+    heads = ax is not None and ax.split("heads", n_heads)
     kv = heads and ax.split("kv_heads", n_kv)
     pick = None
     if heads and not kv:
@@ -137,9 +158,7 @@ def head_plan(n_heads: int, n_kv: int,
         grouped = loc % len(uniq) == 0 and \
             idx == [u for u in uniq for _ in range(rep)]
         pick = tuple(uniq if grouped else idx)
-    seq = cache_len is not None and ax.split("kv_seq", cache_len)
-    block = ax.block(cache_len) if seq else slice(0, cache_len or 0)
-    return HeadPlan(ax, heads, kv, pick, seq, block)
+    return HeadPlan(ax, heads, kv, pick, seq)
 
 
 def partial_grad_leaves(n_heads: int, n_kv: int, ax: ModelAxis) -> tuple:

@@ -106,14 +106,32 @@ def _pick(hp, k, v):
     return (k, v) if hp is None else hp.pick_kv(k, v)
 
 
-def _cross(x, p, cfg, enc_kv):
+def _enc_tiles(cfg):
+    """The tiles of the cross-attention cache's ``kv_seq`` (the encoder's
+    ``enc_frames``) under the installed hook (None: whole on every
+    rank)."""
+    hook = attention.act_axis()
+    return None if hook is None else hook.tiles("kv_seq", cfg.enc_frames)
+
+
+def _cross(x, p, cfg, enc_kv, tiles=None):
     """The cross-attention half: x [B,S,D] attends the encoder's ``enc_kv``
-    = (ck, cv) [B, S_enc, Hkv, hd], non-causal, with plain tensor code."""
+    = (ck, cv) [B, S_enc, Hkv, hd], non-causal, with plain tensor code.
+    With ``tiles`` (decode against a sequence-tiled cross cache: this
+    rank's ``tiles.block`` of the encoder's positions) each rank attends
+    its block and the partials merge over the tiles' group."""
     h = layers.apply_norm(x, p["ln_cross"], cfg.norm)
     q = torch.einsum("bsd,dhk->bshk", h, p["cross"]["wq"].to(x.dtype))
     if "bq" in p["cross"]:
         q = q + p["cross"]["bq"].to(x.dtype)
-    o = attention.attend_full(q, enc_kv[0], enc_kv[1], causal=False)
+    if tiles is None:
+        o = attention.attend_full(q, enc_kv[0], enc_kv[1], causal=False)
+    else:
+        part = attention.decode_partial(q, enc_kv[0], enc_kv[1],
+                                        cfg.enc_frames,
+                                        offset=tiles.block.start)
+        o = collectives.softmax_combine(part, tiles.mesh,
+                                        mesh_axis=tiles.axis).to(q.dtype)
     return x + _out_proj(o, p["cross"]["wo"], x.dtype)
 
 
@@ -155,7 +173,9 @@ def tblock_prefill(x, p, cfg, cache_len: int, *, enc_kv=None):
         cache = {n: c[:, b].contiguous() for n, c in cache.items()}
     if "cross" in p:
         x = _cross(x, p, cfg, enc_kv)
-        cache["ck"], cache["cv"] = enc_kv
+        tiles = _enc_tiles(cfg)
+        cache["ck"], cache["cv"] = enc_kv if tiles is None else (
+            c[:, tiles.block].contiguous() for c in enc_kv)
     h = layers.apply_norm(x, p["ln_mlp"], cfg.norm)
     return x + _ffn(h, p, cfg)[0], cache
 
@@ -170,8 +190,8 @@ def tblock_decode(x, p, cfg, cache, pos, *, enc_kv=None):
         positions = pos.to(x.device)[:, None]
     else:
         positions = torch.full((h.shape[0], 1), int(pos), device=x.device)
-    ax = attention.model_axis()
-    h, hp = _attn_in(h, cfg, None if ax is None else ax.cache_len)
+    hook = attention.act_axis()
+    h, hp = _attn_in(h, cfg, None if hook is None else hook.cache_len)
     q, k, v = attention.project_qkv(
         h, p["attn"], positions=positions,
         rope_theta=cfg.rope_theta, use_rope=cfg.use_rope)
@@ -179,16 +199,20 @@ def tblock_decode(x, p, cfg, cache, pos, *, enc_kv=None):
     kc, vc = attention.cache_update(cache["k"], cache["v"], k, v, pos,
                                     mode=cfg.cache_update, offset=off)
     if hp is not None and hp.seq:
-        # a sequence-tiled cache: every query head against this rank's
-        # positions, the partials merged over the model group
-        if hp.heads:
+        # a sequence-tiled cache: the query heads against this rank's
+        # positions, the partials merged over the cache's group (every
+        # query head where that group spans the model axis)
+        if hp.gather_q:
             q = collectives.all_gather(q, hp.ax.mesh, axis=2,
                                        mesh_axis="model")
-        part = attention.decode_partial(q, kc, vc, pos, offset=off,
+            kv = (kc, vc)
+        else:
+            kv = _pick(hp, kc, vc)
+        part = attention.decode_partial(q, *kv, pos, offset=off,
                                         window=cfg.sliding_window)
-        o = collectives.softmax_combine(part, hp.ax.mesh,
-                                        mesh_axis="model").to(q.dtype)
-        if hp.heads:
+        o = collectives.softmax_combine(part, hp.seq.mesh,
+                                        mesh_axis=hp.seq.axis).to(q.dtype)
+        if hp.gather_q:
             o = o[:, :, hp.ax.block(cfg.n_heads)]
     else:
         o = attention.decode_attend(q, *_pick(hp, kc, vc), pos,
@@ -196,7 +220,7 @@ def tblock_decode(x, p, cfg, cache, pos, *, enc_kv=None):
     x = x + _out_proj(o, p["attn"]["wo"], x.dtype, hp)
     new_cache = {"k": kc, "v": vc}
     if "cross" in p:
-        x = _cross(x, p, cfg, enc_kv)
+        x = _cross(x, p, cfg, enc_kv, _enc_tiles(cfg))
         new_cache["ck"], new_cache["cv"] = enc_kv
     h = layers.apply_norm(x, p["ln_mlp"], cfg.norm)
     return x + _ffn(h, p, cfg)[0], new_cache

@@ -18,7 +18,7 @@ against the JAX package's.
   continues as the data=2 run does (within 1e-5: another dp degree sums
   in another order);
 * the refusals: a model axis, the production meshes, SPMD mode, fabric
-  localities or DDP with a dp axis, serving over a mesh.
+  localities or DDP with a dp axis; serving over a mesh runs.
 """
 import jax
 import numpy as np
@@ -252,11 +252,23 @@ def test_mesh_refusals(kw, exc, match):
 
 
 def test_serving_over_a_mesh_is_refused():
+    """Serving over a mesh with data axes is no longer refused (ROADMAP
+    item 14b, part 3): at data=2 the single stream, whose cache is tiled
+    by sequence over the dp group, and the gateway over the two rank
+    processes give one process's tokens.  What stays refused here is
+    fabric DDP beside a dp axis."""
+    kw = dict(requests=2, prompt_len=4, gen_len=2, slots=1, verbose=False)
+    with _plan().compile() as s:
+        want = s.serve(**kw)
+        want_stream = s.serve_stream(**kw)
     with _plan(data=2).compile() as s:
-        with pytest.raises(NotImplementedError, match="14b"):
-            s.serve(requests=1, prompt_len=4, gen_len=2, slots=1)
-        with pytest.raises(NotImplementedError, match="14b"):
-            s.serve_stream(requests=1, prompt_len=4, gen_len=2, slots=1)
+        got = s.serve(**kw)
+        got_stream = s.serve_stream(**kw)
+    assert [g.tolist() for g in got["generated"]] == \
+        [g.tolist() for g in want["generated"]]
+    assert got["localities"][1]["cache_shapes"][0][1] == 3   # 6 / 2
+    assert got_stream["streams"] == want_stream["streams"]
+    assert got_stream["completed"] == 2
     with pytest.raises(ValueError, match="replaces the in-process dp"):
         steps.make_ddp_step(Plan(device="cpu").config(), steps.Strategy(),
                             mesh=type("M", (), {"shape": {"data": 2,

@@ -226,8 +226,11 @@ def test_replay_verdicts_are_agreed_over_the_model_group():
     (dict(model=2, localities=2), "fabric localities"),
     (dict(model=2, elastic=True), "elastic membership"),
     (dict(model=2, ddp=True), "fabric DDP with a model axis"),
+    # the gateway over a mesh runs the model axis's family only, as
+    # Session.serve does: a replicated serve_stream plan is refused too
+    (dict(arch="xlstm-350m", model=2, replicas=2), "xlstm family"),
 ], ids=["moe", "zamba", "xlstm", "encdec", "onebit", "seq-parallel",
-        "spmd", "localities", "elastic", "ddp"])
+        "spmd", "localities", "elastic", "ddp", "serve-stream-xlstm"])
 def test_model_axis_refusals_name_item_14b(kw, match):
     with pytest.raises(NotImplementedError, match=f"{match}.*item 14b"):
         Plan(device="cpu", **kw).compile()
