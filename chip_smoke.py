@@ -7,9 +7,10 @@
                                              # then the 2-locality one N
                                              # times, with host memory
     python3 chip_smoke.py --mesh-only        # the mesh-training phase only
-    python3 chip_smoke.py --model-axis-only  # K1 at the model axis's shapes,
-                                             # the qwen3-4b serve phase and
-                                             # the model-axis phase only
+    python3 chip_smoke.py --model-axis-only  # K1 and K2 at the model
+                                             # axis's shapes, the qwen3-4b
+                                             # serve phase and the
+                                             # model-axis phases only
 
 Phases, in order; any failure ends the script with a non-zero exit and
 without the final ``{"ok": true, ...}`` line:
@@ -36,7 +37,11 @@ without the final ``{"ok": true, ...}`` line:
    at a 32 MB bucket and at the largest bucket of the training plan, and
    K3b also at small and wide rows; K1 also at granite-moe-1b-a400m's
    shapes (d=64: its prefill at batch 4 and the gateway's batch 1, its
-   training batch 8, forward and backward); K1 at whisper-medium's
+   training batch 8, forward and backward); K1 on a rank's heads at
+   model=2, granite's (H=8, Hkv=4) and zamba2-2.7b's shared block's
+   (H=Hkv=16, d=80) at batch 4, 8 and 1, forward, and at 8 backward; K2
+   on a rank's 40 of zamba2-2.7b's 80 heads at batch 4, 8 and 1, and its
+   backward at 8; K1 at whisper-medium's
    shapes (d=64, H=Hkv=16, batch 4: the encoder's non-causal
    self-attention at S=1500, forward and backward, and the decoder's
    causal prefill at S=512).  K1 is held by its largest error and by its
@@ -174,14 +179,34 @@ without the final ``{"ok": true, ...}`` line:
    sequence (272 of 544 positions a rank; the prefill and 8 decode
    logits at 4 layers within 1e-2 mean relative error of one process's,
    then one request at 36 layers, K1 36 a rank, the dp all-reduces a
-   step), (l) the gateway at ``model=2`` (36 layers, ``serve_stream``)
-   and at ``data=2`` (6 layers), each with K1 8 x layers a rank, every
+   step), (l) the gateway at ``model=2`` (12 layers) and at ``data=2``
+   (6 layers), both through ``rank_serve_stream``, each with K1 8 x layers a rank, every
    refill a page hit, every page reclaimed on both ranks, each rank's
    parked bytes (half at ``model=2``) and two streams held bit for bit
    against a plain greedy loop on the same ranks, (m) zamba2-2.7b's wave
    loop at ``data=2`` (6 layers, K1 1 and K2 6 a rank), and in the
    four-rank session (k) the wave loop at ``data=2, model=2`` (4 layers,
-   K1 4 a rank, both wires busy, the tokens equal on every rank);
+   K1 4 a rank, both wires busy, the tokens equal on every rank); then
+   the model axis beyond the dense family, each family in a
+   ``Plan(model=2)`` session of its own: (n) granite-moe-1b-a400m (16 of
+   its 32 experts a rank, its odd vocab of 49,155 whole on both) trains 4
+   of its 24 layers in float32 with phylanx (momentum) and with zero1
+   (adamw at lr 1e-5), 3 steps each, held as (a) is to the one-process
+   float32 runs (the gradient norm at the first step, within 3e-2:
+   routing near-ties), and
+   2 phylanx steps in bf16 (K1 2 x 4 and its backward 4 a step and rank;
+   the unsplit leaves bit-identical on both ranks in every run), serves
+   all 24 layers (``Session.serve``, one wave of 4 x 4 tokens, K1 24 a
+   rank) and streams (the session's gateway, 4 tokens a request, K1 24
+   a request a rank, held as (l) is); (o) zamba2-2.7b (40 of 80 heads a
+   rank) trains one group (6 mamba layers and the shared block) in
+   float32 at batch 1 with phylanx (momentum, 3 steps, held as (a) is; a
+   step and rank: K2 18 and its backward 6, K1 2 and its backward 1) and
+   one bf16 step at batch 8, its float32 prefill and 8 decode logits at
+   that depth within 1e-2 mean relative error of one process's, serves
+   all 54 layers (one wave: K2 54, K1 9 a rank) and streams at 18 layers
+   (``rank_serve_stream``, K2 18 and K1 3 a request a rank, held as (l)
+   is);
 13. where the time goes: one prefill (at the wave's batch, and at batch 1
    but for whisper-medium) and one decode step of each served
    configuration (xlstm-350m's at ``PROFILE_LAYERS``), one plain and one
@@ -529,13 +554,16 @@ TP_B1_ATTN = (1, *TP_SERVE_ATTN[1:])
 # (j) a single stream at data=2, its cache tiled by sequence over the dp
 # group (the prefill and TP_DECODE_STEPS decode steps' logits at
 # TP_LAYERS against one process's, then one request at all 36 layers),
-# (l) the gateway (serve_stream) at model=2 at all 36 layers, then at
-# data=2 at MESH_GATEWAY_LAYERS, each with GATEWAY_ORACLE held against a
+# (l) the gateway at model=2 at MESH_GATEWAY_M2_LAYERS, then at data=2
+# at MESH_GATEWAY_LAYERS, each with GATEWAY_ORACLE held against a
 # plain greedy loop on the same ranks, (m) zamba2-2.7b's wave loop at
 # data=2 at STREAM_LAYERS; in the four-rank one (k) the wave loop at
 # data=2, model=2 at TP_LAYERS
 MESH_SERVE = dict(requests=8, slots=8, prompt_len=512, gen_len=32)
-MESH_GATEWAY_LAYERS = 6
+# the gateway at model=2 cut to a third of qwen3-4b's depth (54.6 s of a
+# 977.6 s run at all 36 on an H100 80GB HBM3 at 700 W), at data=2 to a
+# sixth
+MESH_GATEWAY_M2_LAYERS, MESH_GATEWAY_LAYERS = 12, 6
 # the model axis, part 2 (ROADMAP item 14b): (e) sequence parallelism
 # in the model=2 session, (h) TiledArray there, (g) GPipe over qwen3-4b
 # decoder blocks at full width on a stage mesh of that session's 2 ranks
@@ -549,6 +577,84 @@ GPIPE_RTOL = 1e-3
 GPIPE_EX = dict(stages=4, d=256, mb=32, micro=(1, 2, 4, 8, 16), steps=10,
                 train_micro=8, lr=0.1, timed=5)
 GPIPE_EX_OUT_RTOL, GPIPE_EX_GRAD_RTOL = 1e-5, 1e-4
+# the model axis beyond the dense family (ROADMAP item 14b, part 4), in
+# two Plan(model=2) sessions of their own at full width, random weights
+# from seed 0: (n) granite-moe-1b-a400m, its 32 experts on model (16 a
+# rank; its odd vocab of 49,155 whole on both), at FAM_TP_LAYERS of its
+# 24 layers: phylanx and zero1 in float32 (8 x 512, TP_STEPS steps,
+# FAM_OPT) against the one-process float32 runs, and phylanx in bf16
+# (the serve and train paths' dtype, MOE_BF16_STEPS steps), then
+# Session.serve at
+# all 24 and the session's gateway; (o) zamba2-2.7b, inner on model (40
+# of 80 heads a rank), at one group (6 of 54 mamba layers and the shared
+# block): phylanx in float32 (ZAMBA_TP_F32_BATCH x 512) against its
+# oracle, in bf16 (8 x 512), the prefill and TP_DECODE_STEPS decode
+# steps' logits in float32 against one process's, then Session.serve at
+# all 54 and the gateway at ZAMBA_TP_GATEWAY_LAYERS.  The float32 runs
+# hold the model axis's math: in bf16 a different order of sums moves
+# these models at random init by more than TP_*'s tolerances (the
+# embedding's gradient behind the first rms_norm, the routing's near
+# ties, the mamba layers' gated norms): one process's bf16 lies 2 % from
+# its float32 in zamba's logits at a cut width, the mesh's 5 % from it
+# (tools/model_axis_families_check.py bf16, on the CPU).
+# The serve runs are one wave of FAM_SERVE and the gateways
+# FAM_GATEWAY_GEN tokens a request: a model-axis decode step is 3
+# (granite) or 4 (a mamba layer) gloo collectives a layer
+FAM_TP_LAYERS = 4
+# the bf16 runs' steps: granite's, zamba2-2.7b's
+MOE_BF16_STEPS, ZAMBA_BF16_STEPS = 2, 1
+# the float32 runs' optimizers, as the CPU tests take them
+# (tests/test_torch_model_axis_families.py): momentum, and zero1's solver,
+# which is adamw in both packages, at a small lr.  adamw's normalized step
+# turns gradients that differ near zero into whole +-lr steps, after
+# which tiny differences of sums part the runs by more than TP_*'s
+# tolerances within three steps (on an H100 80GB HBM3 at 700 W: zamba
+# 3 %, granite 23 % in the gradient norm at the third step)
+FAM_OPT = {"phylanx": {"kind": "momentum"},
+           "zero1": {"kind": "adamw", "lr": 1e-5}}
+# granite's gradient norm, held at the first step only: on the card a
+# rank's products (its 16 router columns, its experts, its 8 heads) sum
+# in another order than one process's, so a token whose 8th and 9th
+# experts nearly tie may route elsewhere (and the capacity drops shift
+# behind it), and the embedding's gradient behind the first rms_norm,
+# most of the norm, moves with it: 0.9 % at the first float32 step, 5-9 %
+# at the next two with momentum (an H100 80GB HBM3 at 700 W; on the CPU
+# the same full-width layer's runs agree to 1e-7 over three steps:
+# tools/model_axis_families_check.py mesh-f32)
+MOE_TP_NORM_RTOL, MOE_TP_NORM_STEPS = 3e-2, 1
+MOE_TP_TRAIN = dict(MOE_TRAIN, overrides={"n_layers": FAM_TP_LAYERS})
+MOE_TP_F32 = dict(MOE_TRAIN, overrides={"n_layers": FAM_TP_LAYERS,
+                                        "compute_dtype": "f32"})
+ZAMBA_TP_TRAIN = dict(ZAMBA_TRAIN, overrides={
+    "n_layers": _ZAMBA_CFG.shared_every})
+ZAMBA_TP_F32_BATCH = 1
+ZAMBA_TP_F32 = dict(ZAMBA_TRAIN, batch=ZAMBA_TP_F32_BATCH, overrides={
+    "n_layers": _ZAMBA_CFG.shared_every, "compute_dtype": "f32",
+    "cache_dtype_str": "f32"})
+ZAMBA_TP_GATEWAY_LAYERS = 18
+FAM_SERVE = dict(requests=4, slots=4, prompt_len=512, gen_len=4)
+FAM_GATEWAY_GEN = 4
+# K1 on a rank's heads at model=2: granite (H=8, Hkv=4, d=64) and
+# zamba2-2.7b's shared block (H=Hkv=16, d=80), at the serve batch, the
+# train batch and the gateway's batch 1; K2 on a rank's 40 of 80 heads
+MOE_TP_SERVE_ATTN = (SERVE["slots"], _MOE_CFG.n_heads // 2,
+                     _MOE_CFG.n_kv_heads // 2, SERVE["prompt_len"],
+                     _MOE_CFG.head_dim, torch.bfloat16, True, None)
+MOE_TP_TRAIN_ATTN = (MOE_TRAIN["batch"], *MOE_TP_SERVE_ATTN[1:])
+MOE_TP_B1_ATTN = (1, *MOE_TP_SERVE_ATTN[1:])
+ZAMBA_TP_SERVE_ATTN = (SERVE["slots"], _ZAMBA_CFG.n_heads // 2,
+                       _ZAMBA_CFG.n_kv_heads // 2, SERVE["prompt_len"],
+                       _ZAMBA_CFG.head_dim, torch.bfloat16, True, None)
+ZAMBA_TP_TRAIN_ATTN = (ZAMBA_TRAIN["batch"], *ZAMBA_TP_SERVE_ATTN[1:])
+ZAMBA_TP_B1_ATTN = (1, *ZAMBA_TP_SERVE_ATTN[1:])
+ZAMBA_TP_SCAN = (SERVE["slots"], ZAMBA_HEADS // 2, _ZAMBA_CFG.ssm_groups,
+                 SERVE["prompt_len"], _ZAMBA_CFG.ssm_head_dim,
+                 _ZAMBA_CFG.ssm_state, _ZAMBA_CFG.ssm_chunk, torch.bfloat16)
+ZAMBA_TP_TRAIN_SCAN = (ZAMBA_TRAIN["batch"], *ZAMBA_TP_SCAN[1:])
+ZAMBA_TP_B1_SCAN = (1, *ZAMBA_TP_SCAN[1:])
+ZAMBA_TP_SCAN_BWD = (ZAMBA_TRAIN["batch"], ZAMBA_HEADS // 2,
+                     _ZAMBA_CFG.ssm_groups, ZAMBA_TRAIN["seq"], 64, 64,
+                     torch.bfloat16, False)
 FA_CASES = [
     (4, 32, 8, 512, 128, torch.bfloat16, True, None),
     (4, 32, 32, 512, 80, torch.bfloat16, True, None),     # d=80 (zamba)
@@ -566,6 +672,12 @@ FA_CASES = [
     TP_SERVE_ATTN,
     TP_TRAIN_ATTN,
     TP_B1_ATTN,
+    MOE_TP_SERVE_ATTN,
+    MOE_TP_TRAIN_ATTN,
+    MOE_TP_B1_ATTN,
+    ZAMBA_TP_SERVE_ATTN,
+    ZAMBA_TP_TRAIN_ATTN,
+    ZAMBA_TP_B1_ATTN,
     (2, 8, 2, 200, 128, torch.bfloat16, True, None),      # ragged S
     (1, 32, 32, 256, 96, torch.bfloat16, True, None),     # d=96 (phi3)
     (2, 4, 2, 256, 32, torch.float32, True, None),        # d=32 f32 (tiny)
@@ -577,13 +689,14 @@ FA_CASES = [
     (2, 4, 4, 100, 80, torch.bfloat16, True, None),       # d=80, ragged S
     (1, 8, 8, 512, 80, torch.bfloat16, True, 128),        # d=80, window
 ]
-FA_TIMED = 16           # the first FA_TIMED cases are timed
+FA_TIMED = 22           # the first FA_TIMED cases are timed
 # K2 tolerances of tests/test_kernels.py's sweep, as atol and rtol
 SCAN_TOL = {torch.float32: 2e-4, torch.bfloat16: 6e-2}
 # (B, H, G, L, P, N, chunk, dtype), G the groups of Bm, Cm: zamba2-2.7b's
 # prefill shape in bf16 with its one group (timed, the serve path's case)
 # and with B, C per head (timed), its training shape (B=8, timed), the
-# gateway's batch-1 prefill (timed), then
+# gateway's batch-1 prefill (timed), the same three on a rank's 40 heads
+# at model=2 (timed), then
 # f32 at the prefill shape and the three shapes of tests/test_kernels.py's
 # sweep (B, C per head), grouped cases (H=4, G=2) in both dtypes, a ragged
 # bf16 case, and bf16 at the other (P, N) the kernel is built for
@@ -592,6 +705,9 @@ SCAN_CASES = [
     (4, 80, 80, 512, 64, 64, 256, torch.bfloat16),
     ZAMBA_TRAIN_SCAN,
     SERVE_B1_SCAN,
+    ZAMBA_TP_SCAN,
+    ZAMBA_TP_TRAIN_SCAN,
+    ZAMBA_TP_B1_SCAN,
     (4, 80, 80, 512, 64, 64, 256, torch.float32),
     (1, 2, 2, 256, 32, 16, 64, torch.float32),
     (2, 4, 4, 128, 64, 64, 32, torch.float32),
@@ -602,7 +718,7 @@ SCAN_CASES = [
     (1, 2, 2, 256, 32, 16, 64, torch.bfloat16),
     (1, 1, 1, 512, 16, 8, 128, torch.bfloat16),
 ]
-SCAN_TIMED = 4          # the first SCAN_TIMED cases are timed
+SCAN_TIMED = 7          # the first SCAN_TIMED cases are timed
 # K1 backward: qwen3-4b's training shapes (a DDP shard, then the whole
 # batch of Session.train), zamba2-2.7b's shared block in training (d=80),
 # phi3-mini's heads (d=96), granite-moe-1b-a400m's training shape (d=64),
@@ -621,6 +737,8 @@ FA_BWD_CASES = [
     WHISPER_TRAIN_ENC_ATTN,
     WHISPER_TRAIN_DEC_ATTN,
     TP_TRAIN_ATTN,
+    MOE_TP_TRAIN_ATTN,
+    ZAMBA_TP_TRAIN_ATTN,
     (2, 8, 2, 200, 64, torch.float32, True, None),        # GQA, ragged S
     (1, 4, 4, 256, 64, torch.float32, False, None),       # MHA, non-causal
     (2, 4, 2, 256, 32, torch.float32, True, 64),          # window, d=32
@@ -636,7 +754,7 @@ FA_BWD_CASES = [
     (2, 4, 2, 130, 96, torch.float32, True, None),        # d=96, GQA
     (2, 4, 2, 130, 96, torch.bfloat16, True, None),
 ]
-FA_BWD_TIMED = 9        # the first FA_BWD_TIMED cases are timed
+FA_BWD_TIMED = 11       # the first FA_BWD_TIMED cases are timed
 # f32: within 1e-4 of the largest gradient magnitude (at least 1); bf16:
 # the plain version rounds its products and probabilities to bf16, the
 # kernel sums in f32, so bf16 is held to 3e-2 of the largest magnitude
@@ -645,13 +763,15 @@ FA_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 # |reference| (``mean_rel_err``; bf16 read at most 4.52e-3 on an H100)
 FA_BWD_MEAN_REL_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 # K2 backward, (B, H, G, L, P, N, dtype, dstate): zamba2-2.7b's training
-# shape in bf16 with its one group (timed), then B and C per head (G=H), a
+# shape in bf16 with its one group (timed), the same on a rank's 40 heads
+# at model=2 (timed), then B and C per head (G=H), a
 # ragged L with grouped heads, the two other (P, N) the kernels are built
 # for, and a nonzero final-state gradient (the bf16 kernel's seed of R),
 # each in f32 (ssd_scan_bwd) and bf16 (ssd_scan_bwd_mma)
 SCAN_BWD_CASES = [
     (ZAMBA_TRAIN["batch"], ZAMBA_HEADS, 1, ZAMBA_TRAIN["seq"], 64, 64,
      torch.bfloat16, False),
+    ZAMBA_TP_SCAN_BWD,
     (2, 16, 16, 256, 64, 64, torch.float32, False),
     (2, 16, 16, 256, 64, 64, torch.bfloat16, False),
     (2, 4, 2, 200, 64, 64, torch.float32, False),         # ragged L
@@ -671,6 +791,7 @@ SCAN_BWD_CASES = [
 # magnitude (tests/test_torch_mamba2_scan.py holds this rounding plan
 # within it against the JAX oracle)
 SCAN_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+SCAN_BWD_TIMED = 2      # the first SCAN_BWD_TIMED cases are timed
 # K3a/K3b: a 32 MB bucket ([8192, 1024] float32); the training plan's
 # largest bucket is added at run time
 ONEBIT_ROWS = 8192
@@ -1081,16 +1202,15 @@ def check_misaligned() -> None:
         raise AssertionError("flash_attention took a misaligned bf16 view")
 
 
-def check_scan(gen) -> dict:
+def check_scan(gen, cases=None, timed: int = SCAN_TIMED) -> list:
     """K2 against its plain version at ``SCAN_CASES``, inputs built as
     tests/test_kernels.py builds them (xdt, Bm, Cm scaled by 0.5, a =
     -|n| * 0.1), and against itself: a second run on the same inputs gives
-    the same bits.  Times the first ``SCAN_TIMED`` cases; returns the
-    first's readings with the second's under ``per_head_bc``, the third's
-    under ``train_b8`` and the fourth's under ``serve_b1``.  No single
+    the same bits.  Times the first ``timed`` of ``cases`` (default
+    ``SCAN_CASES``) and returns their readings.  No single
     PyTorch call computes the SSD scan, so there is no library time."""
     out = []
-    for B, H, G, L, P, N, chunk, dt in SCAN_CASES:
+    for B, H, G, L, P, N, chunk, dt in cases or SCAN_CASES:
         xdt = (0.5 * torch.randn(B, H, L, P, generator=gen,
                                  device="cuda")).to(dt)
         a = -0.1 * torch.randn(B, H, L, generator=gen, device="cuda").abs()
@@ -1118,7 +1238,7 @@ def check_scan(gen) -> dict:
         if not ok:
             raise AssertionError("mamba2_chunk_scan disagrees with its plain "
                                  "version or itself")
-        if len(out) >= SCAN_TIMED:
+        if len(out) >= timed:
             continue
         t = {**timings(ms=lambda: mamba2_chunk_scan(xdt, a, Bm, Cm,
                                                     chunk=chunk),
@@ -1132,8 +1252,7 @@ def check_scan(gen) -> dict:
         print(f"  timed: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} "
               f"ms, no library call, bound {bound_ms:.4f} ms ({bound_by}); "
               f"host-paced: kernel {t['ms_host_paced']:.4f} ms")
-    return {**out[0], "per_head_bc": out[1], "train_b8": out[2],
-            "serve_b1": out[3]}
+    return out
 
 
 def scan_bwd_ops(B: int, H: int, L: int, P: int, N: int) -> int:
@@ -1145,17 +1264,19 @@ def scan_bwd_ops(B: int, H: int, L: int, P: int, N: int) -> int:
     return 2 * B * H * L * (t * (3 * N + 2 * P) + 5 * P * N)
 
 
-def check_scan_bwd(gen) -> dict:
+def check_scan_bwd(gen, cases=None, timed: int = SCAN_BWD_TIMED) -> list:
     """K2's backward kernel against autograd through the plain version on
     the card at ``SCAN_BWD_CASES``, inputs built as ``check_scan`` builds
     them, y's gradient normal, the final state's normal where the case
     has one.  The kernel runs twice: through autograd (the path's route,
     ``mamba2_chunk_scan`` recorded by autograd) and by its wrapper; the
-    two give the same bits.  Times the first case: the wrapper, and the
-    plain version's backward of a recorded graph; no single PyTorch call
-    computes the scan's backward, so there is no library time."""
-    out = None
-    for B, H, G, L, P, N, dt, with_ds in SCAN_BWD_CASES:
+    two give the same bits.  Times the first ``timed`` of ``cases``
+    (default ``SCAN_BWD_CASES``): the wrapper, and the plain version's
+    backward of a recorded graph; no single PyTorch call computes the
+    scan's backward, so there is no library time.  Returns the timed
+    cases' readings."""
+    out = []
+    for B, H, G, L, P, N, dt, with_ds in cases or SCAN_BWD_CASES:
         xdt = (0.5 * torch.randn(B, H, L, P, generator=gen,
                                  device="cuda")).to(dt)
         a = -0.1 * torch.randn(B, H, L, generator=gen, device="cuda").abs()
@@ -1191,7 +1312,7 @@ def check_scan_bwd(gen) -> dict:
             raise AssertionError("mamba2_chunk_scan_bwd disagrees with "
                                  "autograd through the plain version or "
                                  "with itself")
-        if out is not None:
+        if len(out) >= timed:
             continue
         ref_ins = [t.detach().requires_grad_(True) for t in (xdt, a, Bm, Cm)]
         ref_y, _ = mamba2_chunk_scan_ref(*ref_ins)
@@ -1205,8 +1326,8 @@ def check_scan_bwd(gen) -> dict:
             + dy.numel() * dy.element_size()
         ops = scan_bwd_ops(B, H, L, P, N)
         bound_ms, bound_by = roofline(nbytes, ops)
-        out = {"max_abs_err": max(errs), **t, "bound_ms": bound_ms,
-               "bound_by": bound_by}
+        out.append({"max_abs_err": max(errs), **t, "bound_ms": bound_ms,
+                    "bound_by": bound_by})
         print(f"  timed: kernel {t['ms']:.4f} ms, plain backward "
               f"{t['plain_ms']:.4f} ms, no library call, bound "
               f"{bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, "
@@ -3305,15 +3426,21 @@ def tp_rank(spec: dict, endpoint=None, driver=None) -> dict:
     for ``spec["steps"]`` steps from the seed's init (``tp_train``); then,
     where ``spec["logits"]`` holds the oracle's prompts and tokens, the
     prefill and decode steps at that depth, teacher-forced, each step's
-    whole last-position logits gathered (rank 0 keeps them)."""
+    whole last-position logits gathered (rank 0 keeps them).  A
+    ``spec["strategy"]`` trains with that strategy instead, and a
+    ``spec["opt"]`` with those ``OptConfig`` fields; ``vocab_rows`` is
+    this rank's rows of the embedding."""
     plan, stream = spec["plan"], spec["stream"]
     mesh = make_local_mesh(data=plan.data, model=plan.model, pod=plan.pod)
     cfg = plan.config()
-    step = steps.make_train_step(cfg, steps.Strategy(name="phylanx"),
-                                 plan=plan, mesh=mesh)
+    step = steps.make_train_step(cfg, steps.Strategy(
+        name=spec.get("strategy", "phylanx"),
+        opt=optimizers.OptConfig(**spec.get("opt", {}))), plan=plan,
+        mesh=mesh)
     params, opt = step.init(
         torch.Generator(device="cuda").manual_seed(plan.seed), "cuda")
-    out = {"train": tp_train(step, params, opt, stream, spec["steps"])}
+    out = {"train": tp_train(step, params, opt, stream, spec["steps"]),
+           "vocab_rows": int(params["embed"]["tok"].shape[0])}
     del step, params, opt
     torch.cuda.empty_cache()
     lg = spec.get("logits")
@@ -3346,12 +3473,14 @@ def tp_rank(spec: dict, endpoint=None, driver=None) -> dict:
     return out
 
 
-def tp_oracle_train(plan_kw: dict, stream, n_steps: int) -> dict:
-    """The one-process run of ``plan_kw`` (phylanx, one rank: the plain
-    update) from the seed's init: the model axis's oracle."""
+def tp_oracle_train(plan_kw: dict, stream, n_steps: int,
+                    strategy: str = "phylanx", opt: dict = None) -> dict:
+    """The one-process run of ``plan_kw`` (``strategy`` at one rank: the
+    plain update; ``opt`` the ``OptConfig`` fields, default adamw) from the
+    seed's init: the model axis's oracle."""
     plan = Plan(**plan_kw, device="cuda")
     step = steps.make_train_step(plan.config(), steps.Strategy(
-        name="phylanx"), plan=plan)
+        name=strategy, opt=optimizers.OptConfig(**(opt or {}))), plan=plan)
     params, opt = step.init(
         torch.Generator(device="cuda").manual_seed(plan.seed), "cuda")
     out = tp_train(step, params, opt, stream, n_steps)
@@ -3391,12 +3520,14 @@ def tp_oracle_logits(plan_kw: dict, slots: int = SERVE["slots"]) -> dict:
     return {"prompts": prompts, "tokens": toks, "logits": want}
 
 
-def _tp_held(name: str, got: dict, want: dict, fails: list) -> dict:
-    """A mesh run's losses and gradient norms against the oracle's."""
+def _tp_held(name: str, got: dict, want: dict, fails: list,
+             norm_rtol: float = TP_NORM_RTOL, norm_steps=None) -> dict:
+    """A mesh run's losses and gradient norms (of its first
+    ``norm_steps``, default all) against the oracle's."""
     rel = lambda a, b: max(abs(x - y) / abs(y) for x, y in zip(a, b))
     le = rel(got["losses"], want["losses"])
-    ge = rel(got["grad_norms"], want["grad_norms"])
-    if le > TP_LOSS_RTOL or ge > TP_NORM_RTOL:
+    ge = rel(got["grad_norms"][:norm_steps], want["grad_norms"][:norm_steps])
+    if le > TP_LOSS_RTOL or ge > norm_rtol:
         fails.append(f"{name}: losses {got['losses']} / gnorms "
                      f"{got['grad_norms']} against the oracle's "
                      f"{want['losses']} / {want['grad_norms']} (rel "
@@ -3858,11 +3989,13 @@ def gateway_oracle_rank(spec: dict, endpoint=None, driver=None) -> dict:
     return {"streams": streams}
 
 
-def _mesh_gateway_checks(name: str, res: dict, others: dict, layers: int,
+def _mesh_gateway_checks(name: str, res: dict, others: dict, layers,
                          whole_bytes: int, share: int, fails: list) -> None:
     """(l)'s checks of one gateway run: completion, every refill a page
     hit, no recompute, every page reclaimed on every rank, K1 once a
-    layer and request on every rank, each rank's parked bytes."""
+    layer and request on every rank (``layers``: a count, or a config
+    whose ``prefill_launches`` each request makes), each rank's parked
+    bytes."""
     n = len(GATEWAY_ARRIVALS)
     serve, cache = res["serve"], res["cache"]
     if not (res["completed"] == n and serve["refills"] == serve["page_hits"]
@@ -3873,7 +4006,11 @@ def _mesh_gateway_checks(name: str, res: dict, others: dict, layers: int,
     ranks = {0: res, **others}
     for r, rec in ranks.items():
         want = dict.fromkeys(rec["launches"], 0)
-        want["flash_attention"] = n * layers
+        if isinstance(layers, int):
+            want["flash_attention"] = n * layers
+        else:
+            want.update({k: n * v for k, v in
+                         prefill_launches(layers).items()})
         if rec["launches"] != want:
             fails.append(f"{name} rank {r}: launches {rec['launches']} "
                          f"(want {want})")
@@ -3886,11 +4023,10 @@ def _mesh_gateway_checks(name: str, res: dict, others: dict, layers: int,
             fails.append(f"{name} rank {r}: pages left {rec['cache']}")
 
 
-def _b1_cache_bytes(cfg) -> int:
+def _b1_cache_bytes(cfg, gen_len: int = SERVE["gen_len"]) -> int:
     """One request's whole batch-1 decode state (one process's)."""
     pre = steps.make_prefill_step(cfg, {
-        "seq_len": SERVE["prompt_len"] + SERVE["gen_len"],
-        "global_batch": 1})
+        "seq_len": SERVE["prompt_len"] + gen_len, "global_batch": 1})
     return sum(sp.size * sp.dtype.itemsize for sp in pytree.tree_leaves(
         pre.cache_specs, is_leaf=is_spec))
 
@@ -3907,14 +4043,15 @@ def _mesh_serve_line(name: str, rec: dict) -> str:
 
 def mesh_serving(session, counts: dict, fails: list) -> dict:
     """(i), (j), (l) and (m) in the two-rank session (ROADMAP item 14b,
-    part 3): each through ``Session.run_ranks`` with a plan of its own, but
-    (l) at model=2, which is the session's ``serve_stream``.  Returns the
-    readings."""
+    part 3): each through ``Session.run_ranks`` with a plan of its own
+    (a session's own ``serve_stream`` at model=2 runs in
+    ``model_axis_families``).  Returns the readings."""
     cfg = get_config("qwen3-4b")
     full = cfg.n_layers
     out: dict = {}
-    print(f"CUT the gateway at data=2 to {MESH_GATEWAY_LAYERS}, zamba2-2.7b "
-          f"to {STREAM_LAYERS['zamba2-2.7b']} and data=2, model=2 to "
+    print(f"CUT the gateway at model=2 to {MESH_GATEWAY_M2_LAYERS}, at data=2 "
+          f"to {MESH_GATEWAY_LAYERS}, zamba2-2.7b to "
+          f"{STREAM_LAYERS['zamba2-2.7b']} and data=2, model=2 to "
           f"{TP_LAYERS} layers: the phase's time")
     # (i) the wave loop at data=2
     phase(f"serving over a mesh: (i) the wave loop at data=2, {cfg.name} "
@@ -3995,41 +4132,48 @@ def mesh_serving(session, counts: dict, fails: list) -> dict:
                    for r in (0, 1)}}
     torch.cuda.empty_cache()
 
-    # (l) the gateway at model=2 (the session's serve_stream), then data=2
-    trace = [{"at_round": r} for r in GATEWAY_ARRIVALS]
+    # (l) the gateway at model=2 (the model axis's families' sessions run
+    # their own serve_stream), then data=2
     kw = dict(prompt_len=SERVE["prompt_len"], gen_len=SERVE["gen_len"],
               slots=SERVE["slots"])
-    whole = _b1_cache_bytes(cfg)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, SERVE["prompt_len"]).astype(
+        np.int32) for _ in GATEWAY_ARRIVALS]
+    L = MESH_GATEWAY_M2_LAYERS
     phase(f"serving over a mesh: (l) the gateway at model=2, {cfg.name} at "
-          f"all {full} layers, {len(GATEWAY_ARRIVALS)} requests")
+          f"{L} of {full} layers, {len(GATEWAY_ARRIVALS)} requests")
     t0 = time.perf_counter()
-    gw = session.serve_stream(trace=trace, verbose=False, **kw)
-    session._gateway = None
-    gw["serve"] = gw["runtime_stats"]["serve"]
+    m2g = Plan(arch=cfg.name, tiny=False, model=2, device="cuda",
+               overrides={"n_layers": L})
+    whole = _b1_cache_bytes(m2g.config())
+    res = session.run_ranks(
+        mesh_serve.rank_serve_stream,
+        dict(kw, plan=m2g, page_bytes=PAGE_BYTES, params=None),
+        driver=gateway_run(session.runtime, prompts, GATEWAY_ARRIVALS, kw))
+    gw = res[0]
     handles = {h.rid: h for h in gw["handles"]}
     oracle = session.run_ranks(gateway_oracle_rank, dict(
-        kw, plan=session.plan, oracle=[(handles[r].prompt, handles[r]._slot)
-                                       for r in GATEWAY_ORACLE]))
+        kw, plan=m2g, oracle=[(handles[r].prompt, handles[r]._slot)
+                              for r in GATEWAY_ORACLE]))
     out["l_s"] = time.perf_counter() - t0
     for r in (0, 1):
-        counts[f"mesh_gateway_m2_L{r}"] = (gw if r == 0 else
-                                           gw["localities"][r])["launches"]
-    _mesh_gateway_checks("(l) model=2", gw, gw["localities"], full, whole, 2,
-                         fails)
+        counts[f"mesh_gateway_m2_L{r}"] = res[r]["launches"]
+    _mesh_gateway_checks("(l) model=2", gw, {1: res[1]}, L, whole, 2, fails)
     same_m2 = [oracle[0]["streams"][i] == gw["streams"][r]
                for i, r in enumerate(GATEWAY_ORACLE)]
     if not all(same_m2):
         fails.append(f"(l) model=2: oracle streams differ {same_m2}")
-    print(f"(l) model=2: {gw['tokens_per_s']:.1f} tok/s, {gw['rounds']} "
+    tokens = sum(len(x) - 1 for x in gw["streams"].values())
+    print(f"(l) model=2: {tokens / gw['seconds']:.1f} tok/s, {gw['rounds']} "
           f"rounds, {gw['epochs']} epochs, {gw['commands']} commands; page "
           f"hits {gw['serve']['page_hits']}/{gw['serve']['refills']}; "
           f"parked a request {gw['request_bytes']} B a rank of {whole}; "
           f"oracle {dict(zip(GATEWAY_ORACLE, same_m2))}; "
           f"{_tp_wire(gw['wire'])}")
-    out["l_m2"] = {"tokens_per_s": gw["tokens_per_s"],
+    out["l_m2"] = {"tokens_per_s": tokens / gw["seconds"],
                    "rounds": gw["rounds"], "commands": gw["commands"],
                    "request_bytes": gw["request_bytes"],
-                   "wire": {0: gw["wire"], 1: gw["localities"][1]["wire"]}}
+                   "wire": {0: gw["wire"], 1: res[1]["wire"]}}
     torch.cuda.empty_cache()
 
     L = MESH_GATEWAY_LAYERS
@@ -4038,9 +4182,6 @@ def mesh_serving(session, counts: dict, fails: list) -> dict:
     t0 = time.perf_counter()
     d2g = Plan(arch=cfg.name, tiny=False, data=2, device="cuda",
                overrides={"n_layers": L})
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, cfg.vocab, SERVE["prompt_len"]).astype(
-        np.int32) for _ in GATEWAY_ARRIVALS]
     res = session.run_ranks(
         mesh_serve.rank_serve_stream,
         dict(kw, plan=d2g, page_bytes=PAGE_BYTES, params=None),
@@ -4351,6 +4492,379 @@ def model_axis() -> tuple[dict, dict]:
             "losses", "grad_norms", "step_ms", "wire")}) for r in range(4)},
         "part2_s": part2_s, "gpipe_example_s": ex_s, **part2_readings,
         "gpipe_example": ex_readings, "mesh_serving": mesh_readings}
+    return counts, readings
+
+
+def _want_launches(name: str, launches: dict, want: dict,
+                   fails: list) -> None:
+    """``launches`` equal ``want``, every kernel ``want`` omits at 0."""
+    full = dict.fromkeys(launches, 0)
+    full.update(want)
+    if launches != full:
+        fails.append(f"{name} launches {launches} (want {full})")
+
+
+def _fam_warm_oracle(session, fn):
+    """``fn()`` (the one-process oracles) in this process while the
+    session's worker takes its cold start (``tp_warmup``)."""
+    session.distributed.spmd_train({"loop": tp_warmup})
+    out = fn()
+    warm = session.distributed.wait_spmd_done(timeout=300.0)
+    if not all(m.get("ok") for m in warm.values()):
+        raise AssertionError(f"model-axis warm-up failed: {warm}")
+    return out
+
+
+def _fam_train(name: str, res: dict, oracle, want: dict, key: str,
+               counts: dict, fails: list, norm_rtol: float = TP_NORM_RTOL,
+               norm_steps=None) -> dict:
+    """A two-rank training run of (n) or (o): against its one-process
+    ``oracle`` where there is one (losses within TP_LOSS_RTOL, the first
+    ``norm_steps`` norms within ``norm_rtol``), every loss and norm
+    finite, the leaves no rule splits bit-identical on both ranks after
+    every step, each rank's launches ``want``."""
+    out = {}
+    for r in (0, 1):
+        rec = res[r]["train"]
+        counts[f"{key}_L{r}"] = rec["launches"]
+        _want_launches(f"{name} rank {r}", rec["launches"], want, fails)
+        held = {} if oracle is None else \
+            _tp_held(f"{name} rank {r}", rec, oracle, fails, norm_rtol,
+                     norm_steps)
+        if not all(np.isfinite(rec["losses"] + rec["grad_norms"])):
+            fails.append(f"{name} rank {r}: losses or norms not finite")
+        out[r] = dict(held, **{k: rec[k] for k in (
+            "losses", "grad_norms", "step_ms", "wire", "peak_bytes")})
+        err = "" if oracle is None else (
+            f" (rel err {held['loss_rel_err']:.3g}, "
+            f"{held['grad_norm_rel_err']:.3g})")
+        print(f"{name} rank {r}: losses "
+              f"{' '.join(f'{x:.6f}' for x in rec['losses'])}, gnorms "
+              f"{' '.join(f'{x:.6f}' for x in rec['grad_norms'])}{err}; "
+              f"steps {' '.join(f'{x:.1f}' for x in rec['step_ms'])} ms; "
+              f"{_tp_wire(rec['wire'])}; peak "
+              f"{rec['peak_bytes'] / 1e9:.3f} GB; launches "
+              f"{rec['launches']}")
+    a, b = res[0]["train"], res[1]["train"]
+    out["replicated_bit_identical"] = same = \
+        a["replicated_bit_sums"] == b["replicated_bit_sums"] \
+        and a["losses"] == b["losses"]
+    if not same:
+        fails.append(f"{name}: the ranks' unsplit leaves or losses differ")
+    print(f"{name}: the {a['replicated']} unsplit leaves (of {a['leaves']}) "
+          f"bit-identical on both ranks after every step: {same}")
+    return out
+
+
+def _oracle_line(name: str, oracle: dict) -> dict:
+    print(f"{name} oracle (one process): losses "
+          f"{' '.join(f'{x:.6f}' for x in oracle['losses'])}, gnorms "
+          f"{' '.join(f'{x:.6f}' for x in oracle['grad_norms'])}; steps "
+          f"{' '.join(f'{x:.1f}' for x in oracle['step_ms'])} ms")
+    return {k: oracle[k] for k in ("losses", "grad_norms", "step_ms",
+                                   "peak_bytes")}
+
+
+def _fam_serve(name: str, served: dict, cfg, key: str, counts: dict,
+               fails: list) -> dict:
+    """``Session.serve`` of (n) or (o) at model=2: each rank's launches
+    ``prefill_launches`` once a wave, the tokens in range, the first
+    logits finite."""
+    waves = served["waves"]
+    want = {k: waves * v for k, v in prefill_launches(cfg).items()}
+    for r in (0, 1):
+        _want_launches(f"{name} rank {r}", counts[f"{key}_L{r}"], want,
+                       fails)
+    gen = torch.cat(served["generated"])
+    if gen.shape != (waves * FAM_SERVE["slots"], FAM_SERVE["gen_len"] + 1) \
+            or int(gen.min()) < 0 or int(gen.max()) >= cfg.vocab or \
+            not bool(torch.isfinite(served["first_prefill_logits"]).all()):
+        fails.append(f"{name}: tokens {tuple(gen.shape)} out of range or "
+                     f"logits not finite")
+    pre_ms = [1e3 * x for x in served["prefill_s"]]
+    dec_ms = sorted(1e3 * x for x in served["decode_s"])
+    print(f"{name} at model=2, {cfg.n_layers} layers: "
+          f"{served['tokens_per_s']:.1f} tok/s, {waves} waves, prefill "
+          f"{' '.join(f'{x:.1f}' for x in pre_ms)} ms, decode step median "
+          f"{dec_ms[len(dec_ms) // 2]:.1f} ms (min {dec_ms[0]:.1f}, max "
+          f"{dec_ms[-1]:.1f}); launches a rank {counts[f'{key}_L0']} / "
+          f"{counts[f'{key}_L1']}")
+    wires = {0: served["wire"], 1: served["localities"][1]["wire"]}
+    for r, w in wires.items():
+        print(f"  {name} rank {r}: {_tp_wire(w)}")
+    return {"tokens_per_s": served["tokens_per_s"], "prefill_ms": pre_ms,
+            "decode_ms": dec_ms, "wire": wires}
+
+
+def _fam_gateway(name: str, gw: dict, others: dict, oracle: dict, cfg,
+                 key: str, counts: dict, fails: list) -> dict:
+    """A gateway run of (n) or (o) at model=2 (``_mesh_gateway_checks``:
+    each rank parks half of a request's batch-1 state), its
+    GATEWAY_ORACLE streams against a plain greedy loop on the ranks."""
+    counts[f"{key}_L0"] = gw["launches"]
+    for r, rec in others.items():
+        counts[f"{key}_L{r}"] = rec["launches"]
+    whole = _b1_cache_bytes(cfg, FAM_GATEWAY_GEN)
+    _mesh_gateway_checks(name, gw, others, cfg, whole, 2, fails)
+    same = [oracle[0]["streams"][i] == gw["streams"][r]
+            for i, r in enumerate(GATEWAY_ORACLE)]
+    if not all(same):
+        fails.append(f"{name}: oracle streams differ {same}")
+    tokens = sum(len(x) - 1 for x in gw["streams"].values())
+    tps = gw["tokens_per_s"] if "tokens_per_s" in gw \
+        else tokens / gw["seconds"]
+    print(f"{name}: {tps:.1f} tok/s, {gw['rounds']} "
+          f"rounds, {gw['epochs']} epochs, {gw['commands']} commands; page "
+          f"hits {gw['serve']['page_hits']}/{gw['serve']['refills']}; "
+          f"parked a request {gw['request_bytes']} B a rank of {whole}; "
+          f"oracle {dict(zip(GATEWAY_ORACLE, same))}; launches "
+          f"{gw['launches']}; {_tp_wire(gw['wire'])}")
+    return {"tokens_per_s": tps, "rounds": gw["rounds"],
+            "commands": gw["commands"], "request_bytes": gw["request_bytes"],
+            "wire": {0: gw["wire"], **{r: o["wire"]
+                                       for r, o in others.items()}}}
+
+
+def moe_axis(counts: dict, fails: list) -> dict:
+    """(n) granite-moe-1b-a400m at full width in a ``Plan(model=2)``
+    session: at FAM_TP_LAYERS layers, phylanx and zero1 in float32 against
+    the one-process float32 run and phylanx in bf16 (a step: K1 2 x
+    layers, its backward layers, a rank), its vocab whole on both ranks;
+    ``Session.serve`` at all 24 layers; the session's gateway."""
+    cfg = get_config("granite-moe-1b-a400m")
+    L, S = FAM_TP_LAYERS, TP_STEPS
+    phase(f"model axis, its families: (n) {cfg.name} at full width on "
+          f"model=2, {cfg.n_experts // 2} of {cfg.n_experts} experts a rank: "
+          f"phylanx and zero1 at {L} of {cfg.n_layers} layers, serve all "
+          f"{cfg.n_layers}, the gateway")
+    print(f"CUT (n) training to {L} of {cfg.n_layers} layers (the oracle's "
+          f"float32 state beside the ranks'), its bf16 run to "
+          f"{MOE_BF16_STEPS} steps, Session.serve to one wave of "
+          f"{FAM_SERVE['slots']} x {FAM_SERVE['gen_len']} tokens and the "
+          f"gateway to {FAM_GATEWAY_GEN} a request: a decode step is 3 gloo "
+          f"collectives a layer")
+    stream = RepeatStream(stream_for(cfg, batch=MOE_TRAIN["batch"],
+                                     seq=MOE_TRAIN["seq"], seed=0))
+    out: dict = {}
+    t0 = time.perf_counter()
+    with Plan(arch=cfg.name, tiny=False, model=2,
+              device="cuda").compile() as session:
+        out["up_s"] = time.perf_counter() - t0
+        pids = [pr.pid for pr in session.distributed.group.procs.values()]
+        t1 = time.perf_counter()
+        oracles = _fam_warm_oracle(session, lambda: {
+            name: tp_oracle_train(MOE_TP_F32, stream, S, name, opt)
+            for name, opt in FAM_OPT.items()})
+        out["oracle_s"] = time.perf_counter() - t1
+        runs = {}
+        for name, kw, n, opt in (
+                ("phylanx f32", MOE_TP_F32, S, FAM_OPT["phylanx"]),
+                ("zero1 f32", MOE_TP_F32, S, FAM_OPT["zero1"]),
+                ("phylanx bf16", MOE_TP_TRAIN, MOE_BF16_STEPS, {})):
+            t1 = time.perf_counter()
+            runs[name] = session.run_ranks(tp_rank, {
+                "plan": Plan(**kw, model=2, device="cuda"),
+                "stream": stream, "steps": n,
+                "strategy": name.split()[0], "opt": opt})
+            out[f"{name} s"] = time.perf_counter() - t1
+            torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        _zero_counts()
+        served = session.serve(**FAM_SERVE)
+        counts["moe_tp_serve_L0"] = _counts()
+        counts["moe_tp_serve_L1"] = served["localities"][1]["launches"]
+        out["serve_s"] = time.perf_counter() - t1
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        kw = dict(prompt_len=SERVE["prompt_len"], gen_len=FAM_GATEWAY_GEN,
+                  slots=SERVE["slots"])
+        gw = session.serve_stream(
+            trace=[{"at_round": r} for r in GATEWAY_ARRIVALS],
+            verbose=False, **kw)
+        session._gateway = None
+        gw["serve"] = gw["runtime_stats"]["serve"]
+        handles = {h.rid: h for h in gw["handles"]}
+        gw_oracle = session.run_ranks(gateway_oracle_rank, dict(
+            kw, plan=session.plan, oracle=[
+                (handles[r].prompt, handles[r]._slot)
+                for r in GATEWAY_ORACLE]))
+        out["gateway_s"] = time.perf_counter() - t1
+        torch.cuda.empty_cache()
+    world_left = torch.distributed.is_initialized()
+    reaped = _reaped(pids)
+    if world_left or not reaped:
+        fails.append(f"(n): world left {world_left}, worker reaped {reaped}")
+    out["oracle"] = {name: _oracle_line(
+        f"(n) float32 {name}, {L} layers,", o) for name, o in oracles.items()}
+    for name, res in runs.items():
+        n = MOE_BF16_STEPS if "bf16" in name else S
+        out[name] = _fam_train(
+            f"(n) {name}", res, None if "bf16" in name else
+            oracles[name.split()[0]],
+            {"flash_attention": 2 * L * n, "flash_attention_bwd": L * n},
+            f"moe_tp_{name.replace(' ', '_')}", counts, fails,
+            MOE_TP_NORM_RTOL, MOE_TP_NORM_STEPS)
+    rows = [runs["phylanx bf16"][r]["vocab_rows"] for r in (0, 1)]
+    out["vocab_rows"] = rows
+    if rows != [cfg.vocab, cfg.vocab]:
+        fails.append(f"(n): embedding rows a rank {rows}, want the whole "
+                     f"vocab {cfg.vocab} (odd: unsplit)")
+    print(f"(n) the vocab of {cfg.vocab} stays whole on both ranks (rows a "
+          f"rank {rows}); the experts split: "
+          f"{cfg.n_experts // 2} a rank")
+    out["serve"] = _fam_serve("(n) serve", served, steps._serve_cfg(cfg),
+                              "moe_tp_serve", counts, fails)
+    out["gateway"] = _fam_gateway(
+        "(n) gateway", gw, gw["localities"], gw_oracle, cfg,
+        "moe_tp_gateway", counts, fails)
+    out["world_left"], out["reaped"] = world_left, reaped
+    print("(n) wall: " + ", ".join(f"{k} {v:.1f}" for k, v in out.items()
+                                   if k.endswith("s") and
+                                   isinstance(v, float)))
+    return out
+
+
+def zamba_axis(counts: dict, fails: list) -> dict:
+    """(o) zamba2-2.7b at full width in a ``Plan(model=2)`` session: 40 of
+    80 heads a rank.  At one group (6 mamba layers and the shared block)
+    phylanx in float32 against the one-process float32 run and in bf16
+    (a step: K2 3 and its backward 1 a mamba layer under the nested
+    remat, K1 2 and its backward 1 a group), the prefill and
+    TP_DECODE_STEPS decode steps' float32 logits against one process's;
+    ``Session.serve`` at all 54 layers (K2 54 and K1 9 a prefill a rank);
+    the gateway at ZAMBA_TP_GATEWAY_LAYERS."""
+    cfg = get_config("zamba2-2.7b")
+    heads = ZAMBA_HEADS
+    tcfg = Plan(**ZAMBA_TP_TRAIN).config()
+    L, S = tcfg.n_layers, TP_STEPS
+    groups = L // cfg.shared_every
+    GL = ZAMBA_TP_GATEWAY_LAYERS
+    phase(f"model axis, its families: (o) {cfg.name} at full width on "
+          f"model=2, {heads // 2} of {heads} heads a rank: phylanx at {L} of "
+          f"{cfg.n_layers} layers and its logits, serve all {cfg.n_layers}, "
+          f"the gateway at {GL}")
+    print(f"CUT (o) training and logits to {L} of {cfg.n_layers} layers (one "
+          f"group), its float32 run to batch {ZAMBA_TP_F32_BATCH} and its "
+          f"bf16 run to {ZAMBA_BF16_STEPS} step, Session.serve to one wave "
+          f"of {FAM_SERVE['slots']} x {FAM_SERVE['gen_len']} tokens, the "
+          f"gateway to {GL} layers and {FAM_GATEWAY_GEN} tokens a request: a "
+          f"mamba layer's projection is gathered over gloo three times a "
+          f"training step, its decode takes 4 collectives")
+    stream = RepeatStream(stream_for(tcfg, batch=ZAMBA_TRAIN["batch"],
+                                     seq=ZAMBA_TRAIN["seq"], seed=0))
+    f32_stream = RepeatStream(stream_for(tcfg, batch=ZAMBA_TP_F32_BATCH,
+                                         seq=ZAMBA_TRAIN["seq"], seed=0))
+    out: dict = {}
+    t0 = time.perf_counter()
+    with Plan(arch=cfg.name, tiny=False, model=2,
+              device="cuda").compile() as session:
+        out["up_s"] = time.perf_counter() - t0
+        pids = [pr.pid for pr in session.distributed.group.procs.values()]
+        t1 = time.perf_counter()
+        oracle, want_lg = _fam_warm_oracle(session, lambda: (
+            tp_oracle_train(ZAMBA_TP_F32, f32_stream, S, "phylanx",
+                            FAM_OPT["phylanx"]),
+            tp_oracle_logits(ZAMBA_TP_F32)))
+        out["oracle_s"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        f32 = session.run_ranks(tp_rank, {
+            "plan": Plan(**ZAMBA_TP_F32, model=2, device="cuda"),
+            "stream": f32_stream, "steps": S, "opt": FAM_OPT["phylanx"],
+            "logits": {"prompts": want_lg["prompts"],
+                       "tokens": want_lg["tokens"]}})
+        out["f32_s"] = time.perf_counter() - t1
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        bf16 = session.run_ranks(tp_rank, {
+            "plan": Plan(**ZAMBA_TP_TRAIN, model=2, device="cuda"),
+            "stream": stream, "steps": ZAMBA_BF16_STEPS})
+        out["bf16_s"] = time.perf_counter() - t1
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        _zero_counts()
+        served = session.serve(**FAM_SERVE)
+        counts["zamba_tp_serve_L0"] = _counts()
+        counts["zamba_tp_serve_L1"] = served["localities"][1]["launches"]
+        out["serve_s"] = time.perf_counter() - t1
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        kw = dict(prompt_len=SERVE["prompt_len"], gen_len=FAM_GATEWAY_GEN,
+                  slots=SERVE["slots"])
+        gplan = Plan(arch=cfg.name, tiny=False, model=2, device="cuda",
+                     overrides={"n_layers": GL})
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(0, cfg.vocab, SERVE["prompt_len"]).astype(
+            np.int32) for _ in GATEWAY_ARRIVALS]
+        res = session.run_ranks(
+            mesh_serve.rank_serve_stream,
+            dict(kw, plan=gplan, page_bytes=PAGE_BYTES, params=None),
+            driver=gateway_run(session.runtime, prompts, GATEWAY_ARRIVALS,
+                               kw))
+        gw = res[0]
+        handles = {h.rid: h for h in gw["handles"]}
+        gw_oracle = session.run_ranks(gateway_oracle_rank, dict(
+            kw, plan=gplan, oracle=[(handles[r].prompt, handles[r]._slot)
+                                    for r in GATEWAY_ORACLE]))
+        out["gateway_s"] = time.perf_counter() - t1
+        torch.cuda.empty_cache()
+    world_left = torch.distributed.is_initialized()
+    reaped = _reaped(pids)
+    if world_left or not reaped:
+        fails.append(f"(o): world left {world_left}, worker reaped {reaped}")
+    out["oracle"] = _oracle_line(
+        f"(o) float32, {L} layers, batch {ZAMBA_TP_F32_BATCH},", oracle)
+
+    def want(n):
+        return {"flash_attention": 2 * groups * n,
+                "flash_attention_bwd": groups * n,
+                "mamba2_chunk_scan": 3 * L * n,
+                "mamba2_chunk_scan_bwd": L * n}
+    out["f32"] = _fam_train("(o) phylanx f32", f32, oracle, want(S),
+                            "zamba_tp_f32", counts, fails)
+    out["bf16"] = _fam_train("(o) phylanx bf16", bf16, None,
+                             want(ZAMBA_BF16_STEPS), "zamba_tp_bf16",
+                             counts, fails)
+    got_lg = f32[0]["logits"]["logits"]
+    lg_rel = [mean_rel_err(g, w) for g, w in zip(got_lg, want_lg["logits"])]
+    if len(got_lg) != TP_DECODE_STEPS + 1 or \
+            max(lg_rel) > TP_LOGIT_MEAN_REL_TOL:
+        fails.append(f"(o) logits mean rel err {lg_rel}")
+    for r in (0, 1):
+        counts[f"zamba_tp_logits_L{r}"] = f32[r]["logits"]["launches"]
+        _want_launches(f"(o) logits rank {r}", f32[r]["logits"]["launches"],
+                       prefill_launches(tcfg), fails)
+    print(f"(o) float32 logits, prefill then {TP_DECODE_STEPS} decode steps "
+          f"at {L} layers: mean rel err "
+          f"{' '.join(f'{x:.3g}' for x in lg_rel)} (tolerance "
+          f"{TP_LOGIT_MEAN_REL_TOL:g}); {_tp_wire(f32[0]['logits']['wire'])}")
+    out["logits"] = {"mean_rel_err": lg_rel,
+                     "wire": f32[0]["logits"]["wire"]}
+    out["serve"] = _fam_serve("(o) serve", served, steps._serve_cfg(cfg),
+                              "zamba_tp_serve", counts, fails)
+    out["gateway"] = _fam_gateway(
+        f"(o) gateway, {GL} layers", gw, {1: res[1]}, gw_oracle,
+        gplan.config(), "zamba_tp_gateway", counts, fails)
+    out["world_left"], out["reaped"] = world_left, reaped
+    print("(o) wall: " + ", ".join(f"{k} {v:.1f}" for k, v in out.items()
+                                   if k.endswith("s") and
+                                   isinstance(v, float)))
+    return out
+
+
+def model_axis_families() -> tuple[dict, dict]:
+    """The model axis beyond the dense family (ROADMAP item 14b, part 4):
+    (n) ``moe_axis`` and (o) ``zamba_axis``, each in its own
+    ``Plan(model=2)`` session on the one card.  Returns the counts by run
+    and the readings.
+
+    Raises:
+        AssertionError: any check of either failed (after both ran).
+    """
+    counts: dict = {}
+    fails: list = []
+    readings = {"n": moe_axis(counts, fails), "o": zamba_axis(counts, fails)}
+    if fails:
+        raise AssertionError("model axis, its families: " + "; ".join(fails))
     return counts, readings
 
 
@@ -5099,14 +5613,21 @@ def main() -> int:
         # the model-axis phase alone, serving over a mesh included, after
         # K1 at its sharded shapes and the one-process qwen3-4b serve
         # whose tokens it counts (its readings, no kernels line)
-        phase("K1 at the model axis's shapes against its plain versions")
+        phase("K1 and K2 at the model axis's shapes against their plain "
+              "versions")
         check_kernels(torch.Generator(device="cuda").manual_seed(0),
-                      [TP_SERVE_ATTN, TP_TRAIN_ATTN, TP_B1_ATTN], 3)
+                      FA_CASES[13:22], 9)
         check_fa_bwd(torch.Generator(device="cuda").manual_seed(0),
-                     [TP_TRAIN_ATTN], 1)
+                     FA_BWD_CASES[8:11], 3)
+        check_scan(torch.Generator(device="cuda").manual_seed(0),
+                   SCAN_CASES[4:7], 3)
+        check_scan_bwd(torch.Generator(device="cuda").manual_seed(0),
+                       SCAN_BWD_CASES[1:2], 1)
         serve_full("qwen3-4b")
         _, tp = model_axis()
         print(json.dumps({"model_axis": tp}))
+        _, fam = model_axis_families()
+        print(json.dumps({"model_axis_families": fam}))
         print_phase_times()
         return 0
     if sys.argv[1:]:
@@ -5215,6 +5736,8 @@ def main() -> int:
     launches.update(mesh_launches)
     tp_launches, tp = model_axis()
     launches.update(tp_launches)
+    fam_launches, fam = model_axis_families()
+    launches.update(fam_launches)
 
     for arch in SERVE_ARCHS:
         scfg = steps._serve_cfg(get_config(arch))
@@ -5267,6 +5790,7 @@ def main() -> int:
                       "moe_layer": moe_layer}))
     print(json.dumps({"mesh_training": mesh}))
     print(json.dumps({"model_axis": tp}))
+    print(json.dumps({"model_axis_families": fam}))
     print(json.dumps({"gateway_two_localities": gateway_2loc,
                       "checkpoint_two_localities": ckpt_2loc,
                       "spmd_two_localities": spmd,
@@ -5304,6 +5828,9 @@ def main() -> int:
     fa_tp_serve = {f"tp_serve_{k}": v for k, v in fa[13].items()}
     fa_tp_train = {f"tp_train_{k}": v for k, v in fa[14].items()}
     fa_tp_b1 = {f"tp_serve_b1_{k}": v for k, v in fa[15].items()}
+    fa_fam = {f"{name}_{k}": v for i, name in enumerate((
+        "moe_tp_serve", "moe_tp_train", "moe_tp_serve_b1", "zamba_tp_serve",
+        "zamba_tp_train", "zamba_tp_serve_b1"), 16) for k, v in fa[i].items()}
     bwd_b8 = {f"train_b8_{k}": v for k, v in fa_bwd[1].items()}
     bwd_d80 = {f"zamba_train_{k}": v for k, v in fa_bwd[2].items()}
     bwd_d96 = {f"phi3_d96_{k}": v for k, v in fa_bwd[3].items()}
@@ -5314,6 +5841,8 @@ def main() -> int:
     bwd_whisper_train_dec = {f"whisper_train_dec_{k}": v
                              for k, v in fa_bwd[7].items()}
     bwd_tp_train = {f"tp_train_{k}": v for k, v in fa_bwd[8].items()}
+    bwd_fam = {f"{name}_{k}": v for i, name in enumerate((
+        "moe_tp_train", "zamba_tp_train"), 9) for k, v in fa_bwd[i].items()}
     largest = {k[len("largest_bucket_"):]: v for k, v in onebit.items()
                if k.startswith("largest_bucket_")}
     print(json.dumps({"kernels": [
@@ -5322,18 +5851,20 @@ def main() -> int:
               **fa_b8, **fa_zamba_b8, **fa_b1, **fa_zamba_b1, **fa_moe,
               **fa_moe_b1, **fa_moe_b8, **fa_whisper_enc, **fa_whisper_dec,
               **fa_whisper_train_enc, **fa_whisper_train_dec, **fa_tp_serve,
-              **fa_tp_train, **fa_tp_b1),
+              **fa_tp_train, **fa_tp_b1, **fa_fam),
         entry("flash_attention_bwd",
               "src/repro_torch/csrc/flash_attention.cu", None, fa_bwd[0],
               **bwd_b8, **bwd_d80, **bwd_d96, **bwd_moe, **bwd_whisper,
               **bwd_whisper_train_enc, **bwd_whisper_train_dec,
-              **bwd_tp_train,
+              **bwd_tp_train, **bwd_fam,
               note="no Pallas counterpart: the JAX package differentiates "
                    "attend_chunked (src/repro/models/attention.py:130)"),
         entry("mamba2_chunk_scan", "src/repro_torch/csrc/mamba2_scan.cu",
-              "src/repro/kernels/mamba2_scan.py:75", scan),
+              "src/repro/kernels/mamba2_scan.py:75", scan[0],
+              per_head_bc=scan[1], train_b8=scan[2], serve_b1=scan[3],
+              tp_serve=scan[4], tp_train_b8=scan[5], tp_serve_b1=scan[6]),
         entry("mamba2_chunk_scan_bwd", "src/repro_torch/csrc/mamba2_scan.cu",
-              None, scan_bwd,
+              None, scan_bwd[0], tp_train=scan_bwd[1],
               note="no Pallas counterpart: the JAX package differentiates "
                    "the jnp mamba2_chunked (src/repro/models/ssm.py:90)"),
         entry("onebit_quantize", "src/repro_torch/csrc/onebit.cu",

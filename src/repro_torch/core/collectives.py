@@ -32,7 +32,15 @@ product) and ``reduce_scatter_seq`` (reduce-scatter along ``seq``
 forward, all-gather backward: out of a row-parallel product), the
 collectives XLA inserts around the reference's ``act_constrain``.
 ``pipeline_shift`` is an autograd function too: its backward is the
-reverse shift, the transpose JAX derives for ``ppermute``.
+reverse shift, the transpose JAX derives for ``ppermute``.  Two more
+pairs serve the layers whose blocks are not a Megatron split (the moe
+and zamba families): ``gather_from_model`` (all-gather forward, this
+rank's slice backward: a tensor that every rank then uses whole and
+alike, as the router's logits before the softmax) and ``sum_over_model``
+(all-reduce forward and backward: a sum that each rank then uses for its
+own part, as the gated norm's sum of squares over a split ``d_in``);
+``all_gather_seq`` also gathers any other dim (the mamba projection's
+columns: each rank then reads its own of them).
 
 gloo is the wire, the device keeps the compute: a CUDA tensor is copied
 into a pinned host buffer (reused per size), exchanged, and copied back.
@@ -56,10 +64,11 @@ from . import fusion
 
 __all__ = ["AXES", "all_gather", "all_gather_seq", "all_reduce", "axis_of",
            "broadcast_object", "copy_to_model", "fused_pmean", "fused_psum",
-           "halo_exchange", "naive_psum", "pipeline_shift", "pmean",
-           "ppermute", "reduce_from_model", "reduce_scatter",
-           "reduce_scatter_seq", "reset_stats", "ring_all_reduce",
-           "softmax_combine", "stats"]
+           "gather_from_model", "halo_exchange", "naive_psum",
+           "pipeline_shift", "pmean", "ppermute", "reduce_from_model",
+           "reduce_scatter", "reduce_scatter_seq", "reset_stats",
+           "ring_all_reduce", "softmax_combine", "stats",
+           "sum_over_model"]
 
 #: the axes a collective runs over
 AXES = ("dp", "model", "stage", "mesh", "data", "pod")
@@ -475,7 +484,9 @@ def all_gather_seq(x: torch.Tensor, mesh, dim: int = 1) -> torch.Tensor:
     """Every model rank's rows of the sequence (dim ``dim``), in rank
     order, forward; the sum over the model group of the gradient's rows
     of this rank (a reduce-scatter), backward: the input of a
-    column-parallel product under sequence parallelism."""
+    column-parallel product under sequence parallelism.  Along any other
+    dim the same pair joins blocks that each rank then reads its own part
+    of (the mamba layer's projection columns, ``dim=-1``)."""
     if _size(mesh, "model") == 1:
         return x
     return _AllGatherSeq.apply(x, mesh, dim)
@@ -489,3 +500,45 @@ def reduce_scatter_seq(x: torch.Tensor, mesh, dim: int = 1) -> torch.Tensor:
     if _size(mesh, "model") == 1:
         return x
     return _ReduceScatterSeq.apply(x, mesh, dim)
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim, ctx.n = mesh, dim, x.shape[dim]
+        return all_gather(x.contiguous(), mesh, axis=dim, mesh_axis="model")
+
+    @staticmethod
+    def backward(ctx, g):
+        i = _index(ctx.mesh, "model")
+        return g.narrow(ctx.dim, i * ctx.n, ctx.n).contiguous(), None, None
+
+
+class _SumOverModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return all_reduce(x.contiguous(), mesh, mesh_axis="model")
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous(), ctx.mesh, mesh_axis="model"), None
+
+
+def gather_from_model(x: torch.Tensor, mesh, dim: int = -1) -> torch.Tensor:
+    """Every model rank's block along ``dim``, in rank order, forward;
+    this rank's block of the gradient, backward (no sum): a tensor that
+    every rank uses whole and alike from then on, so that each rank's
+    gradient of it is already the whole one."""
+    if _size(mesh, "model") == 1:
+        return x
+    return _GatherFromModel.apply(x, mesh, dim % x.dim())
+
+
+def sum_over_model(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The sum over the model group, forward and backward: a sum of
+    per-rank parts that each rank then uses for its own part of the
+    output, so that the gradient of the sum is spread over the ranks."""
+    if _size(mesh, "model") == 1:
+        return x
+    return _SumOverModel.apply(x, mesh)

@@ -316,13 +316,16 @@ class Tiles:
 class ModelAxis:
     """A layer's view of the mesh's model axis: ``size`` ranks, this one
     at ``index``, the tiling ``rules``, the serve steps' global decode
-    ``cache_len`` (None in training), and ``seq_len``: the residual's
-    global sequence length where it is split by sequence over the model
-    group (None: every rank holds the whole sequence)."""
+    ``cache_len`` and global ``batch`` (None in training, where each dp
+    rank computes its own rows as the reference's ``shard_map`` does),
+    and ``seq_len``: the residual's global sequence length where it is
+    split by sequence over the model group (None: every rank holds the
+    whole sequence)."""
     mesh: Any
     rules: ShardingRules
     cache_len: Any = None
     seq_len: Any = None
+    batch: Any = None
 
     @property
     def seq(self) -> bool:
@@ -373,16 +376,17 @@ _ACT_HOOK: list = [None]
 
 
 def set_act_hook(mesh, rules: ShardingRules | None, *,
-                 cache_len=None, seq_len=None) -> None:
+                 cache_len=None, seq_len=None, batch=None) -> None:
     """Install ``(mesh, rules)`` for the layers (None: no mesh).  A
     ``seq_len`` splits the residual by sequence where the rules put a
     ``seq`` of that length on the model axis (``spec_for``'s fallback:
     only when it divides); the train step passes it only where the
-    model's vocab splits too."""
+    model's vocab splits too.  A serve step passes its global ``batch``,
+    whose rows the rules may split over the dp group."""
     if mesh is None:
         _ACT_HOOK[0] = None
         return
-    ax = ModelAxis(mesh, rules or default_rules(), cache_len)
+    ax = ModelAxis(mesh, rules or default_rules(), cache_len, batch=batch)
     if seq_len is not None and ax.split("seq", seq_len):
         ax = dataclasses.replace(ax, seq_len=seq_len)
     _ACT_HOOK[0] = ax
@@ -393,14 +397,14 @@ class act_hook:
     block and restores the one before it."""
 
     def __init__(self, mesh, rules: ShardingRules | None, *,
-                 cache_len=None, seq_len=None):
+                 cache_len=None, seq_len=None, batch=None):
         self.mesh, self.rules = mesh, rules
-        self.cache_len, self.seq_len = cache_len, seq_len
+        self.cache_len, self.seq_len, self.batch = cache_len, seq_len, batch
 
     def __enter__(self):
         self.prev = _ACT_HOOK[0]
         set_act_hook(self.mesh, self.rules, cache_len=self.cache_len,
-                     seq_len=self.seq_len)
+                     seq_len=self.seq_len, batch=self.batch)
         return _ACT_HOOK[0]
 
     def __exit__(self, *exc):

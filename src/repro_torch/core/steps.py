@@ -17,27 +17,33 @@ the mesh's dp group with the strategy's exchange (``core/overlap.py``:
 a dp degree of 1 (``mesh=None`` included) every exchange is dropped and
 ``onebit`` is the plain update, as in the reference.
 
-A model axis (the dense family) splits each dp rank into a model group of
-rank processes (``launch/mesh.py``): each holds its blocks of the
-parameters (``core/sharding.py``), runs the model under the activation
-hook (``sharding.act_hook``: vocab-parallel embedding and loss, Megatron
-blocks), sums over its model group the gradients of the replicated leaves
+A model axis (the dense, moe and zamba families) splits each dp rank
+into a model group of rank processes (``launch/mesh.py``): each holds its
+blocks of the parameters (``core/sharding.py``), runs the model under the
+activation hook (``sharding.act_hook``: vocab-parallel embedding and
+loss, Megatron blocks, the experts split, the mamba layers on a rank's
+heads), sums over its model group the gradients of the replicated leaves
 whose use depends on its rank (``model.partial_mask``: ``q_norm``,
-``k_norm``, and a replicated ``wk``/``wv``/``bk``/``bv``), exchanges over
+``k_norm``, a replicated ``wk``/``wv``/``bk``/``bv``, a whole mamba
+``in_proj`` or conv beside split heads), exchanges over
 its column's dp group on its own blocks, and takes the global gradient
 norm over the model group (``optim.global_norm``).  The serve steps tile
 the KV cache by ``decode_rules`` on any mesh: each dp rank serves its
 rows of the batch (``ServeStep.rows``, gathered back by
 ``ServeStep.gather_rows``), and a single stream (batch 1) tiles its
 cache by sequence over ``data`` or the whole mesh, every family on data
-axes, the dense family on a model axis.  ``sequence_parallel`` installs the
+axes, the dense, moe and zamba families on a model axis (the steps give
+the layers the global batch, ``act_hook(batch=)``: the moe layers route
+every dp rank's tokens as the reference routes a serve step's whole
+batch).  ``sequence_parallel`` installs the
 reference's ``default_rules(sequence_parallel=True)``: where the batch's
 sequence divides by the model axis (and the vocab splits, as the loss
 needs), the residual between blocks holds each rank's ``S/M`` rows
 (``sharding.ModelAxis.seq``), and every unsplit leaf's gradient is a
 part to sum over the model group; elsewhere, and at a model axis of 1,
 it is the plain path, as in the reference.  ``onebit`` at a model axis >
-1 and the other families on it are ROADMAP item 14b.  Where
+1, the xlstm and encdec families on it and sequence parallelism beyond
+the dense family are ROADMAP item 14b (``model_axis_refusal``).  Where
 JAX donates the parameters and the optimizer state to the step, the port
 updates them in place and returns the same objects; ``fn_nodonate``
 leaves its inputs as they were (the resilience modes replay from them).
@@ -65,6 +71,8 @@ from ..optim import optimizers as optim
 from ..optim.optimizers import OptConfig
 
 _STRATEGIES = ("phylanx", "horovod", "zero1", "onebit")
+#: the families that run on a model axis > 1
+MODEL_AXIS_FAMILIES = ("dense", "moe", "zamba")
 
 
 # ---------------------------------------------------------------------------
@@ -165,13 +173,19 @@ def batch_rows(batch: dict, mesh) -> dict:
 
 def model_axis_refusal(cfg, strategy) -> Optional[str]:
     """What the port does not run on a model axis > 1 yet (ROADMAP item
-    14b), or None."""
-    if cfg.family != "dense":
+    14b), or None: the families other than dense, moe and zamba (the
+    HAR CNN is reached by no plan), onebit, and sequence parallelism
+    beyond the dense family."""
+    if cfg.family not in MODEL_AXIS_FAMILIES:
         return (f"a model axis for the {cfg.family} family (ROADMAP item "
                 f"14b)")
     if strategy is not None and strategy.name == "onebit":
         return ("onebit at a model axis > 1: its buckets are rows of the "
                 "global leaves (ROADMAP item 14b)")
+    if strategy is not None and strategy.sequence_parallel \
+            and cfg.family != "dense":
+        return (f"sequence parallelism for the {cfg.family} family "
+                f"(ROADMAP item 14b)")
     return None
 
 
@@ -686,7 +700,8 @@ def _serve_step(cfg, shape: dict, mesh, body, rules=None) -> ServeStep:
         cache = local_specs(cache, mesh, rules)
 
     def fn(*args):
-        with act_hook(mesh, rules, cache_len=S):
+        with act_hook(mesh, rules, cache_len=S,
+                      batch=shape["global_batch"]):
             return body(model, S, *args)
 
     return ServeStep(fn=fn, model=model, specs=model.specs(),

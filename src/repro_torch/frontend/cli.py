@@ -7,7 +7,7 @@ Counterpart: ``repro/frontend/cli.py`` (``cli_args``, ``plan_from_args``,
 ``--ddp-shards``, ``--elastic``, ``--elastic-port`` and ``--replicas``
 map onto the plan, and so do the mesh flags ``--data``, ``--model`` and
 ``--pod`` (``--data 2 --model 2`` trains on four rank processes, the
-dense family's layers split over each pair; ``--model 2`` or ``--data
+dense, moe and zamba families' layers split over each pair; ``--model 2`` or ``--data
 2`` serves on two, through either loop).  ``launch/train.py``'s
 ``--ckpt`` maps onto ``Plan.ckpt_dir``.
 """
@@ -42,7 +42,8 @@ def cli_args(ap: Optional[argparse.ArgumentParser] = None
                          "training (or serving) its rows of the batch")
     ap.add_argument("--model", type=int, default=1,
                     help="the mesh's model axis: rank processes that split "
-                         "the dense family's layers (tensor parallelism)")
+                         "the dense, moe and zamba families' layers "
+                         "(tensor and expert parallelism)")
     ap.add_argument("--pod", type=int, default=1,
                     help="the mesh's pod axis (a second dp axis)")
     ap.add_argument("--localities", type=int, default=1,

@@ -36,8 +36,8 @@ session: ``compile`` stands up a ``torch.distributed`` world of ``D * P *
 M`` rank processes (this process rank 0, the others spawned as worker
 localities, over SPMD mode's bring-up), and ``train`` runs the mesh train
 step (``core/steps.py``: the phylanx, horovod, zero1 and onebit
-strategies; a model axis > 1 splits the dense family's layers over each
-row of M ranks) in lockstep on every rank (``frontend/mesh.py``), with
+strategies; a model axis > 1 splits the dense, moe and zamba families'
+layers over each row of M ranks) in lockstep on every rank (``frontend/mesh.py``), with
 checkpoints in the reference's global layout and the
 ``replay``/``replicate`` resilience modes.  ``serve`` on any mesh runs
 the wave loop on every rank (``frontend/mesh.rank_serve``: each dp rank
@@ -47,8 +47,8 @@ reference's serve steps take ``decode_rules``, while ``train`` runs it),
 and ``serve_stream`` runs the gateway on rank 0 with every other rank
 following its command stream (``frontend/mesh.rank_serve_stream``).
 What is still missing raises ``NotImplementedError`` naming the ROADMAP
-item that brings it: the model axis for the other families and for
-onebit, and a mesh with SPMD mode, fabric localities or elastic
+item that brings it: the model axis for the xlstm and encdec families,
+for onebit and for sequence parallelism beyond the dense family, and a mesh with SPMD mode, fabric localities or elastic
 membership (item 14b), the production meshes and named shapes (item
 15).
 """
@@ -1041,6 +1041,9 @@ class Session:
         out["localities"] = {r: {k: m.get(k) for k in (
             "launches", "wire", "peak_bytes", "tokens", "cache_shapes")}
             for r, m in sorted(done.items())}
+        # the session's serve counters, as the one-process loop keeps them
+        self.runtime.record_serve(real_tokens=out["tokens"],
+                                  padded_slot_tokens=out["padded_tokens"])
         out["runtime_stats"] = self._stats_json(self.runtime.stats())
         if verbose:
             w = out["wire"]

@@ -21,7 +21,7 @@ joined, and ``--stall-at-step K`` sleeps 250 ms on the driver at step K,
 the deterministic steal window), the mesh axes (``--data``, ``--pod``:
 that many rank processes, each training its rows of the batch with
 ``--strategy`` phylanx, horovod, zero1 or onebit; ``--model M``: M rank
-processes for each, splitting the dense family's layers;
+processes for each, splitting the dense, moe and zamba families' layers;
 ``--seq-parallel``: the residual split by sequence over the model
 group) and ``--resilience``
 (``none``, ``replay``, ``replicate``), plus ``--device`` and

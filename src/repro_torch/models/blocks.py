@@ -17,12 +17,19 @@ its query gets ``bq``.  It always runs through ``attention.attend_full``
 (the query and key lengths differ, which K1 does not take), as the
 reference computes it with jnp.
 
-On a mesh with a model axis (the dense family) the transformer block is
-Megatron's: the normed input enters the attention and the MLP through
-``collectives.copy_to_model``, each rank computes its own heads and its
-own ``d_ff`` columns, and the row-parallel out projection (``_out_proj``)
-and ``w_down`` leave through ``collectives.reduce_from_model``; the
-residual stream and the norms are the same on every rank.  Under
+On a mesh with a model axis (the dense, moe and zamba families) the
+transformer block is Megatron's: the normed input enters the attention
+and the MLP through ``collectives.copy_to_model``, each rank computes its
+own heads and its own ``d_ff`` columns, and the row-parallel out
+projection (``_out_proj``) and ``w_down`` leave through
+``collectives.reduce_from_model``; the residual stream and the norms are
+the same on every rank.  A moe block's experts split instead of its
+``d_ff`` (``moe.apply_moe``: every rank routes every token, runs its own
+experts and sums over the group), zamba's shared block is the dense one,
+and a mamba block runs its mixer on this rank's heads
+(``ssm.mamba2_chunked``, ``ssm.mamba2_step``: its state holds this
+rank's heads of ``ssm`` and its block of the conv channels, the blocks
+``mamba_state_specs`` gives on the mesh).  Under
 sequence parallelism (the hook's ``seq``) the residual and the norms
 hold this rank's rows of the sequence: the attention and the MLP enter
 through ``collectives.all_gather_seq`` (RoPE and the qk-norms see the
@@ -68,7 +75,8 @@ def _ffn(h, p, cfg):
     if "moe" in p:
         return moe.apply_moe(h, p["moe"], top_k=cfg.top_k,
                              group_size=cfg.moe_group,
-                             dispatch=cfg.moe_dispatch)
+                             dispatch=cfg.moe_dispatch,
+                             n_experts=cfg.n_experts, d_ff=cfg.d_ff)
     return (layers.apply_mlp(h, p["mlp"], cfg.mlp_kind, d_ff=cfg.d_ff),
             torch.zeros((), dtype=torch.float32, device=h.device))
 

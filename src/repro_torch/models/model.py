@@ -36,10 +36,12 @@ each dense or moe layer, its aux included; each mLSTM layer; each mamba
 layer, and each zamba group around them; each encoder and decoder layer
 (the activations are recomputed in the backward pass).
 
-On a mesh with a model axis (the dense family) ``LM`` runs on this rank's
-blocks of every parameter and cache leaf (``core/sharding.py``): the
-embedding, the logits and the loss are vocab-parallel, the blocks
-Megatron's (``blocks.py``); ``prefill`` and ``decode_step`` return this
+On a mesh with a model axis (the dense, moe and zamba families) ``LM``
+runs on this rank's blocks of every parameter and cache leaf
+(``core/sharding.py``): the embedding, the logits and the loss are
+vocab-parallel where the vocab divides (granite's odd vocab stays whole),
+the blocks Megatron's, a moe layer's experts split, a mamba layer on this
+rank's heads (``blocks.py``); ``prefill`` and ``decode_step`` return this
 rank's vocab columns of the logits (``layers.greedy`` takes their global
 argmax, ``layers.gather_vocab`` the whole).  ``partial_mask`` names the
 replicated leaves whose gradient is a per-rank part.  Under sequence
@@ -67,7 +69,7 @@ import torch.utils._pytree as pytree
 from torch.utils.checkpoint import checkpoint
 
 from ..core.sharding import ParamSpec, is_spec, model_sharded
-from . import attention, blocks, layers
+from . import attention, blocks, layers, ssm
 
 # the families ``LM`` builds; ``EncDec`` builds "encdec"
 LM_FAMILIES = ("dense", "moe", "xlstm", "zamba")
@@ -174,12 +176,15 @@ class LM:
     def partial_mask(self, specs, ax):
         """A bool tree shaped like ``specs``: True for the replicated
         leaves whose gradient on a rank of the model axis ``ax`` is that
-        rank's part, to be summed over the model group (``q_norm``,
-        ``k_norm``; ``wk``, ``wv``, ``bk``, ``bv`` when the kv heads do not
-        split: ``attention.partial_grad_leaves``).  Under sequence
-        parallelism (``ax.seq``) that is every leaf the rules do not
-        split: the norms and ``b_down`` see this rank's rows, and an
-        unsplit product's cut keeps only their gradient."""
+        rank's part, to be summed over the model group: in every
+        attention (the dense and moe layers, zamba's shared block)
+        ``q_norm``, ``k_norm`` and, when the kv heads do not split,
+        ``wk``, ``wv``, ``bk``, ``bv`` (``attention.partial_grad_leaves``);
+        in zamba's mamba layers a whole ``in_proj``, ``conv_w``,
+        ``conv_b`` beside split heads (``ssm.partial_grad_leaves``).
+        Under sequence parallelism (``ax.seq``) that is every leaf the
+        rules do not split: the norms and ``b_down`` see this rank's
+        rows, and an unsplit product's cut keeps only their gradient."""
         cfg = self.cfg
         if ax.seq:
             return pytree.tree_map(
@@ -188,11 +193,20 @@ class LM:
         names = attention.partial_grad_leaves(cfg.n_heads, cfg.n_kv_heads,
                                               ax)
         out = pytree.tree_map(lambda s: False, specs, is_leaf=is_spec)
-        if cfg.family == "dense":
+
+        def mark(node, leaves):
+            for n in leaves:
+                if n in node:
+                    node[n] = True
+        if cfg.family in ("dense", "moe"):
             for layer in out["stack"]:
-                for n in names:
-                    if n in layer["attn"]:
-                        layer["attn"][n] = True
+                mark(layer["attn"], names)
+        elif cfg.family == "zamba":
+            mark(out["stack"]["shared"]["attn"], names)
+            mixer = ssm.partial_grad_leaves(cfg, ax)
+            for group in out["stack"]["mamba"]:
+                for layer in group:
+                    mark(layer["mixer"], mixer)
         return out
 
     def cache_specs(self, batch: int, cache_len: int):

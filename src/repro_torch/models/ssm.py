@@ -2,12 +2,12 @@
 mLSTM and sLSTM of the xlstm family.
 
 Counterpart: ``repro/models/ssm.py`` (``causal_conv1d``, ``mamba2_specs``,
-``_mamba2_split``, ``mamba2_chunked``, ``mamba2_init_state``,
-``mamba2_step``; ``mlstm_specs``, ``_mlstm_qkvif``, ``mlstm_chunked``,
-``mlstm_init_state``, ``mlstm_step``; ``slstm_specs``, ``_slstm_cell``,
-``slstm_apply``, ``slstm_init_state``, ``slstm_step``).  The same
-contract as attention: a chunked form for prefill and a step form for
-decode carrying an explicit state.
+``_mamba2_split`` as ``_project``, ``mamba2_chunked``,
+``mamba2_init_state``, ``mamba2_step``; ``mlstm_specs``, ``_mlstm_qkvif``,
+``mlstm_chunked``, ``mlstm_init_state``, ``mlstm_step``; ``slstm_specs``,
+``_slstm_cell``, ``slstm_apply``, ``slstm_init_state``, ``slstm_step``).
+The same contract as attention: a chunked form for prefill and a step
+form for decode carrying an explicit state.
 
 ``mamba2_chunked`` keeps every step of the JAX function up to the scan and
 then sends the scan to the chunk-scan kernel (``kernels/mamba2_scan.py``,
@@ -16,6 +16,27 @@ CPU tensors it runs the kernel's plain version.  This differs from the
 JAX package on purpose, as ``attend`` does for attention: the JAX model
 computes the scan with jnp einsums and never calls its own Pallas kernel.
 ``mamba2_step`` (decode) stays plain tensor code: no kernel exists for it.
+
+On a mesh with a model axis (the hook's ``model_axis()``) a Mamba-2 layer
+runs on this rank's ``H/M`` heads, every leaf stored as the contiguous
+block the tiling plan gives it (``spec_for``: the fused ``in_proj``
+columns z | x | B | C | dt and the conv channels x | B | C are cut
+across their segments).  The input enters through ``copy_to_model``;
+``x @ in_proj``'s block is joined over the group by
+``collectives.all_gather_seq`` (its backward sums each rank's part of
+the columns it reads), and the rank takes its heads' z, x and dt and all
+of B and C.  Over a sequence the split conv weights are gathered (with
+their bias: ``K + 1`` rows, where the conv's output would be ``B * L``
+rows) and the rank convolves the channels it reads; a decode step
+convolves the cache's own block of channels and gathers that output.
+K2 and its backward run on ``[B, H/M, L, P]`` with the groups of B and C
+that the rank's heads read.  The gated norm's sum of squares over all of
+``d_in`` is summed over the group (``collectives.sum_over_model``) and
+``out_proj``'s rows leave through ``reduce_from_model``.  A leaf that
+does not divide stays whole (``_Heads``: an unsplit ``in_proj`` or conv
+is computed whole and its gradient summed, ``partial_grad_leaves``), and
+where the heads do not divide every rank gathers the split leaves
+(``gather_from_model``) and runs the whole layer.
 
 mLSTM and sLSTM are plain tensor code throughout, as in the JAX package
 (which has no kernel for them): the reference's ``compat.layer_scan`` over
@@ -29,11 +50,13 @@ stacked outputs are in the compute dtype.
 from __future__ import annotations
 
 import math
+from typing import Any, NamedTuple
 
 import torch
 import torch.nn.functional as F
 
-from ..core.sharding import ParamSpec
+from ..core import collectives
+from ..core.sharding import ParamSpec, model_axis
 from ..kernels.mamba2_scan import mamba2_chunk_scan
 from . import layers
 
@@ -78,44 +101,158 @@ def mamba2_specs(d: int, *, expand: int = 2, head_dim: int = 64,
     }
 
 
-def _mamba2_split(x, p, cfg):
-    """Project and split into (z, xbc-conv inputs, dt)."""
+def _dims(cfg) -> tuple:
+    """(d_in, H, P, N, G) of the Mamba-2 layer."""
     d_in = cfg.expand * cfg.d_model
-    H = d_in // cfg.ssm_head_dim
-    gn = cfg.ssm_groups * cfg.ssm_state
+    return (d_in, d_in // cfg.ssm_head_dim, cfg.ssm_head_dim, cfg.ssm_state,
+            cfg.ssm_groups)
+
+
+class _Heads(NamedTuple):
+    """One rank's part of a Mamba-2 layer whose heads split over the model
+    axis ``ax``: its heads ``hb``, whether ``in_proj``'s fused columns
+    split (``proj``) and whether the conv's channels split (``conv``: its
+    weights and the decode cache's ``conv``, this rank's block ``cb`` of
+    them); a leaf that does not split is whole on every rank."""
+    ax: Any
+    hb: slice
+    proj: bool
+    conv: bool
+    cb: slice
+
+
+def _split_of(cfg):
+    """(the installed model axis, this rank's ``_Heads``): (None, None)
+    in one process, (ax, None) where the heads do not split (every rank
+    computes every head)."""
+    ax = model_axis()
+    if ax is None:
+        return None, None
+    d_in, H, _, N, G = _dims(cfg)
+    if not ax.split("heads", H):
+        return ax, None
+    conv_ch = d_in + 2 * G * N
+    return ax, _Heads(ax, ax.block(H),
+                      ax.split("inner", 2 * d_in + 2 * G * N + H),
+                      ax.split("inner", conv_ch), ax.block(conv_ch))
+
+
+def _whole(p, cfg, ax) -> dict:
+    """The layer's parameters with every leaf that the model axis splits
+    gathered whole (``gather_from_model``: every rank then computes the
+    whole layer alike): where the heads do not split."""
+    d_in, H, _, N, G = _dims(cfg)
+    conv_ch = d_in + 2 * G * N
+    out = dict(p)
+    for name, n, dim in (("in_proj", conv_ch + d_in + H, 1),
+                         ("conv_w", conv_ch, 1), ("conv_b", conv_ch, 0),
+                         ("norm_w", d_in, 0), ("out_proj", d_in, 0)):
+        if ax.split("inner", n):
+            out[name] = collectives.gather_from_model(p[name], ax.mesh, dim)
+    return out
+
+
+def _project(x, p, cfg, hs):
+    """Project: (z of this rank's heads, the conv's input channels (all of
+    them), dt of its heads).  With heads ``hs`` the input enters through
+    ``copy_to_model`` and a split ``in_proj``'s columns are joined by
+    ``all_gather_seq`` (its backward sums each rank's part of them)."""
+    d_in, H, P, N, G = _dims(cfg)
+    gn = G * N
+    if hs is not None:
+        x = collectives.copy_to_model(x, hs.ax.mesh)
     zxbcdt = x @ p["in_proj"].to(x.dtype)
-    z = zxbcdt[..., :d_in]
+    if hs is not None and hs.proj:
+        zxbcdt = collectives.all_gather_seq(zxbcdt, hs.ax.mesh, dim=-1)
+    hb = slice(0, H) if hs is None else hs.hb
+    z = zxbcdt[..., hb.start * P:hb.stop * P]
     xbc = zxbcdt[..., d_in:d_in + d_in + 2 * gn]
-    dt = zxbcdt[..., -H:]
+    dt = zxbcdt[..., 2 * d_in + 2 * gn + hb.start:2 * d_in + 2 * gn + hb.stop]
     return z, xbc, dt
 
 
-def _gate_out(y, xs, z, p, d_in: int):
-    """``+ xs D``, the gated rms_norm and the output projection."""
+def _read(t, cfg, hs):
+    """The conv channels of ``t`` (last dim: all of them) that this
+    rank's heads read: their x channels, then all of B and C."""
+    if hs is None:
+        return t
+    d_in, P = _dims(cfg)[0], cfg.ssm_head_dim
+    return torch.cat([t[..., hs.hb.start * P:hs.hb.stop * P],
+                      t[..., d_in:]], dim=-1)
+
+
+def _conv_seq(xbc, p, cfg, hs):
+    """silu of the causal conv over a whole sequence, on the channels this
+    rank reads.  Split conv weights are gathered (with their bias, one
+    exchange; ``all_gather_seq``, so that each rank's gradient of them is
+    its own block's sum): they are ``K + 1`` rows, where the conv's output
+    would be ``B * L``."""
+    w, b = p["conv_w"], p["conv_b"]
+    if hs is not None and hs.conv:
+        wb = collectives.all_gather_seq(torch.cat([w, b[None]]),
+                                        hs.ax.mesh, dim=-1)
+        w, b = wb[:-1], wb[-1]
+    y, _ = causal_conv1d(_read(xbc, cfg, hs), _read(w, cfg, hs),
+                         _read(b, cfg, hs))
+    return F.silu(y)
+
+
+def _groups(H: int, G: int, hb: slice):
+    """The B/C groups that heads ``hb`` read (head h reads group
+    ``h // (H / G)``), as K2 takes them: a slice of whole groups when the
+    heads cover them evenly, else one group per head (an index list)."""
+    per = H // G
+    idx = [h // per for h in range(hb.start, hb.stop)]
+    uniq = sorted(set(idx))
+    rep = len(idx) // len(uniq)
+    if len(idx) % len(uniq) == 0 and idx == [u for u in uniq
+                                             for _ in range(rep)]:
+        return slice(uniq[0], uniq[-1] + 1)
+    return idx
+
+
+def _gate_out(y, xs, z, p, cfg, hs):
+    """``+ xs D``, the gated rms_norm and the output projection.  On a
+    rank's heads the norm's sum of squares over all of ``d_in`` is summed
+    over the model group (``sum_over_model``) and the projection's rows
+    are this rank's, its output summed over the group
+    (``reduce_from_model``)."""
     dt_f = y.dtype
     y = y + xs * p["D"].to(dt_f)[:, None]
-    y = y.reshape(*y.shape[:-2], d_in)
-    y = layers.rms_norm(y * F.silu(z), p["norm_w"])
-    return y @ p["out_proj"].to(dt_f)
+    y = y.reshape(*y.shape[:-2], y.shape[-2] * y.shape[-1])
+    g = y * F.silu(z)
+    if hs is None:
+        return layers.rms_norm(g, p["norm_w"]) @ p["out_proj"].to(dt_f)
+    ss = collectives.sum_over_model(
+        g.float().square().sum(dim=-1, keepdim=True), hs.ax.mesh)
+    scale = torch.rsqrt(ss / _dims(cfg)[0] + 1e-6).to(dt_f)
+    out = (g * scale * p["norm_w"].to(dt_f)) @ p["out_proj"].to(dt_f)
+    return collectives.reduce_from_model(out, hs.ax.mesh)
 
 
 def mamba2_chunked(x, p, cfg, *, chunk: int = 256, return_state: bool = False):
     """Prefill pass. x: [B, L, D] -> [B, L, D] (+ final state
-    ``{"ssm": [B, H, P, N] float32, "conv": [B, K-1, conv channels]}``)."""
+    ``{"ssm": [B, H, P, N] float32, "conv": [B, K-1, conv channels]}``;
+    on a model axis this rank's heads of ``ssm`` and its block of the
+    conv channels)."""
     B, L, D = x.shape
-    d_in = cfg.expand * D
-    H = d_in // cfg.ssm_head_dim
-    P = cfg.ssm_head_dim
-    N = cfg.ssm_state
-    G = cfg.ssm_groups
+    _, H, P, N, G = _dims(cfg)
     dt_f = x.dtype
+    ax, hs = _split_of(cfg)
+    if ax is not None and hs is None:
+        p = _whole(p, cfg, ax)
+    hb = slice(0, H) if hs is None else hs.hb
+    Hl = hb.stop - hb.start
 
-    z, xbc_in, dt = _mamba2_split(x, p, cfg)
-    xbc, _ = causal_conv1d(xbc_in, p["conv_w"], p["conv_b"])
-    xbc = F.silu(xbc)
-    xs = xbc[..., :d_in].reshape(B, L, H, P)
-    Bm = xbc[..., d_in:d_in + G * N].reshape(B, L, G, N)
-    Cm = xbc[..., d_in + G * N:].reshape(B, L, G, N)
+    z, xbc_in, dt = _project(x, p, cfg, hs)
+    xbc = _conv_seq(xbc_in, p, cfg, hs)
+    d_loc = Hl * P
+    xs = xbc[..., :d_loc].reshape(B, L, Hl, P)
+    Bm = xbc[..., d_loc:d_loc + G * N].reshape(B, L, G, N)
+    Cm = xbc[..., d_loc + G * N:].reshape(B, L, G, N)
+    if hs is not None:
+        grp = _groups(H, G, hb)
+        Bm, Cm = Bm[:, :, grp], Cm[:, :, grp]
 
     dt = F.softplus(dt.float() + p["dt_bias"].float())             # [B,L,H]
     A = -torch.exp(p["A_log"].float())                             # [H]
@@ -128,13 +265,16 @@ def mamba2_chunked(x, p, cfg, *, chunk: int = 256, return_state: bool = False):
         xdt.transpose(1, 2).contiguous(), a.transpose(1, 2).contiguous(),
         Bm.transpose(1, 2).contiguous(), Cm.transpose(1, 2).contiguous(),
         chunk=chunk)
-    out = _gate_out(y.transpose(1, 2), xs, z, p, d_in)
+    out = _gate_out(y.transpose(1, 2), xs, z, p, cfg, hs)
     if return_state:
         K = p["conv_w"].shape[0]
-        # the pre-conv inputs of the last K-1 positions, copied out of the
-        # projection so that the cache does not hold all of it
-        conv = xbc_in[:, -(K - 1):, :].contiguous()
-        return out, {"ssm": S_final, "conv": conv}
+        # the pre-conv inputs of the last K-1 positions (this rank's block
+        # of the channels where they split), copied out of the projection
+        # so that the cache does not hold all of it
+        conv = xbc_in[:, -(K - 1):, :]
+        if ax is not None and ax.split("inner", conv.shape[-1]):
+            conv = conv[..., ax.block(conv.shape[-1])]
+        return out, {"ssm": S_final, "conv": conv.contiguous()}
     return out
 
 
@@ -151,24 +291,48 @@ def mamba2_init_state(batch: int, cfg, dtype=torch.float32,
     }
 
 
-def mamba2_step(x, state, p, cfg):
-    """Decode one token. x: [B, 1, D] -> (y [B,1,D], new state)."""
-    B, _, D = x.shape
-    d_in = cfg.expand * D
-    H = d_in // cfg.ssm_head_dim
-    P = cfg.ssm_head_dim
-    N = cfg.ssm_state
-    G = cfg.ssm_groups
+def _conv_step(xbc, p, cfg, hs, ax, cache):
+    """silu of one decode step's conv on the channels this rank reads,
+    and the new conv cache (this rank's block where the channels split:
+    the block's conv, its outputs gathered over the model group)."""
+    conv_ch = xbc.shape[-1]
+    if ax is None or not ax.split("inner", conv_ch):
+        y, cache = causal_conv1d(xbc, p["conv_w"], p["conv_b"],
+                                 cache=cache)
+    elif hs is None:              # the whole conv, on the gathered cache
+        cb = ax.block(conv_ch)
+        whole = collectives.all_gather(cache, ax.mesh, axis=-1,
+                                       mesh_axis="model")
+        y, cache = causal_conv1d(xbc, p["conv_w"], p["conv_b"], cache=whole)
+        cache = cache[..., cb].contiguous()
+    else:
+        y, cache = causal_conv1d(xbc[..., hs.cb], p["conv_w"], p["conv_b"],
+                                 cache=cache)
+        y = collectives.all_gather(y.contiguous(), ax.mesh, axis=-1,
+                                   mesh_axis="model")
+    return F.silu(_read(y, cfg, hs)), cache
 
-    z, xbc, dt = _mamba2_split(x, p, cfg)
-    xbc, conv_cache = causal_conv1d(xbc, p["conv_w"], p["conv_b"],
-                                    cache=state["conv"])
-    xbc = F.silu(xbc)
-    xs = xbc[..., :d_in].reshape(B, H, P)
-    Bm = xbc[..., d_in:d_in + G * N].reshape(B, G, N).repeat_interleave(
-        H // G, dim=1)
-    Cm = xbc[..., d_in + G * N:].reshape(B, G, N).repeat_interleave(
-        H // G, dim=1)
+
+def mamba2_step(x, state, p, cfg):
+    """Decode one token. x: [B, 1, D] -> (y [B,1,D], new state); on a
+    model axis the state holds this rank's blocks, as ``mamba2_chunked``
+    returns them."""
+    B, _, D = x.shape
+    _, H, P, N, G = _dims(cfg)
+    ax, hs = _split_of(cfg)
+    if ax is not None and hs is None:
+        p = _whole(p, cfg, ax)
+    hb = slice(0, H) if hs is None else hs.hb
+    Hl = hb.stop - hb.start
+
+    z, xbc, dt = _project(x, p, cfg, hs)
+    xbc, conv_cache = _conv_step(xbc, p, cfg, hs, ax, state["conv"])
+    d_loc = Hl * P
+    xs = xbc[..., :d_loc].reshape(B, Hl, P)
+    Bm = xbc[..., d_loc:d_loc + G * N].reshape(B, G, N).repeat_interleave(
+        H // G, dim=1)[:, hb]
+    Cm = xbc[..., d_loc + G * N:].reshape(B, G, N).repeat_interleave(
+        H // G, dim=1)[:, hb]
 
     dt = F.softplus(dt[:, 0].float() + p["dt_bias"].float())       # [B,H]
     A = -torch.exp(p["A_log"].float())
@@ -176,8 +340,24 @@ def mamba2_step(x, state, p, cfg):
     S = state["ssm"] * decay[..., None, None] + torch.einsum(
         "bhp,bhe,bh->bhpe", xs.float(), Bm.float(), dt)
     y = torch.einsum("bhpe,bhe->bhp", S, Cm.float()).to(x.dtype)
-    out = _gate_out(y[:, None], xs[:, None], z, p, d_in)
+    out = _gate_out(y[:, None], xs[:, None], z, p, cfg, hs)
     return out, {"ssm": S, "conv": conv_cache}
+
+
+def partial_grad_leaves(cfg, ax) -> tuple:
+    """The Mamba-2 leaves that the model axis ``ax`` leaves whole while
+    the heads split, so that each rank's gradient is a part to sum over
+    the group: ``in_proj`` (each rank reads its heads' columns and a
+    share of B and C), ``conv_w``/``conv_b`` (each rank convolves its
+    heads' channels and B and C)."""
+    d_in, H, _, N, G = _dims(cfg)
+    if not ax.split("heads", H):
+        return ()
+    conv_ch = d_in + 2 * G * N
+    out = () if ax.split("inner", conv_ch + d_in + H) else ("in_proj",)
+    if not ax.split("inner", conv_ch):
+        out += ("conv_w", "conv_b")
+    return out
 
 
 # ===========================================================================

@@ -14,7 +14,9 @@
   session's checkpoint is the global layout that a one-process session
   resumes from;
 * a fault on one rank of the model group replays the step on both;
-* each refusal that stays names its ROADMAP item.
+* each refusal that stays names its ROADMAP item (the moe and zamba
+  families run on a model axis since, but not with onebit or sequence
+  parallelism).
 """
 import json
 import os
@@ -214,14 +216,20 @@ def test_replay_verdicts_are_agreed_over_the_model_group():
 
 
 @pytest.mark.parametrize("kw, match", [
-    (dict(arch="granite-moe-1b-a400m", model=2), "moe family"),
-    (dict(arch="zamba2-2.7b", model=2), "zamba family"),
+    # the moe and zamba families run on a model axis; not with onebit,
+    # nor with sequence parallelism, nor the other families
+    (dict(arch="granite-moe-1b-a400m", model=2, strategy="onebit"),
+     "onebit at a model axis"),
+    (dict(arch="zamba2-2.7b", model=2,
+          strategy=steps.Strategy(sequence_parallel=True)),
+     "sequence parallelism for the zamba family"),
     (dict(arch="xlstm-350m", model=2), "xlstm family"),
     (dict(arch="whisper-medium", model=2), "encdec family"),
     (dict(model=2, strategy="onebit"), "onebit at a model axis"),
-    # sequence parallelism runs on the dense family only, as the model axis
+    # sequence parallelism runs on the dense family only
     (dict(arch="granite-moe-1b-a400m", model=2,
-          strategy=steps.Strategy(sequence_parallel=True)), "moe family"),
+          strategy=steps.Strategy(sequence_parallel=True)),
+     "sequence parallelism for the moe family"),
     (dict(model=2, spmd=True, localities=2), "SPMD mode"),
     (dict(model=2, localities=2), "fabric localities"),
     (dict(model=2, elastic=True), "elastic membership"),
@@ -242,11 +250,15 @@ def test_step_builders_refuse_what_the_plan_refuses():
     with pytest.raises(NotImplementedError, match="onebit.*item 14b"):
         steps.make_train_step(get_config("qwen3-4b", tiny=True),
                               steps.Strategy(name="onebit"), mesh=mesh)
-    with pytest.raises(NotImplementedError, match="moe family.*item 14b"):
-        steps.make_prefill_step(get_config("granite-moe-1b-a400m",
-                                           tiny=True),
+    with pytest.raises(NotImplementedError, match="xlstm family.*item 14b"):
+        steps.make_prefill_step(get_config("xlstm-350m", tiny=True),
                                 {"seq_len": 8, "global_batch": 1},
                                 mesh=mesh)
+    with pytest.raises(NotImplementedError,
+                       match="sequence parallelism for the moe.*item 14b"):
+        steps.make_train_step(get_config("granite-moe-1b-a400m", tiny=True),
+                              steps.Strategy(sequence_parallel=True),
+                              mesh=mesh)
     # sequence parallelism builds and runs (at model=1: the plain path)
     cfg = get_config("qwen3-4b", tiny=True)
     sp, plain = (steps.make_train_step(cfg, steps.Strategy(

@@ -390,7 +390,7 @@ def test_launch_train_raises_for_what_the_port_does_not_run(argv, match):
 
 def test_not_implemented_surface():
     with pytest.raises(NotImplementedError, match="item 14b"):
-        Plan(device="cpu", model=2, arch="zamba2-2.7b").compile()
+        Plan(device="cpu", model=2, arch="xlstm-350m").compile()
     with Plan(device="cpu").compile() as session:
         with pytest.raises(ValueError, match="resilience"):
             session.train(steps=1, resilience="retry", verbose=False)

@@ -223,8 +223,9 @@ def _tp_trajectory(mesh, cfg, case: dict) -> dict:
     from repro_torch.data.pipeline import LMStream, to_device
     from repro_torch.optim.optimizers import OptConfig
     step = steps.make_train_step(
-        cfg, steps.Strategy(name=case["name"], opt=OptConfig(lr=case["lr"]),
-                            sequence_parallel=case.get("sp", False)),
+        cfg, steps.Strategy(name=case["name"], opt=OptConfig(
+            kind=case.get("opt", "adamw"), lr=case["lr"]),
+            sequence_parallel=case.get("sp", False)),
         mesh=mesh, shape={"global_batch": case["batch"],
                           "seq_len": case["seq"]})
     _, opt = step.init(torch.Generator().manual_seed(0), "cpu")
@@ -595,9 +596,70 @@ def job_pipeline(rank: int, n: int, payload: dict) -> dict:
     return out
 
 
+def _family_cfg(arch: str, over: dict):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch, tiny=True), **over)
+
+
+def _gather_pairs(mesh) -> dict:
+    """``gather_from_model`` and ``sum_over_model`` forward and backward
+    on seeded ``[3, 2M]`` tensors (rank ``r``'s own seeds ``500 + r``,
+    ``600 + r``), with their plain one-process versions."""
+    import torch
+
+    from repro_torch.core import collectives
+    n, r = mesh.model_size, mesh.model_rank
+    x = torch.from_numpy(seeded((3, 2 * n), 8))
+    mine = x[:, 2 * r:2 * r + 2].clone().requires_grad_(True)
+    y = collectives.gather_from_model(mine, mesh, -1)
+    y.backward(torch.from_numpy(seeded((3, 2 * n), 500 + r)))
+    part = torch.from_numpy(seeded((3, 4), 600 + r)).requires_grad_(True)
+    z = collectives.sum_over_model(part, mesh)
+    z.backward(torch.from_numpy(seeded((3, 4), 700 + r)))
+    return {
+        "gather": y.detach().numpy(), "gather_want": x.numpy(),
+        "gather_grad": mine.grad.numpy(),
+        "gather_grad_want": seeded((3, 2 * n), 500 + r)[:, 2 * r:2 * r + 2],
+        "sum": z.detach().numpy(),
+        "sum_want": sum(seeded((3, 4), 600 + k) for k in range(n)),
+        "sum_grad": part.grad.numpy(),
+        "sum_grad_want": sum(seeded((3, 4), 700 + k) for k in range(n))}
+
+
+def job_model_axis_families(rank: int, n: int, payload: dict) -> dict:
+    """The checks of ``tests/test_torch_model_axis_families.py`` on a
+    world of 4: the loss and gathered gradients of each ``grad_cases``
+    key ``cfg@mesh`` (``payload["cfgs"][cfg]`` an ``(arch, overrides)``
+    pair, its parameters and batch in ``payload["params"]`` and
+    ``payload["batch"]``), the strategies' trajectories
+    (``payload["cases"]``), and the two new autograd pairs."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_local_mesh
+    meshes = {"2x2": make_local_mesh(data=2, model=2),
+              "1x4": make_local_mesh(model=4)}
+    out: dict = {"grads": {}, "cases": {}}
+    for key in payload["grad_cases"]:
+        c, m = key.split("@")
+        out["grads"][key] = _sp_grads(
+            meshes[m], _family_cfg(*payload["cfgs"][c]), payload["params"][c],
+            payload["batch"][c], sp=False)
+    for case in payload["cases"]:
+        c, m = case["cfg"], case["mesh"]
+        out["cases"][case["key"]] = _tp_trajectory(
+            meshes[m], _family_cfg(*payload["cfgs"][c]),
+            dict(case, params=payload["params"][c]))
+    out["pairs"] = {k: _gather_pairs(v) for k, v in meshes.items()}
+    dist.barrier()
+    return out
+
+
 JOBS = {"trajectories": job_trajectories, "collectives": job_collectives,
         "tensor_parallel": job_tensor_parallel,
-        "seq_parallel": job_seq_parallel, "pipeline": job_pipeline}
+        "seq_parallel": job_seq_parallel, "pipeline": job_pipeline,
+        "model_axis_families": job_model_axis_families}
 
 
 # -- fault hooks (shipped to worker ranks by reference) -----------------------
