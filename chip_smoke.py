@@ -41,7 +41,10 @@ without the final ``{"ok": true, ...}`` line:
    model=2, granite's (H=8, Hkv=4) and zamba2-2.7b's shared block's
    (H=Hkv=16, d=80) at batch 4, 8 and 1, forward, and at 8 backward; K2
    on a rank's 40 of zamba2-2.7b's 80 heads at batch 4, 8 and 1, and its
-   backward at 8; K1 at whisper-medium's
+   backward at 8; K1 on whisper-medium's rank heads at model=2 (H=Hkv=8,
+   d=64: the encoder at S=1500 and the decoder at S=512, at batch 4 and
+   8 in bf16 and at batch 2 in float32, forward and backward but the
+   serve batch's); K1 at whisper-medium's
    shapes (d=64, H=Hkv=16, batch 4: the encoder's non-causal
    self-attention at S=1500, forward and backward, and the decoder's
    causal prefill at S=512).  K1 is held by its largest error and by its
@@ -178,7 +181,7 @@ without the final ``{"ok": true, ...}`` line:
    phase's), (j) a single stream at ``data=2`` whose cache is tiled by
    sequence (272 of 544 positions a rank; the prefill and 8 decode
    logits at 4 layers within 1e-2 mean relative error of one process's,
-   then one request at 36 layers, K1 36 a rank, the dp all-reduces a
+   then one request at 12 layers, K1 12 a rank, the dp all-reduces a
    step), (l) the gateway at ``model=2`` (12 layers) and at ``data=2``
    (6 layers), both through ``rank_serve_stream``, each with K1 8 x layers a rank, every
    refill a page hit, every page reclaimed on both ranks, each rank's
@@ -191,22 +194,33 @@ without the final ``{"ok": true, ...}`` line:
    ``Plan(model=2)`` session of its own: (n) granite-moe-1b-a400m (16 of
    its 32 experts a rank, its odd vocab of 49,155 whole on both) trains 4
    of its 24 layers in float32 with phylanx (momentum) and with zero1
-   (adamw at lr 1e-5), 3 steps each, held as (a) is to the one-process
+   (adamw at lr 1e-5), 2 steps each, held as (a) is to the one-process
    float32 runs (the gradient norm at the first step, within 3e-2:
    routing near-ties), and
    2 phylanx steps in bf16 (K1 2 x 4 and its backward 4 a step and rank;
    the unsplit leaves bit-identical on both ranks in every run), serves
-   all 24 layers (``Session.serve``, one wave of 4 x 4 tokens, K1 24 a
-   rank) and streams (the session's gateway, 4 tokens a request, K1 24
-   a request a rank, held as (l) is); (o) zamba2-2.7b (40 of 80 heads a
+   8 of its 24 layers (``Session.serve``, one wave of 4 x 4 tokens, K1 8
+   a rank) and streams them (the session's gateway, 4 tokens a request,
+   K1 8 a request a rank, held as (l) is); (o) zamba2-2.7b (40 of 80 heads a
    rank) trains one group (6 mamba layers and the shared block) in
-   float32 at batch 1 with phylanx (momentum, 3 steps, held as (a) is; a
+   float32 at batch 1 with phylanx (momentum, 2 steps, held as (a) is; a
    step and rank: K2 18 and its backward 6, K1 2 and its backward 1) and
    one bf16 step at batch 8, its float32 prefill and 8 decode logits at
    that depth within 1e-2 mean relative error of one process's, serves
-   all 54 layers (one wave: K2 54, K1 9 a rank) and streams at 18 layers
-   (``rank_serve_stream``, K2 18 and K1 3 a request a rank, held as (l)
-   is);
+   all 54 layers (one wave: K2 54, K1 9 a rank) and streams at one group
+   of 6 layers (``rank_serve_stream``, K2 6 and K1 1 a request a rank,
+   held as (l) is); (p) xlstm-350m (2 of 4 mLSTM and 2 of 4 sLSTM heads a rank)
+   trains 8 of its 24 layers in float32 at batch 1 with phylanx
+   (momentum, 2 steps, held as (a) is) and one bf16 step at batch 8 (no
+   kernel; the unsplit leaves bit-identical), serves all 24 layers and
+   streams at 8 (held as (l) is); (q) whisper-medium (8 of 16 heads a
+   rank, its odd vocab of 51,865 whole) trains 9 of 24 encoder and 6 of
+   24 decoder layers in float32 at batch 2 with every wq x 1/8 (the
+   reference's init saturates the softmax; one process against itself
+   is printed at both inits) with phylanx (2 steps, held as (a) is; K1
+   30 and its backward 15 a step and rank) and one bf16 step at batch 8
+   from the reference's init, and serves all 24 + 24 layers (one wave:
+   K1 48 a rank);
 13. where the time goes: one prefill (at the wave's batch, and at batch 1
    but for whisper-medium) and one decode step of each served
    configuration (xlstm-350m's at ``PROFILE_LAYERS``), one plain and one
@@ -352,9 +366,9 @@ XLSTM_TRAIN_LAYERS = 8
 XLSTM_TRAIN = dict(arch="xlstm-350m", tiny=False, batch=8, seq=512,
                    overrides={"n_layers": XLSTM_TRAIN_LAYERS})
 WHISPER_TRAIN = dict(arch="whisper-medium", tiny=False, batch=8, seq=512)
-# 4 steps (the others run TRAIN_STEPS), to keep the script inside its
-# time limit; step 2 of each run is profiled
-FAMILY_TRAIN_STEPS = 4
+# 3 steps (the others run TRAIN_STEPS; 4 before PR 29), to keep the
+# script inside its time limit; step 2 of each run is profiled
+FAMILY_TRAIN_STEPS = 3
 FAMILY_PROFILE_AT = 2
 # whisper-medium from the reference's random init: the init takes fan-in
 # shape[-2] for the [d, H, hd] and [H, hd, d] attention weights (n_heads,
@@ -504,9 +518,9 @@ STREAM_LAYERS = {"qwen3-4b": 6, "zamba2-2.7b": 6,
 PROFILE_LAYERS = {"xlstm-350m": 8}
 # where the time goes: the train steps profiled at PROFILE_TRAIN_LAYERS
 # (the profiler's report walks every event: 61-77 s for the four steps
-# at 12, 12, 54 and 24 layers)
-PROFILE_TRAIN_LAYERS = {"qwen3-4b": 4, "zamba2-2.7b": 18,
-                        "granite-moe-1b-a400m": 8}
+# at 12, 12, 54 and 24 layers; 23.9 s at 4, 4, 18 and 8)
+PROFILE_TRAIN_LAYERS = {"qwen3-4b": 4, "zamba2-2.7b": 12,
+                        "granite-moe-1b-a400m": 4}
 # the gateway's runs (serve_stream): 8 requests arriving at these decode
 # rounds into SERVE's 4 slots; the independent greedy loop replays two of
 # them; the drill kills replica 0 at round 3; qwen3-4b's live queue takes
@@ -564,6 +578,11 @@ MESH_SERVE = dict(requests=8, slots=8, prompt_len=512, gen_len=32)
 # 977.6 s run at all 36 on an H100 80GB HBM3 at 700 W), at data=2 to a
 # sixth
 MESH_GATEWAY_M2_LAYERS, MESH_GATEWAY_LAYERS = 12, 6
+# (j)'s single request at a third of qwen3-4b's depth (16.2 s of the
+# phase at all 36 on an H100 80GB HBM3 at 700 W, 484 ms a decode step:
+# 108 gloo all-reduces), to make room for the model axis's xlstm and
+# encdec phases
+MESH_STREAM_LAYERS = 12
 # the model axis, part 2 (ROADMAP item 14b): (e) sequence parallelism
 # in the model=2 session, (h) TiledArray there, (g) GPipe over qwen3-4b
 # decoder blocks at full width on a stage mesh of that session's 2 ranks
@@ -581,11 +600,11 @@ GPIPE_EX_OUT_RTOL, GPIPE_EX_GRAD_RTOL = 1e-5, 1e-4
 # two Plan(model=2) sessions of their own at full width, random weights
 # from seed 0: (n) granite-moe-1b-a400m, its 32 experts on model (16 a
 # rank; its odd vocab of 49,155 whole on both), at FAM_TP_LAYERS of its
-# 24 layers: phylanx and zero1 in float32 (8 x 512, TP_STEPS steps,
+# 24 layers: phylanx and zero1 in float32 (8 x 512, FAM_TP_STEPS steps,
 # FAM_OPT) against the one-process float32 runs, and phylanx in bf16
 # (the serve and train paths' dtype, MOE_BF16_STEPS steps), then
-# Session.serve at
-# all 24 and the session's gateway; (o) zamba2-2.7b, inner on model (40
+# Session.serve and the session's gateway at MOE_TP_SERVE_LAYERS;
+# (o) zamba2-2.7b, inner on model (40
 # of 80 heads a rank), at one group (6 of 54 mamba layers and the shared
 # block): phylanx in float32 (ZAMBA_TP_F32_BATCH x 512) against its
 # oracle, in bf16 (8 x 512), the prefill and TP_DECODE_STEPS decode
@@ -601,6 +620,11 @@ GPIPE_EX_OUT_RTOL, GPIPE_EX_GRAD_RTOL = 1e-5, 1e-4
 # FAM_GATEWAY_GEN tokens a request: a model-axis decode step is 3
 # (granite) or 4 (a mamba layer) gloo collectives a layer
 FAM_TP_LAYERS = 4
+# the held float32 runs of (n)-(q): 2 steps each (the second's loss and
+# norm follow the first's update; 3 before PR 29, to make room for (p)
+# and (q)); (n)'s session serves and streams granite at a third of its
+# depth (all 24 layers before PR 29: 1.7 s and 12.8 s of (n)'s 42.7 s)
+FAM_TP_STEPS, MOE_TP_SERVE_LAYERS = 2, 8
 # the bf16 runs' steps: granite's, zamba2-2.7b's
 MOE_BF16_STEPS, ZAMBA_BF16_STEPS = 2, 1
 # the float32 runs' optimizers, as the CPU tests take them
@@ -631,7 +655,9 @@ ZAMBA_TP_F32_BATCH = 1
 ZAMBA_TP_F32 = dict(ZAMBA_TRAIN, batch=ZAMBA_TP_F32_BATCH, overrides={
     "n_layers": _ZAMBA_CFG.shared_every, "compute_dtype": "f32",
     "cache_dtype_str": "f32"})
-ZAMBA_TP_GATEWAY_LAYERS = 18
+# (o)'s gateway at one group (18 layers before the xlstm and encdec
+# phases took the room: 10.9 s of (o)'s 51.9 s then)
+ZAMBA_TP_GATEWAY_LAYERS = 6
 FAM_SERVE = dict(requests=4, slots=4, prompt_len=512, gen_len=4)
 FAM_GATEWAY_GEN = 4
 # K1 on a rank's heads at model=2: granite (H=8, Hkv=4, d=64) and
@@ -655,6 +681,61 @@ ZAMBA_TP_B1_SCAN = (1, *ZAMBA_TP_SCAN[1:])
 ZAMBA_TP_SCAN_BWD = (ZAMBA_TRAIN["batch"], ZAMBA_HEADS // 2,
                      _ZAMBA_CFG.ssm_groups, ZAMBA_TRAIN["seq"], 64, 64,
                      torch.bfloat16, False)
+# the model axis's xlstm and encdec families (ROADMAP item 14b, part 4,
+# its second half), in two Plan(model=2) sessions of their own at full
+# width, random weights from seed 0: (p) xlstm-350m, its mLSTM's 4 heads
+# and the sLSTM's 4 on model (2 a rank; d_in 2,048: 1,024 channels a
+# rank), at XLSTM_TRAIN_LAYERS (seven mLSTM layers and the sLSTM):
+# phylanx in float32 (XLSTM_TP_F32_BATCH x 512) against the one-process
+# float32 run, in bf16 (8 x 512, XLSTM_BF16_STEPS steps), Session.serve
+# at all 24 layers and the gateway at STREAM_LAYERS; (q) whisper-medium,
+# its 16 heads on model (8 a rank; d_ff 4,096: 2,048 a rank; its odd
+# vocab of 51,865 whole on both), at WHISPER_CUT_ENC_LAYERS encoder
+# layers (where its float32 norm stays finite) and WHISPER_TP_DEC_LAYERS
+# decoder layers: phylanx in float32 (WHISPER_TP_F32_BATCH x 512, 1,500
+# frames) against one process's, in bf16 (8 x 512, WHISPER_BF16_STEPS),
+# then Session.serve at all 24 + 24.  xlstm runs no kernel; whisper runs
+# K1 and its backward on a rank's 8 heads (WHISPER_TP_*_ATTN)
+XLSTM_TP_F32_BATCH, XLSTM_BF16_STEPS = 1, 1
+XLSTM_TP_F32 = dict(XLSTM_TRAIN, batch=XLSTM_TP_F32_BATCH, overrides={
+    "n_layers": XLSTM_TRAIN_LAYERS, "compute_dtype": "f32",
+    "cache_dtype_str": "f32"})
+WHISPER_TP_DEC_LAYERS, WHISPER_TP_F32_BATCH, WHISPER_BF16_STEPS = 6, 2, 1
+# (q)'s float32 run, and its oracle, scale every attention's wq by
+# WHISPER_WQ_SCALE after the reference's init.  That init (std
+# 1/sqrt(H) for [d, H, hd]) gives whisper-medium's attention logits a std
+# near 64, a softmax saturated to one key, whose winner float32 rounding
+# flips: one process parts from its own two-micro-batch run by 1.6e-4 in
+# the first loss and 17 % in the gradient norm (1.4e11) at 9 encoder
+# layers, from its model=2 run by 4.7e-3 and 13 %.  With wq x 1/8 the
+# norm is 65.2 and the three agree to 4.9e-6 (on an NVIDIA H100 80GB
+# HBM3 at 700 W; ``whisper_self_order`` prints the first two pairs every
+# run), so the model axis's math is held there.  The bf16 run and
+# serving keep the reference's init.
+WHISPER_WQ_SCALE = 0.125
+WHISPER_TP_TRAIN = dict(WHISPER_TRAIN, overrides={
+    "n_enc_layers": WHISPER_CUT_ENC_LAYERS,
+    "n_layers": WHISPER_TP_DEC_LAYERS})
+WHISPER_TP_F32 = dict(WHISPER_TRAIN, batch=WHISPER_TP_F32_BATCH, overrides={
+    "n_enc_layers": WHISPER_CUT_ENC_LAYERS,
+    "n_layers": WHISPER_TP_DEC_LAYERS, "compute_dtype": "f32",
+    "cache_dtype_str": "f32"})
+# K1 on whisper-medium's rank heads at model=2 (H=Hkv=8, d=64): the
+# encoder non-causal over 1,500 frames and the decoder's causal prefill
+# at the serve batch, the same two at the train batch, then both in
+# float32 at the float32 run's batch (the CUDA-core kernel)
+WHISPER_TP_ENC_ATTN = (SERVE["slots"], _WHISPER_CFG.n_heads // 2,
+                       _WHISPER_CFG.n_kv_heads // 2, _WHISPER_CFG.enc_frames,
+                       _WHISPER_CFG.head_dim, torch.bfloat16, False, None)
+WHISPER_TP_DEC_ATTN = (SERVE["slots"], *WHISPER_TP_ENC_ATTN[1:3],
+                       SERVE["prompt_len"], _WHISPER_CFG.head_dim,
+                       torch.bfloat16, True, None)
+WHISPER_TP_TRAIN_ENC_ATTN = (WHISPER_TRAIN["batch"], *WHISPER_TP_ENC_ATTN[1:])
+WHISPER_TP_TRAIN_DEC_ATTN = (WHISPER_TRAIN["batch"], *WHISPER_TP_DEC_ATTN[1:])
+WHISPER_TP_F32_ENC_ATTN = (WHISPER_TP_F32_BATCH, *WHISPER_TP_ENC_ATTN[1:5],
+                           torch.float32, False, None)
+WHISPER_TP_F32_DEC_ATTN = (WHISPER_TP_F32_BATCH, *WHISPER_TP_DEC_ATTN[1:5],
+                           torch.float32, True, None)
 FA_CASES = [
     (4, 32, 8, 512, 128, torch.bfloat16, True, None),
     (4, 32, 32, 512, 80, torch.bfloat16, True, None),     # d=80 (zamba)
@@ -678,6 +759,12 @@ FA_CASES = [
     ZAMBA_TP_SERVE_ATTN,
     ZAMBA_TP_TRAIN_ATTN,
     ZAMBA_TP_B1_ATTN,
+    WHISPER_TP_ENC_ATTN,
+    WHISPER_TP_DEC_ATTN,
+    WHISPER_TP_TRAIN_ENC_ATTN,
+    WHISPER_TP_TRAIN_DEC_ATTN,
+    WHISPER_TP_F32_ENC_ATTN,
+    WHISPER_TP_F32_DEC_ATTN,
     (2, 8, 2, 200, 128, torch.bfloat16, True, None),      # ragged S
     (1, 32, 32, 256, 96, torch.bfloat16, True, None),     # d=96 (phi3)
     (2, 4, 2, 256, 32, torch.float32, True, None),        # d=32 f32 (tiny)
@@ -689,7 +776,7 @@ FA_CASES = [
     (2, 4, 4, 100, 80, torch.bfloat16, True, None),       # d=80, ragged S
     (1, 8, 8, 512, 80, torch.bfloat16, True, 128),        # d=80, window
 ]
-FA_TIMED = 22           # the first FA_TIMED cases are timed
+FA_TIMED = 28           # the first FA_TIMED cases are timed
 # K2 tolerances of tests/test_kernels.py's sweep, as atol and rtol
 SCAN_TOL = {torch.float32: 2e-4, torch.bfloat16: 6e-2}
 # (B, H, G, L, P, N, chunk, dtype), G the groups of Bm, Cm: zamba2-2.7b's
@@ -739,6 +826,10 @@ FA_BWD_CASES = [
     TP_TRAIN_ATTN,
     MOE_TP_TRAIN_ATTN,
     ZAMBA_TP_TRAIN_ATTN,
+    WHISPER_TP_TRAIN_ENC_ATTN,
+    WHISPER_TP_TRAIN_DEC_ATTN,
+    WHISPER_TP_F32_ENC_ATTN,
+    WHISPER_TP_F32_DEC_ATTN,
     (2, 8, 2, 200, 64, torch.float32, True, None),        # GQA, ragged S
     (1, 4, 4, 256, 64, torch.float32, False, None),       # MHA, non-causal
     (2, 4, 2, 256, 32, torch.float32, True, 64),          # window, d=32
@@ -754,7 +845,7 @@ FA_BWD_CASES = [
     (2, 4, 2, 130, 96, torch.float32, True, None),        # d=96, GQA
     (2, 4, 2, 130, 96, torch.bfloat16, True, None),
 ]
-FA_BWD_TIMED = 11       # the first FA_BWD_TIMED cases are timed
+FA_BWD_TIMED = 15       # the first FA_BWD_TIMED cases are timed
 # f32: within 1e-4 of the largest gradient magnitude (at least 1); bf16:
 # the plain version rounds its products and probabilities to bf16, the
 # kernel sums in f32, so bf16 is held to 3e-2 of the largest magnitude
@@ -912,7 +1003,14 @@ def attention_bound(q, k, v, causal, window):
     B, H, S, d = q.shape
     ops = 4 * d * B * H * causal_pairs(S, causal, window)
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-    return roofline(nbytes, ops)
+    return roofline(nbytes, ops, peak_of(q.dtype))
+
+
+def peak_of(dtype) -> float:
+    """The card's peak rate for operations on ``dtype``: bf16 on the
+    tensor cores (K1's bf16 kernels), float32 on the CUDA cores (its
+    float32 kernels)."""
+    return BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
 
 
 def roofline(nbytes: int, ops: int,
@@ -1427,7 +1525,7 @@ def check_fa_bwd(gen, cases=None, timed: int = FA_BWD_TIMED) -> list:
         esz = q.element_size()
         nbytes = (4 * q.numel() + 4 * k.numel()) * esz + 4 * B * H * S
         ops = 10 * d * B * H * causal_pairs(S, causal, window)
-        bound_ms, bound_by = roofline(nbytes, ops)
+        bound_ms, bound_by = roofline(nbytes, ops, peak_of(dt))
         out.append({"max_abs_err": max(errs), "mean_rel_err": max(rels),
                     **t, "bound_ms": bound_ms, "bound_by": bound_by})
         print(f"  timed: kernel {t['ms']:.4f} ms, plain backward "
@@ -3428,8 +3526,9 @@ def tp_rank(spec: dict, endpoint=None, driver=None) -> dict:
     prefill and decode steps at that depth, teacher-forced, each step's
     whole last-position logits gathered (rank 0 keeps them).  A
     ``spec["strategy"]`` trains with that strategy instead, and a
-    ``spec["opt"]`` with those ``OptConfig`` fields; ``vocab_rows`` is
-    this rank's rows of the embedding."""
+    ``spec["opt"]`` with those ``OptConfig`` fields, a ``spec["wq_scale"]``
+    from the init with every attention's ``wq`` scaled (``scale_wq``);
+    ``vocab_rows`` is this rank's rows of the embedding."""
     plan, stream = spec["plan"], spec["stream"]
     mesh = make_local_mesh(data=plan.data, model=plan.model, pod=plan.pod)
     cfg = plan.config()
@@ -3439,6 +3538,7 @@ def tp_rank(spec: dict, endpoint=None, driver=None) -> dict:
         mesh=mesh)
     params, opt = step.init(
         torch.Generator(device="cuda").manual_seed(plan.seed), "cuda")
+    scale_wq(params, spec.get("wq_scale"))
     out = {"train": tp_train(step, params, opt, stream, spec["steps"]),
            "vocab_rows": int(params["embed"]["tok"].shape[0])}
     del step, params, opt
@@ -3473,16 +3573,35 @@ def tp_rank(spec: dict, endpoint=None, driver=None) -> dict:
     return out
 
 
+def scale_wq(params, factor) -> None:
+    """Every attention's ``wq`` (a dict holding ``wq`` and ``wo``) of
+    ``params`` times ``factor``, in place (None: unchanged)."""
+    if factor is None:
+        return
+    if isinstance(params, dict):
+        if "wq" in params and "wo" in params:
+            with torch.no_grad():
+                params["wq"].mul_(factor)
+        for v in params.values():
+            scale_wq(v, factor)
+    elif isinstance(params, list):
+        for v in params:
+            scale_wq(v, factor)
+
+
 def tp_oracle_train(plan_kw: dict, stream, n_steps: int,
-                    strategy: str = "phylanx", opt: dict = None) -> dict:
+                    strategy: str = "phylanx", opt: dict = None,
+                    wq_scale=None) -> dict:
     """The one-process run of ``plan_kw`` (``strategy`` at one rank: the
     plain update; ``opt`` the ``OptConfig`` fields, default adamw) from the
-    seed's init: the model axis's oracle."""
+    seed's init (every attention's ``wq`` times ``wq_scale``, if given):
+    the model axis's oracle."""
     plan = Plan(**plan_kw, device="cuda")
     step = steps.make_train_step(plan.config(), steps.Strategy(
         name=strategy, opt=optimizers.OptConfig(**(opt or {}))), plan=plan)
     params, opt = step.init(
         torch.Generator(device="cuda").manual_seed(plan.seed), "cuda")
+    scale_wq(params, wq_scale)
     out = tp_train(step, params, opt, stream, n_steps)
     del step, params, opt
     torch.cuda.empty_cache()
@@ -4050,7 +4169,8 @@ def mesh_serving(session, counts: dict, fails: list) -> dict:
     full = cfg.n_layers
     out: dict = {}
     print(f"CUT the gateway at model=2 to {MESH_GATEWAY_M2_LAYERS}, at data=2 "
-          f"to {MESH_GATEWAY_LAYERS}, zamba2-2.7b to "
+          f"to {MESH_GATEWAY_LAYERS}, the single request to "
+          f"{MESH_STREAM_LAYERS}, zamba2-2.7b to "
           f"{STREAM_LAYERS['zamba2-2.7b']} and data=2, model=2 to "
           f"{TP_LAYERS} layers: the phase's time")
     # (i) the wave loop at data=2
@@ -4086,15 +4206,18 @@ def mesh_serving(session, counts: dict, fails: list) -> dict:
     torch.cuda.empty_cache()
 
     # (j) the single stream, its cache tiled over data
+    one = MESH_STREAM_LAYERS
     phase(f"serving over a mesh: (j) a single stream at data=2, the cache "
           f"tiled by sequence: logits at {TP_LAYERS} layers against one "
-          f"process, then one request at {full}")
+          f"process, then one request at {one} of {full}")
     t0 = time.perf_counter()
     want = tp_oracle_logits(TP_TRAIN, slots=1)
     res = session.run_ranks(stream_rank, {
         "plan": Plan(**TP_TRAIN, data=2, device="cuda"),
         "logits": {"prompts": want["prompts"], "tokens": want["tokens"]},
-        "full": dict(MESH_SERVE, plan=d2, prompts=None, params=None)})
+        "full": dict(MESH_SERVE, prompts=None, params=None, plan=Plan(
+            arch=cfg.name, tiny=False, data=2, device="cuda",
+            overrides={"n_layers": one}))})
     out["j_s"] = time.perf_counter() - t0
     got = res[0]["logits"]
     rel = [mean_rel_err(g, w) for g, w in zip(got, want["logits"])]
@@ -4108,7 +4231,7 @@ def mesh_serving(session, counts: dict, fails: list) -> dict:
         _tp_launches(f"(j) logits rank {r}", rec["launches"], TP_LAYERS, 0,
                      fails)
         counts[f"mesh_stream_L{r}"] = rec["full"]["launches"]
-        _tp_launches(f"(j) rank {r}", rec["full"]["launches"], full, 0,
+        _tp_launches(f"(j) rank {r}", rec["full"]["launches"], one, 0,
                      fails)
         k_shape = rec["full"]["cache_shapes"][0]
         if rec["positions"] != S_lg // 2 or k_shape[1] != S // 2:
@@ -4123,8 +4246,8 @@ def mesh_serving(session, counts: dict, fails: list) -> dict:
     for r in (0, 1):
         print(f"(j) rank {r} holds {res[r]['full']['cache_shapes'][0][1]} "
               f"of {S} positions; " + _mesh_serve_line(
-                  f"one request at {full} layers", res[r]["full"]))
-    print(f"(j) dp all-reduces a decode step: {per_step:.1f} ({full} "
+                  f"one request at {one} layers", res[r]["full"]))
+    print(f"(j) dp all-reduces a decode step: {per_step:.1f} ({one} "
           f"layers; softmax_combine's 3 a layer)")
     out["j"] = {"logits_mean_rel_err": rel, "dp_calls_per_step": per_step,
                 **{r: {k: res[r]["full"][k] for k in (
@@ -4583,7 +4706,9 @@ def _fam_serve(name: str, served: dict, cfg, key: str, counts: dict,
                      f"logits not finite")
     pre_ms = [1e3 * x for x in served["prefill_s"]]
     dec_ms = sorted(1e3 * x for x in served["decode_s"])
-    print(f"{name} at model=2, {cfg.n_layers} layers: "
+    depth = f"{cfg.n_enc_layers} + {cfg.n_layers}" \
+        if cfg.family == "encdec" else f"{cfg.n_layers}"
+    print(f"{name} at model=2, {depth} layers: "
           f"{served['tokens_per_s']:.1f} tok/s, {waves} waves, prefill "
           f"{' '.join(f'{x:.1f}' for x in pre_ms)} ms, decode step median "
           f"{dec_ms[len(dec_ms) // 2]:.1f} ms (min {dec_ms[0]:.1f}, max "
@@ -4625,21 +4750,36 @@ def _fam_gateway(name: str, gw: dict, others: dict, oracle: dict, cfg,
                                        for r, o in others.items()}}}
 
 
+def _fam_world(name: str, pids, fails: list) -> dict:
+    """The session's world closed and its worker reaped, after one of
+    (n)-(q)."""
+    world_left = torch.distributed.is_initialized()
+    reaped = _reaped(pids)
+    if world_left or not reaped:
+        fails.append(f"{name}: world left {world_left}, worker reaped "
+                     f"{reaped}")
+    return {"world_left": world_left, "reaped": reaped}
+
+
 def moe_axis(counts: dict, fails: list) -> dict:
     """(n) granite-moe-1b-a400m at full width in a ``Plan(model=2)``
     session: at FAM_TP_LAYERS layers, phylanx and zero1 in float32 against
     the one-process float32 run and phylanx in bf16 (a step: K1 2 x
     layers, its backward layers, a rank), its vocab whole on both ranks;
-    ``Session.serve`` at all 24 layers; the session's gateway."""
+    ``Session.serve`` and the session's gateway at MOE_TP_SERVE_LAYERS."""
     cfg = get_config("granite-moe-1b-a400m")
-    L, S = FAM_TP_LAYERS, TP_STEPS
+    L, S, SL = FAM_TP_LAYERS, FAM_TP_STEPS, MOE_TP_SERVE_LAYERS
+    splan = dict(arch=cfg.name, tiny=False, model=2, device="cuda",
+                 overrides={"n_layers": SL})
+    scfg = Plan(**splan).config()
     phase(f"model axis, its families: (n) {cfg.name} at full width on "
           f"model=2, {cfg.n_experts // 2} of {cfg.n_experts} experts a rank: "
-          f"phylanx and zero1 at {L} of {cfg.n_layers} layers, serve all "
-          f"{cfg.n_layers}, the gateway")
+          f"phylanx and zero1 at {L} of {cfg.n_layers} layers, serve and "
+          f"the gateway at {SL}")
     print(f"CUT (n) training to {L} of {cfg.n_layers} layers (the oracle's "
-          f"float32 state beside the ranks'), its bf16 run to "
-          f"{MOE_BF16_STEPS} steps, Session.serve to one wave of "
+          f"float32 state beside the ranks') and {S} steps, its bf16 run to "
+          f"{MOE_BF16_STEPS} steps, the session (Session.serve, the "
+          f"gateway) to {SL} layers, Session.serve to one wave of "
           f"{FAM_SERVE['slots']} x {FAM_SERVE['gen_len']} tokens and the "
           f"gateway to {FAM_GATEWAY_GEN} a request: a decode step is 3 gloo "
           f"collectives a layer")
@@ -4647,8 +4787,7 @@ def moe_axis(counts: dict, fails: list) -> dict:
                                      seq=MOE_TRAIN["seq"], seed=0))
     out: dict = {}
     t0 = time.perf_counter()
-    with Plan(arch=cfg.name, tiny=False, model=2,
-              device="cuda").compile() as session:
+    with Plan(**splan).compile() as session:
         out["up_s"] = time.perf_counter() - t0
         pids = [pr.pid for pr in session.distributed.group.procs.values()]
         t1 = time.perf_counter()
@@ -4690,10 +4829,7 @@ def moe_axis(counts: dict, fails: list) -> dict:
                 for r in GATEWAY_ORACLE]))
         out["gateway_s"] = time.perf_counter() - t1
         torch.cuda.empty_cache()
-    world_left = torch.distributed.is_initialized()
-    reaped = _reaped(pids)
-    if world_left or not reaped:
-        fails.append(f"(n): world left {world_left}, worker reaped {reaped}")
+    out.update(_fam_world("(n)", pids, fails))
     out["oracle"] = {name: _oracle_line(
         f"(n) float32 {name}, {L} layers,", o) for name, o in oracles.items()}
     for name, res in runs.items():
@@ -4712,12 +4848,11 @@ def moe_axis(counts: dict, fails: list) -> dict:
     print(f"(n) the vocab of {cfg.vocab} stays whole on both ranks (rows a "
           f"rank {rows}); the experts split: "
           f"{cfg.n_experts // 2} a rank")
-    out["serve"] = _fam_serve("(n) serve", served, steps._serve_cfg(cfg),
+    out["serve"] = _fam_serve("(n) serve", served, steps._serve_cfg(scfg),
                               "moe_tp_serve", counts, fails)
     out["gateway"] = _fam_gateway(
-        "(n) gateway", gw, gw["localities"], gw_oracle, cfg,
+        f"(n) gateway, {SL} layers", gw, gw["localities"], gw_oracle, scfg,
         "moe_tp_gateway", counts, fails)
-    out["world_left"], out["reaped"] = world_left, reaped
     print("(n) wall: " + ", ".join(f"{k} {v:.1f}" for k, v in out.items()
                                    if k.endswith("s") and
                                    isinstance(v, float)))
@@ -4736,7 +4871,7 @@ def zamba_axis(counts: dict, fails: list) -> dict:
     cfg = get_config("zamba2-2.7b")
     heads = ZAMBA_HEADS
     tcfg = Plan(**ZAMBA_TP_TRAIN).config()
-    L, S = tcfg.n_layers, TP_STEPS
+    L, S = tcfg.n_layers, FAM_TP_STEPS
     groups = L // cfg.shared_every
     GL = ZAMBA_TP_GATEWAY_LAYERS
     phase(f"model axis, its families: (o) {cfg.name} at full width on "
@@ -4807,10 +4942,7 @@ def zamba_axis(counts: dict, fails: list) -> dict:
                                     for r in GATEWAY_ORACLE]))
         out["gateway_s"] = time.perf_counter() - t1
         torch.cuda.empty_cache()
-    world_left = torch.distributed.is_initialized()
-    reaped = _reaped(pids)
-    if world_left or not reaped:
-        fails.append(f"(o): world left {world_left}, worker reaped {reaped}")
+    out.update(_fam_world("(o)", pids, fails))
     out["oracle"] = _oracle_line(
         f"(o) float32, {L} layers, batch {ZAMBA_TP_F32_BATCH},", oracle)
 
@@ -4844,8 +4976,226 @@ def zamba_axis(counts: dict, fails: list) -> dict:
     out["gateway"] = _fam_gateway(
         f"(o) gateway, {GL} layers", gw, {1: res[1]}, gw_oracle,
         gplan.config(), "zamba_tp_gateway", counts, fails)
-    out["world_left"], out["reaped"] = world_left, reaped
     print("(o) wall: " + ", ".join(f"{k} {v:.1f}" for k, v in out.items()
+                                   if k.endswith("s") and
+                                   isinstance(v, float)))
+    return out
+
+
+def xlstm_axis(counts: dict, fails: list) -> dict:
+    """(p) xlstm-350m at full width in a ``Plan(model=2)`` session: its
+    mLSTM and sLSTM layers on a rank's 2 of 4 heads.  At
+    XLSTM_TRAIN_LAYERS phylanx in float32 against the one-process float32
+    run and in bf16, no kernel launched; ``Session.serve`` at all 24
+    layers; the gateway at STREAM_LAYERS, its GATEWAY_ORACLE streams
+    against a plain greedy loop on the ranks."""
+    cfg = get_config("xlstm-350m")
+    L, S = XLSTM_TRAIN_LAYERS, FAM_TP_STEPS
+    GL = STREAM_LAYERS[cfg.name]
+    phase(f"model axis, its families: (p) {cfg.name} at full width on "
+          f"model=2, {cfg.n_heads // 2} of {cfg.n_heads} mLSTM heads and "
+          f"{cfg.slstm_heads // 2} of {cfg.slstm_heads} sLSTM heads a rank: "
+          f"phylanx at {L} of {cfg.n_layers} layers, serve all "
+          f"{cfg.n_layers}, the gateway at {GL}")
+    print(f"CUT (p) training to {L} of {cfg.n_layers} layers (one group: "
+          f"seven mLSTM layers and the sLSTM), its float32 run to batch "
+          f"{XLSTM_TP_F32_BATCH} and its bf16 run to {XLSTM_BF16_STEPS} "
+          f"steps, Session.serve to one wave of {FAM_SERVE['slots']} x "
+          f"{FAM_SERVE['gen_len']} tokens, the gateway to {GL} layers and "
+          f"{FAM_GATEWAY_GEN} tokens a request: an mLSTM layer "
+          f"reduce-scatters its q, k, v and gates over gloo")
+    stream = RepeatStream(stream_for(cfg, batch=XLSTM_TRAIN["batch"],
+                                     seq=XLSTM_TRAIN["seq"], seed=0))
+    f32_stream = RepeatStream(stream_for(cfg, batch=XLSTM_TP_F32_BATCH,
+                                         seq=XLSTM_TRAIN["seq"], seed=0))
+    out: dict = {}
+    t0 = time.perf_counter()
+    with Plan(arch=cfg.name, tiny=False, model=2,
+              device="cuda").compile() as session:
+        out["up_s"] = time.perf_counter() - t0
+        pids = [pr.pid for pr in session.distributed.group.procs.values()]
+        t1 = time.perf_counter()
+        oracle = _fam_warm_oracle(session, lambda: tp_oracle_train(
+            XLSTM_TP_F32, f32_stream, S, "phylanx", FAM_OPT["phylanx"]))
+        out["oracle_s"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        f32 = session.run_ranks(tp_rank, {
+            "plan": Plan(**XLSTM_TP_F32, model=2, device="cuda"),
+            "stream": f32_stream, "steps": S, "opt": FAM_OPT["phylanx"]})
+        out["f32_s"] = time.perf_counter() - t1
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        bf16 = session.run_ranks(tp_rank, {
+            "plan": Plan(**XLSTM_TRAIN, model=2, device="cuda"),
+            "stream": stream, "steps": XLSTM_BF16_STEPS})
+        out["bf16_s"] = time.perf_counter() - t1
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        _zero_counts()
+        served = session.serve(**FAM_SERVE)
+        counts["xlstm_tp_serve_L0"] = _counts()
+        counts["xlstm_tp_serve_L1"] = served["localities"][1]["launches"]
+        out["serve_s"] = time.perf_counter() - t1
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        kw = dict(prompt_len=SERVE["prompt_len"], gen_len=FAM_GATEWAY_GEN,
+                  slots=SERVE["slots"])
+        gplan = Plan(arch=cfg.name, tiny=False, model=2, device="cuda",
+                     overrides={"n_layers": GL})
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(0, cfg.vocab, SERVE["prompt_len"]).astype(
+            np.int32) for _ in GATEWAY_ARRIVALS]
+        res = session.run_ranks(
+            mesh_serve.rank_serve_stream,
+            dict(kw, plan=gplan, page_bytes=PAGE_BYTES, params=None),
+            driver=gateway_run(session.runtime, prompts, GATEWAY_ARRIVALS,
+                               kw))
+        gw = res[0]
+        handles = {h.rid: h for h in gw["handles"]}
+        gw_oracle = session.run_ranks(gateway_oracle_rank, dict(
+            kw, plan=gplan, oracle=[(handles[r].prompt, handles[r]._slot)
+                                    for r in GATEWAY_ORACLE]))
+        out["gateway_s"] = time.perf_counter() - t1
+        torch.cuda.empty_cache()
+    out.update(_fam_world("(p)", pids, fails))
+    out["oracle"] = _oracle_line(
+        f"(p) float32, {L} layers, batch {XLSTM_TP_F32_BATCH},", oracle)
+    none = {}
+    out["f32"] = _fam_train("(p) phylanx f32", f32, oracle, none,
+                            "xlstm_tp_f32", counts, fails)
+    out["bf16"] = _fam_train("(p) phylanx bf16", bf16, None, none,
+                             "xlstm_tp_bf16", counts, fails)
+    out["serve"] = _fam_serve("(p) serve", served, steps._serve_cfg(cfg),
+                              "xlstm_tp_serve", counts, fails)
+    out["gateway"] = _fam_gateway(
+        f"(p) gateway, {GL} layers", gw, {1: res[1]}, gw_oracle,
+        gplan.config(), "xlstm_tp_gateway", counts, fails)
+    print("(p) wall: " + ", ".join(f"{k} {v:.1f}" for k, v in out.items()
+                                   if k.endswith("s") and
+                                   isinstance(v, float)))
+    return out
+
+
+def whisper_self_order() -> dict:
+    """One float32 step of WHISPER_TP_F32 in one process from the
+    reference's init, at the whole batch and in two micro-batches
+    (``grad_accum=2``: the same math, other orders of float32 sums), then
+    the same two with every ``wq`` times WHISPER_WQ_SCALE: each pair's
+    first loss and gradient norm, and their relative differences."""
+    plan = Plan(**WHISPER_TP_F32, device="cuda")
+    cfg = plan.config()
+    batch = to_device(stream_for(cfg, batch=WHISPER_TP_F32_BATCH,
+                                 seq=WHISPER_TRAIN["seq"],
+                                 seed=0).batch_at(0), "cuda")
+    out = {}
+    for scale in (None, WHISPER_WQ_SCALE):
+        got = []
+        for accum in (1, 2):
+            step = steps.make_train_step(cfg, steps.Strategy(
+                grad_accum=accum, opt=optimizers.OptConfig(
+                    **FAM_OPT["phylanx"])), plan=plan)
+            params, opt = step.init(
+                torch.Generator(device="cuda").manual_seed(plan.seed),
+                "cuda")
+            scale_wq(params, scale)
+            m, params, opt = step.fn(params, opt, batch)
+            got.append((float(m["loss"]), float(m["grad_norm"])))
+            del step, params, opt
+            torch.cuda.empty_cache()
+        (l1, n1), (l2, n2) = got
+        key = "reference init" if scale is None else f"wq x {scale:g}"
+        out[key] = {"whole": got[0], "two_micro_batches": got[1],
+                    "loss_rel": abs(l2 - l1) / abs(l1),
+                    "grad_norm_rel": abs(n2 - n1) / abs(n1)}
+        print(f"(q) one process against itself in two micro-batches, "
+              f"{key}: loss {l1:.6f} / {l2:.6f} (rel "
+              f"{out[key]['loss_rel']:.3g}), gnorm {n1:.6g} / {n2:.6g} "
+              f"(rel {out[key]['grad_norm_rel']:.3g})")
+    return out
+
+
+def whisper_axis(counts: dict, fails: list) -> dict:
+    """(q) whisper-medium at full width in a ``Plan(model=2)`` session: 8
+    of 16 heads a rank in the encoder, the decoder and the
+    cross-attention, its odd vocab whole on both ranks.  At
+    WHISPER_CUT_ENC_LAYERS encoder and WHISPER_TP_DEC_LAYERS decoder
+    layers phylanx in float32 against the one-process float32 run (K1's
+    float32 kernels) and in bf16 (a step: K1 twice a layer, its backward
+    once, a rank); ``Session.serve`` at all 24 + 24 layers (K1 once a
+    layer a prefill a rank).  ``serve_stream`` refuses the family, as the
+    reference does (``check_stream_refused``)."""
+    cfg = get_config("whisper-medium")
+    tcfg = Plan(**WHISPER_TP_TRAIN).config()
+    S = FAM_TP_STEPS
+    phase(f"model axis, its families: (q) {cfg.name} at full width on "
+          f"model=2, {cfg.n_heads // 2} of {cfg.n_heads} heads a rank: "
+          f"phylanx at {tcfg.n_enc_layers} + {tcfg.n_layers} of "
+          f"{cfg.n_enc_layers} + {cfg.n_layers} layers, serve all")
+    print(f"CUT (q) training to {tcfg.n_enc_layers} of {cfg.n_enc_layers} "
+          f"encoder layers (the reference's init overflows the float32 "
+          f"gradient norm past them) and {tcfg.n_layers} of {cfg.n_layers} "
+          f"decoder layers, its float32 run to batch {WHISPER_TP_F32_BATCH} "
+          f"(every wq x {WHISPER_WQ_SCALE:g}: the reference's init saturates "
+          f"the softmax) and its bf16 run to {WHISPER_BF16_STEPS} step, "
+          f"Session.serve to one wave of {FAM_SERVE['slots']} x "
+          f"{FAM_SERVE['gen_len']} tokens")
+    stream = RepeatStream(stream_for(tcfg, batch=WHISPER_TRAIN["batch"],
+                                     seq=WHISPER_TRAIN["seq"], seed=0))
+    f32_stream = RepeatStream(stream_for(tcfg, batch=WHISPER_TP_F32_BATCH,
+                                         seq=WHISPER_TRAIN["seq"], seed=0))
+    out: dict = {}
+    t0 = time.perf_counter()
+    with Plan(arch=cfg.name, tiny=False, model=2,
+              device="cuda").compile() as session:
+        out["up_s"] = time.perf_counter() - t0
+        pids = [pr.pid for pr in session.distributed.group.procs.values()]
+        t1 = time.perf_counter()
+        oracle, self_order = _fam_warm_oracle(session, lambda: (
+            tp_oracle_train(WHISPER_TP_F32, f32_stream, S, "phylanx",
+                            FAM_OPT["phylanx"], WHISPER_WQ_SCALE),
+            whisper_self_order()))
+        out["oracle_s"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        f32 = session.run_ranks(tp_rank, {
+            "plan": Plan(**WHISPER_TP_F32, model=2, device="cuda"),
+            "stream": f32_stream, "steps": S, "opt": FAM_OPT["phylanx"],
+            "wq_scale": WHISPER_WQ_SCALE})
+        out["f32_s"] = time.perf_counter() - t1
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        bf16 = session.run_ranks(tp_rank, {
+            "plan": Plan(**WHISPER_TP_TRAIN, model=2, device="cuda"),
+            "stream": stream, "steps": WHISPER_BF16_STEPS})
+        out["bf16_s"] = time.perf_counter() - t1
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        _zero_counts()
+        served = session.serve(**FAM_SERVE)
+        counts["whisper_tp_serve_L0"] = _counts()
+        counts["whisper_tp_serve_L1"] = served["localities"][1]["launches"]
+        out["serve_s"] = time.perf_counter() - t1
+        torch.cuda.empty_cache()
+    out.update(_fam_world("(q)", pids, fails))
+    out["oracle"] = _oracle_line(
+        f"(q) float32, {tcfg.n_enc_layers} + {tcfg.n_layers} layers, batch "
+        f"{WHISPER_TP_F32_BATCH}, wq x {WHISPER_WQ_SCALE:g},", oracle)
+    out["self_order"] = self_order
+    out["f32"] = _fam_train("(q) phylanx f32", f32, oracle,
+                            train_launches(tcfg, S, 1, 0), "whisper_tp_f32",
+                            counts, fails)
+    out["bf16"] = _fam_train("(q) phylanx bf16", bf16, None,
+                             train_launches(tcfg, WHISPER_BF16_STEPS, 1, 0),
+                             "whisper_tp_bf16", counts, fails)
+    rows = [bf16[r]["vocab_rows"] for r in (0, 1)]
+    out["vocab_rows"] = rows
+    if rows != [cfg.vocab, cfg.vocab]:
+        fails.append(f"(q): embedding rows a rank {rows}, want the whole "
+                     f"vocab {cfg.vocab} (odd: unsplit)")
+    print(f"(q) the vocab of {cfg.vocab} stays whole on both ranks (rows a "
+          f"rank {rows}); the heads split: {cfg.n_heads // 2} a rank")
+    out["serve"] = _fam_serve("(q) serve", served, steps._serve_cfg(cfg),
+                              "whisper_tp_serve", counts, fails)
+    print("(q) wall: " + ", ".join(f"{k} {v:.1f}" for k, v in out.items()
                                    if k.endswith("s") and
                                    isinstance(v, float)))
     return out
@@ -4853,16 +5203,18 @@ def zamba_axis(counts: dict, fails: list) -> dict:
 
 def model_axis_families() -> tuple[dict, dict]:
     """The model axis beyond the dense family (ROADMAP item 14b, part 4):
-    (n) ``moe_axis`` and (o) ``zamba_axis``, each in its own
-    ``Plan(model=2)`` session on the one card.  Returns the counts by run
-    and the readings.
+    (n) ``moe_axis``, (o) ``zamba_axis``, (p) ``xlstm_axis`` and (q)
+    ``whisper_axis``, each in its own ``Plan(model=2)`` session on the
+    one card.  Returns the counts by run and the readings.
 
     Raises:
-        AssertionError: any check of either failed (after both ran).
+        AssertionError: any check of any of them failed (after all ran).
     """
     counts: dict = {}
     fails: list = []
-    readings = {"n": moe_axis(counts, fails), "o": zamba_axis(counts, fails)}
+    readings = {"n": moe_axis(counts, fails), "o": zamba_axis(counts, fails),
+                "p": xlstm_axis(counts, fails),
+                "q": whisper_axis(counts, fails)}
     if fails:
         raise AssertionError("model axis, its families: " + "; ".join(fails))
     return counts, readings
@@ -5616,9 +5968,9 @@ def main() -> int:
         phase("K1 and K2 at the model axis's shapes against their plain "
               "versions")
         check_kernels(torch.Generator(device="cuda").manual_seed(0),
-                      FA_CASES[13:22], 9)
+                      FA_CASES[13:28], 15)
         check_fa_bwd(torch.Generator(device="cuda").manual_seed(0),
-                     FA_BWD_CASES[8:11], 3)
+                     FA_BWD_CASES[8:15], 7)
         check_scan(torch.Generator(device="cuda").manual_seed(0),
                    SCAN_CASES[4:7], 3)
         check_scan_bwd(torch.Generator(device="cuda").manual_seed(0),
@@ -5830,7 +6182,10 @@ def main() -> int:
     fa_tp_b1 = {f"tp_serve_b1_{k}": v for k, v in fa[15].items()}
     fa_fam = {f"{name}_{k}": v for i, name in enumerate((
         "moe_tp_serve", "moe_tp_train", "moe_tp_serve_b1", "zamba_tp_serve",
-        "zamba_tp_train", "zamba_tp_serve_b1"), 16) for k, v in fa[i].items()}
+        "zamba_tp_train", "zamba_tp_serve_b1", "whisper_tp_enc",
+        "whisper_tp_dec", "whisper_tp_train_enc", "whisper_tp_train_dec",
+        "whisper_tp_f32_enc", "whisper_tp_f32_dec"), 16)
+        for k, v in fa[i].items()}
     bwd_b8 = {f"train_b8_{k}": v for k, v in fa_bwd[1].items()}
     bwd_d80 = {f"zamba_train_{k}": v for k, v in fa_bwd[2].items()}
     bwd_d96 = {f"phi3_d96_{k}": v for k, v in fa_bwd[3].items()}
@@ -5842,7 +6197,9 @@ def main() -> int:
                              for k, v in fa_bwd[7].items()}
     bwd_tp_train = {f"tp_train_{k}": v for k, v in fa_bwd[8].items()}
     bwd_fam = {f"{name}_{k}": v for i, name in enumerate((
-        "moe_tp_train", "zamba_tp_train"), 9) for k, v in fa_bwd[i].items()}
+        "moe_tp_train", "zamba_tp_train", "whisper_tp_train_enc",
+        "whisper_tp_train_dec", "whisper_tp_f32_enc", "whisper_tp_f32_dec"),
+        9) for k, v in fa_bwd[i].items()}
     largest = {k[len("largest_bucket_"):]: v for k, v in onebit.items()
                if k.startswith("largest_bucket_")}
     print(json.dumps({"kernels": [

@@ -33,14 +33,17 @@ forward, all-gather backward: out of a row-parallel product), the
 collectives XLA inserts around the reference's ``act_constrain``.
 ``pipeline_shift`` is an autograd function too: its backward is the
 reverse shift, the transpose JAX derives for ``ppermute``.  Two more
-pairs serve the layers whose blocks are not a Megatron split (the moe
-and zamba families): ``gather_from_model`` (all-gather forward, this
+pairs serve the layers whose blocks are not a Megatron split (the moe,
+zamba and xlstm families): ``gather_from_model`` (all-gather forward, this
 rank's slice backward: a tensor that every rank then uses whole and
 alike, as the router's logits before the softmax) and ``sum_over_model``
 (all-reduce forward and backward: a sum that each rank then uses for its
 own part, as the gated norm's sum of squares over a split ``d_in``);
 ``all_gather_seq`` also gathers any other dim (the mamba projection's
-columns: each rank then reads its own of them).
+columns, the mLSTM's and sLSTM's fused projections or their weights:
+each rank then reads its own of them), and ``reduce_scatter_seq`` gives
+each rank the sums of its own heads (the mLSTM's q, k, v and gates,
+whose weights' rows split).
 
 gloo is the wire, the device keeps the compute: a CUDA tensor is copied
 into a pinned host buffer (reused per size), exchanged, and copied back.

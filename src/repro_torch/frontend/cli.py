@@ -6,9 +6,10 @@ Counterpart: ``repro/frontend/cli.py`` (``cli_args``, ``plan_from_args``,
 ``--localities``, ``--spmd``, ``--ddp``, ``--grad-codec``,
 ``--ddp-shards``, ``--elastic``, ``--elastic-port`` and ``--replicas``
 map onto the plan, and so do the mesh flags ``--data``, ``--model`` and
-``--pod`` (``--data 2 --model 2`` trains on four rank processes, the
-dense, moe and zamba families' layers split over each pair; ``--model 2`` or ``--data
-2`` serves on two, through either loop).  ``launch/train.py``'s
+``--pod`` (``--data 2 --model 2`` trains on four rank processes, every
+family's layers split over each pair; ``--model 2`` or ``--data 2``
+serves on two, through either loop; whisper-medium through the wave
+loop only, as in the reference).  ``launch/train.py``'s
 ``--ckpt`` maps onto ``Plan.ckpt_dir``.
 """
 from __future__ import annotations
@@ -42,8 +43,8 @@ def cli_args(ap: Optional[argparse.ArgumentParser] = None
                          "training (or serving) its rows of the batch")
     ap.add_argument("--model", type=int, default=1,
                     help="the mesh's model axis: rank processes that split "
-                         "the dense, moe and zamba families' layers "
-                         "(tensor and expert parallelism)")
+                         "every family's layers (tensor and expert "
+                         "parallelism)")
     ap.add_argument("--pod", type=int, default=1,
                     help="the mesh's pod axis (a second dp axis)")
     ap.add_argument("--localities", type=int, default=1,

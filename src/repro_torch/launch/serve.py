@@ -19,8 +19,8 @@ entry point:
 ``--data D``, ``--pod P`` and ``--model M`` run either loop on a mesh of
 D * P * M rank processes: the wave loop on every rank, each dp rank on
 its rows of every wave (a single stream, ``--slots 1``, tiles its cache
-by sequence over the mesh), M ranks splitting the dense, moe and zamba
-families' layers (tensor and expert parallelism,
+by sequence over the mesh), M ranks splitting every family's layers
+(tensor and expert parallelism,
 ``frontend/mesh.rank_serve``); the gateway on rank
 0, every other rank following its command stream
 (``frontend/mesh.rank_serve_stream``).

@@ -17,19 +17,22 @@ its query gets ``bq``.  It always runs through ``attention.attend_full``
 (the query and key lengths differ, which K1 does not take), as the
 reference computes it with jnp.
 
-On a mesh with a model axis (the dense, moe and zamba families) the
-transformer block is Megatron's: the normed input enters the attention
-and the MLP through ``collectives.copy_to_model``, each rank computes its
-own heads and its own ``d_ff`` columns, and the row-parallel out
-projection (``_out_proj``) and ``w_down`` leave through
-``collectives.reduce_from_model``; the residual stream and the norms are
-the same on every rank.  A moe block's experts split instead of its
-``d_ff`` (``moe.apply_moe``: every rank routes every token, runs its own
-experts and sums over the group), zamba's shared block is the dense one,
-and a mamba block runs its mixer on this rank's heads
-(``ssm.mamba2_chunked``, ``ssm.mamba2_step``: its state holds this
-rank's heads of ``ssm`` and its block of the conv channels, the blocks
-``mamba_state_specs`` gives on the mesh).  Under
+On a mesh with a model axis the transformer block is Megatron's: the
+normed input enters the attention and the MLP through
+``collectives.copy_to_model``, each rank computes its own heads and its
+own ``d_ff`` columns, and the row-parallel out projection
+(``_out_proj``) and ``w_down`` leave through
+``collectives.reduce_from_model`` (the gelu MLP's ``b_down`` is added
+once, after the sum); the residual stream and the norms are the same on
+every rank.  Whisper's encoder runs it non-causal and its decoder's
+cross-attention splits the same way (``_cross``: this rank's query
+heads against its kv heads of the encoder's K/V).  A moe block's
+experts split instead of its ``d_ff`` (``moe.apply_moe``: every rank
+routes every token, runs its own experts and sums over the group),
+zamba's shared block is the dense one, and the mamba, mLSTM and sLSTM
+blocks run their mixers on this rank's heads (``ssm.py``: their states
+hold this rank's heads and its block of the conv channels, the blocks
+the state specs give on the mesh).  Under
 sequence parallelism (the hook's ``seq``) the residual and the norms
 hold this rank's rows of the sequence: the attention and the MLP enter
 through ``collectives.all_gather_seq`` (RoPE and the qk-norms see the
@@ -127,20 +130,35 @@ def _cross(x, p, cfg, enc_kv, tiles=None):
     = (ck, cv) [B, S_enc, Hkv, hd], non-causal, with plain tensor code.
     With ``tiles`` (decode against a sequence-tiled cross cache: this
     rank's ``tiles.block`` of the encoder's positions) each rank attends
-    its block and the partials merge over the tiles' group."""
+    its block and the partials merge over the tiles' group.  On a model
+    axis that splits the heads the normed ``x`` enters through
+    ``copy_to_model``, the query and ``bq`` are this rank's heads,
+    ``enc_kv`` this rank's kv heads (or every kv head, of which it picks
+    the ones its heads read: with every query head, gathered, against a
+    cache tiled over the model group) and ``wo``'s rows leave through
+    ``reduce_from_model``."""
     h = layers.apply_norm(x, p["ln_cross"], cfg.norm)
+    h, hp = _attn_in(h, cfg)
     q = torch.einsum("bsd,dhk->bshk", h, p["cross"]["wq"].to(x.dtype))
     if "bq" in p["cross"]:
         q = q + p["cross"]["bq"].to(x.dtype)
     if tiles is None:
-        o = attention.attend_full(q, enc_kv[0], enc_kv[1], causal=False)
+        o = attention.attend_full(q, *_pick(hp, *enc_kv), causal=False)
     else:
-        part = attention.decode_partial(q, enc_kv[0], enc_kv[1],
-                                        cfg.enc_frames,
+        gather_q = hp is not None and hp.heads and "model" in tiles.axes
+        if gather_q:
+            q = collectives.all_gather(q, hp.ax.mesh, axis=2,
+                                       mesh_axis="model")
+            kv = enc_kv
+        else:
+            kv = _pick(hp, *enc_kv)
+        part = attention.decode_partial(q, *kv, cfg.enc_frames,
                                         offset=tiles.block.start)
         o = collectives.softmax_combine(part, tiles.mesh,
                                         mesh_axis=tiles.axis).to(q.dtype)
-    return x + _out_proj(o, p["cross"]["wo"], x.dtype)
+        if gather_q:
+            o = o[:, :, hp.ax.block(cfg.n_heads)]
+    return x + _out_proj(o, p["cross"]["wo"], x.dtype, hp)
 
 
 def tblock_apply(x, p, cfg, *, causal: bool = True, enc_kv=None):

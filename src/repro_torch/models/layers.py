@@ -29,12 +29,12 @@ an unsplit one computes the whole sequence and keeps its rows; the
 embedding's vocab-parallel sum is the reduce-scatter, and the logits
 take the gathered sequence after ``ln_f``.
 
-The dense, moe and zamba families run on the model axis through these
-layers (an odd vocab, granite's, stays whole: every rank computes its
-embedding and logits alike); a moe layer's experts and a mamba layer's
-heads split in ``moe.py`` and ``ssm.py``, whose gated norm over a split
-``d_in`` sums its squares over the group rather than calling
-``rms_norm``.
+Every family runs on the model axis through these layers (an odd
+vocab, granite's or whisper's, stays whole: every rank computes its
+embedding and logits alike); a moe layer's experts and the mamba,
+mLSTM and sLSTM layers' heads split in ``moe.py`` and ``ssm.py``, whose
+norms over a split ``d_in`` sum their squares over the group rather
+than calling ``rms_norm``.
 """
 from __future__ import annotations
 

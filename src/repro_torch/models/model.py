@@ -36,19 +36,22 @@ each dense or moe layer, its aux included; each mLSTM layer; each mamba
 layer, and each zamba group around them; each encoder and decoder layer
 (the activations are recomputed in the backward pass).
 
-On a mesh with a model axis (the dense, moe and zamba families) ``LM``
-runs on this rank's blocks of every parameter and cache leaf
-(``core/sharding.py``): the embedding, the logits and the loss are
-vocab-parallel where the vocab divides (granite's odd vocab stays whole),
-the blocks Megatron's, a moe layer's experts split, a mamba layer on this
-rank's heads (``blocks.py``); ``prefill`` and ``decode_step`` return this
-rank's vocab columns of the logits (``layers.greedy`` takes their global
-argmax, ``layers.gather_vocab`` the whole).  ``partial_mask`` names the
+On a mesh with a model axis ``LM`` and ``EncDec`` run on this rank's
+blocks of every parameter and cache leaf (``core/sharding.py``): the
+embedding, the logits and the loss are vocab-parallel where the vocab
+divides (granite's and whisper's odd vocabs stay whole), the blocks
+Megatron's, a moe layer's experts split, the mamba, mLSTM and sLSTM
+layers on this rank's heads (``blocks.py``, ``ssm.py``); whisper's
+encoder output is whole on every rank and enters every decoder layer's
+cross K/V projection through one ``copy_to_model`` (``_enc_in``);
+``prefill`` and ``decode_step`` return this rank's vocab columns of the
+logits (``layers.greedy`` takes their global argmax,
+``layers.gather_vocab`` the whole).  ``partial_mask`` names the
 replicated leaves whose gradient is a per-rank part.  Under sequence
-parallelism (the hook's ``seq``) the residual between the dense blocks,
-and so what ``_remat`` saves of it, is this rank's ``S/M`` rows; the
-embedding leaves through a reduce-scatter and the logits take the
-gathered sequence after ``ln_f``.
+parallelism (the hook's ``seq``: the dense family) the residual between
+the blocks, and so what ``_remat`` saves of it, is this rank's ``S/M``
+rows; the embedding leaves through a reduce-scatter and the logits take
+the gathered sequence after ``ln_f``.
 
 Contract:
   m = build_model(cfg)
@@ -68,6 +71,7 @@ import torch
 import torch.utils._pytree as pytree
 from torch.utils.checkpoint import checkpoint
 
+from ..core import collectives
 from ..core.sharding import ParamSpec, is_spec, model_sharded
 from . import attention, blocks, layers, ssm
 
@@ -182,6 +186,8 @@ class LM:
         ``wk``, ``wv``, ``bk``, ``bv`` (``attention.partial_grad_leaves``);
         in zamba's mamba layers a whole ``in_proj``, ``conv_w``,
         ``conv_b`` beside split heads (``ssm.partial_grad_leaves``).
+        xlstm has none: its layers split every leaf with their heads, or
+        run whole on gathered leaves.
         Under sequence parallelism (``ax.seq``) that is every leaf the
         rules do not split: the norms and ``b_down`` see this rank's
         rows, and an unsplit product's cut keeps only their gradient."""
@@ -349,15 +355,27 @@ class EncDec:
         (clamped so that the rows fit, as ``lax.dynamic_slice`` does)."""
         cfg = self.cfg
         S = tokens.shape[1]
-        x = layers.embed(tokens, params["embed"]).to(cfg.c_dtype)
+        x = layers.embed(tokens, params["embed"], cfg.vocab).to(cfg.c_dtype)
         start = min(max(int(pos0), 0), params["pos_dec"].shape[0] - S)
         pe = params["pos_dec"][start:start + S]
         return x + pe.to(cfg.c_dtype)[None]
 
+    def _enc_in(self, enc):
+        """The encoder output as every decoder layer's cross K/V
+        projection reads it: through ``copy_to_model`` where the model
+        axis splits the heads (each rank projects its own kv heads, or
+        picks from all of them, so its gradient of ``enc`` is a part to
+        sum; one exchange for all the layers)."""
+        hp = attention.head_plan(self.cfg.n_heads, self.cfg.n_kv_heads)
+        if hp is None or not hp.heads:
+            return enc
+        return collectives.copy_to_model(enc, hp.ax.mesh)
+
     @staticmethod
     def _cross_kv(enc, p):
         """One decoder layer's cross K/V [B, S_enc, Hkv, hd] from the
-        encoder output, without biases."""
+        encoder output (``_enc_in``'s), without biases: on a model axis
+        this rank's blocks of the kv heads."""
         ck = torch.einsum("bsd,dhk->bshk", enc,
                           p["cross"]["wk"].to(enc.dtype))
         cv = torch.einsum("bsd,dhk->bshk", enc,
@@ -372,17 +390,18 @@ class EncDec:
         """batch: frames [B, S_enc, D], tokens [B, S_dec] -> (logits, a
         float32 zero aux)."""
         cfg = self.cfg
-        enc = self.encode(params, batch["frames"])
+        enc = self._enc_in(self.encode(params, batch["frames"]))
         x = self._dec_embed(params, batch["tokens"])
         for p in params["dec_stack"]:
             x = _remat(cfg, self._dec_layer, x, enc, p)
         x = layers.apply_norm(x, params["ln_f"], cfg.norm)
-        return layers.logits(x, params["unembed"]), \
+        return layers.logits(x, params["unembed"], cfg.vocab), \
             torch.zeros((), dtype=torch.float32, device=x.device)
 
     def loss(self, params, batch):
         lg, _ = self.apply(params, batch)
-        return layers.softmax_xent(lg, batch["labels"], batch.get("mask"))
+        return layers.softmax_xent(lg, batch["labels"], batch.get("mask"),
+                                   self.cfg.vocab)
 
     def unread(self, params) -> list:
         """The parameters ``loss`` never reads: each decoder layer's cross
@@ -390,6 +409,26 @@ class EncDec:
         (``_cross_kv``), as the reference's are."""
         return [p["cross"][n] for p in params["dec_stack"]
                 for n in ("bk", "bv") if n in p["cross"]]
+
+    def partial_mask(self, specs, ax):
+        """A bool tree shaped like ``specs``: True for the replicated
+        leaves whose gradient on a rank of the model axis ``ax`` is that
+        rank's part, to be summed over the model group: in every self-
+        and cross-attention a replicated ``wk``, ``wv``, ``bk``, ``bv``
+        beside split query heads (``attention.partial_grad_leaves``).
+        The norms, ``b_down``, ``pos_dec`` and an unsplit vocab's
+        embedding are used alike on every rank, outside the split
+        products, so their gradients are whole."""
+        cfg = self.cfg
+        names = attention.partial_grad_leaves(cfg.n_heads, cfg.n_kv_heads,
+                                              ax)
+        out = pytree.tree_map(lambda s: False, specs, is_leaf=is_spec)
+        for layer in out["enc_stack"] + out["dec_stack"]:
+            for part in ("attn", "cross"):
+                for n in names:
+                    if n in layer.get(part, ()):
+                        layer[part][n] = True
+        return out
 
     def cache_specs(self, batch: int, cache_len: int) -> list:
         cfg = self.cfg
@@ -403,7 +442,7 @@ class EncDec:
 
     def prefill(self, params, batch, cache_len: int):
         cfg = self.cfg
-        enc = self.encode(params, batch["frames"])
+        enc = self._enc_in(self.encode(params, batch["frames"]))
         x = self._dec_embed(params, batch["tokens"])
         cache = []
         for p in params["dec_stack"]:
@@ -411,7 +450,7 @@ class EncDec:
                                          enc_kv=self._cross_kv(enc, p))
             cache.append(c)
         x = layers.apply_norm(x[:, -1:], params["ln_f"], cfg.norm)
-        return layers.logits(x, params["unembed"])[:, 0], cache
+        return layers.logits(x, params["unembed"], cfg.vocab)[:, 0], cache
 
     def decode_step(self, params, cache, batch, pos):
         """batch["tokens"]: [B, 1]; pos: the scalar position (the decoder's
@@ -425,7 +464,8 @@ class EncDec:
                                         enc_kv=(c["ck"], c["cv"]))
             new_cache.append(c)
         x = layers.apply_norm(x, params["ln_f"], cfg.norm)
-        return layers.logits(x, params["unembed"])[:, 0], new_cache
+        return layers.logits(x, params["unembed"], cfg.vocab)[:, 0], \
+            new_cache
 
 
 def build_model(cfg):

@@ -38,6 +38,26 @@ is computed whole and its gradient summed, ``partial_grad_leaves``), and
 where the heads do not divide every rank gathers the split leaves
 (``gather_from_model``) and runs the whole layer.
 
+On a model axis the mLSTM and sLSTM layers run on this rank's ``H/M``
+heads, every leaf the reference's contiguous block.  The mLSTM
+(``_mlstm_qkvif``, ``_mlstm_out``): the input enters through
+``copy_to_model``; ``up_proj``'s fused ``xi | z`` columns are joined
+(``_fused_cols``: as the product's output or as the weight, whichever
+is the fewer bytes); the conv runs on the rank's channels, which are its
+heads' (``d_in`` is head-major); ``wq``, ``wk``, ``wv`` and ``w_gates``
+hold the rank's rows, so their four products are its parts of the
+whole, laid out by head and reduce-scattered over the heads
+(``reduce_scatter_seq``); the norm's sum of squares over ``d_in`` is
+summed over the group and ``down_proj``'s rows leave through
+``reduce_from_model``.  The sLSTM (``slstm_apply``, ``_slstm_out``):
+``w_in``, ``b`` and ``r`` are the rank's heads', so the time loop needs
+no collective; one ``gather_from_model`` of ``h`` after it feeds the
+rms_norm over ``embed``, ``up``'s fused ``gelu | up`` columns are
+joined as the mLSTM's are and ``down``'s rows reduced.  Where the heads
+do not divide (tiny xlstm's 2 sLSTM heads at ``model=4``) the layer
+runs whole on gathered leaves (``_gathered``).  No xLSTM leaf's
+gradient is a per-rank part.
+
 mLSTM and sLSTM are plain tensor code throughout, as in the JAX package
 (which has no kernel for them): the reference's ``compat.layer_scan`` over
 chunks (mLSTM) and over time steps (sLSTM) becomes a Python loop.  The
@@ -56,7 +76,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core import collectives
-from ..core.sharding import ParamSpec, model_axis
+from ..core.sharding import ParamSpec, model_axis, spec_for
 from ..kernels.mamba2_scan import mamba2_chunk_scan
 from . import layers
 
@@ -137,19 +157,28 @@ def _split_of(cfg):
                       ax.split("inner", conv_ch), ax.block(conv_ch))
 
 
+def _gathered(p, specs: dict, ax) -> dict:
+    """``p`` with every leaf that the model axis splits (by its spec in
+    ``specs``) gathered whole (``gather_from_model``): every rank then
+    computes the whole layer alike, where its heads do not split."""
+    out = dict(p)
+    for name, s in specs.items():
+        for i, part in enumerate(spec_for(ax.mesh, ax.rules, s.shape,
+                                          s.dims)):
+            if part is not None and "model" in (
+                    (part,) if isinstance(part, str) else part):
+                out[name] = collectives.gather_from_model(p[name],
+                                                          ax.mesh, i)
+    return out
+
+
 def _whole(p, cfg, ax) -> dict:
     """The layer's parameters with every leaf that the model axis splits
-    gathered whole (``gather_from_model``: every rank then computes the
-    whole layer alike): where the heads do not split."""
-    d_in, H, _, N, G = _dims(cfg)
-    conv_ch = d_in + 2 * G * N
-    out = dict(p)
-    for name, n, dim in (("in_proj", conv_ch + d_in + H, 1),
-                         ("conv_w", conv_ch, 1), ("conv_b", conv_ch, 0),
-                         ("norm_w", d_in, 0), ("out_proj", d_in, 0)):
-        if ax.split("inner", n):
-            out[name] = collectives.gather_from_model(p[name], ax.mesh, dim)
-    return out
+    gathered whole (``_gathered``): where the heads do not split."""
+    return _gathered(p, mamba2_specs(
+        cfg.d_model, expand=cfg.expand, head_dim=cfg.ssm_head_dim,
+        state=cfg.ssm_state, n_groups=cfg.ssm_groups,
+        d_conv=cfg.ssm_d_conv), ax)
 
 
 def _project(x, p, cfg, hs):
@@ -386,55 +415,161 @@ def mlstm_specs(d: int, *, n_heads: int, expand: int = 2,
     }
 
 
-def _mlstm_qkvif(x, p, cfg, conv_cache=None):
+class _XHeads(NamedTuple):
+    """One rank's part of an xLSTM layer whose heads split over the model
+    axis ``ax``: its heads ``hb`` (the channels of every split leaf are
+    head-major, so its blocks are its heads' channels)."""
+    ax: Any
+    hb: slice
+
+
+def _xsplit(H: int, width: int):
+    """(the installed model axis, this rank's ``_XHeads`` over ``H``
+    heads of ``width`` channels): (None, None) in one process, (ax,
+    None) where the heads do not split (every rank computes every
+    head)."""
+    ax = model_axis()
+    if ax is None:
+        return None, None
+    if not (ax.split("heads", H) and ax.split("inner", width)):
+        return ax, None
+    return ax, _XHeads(ax, ax.block(H))
+
+
+def _fused_cols(x, w, parts: int, ax) -> list:
+    """This rank's block of each of the ``parts`` equal segments of
+    ``x @ W``, where the fused weight W's columns split over the model
+    axis ``ax`` (``w``: this rank's block of them; at ``model=2`` with
+    two segments, rank 0 holds all of the first and rank 1 all of the
+    second).  The columns are joined by ``all_gather_seq`` (its backward
+    sums each rank's part of the columns it read), as the product's
+    output where that is the fewer bytes (``x``'s rows fewer than W's:
+    decode, small batches), else as the weight (training).  ``x`` must
+    have entered through ``copy_to_model``."""
+    seg = w.shape[-1] * ax.size // parts
+    blk = ax.block(seg)
+    rows = x.numel() // x.shape[-1]
+    if rows * x.element_size() < w.shape[0] * w.element_size():
+        y = collectives.all_gather_seq(x @ w.to(x.dtype), ax.mesh, dim=-1)
+        return [y[..., i * seg + blk.start:i * seg + blk.stop]
+                for i in range(parts)]
+    whole = collectives.all_gather_seq(w, ax.mesh, dim=-1)
+    y = x @ torch.cat([whole[:, i * seg + blk.start:i * seg + blk.stop]
+                       for i in range(parts)], dim=-1).to(x.dtype)
+    n = blk.stop - blk.start
+    return [y[..., i * n:(i + 1) * n] for i in range(parts)]
+
+
+def _split_rms_norm(h, w, n: int, ax):
+    """``layers.rms_norm`` of ``h``, this rank's block of ``n`` channels
+    split over the model axis ``ax``: the sum of squares summed over the
+    group (``sum_over_model``)."""
+    ss = collectives.sum_over_model(
+        h.float().square().sum(dim=-1, keepdim=True), ax.mesh)
+    return h * torch.rsqrt(ss / n + 1e-6).to(h.dtype) * w.to(h.dtype)
+
+
+def _mlstm_dims(cfg) -> tuple:
+    """(d_in, H, P) of the mLSTM layer."""
+    d_in = cfg.expand * cfg.d_model
+    return d_in, cfg.n_heads, d_in // cfg.n_heads
+
+
+def _mlstm_split(p, cfg):
+    """(this rank's ``_XHeads`` or None, the parameters it computes
+    with: the split leaves gathered where the heads do not split)."""
+    d_in, H, _ = _mlstm_dims(cfg)
+    ax, hs = _xsplit(H, d_in)
+    if ax is not None and hs is None:
+        p = _gathered(p, mlstm_specs(cfg.d_model, n_heads=H,
+                                     expand=cfg.expand,
+                                     d_conv=cfg.ssm_d_conv), ax)
+    return hs, p
+
+
+def _mlstm_qkvif(x, p, cfg, conv_cache=None, hs=None):
     """Project, conv and split: q, k (scaled by 1/sqrt(P)), v (from the
     pre-conv ``xi``) [B, L, H, P] in x's dtype, the input and forget gate
     pre-activations [B, L, H] in float32, ``xi``, the gate ``z`` and the
-    new conv cache (None without ``conv_cache``)."""
-    d_in = cfg.expand * cfg.d_model
-    H = cfg.n_heads
-    P = d_in // H
+    new conv cache (None without ``conv_cache``).
+
+    On a rank's heads ``hs`` (``H/M`` heads, ``d_in/M`` channels) the
+    input enters through ``copy_to_model``, ``up_proj``'s fused ``xi |
+    z`` columns are joined (``_fused_cols``) and the conv runs on the
+    rank's own channels with its own weights.  ``wq``, ``wk``, ``wv`` and
+    ``w_gates`` hold the rank's rows, so each product is its part of the
+    whole: the four are laid out by head (``[.., H, 3P + 2]``) and one
+    reduce-scatter over the heads (``reduce_scatter_seq``, an all-gather
+    backward) gives each rank the sums of its own heads."""
+    d_in, H, P = _mlstm_dims(cfg)
     dt = x.dtype
-    up = x @ p["up_proj"].to(dt)
-    xi, z = up[..., :d_in], up[..., d_in:]
+    if hs is None:
+        up = x @ p["up_proj"].to(dt)
+        xi, z = up[..., :d_in], up[..., d_in:]
+    else:
+        x = collectives.copy_to_model(x, hs.ax.mesh)
+        xi, z = _fused_cols(x, p["up_proj"], 2, hs.ax)
     xc, new_cache = causal_conv1d(xi, p["conv_w"], p["conv_b"],
                                   cache=conv_cache)
     xc = F.silu(xc)
     B, L = x.shape[:2]
-    q = (xc @ p["wq"].to(dt)).reshape(B, L, H, P)
-    k = (xc @ p["wk"].to(dt)).reshape(B, L, H, P) / math.sqrt(P)
-    v = (xi @ p["wv"].to(dt)).reshape(B, L, H, P)
-    gates = (xc @ p["w_gates"].to(dt)).float()
-    i_pre = gates[..., :H] + p["b_i"].float()
-    f_pre = gates[..., H:] + p["b_f"].float()
+    if hs is None:
+        q = (xc @ p["wq"].to(dt)).reshape(B, L, H, P)
+        k = (xc @ p["wk"].to(dt)).reshape(B, L, H, P) / math.sqrt(P)
+        v = (xi @ p["wv"].to(dt)).reshape(B, L, H, P)
+        gates = (xc @ p["w_gates"].to(dt)).float()
+        i_pre, f_pre = gates[..., :H], gates[..., H:]
+    else:
+        parts = torch.cat([
+            (xc @ p["wq"].to(dt)).reshape(B, L, H, P),
+            (xc @ p["wk"].to(dt)).reshape(B, L, H, P),
+            (xi @ p["wv"].to(dt)).reshape(B, L, H, P),
+            (xc @ p["w_gates"].to(dt)).reshape(B, L, 2, H).transpose(2, 3),
+        ], dim=-1)
+        parts = collectives.reduce_scatter_seq(parts, hs.ax.mesh, dim=2)
+        q, k, v = (parts[..., i * P:(i + 1) * P] for i in range(3))
+        k = k / math.sqrt(P)
+        gates = parts[..., 3 * P:].float()
+        i_pre, f_pre = gates[..., 0], gates[..., 1]
+    i_pre = i_pre + p["b_i"].float()
+    f_pre = f_pre + p["b_f"].float()
     return q, k, v, i_pre, f_pre, xi, z, new_cache
 
 
-def _mlstm_out(h, xi, z, p):
-    """The skip connection, the gate, rms_norm and the down projection."""
+def _mlstm_out(h, xi, z, p, hs=None):
+    """The skip connection, the gate, rms_norm and the down projection;
+    on a rank's heads ``hs`` the norm's sum of squares over all of
+    ``d_in`` is summed over the group and ``down_proj``'s rows leave
+    through ``reduce_from_model``."""
     dt_f = h.dtype
     h = h + xi * p["skip"].to(dt_f)
     h = h * F.silu(z)
-    h = layers.rms_norm(h, p["norm_w"])
-    return h @ p["down_proj"].to(dt_f)
+    if hs is None:
+        return layers.rms_norm(h, p["norm_w"]) @ p["down_proj"].to(dt_f)
+    h = _split_rms_norm(h, p["norm_w"], p["down_proj"].shape[0] * hs.ax.size,
+                        hs.ax)
+    return collectives.reduce_from_model(h @ p["down_proj"].to(dt_f),
+                                         hs.ax.mesh)
 
 
 def mlstm_chunked(x, p, cfg, *, chunk: int = 256, return_state: bool = False):
     """Stabilized chunkwise mLSTM. x: [B, L, D] -> [B, L, D] (+ final state
     ``{"C" [B,H,P,P], "n" [B,H,P], "m" [B,H]`` float32, ``"conv" [B, K-1,
-    d_in]}``).  The carry across chunks is (C, n, m), m the running log
-    stabilizer (xLSTM eq. 15-19 in chunk form).
+    d_in]}``; on a model axis this rank's heads and channels of them).
+    The carry across chunks is (C, n, m), m the running log stabilizer
+    (xLSTM eq. 15-19 in chunk form).
 
     Raises:
         ValueError: ``L`` is not a multiple of ``min(chunk, L)`` (the
             reference asserts it).
     """
     B, L, D = x.shape
-    d_in = cfg.expand * D
-    H = cfg.n_heads
-    P = d_in // H
+    _, H, P = _mlstm_dims(cfg)
     dt_f = x.dtype
-    q, k, v, i_pre, f_pre, xi, z, _ = _mlstm_qkvif(x, p, cfg)
+    hs, p = _mlstm_split(p, cfg)
+    if hs is not None:
+        H = hs.hb.stop - hs.hb.start
+    q, k, v, i_pre, f_pre, xi, z, _ = _mlstm_qkvif(x, p, cfg, hs=hs)
 
     chunk = min(chunk, L)
     if L % chunk:
@@ -454,7 +589,7 @@ def mlstm_chunked(x, p, cfg, *, chunk: int = 256, return_state: bool = False):
     C = torch.zeros((B, H, P, P), dtype=torch.float32, device=x.device)
     n = torch.zeros((B, H, P), dtype=torch.float32, device=x.device)
     m = torch.zeros((B, H), dtype=torch.float32, device=x.device)
-    hs = []
+    outs = []
     for c in range(nc):
         qi, ki, vi = (t[:, c].float() for t in (qc, kc, vc))
         ii, gi, gt = ic[:, c], g[:, c], g_tot[:, c]
@@ -480,14 +615,15 @@ def mlstm_chunked(x, p, cfg, *, chunk: int = 256, return_state: bool = False):
         den = torch.einsum("bthp,bhp->bth", qi, n) * w_inter \
             + qkw.sum(dim=2)
         denom = torch.maximum(den.abs(), torch.exp(-m_out))
-        hs.append(((h_inter + h_intra) / denom[..., None]).to(dt_f))
+        outs.append(((h_inter + h_intra) / denom[..., None]).to(dt_f))
         C, n, m = C_new, n_new, m_new
-    h = torch.cat(hs, dim=1).reshape(B, L, d_in)
-    out = _mlstm_out(h, xi, z, p)
+    h = torch.cat(outs, dim=1).reshape(B, L, H * P)
+    out = _mlstm_out(h, xi, z, p, hs)
     if return_state:
         K = p["conv_w"].shape[0]
-        # the pre-conv inputs of the last K-1 positions, copied out of the
-        # projection so that the state does not hold all of it
+        # the pre-conv inputs of the last K-1 positions (this rank's
+        # channels on a rank's heads), copied out of the projection so
+        # that the state does not hold all of it
         return out, {"C": C, "n": n, "m": m,
                      "conv": xi[:, -(K - 1):, :].contiguous()}
     return out
@@ -510,12 +646,13 @@ def mlstm_init_state(batch: int, cfg, dtype=torch.float32,
 
 def mlstm_step(x, state, p, cfg):
     """Decode one token, the exact recurrent form. x: [B, 1, D] -> (y
-    [B, 1, D], new state)."""
-    B, _, D = x.shape
-    d_in = cfg.expand * D
+    [B, 1, D], new state); on a model axis the state holds this rank's
+    heads and channels, as ``mlstm_chunked`` returns them."""
+    B = x.shape[0]
     dt_f = x.dtype
+    hs, p = _mlstm_split(p, cfg)
     q, k, v, i_pre, f_pre, xi, z, conv_cache = _mlstm_qkvif(
-        x, p, cfg, conv_cache=state["conv"])
+        x, p, cfg, conv_cache=state["conv"], hs=hs)
     q, k, v = (t[:, 0].float() for t in (q, k, v))               # [B,H,P]
     ii = i_pre[:, 0]
     lf = F.logsigmoid(f_pre[:, 0])                                # [B,H]
@@ -528,8 +665,8 @@ def mlstm_step(x, state, p, cfg):
     num = torch.einsum("bhp,bhpn->bhn", q, C)
     den = torch.maximum(torch.einsum("bhp,bhp->bh", q, n).abs(),
                         torch.exp(-m_new))
-    h = (num / den[..., None]).reshape(B, 1, d_in).to(dt_f)
-    y = _mlstm_out(h, xi, z, p)
+    h = (num / den[..., None]).reshape(B, 1, -1).to(dt_f)
+    y = _mlstm_out(h, xi, z, p, hs)
     return y, {"C": C, "n": n, "m": m_new, "conv": conv_cache}
 
 
@@ -570,10 +707,39 @@ def _slstm_cell(x_t, h_prev, state, r, H, P):
     return h_new, (c_new, n_new, m_new)
 
 
-def _slstm_out(h, p, D: int):
-    """rms_norm, the gelu-gated up projection and the down projection."""
+def _slstm_split(p, cfg):
+    """(this rank's ``_XHeads`` or None, the parameters it computes
+    with), as ``_mlstm_split``: heads that do not split (tiny xlstm's 2
+    at ``model=4``, where ``w_in``'s columns still do: a rank's block
+    would be part of a head) run the whole layer on gathered leaves."""
+    H, D = cfg.n_heads, cfg.d_model
+    ax, hs = _xsplit(H, 4 * D)
+    if ax is not None and hs is None:
+        p = _gathered(p, slstm_specs(D, n_heads=H), ax)
+    return hs, p
+
+
+def _slstm_out(h, p, D: int, hs=None):
+    """rms_norm, the gelu-gated up projection and the down projection.
+    On a rank's heads ``hs`` its heads' ``h`` are gathered whole
+    (``gather_from_model``), normed alike on every rank and enter the
+    projections through ``copy_to_model``; ``up``'s fused ``gelu | up``
+    columns are joined (``_fused_cols``) and ``down``'s rows leave
+    through ``reduce_from_model``.  Where ``d_ff`` does not split, every
+    rank computes the projections whole on gathered leaves."""
     dt_f = h.dtype
+    if hs is not None:
+        h = collectives.gather_from_model(h, hs.ax.mesh, -1)
     h = layers.rms_norm(h, p["norm_w"])
+    ax = None if hs is None else hs.ax
+    if ax is not None and ax.split("d_ff", 2 * D) and ax.split("d_ff", D):
+        h = collectives.copy_to_model(h, ax.mesh)
+        g, u = _fused_cols(h, p["up"], 2, ax)
+        return collectives.reduce_from_model(
+            (layers.gelu(g) * u) @ p["down"].to(dt_f), ax.mesh)
+    if ax is not None:          # (the heads do not shape up or down)
+        p = _gathered(p, {k: v for k, v in slstm_specs(D, n_heads=1).items()
+                          if k in ("up", "down")}, ax)
     u = h @ p["up"].to(dt_f)
     u = layers.gelu(u[..., :D]) * u[..., D:]
     return u @ p["down"].to(dt_f)
@@ -583,23 +749,32 @@ def slstm_apply(x, p, cfg, *, return_state: bool = False):
     """x: [B, L, D]; a sequential loop over L (no parallel form exists).
     ``cfg`` needs ``n_heads`` (the sLSTM's heads) and ``d_model``.
     With ``return_state``, also the final state ``{"h", "c", "n"}
-    [B, H, P], ``"m"`` [B, H]``, all float32."""
+    [B, H, P], ``"m"`` [B, H]``, all float32.  On a rank's heads the
+    input enters through ``copy_to_model``, ``w_in``'s and ``b``'s
+    columns and ``r`` are this rank's heads', and the recurrence runs on
+    them with no collective inside the loop (the state is this rank's
+    heads')."""
     B, L, D = x.shape
     H = cfg.n_heads
     P = D // H
     dt_f = x.dtype
+    hs, p = _slstm_split(p, cfg)
+    if hs is not None:
+        H = hs.hb.stop - hs.hb.start
+        x = collectives.copy_to_model(x, hs.ax.mesh)
     pre = x @ p["w_in"].to(dt_f) + p["b"].to(dt_f)
     r = p["r"].float()
     h = torch.zeros((B, H, P), dtype=torch.float32, device=x.device)
     st = (torch.zeros_like(h), torch.zeros_like(h),
           torch.zeros((B, H), dtype=torch.float32, device=x.device))
-    hs = []
+    outs = []
     for t in range(L):
         h, st = _slstm_cell(pre[:, t], h, st, r, H, P)
         # the carry stays float32; the stacked outputs are in the compute
         # dtype, as the reference emits them
-        hs.append(h.to(dt_f))
-    out = _slstm_out(torch.stack(hs, dim=1).reshape(B, L, D), p, D)
+        outs.append(h.to(dt_f))
+    out = _slstm_out(torch.stack(outs, dim=1).reshape(B, L, H * P), p, D,
+                     hs)
     if return_state:
         c, n, m = st
         return out, {"h": h, "c": c, "n": n, "m": m}
@@ -617,14 +792,20 @@ def slstm_init_state(batch: int, cfg, dtype=torch.float32,
 
 
 def slstm_step(x, state, p, cfg):
-    """Decode one token. x: [B, 1, D] -> (y [B, 1, D], new state)."""
+    """Decode one token. x: [B, 1, D] -> (y [B, 1, D], new state); on a
+    model axis the state holds this rank's heads, as ``slstm_apply``
+    returns them."""
     B, _, D = x.shape
     H = cfg.n_heads
     P = D // H
     dt_f = x.dtype
+    hs, p = _slstm_split(p, cfg)
+    if hs is not None:
+        H = hs.hb.stop - hs.hb.start
+        x = collectives.copy_to_model(x, hs.ax.mesh)
     pre = (x @ p["w_in"].to(dt_f) + p["b"].to(dt_f))[:, 0]
     h_new, (c, n, m) = _slstm_cell(
         pre, state["h"], (state["c"], state["n"], state["m"]),
         p["r"].to(state["h"].dtype), H, P)
-    y = _slstm_out(h_new.reshape(B, 1, D).to(dt_f), p, D)
+    y = _slstm_out(h_new.reshape(B, 1, H * P).to(dt_f), p, D, hs)
     return y, {"h": h_new, "c": c, "n": n, "m": m}

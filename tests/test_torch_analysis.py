@@ -27,6 +27,9 @@ from repro_torch.analysis import lint as lint_mod
 from repro_torch.configs import ARCH_IDS
 from repro_torch.core.futures import FuturizedGraph
 from repro_torch.frontend import Plan, tracing
+import torch_threads
+
+torch_threads.apply()
 
 ROOT = Path(__file__).resolve().parents[1]
 ARCH = "qwen2.5-3b"

@@ -7,6 +7,9 @@ import torch
 
 from repro.models import attention as ja
 from repro_torch.models import attention as ta
+import torch_threads
+
+torch_threads.apply()
 
 ATOL = 1e-5
 B, S, H, HKV, HD = 3, 24, 4, 2, 32

@@ -35,6 +35,9 @@ from repro_torch.core.futures import FuturizedGraph
 from repro_torch.data.pipeline import to_device
 from repro_torch.frontend import Plan
 from repro_torch.optim.optimizers import OptConfig
+import torch_threads
+
+torch_threads.apply()
 
 BATCH, SEQ = 4, 16
 ARCHS = ["qwen3-4b", "zamba2-2.7b"]

@@ -31,6 +31,9 @@ from repro_torch.distrib import DistributedGraph
 from repro_torch.frontend import Plan
 from repro_torch.launch import train as train_cli
 from test_torch_checkpoint import _jax_train_state
+import torch_threads
+
+torch_threads.apply()
 
 pytestmark = pytest.mark.multiproc
 

@@ -15,6 +15,9 @@ from repro_torch.bridge import cnn_params_from_numpy
 from repro_torch.core.sharding import init_params
 from repro_torch.data.pipeline import HARStream, to_device
 from repro_torch.models import cnn
+import torch_threads
+
+torch_threads.apply()
 
 # float32 on both sides; the convolutions sum in other orders
 ATOL = RTOL = 1e-5

@@ -13,7 +13,6 @@ against a manual shift; the flash-decode combine against a full
 softmax), and every output is held against the reference's.
 """
 import json
-import os
 import subprocess
 import sys
 import textwrap
@@ -32,6 +31,9 @@ from repro.core import sharding as jax_sharding
 from repro_torch.core import fusion, granularity, overlap, sharding
 from repro_torch.launch import mesh as mesh_lib
 from torch_mesh_world import run_world, seeded
+import torch_threads
+
+torch_threads.apply()
 
 ROOT = Path(__file__).resolve().parents[1]
 N = 4
@@ -88,9 +90,7 @@ _REF = textwrap.dedent("""
 
 
 def _reference(inputs) -> dict:
-    env = dict(os.environ, JAX_PLATFORMS="cpu",
-               XLA_FLAGS=f"--xla_force_host_platform_device_count={N}",
-               PYTHONPATH=str(ROOT / "src"))
+    env = torch_threads.jax_env(N, PYTHONPATH=str(ROOT / "src"))
     p = subprocess.run([sys.executable, "-c", _REF],
                        input=json.dumps({k: v.tolist()
                                          for k, v in inputs.items()}),

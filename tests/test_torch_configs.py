@@ -12,6 +12,9 @@ from repro.configs import REGISTRY as JAX_REGISTRY
 from repro_torch.configs import ARCH_IDS, REGISTRY, get_config
 from repro_torch.core.sharding import is_spec
 from repro_torch.models.model import EncDec, LM, build_model
+import torch_threads
+
+torch_threads.apply()
 
 PORTED = sorted(REGISTRY)
 

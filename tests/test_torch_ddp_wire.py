@@ -29,6 +29,9 @@ from repro_torch.distrib import (Endpoint, Fp32Codec, LocalityLostError,
                                  OneBitCodec, RingAllReduce)
 from repro_torch.frontend import Plan
 from repro_torch.optim import compression
+import torch_threads
+
+torch_threads.apply()
 
 ARCH = "qwen3-4b"
 WAIT = 30.0      # seconds any exchange in this file may take

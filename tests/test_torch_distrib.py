@@ -24,6 +24,9 @@ from repro_torch.data.pipeline import Prefetcher
 from repro_torch.distrib import DistributedGraph, RemoteRef
 from repro_torch.frontend import Plan
 from repro_torch.optim import optimizers
+import torch_threads
+
+torch_threads.apply()
 
 pytestmark = pytest.mark.multiproc
 

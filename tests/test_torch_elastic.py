@@ -23,6 +23,9 @@ import pytest
 from repro_torch.distrib import DistributedGraph, rebalance_plan
 from repro_torch.frontend import Plan
 from repro_torch.launch import train as train_cli
+import torch_threads
+
+torch_threads.apply()
 
 pytestmark = pytest.mark.multiproc
 

@@ -13,6 +13,9 @@ from repro.kernels.flash_attention import flash_attention as jax_kernel
 from repro.models.attention import attend_full as jax_attend_full
 from repro_torch.kernels import flash_attention, flash_attention_ref
 from repro_torch.models.attention import attend, attend_full
+import torch_threads
+
+torch_threads.apply()
 
 TOL = {"f32": 1e-5, "bf16": 3e-2}
 JDT = {"f32": jnp.float32, "bf16": jnp.bfloat16}

@@ -13,6 +13,9 @@ import torch
 
 import repro.core.futures as jax_futures
 import repro_torch.core.futures as torch_futures
+import torch_threads
+
+torch_threads.apply()
 
 # the frontend packages re-export the decorator under the module's name
 jax_futurize = importlib.import_module("repro.frontend.futurize")

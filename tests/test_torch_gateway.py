@@ -31,6 +31,9 @@ from repro_torch.frontend import gateway as gateway_mod
 from repro_torch.frontend.gateway import (DeadlineExpired, Gateway,
                                           RequestQueue, RequestRejected)
 from test_torch_serve import _jax_serve_params
+import torch_threads
+
+torch_threads.apply()
 
 ARCH = "qwen2.5-3b"
 ARRIVALS = (0, 0, 1, 3, 3)           # staggered, requests > slots

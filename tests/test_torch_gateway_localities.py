@@ -24,6 +24,9 @@ from repro_torch.core import steps
 from repro_torch.frontend import Plan
 from repro_torch.frontend.gateway import Gateway, RequestQueue
 from torch_parity import _jax_serve_params
+import torch_threads
+
+torch_threads.apply()
 
 pytestmark = pytest.mark.multiproc
 

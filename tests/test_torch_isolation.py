@@ -4,6 +4,9 @@ import ast
 import pathlib
 
 import pytest
+import torch_threads
+
+torch_threads.apply()
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \

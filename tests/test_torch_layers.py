@@ -6,6 +6,9 @@ import torch
 
 from repro.models import layers as jl
 from repro_torch.models import layers as tl
+import torch_threads
+
+torch_threads.apply()
 
 ATOL = 1e-5
 

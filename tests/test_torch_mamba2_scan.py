@@ -16,6 +16,9 @@ from repro.kernels.mamba2_scan import mamba2_chunk_scan as jax_kernel
 from repro_torch.kernels import (mamba2_chunk_scan, mamba2_chunk_scan_bwd,
                                  mamba2_chunk_scan_bwd_ref,
                                  mamba2_chunk_scan_ref)
+import torch_threads
+
+torch_threads.apply()
 
 # the tolerances of tests/test_kernels.py's kernel sweep
 TOL = {"f32": 2e-4, "bf16": 6e-2}

@@ -22,7 +22,6 @@ carried by ``bridge``) and train 4 steps at lr 1e-3:
   semantically``, tiny qwen2.5-3b, within 5e-3).
 """
 import json
-import os
 import subprocess
 import sys
 import textwrap
@@ -38,6 +37,9 @@ from repro.core.sharding import init_params as jax_init_params
 from repro.models.model import build_model as build_jax_model
 from repro.optim import compression as jax_compression
 from torch_mesh_world import run_world, seeded
+import torch_threads
+
+torch_threads.apply()
 
 ROOT = Path(__file__).resolve().parents[1]
 ARCH, LR, BATCH, SEQ, STEPS = "qwen3-4b", 1e-3, 8, 16, 4
@@ -97,9 +99,7 @@ _REF = textwrap.dedent("""
 
 
 def _reference(bufs) -> dict:
-    env = dict(os.environ, JAX_PLATFORMS="cpu",
-               XLA_FLAGS="--xla_force_host_platform_device_count=4",
-               PYTHONPATH=str(ROOT / "src"))
+    env = torch_threads.jax_env(4, PYTHONPATH=str(ROOT / "src"))
     spec = {"arch": ARCH, "lr": LR, "batch": BATCH, "seq": SEQ,
             "steps": STEPS, "cases": CASES, "bufs": bufs.tolist()}
     p = subprocess.run([sys.executable, "-c", _REF], input=json.dumps(spec),

@@ -35,6 +35,9 @@ import torch.utils._pytree as pytree
 from repro_torch.core import steps
 from repro_torch.core.sharding import is_spec
 from repro_torch.frontend import Plan
+import torch_threads
+
+torch_threads.apply()
 
 ROOT = Path(__file__).resolve().parents[1]
 ARRIVALS = (0, 0, 1, 3, 3)
@@ -115,9 +118,7 @@ def streamed(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("mesh_gateway")
     spec = {"meshes": MESHES, "scripts": SCRIPTS, "kw": KW,
             "tmp": str(tmp)}
-    env = dict(os.environ, JAX_PLATFORMS="cpu",
-               XLA_FLAGS="--xla_force_host_platform_device_count=4",
-               PYTHONPATH=str(ROOT / "src"))
+    env = torch_threads.jax_env(4, PYTHONPATH=str(ROOT / "src"))
     err = tempfile.TemporaryFile(mode="w+")
     proc = subprocess.Popen([sys.executable, "-c", _REF], env=env,
                             stdin=subprocess.PIPE, stdout=subprocess.PIPE,
@@ -131,7 +132,7 @@ def streamed(tmp_path_factory):
             err.seek(0)
             pytest.fail(f"reference failed: {err.read()[-3000:]}")
         params = _tree(line[len("PARAMS "):].strip())
-        torch.set_num_threads(1)
+        torch_threads.apply(torch_threads.RANK)
         port = {}
         for name, mesh in MESHES.items():
             with Plan(device="cpu", **mesh).compile() as s:

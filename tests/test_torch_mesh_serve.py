@@ -34,6 +34,9 @@ import torch
 from repro_torch.core import steps
 from repro_torch.frontend import Plan
 from repro_torch.launch.mesh import Mesh
+import torch_threads
+
+torch_threads.apply()
 
 ROOT = Path(__file__).resolve().parents[1]
 WAVES = dict(requests=5, prompt_len=18, gen_len=6)
@@ -122,9 +125,7 @@ def served(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("mesh_serve")
     archs = {_param_key(a, o): (a, o) for _, a, o, _, _ in CELLS}
     spec = {"params": archs, "cells": CELLS, "tmp": str(tmp)}
-    env = dict(os.environ, JAX_PLATFORMS="cpu",
-               XLA_FLAGS="--xla_force_host_platform_device_count=4",
-               PYTHONPATH=str(ROOT / "src"))
+    env = torch_threads.jax_env(4, PYTHONPATH=str(ROOT / "src"))
     err = tempfile.TemporaryFile(mode="w+")
     proc = subprocess.Popen([sys.executable, "-c", _REF], env=env,
                             stdin=subprocess.PIPE, stdout=subprocess.PIPE,
@@ -138,7 +139,7 @@ def served(tmp_path_factory):
             err.seek(0)
             pytest.fail(f"reference failed: {err.read()[-3000:]}")
         paths = json.loads(line[len("PARAMS "):])
-        torch.set_num_threads(1)
+        torch_threads.apply(torch_threads.RANK)
         port = {}
         sessions: dict = {}
         for key, arch, over, mesh, kw in CELLS:

@@ -26,6 +26,9 @@ from repro_torch.distrib import (DistributedGraph, ObjectDirectory,
 from repro_torch.distrib import messaging
 from repro_torch.distrib.agas import tree_leaves, tree_map
 from repro_torch.distrib.messaging import Endpoint
+import torch_threads
+
+torch_threads.apply()
 
 WAIT = 10.0      # seconds any wait in this file may take
 

@@ -22,6 +22,9 @@ from repro_torch.core.sharding import init_params
 from repro_torch.data.pipeline import LMStream, to_device
 from repro_torch.models import moe
 from repro_torch.models.model import build_model
+import torch_threads
+
+torch_threads.apply()
 
 # float32 on both sides; the products sum in other orders
 ATOL = RTOL = 1e-5

@@ -26,6 +26,9 @@ from repro_torch.kernels.onebit import (onebit_dequantize,
                                         onebit_quantize, onebit_quantize_ref)
 from repro_torch.models.model import build_model
 from repro_torch.optim import compression
+import torch_threads
+
+torch_threads.apply()
 
 
 def _inputs(R, C, seed=0):

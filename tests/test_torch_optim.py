@@ -18,6 +18,9 @@ from repro_torch.configs import get_config
 from repro_torch.core import fusion
 from repro_torch.models.model import build_model
 from repro_torch.optim import compression, optimizers
+import torch_threads
+
+torch_threads.apply()
 
 
 def _tree(seed):

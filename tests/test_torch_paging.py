@@ -9,6 +9,9 @@ import random
 import numpy as np
 import pytest
 import torch
+import torch_threads
+
+torch_threads.apply()
 
 try:
     from hypothesis import given, settings, strategies as st

@@ -24,7 +24,6 @@ subprocess with 4 host devices, both module-scoped and run at once:
 """
 import dataclasses
 import json
-import os
 import subprocess
 import sys
 import textwrap
@@ -41,6 +40,9 @@ from repro.models.model import build_model as build_jax_model
 from repro_torch.core import pipeline
 from repro_torch.launch.mesh import make_mesh
 from torch_mesh_world import run_world, seeded
+import torch_threads
+
+torch_threads.apply()
 
 ROOT = Path(__file__).resolve().parents[1]
 S, D, MB = 4, 16, 2
@@ -88,9 +90,7 @@ _REF = textwrap.dedent("""
 
 
 def _reference(spec) -> dict:
-    env = dict(os.environ, JAX_PLATFORMS="cpu",
-               XLA_FLAGS="--xla_force_host_platform_device_count=4",
-               PYTHONPATH=str(ROOT / "src"))
+    env = torch_threads.jax_env(4, PYTHONPATH=str(ROOT / "src"))
     p = subprocess.run([sys.executable, "-c", _REF], input=json.dumps(spec),
                        env=env, text=True, capture_output=True, timeout=600)
     assert p.returncode == 0, p.stderr[-3000:]

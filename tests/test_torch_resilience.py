@@ -37,6 +37,9 @@ from repro_torch.core.resilience import (ResilienceError, ResilientRunner,
 from repro_torch.frontend import Plan
 from repro_torch.launch import train as train_cli
 from torch_mesh_world import NanOnRank, with_fault_hook
+import torch_threads
+
+torch_threads.apply()
 
 STRATEGIES = ("phylanx", "horovod", "zero1", "onebit")
 STEPS = 3
@@ -127,7 +130,7 @@ def mesh_runs():
     """For each strategy, one ``Plan(data=2)`` session: the straight run,
     then replay and replicate with a NaN on rank 1's first result; and
     one data=1 session doing the same with the NaN on rank 0."""
-    torch.set_num_threads(2)
+    torch_threads.apply()
     out = {}
     for name in STRATEGIES:
         with _plan(data=2, strategy=name).compile() as s:

@@ -55,6 +55,9 @@ from repro_torch.frontend import Plan
 from repro_torch.launch import train as train_cli
 from repro_torch.launch.mesh import Mesh
 from torch_mesh_world import run_world, seeded
+import torch_threads
+
+torch_threads.apply()
 
 ROOT = Path(__file__).resolve().parents[1]
 ARCH, LR, BATCH, SEQ, STEPS = "qwen3-4b", 1e-3, 8, 16, 4
@@ -139,9 +142,7 @@ _REF = textwrap.dedent("""
 
 
 def _reference(spec) -> dict:
-    env = dict(os.environ, JAX_PLATFORMS="cpu",
-               XLA_FLAGS="--xla_force_host_platform_device_count=4",
-               PYTHONPATH=str(ROOT / "src"))
+    env = torch_threads.jax_env(4, PYTHONPATH=str(ROOT / "src"))
     p = subprocess.run([sys.executable, "-c", _REF], input=json.dumps(spec),
                        env=env, text=True, capture_output=True, timeout=600)
     assert p.returncode == 0, p.stderr[-3000:]
@@ -338,7 +339,7 @@ def test_residual_splits_only_where_sequence_and_vocab_divide():
 def test_fabric_ddp_with_sequence_parallelism_is_the_plain_plan():
     """World-1 fabric DDP at model=1: the reference installs the
     sequence-parallel rules on its gradient path, which split nothing."""
-    torch.set_num_threads(2)
+    torch_threads.apply()
     kw = dict(device="cpu", ddp=True, ddp_shards=2, batch=4, seq=16)
     got = {}
     for sp in (False, True):
@@ -362,7 +363,7 @@ def test_serve_ignores_sequence_parallelism():
 def test_launch_train_model2_seq_parallel_runs():
     """``--model 2 --seq-parallel``: two rank processes, the residual
     split by sequence, the losses of one process."""
-    torch.set_num_threads(1)
+    torch_threads.apply(torch_threads.RANK)
     base = ["--device", "cpu", "--steps", "2", "--batch", "4", "--seq",
             "16", "--log-every", "1"]
     out = train_cli.run(train_cli.parser().parse_args(

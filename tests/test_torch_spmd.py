@@ -46,13 +46,16 @@ from repro_torch.core.futures import FuturizedGraph
 from repro_torch.frontend import Plan
 from repro_torch.launch import mesh
 from test_torch_checkpoint import _jax_train_state
+import torch_threads
+
+torch_threads.apply()
 
 pytestmark = pytest.mark.spmd
 
 ROOT = Path(__file__).resolve().parents[1]
 ARCH = "qwen3-4b"
 STEPS, EVERY = 4, 2
-THREADS = 2          # CPU threads a process: two processes share the cores
+THREADS = torch_threads.WORKER  # both processes at one count: bit-identity
 
 
 def _plan(**kw):
@@ -103,9 +106,7 @@ def reference_layout():
               for arch in (ARCH, "granite-moe-1b-a400m")}
     shapes["edge"] = EDGE_SHAPES
     flat = [s for v in shapes.values() for s in v]
-    env = dict(os.environ, JAX_PLATFORMS="cpu",
-               XLA_FLAGS="--xla_force_host_platform_device_count=2",
-               PYTHONPATH=str(ROOT / "src"))
+    env = torch_threads.jax_env(2, PYTHONPATH=str(ROOT / "src"))
     p = subprocess.run([sys.executable, "-c", _REF_LAYOUT],
                        input=json.dumps(flat), env=env, text=True,
                        capture_output=True, timeout=120)

@@ -10,6 +10,9 @@ import torch
 from repro.core.sharding import init_params as jax_init_params
 from repro.models import ssm as jax_ssm
 from repro_torch.models import ssm
+import torch_threads
+
+torch_threads.apply()
 
 ATOL = 1e-4
 

@@ -54,6 +54,9 @@ from repro_torch.core import steps
 from repro_torch.core.sharding import local_specs
 from repro_torch.launch.mesh import Mesh
 from torch_mesh_world import run_world, seeded
+import torch_threads
+
+torch_threads.apply()
 
 ROOT = Path(__file__).resolve().parents[1]
 ARCH, LR, BATCH, SEQ, STEPS = "qwen3-4b", 1e-3, 8, 16, 4
@@ -162,9 +165,7 @@ def _digest(a) -> str:
 
 
 def _reference(spec) -> dict:
-    env = dict(os.environ, JAX_PLATFORMS="cpu",
-               XLA_FLAGS="--xla_force_host_platform_device_count=4",
-               PYTHONPATH=str(ROOT / "src"))
+    env = torch_threads.jax_env(4, PYTHONPATH=str(ROOT / "src"))
     p = subprocess.run([sys.executable, "-c", _REF], input=json.dumps(spec),
                        env=env, text=True, capture_output=True, timeout=600)
     assert p.returncode == 0, p.stderr[-3000:]

@@ -40,6 +40,9 @@ from repro_torch.frontend import Plan
 from repro_torch.launch import train as train_cli
 from repro_torch.launch.mesh import Mesh, make_local_mesh, make_mesh
 from torch_mesh_world import NanOnRank, with_fault_hook
+import torch_threads
+
+torch_threads.apply()
 
 ROOT = Path(__file__).resolve().parents[1]
 SERVE = dict(requests=5, prompt_len=18, gen_len=6, slots=2)
@@ -83,9 +86,7 @@ _REF = textwrap.dedent("""
 
 
 def _reference(spec) -> dict:
-    env = dict(os.environ, JAX_PLATFORMS="cpu",
-               XLA_FLAGS="--xla_force_host_platform_device_count=4",
-               PYTHONPATH=str(ROOT / "src"))
+    env = torch_threads.jax_env(4, PYTHONPATH=str(ROOT / "src"))
     p = subprocess.run([sys.executable, "-c", _REF], input=json.dumps(spec),
                        env=env, text=True, capture_output=True, timeout=600)
     assert p.returncode == 0, p.stderr[-3000:]
@@ -110,7 +111,7 @@ def served(tmp_path_factory):
     once the reference has written its parameters."""
     tmp = tmp_path_factory.mktemp("tp_serve")
     ref = _reference({"cells": CELLS, "serve": SERVE, "tmp": str(tmp)})
-    torch.set_num_threads(1)
+    torch_threads.apply(torch_threads.RANK)
     port = {}
     for arch, model in CELLS:
         with Plan(arch=arch, model=model, device="cpu").compile() as s:
@@ -159,7 +160,7 @@ def _losses(argv) -> list:
 
 
 def test_launch_train_at_data2_model2_takes_the_one_process_steps():
-    torch.set_num_threads(1)
+    torch_threads.apply(torch_threads.RANK)
     want = _losses([])
     got = _losses(["--data", "2", "--model", "2"])
     np.testing.assert_allclose(got, want, rtol=1e-5)
@@ -170,7 +171,7 @@ def test_mesh_session_checkpoint_resumes_in_one_process(tmp_path):
     parameters (rank 0 holds the first half of every split leaf, the
     whole of the others) and a one-process session resumes from them on
     the one-process run's trajectory."""
-    torch.set_num_threads(1)
+    torch_threads.apply(torch_threads.RANK)
     kw = dict(device="cpu", batch=8, seq=16)
     with Plan(data=2, model=2, **kw).compile() as s:
         out = s.train(steps=2, ckpt_dir=str(tmp_path), ckpt_every=2,
@@ -204,7 +205,7 @@ def test_replay_verdicts_are_agreed_over_the_model_group():
     """A NaN on the model group's rank 1 alone replays the step on both
     ranks (the verdict is agreed over the whole world), and the run ends
     as the straight one did."""
-    torch.set_num_threads(1)
+    torch_threads.apply(torch_threads.RANK)
     kw = dict(steps=2, log_every=1, verbose=False)
     with Plan(model=2, device="cpu", batch=4, seq=16).compile() as s:
         straight = s.train(**kw)
@@ -216,15 +217,19 @@ def test_replay_verdicts_are_agreed_over_the_model_group():
 
 
 @pytest.mark.parametrize("kw, match", [
-    # the moe and zamba families run on a model axis; not with onebit,
-    # nor with sequence parallelism, nor the other families
+    # every family runs on a model axis; not with onebit, nor with
+    # sequence parallelism beyond the dense family
     (dict(arch="granite-moe-1b-a400m", model=2, strategy="onebit"),
      "onebit at a model axis"),
     (dict(arch="zamba2-2.7b", model=2,
           strategy=steps.Strategy(sequence_parallel=True)),
      "sequence parallelism for the zamba family"),
-    (dict(arch="xlstm-350m", model=2), "xlstm family"),
-    (dict(arch="whisper-medium", model=2), "encdec family"),
+    (dict(arch="xlstm-350m", model=2,
+          strategy=steps.Strategy(sequence_parallel=True)),
+     "sequence parallelism for the xlstm family"),
+    (dict(arch="whisper-medium", model=2,
+          strategy=steps.Strategy(sequence_parallel=True)),
+     "sequence parallelism for the encdec family"),
     (dict(model=2, strategy="onebit"), "onebit at a model axis"),
     # sequence parallelism runs on the dense family only
     (dict(arch="granite-moe-1b-a400m", model=2,
@@ -234,9 +239,9 @@ def test_replay_verdicts_are_agreed_over_the_model_group():
     (dict(model=2, localities=2), "fabric localities"),
     (dict(model=2, elastic=True), "elastic membership"),
     (dict(model=2, ddp=True), "fabric DDP with a model axis"),
-    # the gateway over a mesh runs the model axis's family only, as
-    # Session.serve does: a replicated serve_stream plan is refused too
-    (dict(arch="xlstm-350m", model=2, replicas=2), "xlstm family"),
+    # a replicated serve_stream plan is refused as Session.serve's is
+    (dict(arch="xlstm-350m", model=2, replicas=2, strategy="onebit"),
+     "onebit at a model axis"),
 ], ids=["moe", "zamba", "xlstm", "encdec", "onebit", "seq-parallel",
         "spmd", "localities", "elastic", "ddp", "serve-stream-xlstm"])
 def test_model_axis_refusals_name_item_14b(kw, match):
@@ -250,10 +255,11 @@ def test_step_builders_refuse_what_the_plan_refuses():
     with pytest.raises(NotImplementedError, match="onebit.*item 14b"):
         steps.make_train_step(get_config("qwen3-4b", tiny=True),
                               steps.Strategy(name="onebit"), mesh=mesh)
-    with pytest.raises(NotImplementedError, match="xlstm family.*item 14b"):
-        steps.make_prefill_step(get_config("xlstm-350m", tiny=True),
-                                {"seq_len": 8, "global_batch": 1},
-                                mesh=mesh)
+    with pytest.raises(NotImplementedError,
+                       match="sequence parallelism for the xlstm.*item 14b"):
+        steps.make_train_step(get_config("xlstm-350m", tiny=True),
+                              steps.Strategy(sequence_parallel=True),
+                              mesh=mesh)
     with pytest.raises(NotImplementedError,
                        match="sequence parallelism for the moe.*item 14b"):
         steps.make_train_step(get_config("granite-moe-1b-a400m", tiny=True),

@@ -29,6 +29,9 @@ from torch_parity import (GEN, PROMPT, SLOTS, bf16_parity, close,
                           resume_is_bit_identical, train_cli_runs,
                           jax_train_params, loss_and_grads_match,
                           serve_cli_runs, serve_parity, train_steps_match)
+import torch_threads
+
+torch_threads.apply()
 
 ARCH = "xlstm-350m"
 

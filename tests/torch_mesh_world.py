@@ -25,9 +25,10 @@ TIMEOUT_S = 240
 def _rank_main(job, rank, n, port, payload, queue):
     import datetime
 
-    import torch
     import torch.distributed as dist
-    torch.set_num_threads(1)
+
+    import torch_threads
+    torch_threads.apply(torch_threads.RANK)
     try:
         dist.init_process_group(
             "gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
@@ -220,7 +221,7 @@ def _tp_trajectory(mesh, cfg, case: dict) -> dict:
 
     from repro_torch import bridge
     from repro_torch.core import steps
-    from repro_torch.data.pipeline import LMStream, to_device
+    from repro_torch.data.pipeline import stream_for, to_device
     from repro_torch.optim.optimizers import OptConfig
     step = steps.make_train_step(
         cfg, steps.Strategy(name=case["name"], opt=OptConfig(
@@ -232,8 +233,7 @@ def _tp_trajectory(mesh, cfg, case: dict) -> dict:
     params = bridge.params_from_numpy(case["params"], cfg, "cpu", mesh=mesh)
     for p in torch.utils._pytree.tree_leaves(params):
         p.requires_grad_(True)
-    stream = LMStream(vocab=cfg.vocab, batch=case["batch"], seq=case["seq"],
-                      seed=0)
+    stream = stream_for(cfg, batch=case["batch"], seq=case["seq"], seed=0)
     out = {"loss": [], "grad_norm": [], "replicated": []}
     for it in range(case["steps"]):
         m, params, opt = step.fn(params, opt,
@@ -374,14 +374,18 @@ def _sp_grads(mesh, cfg, params_np, batch_np, sp: bool = True) -> dict:
     params = bridge.params_from_numpy(params_np, cfg, "cpu", mesh=mesh)
     for p in pytree.tree_leaves(params):
         p.requires_grad_(True)
-    batch = steps.batch_rows({k: torch.from_numpy(v).long()
-                              for k, v in batch_np.items()}, mesh)
+    batch = steps.batch_rows(
+        {k: torch.from_numpy(v).long() if v.dtype.kind in "iu"
+         else torch.from_numpy(v) for k, v in batch_np.items()}, mesh)
     seq = steps.residual_seq(cfg, mesh, step.rules, batch)
     with act_hook(mesh, step.rules, seq_len=seq):
         loss = step.model.loss(params, batch)
         loss.backward()
+    # a leaf the loss never reads (whisper's cross bk, bv) gets zeros, as
+    # jax.grad gives
     grads = steps._sum_partials(
-        pytree.tree_map(lambda p: p.grad, params),
+        pytree.tree_map(lambda p: torch.zeros_like(p) if p.grad is None
+                        else p.grad, params),
         step.model.partial_mask(step.specs, ModelAxis(mesh, step.rules,
                                                       seq_len=seq)), mesh)
     grads = pytree.tree_map(lambda g: collectives.pmean(g, mesh), grads)
@@ -656,10 +660,51 @@ def job_model_axis_families(rank: int, n: int, payload: dict) -> dict:
     return out
 
 
+def job_model_axis_xlstm_encdec(rank: int, n: int, payload: dict) -> dict:
+    """The checks of ``tests/test_torch_model_axis_xlstm_encdec.py`` on a
+    world of 4, as ``job_model_axis_families``'s: the loss and gathered
+    gradients of each ``grad_cases`` key at ``payload["grad_params"]``
+    (rank 0 returns them, every rank their digests) and the strategies'
+    trajectories from ``payload["params"]``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_local_mesh
+    meshes = {"2x2": make_local_mesh(data=2, model=2),
+              "1x4": make_local_mesh(model=4)}
+    out: dict = {"grads": {}, "cases": {}}
+    for key in payload["grad_cases"]:
+        c, m = key.split("@")
+        got = _sp_grads(meshes[m], _family_cfg(*payload["cfgs"][c]),
+                        payload["grad_params"][c], payload["batch"][c],
+                        sp=False)
+        leaves = [torch.from_numpy(np.ascontiguousarray(a)) for a in
+                  _np_leaves(got["grads"])]
+        got["digests"] = [_digest(t) for t in leaves]
+        if rank:
+            del got["grads"]
+        out["grads"][key] = got
+    for case in payload["cases"]:
+        c, m = case["cfg"], case["mesh"]
+        out["cases"][case["key"]] = _tp_trajectory(
+            meshes[m], _family_cfg(*payload["cfgs"][c]),
+            dict(case, params=payload["params"][c]))
+    dist.barrier()
+    return out
+
+
+def _np_leaves(tree) -> list:
+    """The arrays of a nested dict in sorted key order (``jax.tree``'s)."""
+    if isinstance(tree, dict):
+        return [a for k in sorted(tree) for a in _np_leaves(tree[k])]
+    return [tree]
+
+
 JOBS = {"trajectories": job_trajectories, "collectives": job_collectives,
         "tensor_parallel": job_tensor_parallel,
         "seq_parallel": job_seq_parallel, "pipeline": job_pipeline,
-        "model_axis_families": job_model_axis_families}
+        "model_axis_families": job_model_axis_families,
+        "model_axis_xlstm_encdec": job_model_axis_xlstm_encdec}
 
 
 # -- fault hooks (shipped to worker ranks by reference) -----------------------

@@ -2,7 +2,8 @@
 and tests/test_torch_encdec.py): a tiny config's serve steps, loss and
 gradients, train steps and serve CLI, the port against the JAX package on
 the same bridged parameters and seeded numpy inputs; and the train CLI and
-its crash-and-resume drill, the port alone."""
+its crash-and-resume drill, the port alone; and world-1 fabric DDP
+against the reference's engine (tests/test_torch_train_ddp*.py)."""
 import dataclasses
 import json
 
@@ -318,3 +319,50 @@ def resume_is_bit_identical(arch, tmp_path):
         assert torch.equal(a, b)
     assert _checksums(tmp_path / "drill" / "step_00000006") == \
         _checksums(tmp_path / "straight" / "step_00000006")
+
+
+def world1_ddp_matches_reference_engine(arch, codec, opt_kind, rtol, *,
+                                        batch=4, seq=32):
+    """10 steps of DDPEngine.train_step, two shards, one locality, from
+    bridged init: loss and grad_norm per step against the reference's
+    DDPEngine; the gradient fusion plan the reference's, bucket for bucket
+    and entry for entry (zamba: ``stack/mamba/*`` stacked ``[groups,
+    shared_every, ...]``, ``stack/shared/*`` unstacked); grad_wire_bytes
+    0 and codec_bytes equal."""
+    from repro.distrib.collectives import RingAllReduce as JaxRing
+    from repro.frontend import Plan as JaxPlan
+    from repro.frontend.ddp import DDPEngine as JaxDDPEngine
+    from repro_torch.distrib.collectives import RingAllReduce
+    from repro_torch.frontend import Plan
+    from repro_torch.frontend.ddp import DDPEngine
+    kw = dict(arch=arch, tiny=True, batch=batch, seq=seq, ddp=True,
+              grad_codec=codec, ddp_shards=2)
+    jstrategy = jax_steps.Strategy(opt=dataclasses.replace(
+        jax_steps.Strategy().opt, kind=opt_kind))
+    jeng = JaxDDPEngine(JaxPlan(**kw, strategy=jstrategy), JaxRing(None, 1))
+    jparams, jopt = jeng.init()
+    oc = optimizers.OptConfig(kind=opt_kind)
+    eng = DDPEngine(Plan(**kw, strategy=steps.Strategy(opt=oc),
+                         device="cpu"), RingAllReduce(None, 1))
+    cfg = get_config(arch, tiny=True)
+    params = params_from_numpy(jax.tree.map(np.asarray, jparams), cfg, "cpu")
+    for p in pytree.tree_leaves(params):
+        p.requires_grad_(True)
+    opt = optimizers.init(params, oc)
+    mine, ref = eng.step.grad_plan, jeng.step.grad_plan
+    assert mine.n_leaves == ref.n_leaves
+    assert [(b.total, b.padded) for b in mine.buckets] == \
+        [(b.total, b.padded) for b in ref.buckets]
+    for b, rb in zip(mine.buckets, ref.buckets):
+        assert [(e.index, e.shape, e.size, e.offset) for e in b.entries] == \
+            [(e.index, e.shape, e.size, e.offset) for e in rb.entries]
+    assert eng.codec_bytes == jeng.codec_bytes
+    stream = stream_for(cfg, batch=batch, seq=seq, seed=2)
+    for it in range(10):
+        b = stream.batch_at(it)
+        jm, jparams, jopt = jeng.train_step(it, b, jparams, jopt)
+        m, params, opt = eng.train_step(it, b, params, opt)
+        for k in ("loss", "grad_norm"):
+            np.testing.assert_allclose(float(m[k]), float(jm[k]), rtol=rtol,
+                                       err_msg=f"step {it} {k}")
+    assert eng.ring.wire_bytes == jeng.ring.wire_bytes == 0

@@ -1,18 +1,27 @@
 #!/usr/bin/env python3
-"""How far the moe and zamba families part from themselves on a model
+"""How far the model axis's families part from themselves on a model
 axis: the witness for the tolerances with which
-``tests/test_torch_model_axis_families.py`` and ``chip_smoke.py`` hold
-them (CPU only).
+``tests/test_torch_model_axis_families.py``,
+``tests/test_torch_model_axis_xlstm_encdec.py`` and ``chip_smoke.py``
+hold them (CPU only).
 
     python3 tools/model_axis_families_check.py jax-self
+    python3 tools/model_axis_families_check.py jax-traj
     python3 tools/model_axis_families_check.py mesh-f32
     python3 tools/model_axis_families_check.py bf16
 
-``jax-self``: the JAX package's own tiny granite-moe-1b-a400m and tiny
-zamba2-2.7b, the loss and every gradient on one host device and on a
-``model=4`` mesh of four (``XLA_FLAGS`` sets them), from ``PRNGKey(0)``
-on one seeded 8 x 16 batch: each leaf's largest difference over the
-largest |gradient| of all leaves and over its own.
+``jax-self``: the JAX package's own tiny granite-moe-1b-a400m, tiny
+zamba2-2.7b, tiny xlstm-350m and tiny whisper-medium, the loss and
+every gradient on one host device and on a ``model=4`` mesh of four
+(``XLA_FLAGS`` sets them), from ``PRNGKey(0)`` on one seeded 8 x 16
+batch (whisper also its 8 x 16 frames): each leaf's largest difference
+over the largest |gradient| of all leaves and over its own.
+
+``jax-traj``: the JAX package's own ``make_train_step`` of tiny
+xlstm-350m and tiny whisper-medium, 4 phylanx steps with momentum at lr
+1e-2 from ``PRNGKey(0)`` on the 8 x 16 ``stream_for`` batches, on one
+device and at ``model=4`` and ``data=2, model=2``: each step's loss and
+gradient norm on a mesh relative to one device's.
 
 ``mesh-f32``: the port's granite-moe-1b-a400m at full width, 1 layer,
 float32, one 1 x 256 batch from seed 0: three momentum steps on two gloo
@@ -48,7 +57,8 @@ def jax_self() -> None:
                                      param_shardings, set_act_hook)
     from repro.launch.mesh import make_local_mesh
     from repro.models.model import build_model
-    for arch in ("granite-moe-1b-a400m", "zamba2-2.7b"):
+    for arch in ("granite-moe-1b-a400m", "zamba2-2.7b", "xlstm-350m",
+                 "whisper-medium"):
         cfg = get_config(arch, tiny=True)
         model = build_model(cfg)
         specs = model.specs()
@@ -56,6 +66,9 @@ def jax_self() -> None:
         rng = np.random.default_rng(5)
         batch = {k: jnp.asarray(rng.integers(0, cfg.vocab, (8, 16)),
                                 jnp.int32) for k in ("tokens", "labels")}
+        if cfg.family == "encdec":
+            batch["frames"] = jnp.asarray(rng.standard_normal(
+                (8, cfg.enc_frames, cfg.d_model)) * 0.1, jnp.float32)
         _, g1 = jax.jit(jax.value_and_grad(model.loss))(params, batch)
         mesh, rules = make_local_mesh(model=4), default_rules()
         sh = param_shardings(specs, mesh, rules)
@@ -75,6 +88,44 @@ def jax_self() -> None:
             d = np.abs(x - y).max()
             print(f"  {n:48s} {d / scale:.3e} of all, "
                   f"{d / max(np.abs(x).max(), 1e-30):.3e} of its own")
+
+
+def jax_traj() -> None:
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    os.environ.setdefault("JAX_PLATFORMS", "cpu")
+    import jax
+
+    from repro.configs import get_config
+    from repro.core import steps
+    from repro.data.pipeline import stream_for
+    from repro.launch.mesh import make_local_mesh
+    from repro.optim.optimizers import OptConfig
+    shape = {"seq_len": 16, "global_batch": 8, "kind": "train"}
+    for arch in ("xlstm-350m", "whisper-medium"):
+        cfg = get_config(arch, tiny=True)
+        runs = {}
+        for name, kw in (("one device", {}), ("model=4", dict(model=4)),
+                         ("data=2, model=2", dict(data=2, model=2))):
+            step = steps.make_train_step(cfg, make_local_mesh(**kw),
+                                         steps.Strategy(opt=OptConfig(
+                                             kind="momentum", lr=1e-2)),
+                                         shape)
+            params, opt = step.init(jax.random.PRNGKey(0))
+            stream = stream_for(cfg, batch=8, seq=16, seed=0)
+            runs[name] = []
+            for it in range(4):
+                b = {k: jax.device_put(v, step.batch_shardings[k])
+                     for k, v in stream.batch_at(it).items()}
+                m, params, opt = step.fn(params, opt, b)
+                runs[name].append((float(m["loss"]), float(m["grad_norm"])))
+        one = runs["one device"]
+        for name, rows in runs.items():
+            if name == "one device":
+                continue
+            print(f"{arch} {name} against one device: " + "; ".join(
+                f"loss {abs(l - l1) / abs(l1):.2e} norm "
+                f"{abs(n - n1) / abs(n1):.2e}"
+                for (l, n), (l1, n1) in zip(rows, one)))
 
 
 def _port(fn, *args) -> list:
@@ -190,7 +241,8 @@ def bf16() -> None:
 
 
 if __name__ == "__main__":
-    modes = {"jax-self": jax_self, "mesh-f32": mesh_f32, "bf16": bf16}
+    modes = {"jax-self": jax_self, "jax-traj": jax_traj,
+             "mesh-f32": mesh_f32, "bf16": bf16}
     if len(sys.argv) != 2 or sys.argv[1] not in modes:
         print(__doc__, file=sys.stderr)
         sys.exit(2)
