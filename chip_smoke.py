@@ -182,7 +182,7 @@ without the final ``{"ok": true, ...}`` line:
    sequence (272 of 544 positions a rank; the prefill and 8 decode
    logits at 4 layers within 1e-2 mean relative error of one process's,
    then one request at 12 layers, K1 12 a rank, the dp all-reduces a
-   step), (l) the gateway at ``model=2`` (12 layers) and at ``data=2``
+   step), (l) the gateway at ``model=2`` (6 layers) and at ``data=2``
    (6 layers), both through ``rank_serve_stream``, each with K1 8 x layers a rank, every
    refill a page hit, every page reclaimed on both ranks, each rank's
    parked bytes (half at ``model=2``) and two streams held bit for bit
@@ -207,20 +207,35 @@ without the final ``{"ok": true, ...}`` line:
    step and rank: K2 18 and its backward 6, K1 2 and its backward 1) and
    one bf16 step at batch 8, its float32 prefill and 8 decode logits at
    that depth within 1e-2 mean relative error of one process's, serves
-   all 54 layers (one wave: K2 54, K1 9 a rank) and streams at one group
+   18 of its 54 layers (one wave: K2 18, K1 3 a rank) and streams at one group
    of 6 layers (``rank_serve_stream``, K2 6 and K1 1 a request a rank,
    held as (l) is); (p) xlstm-350m (2 of 4 mLSTM and 2 of 4 sLSTM heads a rank)
    trains 8 of its 24 layers in float32 at batch 1 with phylanx
    (momentum, 2 steps, held as (a) is) and one bf16 step at batch 8 (no
-   kernel; the unsplit leaves bit-identical), serves all 24 layers and
-   streams at 8 (held as (l) is); (q) whisper-medium (8 of 16 heads a
+   kernel; the unsplit leaves bit-identical), serves 8 of its 24 layers
+   and streams at 8 (held as (l) is); (q) whisper-medium (8 of 16 heads a
    rank, its odd vocab of 51,865 whole) trains 9 of 24 encoder and 6 of
    24 decoder layers in float32 at batch 2 with every wq x 1/8 (the
    reference's init saturates the softmax; one process against itself
    is printed at both inits) with phylanx (2 steps, held as (a) is; K1
    30 and its backward 15 a step and rank) and one bf16 step at batch 8
-   from the reference's init, and serves all 24 + 24 layers (one wave:
-   K1 48 a rank);
+   from the reference's init, and serves 12 + 12 of its 24 + 24 layers
+   (one wave: K1 24 a rank); each of (n)-(q) also trains
+   with sequence parallelism: its float32 run again (2 steps, held to
+   the same oracle at the same tolerances, the unsplit leaves
+   bit-identical) and one bf16 step, counted beside the bf16 run without
+   it (model-axis collectives, bytes and peak a rank); granite's residual
+   stays whole (its odd vocab) and its run is held bit for bit to the
+   one without, whisper's encoder splits its 1,500 frames; and in (a)'s
+   session the HAR CNN at model=2 (minibatch 8,000, float32: loss and
+   gradients against one process on the card at HAR_LOSS_RTOL and
+   HAR_GRAD_TOL, the head's gradient bit-identical on both ranks, the
+   forward's time a rank and its channel joins' bytes), in (d)'s onebit
+   at data=2, model=2 (qwen3-4b at 2 layers, 2 SGD steps: every global
+   bucket's K3a against its plain version, the mean against the plain
+   decode, a dp coordinate's model ranks bit-identical in bucket,
+   residual and mean, K3a 18 and K3b 36 a rank, the reference's dp
+   wire);
 13. where the time goes: one prefill (at the wave's batch, and at batch 1
    but for whisper-medium) and one decode step of each served
    configuration (xlstm-350m's at ``PROFILE_LAYERS``), one plain and one
@@ -279,7 +294,8 @@ from repro_torch import bridge  # noqa: E402
 from repro_torch.core import collectives, overlap, pipeline  # noqa: E402
 from repro_torch.core import steps  # noqa: E402
 from repro_torch.core.dist_array import TiledArray  # noqa: E402
-from repro_torch.core.sharding import default_rules  # noqa: E402
+from repro_torch.core.sharding import ModelAxis, act_hook  # noqa: E402
+from repro_torch.core.sharding import default_rules, gather_tree  # noqa: E402
 from repro_torch.core.sharding import init_params, is_spec  # noqa: E402
 from repro_torch.data.pipeline import (  # noqa: E402
     HARStream, stream_for, to_device)
@@ -397,7 +413,7 @@ DDP2 = dict(arch="qwen3-4b", tiny=False, batch=8, seq=512, ddp=True,
 # within 1,000 s; the 1- and 2-locality runs' parameters after the step,
 # which the exchanged gradient sum made, are held bit-identical (as the
 # second step's loss was); the onebit run's 3 keep a step beside the
-# profiled one
+# profiled one (its profiler stops after the step that follows it)
 DDP2_FP32_STEPS, DDP2_ONEBIT_STEPS = 1, 3
 DDP2_PROFILE_AT = 2         # the driver's step profiled in the onebit run
 _MOE_CFG = get_config(MOE_TRAIN["arch"])
@@ -552,7 +568,9 @@ PAGE_BYTES = 1 << 16        # serve_stream's default page size
 # one-process steps'; (c) Session.serve at all 36 layers (SERVE); (d) one
 # phylanx step at data=2, model=2, TP_D2_LAYERS layers, four rank
 # processes.  K1 runs each rank's own heads: H/2 query and Hkv/2 kv heads
-TP_LAYERS, TP_STEPS, TP_DECODE_STEPS, TP_D2_LAYERS = 4, 3, 8, 2
+# (a) and (e) train TP_STEPS steps (cut from 3 to make room for the
+# families' sequence parallelism, the HAR CNN and onebit)
+TP_LAYERS, TP_STEPS, TP_DECODE_STEPS, TP_D2_LAYERS = 4, 2, 8, 2
 TP_TRAIN = dict(TRAIN, overrides={"n_layers": TP_LAYERS})
 TP_D2_TRAIN = dict(TRAIN, overrides={"n_layers": TP_D2_LAYERS})
 TP_LOSS_RTOL, TP_NORM_RTOL, TP_LOGIT_MEAN_REL_TOL = 1e-3, 1e-2, 1e-2
@@ -574,10 +592,11 @@ TP_B1_ATTN = (1, *TP_SERVE_ATTN[1:])
 # data=2 at STREAM_LAYERS; in the four-rank one (k) the wave loop at
 # data=2, model=2 at TP_LAYERS
 MESH_SERVE = dict(requests=8, slots=8, prompt_len=512, gen_len=32)
-# the gateway at model=2 cut to a third of qwen3-4b's depth (54.6 s of a
-# 977.6 s run at all 36 on an H100 80GB HBM3 at 700 W), at data=2 to a
-# sixth
-MESH_GATEWAY_M2_LAYERS, MESH_GATEWAY_LAYERS = 12, 6
+# the gateway at model=2 cut to a sixth of qwen3-4b's depth (54.6 s of a
+# 977.6 s run at all 36 on an H100 80GB HBM3 at 700 W, 17.0 s at 12;
+# cut from 12 to make room for the families' sequence parallelism, the
+# HAR CNN and onebit on the model axis), at data=2 to a sixth
+MESH_GATEWAY_M2_LAYERS, MESH_GATEWAY_LAYERS = 6, 6
 # (j)'s single request at a third of qwen3-4b's depth (16.2 s of the
 # phase at all 36 on an H100 80GB HBM3 at 700 W, 484 ms a decode step:
 # 108 gloo all-reduces), to make room for the model axis's xlstm and
@@ -627,6 +646,21 @@ FAM_TP_LAYERS = 4
 FAM_TP_STEPS, MOE_TP_SERVE_LAYERS = 2, 8
 # the bf16 runs' steps: granite's, zamba2-2.7b's
 MOE_BF16_STEPS, ZAMBA_BF16_STEPS = 2, 1
+# sequence parallelism for the families (ROADMAP item 14b, part 4), in
+# (n)-(q)'s sessions: each family's held float32 run again with
+# Strategy(sequence_parallel=True) (FAM_TP_STEPS steps against the same
+# oracle, at the same tolerances) and SP_BF16_STEPS bf16 steps, counted
+# (collectives, bytes and peak a rank beside the bf16 run without it).
+# granite's odd vocab of 49,155 does not divide 2, so its residual stays
+# whole (steps.residual_seq) and its SP run is the path without,
+# asserted bit for bit; whisper's decoder stays whole for the same
+# reason while its encoder splits its 1,500 frames
+SP_BF16_STEPS = 1
+# the HAR CNN with its channels on model (ROADMAP item 14b, part 4), in
+# (a)'s Plan(model=2) world, and onebit at data=2, model=2 (part 5) in
+# (d)'s world: qwen3-4b at TP_D2_LAYERS, ONEBIT_TP_STEPS steps
+ONEBIT_TP_STEPS = 2
+ONEBIT_CHECK_ROWS = 1 << 15          # 128 MB of a bucket's float32 rows
 # the float32 runs' optimizers, as the CPU tests take them
 # (tests/test_torch_model_axis_families.py): momentum, and zero1's solver,
 # which is adamw in both packages, at a small lr.  adamw's normalized step
@@ -656,8 +690,15 @@ ZAMBA_TP_F32 = dict(ZAMBA_TRAIN, batch=ZAMBA_TP_F32_BATCH, overrides={
     "n_layers": _ZAMBA_CFG.shared_every, "compute_dtype": "f32",
     "cache_dtype_str": "f32"})
 # (o)'s gateway at one group (18 layers before the xlstm and encdec
-# phases took the room: 10.9 s of (o)'s 51.9 s then)
+# phases took the room: 10.9 s of (o)'s 51.9 s then); (o)'s and (p)'s
+# Session.serve at three groups and one (cut from all 54 and 24, 8.0 and
+# 3.1 s of (o) and (p) on an H100 80GB HBM3 at 700 W), to make room for
+# sequence parallelism in their sessions
 ZAMBA_TP_GATEWAY_LAYERS = 6
+ZAMBA_TP_SERVE_LAYERS, XLSTM_TP_SERVE_LAYERS = 18, 8
+# (q)'s Session.serve at half of whisper-medium's encoder and decoder
+# (cut from all 24 + 24, 6.1 s of (q)'s session), for the same room
+WHISPER_TP_SERVE_LAYERS = 12
 FAM_SERVE = dict(requests=4, slots=4, prompt_len=512, gen_len=4)
 FAM_GATEWAY_GEN = 4
 # K1 on a rank's heads at model=2: granite (H=8, Hkv=4, d=64) and
@@ -3527,20 +3568,27 @@ def tp_rank(spec: dict, endpoint=None, driver=None) -> dict:
     whole last-position logits gathered (rank 0 keeps them).  A
     ``spec["strategy"]`` trains with that strategy instead, and a
     ``spec["opt"]`` with those ``OptConfig`` fields, a ``spec["wq_scale"]``
-    from the init with every attention's ``wq`` scaled (``scale_wq``);
-    ``vocab_rows`` is this rank's rows of the embedding."""
+    from the init with every attention's ``wq`` scaled (``scale_wq``), a
+    ``spec["sp"]`` with sequence parallelism (``sp``: the residual's
+    split by the tokens, ``steps.residual_seq``, and for an encoder by
+    its frames); ``vocab_rows`` is this rank's rows of the embedding."""
     plan, stream = spec["plan"], spec["stream"]
     mesh = make_local_mesh(data=plan.data, model=plan.model, pod=plan.pod)
     cfg = plan.config()
     step = steps.make_train_step(cfg, steps.Strategy(
         name=spec.get("strategy", "phylanx"),
-        opt=optimizers.OptConfig(**spec.get("opt", {}))), plan=plan,
-        mesh=mesh)
+        opt=optimizers.OptConfig(**spec.get("opt", {})),
+        sequence_parallel=spec.get("sp", False)), plan=plan, mesh=mesh)
     params, opt = step.init(
         torch.Generator(device="cuda").manual_seed(plan.seed), "cuda")
     scale_wq(params, spec.get("wq_scale"))
+    ax = ModelAxis(mesh, step.rules)
+    sp = {"seq": steps.residual_seq(cfg, mesh, step.rules,
+                                    stream.batch_at(0)),
+          "enc": ax.split("seq", cfg.enc_frames)
+          if cfg.family == "encdec" else None}
     out = {"train": tp_train(step, params, opt, stream, spec["steps"]),
-           "vocab_rows": int(params["embed"]["tok"].shape[0])}
+           "vocab_rows": int(params["embed"]["tok"].shape[0]), "sp": sp}
     del step, params, opt
     torch.cuda.empty_cache()
     lg = spec.get("logits")
@@ -4395,6 +4443,342 @@ def mesh_serving_d2m2(session, counts: dict, fails: list) -> dict:
         "tokens_per_s", "prefill_s", "decode_s", "wire")} for r in range(4)}}
 
 
+def har_cnn_oracle() -> dict:
+    """The HAR CNN in one process on the card at HAR_BATCH, float32, from
+    ``check_har_cnn``'s parameters (drawn on the CPU from seed 0): the
+    loss, every gradient (on the CPU) and the forward's device time."""
+    params = pytree.tree_map(
+        lambda t: t.to("cuda").requires_grad_(True),
+        init_params(cnn.har_cnn_specs(), torch.Generator().manual_seed(0),
+                    "cpu"))
+    batch = to_device(HARStream(batch=HAR_BATCH).batch_at(0), "cuda")
+    loss = cnn.har_cnn_loss(params, batch)
+    loss.backward()
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: cnn.har_cnn_forward(params, batch["x"]),
+                         iters=10)
+    return {"loss": loss.item(),
+            "grads": [t.grad.cpu() for t in pytree.tree_leaves(params)],
+            "forward_ms": fwd_ms}
+
+
+def cnn_rank(spec: dict, endpoint=None, driver=None) -> dict:
+    """The HAR CNN at model=2 (module level: every worker rank runs it):
+    this rank's blocks of ``har_cnn_oracle``'s parameters (its half of
+    every conv's channels, ``init_params(mesh=, rules=default_rules())``
+    on the same CPU draws), the whole HAR_BATCH batch; the loss, the
+    gradients gathered over the model group (rank 0 keeps them), the
+    head's gradient bits, the wire and launches of the loss and its
+    backward, and the forward's time a rank (CUDA events around the call,
+    its gloo joins inside, so no spin ahead) with the wire of one
+    forward."""
+    # float32 means float32 on every rank, as main() sets it in this
+    # process: a spawned rank keeps cuDNN's TF32 default (on), which moved
+    # the loss by 1.8e-4 and the gradients by 8.8e-4 of their largest
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_local_mesh(model=2)
+    specs, rules = cnn.har_cnn_specs(), default_rules()
+    params = pytree.tree_map(
+        lambda t: t.to("cuda").requires_grad_(True),
+        init_params(specs, torch.Generator().manual_seed(0), "cpu",
+                    mesh=mesh, rules=rules))
+    batch = to_device(HARStream(batch=HAR_BATCH).batch_at(0), "cuda")
+    torch.cuda.synchronize()
+    _zero_counts()
+    collectives.reset_stats()
+    with act_hook(mesh, rules):
+        loss = cnn.har_cnn_loss(params, batch)
+        loss.backward()
+    torch.cuda.synchronize()
+    launched, wire = _counts(), collectives.stats()
+    grads = pytree.tree_map(lambda p: p.grad, params)
+    whole = gather_tree(grads, specs, mesh, rules)
+    with torch.no_grad(), act_hook(mesh, rules):
+        fwd_ms = cuda_ms(lambda: cnn.har_cnn_forward(params, batch["x"]),
+                         iters=2, warm=0, spin=False)
+        collectives.reset_stats()
+        cnn.har_cnn_forward(params, batch["x"])
+        fwd_wire = collectives.stats()
+    keep = mesh.model_rank == 0
+    return {"loss": loss.item(), "launches": launched, "wire": wire,
+            "grads": pytree.tree_leaves(whole) if keep else None,
+            "head": param_bit_sums(grads["head"]),
+            "conv1_rows": int(params["conv1"]["b"].shape[0]),
+            "forward_ms": fwd_ms, "forward_wire": fwd_wire}
+
+
+def _cnn_axis(res: dict, oracle: dict, counts: dict, fails: list) -> dict:
+    """The HAR CNN at model=2 against one process on the card: the loss
+    within HAR_LOSS_RTOL, each gradient leaf within HAR_GRAD_TOL of its
+    largest |gradient|, the head's gradient bit-identical on both ranks,
+    each rank half of conv1's channels, no kernel launched."""
+    got = res[0]
+    loss_err = abs(got["loss"] - oracle["loss"]) / abs(oracle["loss"])
+    shares = [(g - c).abs().max().item() / c.abs().max().item()
+              for c, g in zip(oracle["grads"], got["grads"])]
+    share = max(shares)
+    same = res[0]["head"] == res[1]["head"] and \
+        res[0]["loss"] == res[1]["loss"]
+    rows = [res[r]["conv1_rows"] for r in (0, 1)]
+    for r in (0, 1):
+        counts[f"cnn_tp_L{r}"] = res[r]["launches"]
+        _want_launches(f"(a) HAR CNN rank {r}", res[r]["launches"], {},
+                       fails)
+    if loss_err > HAR_LOSS_RTOL or share > HAR_GRAD_TOL or not same \
+            or rows != [32, 32]:
+        fails.append(f"(a) HAR CNN at model=2: loss rel err {loss_err:.3g}, "
+                     f"gradient share {share:.3g}, head bit-identical "
+                     f"{same}, conv1 channels a rank {rows}")
+    w, fw = got["wire"]["axes"]["model"], got["forward_wire"]["axes"]["model"]
+    print(f"(a) HAR CNN at model=2, minibatch {HAR_BATCH}, float32: loss "
+          f"{got['loss']:.7f} against one process's {oracle['loss']:.7f} "
+          f"(rel {loss_err:.3g}, tolerance {HAR_LOSS_RTOL:g}); gradients, "
+          f"the largest error of a leaf / its largest |gradient| "
+          f"{share:.3g} (tolerance {HAR_GRAD_TOL:g}; by leaf "
+          f"{' '.join(f'{x:.2g}' for x in shares)}); head bit-identical on "
+          f"both ranks {same}; conv1 channels a rank {rows}")
+    print(f"(a) HAR CNN forward, device time a rank "
+          f"{res[0]['forward_ms']:.4f} / {res[1]['forward_ms']:.4f} ms "
+          f"(events around the call, its channel joins over gloo inside) "
+          f"against one process's {oracle['forward_ms']:.4f} ms; the "
+          f"channel joins of a forward {fw['bytes']} B in {fw['calls']} "
+          f"collectives, {fw['wire_s']:.3f} s in gloo; loss and backward "
+          f"{w['bytes']} B in {w['calls']}")
+    return {"loss_rel_err": loss_err, "grad_err_share": share,
+            "head_bit_identical": same, "conv1_rows": rows,
+            "forward_ms": [res[r]["forward_ms"] for r in (0, 1)],
+            "oracle_forward_ms": oracle["forward_ms"],
+            "forward_wire": got["forward_wire"]["axes"]["model"],
+            "wire": got["wire"]["axes"]["model"]}
+
+
+def _bit_sum(t) -> int:
+    """``param_bit_sums`` of one float32 tensor, ONEBIT_CHECK_ROWS rows'
+    worth of elements at a time (its int64 copy of a whole global bucket
+    does not fit beside four ranks' state on the one card)."""
+    flat, n = t.detach().reshape(-1).view(torch.int32), ONEBIT_CHECK_ROWS
+    n *= 1024
+    return sum(int(flat[a:a + n].sum(dtype=torch.int64))
+               for a in range(0, flat.numel(), n))
+
+
+def onebit_rank(spec: dict, endpoint=None, driver=None) -> dict:
+    """onebit at data=2, model=2 (module level: every rank runs it): the
+    plan's qwen3-4b layers from the seed's init, ``spec["steps"]`` steps
+    with plain SGD: an optimizer state beside each rank's global
+    residual does not fit four ranks on the one card (adamw ran out of
+    memory on an H100 80GB HBM3 at 700 W, momentum at 17.6 GB a rank
+    behind the whole script's earlier phases).
+    At the first step every bucket's exchange is held as it runs
+    (``TrainStep.on_bucket``): this rank's K3a words, scales and residual
+    against ``onebit_quantize_ref`` on the same global bucket
+    (``k3a_against_plain``), the mean against the plain decode of the
+    gathered payloads (bit for bit), and the bucket's, residual's and
+    mean's bit sums kept for the other ranks; the later steps run
+    unwatched, their host walls the step's.  Launches, wire and the
+    unsplit leaves' bit sums over all the steps."""
+    plan, stream = spec["plan"], spec["stream"]
+    mesh = make_local_mesh(data=2, model=2)
+    cfg = plan.config()
+    step = steps.make_train_step(cfg, steps.Strategy(
+        name="onebit", opt=optimizers.OptConfig(kind="sgd")),
+        plan=plan, mesh=mesh)
+    params, opt = step.init(
+        torch.Generator(device="cuda").manual_seed(plan.seed), "cuda")
+    checks = {"bad_words": 0, "near_words": 0, "scale_rel_err": 0.0,
+              "err_abs_err": 0.0, "mean_equal": True, "sums": []}
+
+    def check(i, packed, scales, mean, own):
+        # rows at a time: the plain versions' temporaries of a whole
+        # global bucket (1.56 GB of float32, its sign bits as int64) do
+        # not fit beside four ranks' state on the one card
+        buf, err, new_err = own
+        g, r, n = buf.reshape(err.shape), mesh.rank, ONEBIT_CHECK_ROWS
+        for a in range(0, err.shape[0], n):
+            rows = slice(a, a + n)
+            q = k3a_against_plain(g[rows], err[rows], packed[r][rows],
+                                  scales[r][rows], new_err[rows])
+            checks["bad_words"] = max(checks["bad_words"], q["bad"])
+            checks["near_words"] += q["near"]
+            for k in ("scale_rel_err", "err_abs_err"):
+                checks[k] = max(checks[k], q[k])
+            acc = onebit_dequantize_ref(packed[0][rows], scales[0][rows])
+            for o in range(1, packed.shape[0]):
+                acc = acc + onebit_dequantize_ref(packed[o][rows],
+                                                  scales[o][rows])
+            checks["mean_equal"] &= torch.equal(
+                acc.div_(packed.shape[0]).reshape(-1),
+                mean[a * g.shape[1]:(a + n) * g.shape[1]])
+        checks["sums"].append([_bit_sum(t) for t in (buf, new_err, mean)])
+    mask = pytree.tree_leaves(step.split_mask)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    collectives.reset_stats()
+    losses, gnorms, wall, sums = [], [], [], []
+    for it in range(spec["steps"]):
+        step.on_bucket = check if it == 0 else None
+        batch = to_device(stream.batch_at(it), "cuda")
+        t0 = time.perf_counter()
+        m, params, opt = step.fn(params, opt, batch)
+        torch.cuda.synchronize()
+        wall.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        sums.append(param_bit_sums([p for p, s in zip(
+            pytree.tree_leaves(params), mask) if not s]))
+    out = {"losses": losses, "grad_norms": gnorms, "step_ms": wall,
+           "launches": _counts(), "wire": collectives.stats(),
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "replicated_bit_sums": sums, "checks": checks,
+           "buckets": [b.size for b in step.plan.buckets]}
+    del step, params, opt, m
+    torch.cuda.empty_cache()
+    return out
+
+
+def _onebit_axis(res: dict, counts: dict, fails: list) -> dict:
+    """onebit at data=2, model=2 on four ranks: every rank's K3a held to
+    its plain version (the kernels phase's tolerance) and its mean equal
+    to the plain decode; the two model ranks of each dp coordinate
+    bit-identical in bucket, residual and mean, the mean alike on all
+    four; the unsplit leaves bit-identical on all four; K3a once and K3b
+    twice (2 origins) a bucket a step; the dp wire the reference's
+    ``size / 8 + size / 256`` bytes a bucket a step."""
+    n_steps = len(res[0]["losses"])
+    sizes = res[0]["buckets"]
+    want = {"onebit_quantize": len(sizes) * n_steps,
+            "onebit_dequantize": 2 * len(sizes) * n_steps}
+    for r in range(4):
+        rec = res[r]
+        counts[f"onebit_tp_L{r}"] = rec["launches"]
+        _want_launches(f"(d) onebit rank {r}", rec["launches"],
+                       dict(want, flash_attention=2 * TP_D2_LAYERS * n_steps,
+                            flash_attention_bwd=TP_D2_LAYERS * n_steps),
+                       fails)
+        c = rec["checks"]
+        if c["bad_words"] or c["scale_rel_err"] > 1e-6 or \
+                c["err_abs_err"] > 1e-6 or not c["mean_equal"]:
+            fails.append(f"(d) onebit rank {r}: K3a or the mean against "
+                         f"their plain versions {c}")
+        if rec["replicated_bit_sums"] != res[0]["replicated_bit_sums"] or \
+                rec["losses"] != res[0]["losses"]:
+            fails.append(f"(d) onebit rank {r}: unsplit leaves or losses "
+                         f"differ from rank 0's")
+        if not all(np.isfinite(rec["losses"] + rec["grad_norms"])):
+            fails.append(f"(d) onebit rank {r}: losses or norms not finite")
+    # world ranks: dp rank d's model ranks are 2d and 2d + 1
+    pair = all(res[2 * d]["checks"]["sums"] == res[2 * d + 1]["checks"]["sums"]
+               for d in (0, 1))
+    means = all([s[2] for s in res[r]["checks"]["sums"]] ==
+                [s[2] for s in res[0]["checks"]["sums"]] for r in range(4))
+    if not pair or not means:
+        fails.append(f"(d) onebit: a dp coordinate's model ranks agree in "
+                     f"bucket, residual and mean {pair}; the mean on all "
+                     f"four {means}")
+    dp_want = n_steps * sum(s // 8 + s // 256 for s in sizes)
+    w = res[0]["wire"]["axes"]
+    if w["dp"]["bytes"] - dp_want not in range(0, 64 * n_steps):
+        fails.append(f"(d) onebit: dp wire {w['dp']['bytes']} B, want the "
+                     f"reference's {dp_want} B and the loss's pmean")
+    c = res[0]["checks"]
+    print(f"(d) onebit at data=2, model=2, {TP_D2_LAYERS} layers, "
+          f"{n_steps} steps: losses "
+          f"{' '.join(f'{x:.6f}' for x in res[0]['losses'])}, gnorms "
+          f"{' '.join(f'{x:.6f}' for x in res[0]['grad_norms'])}; "
+          f"{len(sizes)} global buckets (largest {max(sizes)} elements); "
+          f"K3a against its plain version: other words {c['bad_words']}, "
+          f"near-zero words {c['near_words']}, scale rel err "
+          f"{c['scale_rel_err']:.3g}, residual abs err "
+          f"{c['err_abs_err']:.3g}; mean equal to the plain decode "
+          f"{c['mean_equal']}; a dp coordinate's model ranks bit-identical "
+          f"(bucket, residual, mean) {pair}; launches {res[0]['launches']}")
+    for r in range(4):
+        rec = res[r]
+        print(f"  (d) onebit rank {r}: steps "
+              f"{' '.join(f'{x:.1f}' for x in rec['step_ms'])} ms (the first "
+              f"with the holds); {_tp_wire(rec['wire'])} (the reference's dp "
+              f"wire {dp_want} B); peak {rec['peak_bytes'] / 1e9:.3f} GB")
+    return {"losses": res[0]["losses"], "grad_norms": res[0]["grad_norms"],
+            "buckets": sizes, "checks": {k: v for k, v in c.items()
+                                         if k != "sums"},
+            "pair_bit_identical": pair, "dp_wire_want": dp_want,
+            "step_ms": {r: res[r]["step_ms"] for r in range(4)},
+            "wire": {r: res[r]["wire"] for r in range(4)},
+            "peak_bytes": {r: res[r]["peak_bytes"] for r in range(4)}}
+
+
+def _fam_sp_runs(session, f32_kw: dict, bf16_kw: dict, f32_stream, stream,
+                 opt: dict, wq_scale=None) -> dict:
+    """A family's sequence-parallel runs in its ``Plan(model=2)``
+    session: FAM_TP_STEPS held float32 steps (``f32_kw``, ``opt``, every
+    wq times ``wq_scale``) and SP_BF16_STEPS bf16 steps (``bf16_kw``)."""
+    out = {}
+    for name, kw, st, n, o, sc in (
+            ("f32", f32_kw, f32_stream, FAM_TP_STEPS, opt, wq_scale),
+            ("bf16", bf16_kw, stream, SP_BF16_STEPS, {}, None)):
+        t1 = time.perf_counter()
+        out[name] = session.run_ranks(tp_rank, {
+            "plan": Plan(**kw, model=2, device="cuda"), "stream": st,
+            "steps": n, "opt": o, "wq_scale": sc, "sp": True})
+        out[f"{name}_s"] = time.perf_counter() - t1
+        torch.cuda.empty_cache()
+    return out
+
+
+def _fam_sp(tag: str, sp: dict, oracle, plain: dict, want_f32: dict,
+            want_bf16: dict, key: str, counts: dict, fails: list,
+            expect: dict, **held) -> dict:
+    """(n)-(q)'s sequence-parallel runs: the float32 run held to the
+    family's one-process oracle (``_fam_train``: its tolerances, its
+    unsplit leaves bit-identical on both ranks), the bf16 step counted;
+    the residual's split ``expect`` (``seq``: the tokens', None where the
+    vocab does not divide; ``enc``: an encoder's frames); where it stays
+    whole, the float32 run bit-identical to the run without (``plain``'s
+    ``f32``). Prints the bf16 step's collectives, bytes by axis and peak
+    a rank with and without sequence parallelism."""
+    out = {"f32": _fam_train(f"{tag} phylanx f32 SP", sp["f32"], oracle,
+                             want_f32, f"{key}_sp_f32", counts, fails,
+                             **held),
+           "bf16": _fam_train(f"{tag} phylanx bf16 SP", sp["bf16"], None,
+                              want_bf16, f"{key}_sp_bf16", counts, fails)}
+    got = {k: sp["bf16"][0]["sp"][k] for k in ("seq", "enc")}
+    out["split"] = got
+    if got != expect:
+        fails.append(f"{tag} SP: the residual's split {got}, want {expect}")
+    if got["seq"] is None and got["enc"] is not True:
+        same = sp["f32"][0]["train"]["losses"] == \
+            plain["f32"][0]["train"]["losses"] and \
+            sp["f32"][0]["train"]["grad_norms"] == \
+            plain["f32"][0]["train"]["grad_norms"]
+        out["same_as_plain"] = same
+        if not same:
+            fails.append(f"{tag} SP: the residual stays whole, yet the run "
+                         f"differs from the one without")
+    rows = {}
+    for name, rec, n in (("SP", sp["bf16"], SP_BF16_STEPS),
+                         ("without", plain["bf16"], plain["bf16_steps"])):
+        t = rec[0]["train"]
+        ax = t["wire"]["axes"]
+        rows[name] = {"calls": ax["model"]["calls"] / n,
+                      "bytes": ax["model"]["bytes"] / n,
+                      "gloo_s": ax["model"]["wire_s"] / n,
+                      "peak_bytes": max(rec[r]["train"]["peak_bytes"]
+                                        for r in (0, 1)),
+                      "step_ms": t["step_ms"][-1]}
+    out["bf16_step"] = rows
+    a, b = rows["SP"], rows["without"]
+    print(f"{tag} a bf16 step a rank with SP (tokens split by "
+          f"{got['seq']}, frames {got['enc']}) against without: "
+          f"{a['calls']:.0f} / {b['calls']:.0f} model-axis collectives, "
+          f"{a['bytes'] / 1e6:.1f} / {b['bytes'] / 1e6:.1f} MB, "
+          f"{a['gloo_s']:.2f} / {b['gloo_s']:.2f} s in gloo, step "
+          f"{a['step_ms']:.1f} / {b['step_ms']:.1f} ms, peak "
+          f"{a['peak_bytes'] / 1e9:.3f} / {b['peak_bytes'] / 1e9:.3f} GB")
+    return out
+
+
 def model_axis() -> tuple[dict, dict]:
     """The model axis on the one card (ROADMAP item 14b, part 1):
     qwen3-4b at full width, random weights from seed 0, one repeated 8 x
@@ -4454,6 +4838,11 @@ def model_axis() -> tuple[dict, dict]:
             "stream": stream, "steps": TP_STEPS})
         part2_s = time.perf_counter() - t1
         torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        cnn_oracle = har_cnn_oracle()
+        cnn_res = session.run_ranks(cnn_rank, {})
+        cnn_s = time.perf_counter() - t1
         torch.cuda.empty_cache()
         t1 = time.perf_counter()
         _zero_counts()
@@ -4519,6 +4908,17 @@ def model_axis() -> tuple[dict, dict]:
         d2 = session.run_ranks(tp_rank, {"plan": d2_plan, "stream": stream,
                                          "steps": 1})
         d2_s = time.perf_counter() - t1
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"(d) before onebit: this process holds "
+              f"{torch.cuda.memory_allocated() / 1e9:.3f} GB of the card "
+              f"({torch.cuda.memory_reserved() / 1e9:.3f} GB reserved)")
+        t1 = time.perf_counter()
+        ob = session.run_ranks(onebit_rank, {"plan": d2_plan,
+                                             "stream": stream,
+                                             "steps": ONEBIT_TP_STEPS})
+        onebit_s = time.perf_counter() - t1
+        torch.cuda.empty_cache()
         t1 = time.perf_counter()
         ex = session.run_ranks(gpipe_example_rank, {})
         ex_s = time.perf_counter() - t1
@@ -4541,6 +4941,10 @@ def model_axis() -> tuple[dict, dict]:
                      f"reaped {reaped}")
     part2_readings = _tp_part2(counts, {r: part2[r] for r in (0, 1)},
                                oracle, fails)
+    cnn_readings = _cnn_axis({r: cnn_res[r] for r in (0, 1)}, cnn_oracle,
+                             counts, fails)
+    onebit_readings = _onebit_axis({r: ob[r] for r in range(4)}, counts,
+                                   fails)
     ex_readings = _gpipe_example({r: ex[r] for r in range(4)}, fails)
 
     for r in (0, 1):
@@ -4591,7 +4995,8 @@ def model_axis() -> tuple[dict, dict]:
     print(f"session up {up_s:.1f} s (data=2, model=2: {d2_up_s:.1f} s); "
           f"ranks' train and logits {ranks_s:.1f} s; serve {serve_s:.1f} s; "
           f"data=2, model=2 {d2_s:.1f} s; part 2: (e), (h), (g) "
-          f"{part2_s:.1f} s, (f) {ex_s:.1f} s; world left {world_left}, "
+          f"{part2_s:.1f} s, (f) {ex_s:.1f} s; the HAR CNN {cnn_s:.1f} s; "
+          f"onebit {onebit_s:.1f} s; world left {world_left}, "
           f"workers reaped {reaped}")
     if fails:
         raise AssertionError("model axis: " + "; ".join(fails))
@@ -4614,6 +5019,8 @@ def model_axis() -> tuple[dict, dict]:
         "d2": {r: dict(d2_held[r], **{k: d2[r]["train"][k] for k in (
             "losses", "grad_norms", "step_ms", "wire")}) for r in range(4)},
         "part2_s": part2_s, "gpipe_example_s": ex_s, **part2_readings,
+        "har_cnn": dict(cnn_readings, seconds=cnn_s),
+        "onebit": dict(onebit_readings, seconds=onebit_s),
         "gpipe_example": ex_readings, "mesh_serving": mesh_readings}
     return counts, readings
 
@@ -4807,6 +5214,9 @@ def moe_axis(counts: dict, fails: list) -> dict:
                 "strategy": name.split()[0], "opt": opt})
             out[f"{name} s"] = time.perf_counter() - t1
             torch.cuda.empty_cache()
+        sp = _fam_sp_runs(session, MOE_TP_F32, MOE_TP_TRAIN, stream, stream,
+                          FAM_OPT["phylanx"])
+        out["sp f32 s"], out["sp bf16 s"] = sp["f32_s"], sp["bf16_s"]
         t1 = time.perf_counter()
         _zero_counts()
         served = session.serve(**FAM_SERVE)
@@ -4840,6 +5250,15 @@ def moe_axis(counts: dict, fails: list) -> dict:
             {"flash_attention": 2 * L * n, "flash_attention_bwd": L * n},
             f"moe_tp_{name.replace(' ', '_')}", counts, fails,
             MOE_TP_NORM_RTOL, MOE_TP_NORM_STEPS)
+    out["sp"] = _fam_sp(
+        "(n)", sp, oracles["phylanx"],
+        {"f32": runs["phylanx f32"], "bf16": runs["phylanx bf16"],
+         "bf16_steps": MOE_BF16_STEPS},
+        {"flash_attention": 2 * L * S, "flash_attention_bwd": L * S},
+        {"flash_attention": 2 * L * SP_BF16_STEPS,
+         "flash_attention_bwd": L * SP_BF16_STEPS}, "moe_tp", counts, fails,
+        {"seq": None, "enc": None}, norm_rtol=MOE_TP_NORM_RTOL,
+        norm_steps=MOE_TP_NORM_STEPS)
     rows = [runs["phylanx bf16"][r]["vocab_rows"] for r in (0, 1)]
     out["vocab_rows"] = rows
     if rows != [cfg.vocab, cfg.vocab]:
@@ -4873,14 +5292,17 @@ def zamba_axis(counts: dict, fails: list) -> dict:
     tcfg = Plan(**ZAMBA_TP_TRAIN).config()
     L, S = tcfg.n_layers, FAM_TP_STEPS
     groups = L // cfg.shared_every
-    GL = ZAMBA_TP_GATEWAY_LAYERS
+    GL, SL = ZAMBA_TP_GATEWAY_LAYERS, ZAMBA_TP_SERVE_LAYERS
+    splan = Plan(arch=cfg.name, tiny=False, model=2, device="cuda",
+                 overrides={"n_layers": SL})
     phase(f"model axis, its families: (o) {cfg.name} at full width on "
           f"model=2, {heads // 2} of {heads} heads a rank: phylanx at {L} of "
-          f"{cfg.n_layers} layers and its logits, serve all {cfg.n_layers}, "
-          f"the gateway at {GL}")
+          f"{cfg.n_layers} layers, with and without sequence parallelism, "
+          f"and its logits, serve {SL}, the gateway at {GL}")
     print(f"CUT (o) training and logits to {L} of {cfg.n_layers} layers (one "
           f"group), its float32 run to batch {ZAMBA_TP_F32_BATCH} and its "
-          f"bf16 run to {ZAMBA_BF16_STEPS} step, Session.serve to one wave "
+          f"bf16 run to {ZAMBA_BF16_STEPS} step, Session.serve to {SL} "
+          f"layers and one wave "
           f"of {FAM_SERVE['slots']} x {FAM_SERVE['gen_len']} tokens, the "
           f"gateway to {GL} layers and {FAM_GATEWAY_GEN} tokens a request: a "
           f"mamba layer's projection is gathered over gloo three times a "
@@ -4891,8 +5313,7 @@ def zamba_axis(counts: dict, fails: list) -> dict:
                                          seq=ZAMBA_TRAIN["seq"], seed=0))
     out: dict = {}
     t0 = time.perf_counter()
-    with Plan(arch=cfg.name, tiny=False, model=2,
-              device="cuda").compile() as session:
+    with splan.compile() as session:
         out["up_s"] = time.perf_counter() - t0
         pids = [pr.pid for pr in session.distributed.group.procs.values()]
         t1 = time.perf_counter()
@@ -4915,6 +5336,9 @@ def zamba_axis(counts: dict, fails: list) -> dict:
             "stream": stream, "steps": ZAMBA_BF16_STEPS})
         out["bf16_s"] = time.perf_counter() - t1
         torch.cuda.empty_cache()
+        sp = _fam_sp_runs(session, ZAMBA_TP_F32, ZAMBA_TP_TRAIN, f32_stream,
+                          stream, FAM_OPT["phylanx"])
+        out["sp_f32_s"], out["sp_bf16_s"] = sp["f32_s"], sp["bf16_s"]
         t1 = time.perf_counter()
         _zero_counts()
         served = session.serve(**FAM_SERVE)
@@ -4956,6 +5380,11 @@ def zamba_axis(counts: dict, fails: list) -> dict:
     out["bf16"] = _fam_train("(o) phylanx bf16", bf16, None,
                              want(ZAMBA_BF16_STEPS), "zamba_tp_bf16",
                              counts, fails)
+    out["sp"] = _fam_sp(
+        "(o)", sp, oracle, {"f32": f32, "bf16": bf16,
+                            "bf16_steps": ZAMBA_BF16_STEPS},
+        want(S), want(SP_BF16_STEPS), "zamba_tp", counts, fails,
+        {"seq": ZAMBA_TRAIN["seq"], "enc": None})
     got_lg = f32[0]["logits"]["logits"]
     lg_rel = [mean_rel_err(g, w) for g, w in zip(got_lg, want_lg["logits"])]
     if len(got_lg) != TP_DECODE_STEPS + 1 or \
@@ -4971,7 +5400,8 @@ def zamba_axis(counts: dict, fails: list) -> dict:
           f"{TP_LOGIT_MEAN_REL_TOL:g}); {_tp_wire(f32[0]['logits']['wire'])}")
     out["logits"] = {"mean_rel_err": lg_rel,
                      "wire": f32[0]["logits"]["wire"]}
-    out["serve"] = _fam_serve("(o) serve", served, steps._serve_cfg(cfg),
+    out["serve"] = _fam_serve("(o) serve", served,
+                              steps._serve_cfg(splan.config()),
                               "zamba_tp_serve", counts, fails)
     out["gateway"] = _fam_gateway(
         f"(o) gateway, {GL} layers", gw, {1: res[1]}, gw_oracle,
@@ -4991,16 +5421,19 @@ def xlstm_axis(counts: dict, fails: list) -> dict:
     against a plain greedy loop on the ranks."""
     cfg = get_config("xlstm-350m")
     L, S = XLSTM_TRAIN_LAYERS, FAM_TP_STEPS
-    GL = STREAM_LAYERS[cfg.name]
+    GL, SL = STREAM_LAYERS[cfg.name], XLSTM_TP_SERVE_LAYERS
+    splan = Plan(arch=cfg.name, tiny=False, model=2, device="cuda",
+                 overrides={"n_layers": SL})
     phase(f"model axis, its families: (p) {cfg.name} at full width on "
           f"model=2, {cfg.n_heads // 2} of {cfg.n_heads} mLSTM heads and "
           f"{cfg.slstm_heads // 2} of {cfg.slstm_heads} sLSTM heads a rank: "
-          f"phylanx at {L} of {cfg.n_layers} layers, serve all "
-          f"{cfg.n_layers}, the gateway at {GL}")
+          f"phylanx at {L} of {cfg.n_layers} layers, with and without "
+          f"sequence parallelism, serve {SL}, the gateway at {GL}")
     print(f"CUT (p) training to {L} of {cfg.n_layers} layers (one group: "
           f"seven mLSTM layers and the sLSTM), its float32 run to batch "
           f"{XLSTM_TP_F32_BATCH} and its bf16 run to {XLSTM_BF16_STEPS} "
-          f"steps, Session.serve to one wave of {FAM_SERVE['slots']} x "
+          f"steps, Session.serve to {SL} layers and one wave of "
+          f"{FAM_SERVE['slots']} x "
           f"{FAM_SERVE['gen_len']} tokens, the gateway to {GL} layers and "
           f"{FAM_GATEWAY_GEN} tokens a request: an mLSTM layer "
           f"reduce-scatters its q, k, v and gates over gloo")
@@ -5010,8 +5443,7 @@ def xlstm_axis(counts: dict, fails: list) -> dict:
                                          seq=XLSTM_TRAIN["seq"], seed=0))
     out: dict = {}
     t0 = time.perf_counter()
-    with Plan(arch=cfg.name, tiny=False, model=2,
-              device="cuda").compile() as session:
+    with splan.compile() as session:
         out["up_s"] = time.perf_counter() - t0
         pids = [pr.pid for pr in session.distributed.group.procs.values()]
         t1 = time.perf_counter()
@@ -5030,6 +5462,9 @@ def xlstm_axis(counts: dict, fails: list) -> dict:
             "stream": stream, "steps": XLSTM_BF16_STEPS})
         out["bf16_s"] = time.perf_counter() - t1
         torch.cuda.empty_cache()
+        sp = _fam_sp_runs(session, XLSTM_TP_F32, XLSTM_TRAIN, f32_stream,
+                          stream, FAM_OPT["phylanx"])
+        out["sp_f32_s"], out["sp_bf16_s"] = sp["f32_s"], sp["bf16_s"]
         t1 = time.perf_counter()
         _zero_counts()
         served = session.serve(**FAM_SERVE)
@@ -5065,7 +5500,13 @@ def xlstm_axis(counts: dict, fails: list) -> dict:
                             "xlstm_tp_f32", counts, fails)
     out["bf16"] = _fam_train("(p) phylanx bf16", bf16, None, none,
                              "xlstm_tp_bf16", counts, fails)
-    out["serve"] = _fam_serve("(p) serve", served, steps._serve_cfg(cfg),
+    out["sp"] = _fam_sp(
+        "(p)", sp, oracle, {"f32": f32, "bf16": bf16,
+                            "bf16_steps": XLSTM_BF16_STEPS},
+        none, none, "xlstm_tp", counts, fails,
+        {"seq": XLSTM_TRAIN["seq"], "enc": None})
+    out["serve"] = _fam_serve("(p) serve", served,
+                              steps._serve_cfg(splan.config()),
                               "xlstm_tp_serve", counts, fails)
     out["gateway"] = _fam_gateway(
         f"(p) gateway, {GL} layers", gw, {1: res[1]}, gw_oracle,
@@ -5126,18 +5567,22 @@ def whisper_axis(counts: dict, fails: list) -> dict:
     reference does (``check_stream_refused``)."""
     cfg = get_config("whisper-medium")
     tcfg = Plan(**WHISPER_TP_TRAIN).config()
-    S = FAM_TP_STEPS
+    S, SL = FAM_TP_STEPS, WHISPER_TP_SERVE_LAYERS
+    splan = Plan(arch=cfg.name, tiny=False, model=2, device="cuda",
+                 overrides={"n_layers": SL, "n_enc_layers": SL})
     phase(f"model axis, its families: (q) {cfg.name} at full width on "
           f"model=2, {cfg.n_heads // 2} of {cfg.n_heads} heads a rank: "
           f"phylanx at {tcfg.n_enc_layers} + {tcfg.n_layers} of "
-          f"{cfg.n_enc_layers} + {cfg.n_layers} layers, serve all")
+          f"{cfg.n_enc_layers} + {cfg.n_layers} layers, with and without "
+          f"sequence parallelism, serve {SL} + {SL}")
     print(f"CUT (q) training to {tcfg.n_enc_layers} of {cfg.n_enc_layers} "
           f"encoder layers (the reference's init overflows the float32 "
           f"gradient norm past them) and {tcfg.n_layers} of {cfg.n_layers} "
           f"decoder layers, its float32 run to batch {WHISPER_TP_F32_BATCH} "
           f"(every wq x {WHISPER_WQ_SCALE:g}: the reference's init saturates "
           f"the softmax) and its bf16 run to {WHISPER_BF16_STEPS} step, "
-          f"Session.serve to one wave of {FAM_SERVE['slots']} x "
+          f"Session.serve to {SL} + {SL} layers and one wave of "
+          f"{FAM_SERVE['slots']} x "
           f"{FAM_SERVE['gen_len']} tokens")
     stream = RepeatStream(stream_for(tcfg, batch=WHISPER_TRAIN["batch"],
                                      seq=WHISPER_TRAIN["seq"], seed=0))
@@ -5145,8 +5590,7 @@ def whisper_axis(counts: dict, fails: list) -> dict:
                                          seq=WHISPER_TRAIN["seq"], seed=0))
     out: dict = {}
     t0 = time.perf_counter()
-    with Plan(arch=cfg.name, tiny=False, model=2,
-              device="cuda").compile() as session:
+    with splan.compile() as session:
         out["up_s"] = time.perf_counter() - t0
         pids = [pr.pid for pr in session.distributed.group.procs.values()]
         t1 = time.perf_counter()
@@ -5168,6 +5612,10 @@ def whisper_axis(counts: dict, fails: list) -> dict:
             "stream": stream, "steps": WHISPER_BF16_STEPS})
         out["bf16_s"] = time.perf_counter() - t1
         torch.cuda.empty_cache()
+        sp = _fam_sp_runs(session, WHISPER_TP_F32, WHISPER_TP_TRAIN,
+                          f32_stream, stream, FAM_OPT["phylanx"],
+                          WHISPER_WQ_SCALE)
+        out["sp_f32_s"], out["sp_bf16_s"] = sp["f32_s"], sp["bf16_s"]
         t1 = time.perf_counter()
         _zero_counts()
         served = session.serve(**FAM_SERVE)
@@ -5186,6 +5634,12 @@ def whisper_axis(counts: dict, fails: list) -> dict:
     out["bf16"] = _fam_train("(q) phylanx bf16", bf16, None,
                              train_launches(tcfg, WHISPER_BF16_STEPS, 1, 0),
                              "whisper_tp_bf16", counts, fails)
+    out["sp"] = _fam_sp(
+        "(q)", sp, oracle, {"f32": f32, "bf16": bf16,
+                            "bf16_steps": WHISPER_BF16_STEPS},
+        train_launches(tcfg, S, 1, 0),
+        train_launches(tcfg, SP_BF16_STEPS, 1, 0), "whisper_tp", counts,
+        fails, {"seq": None, "enc": True})
     rows = [bf16[r]["vocab_rows"] for r in (0, 1)]
     out["vocab_rows"] = rows
     if rows != [cfg.vocab, cfg.vocab]:
@@ -5193,7 +5647,8 @@ def whisper_axis(counts: dict, fails: list) -> dict:
                      f"vocab {cfg.vocab} (odd: unsplit)")
     print(f"(q) the vocab of {cfg.vocab} stays whole on both ranks (rows a "
           f"rank {rows}); the heads split: {cfg.n_heads // 2} a rank")
-    out["serve"] = _fam_serve("(q) serve", served, steps._serve_cfg(cfg),
+    out["serve"] = _fam_serve("(q) serve", served,
+                              steps._serve_cfg(splan.config()),
                               "whisper_tp_serve", counts, fails)
     print("(q) wall: " + ", ".join(f"{k} {v:.1f}" for k, v in out.items()
                                    if k.endswith("s") and

@@ -27,7 +27,7 @@ import torch.utils._pytree as pytree
 from .sharding import is_spec
 
 __all__ = ["Bucket", "FusionPlan", "collective_stats", "fused_apply",
-           "make_plan", "pack", "pack_bucket", "unpack"]
+           "make_plan", "pack", "pack_bucket", "unpack", "unpack_bucket"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -162,14 +162,25 @@ def unpack(buffers: Sequence[torch.Tensor], plan: FusionPlan):
         raise ValueError(f"{len(buffers)} buffers for {plan.n_buckets} "
                          f"buckets")
     leaves: list = [None] * sum(map(len, plan.members))
-    for buf, b in zip(buffers, plan.buckets):
-        for e in b.entries:
-            shape = plan.member_shapes[e.index]
-            n = math.prod(shape)
-            for k, m in enumerate(plan.members[e.index]):
-                start = e.offset + k * n
-                leaves[m] = buf[start:start + n].view(shape)
+    for i, buf in enumerate(buffers):
+        for j, t in enumerate(unpack_bucket(buf, plan, i)):
+            if t is not None:
+                leaves[j] = t
     return pytree.tree_unflatten(leaves, plan.treespec)
+
+
+def unpack_bucket(buf: torch.Tensor, plan: FusionPlan, i: int) -> list:
+    """Bucket ``i``'s buffer -> the port's leaves in flatten order: views
+    into it, in their shapes, for the leaves it holds; None for the
+    others."""
+    leaves: list = [None] * sum(map(len, plan.members))
+    for e in plan.buckets[i].entries:
+        shape = plan.member_shapes[e.index]
+        n = math.prod(shape)
+        for k, m in enumerate(plan.members[e.index]):
+            start = e.offset + k * n
+            leaves[m] = buf[start:start + n].view(shape)
+    return leaves
 
 
 def fused_apply(tree, fn: Callable[[torch.Tensor], torch.Tensor],

@@ -33,7 +33,8 @@ on ``model``) the train step also tells it the residual's global
 sequence length, and the hook says whether the residual between blocks
 holds only this rank's ``S/M`` rows (``ModelAxis.seq``): where the
 reference constrains the residual to ``("batch", "seq", "embed")``
-before and after every block.  With no
+before and after every block.  An encoder-decoder's encoder runs under
+its own split, by its frames (``residual_hook``).  With no
 hook installed (or a model axis of 1) the layers are the one-process
 code.  The same init rules: ``normal`` draws
 with std ``scale / sqrt(fan_in)``, fan_in = ``shape[-2]`` (or the last dim
@@ -57,7 +58,8 @@ __all__ = ["DEFAULT_RULES", "ModelAxis", "ParamSpec", "ShardingRules", "Tiles",
            "act_axis", "act_hook", "default_rules", "gather_leaf",
            "gather_tree", "init_params", "initialize", "is_spec",
            "local_slices", "local_specs", "model_axis", "model_sharded",
-           "set_act_hook", "shard_leaf", "shard_tree", "spec_for"]
+           "residual_hook", "set_act_hook", "shard_leaf", "shard_tree",
+           "spec_for"]
 
 #   batch      -> data-parallel axes ("pod","data")
 #   seq        -> sequence; sharded only under sequence parallelism
@@ -405,6 +407,28 @@ class act_hook:
         self.prev = _ACT_HOOK[0]
         set_act_hook(self.mesh, self.rules, cache_len=self.cache_len,
                      seq_len=self.seq_len, batch=self.batch)
+        return _ACT_HOOK[0]
+
+    def __exit__(self, *exc):
+        _ACT_HOOK[0] = self.prev
+
+
+class residual_hook:
+    """``with residual_hook(n): ...`` installs, for the block, the hook
+    with the residual split by a sequence of ``n`` rows where the rules
+    put ``seq`` on a model axis that ``n`` divides, and not split
+    otherwise (an encoder's frames beside the decoder's tokens, whose
+    split the step installed); it restores the hook before it.  No hook:
+    nothing changes."""
+
+    def __init__(self, n: int):
+        self.n = n
+
+    def __enter__(self):
+        self.prev = hook = _ACT_HOOK[0]
+        if hook is not None:
+            _ACT_HOOK[0] = dataclasses.replace(
+                hook, seq_len=self.n if hook.split("seq", self.n) else None)
         return _ACT_HOOK[0]
 
     def __exit__(self, *exc):

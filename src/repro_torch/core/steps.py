@@ -17,7 +17,8 @@ the mesh's dp group with the strategy's exchange (``core/overlap.py``:
 a dp degree of 1 (``mesh=None`` included) every exchange is dropped and
 ``onebit`` is the plain update, as in the reference.
 
-A model axis (every family of ``MODEL_AXIS_FAMILIES``) splits each dp
+A model axis (every family, and the HAR CNN's channels,
+``models/cnn.py``) splits each dp
 rank into a model group of rank processes (``launch/mesh.py``): each
 holds its blocks of the parameters (``core/sharding.py``), runs the
 model under the activation hook (``sharding.act_hook``: vocab-parallel
@@ -38,14 +39,17 @@ axes and on a model axis (the steps give
 the layers the global batch, ``act_hook(batch=)``: the moe layers route
 every dp rank's tokens as the reference routes a serve step's whole
 batch).  ``sequence_parallel`` installs the
-reference's ``default_rules(sequence_parallel=True)``: where the batch's
-sequence divides by the model axis (and the vocab splits, as the loss
-needs), the residual between blocks holds each rank's ``S/M`` rows
-(``sharding.ModelAxis.seq``), and every unsplit leaf's gradient is a
+reference's ``default_rules(sequence_parallel=True)`` for every family:
+where the batch's sequence divides by the model axis (and the vocab
+splits, as the loss needs), the residual between layers holds each
+rank's ``S/M`` rows (``sharding.ModelAxis.seq``; an encoder's by its
+frames, ``models/model.py``), and every unsplit leaf's gradient is a
 part to sum over the model group; elsewhere, and at a model axis of 1,
-it is the plain path, as in the reference.  ``onebit`` at a model axis >
-1 and sequence parallelism beyond the dense family are ROADMAP item 14b
-(``model_axis_refusal``).  Where
+it is the plain path, as in the reference.  ``onebit`` on a model axis
+packs the reference's global buckets (``compression.exchange_onebit``:
+each bucket's split leaves gathered over the model group, its residual
+the same on every model rank of a dp coordinate), and the update takes
+the global norm over the model group.  Where
 JAX donates the parameters and the optimizer state to the step, the port
 updates them in place and returns the same objects; ``fn_nodonate``
 leaves its inputs as they were (the resilience modes replay from them).
@@ -73,8 +77,6 @@ from ..optim import optimizers as optim
 from ..optim.optimizers import OptConfig
 
 _STRATEGIES = ("phylanx", "horovod", "zero1", "onebit")
-#: the families that run on a model axis > 1
-MODEL_AXIS_FAMILIES = ("dense", "moe", "zamba", "xlstm", "encdec")
 
 
 # ---------------------------------------------------------------------------
@@ -171,24 +173,6 @@ def batch_rows(batch: dict, mesh) -> dict:
             v = v[mesh.rank * per:(mesh.rank + 1) * per]
         out[k] = v
     return out
-
-
-def model_axis_refusal(cfg, strategy) -> Optional[str]:
-    """What the port does not run on a model axis > 1 yet (ROADMAP item
-    14b), or None: a family outside ``MODEL_AXIS_FAMILIES`` (the HAR
-    CNN, which no plan reaches), onebit, and sequence parallelism beyond
-    the dense family."""
-    if cfg.family not in MODEL_AXIS_FAMILIES:
-        return (f"a model axis for the {cfg.family} family (ROADMAP item "
-                f"14b)")
-    if strategy is not None and strategy.name == "onebit":
-        return ("onebit at a model axis > 1: its buckets are rows of the "
-                "global leaves (ROADMAP item 14b)")
-    if strategy is not None and strategy.sequence_parallel \
-            and cfg.family != "dense":
-        return (f"sequence parallelism for the {cfg.family} family "
-                f"(ROADMAP item 14b)")
-    return None
 
 
 def residual_seq(cfg, mesh, rules, batch) -> Optional[int]:
@@ -350,7 +334,9 @@ class TrainStep:
                 opt, self.leaves, self.scatter_mask, self.mesh,
                 self.specs))
         if name == "onebit":
-            out = dict(opt)
+            # the residual is the same on a dp coordinate's model ranks:
+            # gathered over the dp group only
+            out = self._gather_moments(dict(opt))
             out["ef"] = [collectives.all_gather(e, self.mesh).cpu()
                          for e in opt["ef"]]
             return out
@@ -373,7 +359,7 @@ class TrainStep:
         out = {k: (v.to(device) if k == "count" else
                    pytree.tree_map(lambda t: t.to(device), v))
                for k, v in opt_global.items() if k != "ef"}
-        if name == "onebit":
+        if name == "onebit":         # this dp rank's rows, on every model rank
             n, r = self._ndp(), (self.mesh.rank if self.mesh else 0)
             out["ef"] = [e[r * e.shape[0] // n:(r + 1) * e.shape[0] // n]
                          .to(device, copy=True) for e in opt_global["ef"]]
@@ -399,8 +385,6 @@ def make_train_step(cfg=None, strategy: Optional[Strategy] = None, *,
 
     Raises:
         ValueError: an unknown strategy.
-        NotImplementedError: what ``model_axis_refusal`` names at a
-            model axis > 1 (ROADMAP item 14b).
     """
     cfg, strategy = _resolve(plan, cfg, strategy)
     if strategy.name not in _STRATEGIES:
@@ -413,11 +397,6 @@ def make_train_step(cfg=None, strategy: Optional[Strategy] = None, *,
         from ..launch.mesh import Mesh
         mesh = Mesh(shape={"data": 1, "model": 1})
     split = mesh.model_size > 1
-    if split:
-        refused = model_axis_refusal(cfg, strategy)
-        if refused:
-            raise NotImplementedError(f"the port does not run {refused} "
-                                      f"yet")
     model = build_model(cfg)
     specs = model.specs()
     oc = strategy.opt
@@ -486,10 +465,14 @@ def make_train_step(cfg=None, strategy: Optional[Strategy] = None, *,
         with act_hook(mesh, rules, seq_len=seq):
             loss, grads = grads_of(params, batch_rows(batch, mesh))
         if split:
-            if seq not in partial_masks:
-                partial_masks[seq] = model.partial_mask(
-                    specs, ModelAxis(mesh, rules, seq_len=seq))
-            grads = _sum_partials(grads, partial_masks[seq], mesh)
+            # an encoder's frames split by their own length
+            frames = batch["frames"].shape[1] if "frames" in batch else None
+            if (seq, frames) not in partial_masks:
+                ax = ModelAxis(mesh, rules, seq_len=seq)
+                partial_masks[seq, frames] = (
+                    model.partial_mask(specs, ax) if frames is None else
+                    model.partial_mask(specs, ax, enc_len=frames))
+            grads = _sum_partials(grads, partial_masks[seq, frames], mesh)
         loss = collectives.pmean(loss, mesh)
         if strategy.name == "zero1":
             params, opt_state, m = overlap.zero1_update(
@@ -499,9 +482,11 @@ def make_train_step(cfg=None, strategy: Optional[Strategy] = None, *,
             ef = opt_state["ef"]
             if ndp > 1:
                 grads, ef = compression.exchange_onebit(
-                    grads, ef, mesh, onebit_plan, on_bucket=step.on_bucket)
+                    grads, ef, mesh, onebit_plan, on_bucket=step.on_bucket,
+                    **(dict(specs=specs, rules=rules) if split else {}))
             inner = {n: v for n, v in opt_state.items() if n != "ef"}
-            params, inner, m = optim.update(grads, inner, params, oc)
+            params, inner, m = optim.update(grads, inner, params, oc,
+                                            **norm_kw)
             opt_state = dict(inner, ef=ef)
         else:
             if ndp > 1:
@@ -691,11 +676,6 @@ def _serve_step(cfg, shape: dict, mesh, body, rules=None) -> ServeStep:
     scfg = _serve_cfg(cfg)
     model = build_model(scfg)
     S = shape["seq_len"]
-    if mesh is not None and mesh.model_size > 1:
-        refused = model_axis_refusal(scfg, None)
-        if refused:
-            raise NotImplementedError(f"the port does not run {refused} "
-                                      f"yet")
     rules = rules or decode_rules(scfg, mesh, shape)
     cache = model.cache_specs(shape["global_batch"], S)
     if mesh is not None and mesh.world_size > 1:

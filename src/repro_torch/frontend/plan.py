@@ -47,11 +47,9 @@ reference's serve steps take ``decode_rules``, while ``train`` runs it),
 and ``serve_stream`` runs the gateway on rank 0 with every other rank
 following its command stream (``frontend/mesh.rank_serve_stream``).
 What is still missing raises ``NotImplementedError`` naming the ROADMAP
-item that brings it: the model axis for onebit and for sequence
-parallelism beyond the dense family, and a mesh with SPMD mode, fabric
-localities or elastic
-membership (item 14b), the production meshes and named shapes (item
-15).
+item that brings it: fabric DDP beside a model axis and a mesh with SPMD
+mode, fabric localities or elastic membership (item 14b), the
+production meshes and named shapes (item 15).
 """
 from __future__ import annotations
 
@@ -173,11 +171,8 @@ def _unsupported(plan: Plan) -> Optional[str]:
     if n > 1 and (plan.localities > 1 or plan.elastic):
         return ("mesh axes with fabric localities or elastic membership "
                 "(ROADMAP item 14b)")
-    if plan.model > 1:
-        if plan.ddp:
-            return "fabric DDP with a model axis (ROADMAP item 14b)"
-        return steps_lib.model_axis_refusal(plan.config(),
-                                            plan.build_strategy())
+    if plan.model > 1 and plan.ddp:
+        return "fabric DDP with a model axis (ROADMAP item 14b)"
     return None
 
 

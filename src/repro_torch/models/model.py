@@ -47,11 +47,31 @@ cross K/V projection through one ``copy_to_model`` (``_enc_in``);
 ``prefill`` and ``decode_step`` return this rank's vocab columns of the
 logits (``layers.greedy`` takes their global argmax,
 ``layers.gather_vocab`` the whole).  ``partial_mask`` names the
-replicated leaves whose gradient is a per-rank part.  Under sequence
-parallelism (the hook's ``seq``: the dense family) the residual between
-the blocks, and so what ``_remat`` saves of it, is this rank's ``S/M``
-rows; the embedding leaves through a reduce-scatter and the logits take
-the gathered sequence after ``ln_f``.
+replicated leaves whose gradient is a per-rank part.
+
+Under sequence parallelism (the hook's ``seq``; every family, training
+only, as the reference's ``decode_rules`` ignore the flag) the residual
+between every pair of layers, and so what ``_remat`` saves of it, is
+this rank's ``S/M`` rows; the embedding leaves through a reduce-scatter
+and the logits take the gathered sequence after ``ln_f``.  Every layer
+enters through ``collectives.all_gather_seq`` and leaves through
+``collectives.reduce_scatter_seq`` where it splits (or a cut to the
+rank's rows where it runs whole): the attention and the MLP
+(``layers.enter_split``/``leave_split``), a moe layer's tokens and
+experts' sum (``moe.py``), the mamba layer's projection and
+``out_proj`` (``ssm._enter``/``_leave``), the mLSTM's and the sLSTM's
+input and output.  The reference constrains the residual at every dense
+and moe layer (``repro/models/model.py:93,97``), at each zamba group's
+entry and exit (``:125,129``) and nowhere in the xlstm backbone or in
+``EncDec`` (XLA places it there); the port splits it between every pair
+of layers in each family, whose ring bytes equal the all-reduces they
+replace.  ``EncDec``'s encoder splits by its frames wherever the model
+axis divides them (``residual_hook``), its decoder by the tokens where
+the train step splits them (``steps.residual_seq``: not at an odd
+vocab, whisper's 51,865), and the encoder's output is gathered once for
+every decoder layer's cross K/V projection (``_enc_in``).  Under it
+``partial_mask`` marks every leaf that no rule splits and that saw only
+this rank's rows.
 
 Contract:
   m = build_model(cfg)
@@ -72,7 +92,8 @@ import torch.utils._pytree as pytree
 from torch.utils.checkpoint import checkpoint
 
 from ..core import collectives
-from ..core.sharding import ParamSpec, is_spec, model_sharded
+from ..core.sharding import ParamSpec, is_spec, model_axis, model_sharded, \
+    residual_hook
 from . import attention, blocks, layers, ssm
 
 # the families ``LM`` builds; ``EncDec`` builds "encdec"
@@ -136,7 +157,9 @@ class LM:
         return _float_params(sp, cfg)
 
     def _mamba_group(self, x, group, shared):
-        """One zamba group: its mamba layers, then the shared block."""
+        """One zamba group: its mamba layers, then the shared block (under
+        sequence parallelism each of them takes and gives this rank's
+        rows)."""
         cfg = self.cfg
         for p in group:
             x = _remat(cfg, blocks.mamba_block_apply, x, p, cfg,
@@ -190,7 +213,10 @@ class LM:
         run whole on gathered leaves.
         Under sequence parallelism (``ax.seq``) that is every leaf the
         rules do not split: the norms and ``b_down`` see this rank's
-        rows, and an unsplit product's cut keeps only their gradient."""
+        rows, an unsplit product's cut keeps only their gradient, and a
+        whole layer (heads that do not split) is cut to the rank's rows;
+        a router that is every rank's own routes the rank's rows'
+        logits, gathered (``moe._route``)."""
         cfg = self.cfg
         if ax.seq:
             return pytree.tree_map(
@@ -341,14 +367,28 @@ class EncDec:
         return _float_params(sp, cfg)
 
     def encode(self, params, frames):
-        """frames: [B, S_enc, D] stub frontend output -> [B, S_enc, D]."""
+        """frames: [B, S_enc, D] stub frontend output -> [B, S_enc, D]:
+        under sequence parallelism where the model axis divides the
+        frames, this rank's ``S_enc/M`` rows of it (``_enc_in`` gathers
+        them)."""
         cfg = self.cfg
+        n = frames.shape[1]
         x = frames.to(cfg.c_dtype)
         x = x + layers.sinusoidal_embedding(
-            x.shape[1], cfg.d_model, x.device).to(cfg.c_dtype)[None]
+            n, cfg.d_model, x.device).to(cfg.c_dtype)[None]
+        with residual_hook(n) as ax:
+            if ax is not None and ax.seq:
+                x = x[:, ax.seq_block]
         for p in params["enc_stack"]:
-            x = _remat(cfg, blocks.tblock_apply, x, p, cfg, causal=False)[0]
+            x = _remat(cfg, self._enc_layer, x, p, n)
         return layers.apply_norm(x, params["ln_enc"], cfg.norm)
+
+    def _enc_layer(self, x, p, n: int):
+        """One encoder layer under the encoder's split (``residual_hook``
+        of its ``n`` frames; installed here, so that ``_remat``'s
+        recomputation sees it too)."""
+        with residual_hook(n):
+            return blocks.tblock_apply(x, p, self.cfg, causal=False)[0]
 
     def _dec_embed(self, params, tokens, pos0=0):
         """Token embeddings plus ``pos_dec`` rows from the scalar ``pos0``
@@ -358,18 +398,30 @@ class EncDec:
         x = layers.embed(tokens, params["embed"], cfg.vocab).to(cfg.c_dtype)
         start = min(max(int(pos0), 0), params["pos_dec"].shape[0] - S)
         pe = params["pos_dec"][start:start + S]
+        ax = model_axis()
+        if ax is not None and ax.seq:        # this rank's rows
+            pe = pe[ax.seq_block]
         return x + pe.to(cfg.c_dtype)[None]
 
-    def _enc_in(self, enc):
-        """The encoder output as every decoder layer's cross K/V
-        projection reads it: through ``copy_to_model`` where the model
-        axis splits the heads (each rank projects its own kv heads, or
-        picks from all of them, so its gradient of ``enc`` is a part to
-        sum; one exchange for all the layers)."""
-        hp = attention.head_plan(self.cfg.n_heads, self.cfg.n_kv_heads)
-        if hp is None or not hp.heads:
+    def _enc_in(self, enc, n: int):
+        """The encoder output (of ``n`` frames) as every decoder layer's
+        cross K/V projection reads it, one exchange for all the layers.
+        Each rank's gradient of it is a part to sum where the model axis
+        splits the heads (each rank projects its own kv heads, or picks
+        from all of them) or the decoder's residual (each rank's queries
+        are its rows'): then it enters through ``copy_to_model``, or is
+        gathered by ``all_gather_seq`` where the encoder split by frames.
+        Otherwise every rank uses it whole and alike: gathered by
+        ``gather_from_model`` where the encoder split."""
+        ax = model_axis()
+        if ax is None:
             return enc
-        return collectives.copy_to_model(enc, hp.ax.mesh)
+        hp = attention.head_plan(self.cfg.n_heads, self.cfg.n_kv_heads)
+        parts = ax.seq or (hp is not None and hp.heads)
+        if ax.split("seq", n):
+            return collectives.all_gather_seq(enc, ax.mesh) if parts \
+                else collectives.gather_from_model(enc, ax.mesh, 1)
+        return collectives.copy_to_model(enc, ax.mesh) if parts else enc
 
     @staticmethod
     def _cross_kv(enc, p):
@@ -390,7 +442,8 @@ class EncDec:
         """batch: frames [B, S_enc, D], tokens [B, S_dec] -> (logits, a
         float32 zero aux)."""
         cfg = self.cfg
-        enc = self._enc_in(self.encode(params, batch["frames"]))
+        enc = self._enc_in(self.encode(params, batch["frames"]),
+                           batch["frames"].shape[1])
         x = self._dec_embed(params, batch["tokens"])
         for p in params["dec_stack"]:
             x = _remat(cfg, self._dec_layer, x, enc, p)
@@ -410,7 +463,7 @@ class EncDec:
         return [p["cross"][n] for p in params["dec_stack"]
                 for n in ("bk", "bv") if n in p["cross"]]
 
-    def partial_mask(self, specs, ax):
+    def partial_mask(self, specs, ax, enc_len=None):
         """A bool tree shaped like ``specs``: True for the replicated
         leaves whose gradient on a rank of the model axis ``ax`` is that
         rank's part, to be summed over the model group: in every self-
@@ -418,16 +471,32 @@ class EncDec:
         beside split query heads (``attention.partial_grad_leaves``).
         The norms, ``b_down``, ``pos_dec`` and an unsplit vocab's
         embedding are used alike on every rank, outside the split
-        products, so their gradients are whole."""
+        products, so their gradients are whole; except under sequence
+        parallelism, where every unsplit leaf that saw only this rank's
+        rows is a part: the encoder's (its layers and ``ln_enc``) where
+        it splits by its ``enc_len`` frames (default ``enc_frames``), the
+        decoder's (its layers, ``ln_f``, ``pos_dec`` and the embedding
+        and logits) where ``ax.seq`` splits the tokens."""
         cfg = self.cfg
         names = attention.partial_grad_leaves(cfg.n_heads, cfg.n_kv_heads,
                                               ax)
         out = pytree.tree_map(lambda s: False, specs, is_leaf=is_spec)
-        for layer in out["enc_stack"] + out["dec_stack"]:
-            for part in ("attn", "cross"):
-                for n in names:
-                    if n in layer.get(part, ()):
-                        layer[part][n] = True
+        enc_seq = ax.split("seq", enc_len or cfg.enc_frames)
+        for seq, keys in ((enc_seq, ("enc_stack", "ln_enc")),
+                          (ax.seq, ("dec_stack", "ln_f", "pos_dec", "embed",
+                                    "unembed"))):
+            if seq:
+                for k in keys:
+                    out[k] = pytree.tree_map(
+                        lambda s: not model_sharded(ax.mesh, ax.rules,
+                                                    s.shape, s.dims),
+                        specs[k], is_leaf=is_spec)
+                continue
+            for layer in out[keys[0]]:
+                for part in ("attn", "cross"):
+                    for n in names:
+                        if n in layer.get(part, ()):
+                            layer[part][n] = True
         return out
 
     def cache_specs(self, batch: int, cache_len: int) -> list:
@@ -442,7 +511,8 @@ class EncDec:
 
     def prefill(self, params, batch, cache_len: int):
         cfg = self.cfg
-        enc = self._enc_in(self.encode(params, batch["frames"]))
+        enc = self._enc_in(self.encode(params, batch["frames"]),
+                           batch["frames"].shape[1])
         x = self._dec_embed(params, batch["tokens"])
         cache = []
         for p in params["dec_stack"]:

@@ -39,7 +39,21 @@ weights enter that rank-local region through
 weights' over its experts).  Where ``experts`` does not divide the axis
 the experts are whole on every rank and their ``d_ff`` splits instead,
 as ``spec_for`` stores them: the router is then every rank's own, and
-the experts' products are column- and row-parallel.  A serve step whose
+the experts' products are column- and row-parallel.
+
+Under sequence parallelism (the hook's ``seq``: the residual holds this
+rank's ``S/M`` rows, as the reference constrains it before and after
+every layer, ``repro/models/model.py:93,97``) the token input enters
+through ``collectives.all_gather_seq`` where it enters through
+``copy_to_model`` above (``layers.enter_split``), so that every rank
+still routes every token of its dp rows, and the group's sum of the
+experts' outputs leaves through ``collectives.reduce_scatter_seq`` to
+the rank's rows where it leaves through ``reduce_from_model``
+(``layers.leave_split``).  A router that is every rank's own (the
+``d_ff`` split) takes the logits of the rank's rows and gathers them
+(``gather_from_model``: every rank routes them alike), so that its
+gradient is the rank's rows' part, as every unsplit leaf's is under
+sequence parallelism.  A serve step whose
 batch rows the dp group splits routes them as the reference routes its
 whole batch: where a routing group spans ranks and an expert may
 overflow, the ranks' expert ids are gathered and each rank places its
@@ -55,6 +69,7 @@ import torch.nn.functional as F
 
 from ..core import collectives
 from ..core.sharding import ParamSpec, act_axis, model_axis
+from . import layers
 
 __all__ = ["ExpertPlan", "apply_moe", "capacity", "expert_plan",
            "moe_specs", "router_probs"]
@@ -97,6 +112,11 @@ def router_probs(x, w_router, top_k: int, ax=None):
     logits = x.float() @ w_router.float()
     if ax is not None:
         logits = collectives.gather_from_model(logits, ax.mesh, -1)
+    return _gates(logits, top_k)
+
+
+def _gates(logits, top_k: int):
+    """``router_probs`` from the whole ``[T, E]`` float32 logits."""
     probs = torch.softmax(logits, dim=-1)
     gate_w, gate_i = _top_k(probs, top_k)
     gate_w = gate_w / torch.clamp(gate_w.sum(-1, keepdim=True), min=1e-9)
@@ -138,15 +158,25 @@ def _plan_of(p, plan):
 
 
 def _route(x, p, top_k: int, plan):
-    """(the experts' token input, combine weights [T,k], expert ids
-    [T,k], aux loss) under the expert ``plan`` (None: one process)."""
+    """(the experts' token input [T, d], combine weights [T,k], expert
+    ids [T,k], aux loss) of ``x`` [B, S, d] under the expert ``plan``
+    (None: one process); under sequence parallelism ``x`` holds this
+    rank's rows and T every row of the gathered sequence."""
+    d = x.shape[-1]
     if plan is None:
-        return (x, *router_probs(x, p["router"], top_k))
-    mesh = plan.ax.mesh
-    xe = collectives.copy_to_model(x, mesh)
-    gate_w, gate_i, aux = router_probs(
-        xe if plan.by_experts else x, p["router"], top_k,
-        plan.ax if plan.by_experts else None)
+        flat = x.reshape(-1, d)
+        return (flat, *router_probs(flat, p["router"], top_k))
+    ax, mesh = plan.ax, plan.ax.mesh
+    xe = layers.enter_split(x, ax, True).reshape(-1, d)
+    if plan.by_experts:
+        gate_w, gate_i, aux = router_probs(xe, p["router"], top_k, ax)
+    elif ax.seq:
+        lg = x.float() @ p["router"].float()
+        gate_w, gate_i, aux = _gates(collectives.gather_from_model(
+            lg, mesh, 1).reshape(-1, lg.shape[-1]), top_k)
+    else:
+        gate_w, gate_i, aux = router_probs(x.reshape(-1, d), p["router"],
+                                           top_k)
     return xe, collectives.copy_to_model(gate_w, mesh), gate_i, aux
 
 
@@ -284,10 +314,10 @@ def _global_rows(rows, x, gate_w, gate_i):
 
 
 def _leave(y, plan):
-    """This rank's experts' share of the output, summed over the model
-    group (``y`` itself in one process)."""
-    return y if plan is None else collectives.reduce_from_model(
-        y, plan.ax.mesh)
+    """This rank's experts' share of the output ``[B, S, d]``, summed
+    over the model group (to the rank's rows under sequence parallelism;
+    ``y`` itself in one process)."""
+    return y if plan is None else layers.leave_split(y, plan.ax, True)
 
 
 def expert_plan(n_experts=None, d_ff=None):
@@ -309,11 +339,10 @@ def apply_moe(x, p, *, top_k: int, group_size: int = 512,
               n_experts=None, d_ff=None):
     """x: [B, S, d] -> [B, S, d], aux-loss scalar.  ``n_experts`` and
     ``d_ff`` (global) let the experts split over the model axis."""
-    B, S, d = x.shape
-    flat = x.reshape(B * S, d)
+    B, _, d = x.shape
     plan = expert_plan(n_experts, d_ff)
     E, eb = _plan_of(p, plan)
-    flat, gate_w, gate_i, aux = _route(flat, p, top_k, plan)
+    flat, gate_w, gate_i, aux = _route(x, p, top_k, plan)
     rows = _rows_over_dp(flat.shape[0], E, top_k, group_size, cap_factor,
                          dispatch)
     if rows is not None:
@@ -326,4 +355,4 @@ def apply_moe(x, p, *, top_k: int, group_size: int = 512,
                              eb)
     if rows is not None:
         y = y[own]
-    return _leave(y, plan).reshape(B, S, d), aux
+    return _leave(y.reshape(B, -1, d), plan), aux

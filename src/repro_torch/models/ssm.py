@@ -58,6 +58,29 @@ do not divide (tiny xlstm's 2 sLSTM heads at ``model=4``) the layer
 runs whole on gathered leaves (``_gathered``).  No xLSTM leaf's
 gradient is a per-rank part.
 
+Under sequence parallelism (the hook's ``seq``: the residual holds this
+rank's ``S/M`` rows between every pair of layers) each mixer enters and
+leaves through ``_enter``/``_leave`` (``layers.enter_split``/
+``leave_split``): its input is gathered by ``all_gather_seq`` where it
+takes ``copy_to_model`` above (the mamba layer's ``_project``, the
+mLSTM's ``_mlstm_qkvif``, the sLSTM's input), and its output leaves to
+the rank's rows through ``reduce_scatter_seq`` where it takes
+``reduce_from_model`` (``out_proj`` after ``_gate_out``, ``down_proj``
+after ``_mlstm_out``, the sLSTM's ``down``), or through a plain cut
+where it is whole on every rank (``d_ff`` that does not split, heads
+that do not split: the layer then runs whole on the gathered sequence,
+its leaves gathered by ``all_gather_seq`` so that their gradients, its
+rows' parts, are summed).  The causal conv, K2 and its backward (on
+``[B, H/M, L, P]``), the mLSTM's chunks and the sLSTM's time loop run
+on the whole gathered sequence; the gated norms' ``sum_over_model`` is
+unchanged.  The sLSTM joins its heads' ``h`` with ``all_gather_seq``
+in place of ``gather_from_model`` and ``copy_to_model`` (the backward
+then sums the ranks' parts of the whole sequence).  The reference
+constrains the residual at each zamba group's entry and exit
+(``repro/models/model.py:125,129``) and nowhere in the xlstm backbone
+(``:104-115``); the port splits it between every pair of layers, whose
+ring bytes equal the all-reduces they replace.
+
 mLSTM and sLSTM are plain tensor code throughout, as in the JAX package
 (which has no kernel for them): the reference's ``compat.layer_scan`` over
 chunks (mLSTM) and over time steps (sLSTM) becomes a Python loop.  The
@@ -160,16 +183,37 @@ def _split_of(cfg):
 def _gathered(p, specs: dict, ax) -> dict:
     """``p`` with every leaf that the model axis splits (by its spec in
     ``specs``) gathered whole (``gather_from_model``): every rank then
-    computes the whole layer alike, where its heads do not split."""
+    computes the whole layer alike, where its heads do not split.  Under
+    sequence parallelism the layer's output is cut to the rank's rows, so
+    each rank's gradient of the whole leaf is its rows' part: the leaves
+    are gathered by ``all_gather_seq``, whose backward sums the parts."""
+    gather = collectives.all_gather_seq if ax.seq \
+        else collectives.gather_from_model
     out = dict(p)
     for name, s in specs.items():
         for i, part in enumerate(spec_for(ax.mesh, ax.rules, s.shape,
                                           s.dims)):
             if part is not None and "model" in (
                     (part,) if isinstance(part, str) else part):
-                out[name] = collectives.gather_from_model(p[name],
-                                                          ax.mesh, i)
+                out[name] = gather(p[name], ax.mesh, i)
     return out
+
+
+def _enter(x, ax, hs):
+    """A mixer's input ``[B, L, D]`` on the model axis ``ax`` (None: one
+    process): every rank's rows, gathered, under sequence parallelism
+    (``all_gather_seq``); else through ``copy_to_model`` on a rank's
+    heads ``hs``, as it is where the layer runs whole."""
+    return x if ax is None else layers.enter_split(x, ax, hs is not None)
+
+
+def _leave(y, ax, hs):
+    """A mixer's output ``[B, L, D]``: on a rank's heads ``hs`` its part,
+    summed over the model group (``reduce_from_model``; to the rank's
+    rows under sequence parallelism, ``reduce_scatter_seq``); where the
+    layer runs whole, ``y`` (cut to the rank's rows under sequence
+    parallelism)."""
+    return y if ax is None else layers.leave_split(y, ax, hs is not None)
 
 
 def _whole(p, cfg, ax) -> dict:
@@ -183,13 +227,11 @@ def _whole(p, cfg, ax) -> dict:
 
 def _project(x, p, cfg, hs):
     """Project: (z of this rank's heads, the conv's input channels (all of
-    them), dt of its heads).  With heads ``hs`` the input enters through
-    ``copy_to_model`` and a split ``in_proj``'s columns are joined by
+    them), dt of its heads).  With heads ``hs`` the input has entered
+    through ``_enter`` and a split ``in_proj``'s columns are joined by
     ``all_gather_seq`` (its backward sums each rank's part of them)."""
     d_in, H, P, N, G = _dims(cfg)
     gn = G * N
-    if hs is not None:
-        x = collectives.copy_to_model(x, hs.ax.mesh)
     zxbcdt = x @ p["in_proj"].to(x.dtype)
     if hs is not None and hs.proj:
         zxbcdt = collectives.all_gather_seq(zxbcdt, hs.ax.mesh, dim=-1)
@@ -244,8 +286,8 @@ def _gate_out(y, xs, z, p, cfg, hs):
     """``+ xs D``, the gated rms_norm and the output projection.  On a
     rank's heads the norm's sum of squares over all of ``d_in`` is summed
     over the model group (``sum_over_model``) and the projection's rows
-    are this rank's, its output summed over the group
-    (``reduce_from_model``)."""
+    are this rank's: its output is the rank's part, which leaves through
+    ``_leave``."""
     dt_f = y.dtype
     y = y + xs * p["D"].to(dt_f)[:, None]
     y = y.reshape(*y.shape[:-2], y.shape[-2] * y.shape[-1])
@@ -255,8 +297,7 @@ def _gate_out(y, xs, z, p, cfg, hs):
     ss = collectives.sum_over_model(
         g.float().square().sum(dim=-1, keepdim=True), hs.ax.mesh)
     scale = torch.rsqrt(ss / _dims(cfg)[0] + 1e-6).to(dt_f)
-    out = (g * scale * p["norm_w"].to(dt_f)) @ p["out_proj"].to(dt_f)
-    return collectives.reduce_from_model(out, hs.ax.mesh)
+    return (g * scale * p["norm_w"].to(dt_f)) @ p["out_proj"].to(dt_f)
 
 
 def mamba2_chunked(x, p, cfg, *, chunk: int = 256, return_state: bool = False):
@@ -264,12 +305,13 @@ def mamba2_chunked(x, p, cfg, *, chunk: int = 256, return_state: bool = False):
     ``{"ssm": [B, H, P, N] float32, "conv": [B, K-1, conv channels]}``;
     on a model axis this rank's heads of ``ssm`` and its block of the
     conv channels)."""
-    B, L, D = x.shape
     _, H, P, N, G = _dims(cfg)
     dt_f = x.dtype
     ax, hs = _split_of(cfg)
     if ax is not None and hs is None:
         p = _whole(p, cfg, ax)
+    x = _enter(x, ax, hs)
+    B, L, D = x.shape
     hb = slice(0, H) if hs is None else hs.hb
     Hl = hb.stop - hb.start
 
@@ -294,7 +336,7 @@ def mamba2_chunked(x, p, cfg, *, chunk: int = 256, return_state: bool = False):
         xdt.transpose(1, 2).contiguous(), a.transpose(1, 2).contiguous(),
         Bm.transpose(1, 2).contiguous(), Cm.transpose(1, 2).contiguous(),
         chunk=chunk)
-    out = _gate_out(y.transpose(1, 2), xs, z, p, cfg, hs)
+    out = _leave(_gate_out(y.transpose(1, 2), xs, z, p, cfg, hs), ax, hs)
     if return_state:
         K = p["conv_w"].shape[0]
         # the pre-conv inputs of the last K-1 positions (this rank's block
@@ -351,6 +393,7 @@ def mamba2_step(x, state, p, cfg):
     ax, hs = _split_of(cfg)
     if ax is not None and hs is None:
         p = _whole(p, cfg, ax)
+    x = _enter(x, ax, hs)
     hb = slice(0, H) if hs is None else hs.hb
     Hl = hb.stop - hb.start
 
@@ -369,7 +412,7 @@ def mamba2_step(x, state, p, cfg):
     S = state["ssm"] * decay[..., None, None] + torch.einsum(
         "bhp,bhe,bh->bhpe", xs.float(), Bm.float(), dt)
     y = torch.einsum("bhpe,bhe->bhp", S, Cm.float()).to(x.dtype)
-    out = _gate_out(y[:, None], xs[:, None], z, p, cfg, hs)
+    out = _leave(_gate_out(y[:, None], xs[:, None], z, p, cfg, hs), ax, hs)
     return out, {"ssm": S, "conv": conv_cache}
 
 
@@ -476,15 +519,16 @@ def _mlstm_dims(cfg) -> tuple:
 
 
 def _mlstm_split(p, cfg):
-    """(this rank's ``_XHeads`` or None, the parameters it computes
-    with: the split leaves gathered where the heads do not split)."""
+    """(the installed model axis, this rank's ``_XHeads`` or None, the
+    parameters it computes with: the split leaves gathered where the
+    heads do not split)."""
     d_in, H, _ = _mlstm_dims(cfg)
     ax, hs = _xsplit(H, d_in)
     if ax is not None and hs is None:
         p = _gathered(p, mlstm_specs(cfg.d_model, n_heads=H,
                                      expand=cfg.expand,
                                      d_conv=cfg.ssm_d_conv), ax)
-    return hs, p
+    return ax, hs, p
 
 
 def _mlstm_qkvif(x, p, cfg, conv_cache=None, hs=None):
@@ -494,7 +538,7 @@ def _mlstm_qkvif(x, p, cfg, conv_cache=None, hs=None):
     new conv cache (None without ``conv_cache``).
 
     On a rank's heads ``hs`` (``H/M`` heads, ``d_in/M`` channels) the
-    input enters through ``copy_to_model``, ``up_proj``'s fused ``xi |
+    input has entered through ``_enter``, ``up_proj``'s fused ``xi |
     z`` columns are joined (``_fused_cols``) and the conv runs on the
     rank's own channels with its own weights.  ``wq``, ``wk``, ``wv`` and
     ``w_gates`` hold the rank's rows, so each product is its part of the
@@ -507,7 +551,6 @@ def _mlstm_qkvif(x, p, cfg, conv_cache=None, hs=None):
         up = x @ p["up_proj"].to(dt)
         xi, z = up[..., :d_in], up[..., d_in:]
     else:
-        x = collectives.copy_to_model(x, hs.ax.mesh)
         xi, z = _fused_cols(x, p["up_proj"], 2, hs.ax)
     xc, new_cache = causal_conv1d(xi, p["conv_w"], p["conv_b"],
                                   cache=conv_cache)
@@ -539,8 +582,8 @@ def _mlstm_qkvif(x, p, cfg, conv_cache=None, hs=None):
 def _mlstm_out(h, xi, z, p, hs=None):
     """The skip connection, the gate, rms_norm and the down projection;
     on a rank's heads ``hs`` the norm's sum of squares over all of
-    ``d_in`` is summed over the group and ``down_proj``'s rows leave
-    through ``reduce_from_model``."""
+    ``d_in`` is summed over the group and ``down_proj``'s rows give the
+    rank's part of the output, which leaves through ``_leave``."""
     dt_f = h.dtype
     h = h + xi * p["skip"].to(dt_f)
     h = h * F.silu(z)
@@ -548,8 +591,7 @@ def _mlstm_out(h, xi, z, p, hs=None):
         return layers.rms_norm(h, p["norm_w"]) @ p["down_proj"].to(dt_f)
     h = _split_rms_norm(h, p["norm_w"], p["down_proj"].shape[0] * hs.ax.size,
                         hs.ax)
-    return collectives.reduce_from_model(h @ p["down_proj"].to(dt_f),
-                                         hs.ax.mesh)
+    return h @ p["down_proj"].to(dt_f)
 
 
 def mlstm_chunked(x, p, cfg, *, chunk: int = 256, return_state: bool = False):
@@ -563,12 +605,13 @@ def mlstm_chunked(x, p, cfg, *, chunk: int = 256, return_state: bool = False):
         ValueError: ``L`` is not a multiple of ``min(chunk, L)`` (the
             reference asserts it).
     """
-    B, L, D = x.shape
     _, H, P = _mlstm_dims(cfg)
     dt_f = x.dtype
-    hs, p = _mlstm_split(p, cfg)
+    ax, hs, p = _mlstm_split(p, cfg)
     if hs is not None:
         H = hs.hb.stop - hs.hb.start
+    x = _enter(x, ax, hs)
+    B, L, D = x.shape
     q, k, v, i_pre, f_pre, xi, z, _ = _mlstm_qkvif(x, p, cfg, hs=hs)
 
     chunk = min(chunk, L)
@@ -618,7 +661,7 @@ def mlstm_chunked(x, p, cfg, *, chunk: int = 256, return_state: bool = False):
         outs.append(((h_inter + h_intra) / denom[..., None]).to(dt_f))
         C, n, m = C_new, n_new, m_new
     h = torch.cat(outs, dim=1).reshape(B, L, H * P)
-    out = _mlstm_out(h, xi, z, p, hs)
+    out = _leave(_mlstm_out(h, xi, z, p, hs), ax, hs)
     if return_state:
         K = p["conv_w"].shape[0]
         # the pre-conv inputs of the last K-1 positions (this rank's
@@ -650,7 +693,8 @@ def mlstm_step(x, state, p, cfg):
     heads and channels, as ``mlstm_chunked`` returns them."""
     B = x.shape[0]
     dt_f = x.dtype
-    hs, p = _mlstm_split(p, cfg)
+    ax, hs, p = _mlstm_split(p, cfg)
+    x = _enter(x, ax, hs)
     q, k, v, i_pre, f_pre, xi, z, conv_cache = _mlstm_qkvif(
         x, p, cfg, conv_cache=state["conv"], hs=hs)
     q, k, v = (t[:, 0].float() for t in (q, k, v))               # [B,H,P]
@@ -666,7 +710,7 @@ def mlstm_step(x, state, p, cfg):
     den = torch.maximum(torch.einsum("bhp,bhp->bh", q, n).abs(),
                         torch.exp(-m_new))
     h = (num / den[..., None]).reshape(B, 1, -1).to(dt_f)
-    y = _mlstm_out(h, xi, z, p, hs)
+    y = _leave(_mlstm_out(h, xi, z, p, hs), ax, hs)
     return y, {"C": C, "n": n, "m": m_new, "conv": conv_cache}
 
 
@@ -716,7 +760,7 @@ def _slstm_split(p, cfg):
     ax, hs = _xsplit(H, 4 * D)
     if ax is not None and hs is None:
         p = _gathered(p, slstm_specs(D, n_heads=H), ax)
-    return hs, p
+    return ax, hs, p
 
 
 def _slstm_out(h, p, D: int, hs=None):
@@ -726,23 +770,31 @@ def _slstm_out(h, p, D: int, hs=None):
     projections through ``copy_to_model``; ``up``'s fused ``gelu | up``
     columns are joined (``_fused_cols``) and ``down``'s rows leave
     through ``reduce_from_model``.  Where ``d_ff`` does not split, every
-    rank computes the projections whole on gathered leaves."""
+    rank computes the projections whole on gathered leaves.  Under
+    sequence parallelism the heads are joined by ``all_gather_seq``
+    (whose backward sums the ranks' parts, so no ``copy_to_model``
+    follows) and the output leaves to the rank's rows: reduce-scattered
+    where ``d_ff`` splits, cut where it does not (``layers.leave_split``),
+    so that ``norm_w``'s gradient is the rank's part, as every unsplit
+    leaf's is under sequence parallelism."""
     dt_f = h.dtype
-    if hs is not None:
-        h = collectives.gather_from_model(h, hs.ax.mesh, -1)
-    h = layers.rms_norm(h, p["norm_w"])
     ax = None if hs is None else hs.ax
+    if ax is not None:
+        h = collectives.all_gather_seq(h, ax.mesh, dim=-1) if ax.seq \
+            else collectives.gather_from_model(h, ax.mesh, -1)
+    h = layers.rms_norm(h, p["norm_w"])
     if ax is not None and ax.split("d_ff", 2 * D) and ax.split("d_ff", D):
-        h = collectives.copy_to_model(h, ax.mesh)
+        if not ax.seq:
+            h = collectives.copy_to_model(h, ax.mesh)
         g, u = _fused_cols(h, p["up"], 2, ax)
-        return collectives.reduce_from_model(
-            (layers.gelu(g) * u) @ p["down"].to(dt_f), ax.mesh)
+        return layers.leave_split((layers.gelu(g) * u) @ p["down"].to(dt_f),
+                                  ax, True)
     if ax is not None:          # (the heads do not shape up or down)
         p = _gathered(p, {k: v for k, v in slstm_specs(D, n_heads=1).items()
                           if k in ("up", "down")}, ax)
     u = h @ p["up"].to(dt_f)
     u = layers.gelu(u[..., :D]) * u[..., D:]
-    return u @ p["down"].to(dt_f)
+    return layers.leave_split(u @ p["down"].to(dt_f), ax, False)
 
 
 def slstm_apply(x, p, cfg, *, return_state: bool = False):
@@ -754,14 +806,14 @@ def slstm_apply(x, p, cfg, *, return_state: bool = False):
     columns and ``r`` are this rank's heads', and the recurrence runs on
     them with no collective inside the loop (the state is this rank's
     heads')."""
-    B, L, D = x.shape
     H = cfg.n_heads
-    P = D // H
     dt_f = x.dtype
-    hs, p = _slstm_split(p, cfg)
+    ax, hs, p = _slstm_split(p, cfg)
     if hs is not None:
         H = hs.hb.stop - hs.hb.start
-        x = collectives.copy_to_model(x, hs.ax.mesh)
+    x = _enter(x, ax, hs)
+    B, L, D = x.shape
+    P = D // cfg.n_heads
     pre = x @ p["w_in"].to(dt_f) + p["b"].to(dt_f)
     r = p["r"].float()
     h = torch.zeros((B, H, P), dtype=torch.float32, device=x.device)
@@ -775,6 +827,8 @@ def slstm_apply(x, p, cfg, *, return_state: bool = False):
         outs.append(h.to(dt_f))
     out = _slstm_out(torch.stack(outs, dim=1).reshape(B, L, H * P), p, D,
                      hs)
+    if hs is None:
+        out = _leave(out, ax, hs)
     if return_state:
         c, n, m = st
         return out, {"h": h, "c": c, "n": n, "m": m}
@@ -799,10 +853,10 @@ def slstm_step(x, state, p, cfg):
     H = cfg.n_heads
     P = D // H
     dt_f = x.dtype
-    hs, p = _slstm_split(p, cfg)
+    ax, hs, p = _slstm_split(p, cfg)
     if hs is not None:
         H = hs.hb.stop - hs.hb.start
-        x = collectives.copy_to_model(x, hs.ax.mesh)
+    x = _enter(x, ax, hs)
     pre = (x @ p["w_in"].to(dt_f) + p["b"].to(dt_f))[:, 0]
     h_new, (c, n, m) = _slstm_cell(
         pre, state["h"], (state["c"], state["n"], state["m"]),

@@ -8,6 +8,23 @@ Counterpart: ``repro/optim/compression.py:19-108`` (``ROW``,
 ``onebit`` strategy's exchange over a mesh's dp group: per bucket one K3a
 launch for this rank's payload and one K3b launch for each origin's.
 
+On a model axis > 1 the buckets are the reference's: ``make_plan`` over
+the GLOBAL float32 leaves, as ``repro/core/steps.py:206-263`` packs them
+inside a ``shard_map`` whose dp axes are manual and whose ``model`` axis
+is automatic.  A rank holds its blocks of the split leaves, so for each
+bucket it gathers over its model group the split leaves that the bucket
+holds (float32, ``sharding.gather_leaf``, counted on the ``model`` axis
+of ``collectives.stats()``), packs the global bucket, runs K3a on it
+with its residual, all-gathers the words and scales over its dp group
+and decodes every origin with K3b in origin order; from the mean it cuts
+its own blocks of the bucket's leaves.  One bucket is gathered at a
+time (the largest, an embedding, is 1.56 GB in float32 for qwen3-4b).
+Every model rank of a dp coordinate computes the same bucket and
+residual, bit for bit: the reference's ``ef``, split over dp and
+replicated over ``model`` (``:294-298``); each rank updates its global
+residual in place, where the data axes alone return a new one.  The dp wire per bucket and
+rank stays ``size / 8 + size / 256`` bytes.
+
 PyTorch's uint32 arithmetic is thin, so sign words are int32 tensors
 whose bytes equal the reference's little-endian uint32 words: bit j of
 word w is element ``32 w + j``.  ``pack_bits``/``unpack_bits`` live
@@ -23,6 +40,7 @@ import torch
 import torch.utils._pytree as pytree
 
 from ..core import collectives, fusion
+from ..core.sharding import gather_leaf, is_spec, shard_leaf
 from ..kernels.onebit import (onebit_dequantize, onebit_quantize, pack_bits,
                               unpack_bits)
 
@@ -72,7 +90,8 @@ def init_error_state(plan: fusion.FusionPlan, device="cpu"):
                         device=device) for b in plan.buckets]
 
 
-def exchange_onebit(grads, err_state, mesh, plan, *, on_bucket=None):
+def exchange_onebit(grads, err_state, mesh, plan, *, on_bucket=None,
+                    specs=None, rules=None):
     """The 1-bit exchange with error feedback over a mesh's dp group.
 
     Per bucket of ``plan``: this rank's float32 gradient bucket and its
@@ -90,7 +109,11 @@ def exchange_onebit(grads, err_state, mesh, plan, *, on_bucket=None):
             bucket (rows ``[r R, (r + 1) R)`` of the reference's global
             ``[ndp R, ROW]``).
         mesh: the ``launch.mesh.Mesh``.
-        plan: ``make_plan(f32 specs, ndp)``.
+        plan: ``make_plan(f32 specs, ndp)`` (the global specs).
+        specs, rules: on a model axis > 1, the global ``ParamSpec`` tree
+            and the tiling rules of this rank's blocks: the split leaves
+            a bucket holds are gathered over the model group before it
+            is packed, and this rank's blocks cut from its mean.
         on_bucket: called as ``on_bucket(i, packed, scales, mean, own)``
             with bucket ``i``'s gathered ``[ndp, R, ROW / 32]`` words,
             ``[ndp, R, 1]`` scales, the 1-D mean and ``own``: this rank's
@@ -98,23 +121,49 @@ def exchange_onebit(grads, err_state, mesh, plan, *, on_bucket=None):
             returns (a test and measurement seam).
     Returns:
         ``(mean gradient tree, new residuals)``; the tree's leaves are
-        views into the mean buckets.
+        views into the mean buckets (this rank's blocks of them, copied
+        out, on a model axis).
     """
     leaves = pytree.tree_leaves(grads)
+    split = specs is not None and mesh.model_size > 1
+    sp = pytree.tree_leaves(specs, is_leaf=is_spec) if split else None
     outs, new_err = [], []
+    mine = [None] * len(leaves)
     for i, err in enumerate(err_state):
-        buf = fusion.pack_bucket(leaves, plan, i).float()
+        members = [m for e in plan.buckets[i].entries
+                   for m in plan.members[e.index]]
+        src = leaves
+        if split:                 # the bucket's global leaves, for now
+            src = list(leaves)
+            for m in members:
+                src[m] = gather_leaf(leaves[m].float(), sp[m], mesh, rules)
+        buf = fusion.pack_bucket(src, plan, i).float()
+        del src
         packed, scale, err2 = quantize_bucket(buf, err)
+        if on_bucket is None:
+            buf = None            # past here only the seam reads it
         all_packed = collectives.all_gather(packed, mesh, tiled=False)
         all_scale = collectives.all_gather(scale, mesh, tiled=False)
         ndp = all_packed.shape[0]
         acc = onebit_dequantize(all_packed[0], all_scale[0])
         for o in range(1, ndp):               # fixed origin order
-            acc = acc + onebit_dequantize(all_packed[o], all_scale[o])
+            acc.add_(onebit_dequantize(all_packed[o], all_scale[o]))
         mean = acc.div_(ndp).reshape(-1)
         if on_bucket is not None:
             on_bucket(i, all_packed, all_scale, mean, (buf, err, err2))
         del buf
-        outs.append(mean)
-        new_err.append(err2)
+        if not split:
+            new_err.append(err2)
+            outs.append(mean)
+            continue
+        # a global bucket's residual on every rank: updated in place, as
+        # two of them do not fit four ranks' state on one card
+        new_err.append(err.copy_(err2))
+        del err2
+        got = fusion.unpack_bucket(mean, plan, i)
+        for m in members:         # this rank's blocks, the mean let go
+            mine[m] = shard_leaf(got[m], sp[m], mesh, rules).clone()
+        del mean, got
+    if split:
+        return pytree.tree_unflatten(mine, plan.treespec), new_err
     return fusion.unpack(outs, plan), new_err

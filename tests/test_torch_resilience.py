@@ -239,8 +239,9 @@ def test_bridge_carries_the_references_zero1_state_into_rank_shards():
 
 
 @pytest.mark.parametrize("kw, exc, match", [
-    # the model axis runs, but not with the onebit strategy
-    (dict(model=2, strategy="onebit"), NotImplementedError, "14b"),
+    # the model axis runs every strategy, but not beside fabric DDP
+    (dict(model=2, strategy="onebit", ddp=True), NotImplementedError,
+     "14b"),
     (dict(mesh="single"), NotImplementedError, "item 15"),
     (dict(mesh="multipod"), NotImplementedError, "item 15"),
     (dict(data=2, spmd=True, localities=2), NotImplementedError, "14b"),

@@ -313,12 +313,14 @@ def test_plan_defaults_to_cuda_and_raises_without_it(monkeypatch):
 
 @pytest.mark.parametrize("field, item", [
     # localities run, with elastic membership and SPMD mode, and the mesh
-    # axes run, but not onebit on a model axis, a mesh with localities or
-    # SPMD mode, the production meshes or named shapes
+    # axes run, onebit on a model axis too, but not fabric DDP beside a
+    # model axis, a mesh with localities or SPMD mode, the production
+    # meshes or named shapes
     (dict(pod=2, localities=2), "item 14b"),
     (dict(mesh="multipod"), "item 15"),
     (dict(data=2, spmd=True, localities=2), "item 14b"),
-    (dict(model=2, arch="xlstm-350m", strategy="onebit"), "item 14b"),
+    (dict(model=2, arch="xlstm-350m", strategy="onebit", ddp=True),
+     "item 14b"),
     (dict(mesh="single"), "item 15"), (dict(shape="train_4k"), "item 15")])
 def test_plans_beyond_one_device_name_their_roadmap_item(field, item):
     with pytest.raises(NotImplementedError, match=item):

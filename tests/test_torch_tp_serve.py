@@ -217,31 +217,31 @@ def test_replay_verdicts_are_agreed_over_the_model_group():
 
 
 @pytest.mark.parametrize("kw, match", [
-    # every family runs on a model axis; not with onebit, nor with
-    # sequence parallelism beyond the dense family
-    (dict(arch="granite-moe-1b-a400m", model=2, strategy="onebit"),
-     "onebit at a model axis"),
-    (dict(arch="zamba2-2.7b", model=2,
+    # every family, onebit and sequence parallelism run on a model axis;
+    # not beside fabric DDP, SPMD mode, fabric localities or elastic
+    # membership (item 14b, part 6)
+    (dict(arch="granite-moe-1b-a400m", model=2, strategy="onebit",
+          ddp=True), "fabric DDP with a model axis"),
+    (dict(arch="zamba2-2.7b", model=2, spmd=True, localities=2,
+          strategy=steps.Strategy(sequence_parallel=True)), "SPMD mode"),
+    (dict(arch="xlstm-350m", model=2, localities=2,
           strategy=steps.Strategy(sequence_parallel=True)),
-     "sequence parallelism for the zamba family"),
-    (dict(arch="xlstm-350m", model=2,
+     "fabric localities"),
+    (dict(arch="whisper-medium", model=2, elastic=True,
           strategy=steps.Strategy(sequence_parallel=True)),
-     "sequence parallelism for the xlstm family"),
-    (dict(arch="whisper-medium", model=2,
+     "elastic membership"),
+    (dict(model=2, strategy="onebit", ddp=True),
+     "fabric DDP with a model axis"),
+    (dict(arch="granite-moe-1b-a400m", model=2, ddp=True,
           strategy=steps.Strategy(sequence_parallel=True)),
-     "sequence parallelism for the encdec family"),
-    (dict(model=2, strategy="onebit"), "onebit at a model axis"),
-    # sequence parallelism runs on the dense family only
-    (dict(arch="granite-moe-1b-a400m", model=2,
-          strategy=steps.Strategy(sequence_parallel=True)),
-     "sequence parallelism for the moe family"),
+     "fabric DDP with a model axis"),
     (dict(model=2, spmd=True, localities=2), "SPMD mode"),
     (dict(model=2, localities=2), "fabric localities"),
     (dict(model=2, elastic=True), "elastic membership"),
     (dict(model=2, ddp=True), "fabric DDP with a model axis"),
     # a replicated serve_stream plan is refused as Session.serve's is
-    (dict(arch="xlstm-350m", model=2, replicas=2, strategy="onebit"),
-     "onebit at a model axis"),
+    (dict(arch="xlstm-350m", model=2, replicas=2, strategy="onebit",
+          localities=2), "fabric localities"),
 ], ids=["moe", "zamba", "xlstm", "encdec", "onebit", "seq-parallel",
         "spmd", "localities", "elastic", "ddp", "serve-stream-xlstm"])
 def test_model_axis_refusals_name_item_14b(kw, match):
@@ -250,21 +250,25 @@ def test_model_axis_refusals_name_item_14b(kw, match):
 
 
 def test_step_builders_refuse_what_the_plan_refuses():
+    """onebit and sequence parallelism build on a model axis for every
+    family; fabric DDP's step refuses a dp axis > 1 and a stage axis
+    beside a model axis raises (item 14b, part 7) before any world."""
     mesh = Mesh(shape={"data": 1, "model": 2},
                 coords={"data": 0, "model": 0})
-    with pytest.raises(NotImplementedError, match="onebit.*item 14b"):
-        steps.make_train_step(get_config("qwen3-4b", tiny=True),
-                              steps.Strategy(name="onebit"), mesh=mesh)
-    with pytest.raises(NotImplementedError,
-                       match="sequence parallelism for the xlstm.*item 14b"):
-        steps.make_train_step(get_config("xlstm-350m", tiny=True),
-                              steps.Strategy(sequence_parallel=True),
-                              mesh=mesh)
-    with pytest.raises(NotImplementedError,
-                       match="sequence parallelism for the moe.*item 14b"):
-        steps.make_train_step(get_config("granite-moe-1b-a400m", tiny=True),
-                              steps.Strategy(sequence_parallel=True),
-                              mesh=mesh)
+    for arch, strategy in (
+            ("qwen3-4b", steps.Strategy(name="onebit")),
+            ("xlstm-350m", steps.Strategy(sequence_parallel=True)),
+            ("granite-moe-1b-a400m",
+             steps.Strategy(sequence_parallel=True))):
+        step = steps.make_train_step(get_config(arch, tiny=True), strategy,
+                                     mesh=mesh)
+        assert step.split_mask is not None
+    with pytest.raises(ValueError, match="replaces the in-process dp axes"):
+        steps.make_ddp_step(get_config("qwen3-4b", tiny=True),
+                            steps.Strategy(name="onebit"),
+                            mesh=Mesh(shape={"data": 2, "model": 2}))
+    with pytest.raises(NotImplementedError, match="stage.*item 14b, part 7"):
+        make_mesh((2, 2), ("stage", "model"))
     # sequence parallelism builds and runs (at model=1: the plain path)
     cfg = get_config("qwen3-4b", tiny=True)
     sp, plain = (steps.make_train_step(cfg, steps.Strategy(

@@ -320,8 +320,8 @@ def test_launch_train_run_on_the_cpu(tmp_path, arch):
 
 
 @pytest.mark.parametrize("argv, match", [
-    # sequence parallelism trains the dense family only, as the model axis
-    (["--model", "2", "--seq-parallel", "--arch", "zamba2-2.7b"],
+    # sequence parallelism trains every family; not beside fabric DDP
+    (["--model", "2", "--seq-parallel", "--arch", "zamba2-2.7b", "--ddp"],
      "item 14b"),
     (["--data", "2", "--spmd", "--localities", "2"], "item 14b"),
 ])
@@ -333,10 +333,11 @@ def test_launch_train_raises_for_what_the_port_does_not_run(argv, match):
 
 
 def test_not_implemented_surface():
-    # xlstm runs on a model axis; onebit there does not
-    with pytest.raises(NotImplementedError, match="onebit.*item 14b"):
-        Plan(device="cpu", model=2, arch="xlstm-350m",
-             strategy="onebit").compile()
+    # xlstm and onebit run on a model axis; fabric DDP there does not
+    with pytest.raises(NotImplementedError,
+                       match="fabric DDP.*item 14b"):
+        Plan(device="cpu", model=2, arch="xlstm-350m", strategy="onebit",
+             ddp=True).compile()
     with Plan(device="cpu").compile() as session:
         with pytest.raises(ValueError, match="resilience"):
             session.train(steps=1, resilience="retry", verbose=False)

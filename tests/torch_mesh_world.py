@@ -383,11 +383,14 @@ def _sp_grads(mesh, cfg, params_np, batch_np, sp: bool = True) -> dict:
         loss.backward()
     # a leaf the loss never reads (whisper's cross bk, bv) gets zeros, as
     # jax.grad gives
+    ax = ModelAxis(mesh, step.rules, seq_len=seq)
     grads = steps._sum_partials(
         pytree.tree_map(lambda p: torch.zeros_like(p) if p.grad is None
                         else p.grad, params),
-        step.model.partial_mask(step.specs, ModelAxis(mesh, step.rules,
-                                                      seq_len=seq)), mesh)
+        step.model.partial_mask(step.specs, ax) if "frames" not in batch
+        else step.model.partial_mask(step.specs, ax,
+                                     enc_len=batch["frames"].shape[1]),
+        mesh)
     grads = pytree.tree_map(lambda g: collectives.pmean(g, mesh), grads)
     whole = gather_tree(grads, step.specs, mesh, step.rules)
     return {"loss": float(collectives.pmean(loss.detach(), mesh)),
@@ -693,6 +696,209 @@ def job_model_axis_xlstm_encdec(rank: int, n: int, payload: dict) -> dict:
     return out
 
 
+def job_seq_parallel_families(rank: int, n: int, payload: dict) -> dict:
+    """The checks of ``tests/test_torch_seq_parallel_families.py`` on a
+    world of 4: for each ``grad_cases`` key ``cfg@mesh[ plain]`` the loss
+    and gathered gradients with sequence parallelism (without it for
+    ``plain``) at ``payload["grad_params"][cfg]`` of
+    ``payload["batch"][cfg]`` (``payload["odd"][cfg]`` for
+    an ``@...odd`` key: a sequence the model axis does not divide; rank
+    0 returns them, every rank their digests), and the strategies'
+    trajectories with it; meshes ``2x2``, ``1x4`` and ``1x2`` (the
+    world's ranks 0 and 1)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_local_mesh, make_mesh
+    meshes = {"2x2": make_local_mesh(data=2, model=2),
+              "1x4": make_local_mesh(model=4),
+              "1x2": make_mesh((1, 2), ("data", "model"), devices=[0, 1])}
+    out: dict = {"grads": {}, "cases": {}}
+    for key in payload["grad_cases"]:
+        c, m = key.split(" ")[0].split("@")
+        odd = m.endswith("odd")
+        mesh = meshes[m[:-len("odd")] if odd else m]
+        if mesh is None:
+            continue
+        got = _sp_grads(mesh, _family_cfg(*payload["cfgs"][c]),
+                        payload["grad_params"][c],
+                        payload["odd" if odd else "batch"][c],
+                        sp=not key.endswith(" plain"))
+        leaves = [torch.from_numpy(np.ascontiguousarray(a)) for a in
+                  _np_leaves(got["grads"])]
+        got["digests"] = [_digest(t) for t in leaves]
+        if rank:
+            del got["grads"]
+        out["grads"][key] = got
+    for case in payload["cases"]:
+        c, m = case["cfg"], case["mesh"]
+        if meshes[m] is None:
+            continue
+        out["cases"][case["key"]] = _tp_trajectory(
+            meshes[m], _family_cfg(*payload["cfgs"][c]),
+            dict(case, params=payload["params"][c], sp=True))
+    dist.barrier()
+    return out
+
+
+def _cnn_grads(mesh, params_np, batch_np) -> dict:
+    """The HAR CNN's loss and every gradient (gathered) on ``mesh``:
+    this rank's blocks of the channels, its dp rows of the batch, the
+    loss and gradients averaged over the dp group; the digests of this
+    rank's head gradients."""
+    import torch
+    import torch.utils._pytree as pytree
+
+    from repro_torch import bridge
+    from repro_torch.core import collectives, steps
+    from repro_torch.core.sharding import act_hook, default_rules, \
+        gather_tree, shard_tree
+    from repro_torch.models.cnn import har_cnn_loss, har_cnn_specs
+    specs, rules = har_cnn_specs(), default_rules()
+    glob = pytree.tree_map(lambda a: torch.from_numpy(np.asarray(a)),
+                           params_np)
+    params = shard_tree(glob, specs, mesh, rules)
+    for p in pytree.tree_leaves(params):
+        p.requires_grad_(True)
+    batch = steps.batch_rows({"x": torch.from_numpy(batch_np["x"]),
+                              "y": torch.from_numpy(batch_np["y"])}, mesh)
+    collectives.reset_stats()
+    with act_hook(mesh, rules):
+        loss = har_cnn_loss(params, batch)
+        loss.backward()
+    wire = collectives.stats()["axes"]["model"]
+    grads = pytree.tree_map(lambda p: collectives.pmean(p.grad, mesh),
+                            params)
+    whole = gather_tree(grads, specs, mesh, rules)
+    return {"loss": float(collectives.pmean(loss.detach(), mesh)),
+            "grads": bridge.tree_to_numpy(whole),
+            "head": [_digest(grads["head"][k]) for k in ("w", "b")],
+            "conv1_rows": int(params["conv1"]["b"].shape[0]),
+            "model_calls": wire["calls"]}
+
+
+def _onebit_exchange(mesh, cfg, grads_np: list) -> dict:
+    """One ``exchange_onebit`` on ``mesh`` of dp rank ``r``'s global
+    gradient tree ``grads_np[r]`` (the reference's layout), this rank's
+    blocks of it: every bucket's gathered words and scales, the mean and
+    the new residual (rank 0 keeps them; every rank their digests), and
+    this rank's blocks of the mean, gathered back."""
+    import torch
+
+    from repro_torch import bridge
+    from repro_torch.core import collectives, steps
+    from repro_torch.core.sharding import gather_tree
+    from repro_torch.optim import compression
+    step = steps.make_train_step(cfg, steps.Strategy(name="onebit"),
+                                 mesh=mesh)
+    grads = bridge.params_from_numpy(grads_np[mesh.rank], cfg, "cpu",
+                                     mesh=mesh)
+    got = {}
+
+    def keep(i, packed, scales, mean, own):
+        got[i] = [packed.numpy().copy(), scales.numpy().copy(),
+                  mean.numpy().copy(), own[2].numpy().copy()]
+    collectives.reset_stats()
+    mean, _ = compression.exchange_onebit(
+        grads, compression.init_error_state(step.plan), mesh, step.plan,
+        on_bucket=keep, specs=step.specs, rules=step.rules)
+    wire = collectives.stats()["axes"]
+    whole = gather_tree(mean, step.specs, mesh, step.rules)
+    return {"buckets": got if mesh.rank == 0 and mesh.model_rank == 0
+            else None,
+            "digests": {i: [_digest(torch.from_numpy(a)) for a in v]
+                        for i, v in got.items()},
+            "mean": bridge.tree_to_numpy(whole),
+            "wire": {a: dict(wire[a]) for a in ("dp", "model")},
+            "sizes": [b.size for b in step.plan.buckets],
+            "totals": [b.total for b in step.plan.buckets]}
+
+
+def _onebit_run(mesh, cfg, case: dict) -> dict:
+    """``case["steps"]`` onebit (or ``case["name"]``) steps from the
+    reference's init: losses, norms, the residuals' and the unsplit
+    leaves' digests after every step; with ``case["resume_at"]`` the
+    state after that step gathered to the global layout, cut again by a
+    new step and trained on, and that run's losses and leaf digests."""
+    import torch
+    import torch.utils._pytree as pytree
+
+    from repro_torch import bridge
+    from repro_torch.core import steps
+    from repro_torch.data.pipeline import stream_for, to_device
+    from repro_torch.optim.optimizers import OptConfig
+
+    def build():
+        return steps.make_train_step(
+            cfg, steps.Strategy(name=case["name"], opt=OptConfig(
+                kind=case["opt"], lr=case["lr"])),
+            mesh=mesh, shape={"global_batch": case["batch"],
+                              "seq_len": case["seq"]})
+    step = build()
+    _, opt = step.init(torch.Generator().manual_seed(0), "cpu")
+    params = bridge.params_from_numpy(case["params"], cfg, "cpu", mesh=mesh)
+    for p in pytree.tree_leaves(params):
+        p.requires_grad_(True)
+    stream = stream_for(cfg, batch=case["batch"], seq=case["seq"], seed=0)
+    out = {"loss": [], "grad_norm": [], "ef": [], "replicated": [],
+           "params": []}
+    saved = None
+    for it in range(case["steps"]):
+        m, params, opt = step.fn(params, opt,
+                                 to_device(stream.batch_at(it), "cpu"))
+        out["loss"].append(float(m["loss"]))
+        out["grad_norm"].append(float(m["grad_norm"]))
+        out["ef"].append([_digest(e) for e in opt.get("ef", [])])
+        out["replicated"].append(_replicated_digests(step, params))
+        out["params"].append([_digest(p) for p in
+                              pytree.tree_leaves(params)])
+        if it + 1 == case.get("resume_at"):
+            # copies: the steps after it update the state in place
+            saved = pytree.tree_map(lambda t: t.clone(), (
+                step.gather_params(params), step.gather_opt(opt)))
+    if saved is None:
+        return out
+    fresh = build()
+    params = fresh.shard_params(saved[0], "cpu")
+    opt = fresh.shard_opt(saved[1], "cpu")
+    out["resumed"] = {"loss": [], "params": []}
+    for it in range(case["resume_at"], case["steps"]):
+        m, params, opt = fresh.fn(params, opt,
+                                  to_device(stream.batch_at(it), "cpu"))
+        out["resumed"]["loss"].append(float(m["loss"]))
+        out["resumed"]["params"].append([_digest(p) for p in
+                                         pytree.tree_leaves(params)])
+    return out
+
+
+def job_cnn_onebit(rank: int, n: int, payload: dict) -> dict:
+    """The checks of ``tests/test_torch_model_axis_cnn_onebit.py`` on a
+    world of 4: the HAR CNN's loss and gradients at ``1x2``, ``1x4`` and
+    ``2x2``; onebit's exchange of ``payload["onebit_grads"]`` at ``2x2``;
+    the onebit runs of ``payload["runs"]`` (each on its ``mesh``)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_local_mesh, make_mesh
+    meshes = {"2x2": make_local_mesh(data=2, model=2),
+              "1x4": make_local_mesh(model=4),
+              "1x2": make_mesh((1, 2), ("data", "model"), devices=[0, 1])}
+    out: dict = {"cnn": {}, "runs": {}}
+    for m in ("1x2", "1x4", "2x2"):
+        if meshes[m] is not None:
+            out["cnn"][m] = _cnn_grads(meshes[m], payload["cnn_params"],
+                                       payload["cnn_batch"])
+    cfg = _family_cfg(payload["arch"], {})
+    out["exchange"] = _onebit_exchange(meshes["2x2"], cfg,
+                                       payload["onebit_grads"])
+    for case in payload["runs"]:
+        mesh = meshes[case["mesh"]]
+        if mesh is not None:
+            out["runs"][case["key"]] = _onebit_run(
+                mesh, cfg, dict(case, params=payload["params"]))
+    dist.barrier()
+    return out
+
+
 def _np_leaves(tree) -> list:
     """The arrays of a nested dict in sorted key order (``jax.tree``'s)."""
     if isinstance(tree, dict):
@@ -704,7 +910,9 @@ JOBS = {"trajectories": job_trajectories, "collectives": job_collectives,
         "tensor_parallel": job_tensor_parallel,
         "seq_parallel": job_seq_parallel, "pipeline": job_pipeline,
         "model_axis_families": job_model_axis_families,
-        "model_axis_xlstm_encdec": job_model_axis_xlstm_encdec}
+        "model_axis_xlstm_encdec": job_model_axis_xlstm_encdec,
+        "seq_parallel_families": job_seq_parallel_families,
+        "cnn_onebit": job_cnn_onebit}
 
 
 # -- fault hooks (shipped to worker ranks by reference) -----------------------
