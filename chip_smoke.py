@@ -269,7 +269,6 @@ import dataclasses
 import gc
 import json
 import os
-import resource
 import shutil
 import subprocess
 import sys
@@ -297,6 +296,7 @@ from repro_torch.core.dist_array import TiledArray  # noqa: E402
 from repro_torch.core.sharding import ModelAxis, act_hook  # noqa: E402
 from repro_torch.core.sharding import default_rules, gather_tree  # noqa: E402
 from repro_torch.core.sharding import init_params, is_spec  # noqa: E402
+from repro_torch.distrib.collectives import get_codec  # noqa: E402
 from repro_torch.data.pipeline import (  # noqa: E402
     HARStream, stream_for, to_device)
 from repro_torch.core.paging import InferenceCache  # noqa: E402
@@ -345,7 +345,8 @@ FA_LIB_MEAN_REL_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-3}
 TRAIN_LAYERS = 12
 TRAIN = dict(arch="qwen3-4b", tiny=False, batch=8, seq=512,
              overrides={"n_layers": TRAIN_LAYERS})
-TRAIN_STEPS = 6
+# 4, cut from 6 to make room for (r)-(t)
+TRAIN_STEPS = 4
 TRAIN_DDP_SHARDS = 2
 # zamba2-2.7b's training slice: full width and full depth (54 layers; its
 # float32 parameters, gradients and adamw state are 2.42 B x 16 B, 39 GB)
@@ -428,7 +429,8 @@ MOE_TRAIN_ATTN = (MOE_TRAIN["batch"], _MOE_CFG.n_heads, _MOE_CFG.n_kv_heads,
 # layers' 8.9 GB 147.8-163.1 s at 0.23-0.26 GB/s, 8 layers' 6.3 GB
 # 110.4-124.0 s, 6 layers' 5.1 GB 98.4 s and 4 layers' 3.8 GB 74.8 s): the
 # multi-locality, SPMD, mesh and model-axis phases need the room
-CKPT_EVERY, CKPT_FAIL_AT = 3, 4
+# (2 and 3, with TRAIN_STEPS 4: (r)-(t)'s room)
+CKPT_EVERY, CKPT_FAIL_AT = 2, 3
 CKPT_DISK_SHARE = 0.8
 CKPT_DRILL_LAYERS = 2
 # the multi-locality runtime's other paths on the one card: the gateway's
@@ -448,7 +450,8 @@ CKPT_DRILL_LAYERS = 2
 # stalled 250 ms at step ELASTIC_STALL_AT (the steal window)
 GATEWAY_LOC_KILL_AT, GATEWAY_LOC_FEED_S = 3, 0.05
 CKPT_LOC_BYTES = 3.2e9
-CKPT_LOC_SAVE_AT, CKPT_LOC_STEPS = 3, 6
+# (cut from 3 and 6 to make room for (r)-(t))
+CKPT_LOC_SAVE_AT, CKPT_LOC_STEPS = 2, 4
 ELASTIC_JOIN_AT, ELASTIC_STALL_AT, ELASTIC_STEPS = 2, 4, 6
 ELASTIC_STALL_S = 0.25
 # data-parallel mesh training (ROADMAP item 14, its data half): the SPMD
@@ -467,7 +470,8 @@ MESH_LAYERS, MESH_STEPS = 2, 2
 MESH_TRAIN = dict(MOE_TRAIN, overrides={"n_layers": MESH_LAYERS})
 MESH_STRATEGIES = ("phylanx", "horovod", "zero1", "onebit")
 MESH_RTOL, MESH_ZERO1_RTOL = 1e-6, 1e-5
-MESH_DRILL_STEPS, MESH_DRILL_EVERY, MESH_DRILL_FAIL_AT = 4, 2, 3
+# (the drill cut from 4 steps failing at 3: (r)-(t)'s room)
+MESH_DRILL_STEPS, MESH_DRILL_EVERY, MESH_DRILL_FAIL_AT = 3, 2, 2
 MESH_PROBE_ITERS = 9
 # one MoE layer at granite's full width: 2,048 tokens (4 x 512, the serve
 # prefill's), bf16; with cap_factor E / k no assignment can drop
@@ -528,14 +532,22 @@ SERVE_B1_SCAN = (1, ZAMBA_HEADS, _ZAMBA_CFG.ssm_groups, SERVE["prompt_len"],
 # qwen3-4b's cut too
 STREAM_LAYERS = {"qwen3-4b": 6, "zamba2-2.7b": 6,
                  "granite-moe-1b-a400m": 4, "xlstm-350m": 8}
+# the gateway's tokens a request (serve_stream_full), SERVE's 32 before PR
+# 31: cut to 16 to make room for (r)-(t) (xlstm-350m's launch-bound
+# decode rounds alone took 19.4-29.1 s of the script at 32)
+STREAM_GEN = 16
 # where the time goes: xlstm-350m's prefills and decode step profiled at
 # PROFILE_LAYERS of its depth (37,000 kernels a prefill at 24 layers,
 # whose events the profiler's report walks: 59.8 s at full depth)
-PROFILE_LAYERS = {"xlstm-350m": 8}
+PROFILE_LAYERS = {"xlstm-350m": 8,
+                  # cut from all 36, 54 and 24 layers to make
+                  # room for (r)-(t) (21.6, 10.4 and 11.4 s at full depth)
+                  "qwen3-4b": 12, "zamba2-2.7b": 18,
+                  "granite-moe-1b-a400m": 8}
 # where the time goes: the train steps profiled at PROFILE_TRAIN_LAYERS
 # (the profiler's report walks every event: 61-77 s for the four steps
 # at 12, 12, 54 and 24 layers; 23.9 s at 4, 4, 18 and 8)
-PROFILE_TRAIN_LAYERS = {"qwen3-4b": 4, "zamba2-2.7b": 12,
+PROFILE_TRAIN_LAYERS = {"qwen3-4b": 4, "zamba2-2.7b": 6,  # qwen3-4b: 12 before
                         "granite-moe-1b-a400m": 4}
 # the gateway's runs (serve_stream): 8 requests arriving at these decode
 # rounds into SERVE's 4 slots; the independent greedy loop replays two of
@@ -571,6 +583,12 @@ PAGE_BYTES = 1 << 16        # serve_stream's default page size
 # (a) and (e) train TP_STEPS steps (cut from 3 to make room for the
 # families' sequence parallelism, the HAR CNN and onebit)
 TP_LAYERS, TP_STEPS, TP_DECODE_STEPS, TP_D2_LAYERS = 4, 2, 8, 2
+# (c) generates TP_SERVE_GEN tokens a request (cut from SERVE's 32 in PR
+# 31, to make room for (r)-(t): 38.0 s of the model axis's 105.1 on an
+# NVIDIA H100 80GB HBM3 at 700 W, most of it decode steps of 0.5 s); its
+# tokens are held against the first TP_SERVE_GEN + 1 of the one-process
+# serve phase's
+TP_SERVE_GEN = 8
 TP_TRAIN = dict(TRAIN, overrides={"n_layers": TP_LAYERS})
 TP_D2_TRAIN = dict(TRAIN, overrides={"n_layers": TP_D2_LAYERS})
 TP_LOSS_RTOL, TP_NORM_RTOL, TP_LOGIT_MEAN_REL_TOL = 1e-3, 1e-2, 1e-2
@@ -643,7 +661,8 @@ FAM_TP_LAYERS = 4
 # norm follow the first's update; 3 before PR 29, to make room for (p)
 # and (q)); (n)'s session serves and streams granite at a third of its
 # depth (all 24 layers before PR 29: 1.7 s and 12.8 s of (n)'s 42.7 s)
-FAM_TP_STEPS, MOE_TP_SERVE_LAYERS = 2, 8
+# (n)'s serve and gateway cut from 8 to 4 layers ((r)-(t)'s room)
+FAM_TP_STEPS, MOE_TP_SERVE_LAYERS = 2, 4
 # the bf16 runs' steps: granite's, zamba2-2.7b's
 MOE_BF16_STEPS, ZAMBA_BF16_STEPS = 2, 1
 # sequence parallelism for the families (ROADMAP item 14b, part 4), in
@@ -695,10 +714,12 @@ ZAMBA_TP_F32 = dict(ZAMBA_TRAIN, batch=ZAMBA_TP_F32_BATCH, overrides={
 # 3.1 s of (o) and (p) on an H100 80GB HBM3 at 700 W), to make room for
 # sequence parallelism in their sessions
 ZAMBA_TP_GATEWAY_LAYERS = 6
-ZAMBA_TP_SERVE_LAYERS, XLSTM_TP_SERVE_LAYERS = 18, 8
+# (o)'s Session.serve at one group (18 before: (r)-(t)'s room)
+ZAMBA_TP_SERVE_LAYERS, XLSTM_TP_SERVE_LAYERS = 6, 8
 # (q)'s Session.serve at half of whisper-medium's encoder and decoder
 # (cut from all 24 + 24, 6.1 s of (q)'s session), for the same room
-WHISPER_TP_SERVE_LAYERS = 12
+# and at 6 + 6 (12 + 12 before: (r)-(t)'s room)
+WHISPER_TP_SERVE_LAYERS = 6
 FAM_SERVE = dict(requests=4, slots=4, prompt_len=512, gen_len=4)
 FAM_GATEWAY_GEN = 4
 # K1 on a rank's heads at model=2: granite (H=8, Hkv=4, d=64) and
@@ -777,6 +798,43 @@ WHISPER_TP_F32_ENC_ATTN = (WHISPER_TP_F32_BATCH, *WHISPER_TP_ENC_ATTN[1:5],
                            torch.float32, False, None)
 WHISPER_TP_F32_DEC_ATTN = (WHISPER_TP_F32_BATCH, *WHISPER_TP_DEC_ATTN[1:5],
                            torch.float32, True, None)
+# ROADMAP item 14b part 6, a mesh beside the other multi-process modes,
+# on the mesh phase's plan (granite at MESH_LAYERS, 8 x 512, seed 0):
+# (r) fabric DDP at model=2 over two localities, four processes (each
+# locality a model group of two ranks, model coordinate 0 the ring's
+# member), 2 shards, in float32 compute (the model axis's math is held in
+# float32, as (n) holds granite's): fp32 S21_DDP_FP32_STEPS step in one
+# session against world-1 2-shard fp32 DDP of the same plan at model=1,
+# then onebit S21_DDP_ONEBIT_STEPS steps in a second (K3a on the global
+# buckets through the fabric codec); (s) Plan(localities=2, elastic=True,
+# data=2) with phylanx: the example's drill (a save at S21_EVERY, an
+# injected failure at S21_FAIL_AT, a resume to S21_STEPS on the same
+# session) with a locality joining after step S21_JOIN_AT + 1, then one
+# serve wave and a 2-replica gateway, held to the mesh phase's session's;
+# (t) Plan(spmd=True, localities=2, data=2) with phylanx, four processes:
+# S21_SPMD_STEPS steps each locality writing its segments, then a
+# one-process resume to S21_STEPS (two steps: the second's loss reads the
+# restored optimizer state), held to (s)'s resumed steps
+S21_DDP = dict(MESH_TRAIN, ddp=True, ddp_shards=2, overrides={
+    "n_layers": MESH_LAYERS, "compute_dtype": "f32"})
+S21_DDP_FP32_STEPS, S21_DDP_ONEBIT_STEPS = 1, 2
+S21_STEPS, S21_EVERY, S21_FAIL_AT = 4, 2, 3
+S21_JOIN_AT, S21_STALL_AT = 0, 1
+S21_SERVE = dict(requests=4, slots=4, prompt_len=MESH_SERVE["prompt_len"],
+                 gen_len=4)
+S21_STREAM = dict(S21_SERVE, slots=2, replicas=2)
+S21_SPMD_STEPS = 2
+# the one-process resume of (t) at data=1 against (s)'s steps at data=2:
+# one batch's sums against two halves' (the mesh phase's data=1 replay)
+S21_RESUME_RTOL = 1e-4
+# K1 at the paths' shapes: (r)'s shard of 4 rows on a rank's heads in
+# float32, (s)/(t)'s 4 rows a dp rank on the whole heads in bf16
+S21_DDP_ATTN = (MESH_TRAIN["batch"] // 2, _MOE_CFG.n_heads // 2,
+                _MOE_CFG.n_kv_heads // 2, MESH_TRAIN["seq"],
+                _MOE_CFG.head_dim, torch.float32, True, None)
+S21_MESH_ATTN = (MESH_TRAIN["batch"] // 2, *MOE_TRAIN_ATTN[1:])
+#: the mesh phase's readings that (s) and (t) are held to
+MESH_ORACLE: dict = {}
 FA_CASES = [
     (4, 32, 8, 512, 128, torch.bfloat16, True, None),
     (4, 32, 32, 512, 80, torch.bfloat16, True, None),     # d=80 (zamba)
@@ -816,6 +874,8 @@ FA_CASES = [
     (1, 4, 4, 300, 64, torch.bfloat16, False, None),      # non-causal bf16
     (2, 4, 4, 100, 80, torch.bfloat16, True, None),       # d=80, ragged S
     (1, 8, 8, 512, 80, torch.bfloat16, True, 128),        # d=80, window
+    S21_DDP_ATTN,
+    S21_MESH_ATTN,
 ]
 FA_TIMED = 28           # the first FA_TIMED cases are timed
 # K2 tolerances of tests/test_kernels.py's sweep, as atol and rtol
@@ -885,6 +945,8 @@ FA_BWD_CASES = [
     (2, 4, 4, 100, 80, torch.bfloat16, True, None),
     (2, 4, 2, 130, 96, torch.float32, True, None),        # d=96, GQA
     (2, 4, 2, 130, 96, torch.bfloat16, True, None),
+    S21_DDP_ATTN,
+    S21_MESH_ATTN,
 ]
 FA_BWD_TIMED = 15       # the first FA_BWD_TIMED cases are timed
 # f32: within 1e-4 of the largest gradient magnitude (at least 1); bf16:
@@ -994,6 +1056,10 @@ def print_phase_times() -> None:
     print(f"run time {ends[-1] - PHASE_TIMES[0][1]:.1f} s")
 
 
+#: about how long ``cuda_ms`` times a slow call for
+TIMED_S = 0.5
+
+
 def cuda_ms(fn, iters: int = 20, warm: int = 3, spin: bool = True) -> float:
     """Time of one call of ``fn``: CUDA events around ``iters`` calls.
     With ``spin`` the calls are queued behind a device-side spin that
@@ -1002,7 +1068,10 @@ def cuda_ms(fn, iters: int = 20, warm: int = 3, spin: bool = True) -> float:
     card can take longer than that to launch from Python).  Without it
     the calls are launched with nothing queued ahead (the method of this
     script's earlier readings), and a call shorter than its launch is timed
-    at the host's launch rate."""
+    at the host's launch rate.  A call slower than ``TIMED_S / iters``
+    (the plain versions of K2 and its backward: 35-290 ms) is timed over
+    fewer calls, at least 3, about ``TIMED_S`` of them (20 calls of each
+    of them took about 40 s of the kernels phase)."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
@@ -1010,6 +1079,8 @@ def cuda_ms(fn, iters: int = 20, warm: int = 3, spin: bool = True) -> float:
     fn()
     host_s = time.perf_counter() - t0
     torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    iters = min(iters, max(3, int(TIMED_S / one_s)))
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     if spin:
@@ -1694,7 +1765,7 @@ def check_train_reference() -> None:
             stream = stream_for(cfg, batch=plan.batch, seq=plan.seq)
             if name == "onebit":
                 engine = DDPEngine(plan, RingAllReduce(None, 1))
-                init, fn = engine.step.init, engine.train_step
+                init, fn = engine.tstep.init, engine.train_step
             else:
                 step = steps.make_train_step(cfg, steps.Strategy(opt=oc))
                 init = step.init
@@ -2401,12 +2472,19 @@ def host_memory(workers: dict = None) -> str:
     return out
 
 
-def reaped_peak() -> str:
-    """The largest peak resident memory of the reaped child processes
-    (``getrusage(RUSAGE_CHILDREN)``): after a session closes, its worker's
-    host peak, or an earlier worker's where that was larger."""
-    kib = resource.getrusage(resource.RUSAGE_CHILDREN).ru_maxrss
-    return f"reaped workers' peak resident {kib / 2**20:.1f} GiB"
+def workers_peak(workers: dict) -> str:
+    """The largest peak resident memory (``VmHWM``) of the live processes
+    of ``workers`` (rank -> process), read before their session closes:
+    they are the forkserver's children, not this process's."""
+    kib = 0
+    for p in workers.values():
+        try:
+            with open(f"/proc/{p.pid}/status") as f:
+                kib = max(kib, next(int(line.split()[1]) for line in f
+                                    if line.startswith("VmHWM:")))
+        except (OSError, StopIteration, ValueError):
+            pass
+    return f"workers' peak resident {kib / 2**20:.1f} GiB"
 
 
 class MemoryClock(StepClock):
@@ -2483,9 +2561,11 @@ def ddp_two_localities(runs=DDP2_RUNS) -> tuple[dict, dict]:
                           f"{host_memory(procs)}")
                 raise
             counts = _counts()
+            wpeak = workers_peak(session.distributed.group.procs) \
+                if loc > 1 else None
         peak = torch.cuda.max_memory_allocated()
         if loc > 1:
-            print(f"{host_memory()}; {reaped_peak()}")
+            print(f"{host_memory()}; {wpeak}")
         losses[name] = out["losses"]
         if codec == "fp32":
             sums[name] = param_bit_sums(out["params"])
@@ -2610,7 +2690,8 @@ def gateway_two_localities() -> tuple[dict, dict]:
     n = len(GATEWAY_ARRIVALS)
     want = {k: v * n for k, v in prefill_launches(cfg).items()}
     base, prompts = STREAMS[arch]
-    kw = dict(prompt_len=SERVE["prompt_len"], gen_len=SERVE["gen_len"],
+    # serve_stream_full's shape, whose streams these are held to
+    kw = dict(prompt_len=SERVE["prompt_len"], gen_len=STREAM_GEN,
               slots=SERVE["slots"])
     t0 = time.perf_counter()
     with plan.compile() as session:
@@ -3298,7 +3379,9 @@ def mesh_training() -> tuple[dict, dict]:
           f"DDP, the zero1 crash drill, step replay")
     print(f"CUT to {cfg.n_layers} of {get_config(cfg.name).n_layers} "
           f"layers: the SPMD phase's plan (two processes of this state on "
-          f"the one card, the phase within its time)")
+          f"the one card, the phase within its time); the drill to "
+          f"{MESH_DRILL_STEPS} steps failing at {MESH_DRILL_FAIL_AT + 1} "
+          f"(the script's time)")
     kw = dict(log_every=1, verbose=False)
     counts: dict = {}
     mesh_plan = dataclasses.replace(plan, data=2, strategy="zero1")
@@ -3309,9 +3392,9 @@ def mesh_training() -> tuple[dict, dict]:
         with mesh_plan.compile() as session:
             up_s = time.perf_counter() - t0
             pids = [pr.pid for pr in
-                    session.distributed.group.procs.values()]
+                    session.ranks.group.procs.values()]
             # (a) the oracle, while the worker rank warms up
-            session.distributed.spmd_train({"plan": mesh_plan,
+            session.ranks.spmd_train({"plan": mesh_plan,
                                             "stream": stream,
                                             "loop": mesh_warmup})
             clock = StepClock()
@@ -3323,7 +3406,7 @@ def mesh_training() -> tuple[dict, dict]:
             want_l, want_g = oracle["losses"], clock.grad_norms
             del oracle
             torch.cuda.empty_cache()
-            warm = session.distributed.wait_spmd_done(timeout=300.0)
+            warm = session.ranks.wait_spmd_done(timeout=300.0)
             if not all(m.get("ok") for m in warm.values()):
                 raise AssertionError(f"mesh warm-up failed: {warm}")
             # (b) the strategies, one world
@@ -3366,6 +3449,14 @@ def mesh_training() -> tuple[dict, dict]:
                 for leaf in sh["leaves"]:
                     got_shapes[leaf["index"]] = leaf["shape"]
             del step, like
+            # (s)'s oracle: the wave loop and the gateway on this mesh
+            _zero_counts()
+            served = session.serve(**S21_SERVE, verbose=False)
+            streamed = session.serve_stream(**S21_STREAM, verbose=False)
+            counts["mesh_serve_oracle_L0"] = _counts()
+            MESH_ORACLE.update(
+                tokens=[g.tolist() for g in served["generated"]],
+                streams=streamed["streams"])
         world_left = torch.distributed.is_initialized()
         reaped = _reaped(pids)
     finally:
@@ -3383,6 +3474,10 @@ def mesh_training() -> tuple[dict, dict]:
     del plain["params"], replay["params"], resumed["params"]
 
     res = {r: ranks[r] for r in (0, 1)}
+    MESH_ORACLE.update(plan=plan, stream=stream,
+                       losses=res[0]["phylanx"]["losses"],
+                       grad_norms=res[0]["phylanx"]["grad_norms"],
+                       oracle={"losses": want_l, "grad_norms": want_g})
     fails = []
     rel = lambda a, b: max(abs(x - y) / abs(y) for x, y in zip(a, b))
     identical = {}
@@ -3511,6 +3606,503 @@ def mesh_training() -> tuple[dict, dict]:
                 "replay": {"losses": replay["losses"],
                            "copies": replay["resilience"]["copies"]}}
     return counts, readings
+
+
+class CodecProbe:
+    """Fabric DDP's codec probe (``Session._codec_probe``, shipped to
+    every locality and rank; module level, so it ships by reference): each
+    bucket's K3a against its plain version on the same global bucket and
+    residual (``k3a_against_plain``, the kernels phase's tolerance), each
+    K3b decode bit for bit the plain version's (the mean is their sum in
+    origin order, so it is then the plain decode's), and at the end the
+    ``param_bit_sums`` of the leaves that stay whole on a model axis."""
+
+    def __init__(self):
+        self.buckets = self.bad = self.near = self.decodes = 0
+        self.decode_diffs = 0
+        self.scale_rel_err = self.err_abs_err = 0.0
+
+    def encoded(self, i, buf, err, packed, scale, new_err):
+        q = k3a_against_plain(buf.reshape(err.shape), err, packed, scale,
+                              new_err)
+        self.buckets += 1
+        self.bad += q["bad"]
+        self.near += q["near"]
+        self.scale_rel_err = max(self.scale_rel_err, q["scale_rel_err"])
+        self.err_abs_err = max(self.err_abs_err, q["err_abs_err"])
+
+    def decoded(self, packed, scale, out):
+        want = onebit_dequantize_ref(packed, scale).reshape(-1)[
+            :out.numel()]
+        self.decodes += 1
+        self.decode_diffs += int(not torch.equal(out, want))
+
+    def report(self, engine, params) -> dict:
+        split = engine.tstep.split_mask
+        mask = pytree.tree_leaves(split) if split is not None else None
+        whole = [p for p, m in zip(pytree.tree_leaves(params),
+                                   mask or [False] * 10 ** 6) if not m]
+        return {"buckets": self.buckets, "bad": self.bad, "near": self.near,
+                "scale_rel_err": self.scale_rel_err,
+                "err_abs_err": self.err_abs_err, "decodes": self.decodes,
+                "decode_diffs": self.decode_diffs,
+                "whole_sums": param_bit_sums(whole)}
+
+
+def _probe_ok(p: dict) -> bool:
+    return (p["bad"] == 0 and p["scale_rel_err"] <= 1e-6
+            and p["err_abs_err"] <= 1e-6 and p["decode_diffs"] == 0)
+
+
+def ddp_model_axis() -> tuple[dict, dict]:
+    """(r): fabric DDP beside a model axis on the one card (ROADMAP item
+    14b part 6): ``Plan(ddp=True, model=2, localities=2)``, four
+    processes, the mesh phase's plan in float32 compute (``S21_DDP``).
+    Each locality is a model group of two rank processes (a gloo world a
+    locality); model coordinate 0 gathers the group's split leaves into
+    the reference's global buckets one at a time, runs the ring over
+    them and hands each rank its blocks of the mean.  fp32,
+    ``S21_DDP_FP32_STEPS`` step: the loss within ``TP_LOSS_RTOL`` and the
+    norm within ``MOE_TP_NORM_RTOL`` of world-1 2-shard fp32 DDP of the
+    same plan at model=1 (run here while the session's other processes
+    take their cold start).  onebit,
+    ``S21_DDP_ONEBIT_STEPS`` steps in a second session: every leader's
+    K3a on every global bucket against its plain version, every K3b
+    decode the plain version's bit for bit (``CodecProbe``).  Both:
+    ``grad_wire_bytes`` = steps x 1 x ``codec_bytes`` on each leader,
+    ``codec_bytes`` model=1's, the leaves that stay whole bit-identical
+    on all four processes, each process's K1, K3a and K3b launches as the
+    steps give them, every process reaped.  Prints each process's
+    launches, the model groups' gather bytes and gloo seconds, the step's
+    host wall and each process's peak.  Returns the counts and
+    readings."""
+    plan = Plan(**S21_DDP, device="cuda")
+    cfg = plan.config()
+    stream = RepeatStream(stream_for(cfg, batch=plan.batch, seq=plan.seq,
+                                     seed=plan.seed))
+    phase(f"(r) fabric DDP at model=2 over two localities: {cfg.name}, "
+          f"full width, {cfg.n_layers} layers, float32, four processes on "
+          f"the one card, fp32 then onebit")
+    kw = dict(log_every=1, verbose=False)
+    counts: dict = {}
+    fails: list = []
+    readings: dict = {}
+    gplan = steps.make_ddp_step(plan=dataclasses.replace(
+        plan, device="cpu")).grad_plan
+    n_buckets = len(gplan.buckets)
+    want_l = want_g = None
+    for codec, n in (("fp32", S21_DDP_FP32_STEPS),
+                     ("onebit", S21_DDP_ONEBIT_STEPS)):
+        mplan = dataclasses.replace(plan, model=2, localities=2,
+                                    grad_codec=codec)
+        m1_bytes = get_codec(codec).wire_bytes(gplan)
+        t0 = time.perf_counter()
+        with mplan.compile() as s:
+            up_s = time.perf_counter() - t0
+            pids = [pr.pid for g in (s.distributed, s.ranks)
+                    for pr in g.group.procs.values()]
+            if want_l is None:
+                # the three other processes' cold start, while this one
+                # runs the oracle: model=1 over the same two shards
+                for g in (s.distributed, s.ranks):
+                    g.spmd_train({"loop": tp_warmup})
+                clock = StepClock()
+                _zero_counts()
+                with plan.compile() as one:
+                    oracle = one.train(stream, steps=S21_DDP_FP32_STEPS,
+                                       hooks=clock, **kw)
+                counts["ddp_m1_oracle"] = _counts()
+                want_l, want_g = oracle["losses"], clock.grad_norms
+                del oracle
+                torch.cuda.empty_cache()
+                for g in (s.distributed, s.ranks):
+                    warm = g.wait_spmd_done(timeout=300.0)
+                    if not all(m.get("ok") for m in warm.values()):
+                        raise AssertionError(f"(r) warm-up failed: {warm}")
+            s._codec_probe = CodecProbe()
+            clock = StepClock()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _zero_counts()
+            t1 = time.perf_counter()
+            out = s.train(stream, steps=n, hooks=clock, **kw)
+            run_s = time.perf_counter() - t1
+            c0 = _counts()
+            peak0 = torch.cuda.max_memory_allocated()
+        reaped = _reaped(pids)
+        leader, ranks = out["localities"][1], out["ranks"]
+        procs = {"L0": (c0, out["probe"], out["wire"], peak0),
+                 "L1": (leader["launches"], leader["probe"], leader["wire"],
+                        leader["peak_bytes"])}
+        for r, m in ranks.items():
+            procs[f"R{r}"] = (m["launches"], m["probe"], m["wire"],
+                              m["peak_bytes"])
+        nb = n_buckets if codec == "onebit" else 0
+        for name, (c, probe, wire, peak) in procs.items():
+            counts[f"ddp_m2_{codec}_{name}"] = c
+            lead = name.startswith("L")
+            want = train_launches(cfg, n, 1, nb if lead else 0, decodes=2)
+            if c != want:
+                fails.append(f"{codec} {name} launches {c} (want {want})")
+            if probe["whole_sums"] != out["probe"]["whole_sums"]:
+                fails.append(f"{codec} {name}: whole leaves differ from "
+                             f"the driver's")
+            if codec == "onebit" and lead and (
+                    not _probe_ok(probe) or probe["buckets"] != n * nb
+                    or probe["decodes"] != 2 * n * nb):
+                fails.append(f"{codec} {name} codec against the plain "
+                             f"versions: {probe}")
+        wire_ok = (out["codec_bytes"] == m1_bytes
+                   and out["grad_wire_bytes"] == n * 1 * m1_bytes
+                   and leader["grad_wire_bytes"] == out["grad_wire_bytes"])
+        if not wire_ok:
+            fails.append(f"{codec} wire {out['grad_wire_bytes']} B, codec "
+                         f"{out['codec_bytes']} B (model=1's {m1_bytes} B)")
+        if any(m["final_loss"] != out["final_loss"]
+               for m in (leader, *ranks.values())):
+            fails.append(f"{codec}: a process's loss is not the driver's")
+        if codec == "fp32":
+            le = abs(out["losses"][0] - want_l[0]) / abs(want_l[0])
+            ge = abs(clock.grad_norms[0] - want_g[0]) / abs(want_g[0])
+            if le > TP_LOSS_RTOL or ge > MOE_TP_NORM_RTOL:
+                fails.append(f"fp32 loss {out['losses']} / gnorm "
+                             f"{clock.grad_norms} against model=1's "
+                             f"{want_l} / {want_g} (rel {le:.3g}, {ge:.3g})")
+        model = {k: v["axes"]["model"] for k, (_, _, v, _) in procs.items()}
+        print(f"{codec}: session up in {up_s:.1f} s (4 processes: 2 "
+              f"localities x a model group of 2); {n} step(s) in "
+              f"{run_s:.1f} s, host wall "
+              f"{' '.join(f'{x:.1f}' for x in clock.step_ms())} ms a step; "
+              f"losses {' '.join(f'{x:.6f}' for x in out['losses'])}, "
+              f"gnorms {' '.join(f'{x:.6f}' for x in clock.grad_norms)}"
+              + (f" (model=1: {want_l[0]:.6f} / {want_g[0]:.6f})"
+                 if codec == "fp32" else "")
+              + f"; grad-wire {out['grad_wire_bytes']} B a locality "
+              f"(codec {out['codec_bytes']} B, model=1's {m1_bytes} B)")
+        for name, (c, probe, wire, peak) in procs.items():
+            w = wire["axes"]["model"]
+            print(f"  {name}: K1 {c['flash_attention']} / "
+                  f"{c['flash_attention_bwd']}, K3a {c['onebit_quantize']}, "
+                  f"K3b {c['onebit_dequantize']}; model group {w['bytes']} B "
+                  f"in {w['calls']} collectives, {w['wire_s']:.3f} s in gloo"
+                  f", staging {w['staging_s']:.3f} s; peak "
+                  f"{peak / 1e9:.3f} GB"
+                  + (f"; codec against plain: {probe}"
+                     if codec == "onebit" and name.startswith("L") else ""))
+        print(f"  whole leaves bit-identical on all four: "
+              f"{all(p[1]['whole_sums'] == out['probe']['whole_sums'] for p in procs.values())}; "
+              f"every process reaped {reaped}")
+        if not reaped:
+            fails.append(f"{codec}: a process was not reaped")
+        readings[codec] = {
+            "up_s": up_s, "run_s": run_s, "step_ms": clock.step_ms(),
+            "losses": out["losses"], "grad_norms": clock.grad_norms,
+            "grad_wire_bytes": out["grad_wire_bytes"],
+            "codec_bytes": out["codec_bytes"], "model_wire": model,
+            "peak_bytes": {k: v[3] for k, v in procs.items()},
+            "probe": {k: {x: y for x, y in v[1].items() if x != "whole_sums"}
+                      for k, v in procs.items()}}
+        del out
+        torch.cuda.empty_cache()
+    readings["model1"] = {"losses": want_l, "grad_norms": want_g}
+    if fails:
+        raise AssertionError("(r) fabric DDP at model=2: " + "; ".join(fails))
+    return counts, readings
+
+
+class _LossLog(ElasticChurn):
+    """``ElasticChurn`` that also keeps the logged losses."""
+
+    def __init__(self, session, join_at, stall_at):
+        super().__init__(session, join_at, stall_at)
+        self.losses: list = []
+
+    def on_log(self, it, loss):
+        self.losses.append(loss)
+
+
+def mesh_localities() -> tuple[dict, dict]:
+    """(s): a mesh beside a task locality and an elastic joiner (ROADMAP
+    item 14b part 6): ``Plan(localities=2, elastic=True, data=2)`` with
+    phylanx on the mesh phase's plan and repeated batch; two rank
+    processes in a gloo world and one task locality in none, which
+    builds each step's batch (rank 0 feeds it to both ranks) and owns
+    checkpoint shards.  ``examples/train_lm_ddp.py``'s drill: a save at
+    step ``S21_EVERY``, an injected failure at ``S21_FAIL_AT`` (it must
+    raise), ``resume=True`` to ``S21_STEPS`` on the same session; a
+    locality joins after step ``S21_JOIN_AT + 1`` and the driver stalls
+    after step ``S21_STALL_AT + 1`` (the steal window).  Checks: the
+    first ``MESH_STEPS`` losses and norms the mesh phase's phylanx run's
+    bit for bit; the resumed step the failed run's; each rank's K1 as
+    the steps give; batches built on locality 1 and on the joiner, stolen
+    tasks; the step-2 manifest owned by the three localities.  Then
+    ``Session.serve`` (one wave of 4 x 4, its ``stack`` on a task
+    locality) and ``serve_stream`` (two replicas, one homed on a task
+    locality): the tokens and streams of the mesh phase's session.  Every
+    process reaped.  Returns the counts, the readings and the resumed
+    run's losses (which (t)'s resume is held to)."""
+    base, stream = MESH_ORACLE["plan"], MESH_ORACLE["stream"]
+    plan = dataclasses.replace(base, data=2, localities=2, elastic=True,
+                               strategy="phylanx")
+    cfg = plan.config()
+    phase(f"(s) a mesh beside a task locality and an elastic joiner: "
+          f"{cfg.name}, {cfg.n_layers} layers, data=2, the example's drill, "
+          f"then serve and serve_stream")
+    kw = dict(log_every=1, verbose=False)
+    counts: dict = {}
+    fails: list = []
+    root = tempfile.mkdtemp()
+    d = f"{root}/s21"
+    t0 = time.perf_counter()
+    with plan.compile() as s:
+        up_s = time.perf_counter() - t0
+        first = _LossLog(s, S21_JOIN_AT, S21_STALL_AT)
+        torch.cuda.synchronize()
+        _zero_counts()
+        t1 = time.perf_counter()
+        try:
+            s.train(stream, steps=S21_STEPS, ckpt_every=S21_EVERY,
+                    ckpt_dir=d, fail_at_step=S21_FAIL_AT, hooks=first, **kw)
+            raised = False
+        except RuntimeError as e:
+            raised = "injected node failure" in str(e)
+        counts["s21_failed_L0"] = _counts()
+        again = _LossLog(s, None, None)
+        torch.cuda.synchronize()
+        _zero_counts()
+        resumed = s.train(stream, steps=S21_STEPS, ckpt_every=S21_EVERY,
+                          ckpt_dir=d, resume=True, hooks=again, **kw)
+        drill_s = time.perf_counter() - t1
+        counts["s21_resumed_L0"] = _counts()
+        counts["s21_resumed_L1"] = resumed["localities"][1]["launches"]
+        dstats = resumed["runtime_stats"]["distributed"]
+        world = torch.distributed.get_world_size()
+        _zero_counts()
+        t1 = time.perf_counter()
+        served = s.serve(**S21_SERVE, verbose=False)
+        streamed = s.serve_stream(**S21_STREAM, verbose=False)
+        serve_s = time.perf_counter() - t1
+        counts["s21_serve_L0"] = _counts()
+        pids = [pr.pid for g in (s.distributed, s.ranks)
+                for pr in g.group.procs.values()]
+    reaped = _reaped(pids)
+    manifest = ckfmt.load_manifest(f"{d}/step_{S21_EVERY:08d}")
+    shutil.rmtree(root, ignore_errors=True)
+    want = train_launches(cfg, S21_STEPS - S21_EVERY, 1, 0)
+    for r in (0, 1):
+        if counts[f"s21_resumed_L{r}"] != want:
+            fails.append(f"rank {r} launches {counts[f's21_resumed_L{r}']} "
+                         f"(want {want})")
+    k = MESH_STEPS
+    same_first = (first.losses[:k] == MESH_ORACLE["losses"][:k]
+                  and first.grad_norms[:k] == MESH_ORACLE["grad_norms"][:k])
+    if not (raised and same_first and len(first.losses) == S21_FAIL_AT
+            and again.losses[0] == first.losses[S21_EVERY]):
+        fails.append(f"drill: raised {raised}, losses {first.losses} / "
+                     f"{first.grad_norms} then {again.losses} against the "
+                     f"mesh phase's {MESH_ORACLE['losses']} / "
+                     f"{MESH_ORACLE['grad_norms']}")
+    built = dstats["dispatched"]
+    if not (built.get(1, 0) > 0 and built.get(first.rank, 0) > 0
+            and dstats["stolen_tasks"] > 0 and first.rank == 2):
+        fails.append(f"dispatched {built}, stolen {dstats['stolen_tasks']}"
+                     f", joiner {first.rank}")
+    if sorted(manifest["ownership"]) != ["0", "1", "2"]:
+        fails.append(f"ownership {manifest['ownership']}")
+    stack_home = [n for n in served["nodes"] if n.startswith("stack:")]
+    tokens = [g.tolist() for g in served["generated"]]
+    # a replica homed on a task locality runs its requests' stack there
+    homes = sorted({n.rsplit("@", 1)[-1] for n in streamed["nodes"]
+                    if n.startswith("stack:")})
+    used = sorted(set(streamed["replica_assignments"].values()))
+    if not (stack_home and all("@L0" not in n for n in stack_home)
+            and tokens == MESH_ORACLE["tokens"]
+            and streamed["streams"] == MESH_ORACLE["streams"]
+            and used == [0, 1] and any(h != "L0" for h in homes)):
+        fails.append(f"serve: stacks {stack_home}, tokens "
+                     f"{'equal' if tokens == MESH_ORACLE['tokens'] else 'DIFFER'}"
+                     f", streams {'equal' if streamed['streams'] == MESH_ORACLE['streams'] else 'DIFFER'}"
+                     f", replicas {used}, their stacks on {homes}")
+    if world != 2 or not reaped:
+        fails.append(f"gloo world {world} (want the 2 ranks), reaped "
+                     f"{reaped}")
+    print(f"session up in {up_s:.1f} s (2 ranks, 1 task locality); drill "
+          f"{drill_s:.1f} s: raised {raised}; losses "
+          f"{' '.join(f'{x:.6f}' for x in first.losses)} then "
+          f"{' '.join(f'{x:.6f}' for x in again.losses)}; gnorms "
+          f"{' '.join(f'{x:.6f}' for x in first.grad_norms)}; the mesh "
+          f"phase's first {k} bit for bit: {same_first}; step times "
+          f"{' '.join(f'{x:.1f}' for x in first.step_ms())} then "
+          f"{' '.join(f'{x:.1f}' for x in again.step_ms())} ms; locality "
+          f"{first.rank} joined in {first.join_s:.2f} s; dispatched "
+          f"{built}, stolen {dstats['stolen_tasks']}, respawned "
+          f"{dstats['respawned']}; step-{S21_EVERY} ownership "
+          f"{manifest['ownership']}, ckpt-leaf-wire "
+          f"{dstats['ckpt_leaf_wire_bytes']} B; gloo world {world}")
+    print(f"serve and serve_stream in {serve_s:.1f} s: stacks {stack_home}; "
+          f"tokens {'equal' if tokens == MESH_ORACLE['tokens'] else 'DIFFER'}"
+          f"; streams "
+          f"{'equal' if streamed['streams'] == MESH_ORACLE['streams'] else 'DIFFER'}"
+          f" (replicas {used}, their stacks on {homes}); K1 "
+          f"{counts['s21_serve_L0']}"
+          f"; every process reaped {reaped}")
+    readings = {"up_s": up_s, "drill_s": drill_s, "serve_s": serve_s,
+                "losses": first.losses, "resumed": again.losses,
+                "grad_norms": first.grad_norms,
+                "step_ms": first.step_ms(), "join_s": first.join_s,
+                "dispatched": built, "stolen": dstats["stolen_tasks"],
+                "ownership": manifest["ownership"],
+                "ckpt_leaf_wire_bytes": dstats["ckpt_leaf_wire_bytes"]}
+    if fails:
+        raise AssertionError("(s) mesh beside localities: "
+                             + "; ".join(fails))
+    return counts, readings, again.losses
+
+
+def spmd_mesh(s_resumed: list) -> tuple[dict, dict]:
+    """(t): SPMD mode with mesh axes (ROADMAP item 14b part 6):
+    ``Plan(spmd=True, localities=2, data=2)`` with phylanx on the mesh
+    phase's plan, four processes (two localities, each a gloo world of
+    its mesh's two ranks), the sanitizer armed (``PHYRAX_SANITIZE=1``,
+    inherited by every process): ``S21_SPMD_STEPS`` steps, each locality
+    writing its segments at the last, gathered over its own mesh.
+    Checks: the losses and norms the mesh phase's phylanx run's bit for
+    bit; ownership ``{"0": [0], "1": [1]}``, ``ckpt_leaf_wire_bytes`` 0,
+    every leaf's segments ``checkpoint.spmd.segments``' layout for 2
+    processes; every process's K1 as the steps give; ``Session.lint()`` ``[]`` and
+    no sanitizer diagnostic anywhere; no ``torch.distributed`` world left;
+    then a one-process resume to ``S21_STEPS``, two steps (the second's
+    loss reads the restored optimizer state): their losses within
+    ``S21_RESUME_RTOL`` of (s)'s resumed steps at data=2.  Returns the
+    counts and the readings."""
+    base, stream = MESH_ORACLE["plan"], MESH_ORACLE["stream"]
+    plan = dataclasses.replace(base, data=2, localities=2, spmd=True,
+                               strategy="phylanx")
+    cfg = plan.config()
+    phase(f"(t) SPMD mode with a data axis: {cfg.name}, {cfg.n_layers} "
+          f"layers, two localities of a data=2 mesh (four processes), each "
+          f"writing its segments, resumed at one process")
+    kw = dict(log_every=1, verbose=False)
+    counts: dict = {}
+    fails: list = []
+    root = tempfile.mkdtemp()
+    d = f"{root}/t21"
+    n = S21_SPMD_STEPS
+    os.environ["PHYRAX_SANITIZE"] = "1"
+    sanitize.get().clear()
+    try:
+        t0 = time.perf_counter()
+        with plan.compile() as s:
+            up_s = time.perf_counter() - t0
+            clock = StepClock()
+            torch.cuda.synchronize()
+            _zero_counts()
+            t1 = time.perf_counter()
+            out = s.train(stream, steps=n, ckpt_every=n, ckpt_dir=d,
+                          hooks=clock, **kw)
+            run_s = time.perf_counter() - t1
+            counts["t21_L0"] = _counts()
+            findings = [str(f) for f in s.lint()]
+            pids = [pr.pid for g in (s.distributed, s.ranks)
+                    for pr in g.group.procs.values()]
+        diags = [str(x) for x in sanitize.get().diagnostics()]
+    finally:
+        os.environ.pop("PHYRAX_SANITIZE", None)
+    world_left = torch.distributed.is_initialized()
+    reaped = _reaped(pids)
+    counts["t21_L1"] = out["localities"][1]["launches"]
+    for r, m in out["ranks"].items():
+        counts[f"t21_R{r}"] = m["launches"]
+    want = train_launches(cfg, n, 1, 0)
+    for name, c in counts.items():
+        if c != want:
+            fails.append(f"{name} launches {c} (want {want})")
+    remote_diags = [x for m in out["localities"].values()
+                    for x in (m.get("diagnostics") or [])]
+    manifest = ckfmt.load_manifest(f"{d}/step_{n:08d}")
+    dstats = out["runtime_stats"]["distributed"]
+    bad_layout, split = [], 0
+    by_leaf: dict = {}
+    for sh in manifest["shards"]:
+        for leaf in sh["leaves"]:
+            by_leaf.setdefault(leaf["index"], {})[sh["locality"]] = leaf
+    for i, leaves in sorted(by_leaf.items()):
+        one = next(iter(leaves.values()))
+        shape = one.get("global_shape", one["shape"])
+        split += len(leaves) == 2
+        for r in (0, 1):
+            seg = ckspmd.segments(shape, 2, r)
+            got = leaves.get(r)
+            if (got is None) != (not seg) or (
+                    got is not None and got.get("slice") != seg[0]):
+                bad_layout.append((i, r))
+    torch.cuda.synchronize()
+    _zero_counts()
+    with dataclasses.replace(base, strategy="phylanx").compile() as s:
+        resumed = s.train(stream, steps=S21_STEPS, ckpt_every=S21_STEPS,
+                          ckpt_dir=d, resume=True, **kw)
+    counts["t21_resume"] = _counts()
+    shutil.rmtree(root, ignore_errors=True)
+    rel = max(abs(a - b) / abs(b) for a, b in
+              zip(resumed["losses"], s_resumed))
+    same = (out["losses"] == MESH_ORACLE["losses"][:n]
+            and clock.grad_norms == MESH_ORACLE["grad_norms"][:n])
+    if not same:
+        fails.append(f"losses {out['losses']} / {clock.grad_norms} against "
+                     f"{MESH_ORACLE['losses']} / {MESH_ORACLE['grad_norms']}")
+    if manifest["ownership"] != {"0": [0], "1": [1]} or bad_layout \
+            or not split or dstats["ckpt_leaf_wire_bytes"] != 0:
+        fails.append(f"ownership {manifest['ownership']}, layout "
+                     f"{bad_layout[:4]}, split {split}, ckpt-leaf-wire "
+                     f"{dstats['ckpt_leaf_wire_bytes']}")
+    if findings or diags or remote_diags or world_left or not reaped:
+        fails.append(f"lint {findings}, diagnostics {diags} / "
+                     f"{remote_diags}, world left {world_left}, reaped "
+                     f"{reaped}")
+    if rel > S21_RESUME_RTOL or len(resumed["losses"]) != len(s_resumed) \
+            or len(s_resumed) != S21_STEPS - n:
+        fails.append(f"resumed losses {resumed['losses']} against (s)'s "
+                     f"{s_resumed} (rel {rel:.3g})")
+    nbytes = {sh["locality"]: sh["nbytes"] for sh in manifest["shards"]}
+    print(f"session up in {up_s:.1f} s (4 processes: 2 localities x a "
+          f"data=2 mesh); {n} steps in {run_s:.1f} s, step times "
+          f"{' '.join(f'{x:.1f}' for x in clock.step_ms())} ms; losses "
+          f"{' '.join(f'{x:.6f}' for x in out['losses'])}, gnorms "
+          f"{' '.join(f'{x:.6f}' for x in clock.grad_norms)} (the mesh "
+          f"phase's bit for bit: {same}); ownership {manifest['ownership']}"
+          f", bytes by locality {nbytes}, {split} of {len(by_leaf)} leaves "
+          f"split, layout {'ok' if not bad_layout else bad_layout[:4]}, "
+          f"ckpt-leaf-wire {dstats['ckpt_leaf_wire_bytes']} B; lint "
+          f"{findings}, "
+          f"diagnostics {diags + remote_diags}; world left {world_left}; "
+          f"resumed at one process: steps {n + 1}-{S21_STEPS} losses "
+          f"{' '.join(f'{x:.6f}' for x in resumed['losses'])} against "
+          f"(s)'s {' '.join(f'{x:.6f}' for x in s_resumed)} at "
+          f"data=2 (rel {rel:.3g}); K1 {counts['t21_L0']}")
+    readings = {"up_s": up_s, "run_s": run_s, "step_ms": clock.step_ms(),
+                "losses": out["losses"], "grad_norms": clock.grad_norms,
+                "ownership": manifest["ownership"], "bytes": nbytes,
+                "split_leaves": split, "resumed": resumed["losses"],
+                "resume_rel": rel}
+    if fails:
+        raise AssertionError("(t) SPMD mode with a data axis: "
+                             + "; ".join(fails))
+    return counts, readings
+
+
+def slice21() -> dict:
+    """(r), (s) and (t) after the mesh phase, whose readings they are held
+    to: the readings of each, and every run's kernel counts under
+    ``counts``."""
+    counts: dict = {}
+    r_counts, r = ddp_model_axis()
+    counts.update(r_counts)
+    s_counts, s, s_resumed = mesh_localities()
+    counts.update(s_counts)
+    t_counts, t = spmd_mesh(s_resumed)
+    counts.update(t_counts)
+    return {"counts": counts, "ddp_model_axis": r, "mesh_localities": s,
+            "spmd_mesh": t}
 
 
 def tp_warmup(spec: dict, endpoint=None, driver=None) -> dict:
@@ -4809,18 +5401,20 @@ def model_axis() -> tuple[dict, dict]:
           f"serve all {full}; one data=2, model=2 step at {TP_D2_LAYERS}")
     print(f"CUT to {TP_LAYERS} (train, logits) and {TP_D2_LAYERS} (data=2, "
           f"model=2) of {full} layers: each oracle's float32 state with adamw "
-          f"beside the ranks' on the one card, and the phase's time")
+          f"beside the ranks' on the one card, and the phase's time; "
+          f"Session.serve to {TP_SERVE_GEN} of {SERVE['gen_len']} tokens a "
+          f"request (the script's time)")
     counts: dict = {}
     fails: list = []
     serve_plan = Plan(arch=cfg.name, tiny=False, model=2, device="cuda")
     t0 = time.perf_counter()
     with serve_plan.compile() as session:
         up_s = time.perf_counter() - t0
-        pids = [pr.pid for pr in session.distributed.group.procs.values()]
-        session.distributed.spmd_train({"loop": tp_warmup})
+        pids = [pr.pid for pr in session.ranks.group.procs.values()]
+        session.ranks.spmd_train({"loop": tp_warmup})
         oracle = tp_oracle_train(TP_TRAIN, stream, TP_STEPS)
         want_lg = tp_oracle_logits(TP_TRAIN)
-        warm = session.distributed.wait_spmd_done(timeout=300.0)
+        warm = session.ranks.wait_spmd_done(timeout=300.0)
         if not all(m.get("ok") for m in warm.values()):
             raise AssertionError(f"model-axis warm-up failed: {warm}")
         t1 = time.perf_counter()
@@ -4846,7 +5440,7 @@ def model_axis() -> tuple[dict, dict]:
         torch.cuda.empty_cache()
         t1 = time.perf_counter()
         _zero_counts()
-        served = session.serve(**SERVE)
+        served = session.serve(**dict(SERVE, gen_len=TP_SERVE_GEN))
         counts["tp_serve_L0"] = _counts()
         serve_s = time.perf_counter() - t1
         torch.cuda.empty_cache()
@@ -4886,8 +5480,9 @@ def model_axis() -> tuple[dict, dict]:
                      waves * full, 0, fails)
     gen = torch.cat(served["generated"])
     ref = SERVE_TOKENS.get(cfg.name)
-    same_tokens = None if ref is None else int((gen == ref).sum())
-    if gen.shape != (waves * SERVE["slots"], SERVE["gen_len"] + 1) or \
+    same_tokens = None if ref is None else int(
+        (gen == ref[:, :TP_SERVE_GEN + 1]).sum())
+    if gen.shape != (waves * SERVE["slots"], TP_SERVE_GEN + 1) or \
             int(gen.min()) < 0 or int(gen.max()) >= cfg.vocab or \
             not bool(torch.isfinite(served["first_prefill_logits"]).all()):
         fails.append(f"serve: tokens {gen.shape} out of range or logits "
@@ -4899,10 +5494,10 @@ def model_axis() -> tuple[dict, dict]:
     t1 = time.perf_counter()
     with d2_plan.compile() as session:
         d2_up_s = time.perf_counter() - t1
-        pids = [pr.pid for pr in session.distributed.group.procs.values()]
-        session.distributed.spmd_train({"loop": tp_warmup})
+        pids = [pr.pid for pr in session.ranks.group.procs.values()]
+        session.ranks.spmd_train({"loop": tp_warmup})
         d2_oracle = tp_oracle_train(TP_D2_TRAIN, stream, 1)
-        warm = session.distributed.wait_spmd_done(timeout=300.0)
+        warm = session.ranks.wait_spmd_done(timeout=300.0)
         if not all(m.get("ok") for m in warm.values()):
             raise AssertionError(f"data=2, model=2 warm-up failed: {warm}")
         d2 = session.run_ranks(tp_rank, {"plan": d2_plan, "stream": stream,
@@ -5037,9 +5632,9 @@ def _want_launches(name: str, launches: dict, want: dict,
 def _fam_warm_oracle(session, fn):
     """``fn()`` (the one-process oracles) in this process while the
     session's worker takes its cold start (``tp_warmup``)."""
-    session.distributed.spmd_train({"loop": tp_warmup})
+    session.ranks.spmd_train({"loop": tp_warmup})
     out = fn()
-    warm = session.distributed.wait_spmd_done(timeout=300.0)
+    warm = session.ranks.wait_spmd_done(timeout=300.0)
     if not all(m.get("ok") for m in warm.values()):
         raise AssertionError(f"model-axis warm-up failed: {warm}")
     return out
@@ -5196,7 +5791,7 @@ def moe_axis(counts: dict, fails: list) -> dict:
     t0 = time.perf_counter()
     with Plan(**splan).compile() as session:
         out["up_s"] = time.perf_counter() - t0
-        pids = [pr.pid for pr in session.distributed.group.procs.values()]
+        pids = [pr.pid for pr in session.ranks.group.procs.values()]
         t1 = time.perf_counter()
         oracles = _fam_warm_oracle(session, lambda: {
             name: tp_oracle_train(MOE_TP_F32, stream, S, name, opt)
@@ -5315,7 +5910,7 @@ def zamba_axis(counts: dict, fails: list) -> dict:
     t0 = time.perf_counter()
     with splan.compile() as session:
         out["up_s"] = time.perf_counter() - t0
-        pids = [pr.pid for pr in session.distributed.group.procs.values()]
+        pids = [pr.pid for pr in session.ranks.group.procs.values()]
         t1 = time.perf_counter()
         oracle, want_lg = _fam_warm_oracle(session, lambda: (
             tp_oracle_train(ZAMBA_TP_F32, f32_stream, S, "phylanx",
@@ -5445,7 +6040,7 @@ def xlstm_axis(counts: dict, fails: list) -> dict:
     t0 = time.perf_counter()
     with splan.compile() as session:
         out["up_s"] = time.perf_counter() - t0
-        pids = [pr.pid for pr in session.distributed.group.procs.values()]
+        pids = [pr.pid for pr in session.ranks.group.procs.values()]
         t1 = time.perf_counter()
         oracle = _fam_warm_oracle(session, lambda: tp_oracle_train(
             XLSTM_TP_F32, f32_stream, S, "phylanx", FAM_OPT["phylanx"]))
@@ -5592,7 +6187,7 @@ def whisper_axis(counts: dict, fails: list) -> dict:
     t0 = time.perf_counter()
     with splan.compile() as session:
         out["up_s"] = time.perf_counter() - t0
-        pids = [pr.pid for pr in session.distributed.group.procs.values()]
+        pids = [pr.pid for pr in session.ranks.group.procs.values()]
         t1 = time.perf_counter()
         oracle, self_order = _fam_warm_oracle(session, lambda: (
             tp_oracle_train(WHISPER_TP_F32, f32_stream, S, "phylanx",
@@ -5964,8 +6559,8 @@ def time_park_refill(gw, prompts) -> dict:
 
 def serve_stream_full(arch: str) -> tuple:
     """``Session.serve_stream`` of ``arch`` at full width, cut to
-    ``STREAM_LAYERS`` (random weights, seed 0): 8 requests arriving at
-    ``GATEWAY_ARRIVALS``, with
+    ``STREAM_LAYERS`` (random weights, seed 0): 8 requests of
+    ``STREAM_GEN`` tokens arriving at ``GATEWAY_ARRIVALS``, with
     every kernel launch count set to 0 just before and read just after.
     Checks completion, the paged-cache counters (every refill a page hit,
     no prefill recompute, every page reclaimed, the parked bytes those of
@@ -5984,7 +6579,8 @@ def serve_stream_full(arch: str) -> tuple:
           f"{get_config(arch).n_layers} layers, random weights (seed 0)")
     n = len(GATEWAY_ARRIVALS)
     trace = [{"at_round": r} for r in GATEWAY_ARRIVALS]
-    kw = dict(prompt_len=SERVE["prompt_len"], gen_len=SERVE["gen_len"],
+    gen = STREAM_GEN          # tokens a request
+    kw = dict(prompt_len=SERVE["prompt_len"], gen_len=gen,
               slots=SERVE["slots"])
     per_request = prefill_launches(cfg)
 
@@ -6003,8 +6599,7 @@ def serve_stream_full(arch: str) -> tuple:
         peak = torch.cuda.max_memory_allocated()
         gw = session._gateway
         serve, cache = res["runtime_stats"]["serve"], res["cache"]
-        pre1 = session._serve_steps_for(SERVE["prompt_len"],
-                                        SERVE["gen_len"], 1)[0]
+        pre1 = session._serve_steps_for(SERVE["prompt_len"], gen, 1)[0]
         leaves = pytree.tree_leaves(pre1.cache_specs, is_leaf=is_spec)
         nbytes = sum(sp.size * sp.dtype.itemsize for sp in leaves)
         pages = -(-nbytes // PAGE_BYTES)
@@ -6031,7 +6626,7 @@ def serve_stream_full(arch: str) -> tuple:
                 and cache["pages_live"] == 0
                 and cache["page_allocs"] == cache["page_frees"] == n * pages
                 and res["epochs"] >= 2
-                and all(len(s) == SERVE["gen_len"] + 1
+                and all(len(s) == gen + 1
                         for s in res["streams"].values())
                 and 0 <= min(tokens) and max(tokens) < cfg.vocab):
             raise AssertionError(f"{arch} serve_stream: {res['completed']} "
@@ -6416,6 +7011,21 @@ def main() -> int:
         print(json.dumps({"mesh_training": mesh}))
         print_phase_times()
         return 0
+    if sys.argv[1:] == ["--slice21-only"]:
+        # the mesh phase (the oracles), then (r), (s) and (t), after K1 at
+        # their shapes (their readings, no kernels line)
+        phase("K1 at (r)'s, (s)'s and (t)'s shapes against its plain "
+              "version")
+        check_kernels(torch.Generator(device="cuda").manual_seed(0),
+                      [S21_DDP_ATTN, S21_MESH_ATTN], 0)
+        check_fa_bwd(torch.Generator(device="cuda").manual_seed(0),
+                     [S21_DDP_ATTN, S21_MESH_ATTN], 0)
+        mesh_training()
+        s21 = slice21()
+        s21.pop("counts")
+        print(json.dumps({"slice21": s21}))
+        print_phase_times()
+        return 0
     if sys.argv[1:] == ["--model-axis-only"]:
         # the model-axis phase alone, serving over a mesh included, after
         # K1 at its sharded shapes and the one-process qwen3-4b serve
@@ -6541,6 +7151,8 @@ def main() -> int:
     launches["elastic_join"], elastic = elastic_join()
     mesh_launches, mesh = mesh_training()
     launches.update(mesh_launches)
+    s21 = slice21()
+    launches.update(s21.pop("counts"))
     tp_launches, tp = model_axis()
     launches.update(tp_launches)
     fam_launches, fam = model_axis_families()
@@ -6596,6 +7208,7 @@ def main() -> int:
     print(json.dumps({"checkpoint": ckpt_readings, "har_cnn": har,
                       "moe_layer": moe_layer}))
     print(json.dumps({"mesh_training": mesh}))
+    print(json.dumps({"slice21": s21}))
     print(json.dumps({"model_axis": tp}))
     print(json.dumps({"model_axis_families": fam}))
     print(json.dumps({"gateway_two_localities": gateway_2loc,

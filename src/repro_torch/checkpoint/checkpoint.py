@@ -123,6 +123,10 @@ class CheckpointManager:
         spmd: take the SPMD save path; None (the default) takes it in a
             ``torch.distributed`` world of more than one process
             (``spmd.is_multiprocess``), False never.
+        spmd_world: the SPMD save's process count, where it is not the
+            ``torch.distributed`` world's (SPMD mode with mesh axes: one
+            process a locality, each locality a world of its mesh's
+            ranks); this manager writes process 0's segments.
     Raises:
         ValueError: ``graph`` and ``dgraph.graph`` differ.
     """
@@ -131,8 +135,10 @@ class CheckpointManager:
                  async_save: bool = True,
                  graph: Optional[FuturizedGraph] = None,
                  dgraph: Optional[Any] = None,
-                 spmd: Optional[bool] = None):
+                 spmd: Optional[bool] = None,
+                 spmd_world: Optional[int] = None):
         self._spmd = spmd
+        self._spmd_world = spmd_world
         self.dir = Path(directory)
         self.dir.mkdir(parents=True, exist_ok=True)
         self.keep = keep
@@ -263,7 +269,8 @@ class CheckpointManager:
                 "async_save=False is unsupported in SPMD mode: a "
                 "synchronous save cannot await the other processes' "
                 "shard entries")
-        world, rank = spmd.world_rank()
+        world, rank = (self._spmd_world, 0) if self._spmd_world \
+            else spmd.world_rank()
         if rank != 0:
             raise RuntimeError(
                 "CheckpointManager.save drives SPMD saves from process 0 "

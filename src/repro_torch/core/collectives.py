@@ -66,7 +66,7 @@ import torch.utils._pytree as pytree
 from . import fusion
 
 __all__ = ["AXES", "all_gather", "all_gather_seq", "all_reduce", "axis_of",
-           "broadcast_object", "copy_to_model", "fused_pmean", "fused_psum",
+           "broadcast", "broadcast_object", "copy_to_model", "fused_pmean", "fused_psum",
            "gather_from_model", "halo_exchange", "naive_psum",
            "pipeline_shift", "pmean", "ppermute", "reduce_from_model",
            "reduce_scatter", "reduce_scatter_seq", "reset_stats",
@@ -247,6 +247,21 @@ def all_gather(x: torch.Tensor, mesh, *, axis: int = 0, tiled: bool = True,
           h.numel() * h.element_size(), mesh_axis)
     full = torch.cat(outs, dim=axis) if tiled else torch.stack(outs)
     return _back(full, x, mesh_axis)
+
+
+def broadcast(x: torch.Tensor, mesh, *, mesh_axis: str = "model"
+              ) -> torch.Tensor:
+    """The first ``mesh_axis`` rank's ``x`` on every rank of the group, a
+    new tensor on ``x``'s device (the others pass a tensor of the same
+    shape and dtype, whose values are not read)."""
+    if _size(mesh, mesh_axis) == 1:
+        return x
+    import torch.distributed as dist
+    h = _host(x, "broadcast", mesh_axis)
+    src = _world_ranks(mesh, mesh_axis)[0]
+    _wire(lambda: dist.broadcast(h, src=src, group=_group(mesh, mesh_axis)),
+          h.numel() * h.element_size(), mesh_axis)
+    return _back(h, x, mesh_axis)
 
 
 def broadcast_object(obj, mesh, *, mesh_axis: str = "mesh"):

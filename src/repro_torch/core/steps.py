@@ -235,6 +235,13 @@ class TrainStep:
     split_mask: Any = None       # per leaf: split over the model axis
     #: onebit: ``exchange_onebit``'s ``on_bucket`` seam (measurement)
     on_bucket: Any = None
+    #: ``(params, batch) -> (loss, grads)``: this rank's loss and its
+    #: blocks' gradients of its rows (the model group's partial sums
+    #: taken), before any dp exchange: fabric DDP's gradient half
+    grads: Any = None
+    #: ``(grads, opt, params) -> (params, opt, metrics)``: the optimizer
+    #: update in place, the norm global over the model group
+    apply: Any = None
     #: what ``fn_nodonate``'s input copies cost this process: calls, bytes
     #: and host seconds (the copies double the state's memory)
     copy_stats: dict = dataclasses.field(default_factory=lambda: {
@@ -460,7 +467,7 @@ def make_train_step(cfg=None, strategy: Optional[Strategy] = None, *,
         return loss, pytree.tree_unflatten(grads,
                                            pytree.tree_structure(params))
 
-    def fn(params, opt_state, batch):
+    def rank_grads(params, batch):
         seq = residual_seq(cfg, mesh, rules, batch)
         with act_hook(mesh, rules, seq_len=seq):
             loss, grads = grads_of(params, batch_rows(batch, mesh))
@@ -473,6 +480,13 @@ def make_train_step(cfg=None, strategy: Optional[Strategy] = None, *,
                     model.partial_mask(specs, ax) if frames is None else
                     model.partial_mask(specs, ax, enc_len=frames))
             grads = _sum_partials(grads, partial_masks[seq, frames], mesh)
+        return loss, grads
+
+    def apply(grads, opt_state, params):
+        return optim.update(grads, opt_state, params, oc, **norm_kw)
+
+    def fn(params, opt_state, batch):
+        loss, grads = rank_grads(params, batch)
         loss = collectives.pmean(loss, mesh)
         if strategy.name == "zero1":
             params, opt_state, m = overlap.zero1_update(
@@ -501,7 +515,8 @@ def make_train_step(cfg=None, strategy: Optional[Strategy] = None, *,
     step = TrainStep(fn=fn, model=model, specs=specs, strategy=strategy,
                      mesh=mesh, plan=onebit_plan, leaves=leaves,
                      scatter_mask=scatter_mask, bucket_bytes=bucket_bytes,
-                     rules=rules, split_mask=split_mask)
+                     rules=rules, split_mask=split_mask, grads=rank_grads,
+                     apply=apply)
 
     def fn_nodonate(params, opt_state, batch):
         dev = pytree.tree_leaves(params)[0].device
@@ -548,6 +563,35 @@ class DDPStep:
         return _init(self.specs, self.strategy.opt, generator, device)
 
 
+def check_ddp(strategy: Strategy, mesh=None) -> None:
+    """The reference's refusals of fabric DDP.
+
+    Raises:
+        ValueError: strategy is zero1, uses grad accumulation, or the
+            mesh has a dp axis > 1.
+    """
+    if strategy.name == "zero1":
+        raise ValueError("ddp=True cannot use the zero1 strategy: its "
+                         "optimizer state is dp-sharded inside one process, "
+                         "but fabric DDP replicates state per locality")
+    if strategy.grad_accum > 1:
+        raise ValueError("ddp=True with grad_accum > 1 is not supported "
+                         "yet; raise Plan.ddp_shards instead")
+    if dp_degree(mesh) > 1:
+        raise ValueError("ddp=True replaces the in-process dp axes: use a "
+                         "mesh with data=pod=1 (model-axis sharding is fine)")
+
+
+def ddp_grad_plan(specs):
+    """Fabric DDP's gradient buckets: ``optim.compression.make_plan`` over
+    the GLOBAL float32 leaves of ``specs`` with ``dp=1``, the buckets of
+    ``model=1`` on any model axis (the wire codec owns the exchange)."""
+    f32_specs = pytree.tree_map(
+        lambda s: dataclasses.replace(s, dtype=torch.float32), specs,
+        is_leaf=lambda x: hasattr(x, "dims"))
+    return compression.make_plan(f32_specs, 1)
+
+
 def make_ddp_step(cfg=None, strategy: Optional[Strategy] = None, *,
                   plan=None, mesh=None) -> DDPStep:
     """Build the split grad/apply step pair for fabric DDP.  Gradient
@@ -560,22 +604,10 @@ def make_ddp_step(cfg=None, strategy: Optional[Strategy] = None, *,
             mesh has a dp axis > 1, as in the reference.
     """
     cfg, strategy = _resolve(plan, cfg, strategy)
-    if strategy.name == "zero1":
-        raise ValueError("ddp=True cannot use the zero1 strategy: its "
-                         "optimizer state is dp-sharded inside one process, "
-                         "but fabric DDP replicates state per locality")
-    if strategy.grad_accum > 1:
-        raise ValueError("ddp=True with grad_accum > 1 is not supported "
-                         "yet; raise Plan.ddp_shards instead")
-    if dp_degree(mesh) > 1:
-        raise ValueError("ddp=True replaces the in-process dp axes: use a "
-                         "mesh with data=pod=1 (model-axis sharding is fine)")
+    check_ddp(strategy, mesh)
     model = build_model(cfg)
     specs = model.specs()
-    f32_specs = pytree.tree_map(
-        lambda s: dataclasses.replace(s, dtype=torch.float32), specs,
-        is_leaf=lambda x: hasattr(x, "dims"))
-    gplan = compression.make_plan(f32_specs, 1)
+    gplan = ddp_grad_plan(specs)
     oc = strategy.opt
 
     def grad_fn(params, batch):

@@ -70,6 +70,11 @@ class GradCodec:
 
     def __init__(self):
         self.device = torch.device("cpu")
+        #: a measurement seam (None in runs): the onebit codec calls
+        #: ``probe.encoded(i, buf, err, packed, scale, new_err)`` after
+        #: each bucket's K3a and ``probe.decoded(packed, scale, out)``
+        #: after each K3b, the residual ``err`` copied first
+        self.probe = None
 
     def reset(self, plan, device="cpu") -> None:
         """(Re-)initialize per-run codec state for ``plan``'s buckets on
@@ -130,8 +135,11 @@ class OneBitCodec(GradCodec):
     def encode(self, bufs) -> list[bytes]:
         out = []
         for i, buf in enumerate(bufs):
+            err = self._err[i] if self.probe is None else self._err[i].clone()
             packed, scale, self._err[i] = compression.quantize_bucket(
                 buf.float(), self._err[i])
+            if self.probe is not None:
+                self.probe.encoded(i, buf, err, packed, scale, self._err[i])
             out.append(packed.cpu().numpy().tobytes()
                        + scale.cpu().numpy().tobytes())
         return out
@@ -141,9 +149,12 @@ class OneBitCodec(GradCodec):
         nb = rows * (compression.ROW // 32) * 4
         packed = _from_bytes(data[:nb], np.int32, self.device)
         scale = _from_bytes(data[nb:], np.float32, self.device)
-        return compression.dequantize_bucket(
-            packed.reshape(rows, compression.ROW // 32),
-            scale.reshape(rows, 1), bucket.size)
+        packed = packed.reshape(rows, compression.ROW // 32)
+        scale = scale.reshape(rows, 1)
+        out = compression.dequantize_bucket(packed, scale, bucket.size)
+        if self.probe is not None:
+            self.probe.decoded(packed, scale, out)
+        return out
 
     def wire_bytes(self, plan) -> int:
         return sum(b.size // 8 + 4 * (b.size // compression.ROW)
@@ -289,7 +300,8 @@ class RingAllReduce:
 
     # -- the collective ------------------------------------------------------
     def allreduce(self, step: int, bufs, meta: Any = None, *,
-                  timeout: float = 300.0):
+                  timeout: float = 300.0,
+                  consume: Optional[Callable] = None):
         """Sum ``bufs`` (this rank's float32 bucket partials) across the
         ring.
 
@@ -301,14 +313,19 @@ class RingAllReduce:
 
         Args:
             step: monotone step index (keys segment matching).
-            bufs: float32 bucket buffers, one per plan bucket.
+            bufs: float32 bucket buffers, one per plan bucket (any
+                iterable: the encode takes one bucket at a time, so a
+                generator that builds each bucket keeps one resident).
             meta: small picklable sidecar (the shard loss, as numpy)
                 carried on the bucket-0 segment; not counted as gradient
                 wire bytes.
             timeout: seconds to wait for the other ranks' segments.
+            consume: ``consume(i, sum)`` as soon as bucket ``i``'s sum is
+                made, which is then not kept (a sum at a time resident).
         Returns:
             ``(summed_bufs, metas)``: the rank-ordered per-bucket sums on
-            the codec's device and ``{origin_rank: meta}``.
+            the codec's device (None each, with ``consume``) and
+            ``{origin_rank: meta}``.
         Raises:
             LocalityLostError: a peer died mid-exchange (ring poisoned).
             TimeoutError: segments missing after ``timeout``.
@@ -355,17 +372,18 @@ class RingAllReduce:
                 got = {o: [self._inbox.pop((gen, int(step), o, i))
                            for i in range(len(payloads))]
                        for o in range(self.world) if o != self.rank}
+        datas = {o: payloads if o == self.rank else [d for d, _ in got[o]]
+                 for o in range(self.world)}
+        metas = {o: meta if o == self.rank else got[o][0][1]
+                 for o in range(self.world)}
         acc: list = [None] * len(payloads)
-        metas: dict[int, Any] = {}
-        for origin in range(self.world):          # fixed combine order
-            if origin == self.rank:
-                datas, metas[origin] = payloads, meta
-            else:
-                datas = [d for d, _ in got[origin]]
-                metas[origin] = got[origin][0][1]
-            for i, data in enumerate(datas):
-                dec = codec.decode(data, plan.buckets[i])
+        for i in range(len(payloads)):
+            for origin in range(self.world):      # fixed combine order
+                dec = codec.decode(datas[origin][i], plan.buckets[i])
                 acc[i] = dec if acc[i] is None else acc[i] + dec
+            if consume is not None:    # handed out, and let go at once
+                consume(i, acc[i])
+                acc[i] = None
         return acc, metas
 
     # -- wire handler --------------------------------------------------------

@@ -46,8 +46,13 @@ Task functions must be picklable (module-level functions or bound methods
 of picklable objects); closures fail with a clear error at dispatch.  No
 CUDA tensor crosses the wire: workers build host values (numpy), and each
 locality does its own device work on the device of the plan it is given.
-Worker processes are spawned (``multiprocessing`` "spawn"), never forked,
-so no child inherits a CUDA context.
+Worker processes start from a ``multiprocessing`` "forkserver" that has
+imported torch and nothing else: a child is forked from a process that
+never touched a device, so none inherits a CUDA context, and none pays a
+fresh interpreter's ``import torch`` (most of a session's bring-up on an
+H100 host: ``tools/cold_start_probe.py``).  Each child then takes the
+driver's environment as it stands at its start, as a spawned child
+would.
 """
 from __future__ import annotations
 
@@ -427,21 +432,36 @@ def worker_main(rank: int, world: int, driver_addr,
                 env: Optional[dict] = None):
     """Spawned-process entry point: become locality ``rank`` and serve.
 
-    ``env`` entries are exported before any device work (the session
-    forwards the checkpoint directory as ``PHYRAX_CKPT_DIR``, an elastic
-    driver ``PHYRAX_ELASTIC``, an SPMD session its gloo coordinator as
-    ``PHYRAX_DIST_COORDINATOR``); ``_locality_env`` then exports the
+    ``env`` becomes the whole environment before any device work: the
+    driver's at this process's start (the forkserver's own is older),
+    with what the session adds (the checkpoint directory as
+    ``PHYRAX_CKPT_DIR``, an elastic driver ``PHYRAX_ELASTIC``, an SPMD
+    session its gloo coordinator as ``PHYRAX_DIST_COORDINATOR``);
+    ``_locality_env`` then exports the
     rank, and ``launch.mesh.maybe_init_distributed`` joins the
     ``torch.distributed`` world (a no-op unless a coordinator is set)
     before this process serves: the driver's own join, on a thread,
-    completes only when every rank has joined.  The world is torn down
-    after the driver's shutdown.
+    completes only when every rank has joined.  Where the session names
+    each process's world (``PHYRAX_DIST_PLACES``, read by
+    ``launch.mesh.place_of``: a mesh world per locality), this process
+    joins the world its place names, and a process without a place (a
+    task locality) joins none.  The world is torn down after the
+    driver's shutdown.
     """
-    for k, v in (env or {}).items():
-        os.environ[k] = v
+    if env is not None:
+        os.environ.clear()
+        os.environ.update(env)
     _locality_env(rank)
-    from ..launch.mesh import maybe_init_distributed
-    spmd = maybe_init_distributed(process_id=rank, num_processes=world)
+    from ..launch.mesh import maybe_init_distributed, place_of
+    place = place_of(rank)
+    if place is not None:        # a rank of one locality's mesh world
+        spmd = maybe_init_distributed(coordinator=place["coordinator"],
+                                      num_processes=place["size"],
+                                      process_id=place["rank"])
+    elif os.environ.get("PHYRAX_DIST_PLACES"):
+        spmd = False             # a task locality: in no world
+    else:
+        spmd = maybe_init_distributed(process_id=rank, num_processes=world)
     elastic = os.environ.get("PHYRAX_ELASTIC", "") not in ("", "0")
     try:
         Locality(rank, world, elastic=elastic).serve(tuple(driver_addr))
@@ -487,11 +507,20 @@ def join_locality(driver_addr: tuple[str, int], *,
 # ---------------------------------------------------------------------------
 # Driver side
 # ---------------------------------------------------------------------------
+def _start_context():
+    """The ``multiprocessing`` context worker processes start from: the
+    forkserver, with torch imported there once (see the module
+    docstring)."""
+    ctx = mp.get_context("forkserver")
+    ctx.set_forkserver_preload(["torch"])
+    return ctx
+
+
 class LocalityGroup:
     """Driver-side handle on the spawned worker localities.
 
-    Spawns ``n_workers`` processes (ranks 1..n) with the ``spawn`` start
-    method, waits for each to report in, then broadcasts the address book
+    Starts ``n_workers`` processes (ranks 1..n) from the forkserver
+    (``_start_context``), waits for each to report in, then broadcasts the address book
     so workers can reach each other (AGAS fetches, the gradient ring).
     ``kill`` is the failure-drill seam; ``add_worker`` and ``next_rank``
     are the elastic join's.
@@ -547,10 +576,10 @@ class LocalityGroup:
         self._started = True
 
     def _spawn(self, rank: int):
-        p = mp.get_context("spawn").Process(
+        env = dict(os.environ, **(self._worker_env or {}))
+        p = _start_context().Process(
             target=worker_main, daemon=True,
-            args=(rank, self.world, tuple(self.endpoint.address),
-                  self._worker_env))
+            args=(rank, self.world, tuple(self.endpoint.address), env))
         p.start()
         self.procs[rank] = p
 
@@ -771,6 +800,7 @@ class DistributedGraph:
         # buffered entry value (the worker's post arrived first)
         self._spmd_entries: dict[tuple[int, int], Any] = {}
         self._spmd_done: dict[int, dict] = {}
+        self._spmd_ranks: Optional[set] = None   # spmd_train's ranks=
         self._closed = False
 
     @property
@@ -1377,7 +1407,7 @@ class DistributedGraph:
         return done
 
     # -- SPMD mode (DESIGN.md §10) ---------------------------------------------
-    def spmd_train(self, spec: dict):
+    def spmd_train(self, spec: dict, ranks=None):
         """Start the SPMD shadow train loop (``frontend.spmd``) on every
         alive worker locality: each mirrors the driver's device
         computation in lockstep and writes its own checkpoint segments
@@ -1388,10 +1418,15 @@ class DistributedGraph:
                 ``ckpt_dir``, ``resume``, ``stream`` and ``num_threads``
                 (the driver's CPU thread count, so that CPU float32 sums
                 run in the same order in every process).
+            ranks: the workers to start it on (None: every alive one);
+                ``wait_spmd_done`` then waits for these alone.
         """
         with self._lock:
             self._spmd_done.clear()    # completions are per-run
+            self._spmd_ranks = None if ranks is None else set(ranks)
         for rank in self.group.alive_workers():
+            if ranks is not None and rank not in ranks:
+                continue
             try:
                 self.endpoint.post(rank, "spmd_train", spec)
             except PeerLostError:      # died since alive_workers(): its
@@ -1478,7 +1513,8 @@ class DistributedGraph:
 
     def wait_spmd_done(self, timeout: float = 600.0) -> dict:
         """Block until every *alive* worker's shadow train loop reported
-        completion (a killed worker is excused - its saves aborted).
+        completion (a killed worker is excused - its saves aborted), of
+        the workers ``spmd_train`` started it on.
 
         Returns:
             ``{rank: done message}`` as received, each with ``ok`` and,
@@ -1491,6 +1527,8 @@ class DistributedGraph:
 
         def ready():
             alive = set(self.group.alive_workers())
+            if self._spmd_ranks is not None:
+                alive &= self._spmd_ranks
             return all(r in self._spmd_done for r in alive)
 
         with self._lock:

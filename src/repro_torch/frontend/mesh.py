@@ -13,7 +13,8 @@ loop, ``train_loop``, is also SPMD mode's shadow loop
 (``frontend/spmd.py``): a mesh of one with a save of its own.
 ``Session.serve`` on any mesh runs ``rank_serve`` the same way: the wave
 loop on every rank, on the same requests, each dp rank on its rows of
-every wave.  ``Session.serve_stream`` on a mesh runs
+every wave (waves stacked on a task locality where the session has
+some).  ``Session.serve_stream`` on a mesh runs
 ``rank_serve_stream``: rank 0 drives the gateway (``frontend/gateway.py``:
 admission, deadlines, routing and the live queue stay on its clock and
 threads), and every other rank follows its command stream.
@@ -25,7 +26,8 @@ alone, never of one rank's state:
     the train step from the same ``Plan``, and draws the same parameters
     from ``plan.seed``;
   * batch ``it`` is ``stream.batch_at(it)`` on every rank, each taking its
-    own rows (``steps.batch_rows``);
+    own rows (``steps.batch_rows``), or, beside task localities, the
+    batch a task locality built, fed by rank 0 over the whole-mesh group;
   * a resume restores the step the driver chose (``spec["start"]``) from
     the shared directory on every rank, each cutting its own shard;
   * saves happen at the same steps on every rank, each starting with the
@@ -72,26 +74,35 @@ from ..launch.mesh import make_local_mesh
 from .gateway import DeviceBodies, _adopt
 
 __all__ = ["Lockstep", "rank_serve", "rank_serve_stream", "rank_train",
-           "serve_loop", "stream_steps", "train_loop"]
+           "serve_loop", "serve_waves", "spec_prompts", "stream_steps",
+           "train_loop"]
 
 
 def train_loop(spec: dict, *, save: Optional[Callable] = None,
-               on_step: Optional[Callable] = None) -> dict:
+               on_step: Optional[Callable] = None,
+               batch_of: Optional[Callable] = None) -> dict:
     """The lockstep train loop of one rank: a mesh rank's (``rank_train``)
     and an SPMD shadow process's (``frontend.spmd.shadow_train``, on a
-    mesh of one), each with its own ``save``.
+    mesh of one, or on its locality's mesh), each with its own ``save``.
 
     Args:
         spec: ``{"plan", "steps", "start", "ckpt_dir", "ckpt_every",
             "fail_at_step", "resilience", "fault_hook", "stream",
-            "num_threads"}``; ``start`` is the checkpoint step to resume
-            from (0: the seed's init), ``fault_hook`` a module-level
-            callable given to ``ResilientRunner`` on every rank (a test
-            seam; None in runs).
+            "num_threads", "feed", "params"}``; ``start`` is the
+            checkpoint step to resume from (0: the seed's init, or
+            ``params``: a host tree of the global parameters in the
+            reference's layout, a test seam), ``fault_hook`` a
+            module-level callable given to ``ResilientRunner`` on every
+            rank (a test seam; None in runs); ``feed`` (a mesh with task
+            localities) says that rank 0 hands every rank each step's
+            host batch over the whole-mesh group (axis ``mesh``) instead
+            of each rank drawing it from the stream.
         save: ``save(step_count, train_step, params, opt, metrics)``
             every ``ckpt_every`` steps and after the last step unless the
             cadence saved it or nothing ran (None: no saves).
         on_step: ``on_step(it, metrics)`` after every step.
+        batch_of: rank 0's ``batch_of(it)``: the host batch it feeds
+            (built on a task locality).
     Returns:
         dict with ``step``, ``final_loss``, ``params``, ``launches`` (each
         kernel wrapper's launches in this loop), ``wire``
@@ -115,9 +126,14 @@ def train_loop(spec: dict, *, save: Optional[Callable] = None,
     mesh = make_local_mesh(data=plan.data, model=plan.model, pod=plan.pod)
     step = steps_lib.make_train_step(plan.config(), plan.build_strategy(),
                                      plan=plan, mesh=mesh)
+    feed = bool(spec.get("feed"))
     params, opt = step.init(
         torch.Generator(device=device).manual_seed(plan.seed), device)
     start, ckpt_dir = int(spec.get("start") or 0), spec.get("ckpt_dir")
+    if spec.get("params") is not None and not start:
+        from ..bridge import params_from_numpy
+        params = step.shard_params(
+            params_from_numpy(spec["params"], plan.config(), "cpu"), device)
     if start:
         with CheckpointManager(ckpt_dir, async_save=False, spmd=False) as cm:
             _, (pg, og) = cm.restore(
@@ -138,7 +154,12 @@ def train_loop(spec: dict, *, save: Optional[Callable] = None,
     for it in range(start, steps):
         if spec.get("fail_at_step") == it:
             raise RuntimeError(f"injected node failure at step {it}")
-        batch = to_device(stream.batch_at(it), device)
+        if feed:
+            host = collectives.broadcast_object(
+                batch_of(it) if batch_of is not None else None, mesh)
+        else:
+            host = stream.batch_at(it)
+        batch = to_device(host, device)
         if resilience == "replay":
             metrics, params, opt = runner.replay(params, opt, batch)
         elif resilience == "replicate":
@@ -188,7 +209,8 @@ def rank_train(spec: dict, endpoint: Optional[Any] = None, *,
             driver.save(s, gathered, metrics)
 
     out = train_loop(spec, save=save if spec.get("ckpt_dir") else None,
-                     on_step=driver.on_step if driver is not None else None)
+                     on_step=driver.on_step if driver is not None else None,
+                     batch_of=driver.batch if driver is not None else None)
     if driver is None:
         out["params"] = None
     return out
@@ -222,6 +244,31 @@ def _launches(before: dict) -> dict:
     return {fn.__name__: fn.launches - before[fn.__name__] for fn in KERNELS}
 
 
+def spec_prompts(spec: dict) -> list:
+    """The requests of a serve spec: ``spec["prompts"]``, else
+    ``spec["requests"]`` seeded ones (the one-process loop's)."""
+    prompts = spec.get("prompts")
+    if prompts is None:
+        plan = spec["plan"]
+        rng = np.random.default_rng(plan.seed)
+        prompts = [rng.integers(0, plan.config().vocab, spec["prompt_len"])
+                   .astype(np.int32) for _ in range(spec["requests"])]
+    return list(prompts)
+
+
+def serve_waves(prompts: list, slots: int, prompt_len: int) -> list:
+    """The wave loop's waves, as the one-process loop takes them: ``[(the
+    wave's ``slots`` prompts, idle slots padded with zeros, its real
+    count), ...]``."""
+    waiting, out = list(prompts), []
+    while waiting:
+        wave = [waiting.pop() for _ in range(min(slots, len(waiting)))]
+        n_real = len(wave)
+        out.append((wave + [np.zeros(prompt_len, np.int32)]
+                    * (slots - n_real), n_real))
+    return out
+
+
 def serve_loop(spec: dict) -> dict:
     """The wave loop of one rank of a mesh: the serve steps on this
     rank's blocks (``core/steps.py`` over ``decode_rules``), the same
@@ -232,10 +279,13 @@ def serve_loop(spec: dict) -> dict:
 
     Args:
         spec: ``{"plan", "requests", "prompt_len", "gen_len", "slots",
-            "prompts", "params", "num_threads"}``; ``prompts`` a list of
-            int32 arrays (None: ``requests`` seeded ones, the one-process
-            loop's), ``params`` a host tree of the global serve parameters
-            in the reference's layout (a test seam; None: drawn from
+            "prompts", "waves", "params", "num_threads"}``; ``prompts`` a
+            list of int32 arrays (None: ``requests`` seeded ones, the
+            one-process loop's), ``waves`` the waves already stacked
+            (``[(int32 [slots, prompt_len], real count), ...]``: a task
+            locality's ``stack``; None: ``serve_waves`` of the prompts),
+            ``params`` a host tree of the global serve parameters in the
+            reference's layout (a test seam; None: drawn from
             ``plan.seed``).
     Returns:
         dict with the one-process loop's keys (``tokens_per_s``,
@@ -258,13 +308,10 @@ def serve_loop(spec: dict) -> dict:
     dec = steps_lib.make_decode_step(cfg, shape, mesh=mesh)
     params = _serve_params(spec, pre, device)
     rows = pre.rows
-    prompts = spec.get("prompts")
-    if prompts is None:
-        rng = np.random.default_rng(plan.seed)
-        prompts = [rng.integers(0, cfg.vocab, prompt_len).astype(np.int32)
-                   for _ in range(spec["requests"])]
-    waiting = list(prompts)
-    requests = len(waiting)
+    waves = spec.get("waves")
+    if waves is None:
+        waves = serve_waves(spec_prompts(spec), slots, prompt_len)
+    requests = sum(n for _, n in waves)
 
     def clock(t0):
         if device.type == "cuda":
@@ -277,15 +324,11 @@ def serve_loop(spec: dict) -> dict:
     collectives.reset_stats()
     generated, nodes, first, cache_shapes = [], [], None, None
     prefill_s, decode_s = [], []
-    tokens_out = padded_out = done = 0
+    tokens_out = padded_out = 0
     t_start = time.perf_counter()
     with torch.no_grad():
-        while waiting and done < requests:
-            wave = [waiting.pop() for _ in range(min(slots, len(waiting)))]
-            n_real = len(wave)
-            wave += [np.zeros(prompt_len, np.int32)] * (slots - n_real)
-            w = len(generated)
-            toks = torch.from_numpy(np.stack(wave[rows])).to(device,
+        for w, (wave, n_real) in enumerate(waves):
+            toks = torch.from_numpy(np.stack(wave)[rows]).to(device,
                                                              torch.int64)
             batch = {"tokens": toks}
             if cfg.family == "encdec":
@@ -317,7 +360,6 @@ def serve_loop(spec: dict) -> dict:
             generated.append(dec.gather_rows(out).cpu())
             tokens_out += n_real * gen_len
             padded_out += (slots - n_real) * gen_len
-            done += n_real
     dt = clock(t_start)
     return {"tokens_per_s": tokens_out / dt if dt else 0.0,
             "requests": requests, "tokens": tokens_out,

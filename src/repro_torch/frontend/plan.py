@@ -33,23 +33,34 @@ own checkpoint segments (``checkpoint/spmd.py``).  ``Session.lint`` runs
 phylint's static passes over the session's live graph.
 ``Plan(data=D, pod=P, model=M)`` with ``D * P * M > 1`` is a mesh
 session: ``compile`` stands up a ``torch.distributed`` world of ``D * P *
-M`` rank processes (this process rank 0, the others spawned as worker
-localities, over SPMD mode's bring-up), and ``train`` runs the mesh train
-step (``core/steps.py``: the phylanx, horovod, zero1 and onebit
-strategies; a model axis > 1 splits every family's layers over each
-row of M ranks) in lockstep on every rank (``frontend/mesh.py``), with
-checkpoints in the reference's global layout and the
-``replay``/``replicate`` resilience modes.  ``serve`` on any mesh runs
-the wave loop on every rank (``frontend/mesh.rank_serve``: each dp rank
-on its rows of every wave, a single stream's cache tiled by sequence as
-``decode_rules`` says; it ignores ``Strategy.sequence_parallel``, as the
-reference's serve steps take ``decode_rules``, while ``train`` runs it),
-and ``serve_stream`` runs the gateway on rank 0 with every other rank
+M`` rank processes (this process rank 0, the others spawned as the
+workers of ``self.ranks``), and ``train`` runs the mesh train step
+(``core/steps.py``: the phylanx, horovod, zero1 and onebit strategies; a
+model axis > 1 splits every family's layers over each row of M ranks)
+in lockstep on every rank (``frontend/mesh.py``), with checkpoints in
+the reference's global layout and the ``replay``/``replicate``
+resilience modes.  ``serve`` on any mesh runs the wave loop on every
+rank (``frontend/mesh.rank_serve``: each dp rank on its rows of every
+wave, a single stream's cache tiled by sequence as ``decode_rules``
+says; it ignores ``Strategy.sequence_parallel``, as the reference's
+serve steps take ``decode_rules``, while ``train`` runs it), and
+``serve_stream`` runs the gateway on rank 0 with every other rank
 following its command stream (``frontend/mesh.rank_serve_stream``).
-What is still missing raises ``NotImplementedError`` naming the ROADMAP
-item that brings it: fabric DDP beside a model axis and a mesh with SPMD
-mode, fabric localities or elastic membership (item 14b), the
-production meshes and named shapes (item 15).
+
+A mesh composes with the other multi-process modes as the reference's
+does, where the mesh is one process's devices (``mesh_group``): beside
+fabric localities or elastic membership the localities are *task
+localities* (``self.distributed``, in no ``torch.distributed`` world)
+that build each step's batch, stack each serve wave, home gateway
+replicas and own checkpoint shards, while the ranks compute; fabric DDP
+beside a model axis gives each locality a model group of rank processes
+whose coordinate 0 is the locality's member of the gradient ring
+(``frontend/ddp.py``); SPMD mode with mesh axes gives each locality a
+world of its mesh's ranks, all in lockstep, each locality writing its
+segments.  What is still missing raises ``NotImplementedError`` naming
+the ROADMAP item that brings it: the production meshes and named shapes
+(item 15), and a stage axis beside other axes (``launch/mesh.py``, item
+14b part 7).
 """
 from __future__ import annotations
 
@@ -63,6 +74,7 @@ import torch
 
 from ..checkpoint.checkpoint import CheckpointManager
 from ..configs import get_config
+from ..core import collectives
 from ..core import steps as steps_lib
 from ..core.futures import FuturizedGraph, Lane, Pipeline, block_until_ready
 from ..core.resilience import ResilientRunner
@@ -70,10 +82,11 @@ from ..core.sharding import init_params
 from ..data.pipeline import Prefetcher, stream_for
 from ..distrib.collectives import CODECS, RingAllReduce
 from ..distrib.runtime import DistributedGraph
-from .ddp import DDPEngine
+from .ddp import DDPEngine, ddp_rank_train
 from .futurize import Trace
 from .gateway import Gateway, RequestQueue
-from .mesh import rank_serve, rank_serve_stream, rank_train
+from .mesh import rank_serve, rank_serve_stream, rank_train, serve_waves, \
+    spec_prompts
 
 __all__ = ["Plan", "Session"]
 
@@ -160,20 +173,35 @@ def _destroy_world():
 
 
 def _unsupported(plan: Plan) -> Optional[str]:
-    n = plan.data * plan.pod * plan.model
     if plan.mesh != "local":
         return (f"the {plan.mesh!r} production mesh (dryrun's, ROADMAP "
                 f"item 15)")
     if plan.shape is not None:
         return "named shapes (dryrun, ROADMAP item 15)"
-    if n > 1 and plan.spmd:
-        return "SPMD mode with mesh axes (ROADMAP item 14b)"
-    if n > 1 and (plan.localities > 1 or plan.elastic):
-        return ("mesh axes with fabric localities or elastic membership "
-                "(ROADMAP item 14b)")
-    if plan.model > 1 and plan.ddp:
-        return "fabric DDP with a model axis (ROADMAP item 14b)"
     return None
+
+
+def mesh_group(plan: Plan) -> tuple[int, int]:
+    """``(worlds, size)``: the mesh worlds of rank processes a session of
+    ``plan`` stands up and the ranks of each (``(0, 1)``: none).
+
+    * a mesh (``data * pod * model > 1``): one world of its ranks, the
+      driver rank 0; its localities (``localities > 1``, elastic
+      joiners) are task localities beside it, in no world;
+    * fabric DDP beside a model axis: one world of ``model`` ranks for
+      each locality, the locality's own process rank 0 (the member of
+      the gradient ring);
+    * SPMD mode with mesh axes: one world of the mesh's ranks for each
+      locality, as the reference's identical local meshes, one a process.
+    """
+    n = plan.data * plan.pod * plan.model
+    if plan.ddp and plan.model > 1:
+        return max(plan.localities, 1), plan.model
+    if plan.spmd and n > 1:
+        return plan.localities, n
+    if n > 1:
+        return 1, n
+    return 0, 1
 
 
 class Session:
@@ -248,26 +276,39 @@ class Session:
         #: ``train`` (a module-level callable, on every rank of a mesh): a
         #: test seam, kept out of ``train``'s signature, the reference's
         self._fault_hook = None
+        #: fabric DDP's codec probe (``GradCodec.probe``, shipped to every
+        #: locality, its ``report`` in each one's result): a test and
+        #: measurement seam, kept out of ``train``'s signature
+        self._codec_probe = None
         self.cfg = plan.config()
         self.strategy = plan.build_strategy()
         self.runtime = FuturizedGraph(max_workers=max_workers,
                                       name=f"session:{plan.arch}")
         self.distributed = None
-        #: rank processes of a mesh session (1: no mesh world); its ranks
-        #: are the worker localities (a mesh with localities is refused)
+        #: rank processes of a mesh session (1: no mesh world)
         self.mesh_ranks = plan.data * plan.pod * plan.model
+        #: the mesh worlds' rank processes that are not localities
+        #: (``mesh_group``): a ``DistributedGraph`` whose workers only run
+        #: rank loops (``run_ranks``); None without a mesh world
+        self.ranks = None
+        self.mesh_worlds, self.mesh_size = mesh_group(plan)
         #: ``serve``'s parameters on a mesh, as a host tree in the
         #: reference's layout (None: drawn from ``plan.seed``): a test
         #: seam, kept out of ``serve``'s signature, the reference's
         self._serve_params = None
-        n = max(plan.localities, self.mesh_ranks)
-        if n > 1 or plan.elastic:
+        #: ``train``'s initial parameters on a mesh, the same kind of
+        #: host tree (None: drawn from ``plan.seed``): a test seam
+        self._train_params = None
+        if self.mesh_size > 1:
+            self._start_meshes(plan)
+        elif plan.localities > 1 or plan.elastic:
+            n = plan.localities
             # workers get the checkpoint dir at spawn (PHYRAX_CKPT_DIR):
             # each locality creates it and writes its own shards there
             env = {"PHYRAX_CKPT_DIR": plan.ckpt_dir} if plan.ckpt_dir \
                 else {}
             init_thread = None
-            if plan.spmd or self.mesh_ranks > 1:
+            if plan.spmd:
                 env, init_thread = self._start_distributed(env, n)
             # dial-in joiners adopt the environment spawned workers get
             join_spec = {"env": dict(env)} if plan.elastic else None
@@ -291,15 +332,83 @@ class Session:
         self._serve_steps: dict[tuple, tuple] = {}
         self._closed = False
 
+    def _start_meshes(self, plan: Plan) -> None:
+        """Stand up the session's mesh worlds (``mesh_group``): the
+        driver joins world 0 as its rank 0 on a thread; the localities
+        (task localities beside one mesh, or each locality's rank 0) are
+        ``self.distributed``'s workers, the other ranks ``self.ranks``'s,
+        both groups spawned at once, since a world completes only when
+        all of its ranks have joined.  Each process finds its world in
+        its spawn environment (``launch.mesh.mesh_places``); a task
+        locality and an elastic joiner have none."""
+        import json
+
+        from ..launch.mesh import free_port, maybe_init_distributed, \
+            mesh_places
+        worlds, size = self.mesh_worlds, self.mesh_size
+        coords = [f"127.0.0.1:{free_port()}" for _ in range(worlds)]
+        places = mesh_places(coords, size)
+        base = {"PHYRAX_CKPT_DIR": plan.ckpt_dir} if plan.ckpt_dir else {}
+        loc_env = dict(base, PHYRAX_DIST_PLACES=json.dumps(
+            places["localities"]))
+        rank_env = dict(base, PHYRAX_DIST_PLACES=json.dumps(places["ranks"]))
+        self._dist_init_error: list = []
+
+        def init():
+            try:
+                maybe_init_distributed(process_id=0, num_processes=size,
+                                       coordinator=coords[0])
+            except BaseException as e:  # noqa: BLE001 - re-raised below
+                self._dist_init_error.append(e)
+
+        init_thread = threading.Thread(target=init, daemon=True,
+                                       name="distributed-init")
+        init_thread.start()
+        made: dict = {}
+
+        def make_ranks():
+            try:
+                made["ranks"] = DistributedGraph(
+                    localities=1 + worlds * (size - 1), graph=self.runtime,
+                    worker_env=rank_env, name=f"ranks:{plan.arch}")
+            except BaseException as e:  # noqa: BLE001 - re-raised below
+                made["error"] = e
+
+        t = threading.Thread(target=make_ranks, daemon=True,
+                             name="rank-spawn")
+        t.start()
+        try:
+            try:
+                if plan.localities > 1 or plan.elastic:
+                    self.distributed = DistributedGraph(
+                        localities=plan.localities, graph=self.runtime,
+                        worker_env=loc_env, name=f"session:{plan.arch}",
+                        elastic=plan.elastic,
+                        elastic_port=plan.elastic_port,
+                        join_spec={"env": dict(loc_env)}
+                        if plan.elastic else None)
+            finally:
+                t.join()
+                self.ranks = made.get("ranks")
+            if "error" in made:
+                raise made["error"]
+            self._join_world(init_thread)
+        except BaseException:
+            for g in (self.distributed, self.ranks):
+                if g is not None:
+                    g.shutdown(wait=False)
+            self.runtime.shutdown(wait=False)
+            _destroy_world()
+            raise
+
     def _start_distributed(self, env: dict, n: int):
-        """World bring-up (SPMD mode, and a mesh session's rank
-        processes): pick a loopback coordinator, put it in the workers'
-        spawn environment, and start the driver's own join (rank 0 of
-        ``n``) on a thread: it blocks until every process has joined, and
-        the workers are spawned only by the ``DistributedGraph`` made
-        next.  This process's ``os.environ`` stays untouched, so a later
-        session in the same interpreter cannot inherit a stale
-        coordinator."""
+        """World bring-up of SPMD mode without mesh axes: pick a
+        loopback coordinator, put it in the workers' spawn environment,
+        and start the driver's own join (rank 0 of ``n``) on a thread: it
+        blocks until every process has joined, and the workers are
+        spawned only by the ``DistributedGraph`` made next.  This
+        process's ``os.environ`` stays untouched, so a later session in
+        the same interpreter cannot inherit a stale coordinator."""
         from ..launch.mesh import free_port, maybe_init_distributed
         coord = f"127.0.0.1:{free_port()}"
         env = dict(env)
@@ -337,9 +446,11 @@ class Session:
             try:
                 if self.distributed is not None:
                     self.distributed.shutdown(wait=True)
+                if self.ranks is not None:
+                    self.ranks.shutdown(wait=True)
                 self.runtime.shutdown(wait=True)
             finally:
-                if self.plan.spmd or self.mesh_ranks > 1:
+                if self.plan.spmd or self.mesh_size > 1:
                     _destroy_world()
 
     def __enter__(self) -> "Session":
@@ -550,12 +661,13 @@ class Session:
             LocalityLostError: a locality died mid-all-reduce (DDP).
         """
         self._check_train(resilience, kill_locality_at_step)
-        if self.mesh_ranks > 1:
+        if self.mesh_ranks > 1 and not self.plan.ddp:
             return self._train_mesh(
                 stream, steps=steps, hooks=hooks, ckpt_dir=ckpt_dir,
                 ckpt_every=ckpt_every, log_every=log_every, resume=resume,
-                fail_at_step=fail_at_step, resilience=resilience,
-                verbose=verbose)
+                fail_at_step=fail_at_step,
+                kill_locality_at_step=kill_locality_at_step,
+                resilience=resilience, verbose=verbose)
         plan, runtime, dev = self.plan, self.runtime, self.device
         dist = self.distributed
         if ckpt_dir is None:
@@ -565,8 +677,22 @@ class Session:
         if plan.ddp:
             ring = dist.grad_ring if dist is not None \
                 else RingAllReduce(None, 1)
-            engine = DDPEngine(plan, ring)
+            ddp_spec = {"plan": plan, "steps": steps, "ckpt_dir": ckpt_dir,
+                        "ckpt_every": ckpt_every, "resume": resume,
+                        "stream": stream, "fail_at_step": fail_at_step,
+                        "num_threads": torch.get_num_threads(),
+                        "probe": self._codec_probe}
+            mesh = None
+            if self.ranks is not None:
+                # a model axis: the other ranks of every locality's model
+                # group run the same steps on their blocks
+                self.ranks.spmd_train(dict(ddp_spec, loop=ddp_rank_train))
+                from ..launch.mesh import make_local_mesh
+                mesh = make_local_mesh(model=plan.model)
+            engine = DDPEngine(plan, ring, mesh=mesh,
+                               probe=self._codec_probe)
             params, opt = engine.init()
+            collectives.reset_stats()
             step_fn = engine.train_step
             # no device: the engine slices its shards from the host batch
             prefetch = Prefetcher(stream, None, graph=runtime)
@@ -590,7 +716,8 @@ class Session:
         start = 0
         # DDP checkpoints are the driver's alone: its replica IS the state
         ckpt = (CheckpointManager(ckpt_dir, keep=3, graph=runtime,
-                                  dgraph=None if plan.ddp else dist)
+                                  dgraph=None if plan.ddp else dist,
+                                  spmd=plan.spmd)
                 if ckpt_dir else None)
         # the train step's state is saved and restored in the reference's
         # global layout (zero1's and onebit's differ from theirs in memory)
@@ -598,21 +725,18 @@ class Session:
             def state(params, opt):
                 return params, step.gather_opt(opt)
         else:
-            def state(params, opt):
-                return params, opt
+            state = engine.state
         if ckpt is not None and resume and ckpt.latest_step() is not None:
             if engine is None:
                 start, (params, og) = ckpt.restore(
                     (params, step.global_like()))
                 opt = step.shard_opt(og, dev)
             else:
-                start, (params, opt) = ckpt.restore((params, opt))
+                start, params, opt = engine.restore(ckpt, params, opt)
             if verbose:
                 print(f"[train] resumed from step {start}")
         if engine is not None and dist is not None:
-            dist.ddp_train({"plan": plan, "steps": steps,
-                            "ckpt_dir": ckpt_dir, "resume": resume,
-                            "stream": stream, "gen": engine.ring.gen})
+            dist.ddp_train(dict(ddp_spec, gen=engine.ring.gen))
         if plan.spmd:
             # every worker mirrors this loop in lockstep and writes its
             # own checkpoint segments (DESIGN.md §10)
@@ -685,11 +809,19 @@ class Session:
                     and metrics is not None:
                 ckpt.save(steps, state(params, opt),
                           meta={"arch": plan.arch})
-        except BaseException:
+        except BaseException as e:
             if engine is not None and dist is not None:
                 # poison the ring everywhere: workers blocked in an
                 # all-reduce must abort, not wait out their timeout
                 dist.ddp_abort("the driver aborted the DDP run")
+            if engine is not None and self.ranks is not None \
+                    and str(e).startswith("injected node failure"):
+                # the model groups stopped at the same step: let them
+                # report before a resume in this session starts them
+                try:
+                    self.ranks.wait_spmd_done(timeout=60.0)
+                except TimeoutError:
+                    pass
             raise
         finally:
             # shutdown barrier, also on the injected-failure path, so a
@@ -711,6 +843,13 @@ class Session:
                 raise RuntimeError(
                     f"DDP train loop failed on locality "
                     f"{failed[0]['rank']}: {failed[0].get('error')}")
+        if engine is not None and self.ranks is not None:
+            ranks_done = self.ranks.wait_spmd_done(timeout=600.0)
+            failed = [m for m in ranks_done.values() if not m.get("ok")]
+            if failed:
+                raise RuntimeError(
+                    f"DDP model rank {failed[0]['rank']} failed: "
+                    f"{failed[0].get('error')}")
         if plan.spmd:
             # the shadows posted every entry this run's saves needed
             # (ckpt.close() waited on the commits); now surface a shadow
@@ -745,39 +884,47 @@ class Session:
             out["codec_bytes"] = engine.codec_bytes
             if dist is not None:
                 out["localities"] = {r: {k: m.get(k) for k in (
-                    "grad_wire_bytes", "final_loss", "launches")}
+                    "grad_wire_bytes", "final_loss", "launches", "wire",
+                    "peak_bytes", "probe")}
                     for r, m in sorted(done.items())}
+            if self.ranks is not None:
+                # the model groups' traffic, by axis (gloo, not the ring)
+                out["wire"] = collectives.stats()
+                out["ranks"] = {r: {k: m.get(k) for k in (
+                    "final_loss", "launches", "wire", "peak_bytes",
+                    "probe")} for r, m in sorted(ranks_done.items())}
+            if self._codec_probe is not None:
+                out["probe"] = self._codec_probe.report(engine, params)
             if verbose:
                 print(f"[train] ddp world {engine.world}, shards "
                       f"{engine.shards}: grad-wire {out['grad_wire_bytes']}B "
                       f"({plan.grad_codec} codec, {engine.codec_bytes}B/"
                       f"locality/exchange)")
+                if self.ranks is not None:
+                    w = out["wire"]["axes"]["model"]
+                    print(f"[train] model groups of {plan.model} ranks a "
+                          f"locality: rank 0's model-axis wire {w['bytes']}B "
+                          f"in {w['calls']} collectives, {w['wire_s']:.3f}s "
+                          f"in gloo")
         if plan.spmd:
             out["localities"] = {r: {k: m.get(k) for k in (
                 "step", "final_loss", "launches", "diagnostics")}
                 for r, m in sorted(done.items())}
         if verbose and dist is not None:
-            d = out["runtime_stats"]["distributed"]
-            print(f"[train] localities: dispatched {d['dispatched']} "
-                  f"respawned {d['respawned']} wire {d['bytes_sent']}B out "
-                  f"/ {d['bytes_recv']}B in ckpt-leaf-wire "
-                  f"{d['ckpt_leaf_wire_bytes']}B")
-            if ckpt is not None and ckpt.aborted_saves:
-                print(f"[train] WARNING: {ckpt.aborted_saves} SPMD save(s) "
-                      f"aborted with a lost writer; the last committed "
-                      f"checkpoint is step {ckpt.latest_step()}")
-            if plan.elastic:
-                print(f"[train] elastic: joined {d['joined_localities']} "
-                      f"stolen {d['stolen_tasks']} migrated "
-                      f"{d['migrated_objects']} objects (membership gen "
-                      f"{d['membership_gen']})")
+            self._print_localities(out, ckpt)
         return out
 
-    def run_ranks(self, loop, spec: dict, *, driver=None) -> dict:
+    def run_ranks(self, loop, spec: dict, *, driver=None,
+                  every_world: bool = False) -> dict:
         """Run ``loop(spec, endpoint=None, driver=None)`` on every rank of
-        this mesh session in lockstep: each worker locality through the
-        ``spmd_train`` protocol, this process as rank 0 with ``driver``.
-        ``loop`` is a module-level function (it ships by reference).
+        this process's mesh world in lockstep: each of its rank processes
+        in ``self.ranks`` through the ``spmd_train`` protocol, this
+        process as rank 0 with ``driver``.  The other localities' worlds
+        (SPMD mode, fabric DDP beside a model axis) stay idle, as the
+        reference serves on the driver's mesh alone, unless
+        ``every_world`` (SPMD mode's train, whose other localities run
+        the same loop as their worlds' rank 0).  ``loop`` is a
+        module-level function (it ships by reference).
 
         Returns:
             ``{rank: result}``, rank 0's as ``loop`` returned it, the
@@ -789,12 +936,16 @@ class Session:
                 and after a failure of rank 0 alone they fail at their dp
                 group's timeout).
         """
-        if self.mesh_ranks <= 1:
+        if self.ranks is None:
             raise RuntimeError("run_ranks needs a mesh session "
                                "(Plan(data=..., model=...) with data * pod "
                                "* model > 1)")
-        dist = self.distributed
-        dist.spmd_train(dict(spec, loop=loop))
+        dist = self.ranks
+        # the driver's world alone (``launch.mesh.mesh_places``: its ranks
+        # are the rank group's first ``size - 1``): another locality's
+        # world waits for its own rank 0, which runs no loop here
+        dist.spmd_train(dict(spec, loop=loop), ranks=None if every_world
+                        else range(1, self.mesh_size))
         try:
             mine = loop(spec, driver=driver)
         except BaseException:
@@ -812,57 +963,125 @@ class Session:
         return {0: mine, **done}
 
     def _train_mesh(self, stream, *, steps, hooks, ckpt_dir, ckpt_every,
-                    log_every, resume, fail_at_step, resilience,
-                    verbose) -> dict:
+                    log_every, resume, fail_at_step, kill_locality_at_step,
+                    resilience, verbose) -> dict:
         """``train`` on a mesh session: this process runs
         ``frontend.mesh.rank_train`` as rank 0 (logging, hooks and the
-        checkpoint writes), every worker locality the same loop, started
-        by a ``spmd_train`` post.  A resume restores the driver's latest
-        checkpoint on every rank.  The result gains ``localities`` (each
-        worker's report: ``step``, ``final_loss``, ``launches``, ``wire``,
-        ``resilience``, ``peak_bytes``) and this rank's ``wire``,
-        ``resilience`` and ``peak_bytes``."""
+        checkpoint writes), every other rank the same loop, started by a
+        ``spmd_train`` post.  A resume restores the driver's latest
+        checkpoint on every rank.
+
+        Beside task localities, each step's host batch is built on one of
+        them (the reference's prefetch placement) and rank 0 feeds it to
+        every rank; saves are owner-written shards on the localities.  In
+        SPMD mode every locality runs the loop on its own mesh
+        (``frontend.spmd.shadow_train`` on its rank 0), each building
+        its batches, and each locality writes its segments.
+
+        The result gains ``localities`` (each other rank's report:
+        ``step``, ``final_loss``, ``launches``, ``wire``, ``resilience``,
+        ``peak_bytes``; in SPMD mode each other locality's, and the ranks'
+        under ``ranks``) and this rank's ``wire``, ``resilience`` and
+        ``peak_bytes``."""
         plan, runtime, dist = self.plan, self.runtime, self.distributed
+        spmd = plan.spmd
         if ckpt_dir is None:
             ckpt_dir = plan.ckpt_dir
         stream = self._stream(stream)
-        ckpt = (CheckpointManager(ckpt_dir, keep=3, graph=runtime,
-                                  spmd=False) if ckpt_dir else None)
+        # with task localities the saves are owner-written shards; in
+        # SPMD mode each locality's segments
+        ckpt = (CheckpointManager(
+            ckpt_dir, keep=3, graph=runtime, dgraph=dist, spmd=spmd,
+            spmd_world=plan.localities if spmd else None)
+            if ckpt_dir else None)
         start = (ckpt.latest_step() or 0) if (ckpt is not None and resume) \
             else 0
         if verbose and start:
             print(f"[train] resumed from step {start}")
+        feed = dist is not None and not spmd
         spec = {"plan": plan, "steps": steps, "start": start,
                 "ckpt_dir": ckpt_dir, "ckpt_every": ckpt_every,
                 "fail_at_step": None if resume else fail_at_step,
                 "resilience": resilience, "fault_hook": self._fault_hook,
-                "stream": stream, "num_threads": torch.get_num_threads()}
+                "stream": stream, "num_threads": torch.get_num_threads(),
+                "feed": feed, "resume": resume,
+                "params": self._train_params}
+        # beside task localities, each step's batch is built on one of
+        # them (the reference's prefetch) and fed to every rank
+        prefetch = (Prefetcher(stream, None, graph=runtime, dgraph=dist)
+                    if feed else None)
         driver = _MeshDriver(runtime, ckpt, hooks, log_every, verbose,
-                             plan.arch)
+                             plan.arch, prefetch=prefetch,
+                             kill_at=kill_locality_at_step,
+                             kill=self.kill_locality)
+        if spmd:            # every other locality's mesh, in lockstep
+            dist.spmd_train(spec)
         try:
-            done = self.run_ranks(rank_train, spec, driver=driver)
+            done = self.run_ranks(rank_train, spec, driver=driver,
+                                  every_world=spmd)
+        except BaseException:
+            if spmd:
+                try:
+                    dist.wait_spmd_done(timeout=30.0)
+                except TimeoutError:
+                    pass
+            raise
         finally:
+            if prefetch is not None:
+                prefetch.close()
             if ckpt is not None:
                 ckpt.close()
             runtime.barrier()
         mine = done.pop(0)
+        keys = ("step", "final_loss", "launches", "wire", "resilience",
+                "peak_bytes")
         out = {"final_loss": mine["final_loss"], "losses": driver.losses,
                "params": mine["params"],
                "step": steps if steps > start else start,
                "runtime_stats": self._stats_json(runtime.stats()),
-               "localities": {r: {k: m.get(k) for k in (
-                   "step", "final_loss", "launches", "wire", "resilience",
-                   "peak_bytes")} for r, m in sorted(done.items())}}
+               "localities": {r: {k: m.get(k) for k in keys}
+                              for r, m in sorted(done.items())}}
+        if spmd:
+            shadows = dist.wait_spmd_done(timeout=600.0)
+            failed = [m for m in shadows.values() if not m.get("ok")]
+            if failed:
+                raise RuntimeError(
+                    f"SPMD shadow train loop failed on locality "
+                    f"{failed[0]['rank']}: {failed[0].get('error')}")
+            out["ranks"] = out["localities"]
+            out["localities"] = {r: {k: m.get(k) for k in (
+                "step", "final_loss", "launches", "diagnostics", "wire")}
+                for r, m in sorted(shadows.items())}
         for k in ("wire", "resilience", "peak_bytes", "launches"):
             out[k] = mine[k]
         if verbose:
             w = mine["wire"]
-            print(f"[train] mesh of {self.mesh_ranks} ranks "
+            where = (f" on each of {plan.localities} localities (SPMD)"
+                     if spmd else "")
+            print(f"[train] mesh of {self.mesh_ranks} ranks{where} "
                   f"({self.strategy.name}): final loss "
                   f"{out['final_loss']:.4f}; rank 0 wire {w['bytes']}B in "
                   f"{w['calls']} collectives, {w['wire_s']:.3f}s in gloo, "
                   f"staging {w['staging_s']:.3f}s")
+            if dist is not None:
+                self._print_localities(out, ckpt)
         return out
+
+    def _print_localities(self, out: dict, ckpt) -> None:
+        d = out["runtime_stats"]["distributed"]
+        print(f"[train] localities: dispatched {d['dispatched']} "
+              f"respawned {d['respawned']} wire {d['bytes_sent']}B out "
+              f"/ {d['bytes_recv']}B in ckpt-leaf-wire "
+              f"{d['ckpt_leaf_wire_bytes']}B")
+        if ckpt is not None and ckpt.aborted_saves:
+            print(f"[train] WARNING: {ckpt.aborted_saves} SPMD save(s) "
+                  f"aborted with a lost writer; the last committed "
+                  f"checkpoint is step {ckpt.latest_step()}")
+        if self.plan.elastic:
+            print(f"[train] elastic: joined {d['joined_localities']} "
+                  f"stolen {d['stolen_tasks']} migrated "
+                  f"{d['migrated_objects']} objects (membership gen "
+                  f"{d['membership_gen']})")
 
     # -- serve --------------------------------------------------------------
     def serve(self, requests: int = 8, *, prompt_len: int = 32,
@@ -1032,8 +1251,21 @@ class Session:
                 "prompt_len": prompt_len, "gen_len": gen_len, "slots": slots,
                 "prompts": prompts, "params": self._serve_params,
                 "num_threads": torch.get_num_threads()}
+        stacks: list = []
+        if self.distributed is not None:
+            # each wave's stack runs on a task locality, as the
+            # reference's serve places it; the ranks serve those waves
+            waves = serve_waves(spec_prompts(spec), slots, prompt_len)
+            futs = [self.distributed.defer(_stack_wave, wave,
+                                           lane=Lane.PREFETCH,
+                                           name=f"stack:{w}")
+                    for w, (wave, _) in enumerate(waves)]
+            spec["waves"] = [(f.result(), n)
+                             for f, (_, n) in zip(futs, waves)]
+            stacks = [f.name for f in futs]
         done = self.run_ranks(rank_serve, spec)
         out = done.pop(0)
+        out["nodes"] = stacks + out["nodes"]
         out["localities"] = {r: {k: m.get(k) for k in (
             "launches", "wire", "peak_bytes", "tokens", "cache_shapes")}
             for r, m in sorted(done.items())}
@@ -1142,10 +1374,11 @@ class Session:
 
         def run(pre1, dec, params, lockstep=None) -> dict:
             # the gateway over one process's steps, or rank 0's of a mesh
-            # (its device bodies sent to the other ranks by ``lockstep``;
-            # a mesh's ranks are not localities to home replicas on)
-            gw = Gateway(runtime, distributed=None if lockstep is not None
-                         else self.distributed, prefill_step=pre1,
+            # (its device bodies sent to the other ranks by ``lockstep``);
+            # replicas are homed on the localities (a mesh's are task
+            # localities: its ranks are not homes)
+            gw = Gateway(runtime, distributed=self.distributed,
+                         prefill_step=pre1,
                          decode_step=dec, params=params,
                          prompt_len=prompt_len, gen_len=gen_len, slots=slots,
                          device=dev, max_inflight=max_inflight,
@@ -1212,10 +1445,12 @@ class Session:
 class _MeshDriver:
     """Rank 0's side of a mesh run (``frontend.mesh.rank_train``'s
     ``driver``): the logged losses, the hooks, and the checkpoint writes
-    on the session runtime, each gated on its step's retirement."""
+    on the session runtime, each gated on its step's retirement; beside
+    task localities also each step's host batch (``batch``: built on a
+    task locality by ``prefetch``) and the locality-loss drill."""
 
     def __init__(self, runtime, ckpt, hooks, log_every: int, verbose: bool,
-                 arch: str):
+                 arch: str, *, prefetch=None, kill_at=None, kill=None):
         self.runtime, self.ckpt = runtime, ckpt
         self.log_every, self.verbose, self.arch = log_every, verbose, arch
         self.on_step_hook = getattr(hooks, "on_step", None)
@@ -1223,6 +1458,15 @@ class _MeshDriver:
         self.on_ckpt = getattr(hooks, "on_checkpoint", None)
         self.losses: list = []
         self.t_log = time.time()
+        self.prefetch, self.kill_at, self.kill = prefetch, kill_at, kill
+
+    def batch(self, it: int) -> dict:
+        if self.kill_at is not None and it == self.kill_at:
+            killed = self.kill()
+            if self.verbose and killed is not None:
+                print(f"[train] drill: killed locality {killed} at step "
+                      f"{it}", flush=True)
+        return self.prefetch.get(it)
 
     def on_step(self, it: int, metrics) -> None:
         if self.on_step_hook is not None:

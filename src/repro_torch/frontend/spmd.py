@@ -48,8 +48,11 @@ __all__ = ["shadow_train"]
 def shadow_train(spec: dict, endpoint: Optional[Any] = None) -> dict:
     """Mirror ``Session.train``'s device computation on this process and
     write this process's checkpoint segments (see the module docstring):
-    ``frontend.mesh.train_loop`` on a mesh of one, whose saves write
-    segments.
+    ``frontend.mesh.train_loop`` on a mesh of one, or with mesh axes on
+    this locality's mesh (this process its rank 0, the others running
+    ``frontend.mesh.rank_train``), whose saves write segments: the
+    locality's ``p``-th slice of every leaf that splits over the
+    ``localities`` processes, assembled from its mesh's blocks.
 
     Args:
         spec: ``{"plan", "steps", "ckpt_every", "ckpt_dir", "resume",
@@ -59,30 +62,35 @@ def shadow_train(spec: dict, endpoint: Optional[Any] = None) -> dict:
             manifest entries are posted to the driver through it (None
             writes shards without reporting: test use).
     Returns:
-        dict with ``step`` (the final step count), ``final_loss`` and
-        ``launches``: each kernel wrapper's launches during this loop, by
-        name.  The reference returns the step alone; the launch counts
-        are the port's, so that a driver can see that every process's
-        steps ran the kernels.
+        dict with ``step`` (the final step count), ``final_loss``,
+        ``launches`` (each kernel wrapper's launches during this loop, by
+        name) and ``wire`` (its mesh's collectives).  The reference
+        returns the step alone; the launch counts are the port's, so
+        that a driver can see that every process's steps ran the
+        kernels.
     Raises:
         RuntimeError: the plan asks for CUDA and there is none.
     """
     ckpt_dir: str = spec.get("ckpt_dir") or ""
     rank = int(os.environ.get("PHYRAX_LOCALITY_RANK", "0"))
+    world = spec["plan"].localities
     start = 0
     if spec.get("resume") and ckpt_dir:
-        with CheckpointManager(ckpt_dir, async_save=False) as cm:
+        with CheckpointManager(ckpt_dir, async_save=False, spmd=False) as cm:
             start = cm.latest_step() or 0
 
     def save(s: int, step, params, opt, metrics):
+        # the global layout: on a mesh, gathered over this locality's
+        # ranks (collectives of its own world, not the messaging layer)
+        state = (step.gather_params(params), step.gather_opt(opt))
         block_until_ready(metrics)          # save only retired state
         tmp = Path(ckpt_dir) / f".tmp_step_{s:08d}"
-        state = (params, step.gather_opt(opt))          # global layout
-        entry = ckspmd.write_spmd_shard(str(tmp), rank, state)
+        entry = ckspmd.write_spmd_shard(str(tmp), rank, state, world=world,
+                                        rank=rank)
         if endpoint is not None:
             endpoint.post(0, "ckpt_entries",
                           {"step": int(s), "rank": rank, "entry": entry})
 
     out = train_loop(dict(spec, start=start),
                      save=save if ckpt_dir else None)
-    return {k: out[k] for k in ("step", "final_loss", "launches")}
+    return {k: out[k] for k in ("step", "final_loss", "launches", "wire")}

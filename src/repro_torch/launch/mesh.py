@@ -32,7 +32,12 @@ lockstep and local): the world makes its size and this process's rank
 known to the checkpoint layer (``checkpoint.spmd.is_multiprocess``).  The
 environment names are the port's own: ``PHYRAX_DIST_COORDINATOR``
 (``host:port`` of rank 0), ``PHYRAX_DIST_NUM_PROCESSES`` and
-``PHYRAX_DIST_PROCESS_ID``.
+``PHYRAX_DIST_PROCESS_ID``.  A session whose localities each run a mesh
+(SPMD mode with mesh axes, fabric DDP beside a model axis), or whose
+task localities sit beside a mesh, names every spawned process's world
+in ``PHYRAX_DIST_PLACES`` (``mesh_places``, read by ``place_of``): a
+world a locality, each with its own coordinator, so that
+``make_local_mesh`` on any rank sees its own locality's mesh.
 """
 from __future__ import annotations
 
@@ -44,7 +49,8 @@ from datetime import timedelta
 from typing import Any, Optional, Sequence
 
 __all__ = ["Mesh", "free_port", "make_local_mesh", "make_mesh",
-           "make_production_mesh", "maybe_init_distributed", "mesh_devices"]
+           "make_production_mesh", "maybe_init_distributed", "mesh_devices",
+           "mesh_places", "place_of"]
 
 #: how long a rank waits for the others to join the world
 INIT_TIMEOUT_S = 120.0
@@ -281,6 +287,44 @@ def free_port() -> int:
     port = s.getsockname()[1]
     s.close()
     return port
+
+
+def mesh_places(coordinators: Sequence[str], size: int) -> dict:
+    """The places of a session whose localities each run a mesh world of
+    ``size`` rank processes (``coordinators[w]``: world ``w``'s): the
+    spawned processes of the session's two groups and where each one
+    joins.  World ``w``'s rank 0 is locality ``w`` (the driver for ``w =
+    0``); its ranks ``1..size-1`` are the rank group's processes
+    ``w * (size - 1) + 1 ..``, in order.
+
+    Returns:
+        ``{"localities": {rank: place}, "ranks": {rank: place}}``, a place
+        being ``{"coordinator", "size", "rank", "locality"}``: the world
+        to join, its size, the process's rank in it and the locality
+        whose mesh it is.
+    """
+    def place(w: int, r: int) -> dict:
+        return {"coordinator": coordinators[w], "size": int(size),
+                "rank": r, "locality": w}
+    return {"localities": {w: place(w, 0)
+                           for w in range(1, len(coordinators))},
+            "ranks": {w * (size - 1) + r: place(w, r)
+                      for w in range(len(coordinators))
+                      for r in range(1, size)}}
+
+
+def place_of(rank: Optional[int] = None) -> Optional[dict]:
+    """This process's place (``mesh_places``), from the spawn
+    environment's ``PHYRAX_DIST_PLACES`` (a JSON object by locality rank;
+    ``rank`` defaults to ``PHYRAX_LOCALITY_RANK``), or None: no places
+    named, or none for this rank (a task locality, an elastic joiner)."""
+    import json
+    raw = os.environ.get("PHYRAX_DIST_PLACES")
+    if not raw:
+        return None
+    if rank is None:
+        rank = int(os.environ.get("PHYRAX_LOCALITY_RANK", "0"))
+    return json.loads(raw).get(str(int(rank)))
 
 
 def maybe_init_distributed(*, process_id: int | None = None,

@@ -25,7 +25,11 @@ processes for each, splitting every family's layers;
 ``--seq-parallel``: the residual split by sequence over the model
 group) and ``--resilience``
 (``none``, ``replay``, ``replicate``), plus ``--device`` and
-``--n-layers``.
+``--n-layers``.  The mesh axes compose with the other modes: beside
+``--localities`` or ``--elastic`` the localities are task localities
+(batch builds, checkpoint shards), ``--ddp --model M`` makes each
+locality a model group of M rank processes, and ``--spmd`` gives each
+locality a mesh of its own.
 Runs on the GPU unless ``--device cpu`` is given; every locality runs on
 that device.
 
@@ -55,6 +59,11 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --steps 12 --batch 4 --seq 32 --localities 2 --ddp \\
       --grad-codec onebit --ddp-shards 2 --log-every 4
+  # fabric DDP beside a model axis: two localities, each a model group
+  # of two rank processes (the ring carries model=1's buckets)
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \
+      --steps 4 --batch 4 --seq 32 --ddp --model 2 --localities 2 \
+      --grad-codec onebit --ddp-shards 2
   # owner-written checkpoint shards at two localities, resumed at one
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --steps 8 --batch 4 --seq 32 --localities 2 --ckpt /tmp/ck2 \\

@@ -44,9 +44,9 @@ from ..core.sharding import gather_leaf, is_spec, shard_leaf
 from ..kernels.onebit import (onebit_dequantize, onebit_quantize, pack_bits,
                               unpack_bits)
 
-__all__ = ["ROW", "dequantize_bucket", "exchange_onebit",
-           "init_error_state", "make_plan", "pack_bits", "pack_signs",
-           "quantize_bucket", "unpack_bits", "unpack_signs"]
+__all__ = ["ROW", "bucket_blocks", "dequantize_bucket", "exchange_onebit",
+           "global_bucket", "init_error_state", "make_plan", "pack_bits",
+           "pack_signs", "quantize_bucket", "unpack_bits", "unpack_signs"]
 
 ROW = 1024  # bucket rows are reshaped to [R, ROW] for per-row scales
 
@@ -90,6 +90,32 @@ def init_error_state(plan: fusion.FusionPlan, device="cpu"):
                         device=device) for b in plan.buckets]
 
 
+def global_bucket(leaves: list, plan, i: int, specs: list, mesh,
+                  rules) -> torch.Tensor:
+    """Bucket ``i`` of ``plan`` (the reference's global buckets) packed
+    in float32 from this rank's gradient ``leaves`` (its blocks on a model
+    axis): the bucket's split leaves are gathered over the model group
+    first (a collective: every model rank calls it), one leaf at a time,
+    and let go once packed.  ``specs`` are the global leaves'
+    ``ParamSpec``s, flat."""
+    src = list(leaves)
+    for e in plan.buckets[i].entries:
+        for m in plan.members[e.index]:
+            src[m] = gather_leaf(leaves[m].float(), specs[m], mesh, rules)
+    return fusion.pack_bucket(src, plan, i).float()
+
+
+def bucket_blocks(out: list, buf: torch.Tensor, plan, i: int, specs: list,
+                  mesh, rules) -> None:
+    """This rank's blocks of the leaves of global bucket ``i`` (``buf``,
+    1-D), copied out into ``out`` by flat leaf index (the inverse of
+    ``global_bucket``)."""
+    got = fusion.unpack_bucket(buf, plan, i)
+    for e in plan.buckets[i].entries:
+        for m in plan.members[e.index]:
+            out[m] = shard_leaf(got[m], specs[m], mesh, rules).clone()
+
+
 def exchange_onebit(grads, err_state, mesh, plan, *, on_bucket=None,
                     specs=None, rules=None):
     """The 1-bit exchange with error feedback over a mesh's dp group.
@@ -130,15 +156,8 @@ def exchange_onebit(grads, err_state, mesh, plan, *, on_bucket=None,
     outs, new_err = [], []
     mine = [None] * len(leaves)
     for i, err in enumerate(err_state):
-        members = [m for e in plan.buckets[i].entries
-                   for m in plan.members[e.index]]
-        src = leaves
-        if split:                 # the bucket's global leaves, for now
-            src = list(leaves)
-            for m in members:
-                src[m] = gather_leaf(leaves[m].float(), sp[m], mesh, rules)
-        buf = fusion.pack_bucket(src, plan, i).float()
-        del src
+        buf = global_bucket(leaves, plan, i, sp, mesh, rules) if split \
+            else fusion.pack_bucket(leaves, plan, i).float()
         packed, scale, err2 = quantize_bucket(buf, err)
         if on_bucket is None:
             buf = None            # past here only the seam reads it
@@ -160,10 +179,8 @@ def exchange_onebit(grads, err_state, mesh, plan, *, on_bucket=None,
         # two of them do not fit four ranks' state on one card
         new_err.append(err.copy_(err2))
         del err2
-        got = fusion.unpack_bucket(mean, plan, i)
-        for m in members:         # this rank's blocks, the mean let go
-            mine[m] = shard_leaf(got[m], sp[m], mesh, rules).clone()
-        del mean, got
+        bucket_blocks(mine, mean, plan, i, sp, mesh, rules)
+        del mean
     if split:
         return pytree.tree_unflatten(mine, plan.treespec), new_err
     return fusion.unpack(outs, plan), new_err

@@ -35,6 +35,7 @@ from repro_torch.core.resilience import (ResilienceError, ResilientRunner,
                                          StragglerPolicy, finite_check,
                                          tree_checksum)
 from repro_torch.frontend import Plan
+from repro_torch.frontend.plan import _unsupported, mesh_group
 from repro_torch.launch import train as train_cli
 from torch_mesh_world import NanOnRank, with_fault_hook
 import torch_threads
@@ -239,18 +240,42 @@ def test_bridge_carries_the_references_zero1_state_into_rank_shards():
 
 
 @pytest.mark.parametrize("kw, exc, match", [
-    # the model axis runs every strategy, but not beside fabric DDP
-    (dict(model=2, strategy="onebit", ddp=True), NotImplementedError,
-     "14b"),
+    # the model axis runs every strategy, beside fabric DDP too, and a
+    # mesh runs beside SPMD mode, fabric localities and elastic
+    # membership (item 14b, part 6: exc None, each with its layout of
+    # mesh worlds); the production meshes and a dp axis beside fabric
+    # DDP stay refused
+    (dict(model=2, strategy="onebit", ddp=True), None, (1, 2)),
     (dict(mesh="single"), NotImplementedError, "item 15"),
     (dict(mesh="multipod"), NotImplementedError, "item 15"),
-    (dict(data=2, spmd=True, localities=2), NotImplementedError, "14b"),
-    (dict(data=2, localities=2), NotImplementedError, "14b"),
-    (dict(data=2, elastic=True), NotImplementedError, "14b"),
+    (dict(data=2, spmd=True, localities=2), None, (2, 2)),
+    (dict(data=2, localities=2), None, (1, 2)),
+    (dict(data=2, elastic=True), None, (1, 2)),
     (dict(data=2, ddp=True), ValueError, "replaces the in-process dp axes"),
 ], ids=["model", "single", "multipod", "spmd", "localities", "elastic",
         "ddp"])
 def test_mesh_refusals(kw, exc, match):
+    """Each plan raises what it raises; the plans item 14b's part 6 runs
+    compile with their layout and take one step under the resilience
+    modes the reference lets them have: step replay beside task
+    localities and joiners, none in SPMD mode or beside fabric DDP,
+    which refuse it with the reference's ``ValueError``."""
+    if exc is None:
+        plan = _plan(**kw)
+        assert _unsupported(plan) is None
+        assert mesh_group(plan) == match
+        mode = "none" if plan.spmd or plan.ddp else "replay"
+        torch_threads.apply(torch_threads.RANK)
+        with plan.compile() as s:
+            if mode == "none":
+                with pytest.raises(ValueError, match="resilience"):
+                    s.train(steps=1, resilience="replay", verbose=False)
+            out = s.train(steps=1, resilience=mode, log_every=1,
+                          verbose=False)
+        assert len(out["losses"]) == 1 and np.isfinite(out["losses"][0])
+        if mode == "replay":
+            assert out["resilience"]["replays"] == 0
+        return
     with pytest.raises(exc, match=match):
         _plan(**kw).compile()
 

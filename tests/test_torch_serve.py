@@ -21,6 +21,7 @@ from repro_torch.bridge import cache_from_numpy, params_from_numpy
 from repro_torch.configs import get_config
 from repro_torch.core import steps
 from repro_torch.frontend import Plan
+from repro_torch.frontend.plan import _unsupported, mesh_group
 from repro_torch.launch import serve as serve_cli
 import torch_threads
 
@@ -312,10 +313,10 @@ def test_plan_defaults_to_cuda_and_raises_without_it(monkeypatch):
 
 
 @pytest.mark.parametrize("field, item", [
-    # localities run, with elastic membership and SPMD mode, and the mesh
-    # axes run, onebit on a model axis too, but not fabric DDP beside a
-    # model axis, a mesh with localities or SPMD mode, the production
-    # meshes or named shapes
+    # the ROADMAP item of each plan beyond one device: item 14b's plans
+    # run (fabric DDP beside a model axis, a mesh with localities or
+    # SPMD mode, since its part 6), item 15's (the production meshes,
+    # named shapes) still raise
     (dict(pod=2, localities=2), "item 14b"),
     (dict(mesh="multipod"), "item 15"),
     (dict(data=2, spmd=True, localities=2), "item 14b"),
@@ -323,8 +324,31 @@ def test_plan_defaults_to_cuda_and_raises_without_it(monkeypatch):
      "item 14b"),
     (dict(mesh="single"), "item 15"), (dict(shape="train_4k"), "item 15")])
 def test_plans_beyond_one_device_name_their_roadmap_item(field, item):
-    with pytest.raises(NotImplementedError, match=item):
-        Plan(device="cpu", **field).compile()
+    plan = Plan(device="cpu", **field)
+    if item == "item 15":
+        with pytest.raises(NotImplementedError, match=item):
+            plan.compile()
+        return
+    # accepted, with one mesh world of its ranks (a pod=2 mesh beside a
+    # task locality), one a locality (SPMD mode) or a model group a
+    # locality (fabric DDP); each serves a wave on the driver's mesh, its
+    # stack on the other locality where the plan has one
+    assert _unsupported(plan) is None
+    assert mesh_group(plan) == {
+        "pod": (1, 2), "spmd": (2, 2), "ddp": (1, 2)}[
+        "pod" if field.get("pod") else "spmd" if field.get("spmd")
+        else "ddp"]
+    torch_threads.apply(torch_threads.RANK)
+    with plan.compile() as s:
+        out = s.serve(requests=2, prompt_len=8, gen_len=2, slots=2,
+                      verbose=False)
+    vocab = plan.config().vocab
+    assert out["tokens"] == 4 and len(out["generated"]) == 1
+    g = out["generated"][0]
+    assert g.shape == (2, 3) and 0 <= int(g.min()) and int(g.max()) < vocab
+    stacks = [n for n in out["nodes"] if n.startswith("stack:")]
+    assert [n.endswith("@L1") for n in stacks] == \
+        ([True] if plan.localities > 1 else [])
 
 
 @pytest.mark.parametrize("field", [dict(ddp=True), dict(spmd=True)])

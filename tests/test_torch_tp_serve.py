@@ -14,9 +14,9 @@
   session's checkpoint is the global layout that a one-process session
   resumes from;
 * a fault on one rank of the model group replays the step on both;
-* each refusal that stays names its ROADMAP item (the moe and zamba
-  families run on a model axis since, but not with onebit or sequence
-  parallelism).
+* the model axis beside the other multi-process modes is accepted, each
+  plan with its layout of rank processes, and what still refuses names
+  its ROADMAP item.
 """
 import json
 import os
@@ -37,6 +37,7 @@ from repro_torch.core.dist_array import TiledArray
 from repro_torch.core.sharding import default_rules
 from repro_torch.data.pipeline import LMStream
 from repro_torch.frontend import Plan
+from repro_torch.frontend.plan import _unsupported, mesh_group
 from repro_torch.launch import train as train_cli
 from repro_torch.launch.mesh import Mesh, make_local_mesh, make_mesh
 from torch_mesh_world import NanOnRank, with_fault_hook
@@ -217,9 +218,11 @@ def test_replay_verdicts_are_agreed_over_the_model_group():
 
 
 @pytest.mark.parametrize("kw, match", [
-    # every family, onebit and sequence parallelism run on a model axis;
-    # not beside fabric DDP, SPMD mode, fabric localities or elastic
-    # membership (item 14b, part 6)
+    # every family, onebit and sequence parallelism run on a model axis,
+    # and since item 14b's part 6 beside fabric DDP (a model group of
+    # rank processes a locality), SPMD mode (a mesh world a locality) and
+    # fabric localities or elastic membership (task localities beside
+    # the mesh's one world): each plan is accepted, with its layout
     (dict(arch="granite-moe-1b-a400m", model=2, strategy="onebit",
           ddp=True), "fabric DDP with a model axis"),
     (dict(arch="zamba2-2.7b", model=2, spmd=True, localities=2,
@@ -239,14 +242,38 @@ def test_replay_verdicts_are_agreed_over_the_model_group():
     (dict(model=2, localities=2), "fabric localities"),
     (dict(model=2, elastic=True), "elastic membership"),
     (dict(model=2, ddp=True), "fabric DDP with a model axis"),
-    # a replicated serve_stream plan is refused as Session.serve's is
+    # a replicated serve_stream plan beside a task locality
     (dict(arch="xlstm-350m", model=2, replicas=2, strategy="onebit",
           localities=2), "fabric localities"),
 ], ids=["moe", "zamba", "xlstm", "encdec", "onebit", "seq-parallel",
         "spmd", "localities", "elastic", "ddp", "serve-stream-xlstm"])
 def test_model_axis_refusals_name_item_14b(kw, match):
-    with pytest.raises(NotImplementedError, match=f"{match}.*item 14b"):
-        Plan(device="cpu", **kw).compile()
+    """No refusal is left of item 14b's part 6: the plan passes the
+    session's checks and lays out its rank processes as
+    ``frontend.plan.mesh_group`` says (SPMD mode: a world of the model
+    axis for each locality; fabric DDP: a model group for each locality;
+    localities and elastic joiners: task localities beside one world).
+    The plain qwen3-4b ids (``spmd``, ``localities``, ``elastic``,
+    ``ddp``) also compile the plan and take one step, every rank and
+    locality of the layout taking the driver's loss; the other families
+    run in ``tests/test_torch_ddp_model_axis.py``,
+    ``test_torch_mesh_localities.py`` and ``test_torch_spmd_mesh.py``."""
+    plan = Plan(device="cpu", **kw)
+    assert _unsupported(plan) is None
+    worlds = plan.localities if match == "SPMD mode" else 1
+    assert mesh_group(plan) == (worlds, 2)
+    if set(kw) - {"localities", "elastic", "spmd", "ddp"} != {"model"}:
+        return
+    torch_threads.apply(torch_threads.RANK)
+    with Plan(device="cpu", batch=4, seq=16, **kw).compile() as s:
+        assert len(s.ranks.group.procs) == worlds
+        assert (s.distributed is not None) == (plan.localities > 1
+                                               or plan.elastic)
+        out = s.train(steps=1, log_every=1, verbose=False)
+    assert len(out["losses"]) == 1 and np.isfinite(out["losses"][0])
+    others = {**(out.get("ranks") or {}), **(out.get("localities") or {})}
+    assert others and all(m["final_loss"] == out["final_loss"]
+                          for m in others.values())
 
 
 def test_step_builders_refuse_what_the_plan_refuses():

@@ -320,24 +320,37 @@ def test_launch_train_run_on_the_cpu(tmp_path, arch):
 
 
 @pytest.mark.parametrize("argv, match", [
-    # sequence parallelism trains every family; not beside fabric DDP
+    # item 14b's part 6: sequence parallelism beside fabric DDP on a model
+    # axis (a model group of two rank processes), and SPMD mode with a
+    # data axis (a mesh world of two ranks for each of two localities)
     (["--model", "2", "--seq-parallel", "--arch", "zamba2-2.7b", "--ddp"],
      "item 14b"),
     (["--data", "2", "--spmd", "--localities", "2"], "item 14b"),
 ])
 def test_launch_train_raises_for_what_the_port_does_not_run(argv, match):
+    """What raised before item 14b's part 6 now runs one step through
+    the CLI: the DDP run's wire is world 1's (0 bytes, the codec's
+    buckets those of the reference's global plan), and the SPMD run's
+    other locality ends at the same step on its own mesh."""
     args = train_cli.parser().parse_args(
-        ["--device", "cpu", "--steps", "1", *argv])
-    with pytest.raises(NotImplementedError, match=match):
-        train_cli.run(args)
+        ["--device", "cpu", "--steps", "1", "--batch", "4", "--seq", "16",
+         "--log-every", "1", *argv])
+    out = train_cli.run(args)
+    assert out["step"] == 1 and np.isfinite(out["final_loss"])
+    if "--ddp" in argv:
+        assert out["grad_wire_bytes"] == 0 and out["codec_bytes"] > 0
+        assert out["ranks"][1]["final_loss"] == out["final_loss"]
+    else:
+        assert out["localities"][1]["final_loss"] == out["final_loss"]
+        assert out["localities"][1]["step"] == 1
 
 
 def test_not_implemented_surface():
-    # xlstm and onebit run on a model axis; fabric DDP there does not
-    with pytest.raises(NotImplementedError,
-                       match="fabric DDP.*item 14b"):
+    # xlstm and onebit run on a model axis, beside fabric DDP too; the
+    # production meshes still raise (item 15)
+    with pytest.raises(NotImplementedError, match="item 15"):
         Plan(device="cpu", model=2, arch="xlstm-350m", strategy="onebit",
-             ddp=True).compile()
+             ddp=True, mesh="single").compile()
     with Plan(device="cpu").compile() as session:
         with pytest.raises(ValueError, match="resilience"):
             session.train(steps=1, resilience="retry", verbose=False)

@@ -349,7 +349,7 @@ def world1_ddp_matches_reference_engine(arch, codec, opt_kind, rtol, *,
     for p in pytree.tree_leaves(params):
         p.requires_grad_(True)
     opt = optimizers.init(params, oc)
-    mine, ref = eng.step.grad_plan, jeng.step.grad_plan
+    mine, ref = eng.grad_plan, jeng.step.grad_plan
     assert mine.n_leaves == ref.n_leaves
     assert [(b.total, b.padded) for b in mine.buckets] == \
         [(b.total, b.padded) for b in ref.buckets]
